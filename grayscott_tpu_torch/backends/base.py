@@ -10,6 +10,7 @@ The device is explicit: nothing picks one behind the caller's back.
 from __future__ import annotations
 
 import abc
+import argparse
 from typing import Any, Tuple
 
 import numpy as np
@@ -66,6 +67,15 @@ class Simulation(abc.ABC):
         species.storage = self.run_steps(species.storage, species.shape,
                                          steps)
         species.steps_performed += steps
+
+    @classmethod
+    def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:
+        """The backend's own command-line arguments."""
+
+    @classmethod
+    def args_from_namespace(cls, ns: argparse.Namespace) -> dict:
+        """The constructor's keyword arguments from those arguments."""
+        return {}
 
     def block_until_ready(self, species: Species) -> None:
         if self.device.type == "cuda":

@@ -2,29 +2,24 @@
 ``grayscott_tpu/cli/shared.py``.
 
 The same ``-k -f -e -r -c -t --preset --stencil --boundary`` arguments
-with the same defaults and environment fallbacks, plus ``--device``; the
-backend is the selector's choice (the port has one). ``--device cuda``
+with the same defaults and environment fallbacks, each backend's own
+arguments (``--pallas-engine``, ``--pallas-resident``), plus ``--device``;
+the backend is the selector's choice (the port has one). ``--device cuda``
 (the default) on a host where PyTorch sees no GPU stops with a message;
 the port never falls back to the CPU.
-The JAX CLI's numpy-only helpers are reused as they are.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import queue
+from typing import Tuple
 
 import torch
 
-from grayscott_tpu.cli.shared import (  # noqa: F401  (re-exports)
-    bounded_put,
-    domain_shape,
-    simulation_output_path,
-    simulation_parameters,
-)
-
-from ..backends import best_backend_name, get_backend
-from ..params import DEFAULT_STENCIL, PRESETS, STENCILS
+from ..backends import BACKENDS, best_backend_name, get_backend
+from ..params import DEFAULT_STENCIL, PRESETS, STENCILS, Parameters
 
 
 def add_shared_args(parser: argparse.ArgumentParser) -> None:
@@ -76,14 +71,61 @@ def add_shared_args(parser: argparse.ArgumentParser) -> None:
         help="'cuda' (default) runs the hand-written CUDA kernels; 'cpu' "
         "runs their plain PyTorch versions",
     )
+    for cls in BACKENDS.values():
+        cls.add_cli_args(parser)
 
 
-def make_simulation(ns: argparse.Namespace):
-    if ns.device == "cuda" and not torch.cuda.is_available():
+def require_device(device: str) -> None:
+    """Stop with a message when ``device`` is ``cuda`` and PyTorch sees no
+    GPU: nothing falls back to the CPU."""
+    if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "--device cuda: PyTorch sees no CUDA GPU "
             "(torch.cuda.is_available() is false); pass --device cpu to "
             "run the plain PyTorch version on the CPU")
-    cls = get_backend(best_backend_name())
+
+
+def make_simulation(ns: argparse.Namespace):
+    require_device(ns.device)
+    cls = get_backend(best_backend_name(shape=domain_shape(ns)))
     return cls(simulation_parameters(ns), boundary=ns.boundary,
-               device=ns.device)
+               device=ns.device, **cls.args_from_namespace(ns))
+
+
+def simulation_parameters(ns: argparse.Namespace) -> Parameters:
+    """The defaults overlaid with the CLI's values; a --preset gives the
+    (feed, kill) pair, and explicit -f/-k override it."""
+    kwargs = {}
+    if ns.killrate is not None:
+        kwargs["kill_rate"] = ns.killrate
+    if ns.feedrate is not None:
+        kwargs["feed_rate"] = ns.feedrate
+    if ns.deltat is not None:
+        kwargs["time_step"] = ns.deltat
+    preset = getattr(ns, "preset", None)
+    if preset:
+        return Parameters.with_preset(preset, stencil=ns.stencil, **kwargs)
+    return Parameters.with_stencil(ns.stencil, **kwargs)
+
+
+def domain_shape(ns: argparse.Namespace) -> Tuple[int, int]:
+    return (ns.nbrow, ns.nbcol)
+
+
+def simulation_output_path(path) -> str:
+    """The output file name, ``output.h5`` by default."""
+    return str(path) if path else "output.h5"
+
+
+def bounded_put(q: queue.Queue, item, dead, timeout: float = 1.0) -> bool:
+    """Put ``item`` on the bounded queue ``q``, checking ``dead()`` while
+    it is full: a plain ``q.put`` would hang forever once the consumer
+    thread died (full disk, unwritable file). False when ``dead()`` says
+    no consumer remains."""
+    while True:
+        try:
+            q.put(item, timeout=timeout)
+            return True
+        except queue.Full:
+            if dead():
+                return False

@@ -26,11 +26,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from grayscott_tpu.utils.logs import init_logging
-from grayscott_tpu.utils.progress import ProgressBar
-
 from ..backends.base import Simulation
+from ..io.hdf5 import Writer
 from ..species import Species
+from ..utils.logs import init_logging
+from ..utils.progress import ProgressBar
 from . import shared
 
 
@@ -92,13 +92,11 @@ def main(argv=None) -> int:
     sim = shared.make_simulation(args)
     species = sim.make_species(shared.domain_shape(args))
     logger.info(
-        "backend=%s device=%s boundary=%s stencil=%s domain=%dx%d",
-        sim.name, sim.device, sim.boundary, sim.params.stencil_name(),
-        species.shape[0], species.shape[1],
+        "backend=%s engine=%s device=%s boundary=%s stencil=%s "
+        "domain=%dx%d", sim.name, species.storage[0], sim.device,
+        sim.boundary, sim.params.stencil_name(), species.shape[0],
+        species.shape[1],
     )
-    # h5py is imported only here, where a file is written
-    from grayscott_tpu.io.hdf5 import Writer
-
     writer = Writer(file_name, species.shape, args.nbimage)
     progress = ProgressBar("Running simulation step", args.nbimage)
     error: list[BaseException] = []

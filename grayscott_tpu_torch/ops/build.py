@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels on first use, and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), written
-to ``build/kernels/`` beside the package and named by a hash of the
-sources and flags, so an edit or a flag change builds anew and an
-unchanged tree reuses the library. The pattern is that of
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all at once, and the
+objects are linked into one shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds), written to ``build/kernels/``
+beside the package and named by a hash of the sources, the headers they
+share (``csrc/*.cuh``) and the flags, so an edit or a flag change builds
+anew and an unchanged tree reuses the library. The pattern is that of
 ``grayscott_tpu/native/__init__.py``, without its fallback: a build or
 load failure raises, since there is nothing else to run on a GPU.
 
@@ -31,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
     # registers, shared memory and spills of every kernel, into the log
     "-Xptxas", "-v",
 )
@@ -70,16 +71,37 @@ def nvcc_path() -> str:
 
 
 def sources() -> list[Path]:
+    """The translation units, one object each."""
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libgs_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their joined output, or raise with
+    the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outs = [p.communicate(timeout=BUILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:"
+                               f"\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> Build:
@@ -88,22 +110,22 @@ def build() -> Build:
     if path.exists():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a reader never sees half a file
+    # compile to private names, then rename: a reader never sees half a file
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources(), objs)])
+        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                      *(str(o) for o in objs)]])
+        os.replace(tmp, path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)
-    return Build(path, seconds, log)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return Build(path, time.perf_counter() - t0, log)
 
 
 def load() -> ctypes.CDLL:
@@ -113,3 +135,19 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(str(build().path))
         return _lib
+
+
+def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The library's C function ``name``, returning an int."""
+    fn = getattr(load(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def error_name(err: int) -> str:
+    """CUDA's name for the error code a launch function returned."""
+    fn = load().gs_cuda_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()

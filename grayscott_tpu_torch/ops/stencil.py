@@ -83,3 +83,13 @@ def step(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
     # `+ (-(f+k)) * v` rounds exactly as the oracle's `- (f+k) * v`
     dv = dv_rate * full_v + uv_square + min_feed_kill * v
     return u + du * dt, v + dv * dt
+
+
+def run(u: torch.Tensor, v: torch.Tensor, steps: int,
+        consts: KernelConstants, boundary: str = "naive"
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` calls of :func:`step`: the plain version of every kernel
+    (``oracle.run``)."""
+    for _ in range(steps):
+        u, v = step(u, v, consts, boundary)
+    return u, v

@@ -1,22 +1,114 @@
 """Simulation parameters, and their carry-over into the port's kernels.
 
-``Parameters`` and the stencil tables are the JAX package's own
-(``grayscott_tpu/params.py``, numpy only), re-exported here.
-:func:`kernel_constants` turns a ``Parameters`` into the float32 numbers
-that the plain PyTorch step and the CUDA kernel both take at run time.
+``Parameters`` and the stencil and preset tables are the port's own copy of
+``grayscott_tpu/params.py``, trimmed to what the port uses (the reference's
+parameter set, ``data/src/parameters.rs``). :func:`kernel_constants` turns
+a ``Parameters`` into the float32 numbers that the plain PyTorch step and
+the CUDA kernels all take at run time.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
-from grayscott_tpu.params import (  # noqa: F401  (re-exports)
-    DEFAULT_STENCIL,
-    PRESETS,
-    STENCILS,
-    Parameters,
-    Precision,
-)
+import numpy as np
+
+#: Floating-point precision of the simulation
+Precision = np.float32
+
+WeightsT = Tuple[Tuple[float, float, float], ...]
+
+#: The four selectable 3x3 stencils, row-major
+STENCILS: dict[str, WeightsT] = {
+    # optimally isotropic discretisation of the Laplacian; the default
+    "oono-puri": (
+        (0.25, 0.5, 0.25),
+        (0.5, 0.0, 0.5),
+        (0.25, 0.5, 0.25),
+    ),
+    # all-ones stencil of the course's C++ version
+    "pretty": (
+        (1.0, 1.0, 1.0),
+        (1.0, 1.0, 1.0),
+        (1.0, 1.0, 1.0),
+    ),
+    # rotationally invariant, smallest error around the origin
+    "patra-karttunen": (
+        (1.0 / 6.0, 4.0 / 6.0, 1.0 / 6.0),
+        (4.0 / 6.0, 0.0, 4.0 / 6.0),
+        (1.0 / 6.0, 4.0 / 6.0, 1.0 / 6.0),
+    ),
+    # computationally simpler but anisotropic
+    "5points": (
+        (0.0, 1.0, 0.0),
+        (1.0, 0.0, 1.0),
+        (0.0, 1.0, 0.0),
+    ),
+}
+
+DEFAULT_STENCIL = "oono-puri"
+
+#: Named (feed_rate, kill_rate) pattern presets (Pearson's regime map)
+PRESETS: dict[str, Tuple[float, float]] = {
+    "reference": (0.014, 0.054),
+    "solitons": (0.030, 0.062),
+    "mitosis": (0.0367, 0.0649),
+    "coral": (0.0545, 0.062),
+    "maze": (0.029, 0.057),
+    "worms": (0.058, 0.065),
+    "waves": (0.014, 0.045),
+    "u-skate": (0.062, 0.061),
+    "chaos": (0.026, 0.051),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Parameters:
+    """Gray-Scott simulation parameters (the reference's defaults)."""
+
+    weights: WeightsT = STENCILS[DEFAULT_STENCIL]
+    diffusion_rate_u: float = 0.1
+    diffusion_rate_v: float = 0.05
+    feed_rate: float = 0.014
+    kill_rate: float = 0.054
+    time_step: float = 1.0
+
+    @classmethod
+    def with_stencil(cls, name: str = DEFAULT_STENCIL,
+                     **kwargs) -> "Parameters":
+        if name not in STENCILS:
+            raise ValueError(
+                f"unknown stencil {name!r}; available: {sorted(STENCILS)}")
+        return cls(weights=STENCILS[name], **kwargs)
+
+    @classmethod
+    def with_preset(cls, name: str, stencil: str = DEFAULT_STENCIL,
+                    **kwargs) -> "Parameters":
+        """Parameters of a named preset (:data:`PRESETS`); explicit
+        ``feed_rate``/``kill_rate`` kwargs override the preset's pair."""
+        if name not in PRESETS:
+            raise ValueError(
+                f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+        f, k = PRESETS[name]
+        kwargs.setdefault("feed_rate", f)
+        kwargs.setdefault("kill_rate", k)
+        return cls.with_stencil(stencil, **kwargs)
+
+    def weights_array(self) -> np.ndarray:
+        """Stencil weights as a float32 (3, 3) array."""
+        return np.asarray(self.weights, dtype=Precision)
+
+    def min_feed_kill(self) -> Precision:
+        """The ``-(feed_rate + kill_rate)`` prefactor of the dv update."""
+        return Precision(-(Precision(self.feed_rate)
+                           + Precision(self.kill_rate)))
+
+    def stencil_name(self) -> str:
+        for name, w in STENCILS.items():
+            if w == self.weights:
+                return name
+        return "custom"
 
 
 class KernelConstants(NamedTuple):

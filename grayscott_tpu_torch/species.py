@@ -1,10 +1,10 @@
 """U/V species state on a torch device.
 
-The port's ``grayscott_tpu/species.py:62-103``. ``initial_uv`` is the JAX
-package's own (numpy only). The state lives in backend-specific
-``storage``; :meth:`Species.result` is V's current concentration as a
-device tensor, and the ``*_host`` methods copy to the host after an
-explicit synchronisation.
+The port's ``grayscott_tpu/species.py``, with its own copy of
+``initial_uv``. The state lives in backend-specific ``storage``;
+:meth:`Species.result` is V's current concentration as a device tensor,
+and the ``*_host`` methods copy to the host after an explicit
+synchronisation.
 """
 
 from __future__ import annotations
@@ -14,7 +14,21 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from grayscott_tpu.species import initial_uv  # noqa: F401  (re-export)
+from .params import Precision
+
+
+def initial_uv(shape: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
+    """The reference's initial state (``Species::new``): U = 1 and V = 0,
+    except a central box where U = 0 and V = 1. The box spans rows
+    ``[7R/16 - 4, 8R/16 - 4)`` and columns ``[7C/16, 8C/16)`` (integer
+    division, saturating at 0)."""
+    u = np.ones(shape, dtype=Precision)
+    v = np.zeros(shape, dtype=Precision)
+    box = tuple(slice(max(n * 7 // 16 - shift, 0), max(n * 8 // 16 - shift, 0))
+                for n, shift in zip(shape, (4, 0)))
+    u[box] = Precision(0.0)
+    v[box] = Precision(1.0)
+    return u, v
 
 
 def to_host(x: torch.Tensor) -> np.ndarray:

@@ -1,11 +1,15 @@
-"""The port and chip_smoke.py import with jax and h5py blocked: the card's
-machine has neither, and the port must not need them to run."""
+"""The port and chip_smoke.py import with jax, h5py and the JAX package
+blocked: the card's machine has neither jax nor h5py, and the port keeps
+its own copies of what it needs from the JAX package. Each copy is held
+against its JAX original here."""
 
+import argparse
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -14,6 +18,7 @@ PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["h5py"] = None
+sys.modules["grayscott_tpu"] = None
 import grayscott_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     grayscott_tpu_torch.__path__, "grayscott_tpu_torch.")]
@@ -26,8 +31,9 @@ print(json.dumps({
                          if m == "jax" or m.startswith("jax.")
                          if sys.modules[m] is not None),
     "jax_package": sorted(m for m in sys.modules
-                          if m.startswith(("grayscott_tpu.ops",
-                                           "grayscott_tpu.backends"))),
+                          if m == "grayscott_tpu"
+                          or m.startswith("grayscott_tpu.")
+                          if sys.modules[m] is not None),
 }))
 """
 
@@ -43,19 +49,148 @@ def probe():
 
 def test_every_port_module_imports_without_jax_or_h5py(probe):
     expected = {
-        "grayscott_tpu_torch.params", "grayscott_tpu_torch.species",
+        "grayscott_tpu_torch.params", "grayscott_tpu_torch.errors",
+        "grayscott_tpu_torch.species",
         "grayscott_tpu_torch.ops.stencil", "grayscott_tpu_torch.ops.build",
-        "grayscott_tpu_torch.ops.windowed",
+        "grayscott_tpu_torch.ops.checks", "grayscott_tpu_torch.ops.windowed",
+        "grayscott_tpu_torch.ops.resident",
+        "grayscott_tpu_torch.ops.megakernel",
         "grayscott_tpu_torch.backends.base",
         "grayscott_tpu_torch.backends.cuda",
         "grayscott_tpu_torch.cli.shared", "grayscott_tpu_torch.cli.simulate",
-        "grayscott_tpu_torch.utils.device",
+        "grayscott_tpu_torch.io.hdf5",
+        "grayscott_tpu_torch.bench.stats",
+        "grayscott_tpu_torch.bench.harness",
+        "grayscott_tpu_torch.bench.headline",
+        "grayscott_tpu_torch.utils.device", "grayscott_tpu_torch.utils.logs",
+        "grayscott_tpu_torch.utils.progress",
     }
     assert expected <= set(probe["imported"])
 
 
 def test_no_jax_module_was_loaded(probe):
-    """Neither jax nor the JAX package's jax-importing modules (ops,
-    backends) were pulled in by the port or chip_smoke.py."""
+    """Neither jax nor any module of the JAX package (grayscott_tpu or
+    grayscott_tpu.*) was pulled in by the port or chip_smoke.py."""
     assert probe["jax_loaded"] == []
     assert probe["jax_package"] == []
+
+
+# -- the port's copies against their JAX originals ---------------------------
+
+
+def _params(tmp_path):
+    from grayscott_tpu import params as jax_params
+    from grayscott_tpu_torch import params
+
+    assert params.Precision is jax_params.Precision
+    assert params.DEFAULT_STENCIL == jax_params.DEFAULT_STENCIL
+    assert params.STENCILS == jax_params.STENCILS
+    assert params.PRESETS == jax_params.PRESETS
+    assert params.Parameters().__dict__ == jax_params.Parameters().__dict__
+    for name in params.STENCILS:
+        port = params.Parameters.with_stencil(name, time_step=0.5)
+        ref = jax_params.Parameters.with_stencil(name, time_step=0.5)
+        np.testing.assert_array_equal(port.weights_array(),
+                                      ref.weights_array())
+        assert port.weights_array().dtype == ref.weights_array().dtype
+        assert port.min_feed_kill() == ref.min_feed_kill()
+        assert port.stencil_name() == ref.stencil_name() == name
+    for name in params.PRESETS:
+        port = params.Parameters.with_preset(name, "5points", kill_rate=0.06)
+        ref = jax_params.Parameters.with_preset(name, "5points",
+                                                kill_rate=0.06)
+        assert port.__dict__ == ref.__dict__
+        assert port.min_feed_kill() == ref.min_feed_kill()
+    for bad in (lambda m: m.Parameters.with_stencil("nine-points"),
+                lambda m: m.Parameters.with_preset("spirals")):
+        for module in (params, jax_params):
+            with pytest.raises(ValueError):
+                bad(module)
+
+
+def _errors(tmp_path):
+    from grayscott_tpu import errors as jax_errors
+    from grayscott_tpu_torch import errors
+
+    for module in (errors, jax_errors):
+        err = module.UnsupportedConfigError("no", combo="engine+resident")
+        assert isinstance(err, ValueError)
+        assert (str(err), err.combo) == ("no", "engine+resident")
+        assert module.UnsupportedConfigError("no").combo is None
+
+
+def _species(tmp_path):
+    from grayscott_tpu import species as jax_species
+    from grayscott_tpu_torch import species
+
+    for shape in ((1080, 1920), (17, 23), (5, 3)):
+        for port, ref in zip(species.initial_uv(shape),
+                             jax_species.initial_uv(shape)):
+            assert port.dtype == ref.dtype and port.shape == ref.shape
+            np.testing.assert_array_equal(port, ref)
+
+
+def _shared(tmp_path):
+    from grayscott_tpu.cli import shared as jax_shared
+    from grayscott_tpu_torch.cli import shared
+
+    for argv in ([], ["-r", "17", "-c", "23", "-f", "0.03", "-t", "0.5"],
+                 ["--preset", "coral", "-k", "0.06", "--stencil", "pretty"],
+                 ["--preset", "maze", "--stencil", "5points", "-e", "9"]):
+        port_p, jax_p = argparse.ArgumentParser(), argparse.ArgumentParser()
+        shared.add_shared_args(port_p)
+        jax_shared.add_shared_args(jax_p)
+        port_ns, jax_ns = port_p.parse_args(argv), jax_p.parse_args(argv)
+        assert shared.domain_shape(port_ns) == jax_shared.domain_shape(jax_ns)
+        assert shared.simulation_parameters(port_ns).__dict__ == \
+            jax_shared.simulation_parameters(jax_ns).__dict__
+    for path in (None, "", "x.h5"):
+        assert shared.simulation_output_path(path) == \
+            jax_shared.simulation_output_path(path)
+
+
+def _hdf5(tmp_path):
+    import h5py
+
+    from grayscott_tpu.io import hdf5 as jax_hdf5
+    from grayscott_tpu_torch.io import hdf5
+
+    frames = np.random.RandomState(3).uniform(0, 1, (3, 5, 7)) \
+        .astype(np.float32)
+    files = {}
+    for name, module in (("port", hdf5), ("jax", jax_hdf5)):
+        files[name] = tmp_path / f"{name}.h5"
+        writer = module.Writer(files[name], (5, 7), 3)
+        for frame in frames:
+            writer.write(frame)
+        writer.close()
+    with h5py.File(files["port"], "r") as p, h5py.File(files["jax"], "r") as j:
+        assert p["matrix"].chunks == j["matrix"].chunks
+        np.testing.assert_array_equal(p["matrix"][:], j["matrix"][:])
+    assert hdf5._chunk_shape(40000, 40000, 4) == \
+        jax_hdf5._chunk_shape(40000, 40000, 4)
+
+
+def _progress_and_logs(tmp_path):
+    import io
+
+    from grayscott_tpu.utils import progress as jax_progress
+    from grayscott_tpu_torch.utils import logs, progress
+
+    for seconds in (0, 59, 61, 3600 + 62):
+        assert progress._fmt_duration(seconds) == \
+            jax_progress._fmt_duration(seconds)
+    out = io.StringIO()
+    bar = progress.ProgressBar("run", 3, stream=out, enabled=True)
+    for _ in range(3):
+        bar.inc()
+    bar.finish()
+    assert bar.pos == 3 and "run 3/3" in out.getvalue()
+    logger = logs.init_logging(prefer_syslog=False)
+    assert logs.init_logging() is logger and logger.handlers
+
+
+@pytest.mark.parametrize("copy", ["params", "errors", "species", "shared",
+                                  "hdf5", "progress_and_logs"])
+def test_copy_matches_the_jax_original(copy, tmp_path):
+    globals()[f"_{copy}"](tmp_path)

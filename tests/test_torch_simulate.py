@@ -42,6 +42,42 @@ def test_simulate_matches_jax_pallas_and_oracle(tmp_path, boundary):
         np.testing.assert_array_equal(got[i], v)
 
 
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("flags,engine", [
+    (["--pallas-resident", "on"], "resident"),
+    (["--pallas-engine", "mega"], "mega"),
+])
+def test_simulate_engine_pins_match_jax_and_oracle(tmp_path, monkeypatch,
+                                                   boundary, flags, engine):
+    """The slice end to end: the port's simulate on K3 and on K2 against
+    the JAX simulate with the same flags (its resident and mega kernels in
+    interpret mode), atol 2e-6, and bitwise against the oracle."""
+    port, ref = tmp_path / "port.h5", tmp_path / "jax.h5"
+    args = SMALL + ["--boundary", boundary] + flags
+    engines = []
+    build_storage = simulate.shared.get_backend("cuda").build_storage
+
+    def spy(self, u, v):
+        storage = build_storage(self, u, v)
+        engines.append(storage[0])
+        return storage
+
+    monkeypatch.setattr(simulate.shared.get_backend("cuda"),
+                        "build_storage", spy)
+    assert simulate.main(args + ["--device", "cpu", "-o", str(port)]) == 0
+    assert engines == [engine]
+    tiles = ["--pallas-block-rows", "8"] if engine == "mega" else []
+    assert jax_simulate.main(args + ["--backend", "pallas", *tiles,
+                                     "-o", str(ref)]) == 0
+    got, want = frames(port), frames(ref)
+    assert got.shape == want.shape == (3, 24, 32)
+    u, v = initial_uv((24, 32))
+    for i in range(3):
+        np.testing.assert_allclose(got[i], want[i], rtol=0, atol=2e-6)
+        u, v = oracle.run(u, v, Parameters(), 8, boundary)
+        np.testing.assert_array_equal(got[i], v)
+
+
 def test_run_hands_fresh_frames_in_order(params):
     """run() gives the sink one host copy per image, in order, each
     untouched by later batches (9 steps = one K-step launch + remainder)."""
@@ -72,7 +108,7 @@ def test_device_cuda_without_gpu_exits_nonzero(tmp_path, monkeypatch):
 
 def test_writer_failure_stops_the_run(tmp_path, monkeypatch):
     """A dead HDF5 writer aborts the run with its error, not a deadlock."""
-    from grayscott_tpu.io import hdf5
+    from grayscott_tpu_torch.io import hdf5
 
     def boom(self, result):
         raise OSError("disk full")

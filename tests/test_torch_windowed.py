@@ -119,11 +119,11 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("engine", "mega"), ("dtype", "bfloat16"), ("fold", 2), ("pack", "on"),
+    ("block_rows", 8), ("dtype", "bfloat16"), ("fold", 2), ("pack", "on"),
     ("naive_fix", "store"),
 ])
 def test_unported_knobs_raise(params, knob, value):
-    from grayscott_tpu.errors import UnsupportedConfigError
+    from grayscott_tpu_torch.errors import UnsupportedConfigError
 
     with pytest.raises(UnsupportedConfigError):
         CudaSimulation(params, device="cpu", **{knob: value})
