@@ -31,11 +31,27 @@
    and its plain version at K = 8, K3's 32-step launch and its plain
    version, and the snapshot copy of the main path; each beside the card's
    bound for the same work.
-7. Prints the nvidia-smi line, one JSON line on the kernels, and last the
-   JSON line ``{"ok": true, "device": {...}}``.
+7. The species-packed path (``--pallas-pack on``, zero boundary) at the
+   same sizes: K4 (packed windowed: one launch of 1 and 8 steps, 32 steps
+   through the backend), K5 (packed resident: one launch of 1, 27 and 32
+   steps) and K6 (packed mega: 8, 27 and 32 steps through the backend)
+   against the plain packed version on the card, also with the other
+   separable stencils and dt = 0.5; ``simulate --boundary zero
+   --pallas-pack on`` on ``auto`` and each pin (every frame against the
+   plain packed replay, and against the unpacked zero run on K1: within
+   2e-6 after the first image and 1e-4 after the last), the 70x97 domain
+   against the CPU; one 4096x4096 x
+   1000-step run on the packed ``auto`` engine against a plain replay;
+   each packed engine timed beside K1 on the zero boundary (the times
+   ``backends.cuda.auto_packed_engine`` is set from), and each packed
+   kernel and its plain version.
+8. Prints the nvidia-smi line, one JSON line on the six kernels, and last
+   the JSON line ``{"ok": true, "device": {...}}``.
 
-Every check runs; a failed one makes the script exit 1 without the two
-JSON lines. With no CUDA GPU visible it exits 1 at once.
+Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d). Every check runs; a failed one
+makes the script exit 1 without the two JSON lines. With no CUDA GPU
+visible it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -55,8 +71,10 @@ from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.bench import headline
 from grayscott_tpu_torch.cli import shared, simulate
-from grayscott_tpu_torch.ops import build, megakernel, resident, stencil, windowed
-from grayscott_tpu_torch.params import Parameters, kernel_constants
+from grayscott_tpu_torch.ops import (build, megakernel, packed, resident,
+                                     stencil, windowed)
+from grayscott_tpu_torch.params import (Parameters, kernel_constants,
+                                        packed_constants)
 from grayscott_tpu_torch.species import initial_uv
 from grayscott_tpu_torch.utils import device as gpu
 
@@ -81,6 +99,31 @@ PEAK_F32 = 67e12
 #: the kernels' wrapper modules, by engine
 MODULES = {"windowed": windowed, "resident": resident, "mega": megakernel}
 
+#: every kernel's launch counter, by its storage tag: (module, attribute)
+COUNTERS = {
+    "windowed": (windowed, "launches"),
+    "resident": (resident, "launches"),
+    "mega": (megakernel, "launches"),
+    "packed": (packed, "launches"),
+    "respack": (packed, "resident_launches"),
+    "megapack": (megakernel, "packed_launches"),
+}
+
+#: the flags that pin each packed engine on the command line
+PACKED_FLAGS = {"packed": ["--pallas-engine", "windowed"],
+                "respack": ["--pallas-resident", "on"],
+                "megapack": ["--pallas-engine", "mega"]}
+ZERO_PACKED = ["--boundary", "zero", "--pallas-pack", "on"]
+
+#: packed frames against the unpacked zero run on K1 at 1080x1920, max|dV|:
+#: the two trees round differently (the separable pass and the linear fold
+#: against the oracle's 9 taps) and drift apart by a few ulp a step, more as
+#: the pattern grows. The plain versions on the CPU give 8.0e-7 after the
+#: first image (32 steps) and 5.0e-5 after the last (512 steps); the limits
+#: are about twice that
+PACK_VS_UNPACKED_FIRST = 2e-6
+PACK_VS_UNPACKED_LAST = 1e-4
+
 KERNELS = {
     "windowed": {
         "name": "windowed_multistep",
@@ -99,6 +142,24 @@ KERNELS = {
         "route": "cuda",
         "source": "grayscott_tpu_torch/csrc/mega.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81",
+    },
+    "packed": {
+        "name": "packed_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/packed.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:1624",
+    },
+    "respack": {
+        "name": "packed_resident_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/packed_resident.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:1745",
+    },
+    "megapack": {
+        "name": "packed_mega_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/packed_mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:1112",
     },
 }
 
@@ -123,31 +184,45 @@ def ops_per_cell_step(params: Parameters, boundary: str) -> int:
     return 2 * 3 * taps + 15
 
 
-def bound_ms(shape, steps: int, boundary: str,
-             params: Parameters = Parameters()) -> tuple[float, str]:
+def roofline_ms(shape, steps: int, ops: int) -> tuple[float, str]:
     """The least time the card could take to advance ``shape`` by
-    ``steps`` steps in one call: U and V read once and written once, and
-    the operations at the float32 peak. Returns (ms, what bounds it)."""
+    ``steps`` steps of ``ops`` float32 operations a cell-step in one call:
+    U and V read once and written once, and the operations at the float32
+    peak. Returns (ms, what bounds it)."""
     cells = shape[0] * shape[1]
     by_bytes = 16 * cells / PEAK_BYTES
-    by_ops = cells * steps * ops_per_cell_step(params, boundary) / PEAK_F32
+    by_ops = cells * steps * ops / PEAK_F32
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+def bound_ms(shape, steps: int, boundary: str,
+             params: Parameters = Parameters()) -> tuple[float, str]:
+    """:func:`roofline_ms` of the oracle's tree (K1-K3)."""
+    return roofline_ms(shape, steps, ops_per_cell_step(params, boundary))
+
+
+#: float32 operations of one cell-step of the species-packed step, both
+#: species, for every separable stencil (ops/packed.py:packed_step): 4 in
+#: each pass of the separable convolution, for two passes and two species,
+#: 2 for uv^2, and 6 in each update (the V update's + 0.0 included)
+PACKED_OPS = 2 * 2 * 4 + 2 + 2 * 6
+
+
 def reset_launches() -> None:
-    for module in MODULES.values():
-        module.launches = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_launches() -> dict:
-    return {engine: module.launches for engine, module in MODULES.items()}
+    return {tag: getattr(module, attr)
+            for tag, (module, attr) in COUNTERS.items()}
 
 
 class Checks:
     def __init__(self):
         self.failures: list[str] = []
-        self.kernel_err = {engine: 0.0 for engine in MODULES}
+        self.kernel_err = {tag: 0.0 for tag in COUNTERS}
 
     def expect(self, ok: bool, what: str) -> None:
         if not ok:
@@ -163,9 +238,9 @@ class Checks:
 
 
 def engine_run(engine: str, params: Parameters, boundary: str, u_np, v_np,
-               steps: int):
+               steps: int, pack: str = "auto"):
     """The backend's state after ``steps`` steps on ``engine``."""
-    sim = CudaSimulation(params, boundary, device=DEVICE,
+    sim = CudaSimulation(params, boundary, device=DEVICE, pack=pack,
                          **engine_pins(engine))
     storage = sim.build_storage(u_np, v_np)
     storage = sim.run_steps(storage, u_np.shape, steps)
@@ -227,6 +302,71 @@ def compare_kernels(checks: Checks, rng) -> None:
                            f"params={label} steps=8")
 
 
+def compare_packed_kernels(checks: Checks, rng) -> None:
+    """Phase 3b: K4, K5 and K6 against the plain packed version on the
+    card, zero boundary."""
+    default = Parameters()
+    pc = packed_constants(default)
+
+    def compare(tag, got, want, what):
+        c = want.shape[-1] // 2
+        checks.compare(tag, packed.unpack_state(got, c),
+                       packed.unpack_state(want, c), what)
+
+    for shape in SHAPES:
+        u_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+        v_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+        x0 = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                                 for a in (u_np, v_np)))
+        plain, x, done = {}, x0, 0
+        for n in (1, 8, 27, 32):
+            x = packed.packed_run(x, n - done, pc)
+            plain[n], done = x, n
+        tag = f"{shape[0]}x{shape[1]} zero packed"
+        for steps in (1, 8):
+            out = torch.empty_like(x0)
+            packed.multistep(x0, out, steps, pc)
+            compare("packed", out, plain[steps],
+                    f"{tag} steps={steps} (one launch)")
+        checks.compare("packed", engine_run(
+            "windowed", default, "zero", u_np, v_np, 32, pack="on"),
+            packed.unpack_state(plain[32], shape[1]),
+            f"{tag} steps=32 (backend)")
+        for steps in (1, 27, 32):
+            out = packed.resident_multistep(x0.clone(), torch.empty_like(x0),
+                                            steps, pc)
+            compare("respack", out[0], plain[steps],
+                    f"{tag} steps={steps} (one launch)")
+        for steps in (8, 27, 32):
+            checks.compare("megapack", engine_run(
+                "mega", default, "zero", u_np, v_np, steps, pack="on"),
+                packed.unpack_state(plain[steps], shape[1]),
+                f"{tag} steps={steps} (backend)")
+    # the other separable stencils and a time step, on the ragged shape
+    shape = SHAPES[1]
+    u_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    v_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
+    x0 = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                             for a in (u_np, v_np)))
+    for label, params in (("pretty", Parameters.with_stencil("pretty")),
+                          ("patra-karttunen",
+                           Parameters.with_stencil("patra-karttunen")),
+                          ("dt=0.5", Parameters(time_step=0.5))):
+        pc = packed_constants(params)
+        tag = f"{shape[0]}x{shape[1]} zero packed params={label}"
+        out = torch.empty_like(x0)
+        packed.multistep(x0, out, 8, pc)
+        compare("packed", out, packed.packed_run(x0, 8, pc),
+                f"{tag} steps=8 (one launch)")
+        want = packed.packed_run(x0, 27, pc)
+        out = packed.resident_multistep(x0.clone(), torch.empty_like(x0), 27,
+                                        pc)
+        compare("respack", out[0], want, f"{tag} steps=27 (one launch)")
+        checks.compare("megapack", engine_run(
+            "mega", params, "zero", u_np, v_np, 27, pack="on"),
+            packed.unpack_state(want, shape[1]), f"{tag} steps=27 (backend)")
+
+
 def replay_frames(shape, boundary, params, images, steps, device):
     """V after each batch, from the plain version on ``device``."""
     consts = kernel_constants(params)
@@ -238,10 +378,22 @@ def replay_frames(shape, boundary, params, images, steps, device):
     return frames
 
 
+def replay_packed_frames(shape, params, images, steps, device):
+    """V after each batch, from the plain packed version on ``device``."""
+    pc = packed_constants(params)
+    x = packed.pack_state(*(torch.from_numpy(a).to(device)
+                            for a in initial_uv(shape)))
+    frames = []
+    for _ in range(images):
+        x = packed.packed_run(x, steps, pc)
+        frames.append(packed.unpack_state(x, shape[1])[1])
+    return frames
+
+
 def expected_launches(engine: str, images: int, steps: int) -> int:
-    if engine == "windowed":
+    if engine in ("windowed", "packed"):
         return images * -(-steps // windowed.K)
-    if engine == "resident":
+    if engine in ("resident", "respack"):
         return images
     n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
     return images * ((n_full > 0) + (rem > 0))
@@ -271,13 +423,13 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    want = {e: 0 for e in MODULES}
+    want = {tag: 0 for tag in COUNTERS}
     want[engine] = expected_launches(engine, MAIN_IMAGES, MAIN_STEPS)
     label = " ".join(flags) or "(auto)"
     print(f"path simulate {label}: engine {engine}, {MAIN_IMAGES} images x "
-          f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive: "
-          f"{seconds!r} s, launches {launches} (expected {want})",
-          flush=True)
+          f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
+          f"{ns.boundary}: {seconds!r} s, launches {launches} (expected "
+          f"{want})", flush=True)
     checks.expect(launches == want and launches[engine] > 0,
                   f"simulate {label}: launches {launches}, not {want}")
     checks.expect(len(frames) == MAIN_IMAGES
@@ -357,6 +509,98 @@ def main_paths(checks: Checks) -> dict:
                   "simulate.main HDF5 frames vs simulate.run")
     auto["hdf5_seconds"] = h5_seconds
     return runs
+
+
+def packed_paths(checks: Checks) -> dict:
+    """Phase 4b: ``simulate --boundary zero --pallas-pack on`` on the auto
+    engine and on each pin, every frame against the plain packed replay;
+    the last frame against the unpacked zero run on K1; a small domain
+    against the plain packed version on the CPU."""
+    params = Parameters()
+    replay = replay_packed_frames(MAIN_SHAPE, params, MAIN_IMAGES,
+                                  MAIN_STEPS, DEVICE)
+    runs = {}
+    for flags in ([], *PACKED_FLAGS.values()):
+        runs[" ".join(flags) or "auto"] = simulate_path(
+            checks, ZERO_PACKED + flags, replay)
+
+    # the same run unpacked, on K1 (the oracle's tree)
+    sim = CudaSimulation(params, "zero", device=DEVICE, engine="windowed")
+    species = sim.make_species(MAIN_SHAPE)
+    reset_launches()
+    unpacked = []
+    for _ in range(MAIN_IMAGES):
+        sim.prepare_steps(species, MAIN_STEPS)
+        unpacked.append(species.result().clone())
+    k1 = read_launches()["windowed"]
+    errs = [float(np.abs(f - w.cpu().numpy()).max())
+            for f, w in zip(runs["auto"]["frames"], unpacked)]
+    print(f"packed frames ({runs['auto']['engine']}) vs the unpacked zero "
+          f"run on K1 ({k1} launches) at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}, "
+          f"max|dV| per frame: {errs} (limits: first "
+          f"{PACK_VS_UNPACKED_FIRST!r}, last {PACK_VS_UNPACKED_LAST!r})",
+          flush=True)
+    checks.expect(k1 == expected_launches("windowed", MAIN_IMAGES,
+                                          MAIN_STEPS), "unpacked K1 run")
+    checks.expect(errs[0] <= PACK_VS_UNPACKED_FIRST
+                  and errs[-1] <= PACK_VS_UNPACKED_LAST,
+                  "packed vs unpacked zero run")
+    runs["vs_unpacked"] = errs
+
+    want = replay_packed_frames((70, 97), params, 3, 9, "cpu")
+    for flags in ([], *PACKED_FLAGS.values()):
+        small = simulate.build_parser().parse_args(
+            ["-r", "70", "-c", "97", *ZERO_PACKED, *flags])
+        sim_s = shared.make_simulation(small)
+        sp = sim_s.make_species(shared.domain_shape(small))
+        got: list[np.ndarray] = []
+        simulate.run(sim_s, sp, 3, 9, got.append)
+        err = max(float(np.abs(g - w.numpy()).max())
+                  for g, w in zip(got, want))
+        print(f"small 70x97 zero {sp.storage[0]}, 3 images x 9 steps, vs "
+              f"plain packed on the CPU: max|dV|={err!r}", flush=True)
+        checks.expect(err <= TOL, f"small packed {flags} vs plain on the "
+                      "CPU")
+    return runs
+
+
+def packed_bench(checks: Checks, card: str) -> dict:
+    """Phase 5b: one 4096x4096 x 1000-step run on the packed auto engine,
+    against a 1000-step plain packed replay on the card."""
+    params = Parameters()
+    u_np, v_np = initial_uv(BENCH_SHAPE)
+    sim = CudaSimulation(params, "zero", device=DEVICE, pack="on")
+    storage = sim.build_storage(u_np, v_np)
+    tag = storage[0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_launches()
+    start.record()
+    storage = sim.run_steps(storage, BENCH_SHAPE, BENCH_STEPS)
+    end.record()
+    end.synchronize()
+    launches = read_launches()[tag]
+    ms = start.elapsed_time(end)
+    x = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                            for a in (u_np, v_np)))
+    start.record()
+    x = packed.packed_run(x, BENCH_STEPS, packed_constants(params))
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    checks.compare(tag, sim.extract_uv(storage, BENCH_SHAPE),
+                   packed.unpack_state(x, BENCH_SHAPE[1]),
+                   f"{BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} zero packed "
+                   f"steps={BENCH_STEPS} (auto)")
+    want = expected_launches(tag, 1, BENCH_STEPS)
+    checks.expect(launches == want, f"1000-step packed {tag} run made "
+                  f"{launches} launches, not {want}")
+    print(f"time packed auto ({tag}) {BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} "
+          f"zero {BENCH_STEPS} steps, {launches} launches: {ms!r} ms = "
+          f"{gcells(BENCH_SHAPE, BENCH_STEPS, ms)!r} Gcell/s; plain replay "
+          f"{plain_ms!r} ms [{card}]", flush=True)
+    return {"engine": tag, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -468,6 +712,93 @@ def time_engines(rng, card: str) -> dict:
     return times
 
 
+def time_packed_engines(rng, card: str) -> dict:
+    """Phase 6c: each packed engine through the backend, 32 steps a call,
+    beside K1 on the zero boundary, timed in turns (K1, K4, K5, K6, K6,
+    K5, K4, K1) and averaged; the times ``auto_packed_engine`` is set
+    from."""
+    tags = cuda_backend.PACKED_TAGS
+    order = ["windowed", *tags.values()]
+    engine_of = {tag: engine for engine, tag in tags.items()}
+    times = {}
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
+        u_np = rng.uniform(0, 1, shape).astype(np.float32)
+        v_np = rng.uniform(0, 1, shape).astype(np.float32)
+        samples = {tag: [] for tag in order}
+        for tag in [*order, *reversed(order)]:
+            if tag == "windowed":
+                sim = CudaSimulation(Parameters(), "zero", device=DEVICE,
+                                     engine="windowed")
+            else:
+                sim = CudaSimulation(Parameters(), "zero", device=DEVICE,
+                                     pack="on",
+                                     **engine_pins(engine_of[tag]))
+            box = [sim.build_storage(u_np, v_np)]
+            assert box[0][0] == tag
+
+            def call():
+                box[0] = sim.run_steps(box[0], shape, MAIN_STEPS)
+
+            samples[tag].append(cuda_ms(call, reps))
+        for tag, pair in samples.items():
+            ms = sum(pair) / len(pair)
+            times[shape, tag] = ms
+            bound, by = (bound_ms(shape, MAIN_STEPS, "zero")
+                         if tag == "windowed"
+                         else roofline_ms(shape, MAIN_STEPS, PACKED_OPS))
+            print(f"time engine {tag} {shape[0]}x{shape[1]} zero, "
+                  f"{MAIN_STEPS} steps a call: {ms!r} ms (turns {pair!r}) "
+                  f"= {gcells(shape, MAIN_STEPS, ms)!r} Gcell/s; bound "
+                  f"{bound!r} ms ({by}) [{card}]", flush=True)
+        ranked = sorted(tags, key=lambda e: times[shape, tags[e]])
+        print(f"packed engines {shape[0]}x{shape[1]} "
+              f"({cuda_backend.shape_class(shape)}), fastest first: "
+              f"{ranked}; auto picks "
+              f"{cuda_backend.auto_packed_engine(shape)}; K1 unpacked "
+              f"{times[shape, 'windowed']!r} ms", flush=True)
+    return times
+
+
+def time_packed_kernels(rng, card: str) -> dict:
+    """Phase 6d: K4 (one 8-step launch), K5 and K6 (one 32-step launch
+    each) and the plain packed version of the same steps."""
+    pc = packed_constants(Parameters())
+    out = {}
+    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        x = packed.pack_state(*(
+            torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+            .to(DEVICE) for _ in range(2)))
+        bufs = [x.clone(), torch.empty_like(x)]
+        pair = megakernel.pair_state(x)
+        x_out = torch.empty_like(x)
+
+        def k4():
+            packed.multistep(x, x_out, packed.K, pc)
+
+        def k5():
+            bufs[:] = packed.resident_multistep(*bufs, MAIN_STEPS, pc)
+
+        def k6():
+            megakernel.packed_megastep(pair, MAIN_STEPS // 8, 8, pc)
+
+        for tag, fn, steps in (("packed", k4, packed.K),
+                               ("respack", k5, MAIN_STEPS),
+                               ("megapack", k6, MAIN_STEPS)):
+            reps = 100 if shape == MAIN_SHAPE else 20
+            ms = cuda_ms(fn, reps // (steps // packed.K))
+            plain_ms = cuda_ms(lambda: packed.packed_run(x, steps, pc),
+                               2 if shape == MAIN_SHAPE else 1)
+            bound, by = roofline_ms(shape, steps, PACKED_OPS)
+            out[tag, shape] = (ms, plain_ms, bound, by, steps)
+            print(f"time {tag} {shape[0]}x{shape[1]} zero, {steps} steps "
+                  f"a launch: kernel {ms!r} ms = "
+                  f"{gcells(shape, steps, ms)!r} Gcell/s; plain "
+                  f"{plain_ms!r} ms = {gcells(shape, steps, plain_ms)!r} "
+                  f"Gcell/s; bound {bound!r} ms ({by}), "
+                  f"{100 * bound / ms!r} % of it [{card}]", flush=True)
+    return out
+
+
 def time_snapshot(shape, reps: int) -> float:
     """ms of the main path's per-image snapshot: a device clone of V and
     its non-blocking copy into pinned host memory."""
@@ -537,28 +868,43 @@ def main(argv=None) -> int:
     print(f"build: {built.path.name} in {time.perf_counter() - t0!r} s "
           f"(nvcc {built.seconds!r} s)")
     print(built.log.strip(), flush=True)
-    print(f"co-resident blocks: resident {resident.max_blocks(torch.device(DEVICE))}, "
-          f"mega {megakernel.max_blocks(torch.device(DEVICE))}", flush=True)
+    dev = torch.device(DEVICE)
+    print(f"co-resident blocks: resident {resident.max_blocks(dev)}, mega "
+          f"{megakernel.max_blocks(dev)}, packed resident "
+          f"{packed.resident_max_blocks(dev)}, packed mega "
+          f"{megakernel.packed_max_blocks(dev)}", flush=True)
 
     # 3. every kernel vs its plain version
     compare_kernels(checks, rng)
+    compare_packed_kernels(checks, rng)
 
-    # 4. the default simulate run, on auto and on each pin
+    # 4. the default simulate run, on auto and on each pin; then the
+    # packed zero-boundary run
     runs = main_paths(checks)
+    packed_runs = packed_paths(checks)
 
-    # 5. the bench path
+    # 5. the bench path, and the packed 1000-step run
     bench = bench_path(checks, card)
+    packed_bench(checks, card)
 
     # 6. times, beside the card
     print(f"timing on {card}")
     time_engines(rng, card)
     kernel_times = time_kernels(rng, card)
+    time_packed_engines(rng, card)
+    kernel_times.update(time_packed_kernels(rng, card))
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
     for label, run in runs.items():
         print(f"path simulate {label} end to end ({run['engine']}): "
               f"{run['gcells']!r} Gcell/s "
+              f"({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) [{card}]")
+    for label, run in packed_runs.items():
+        if label == "vs_unpacked":
+            continue
+        print(f"path simulate {' '.join(ZERO_PACKED)} {label} end to end "
+              f"({run['engine']}): {run['gcells']!r} Gcell/s "
               f"({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) [{card}]")
     if "hdf5_seconds" in runs["auto"]:
         print(f"simulate.main with HDF5: "
@@ -590,6 +936,14 @@ def main(argv=None) -> int:
         max_abs_err=checks.kernel_err["mega"], ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None,
         shape=list(BENCH_SHAPE), steps=BENCH_STEPS, boundary="naive"))
+    for tag, flags in PACKED_FLAGS.items():
+        ms, plain_ms, bound, by, steps = kernel_times[tag, MAIN_SHAPE]
+        entries.append(dict(
+            KERNELS[tag],
+            launches=packed_runs[" ".join(flags)]["launches"][tag],
+            max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=list(MAIN_SHAPE), steps=steps, boundary="zero"))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """``cuda`` backend: the port's ``grayscott_tpu/backends/pallas.py``, with
-its three f32 engines.
+its three f32 engines, on two layouts.
+
+The unpacked layout (``pack`` ``auto`` or ``off``), both boundaries:
 
 - ``windowed`` (K1, ``ops/windowed.py``): storage ``("windowed", u, v,
   u_next, v_next)``, plain ``(R, C)`` tensors, no padding (the kernel masks
@@ -15,13 +17,32 @@ its three f32 engines.
   remainder launch of one block of ``steps % 8`` steps
   (``backends/pallas.py:793-816``).
 
+The species-packed layout (``pack="on"``; ``ops/packed.py``): U and V side
+by side in one ``(R, 2C)`` tensor ``[U | V]``, the JAX zero path's
+separable step and linear fold (``backends/pallas.py:503-583``,
+``:747-792``). ``pack="on"`` needs the zero boundary, float32, a separable
+stencil (not ``5points``) and no tile pins, or it raises
+:class:`UnsupportedConfigError` naming ``pack``. Its engines:
+
+- ``windowed`` (K4, ``ops/packed.py:multistep``): storage ``("packed", x,
+  x_next)``; ``divmod(steps, 8)`` launches as K1's;
+- ``resident`` (K5, ``ops/packed.py:resident_multistep``): storage
+  ``("respack", x, x_next)``; one launch per ``run_steps``;
+- ``mega`` (K6, ``ops/megakernel.py:packed_megastep``): storage
+  ``("megapack", x_pair)``, a ``(2, R, 2C)`` pair; one launch of the full
+  time blocks and one of the remainder, as K2's.
+
+``pack="auto"`` never packs: the JAX backend packs on ``auto`` only on an
+autotune record, and the port has no autotuner.
+
 The buffers are updated in place, where the JAX backend gets fresh
-(donated) buffers from every call. ``engine`` (``auto|windowed|mega``) and
-``resident`` (``auto|on|off``) take the JAX backend's names and values;
-``auto`` follows :func:`auto_engine`, measured on the card. The JAX
-backend's other knobs (bf16 storage, lane fold, packed layout, the naive
-fix-up modes, the megakernel's ring depth and specialisation, tile pins)
-are not ported: asking for one raises :class:`UnsupportedConfigError`.
+(donated) buffers from every call. ``engine`` (``auto|windowed|mega``),
+``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
+backend's names and values; ``auto`` follows :func:`auto_engine`, or
+:func:`auto_packed_engine` on the packed layout, measured on the card. The
+JAX backend's other knobs (bf16 storage, lane fold, the naive fix-up
+modes, the megakernel's ring depth and specialisation, tile pins) are not
+ported: asking for one raises :class:`UnsupportedConfigError`.
 """
 
 from __future__ import annotations
@@ -33,18 +54,20 @@ import numpy as np
 import torch
 
 from ..errors import UnsupportedConfigError
-from ..ops import megakernel, resident, windowed
-from ..params import Parameters, kernel_constants
+from ..ops import megakernel, packed, resident, windowed
+from ..params import Parameters, kernel_constants, packed_constants
 from .base import Simulation
 
 ENGINES = ("auto", "windowed", "mega")
 RESIDENT = ("auto", "on", "off")
+PACK = ("auto", "on", "off")
 
 #: knob -> the values the port runs (the JAX backend's names and values)
 _SUPPORTED = {
     "dtype": ("float32",),
     "fold": ("auto", "off", 1),
-    "pack": ("auto", "off"),
+    # "on" only on the zero boundary with a separable stencil
+    "pack": PACK,
     "naive_fix": ("select",),
     "mega_depth": (None,),
     "mega_specialize": (None,),
@@ -75,6 +98,17 @@ def shape_class(shape: Tuple[int, int]) -> str:
     return "l2" if 4 * r * c * 4 <= L2_SHARE * L2_BYTES else "larger"
 
 
+#: engine -> storage tag on the packed layout
+PACKED_TAGS = {"windowed": "packed", "resident": "respack",
+                "mega": "megapack"}
+
+#: shape class -> the packed engines, fastest first (see auto_packed_engine)
+_PACKED_RANKING = {
+    "l2": ("windowed", "mega", "resident"),
+    "larger": ("windowed", "mega", "resident"),
+}
+
+
 def auto_engine(shape: Tuple[int, int], boundary: str,
                 resident_ok: bool = True) -> str:
     """The engine that ``engine='auto'`` runs: the fastest of the three for
@@ -99,6 +133,29 @@ def auto_engine(shape: Tuple[int, int], boundary: str,
                 if resident_ok or e != "resident")
 
 
+def auto_packed_engine(shape: Tuple[int, int],
+                       resident_ok: bool = True) -> str:
+    """The engine that ``engine='auto'`` runs on the packed layout (zero
+    boundary only): the fastest of K4, K5 and K6 for the shape's class, as
+    measured on the card. ``resident_ok=False`` skips K5.
+
+    Set from ``chip_smoke.py``'s packed engine times (32 steps a call
+    through the backend, CUDA events, in turns; NVIDIA H100 80GB HBM3,
+    power limit 700.00 W), ms per 32 steps, windowed / resident / mega,
+    beside K1 unpacked on the zero boundary:
+
+    - 1080x1920 ("l2"): 0.6786 / 0.8477 / 0.8390 (K1 0.7814);
+    - 4096x4096 ("larger"): 5.0528 / 6.0773 / 5.9647 (K1 5.9671).
+
+    Both classes rank alike, as the unpacked zero boundary does: K4 first,
+    then K6, then K5. The JAX backend takes the megakernel first
+    (``backends/pallas.py:567-577``); on the card K6 trails K4 as K2
+    trails K1.
+    """
+    return next(e for e in _PACKED_RANKING[shape_class(shape)]
+                if resident_ok or e != "resident")
+
+
 class CudaSimulation(Simulation):
     name = "cuda"
 
@@ -117,6 +174,8 @@ class CudaSimulation(Simulation):
         if resident not in RESIDENT:
             raise ValueError(f"resident must be one of {RESIDENT}, got "
                              f"{resident!r}")
+        if pack not in PACK:
+            raise ValueError(f"pack must be one of {PACK}, got {pack!r}")
         if resident == "on" and engine != "auto":
             raise UnsupportedConfigError(
                 "resident='on' and an explicit engine pin conflict; pin at "
@@ -133,14 +192,25 @@ class CudaSimulation(Simulation):
         self.engine = engine
         self.resident = resident
         self.consts = kernel_constants(params)
+        self.packed = pack == "on"
+        if self.packed:
+            if boundary != "zero":
+                raise UnsupportedConfigError(
+                    "pack requires the zero boundary, float32 storage, a "
+                    f"separable stencil plan and no tile pins; got boundary "
+                    f"{boundary!r}", combo="pack")
+            self.packed_consts = packed_constants(params)
 
     def engine_for(self, shape: Tuple[int, int]) -> str:
         """The engine that runs a domain of ``shape``: a pin, else
-        :func:`auto_engine`."""
+        :func:`auto_engine` (:func:`auto_packed_engine` when packed)."""
         if self.engine != "auto":
             return self.engine
         if self.resident == "on":
             return "resident"
+        if self.packed:
+            return auto_packed_engine(shape,
+                                      resident_ok=self.resident == "auto")
         return auto_engine(shape, self.boundary,
                            resident_ok=self.resident == "auto")
 
@@ -149,6 +219,11 @@ class CudaSimulation(Simulation):
             torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
             .to(self.device) for x in (u, v))
         engine = self.engine_for(u.shape)
+        if self.packed:
+            x = packed.pack_state(u_t, v_t)
+            if engine == "mega":
+                return ("megapack", megakernel.pair_state(x))
+            return (PACKED_TAGS[engine], x, torch.empty_like(x))
         if engine == "mega":
             return ("mega", megakernel.pair_state(u_t),
                     megakernel.pair_state(v_t))
@@ -157,11 +232,17 @@ class CudaSimulation(Simulation):
 
     def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
+        if storage[0] == "megapack":
+            return packed.unpack_state(storage[1][0], shape[1])
+        if storage[0] in ("packed", "respack"):
+            return packed.unpack_state(storage[1], shape[1])
         if storage[0] == "mega":
             return storage[1][0], storage[2][0]
         return storage[1], storage[2]
 
     def run_steps(self, storage, shape, steps: int):
+        if storage[0] in ("packed", "respack", "megapack"):
+            return self._run_packed(storage, steps)
         if storage[0] == "mega":
             _, u_pair, v_pair = storage
             n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
@@ -186,6 +267,30 @@ class CudaSimulation(Simulation):
             u, v, u_next, v_next = u_next, v_next, u, v
         return ("windowed", u, v, u_next, v_next)
 
+    def _run_packed(self, storage, steps: int):
+        """``run_steps`` on the packed layout (``backends/pallas.py:
+        747-792``)."""
+        pc = self.packed_consts
+        if storage[0] == "megapack":
+            n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
+            if n_full:
+                megakernel.packed_megastep(storage[1], n_full,
+                                           megakernel.MEGA_STEPS, pc)
+            if rem:
+                megakernel.packed_megastep(storage[1], 1, rem, pc)
+            return storage
+        if storage[0] == "respack":
+            if steps == 0:
+                return storage
+            return ("respack", *packed.resident_multistep(
+                storage[1], storage[2], steps, pc))
+        _, x, x_next = storage
+        n_full, rem = divmod(steps, packed.K)
+        for k in [packed.K] * n_full + ([rem] if rem else []):
+            packed.multistep(x, x_next, k, pc)
+            x, x_next = x_next, x
+        return ("packed", x, x_next)
+
     # -- CLI -----------------------------------------------------------------
 
     @classmethod
@@ -203,8 +308,16 @@ class CudaSimulation(Simulation):
             "persistent launch, the state in L2): 'on' forces it, 'off' "
             "never runs it, 'auto' (default) lets the engine choice decide",
         )
+        parser.add_argument(
+            "--pallas-pack", choices=PACK, default="auto",
+            help="Species-packed layout: U and V side by side in one array, "
+            "the separable step and the linear fold (K4, K5, K6; zero "
+            "boundary and a separable stencil only). 'on' packs, 'auto' "
+            "(default) and 'off' never pack (the port has no autotuner)",
+        )
 
     @classmethod
     def args_from_namespace(cls, ns: argparse.Namespace) -> dict:
         return {"engine": getattr(ns, "pallas_engine", "auto"),
-                "resident": getattr(ns, "pallas_resident", "auto")}
+                "resident": getattr(ns, "pallas_resident", "auto"),
+                "pack": getattr(ns, "pallas_pack", "auto")}

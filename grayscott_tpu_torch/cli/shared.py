@@ -3,10 +3,10 @@
 
 The same ``-k -f -e -r -c -t --preset --stencil --boundary`` arguments
 with the same defaults and environment fallbacks, each backend's own
-arguments (``--pallas-engine``, ``--pallas-resident``), plus ``--device``;
-the backend is the selector's choice (the port has one). ``--device cuda``
-(the default) on a host where PyTorch sees no GPU stops with a message;
-the port never falls back to the CPU.
+arguments (``--pallas-engine``, ``--pallas-resident``, ``--pallas-pack``),
+plus ``--device``; the backend is the selector's choice (the port has
+one). ``--device cuda`` (the default) on a host where PyTorch sees no GPU
+stops with a message; the port never falls back to the CPU.
 """
 
 from __future__ import annotations

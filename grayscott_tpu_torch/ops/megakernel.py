@@ -11,6 +11,12 @@ stream, or raises. On a CPU tensor it runs the plain PyTorch version,
 
 ``launches`` counts the kernel launches, and only them, so that a run can
 show that its main path went through the kernel.
+
+K6, the species-packed megakernel (``csrc/packed_mega.cu``), is the
+port's ``packed_megastep`` (``megakernel.py:1112``): the same time-block
+loop on one ``(2, R, 2C)`` pair of packed state ``[U | V]``
+(``ops/packed.py``), zero boundary and a separable stencil only; its
+launches are counted in ``packed_launches``.
 """
 
 from __future__ import annotations
@@ -19,8 +25,8 @@ import ctypes
 
 import torch
 
-from ..params import KernelConstants
-from . import build, checks, stencil
+from ..params import KernelConstants, PackedConstants
+from . import build, checks, packed, stencil
 
 #: most steps of one time block: the kernel's compile-time halo depth
 MEGA_STEPS = 8
@@ -28,7 +34,11 @@ MEGA_STEPS = 8
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
 
+#: K6 launches so far
+packed_launches = 0
+
 _fn = None
+_packed_fn = None
 
 
 #: the plain PyTorch version: ``steps`` calls of ``stencil.step``
@@ -103,3 +113,61 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         raise RuntimeError(f"mega kernel launch failed: CUDA error {err} "
                            f"({build.error_name(err)})")
     launches += 1
+
+
+def _packed_kernel():
+    global _packed_fn
+    if _packed_fn is None:
+        max_steps = build.bind("gs_packed_mega_max_steps", [])()
+        if max_steps != MEGA_STEPS:
+            raise RuntimeError(
+                f"packed mega kernel takes at most {max_steps} steps a time "
+                f"block; this wrapper expects {MEGA_STEPS}")
+        _packed_fn = build.bind("gs_packed_mega_multistep",
+                                [ctypes.c_void_p] + [ctypes.c_int] * 5
+                                + [ctypes.c_float] * 9 + [ctypes.c_int]
+                                + [ctypes.c_void_p] * 2)
+    return _packed_fn
+
+
+def packed_max_blocks(device: torch.device) -> int:
+    """The most blocks of one K6 launch that are co-resident on
+    ``device``."""
+    index = torch.device(device).index
+    n = build.bind("gs_packed_mega_max_blocks", [ctypes.c_int])(
+        torch.cuda.current_device() if index is None else index)
+    if n <= 0:
+        raise RuntimeError(f"packed mega kernel occupancy query failed: CUDA "
+                           f"error {-n} ({build.error_name(-n)})")
+    return n
+
+
+def packed_megastep(x_pair: torch.Tensor, n_blocks: int, steps: int,
+                    pc: PackedConstants, grid: int = 0) -> None:
+    """K6: advance slot 0 of the packed pair ``x_pair`` (``(2, R, 2C)``)
+    by ``n_blocks`` x ``steps`` (1..MEGA_STEPS) steps, in place. ``grid``:
+    the blocks of the launch, 0 for the co-resident maximum. On a CUDA
+    device the launch is enqueued on the current stream and not waited
+    for."""
+    global packed_launches
+    checks.check_count("n_blocks", n_blocks, 1)
+    checks.check_count("steps", steps, 1, MEGA_STEPS)
+    checks.check_count("grid", grid, 0)
+    packed.check_packed((), (x_pair,), ndim=3)
+    if x_pair.shape[0] != 2:
+        raise ValueError(f"the pair must be (2, R, 2C), got "
+                         f"{tuple(x_pair.shape)}")
+    if x_pair.device.type == "cpu":
+        x_pair[0].copy_(packed.packed_run(x_pair[0], n_blocks * steps, pc))
+        return
+    fn = _packed_kernel()
+    _, rows, width = x_pair.shape
+    barrier = torch.zeros(1, dtype=torch.int64, device=x_pair.device)
+    stream = torch.cuda.current_stream(x_pair.device).cuda_stream
+    err = fn(x_pair.data_ptr(), rows, width // 2, n_blocks, steps,
+             x_pair.device.index, *packed.kernel_args(pc), grid,
+             barrier.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"packed mega kernel launch failed: CUDA error "
+                           f"{err} ({build.error_name(err)})")
+    packed_launches += 1

@@ -2,9 +2,13 @@
 
 ``Parameters`` and the stencil and preset tables are the port's own copy of
 ``grayscott_tpu/params.py``, trimmed to what the port uses (the reference's
-parameter set, ``data/src/parameters.rs``). :func:`kernel_constants` turns
-a ``Parameters`` into the float32 numbers that the plain PyTorch step and
-the CUDA kernels all take at run time.
+parameter set, ``data/src/parameters.rs``), with the separable plan of
+the stencil. :func:`kernel_constants` turns a ``Parameters`` into the
+float32 numbers that the plain PyTorch step and the CUDA kernels K1-K3 take
+at run time; :func:`packed_constants` does the same for the species-packed
+step and its kernels K4-K6, through the copies of the JAX package's
+separable plan and zero-boundary fold (``plan_alpha``,
+``zero_fold_coeffs``: ``grayscott_tpu/ops/pallas_stencil.py:1002-1032``).
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import numpy as np
+
+from .errors import UnsupportedConfigError
 
 #: Floating-point precision of the simulation
 Precision = np.float32
@@ -48,6 +54,9 @@ STENCILS: dict[str, WeightsT] = {
 }
 
 DEFAULT_STENCIL = "oono-puri"
+
+#: (row, col) of the centre weight
+STENCIL_OFFSET = (1, 1)
 
 #: Named (feed_rate, kill_rate) pattern presets (Pearson's regime map)
 PRESETS: dict[str, Tuple[float, float]] = {
@@ -99,6 +108,18 @@ class Parameters:
         """Stencil weights as a float32 (3, 3) array."""
         return np.asarray(self.weights, dtype=Precision)
 
+    def corrected_weights(self) -> np.ndarray:
+        """The weights with the naive formulation's ``-center`` term folded
+        into the centre weight (``data/src/parameters.rs:57-63``): a
+        sequential float32 sum over the row-major weights, the reference's
+        fold order."""
+        w = self.weights_array().copy()
+        total = Precision(0.0)
+        for x in w.reshape(-1):
+            total = Precision(total + x)
+        w[STENCIL_OFFSET] = Precision(w[STENCIL_OFFSET] - total)
+        return w
+
     def min_feed_kill(self) -> Precision:
         """The ``-(feed_rate + kill_rate)`` prefactor of the dv update."""
         return Precision(-(Precision(self.feed_rate)
@@ -109,6 +130,31 @@ class Parameters:
             if w == self.weights:
                 return name
         return "custom"
+
+    def separable_plan(self):
+        """The corrected stencil as a separable pass, where it is one.
+
+        A symmetric stencil ``[[a,b,a],[b,c,b],[a,b,a]]`` with ``a > 0`` is
+        ``conv_h(rows) . conv_h(cols) - alpha * centre`` with ``h = [x, y,
+        x]``, ``x = sqrt(a)``, ``y = b / x`` and ``alpha = y*y - c +
+        sum(w)``. Returns ``("separable", h, alpha)``, ``h`` float32 and
+        ``alpha`` a float32 from float64 arithmetic, or ``("direct",
+        corrected_weights)``. The separable pass reassociates the float32
+        sum, so it is a few ulp off the oracle's 9-tap tree."""
+        w = np.asarray(self.weights, dtype=np.float64)
+        a, b = w[0, 0], w[0, 1]
+        symmetric = (
+            np.allclose(w, w.T)
+            and w[0, 0] == w[0, 2] == w[2, 0] == w[2, 2]
+            and w[0, 1] == w[1, 0] == w[1, 2] == w[2, 1]
+        )
+        if symmetric and a > 0:
+            x = np.sqrt(a)
+            y = b / x
+            alpha = y * y - w[1, 1] + w.sum()
+            h = np.asarray([x, y, x], dtype=Precision)
+            return ("separable", h, Precision(alpha))
+        return ("direct", self.corrected_weights())
 
 
 class KernelConstants(NamedTuple):
@@ -139,3 +185,79 @@ def kernel_constants(params: Parameters) -> KernelConstants:
         Precision(params.time_step),
     )
     return KernelConstants(weights, tuple(float(x) for x in reaction))
+
+
+def plan_alpha(params: Parameters) -> np.float32:
+    """The separable plan's centre-correction scalar (0 for a direct
+    plan, whose corrected weights already hold the centre)."""
+    plan = params.separable_plan()
+    return Precision(plan[2] if plan[0] == "separable" else 0.0)
+
+
+def zero_fold_coeffs(du, dv, f, mfk, dt, alpha):
+    """``(Cu, Cv, E, Au, Bv)`` of the zero boundary's linear fold:
+
+        u' = ((Cu*s_u - dt*uv2) + E) + Au*u
+        v' = ( (Cv*s_v + dt*uv2)     + Bv*v)
+
+    with ``s`` the raw separable convolution (no ``- alpha*x``): every
+    u-linear term of ``u + dt*(Du*(s - alpha*u) - uv2 + f*(1-u))`` in one
+    coefficient. Host float32 arithmetic in a fixed order."""
+    one = Precision(1.0)
+    du, dv = Precision(du), Precision(dv)
+    f, mfk, dt = Precision(f), Precision(mfk), Precision(dt)
+    alpha = Precision(alpha)
+    cu = dt * du
+    cv = dt * dv
+    e = dt * f
+    au = (one - e) - cu * alpha
+    bv = (one + dt * mfk) - cv * alpha
+    return cu, cv, e, au, bv
+
+
+class PackedConstants(NamedTuple):
+    """Run-time constants of one species-packed step, each exactly a
+    float32 (``ops/packed.py`` has the step they feed).
+
+    ``h0``, ``h1``: the side and centre taps of the separable pass.
+    ``cu``, ``cv``, ``e``, ``au``, ``bv``: the linear fold. ``dt``: the
+    time step; ``dt_is_one``: the quadratic term's coefficient is then
+    ``-1``/``+1`` rather than ``-dt``/``+dt``."""
+
+    h0: float
+    h1: float
+    cu: float
+    cv: float
+    e: float
+    au: float
+    bv: float
+    dt: float
+    dt_is_one: bool
+
+    def quadratic(self) -> Tuple[float, float]:
+        """``(qu, qv)``: the coefficients of ``uv^2`` in U's and V's
+        update."""
+        if self.dt_is_one:
+            return -1.0, 1.0
+        return -self.dt, self.dt
+
+
+def packed_constants(params: Parameters) -> PackedConstants:
+    """The float32 constants of ``params`` for the species-packed step,
+    rounded as the JAX kernel's (``grayscott_tpu/ops/pallas_stencil.py:
+    reaction_operand``, entries 4-9, and ``Parameters.separable_plan``).
+    Only a separable stencil packs: another raises
+    :class:`UnsupportedConfigError`."""
+    plan = params.separable_plan()
+    if plan[0] != "separable":
+        raise UnsupportedConfigError(
+            f"pack requires a separable stencil plan; "
+            f"{params.stencil_name()!r} has none", combo="pack")
+    h = plan[1]
+    dt = Precision(params.time_step)
+    fold = zero_fold_coeffs(params.diffusion_rate_u, params.diffusion_rate_v,
+                            params.feed_rate, params.min_feed_kill(), dt,
+                            plan_alpha(params))
+    return PackedConstants(float(h[0]), float(h[1]),
+                           *(float(x) for x in fold), float(dt),
+                           float(dt) == 1.0)

@@ -27,5 +27,6 @@ def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch):
 
 def test_every_kernel_source_is_a_translation_unit():
     names = {s.name for s in build.sources()}
-    assert {"windowed.cu", "resident.cu", "mega.cu"} <= names
+    assert {"windowed.cu", "resident.cu", "mega.cu", "packed.cu",
+            "packed_resident.cu", "packed_mega.cu"} <= names
     assert not any(name.endswith(".cuh") for name in names)

@@ -13,8 +13,9 @@ import torch
 
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.cli import simulate
-from grayscott_tpu_torch.ops import megakernel, resident, windowed
-from grayscott_tpu_torch.params import STENCILS, Parameters, kernel_constants
+from grayscott_tpu_torch.ops import megakernel, packed, resident, windowed
+from grayscott_tpu_torch.params import (STENCILS, Parameters,
+                                        kernel_constants, packed_constants)
 
 #: ragged shapes put tile seams and all four domain edges inside the 32x32
 #: tiles; (1, 1) is a domain smaller than one tile's interior
@@ -22,6 +23,11 @@ SHAPES = [(1, 1), (33, 65), (70, 97), (64, 96)]
 
 #: one launch, an odd and an even time-block count, remainders
 STEP_COUNTS = [1, 7, 8, 9, 27]
+
+#: the stencils the species-packed kernels (K4, K5, K6) take
+SEPARABLE = [name for name in sorted(STENCILS)
+             if Parameters.with_stencil(name).separable_plan()[0]
+             == "separable"]
 
 
 @pytest.fixture
@@ -173,3 +179,114 @@ def test_refused_cooperative_launch_raises(cuda_device, kernel):
             megakernel.megastep(megakernel.pair_state(u),
                                 megakernel.pair_state(v), 1, 1, consts,
                                 "naive", grid=too_many)
+
+
+def random_packed(shape, device):
+    return packed.pack_state(*random_uv(shape, device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [1.0, 0.5])
+@pytest.mark.parametrize("stencil_name", SEPARABLE)
+def test_packed_bitwise_equals_plain(cuda_device, stencil_name, dt):
+    """K4, one launch of each step count 1..K, at every shape of SHAPES.
+    Tolerance: none (the plain packed tree, nvcc -fmad=false)."""
+    pc = packed_constants(Parameters.with_stencil(stencil_name,
+                                                  time_step=dt))
+    for shape in SHAPES:
+        x = random_packed(shape, cuda_device)
+        for steps in range(1, packed.K + 1):
+            out = torch.empty_like(x)
+            before = packed.launches
+            packed.multistep(x, out, steps, pc)
+            assert packed.launches == before + 1
+            want = packed.packed_run(x, steps, pc)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (shape, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stencil_name", SEPARABLE)
+def test_packed_resident_bitwise_equals_plain(cuda_device, stencil_name):
+    """K5, one launch of each step count, at every shape of SHAPES.
+    Tolerance: none."""
+    pc = packed_constants(Parameters.with_stencil(stencil_name))
+    for shape in SHAPES:
+        x = random_packed(shape, cuda_device)
+        for steps in STEP_COUNTS:
+            before = packed.resident_launches
+            out = packed.resident_multistep(x.clone(), torch.empty_like(x),
+                                            steps, pc)
+            assert packed.resident_launches == before + 1
+            want = packed.packed_run(x, steps, pc)
+            torch.cuda.synchronize()
+            assert torch.equal(out[0], want), (shape, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stencil_name", SEPARABLE)
+def test_packed_mega_bitwise_equals_plain(cuda_device, stencil_name):
+    """K6 through the backend's packed mega engine (steps // 8 time blocks
+    in one launch, then one remainder launch), at every shape of SHAPES.
+    Tolerance: none."""
+    params = Parameters.with_stencil(stencil_name)
+    pc = packed_constants(params)
+    sim = CudaSimulation(params, "zero", device="cuda", engine="mega",
+                         pack="on")
+    for shape in SHAPES:
+        u, v = random_uv(shape, "cpu")
+        x = packed.pack_state(u, v).to(cuda_device)
+        for steps in STEP_COUNTS:
+            storage = sim.build_storage(u.numpy(), v.numpy())
+            assert storage[0] == "megapack"
+            before = megakernel.packed_launches
+            storage = sim.run_steps(storage, shape, steps)
+            n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
+            assert megakernel.packed_launches == \
+                before + (n_full > 0) + (rem > 0)
+            want = packed.packed_run(x, steps, pc)
+            torch.cuda.synchronize()
+            assert torch.equal(storage[1][0], want), (shape, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pins", [{"engine": "windowed"}, {"engine": "mega"},
+                                  {"resident": "on"}])
+def test_packed_simulate_run_on_card_equals_cpu(cuda_device, pins):
+    """The packed path through simulate.run on the card (9 steps an
+    image: full and remainder launches) gives the CPU's frames, bit for
+    bit."""
+    params = Parameters(time_step=0.5)
+    frames = {}
+    for device in ("cuda", "cpu"):
+        sim = CudaSimulation(params, "zero", device=device, pack="on",
+                             **pins)
+        species = sim.make_species((70, 97))
+        frames[device] = []
+        simulate.run(sim, species, 3, 9, frames[device].append)
+    for got, want in zip(frames["cuda"], frames["cpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["packed", "packed_resident",
+                                    "packed_mega"])
+def test_refused_packed_launch_raises(cuda_device, kernel):
+    """A packed launch the card refuses raises, and nothing falls back:
+    K4 with more tile rows than a grid holds, K5 and K6 with a grid larger
+    than the card holds at once."""
+    pc = packed_constants(Parameters())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if kernel == "packed":
+            x = torch.zeros((70000 * 32, 2), device=cuda_device)
+            packed.multistep(x, torch.empty_like(x), 1, pc)
+        elif kernel == "packed_resident":
+            x = random_packed((4096, 4096), cuda_device)
+            too_many = 2 * packed.resident_max_blocks(cuda_device) + 1
+            packed.resident_multistep(x, torch.empty_like(x), 1, pc,
+                                      grid=too_many)
+        else:
+            x = random_packed((4096, 4096), cuda_device)
+            too_many = 2 * megakernel.packed_max_blocks(cuda_device) + 1
+            megakernel.packed_megastep(megakernel.pair_state(x), 1, 1, pc,
+                                       grid=too_many)

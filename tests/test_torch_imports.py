@@ -55,6 +55,7 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.ops.checks", "grayscott_tpu_torch.ops.windowed",
         "grayscott_tpu_torch.ops.resident",
         "grayscott_tpu_torch.ops.megakernel",
+        "grayscott_tpu_torch.ops.packed",
         "grayscott_tpu_torch.backends.base",
         "grayscott_tpu_torch.backends.cuda",
         "grayscott_tpu_torch.cli.shared", "grayscott_tpu_torch.cli.simulate",
@@ -80,6 +81,7 @@ def test_no_jax_module_was_loaded(probe):
 
 def _params(tmp_path):
     from grayscott_tpu import params as jax_params
+    from grayscott_tpu.ops import pallas_stencil as ps
     from grayscott_tpu_torch import params
 
     assert params.Precision is jax_params.Precision
@@ -95,6 +97,21 @@ def _params(tmp_path):
         assert port.weights_array().dtype == ref.weights_array().dtype
         assert port.min_feed_kill() == ref.min_feed_kill()
         assert port.stencil_name() == ref.stencil_name() == name
+        # the separable plan, the corrected weights and the zero fold
+        np.testing.assert_array_equal(port.corrected_weights(),
+                                      ref.corrected_weights())
+        port_plan, ref_plan = port.separable_plan(), ref.separable_plan()
+        assert port_plan[0] == ref_plan[0]
+        for a, b in zip(port_plan[1:], ref_plan[1:]):
+            np.testing.assert_array_equal(a, b)
+            assert np.asarray(a).dtype == np.asarray(b).dtype
+        assert params.plan_alpha(port) == ps._plan_alpha(ref)
+        scalars = (0.1, 0.05, 0.029, port.min_feed_kill(), 0.5,
+                   params.plan_alpha(port))
+        np.testing.assert_array_equal(
+            np.asarray(params.zero_fold_coeffs(*scalars)),
+            np.asarray(ps._zero_fold_coeffs(*scalars)))
+    assert params.STENCIL_OFFSET == jax_params.STENCIL_OFFSET
     for name in params.PRESETS:
         port = params.Parameters.with_preset(name, "5points", kill_rate=0.06)
         ref = jax_params.Parameters.with_preset(name, "5points",
