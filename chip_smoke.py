@@ -45,13 +45,26 @@
    each packed engine timed beside K1 on the zero boundary (the times
    ``backends.cuda.auto_packed_engine`` is set from), and each packed
    kernel and its plain version.
-8. Prints the nvidia-smi line, one JSON line on the six kernels, and last
-   the JSON line ``{"ok": true, "device": {...}}``.
+8. Prints the nvidia-smi line, one JSON line on the eight kernels, and
+   last the JSON line ``{"ok": true, "device": {...}}``.
+9. The two microbenchmarks' kernels. K8 (``ops/oplat.py``, the chain of
+   dependent operations) against its plain version at 1088x1920 and
+   2176x3840, 4 steps of 15 and 45 ops, with and without rolls, on inputs
+   in [0.5, 2), and at the entry point's call (1088x1920, 256 steps of 90
+   ops, both forms; on ones too, without rolls, as it is timed); K9 (``ops/ilpsplit.py``, the row-split resident step)
+   against its plain version on the same slabs and against K3, at the
+   three shapes of phase 3, both boundaries, split 1, 2, 4 and 8, 1, 27
+   and 32 steps in one launch. Then their entry points' sweeps, each with
+   the launch counts zeroed before it and read after:
+   ``scripts.oplat.sweep`` at 1088x1920, 256 steps of 15 and 90 ops, both
+   forms; ``scripts.ilpsplit.sweep`` at 1080x1920 and 4096x4096, both
+   boundaries, 32 steps, split 1, 2, 4 and 8 beside K3; each time beside
+   the card's bound.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
-(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d). Every check runs; a failed one
-makes the script exit 1 without the two JSON lines. With no CUDA GPU
-visible it exits 1 at once.
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phase 9 runs after them, before
+phase 8's lines. Every check runs; a failed one makes the script exit 1
+without the two JSON lines. With no CUDA GPU visible it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -71,10 +84,12 @@ from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.bench import headline
 from grayscott_tpu_torch.cli import shared, simulate
-from grayscott_tpu_torch.ops import (build, megakernel, packed, resident,
-                                     stencil, windowed)
+from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
+                                     packed, resident, stencil, windowed)
 from grayscott_tpu_torch.params import (Parameters, kernel_constants,
                                         packed_constants)
+from grayscott_tpu_torch.scripts import ilpsplit as ilpsplit_script
+from grayscott_tpu_torch.scripts import oplat as oplat_script
 from grayscott_tpu_torch.species import initial_uv
 from grayscott_tpu_torch.utils import device as gpu
 
@@ -107,7 +122,13 @@ COUNTERS = {
     "packed": (packed, "launches"),
     "respack": (packed, "resident_launches"),
     "megapack": (megakernel, "packed_launches"),
+    "oplat": (oplat, "launches"),
+    "ilpsplit": (ilpsplit, "launches"),
 }
+
+#: K8's shapes (the TPU script's first and largest) and K9's splits
+OPLAT_SHAPES = [(1088, 1920), (2176, 3840)]
+SPLITS = (1, 2, 4, 8)
 
 #: the flags that pin each packed engine on the command line
 PACKED_FLAGS = {"packed": ["--pallas-engine", "windowed"],
@@ -161,6 +182,18 @@ KERNELS = {
         "source": "grayscott_tpu_torch/csrc/packed_mega.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:1112",
     },
+    "oplat": {
+        "name": "oplat_chain",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/oplat.cu",
+        "replaces": "scripts/oplat.py:36",
+    },
+    "ilpsplit": {
+        "name": "ilpsplit_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/ilpsplit.cu",
+        "replaces": "scripts/ilpsplit.py:43",
+    },
 }
 
 
@@ -209,6 +242,17 @@ def bound_ms(shape, steps: int, boundary: str,
 PACKED_OPS = 2 * 2 * 4 + 2 + 2 * 6
 
 
+def oplat_bound_ms(shape, steps: int, n_ops: int,
+                   rolls: bool) -> tuple[float, str]:
+    """The least time the card could take for one K8 call: the array read
+    once and written once (8 B a cell), and 2 operations a fused
+    multiply-add at the float32 peak; rolls add no operations."""
+    by_bytes = 8 * shape[0] * shape[1] / PEAK_BYTES
+    by_ops = 2 * oplat.fmas(shape, steps, n_ops, rolls) / PEAK_F32
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def reset_launches() -> None:
     for module, attr in COUNTERS.values():
         setattr(module, attr, 0)
@@ -235,6 +279,12 @@ class Checks:
         print(f"compare {engine} {what}: max|dU|={errs[0]!r} "
               f"max|dV|={errs[1]!r}", flush=True)
         self.expect(max(errs) <= TOL, f"{engine} vs plain {what}")
+
+    def compare_one(self, engine: str, got, want, what: str) -> None:
+        err = max_err(got, want)
+        self.kernel_err[engine] = max(self.kernel_err[engine], err)
+        print(f"compare {engine} {what}: max|d|={err!r}", flush=True)
+        self.expect(err <= TOL, f"{engine} vs plain {what}")
 
 
 def engine_run(engine: str, params: Parameters, boundary: str, u_np, v_np,
@@ -606,15 +656,7 @@ def packed_bench(checks: Checks, card: str) -> dict:
 def cuda_ms(fn, reps: int) -> float:
     """Mean ms of ``fn()`` on the card over ``reps`` calls after one
     warm-up, from CUDA events around the whole run."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return gpu.time_call(fn, DEVICE, reps, best_of=1) * 1e3
 
 
 def bench_path(checks: Checks, card: str) -> dict:
@@ -844,6 +886,135 @@ def time_kernels(rng, card: str) -> dict:
     return out
 
 
+def compare_microbench_kernels(checks: Checks, rng) -> None:
+    """Phase 9a: K8 and K9 against their plain versions on the card, K9
+    also against K3. K8 also at the entry point's call, 256 steps of 90
+    ops at 1088x1920, both forms (the pass sequence of 30 rolls a step and
+    its buffer parity); the ones that the entry point times are held in
+    phase 9c."""
+    for shape in OPLAT_SHAPES:
+        x = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)
+                             ).to(DEVICE)
+        calls = [(4, n_ops) for n_ops in (15, 45)]
+        if shape == OPLAT_SHAPES[0]:
+            calls.append((oplat_script.STEPS, 90))
+        for steps, n_ops in calls:
+            for rolls in (False, True):
+                checks.compare_one(
+                    "oplat", oplat.chain(x, steps, n_ops, rolls),
+                    oplat.chain_reference(x, steps, n_ops, rolls),
+                    f"{shape[0]}x{shape[1]} steps={steps} n_ops={n_ops} "
+                    f"rolls={rolls} (one launch)")
+    consts = kernel_constants(Parameters())
+    for shape in SHAPES:
+        u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
+                                   .astype(np.float32)).to(DEVICE)
+                  for _ in range(2))
+        for boundary in ("naive", "zero"):
+            tag = f"{shape[0]}x{shape[1]} {boundary}"
+            k3 = {steps: resident.multistep(
+                u0.clone(), v0.clone(), torch.empty_like(u0),
+                torch.empty_like(v0), steps, consts, boundary)[:2]
+                for steps in (1, 27, 32)}
+            for split in SPLITS:
+                u, v, done = u0, v0, 0
+                for steps in (1, 27, 32):
+                    u, v = ilpsplit.split_reference(
+                        u, v, steps - done, consts, boundary, split,
+                        quantum=ilpsplit.TILE)
+                    done = steps
+                    out = ilpsplit.split_multistep(
+                        u0.clone(), v0.clone(), torch.empty_like(u0),
+                        torch.empty_like(v0), steps, consts, boundary, split)
+                    what = f"{tag} split={split} steps={steps} (one launch)"
+                    checks.compare("ilpsplit", out[:2], (u, v), what)
+                    checks.compare("ilpsplit", out[:2], k3[steps],
+                                   f"{what} vs K3")
+
+
+def microbench_paths(checks: Checks, card: str) -> dict:
+    """Phase 9b: the two entry points' sweeps, each with the launch counts
+    zeroed before it and read after; every time beside the card's bound."""
+    out = {}
+    shape = OPLAT_SHAPES[0]
+    reset_launches()
+    records = oplat_script.sweep([shape], (15, 90), oplat_script.STEPS,
+                                 DEVICE)
+    launches = read_launches()
+    want = {tag: 0 for tag in COUNTERS}
+    want["oplat"] = 4 * len(records)  # a warm call and 3 timed ones each
+    print(f"path scripts.oplat {shape[0]}x{shape[1]}: launches {launches} "
+          f"(expected {want})", flush=True)
+    checks.expect(launches == want, f"oplat sweep: launches {launches}, "
+                  f"not {want}")
+    out["oplat_launches"] = launches["oplat"]
+    for rec in records:
+        steps = oplat_script.STEPS
+        ms = rec["us_per_step"] * steps * 1e-3
+        bound, by = oplat_bound_ms(shape, steps, rec["n_ops"], rec["rolls"])
+        out["oplat", rec["n_ops"], rec["rolls"]] = (ms, bound, by)
+        print(f"time oplat {shape[0]}x{shape[1]} n_ops={rec['n_ops']} "
+              f"rolls={rec['rolls']}, {steps} steps a launch: {ms!r} ms, "
+              f"{rec['ns_per_op']!r} ns/op, {rec['ps_per_cell_op']!r} "
+              f"ps/cell-op; bound {bound!r} ms ({by}), "
+              f"{100 * bound / ms!r} % of it [{card}]", flush=True)
+    for line in oplat_script.fits(records):
+        print(f"{line} [{card}]", flush=True)
+
+    reset_launches()
+    runs = 0
+    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        for boundary in ("zero", "naive"):
+            recs = ilpsplit_script.sweep(shape, boundary, SPLITS, MAIN_STEPS,
+                                         DEVICE)
+            runs += 1
+            bound, by = bound_ms(shape, MAIN_STEPS, boundary)
+            k3_ms = recs[0]["seconds"] * 1e3
+            for rec in recs:
+                ms = rec["seconds"] * 1e3
+                label = ("resident (K3)" if rec["split"] is None
+                         else f"split={rec['split']}")
+                out["ilpsplit", shape, boundary, rec["split"]] = ms
+                print(f"time ilpsplit {shape[0]}x{shape[1]} {boundary} "
+                      f"{label}, {MAIN_STEPS} steps a launch: {ms!r} ms = "
+                      f"{rec['gcells_per_sec']!r} Gcell/s, {k3_ms / ms!r}x "
+                      f"K3; bound {bound!r} ms ({by}) [{card}]", flush=True)
+    launches = read_launches()
+    want = {tag: 0 for tag in COUNTERS}
+    # each split: a 3-step check, a warm call and 3 timed ones; K3 the same
+    want["ilpsplit"] = runs * len(SPLITS) * 5
+    want["resident"] = runs * 5
+    print(f"path scripts.ilpsplit: launches {launches} (expected {want})",
+          flush=True)
+    checks.expect(launches == want, f"ilpsplit sweep: launches {launches}, "
+                  f"not {want}")
+    out["ilpsplit_launches"] = launches["ilpsplit"]
+    return out
+
+
+def time_microbench_plain(checks: Checks, rng) -> dict:
+    """Phase 9c: the plain versions of the calls that the kernels line
+    reports: K8's 256 steps of 90 ops without rolls at 1088x1920 on the
+    entry point's ones, whose result the kernel is held against, and K9's
+    32 steps in 2 slabs at 1080x1920, zero boundary."""
+    x = torch.ones(OPLAT_SHAPES[0], device=DEVICE)
+    u, v = (torch.from_numpy(rng.uniform(0, 1, MAIN_SHAPE).astype(np.float32))
+            .to(DEVICE) for _ in range(2))
+    consts = kernel_constants(Parameters())
+    plain = []
+    out = {
+        "oplat": cuda_ms(lambda: plain.append(oplat.chain_reference(
+            x, oplat_script.STEPS, 90, False)), 1),
+        "ilpsplit": cuda_ms(lambda: ilpsplit.split_reference(
+            u, v, MAIN_STEPS, consts, "zero", 2, quantum=ilpsplit.TILE), 1),
+    }
+    checks.compare_one(
+        "oplat", oplat.chain(x, oplat_script.STEPS, 90, False), plain[-1],
+        f"{OPLAT_SHAPES[0][0]}x{OPLAT_SHAPES[0][1]} ones "
+        f"steps={oplat_script.STEPS} n_ops=90 rolls=False (the timed call)")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -872,7 +1043,9 @@ def main(argv=None) -> int:
     print(f"co-resident blocks: resident {resident.max_blocks(dev)}, mega "
           f"{megakernel.max_blocks(dev)}, packed resident "
           f"{packed.resident_max_blocks(dev)}, packed mega "
-          f"{megakernel.packed_max_blocks(dev)}", flush=True)
+          f"{megakernel.packed_max_blocks(dev)}, oplat "
+          f"{oplat.max_blocks(dev)}, ilpsplit {ilpsplit.max_blocks(dev)}",
+          flush=True)
 
     # 3. every kernel vs its plain version
     compare_kernels(checks, rng)
@@ -893,6 +1066,16 @@ def main(argv=None) -> int:
     kernel_times = time_kernels(rng, card)
     time_packed_engines(rng, card)
     kernel_times.update(time_packed_kernels(rng, card))
+
+    # 9. the microbenchmarks' kernels: checks, then their entry points
+    compare_microbench_kernels(checks, rng)
+    micro = microbench_paths(checks, card)
+    micro_plain = time_microbench_plain(checks, rng)
+    print(f"time plain oplat {OPLAT_SHAPES[0][0]}x{OPLAT_SHAPES[0][1]} "
+          f"n_ops=90 rolls=False, {oplat_script.STEPS} steps: "
+          f"{micro_plain['oplat']!r} ms; plain ilpsplit "
+          f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} zero split=2, {MAIN_STEPS} "
+          f"steps: {micro_plain['ilpsplit']!r} ms [{card}]", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -944,6 +1127,21 @@ def main(argv=None) -> int:
             max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=list(MAIN_SHAPE), steps=steps, boundary="zero"))
+    ms, bound, by = micro["oplat", 90, False]
+    entries.append(dict(
+        KERNELS["oplat"], launches=micro["oplat_launches"],
+        max_abs_err=checks.kernel_err["oplat"], ms=ms,
+        plain_ms=micro_plain["oplat"], bound_ms=bound, bound_by=by,
+        library_ms=None, shape=list(OPLAT_SHAPES[0]),
+        steps=oplat_script.STEPS, n_ops=90, rolls=False))
+    bound, by = bound_ms(MAIN_SHAPE, MAIN_STEPS, "zero")
+    entries.append(dict(
+        KERNELS["ilpsplit"], launches=micro["ilpsplit_launches"],
+        max_abs_err=checks.kernel_err["ilpsplit"],
+        ms=micro["ilpsplit", MAIN_SHAPE, "zero", 2],
+        plain_ms=micro_plain["ilpsplit"], bound_ms=bound, bound_by=by,
+        library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
+        boundary="zero", split=2))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

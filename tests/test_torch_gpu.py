@@ -13,7 +13,8 @@ import torch
 
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.cli import simulate
-from grayscott_tpu_torch.ops import megakernel, packed, resident, windowed
+from grayscott_tpu_torch.ops import (ilpsplit, megakernel, oplat, packed,
+                                     resident, windowed)
 from grayscott_tpu_torch.params import (STENCILS, Parameters,
                                         kernel_constants, packed_constants)
 
@@ -290,3 +291,100 @@ def test_refused_packed_launch_raises(cuda_device, kernel):
             too_many = 2 * megakernel.packed_max_blocks(cuda_device) + 1
             megakernel.packed_megastep(megakernel.pair_state(x), 1, 1, pc,
                                        grid=too_many)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rolls", [False, True])
+def test_oplat_bitwise_equals_plain(cuda_device, rolls):
+    """K8 at ragged and tile-aligned shapes, chains that end on a roll and
+    chains that end on multiply-adds. Inputs in [0.5, 2), where the plain
+    version's float64 multiply-add rounds as the kernel's fused one.
+    Tolerance: none."""
+    rng = np.random.default_rng(0)
+    for shape in [(1, 1), (33, 65), (70, 97), (272, 1920)]:
+        x = torch.from_numpy(rng.uniform(0.5, 2.0, shape)
+                             .astype(np.float32)).to(cuda_device)
+        for steps, n_ops in [(1, 1), (1, 3), (2, 4), (3, 15), (4, 45)]:
+            before = oplat.launches
+            got = oplat.chain(x, steps, n_ops, rolls)
+            assert oplat.launches == before + 1
+            want = oplat.chain_reference(x, steps, n_ops, rolls)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (shape, steps, n_ops)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_ilpsplit_bitwise_equals_plain_and_k3(cuda_device, boundary, split):
+    """K9, one launch of each step count, against its plain version on the
+    same slabs and against K3. Tolerance: none."""
+    consts = kernel_constants(Parameters(time_step=0.5))
+    for shape in [(257, 65), (300, 97), (1000, 1917)]:
+        u, v = random_uv(shape, cuda_device)
+        for steps in STEP_COUNTS:
+            bufs = (u.clone(), v.clone(), torch.empty_like(u),
+                    torch.empty_like(v))
+            before = ilpsplit.launches
+            out = ilpsplit.split_multistep(*bufs, steps, consts, boundary,
+                                           split)
+            assert ilpsplit.launches == before + 1
+            want = ilpsplit.split_reference(u, v, steps, consts, boundary,
+                                            split, quantum=ilpsplit.TILE)
+            k3 = resident.multistep(u.clone(), v.clone(),
+                                    torch.empty_like(u), torch.empty_like(v),
+                                    steps, consts, boundary)
+            torch.cuda.synchronize()
+            for got, plain, other in zip(out[:2], want, k3[:2]):
+                assert torch.equal(got, plain), (shape, steps)
+                assert torch.equal(got, other), (shape, steps)
+
+
+@pytest.mark.gpu
+def test_ilpsplit_grid_of_one_block_a_slab(cuda_device):
+    """The smallest grid (one block a slab) and an uneven one give the
+    same result."""
+    consts = kernel_constants(Parameters())
+    u, v = random_uv((300, 97), cuda_device)
+    want = resident.resident_reference(u, v, 9, consts, "zero")
+    for grid in (8, 13, 50):
+        out = ilpsplit.split_multistep(u.clone(), v.clone(),
+                                       torch.empty_like(u),
+                                       torch.empty_like(v), 9, consts,
+                                       "zero", 8, grid=grid)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["split_over_tile_rows", "grid_below_split"])
+def test_ilpsplit_refuses_bad_splits(cuda_device, case):
+    """More slabs than rows of tiles, or fewer blocks than slabs, raise
+    before anything is launched."""
+    consts = kernel_constants(Parameters())
+    u, v = random_uv((70, 97), cuda_device)  # 3 rows of 32x32 tiles
+    split, grid = (4, 0) if case == "split_over_tile_rows" else (3, 2)
+    before = ilpsplit.launches
+    with pytest.raises(ValueError):
+        ilpsplit.split_multistep(u, v, torch.empty_like(u),
+                                 torch.empty_like(v), 1, consts, "naive",
+                                 split, grid=grid)
+    assert ilpsplit.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["oplat", "ilpsplit"])
+def test_refused_microbenchmark_launch_raises(cuda_device, kernel):
+    """A grid larger than the card holds at once is refused, and the
+    wrapper raises; nothing falls back."""
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        if kernel == "oplat":
+            x = torch.ones((1088, 1920), device=cuda_device)
+            oplat.chain(x, 1, 3, True,
+                        grid=2 * oplat.max_blocks(cuda_device) + 1)
+        else:
+            consts = kernel_constants(Parameters())
+            u, v = random_uv((4096, 4096), cuda_device)
+            ilpsplit.split_multistep(
+                u, v, torch.empty_like(u), torch.empty_like(v), 1, consts,
+                "naive", 2, grid=2 * ilpsplit.max_blocks(cuda_device) + 1)

@@ -56,6 +56,10 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.ops.resident",
         "grayscott_tpu_torch.ops.megakernel",
         "grayscott_tpu_torch.ops.packed",
+        "grayscott_tpu_torch.ops.oplat", "grayscott_tpu_torch.ops.ilpsplit",
+        "grayscott_tpu_torch.scripts",
+        "grayscott_tpu_torch.scripts.oplat",
+        "grayscott_tpu_torch.scripts.ilpsplit",
         "grayscott_tpu_torch.backends.base",
         "grayscott_tpu_torch.backends.cuda",
         "grayscott_tpu_torch.cli.shared", "grayscott_tpu_torch.cli.simulate",
