@@ -45,7 +45,7 @@
    each packed engine timed beside K1 on the zero boundary (the times
    ``backends.cuda.auto_packed_engine`` is set from), and each packed
    kernel and its plain version.
-8. Prints the nvidia-smi line, one JSON line on the eight kernels, and
+8. Prints the nvidia-smi line, one JSON line on the nine kernels, and
    last the JSON line ``{"ok": true, "device": {...}}``.
 9. The two microbenchmarks' kernels. K8 (``ops/oplat.py``, the chain of
    dependent operations) against its plain version at 1088x1920 and
@@ -60,10 +60,24 @@
    forms; ``scripts.ilpsplit.sweep`` at 1080x1920 and 4096x4096, both
    boundaries, 32 steps, split 1, 2, 4 and 8 beside K3; each time beside
    the card's bound.
+10. The sharded megakernel K7 (``ops/sharded_mega.py``; all shards on the
+   one card, one launch). Through the sharded backend against its plain
+   version on the card and against K2: 1080x1920 and 1000x1917 on meshes
+   1x1, 2x1, 4x1 and 2x2 at 8, 27 and 32 steps, 1001x1920 (its last shards
+   partly past the domain) on 4x1 and 2x2 at 27, 4096x4096 on 4x1 and 2x2
+   at 32, both boundaries. ``simulate --backend sharded --sharded-engine
+   mega --sharded-devices 4`` on the default run (16 images of 32 steps),
+   on the default mesh (2x2 at this shape) and with ``--sharded-mesh-cols
+   1`` and ``2``, each with the launch counts zeroed before it (16 K7
+   launches and no other) and every frame against the plain replay of the
+   unsharded run. K7's 32-step launch on 1x1, 4x1 and 2x2 timed in turns
+   with K2 at 1080x1920 and 4096x4096, both boundaries, beside its bound;
+   the backend's call (exchange and launch); each mesh's tile counts; the
+   plain version once.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
-(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phase 9 runs after them, before
-phase 8's lines. Every check runs; a failed one makes the script exit 1
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 and 10 run after
+them, before phase 8's lines. Every check runs; a failed one makes the script exit 1
 without the two JSON lines. With no CUDA GPU visible it exits 1 at once.
 """
 
@@ -82,10 +96,13 @@ import torch
 
 from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
+from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.bench import headline
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
-                                     packed, resident, stencil, windowed)
+                                     packed, resident, sharded_mega, stencil,
+                                     windowed)
+from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import (Parameters, kernel_constants,
                                         packed_constants)
 from grayscott_tpu_torch.scripts import ilpsplit as ilpsplit_script
@@ -124,7 +141,11 @@ COUNTERS = {
     "megapack": (megakernel, "packed_launches"),
     "oplat": (oplat, "launches"),
     "ilpsplit": (ilpsplit, "launches"),
+    "shmega": (sharded_mega, "launches"),
 }
+
+#: storage tags that share another tag's kernel (K7 on a 2-D mesh)
+KERNEL_OF = {"shmega2d": "shmega"}
 
 #: K8's shapes (the TPU script's first and largest) and K9's splits
 OPLAT_SHAPES = [(1088, 1920), (2176, 3840)]
@@ -194,7 +215,26 @@ KERNELS = {
         "source": "grayscott_tpu_torch/csrc/ilpsplit.cu",
         "replaces": "scripts/ilpsplit.py:43",
     },
+    "shmega": {
+        "name": "sharded_mega_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, "
+                    "grayscott_tpu/parallel/halo.py:487)",
+    },
 }
+
+#: K7's meshes (rows, cols), and the flags of its simulate runs: the
+#: default mesh of 4 shards (2x2 at 1080x1920: halo.choose_mesh_cols), and
+#: each form pinned
+SHARDED_MESHES = [(1, 1), (2, 1), (4, 1), (2, 2)]
+#: 1001 rows in 4 shards of 256 (or 2 of 504): the last row of shards
+#: reaches past the domain
+PAST_EDGE_SHAPE = (1001, 1920)
+SHARDED_FLAGS = ["--backend", "sharded", "--sharded-engine", "mega",
+                 "--sharded-devices", "4"]
+SHARDED_PATHS = [[], ["--sharded-mesh-cols", "1"],
+                 ["--sharded-mesh-cols", "2"]]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -456,7 +496,7 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     ns = simulate.build_parser().parse_args(flags)
     sim = shared.make_simulation(ns)
     species = sim.make_species(shared.domain_shape(ns))
-    engine = species.storage[0]
+    engine = KERNEL_OF.get(species.storage[0], species.storage[0])
     frames: list[np.ndarray] = []
     # This sink keeps every frame, so each image would pay a fresh pinned
     # allocation (cudaHostAlloc, ~1.3 ms at this shape), which a long run
@@ -494,7 +534,8 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
           f"frame: {errs}", flush=True)
     checks.expect(max(errs) <= TOL, f"simulate {label} vs plain replay")
     return {"engine": engine, "seconds": seconds, "launches": launches,
-            "frames": frames,
+            "frames": frames, "tag": species.storage[0],
+            "mesh": getattr(getattr(sim, "mesh", None), "shape", None),
             "gcells": MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_IMAGES
             * MAIN_STEPS / seconds / 1e9}
 
@@ -1015,6 +1056,210 @@ def time_microbench_plain(checks: Checks, rng) -> dict:
     return out
 
 
+def sharded_run(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
+                steps: int):
+    """The sharded backend's state after ``steps`` steps on K7."""
+    n_r, n_c = mesh_shape
+    sim = ShardedSimulation(params, boundary, device=DEVICE, engine="mega",
+                            n_devices=n_r * n_c, mesh_cols=n_c)
+    storage = sim.build_storage(u_np, v_np)
+    assert sim.mesh.shape == tuple(mesh_shape)
+    storage = sim.run_steps(storage, u_np.shape, steps)
+    return sim.extract_uv(storage, u_np.shape)
+
+
+def sharded_plain(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
+                  steps: int):
+    """The plain version of K7 on the card, launch by launch as the backend
+    makes them (the halo exchange, then ``steps // 8`` time blocks, then
+    the remainder)."""
+    shape = u_np.shape
+    mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape[1],
+                          DEVICE)
+    pairs = halo.mega_shard_state(u_np, v_np, mesh)
+    for n_blocks, k in sharded_mega.launch_plan(steps):
+        for p in pairs:
+            halo.exchange_halos(p)
+        sharded_mega.sharded_megastep_reference(
+            *pairs, n_blocks, k, kernel_constants(params), boundary, shape)
+    return tuple(halo.mega_unshard_result(p, shape) for p in pairs)
+
+
+def compare_sharded(checks: Checks, rng) -> int:
+    """Phase 10a: K7 through the sharded backend against its plain version
+    on the card and against K2, on every mesh of SHARDED_MESHES at
+    1080x1920 and 1000x1917 (8, 27 and 32 steps), on 1001x1920 (its last
+    row of shards partly past the domain; 27 steps) and at 4096x4096 (32
+    steps) on 4x1 and 2x2, both boundaries. Returns the comparisons."""
+    default = Parameters()
+    cases = [(shape, mesh, (8, 27, 32)) for shape in SHAPES[:2]
+             for mesh in SHARDED_MESHES]
+    cases += [(PAST_EDGE_SHAPE, mesh, (27,)) for mesh in ((4, 1), (2, 2))]
+    cases += [(BENCH_SHAPE, mesh, (MAIN_STEPS,)) for mesh in ((4, 1), (2, 2))]
+    inputs, k2, n = {}, {}, 0
+    for shape, mesh_shape, step_counts in cases:
+        if shape not in inputs:
+            inputs[shape] = tuple(rng.uniform(0.0, 1.0, shape)
+                                  .astype(np.float32) for _ in range(2))
+        u_np, v_np = inputs[shape]
+        for boundary in ("naive", "zero"):
+            for steps in step_counts:
+                got = sharded_run(default, boundary, u_np, v_np, mesh_shape,
+                                  steps)
+                what = (f"{shape[0]}x{shape[1]} {boundary} mesh "
+                        f"{mesh_shape[0]}x{mesh_shape[1]} steps={steps} "
+                        "(backend)")
+                checks.compare("shmega", got, sharded_plain(
+                    default, boundary, u_np, v_np, mesh_shape, steps), what)
+                key = (shape, boundary, steps)
+                if key not in k2:
+                    k2[key] = engine_run("mega", default, boundary, u_np,
+                                         v_np, steps)
+                checks.compare("shmega", got, k2[key], f"{what} vs K2")
+                n += 2
+    return n
+
+
+def sharded_paths(checks: Checks) -> dict:
+    """Phase 10b: ``simulate --backend sharded --sharded-engine mega
+    --sharded-devices 4`` on the default run, on the default mesh and on
+    each form pinned, with the launch counts zeroed before each and read
+    after; every frame against the plain replay of the unsharded run."""
+    ns = simulate.build_parser().parse_args([])
+    replay = replay_frames(MAIN_SHAPE, "naive", shared.simulation_parameters(
+        ns), MAIN_IMAGES, MAIN_STEPS, DEVICE)
+    runs = {}
+    for flags in SHARDED_PATHS:
+        run = simulate_path(checks, SHARDED_FLAGS + flags, replay)
+        print(f"path simulate {' '.join(SHARDED_FLAGS + flags)}: storage "
+              f"{run['tag']}, mesh {run['mesh']}", flush=True)
+        runs[" ".join(flags) or "auto"] = run
+    checks.expect(runs["auto"]["mesh"] == (2, 2)
+                  and runs["--sharded-mesh-cols 1"]["mesh"] == (4, 1),
+                  "sharded simulate meshes")
+    return runs
+
+
+def exchange_cells(shape, mesh_shape) -> int:
+    """Cells one time block of K7 pushes, both species: every present
+    neighbour's band (HALO rows across the interior columns, COL_HALO
+    columns across the interior rows, HALO x COL_HALO corners)."""
+    n_r, n_c = mesh_shape
+    mesh = halo.Mesh(n_r, n_c, torch.device("cpu"))
+    r_loc, c_loc = halo.shard_extents(shape, mesh)
+    cells = 0
+    for i in range(n_r):
+        for j in range(n_c):
+            for dr, dc in halo.DIRECTIONS:
+                if 0 <= i + dr < n_r and 0 <= j + dc < n_c:
+                    cells += ((halo.HALO if dr else r_loc)
+                              * (mesh.chalo if dc else c_loc))
+    return 2 * cells
+
+
+def sharded_bound_ms(shape, mesh_shape, steps: int,
+                     boundary: str) -> tuple[float, str]:
+    """The least time for K7's call: K2's (the state read and written once,
+    the oracle's operations) plus the pushes' bytes, each cell read and
+    written once (8 B) a time block."""
+    cells = shape[0] * shape[1]
+    pushed = exchange_cells(shape, mesh_shape) * -(-steps // 8)
+    by_bytes = (16 * cells + 8 * pushed) / PEAK_BYTES
+    by_ops = cells * steps * ops_per_cell_step(Parameters(), boundary) \
+        / PEAK_F32
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def time_sharded(rng, card: str) -> dict:
+    """Phase 10c: one K7 launch of 32 steps (4 time blocks) on 1x1, 4x1 and
+    2x2 meshes, timed in turns with K2 through its backend (K2, K7 1x1,
+    4x1, 2x2, then back), at 1080x1920 and 4096x4096, both boundaries;
+    the sharded backend's call (the exchange and the launch) on each mesh;
+    the tile quantisation of each mesh; the plain version once."""
+    consts = kernel_constants(Parameters())
+    out = {}
+    meshes = [(1, 1), (4, 1), (2, 2)]
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        k2_tiles = -(-shape[0] // 32) * -(-shape[1] // 32)
+        for n_r, n_c in meshes:
+            mesh = halo.Mesh(n_r, n_c, torch.device("cpu"))
+            r_loc, c_loc = halo.shard_extents(shape, mesh)
+            tiles = -(-r_loc // 32) * -(-c_loc // 32)
+            print(f"tiles {shape[0]}x{shape[1]} mesh {n_r}x{n_c}: shards "
+                  f"{r_loc}x{c_loc}, {tiles} tiles a shard, "
+                  f"{n_r * n_c * tiles} in all (K2: {k2_tiles}); cells "
+                  f"stepped past the domain "
+                  f"{100 * (1 - shape[0] * shape[1] / (n_r * n_c * tiles * 1024))!r} "
+                  f"% (K2: {100 * (1 - shape[0] * shape[1] / (k2_tiles * 1024))!r} %); "
+                  f"pushed {exchange_cells(shape, (n_r, n_c))} cells a time "
+                  "block", flush=True)
+        for boundary in ("naive", "zero"):
+            k2 = CudaSimulation(Parameters(), boundary, device=DEVICE,
+                                engine="mega")
+            box = [k2.build_storage(u_np, v_np)]
+
+            def k2_call(k2=k2, box=box):
+                box[0] = k2.run_steps(box[0], shape, MAIN_STEPS)
+
+            calls, sims = {"K2": k2_call}, {}
+            for n_r, n_c in meshes:
+                mesh = halo.make_mesh(n_r * n_c, n_c, DEVICE)
+                pairs = halo.mega_shard_state(u_np, v_np, mesh)
+                for p in pairs:
+                    halo.exchange_halos(p)
+
+                def k7_call(pairs=pairs, mesh=mesh, boundary=boundary):
+                    sharded_mega.sharded_megastep(
+                        *pairs, mesh, MAIN_STEPS // 8, 8, consts, boundary,
+                        shape)
+
+                calls[f"K7 {n_r}x{n_c}"] = k7_call
+                sims[n_r, n_c] = ShardedSimulation(
+                    Parameters(), boundary, device=DEVICE, engine="mega",
+                    n_devices=n_r * n_c, mesh_cols=n_c)
+            samples = {name: [] for name in calls}
+            for name in [*calls, *reversed(calls)]:
+                samples[name].append(cuda_ms(calls[name], reps))
+            for name, pair in samples.items():
+                ms = sum(pair) / len(pair)
+                mesh_shape = (1, 1) if name == "K2" else tuple(
+                    int(x) for x in name.split()[1].split("x"))
+                bound, by = (bound_ms(shape, MAIN_STEPS, boundary)
+                             if name == "K2" else sharded_bound_ms(
+                                 shape, mesh_shape, MAIN_STEPS, boundary))
+                out[shape, boundary, name] = (ms, bound, by)
+                print(f"time {name} {shape[0]}x{shape[1]} {boundary}, "
+                      f"{MAIN_STEPS} steps a launch: {ms!r} ms (turns "
+                      f"{pair!r}) = {gcells(shape, MAIN_STEPS, ms)!r} "
+                      f"Gcell/s, {ms / out[shape, boundary, 'K2'][0]!r}x "
+                      f"K2; bound {bound!r} ms ({by}) [{card}]", flush=True)
+            for mesh_shape, sim in sims.items():
+                box = [sim.build_storage(u_np, v_np)]
+
+                def call(sim=sim, box=box):
+                    box[0] = sim.run_steps(box[0], shape, MAIN_STEPS)
+
+                ms = cuda_ms(call, reps)
+                out[shape, boundary, "backend", mesh_shape] = ms
+                print(f"time sharded backend {shape[0]}x{shape[1]} "
+                      f"{boundary} mesh {mesh_shape[0]}x{mesh_shape[1]}, "
+                      f"{MAIN_STEPS} steps a call (exchange + K7): {ms!r} "
+                      f"ms [{card}]", flush=True)
+    mesh = halo.make_mesh(4, 2, DEVICE)
+    pairs = halo.mega_shard_state(*initial_uv(MAIN_SHAPE), mesh)
+    for p in pairs:
+        halo.exchange_halos(p)
+    out["plain"] = cuda_ms(lambda: sharded_mega.sharded_megastep_reference(
+        *pairs, MAIN_STEPS // 8, 8, consts, "naive", MAIN_SHAPE), 1)
+    print(f"time plain sharded {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive mesh "
+          f"2x2, {MAIN_STEPS} steps: {out['plain']!r} ms [{card}]",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -1044,8 +1289,8 @@ def main(argv=None) -> int:
           f"{megakernel.max_blocks(dev)}, packed resident "
           f"{packed.resident_max_blocks(dev)}, packed mega "
           f"{megakernel.packed_max_blocks(dev)}, oplat "
-          f"{oplat.max_blocks(dev)}, ilpsplit {ilpsplit.max_blocks(dev)}",
-          flush=True)
+          f"{oplat.max_blocks(dev)}, ilpsplit {ilpsplit.max_blocks(dev)}, "
+          f"sharded mega {sharded_mega.max_blocks(dev)}", flush=True)
 
     # 3. every kernel vs its plain version
     compare_kernels(checks, rng)
@@ -1076,6 +1321,14 @@ def main(argv=None) -> int:
           f"{micro_plain['oplat']!r} ms; plain ilpsplit "
           f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} zero split=2, {MAIN_STEPS} "
           f"steps: {micro_plain['ilpsplit']!r} ms [{card}]", flush=True)
+    # 10. the sharded megakernel K7: checks, the sharded simulate runs,
+    # times
+    t10 = time.perf_counter()
+    n10 = compare_sharded(checks, rng)
+    sharded_runs = sharded_paths(checks)
+    k7 = time_sharded(rng, card)
+    print(f"phase 10: {n10} comparisons of K7, {time.perf_counter() - t10!r}"
+          " s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -1089,6 +1342,11 @@ def main(argv=None) -> int:
         print(f"path simulate {' '.join(ZERO_PACKED)} {label} end to end "
               f"({run['engine']}): {run['gcells']!r} Gcell/s "
               f"({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) [{card}]")
+    for label, run in sharded_runs.items():
+        print(f"path simulate {' '.join(SHARDED_FLAGS)} {label} end to end "
+              f"({run['tag']}, mesh {run['mesh']}): {run['gcells']!r} "
+              f"Gcell/s ({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) "
+              f"[{card}]")
     if "hdf5_seconds" in runs["auto"]:
         print(f"simulate.main with HDF5: "
               f"{runs['auto']['hdf5_seconds'] / MAIN_IMAGES * 1e3!r} "
@@ -1142,6 +1400,14 @@ def main(argv=None) -> int:
         plain_ms=micro_plain["ilpsplit"], bound_ms=bound, bound_by=by,
         library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
         boundary="zero", split=2))
+    auto = sharded_runs["auto"]
+    ms, bound, by = k7[MAIN_SHAPE, "naive", "K7 2x2"]
+    entries.append(dict(
+        KERNELS["shmega"], launches=auto["launches"]["shmega"],
+        max_abs_err=checks.kernel_err["shmega"], ms=ms,
+        plain_ms=k7["plain"], bound_ms=bound, bound_by=by, library_ms=None,
+        shape=list(MAIN_SHAPE), steps=MAIN_STEPS, boundary="naive",
+        mesh=list(auto["mesh"])))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

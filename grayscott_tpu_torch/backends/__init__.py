@@ -1,7 +1,10 @@
 """Backend registry and selector: the port's
-``grayscott_tpu/backends/__init__.py``. The port has one backend so far,
-``cuda``, and the selector picks it for every shape; the engine within it
-is the backend's own choice (``cuda.auto_engine``)."""
+``grayscott_tpu/backends/__init__.py``. Two backends: ``cuda`` (one card,
+K1-K6) and ``sharded`` (a mesh of shards, K7). The selector picks ``cuda``
+for every shape; the engine within it is the backend's own choice
+(``cuda.auto_engine``). ``sharded`` runs when it is asked for
+(``--backend sharded``): choosing it by the number of cards comes with the
+multi-card launch (ROADMAP.md Queue 1 item 7)."""
 
 from __future__ import annotations
 
@@ -9,8 +12,10 @@ from typing import Dict, Optional, Tuple, Type
 
 from .base import Simulation
 from .cuda import CudaSimulation
+from .sharded import ShardedSimulation
 
-BACKENDS: Dict[str, Type[Simulation]] = {CudaSimulation.name: CudaSimulation}
+BACKENDS: Dict[str, Type[Simulation]] = {
+    cls.name: cls for cls in (CudaSimulation, ShardedSimulation)}
 
 
 def best_backend_name(shape: Optional[Tuple[int, int]] = None) -> str:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import abc
 import argparse
+import os
 from typing import Any, Tuple
 
 import numpy as np
@@ -19,6 +20,19 @@ import torch
 from ..ops.stencil import BOUNDARIES
 from ..params import Parameters
 from ..species import Species, initial_uv
+
+
+def env_default(name: str, fallback, cast=None, choices=None):
+    """A CLI default from the environment variable ``name``, else
+    ``fallback`` (``grayscott_tpu/backends/base.py:31``). ``choices``: a
+    value outside them stops the program (argparse checks only what is
+    typed on the command line)."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return fallback
+    if choices is not None and raw not in choices:
+        raise SystemExit(f"{name}={raw!r}: expected one of {list(choices)}")
+    return (cast or type(fallback))(raw)
 
 
 class Simulation(abc.ABC):

@@ -1,12 +1,14 @@
 """CLI arguments shared by the port's programs: the port's
 ``grayscott_tpu/cli/shared.py``.
 
-The same ``-k -f -e -r -c -t --preset --stencil --boundary`` arguments
-with the same defaults and environment fallbacks, each backend's own
-arguments (``--pallas-engine``, ``--pallas-resident``, ``--pallas-pack``),
-plus ``--device``; the backend is the selector's choice (the port has
-one). ``--device cuda`` (the default) on a host where PyTorch sees no GPU
-stops with a message; the port never falls back to the CPU.
+The same ``-k -f -e -r -c -t --preset --backend --stencil --boundary``
+arguments with the same defaults and environment fallbacks, each
+backend's own arguments (``--pallas-engine``, ``--pallas-resident``,
+``--pallas-pack``; ``--sharded-engine``, ``--sharded-devices``,
+``--sharded-mesh-cols``, ``--sharded-overlap``), plus ``--device``.
+``--backend auto`` (the default) is the selector's choice. ``--device
+cuda`` (the default) on a host where PyTorch sees no GPU stops with a
+message; the port never falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -54,6 +56,12 @@ def add_shared_args(parser: argparse.ArgumentParser) -> None:
         help="Named (feed, kill) pattern preset; explicit -f/-k override it",
     )
     parser.add_argument(
+        "--backend",
+        default=os.environ.get("GRAYSCOTT_BACKEND", "auto"),
+        help="Compute backend: 'cuda' (one card) or 'sharded' (a mesh of "
+        "shards); default: best available; env GRAYSCOTT_BACKEND",
+    )
+    parser.add_argument(
         "--stencil",
         default=os.environ.get("GRAYSCOTT_STENCIL", DEFAULT_STENCIL),
         choices=sorted(STENCILS),
@@ -87,7 +95,10 @@ def require_device(device: str) -> None:
 
 def make_simulation(ns: argparse.Namespace):
     require_device(ns.device)
-    cls = get_backend(best_backend_name(shape=domain_shape(ns)))
+    name = ns.backend
+    if name in (None, "", "auto"):
+        name = best_backend_name(shape=domain_shape(ns))
+    cls = get_backend(name)
     return cls(simulation_parameters(ns), boundary=ns.boundary,
                device=ns.device, **cls.args_from_namespace(ns))
 

@@ -1,8 +1,10 @@
-// The per-cell and per-tile device code that the port's three kernels share
-// (windowed.cu: K1, mega.cu: K2, resident.cu: K3).
+// The per-cell and per-tile device code that the port's unpacked kernels
+// share (windowed.cu: K1, mega.cu: K2, resident.cu: K3, sharded_mega.cu: K7,
+// ilpsplit.cu: K9).
 //
 // step_tile<HALO> advances one TILE x TILE output tile by `steps` <= HALO
-// Gray-Scott steps:
+// Gray-Scott steps (step_tile_at does the same through a memory layout: a
+// row-major domain, or one shard's padded block):
 //
 //   - the block loads the (TILE + 2*HALO)^2 window of U and V around its tile
 //     into shared memory, cells outside the domain as 0.0;
@@ -95,27 +97,60 @@ struct Window {
   float v[2][WIN * WIN];
 };
 
-// Advance tile (tile_row, tile_col) by `steps` (1..HALO) steps from (u, v)
-// into (u_out, v_out), through the block's shared window `s`. Ends in a
-// __syncthreads(), so the block may call it again for its next tile.
-template <int HALO>
-__device__ __forceinline__ void step_tile(
-    const float* u, const float* v, float* u_out, float* v_out, int tile_row,
-    int tile_col, int rows, int cols, int steps, int naive,
+// Where the state of a domain lies in memory, for step_tile_at: whether a
+// buffer holds the cell at global (row, col) (`holds`), whether the tile may
+// store it (`stores`), and its offset (`at`). Only in-domain cells are asked.
+//
+// FlatLayout: the whole rows x cols domain, row-major (K1-K3, K9).
+struct FlatLayout {
+  int cols;
+  __device__ __forceinline__ bool holds(int, int) const { return true; }
+  __device__ __forceinline__ bool stores(int, int) const { return true; }
+  __device__ __forceinline__ size_t at(int gr, int gc) const {
+    return static_cast<size_t>(gr) * cols + gc;
+  }
+};
+
+// ShardLayout: one shard's padded block of a sharded domain (K7): interior
+// cells [0, r_loc) x [0, c_loc) at global (row0, col0), inside `halo` rows
+// and `chalo` columns of its neighbours' cells, row stride `pitch`.
+struct ShardLayout {
+  int row0, col0, r_loc, c_loc, halo, chalo;
+  size_t pitch;
+  __device__ __forceinline__ bool holds(int gr, int gc) const {
+    const int lr = gr - row0, lc = gc - col0;
+    return lr >= -halo && lr < r_loc + halo && lc >= -chalo &&
+           lc < c_loc + chalo;
+  }
+  __device__ __forceinline__ bool stores(int gr, int gc) const {
+    return gr - row0 < r_loc && gc - col0 < c_loc;
+  }
+  __device__ __forceinline__ size_t at(int gr, int gc) const {
+    return static_cast<size_t>(gr - row0 + halo) * pitch + (gc - col0 + chalo);
+  }
+};
+
+// Advance the TILE x TILE tile whose window cell (0, 0) lies at global
+// (r0, c0) by `steps` (1..HALO) steps from (u, v) into (u_out, v_out), both
+// laid out as `mem` says, through the block's shared window `s`. Cells the
+// buffer does not hold load as 0.0: with `steps` <= HALO they cannot reach
+// the tile. Ends in a __syncthreads(), so the block may call it again for its
+// next tile.
+template <int HALO, typename Layout>
+__device__ __forceinline__ void step_tile_at(
+    const Layout& mem, const float* u, const float* v, float* u_out,
+    float* v_out, int r0, int c0, int rows, int cols, int steps, int naive,
     const Constants& k, Window<HALO>& s) {
   constexpr int WIN = Window<HALO>::WIN;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  // global (row, col) of window cell (0, 0)
-  const int r0 = tile_row * TILE - HALO;
-  const int c0 = tile_col * TILE - HALO;
 
   for (int lr = ty; lr < WIN; lr += BLOCK_Y) {
     const int gr = r0 + lr;
     for (int lc = tx; lc < WIN; lc += BLOCK_X) {
       const int gc = c0 + lc;
       float uc = 0.0f, vc = 0.0f;
-      if (gr >= 0 && gr < rows && gc >= 0 && gc < cols) {
-        const size_t g = static_cast<size_t>(gr) * cols + gc;
+      if (gr >= 0 && gr < rows && gc >= 0 && gc < cols && mem.holds(gr, gc)) {
+        const size_t g = mem.at(gr, gc);
         uc = __ldcg(u + g);
         vc = __ldcg(v + g);
       }
@@ -170,8 +205,8 @@ __device__ __forceinline__ void step_tile(
     const int gr = r0 + lr;
     for (int lc = HALO + tx; lc < HALO + TILE; lc += BLOCK_X) {
       const int gc = c0 + lc;
-      if (gr < rows && gc < cols) {
-        const size_t g = static_cast<size_t>(gr) * cols + gc;
+      if (gr < rows && gc < cols && mem.stores(gr, gc)) {
+        const size_t g = mem.at(gr, gc);
         u_out[g] = s.u[cur][lr * WIN + lc];
         v_out[g] = s.v[cur][lr * WIN + lc];
       }
@@ -180,21 +215,34 @@ __device__ __forceinline__ void step_tile(
   __syncthreads();  // the window is free for the block's next tile
 }
 
-// A barrier across every block of a cooperative launch (all blocks are
-// co-resident, or the launch is refused). `counter` is zero at the launch;
-// the n-th barrier (n = 1, 2, ...) returns once n * gridDim.x arrivals are
-// counted. Every thread's writes before the barrier are visible to every
+// Advance tile (tile_row, tile_col) of a rows x cols domain by `steps`
+// (1..HALO) steps from (u, v) into (u_out, v_out), row-major arrays.
+template <int HALO>
+__device__ __forceinline__ void step_tile(
+    const float* u, const float* v, float* u_out, float* v_out, int tile_row,
+    int tile_col, int rows, int cols, int steps, int naive,
+    const Constants& k, Window<HALO>& s) {
+  step_tile_at<HALO>(FlatLayout{cols}, u, v, u_out, v_out,
+                     tile_row * TILE - HALO, tile_col * TILE - HALO, rows,
+                     cols, steps, naive, k, s);
+}
+
+// A barrier across `blocks` blocks of a cooperative launch (all blocks are
+// co-resident, or the launch is refused) that share `counter`, zero at the
+// launch; the n-th barrier (n = 1, 2, ...) returns once n * blocks arrivals
+// are counted. Every thread's writes before the barrier are visible to every
 // thread's __ldcg reads after it: __syncthreads() orders the block's writes
 // before thread 0's __threadfence() and arrival; thread 0's fence after it
 // sees the count orders the other blocks' writes before the block's later
 // reads, and the closing __syncthreads() extends that to the whole block.
 // (The protocol of cooperative_groups' grid sync, written out so that the
 // library stays a plain whole-program build.)
-__device__ __forceinline__ void grid_barrier(
-    unsigned long long* counter, unsigned long long n) {
+__device__ __forceinline__ void group_barrier(unsigned long long* counter,
+                                              unsigned long long n,
+                                              unsigned int blocks) {
   __syncthreads();
   if (threadIdx.x == 0 && threadIdx.y == 0) {
-    const unsigned long long target = n * gridDim.x;
+    const unsigned long long target = n * blocks;
     __threadfence();
     atomicAdd(counter, 1ULL);
     while (*static_cast<volatile unsigned long long*>(counter) < target) {
@@ -203,6 +251,12 @@ __device__ __forceinline__ void grid_barrier(
     __threadfence();
   }
   __syncthreads();
+}
+
+// group_barrier over every block of the launch.
+__device__ __forceinline__ void grid_barrier(
+    unsigned long long* counter, unsigned long long n) {
+  group_barrier(counter, n, gridDim.x);
 }
 
 // Host side of a persistent kernel (K2, K3): the most blocks of `kernel`

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
+from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.cli import simulate
 from grayscott_tpu_torch.ops import (ilpsplit, megakernel, oplat, packed,
-                                     resident, windowed)
+                                     resident, sharded_mega, windowed)
+from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import (STENCILS, Parameters,
                                         kernel_constants, packed_constants)
 
@@ -388,3 +390,81 @@ def test_refused_microbenchmark_launch_raises(cuda_device, kernel):
             ilpsplit.split_multistep(
                 u, v, torch.empty_like(u), torch.empty_like(v), 1, consts,
                 "naive", 2, grid=2 * ilpsplit.max_blocks(cuda_device) + 1)
+
+
+#: (shape, shards, mesh columns): 1-D and 2-D meshes, ragged against the
+#: shards and the tiles; 1x1 runs no pushes; the last of 4 row shards of 17
+#: rows lies wholly past the domain
+SHARDED = [((70, 97), 4, 1), ((70, 300), 4, 2), ((33, 65), 1, 1),
+           ((100, 290), 6, 3), ((17, 40), 4, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("shape,n,cols", SHARDED)
+def test_sharded_mega_bitwise_equals_plain_and_k2(cuda_device, boundary,
+                                                  shape, n, cols):
+    """K7, one launch of 1 and 3 time blocks on the exchanged pairs, at
+    three grids (the co-resident maximum, one block a shard, an uneven
+    split): every cell of the pairs, halos included, equals the plain
+    version's. Then through the backend at every step count: K2's state.
+    Tolerance: none."""
+    params = Parameters(time_step=0.5)
+    consts = kernel_constants(params)
+    u, v = random_uv(shape, "cpu")
+    mesh = halo.make_mesh(n, cols, cuda_device)
+    for n_blocks, steps in ((1, 8), (3, 8), (3, 5)):
+        for grid in (0, n, 2 * n + 1):
+            pairs = halo.mega_shard_state(u, v, mesh)
+            for p in pairs:
+                halo.exchange_halos(p)
+            want = [p.clone() for p in pairs]
+            before = sharded_mega.launches
+            sharded_mega.sharded_megastep(*pairs, mesh, n_blocks, steps,
+                                          consts, boundary, shape, grid=grid)
+            assert sharded_mega.launches == before + 1
+            sharded_mega.sharded_megastep_reference(*want, n_blocks, steps,
+                                                    consts, boundary, shape)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(pairs, want)), \
+                (n_blocks, steps, grid)
+    sim = ShardedSimulation(params, boundary, device="cuda", engine="mega",
+                            n_devices=n, mesh_cols=cols)
+    k2 = CudaSimulation(params, boundary, device="cuda", engine="mega")
+    for steps in STEP_COUNTS:
+        storage = sim.build_storage(u.numpy(), v.numpy())
+        before = sharded_mega.launches
+        storage = sim.run_steps(storage, shape, steps)
+        n_full, rem = divmod(steps, sharded_mega.MEGA_STEPS)
+        assert sharded_mega.launches == before + (n_full > 0) + (rem > 0)
+        want = k2.extract_uv(k2.run_steps(k2.build_storage(
+            u.numpy(), v.numpy()), shape, steps), shape)
+        got = sim.extract_uv(storage, shape)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["grid_below_shards", "card_below_shards",
+                                  "grid_over_card"])
+def test_sharded_mega_refuses_grids(cuda_device, case):
+    """A grid smaller than the shard count is refused before the launch
+    (a pinned grid) or by the kernel's host side (the co-resident maximum
+    below the shard count); a grid larger than the card holds at once is
+    refused by the card. Each raises; nothing falls back."""
+    consts = kernel_constants(Parameters())
+    n, cols, grid, error = 4, 2, 3, ValueError
+    if case == "card_below_shards":
+        n, cols, grid = sharded_mega.max_blocks(cuda_device) + 8, 1, 0
+        error = RuntimeError
+    elif case == "grid_over_card":
+        grid = 2 * sharded_mega.max_blocks(cuda_device) + 1
+        error = RuntimeError
+    shape = (8 * n, 256)
+    mesh = halo.make_mesh(n, cols, cuda_device)
+    pairs = halo.mega_shard_state(*random_uv(shape, "cpu"), mesh)
+    before = sharded_mega.launches
+    with pytest.raises(error):
+        sharded_mega.sharded_megastep(*pairs, mesh, 1, 8, consts, "naive",
+                                      shape, grid=grid)
+    assert sharded_mega.launches == before

@@ -57,6 +57,10 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.ops.megakernel",
         "grayscott_tpu_torch.ops.packed",
         "grayscott_tpu_torch.ops.oplat", "grayscott_tpu_torch.ops.ilpsplit",
+        "grayscott_tpu_torch.ops.sharded_mega",
+        "grayscott_tpu_torch.parallel",
+        "grayscott_tpu_torch.parallel.halo",
+        "grayscott_tpu_torch.backends.sharded",
         "grayscott_tpu_torch.scripts",
         "grayscott_tpu_torch.scripts.oplat",
         "grayscott_tpu_torch.scripts.ilpsplit",
@@ -211,7 +215,28 @@ def _progress_and_logs(tmp_path):
     assert logs.init_logging() is logger and logger.handlers
 
 
+def _halo(tmp_path):
+    from grayscott_tpu.parallel import halo as jax_halo
+    from grayscott_tpu_torch.parallel import halo
+
+    rng = np.random.RandomState(5)
+    shapes = [(1080, 1920), (4096, 4096), (48, 16), (32, 300), (32, 384),
+              (24, 600), (16384, 128), (7, 5000)]
+    shapes += [tuple(int(x) for x in rng.randint(1, 3000, 2))
+               for _ in range(40)]
+    for shape in shapes:
+        for n in range(1, 13):
+            assert halo.viable_mesh_cols(shape, n) == \
+                jax_halo.viable_mesh_cols(shape, n), (shape, n)
+            assert halo.choose_mesh_cols(n, shape) == \
+                jax_halo.choose_mesh_cols(n, shape), (shape, n)
+        for n in (1, 2, 3, 4, 7):
+            for tile in (8, 32, 128):
+                assert halo._tile_rounded(shape[0], n, tile) == \
+                    jax_halo._tile_rounded(shape[0], n, tile)
+
+
 @pytest.mark.parametrize("copy", ["params", "errors", "species", "shared",
-                                  "hdf5", "progress_and_logs"])
+                                  "hdf5", "progress_and_logs", "halo"])
 def test_copy_matches_the_jax_original(copy, tmp_path):
     globals()[f"_{copy}"](tmp_path)
