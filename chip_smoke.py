@@ -6,14 +6,18 @@
 1. Prints the environment: PyTorch and its CUDA, the card, its power limit
    (nvidia-smi) and nvcc.
 2. Builds the kernels from ``grayscott_tpu_torch/csrc/`` into
-   ``build/kernels/`` and prints the build time and ptxas's report.
+   ``build/kernels/`` and prints the build time, ptxas's report, each K1
+   and K3 instantiation's registers, spills and static shared memory, and
+   how many of their tiles at 1080x1920 and 4096x4096 are interior tiles.
 3. Holds each kernel against its plain PyTorch version on the card at
-   1080x1920, 1000x1917 (ragged against the 32x32 tiles) and 4096x4096,
-   both boundaries: K1 (windowed) at 1 and 8 steps a launch and 32 steps
-   through the backend, K3 (resident) at 1, 27 and 32 steps in one launch,
-   K2 (mega) at 8, 27 and 32 steps through the backend (one time block;
-   three and a remainder launch; four); K1 also with the other stencils
-   and dt = 0.5.
+   1080x1920, 1000x1917 (ragged against the tiles; rows not 16-byte
+   aligned) and 4096x4096, both boundaries: K1 (windowed) at 1 and 8 steps
+   a launch and 32 steps through the backend, K3 (resident) at 1, 27 and 32
+   steps in one launch, K2 (mega) at 8, 27 and 32 steps through the
+   backend (one time block; three and a remainder launch; four) and at 8
+   steps against K1. K1 and K3 also at 1001x1920 and 40x40 (no interior
+   tile), and with the other three stencils and dt = 0.5 at every shape
+   but 4096x4096; and bit for bit on states that hold NaN and +-Inf.
 4. Runs the default ``simulate`` run (1080x1920, naive boundary,
    Oono-Puri, float32) through ``cli.simulate.run`` for 16 images of 32
    steps on the engine that ``auto`` picks, then with ``--pallas-engine
@@ -27,10 +31,12 @@
    one fresh 1000-step run on the mega engine for each boundary, held
    against a 1000-step plain replay on the card.
 6. Times each engine at 1080x1920 and 4096x4096 for both boundaries (the
-   times the engine choice ``backends.cuda.auto_engine`` is set from), K1
-   and its plain version at K = 8, K3's 32-step launch and its plain
-   version, and the snapshot copy of the main path; each beside the card's
-   bound for the same work.
+   times the engine choice ``backends.cuda.auto_engine`` is set from); K1
+   and K3 (on the Hopper tile stepper) in turns with K2 and K9 at split 1,
+   which run the former code shapes of K1 and K3, 32 steps each, and with
+   each part of their design taken out, and K1's and K3's plain versions;
+   and the snapshot copy of the main path; each beside the card's bound
+   for the same work.
 7. The species-packed path (``--pallas-pack on``, zero boundary) at the
    same sizes: K4 (packed windowed: one launch of 1 and 8 steps, 32 steps
    through the backend), K5 (packed resident: one launch of 1, 27 and 32
@@ -84,9 +90,11 @@ without the two JSON lines. With no CUDA GPU visible it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -118,6 +126,17 @@ TOL = 0.0
 #: the card; every tensor of the checks lives there
 DEVICE = "cuda"
 SHAPES = [(1080, 1920), (1000, 1917), (4096, 4096)]
+#: phase 3's shapes for K1 and K3 (on the Hopper tile stepper): SHAPES, a
+#: last tile row of one row (1001x1920), and a domain with no interior tile
+#: (40x40)
+REDESIGNED_SHAPES = [(1080, 1920), (1000, 1917), (1001, 1920), (4096, 4096),
+                     (40, 40)]
+#: the stencils other than the default, and a time step
+OTHER_PARAMS = [("5points", Parameters.with_stencil("5points")),
+                ("pretty", Parameters.with_stencil("pretty")),
+                ("patra-karttunen",
+                 Parameters.with_stencil("patra-karttunen")),
+                ("dt=0.5", Parameters(time_step=0.5))]
 MAIN_SHAPE = (1080, 1920)
 BENCH_SHAPE = (4096, 4096)
 MAIN_IMAGES, MAIN_STEPS = 16, 32
@@ -320,6 +339,16 @@ class Checks:
               f"max|dV|={errs[1]!r}", flush=True)
         self.expect(max(errs) <= TOL, f"{engine} vs plain {what}")
 
+    def compare_bits(self, engine: str, got, want, what: str) -> None:
+        """Bit for bit, NaN included: max|d| is 0.0 when every bit agrees,
+        else inf."""
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+        err = 0.0 if same else float("inf")
+        self.kernel_err[engine] = max(self.kernel_err[engine], err)
+        print(f"compare {engine} {what}: bitwise {same}", flush=True)
+        self.expect(same, f"{engine} vs plain {what}")
+
     def compare_one(self, engine: str, got, want, what: str) -> None:
         err = max_err(got, want)
         self.kernel_err[engine] = max(self.kernel_err[engine], err)
@@ -341,7 +370,7 @@ def compare_kernels(checks: Checks, rng) -> None:
     """Phase 3: every kernel against the plain version on the card."""
     default = Parameters()
     consts = kernel_constants(default)
-    for shape in SHAPES:
+    for shape in REDESIGNED_SHAPES:
         u_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
         v_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
         u0 = torch.from_numpy(u_np).to(DEVICE)
@@ -353,9 +382,11 @@ def compare_kernels(checks: Checks, rng) -> None:
                 u, v = stencil.run(u, v, n - done, consts, boundary)
                 plain[n], done = (u, v), n
             tag = f"{shape[0]}x{shape[1]} {boundary}"
+            k1 = {}
             for steps in (1, 8):
                 ku, kv = torch.empty_like(u0), torch.empty_like(v0)
                 windowed.multistep(u0, v0, ku, kv, steps, consts, boundary)
+                k1[steps] = (ku, kv)
                 checks.compare("windowed", (ku, kv), plain[steps],
                                f"{tag} steps={steps} (one launch)")
             checks.compare("windowed", engine_run(
@@ -368,28 +399,60 @@ def compare_kernels(checks: Checks, rng) -> None:
                                          consts, boundary)
                 checks.compare("resident", out[:2], plain[steps],
                                f"{tag} steps={steps} (one launch)")
+            if shape not in SHAPES:
+                continue
             for steps in (8, 27, 32):
-                checks.compare("mega", engine_run(
-                    "mega", default, boundary, u_np, v_np, steps),
-                    plain[steps], f"{tag} steps={steps} (backend)")
-    # K1 with the other stencils and a time step, on the ragged shape
-    shape = SHAPES[1]
-    u_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
-    v_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
-    u0, v0 = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
-    for label, params in (("5points", Parameters.with_stencil("5points")),
-                          ("pretty", Parameters.with_stencil("pretty")),
-                          ("patra-karttunen",
-                           Parameters.with_stencil("patra-karttunen")),
-                          ("dt=0.5", Parameters(time_step=0.5))):
-        consts = kernel_constants(params)
-        for boundary in ("naive", "zero"):
-            ku, kv = torch.empty_like(u0), torch.empty_like(v0)
-            windowed.multistep(u0, v0, ku, kv, 8, consts, boundary)
-            want = stencil.run(u0, v0, 8, consts, boundary)
-            checks.compare("windowed", (ku, kv), want,
-                           f"{shape[0]}x{shape[1]} {boundary} "
-                           f"params={label} steps=8")
+                got = engine_run("mega", default, boundary, u_np, v_np,
+                                 steps)
+                checks.compare("mega", got, plain[steps],
+                               f"{tag} steps={steps} (backend)")
+                if steps == 8:  # K2 (the first stepper) against K1
+                    checks.compare("mega", got, k1[8],
+                                   f"{tag} steps=8 (backend) vs K1")
+    # K1 and K3 with the other stencils and a time step
+    for shape in REDESIGNED_SHAPES:
+        if shape == BENCH_SHAPE:
+            continue
+        u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
+                                   .astype(np.float32)).to(DEVICE)
+                  for _ in range(2))
+        for label, params in OTHER_PARAMS:
+            consts = kernel_constants(params)
+            for boundary in ("naive", "zero"):
+                want = stencil.run(u0, v0, 8, consts, boundary)
+                what = (f"{shape[0]}x{shape[1]} {boundary} params={label} "
+                        "steps=8 (one launch)")
+                ku, kv = torch.empty_like(u0), torch.empty_like(v0)
+                windowed.multistep(u0, v0, ku, kv, 8, consts, boundary)
+                checks.compare("windowed", (ku, kv), want, what)
+                out = resident.multistep(u0.clone(), v0.clone(),
+                                         torch.empty_like(u0),
+                                         torch.empty_like(v0), 8, consts,
+                                         boundary)
+                checks.compare("resident", out[:2], want, what)
+    # states that hold NaN and +-Inf, in interior and edge tiles and on the
+    # domain's edge: held bit for bit
+    for shape in ((200, 300), MAIN_SHAPE):
+        u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
+                                   .astype(np.float32)).to(DEVICE)
+                  for _ in range(2))
+        u0[100, 150] = v0[0, 5] = float("nan")
+        v0[90, 140] = u0[70, 200] = float("inf")
+        u0[120, 7] = v0[-1, -1] = float("-inf")
+        for label, params in (("oono-puri", default), *OTHER_PARAMS):
+            consts = kernel_constants(params)
+            for boundary in ("naive", "zero"):
+                want = stencil.run(u0, v0, 3, consts, boundary)
+                what = (f"{shape[0]}x{shape[1]} {boundary} params={label} "
+                        "NaN and Inf, steps=3 (one launch)")
+                ku, kv = torch.empty_like(u0), torch.empty_like(v0)
+                windowed.multistep(u0, v0, ku, kv, 3, consts, boundary)
+                checks.compare_bits("windowed", (ku, kv), want, what)
+                out = resident.multistep(u0.clone(), v0.clone(),
+                                         torch.empty_like(u0),
+                                         torch.empty_like(v0), 3, consts,
+                                         boundary)
+                checks.compare_bits("resident", out[:2], want, what)
 
 
 def compare_packed_kernels(checks: Checks, rng) -> None:
@@ -890,41 +953,213 @@ def time_snapshot(shape, reps: int) -> float:
     return cuda_ms(lambda: host.copy_(v.clone(), non_blocking=True), reps)
 
 
-def time_kernels(rng, card: str) -> dict:
-    """Phase 6b: K1 (one K-step launch) and K3 (one 32-step launch) and
-    their plain versions at the main path's shape."""
+def time_kernels(checks: Checks, rng, card: str) -> dict:
+    """Phase 6b: the redesigned K1 (four 8-step launches) and K3 (one
+    32-step launch) timed in turns with the first stepper's code in K2 (one
+    launch of 4 time blocks of 8 steps; K1's former code shape) and K9 at
+    split 1 (K3's former code shape), 32 steps each (K1, K3, K2, K9, K9, K2,
+    K3, K1), at 1080x1920 and 4096x4096, both boundaries; then each with
+    one part of its design taken out (:func:`time_ablations`); then K1's
+    and K3's plain versions. Each beside the card's bound for 32 steps."""
     consts = kernel_constants(Parameters())
     out = {}
-    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
         u, v = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
                 .to(DEVICE) for _ in range(2))
-        bufs = [u, v, torch.empty_like(u), torch.empty_like(v)]
         for boundary in ("naive", "zero"):
+            k1_bufs = [u, v, torch.empty_like(u), torch.empty_like(v)]
+            k3_bufs = [u.clone(), v.clone(), torch.empty_like(u),
+                       torch.empty_like(v)]
+            k9_bufs = [u.clone(), v.clone(), torch.empty_like(u),
+                       torch.empty_like(v)]
+            pair_u, pair_v = megakernel.pair_state(u), megakernel.pair_state(v)
+
             def k1():
-                windowed.multistep(*bufs, windowed.K, consts, boundary)
+                for _ in range(MAIN_STEPS // windowed.K):
+                    windowed.multistep(*k1_bufs, windowed.K, consts, boundary)
+                    k1_bufs[:] = k1_bufs[2:] + k1_bufs[:2]
 
             def k3():
-                bufs[:] = resident.multistep(*bufs, MAIN_STEPS, consts,
-                                             boundary)
+                k3_bufs[:] = resident.multistep(*k3_bufs, MAIN_STEPS, consts,
+                                                boundary)
 
-            for engine, fn, steps in (("windowed", k1, windowed.K),
-                                      ("resident", k3, MAIN_STEPS)):
-                reps = 100 if shape == MAIN_SHAPE else 20
-                ms = cuda_ms(fn, reps // (steps // windowed.K))
+            def k2():
+                megakernel.megastep(pair_u, pair_v, MAIN_STEPS // 8, 8,
+                                    consts, boundary)
+
+            def k9():
+                k9_bufs[:] = ilpsplit.split_multistep(
+                    *k9_bufs, MAIN_STEPS, consts, boundary, 1)
+
+            calls = {"windowed": k1, "resident": k3, "mega": k2,
+                     "ilpsplit": k9}
+            samples = {name: [] for name in calls}
+            for name in [*calls, *reversed(calls)]:
+                samples[name].append(cuda_ms(calls[name], reps))
+            bound, by = bound_ms(shape, MAIN_STEPS, boundary)
+            ms = {name: sum(p) / len(p) for name, p in samples.items()}
+            for name, pair in samples.items():
+                out[name, shape, boundary, "ms32"] = ms[name]
+                print(f"time {name} {shape[0]}x{shape[1]} {boundary}, "
+                      f"{MAIN_STEPS} steps: {ms[name]!r} ms (turns "
+                      f"{pair!r}) = {gcells(shape, MAIN_STEPS, ms[name])!r} "
+                      f"Gcell/s; bound {bound!r} ms ({by}), "
+                      f"{100 * bound / ms[name]!r} % of it [{card}]",
+                      flush=True)
+            print(f"redesigned {shape[0]}x{shape[1]} {boundary}: K1 "
+                  f"{ms['mega'] / ms['windowed']!r}x faster than K2 (K1's "
+                  f"former code shape), K3 "
+                  f"{ms['ilpsplit'] / ms['resident']!r}x faster than K9 at "
+                  f"split 1 (K3's former code shape) [{card}]", flush=True)
+            time_ablations(checks, shape, boundary, u, v, reps, ms, card)
+            for engine, steps in (("windowed", windowed.K),
+                                  ("resident", MAIN_STEPS)):
                 plain_ms = cuda_ms(
                     lambda: stencil.run(u, v, steps, consts, boundary),
                     2 if shape == MAIN_SHAPE else 1)
+                kernel_ms = ms[engine] * steps / MAIN_STEPS
                 bound, by = bound_ms(shape, steps, boundary)
-                out[engine, shape, boundary] = (ms, plain_ms, bound, by,
-                                                steps)
+                out[engine, shape, boundary] = (kernel_ms, plain_ms, bound,
+                                                by, steps)
                 print(f"time {engine} {shape[0]}x{shape[1]} {boundary}, "
-                      f"{steps} steps a launch: kernel {ms!r} ms = "
-                      f"{gcells(shape, steps, ms)!r} Gcell/s; plain "
-                      f"{plain_ms!r} ms = "
+                      f"{steps} steps a launch: kernel {kernel_ms!r} ms; "
+                      f"plain {plain_ms!r} ms = "
                       f"{gcells(shape, steps, plain_ms)!r} Gcell/s; bound "
-                      f"{bound!r} ms ({by}), {100 * bound / ms!r} % of it "
-                      f"[{card}]", flush=True)
+                      f"{bound!r} ms ({by}) [{card}]", flush=True)
     return out
+
+
+#: the parts of K1's and K3's design that their ablation entries take out
+#: (csrc/windowed.cu: gs_windowed_ablation, csrc/resident.cu:
+#: gs_resident_ablation)
+ABLATIONS = {
+    "windowed": {1: "every tile an edge tile",
+                 2: "the tap set tested at run time",
+                 3: "32x32 tiles in 48x48 windows",
+                 4: "32x128 tiles in 48x144 windows"},
+    "resident": {1: "every tile an edge tile",
+                 2: "the tap set tested at run time",
+                 3: "no prefetch of the next window"},
+}
+
+
+def time_ablations(checks: Checks, shape, boundary: str, u, v, reps: int,
+                   ms: dict, card: str) -> None:
+    """Phase 6b's ablations: K1 (four 8-step launches) and K3 (one 32-step
+    launch) of the default stencil, each with one part of its design taken
+    out or with another tile shape (ABLATIONS), timed in turns with the
+    whole kernel (whole, parts..., parts reversed, whole) and held bit for
+    bit against it; each time also as a ratio to the whole kernel's (and
+    beside phase 6b's, ``ms``)."""
+    consts = kernel_constants(Parameters())
+    naive = int(boundary == "naive")
+    stream = torch.cuda.current_stream().cuda_stream
+    floats = [ctypes.c_float] * 14
+    k1_fn = build.bind("gs_windowed_ablation",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + floats
+                       + [ctypes.c_void_p, ctypes.c_int])
+    k3_fn = build.bind("gs_resident_ablation",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + floats
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int])
+    barrier = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+
+    def k1(bufs, part, steps=windowed.K):
+        if part is None:
+            windowed.multistep(*bufs, steps, consts, boundary)
+            return
+        err = k1_fn(*(b.data_ptr() for b in bufs), *shape, steps, naive,
+                    u.device.index or 0, *consts.weights, *consts.reaction,
+                    stream, part)
+        if err:
+            raise RuntimeError(f"K1 ablation {part}: CUDA error {err} "
+                               f"({build.error_name(err)})")
+
+    def k3(bufs, part, steps=MAIN_STEPS):
+        if part is None:
+            return resident.multistep(*bufs, steps, consts, boundary)
+        barrier.zero_()
+        err = k3_fn(*(b.data_ptr() for b in bufs), *shape, steps, naive,
+                    u.device.index or 0, *consts.weights, *consts.reaction,
+                    0, barrier.data_ptr(), stream, part)
+        if err:
+            raise RuntimeError(f"K3 ablation {part}: CUDA error {err} "
+                               f"({build.error_name(err)})")
+        return bufs if steps % 2 == 0 else (*bufs[2:], *bufs[:2])
+
+    for engine, run in (("windowed", k1), ("resident", k3)):
+        parts = [None, *ABLATIONS[engine]]
+        bufs = {p: [u.clone(), v.clone(), torch.empty_like(u),
+                    torch.empty_like(v)] for p in parts}
+        want = None
+        for part in parts:  # one launch of 8 steps, held against the whole
+            b = [u.clone(), v.clone(), torch.empty_like(u),
+                 torch.empty_like(v)]
+            out = run(b, part, steps=8)
+            got = (b[2], b[3]) if engine == "windowed" else tuple(out[:2])
+            if part is None:
+                want = got
+            else:
+                checks.compare(engine, got, want, f"{shape[0]}x{shape[1]} "
+                               f"{boundary} steps=8 with "
+                               f"{ABLATIONS[engine][part]} vs the whole")
+        calls = {}
+        for part in parts:
+            def call(part=part, b=bufs[part]):
+                if engine == "windowed":
+                    for _ in range(MAIN_STEPS // windowed.K):
+                        run(b, part)
+                else:
+                    b[:] = run(b, part)
+            calls[part] = call
+        samples = {p: [] for p in parts}
+        for part in [*parts, *reversed(parts)]:
+            samples[part].append(cuda_ms(calls[part], reps))
+        whole = sum(samples[None]) / 2
+        for part in parts[1:]:
+            t = sum(samples[part]) / 2
+            print(f"time {engine} {shape[0]}x{shape[1]} {boundary}, "
+                  f"{MAIN_STEPS} steps, with {ABLATIONS[engine][part]}: "
+                  f"{t!r} ms (turns {samples[part]!r}) = {t / whole!r}x the "
+                  f"whole kernel's {whole!r} ms (phase 6b's turns: "
+                  f"{ms[engine]!r}) [{card}]", flush=True)
+
+
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads")
+PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+#: K1's and K3's kernels, as their mangled names spell them (the name's
+#: length, then the name: not packed_resident_kernel)
+REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel")
+
+
+def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
+    """(function, registers, spill store bytes, spill load bytes, static
+    shared bytes) of each instantiation of ``kernels`` in ptxas's report;
+    the function from its kernel's name on (its template arguments
+    mangled)."""
+    rows, entry = [], None
+    spills = (None, None)
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry = next((m.group(1)[m.group(1).index(k) + 2:]
+                          for k in kernels if k in m.group(1)), None)
+            spills = (None, None)
+            continue
+        if entry is None:
+            continue
+        m = PTXAS_SPILLS.search(line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = PTXAS_USED.search(line)
+        if m:
+            rows.append((entry, int(m.group(1)), *spills,
+                         int(m.group(2) or 0)))
+            entry = None
+    return rows
 
 
 def compare_microbench_kernels(checks: Checks, rng) -> None:
@@ -1284,6 +1519,18 @@ def main(argv=None) -> int:
     print(f"build: {built.path.name} in {time.perf_counter() - t0!r} s "
           f"(nvcc {built.seconds!r} s)")
     print(built.log.strip(), flush=True)
+    for name, regs, stores, loads, smem in ptxas_report(built.log):
+        print(f"ptxas {name}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B, static shared {smem} B", flush=True)
+    for label, tile, halo in (("K1", windowed.TILE, windowed.K),
+                              ("K3", resident.TILE, resident.HALO)):
+        for shape in (MAIN_SHAPE, BENCH_SHAPE):
+            n = -(-shape[0] // tile[0]) * -(-shape[1] // tile[1])
+            print(f"interior tiles {label} ({tile[0]}x{tile[1]} tiles, "
+                  f"windows {halo} cells wider on every side) at "
+                  f"{shape[0]}x{shape[1]}: "
+                  f"{stencil.interior_tiles(shape, tile, halo)} of {n}",
+                  flush=True)
     dev = torch.device(DEVICE)
     print(f"co-resident blocks: resident {resident.max_blocks(dev)}, mega "
           f"{megakernel.max_blocks(dev)}, packed resident "
@@ -1308,7 +1555,7 @@ def main(argv=None) -> int:
     # 6. times, beside the card
     print(f"timing on {card}")
     time_engines(rng, card)
-    kernel_times = time_kernels(rng, card)
+    kernel_times = time_kernels(checks, rng, card)
     time_packed_engines(rng, card)
     kernel_times.update(time_packed_kernels(rng, card))
 
@@ -1368,7 +1615,8 @@ def main(argv=None) -> int:
             KERNELS[engine], launches=runs[path]["launches"][engine],
             max_abs_err=checks.kernel_err[engine], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
-            shape=list(MAIN_SHAPE), steps=steps, boundary="naive"))
+            shape=list(MAIN_SHAPE), steps=steps, boundary="naive",
+            redesigned="csrc/gs_tile_sm90.cuh"))
     ms, plain_ms = bench["naive"]
     bound, by = bound_ms(BENCH_SHAPE, BENCH_STEPS, "naive")
     entries.append(dict(

@@ -56,7 +56,7 @@ import torch
 from ..errors import UnsupportedConfigError
 from ..ops import megakernel, packed, resident, windowed
 from ..params import Parameters, kernel_constants, packed_constants
-from .base import Simulation
+from .base import Simulation, env_default
 
 ENGINES = ("auto", "windowed", "mega")
 RESIDENT = ("auto", "on", "off")
@@ -85,9 +85,9 @@ L2_SHARE = 0.75
 #: (shape class, boundary) -> the engines, fastest first (see auto_engine)
 _RANKING = {
     ("l2", "naive"): ("resident", "windowed", "mega"),
-    ("l2", "zero"): ("windowed", "mega", "resident"),
-    ("larger", "naive"): ("resident", "windowed", "mega"),
-    ("larger", "zero"): ("windowed", "mega", "resident"),
+    ("l2", "zero"): ("windowed", "resident", "mega"),
+    ("larger", "naive"): ("windowed", "resident", "mega"),
+    ("larger", "zero"): ("windowed", "resident", "mega"),
 }
 
 
@@ -115,19 +115,20 @@ def auto_engine(shape: Tuple[int, int], boundary: str,
     the shape's class and the boundary, as measured on the card.
     ``resident_ok=False`` (the ``resident='off'`` knob) skips K3.
 
-    Set from ``chip_smoke.py``'s engine times (32 steps a call through the
-    backend, CUDA events; NVIDIA H100 80GB HBM3, power limit 700.00 W),
-    ms per 32 steps, windowed / resident / mega:
+    Set from ``chip_smoke.py``'s engine times (phase 6a: 32 steps a call
+    through the backend, CUDA events, in turns; NVIDIA H100 80GB HBM3,
+    power limit 700.00 W), ms per 32 steps, windowed / resident / mega,
+    with K1 and K3 on the Hopper tile stepper (``csrc/gs_tile_sm90.cuh``):
 
-    - 1080x1920 ("l2"): naive 1.2631 / 1.2490 / 1.6046, zero
-      0.7808 / 0.9519 / 0.9395;
-    - 4096x4096 ("larger"): naive 9.6143 / 8.7977 / 11.5039, zero
-      5.9676 / 6.9794 / 6.7183.
+    - 1080x1920 ("l2"): naive 0.5699 / 0.5568 / 1.6159, zero
+      0.3696 / 0.4827 / 0.9440;
+    - 4096x4096 ("larger"): naive 2.9680 / 4.3315 / 11.5723, zero
+      2.5470 / 4.0544 / 6.7628.
 
-    Both classes rank alike: K3 first on the naive boundary, whose costly
-    per-cell arithmetic gains most from K3's lack of halo recompute; K1
-    first on the zero boundary, where K3's barrier and reload a step cost
-    more than K1's recompute. K2 is not first anywhere.
+    K1 is first everywhere but on the naive boundary while the state fits
+    L2, where K3, with no halo recompute, leads it by 2 %. Beyond L2 K3
+    passes the whole state through HBM every step, which K1 does every 8.
+    K2 (still on the first stepper) is last everywhere.
     """
     return next(e for e in _RANKING[shape_class(shape), boundary]
                 if resident_ok or e != "resident")
@@ -147,10 +148,12 @@ def auto_packed_engine(shape: Tuple[int, int],
     - 1080x1920 ("l2"): 0.6786 / 0.8477 / 0.8390 (K1 0.7814);
     - 4096x4096 ("larger"): 5.0528 / 6.0773 / 5.9647 (K1 5.9671).
 
-    Both classes rank alike, as the unpacked zero boundary does: K4 first,
-    then K6, then K5. The JAX backend takes the megakernel first
-    (``backends/pallas.py:567-577``); on the card K6 trails K4 as K2
-    trails K1.
+    Both classes rank alike: K4 first, then K6, then K5. The JAX backend
+    takes the megakernel first (``backends/pallas.py:567-577``); on the
+    card K6 trails K4 as K2 trails K1. Since K1 moved to the Hopper tile
+    stepper, the unpacked zero boundary on K1 is faster than every packed
+    engine (0.3692 ms against K4's 0.6837 at 1080x1920, 2.5463 against
+    5.0902 at 4096x4096), so packing stays opt-in.
     """
     return next(e for e in _PACKED_RANKING[shape_class(shape)]
                 if resident_ok or e != "resident")
@@ -295,21 +298,29 @@ class CudaSimulation(Simulation):
 
     @classmethod
     def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:
-        """The JAX backend's engine flags, under its names."""
+        """The JAX backend's engine flags, under its names, with its
+        environment defaults (``GRAYSCOTT_PALLAS_ENGINE``,
+        ``GRAYSCOTT_PALLAS_RESIDENT``, ``GRAYSCOTT_PALLAS_PACK``)."""
         parser.add_argument(
-            "--pallas-engine", choices=ENGINES, default="auto",
+            "--pallas-engine", choices=ENGINES,
+            default=env_default("GRAYSCOTT_PALLAS_ENGINE", "auto",
+                                choices=ENGINES),
             help="Kernel engine: 'mega' runs the whole step loop in one "
             "persistent launch (K2); 'windowed' launches K1 every 8 steps; "
             "'auto' (default) picks by domain size, as measured on the card",
         )
         parser.add_argument(
-            "--pallas-resident", choices=RESIDENT, default="auto",
+            "--pallas-resident", choices=RESIDENT,
+            default=env_default("GRAYSCOTT_PALLAS_RESIDENT", "auto",
+                                choices=RESIDENT),
             help="Resident engine (K3: every step of a run in one "
             "persistent launch, the state in L2): 'on' forces it, 'off' "
             "never runs it, 'auto' (default) lets the engine choice decide",
         )
         parser.add_argument(
-            "--pallas-pack", choices=PACK, default="auto",
+            "--pallas-pack", choices=PACK,
+            default=env_default("GRAYSCOTT_PALLAS_PACK", "auto",
+                                choices=PACK),
             help="Species-packed layout: U and V side by side in one array, "
             "the separable step and the linear fold (K4, K5, K6; zero "
             "boundary and a separable stencil only). 'on' packs, 'auto' "

@@ -24,6 +24,11 @@ import torch
 from ..params import KernelConstants
 from . import build, checks, stencil
 
+#: the kernel's output tile (rows, cols) and the ring of its window: one
+#: step a pass (csrc/resident.cu)
+TILE = (32, 32)
+HALO = 1
+
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
 

@@ -14,6 +14,11 @@ anchored at the clamped window's top-left corner (``oracle._index_maps``).
 :func:`step_at` steps one block of a larger domain, at the block's global
 origin: the plain version of the sharded megakernel's per-shard step
 (``ops/sharded_mega.py``).
+
+:func:`tiled_step` is the CPU twin of the interior dispatch of K1 and K3
+(``csrc/gs_tile_sm90.cuh``): a tile whose window lies inside the domain
+adds a fixed term list (:func:`fixed_laplacian`), the others take
+:func:`step`; :func:`interior_tiles` counts the former.
 """
 
 from __future__ import annotations
@@ -145,3 +150,72 @@ def step_at(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
                      laplacian_at(v, consts.weights, boundary, origin,
                                   domain), consts)
     return torch.where(mask, nu, 0.0), torch.where(mask, nv, 0.0)
+
+
+def _interior_cells(n: int, t: int, halo: int, device=None) -> torch.Tensor:
+    """Which of the ``n`` cells along one axis lie in a tile of ``t`` cells
+    whose window (``halo`` more on each side) lies inside ``[0, n)``."""
+    first = torch.arange(n, device=device) // t * t
+    return (first - halo >= 0) & (first + t + halo <= n)
+
+
+def interior_tiles(shape: Tuple[int, int], tile: Tuple[int, int],
+                   halo: int) -> int:
+    """How many ``tile`` (rows, cols) tiles of a ``shape`` domain have
+    their window (the tile and ``halo`` cells around it) inside the domain:
+    the tiles that K1 (``halo`` = K) and K3 (``halo`` = 1) step with no
+    boundary arithmetic. Every cell such a tile steps lies in rows
+    ``[1, R-2]`` and columns ``[1, C-2]``."""
+    rows, cols = (int(_interior_cells(n, t, halo).sum()) // t
+                  for n, t in zip(shape, tile))
+    return rows * cols
+
+
+def interior_mask(shape: Tuple[int, int], tile: Tuple[int, int], halo: int,
+                  device=None) -> torch.Tensor:
+    """The cells of the tiles that :func:`interior_tiles` counts."""
+    rows, cols = (_interior_cells(n, t, halo, device)
+                  for n, t in zip(shape, tile))
+    return rows[:, None] & cols[None, :]
+
+
+def fixed_laplacian(x: torch.Tensor, weights: Sequence[float],
+                    boundary: str) -> torch.Tensor:
+    """The laplacian of the cells ``x[1:-1, 1:-1]`` from the fixed term list
+    of an interior tile, which no clamp and no domain edge reaches: every
+    tap of nonzero weight in row-major order, and on the naive boundary the
+    centre term ``w * (x - x)`` even when its weight is 0. These are the
+    terms, in the order, that :func:`laplacian` adds for such a cell, so
+    the result is the same bit for bit, NaN and Inf included."""
+    if boundary not in BOUNDARIES:
+        raise ValueError(
+            f"unknown boundary {boundary!r}; expected {BOUNDARIES}")
+    h, w = x.shape[0] - 2, x.shape[1] - 2
+    centre = x[1:-1, 1:-1]
+    full = torch.zeros_like(centre)
+    for i in range(3):
+        for j in range(3):
+            wt = weights[3 * i + j]
+            if wt == 0.0 and not (boundary == "naive" and (i, j) == (1, 1)):
+                continue
+            full = full + wt * (x[i:i + h, j:j + w] - centre)
+    return full
+
+
+def tiled_step(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
+               boundary: str, tile: Tuple[int, int], halo: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`step` decided tile by tile as K1 and K3 decide it: the cells
+    of a tile that :func:`interior_tiles` counts come from
+    :func:`fixed_laplacian` and the update, the others from :func:`step`.
+    Equal to :func:`step` bit for bit."""
+    nu, nv = step(u, v, consts, boundary)
+    mask = interior_mask(u.shape, tile, halo, u.device)[1:-1, 1:-1]
+    if not bool(mask.any()):
+        return nu, nv
+    fu, fv = _update(u[1:-1, 1:-1], v[1:-1, 1:-1],
+                     fixed_laplacian(u, consts.weights, boundary),
+                     fixed_laplacian(v, consts.weights, boundary), consts)
+    nu[1:-1, 1:-1] = torch.where(mask, fu, nu[1:-1, 1:-1])
+    nv[1:-1, 1:-1] = torch.where(mask, fv, nv[1:-1, 1:-1])
+    return nu, nv

@@ -23,6 +23,10 @@ from . import build, checks, stencil
 #: most steps one launch may take: the kernel's compile-time halo depth
 K = 8
 
+#: the kernel's output tile (rows, cols); each block steps it in a window of
+#: K cells more on every side (csrc/windowed.cu: Main)
+TILE = (64, 64)
+
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
 

@@ -89,10 +89,74 @@ def test_simulate_run_on_card_equals_cpu(cuda_device, boundary):
 def test_launch_error_raises(cuda_device):
     """A launch the card refuses raises; nothing falls back."""
     consts = kernel_constants(Parameters())
-    u, v = random_uv((70000 * 32, 1), cuda_device)  # grid.y over 65535
+    # grid.y over 65535
+    u, v = random_uv((70000 * windowed.TILE[0], 1), cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
         windowed.multistep(u, v, torch.empty_like(u), torch.empty_like(v),
                            1, consts, "naive")
+
+
+#: domains with interior tiles for K1 (64x64 tiles in 80x80 windows) and
+#: K3 (32x32 tiles in 34x34 windows), ragged against both
+INTERIOR_SHAPES = [(200, 300), (161, 259), (130, 97)]
+
+
+def bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [1.0, 0.5])
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_redesigned_kernels_bitwise_on_interior_tiles(cuda_device, boundary,
+                                                      stencil_name, dt):
+    """K1 (every step count 1..K) and K3 (1, 2 and 9 steps) on domains whose
+    interior tiles take the fixed term lists (csrc/gs_tile_sm90.cuh), with
+    each stencil's tap set and dt. Tolerance: none."""
+    consts = kernel_constants(Parameters.with_stencil(stencil_name,
+                                                      time_step=dt))
+    for shape in INTERIOR_SHAPES:
+        u, v = random_uv(shape, cuda_device)
+        for steps in range(1, windowed.K + 2):
+            want = windowed.multistep_reference(u, v, steps, consts,
+                                                boundary)
+            if steps <= windowed.K:
+                uo, vo = torch.empty_like(u), torch.empty_like(v)
+                windowed.multistep(u, v, uo, vo, steps, consts, boundary)
+                assert bits_equal(uo, want[0]) and bits_equal(vo, want[1]), \
+                    ("K1", shape, steps)
+            if steps in (1, 2, 9):
+                out = resident.multistep(u.clone(), v.clone(),
+                                         torch.empty_like(u),
+                                         torch.empty_like(v), steps, consts,
+                                         boundary)
+                torch.cuda.synchronize()
+                assert bits_equal(out[0], want[0]) and \
+                    bits_equal(out[1], want[1]), ("K3", shape, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_redesigned_kernels_keep_nan_and_inf(cuda_device, boundary,
+                                             stencil_name):
+    """NaN and +-Inf in interior and edge tiles and on the domain's edge
+    spread through K1 and K3 bit for bit as through the plain step (the
+    naive list's centre term makes an infinite cell NaN)."""
+    consts = kernel_constants(Parameters.with_stencil(stencil_name))
+    u, v = random_uv((200, 300), cuda_device)
+    u[100, 150] = v[0, 5] = float("nan")
+    v[90, 140] = u[70, 200] = float("inf")
+    u[120, 7] = v[-1, -1] = float("-inf")
+    want = windowed.multistep_reference(u, v, 3, consts, boundary)
+    uo, vo = torch.empty_like(u), torch.empty_like(v)
+    windowed.multistep(u, v, uo, vo, 3, consts, boundary)
+    out = resident.multistep(u.clone(), v.clone(), torch.empty_like(u),
+                             torch.empty_like(v), 3, consts, boundary)
+    torch.cuda.synchronize()
+    assert bits_equal(uo, want[0]) and bits_equal(vo, want[1])
+    assert bits_equal(out[0], want[0]) and bits_equal(out[1], want[1])
 
 
 @pytest.mark.gpu

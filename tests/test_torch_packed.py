@@ -349,17 +349,23 @@ def test_packed_engine_choice(pins, engine):
 
 
 def test_pallas_pack_flag(monkeypatch):
-    """``--pallas-pack`` takes the JAX values and has no environment
-    default."""
+    """``--pallas-pack`` takes the JAX values and, as the JAX flag does,
+    defaults to ``GRAYSCOTT_PALLAS_PACK``; a value outside the choices
+    there stops the parser."""
+    monkeypatch.delenv("GRAYSCOTT_PALLAS_PACK", raising=False)
+    assert simulate.build_parser().parse_args([]).pallas_pack == "auto"
     monkeypatch.setenv("GRAYSCOTT_PALLAS_PACK", "on")
     parser = simulate.build_parser()
     ns = parser.parse_args([])
-    assert ns.pallas_pack == "auto"
-    assert CudaSimulation.args_from_namespace(ns)["pack"] == "auto"
-    ns = parser.parse_args(["--pallas-pack", "on"])
+    assert ns.pallas_pack == "on"
     assert CudaSimulation.args_from_namespace(ns)["pack"] == "on"
+    ns = parser.parse_args(["--pallas-pack", "off"])
+    assert CudaSimulation.args_from_namespace(ns)["pack"] == "off"
     with pytest.raises(SystemExit):
         parser.parse_args(["--pallas-pack", "maybe"])
+    monkeypatch.setenv("GRAYSCOTT_PALLAS_PACK", "maybe")
+    with pytest.raises(SystemExit):
+        simulate.build_parser()
 
 
 @pytest.mark.parametrize("kind", [
