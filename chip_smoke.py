@@ -6,18 +6,23 @@
 1. Prints the environment: PyTorch and its CUDA, the card, its power limit
    (nvidia-smi) and nvcc.
 2. Builds the kernels from ``grayscott_tpu_torch/csrc/`` into
-   ``build/kernels/`` and prints the build time, ptxas's report, each K1
-   and K3 instantiation's registers, spills and static shared memory, and
-   how many of their tiles at 1080x1920 and 4096x4096 are interior tiles.
+   ``build/kernels/`` and prints the build time, ptxas's report, each K1,
+   K2, K3 and K7 instantiation's registers, spills and static shared memory
+   (a spill in K2 or K7 fails the run), how many of K1's, K2's and K3's
+   tiles are interior tiles, and K7's per shard on each mesh, for both of
+   its tile geometries.
 3. Holds each kernel against its plain PyTorch version on the card at
    1080x1920, 1000x1917 (ragged against the tiles; rows not 16-byte
    aligned) and 4096x4096, both boundaries: K1 (windowed) at 1 and 8 steps
    a launch and 32 steps through the backend, K3 (resident) at 1, 27 and 32
    steps in one launch, K2 (mega) at 8, 27 and 32 steps through the
    backend (one time block; three and a remainder launch; four) and at 8
-   steps against K1. K1 and K3 also at 1001x1920 and 40x40 (no interior
-   tile), and with the other three stencils and dt = 0.5 at every shape
-   but 4096x4096; and bit for bit on states that hold NaN and +-Inf.
+   steps against K1. K1, K2 and K3 also at 1001x1920 and 40x40 (no
+   interior tile), and with the other three stencils and dt = 0.5 at every
+   shape but 4096x4096; and bit for bit on states that hold NaN and +-Inf.
+   K2 also with each part of its design taken out (its 32x32 geometry and
+   the first stepper's kernel among them) at every shape, and with grids
+   pinned to 1 and 7 blocks.
 4. Runs the default ``simulate`` run (1080x1920, naive boundary,
    Oono-Puri, float32) through ``cli.simulate.run`` for 16 images of 32
    steps on the engine that ``auto`` picks, then with ``--pallas-engine
@@ -29,12 +34,14 @@
 5. Runs the bench path at full size: ``bench.headline.measure`` for the
    4096x4096 x 1000-step zero and naive rows on the ``auto`` engine, then
    one fresh 1000-step run on the mega engine for each boundary, held
-   against a 1000-step plain replay on the card.
+   against a 1000-step plain replay on the card, its time beside its bound
+   and the headline row's.
 6. Times each engine at 1080x1920 and 4096x4096 for both boundaries (the
-   times the engine choice ``backends.cuda.auto_engine`` is set from); K1
-   and K3 (on the Hopper tile stepper) in turns with K2 and K9 at split 1,
-   which run the former code shapes of K1 and K3, 32 steps each, and with
-   each part of their design taken out, and K1's and K3's plain versions;
+   times the engine choice ``backends.cuda.auto_engine`` is set from); K1,
+   K2 and K3 (on the Hopper tile stepper) in turns with K2's first-stepper
+   kernel and K9 at split 1 (K3's former code shape), 32 steps each, and
+   with each part of their design taken out, and K1's and K3's plain
+   versions;
    and the snapshot copy of the main path; each beside the card's bound
    for the same work.
 7. The species-packed path (``--pallas-pack on``, zero boundary) at the
@@ -67,19 +74,22 @@
    boundaries, 32 steps, split 1, 2, 4 and 8 beside K3; each time beside
    the card's bound.
 10. The sharded megakernel K7 (``ops/sharded_mega.py``; all shards on the
-   one card, one launch). Through the sharded backend against its plain
-   version on the card and against K2: 1080x1920 and 1000x1917 on meshes
-   1x1, 2x1, 4x1 and 2x2 at 8, 27 and 32 steps, 1001x1920 (its last shards
-   partly past the domain) on 4x1 and 2x2 at 27, 4096x4096 on 4x1 and 2x2
-   at 32, both boundaries. ``simulate --backend sharded --sharded-engine
+   one card, one launch). On both tile geometries, launch by launch as the
+   backend makes them, against its plain version on the card and against
+   K2: 1080x1920 and 1000x1917 on meshes 1x1, 2x1, 4x1 and 2x2 at 8, 27
+   and 32 steps, 1001x1920 (its last shards partly past the domain) on 4x1
+   and 2x2 at 27, 4096x4096 on 4x1 and 2x2 at 32, both boundaries; through
+   the backend (the geometry it picks) at 27 steps on each; the other
+   stencils, dt = 0.5 and NaN and +-Inf states on 2x2 at 1080x1920. ``simulate --backend sharded --sharded-engine
    mega --sharded-devices 4`` on the default run (16 images of 32 steps),
    on the default mesh (2x2 at this shape) and with ``--sharded-mesh-cols
    1`` and ``2``, each with the launch counts zeroed before it (16 K7
    launches and no other) and every frame against the plain replay of the
-   unsharded run. K7's 32-step launch on 1x1, 4x1 and 2x2 timed in turns
-   with K2 at 1080x1920 and 4096x4096, both boundaries, beside its bound;
-   the backend's call (exchange and launch); each mesh's tile counts; the
-   plain version once.
+   unsharded run. K7's 32-step launch on 1x1, 4x1 and 2x2, on both tile
+   geometries, timed in turns with K2 and K2's first-stepper kernel at
+   1080x1920 and 4096x4096, both boundaries, beside its bound; the
+   backend's call (exchange and launch); each mesh's tile counts and
+   rounds; the plain version once.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 and 10 run after
@@ -95,6 +105,7 @@ import importlib.util
 import json
 import os
 import re
+import statistics
 import sys
 import tempfile
 import time
@@ -105,7 +116,7 @@ import torch
 from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
-from grayscott_tpu_torch.bench import headline
+from grayscott_tpu_torch.bench import headline, simulate_turns
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      packed, resident, sharded_mega, stencil,
@@ -399,17 +410,17 @@ def compare_kernels(checks: Checks, rng) -> None:
                                          consts, boundary)
                 checks.compare("resident", out[:2], plain[steps],
                                f"{tag} steps={steps} (one launch)")
-            if shape not in SHAPES:
-                continue
             for steps in (8, 27, 32):
                 got = engine_run("mega", default, boundary, u_np, v_np,
                                  steps)
                 checks.compare("mega", got, plain[steps],
                                f"{tag} steps={steps} (backend)")
-                if steps == 8:  # K2 (the first stepper) against K1
+                if steps == 8:  # K2 against K1
                     checks.compare("mega", got, k1[8],
                                    f"{tag} steps=8 (backend) vs K1")
-    # K1 and K3 with the other stencils and a time step
+            compare_mega_parts(checks, shape, boundary, u0, v0, plain)
+    # K1, K2 and K3 with the other stencils and a time step (K2 in two time
+    # blocks of 4 steps)
     for shape in REDESIGNED_SHAPES:
         if shape == BENCH_SHAPE:
             continue
@@ -430,8 +441,11 @@ def compare_kernels(checks: Checks, rng) -> None:
                                          torch.empty_like(v0), 8, consts,
                                          boundary)
                 checks.compare("resident", out[:2], want, what)
+                pu, pv = megakernel.pair_state(u0), megakernel.pair_state(v0)
+                megakernel.megastep(pu, pv, 2, 4, consts, boundary)
+                checks.compare("mega", (pu[0], pv[0]), want, what)
     # states that hold NaN and +-Inf, in interior and edge tiles and on the
-    # domain's edge: held bit for bit
+    # domain's edge: held bit for bit (K2 in a time block of 3 steps)
     for shape in ((200, 300), MAIN_SHAPE):
         u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
                                    .astype(np.float32)).to(DEVICE)
@@ -453,6 +467,49 @@ def compare_kernels(checks: Checks, rng) -> None:
                                          torch.empty_like(v0), 3, consts,
                                          boundary)
                 checks.compare_bits("resident", out[:2], want, what)
+                pu, pv = megakernel.pair_state(u0), megakernel.pair_state(v0)
+                megakernel.megastep(pu, pv, 1, 3, consts, boundary)
+                checks.compare_bits("mega", (pu[0], pv[0]), want, what)
+                if label == "oono-puri":  # each part of K2, in 3 blocks of 1
+                    for part in megakernel.ABLATIONS:
+                        pu = megakernel.pair_state(u0)
+                        pv = megakernel.pair_state(v0)
+                        megakernel.megastep_ablation(pu, pv, 3, 1, consts,
+                                                     boundary, part)
+                        checks.compare_bits(
+                            "mega", (pu[0], pv[0]), want,
+                            f"{what} with {megakernel.ABLATIONS[part]}")
+
+
+#: K2's grids pinned below the co-resident maximum, many rounds of tiles a
+#: time block
+MEGA_GRID_PINS = (1, 7)
+
+
+def compare_mega_parts(checks: Checks, shape, boundary: str, u0, v0,
+                       plain: dict) -> None:
+    """Phase 3's K2 parts: each part of the design taken out
+    (``megakernel.ABLATIONS``: the 32x32 geometry and the first stepper's
+    kernel among them) in one time block of 8 steps and in four (slot copy
+    and none), and the whole kernel on grids pinned to MEGA_GRID_PINS
+    blocks (two time blocks of 4 steps), against the plain version."""
+    consts = kernel_constants(Parameters())
+    tag = f"{shape[0]}x{shape[1]} {boundary}"
+    for part, what in megakernel.ABLATIONS.items():
+        for n_blocks in (1, 4):
+            pu, pv = megakernel.pair_state(u0), megakernel.pair_state(v0)
+            megakernel.megastep_ablation(pu, pv, n_blocks, 8, consts,
+                                         boundary, part)
+            checks.compare("mega", (pu[0], pv[0]), plain[8 * n_blocks],
+                           f"{tag} steps={8 * n_blocks} (one launch) with "
+                           f"{what}")
+    want = stencil.run(u0, v0, 8, consts, boundary)
+    for grid in MEGA_GRID_PINS:
+        pu, pv = megakernel.pair_state(u0), megakernel.pair_state(v0)
+        megakernel.megastep(pu, pv, 2, 4, consts, boundary, grid=grid)
+        checks.compare("mega", (pu[0], pv[0]), want,
+                       f"{tag} steps=8 (two time blocks) on a grid of "
+                       f"{grid} blocks")
 
 
 def compare_packed_kernels(checks: Checks, rng) -> None:
@@ -597,10 +654,31 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
           f"frame: {errs}", flush=True)
     checks.expect(max(errs) <= TOL, f"simulate {label} vs plain replay")
     return {"engine": engine, "seconds": seconds, "launches": launches,
-            "frames": frames, "tag": species.storage[0],
-            "mesh": getattr(getattr(sim, "mesh", None), "shape", None),
-            "gcells": MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_IMAGES
-            * MAIN_STEPS / seconds / 1e9}
+            "frames": frames, "tag": species.storage[0], "flags": flags,
+            "mesh": getattr(getattr(sim, "mesh", None), "shape", None)}
+
+
+#: timed runs of each simulate path after its checked run: this many rounds
+#: in turns, the paths in order and then reversed
+PATH_ROUNDS = 2
+
+
+def time_paths(runs: list) -> None:
+    """Phase 4c: the simulate paths of ``runs`` (the checked runs of phases
+    4, 4b and 10b) timed again, 2 x PATH_ROUNDS runs each in turns
+    (``bench/simulate_turns.py:run_ms``: the host clock, ending in a device
+    synchronise, as the checked run is timed), since one 16-image run varies
+    by up to 10 % between processes; each run gains ``turns_ms`` and
+    ``median_ms`` (ms an image over the checked run and these)."""
+    for run in runs:
+        run["turns_ms"] = [run["seconds"] / MAIN_IMAGES * 1e3]
+    order = [*runs, *reversed(runs)]
+    for _ in range(PATH_ROUNDS):
+        for run in order:
+            run["turns_ms"].append(simulate_turns.run_ms(
+                run["flags"], MAIN_IMAGES, MAIN_STEPS))
+    for run in runs:
+        run["median_ms"] = statistics.median(run["turns_ms"])
 
 
 def main_paths(checks: Checks) -> dict:
@@ -809,10 +887,17 @@ def bench_path(checks: Checks, card: str) -> dict:
                        f"{boundary} steps={BENCH_STEPS} (one launch)")
         checks.expect(mega_launches == 1,
                       f"1000-step mega run made {mega_launches} launches")
+        bound, by = bound_ms(BENCH_SHAPE, BENCH_STEPS, boundary)
+        name, steady, single, _ = rows[boundary]
         print(f"time mega {BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} {boundary} "
               f"{BENCH_STEPS} steps in one launch: {ms!r} ms = "
-              f"{gcells(BENCH_SHAPE, BENCH_STEPS, ms)!r} Gcell/s; plain "
-              f"replay {plain_ms!r} ms [{card}]", flush=True)
+              f"{gcells(BENCH_SHAPE, BENCH_STEPS, ms)!r} Gcell/s; bound "
+              f"{bound!r} ms ({by}), {100 * bound / ms!r} % of it; the "
+              f"headline's {boundary} row ({name}, {engines[boundary]}): "
+              f"steady {steady!r} Gcell/s = "
+              f"{BENCH_SHAPE[0] * BENCH_SHAPE[1] * BENCH_STEPS / steady / 1e6!r}"
+              f" ms, single run {single!r} Gcell/s; plain replay "
+              f"{plain_ms!r} ms [{card}]", flush=True)
         result[boundary] = (ms, plain_ms)
     return result
 
@@ -954,13 +1039,15 @@ def time_snapshot(shape, reps: int) -> float:
 
 
 def time_kernels(checks: Checks, rng, card: str) -> dict:
-    """Phase 6b: the redesigned K1 (four 8-step launches) and K3 (one
-    32-step launch) timed in turns with the first stepper's code in K2 (one
-    launch of 4 time blocks of 8 steps; K1's former code shape) and K9 at
-    split 1 (K3's former code shape), 32 steps each (K1, K3, K2, K9, K9, K2,
-    K3, K1), at 1080x1920 and 4096x4096, both boundaries; then each with
-    one part of its design taken out (:func:`time_ablations`); then K1's
-    and K3's plain versions. Each beside the card's bound for 32 steps."""
+    """Phase 6b: K1 (four 8-step launches), K2 (one launch of 4 time blocks
+    of 8 steps) and K3 (one 32-step launch), all three on the Hopper tile
+    stepper, timed in turns with K2's first-stepper kernel (its ablation
+    part 0: K1's and K2's former code shape) and K9 at split 1 (K3's former
+    code shape), 32 steps each (K1, K2, K2 part 0, K3, K9, then back), at
+    1080x1920 and 4096x4096, both boundaries; then each of K1, K2 and K3
+    with one part of its design taken out (:func:`time_ablations`); then
+    K1's and K3's plain versions. Each beside the card's bound for 32
+    steps."""
     consts = kernel_constants(Parameters())
     out = {}
     for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
@@ -973,6 +1060,7 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
             k9_bufs = [u.clone(), v.clone(), torch.empty_like(u),
                        torch.empty_like(v)]
             pair_u, pair_v = megakernel.pair_state(u), megakernel.pair_state(v)
+            old_u, old_v = megakernel.pair_state(u), megakernel.pair_state(v)
 
             def k1():
                 for _ in range(MAIN_STEPS // windowed.K):
@@ -987,12 +1075,16 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
                 megakernel.megastep(pair_u, pair_v, MAIN_STEPS // 8, 8,
                                     consts, boundary)
 
+            def k2_first():
+                megakernel.megastep_ablation(old_u, old_v, MAIN_STEPS // 8, 8,
+                                             consts, boundary, 0)
+
             def k9():
                 k9_bufs[:] = ilpsplit.split_multistep(
                     *k9_bufs, MAIN_STEPS, consts, boundary, 1)
 
-            calls = {"windowed": k1, "resident": k3, "mega": k2,
-                     "ilpsplit": k9}
+            calls = {"windowed": k1, "mega": k2, "mega0": k2_first,
+                     "resident": k3, "ilpsplit": k9}
             samples = {name: [] for name in calls}
             for name in [*calls, *reversed(calls)]:
                 samples[name].append(cuda_ms(calls[name], reps))
@@ -1006,9 +1098,12 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
                       f"Gcell/s; bound {bound!r} ms ({by}), "
                       f"{100 * bound / ms[name]!r} % of it [{card}]",
                       flush=True)
-            print(f"redesigned {shape[0]}x{shape[1]} {boundary}: K1 "
-                  f"{ms['mega'] / ms['windowed']!r}x faster than K2 (K1's "
-                  f"former code shape), K3 "
+            print(f"redesigned {shape[0]}x{shape[1]} {boundary}: K2 "
+                  f"{ms['mega'] / ms['windowed']!r}x K1's time (the "
+                  f"megakernel against the windowed kernel on one stepper); "
+                  f"K2 {ms['mega0'] / ms['mega']!r}x faster than its first "
+                  f"stepper's kernel; K1 {ms['mega0'] / ms['windowed']!r}x "
+                  f"faster than it (K1's former code shape); K3 "
                   f"{ms['ilpsplit'] / ms['resident']!r}x faster than K9 at "
                   f"split 1 (K3's former code shape) [{card}]", flush=True)
             time_ablations(checks, shape, boundary, u, v, reps, ms, card)
@@ -1040,17 +1135,20 @@ ABLATIONS = {
     "resident": {1: "every tile an edge tile",
                  2: "the tap set tested at run time",
                  3: "no prefetch of the next window"},
+    "mega": {p: what for p, what in megakernel.ABLATIONS.items() if p},
 }
 
 
 def time_ablations(checks: Checks, shape, boundary: str, u, v, reps: int,
                    ms: dict, card: str) -> None:
-    """Phase 6b's ablations: K1 (four 8-step launches) and K3 (one 32-step
-    launch) of the default stencil, each with one part of its design taken
-    out or with another tile shape (ABLATIONS), timed in turns with the
-    whole kernel (whole, parts..., parts reversed, whole) and held bit for
-    bit against it; each time also as a ratio to the whole kernel's (and
-    beside phase 6b's, ``ms``)."""
+    """Phase 6b's ablations: K1 (four 8-step launches), K3 (one 32-step
+    launch) and K2 (one launch of 4 time blocks of 8 steps) of the default
+    stencil, each with one part of its design taken out or with another
+    tile shape (ABLATIONS; K2's part 0, its first-stepper kernel, is timed
+    in phase 6b's turns), timed in turns with the whole kernel (whole,
+    parts..., parts reversed, whole) and held bit for bit against it; each
+    time also as a ratio to the whole kernel's (and beside phase 6b's,
+    ``ms``)."""
     consts = kernel_constants(Parameters())
     naive = int(boundary == "naive")
     stream = torch.cuda.current_stream().cuda_stream
@@ -1087,16 +1185,34 @@ def time_ablations(checks: Checks, shape, boundary: str, u, v, reps: int,
                                f"({build.error_name(err)})")
         return bufs if steps % 2 == 0 else (*bufs[2:], *bufs[:2])
 
-    for engine, run in (("windowed", k1), ("resident", k3)):
+    def k2(bufs, part, steps=MAIN_STEPS):
+        n_blocks, k = (MAIN_STEPS // 8, 8) if steps == MAIN_STEPS else (1, steps)
+        if part is None:
+            megakernel.megastep(*bufs[:2], n_blocks, k, consts, boundary)
+        else:
+            megakernel.megastep_ablation(*bufs[:2], n_blocks, k, consts,
+                                         boundary, part)
+        return bufs
+
+    for engine, run in (("windowed", k1), ("resident", k3), ("mega", k2)):
         parts = [None, *ABLATIONS[engine]]
-        bufs = {p: [u.clone(), v.clone(), torch.empty_like(u),
-                    torch.empty_like(v)] for p in parts}
+        if engine == "mega":  # pairs, slot 0 current
+            bufs = {p: [megakernel.pair_state(u), megakernel.pair_state(v)]
+                    for p in parts}
+        else:
+            bufs = {p: [u.clone(), v.clone(), torch.empty_like(u),
+                        torch.empty_like(v)] for p in parts}
         want = None
         for part in parts:  # one launch of 8 steps, held against the whole
-            b = [u.clone(), v.clone(), torch.empty_like(u),
-                 torch.empty_like(v)]
+            if engine == "mega":
+                b = [megakernel.pair_state(u), megakernel.pair_state(v)]
+            else:
+                b = [u.clone(), v.clone(), torch.empty_like(u),
+                     torch.empty_like(v)]
             out = run(b, part, steps=8)
-            got = (b[2], b[3]) if engine == "windowed" else tuple(out[:2])
+            got = ((b[2], b[3]) if engine == "windowed"
+                   else (out[0][0], out[1][0]) if engine == "mega"
+                   else tuple(out[:2]))
             if part is None:
                 want = got
             else:
@@ -1129,9 +1245,13 @@ PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads")
 PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
-#: K1's and K3's kernels, as their mangled names spell them (the name's
-#: length, then the name: not packed_resident_kernel)
-REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel")
+#: the kernels on the Hopper tile stepper, K1, K3, K2 and K7, as their
+#: mangled names spell them (the name's length, then the name: not
+#: packed_resident_kernel or packed_mega_kernel)
+REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
+                      "11mega_kernel", "19sharded_mega_kernel")
+#: of those, the ones whose instantiations must not spill (K2, K7)
+NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -1303,29 +1423,38 @@ def sharded_run(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
     return sim.extract_uv(storage, u_np.shape)
 
 
-def sharded_plain(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
-                  steps: int):
-    """The plain version of K7 on the card, launch by launch as the backend
-    makes them (the halo exchange, then ``steps // 8`` time blocks, then
-    the remainder)."""
+def sharded_launches(params: Parameters, boundary: str, u_np, v_np,
+                     mesh_shape, steps: int, tile=None):
+    """K7 launch by launch as the backend makes them (the halo exchange,
+    then ``steps // 8`` time blocks, then the remainder), on ``tile`` x
+    ``tile`` tiles; ``tile`` "plain" runs the plain version instead."""
     shape = u_np.shape
+    consts = kernel_constants(params)
     mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape[1],
                           DEVICE)
     pairs = halo.mega_shard_state(u_np, v_np, mesh)
     for n_blocks, k in sharded_mega.launch_plan(steps):
         for p in pairs:
             halo.exchange_halos(p)
-        sharded_mega.sharded_megastep_reference(
-            *pairs, n_blocks, k, kernel_constants(params), boundary, shape)
+        if tile == "plain":
+            sharded_mega.sharded_megastep_reference(*pairs, n_blocks, k,
+                                                    consts, boundary, shape)
+        else:
+            sharded_mega.sharded_megastep(*pairs, mesh, n_blocks, k, consts,
+                                          boundary, shape, tile=tile)
     return tuple(halo.mega_unshard_result(p, shape) for p in pairs)
 
 
 def compare_sharded(checks: Checks, rng) -> int:
-    """Phase 10a: K7 through the sharded backend against its plain version
-    on the card and against K2, on every mesh of SHARDED_MESHES at
-    1080x1920 and 1000x1917 (8, 27 and 32 steps), on 1001x1920 (its last
-    row of shards partly past the domain; 27 steps) and at 4096x4096 (32
-    steps) on 4x1 and 2x2, both boundaries. Returns the comparisons."""
+    """Phase 10a: K7 on both tile geometries (launch by launch as the
+    backend makes them) against its plain version on the card and against
+    K2, on every mesh of SHARDED_MESHES at 1080x1920 and 1000x1917 (8, 27
+    and 32 steps), on 1001x1920 (its last row of shards partly past the
+    domain; 27 steps) and at 4096x4096 (32 steps) on 4x1 and 2x2, both
+    boundaries; through the backend (the geometry it picks) at the first of
+    those step counts. Then, on 2x2 at 1080x1920, the other stencils and
+    dt = 0.5 (27 steps) and states that hold NaN and +-Inf (3 steps, bit for
+    bit), both geometries. Returns the comparisons."""
     default = Parameters()
     cases = [(shape, mesh, (8, 27, 32)) for shape in SHAPES[:2]
              for mesh in SHARDED_MESHES]
@@ -1339,19 +1468,65 @@ def compare_sharded(checks: Checks, rng) -> int:
         u_np, v_np = inputs[shape]
         for boundary in ("naive", "zero"):
             for steps in step_counts:
-                got = sharded_run(default, boundary, u_np, v_np, mesh_shape,
-                                  steps)
-                what = (f"{shape[0]}x{shape[1]} {boundary} mesh "
-                        f"{mesh_shape[0]}x{mesh_shape[1]} steps={steps} "
-                        "(backend)")
-                checks.compare("shmega", got, sharded_plain(
-                    default, boundary, u_np, v_np, mesh_shape, steps), what)
                 key = (shape, boundary, steps)
                 if key not in k2:
                     k2[key] = engine_run("mega", default, boundary, u_np,
                                          v_np, steps)
-                checks.compare("shmega", got, k2[key], f"{what} vs K2")
+                plain = sharded_launches(default, boundary, u_np, v_np,
+                                         mesh_shape, steps, "plain")
+                what = (f"{shape[0]}x{shape[1]} {boundary} mesh "
+                        f"{mesh_shape[0]}x{mesh_shape[1]} steps={steps}")
+                runs = {f"{t}x{t} tiles": sharded_launches(
+                    default, boundary, u_np, v_np, mesh_shape, steps, t)
+                    for t in sharded_mega.TILES}
+                if steps == step_counts[0]:
+                    runs["backend"] = sharded_run(default, boundary, u_np,
+                                                  v_np, mesh_shape, steps)
+                for label, got in runs.items():
+                    checks.compare("shmega", got, plain, f"{what} ({label})")
+                    checks.compare("shmega", got, k2[key],
+                                   f"{what} ({label}) vs K2")
+                    n += 2
+    shape, mesh_shape = MAIN_SHAPE, (2, 2)
+    u_np, v_np = (rng.uniform(0.0, 1.0, shape).astype(np.float32)
+                  for _ in range(2))
+    for label, params in OTHER_PARAMS:
+        for boundary in ("naive", "zero"):
+            want = engine_run("mega", params, boundary, u_np, v_np, 27)
+            plain = sharded_launches(params, boundary, u_np, v_np,
+                                     mesh_shape, 27, "plain")
+            for t in sharded_mega.TILES:
+                got = sharded_launches(params, boundary, u_np, v_np,
+                                       mesh_shape, 27, t)
+                what = (f"{shape[0]}x{shape[1]} {boundary} mesh 2x2 "
+                        f"params={label} steps=27 ({t}x{t} tiles)")
+                # bit for bit: pretty's state overflows within 27 steps
+                checks.compare_bits("shmega", got, plain, what)
+                checks.compare_bits("shmega", got, want, f"{what} vs K2")
                 n += 2
+    r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(*mesh_shape, None))
+    u_np[100, 150] = v_np[0, 5] = np.nan
+    v_np[r_loc - 1, c_loc - 1] = u_np[r_loc, c_loc] = np.inf  # at the seams
+    u_np[120, 7] = v_np[-1, -1] = -np.inf
+    u_np[r_loc + 60, c_loc + 1] = np.nan
+    consts = kernel_constants(default)
+    u0, v0 = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+    for boundary in ("naive", "zero"):
+        want = stencil.run(u0, v0, 3, consts, boundary)
+        plain = sharded_launches(default, boundary, u_np, v_np, mesh_shape,
+                                 3, "plain")
+        pu, pv = megakernel.pair_state(u0), megakernel.pair_state(v0)
+        megakernel.megastep(pu, pv, 1, 3, consts, boundary)
+        for t in sharded_mega.TILES:
+            got = sharded_launches(default, boundary, u_np, v_np, mesh_shape,
+                                   3, t)
+            what = (f"{shape[0]}x{shape[1]} {boundary} mesh 2x2 NaN and Inf, "
+                    f"steps=3 ({t}x{t} tiles)")
+            checks.compare_bits("shmega", got, plain, what)
+            checks.compare_bits("shmega", got, want, f"{what} vs plain step")
+            checks.compare_bits("shmega", got, (pu[0], pv[0]),
+                                f"{what} vs K2")
+            n += 3
     return n
 
 
@@ -1408,29 +1583,43 @@ def sharded_bound_ms(shape, mesh_shape, steps: int,
 
 def time_sharded(rng, card: str) -> dict:
     """Phase 10c: one K7 launch of 32 steps (4 time blocks) on 1x1, 4x1 and
-    2x2 meshes, timed in turns with K2 through its backend (K2, K7 1x1,
-    4x1, 2x2, then back), at 1080x1920 and 4096x4096, both boundaries;
-    the sharded backend's call (the exchange and the launch) on each mesh;
-    the tile quantisation of each mesh; the plain version once."""
+    2x2 meshes, on both tile geometries, timed in turns with K2 through its
+    backend and K2's first-stepper kernel (K2, K2 part 0, then each mesh
+    and geometry, then back), at 1080x1920 and 4096x4096, both boundaries;
+    which geometry won on each mesh, beside the one the wrapper picks; the
+    sharded backend's call (the exchange and the launch) on each mesh; the
+    tiles and rounds of each mesh; the plain version once."""
     consts = kernel_constants(Parameters())
     out = {}
     meshes = [(1, 1), (4, 1), (2, 2)]
+    dev = torch.device(DEVICE)
+    coresident = {t: sharded_mega.max_blocks(dev, t)
+                  for t in sharded_mega.TILES}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
         u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
                       for _ in range(2))
-        k2_tiles = -(-shape[0] // 32) * -(-shape[1] // 32)
+        k2_tiles = -(-shape[0] // 64) * -(-shape[1] // 64)
         for n_r, n_c in meshes:
             mesh = halo.Mesh(n_r, n_c, torch.device("cpu"))
             r_loc, c_loc = halo.shard_extents(shape, mesh)
-            tiles = -(-r_loc // 32) * -(-c_loc // 32)
-            print(f"tiles {shape[0]}x{shape[1]} mesh {n_r}x{n_c}: shards "
-                  f"{r_loc}x{c_loc}, {tiles} tiles a shard, "
-                  f"{n_r * n_c * tiles} in all (K2: {k2_tiles}); cells "
-                  f"stepped past the domain "
-                  f"{100 * (1 - shape[0] * shape[1] / (n_r * n_c * tiles * 1024))!r} "
-                  f"% (K2: {100 * (1 - shape[0] * shape[1] / (k2_tiles * 1024))!r} %); "
-                  f"pushed {exchange_cells(shape, (n_r, n_c))} cells a time "
-                  "block", flush=True)
+            for t in sharded_mega.TILES:
+                tiles = -(-r_loc // t) * -(-c_loc // t)
+                print(f"tiles {shape[0]}x{shape[1]} mesh {n_r}x{n_c} {t}x{t}: "
+                      f"shards {r_loc}x{c_loc}, {tiles} tiles a shard, "
+                      f"{n_r * n_c * tiles} in all, "
+                      f"{sharded_mega.tile_rounds(shape, (n_r, n_c), t, coresident[t])}"
+                      f" rounds on {coresident[t]} co-resident blocks (K2: "
+                      f"{k2_tiles} tiles of 64x64, "
+                      f"{-(-k2_tiles // min(k2_tiles, megakernel.max_blocks(dev)))}"
+                      f" rounds); cells stepped past the domain "
+                      f"{100 * (1 - shape[0] * shape[1] / (n_r * n_c * tiles * t * t))!r} "
+                      f"%; pushed {exchange_cells(shape, (n_r, n_c))} cells a "
+                      "time block", flush=True)
+            print(f"tiles {shape[0]}x{shape[1]} mesh {n_r}x{n_c}: the wrapper "
+                  "picks "
+                  f"{sharded_mega.choose_tile(shape, (n_r, n_c), coresident, sms)}"
+                  f"x (co-resident {coresident}, {sms} SMs)", flush=True)
         for boundary in ("naive", "zero"):
             k2 = CudaSimulation(Parameters(), boundary, device=DEVICE,
                                 engine="mega")
@@ -1439,19 +1628,28 @@ def time_sharded(rng, card: str) -> dict:
             def k2_call(k2=k2, box=box):
                 box[0] = k2.run_steps(box[0], shape, MAIN_STEPS)
 
-            calls, sims = {"K2": k2_call}, {}
+            old = [megakernel.pair_state(torch.from_numpy(x).to(DEVICE))
+                   for x in (u_np, v_np)]
+
+            def k2_first(old=old, boundary=boundary):
+                megakernel.megastep_ablation(*old, MAIN_STEPS // 8, 8, consts,
+                                             boundary, 0)
+
+            calls, sims = {"K2": k2_call, "K2 part 0": k2_first}, {}
             for n_r, n_c in meshes:
                 mesh = halo.make_mesh(n_r * n_c, n_c, DEVICE)
-                pairs = halo.mega_shard_state(u_np, v_np, mesh)
-                for p in pairs:
-                    halo.exchange_halos(p)
+                for t in sharded_mega.TILES:
+                    pairs = halo.mega_shard_state(u_np, v_np, mesh)
+                    for p in pairs:
+                        halo.exchange_halos(p)
 
-                def k7_call(pairs=pairs, mesh=mesh, boundary=boundary):
-                    sharded_mega.sharded_megastep(
-                        *pairs, mesh, MAIN_STEPS // 8, 8, consts, boundary,
-                        shape)
+                    def k7_call(pairs=pairs, mesh=mesh, boundary=boundary,
+                                t=t):
+                        sharded_mega.sharded_megastep(
+                            *pairs, mesh, MAIN_STEPS // 8, 8, consts,
+                            boundary, shape, tile=t)
 
-                calls[f"K7 {n_r}x{n_c}"] = k7_call
+                    calls[f"K7 {n_r}x{n_c} {t}"] = k7_call
                 sims[n_r, n_c] = ShardedSimulation(
                     Parameters(), boundary, device=DEVICE, engine="mega",
                     n_devices=n_r * n_c, mesh_cols=n_c)
@@ -1460,10 +1658,10 @@ def time_sharded(rng, card: str) -> dict:
                 samples[name].append(cuda_ms(calls[name], reps))
             for name, pair in samples.items():
                 ms = sum(pair) / len(pair)
-                mesh_shape = (1, 1) if name == "K2" else tuple(
+                mesh_shape = (1, 1) if name.startswith("K2") else tuple(
                     int(x) for x in name.split()[1].split("x"))
                 bound, by = (bound_ms(shape, MAIN_STEPS, boundary)
-                             if name == "K2" else sharded_bound_ms(
+                             if name.startswith("K2") else sharded_bound_ms(
                                  shape, mesh_shape, MAIN_STEPS, boundary))
                 out[shape, boundary, name] = (ms, bound, by)
                 print(f"time {name} {shape[0]}x{shape[1]} {boundary}, "
@@ -1471,6 +1669,17 @@ def time_sharded(rng, card: str) -> dict:
                       f"{pair!r}) = {gcells(shape, MAIN_STEPS, ms)!r} "
                       f"Gcell/s, {ms / out[shape, boundary, 'K2'][0]!r}x "
                       f"K2; bound {bound!r} ms ({by}) [{card}]", flush=True)
+            for n_r, n_c in meshes:
+                ms = {t: out[shape, boundary, f"K7 {n_r}x{n_c} {t}"][0]
+                      for t in sharded_mega.TILES}
+                picked = sharded_mega.choose_tile(shape, (n_r, n_c),
+                                                  coresident, sms)
+                out[shape, boundary, f"K7 {n_r}x{n_c}"] = \
+                    out[shape, boundary, f"K7 {n_r}x{n_c} {picked}"]
+                print(f"geometry {shape[0]}x{shape[1]} {boundary} mesh "
+                      f"{n_r}x{n_c}: {min(ms, key=ms.get)}x tiles won "
+                      f"({ms}); the wrapper picks {picked} [{card}]",
+                      flush=True)
             for mesh_shape, sim in sims.items():
                 box = [sim.build_storage(u_np, v_np)]
 
@@ -1519,25 +1728,50 @@ def main(argv=None) -> int:
     print(f"build: {built.path.name} in {time.perf_counter() - t0!r} s "
           f"(nvcc {built.seconds!r} s)")
     print(built.log.strip(), flush=True)
-    for name, regs, stores, loads, smem in ptxas_report(built.log):
+    report = ptxas_report(built.log)
+    for name, regs, stores, loads, smem in report:
         print(f"ptxas {name}: {regs} registers, spill stores {stores} B, "
               f"spill loads {loads} B, static shared {smem} B", flush=True)
-    for label, tile, halo in (("K1", windowed.TILE, windowed.K),
+    if built.log:
+        spilled = [row for row in report
+                   if any(row[0].startswith(k[2:]) for k in NO_SPILL_KERNELS)
+                   and (row[2] or row[3])]
+        counted = sum(any(row[0].startswith(k[2:]) for k in NO_SPILL_KERNELS)
+                      for row in report)
+        print(f"ptxas: {counted} K2 and K7 instantiations, "
+              f"{len(spilled)} spill", flush=True)
+        checks.expect(counted > 0 and not spilled,
+                      f"K2 and K7 instantiations spill: {spilled}")
+    for label, tile, ring in (("K1 and K2", windowed.TILE, windowed.K),
                               ("K3", resident.TILE, resident.HALO)):
-        for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        for shape in REDESIGNED_SHAPES:
             n = -(-shape[0] // tile[0]) * -(-shape[1] // tile[1])
             print(f"interior tiles {label} ({tile[0]}x{tile[1]} tiles, "
-                  f"windows {halo} cells wider on every side) at "
+                  f"windows {ring} cells wider on every side) at "
                   f"{shape[0]}x{shape[1]}: "
-                  f"{stencil.interior_tiles(shape, tile, halo)} of {n}",
+                  f"{stencil.interior_tiles(shape, tile, ring)} of {n}",
                   flush=True)
+    for shape in (MAIN_SHAPE, PAST_EDGE_SHAPE, BENCH_SHAPE):
+        for n_r, n_c in SHARDED_MESHES:
+            r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(n_r, n_c,
+                                                               None))
+            for t in sharded_mega.TILES:
+                counts = [stencil.interior_tiles_at(
+                    (i * r_loc, j * c_loc), (r_loc, c_loc), shape, (t, t),
+                    halo.HALO) for i in range(n_r) for j in range(n_c)]
+                print(f"interior tiles K7 ({t}x{t} tiles) at "
+                      f"{shape[0]}x{shape[1]} mesh {n_r}x{n_c}, per shard: "
+                      f"{counts} of {-(-r_loc // t) * -(-c_loc // t)}",
+                      flush=True)
     dev = torch.device(DEVICE)
     print(f"co-resident blocks: resident {resident.max_blocks(dev)}, mega "
           f"{megakernel.max_blocks(dev)}, packed resident "
           f"{packed.resident_max_blocks(dev)}, packed mega "
           f"{megakernel.packed_max_blocks(dev)}, oplat "
           f"{oplat.max_blocks(dev)}, ilpsplit {ilpsplit.max_blocks(dev)}, "
-          f"sharded mega {sharded_mega.max_blocks(dev)}", flush=True)
+          f"sharded mega "
+          f"{ {t: sharded_mega.max_blocks(dev, t) for t in sharded_mega.TILES} }",
+          flush=True)
 
     # 3. every kernel vs its plain version
     compare_kernels(checks, rng)
@@ -1579,21 +1813,21 @@ def main(argv=None) -> int:
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
-    for label, run in runs.items():
-        print(f"path simulate {label} end to end ({run['engine']}): "
-              f"{run['gcells']!r} Gcell/s "
-              f"({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) [{card}]")
-    for label, run in packed_runs.items():
-        if label == "vs_unpacked":
-            continue
-        print(f"path simulate {' '.join(ZERO_PACKED)} {label} end to end "
-              f"({run['engine']}): {run['gcells']!r} Gcell/s "
-              f"({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) [{card}]")
-    for label, run in sharded_runs.items():
-        print(f"path simulate {' '.join(SHARDED_FLAGS)} {label} end to end "
-              f"({run['tag']}, mesh {run['mesh']}): {run['gcells']!r} "
-              f"Gcell/s ({run['seconds'] / MAIN_IMAGES * 1e3!r} ms/image) "
-              f"[{card}]")
+    packed_runs = {k: r for k, r in packed_runs.items() if k != "vs_unpacked"}
+    time_paths([*runs.values(), *packed_runs.values(),
+                *sharded_runs.values()])
+    cells = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_STEPS
+    for prefix, group in (("", runs), (" ".join(ZERO_PACKED) + " ",
+                                       packed_runs),
+                          (" ".join(SHARDED_FLAGS) + " ", sharded_runs)):
+        for label, run in group.items():
+            where = (f"{run['tag']}, mesh {run['mesh']}"
+                     if run["mesh"] else run["engine"])
+            print(f"path simulate {prefix}{label} end to end ({where}): "
+                  f"{cells / run['median_ms'] / 1e6!r} Gcell/s "
+                  f"({run['median_ms']!r} ms/image, the median of "
+                  f"{run['turns_ms']!r} in turns; the checked run first) "
+                  f"[{card}]")
     if "hdf5_seconds" in runs["auto"]:
         print(f"simulate.main with HDF5: "
               f"{runs['auto']['hdf5_seconds'] / MAIN_IMAGES * 1e3!r} "
@@ -1624,7 +1858,8 @@ def main(argv=None) -> int:
         launches=runs["--pallas-engine mega"]["launches"]["mega"],
         max_abs_err=checks.kernel_err["mega"], ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, library_ms=None,
-        shape=list(BENCH_SHAPE), steps=BENCH_STEPS, boundary="naive"))
+        shape=list(BENCH_SHAPE), steps=BENCH_STEPS, boundary="naive",
+        redesigned="csrc/gs_tile_sm90.cuh"))
     for tag, flags in PACKED_FLAGS.items():
         ms, plain_ms, bound, by, steps = kernel_times[tag, MAIN_SHAPE]
         entries.append(dict(
@@ -1655,7 +1890,7 @@ def main(argv=None) -> int:
         max_abs_err=checks.kernel_err["shmega"], ms=ms,
         plain_ms=k7["plain"], bound_ms=bound, bound_by=by, library_ms=None,
         shape=list(MAIN_SHAPE), steps=MAIN_STEPS, boundary="naive",
-        mesh=list(auto["mesh"])))
+        mesh=list(auto["mesh"]), redesigned="csrc/gs_tile_sm90.cuh"))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

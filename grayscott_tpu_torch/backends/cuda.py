@@ -85,9 +85,9 @@ L2_SHARE = 0.75
 #: (shape class, boundary) -> the engines, fastest first (see auto_engine)
 _RANKING = {
     ("l2", "naive"): ("resident", "windowed", "mega"),
-    ("l2", "zero"): ("windowed", "resident", "mega"),
-    ("larger", "naive"): ("windowed", "resident", "mega"),
-    ("larger", "zero"): ("windowed", "resident", "mega"),
+    ("l2", "zero"): ("mega", "windowed", "resident"),
+    ("larger", "naive"): ("windowed", "mega", "resident"),
+    ("larger", "zero"): ("windowed", "mega", "resident"),
 }
 
 
@@ -118,17 +118,19 @@ def auto_engine(shape: Tuple[int, int], boundary: str,
     Set from ``chip_smoke.py``'s engine times (phase 6a: 32 steps a call
     through the backend, CUDA events, in turns; NVIDIA H100 80GB HBM3,
     power limit 700.00 W), ms per 32 steps, windowed / resident / mega,
-    with K1 and K3 on the Hopper tile stepper (``csrc/gs_tile_sm90.cuh``):
+    all three on the Hopper tile stepper (``csrc/gs_tile_sm90.cuh``):
 
-    - 1080x1920 ("l2"): naive 0.5699 / 0.5568 / 1.6159, zero
-      0.3696 / 0.4827 / 0.9440;
-    - 4096x4096 ("larger"): naive 2.9680 / 4.3315 / 11.5723, zero
-      2.5470 / 4.0544 / 6.7628.
+    - 1080x1920 ("l2"): naive 0.5737 / 0.5586 / 0.5928, zero
+      0.3694 / 0.4837 / 0.3545;
+    - 4096x4096 ("larger"): naive 2.9493 / 4.3215 / 3.3267, zero
+      2.5323 / 4.0311 / 2.6285.
 
-    K1 is first everywhere but on the naive boundary while the state fits
-    L2, where K3, with no halo recompute, leads it by 2 %. Beyond L2 K3
-    passes the whole state through HBM every step, which K1 does every 8.
-    K2 (still on the first stepper) is last everywhere.
+    While the state fits L2, K3 leads on the naive boundary (no halo
+    recompute) and K2 on the zero boundary (no launch every 8 steps, and
+    its zero-boundary edge tiles cost little). Beyond L2 K1 leads, K2
+    second: K3 passes the whole state through HBM every step, K1 and K2
+    every 8, and K2 pays its static tile walk (16 rounds) before each grid
+    barrier.
     """
     return next(e for e in _RANKING[shape_class(shape), boundary]
                 if resident_ok or e != "resident")

@@ -1,6 +1,8 @@
-// The per-cell and per-tile device code that the port's unpacked kernels
-// share (windowed.cu: K1, mega.cu: K2, resident.cu: K3, sharded_mega.cu: K7,
-// ilpsplit.cu: K9).
+// The first stepper: the per-cell and per-tile device code of the port's
+// unpacked kernels before the Hopper stepper (gs_tile_sm90.cuh), which keeps
+// its per-cell naive code, its layouts and its grid barrier. K9
+// (ilpsplit.cu) and K2's ablation part 0 (mega.cu) still step on it; the
+// host side of every persistent kernel lives here.
 //
 // step_tile<HALO> advances one TILE x TILE output tile by `steps` <= HALO
 // Gray-Scott steps (step_tile_at does the same through a memory layout: a
@@ -24,10 +26,10 @@
 // always lies inside the window.
 //
 // Loads of the state go through __ldcg (cached in L2 only, never the
-// non-coherent read-only path): K2 and K3 read, after a grid barrier, what
-// other blocks wrote earlier in the same launch, and a stale L1 or LDG.NC
-// line would hand them old values. For this reason no state pointer here is
-// `const __restrict__`.
+// non-coherent read-only path): K9 and K2's part 0 read, after a grid
+// barrier, what other blocks wrote earlier in the same launch, and a stale
+// L1 or LDG.NC line would hand them old values. For this reason no state
+// pointer here is `const __restrict__`.
 
 #pragma once
 
@@ -111,7 +113,8 @@ struct FlatLayout {
   }
 };
 
-// ShardLayout: one shard's padded block of a sharded domain (K7): interior
+// ShardLayout: one shard's padded block of a sharded domain (K7, through
+// gs_tile_sm90.cuh: load_window and time_block): interior
 // cells [0, r_loc) x [0, c_loc) at global (row0, col0), inside `halo` rows
 // and `chalo` columns of its neighbours' cells, row stride `pitch`.
 struct ShardLayout {
@@ -259,19 +262,30 @@ __device__ __forceinline__ void grid_barrier(
   group_barrier(counter, n, gridDim.x);
 }
 
-// Host side of a persistent kernel (K2, K3): the most blocks of `kernel`
-// that are co-resident on `device` (occupancy x SMs, at BLOCK_X x BLOCK_Y
-// threads and static shared memory), cached per device in `cache`.
+// Host side of a persistent kernel (K2, K3, K5-K9): the most blocks of
+// `kernel` that are co-resident on `device` (occupancy x SMs, at `threads`
+// threads a block and `bytes` of dynamic shared memory), cached per device
+// in `cache`. A kernel that asks for dynamic shared memory is first allowed
+// `bytes` of it on `device` (a launch above 48 KB is refused without that);
+// a refusal is returned.
 constexpr int MAX_DEVICES = 64;
 
 template <typename Kernel>
 cudaError_t coresident_blocks(Kernel kernel, int device, int* cache,
-                              int* out) {
+                              int* out, int threads = BLOCK_X * BLOCK_Y,
+                              size_t bytes = 0) {
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (cache[device] == 0) {
+    cudaError_t err;
+    if (bytes > 0) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+    }
     int per_sm = 0, sms = 0;
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, BLOCK_X * BLOCK_Y, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, bytes);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
@@ -282,28 +296,34 @@ cudaError_t coresident_blocks(Kernel kernel, int device, int* cache,
   return cudaSuccess;
 }
 
-// One cooperative launch of `kernel` with `args` on `stream` over the tiles
-// of a rows x cols domain. `grid_blocks` <= 0 takes the co-resident maximum
-// (capped at the tile count); a larger grid than the card can hold is
-// refused with cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
+// One cooperative launch of `kernel` with `args` on `stream` over the
+// tile x tile tiles of a rows x cols domain, `block` threads a block and
+// `bytes` of dynamic shared memory. `grid_blocks` <= 0 takes the co-resident
+// maximum (capped at the tile count); a larger grid than the card can hold
+// is refused with cudaErrorCooperativeLaunchTooLarge, and nothing falls
+// back.
 template <typename Kernel>
 cudaError_t launch_persistent(Kernel kernel, void** args, int rows, int cols,
                               int grid_blocks, int device, int* cache,
-                              cudaStream_t stream) {
+                              cudaStream_t stream,
+                              dim3 block = dim3(BLOCK_X, BLOCK_Y),
+                              size_t bytes = 0, int tile = TILE) {
   cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  int most = 0;  // also allows the dynamic shared memory on first use
+  err = coresident_blocks(kernel, device, cache, &most,
+                          block.x * block.y * block.z, bytes);
   if (err != cudaSuccess) return err;
   int grid = grid_blocks;
   if (grid <= 0) {
-    err = coresident_blocks(kernel, device, cache, &grid);
-    if (err != cudaSuccess) return err;
+    grid = most;
     const long long tiles =
-        static_cast<long long>((cols + TILE - 1) / TILE) *
-        ((rows + TILE - 1) / TILE);
+        static_cast<long long>((cols + tile - 1) / tile) *
+        ((rows + tile - 1) / tile);
     if (tiles < grid) grid = static_cast<int>(tiles);
   }
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(grid), dim3(BLOCK_X, BLOCK_Y), args,
-                                    0, stream);
+                                    dim3(grid), block, args, bytes, stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not report it
     return err;
@@ -314,10 +334,13 @@ cudaError_t launch_persistent(Kernel kernel, void** args, int rows, int cols,
 // The C interface's report of coresident_blocks: the count, or minus the
 // CUDA error.
 template <typename Kernel>
-int max_blocks_or_error(Kernel kernel, int device, int* cache) {
+int max_blocks_or_error(Kernel kernel, int device, int* cache,
+                        int threads = BLOCK_X * BLOCK_Y, size_t bytes = 0) {
   cudaError_t err = cudaSetDevice(device);
   int n = 0;
-  if (err == cudaSuccess) err = coresident_blocks(kernel, device, cache, &n);
+  if (err == cudaSuccess) {
+    err = coresident_blocks(kernel, device, cache, &n, threads, bytes);
+  }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 

@@ -1,7 +1,8 @@
-// The tile stepper of K1 (windowed.cu) and K3 (resident.cu), written for
-// Hopper. K2, K7 and K9 keep the first stepper (gs_tile.cuh), whose per-cell
-// naive code this one keeps for the cells on the domain's edge; the two
-// agree bit for bit.
+// The tile stepper of K1 (windowed.cu), K2 (mega.cu), K3 (resident.cu) and
+// K7 (sharded_mega.cu), written for Hopper. K9 (ilpsplit.cu) and K2's
+// ablation part 0 keep the first stepper (gs_tile.cuh), whose per-cell naive
+// code this one keeps for the cells on the domain's edge; the two agree bit
+// for bit.
 //
 // What differs from gs_tile.cuh:
 //
@@ -11,7 +12,8 @@
 //     runs without the per-cell domain test, the out-of-domain zeroing and
 //     the clamp arithmetic: it adds a fixed term list at fixed offsets (the
 //     role of `specialize` in grayscott_tpu/ops/megakernel.py:217-269). The
-//     decision is made once a tile, uniformly across the block. Edge tiles
+//     decision is made once a tile, uniformly across the block, in global
+//     coordinates (so a shard seam is never a domain edge). Edge tiles
 //     test each cell: outside the domain it is 0.0; in the domain's first or
 //     last row or column of the naive boundary it runs gs_tile.cuh's
 //     per-cell code (naive_laplacian); elsewhere it takes the fixed list.
@@ -34,8 +36,14 @@
 //     row pitch and the pointers are 16-byte aligned and the chunk lies in
 //     the domain, 4-byte copies (or __ldcg, for a kernel that reads what
 //     other blocks wrote in the same launch) at a ragged edge and wherever
-//     the pitch is not aligned, and 0.0 stored directly outside the domain.
+//     the pitch is not aligned, and 0.0 stored directly outside the domain
+//     and where the buffer does not hold the cell (a shard's layout).
 //     16-byte copies are cp.async.cg: cached in L2 only, like __ldcg.
+//   - Windows of K halo cells (Geometry, step_window: K1's 64^2 tiles in
+//     80^2 windows of dynamic shared memory), stepped K <= HALO times with
+//     the valid region shrinking a cell a step; the megakernels walk their
+//     tiles through one time block with the next window loading while the
+//     finished tile is written out (time_block).
 //
 // Numerics: the expressions of gs_tile.cuh, built with -fmad=false and
 // without -ftz, so every kernel equals the plain PyTorch step
@@ -212,36 +220,45 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Start loading the WR x (4 * NCH) block of U and V whose cell (0, 0) lies at
 // global (gr0, gc0), gc0 a multiple of 4, into su and sv (row pitch PITCH,
-// 16-byte aligned); cells outside the domain as 0.0. `aligned`: cols is a
-// multiple of 4 and u, v are 16-byte aligned. COHERENT: the block may read
-// what other blocks wrote earlier in the same launch, so no copy may go
-// through L1 (4-byte cp.async is .ca only): the ragged cells load with
-// __ldcg instead. The copies land after cp_async_commit() and
-// cp_async_wait(), and are visible to the block after a __syncthreads().
-template <int WR, int NCH, int PITCH, int NT, bool COHERENT>
-__device__ __forceinline__ void load_window(const float* u, const float* v,
-                                            float* su, float* sv, int gr0,
-                                            int gc0, int rows, int cols,
+// 16-byte aligned), from buffers laid out as `mem` says (gs_tile.cuh:
+// FlatLayout, ShardLayout); cells outside the domain, and cells the buffer
+// does not hold, as 0.0. `aligned`: the layout's rows and the u, v pointers
+// are 16-byte aligned, and the layout's held columns start and end on
+// multiples of 4. COHERENT: the block may read what other blocks wrote
+// earlier in the same launch, so no copy may go through L1 (4-byte cp.async
+// is .ca only): the ragged cells load with __ldcg instead. The copies land
+// after cp_async_commit() and cp_async_wait(), and are visible to the block
+// after a __syncthreads().
+template <int WR, int NCH, int PITCH, int NT, bool COHERENT, typename Layout>
+__device__ __forceinline__ void load_window(const Layout& mem, const float* u,
+                                            const float* v, float* su,
+                                            float* sv, int gr0, int gc0,
+                                            int rows, int cols,
                                             bool aligned) {
   for (int idx = threadIdx.x; idx < WR * NCH; idx += NT) {
     const int lr = idx / NCH, q = idx - lr * NCH;
     const int gr = gr0 + lr, gc = gc0 + 4 * q;
     float* du = su + lr * PITCH + 4 * q;
     float* dv = sv + lr * PITCH + 4 * q;
-    if (gr < 0 || gr >= rows || gc + 3 < 0 || gc >= cols) {
+    // (held columns are one interval of at least 4 cells)
+    if (gr < 0 || gr >= rows || gc + 3 < 0 || gc >= cols ||
+        (!mem.holds(gr, gc) && !mem.holds(gr, gc + 3))) {
       *reinterpret_cast<float4*>(du) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       *reinterpret_cast<float4*>(dv) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       continue;
     }
-    const size_t g = static_cast<size_t>(gr) * cols + gc;
-    if (aligned && gc >= 0 && gc + 4 <= cols) {
+    // (a row's cells are consecutive in both layouts: cell gc + e lies at
+    // g + e)
+    const size_t g = mem.at(gr, gc);
+    if (aligned && gc >= 0 && gc + 4 <= cols && mem.holds(gr, gc) &&
+        mem.holds(gr, gc + 3)) {
       cp_async16(du, u + g);
       cp_async16(dv, v + g);
       continue;
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (gc + e < 0 || gc + e >= cols) {
+      if (gc + e < 0 || gc + e >= cols || !mem.holds(gr, gc + e)) {
         du[e] = 0.0f;
         dv[e] = 0.0f;
       } else if (COHERENT) {
@@ -252,6 +269,145 @@ __device__ __forceinline__ void load_window(const float* u, const float* v,
         cp_async4(dv + e, v + g + e);
       }
     }
+  }
+}
+
+// --- windows of HALO cells around a tile ------------------------------------
+
+constexpr int HALO = 8;  // most steps a window takes (K1's K, K2's and K7's
+                         // time block)
+
+// Tile rows and columns, threads, strip length.
+template <int TR_, int TC_, int NT_, int R_>
+struct Geometry {
+  static constexpr int TR = TR_, TC = TC_, NT = NT_, R = R_;
+  static constexpr int WR = TR + 2 * HALO, WC = TC + 2 * HALO;
+  static constexpr int CELLS = WR * WC;  // of one buffer of one species
+  static constexpr size_t BYTES = 4 * sizeof(float) * CELLS;  // 2 buffers
+  // blocks an SM: as many as the 227 KB of shared memory hold
+  static constexpr int MIN_BLOCKS = BYTES <= 113 * 1024 ? 2 : 1;
+  // blocks an SM at 64 registers a thread (the megakernels' bound: the
+  // 64^2 tiles' two blocks, and four of the 32^2 tiles where, left at two,
+  // ptxas takes up to 109 registers)
+  static constexpr int BLOCKS_AT_64_REGS = 65536 / (64 * NT);
+  static_assert(WC % 4 == 0 && HALO % 4 == 0, "16-byte window rows");
+};
+
+// K1's tile: 64^2 in an 80^2 window, 512 threads, strips of 4 (PERF.md §6).
+using Main = Geometry<64, 64, 512, 4>;
+// The former tile: 32^2 in a 48^2 window, 256 threads.
+using Small = Geometry<32, 32, 256, 4>;
+
+// One step of the window cells [lo, W - lo)^2, in strips of G::R cells,
+// from (in_u, in_v) into (out_u, out_v); the window's cell (0, 0) lies at
+// global (r0, c0) of the rows x cols domain. INTERIOR: the window lies
+// inside the domain.
+template <typename G, int TAPS, bool NAIVE, bool INTERIOR>
+__device__ __forceinline__ void step_window(const float* in_u,
+                                            const float* in_v, float* out_u,
+                                            float* out_v, int lo, int r0,
+                                            int c0, int rows, int cols,
+                                            const Constants& k) {
+  const int hi_r = G::WR - lo, ncols = G::WC - 2 * lo;
+  const int items = ncols * ((hi_r - lo + G::R - 1) / G::R);
+  for (int it = threadIdx.x; it < items; it += G::NT) {
+    const int strip = it / ncols;
+    const int lc = lo + (it - strip * ncols), lr0 = lo + strip * G::R;
+    step_strip<TAPS, NAIVE, G::R, G::WC, !INTERIOR>(
+        in_u, in_v, lr0, lc, min(G::R, hi_r - lr0),
+        {r0 + lr0, c0 + lc, rows, cols}, k, [&](int i, float un, float vn) {
+          out_u[(lr0 + i) * G::WC + lc] = un;
+          out_v[(lr0 + i) * G::WC + lc] = vn;
+        });
+  }
+}
+
+// Whether the G window whose cell (0, 0) lies at global (r0, c0) lies inside
+// the rows x cols domain.
+template <typename G>
+__device__ __forceinline__ bool window_inside(int r0, int c0, int rows,
+                                              int cols) {
+  return r0 >= 0 && c0 >= 0 && r0 + G::WR <= rows && c0 + G::WC <= cols;
+}
+
+// One time block of a megakernel (K2, K7): the block advances tiles first,
+// first + stride, ... (< n_tiles) of a grid tiles_x tiles wide, whose tile
+// (0, 0) starts at global (row0, col0), by `steps` (1..HALO) steps from
+// (u, v) into (u_out, v_out), both laid out as `mem` says, through two
+// window buffers at `base` (dynamic shared memory). Reads are coherent (the
+// state was written by other blocks before the caller's barrier); only the
+// cells in the domain that `mem` stores are written.
+//
+// PREFETCH: once a tile's last step is done the buffer that held that step's
+// input is free, and the next tile's window starts loading into it before
+// the finished tile is written out. The first tile loads when the call
+// begins, so no load crosses the caller's barrier. Returns after a
+// __syncthreads() unless PREFETCH, whose buffers are free once every thread
+// is past the caller's next barrier.
+template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH,
+          typename Layout>
+__device__ __forceinline__ void time_block(
+    const Layout& mem, const float* u, const float* v, float* u_out,
+    float* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
+    int col0, int rows, int cols, int steps, const Constants& k,
+    bool aligned, float* base) {
+  auto load = [&](int i, int b) {
+    const int ti = i / tiles_x, tj = i - ti * tiles_x;
+    float* su = base + 2 * b * G::CELLS;
+    load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
+        mem, u, v, su, su + G::CELLS, row0 + ti * G::TR - HALO,
+        col0 + tj * G::TC - HALO, rows, cols, aligned);
+    cp_async_commit();
+  };
+  int i = first;
+  int win = 0;  // the buffer that holds (or receives) the tile's window
+  if (PREFETCH && i < n_tiles) load(i, win);
+  while (i < n_tiles) {
+    int next = i + stride;
+    if (!PREFETCH) load(i, win);
+    cp_async_wait<0>();
+    __syncthreads();  // the window of tile i is in place
+    const int ti = i / tiles_x, tj = i - ti * tiles_x;
+    const int r0 = row0 + ti * G::TR - HALO, c0 = col0 + tj * G::TC - HALO;
+    const bool interior =
+        SPECIALIZE && window_inside<G>(r0, c0, rows, cols);
+    // `steps` steps between buffer `done` and `other`; the result in `done`
+    int done = win, other = (win + 1) % 2;
+    for (int st = 0; st < steps; ++st) {
+      const float* in_u = base + 2 * done * G::CELLS;
+      float* out_u = base + 2 * other * G::CELLS;
+      if (interior) {
+        step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
+                                          out_u + G::CELLS, st + 1, r0, c0,
+                                          rows, cols, k);
+      } else {
+        step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
+                                           out_u + G::CELLS, st + 1, r0, c0,
+                                           rows, cols, k);
+      }
+      __syncthreads();
+      const int t = done;
+      done = other;
+      other = t;
+    }
+    if (PREFETCH && next < n_tiles) load(next, done ^ 1);
+    const float* fu = base + 2 * done * G::CELLS;
+    const float* fv = fu + G::CELLS;
+    for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
+      const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
+      const int gr = r0 + lr, gc = c0 + lc;
+      if (gr < rows && gc < cols && mem.stores(gr, gc)) {
+        const size_t g = mem.at(gr, gc);
+        u_out[g] = fu[lr * G::WC + lc];
+        v_out[g] = fv[lr * G::WC + lc];
+      }
+    }
+    if (PREFETCH) {
+      win = done ^ 1;
+    } else {
+      __syncthreads();  // the buffers are free for the next window
+    }
+    i = next;
   }
 }
 

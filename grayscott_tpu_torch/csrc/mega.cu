@@ -11,9 +11,19 @@
 //     block count (occupancy x SMs), so a grid-wide barrier is safe;
 //     cudaLaunchCooperativeKernel refuses the launch otherwise.
 //   - Time block t reads slot t % 2 and writes slot 1 - t % 2. Each block
-//     walks its share of the 32x32 tiles; for each it stages the 48^2 window
-//     in shared memory, runs `steps` steps and writes the tile interior,
-//     exactly as K1 does (gs_tile.cuh: step_tile<8>).
+//     walks its share of the 64x64 tiles and steps each as K1 does, on the
+//     Hopper tile stepper (gs_tile_sm90.cuh: time_block): the tile's 80^2
+//     window in dynamic shared memory (two buffers of two species, 102,400
+//     B, 512 threads, two blocks an SM), register strips of 4 cells, the tap
+//     set fixed at compile time, and the fixed term list with no boundary
+//     arithmetic on tiles whose window lies inside the domain (82 % of the
+//     tiles at 1080x1920, 94 % at 4096^2).
+//   - Windows load with cp.async.cg (16 B) and __ldcg for ragged cells:
+//     coherent, since in block t a tile reads what other blocks wrote in
+//     t - 1. Once a tile's last step is done, the buffer that held that
+//     step's input is free, and the next tile's window starts loading into
+//     it before the finished tile is written out. A time block's first tile
+//     loads after the grid barrier.
 //   - A grid barrier ends each time block.
 //   - When n_blocks is odd the state ends in slot 1, and a last pass copies
 //     slot 1 to slot 0 (megakernel.py:24-31).
@@ -22,28 +32,76 @@
 // writes only slot 1 - t % 2, so within a block no tile reads what another
 // writes. The barrier at the end of block t orders every write of t before
 // every read of t + 1 (which reads the slot t wrote), and every read of t
-// before block t + 1 writes slot t % 2 again. The final copy runs after the
-// barrier of the last block, so it reads slot 1 complete. Reads go through
-// __ldcg, never the non-coherent path, so a block cannot see a stale line
-// after the barrier.
+// before block t + 1 writes slot t % 2 again; no window load is issued
+// before the barrier that precedes its time block. The final copy runs
+// after the barrier of the last block, so it reads slot 1 complete. Reads
+// bypass L1, so a block cannot see a stale line after the barrier.
 //
-// What bounds it on the card: the per-cell arithmetic and the 1.5x halo
-// recompute of a 48^2 window, as in K1; the launch and the write-back of
-// the windowed engine's pair swap are paid once a run instead of once per
-// 8 steps, against one grid barrier per time block. A cp.async or TMA ring
-// that prefetches the next window across tiles and time blocks is later
-// work.
+// What bounds it on the card: instruction issue for the float32 operations
+// of the tree and the halo recompute (1.24x the useful cell-steps over 8
+// steps), as in K1; each time block's state passes through L2 (or HBM
+// beyond L2) once, as in K1's launch. Against K1 it saves the launch and
+// pays a grid barrier a time block and the tail of its tile rounds: 510
+// tiles on 264 blocks take 2 rounds at 1080x1920, the second 93 % full;
+// 4096 tiles take 16 at 4096^2, the last half full. The overlap of the next
+// window's load with the write-out, and the second block on each SM, hide
+// the reloads. gs_mega_ablation runs the kernel with one part of the design
+// taken out, or with the first stepper's kernel (part 0, kept unchanged as
+// the in-call yardstick of the old code), for chip_smoke.py to time what
+// each part buys.
 
-#include "gs_tile.cuh"
+#include "gs_tile_sm90.cuh"
 
 namespace {
 
-constexpr int HALO = 8;  // most steps per time block (MEGA_STEPS)
+namespace sm90 = gs::sm90;
 
-__global__ void __launch_bounds__(gs::BLOCK_X * gs::BLOCK_Y)
+constexpr int HALO = sm90::HALO;  // most steps per time block (MEGA_STEPS)
+
+// The slot copy after an odd number of time blocks: slot 1 to slot 0, by
+// the whole grid of blocks of `threads` threads; `tid` is the thread's flat
+// index in its block.
+__device__ __forceinline__ void copy_slot(float* u_pair, float* v_pair,
+                                          size_t plane, int threads,
+                                          int tid) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * threads;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * threads + tid;
+       i < plane; i += stride) {
+    u_pair[i] = __ldcg(u_pair + plane + i);
+    v_pair[i] = __ldcg(v_pair + plane + i);
+  }
+}
+
+// SPECIALIZE = false takes every tile as an edge tile, PREFETCH = false
+// loads each window only when its tile is due (ablations).
+template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH>
+__global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 mega_kernel(float* u_pair, float* v_pair, int rows, int cols, int n_blocks,
-            int steps, int naive, gs::Constants k,
+            int steps, gs::Constants k, int aligned,
             unsigned long long* barrier) {
+  extern __shared__ float4 window[];  // buffers [2] x species [2]
+  float* const base = reinterpret_cast<float*>(window);
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  const int tiles_x = (cols + G::TC - 1) / G::TC;
+  const int n_tiles = tiles_x * ((rows + G::TR - 1) / G::TR);
+  for (int t = 0; t < n_blocks; ++t) {
+    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
+    sm90::time_block<G, TAPS, NAIVE, SPECIALIZE, PREFETCH>(
+        gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
+        v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
+        cols, steps, k, aligned, base);
+    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
+  }
+  if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, G::NT, threadIdx.x);
+}
+
+// The first stepper's kernel (gs_tile.cuh: step_tile<8>, 32x32 tiles in
+// 48^2 windows of static shared memory, 256 threads), as K2 ran before the
+// Hopper stepper: gs_mega_ablation's part 0.
+__global__ void __launch_bounds__(gs::BLOCK_X * gs::BLOCK_Y)
+first_stepper_kernel(float* u_pair, float* v_pair, int rows, int cols,
+                     int n_blocks, int steps, int naive, gs::Constants k,
+                     unsigned long long* barrier) {
   __shared__ gs::Window<HALO> s;
   const size_t plane = static_cast<size_t>(rows) * cols;
   const int tiles_x = (cols + gs::TILE - 1) / gs::TILE;
@@ -58,19 +116,100 @@ mega_kernel(float* u_pair, float* v_pair, int rows, int cols, int n_blocks,
     if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
   }
   if (n_blocks & 1) {
-    const size_t stride =
-        static_cast<size_t>(gridDim.x) * gs::BLOCK_X * gs::BLOCK_Y;
-    for (size_t i = static_cast<size_t>(blockIdx.x) * gs::BLOCK_X *
-                        gs::BLOCK_Y +
-                    threadIdx.y * gs::BLOCK_X + threadIdx.x;
-         i < plane; i += stride) {
-      u_pair[i] = __ldcg(u_pair + plane + i);
-      v_pair[i] = __ldcg(v_pair + plane + i);
-    }
+    copy_slot(u_pair, v_pair, plane, gs::BLOCK_X * gs::BLOCK_Y,
+              threadIdx.y * gs::BLOCK_X + threadIdx.x);
   }
 }
 
-int max_blocks_cache[gs::MAX_DEVICES];  // 0 = not known yet
+int first_stepper_cache[gs::MAX_DEVICES];  // 0 = not known yet
+
+struct Call {
+  float *u_pair, *v_pair;
+  int rows, cols, n_blocks, steps, naive, device;
+  gs::Constants k;
+  int grid_blocks;
+  unsigned long long* barrier;
+  cudaStream_t stream;
+};
+
+// One instantiation of mega_kernel: its co-resident blocks (cached per
+// device; the first query also allows it its dynamic shared memory) and its
+// launch. `grid_blocks` <= 0 takes the co-resident maximum (capped at the
+// tile count); a larger grid than the card can hold is refused with
+// cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
+template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true,
+          bool PREFETCH = true>
+struct Mega {
+
+  static int* cache() {
+    static int blocks[gs::MAX_DEVICES];  // 0 = not known yet
+    return blocks;
+  }
+
+  static cudaError_t max_blocks(int device, int* out) {
+    return gs::coresident_blocks(
+        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH>, device, cache(),
+        out, G::NT, G::BYTES);
+  }
+
+  static cudaError_t launch(const Call& c) {
+    Call a = c;
+    const size_t plane = static_cast<size_t>(c.rows) * c.cols;
+    int aligned = sm90::rows_aligned(c.cols, c.u_pair, c.v_pair,
+                                     c.u_pair + plane, c.v_pair + plane);
+    void* args[] = {&a.u_pair, &a.v_pair, &a.rows,    &a.cols,   &a.n_blocks,
+                    &a.steps,  &a.k,      &aligned, &a.barrier};
+    return gs::launch_persistent(
+        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH>, args, c.rows,
+        c.cols, c.grid_blocks, c.device, cache(), c.stream, dim3(G::NT),
+        G::BYTES, G::TR);
+  }
+};
+
+template <typename G, int TAPS, bool SPECIALIZE = true, bool PREFETCH = true>
+cudaError_t launch(const Call& c) {
+  using Naive = Mega<G, TAPS, true, SPECIALIZE, PREFETCH>;
+  using Zero = Mega<G, TAPS, false, SPECIALIZE, PREFETCH>;
+  return c.naive ? Naive::launch(c) : Zero::launch(c);
+}
+
+template <int TAPS>
+struct Launch {
+  static cudaError_t run(const Call& c) { return launch<sm90::Main, TAPS>(c); }
+};
+
+// The fewer of *least and the co-resident blocks of TAPS's instantiations.
+template <int TAPS>
+cudaError_t fewest_blocks(int device, int* least) {
+  int naive = 0, zero = 0;
+  cudaError_t err = Mega<sm90::Main, TAPS, true>::max_blocks(device, &naive);
+  if (err == cudaSuccess) {
+    err = Mega<sm90::Main, TAPS, false>::max_blocks(device, &zero);
+  }
+  const int fewer = naive < zero ? naive : zero;
+  if (fewer < *least) *least = fewer;
+  return err;
+}
+
+// The C interface's checks; the call, or an error in `err`.
+Call make_call(float* u_pair, float* v_pair, int rows, int cols, int n_blocks,
+               int steps, int naive, int device, const float* w, float du,
+               float dv, float feed, float min_feed_kill, float dt,
+               int grid_blocks, void* barrier, void* stream,
+               cudaError_t* err) {
+  *err = cudaSuccess;
+  if (rows < 1 || cols < 1 || n_blocks < 1 || steps < 1 || steps > HALO ||
+      device < 0 || device >= gs::MAX_DEVICES) {
+    *err = cudaErrorInvalidValue;
+  } else {
+    *err = cudaSetDevice(device);
+  }
+  return {u_pair, v_pair, rows, cols, n_blocks, steps, naive, device,
+          {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
+           du, dv, feed, min_feed_kill, dt},
+          grid_blocks, static_cast<unsigned long long*>(barrier),
+          static_cast<cudaStream_t>(stream)};
+}
 
 }  // namespace
 
@@ -79,9 +218,19 @@ extern "C" {
 int gs_mega_max_steps() { return HALO; }
 
 // The most blocks one cooperative launch of the kernel may have on
-// `device` (negative: minus the CUDA error).
+// `device`, whatever its weights and boundary (negative: minus the CUDA
+// error).
 int gs_mega_max_blocks(int device) {
-  return gs::max_blocks_or_error(mega_kernel, device, max_blocks_cache);
+  if (device < 0 || device >= gs::MAX_DEVICES) {
+    return -static_cast<int>(cudaErrorInvalidDevice);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  int n = 1 << 30;
+  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_RING>(device, &n);
+  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ALL>(device, &n);
+  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_CROSS>(device, &n);
+  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ANY>(device, &n);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Enqueues one cooperative launch of `n_blocks` time blocks of `steps`
@@ -97,17 +246,52 @@ int gs_mega_multistep(float* u_pair, float* v_pair, int rows, int cols,
                       float w5, float w6, float w7, float w8, float du,
                       float dv, float feed, float min_feed_kill, float dt,
                       int grid_blocks, void* barrier, void* stream) {
-  if (rows < 1 || cols < 1 || n_blocks < 1 || steps < 1 || steps > HALO) {
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  cudaError_t err;
+  const Call c = make_call(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
+                           device, w, du, dv, feed, min_feed_kill, dt,
+                           grid_blocks, barrier, stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+}
+
+// gs_mega_multistep with one part of the design taken out, for timing what
+// it buys (weights of the default stencil's tap set only): 0 the first
+// stepper's kernel, 1 no interior tiles, 2 the tap set tested at run time,
+// 3 no prefetch of the next tile's window, 4 32x32 tiles in 48x48 windows.
+// The result is the same.
+int gs_mega_ablation(float* u_pair, float* v_pair, int rows, int cols,
+                     int n_blocks, int steps, int naive, int device,
+                     float w0, float w1, float w2, float w3, float w4,
+                     float w5, float w6, float w7, float w8, float du,
+                     float dv, float feed, float min_feed_kill, float dt,
+                     int grid_blocks, void* barrier, void* stream, int part) {
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  cudaError_t err;
+  Call c = make_call(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
+                     device, w, du, dv, feed, min_feed_kill, dt, grid_blocks,
+                     barrier, stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sm90::tap_mask(c.k) != sm90::TAPS_RING) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gs::Constants k = {{w0, w1, w2, w3, w4, w5, w6, w7, w8},
-                     du, dv, feed, min_feed_kill, dt};
-  unsigned long long* counter = static_cast<unsigned long long*>(barrier);
-  void* args[] = {&u_pair, &v_pair, &rows, &cols, &n_blocks, &steps, &naive,
-                  &k, &counter};
-  return static_cast<int>(gs::launch_persistent(
-      mega_kernel, args, rows, cols, grid_blocks, device, max_blocks_cache,
-      static_cast<cudaStream_t>(stream)));
+  constexpr int RING = sm90::TAPS_RING;
+  switch (part) {
+    case 0: {
+      void* args[] = {&c.u_pair, &c.v_pair, &c.rows,  &c.cols,   &c.n_blocks,
+                      &c.steps,  &c.naive,  &c.k,     &c.barrier};
+      err = gs::launch_persistent(first_stepper_kernel, args, c.rows, c.cols,
+                                  c.grid_blocks, c.device,
+                                  first_stepper_cache, c.stream);
+      break;
+    }
+    case 1: err = launch<sm90::Main, RING, false>(c); break;
+    case 2: err = launch<sm90::Main, sm90::TAPS_ANY>(c); break;
+    case 3: err = launch<sm90::Main, RING, true, false>(c); break;
+    case 4: err = launch<sm90::Small, RING>(c); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -72,7 +72,8 @@ __device__ __forceinline__ void load_tile(const float* u, const float* v,
                                           bool aligned) {
   const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
   sm90::load_window<WR, PITCH / 4, PITCH, NT, true>(
-      u, v, su, sv, ti * TILE - 1, tj * TILE - 4, rows, cols, aligned);
+      gs::FlatLayout{cols}, u, v, su, sv, ti * TILE - 1, tj * TILE - 4, rows,
+      cols, aligned);
   sm90::cp_async_commit();
 }
 

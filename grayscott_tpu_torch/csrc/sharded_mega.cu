@@ -16,12 +16,18 @@
 //     group of blocks per shard (the first gridDim.x % n_shards groups one
 //     block larger). A grid smaller than the shard count is refused.
 //   - Time block t reads slot t % 2 and writes slot 1 - t % 2. A group walks
-//     its shard's 32x32 tiles and steps each as K2 does (mega.cu, through
-//     gs_tile.cuh: step_tile_at<8>), at the shard's global origin: the
-//     domain mask and the naive window are taken against the global
-//     (rows, cols), so a shard seam is never a domain edge, and cells past
-//     the domain in the last shards are written 0.0 in the window each step
-//     and never stored.
+//     its shard's tiles and steps each as K2 does (mega.cu, on the Hopper
+//     tile stepper, gs_tile_sm90.cuh: time_block, with the shard's layout,
+//     gs::ShardLayout), at the shard's global origin: the interior test,
+//     the domain mask and the naive window are taken against the global
+//     (rows, cols), so a shard seam is never a domain edge and tiles along
+//     a seam are interior tiles; cells the shard's buffer does not hold load
+//     as 0.0 (with steps <= HALO they cannot reach a stored cell), and only
+//     cells in the domain that the shard stores are written. Two tile
+//     geometries are built: 64x64 tiles in 80^2 windows (512 threads, two
+//     blocks an SM) and 32x32 in 48^2 (256 threads); the wrapper picks one
+//     per mesh from the rounds of tiles each needs
+//     (ops/sharded_mega.py:choose_tile).
 //   - Each group has its own barrier; no barrier spans shards. Shards meet
 //     only through arrival counters, one per (slot, direction) at the
 //     receiver (the TPU's per-slot recv semaphores, megakernel.py:100-134).
@@ -30,7 +36,8 @@
 //     HALO interior rows into the row neighbours' halo rows (across the
 //     interior columns), chalo interior columns into the column neighbours'
 //     halo columns (across the interior rows), and a HALO x chalo corner
-//     into each diagonal neighbour's halo corner (megakernel.py:324-353).
+//     into each diagonal neighbour's halo corner (megakernel.py:324-353),
+//     as 16-byte float4 copies (every band's width is a multiple of 4).
 //     Then one thread bumps each neighbour's counter for (slot, direction).
 //   - A shard enters time block t > 0 once the counter of slot t % 2 of
 //     every present neighbour shows the pushes of block t - 1: (t + 1) / 2,
@@ -57,13 +64,15 @@
 //     t + 1. So no push overwrites a halo cell before its reader is done
 //     (megakernel.py:512-520). Counters per slot keep a push into one slot
 //     from standing in for the other's (megakernel.py:382-391).
+//   - No window load crosses a group barrier or the wait for arrivals at the
+//     entry to a time block: a time block's first tile loads after both.
 //   - Visibility: each block's pushes are ordered before the bump by
 //     __syncthreads(), a __threadfence() and an arrival on the group's gather
 //     counter; the group's first block waits for every arrival, fences and
 //     bumps. The receiver's thread 0 sees the count, fences, and
 //     __syncthreads() extends that to its block (the protocol of
-//     gs::group_barrier). State is read through __ldcg, never the
-//     non-coherent path.
+//     gs::group_barrier). State is read through __ldcg and cp.async.cg,
+//     never the non-coherent path or L1.
 //   - The final copy runs after the last pushes into the shard have arrived
 //     and after the group barrier of the last block; nothing writes the
 //     shard's slot 0 then (the last pushes into it were consumed at the entry
@@ -75,18 +84,23 @@
 // lie on one card and one launch runs them; the same kernel would run one
 // shard a card with peer pointers in the descriptors.
 //
-// What bounds it on the card: K2's per-cell arithmetic and 1.5x halo
-// recompute of 48^2 windows on tiles rounded to each shard (a shard of 270
-// rows is 9 tile rows, 288 rows of work), plus a group barrier and the
-// pushes (a few hundred KB a time block) per time block. The TPU kernel's
-// overlap of interior rows with the exchange (its 1-D read-site waits,
-// megakernel.py:451-463) is later work.
+// What bounds it on the card: K2's (mega.cu): instruction issue for the
+// tree and the halo recompute on tiles rounded to each shard, plus a group
+// barrier and the pushes (a few hundred KB a time block) per time block.
+// Each shard's tiles are walked by its own group of about 1/n_shards of the
+// co-resident blocks, so a mesh can take more rounds of tiles than K2 (2x2
+// at 1080x1920: 135 tiles of 64^2 a shard on 66 blocks, 3 rounds, where K2
+// takes 2); the 32^2 geometry, with more blocks an SM, can take fewer. The
+// TPU kernel's overlap of interior rows with the exchange (its 1-D
+// read-site waits, megakernel.py:451-463) is later work.
 
-#include "gs_tile.cuh"
+#include "gs_tile_sm90.cuh"
 
 namespace {
 
-constexpr int HALO = 8;  // most steps per time block, and the halo rows
+namespace sm90 = gs::sm90;
+
+constexpr int HALO = sm90::HALO;  // most steps per time block, the halo rows
 constexpr int N_DIRS = 8;
 // a shard's 64-bit counters: arrivals [slot][direction], its group's
 // barrier and its group's push gather
@@ -115,13 +129,12 @@ struct ShardDesc {
   float* pair[2];                  // its (U, V) pairs
   unsigned long long* counters;    // its COUNTER_WORDS counters
   int row0, col0;                  // global (row, col) of interior (0, 0)
+  int aligned;                     // its rows 16-byte aligned
   float* nbr_pair[N_DIRS][2];      // the neighbour in direction d, or null
   unsigned long long* nbr_counters[N_DIRS];
 };
 
-__device__ __forceinline__ bool first_thread() {
-  return threadIdx.x == 0 && threadIdx.y == 0;
-}
+__device__ __forceinline__ bool first_thread() { return threadIdx.x == 0; }
 
 // Wait until the counter of `slot` shows `count` pushes from every present
 // neighbour, then make what they pushed visible to the whole block.
@@ -139,16 +152,15 @@ __device__ __forceinline__ void wait_arrivals(const ShardDesc& me, int slot,
   __syncthreads();
 }
 
-// The block's share of the pushes of `slot` into every present neighbour.
+// The block's share of the pushes of `slot` into every present neighbour,
+// in float4s (pitch, chalo and c_loc are multiples of 4 and the pairs
+// 16-byte aligned: gs_sharded_mega_describe).
 __device__ __forceinline__ void push(const ShardDesc& me, int slot,
                                      int r_loc, int c_loc, int chalo,
                                      size_t pitch, size_t plane, int rank,
                                      unsigned int size) {
-  constexpr int THREADS = gs::BLOCK_X * gs::BLOCK_Y;
-  const size_t first =
-      static_cast<size_t>(rank) * THREADS + threadIdx.y * gs::BLOCK_X +
-      threadIdx.x;
-  const size_t stride = static_cast<size_t>(size) * THREADS;
+  const int first = rank * blockDim.x + threadIdx.x;
+  const int stride = size * blockDim.x;
   const float* u = me.pair[0] + slot * plane;
   const float* v = me.pair[1] + slot * plane;
   for (int d = 0; d < N_DIRS; ++d) {
@@ -163,13 +175,16 @@ __device__ __forceinline__ void push(const ShardDesc& me, int slot,
     const int to_r = dr > 0 ? 0 : dr < 0 ? HALO + r_loc : HALO;
     const int from_c = dc > 0 ? c_loc : chalo;
     const int to_c = dc > 0 ? 0 : dc < 0 ? chalo + c_loc : chalo;
-    const size_t n = static_cast<size_t>(n_rows) * n_cols;
-    for (size_t i = first; i < n; i += stride) {
-      const size_t r = i / n_cols, c = i % n_cols;
+    const int quads = n_cols / 4;  // float4s a band row
+    const int n = n_rows * quads;
+    for (int i = first; i < n; i += stride) {
+      const int r = i / quads, c = 4 * (i - r * quads);
       const size_t from = (from_r + r) * pitch + from_c + c;
       const size_t to = (to_r + r) * pitch + to_c + c;
-      nu[to] = __ldcg(u + from);
-      nv[to] = __ldcg(v + from);
+      *reinterpret_cast<float4*>(nu + to) =
+          __ldcg(reinterpret_cast<const float4*>(u + from));
+      *reinterpret_cast<float4*>(nv + to) =
+          __ldcg(reinterpret_cast<const float4*>(v + from));
     }
   }
 }
@@ -196,13 +211,15 @@ __device__ __forceinline__ void arrive(const ShardDesc& me, int slot,
   }
 }
 
-// 6 blocks an SM, as K2 runs: left free, ptxas takes 48 registers (the
-// shard layout stays live across the step loop) and 5 blocks fit an SM.
-__global__ void __launch_bounds__(gs::BLOCK_X * gs::BLOCK_Y, 6)
+// G: the tile geometry (gs_tile_sm90.cuh: Main, 64^2 tiles and 512
+// threads, two blocks an SM; Small, 32^2 and 256, four blocks an SM).
+template <typename G, int TAPS, bool NAIVE>
+__global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 sharded_mega_kernel(const ShardDesc* shards, int n_shards, int rows,
                     int cols, int r_loc, int c_loc, int chalo, int n_blocks,
-                    int steps, int naive, gs::Constants k) {
-  __shared__ gs::Window<HALO> s;
+                    int steps, gs::Constants k) {
+  extern __shared__ float4 window[];  // buffers [2] x species [2]
+  float* const base = reinterpret_cast<float*>(window);
   // the block's shard g and its rank among the shard's `size` blocks
   const int per = gridDim.x / n_shards, extra = gridDim.x % n_shards;
   const int b = blockIdx.x, big = extra * (per + 1);
@@ -217,35 +234,123 @@ sharded_mega_kernel(const ShardDesc* shards, int n_shards, int rows,
                                HALO,    chalo,   pitch};
   float* const u = me.pair[0];
   float* const v = me.pair[1];
-  const int tiles_x = (c_loc + gs::TILE - 1) / gs::TILE;
-  const int n_tiles = tiles_x * ((r_loc + gs::TILE - 1) / gs::TILE);
+  const int tiles_x = (c_loc + G::TC - 1) / G::TC;
+  const int n_tiles = tiles_x * ((r_loc + G::TR - 1) / G::TR);
   for (int t = 0; t < n_blocks; ++t) {
     const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
     if (t > 0) wait_arrivals(me, t & 1, (t + 1) / 2);
-    for (int i = rank; i < n_tiles; i += size) {
-      gs::step_tile_at<HALO>(mem, u + src, v + src, u + dst, v + dst,
-                             me.row0 + (i / tiles_x) * gs::TILE - HALO,
-                             me.col0 + (i % tiles_x) * gs::TILE - HALO, rows,
-                             cols, steps, naive, k, s);
-    }
+    sm90::time_block<G, TAPS, NAIVE, true, true>(
+        mem, u + src, v + src, u + dst, v + dst, rank, size, n_tiles,
+        tiles_x, me.row0, me.col0, rows, cols, steps, k, me.aligned, base);
     gs::group_barrier(me.counters + BARRIER, t + 1, size);
     push(me, 1 - (t & 1), r_loc, c_loc, chalo, pitch, plane, rank, size);
     arrive(me, 1 - (t & 1), t + 1, size, rank == 0);
   }
   wait_arrivals(me, n_blocks & 1, (n_blocks + 1) / 2);
-  if (n_blocks & 1) {
-    constexpr int THREADS = gs::BLOCK_X * gs::BLOCK_Y;
-    const size_t stride = static_cast<size_t>(size) * THREADS;
-    for (size_t i = static_cast<size_t>(rank) * THREADS +
-                    threadIdx.y * gs::BLOCK_X + threadIdx.x;
-         i < plane; i += stride) {
-      u[i] = __ldcg(u + plane + i);
-      v[i] = __ldcg(v + plane + i);
+  if (n_blocks & 1) {  // slot 1 to slot 0, halos included, in float4s
+    const size_t stride = static_cast<size_t>(size) * blockDim.x;
+    for (size_t i = static_cast<size_t>(rank) * blockDim.x + threadIdx.x;
+         i < plane / 4; i += stride) {
+      reinterpret_cast<float4*>(u)[i] =
+          __ldcg(reinterpret_cast<const float4*>(u + plane) + i);
+      reinterpret_cast<float4*>(v)[i] =
+          __ldcg(reinterpret_cast<const float4*>(v + plane) + i);
     }
   }
 }
 
-int max_blocks_cache[gs::MAX_DEVICES];  // 0 = not known yet
+// One instantiation: its co-resident blocks (cached per device; the first
+// query also allows it its dynamic shared memory) and its launch.
+template <typename G, int TAPS, bool NAIVE>
+struct Sharded {
+  static int* cache() {
+    static int blocks[gs::MAX_DEVICES];  // 0 = not known yet
+    return blocks;
+  }
+
+  static cudaError_t max_blocks(int device, int* out) {
+    return gs::coresident_blocks(sharded_mega_kernel<G, TAPS, NAIVE>, device,
+                                 cache(), out, G::NT, G::BYTES);
+  }
+};
+
+struct Call {
+  const void* shards;
+  int n_shards, rows, cols, r_loc, c_loc, chalo, n_blocks, steps, naive,
+      device;
+  gs::Constants k;
+  int grid_blocks, tile;
+  cudaStream_t stream;
+};
+
+// `grid_blocks` <= 0 takes the co-resident maximum (capped at the tile
+// count); a grid smaller than n_shards is refused with
+// cudaErrorInvalidValue, a larger grid than the card can hold with
+// cudaErrorCooperativeLaunchTooLarge.
+template <typename G, int TAPS, bool NAIVE>
+cudaError_t launch_one(const Call& c) {
+  int most = 0;
+  cudaError_t err = Sharded<G, TAPS, NAIVE>::max_blocks(c.device, &most);
+  if (err != cudaSuccess) return err;
+  int grid = c.grid_blocks;
+  if (grid <= 0) {
+    grid = most;
+    const long long tiles = static_cast<long long>(c.n_shards) *
+                            ((c.c_loc + G::TC - 1) / G::TC) *
+                            ((c.r_loc + G::TR - 1) / G::TR);
+    if (tiles < grid) grid = static_cast<int>(tiles);
+  }
+  if (grid < c.n_shards) return cudaErrorInvalidValue;
+  Call a = c;
+  const ShardDesc* desc = static_cast<const ShardDesc*>(c.shards);
+  void* args[] = {&desc,      &a.n_shards, &a.rows,  &a.cols,  &a.r_loc,
+                  &a.c_loc,   &a.chalo,    &a.n_blocks, &a.steps, &a.k};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(sharded_mega_kernel<G, TAPS, NAIVE>),
+      dim3(grid), dim3(G::NT), args, G::BYTES, c.stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the next launch must not report it
+    return err;
+  }
+  return cudaGetLastError();
+}
+
+template <int TAPS>
+struct Launch {
+  static cudaError_t run(const Call& c) {
+    if (c.tile == sm90::Small::TR) {
+      return c.naive ? launch_one<sm90::Small, TAPS, true>(c)
+                     : launch_one<sm90::Small, TAPS, false>(c);
+    }
+    return c.naive ? launch_one<sm90::Main, TAPS, true>(c)
+                   : launch_one<sm90::Main, TAPS, false>(c);
+  }
+};
+
+// The fewer of *least and the co-resident blocks of the G instantiations of
+// TAPS.
+template <typename G, int TAPS>
+cudaError_t fewest_blocks(int device, int* least) {
+  int naive = 0, zero = 0;
+  cudaError_t err = Sharded<G, TAPS, true>::max_blocks(device, &naive);
+  if (err == cudaSuccess) {
+    err = Sharded<G, TAPS, false>::max_blocks(device, &zero);
+  }
+  const int fewer = naive < zero ? naive : zero;
+  if (fewer < *least) *least = fewer;
+  return err;
+}
+
+template <typename G>
+cudaError_t fewest_blocks_all(int device, int* least) {
+  cudaError_t err = fewest_blocks<G, sm90::TAPS_RING>(device, least);
+  if (err == cudaSuccess) err = fewest_blocks<G, sm90::TAPS_ALL>(device, least);
+  if (err == cudaSuccess) {
+    err = fewest_blocks<G, sm90::TAPS_CROSS>(device, least);
+  }
+  if (err == cudaSuccess) err = fewest_blocks<G, sm90::TAPS_ANY>(device, least);
+  return err;
+}
 
 }  // namespace
 
@@ -258,43 +363,64 @@ int gs_sharded_mega_counter_words() { return COUNTER_WORDS; }
 int gs_sharded_mega_desc_bytes() { return sizeof(ShardDesc); }
 
 // The most blocks one cooperative launch of the kernel may have on
-// `device` (negative: minus the CUDA error).
-int gs_sharded_mega_max_blocks(int device) {
-  return gs::max_blocks_or_error(sharded_mega_kernel, device,
-                                 max_blocks_cache);
+// `device` with `tile` x `tile` tiles (64 or 32), whatever its weights and
+// boundary (negative: minus the CUDA error).
+int gs_sharded_mega_max_blocks(int device, int tile) {
+  if (device < 0 || device >= gs::MAX_DEVICES) {
+    return -static_cast<int>(cudaErrorInvalidDevice);
+  }
+  if (tile != sm90::Main::TR && tile != sm90::Small::TR) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  int n = 1 << 30;
+  if (err == cudaSuccess) {
+    err = tile == sm90::Main::TR ? fewest_blocks_all<sm90::Main>(device, &n)
+                                 : fewest_blocks_all<sm90::Small>(device, &n);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 // Writes to `out` (host memory) the descriptors of the n_rows x n_cols
 // shards, row-major, whose pairs are the sub-tensors of `u_pairs` and
 // `v_pairs` (n_rows, n_cols, 2, HALO + r_loc + HALO, chalo + c_loc + chalo)
 // and whose counters are COUNTER_WORDS each of `counters`, all on one card.
-// Returns cudaErrorInvalidValue for a geometry the kernel does not take.
+// Returns cudaErrorInvalidValue for a geometry the kernel does not take
+// (the pushes move float4s: c_loc and chalo multiples of 4, the pairs
+// 16-byte aligned).
 int gs_sharded_mega_describe(void* out, float* u_pairs, float* v_pairs,
                              void* counters, int n_rows, int n_cols,
                              int r_loc, int c_loc, int chalo) {
+  auto aligned16 = [](const void* p) {
+    return reinterpret_cast<size_t>(p) % 16 == 0;
+  };
   if (n_rows < 1 || n_cols < 1 || r_loc < HALO || c_loc < 1 || chalo < 0 ||
+      c_loc % 4 || chalo % 4 || !aligned16(u_pairs) || !aligned16(v_pairs) ||
       (n_cols > 1 && (chalo < 1 || chalo > HALO || c_loc < chalo))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t pair = 2 * (static_cast<size_t>(r_loc) + 2 * HALO) *
-                      (static_cast<size_t>(c_loc) + 2 * chalo);
+  const size_t pitch = static_cast<size_t>(c_loc) + 2 * chalo;
+  const size_t plane = (static_cast<size_t>(r_loc) + 2 * HALO) * pitch;
   auto* desc = static_cast<ShardDesc*>(out);
   auto* ctr = static_cast<unsigned long long*>(counters);
   for (int i = 0; i < n_rows; ++i) {
     for (int j = 0; j < n_cols; ++j) {
       const size_t at = static_cast<size_t>(i) * n_cols + j;
       ShardDesc d = {};
-      d.pair[0] = u_pairs + at * pair;
-      d.pair[1] = v_pairs + at * pair;
+      d.pair[0] = u_pairs + at * 2 * plane;
+      d.pair[1] = v_pairs + at * 2 * plane;
       d.counters = ctr + at * COUNTER_WORDS;
       d.row0 = i * r_loc;
       d.col0 = j * c_loc;
+      d.aligned = sm90::rows_aligned(static_cast<int>(pitch), d.pair[0],
+                                     d.pair[1], d.pair[0] + plane,
+                                     d.pair[1] + plane);
       for (int dir = 0; dir < N_DIRS; ++dir) {
         const int ni = i + dir_row(dir), nj = j + dir_col(dir);
         if (ni < 0 || ni >= n_rows || nj < 0 || nj >= n_cols) continue;
         const size_t nat = static_cast<size_t>(ni) * n_cols + nj;
-        d.nbr_pair[dir][0] = u_pairs + nat * pair;
-        d.nbr_pair[dir][1] = v_pairs + nat * pair;
+        d.nbr_pair[dir][0] = u_pairs + nat * 2 * plane;
+        d.nbr_pair[dir][1] = v_pairs + nat * 2 * plane;
         d.nbr_counters[dir] = ctr + nat * COUNTER_WORDS;
       }
       desc[at] = d;
@@ -306,12 +432,12 @@ int gs_sharded_mega_describe(void* out, float* u_pairs, float* v_pairs,
 // Enqueues one cooperative launch of `n_blocks` time blocks of `steps`
 // steps on `stream`, over the `n_shards` shards described in device memory
 // at `shards` (gs_sharded_mega_describe, copied to the card), of a
-// rows x cols domain. Each shard's counters must be zero. `grid_blocks`
-// <= 0 takes the co-resident maximum (capped at the tile count); a larger
-// grid than the card can hold is refused with
-// cudaErrorCooperativeLaunchTooLarge, and a grid smaller than n_shards with
-// cudaErrorInvalidValue. Returns the CUDA error (0 when the launch was
-// accepted).
+// rows x cols domain, in `tile` x `tile` tiles (64 or 32). Each shard's
+// counters must be zero. `grid_blocks` <= 0 takes the co-resident maximum
+// (capped at the tile count); a larger grid than the card can hold is
+// refused with cudaErrorCooperativeLaunchTooLarge, and a grid smaller than
+// n_shards with cudaErrorInvalidValue. Returns the CUDA error (0 when the
+// launch was accepted).
 int gs_sharded_mega_multistep(const void* shards, int n_shards, int rows,
                               int cols, int r_loc, int c_loc, int chalo,
                               int n_blocks, int steps, int naive, int device,
@@ -319,34 +445,21 @@ int gs_sharded_mega_multistep(const void* shards, int n_shards, int rows,
                               float w4, float w5, float w6, float w7,
                               float w8, float du, float dv, float feed,
                               float min_feed_kill, float dt, int grid_blocks,
-                              void* stream) {
+                              int tile, void* stream) {
   if (n_shards < 1 || rows < 1 || cols < 1 || r_loc < HALO || c_loc < 1 ||
       chalo < 0 || chalo > HALO || n_blocks < 1 || steps < 1 ||
-      steps > HALO) {
+      steps > HALO || device < 0 || device >= gs::MAX_DEVICES ||
+      (tile != sm90::Main::TR && tile != sm90::Small::TR)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int grid = grid_blocks;
-  if (grid <= 0) {
-    err = gs::coresident_blocks(sharded_mega_kernel, device,
-                                max_blocks_cache, &grid);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long tiles =
-        static_cast<long long>(n_shards) *
-        ((c_loc + gs::TILE - 1) / gs::TILE) *
-        ((r_loc + gs::TILE - 1) / gs::TILE);
-    if (tiles < grid) grid = static_cast<int>(tiles);
-  }
-  if (grid < n_shards) return static_cast<int>(cudaErrorInvalidValue);
-  gs::Constants k = {{w0, w1, w2, w3, w4, w5, w6, w7, w8},
-                     du, dv, feed, min_feed_kill, dt};
-  const ShardDesc* desc = static_cast<const ShardDesc*>(shards);
-  void* args[] = {&desc,     &n_shards, &rows,  &cols,  &r_loc, &c_loc,
-                  &chalo,    &n_blocks, &steps, &naive, &k};
-  return static_cast<int>(gs::launch_persistent(
-      sharded_mega_kernel, args, rows, cols, grid, device, max_blocks_cache,
-      static_cast<cudaStream_t>(stream)));
+  const Call c = {shards, n_shards, rows, cols, r_loc, c_loc, chalo,
+                  n_blocks, steps, naive, device,
+                  {{w0, w1, w2, w3, w4, w5, w6, w7, w8},
+                   du, dv, feed, min_feed_kill, dt},
+                  grid_blocks, tile, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
 }
 
 }  // extern "C"

@@ -40,44 +40,10 @@ namespace {
 
 namespace sm90 = gs::sm90;
 
-constexpr int HALO = 8;  // most steps per launch (K)
+constexpr int HALO = sm90::HALO;  // most steps per launch (K)
 
-// Tile rows and columns, threads, strip length.
-template <int TR_, int TC_, int NT_, int R_>
-struct Geometry {
-  static constexpr int TR = TR_, TC = TC_, NT = NT_, R = R_;
-  static constexpr int WR = TR + 2 * HALO, WC = TC + 2 * HALO;
-  static constexpr int CELLS = WR * WC;  // of one buffer of one species
-  static constexpr size_t BYTES = 4 * sizeof(float) * CELLS;
-  // blocks an SM: as many as the 227 KB of shared memory hold
-  static constexpr int MIN_BLOCKS = BYTES <= 113 * 1024 ? 2 : 1;
-  static_assert(WC % 4 == 0 && HALO % 4 == 0, "16-byte window rows");
-};
-
-using Main = Geometry<64, 64, 512, 4>;
-
-// One step of the window cells [lo, W - lo)^2, in strips of G::R cells,
-// from (in_u, in_v) into (out_u, out_v). INTERIOR: the window lies inside
-// the domain.
-template <typename G, int TAPS, bool NAIVE, bool INTERIOR>
-__device__ __forceinline__ void step_window(const float* in_u,
-                                            const float* in_v, float* out_u,
-                                            float* out_v, int lo, int r0,
-                                            int c0, int rows, int cols,
-                                            const gs::Constants& k) {
-  const int hi_r = G::WR - lo, ncols = G::WC - 2 * lo;
-  const int items = ncols * ((hi_r - lo + G::R - 1) / G::R);
-  for (int it = threadIdx.x; it < items; it += G::NT) {
-    const int strip = it / ncols;
-    const int lc = lo + (it - strip * ncols), lr0 = lo + strip * G::R;
-    sm90::step_strip<TAPS, NAIVE, G::R, G::WC, !INTERIOR>(
-        in_u, in_v, lr0, lc, min(G::R, hi_r - lr0),
-        {r0 + lr0, c0 + lc, rows, cols}, k, [&](int i, float un, float vn) {
-          out_u[(lr0 + i) * G::WC + lc] = un;
-          out_v[(lr0 + i) * G::WC + lc] = vn;
-        });
-  }
-}
+using sm90::Geometry;
+using sm90::Main;
 
 // SPECIALIZE = false takes every tile as an edge tile (an ablation).
 template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true>
@@ -89,25 +55,26 @@ windowed_kernel(const float* u, const float* v, float* u_out, float* v_out,
   const int r0 = blockIdx.y * G::TR - HALO, c0 = blockIdx.x * G::TC - HALO;
 
   sm90::load_window<G::WR, G::WC / 4, G::WC, G::NT, false>(
-      u, v, base, base + G::CELLS, r0, c0, rows, cols, aligned);
+      gs::FlatLayout{cols}, u, v, base, base + G::CELLS, r0, c0, rows, cols,
+      aligned);
   sm90::cp_async_commit();
   sm90::cp_async_wait<0>();
   __syncthreads();
 
-  const bool interior = SPECIALIZE && r0 >= 0 && c0 >= 0 &&
-                        r0 + G::WR <= rows && c0 + G::WC <= cols;
+  const bool interior =
+      SPECIALIZE && sm90::window_inside<G>(r0, c0, rows, cols);
   int cur = 0;
   for (int st = 0; st < steps; ++st) {
     const float* in_u = base + 2 * cur * G::CELLS;
     float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
     if (interior) {
-      step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
-                                        out_u + G::CELLS, st + 1, r0, c0,
-                                        rows, cols, k);
+      sm90::step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
+                                              out_u + G::CELLS, st + 1, r0,
+                                              c0, rows, cols, k);
     } else {
-      step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
-                                         out_u + G::CELLS, st + 1, r0, c0,
-                                         rows, cols, k);
+      sm90::step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
+                                               out_u + G::CELLS, st + 1, r0,
+                                               c0, rows, cols, k);
     }
     __syncthreads();
     cur ^= 1;
@@ -238,7 +205,7 @@ int gs_windowed_ablation(const float* u, const float* v, float* u_out,
   switch (part) {
     case 1: err = launch<Main, sm90::TAPS_RING, false>(c); break;
     case 2: err = launch<Main, sm90::TAPS_ANY>(c); break;
-    case 3: err = launch<Geometry<32, 32, 256, 4>, sm90::TAPS_RING>(c); break;
+    case 3: err = launch<sm90::Small, sm90::TAPS_RING>(c); break;
     case 4: err = launch<Geometry<32, 128, 512, 4>, sm90::TAPS_RING>(c); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -10,7 +10,10 @@ stream, or raises. On a CPU tensor it runs the plain PyTorch version,
 :func:`megastep_reference`, since there is no kernel to launch on the CPU.
 
 ``launches`` counts the kernel launches, and only them, so that a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel. :func:`megastep_ablation`
+runs the kernel with one part of its design taken out (``ABLATIONS``), for
+timing what each part buys; its launches are not the main path's and are
+not counted.
 
 K6, the species-packed megakernel (``csrc/packed_mega.cu``), is the
 port's ``packed_megastep`` (``megakernel.py:1112``): the same time-block
@@ -37,7 +40,18 @@ launches = 0
 #: K6 launches so far
 packed_launches = 0
 
+#: the parts of K2's design that ``megastep_ablation`` takes out
+#: (csrc/mega.cu: gs_mega_ablation); each gives the whole kernel's result
+ABLATIONS = {
+    0: "the first stepper's kernel (32x32 tiles, gs_tile.cuh)",
+    1: "every tile an edge tile",
+    2: "the tap set tested at run time",
+    3: "no prefetch of the next window",
+    4: "32x32 tiles in 48x48 windows",
+}
+
 _fn = None
+_ablation_fn = None
 _packed_fn = None
 
 
@@ -68,6 +82,17 @@ def _kernel():
     return _fn
 
 
+def _ablation_kernel():
+    global _ablation_fn
+    if _ablation_fn is None:
+        _kernel()  # checks the time-block depth
+        _ablation_fn = build.bind("gs_mega_ablation",
+                                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                                  + [ctypes.c_float] * 14 + [ctypes.c_int]
+                                  + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+    return _ablation_fn
+
+
 def max_blocks(device: torch.device) -> int:
     """The most blocks of one launch that are co-resident on ``device``."""
     index = torch.device(device).index
@@ -87,6 +112,37 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
     maximum. On a CUDA device the launch is enqueued on the current stream
     and not waited for."""
     global launches
+    _check(u_pair, v_pair, n_blocks, steps, boundary, grid)
+    if u_pair.device.type == "cpu":
+        ru, rv = megastep_reference(u_pair[0], v_pair[0], n_blocks * steps,
+                                    consts, boundary)
+        u_pair[0].copy_(ru)
+        v_pair[0].copy_(rv)
+        return
+    _launch(_kernel(), u_pair, v_pair, n_blocks, steps, consts, boundary,
+            grid)
+    launches += 1
+
+
+def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
+                      n_blocks: int, steps: int, consts: KernelConstants,
+                      boundary: str, part: int, grid: int = 0) -> None:
+    """:func:`megastep` on the card with one part of the kernel's design
+    taken out (``ABLATIONS[part]``); the default stencil's tap set only.
+    The result is the whole kernel's. Not counted in ``launches``."""
+    _check(u_pair, v_pair, n_blocks, steps, boundary, grid)
+    if part not in ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(ABLATIONS)}, got "
+                         f"{part!r}")
+    if u_pair.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the pairs must lie on "
+                         f"a CUDA device, not {u_pair.device}")
+    fn = _ablation_kernel()
+    _launch(lambda *args: fn(*args, part), u_pair, v_pair, n_blocks, steps,
+            consts, boundary, grid)
+
+
+def _check(u_pair, v_pair, n_blocks, steps, boundary, grid):
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
@@ -95,13 +151,11 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
     if u_pair.shape[0] != 2:
         raise ValueError(f"the pairs must be (2, R, C), got "
                          f"{tuple(u_pair.shape)}")
-    if u_pair.device.type == "cpu":
-        ru, rv = megastep_reference(u_pair[0], v_pair[0], n_blocks * steps,
-                                    consts, boundary)
-        u_pair[0].copy_(ru)
-        v_pair[0].copy_(rv)
-        return
-    fn = _kernel()
+
+
+def _launch(fn, u_pair, v_pair, n_blocks, steps, consts, boundary, grid):
+    """One launch of ``fn`` (a bound ``gs_mega_*`` entry) on the pairs, on
+    the current stream; raises on a refusal."""
     _, rows, cols = u_pair.shape
     barrier = torch.zeros(1, dtype=torch.int64, device=u_pair.device)
     stream = torch.cuda.current_stream(u_pair.device).cuda_stream
@@ -112,7 +166,6 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
     if err != 0:
         raise RuntimeError(f"mega kernel launch failed: CUDA error {err} "
                            f"({build.error_name(err)})")
-    launches += 1
 
 
 def _packed_kernel():

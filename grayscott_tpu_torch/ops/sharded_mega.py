@@ -16,11 +16,16 @@ all shards on the current stream, or raises. On a CPU tensor it runs the
 plain PyTorch version, :func:`sharded_megastep_reference`, since there is
 no kernel to launch on the CPU. ``launches`` counts the kernel launches,
 and only them.
+
+The kernel steps 64x64 or 32x32 tiles (``TILES``); :func:`choose_tile`
+picks one per domain and mesh from the rounds of tiles that each shard's
+group of blocks walks, and the choice is logged once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 
 import torch
 
@@ -34,10 +39,17 @@ MEGA_STEPS = halo.HALO
 #: 64-bit counters of one shard (csrc/sharded_mega.cu: COUNTER_WORDS)
 COUNTER_WORDS = 2 * len(halo.DIRECTIONS) + 2
 
+#: the kernel's tile geometries: tile edge -> cells of its window (the tile
+#: and MEGA_STEPS cells on every side; csrc/gs_tile_sm90.cuh: Main, Small)
+TILES = {64: (64 + 2 * MEGA_STEPS) ** 2, 32: (32 + 2 * MEGA_STEPS) ** 2}
+
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
 
 _fns = None
+_logger = logging.getLogger("grayscott_tpu_torch")
+#: (shape, mesh shape, device) -> the tile the wrapper picked
+_chosen: dict = {}
 
 
 def launch_plan(steps: int) -> list:
@@ -84,6 +96,33 @@ def sharded_megastep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
         v_pairs[:, :, 0] = v_pairs[:, :, 1]
 
 
+def tile_rounds(shape, mesh_shape, tile: int, blocks: int) -> float:
+    """Rounds of tiles that each shard's group walks in one time block: a
+    shard's ``tile`` x ``tile`` tiles over the smallest group of a launch
+    of ``blocks`` blocks (the co-resident maximum, capped at the tile count
+    as the kernel caps it), split over the mesh's shards. Infinite when the
+    launch cannot hold one block a shard (the kernel refuses it)."""
+    n_r, n_c = mesh_shape
+    n_shards = n_r * n_c
+    r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(n_r, n_c, None))
+    tiles = -(-r_loc // tile) * -(-c_loc // tile)
+    group = min(blocks, n_shards * tiles) // n_shards
+    return -(-tiles // group) if group else float("inf")
+
+
+def choose_tile(shape, mesh_shape, coresident: dict, sms: int) -> int:
+    """The tile edge K7 runs ``shape`` with on a mesh of ``mesh_shape``:
+    the fewest window cells that an SM steps in a time block, i.e. rounds
+    (:func:`tile_rounds`) x blocks an SM x window cells a tile, from each
+    geometry's co-resident blocks on a card of ``sms`` SMs. A tie takes
+    the 64x64 tiles."""
+    def cost(tile):
+        per_sm = coresident[tile] / sms
+        return (tile_rounds(shape, mesh_shape, tile, coresident[tile])
+                * per_sm * TILES[tile], -tile)
+    return min(TILES, key=cost)
+
+
 def _kernel():
     global _fns
     if _fns is None:
@@ -100,20 +139,43 @@ def _kernel():
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5),
             build.bind("gs_sharded_mega_multistep",
                        [ctypes.c_void_p] + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 14 + [ctypes.c_int]
+                       + [ctypes.c_float] * 14 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p]))
     return _fns
 
 
-def max_blocks(device: torch.device) -> int:
-    """The most blocks of one launch that are co-resident on ``device``."""
+def max_blocks(device: torch.device, tile: int | None = None) -> int:
+    """The most blocks of one launch with ``tile`` x ``tile`` tiles that are
+    co-resident on ``device``; with ``tile`` None, the most over both
+    geometries."""
+    if tile is None:
+        return max(max_blocks(device, t) for t in TILES)
     index = torch.device(device).index
-    n = build.bind("gs_sharded_mega_max_blocks", [ctypes.c_int])(
-        torch.cuda.current_device() if index is None else index)
+    n = build.bind("gs_sharded_mega_max_blocks", [ctypes.c_int] * 2)(
+        torch.cuda.current_device() if index is None else index, tile)
     if n <= 0:
         raise RuntimeError(f"sharded mega kernel occupancy query failed: "
                            f"CUDA error {-n} ({build.error_name(-n)})")
     return n
+
+
+def tile_for(shape, mesh: halo.Mesh) -> int:
+    """:func:`choose_tile` on ``mesh``'s card, from the kernel's co-resident
+    counts; logged the first time for each domain and mesh."""
+    key = (tuple(shape), mesh.shape, mesh.device)
+    if key not in _chosen:
+        coresident = {t: max_blocks(mesh.device, t) for t in TILES}
+        sms = torch.cuda.get_device_properties(
+            mesh.device).multi_processor_count
+        tile = choose_tile(shape, mesh.shape, coresident, sms)
+        _chosen[key] = tile
+        _logger.info(
+            "sharded mega: %dx%d tiles for %dx%d on a %dx%d mesh (rounds "
+            "%s, co-resident blocks %s, %d SMs)", tile, tile, shape[0],
+            shape[1], *mesh.shape,
+            {t: tile_rounds(shape, mesh.shape, t, coresident[t])
+             for t in TILES}, coresident, sms)
+    return _chosen[key]
 
 
 def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
@@ -134,17 +196,21 @@ def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
 def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                      mesh: halo.Mesh, n_blocks: int, steps: int,
                      consts: KernelConstants, boundary: str, shape,
-                     grid: int = 0) -> None:
+                     grid: int = 0, tile: int | None = None) -> None:
     """Advance every shard's slot 0 by ``n_blocks`` x ``steps`` steps of the
     domain ``shape`` (R, C), in place. ``grid``: the blocks of the launch,
-    0 for the co-resident maximum; it must hold one block a shard. On a CUDA
-    device the launch is enqueued on the current stream and not waited
-    for."""
+    0 for the co-resident maximum; it must hold one block a shard.
+    ``tile``: the tile edge (a key of ``TILES``), None for
+    :func:`tile_for`'s choice. On a CUDA device the launch is enqueued on
+    the current stream and not waited for."""
     global launches
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
     checks.check_boundary(boundary)
+    if tile is not None and tile not in TILES:
+        raise ValueError(f"tile must be one of {sorted(TILES)} or None, got "
+                         f"{tile!r}")
     check_pairs(u_pairs, v_pairs, mesh, shape)
     if 0 < grid < mesh.n_shards:
         raise ValueError(f"a grid of {grid} blocks cannot hold "
@@ -171,9 +237,12 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                            f"({build.error_name(err)})")
     desc = host.to(device, non_blocking=True)
     stream = torch.cuda.current_stream(device).cuda_stream
+    if tile is None:
+        tile = tile_for(shape, mesh)
     err = fn(desc.data_ptr(), mesh.n_shards, shape[0], shape[1], r_loc,
              c_loc, ch, n_blocks, steps, int(boundary == "naive"),
-             device.index, *consts.weights, *consts.reaction, grid, stream)
+             device.index, *consts.weights, *consts.reaction, grid, tile,
+             stream)
     if err != 0:
         raise RuntimeError(f"sharded mega kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")

@@ -15,10 +15,12 @@ anchored at the clamped window's top-left corner (``oracle._index_maps``).
 origin: the plain version of the sharded megakernel's per-shard step
 (``ops/sharded_mega.py``).
 
-:func:`tiled_step` is the CPU twin of the interior dispatch of K1 and K3
-(``csrc/gs_tile_sm90.cuh``): a tile whose window lies inside the domain
+:func:`tiled_step` is the CPU twin of the interior dispatch of K1, K2 and
+K3 (``csrc/gs_tile_sm90.cuh``): a tile whose window lies inside the domain
 adds a fixed term list (:func:`fixed_laplacian`), the others take
 :func:`step`; :func:`interior_tiles` counts the former.
+:func:`tiled_step_at` and :func:`interior_tiles_at` do the same for a block
+at a shard's origin, as K7 decides in global coordinates.
 """
 
 from __future__ import annotations
@@ -152,22 +154,41 @@ def step_at(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
     return torch.where(mask, nu, 0.0), torch.where(mask, nv, 0.0)
 
 
-def _interior_cells(n: int, t: int, halo: int, device=None) -> torch.Tensor:
-    """Which of the ``n`` cells along one axis lie in a tile of ``t`` cells
-    whose window (``halo`` more on each side) lies inside ``[0, n)``."""
-    first = torch.arange(n, device=device) // t * t
-    return (first - halo >= 0) & (first + t + halo <= n)
+def _interior_cells(n: int, t: int, halo: int, device=None, start: int = 0,
+                    anchor: int = 0, total: int | None = None
+                    ) -> torch.Tensor:
+    """Which of the ``n`` cells along one axis from global index ``start``
+    lie in a tile of ``t`` cells (tiles start at global ``anchor`` + a
+    multiple of ``t``) whose window (``halo`` more on each side) lies
+    inside ``[0, total)``; ``total`` defaults to ``n``."""
+    total = n if total is None else total
+    g = torch.arange(start, start + n, device=device)
+    first = anchor + torch.div(g - anchor, t, rounding_mode="floor") * t
+    return (first - halo >= 0) & (first + t + halo <= total)
 
 
 def interior_tiles(shape: Tuple[int, int], tile: Tuple[int, int],
                    halo: int) -> int:
     """How many ``tile`` (rows, cols) tiles of a ``shape`` domain have
     their window (the tile and ``halo`` cells around it) inside the domain:
-    the tiles that K1 (``halo`` = K) and K3 (``halo`` = 1) step with no
-    boundary arithmetic. Every cell such a tile steps lies in rows
+    the tiles that K1 and K2 (``halo`` = K) and K3 (``halo`` = 1) step with
+    no boundary arithmetic. Every cell such a tile steps lies in rows
     ``[1, R-2]`` and columns ``[1, C-2]``."""
-    rows, cols = (int(_interior_cells(n, t, halo).sum()) // t
-                  for n, t in zip(shape, tile))
+    return interior_tiles_at((0, 0), shape, shape, tile, halo)
+
+
+def interior_tiles_at(anchor: Tuple[int, int], extent: Tuple[int, int],
+                      domain: Tuple[int, int], tile: Tuple[int, int],
+                      halo: int) -> int:
+    """How many of the ``tile`` tiles that cover a block of ``extent``
+    (rows, cols) cells whose cell (0, 0) lies at global ``anchor`` have
+    their window inside the ``domain``: K7's interior tiles of one shard
+    (``anchor`` its interior's origin, ``extent`` (r_loc, c_loc)). A shard
+    seam is no domain edge."""
+    # (each of the ceil(e / t) tiles counts t cells along its axis)
+    rows, cols = (int(_interior_cells(-(-e // t) * t, t, halo, start=a,
+                                      anchor=a, total=total).sum()) // t
+                  for a, e, total, t in zip(anchor, extent, domain, tile))
     return rows * cols
 
 
@@ -219,3 +240,32 @@ def tiled_step(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
     nu[1:-1, 1:-1] = torch.where(mask, fu, nu[1:-1, 1:-1])
     nv[1:-1, 1:-1] = torch.where(mask, fv, nv[1:-1, 1:-1])
     return nu, nv
+
+
+def tiled_step_at(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
+                  boundary: str, origin: Tuple[int, int],
+                  domain: Tuple[int, int], tile: Tuple[int, int], halo: int,
+                  anchor: Tuple[int, int] = (0, 0)
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`step_at` of a block whose cell (0, 0) lies at global
+    ``origin``, decided tile by tile as K7 decides it: the tiles start at
+    global ``anchor`` (a shard's interior origin) plus multiples of
+    ``tile``, and a cell of a tile whose window (``halo`` cells around it)
+    lies inside the ``domain`` comes from :func:`fixed_laplacian` and the
+    update, every other cell from :func:`step_at`. Equal to
+    :func:`step_at` bit for bit: such a cell lies at least ``halo`` >= 1
+    cells inside the domain, and both read 0.0 past the block."""
+    nu, nv = step_at(u, v, consts, boundary, origin, domain)
+    rows, cols = (_interior_cells(n, t, halo, u.device, start=o, anchor=a,
+                                  total=total)
+                  for n, t, o, a, total in zip(u.shape, tile, origin, anchor,
+                                               domain))
+    mask = rows[:, None] & cols[None, :]
+    if not bool(mask.any()):
+        return nu, nv
+    fu, fv = _update(u, v,
+                     fixed_laplacian(F.pad(u, (1, 1, 1, 1)), consts.weights,
+                                     boundary),
+                     fixed_laplacian(F.pad(v, (1, 1, 1, 1)), consts.weights,
+                                     boundary), consts)
+    return torch.where(mask, fu, nu), torch.where(mask, fv, nv)

@@ -126,3 +126,12 @@ def test_headline_main_prints_one_json_line(capsys):
                           "--device", "cpu"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and set(json.loads(out[0])) == bench_py_keys()
+
+
+def test_simulate_turns_stops_without_a_card(monkeypatch, capsys):
+    """The parent-against-change timer refuses to run without a card and
+    prints no result line."""
+    from grayscott_tpu_torch.bench import simulate_turns
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert simulate_turns.main(["--reps", "1"]) == 1
+    assert capsys.readouterr().out == ""

@@ -248,6 +248,76 @@ def test_refused_cooperative_launch_raises(cuda_device, kernel):
                                 "naive", grid=too_many)
 
 
+def nan_state(shape, device):
+    """A random state with NaN and +-Inf in interior and edge tiles and on
+    the domain's edge."""
+    u, v = random_uv(shape, device)
+    u[100, 150] = v[0, 5] = float("nan")
+    v[90, 140] = u[70, 200] = float("inf")
+    u[120, 7] = v[-1, -1] = float("-inf")
+    return u, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_mega_keeps_nan_and_inf(cuda_device, boundary, stencil_name):
+    """K2 on the Hopper stepper: NaN and +-Inf spread bit for bit as
+    through the plain step, in one time block and in three."""
+    consts = kernel_constants(Parameters.with_stencil(stencil_name))
+    u, v = nan_state((200, 300), cuda_device)
+    for n_blocks, steps in ((1, 3), (3, 2)):
+        pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+        megakernel.megastep(pu, pv, n_blocks, steps, consts, boundary)
+        want = megakernel.megastep_reference(u, v, n_blocks * steps, consts,
+                                             boundary)
+        torch.cuda.synchronize()
+        assert bits_equal(pu[0], want[0]) and bits_equal(pv[0], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("part", sorted(megakernel.ABLATIONS))
+def test_mega_ablation_parts_bitwise(cuda_device, boundary, part):
+    """Each part of K2's design taken out (the first stepper's kernel and
+    the 32x32 geometry among them) gives the plain version's state bit for
+    bit, on domains with interior tiles and on NaN and Inf; launches of
+    these parts are not counted."""
+    consts = kernel_constants(Parameters())
+    states = [random_uv(shape, cuda_device)
+              for shape in INTERIOR_SHAPES + SHAPES]
+    states.append(nan_state((200, 300), cuda_device))
+    for u, v in states:
+        for n_blocks, steps in ((1, 8), (3, 5), (4, 8)):
+            pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+            before = megakernel.launches
+            megakernel.megastep_ablation(pu, pv, n_blocks, steps, consts,
+                                         boundary, part)
+            assert megakernel.launches == before
+            want = megakernel.megastep_reference(u, v, n_blocks * steps,
+                                                 consts, boundary)
+            torch.cuda.synchronize()
+            assert bits_equal(pu[0], want[0]) and \
+                bits_equal(pv[0], want[1]), (tuple(u.shape), n_blocks, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("grid", [1, 7])
+def test_mega_on_pinned_grids(cuda_device, boundary, grid):
+    """K2 on grids far below the co-resident maximum (many rounds of tiles
+    a time block) gives the plain version's state."""
+    params = Parameters(time_step=0.5)
+    consts = kernel_constants(params)
+    for shape in INTERIOR_SHAPES + [(300, 500)]:
+        u, v = random_uv(shape, cuda_device)
+        pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+        megakernel.megastep(pu, pv, 3, 8, consts, boundary, grid=grid)
+        want = megakernel.megastep_reference(u, v, 24, consts, boundary)
+        torch.cuda.synchronize()
+        assert torch.equal(pu[0], want[0]) and torch.equal(pv[0], want[1])
+
+
 def random_packed(shape, device):
     return packed.pack_state(*random_uv(shape, device))
 
@@ -532,3 +602,33 @@ def test_sharded_mega_refuses_grids(cuda_device, case):
         sharded_mega.sharded_megastep(*pairs, mesh, 1, 8, consts, "naive",
                                       shape, grid=grid)
     assert sharded_mega.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", sorted(sharded_mega.TILES))
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("shape,n,cols", SHARDED + [((300, 500), 4, 2),
+                                                    ((301, 500), 4, 1)])
+def test_sharded_mega_geometries_bitwise(cuda_device, boundary, shape, n,
+                                         cols, tile):
+    """K7 on each of its tile geometries, one launch of 3 time blocks on
+    the exchanged pairs: every cell of the pairs, halos included, equals
+    the plain version's, on random states and on states with NaN and
+    +-Inf (at 300x500 and 301x500: interior tiles at the shard seams).
+    Tolerance: none."""
+    consts = kernel_constants(Parameters())
+    mesh = halo.make_mesh(n, cols, cuda_device)
+    states = [random_uv(shape, "cpu")]
+    if shape[0] >= 200:
+        states.append(nan_state(shape, "cpu"))
+    for u, v in states:
+        pairs = halo.mega_shard_state(u, v, mesh)
+        for p in pairs:
+            halo.exchange_halos(p)
+        want = [p.clone() for p in pairs]
+        sharded_mega.sharded_megastep(*pairs, mesh, 3, 8, consts, boundary,
+                                      shape, tile=tile)
+        sharded_mega.sharded_megastep_reference(*want, 3, 8, consts,
+                                                boundary, shape)
+        torch.cuda.synchronize()
+        assert all(bits_equal(a, b) for a, b in zip(pairs, want))

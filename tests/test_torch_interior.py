@@ -1,9 +1,10 @@
-"""The CPU twin of the interior dispatch of K1 and K3
+"""The CPU twin of the interior dispatch of K1, K2 and K3
 (grayscott_tpu_torch/ops/stencil.py: ``tiled_step``, ``fixed_laplacian``,
 ``interior_tiles``): a tile whose window lies inside the domain adds a fixed
-term list, the others take the plain step. Tolerance: none. The twin must
-equal ``stencil.step`` bit for bit, NaN and Inf included, and through it
-the numpy oracle."""
+term list, the others take the plain step; and of K7's at a shard's origin
+(``tiled_step_at``, ``interior_tiles_at``), decided in global coordinates.
+Tolerance: none. The twin must equal ``stencil.step`` (``stencil.step_at``)
+bit for bit, NaN and Inf included, and through it the numpy oracle."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,8 @@ import torch
 
 from grayscott_tpu import oracle
 from grayscott_tpu.params import Parameters as JaxParameters
-from grayscott_tpu_torch.ops import resident, stencil, windowed
+from grayscott_tpu_torch.ops import resident, sharded_mega, stencil, windowed
+from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import STENCILS, Parameters, kernel_constants
 
 #: the kernels' tiles and windows: K1 (64^2 tiles, halo K = 8) and K3
@@ -135,3 +137,111 @@ def test_interior_tiles_count(shape, tile, halo, want):
     # every cell an interior tile steps lies in rows [1, R-2], cols [1, C-2]
     assert not mask[0].any() and not mask[-1].any()
     assert not mask[:, 0].any() and not mask[:, -1].any()
+
+
+#: the sharded suite's meshes on the default shape and its ragged one
+#: (1080x1920 and 1001x1920, a quarter of the size: 1001 rows in 4 shards
+#: of 256 scale to 251 rows in 4 shards of 64, the last one past the
+#: domain)
+SHARD_CASES = [((270, 480), mesh) for mesh in ((1, 1), (2, 1), (4, 1), (2, 2))]
+SHARD_CASES += [((251, 480), mesh) for mesh in ((4, 1), (2, 2))]
+
+
+def shard_blocks(u: torch.Tensor, mesh_shape):
+    """Each shard's padded block of the zero-framed domain ``u``, with its
+    global origin and its interior's origin (the tiles' anchor)."""
+    mesh = halo.Mesh(*mesh_shape, torch.device("cpu"))
+    r_loc, c_loc = halo.shard_extents(u.shape, mesh)
+    h, ch = halo.HALO, mesh.chalo
+    frame = torch.zeros((mesh.n_rows * r_loc + 2 * h,
+                         mesh.n_cols * c_loc + 2 * ch))
+    frame[h:h + u.shape[0], ch:ch + u.shape[1]] = u
+    for i in range(mesh.n_rows):
+        for j in range(mesh.n_cols):
+            row0, col0 = i * r_loc, j * c_loc
+            yield (frame[row0:row0 + r_loc + 2 * h,
+                         col0:col0 + c_loc + 2 * ch],
+                   (row0 - h, col0 - ch), (row0, col0))
+
+
+@pytest.mark.parametrize("tile", sorted(sharded_mega.TILES))
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_tiled_step_at_bitwise_equals_step_at(stencil_name, boundary, tile):
+    """K7's decision at each shard's origin, for both of its tile
+    geometries: every shard's padded block, stepped tile by tile at its
+    global origin, equals ``step_at`` bit for bit, with NaN and +-Inf in
+    interior tiles, at shard seams and on the domain's edge."""
+    consts = kernel_constants(Parameters.with_stencil(stencil_name))
+    checked = 0
+    for shape, mesh_shape in SHARD_CASES:
+        u, v = random_state(shape, seed=3)
+        for x, (r, c), value in ((u, (100, 150), np.nan),
+                                 (v, (135, 240), np.inf),
+                                 (u, (136, 239), -np.inf),
+                                 (v, (64, 300), np.nan),
+                                 (u, (0, 7), np.inf),
+                                 (v, (shape[0] - 1, 479), -np.inf)):
+            x[r, c] = value
+        for (bu, origin, anchor), (bv, _, _) in zip(
+                shard_blocks(u, mesh_shape), shard_blocks(v, mesh_shape)):
+            want = stencil.step_at(bu, bv, consts, boundary, origin, shape)
+            got = stencil.tiled_step_at(bu, bv, consts, boundary, origin,
+                                        shape, (tile, tile), halo.HALO,
+                                        anchor)
+            for g, w in zip(got, want):
+                assert torch.equal(bits(g), bits(w)), (shape, mesh_shape,
+                                                       anchor)
+            checked += stencil.interior_tiles_at(
+                anchor, halo.shard_extents(shape, halo.Mesh(
+                    *mesh_shape, None)), shape, (tile, tile), halo.HALO)
+    assert checked > 0  # the fixed list ran
+
+
+def test_tiled_step_at_whole_domain_is_tiled_step():
+    """At origin (0, 0) on the whole domain, with tiles anchored there, the
+    shard form is K1's and K2's decision (``tiled_step``)."""
+    consts = kernel_constants(Parameters())
+    u, v = random_state((161, 259), seed=4)
+    for boundary in ("naive", "zero"):
+        got = stencil.tiled_step_at(u, v, consts, boundary, (0, 0),
+                                    (161, 259), (64, 64), 8)
+        want = stencil.tiled_step(u, v, consts, boundary, (64, 64), 8)
+        for g, w in zip(got, want):
+            assert torch.equal(bits(g), bits(w))
+
+
+@pytest.mark.parametrize("shape,mesh_shape,tile,want", [
+    ((1080, 1920), (1, 1), 64, [420]),               # of 510: K2's count
+    ((1080, 1920), (2, 1), 64, [224, 224]),          # of 270 a shard
+    ((1080, 1920), (4, 1), 64, [112, 140, 140, 112]),  # of 150
+    ((1080, 1920), (2, 2), 64, [112] * 4),           # of 135
+    ((1080, 1920), (2, 2), 32, [464] * 4),           # of 510
+    ((1080, 1920), (4, 1), 32, [464, 522, 522, 464]),  # of 540
+    ((4096, 4096), (1, 1), 64, [3844]),              # of 4096
+    ((4096, 4096), (2, 2), 64, [961] * 4),           # of 1024
+    ((4096, 4096), (4, 1), 64, [930, 992, 992, 930]),  # of 1024
+    ((1001, 1920), (4, 1), 64, [84, 112, 112, 84]),  # of 120
+    ((1001, 1920), (2, 2), 32, [435] * 4),           # of 480
+    ((1000, 1917), (2, 2), 64, [98] * 4),            # of 120
+])
+def test_interior_tiles_per_shard(shape, mesh_shape, tile, want):
+    """K7's interior tiles per shard (a seam is no domain edge), by count
+    and by a walk of the windows; on one shard, K2's count."""
+    mesh = halo.Mesh(*mesh_shape, None)
+    r_loc, c_loc = halo.shard_extents(shape, mesh)
+    got, walked = [], []
+    for i in range(mesh.n_rows):
+        for j in range(mesh.n_cols):
+            row0, col0 = i * r_loc, j * c_loc
+            got.append(stencil.interior_tiles_at(
+                (row0, col0), (r_loc, c_loc), shape, (tile, tile), 8))
+            walked.append(sum(
+                row0 + a * tile - 8 >= 0 and col0 + b * tile - 8 >= 0
+                and row0 + (a + 1) * tile + 8 <= shape[0]
+                and col0 + (b + 1) * tile + 8 <= shape[1]
+                for a in range(-(-r_loc // tile))
+                for b in range(-(-c_loc // tile))))
+    assert got == walked == want
+    if mesh_shape == (1, 1):
+        assert got[0] == stencil.interior_tiles(shape, (tile, tile), 8)

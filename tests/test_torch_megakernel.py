@@ -109,10 +109,14 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
 def test_auto_engine_classes(shape, cls, boundary):
     """Two shape classes, by whether the four f32 state buffers fit the
     L2 share; each picks the engine measured fastest for the class and
-    the boundary, and resident='off' skips K3."""
+    the boundary (on the card: K3 for the default naive run, K2 on the
+    zero boundary in L2, K1 beyond L2), and resident='off' skips K3."""
     assert cuda_backend.shape_class(shape) == cls
     ranking = cuda_backend._RANKING[cls, boundary]
     assert sorted(ranking) == ["mega", "resident", "windowed"]
+    assert ranking[0] == {("l2", "naive"): "resident", ("l2", "zero"): "mega",
+                          ("larger", "naive"): "windowed",
+                          ("larger", "zero"): "windowed"}[cls, boundary]
     assert cuda_backend.auto_engine(shape, boundary) == ranking[0]
     assert cuda_backend.auto_engine(shape, boundary, resident_ok=False) \
         == next(e for e in ranking if e != "resident")

@@ -280,7 +280,7 @@ def test_make_mesh_rejects(case):
 
 @pytest.mark.parametrize("kind", [
     "grid_below_shards", "steps_over", "n_blocks_zero", "wrong_shape",
-    "other_device", "boundary",
+    "other_device", "boundary", "tile",
 ])
 def test_sharded_megastep_rejects_bad_arguments(kind):
     shape = (40, 30)
@@ -300,13 +300,65 @@ def test_sharded_megastep_rejects_bad_arguments(kind):
         mesh = halo.Mesh(2, 2, torch.device("cuda"))
     elif kind == "boundary":
         args["boundary"] = "periodic"
+    elif kind == "tile":
+        args["tile"] = 48
     before = sharded_mega.launches
     with pytest.raises(ValueError):
         sharded_mega.sharded_megastep(
             up, vp, mesh, args["n_blocks"], args["steps"],
             kernel_constants(Parameters()), args["boundary"], shape,
-            grid=args["grid"])
+            grid=args["grid"], tile=args.get("tile"))
     assert sharded_mega.launches == before
+
+
+@pytest.mark.parametrize("sms", [132, 114, 66])
+def test_tile_rounds_and_choice(sms):
+    """K7's rounds of tiles a time block and its geometry choice, from each
+    geometry's co-resident blocks on a card of ``sms`` SMs: 2 blocks an SM
+    of the 64x64 tiles, 4 of the 32x32 ones. Rounds: a shard's tiles over
+    its group, ceil(tiles / (blocks // shards)); the choice: the fewest
+    window cells an SM steps (rounds x blocks an SM x window cells)."""
+    coresident = {64: 2 * sms, 32: 4 * sms}
+    cases = [((1080, 1920), m) for m in ((1, 1), (2, 1), (4, 1), (2, 2))]
+    cases += [((4096, 4096), m) for m in ((1, 1), (4, 1), (2, 2))]
+    chosen = {}
+    for shape, mesh_shape in cases:
+        n_shards = mesh_shape[0] * mesh_shape[1]
+        r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(*mesh_shape,
+                                                           None))
+        cost = {}
+        for tile, cells in sharded_mega.TILES.items():
+            tiles = -(-r_loc // tile) * -(-c_loc // tile)
+            group = min(coresident[tile], n_shards * tiles) // n_shards
+            rounds = sharded_mega.tile_rounds(shape, mesh_shape, tile,
+                                              coresident[tile])
+            assert rounds == -(-tiles // group)
+            assert (rounds - 1) * group < tiles <= rounds * group
+            cost[tile] = rounds * coresident[tile] / sms * cells
+        chosen[shape, mesh_shape] = sharded_mega.choose_tile(
+            shape, mesh_shape, coresident, sms)
+        assert cost[chosen[shape, mesh_shape]] == min(cost.values())
+    if sms == 132:
+        # the H100: 264 and 528 co-resident blocks. 2x2 at 1080x1920:
+        # 135 tiles of 64^2 a shard on 66 blocks (3 rounds, where one shard
+        # takes 2) against 510 of 32^2 on 132 (4 rounds)
+        assert [sharded_mega.tile_rounds((1080, 1920), m, 64, 264)
+                for m in ((1, 1), (2, 1), (4, 1), (2, 2))] == [2, 3, 3, 3]
+        assert [sharded_mega.tile_rounds((1080, 1920), m, 32, 528)
+                for m in ((1, 1), (2, 1), (4, 1), (2, 2))] == [4, 4, 5, 4]
+        assert chosen == {
+            ((1080, 1920), (1, 1)): 64, ((1080, 1920), (2, 1)): 32,
+            ((1080, 1920), (4, 1)): 64, ((1080, 1920), (2, 2)): 32,
+            ((4096, 4096), (1, 1)): 64, ((4096, 4096), (4, 1)): 64,
+            ((4096, 4096), (2, 2)): 64}
+
+
+def test_tile_rounds_without_a_block_a_shard():
+    """A launch that cannot hold one block a shard takes no rounds (the
+    kernel refuses it), and the choice falls to the 64x64 tiles."""
+    assert sharded_mega.tile_rounds((64, 64), (4, 2), 64, 7) == float("inf")
+    assert sharded_mega.choose_tile((64, 64), (4, 2), {64: 7, 32: 7},
+                                    132) == 64
 
 
 def test_cpu_calls_do_not_count_as_launches(rng):
