@@ -7,10 +7,11 @@
    (nvidia-smi) and nvcc.
 2. Builds the kernels from ``grayscott_tpu_torch/csrc/`` into
    ``build/kernels/`` and prints the build time, ptxas's report, each K1,
-   K2, K3 and K7 instantiation's registers, spills and static shared memory
-   (a spill in K2 or K7 fails the run), how many of K1's, K2's and K3's
-   tiles are interior tiles, and K7's per shard on each mesh, for both of
-   its tile geometries.
+   K2, K3, K7, K5 and K6 instantiation's registers, spills and static
+   shared memory (a spill in K2, K6 or K7 fails the run), K6's dynamic
+   shared memory, how many of K1's, K2's, K3's, K5's and K6's tiles are
+   interior tiles, and K7's per shard on each mesh, for both of its tile
+   geometries.
 3. Holds each kernel against its plain PyTorch version on the card at
    1080x1920, 1000x1917 (ragged against the tiles; rows not 16-byte
    aligned) and 4096x4096, both boundaries: K1 (windowed) at 1 and 8 steps
@@ -45,19 +46,25 @@
    and the snapshot copy of the main path; each beside the card's bound
    for the same work.
 7. The species-packed path (``--pallas-pack on``, zero boundary) at the
-   same sizes: K4 (packed windowed: one launch of 1 and 8 steps, 32 steps
-   through the backend), K5 (packed resident: one launch of 1, 27 and 32
-   steps) and K6 (packed mega: 8, 27 and 32 steps through the backend)
-   against the plain packed version on the card, also with the other
-   separable stencils and dt = 0.5; ``simulate --boundary zero
+   shapes of phase 3's K1-K3: K4 (packed windowed: one launch of 1 and 8
+   steps, 32 steps through the backend), K5 (packed resident: one launch
+   of 1, 8, 27 and 32 steps) and K6 (packed mega: 1, 8, 27 and 32 steps
+   through the backend and in one launch) against the plain packed version
+   on the card; K5 and K6 (on the packed Hopper stepper) also with each
+   part of their design taken out (their first forms among them) and on
+   grids pinned to 1 and 7 blocks; all three with the other separable
+   stencils and dt = 0.5 at every shape but 4096x4096, and bit for bit on
+   states that hold NaN and +-Inf; ``simulate --boundary zero
    --pallas-pack on`` on ``auto`` and each pin (every frame against the
    plain packed replay, and against the unpacked zero run on K1: within
    2e-6 after the first image and 1e-4 after the last), the 70x97 domain
    against the CPU; one 4096x4096 x
    1000-step run on the packed ``auto`` engine against a plain replay;
-   each packed engine timed beside K1 on the zero boundary (the times
-   ``backends.cuda.auto_packed_engine`` is set from), and each packed
-   kernel and its plain version.
+   each packed engine timed beside K1 and K2 on the zero boundary (the
+   times ``backends.cuda.auto_packed_engine`` is set from); K5 and K6 in
+   turns with their first forms, K4, and K2 and K3 on the zero boundary,
+   32 steps each, and with each part of their design taken out; and each
+   packed kernel's plain version.
 8. Prints the nvidia-smi line, one JSON line on the nine kernels, and
    last the JSON line ``{"ok": true, "device": {...}}``.
 9. The two microbenchmarks' kernels. K8 (``ops/oplat.py``, the chain of
@@ -481,8 +488,8 @@ def compare_kernels(checks: Checks, rng) -> None:
                             f"{what} with {megakernel.ABLATIONS[part]}")
 
 
-#: K2's grids pinned below the co-resident maximum, many rounds of tiles a
-#: time block
+#: K2's, K5's and K6's grids pinned below the co-resident maximum, many
+#: rounds of tiles a time block or a step
 MEGA_GRID_PINS = (1, 7)
 
 
@@ -512,9 +519,42 @@ def compare_mega_parts(checks: Checks, shape, boundary: str, u0, v0,
                        f"{grid} blocks")
 
 
+#: the separable stencils other than the default, and a time step
+PACKED_PARAMS = [(label, params) for label, params in OTHER_PARAMS
+                 if label != "5points"]
+#: K6 in one launch, (time blocks, steps a block), for 1, 8, 27 and 32 steps
+MEGA_SPLITS = {1: (1, 1), 8: (1, 8), 27: (9, 3), 32: (4, 8)}
+
+
+def packed_mega_run(x0, n_blocks: int, steps: int, pc, part=None,
+                    grid: int = 0):
+    """Slot 0 of a packed pair of ``x0`` after one K6 launch (or one of
+    its ablation ``part``)."""
+    pair = megakernel.pair_state(x0)
+    if part is None:
+        megakernel.packed_megastep(pair, n_blocks, steps, pc, grid=grid)
+    else:
+        megakernel.packed_mega_ablation(pair, n_blocks, steps, pc, part,
+                                        grid=grid)
+    return pair[0]
+
+
+def packed_resident_run(x0, steps: int, pc, part=None, grid: int = 0):
+    """K5's result after one launch of ``steps`` steps (or one of its
+    ablation ``part``) from ``x0``."""
+    bufs = (x0.clone(), torch.empty_like(x0))
+    if part is None:
+        return packed.resident_multistep(*bufs, steps, pc, grid=grid)[0]
+    return packed.packed_resident_ablation(*bufs, steps, pc, part,
+                                           grid=grid)[0]
+
+
 def compare_packed_kernels(checks: Checks, rng) -> None:
     """Phase 3b: K4, K5 and K6 against the plain packed version on the
-    card, zero boundary."""
+    card, zero boundary. K5 and K6 (on the packed Hopper stepper) at every
+    shape of REDESIGNED_SHAPES, each of their ablation parts, grids pinned
+    to MEGA_GRID_PINS blocks, the other separable stencils and dt = 0.5,
+    and states that hold NaN and +-Inf (bit for bit)."""
     default = Parameters()
     pc = packed_constants(default)
 
@@ -523,7 +563,12 @@ def compare_packed_kernels(checks: Checks, rng) -> None:
         checks.compare(tag, packed.unpack_state(got, c),
                        packed.unpack_state(want, c), what)
 
-    for shape in SHAPES:
+    def compare_bits(tag, got, want, what):
+        c = want.shape[-1] // 2
+        checks.compare_bits(tag, packed.unpack_state(got, c),
+                            packed.unpack_state(want, c), what)
+
+    for shape in REDESIGNED_SHAPES:
         u_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
         v_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
         x0 = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
@@ -542,39 +587,86 @@ def compare_packed_kernels(checks: Checks, rng) -> None:
             "windowed", default, "zero", u_np, v_np, 32, pack="on"),
             packed.unpack_state(plain[32], shape[1]),
             f"{tag} steps=32 (backend)")
-        for steps in (1, 27, 32):
-            out = packed.resident_multistep(x0.clone(), torch.empty_like(x0),
-                                            steps, pc)
-            compare("respack", out[0], plain[steps],
-                    f"{tag} steps={steps} (one launch)")
-        for steps in (8, 27, 32):
+        for steps in (1, 8, 27, 32):
+            compare("respack", packed_resident_run(x0, steps, pc),
+                    plain[steps], f"{tag} steps={steps} (one launch)")
             checks.compare("megapack", engine_run(
                 "mega", default, "zero", u_np, v_np, steps, pack="on"),
                 packed.unpack_state(plain[steps], shape[1]),
                 f"{tag} steps={steps} (backend)")
-    # the other separable stencils and a time step, on the ragged shape
-    shape = SHAPES[1]
-    u_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
-    v_np = rng.uniform(0.0, 1.0, shape).astype(np.float32)
-    x0 = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
-                             for a in (u_np, v_np)))
-    for label, params in (("pretty", Parameters.with_stencil("pretty")),
-                          ("patra-karttunen",
-                           Parameters.with_stencil("patra-karttunen")),
-                          ("dt=0.5", Parameters(time_step=0.5))):
-        pc = packed_constants(params)
-        tag = f"{shape[0]}x{shape[1]} zero packed params={label}"
-        out = torch.empty_like(x0)
-        packed.multistep(x0, out, 8, pc)
-        compare("packed", out, packed.packed_run(x0, 8, pc),
-                f"{tag} steps=8 (one launch)")
-        want = packed.packed_run(x0, 27, pc)
-        out = packed.resident_multistep(x0.clone(), torch.empty_like(x0), 27,
-                                        pc)
-        compare("respack", out[0], want, f"{tag} steps=27 (one launch)")
-        checks.compare("megapack", engine_run(
-            "mega", params, "zero", u_np, v_np, 27, pack="on"),
-            packed.unpack_state(want, shape[1]), f"{tag} steps=27 (backend)")
+            compare("megapack", packed_mega_run(x0, *MEGA_SPLITS[steps], pc),
+                    plain[steps], f"{tag} steps={steps} (one launch of "
+                    f"{MEGA_SPLITS[steps][0]} time blocks)")
+        for part, what in packed.RESIDENT_ABLATIONS.items():
+            for steps in (8, 27):
+                compare("respack", packed_resident_run(x0, steps, pc, part),
+                        plain[steps], f"{tag} steps={steps} (one launch) "
+                        f"with {what}")
+        for part, what in megakernel.PACKED_ABLATIONS.items():
+            for n_blocks in (1, 4):
+                compare("megapack",
+                        packed_mega_run(x0, n_blocks, 8, pc, part),
+                        plain[8 * n_blocks], f"{tag} steps={8 * n_blocks} "
+                        f"(one launch) with {what}")
+        for grid in MEGA_GRID_PINS:
+            compare("respack", packed_resident_run(x0, 8, pc, grid=grid),
+                    plain[8], f"{tag} steps=8 (one launch) on a grid of "
+                    f"{grid} blocks")
+            compare("megapack", packed_mega_run(x0, 2, 4, pc, grid=grid),
+                    plain[8], f"{tag} steps=8 (two time blocks) on a grid "
+                    f"of {grid} blocks")
+        if shape == BENCH_SHAPE:
+            continue
+        # the other separable stencils and a time step
+        for label, params in PACKED_PARAMS:
+            pco = packed_constants(params)
+            what = f"{tag} params={label}"
+            out = torch.empty_like(x0)
+            packed.multistep(x0, out, 8, pco)
+            compare("packed", out, packed.packed_run(x0, 8, pco),
+                    f"{what} steps=8 (one launch)")
+            want = packed.packed_run(x0, 27, pco)
+            compare("respack", packed_resident_run(x0, 27, pco), want,
+                    f"{what} steps=27 (one launch)")
+            checks.compare("megapack", engine_run(
+                "mega", params, "zero", u_np, v_np, 27, pack="on"),
+                packed.unpack_state(want, shape[1]),
+                f"{what} steps=27 (backend)")
+            compare("megapack", packed_mega_run(x0, 9, 3, pco), want,
+                    f"{what} steps=27 (one launch of 9 time blocks)")
+    # states that hold NaN and +-Inf, in interior and edge tiles and on the
+    # domain's edge: held bit for bit (K6 in a time block of 3 steps, its
+    # parts in 3 blocks of 1)
+    for shape in ((200, 300), MAIN_SHAPE):
+        u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
+                                   .astype(np.float32)).to(DEVICE)
+                  for _ in range(2))
+        u0[100, 150] = v0[0, 5] = float("nan")
+        v0[90, 140] = u0[70, 200] = float("inf")
+        u0[120, 7] = v0[-1, -1] = float("-inf")
+        x0 = packed.pack_state(u0, v0)
+        for label, params in (("oono-puri", default), *PACKED_PARAMS):
+            pco = packed_constants(params)
+            want = packed.packed_run(x0, 3, pco)
+            what = (f"{shape[0]}x{shape[1]} zero packed params={label} NaN "
+                    "and Inf, steps=3 (one launch)")
+            out = torch.empty_like(x0)
+            packed.multistep(x0, out, 3, pco)
+            compare_bits("packed", out, want, what)
+            compare_bits("respack", packed_resident_run(x0, 3, pco), want,
+                         what)
+            compare_bits("megapack", packed_mega_run(x0, 1, 3, pco), want,
+                         what)
+            if label != "oono-puri":
+                continue
+            for part, part_what in packed.RESIDENT_ABLATIONS.items():
+                compare_bits("respack",
+                             packed_resident_run(x0, 3, pco, part), want,
+                             f"{what} with {part_what}")
+            for part, part_what in megakernel.PACKED_ABLATIONS.items():
+                compare_bits("megapack",
+                             packed_mega_run(x0, 3, 1, pco, part), want,
+                             f"{what} with {part_what}")
 
 
 def replay_frames(shape, boundary, params, images, steps, device):
@@ -945,11 +1037,11 @@ def time_engines(rng, card: str) -> dict:
 
 def time_packed_engines(rng, card: str) -> dict:
     """Phase 6c: each packed engine through the backend, 32 steps a call,
-    beside K1 on the zero boundary, timed in turns (K1, K4, K5, K6, K6,
-    K5, K4, K1) and averaged; the times ``auto_packed_engine`` is set
-    from."""
+    beside K1 and K2 on the zero boundary, timed in turns (K1, K2, K4, K5,
+    K6, K6, K5, K4, K2, K1) and averaged; the times
+    ``auto_packed_engine`` is set from."""
     tags = cuda_backend.PACKED_TAGS
-    order = ["windowed", *tags.values()]
+    order = ["windowed", "mega", *tags.values()]
     engine_of = {tag: engine for engine, tag in tags.items()}
     times = {}
     for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
@@ -957,9 +1049,9 @@ def time_packed_engines(rng, card: str) -> dict:
         v_np = rng.uniform(0, 1, shape).astype(np.float32)
         samples = {tag: [] for tag in order}
         for tag in [*order, *reversed(order)]:
-            if tag == "windowed":
+            if tag in MODULES:
                 sim = CudaSimulation(Parameters(), "zero", device=DEVICE,
-                                     engine="windowed")
+                                     engine=tag)
             else:
                 sim = CudaSimulation(Parameters(), "zero", device=DEVICE,
                                      pack="on",
@@ -975,7 +1067,7 @@ def time_packed_engines(rng, card: str) -> dict:
             ms = sum(pair) / len(pair)
             times[shape, tag] = ms
             bound, by = (bound_ms(shape, MAIN_STEPS, "zero")
-                         if tag == "windowed"
+                         if tag in MODULES
                          else roofline_ms(shape, MAIN_STEPS, PACKED_OPS))
             print(f"time engine {tag} {shape[0]}x{shape[1]} zero, "
                   f"{MAIN_STEPS} steps a call: {ms!r} ms (turns {pair!r}) "
@@ -985,48 +1077,133 @@ def time_packed_engines(rng, card: str) -> dict:
         print(f"packed engines {shape[0]}x{shape[1]} "
               f"({cuda_backend.shape_class(shape)}), fastest first: "
               f"{ranked}; auto picks "
-              f"{cuda_backend.auto_packed_engine(shape)}; K1 unpacked "
-              f"{times[shape, 'windowed']!r} ms", flush=True)
+              f"{cuda_backend.auto_packed_engine(shape)}; unpacked K1 "
+              f"{times[shape, 'windowed']!r} ms, K2 "
+              f"{times[shape, 'mega']!r} ms", flush=True)
     return times
 
 
-def time_packed_kernels(rng, card: str) -> dict:
-    """Phase 6d: K4 (one 8-step launch), K5 and K6 (one 32-step launch
-    each) and the plain packed version of the same steps."""
+def time_packed_kernels(checks: Checks, rng, card: str) -> dict:
+    """Phase 6d: K6 (one launch of 4 time blocks of 8 steps) and K5 (one
+    32-step launch), on the packed Hopper stepper, timed in turns with
+    their first forms (ablation part 0), K4 (four 8-step launches), and K2
+    and K3 on the zero boundary (the same stepper unpacked), 32 steps each,
+    at 1080x1920 and 4096x4096; then each of K5 and K6 with one part of its
+    design taken out, in turns with the whole kernel (whole, parts...,
+    parts reversed, whole), held bit for bit against it, each time as a
+    ratio to the whole; then the plain packed version of 8 and 32 steps.
+    Each beside the card's bound."""
     pc = packed_constants(Parameters())
+    consts = kernel_constants(Parameters())
     out = {}
-    for shape in (MAIN_SHAPE, BENCH_SHAPE):
-        x = packed.pack_state(*(
-            torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
-            .to(DEVICE) for _ in range(2)))
-        bufs = [x.clone(), torch.empty_like(x)]
-        pair = megakernel.pair_state(x)
-        x_out = torch.empty_like(x)
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
+        u, v = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+                .to(DEVICE) for _ in range(2))
+        x = packed.pack_state(u, v)
+        k4_bufs = [x.clone(), torch.empty_like(x)]
+        k3_bufs = [u.clone(), v.clone(), torch.empty_like(u),
+                   torch.empty_like(v)]
+        k2_pairs = (megakernel.pair_state(u), megakernel.pair_state(v))
 
         def k4():
-            packed.multistep(x, x_out, packed.K, pc)
+            for _ in range(MAIN_STEPS // packed.K):
+                packed.multistep(*k4_bufs, packed.K, pc)
+                k4_bufs.reverse()
 
-        def k5():
-            bufs[:] = packed.resident_multistep(*bufs, MAIN_STEPS, pc)
+        def k5_run(part):
+            bufs = [x.clone(), torch.empty_like(x)]
 
-        def k6():
-            megakernel.packed_megastep(pair, MAIN_STEPS // 8, 8, pc)
+            def call():
+                if part is None:
+                    bufs[:] = packed.resident_multistep(*bufs, MAIN_STEPS, pc)
+                else:
+                    bufs[:] = packed.packed_resident_ablation(
+                        *bufs, MAIN_STEPS, pc, part)
+            return call
 
-        for tag, fn, steps in (("packed", k4, packed.K),
-                               ("respack", k5, MAIN_STEPS),
-                               ("megapack", k6, MAIN_STEPS)):
-            reps = 100 if shape == MAIN_SHAPE else 20
-            ms = cuda_ms(fn, reps // (steps // packed.K))
+        def k6_run(part):
+            pair = megakernel.pair_state(x)
+
+            def call():
+                if part is None:
+                    megakernel.packed_megastep(pair, MAIN_STEPS // 8, 8, pc)
+                else:
+                    megakernel.packed_mega_ablation(pair, MAIN_STEPS // 8, 8,
+                                                    pc, part)
+            return call
+
+        def k3():
+            k3_bufs[:] = resident.multistep(*k3_bufs, MAIN_STEPS, consts,
+                                            "zero")
+
+        def k2():
+            megakernel.megastep(*k2_pairs, MAIN_STEPS // 8, 8, consts, "zero")
+
+        calls = {"megapack": k6_run(None), "megapack0": k6_run(0),
+                 "respack": k5_run(None), "respack0": k5_run(0),
+                 "packed": k4, "mega": k2, "resident": k3}
+        samples = {name: [] for name in calls}
+        for name in [*calls, *reversed(calls)]:
+            samples[name].append(cuda_ms(calls[name], reps))
+        ms = {name: sum(p) / len(p) for name, p in samples.items()}
+        for name, pair in samples.items():
+            bound, by = (bound_ms(shape, MAIN_STEPS, "zero")
+                         if name in MODULES
+                         else roofline_ms(shape, MAIN_STEPS, PACKED_OPS))
+            out[name, shape, "ms32"] = ms[name]
+            print(f"time {name} {shape[0]}x{shape[1]} zero, {MAIN_STEPS} "
+                  f"steps: {ms[name]!r} ms (turns {pair!r}) = "
+                  f"{gcells(shape, MAIN_STEPS, ms[name])!r} Gcell/s; bound "
+                  f"{bound!r} ms ({by}), {100 * bound / ms[name]!r} % of it "
+                  f"[{card}]", flush=True)
+        print(f"redesigned packed {shape[0]}x{shape[1]} zero: K6 "
+              f"{ms['megapack0'] / ms['megapack']!r}x faster than its first "
+              f"form, K5 {ms['respack0'] / ms['respack']!r}x; K6 "
+              f"{ms['megapack'] / ms['packed']!r}x K4's time, "
+              f"{ms['megapack'] / ms['mega']!r}x K2's; K5 "
+              f"{ms['respack'] / ms['resident']!r}x K3's [{card}]",
+              flush=True)
+        for tag, run, parts in (
+                ("megapack", k6_run, megakernel.PACKED_ABLATIONS),
+                ("respack", k5_run, packed.RESIDENT_ABLATIONS)):
+            # each part after 8 steps, held against the whole kernel
+            want = (packed_mega_run(x, 1, 8, pc) if tag == "megapack"
+                    else packed_resident_run(x, 8, pc))
+            for part, what in parts.items():
+                got = (packed_mega_run(x, 1, 8, pc, part)
+                       if tag == "megapack"
+                       else packed_resident_run(x, 8, pc, part))
+                checks.compare(tag, packed.unpack_state(got, shape[1]),
+                               packed.unpack_state(want, shape[1]),
+                               f"{shape[0]}x{shape[1]} zero packed steps=8 "
+                               f"with {what} vs the whole")
+            timed = [None, *(p for p in parts if p)]
+            part_calls = {p: run(p) for p in timed}
+            part_samples = {p: [] for p in timed}
+            for p in [*timed, *reversed(timed)]:
+                part_samples[p].append(cuda_ms(part_calls[p], reps))
+            whole = sum(part_samples[None]) / 2
+            for p in timed[1:]:
+                t = sum(part_samples[p]) / 2
+                out[tag, shape, "part", p] = t / whole
+                print(f"time {tag} {shape[0]}x{shape[1]} zero, "
+                      f"{MAIN_STEPS} steps, with {parts[p]}: {t!r} ms (turns "
+                      f"{part_samples[p]!r}) = {t / whole!r}x the whole "
+                      f"kernel's {whole!r} ms (the turns above: "
+                      f"{ms[tag]!r}) [{card}]", flush=True)
+        for tag, steps in (("packed", packed.K), ("respack", MAIN_STEPS),
+                           ("megapack", MAIN_STEPS)):
             plain_ms = cuda_ms(lambda: packed.packed_run(x, steps, pc),
                                2 if shape == MAIN_SHAPE else 1)
+            kernel_ms = ms[tag] * steps / MAIN_STEPS
             bound, by = roofline_ms(shape, steps, PACKED_OPS)
-            out[tag, shape] = (ms, plain_ms, bound, by, steps)
+            out[tag, shape] = (kernel_ms, plain_ms, bound, by, steps)
             print(f"time {tag} {shape[0]}x{shape[1]} zero, {steps} steps "
-                  f"a launch: kernel {ms!r} ms = "
-                  f"{gcells(shape, steps, ms)!r} Gcell/s; plain "
+                  f"a launch: kernel {kernel_ms!r} ms = "
+                  f"{gcells(shape, steps, kernel_ms)!r} Gcell/s; plain "
                   f"{plain_ms!r} ms = {gcells(shape, steps, plain_ms)!r} "
                   f"Gcell/s; bound {bound!r} ms ({by}), "
-                  f"{100 * bound / ms!r} % of it [{card}]", flush=True)
+                  f"{100 * bound / kernel_ms!r} % of it [{card}]", flush=True)
     return out
 
 
@@ -1245,13 +1422,16 @@ PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads")
 PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
-#: the kernels on the Hopper tile stepper, K1, K3, K2 and K7, as their
-#: mangled names spell them (the name's length, then the name: not
-#: packed_resident_kernel or packed_mega_kernel)
+#: the kernels on the Hopper tile steppers, K1, K3, K2 and K7
+#: (gs_tile_sm90.cuh) and K5 and K6 (gs_packed_sm90.cuh), as their mangled
+#: names spell them (the name's length, then the name: "15resident_kernel"
+#: is not a part of "22packed_resident_kernel")
 REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
-                      "11mega_kernel", "19sharded_mega_kernel")
-#: of those, the ones whose instantiations must not spill (K2, K7)
-NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel")
+                      "11mega_kernel", "19sharded_mega_kernel",
+                      "22packed_resident_kernel", "18packed_mega_kernel")
+#: of those, the ones whose instantiations must not spill (K2, K7, K6)
+NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
+                    "18packed_mega_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -1738,12 +1918,22 @@ def main(argv=None) -> int:
                    and (row[2] or row[3])]
         counted = sum(any(row[0].startswith(k[2:]) for k in NO_SPILL_KERNELS)
                       for row in report)
-        print(f"ptxas: {counted} K2 and K7 instantiations, "
+        print(f"ptxas: {counted} K2, K6 and K7 instantiations, "
               f"{len(spilled)} spill", flush=True)
         checks.expect(counted > 0 and not spilled,
-                      f"K2 and K7 instantiations spill: {spilled}")
+                      f"K2, K6 and K7 instantiations spill: {spilled}")
+    # K6's windows are dynamic shared memory, which ptxas does not report
+    for label, t in (("", megakernel.PACKED_TILE[0]), (" part 3", 32)):
+        win = t + 2 * megakernel.MEGA_STEPS
+        print(f"dynamic shared packed_mega_kernel{label}: {t}x{t} tiles in "
+              f"{win}x{win} windows, two buffers of two species: "
+              f"{4 * 4 * win * win} B", flush=True)
     for label, tile, ring in (("K1 and K2", windowed.TILE, windowed.K),
-                              ("K3", resident.TILE, resident.HALO)):
+                              ("K3", resident.TILE, resident.HALO),
+                              ("K5", packed.RESIDENT_TILE,
+                               packed.RESIDENT_HALO),
+                              ("K6", megakernel.PACKED_TILE,
+                               megakernel.MEGA_STEPS)):
         for shape in REDESIGNED_SHAPES:
             n = -(-shape[0] // tile[0]) * -(-shape[1] // tile[1])
             print(f"interior tiles {label} ({tile[0]}x{tile[1]} tiles, "
@@ -1791,7 +1981,7 @@ def main(argv=None) -> int:
     time_engines(rng, card)
     kernel_times = time_kernels(checks, rng, card)
     time_packed_engines(rng, card)
-    kernel_times.update(time_packed_kernels(rng, card))
+    kernel_times.update(time_packed_kernels(checks, rng, card))
 
     # 9. the microbenchmarks' kernels: checks, then their entry points
     compare_microbench_kernels(checks, rng)
@@ -1867,7 +2057,9 @@ def main(argv=None) -> int:
             launches=packed_runs[" ".join(flags)]["launches"][tag],
             max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
-            shape=list(MAIN_SHAPE), steps=steps, boundary="zero"))
+            shape=list(MAIN_SHAPE), steps=steps, boundary="zero",
+            **({} if tag == "packed"
+               else {"redesigned": "csrc/gs_packed_sm90.cuh"})))
     ms, bound, by = micro["oplat", 90, False]
     entries.append(dict(
         KERNELS["oplat"], launches=micro["oplat_launches"],

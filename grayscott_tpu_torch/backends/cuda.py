@@ -104,8 +104,8 @@ PACKED_TAGS = {"windowed": "packed", "resident": "respack",
 
 #: shape class -> the packed engines, fastest first (see auto_packed_engine)
 _PACKED_RANKING = {
-    "l2": ("windowed", "mega", "resident"),
-    "larger": ("windowed", "mega", "resident"),
+    "l2": ("mega", "resident", "windowed"),
+    "larger": ("mega", "resident", "windowed"),
 }
 
 
@@ -142,20 +142,24 @@ def auto_packed_engine(shape: Tuple[int, int],
     boundary only): the fastest of K4, K5 and K6 for the shape's class, as
     measured on the card. ``resident_ok=False`` skips K5.
 
-    Set from ``chip_smoke.py``'s packed engine times (32 steps a call
-    through the backend, CUDA events, in turns; NVIDIA H100 80GB HBM3,
-    power limit 700.00 W), ms per 32 steps, windowed / resident / mega,
-    beside K1 unpacked on the zero boundary:
+    Set from ``chip_smoke.py``'s packed engine times (phase 6c: 32 steps
+    a call through the backend, CUDA events, in turns; NVIDIA H100 80GB
+    HBM3, power limit 700.00 W), ms per 32 steps, windowed / resident /
+    mega, beside K1 and K2 unpacked on the zero boundary:
 
-    - 1080x1920 ("l2"): 0.6786 / 0.8477 / 0.8390 (K1 0.7814);
-    - 4096x4096 ("larger"): 5.0528 / 6.0773 / 5.9647 (K1 5.9671).
+    - 1080x1920 ("l2"): 0.6829 / 0.4364 / 0.2578 (K1 0.3694, K2 0.3545);
+    - 4096x4096 ("larger"): 5.0902 / 3.8916 / 1.9084 (K1 2.5461, K2
+      2.6388).
 
-    Both classes rank alike: K4 first, then K6, then K5. The JAX backend
-    takes the megakernel first (``backends/pallas.py:567-577``); on the
-    card K6 trails K4 as K2 trails K1. Since K1 moved to the Hopper tile
-    stepper, the unpacked zero boundary on K1 is faster than every packed
-    engine (0.3692 ms against K4's 0.6837 at 1080x1920, 2.5463 against
-    5.0902 at 4096x4096), so packing stays opt-in.
+    Both classes rank alike: K6 first, then K5, then K4. K5 and K6 step on
+    the packed Hopper stepper (``csrc/gs_packed_sm90.cuh``), K4 on the
+    first packed stepper. K6 is the fastest zero-boundary engine of the
+    port on either layout: 0.73x K2's time in L2 and 0.75x K1's at
+    4096x4096, from the packed step's 30 float32 operations a cell-step
+    against the unpacked zero tree's 63. That is evidence for a packing
+    verdict, not one: the packed tree drifts 24x more than the unpacked
+    one over 1000 steps (ROADMAP.md, Queue 1 item 4), so ``pack="auto"``
+    still never packs.
     """
     return next(e for e in _PACKED_RANKING[shape_class(shape)]
                 if resident_ok or e != "resident")

@@ -2,7 +2,8 @@
 // K7 (sharded_mega.cu), written for Hopper. K9 (ilpsplit.cu) and K2's
 // ablation part 0 keep the first stepper (gs_tile.cuh), whose per-cell naive
 // code this one keeps for the cells on the domain's edge; the two agree bit
-// for bit.
+// for bit. The packed stepper of K5 and K6 (gs_packed_sm90.cuh) reuses its
+// window loads, geometries and interior test.
 //
 // What differs from gs_tile.cuh:
 //

@@ -13,8 +13,9 @@
 //     valid region shrinking by one cell a step, as in K1;
 //   - the tile interior, masked to the domain, is written to x_out.
 //
-// The tile stepper, its numerics and its boundary handling are shared with
-// K5 and K6 (gs_packed.cuh: step_packed_tile).
+// The tile stepper, its numerics and its boundary handling are the first
+// packed stepper's (gs_packed.cuh: step_packed_tile), which K5 and K6 left
+// for gs_packed_sm90.cuh.
 //
 // What bounds it on the card: each launch reads and writes the state once,
 // 16 B per cell per HALO steps, far below what HBM feeds. The separable

@@ -18,8 +18,13 @@ not counted.
 K6, the species-packed megakernel (``csrc/packed_mega.cu``), is the
 port's ``packed_megastep`` (``megakernel.py:1112``): the same time-block
 loop on one ``(2, R, 2C)`` pair of packed state ``[U | V]``
-(``ops/packed.py``), zero boundary and a separable stencil only; its
-launches are counted in ``packed_launches``.
+(``ops/packed.py``), zero boundary and a separable stencil only, on the
+packed Hopper stepper (``csrc/gs_packed_sm90.cuh``): K2's 64x64 tiles in
+80x80 windows of dynamic shared memory (``PACKED_TILE``), walked as K2
+walks them, with register strips that keep the row pass out of shared
+memory. Its launches are counted in ``packed_launches``;
+:func:`packed_mega_ablation` (``PACKED_ABLATIONS``) runs it with one part
+of its design taken out, uncounted.
 """
 
 from __future__ import annotations
@@ -50,9 +55,25 @@ ABLATIONS = {
     4: "32x32 tiles in 48x48 windows",
 }
 
+#: K6's output tile (rows, cols); its windows are MEGA_STEPS cells wider
+#: on every side
+PACKED_TILE = (64, 64)
+
+#: the parts of K6's design that ``packed_mega_ablation`` takes out
+#: (csrc/packed_mega.cu: gs_packed_mega_ablation); each gives the whole
+#: kernel's result
+PACKED_ABLATIONS = {
+    0: "the first form's kernel (32x32 tiles, two passes through shared "
+       "memory, gs_packed.cuh)",
+    1: "every tile an edge tile",
+    2: "no prefetch of the next window",
+    3: "32x32 tiles in 48x48 windows",
+}
+
 _fn = None
 _ablation_fn = None
 _packed_fn = None
+_packed_ablation_fn = None
 
 
 #: the plain PyTorch version: ``steps`` calls of ``stencil.step``
@@ -183,6 +204,17 @@ def _packed_kernel():
     return _packed_fn
 
 
+def _packed_ablation_kernel():
+    global _packed_ablation_fn
+    if _packed_ablation_fn is None:
+        _packed_kernel()  # checks the time-block depth
+        _packed_ablation_fn = build.bind(
+            "gs_packed_mega_ablation",
+            [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_float] * 9
+            + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+    return _packed_ablation_fn
+
+
 def packed_max_blocks(device: torch.device) -> int:
     """The most blocks of one K6 launch that are co-resident on
     ``device``."""
@@ -203,6 +235,33 @@ def packed_megastep(x_pair: torch.Tensor, n_blocks: int, steps: int,
     device the launch is enqueued on the current stream and not waited
     for."""
     global packed_launches
+    _check_packed(x_pair, n_blocks, steps, grid)
+    if x_pair.device.type == "cpu":
+        x_pair[0].copy_(packed.packed_run(x_pair[0], n_blocks * steps, pc))
+        return
+    _launch_packed(_packed_kernel(), x_pair, n_blocks, steps, pc, grid)
+    packed_launches += 1
+
+
+def packed_mega_ablation(x_pair: torch.Tensor, n_blocks: int, steps: int,
+                         pc: PackedConstants, part: int,
+                         grid: int = 0) -> None:
+    """:func:`packed_megastep` on the card with one part of K6's design
+    taken out (``PACKED_ABLATIONS[part]``). The result is the whole
+    kernel's. Not counted in ``packed_launches``."""
+    _check_packed(x_pair, n_blocks, steps, grid)
+    if part not in PACKED_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(PACKED_ABLATIONS)}, "
+                         f"got {part!r}")
+    if x_pair.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the pair must lie on "
+                         f"a CUDA device, not {x_pair.device}")
+    fn = _packed_ablation_kernel()
+    _launch_packed(lambda *args: fn(*args, part), x_pair, n_blocks, steps,
+                   pc, grid)
+
+
+def _check_packed(x_pair, n_blocks, steps, grid):
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
@@ -210,10 +269,11 @@ def packed_megastep(x_pair: torch.Tensor, n_blocks: int, steps: int,
     if x_pair.shape[0] != 2:
         raise ValueError(f"the pair must be (2, R, 2C), got "
                          f"{tuple(x_pair.shape)}")
-    if x_pair.device.type == "cpu":
-        x_pair[0].copy_(packed.packed_run(x_pair[0], n_blocks * steps, pc))
-        return
-    fn = _packed_kernel()
+
+
+def _launch_packed(fn, x_pair, n_blocks, steps, pc, grid):
+    """One launch of ``fn`` (a bound ``gs_packed_mega_*`` entry) on the
+    pair, on the current stream; raises on a refusal."""
     _, rows, width = x_pair.shape
     barrier = torch.zeros(1, dtype=torch.int64, device=x_pair.device)
     stream = torch.cuda.current_stream(x_pair.device).cuda_stream
@@ -223,4 +283,3 @@ def packed_megastep(x_pair: torch.Tensor, n_blocks: int, steps: int,
     if err != 0:
         raise RuntimeError(f"packed mega kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
-    packed_launches += 1

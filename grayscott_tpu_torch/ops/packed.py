@@ -13,11 +13,23 @@ fold, not the oracle's 9-tap tree; :func:`packed_step` has it. It is a few
 ulp off the oracle and drifts from it over long runs as the JAX packed
 path does; the JAX packed kernels are its reference.
 
+K4 steps on the first packed stepper (``csrc/gs_packed.cuh``). K5 steps on
+the packed Hopper stepper (``csrc/gs_packed_sm90.cuh``: register strips
+that keep the row pass out of shared memory, one ``__syncthreads()`` a
+step, interior tiles with no domain test, ``cp.async`` windows), in K3's
+code shape: 32x32 tiles in 34x34 windows (``RESIDENT_TILE``,
+``RESIDENT_HALO``), the next tile's window loading while a tile steps.
+:func:`packed_tiled_step` is the CPU twin of that dispatch, for K5's and
+K6's geometries: bit for bit :func:`packed_step`.
+
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, or raises. On a CPU tensor it runs the plain version,
 since there is no kernel to launch on the CPU. ``launches`` (K4) and
 ``resident_launches`` (K5) count the kernel launches, and only them, so
 that a run can show that its main path went through the kernels.
+:func:`packed_resident_ablation` runs K5 with one part of its design taken
+out (``RESIDENT_ABLATIONS``), for timing what each part buys; its launches
+are not the main path's and are not counted.
 """
 
 from __future__ import annotations
@@ -40,8 +52,24 @@ launches = 0
 #: K5 launches so far
 resident_launches = 0
 
+#: K5's output tile (rows, cols) and the ring of its window: one step a
+#: pass (csrc/packed_resident.cu)
+RESIDENT_TILE = (32, 32)
+RESIDENT_HALO = 1
+
+#: the parts of K5's design that ``packed_resident_ablation`` takes out
+#: (csrc/packed_resident.cu: gs_packed_resident_ablation); each gives the
+#: whole kernel's result
+RESIDENT_ABLATIONS = {
+    0: "the first form's kernel (two passes through shared memory, "
+       "gs_packed.cuh)",
+    1: "every tile an edge tile",
+    2: "no prefetch of the next window",
+}
+
 _fn = None
 _resident_fn = None
+_resident_ablation_fn = None
 
 
 def pack_state(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -111,6 +139,79 @@ def packed_run(x: torch.Tensor, steps: int,
     return x
 
 
+def _window_step(w: torch.Tensor, pc: PackedConstants
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One packed step of the inner cells ``[1, W-1)`` of a window ``w``
+    (row, species, col) in the strips' order: the row pass of every window
+    row, then the column pass from three rows of it, ``q`` and the fold;
+    :func:`packed_step`'s tree. Returns ``(U', V')``."""
+    t = pc.h1 * w[..., 1:-1] + pc.h0 * (w[..., :-2] + w[..., 2:])
+    s = pc.h1 * t[1:-1] + pc.h0 * (t[:-2] + t[2:])
+    u, v = w[1:-1, 0, 1:-1], w[1:-1, 1, 1:-1]
+    q = (u * v) * v
+    qu, qv = pc.quadratic()
+    un = ((pc.cu * s[:, 0] + qu * q) + pc.e) + pc.au * u
+    vn = ((pc.cv * s[:, 1] + qv * q) + 0.0) + pc.bv * v
+    return un, vn
+
+
+def packed_tiles(shape: Tuple[int, int], tile: int, halo: int
+                 ) -> list[Tuple[int, int, bool]]:
+    """``(r0, c0, interior)`` of each ``tile`` x ``tile`` tile of a
+    ``shape`` domain, row by row: its window's global origin (``halo``
+    cells above and left of the tile) and whether the window lies inside
+    the domain, as K5 and K6 decide it once a tile
+    (``gs_packed_sm90.cuh``). The interior ones are those that
+    ``stencil.interior_tiles`` counts."""
+    rows, cols = shape
+    w = tile + 2 * halo
+    return [(i * tile - halo, j * tile - halo,
+             i * tile - halo >= 0 and j * tile - halo >= 0
+             and i * tile - halo + w <= rows and j * tile - halo + w <= cols)
+            for i in range(-(-rows // tile)) for j in range(-(-cols // tile))]
+
+
+def packed_tiled_step(x: torch.Tensor, pc: PackedConstants, tile: int,
+                      halo: int) -> torch.Tensor:
+    """:func:`packed_step` tile by tile, as K5 (``tile`` 32, ``halo`` 1) and
+    K6 (64 and 8) dispatch it: each tile steps its window (the tile and
+    ``halo`` >= 1 cells around it, cells outside the domain 0.0) in the
+    strips' order. An interior tile's window is cut from the state with no
+    domain test; an edge tile's comes from the zero-padded state and its
+    cells outside the domain are written as 0.0. Equal to
+    :func:`packed_step` bit for bit, NaN and Inf included: every cell the
+    tile keeps reads only cells of its window, and a row outside the
+    domain gives ``t = +0.0`` as the padding of ``t`` does."""
+    if halo < 1:
+        raise ValueError(f"halo must be >= 1, got {halo!r}")
+    rows, width = x.shape
+    c = width // 2
+    xs = x.reshape(rows, 2, c)
+    xp = F.pad(xs, (halo, halo + tile, 0, 0, halo, halo + tile))
+    out = torch.empty_like(xs)
+    w = tile + 2 * halo
+    for r0, c0, interior in packed_tiles((rows, c), tile, halo):
+        if interior:
+            un, vn = _window_step(xs[r0:r0 + w, :, c0:c0 + w], pc)
+        else:
+            un, vn = _window_step(
+                xp[r0 + halo:r0 + halo + w, :, c0 + halo:c0 + halo + w], pc)
+            rr = torch.arange(r0 + 1, r0 + w - 1)
+            cc = torch.arange(c0 + 1, c0 + w - 1)
+            inside = (((rr >= 0) & (rr < rows))[:, None]
+                      & ((cc >= 0) & (cc < c))[None, :])
+            un = torch.where(inside, un, 0.0)
+            vn = torch.where(inside, vn, 0.0)
+        # the tile's cells in the domain: window cells [halo, halo + tile)
+        gr, gc = r0 + halo, c0 + halo
+        nr, nc = min(tile, rows - gr), min(tile, c - gc)
+        out[gr:gr + nr, 0, gc:gc + nc] = un[halo - 1:halo - 1 + nr,
+                                            halo - 1:halo - 1 + nc]
+        out[gr:gr + nr, 1, gc:gc + nc] = vn[halo - 1:halo - 1 + nr,
+                                            halo - 1:halo - 1 + nc]
+    return out.reshape(rows, width)
+
+
 def kernel_args(pc: PackedConstants) -> tuple:
     """The nine float arguments of every packed kernel: ``h0, h1, cu, cv,
     e, au, bv, qu, qv``."""
@@ -147,6 +248,17 @@ def _resident_kernel():
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
             + [ctypes.c_float] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     return _resident_fn
+
+
+def _resident_ablation_kernel():
+    global _resident_ablation_fn
+    if _resident_ablation_fn is None:
+        _resident_ablation_fn = build.bind(
+            "gs_packed_resident_ablation",
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int])
+    return _resident_ablation_fn
 
 
 def resident_max_blocks(device: torch.device) -> int:
@@ -193,14 +305,47 @@ def resident_multistep(x: torch.Tensor, x_next: torch.Tensor, steps: int,
     launch, 0 for the co-resident maximum. On a CUDA device the launch is
     enqueued on the current stream and not waited for."""
     global resident_launches
-    checks.check_count("steps", steps, 1)
-    checks.check_count("grid", grid, 0)
-    check_packed((), (x, x_next))
-    order = (x, x_next) if steps % 2 == 0 else (x_next, x)
+    order = _check_resident(x, x_next, steps, grid)
     if x.device.type == "cpu":
         order[0].copy_(packed_run(x, steps, pc))
         return order
-    fn = _resident_kernel()
+    _launch_resident(_resident_kernel(), x, x_next, steps, pc, grid)
+    resident_launches += 1
+    return order
+
+
+def packed_resident_ablation(x: torch.Tensor, x_next: torch.Tensor,
+                             steps: int, pc: PackedConstants, part: int,
+                             grid: int = 0
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`resident_multistep` on the card with one part of K5's design
+    taken out (``RESIDENT_ABLATIONS[part]``). The result, and the order of
+    the returned buffers, are the whole kernel's. Not counted in
+    ``resident_launches``."""
+    order = _check_resident(x, x_next, steps, grid)
+    if part not in RESIDENT_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(RESIDENT_ABLATIONS)},"
+                         f" got {part!r}")
+    if x.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the buffers must lie "
+                         f"on a CUDA device, not {x.device}")
+    fn = _resident_ablation_kernel()
+    _launch_resident(lambda *args: fn(*args, part), x, x_next, steps, pc,
+                     grid)
+    return order
+
+
+def _check_resident(x, x_next, steps, grid):
+    """The checks of K5's wrappers; the buffers with the result first."""
+    checks.check_count("steps", steps, 1)
+    checks.check_count("grid", grid, 0)
+    check_packed((), (x, x_next))
+    return (x, x_next) if steps % 2 == 0 else (x_next, x)
+
+
+def _launch_resident(fn, x, x_next, steps, pc, grid):
+    """One launch of ``fn`` (a bound ``gs_packed_resident_*`` entry) on the
+    current stream; raises on a refusal."""
     rows, width = x.shape
     barrier = torch.zeros(1, dtype=torch.int64, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -210,5 +355,3 @@ def resident_multistep(x: torch.Tensor, x_next: torch.Tensor, steps: int,
     if err != 0:
         raise RuntimeError(f"packed resident kernel launch failed: CUDA "
                            f"error {err} ({build.error_name(err)})")
-    resident_launches += 1
-    return order

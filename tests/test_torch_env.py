@@ -19,7 +19,7 @@ FLAGS = {
     "GRAYSCOTT_PALLAS_ENGINE": ("pallas_engine", "mega", "engine", "mega"),
     "GRAYSCOTT_PALLAS_RESIDENT": ("pallas_resident", "on", "resident",
                                   "resident"),
-    "GRAYSCOTT_PALLAS_PACK": ("pallas_pack", "on", "pack", "packed"),
+    "GRAYSCOTT_PALLAS_PACK": ("pallas_pack", "on", "pack", "megapack"),
 }
 
 

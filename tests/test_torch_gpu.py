@@ -7,6 +7,9 @@ runs on a machine that has no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +17,9 @@ import torch
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.cli import simulate
-from grayscott_tpu_torch.ops import (ilpsplit, megakernel, oplat, packed,
-                                     resident, sharded_mega, windowed)
+from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
+                                     packed, resident, sharded_mega,
+                                     windowed)
 from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import (STENCILS, Parameters,
                                         kernel_constants, packed_constants)
@@ -427,6 +431,127 @@ def test_refused_packed_launch_raises(cuda_device, kernel):
             too_many = 2 * megakernel.packed_max_blocks(cuda_device) + 1
             megakernel.packed_megastep(megakernel.pair_state(x), 1, 1, pc,
                                        grid=too_many)
+
+
+#: domains for K5 (32x32 tiles in 34x34 windows) and K6 (64x64 tiles in
+#: 80x80 windows) on the packed Hopper stepper: interior tiles of both,
+#: ragged against both, rows of 16-byte copies (a width of a multiple of 4)
+#: and of 4-byte ones; (40, 40) has no interior tile of either
+PACKED_SHAPES = [(200, 264), (161, 260), (130, 97), (40, 40)]
+
+
+def packed_states(device):
+    """K5's and K6's test states: PACKED_SHAPES, and NaN and +-Inf in
+    interior and edge tiles and on the domain's edge."""
+    return ([random_packed(shape, device) for shape in PACKED_SHAPES]
+            + [packed.pack_state(*nan_state((200, 300), device))])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [1.0, 0.5])
+@pytest.mark.parametrize("stencil_name", SEPARABLE)
+def test_redesigned_packed_kernels_bitwise(cuda_device, stencil_name, dt):
+    """K5 (1, 2 and 9 steps in one launch) and K6 (one launch of 1 x 8,
+    3 x 5 and 9 x 3 time blocks) on the packed Hopper stepper
+    (csrc/gs_packed_sm90.cuh), at ragged and no-interior shapes and on NaN
+    and +-Inf. Tolerance: none, NaN bits included."""
+    pc = packed_constants(Parameters.with_stencil(stencil_name,
+                                                  time_step=dt))
+    for x in packed_states(cuda_device):
+        for steps in (1, 2, 9):
+            out = packed.resident_multistep(x.clone(), torch.empty_like(x),
+                                            steps, pc)
+            want = packed.packed_run(x, steps, pc)
+            torch.cuda.synchronize()
+            assert bits_equal(out[0], want), (tuple(x.shape), steps)
+        for n_blocks, steps in ((1, 8), (3, 5), (9, 3)):
+            pair = megakernel.pair_state(x)
+            megakernel.packed_megastep(pair, n_blocks, steps, pc)
+            want = packed.packed_run(x, n_blocks * steps, pc)
+            torch.cuda.synchronize()
+            assert bits_equal(pair[0], want), (tuple(x.shape), n_blocks,
+                                               steps)
+
+
+#: (kernel, part) of every ablation part of K5 and K6
+PACKED_PARTS = ([("resident", p) for p in sorted(packed.RESIDENT_ABLATIONS)]
+                + [("mega", p) for p in sorted(megakernel.PACKED_ABLATIONS)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,part", PACKED_PARTS)
+def test_packed_ablation_parts_bitwise(cuda_device, kernel, part):
+    """Each part of K5's and K6's design taken out (their first forms
+    among them) gives the plain packed state bit for bit, at ragged and
+    no-interior shapes and on NaN and +-Inf; launches of these parts are
+    not counted."""
+    pc = packed_constants(Parameters())
+    for x in packed_states(cuda_device):
+        before = (packed.resident_launches, megakernel.packed_launches)
+        if kernel == "resident":
+            for steps in (2, 9):
+                out = packed.packed_resident_ablation(
+                    x.clone(), torch.empty_like(x), steps, pc, part)
+                want = packed.packed_run(x, steps, pc)
+                torch.cuda.synchronize()
+                assert bits_equal(out[0], want), (tuple(x.shape), steps)
+        else:
+            for n_blocks, steps in ((1, 8), (3, 5), (4, 8)):
+                pair = megakernel.pair_state(x)
+                megakernel.packed_mega_ablation(pair, n_blocks, steps, pc,
+                                                part)
+                want = packed.packed_run(x, n_blocks * steps, pc)
+                torch.cuda.synchronize()
+                assert bits_equal(pair[0], want), (tuple(x.shape), n_blocks,
+                                                   steps)
+        assert (packed.resident_launches,
+                megakernel.packed_launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["resident", "mega"])
+@pytest.mark.parametrize("grid", [1, 7])
+def test_packed_on_pinned_grids(cuda_device, kernel, grid):
+    """K5 and K6 on grids far below the co-resident maximum (many tiles a
+    block a step, or a time block) give the plain packed state."""
+    pc = packed_constants(Parameters(time_step=0.5))
+    for shape in PACKED_SHAPES + [(300, 500)]:
+        x = random_packed(shape, cuda_device)
+        if kernel == "resident":
+            got = packed.resident_multistep(x.clone(), torch.empty_like(x),
+                                            9, pc, grid=grid)[0]
+        else:
+            pair = megakernel.pair_state(x)
+            megakernel.packed_megastep(pair, 3, 3, pc, grid=grid)
+            got = pair[0]
+        want = packed.packed_run(x, 9, pc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), shape
+
+
+@pytest.mark.gpu
+def test_packed_mega_does_not_spill(cuda_device, tmp_path):
+    """ptxas's report of K6 (csrc/packed_mega.cu, built alone with the
+    library's flags): every instantiation of packed_mega_kernel, bound to
+    64 registers a thread, spills nothing."""
+    src = build.CSRC_DIR / "packed_mega.cu"
+    done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-c", "-o",
+                           str(tmp_path / "packed_mega.o"), str(src)],
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+    entry, spills = None, {}
+    for line in (done.stdout + done.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1) if "18packed_mega_kernel" in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            spills[entry] = (int(m.group(1)), int(m.group(2)))
+            entry = None
+    assert len(spills) == 4, spills  # the whole kernel and parts 1-3
+    assert all(v == (0, 0) for v in spills.values()), spills
 
 
 @pytest.mark.gpu

@@ -237,7 +237,7 @@ def test_packed_engines_equal_each_other(rng, steps):
 
 
 @pytest.mark.parametrize("flags,tag", [
-    ([], "packed"),
+    ([], "megapack"),
     (["--pallas-engine", "windowed"], "packed"),
     (["--pallas-resident", "on"], "respack"),
     (["--pallas-engine", "mega"], "megapack"),
@@ -331,8 +331,8 @@ def test_auto_and_off_never_pack(rng, pack, boundary):
 
 
 @pytest.mark.parametrize("pins,engine", [
-    ({}, "windowed"),
-    ({"resident": "off"}, "windowed"),
+    ({}, "mega"),
+    ({"resident": "off"}, "mega"),
     ({"engine": "windowed"}, "windowed"),
     ({"engine": "mega"}, "mega"),
     ({"resident": "on"}, "resident"),
