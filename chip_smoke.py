@@ -7,11 +7,11 @@
    (nvidia-smi) and nvcc.
 2. Builds the kernels from ``grayscott_tpu_torch/csrc/`` into
    ``build/kernels/`` and prints the build time, ptxas's report, each K1,
-   K2, K3, K7, K5 and K6 instantiation's registers, spills and static
-   shared memory (a spill in K2, K6 or K7 fails the run), K6's dynamic
-   shared memory, how many of K1's, K2's, K3's, K5's and K6's tiles are
-   interior tiles, and K7's per shard on each mesh, for both of its tile
-   geometries.
+   K2, K3, K7, K9, K4, K5 and K6 instantiation's registers, spills and
+   static shared memory (a spill in K2, K4, K6 or K7 fails the run), K4's
+   and K6's dynamic shared memory, how many of K1's, K2's, K3's, K4's,
+   K5's, K6's and K9's tiles are interior tiles, and K7's per shard on each
+   mesh, for both of its tile geometries.
 3. Holds each kernel against its plain PyTorch version on the card at
    1080x1920, 1000x1917 (ragged against the tiles; rows not 16-byte
    aligned) and 4096x4096, both boundaries: K1 (windowed) at 1 and 8 steps
@@ -39,10 +39,10 @@
    and the headline row's.
 6. Times each engine at 1080x1920 and 4096x4096 for both boundaries (the
    times the engine choice ``backends.cuda.auto_engine`` is set from); K1,
-   K2 and K3 (on the Hopper tile stepper) in turns with K2's first-stepper
-   kernel and K9 at split 1 (K3's former code shape), 32 steps each, and
-   with each part of their design taken out, and K1's and K3's plain
-   versions;
+   K2, K3 and K9 at split 1 (on the Hopper tile stepper) in turns with
+   K2's first-stepper kernel and K9's first form at split 1 (K3's former
+   code shape), 32 steps each, and with each part of their design taken
+   out, and K1's and K3's plain versions;
    and the snapshot copy of the main path; each beside the card's bound
    for the same work.
 7. The species-packed path (``--pallas-pack on``, zero boundary) at the
@@ -50,9 +50,9 @@
    steps, 32 steps through the backend), K5 (packed resident: one launch
    of 1, 8, 27 and 32 steps) and K6 (packed mega: 1, 8, 27 and 32 steps
    through the backend and in one launch) against the plain packed version
-   on the card; K5 and K6 (on the packed Hopper stepper) also with each
-   part of their design taken out (their first forms among them) and on
-   grids pinned to 1 and 7 blocks; all three with the other separable
+   on the card; all three (on the packed Hopper stepper) also with each
+   part of their design taken out (their first forms among them), K5 and
+   K6 on grids pinned to 1 and 7 blocks; all three with the other separable
    stencils and dt = 0.5 at every shape but 4096x4096, and bit for bit on
    states that hold NaN and +-Inf; ``simulate --boundary zero
    --pallas-pack on`` on ``auto`` and each pin (every frame against the
@@ -61,20 +61,24 @@
    against the CPU; one 4096x4096 x
    1000-step run on the packed ``auto`` engine against a plain replay;
    each packed engine timed beside K1 and K2 on the zero boundary (the
-   times ``backends.cuda.auto_packed_engine`` is set from); K5 and K6 in
-   turns with their first forms, K4, and K2 and K3 on the zero boundary,
-   32 steps each, and with each part of their design taken out; and each
-   packed kernel's plain version.
+   times ``backends.cuda.auto_packed_engine`` is set from); K4, K5 and K6
+   in turns with their first forms, and K1, K2 and K3 on the zero
+   boundary, 32 steps each, and with each part of their design taken out;
+   and each packed kernel's plain version.
 8. Prints the nvidia-smi line, one JSON line on the nine kernels, and
    last the JSON line ``{"ok": true, "device": {...}}``.
 9. The two microbenchmarks' kernels. K8 (``ops/oplat.py``, the chain of
    dependent operations) against its plain version at 1088x1920 and
    2176x3840, 4 steps of 15 and 45 ops, with and without rolls, on inputs
    in [0.5, 2), and at the entry point's call (1088x1920, 256 steps of 90
-   ops, both forms; on ones too, without rolls, as it is timed); K9 (``ops/ilpsplit.py``, the row-split resident step)
-   against its plain version on the same slabs and against K3, at the
-   three shapes of phase 3, both boundaries, split 1, 2, 4 and 8, 1, 27
-   and 32 steps in one launch. Then their entry points' sweeps, each with
+   ops, both forms; on ones too, without rolls, as it is timed); K9
+   (``ops/ilpsplit.py``, the row-split resident step, on the Hopper tile
+   stepper) against its plain version on the same slabs and against K3, at
+   the five shapes of phase 3, both boundaries, split 1, 2, 4 and 8 (as
+   far as the tile rows allow), 1, 27 and 32 steps in one launch, each
+   part of its design taken out (its first form among them), and bit for
+   bit on states that hold NaN and +-Inf. Then their entry points' sweeps,
+   each with
    the launch counts zeroed before it and read after:
    ``scripts.oplat.sweep`` at 1088x1920, 256 steps of 15 and 90 ops, both
    forms; ``scripts.ilpsplit.sweep`` at 1080x1920 and 4096x4096, both
@@ -322,9 +326,13 @@ PACKED_OPS = 2 * 2 * 4 + 2 + 2 * 6
 def oplat_bound_ms(shape, steps: int, n_ops: int,
                    rolls: bool) -> tuple[float, str]:
     """The least time the card could take for one K8 call: the array read
-    once and written once (8 B a cell), and 2 operations a fused
-    multiply-add at the float32 peak; rolls add no operations."""
-    by_bytes = 8 * shape[0] * shape[1] / PEAK_BYTES
+    once and written once (8 B a cell), and each roll one more pass over it
+    (8 B a cell a roll), at the HBM rate, and 2 operations a fused
+    multiply-add at the float32 peak; rolls add no operations. While the
+    array sits in L2 a roll can move faster than HBM does: this is the HBM
+    bound."""
+    passes = 1 + steps * oplat.rolls_per_chain(n_ops, rolls)
+    by_bytes = 8 * shape[0] * shape[1] * passes / PEAK_BYTES
     by_ops = 2 * oplat.fmas(shape, steps, n_ops, rolls) / PEAK_F32
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
@@ -550,11 +558,11 @@ def packed_resident_run(x0, steps: int, pc, part=None, grid: int = 0):
 
 
 def compare_packed_kernels(checks: Checks, rng) -> None:
-    """Phase 3b: K4, K5 and K6 against the plain packed version on the
-    card, zero boundary. K5 and K6 (on the packed Hopper stepper) at every
-    shape of REDESIGNED_SHAPES, each of their ablation parts, grids pinned
-    to MEGA_GRID_PINS blocks, the other separable stencils and dt = 0.5,
-    and states that hold NaN and +-Inf (bit for bit)."""
+    """Phase 3b: K4, K5 and K6 (all three on the packed Hopper stepper)
+    against the plain packed version on the card, zero boundary, at every
+    shape of REDESIGNED_SHAPES: each of their ablation parts, K5 and K6 on
+    grids pinned to MEGA_GRID_PINS blocks, the other separable stencils and
+    dt = 0.5, and states that hold NaN and +-Inf (bit for bit)."""
     default = Parameters()
     pc = packed_constants(default)
 
@@ -583,6 +591,11 @@ def compare_packed_kernels(checks: Checks, rng) -> None:
             packed.multistep(x0, out, steps, pc)
             compare("packed", out, plain[steps],
                     f"{tag} steps={steps} (one launch)")
+            for part, what in packed.WINDOWED_ABLATIONS.items():
+                out = torch.empty_like(x0)
+                packed.packed_windowed_ablation(x0, out, steps, pc, part)
+                compare("packed", out, plain[steps],
+                        f"{tag} steps={steps} (one launch) with {what}")
         checks.compare("packed", engine_run(
             "windowed", default, "zero", u_np, v_np, 32, pack="on"),
             packed.unpack_state(plain[32], shape[1]),
@@ -659,6 +672,10 @@ def compare_packed_kernels(checks: Checks, rng) -> None:
                          what)
             if label != "oono-puri":
                 continue
+            for part, part_what in packed.WINDOWED_ABLATIONS.items():
+                out = torch.empty_like(x0)
+                packed.packed_windowed_ablation(x0, out, 3, pco, part)
+                compare_bits("packed", out, want, f"{what} with {part_what}")
             for part, part_what in packed.RESIDENT_ABLATIONS.items():
                 compare_bits("respack",
                              packed_resident_run(x0, 3, pco, part), want,
@@ -1084,15 +1101,15 @@ def time_packed_engines(rng, card: str) -> dict:
 
 
 def time_packed_kernels(checks: Checks, rng, card: str) -> dict:
-    """Phase 6d: K6 (one launch of 4 time blocks of 8 steps) and K5 (one
-    32-step launch), on the packed Hopper stepper, timed in turns with
-    their first forms (ablation part 0), K4 (four 8-step launches), and K2
-    and K3 on the zero boundary (the same stepper unpacked), 32 steps each,
-    at 1080x1920 and 4096x4096; then each of K5 and K6 with one part of its
-    design taken out, in turns with the whole kernel (whole, parts...,
-    parts reversed, whole), held bit for bit against it, each time as a
-    ratio to the whole; then the plain packed version of 8 and 32 steps.
-    Each beside the card's bound."""
+    """Phase 6d: K6 (one launch of 4 time blocks of 8 steps), K5 (one
+    32-step launch) and K4 (four 8-step launches), on the packed Hopper
+    stepper, timed in turns with their first forms (ablation part 0), and
+    K1, K2 and K3 on the zero boundary (the same stepper unpacked), 32 steps
+    each, at 1080x1920 and 4096x4096; then each of K4, K5 and K6 with one
+    part of its design taken out, in turns with the whole kernel (whole,
+    parts..., parts reversed, whole), held bit for bit against it, each
+    time as a ratio to the whole; then the plain packed version of 8 and 32
+    steps. Each beside the card's bound."""
     pc = packed_constants(Parameters())
     consts = kernel_constants(Parameters())
     out = {}
@@ -1100,15 +1117,23 @@ def time_packed_kernels(checks: Checks, rng, card: str) -> dict:
         u, v = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
                 .to(DEVICE) for _ in range(2))
         x = packed.pack_state(u, v)
-        k4_bufs = [x.clone(), torch.empty_like(x)]
+        k1_bufs = [u, v, torch.empty_like(u), torch.empty_like(v)]
         k3_bufs = [u.clone(), v.clone(), torch.empty_like(u),
                    torch.empty_like(v)]
         k2_pairs = (megakernel.pair_state(u), megakernel.pair_state(v))
 
-        def k4():
-            for _ in range(MAIN_STEPS // packed.K):
-                packed.multistep(*k4_bufs, packed.K, pc)
-                k4_bufs.reverse()
+        def k4_run(part):
+            bufs = [x.clone(), torch.empty_like(x)]
+
+            def call():
+                for _ in range(MAIN_STEPS // packed.K):
+                    if part is None:
+                        packed.multistep(*bufs, packed.K, pc)
+                    else:
+                        packed.packed_windowed_ablation(*bufs, packed.K, pc,
+                                                        part)
+                    bufs.reverse()
+            return call
 
         def k5_run(part):
             bufs = [x.clone(), torch.empty_like(x)]
@@ -1139,9 +1164,15 @@ def time_packed_kernels(checks: Checks, rng, card: str) -> dict:
         def k2():
             megakernel.megastep(*k2_pairs, MAIN_STEPS // 8, 8, consts, "zero")
 
+        def k1():
+            for _ in range(MAIN_STEPS // windowed.K):
+                windowed.multistep(*k1_bufs, windowed.K, consts, "zero")
+                k1_bufs[:] = k1_bufs[2:] + k1_bufs[:2]
+
         calls = {"megapack": k6_run(None), "megapack0": k6_run(0),
                  "respack": k5_run(None), "respack0": k5_run(0),
-                 "packed": k4, "mega": k2, "resident": k3}
+                 "packed": k4_run(None), "packed0": k4_run(0),
+                 "windowed": k1, "mega": k2, "resident": k3}
         samples = {name: [] for name in calls}
         for name in [*calls, *reversed(calls)]:
             samples[name].append(cuda_ms(calls[name], reps))
@@ -1158,21 +1189,35 @@ def time_packed_kernels(checks: Checks, rng, card: str) -> dict:
                   f"[{card}]", flush=True)
         print(f"redesigned packed {shape[0]}x{shape[1]} zero: K6 "
               f"{ms['megapack0'] / ms['megapack']!r}x faster than its first "
-              f"form, K5 {ms['respack0'] / ms['respack']!r}x; K6 "
+              f"form, K5 {ms['respack0'] / ms['respack']!r}x, K4 "
+              f"{ms['packed0'] / ms['packed']!r}x; K6 "
               f"{ms['megapack'] / ms['packed']!r}x K4's time, "
               f"{ms['megapack'] / ms['mega']!r}x K2's; K5 "
-              f"{ms['respack'] / ms['resident']!r}x K3's [{card}]",
+              f"{ms['respack'] / ms['resident']!r}x K3's; K4 "
+              f"{ms['packed'] / ms['windowed']!r}x K1's [{card}]",
               flush=True)
+
+        def one_launch(tag, part=None):
+            """The state after one launch of 8 steps."""
+            if tag == "megapack":
+                return packed_mega_run(x, 1, 8, pc, part)
+            if tag == "respack":
+                return packed_resident_run(x, 8, pc, part)
+            got = torch.empty_like(x)
+            if part is None:
+                packed.multistep(x, got, 8, pc)
+            else:
+                packed.packed_windowed_ablation(x, got, 8, pc, part)
+            return got
+
         for tag, run, parts in (
                 ("megapack", k6_run, megakernel.PACKED_ABLATIONS),
-                ("respack", k5_run, packed.RESIDENT_ABLATIONS)):
+                ("respack", k5_run, packed.RESIDENT_ABLATIONS),
+                ("packed", k4_run, packed.WINDOWED_ABLATIONS)):
             # each part after 8 steps, held against the whole kernel
-            want = (packed_mega_run(x, 1, 8, pc) if tag == "megapack"
-                    else packed_resident_run(x, 8, pc))
+            want = one_launch(tag)
             for part, what in parts.items():
-                got = (packed_mega_run(x, 1, 8, pc, part)
-                       if tag == "megapack"
-                       else packed_resident_run(x, 8, pc, part))
+                got = one_launch(tag, part)
                 checks.compare(tag, packed.unpack_state(got, shape[1]),
                                packed.unpack_state(want, shape[1]),
                                f"{shape[0]}x{shape[1]} zero packed steps=8 "
@@ -1217,14 +1262,14 @@ def time_snapshot(shape, reps: int) -> float:
 
 def time_kernels(checks: Checks, rng, card: str) -> dict:
     """Phase 6b: K1 (four 8-step launches), K2 (one launch of 4 time blocks
-    of 8 steps) and K3 (one 32-step launch), all three on the Hopper tile
-    stepper, timed in turns with K2's first-stepper kernel (its ablation
-    part 0: K1's and K2's former code shape) and K9 at split 1 (K3's former
-    code shape), 32 steps each (K1, K2, K2 part 0, K3, K9, then back), at
-    1080x1920 and 4096x4096, both boundaries; then each of K1, K2 and K3
-    with one part of its design taken out (:func:`time_ablations`); then
-    K1's and K3's plain versions. Each beside the card's bound for 32
-    steps."""
+    of 8 steps), K3 and K9 at split 1 (one 32-step launch each), all four on
+    the Hopper tile stepper, timed in turns with K2's first-stepper kernel
+    (its ablation part 0: K1's and K2's former code shape) and K9's first
+    form at split 1 (its part 0: K3's and K9's former code shape), 32 steps
+    each (K1, K2, K2 part 0, K3, K9, K9 part 0, then back), at 1080x1920
+    and 4096x4096, both boundaries; then each of K1, K2, K3 and K9 with one
+    part of its design taken out (:func:`time_ablations`); then K1's and
+    K3's plain versions. Each beside the card's bound for 32 steps."""
     consts = kernel_constants(Parameters())
     out = {}
     for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
@@ -1236,6 +1281,8 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
                        torch.empty_like(v)]
             k9_bufs = [u.clone(), v.clone(), torch.empty_like(u),
                        torch.empty_like(v)]
+            k9_old = [u.clone(), v.clone(), torch.empty_like(u),
+                      torch.empty_like(v)]
             pair_u, pair_v = megakernel.pair_state(u), megakernel.pair_state(v)
             old_u, old_v = megakernel.pair_state(u), megakernel.pair_state(v)
 
@@ -1260,8 +1307,12 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
                 k9_bufs[:] = ilpsplit.split_multistep(
                     *k9_bufs, MAIN_STEPS, consts, boundary, 1)
 
+            def k9_first():
+                k9_old[:] = ilpsplit.split_ablation(
+                    *k9_old, MAIN_STEPS, consts, boundary, 1, 0)
+
             calls = {"windowed": k1, "mega": k2, "mega0": k2_first,
-                     "resident": k3, "ilpsplit": k9}
+                     "resident": k3, "ilpsplit": k9, "ilpsplit0": k9_first}
             samples = {name: [] for name in calls}
             for name in [*calls, *reversed(calls)]:
                 samples[name].append(cuda_ms(calls[name], reps))
@@ -1281,8 +1332,11 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
                   f"K2 {ms['mega0'] / ms['mega']!r}x faster than its first "
                   f"stepper's kernel; K1 {ms['mega0'] / ms['windowed']!r}x "
                   f"faster than it (K1's former code shape); K3 "
-                  f"{ms['ilpsplit'] / ms['resident']!r}x faster than K9 at "
-                  f"split 1 (K3's former code shape) [{card}]", flush=True)
+                  f"{ms['ilpsplit0'] / ms['resident']!r}x faster than K9's "
+                  f"first form at split 1 (K3's former code shape); K9 at "
+                  f"split 1 {ms['ilpsplit'] / ms['resident']!r}x K3's time, "
+                  f"{ms['ilpsplit0'] / ms['ilpsplit']!r}x faster than its "
+                  f"first form [{card}]", flush=True)
             time_ablations(checks, shape, boundary, u, v, reps, ms, card)
             for engine, steps in (("windowed", windowed.K),
                                   ("resident", MAIN_STEPS)):
@@ -1301,9 +1355,10 @@ def time_kernels(checks: Checks, rng, card: str) -> dict:
     return out
 
 
-#: the parts of K1's and K3's design that their ablation entries take out
-#: (csrc/windowed.cu: gs_windowed_ablation, csrc/resident.cu:
-#: gs_resident_ablation)
+#: the parts of K1's, K3's, K2's and K9's design that their ablation entries
+#: take out (csrc/windowed.cu: gs_windowed_ablation, csrc/resident.cu:
+#: gs_resident_ablation; K2's and K9's part 0, their first forms, are timed
+#: in phase 6b's turns)
 ABLATIONS = {
     "windowed": {1: "every tile an edge tile",
                  2: "the tap set tested at run time",
@@ -1313,19 +1368,20 @@ ABLATIONS = {
                  2: "the tap set tested at run time",
                  3: "no prefetch of the next window"},
     "mega": {p: what for p, what in megakernel.ABLATIONS.items() if p},
+    "ilpsplit": {p: what for p, what in ilpsplit.ABLATIONS.items() if p},
 }
 
 
 def time_ablations(checks: Checks, shape, boundary: str, u, v, reps: int,
                    ms: dict, card: str) -> None:
-    """Phase 6b's ablations: K1 (four 8-step launches), K3 (one 32-step
-    launch) and K2 (one launch of 4 time blocks of 8 steps) of the default
-    stencil, each with one part of its design taken out or with another
-    tile shape (ABLATIONS; K2's part 0, its first-stepper kernel, is timed
-    in phase 6b's turns), timed in turns with the whole kernel (whole,
-    parts..., parts reversed, whole) and held bit for bit against it; each
-    time also as a ratio to the whole kernel's (and beside phase 6b's,
-    ``ms``)."""
+    """Phase 6b's ablations: K1 (four 8-step launches), K3 and K9 at split 1
+    (one 32-step launch each) and K2 (one launch of 4 time blocks of 8
+    steps) of the default stencil, each with one part of its design taken
+    out or with another tile shape (ABLATIONS; K2's and K9's part 0, their
+    first forms, are timed in phase 6b's turns), timed in turns with the
+    whole kernel (whole, parts..., parts reversed, whole) and held bit for
+    bit against it; each time also as a ratio to the whole kernel's (and
+    beside phase 6b's, ``ms``)."""
     consts = kernel_constants(Parameters())
     naive = int(boundary == "naive")
     stream = torch.cuda.current_stream().cuda_stream
@@ -1371,7 +1427,14 @@ def time_ablations(checks: Checks, shape, boundary: str, u, v, reps: int,
                                          boundary, part)
         return bufs
 
-    for engine, run in (("windowed", k1), ("resident", k3), ("mega", k2)):
+    def k9(bufs, part, steps=MAIN_STEPS):
+        if part is None:
+            return ilpsplit.split_multistep(*bufs, steps, consts, boundary, 1)
+        return ilpsplit.split_ablation(*bufs, steps, consts, boundary, 1,
+                                       part)
+
+    for engine, run in (("windowed", k1), ("resident", k3), ("mega", k2),
+                        ("ilpsplit", k9)):
         parts = [None, *ABLATIONS[engine]]
         if engine == "mega":  # pairs, slot 0 current
             bufs = {p: [megakernel.pair_state(u), megakernel.pair_state(v)]
@@ -1422,16 +1485,17 @@ PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads")
 PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
-#: the kernels on the Hopper tile steppers, K1, K3, K2 and K7
-#: (gs_tile_sm90.cuh) and K5 and K6 (gs_packed_sm90.cuh), as their mangled
-#: names spell them (the name's length, then the name: "15resident_kernel"
-#: is not a part of "22packed_resident_kernel")
+#: the kernels on the Hopper tile steppers, K1, K3, K2, K7 and K9
+#: (gs_tile_sm90.cuh) and K4, K5 and K6 (gs_packed_sm90.cuh), as their
+#: mangled names spell them (the name's length, then the name:
+#: "15resident_kernel" is not a part of "22packed_resident_kernel")
 REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "11mega_kernel", "19sharded_mega_kernel",
+                      "15ilpsplit_kernel", "13packed_kernel",
                       "22packed_resident_kernel", "18packed_mega_kernel")
-#: of those, the ones whose instantiations must not spill (K2, K7, K6)
+#: of those, the ones whose instantiations must not spill (K2, K7, K4, K6)
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
-                    "18packed_mega_kernel")
+                    "13packed_kernel", "18packed_mega_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -1467,7 +1531,10 @@ def compare_microbench_kernels(checks: Checks, rng) -> None:
     also against K3. K8 also at the entry point's call, 256 steps of 90
     ops at 1088x1920, both forms (the pass sequence of 30 rolls a step and
     its buffer parity); the ones that the entry point times are held in
-    phase 9c."""
+    phase 9c. K9 at every shape of REDESIGNED_SHAPES (the splits that its
+    tile rows allow), each of its ablation parts at 27 steps, and on states
+    that hold NaN and +-Inf (bit for bit; every stencil and dt = 0.5, and
+    each part on the default)."""
     for shape in OPLAT_SHAPES:
         x = torch.from_numpy(rng.uniform(0.5, 2.0, shape).astype(np.float32)
                              ).to(DEVICE)
@@ -1482,30 +1549,82 @@ def compare_microbench_kernels(checks: Checks, rng) -> None:
                     f"{shape[0]}x{shape[1]} steps={steps} n_ops={n_ops} "
                     f"rolls={rolls} (one launch)")
     consts = kernel_constants(Parameters())
-    for shape in SHAPES:
+
+    def k9(u0, v0, steps, consts, boundary, split, part=None):
+        bufs = (u0.clone(), v0.clone(), torch.empty_like(u0),
+                torch.empty_like(v0))
+        if part is None:
+            return ilpsplit.split_multistep(*bufs, steps, consts, boundary,
+                                            split)[:2]
+        return ilpsplit.split_ablation(*bufs, steps, consts, boundary, split,
+                                       part)[:2]
+
+    for shape in REDESIGNED_SHAPES:
         u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
                                    .astype(np.float32)).to(DEVICE)
                   for _ in range(2))
+        splits = [s for s in SPLITS if s <= -(-shape[0] // ilpsplit.TILE)]
         for boundary in ("naive", "zero"):
             tag = f"{shape[0]}x{shape[1]} {boundary}"
             k3 = {steps: resident.multistep(
                 u0.clone(), v0.clone(), torch.empty_like(u0),
                 torch.empty_like(v0), steps, consts, boundary)[:2]
                 for steps in (1, 27, 32)}
-            for split in SPLITS:
+            for split in splits:
                 u, v, done = u0, v0, 0
                 for steps in (1, 27, 32):
                     u, v = ilpsplit.split_reference(
                         u, v, steps - done, consts, boundary, split,
                         quantum=ilpsplit.TILE)
                     done = steps
-                    out = ilpsplit.split_multistep(
-                        u0.clone(), v0.clone(), torch.empty_like(u0),
-                        torch.empty_like(v0), steps, consts, boundary, split)
+                    out = k9(u0, v0, steps, consts, boundary, split)
                     what = f"{tag} split={split} steps={steps} (one launch)"
-                    checks.compare("ilpsplit", out[:2], (u, v), what)
-                    checks.compare("ilpsplit", out[:2], k3[steps],
+                    checks.compare("ilpsplit", out, (u, v), what)
+                    checks.compare("ilpsplit", out, k3[steps],
                                    f"{what} vs K3")
+                    if steps != 27:
+                        continue
+                    for part, part_what in ilpsplit.ABLATIONS.items():
+                        out = k9(u0, v0, steps, consts, boundary, split, part)
+                        checks.compare("ilpsplit", out, (u, v),
+                                       f"{what} with {part_what}")
+                        checks.compare("ilpsplit", out, k3[steps],
+                                       f"{what} with {part_what} vs K3")
+    # states that hold NaN and +-Inf, in interior and edge tiles, on slab
+    # seams and on the domain's edge: held bit for bit
+    for shape in ((200, 300), MAIN_SHAPE):
+        u0, v0 = (torch.from_numpy(rng.uniform(0.0, 1.0, shape)
+                                   .astype(np.float32)).to(DEVICE)
+                  for _ in range(2))
+        u0[100, 150] = v0[0, 5] = float("nan")
+        v0[90, 140] = u0[70, 200] = float("inf")
+        u0[120, 7] = v0[-1, -1] = float("-inf")
+        u0[64, 40] = v0[95, 33] = float("nan")  # next to tile-row seams
+        splits = [s for s in SPLITS if s <= -(-shape[0] // ilpsplit.TILE)]
+        for label, params in (("oono-puri", Parameters()), *OTHER_PARAMS):
+            pco = kernel_constants(params)
+            for boundary in ("naive", "zero"):
+                k3 = resident.multistep(u0.clone(), v0.clone(),
+                                        torch.empty_like(u0),
+                                        torch.empty_like(v0), 3, pco,
+                                        boundary)[:2]
+                parts = [None]
+                if label == "oono-puri":
+                    parts += list(ilpsplit.ABLATIONS)
+                for split in splits:
+                    want = ilpsplit.split_reference(u0, v0, 3, pco, boundary,
+                                                    split,
+                                                    quantum=ilpsplit.TILE)
+                    for part in parts:
+                        what = (f"{shape[0]}x{shape[1]} {boundary} params="
+                                f"{label} NaN and Inf, split={split} steps=3 "
+                                "(one launch)")
+                        if part is not None:
+                            what += f" with {ilpsplit.ABLATIONS[part]}"
+                        out = k9(u0, v0, 3, pco, boundary, split, part)
+                        checks.compare_bits("ilpsplit", out, want, what)
+                        checks.compare_bits("ilpsplit", out, k3,
+                                            f"{what} vs K3")
 
 
 def microbench_paths(checks: Checks, card: str) -> dict:
@@ -1918,18 +2037,20 @@ def main(argv=None) -> int:
                    and (row[2] or row[3])]
         counted = sum(any(row[0].startswith(k[2:]) for k in NO_SPILL_KERNELS)
                       for row in report)
-        print(f"ptxas: {counted} K2, K6 and K7 instantiations, "
+        print(f"ptxas: {counted} K2, K4, K6 and K7 instantiations, "
               f"{len(spilled)} spill", flush=True)
         checks.expect(counted > 0 and not spilled,
-                      f"K2, K6 and K7 instantiations spill: {spilled}")
-    # K6's windows are dynamic shared memory, which ptxas does not report
-    for label, t in (("", megakernel.PACKED_TILE[0]), (" part 3", 32)):
+                      f"K2, K4, K6 and K7 instantiations spill: {spilled}")
+    # K4's and K6's windows are dynamic shared memory, which ptxas does not
+    # report
+    for label, t in (("", megakernel.PACKED_TILE[0]),
+                     (" (K4 part 2, K6 part 3)", 32)):
         win = t + 2 * megakernel.MEGA_STEPS
-        print(f"dynamic shared packed_mega_kernel{label}: {t}x{t} tiles in "
-              f"{win}x{win} windows, two buffers of two species: "
-              f"{4 * 4 * win * win} B", flush=True)
-    for label, tile, ring in (("K1 and K2", windowed.TILE, windowed.K),
-                              ("K3", resident.TILE, resident.HALO),
+        print(f"dynamic shared packed_kernel and packed_mega_kernel{label}: "
+              f"{t}x{t} tiles in {win}x{win} windows, two buffers of two "
+              f"species: {4 * 4 * win * win} B", flush=True)
+    for label, tile, ring in (("K1, K2 and K4", windowed.TILE, windowed.K),
+                              ("K3 and K9", resident.TILE, resident.HALO),
                               ("K5", packed.RESIDENT_TILE,
                                packed.RESIDENT_HALO),
                               ("K6", megakernel.PACKED_TILE,
@@ -2058,8 +2179,7 @@ def main(argv=None) -> int:
             max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=list(MAIN_SHAPE), steps=steps, boundary="zero",
-            **({} if tag == "packed"
-               else {"redesigned": "csrc/gs_packed_sm90.cuh"})))
+            redesigned="csrc/gs_packed_sm90.cuh"))
     ms, bound, by = micro["oplat", 90, False]
     entries.append(dict(
         KERNELS["oplat"], launches=micro["oplat_launches"],
@@ -2074,7 +2194,7 @@ def main(argv=None) -> int:
         ms=micro["ilpsplit", MAIN_SHAPE, "zero", 2],
         plain_ms=micro_plain["ilpsplit"], bound_ms=bound, bound_by=by,
         library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
-        boundary="zero", split=2))
+        boundary="zero", split=2, redesigned="csrc/gs_tile_sm90.cuh"))
     auto = sharded_runs["auto"]
     ms, bound, by = k7[MAIN_SHAPE, "naive", "K7 2x2"]
     entries.append(dict(

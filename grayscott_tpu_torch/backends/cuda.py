@@ -104,8 +104,8 @@ PACKED_TAGS = {"windowed": "packed", "resident": "respack",
 
 #: shape class -> the packed engines, fastest first (see auto_packed_engine)
 _PACKED_RANKING = {
-    "l2": ("mega", "resident", "windowed"),
-    "larger": ("mega", "resident", "windowed"),
+    "l2": ("mega", "windowed", "resident"),
+    "larger": ("windowed", "mega", "resident"),
 }
 
 
@@ -147,14 +147,18 @@ def auto_packed_engine(shape: Tuple[int, int],
     HBM3, power limit 700.00 W), ms per 32 steps, windowed / resident /
     mega, beside K1 and K2 unpacked on the zero boundary:
 
-    - 1080x1920 ("l2"): 0.6829 / 0.4364 / 0.2578 (K1 0.3694, K2 0.3545);
-    - 4096x4096 ("larger"): 5.0902 / 3.8916 / 1.9084 (K1 2.5461, K2
-      2.6388).
+    - 1080x1920 ("l2"): 0.2716 / 0.4184 / 0.2582 (K1 0.3694, K2 0.3556);
+    - 4096x4096 ("larger"): 1.8249 / 3.8596 / 1.9081 (K1 2.5469, K2
+      2.6385).
 
-    Both classes rank alike: K6 first, then K5, then K4. K5 and K6 step on
-    the packed Hopper stepper (``csrc/gs_packed_sm90.cuh``), K4 on the
-    first packed stepper. K6 is the fastest zero-boundary engine of the
-    port on either layout: 0.73x K2's time in L2 and 0.75x K1's at
+    All three step on the packed Hopper stepper
+    (``csrc/gs_packed_sm90.cuh``), and they rank as K1 and K2 do on the
+    unpacked one: while the state fits L2, K6 leads (1.05x faster than K4:
+    no launch every 8 steps); beyond it K4 leads (1.05x faster than K6,
+    which walks its tiles in 16 static rounds before each grid barrier).
+    K5, which passes the state through L2 or HBM every step, is last in
+    both. The packed engines are the fastest zero-boundary engines of the
+    port on either layout: 0.73x K2's time in L2 and 0.72x K1's at
     4096x4096, from the packed step's 30 float32 operations a cell-step
     against the unpacked zero tree's 63. That is evidence for a packing
     verdict, not one: the packed tree drifts 24x more than the unpacked

@@ -1,7 +1,8 @@
-// The first species-packed tile stepper: K4 (packed.cu) steps on it, and so
-// do the first forms of K5 and K6 that their ablation part 0 keeps
-// (packed_resident.cu, packed_mega.cu); K5 and K6 step on the packed Hopper
-// stepper (gs_packed_sm90.cuh), which takes PackedConstants from here.
+// The first species-packed tile stepper: the first forms of K4, K5 and K6
+// that their ablation part 0 keeps (packed.cu, packed_resident.cu,
+// packed_mega.cu) step on it; the kernels themselves step on the packed
+// Hopper stepper (gs_packed_sm90.cuh), which takes PackedConstants from
+// here.
 //
 // The state is one (rows, 2*cols) row-major array, U in columns [0, cols)
 // and V in [cols, 2*cols) of every row: the JAX package's [U | V] layout

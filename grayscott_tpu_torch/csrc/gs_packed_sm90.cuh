@@ -1,10 +1,9 @@
-// The species-packed tile stepper of K5 (packed_resident.cu) and K6
-// (packed_mega.cu), written for Hopper on the parts of the unpacked tile
-// stepper (gs_tile_sm90.cuh: load_window, the cp.async helpers,
+// The species-packed tile stepper of K4 (packed.cu), K5 (packed_resident.cu)
+// and K6 (packed_mega.cu), written for Hopper on the parts of the unpacked
+// tile stepper (gs_tile_sm90.cuh: load_window, the cp.async helpers,
 // Geometry, window_inside, rows_aligned). It replaces the first packed
-// stepper (gs_packed.cuh: step_packed_tile) for those two kernels; K4
-// (packed.cu) and the two kernels' ablation part 0 still step on that one,
-// and the two agree bit for bit.
+// stepper (gs_packed.cuh: step_packed_tile) for those three kernels; their
+// ablation part 0 still steps on that one, and the two agree bit for bit.
 //
 // The state is one (rows, 2*cols) row-major array [U | V] (gs_packed.cuh).
 // Windows load through gs::FlatLayout{2*cols}, U at x and V at x + cols,
@@ -34,11 +33,12 @@
 //     the separable plan's side tap is sqrt(w[0][0])), as packed_step's
 //     padding of t does. Interior tiles (EDGE = false: the window inside the
 //     domain, decided once a tile) run no domain test.
-//   - Larger windows loaded with cp.async: K6 steps Main's 64^2 tiles in
-//     80^2 windows of dynamic shared memory and walks them as time_block
-//     does, the next tile's window loading during the write-out
-//     (packed_time_block); K5 steps 32^2 tiles in 34^2 windows in K3's code
-//     shape (packed_resident.cu).
+//   - Larger windows loaded with cp.async: K4 and K6 step Main's 64^2 tiles
+//     in 80^2 windows of dynamic shared memory, K4 one tile a block in K1's
+//     code shape (packed.cu), K6 walking them as time_block does, the next
+//     tile's window loading during the write-out (packed_time_block); K5
+//     steps 32^2 tiles in 34^2 windows in K3's code shape
+//     (packed_resident.cu).
 //
 // Numerics: packed_step's tree (grayscott_tpu_torch/ops/packed.py), each
 // operation rounded once in its order (built with -fmad=false and without
@@ -49,8 +49,8 @@
 // reaches exactly the cells it reaches through packed_step.
 //
 // Shared memory: two buffers of two species, no t buffer. Main: 4 x 80^2
-// floats, 102,400 B, 2 blocks an SM; Small (K6's ablation part 3): 36,864
-// B; K5's 34 x 40 windows: 21,760 B.
+// floats, 102,400 B, 2 blocks an SM; Small (K4's ablation part 2, K6's part
+// 3): 36,864 B; K5's 34 x 40 windows: 21,760 B.
 
 #pragma once
 

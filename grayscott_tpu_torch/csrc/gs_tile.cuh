@@ -1,8 +1,8 @@
 // The first stepper: the per-cell and per-tile device code of the port's
 // unpacked kernels before the Hopper stepper (gs_tile_sm90.cuh), which keeps
-// its per-cell naive code, its layouts and its grid barrier. K9
-// (ilpsplit.cu) and K2's ablation part 0 (mega.cu) still step on it; the
-// host side of every persistent kernel lives here.
+// its per-cell naive code, its layouts and its grid barrier. The ablation
+// part 0 of K2 (mega.cu) and K9 (ilpsplit.cu), their first forms, still
+// step on it; the host side of every persistent kernel lives here.
 //
 // step_tile<HALO> advances one TILE x TILE output tile by `steps` <= HALO
 // Gray-Scott steps (step_tile_at does the same through a memory layout: a
@@ -26,7 +26,7 @@
 // always lies inside the window.
 //
 // Loads of the state go through __ldcg (cached in L2 only, never the
-// non-coherent read-only path): K9 and K2's part 0 read, after a grid
+// non-coherent read-only path): K2's and K9's part 0 read, after a grid
 // barrier, what other blocks wrote earlier in the same launch, and a stale
 // L1 or LDG.NC line would hand them old values. For this reason no state
 // pointer here is `const __restrict__`.
@@ -103,7 +103,7 @@ struct Window {
 // buffer holds the cell at global (row, col) (`holds`), whether the tile may
 // store it (`stores`), and its offset (`at`). Only in-domain cells are asked.
 //
-// FlatLayout: the whole rows x cols domain, row-major (K1-K3, K9).
+// FlatLayout: the whole rows x cols domain, row-major (K1-K6, K9).
 struct FlatLayout {
   int cols;
   __device__ __forceinline__ bool holds(int, int) const { return true; }

@@ -1,9 +1,10 @@
-// The tile stepper of K1 (windowed.cu), K2 (mega.cu), K3 (resident.cu) and
-// K7 (sharded_mega.cu), written for Hopper. K9 (ilpsplit.cu) and K2's
-// ablation part 0 keep the first stepper (gs_tile.cuh), whose per-cell naive
-// code this one keeps for the cells on the domain's edge; the two agree bit
-// for bit. The packed stepper of K5 and K6 (gs_packed_sm90.cuh) reuses its
-// window loads, geometries and interior test.
+// The tile stepper of K1 (windowed.cu), K2 (mega.cu), K3 (resident.cu), K7
+// (sharded_mega.cu) and K9 (ilpsplit.cu), written for Hopper. The ablation
+// part 0 of K2 and K9 keeps the first stepper (gs_tile.cuh), whose per-cell
+// naive code this one keeps for the cells on the domain's edge; the two
+// agree bit for bit. The packed stepper of K4, K5 and K6
+// (gs_packed_sm90.cuh) reuses its window loads, geometries and interior
+// test.
 //
 // What differs from gs_tile.cuh:
 //
@@ -45,6 +46,8 @@
 //     the valid region shrinking a cell a step; the megakernels walk their
 //     tiles through one time block with the next window loading while the
 //     finished tile is written out (time_block).
+//   - K3's 32^2 tiles in 34^2 windows, one step a window (ring: load_tile,
+//     step_tile), which the resident kernels K3 and K9 walk every step.
 //
 // Numerics: the expressions of gs_tile.cuh, built with -fmad=false and
 // without -ftz, so every kernel equals the plain PyTorch step
@@ -411,6 +414,75 @@ __device__ __forceinline__ void time_block(
     i = next;
   }
 }
+
+// --- K3's tiles: 32^2 in 34^2 windows, one step a window (K3, K9) ----------
+//
+// The resident kernels' tile (resident.cu, and ilpsplit.cu, which is K3 in
+// row slabs): every step reloads each tile's window, the tile and its
+// one-cell ring. A window row is the 16-byte span [32j - 4, 32j + 36)
+// around the ring [32j - 1, 32j + 33), so that rows load as 16-byte copies;
+// window column lc (0..33) lies at shared column lc + LEFT. The block is the
+// tile: NT threads, each stepping a strip of R rows of one column. `Walk`
+// holds the grid's width in tiles (`tiles_x`), in shared memory.
+namespace ring {
+
+constexpr int TILE = gs::TILE;  // 32: the tile edge
+constexpr int WR = TILE + 2;    // window rows: the tile and its ring
+constexpr int PITCH = TILE + 8;
+constexpr int LEFT = 3;
+constexpr int CELLS = WR * PITCH;  // of one buffer of one species
+constexpr int R = 4;
+constexpr int NT = TILE * (TILE / R);
+
+// Start loading the window of tile t into (su, sv). Coherent: the state was
+// written by other blocks of the launch before the caller's barrier.
+template <typename Walk>
+__device__ __forceinline__ void load_tile(const float* u, const float* v,
+                                          float* su, float* sv, int t,
+                                          const Walk& w, int rows, int cols,
+                                          bool aligned) {
+  const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
+  load_window<WR, PITCH / 4, PITCH, NT, true>(
+      FlatLayout{cols}, u, v, su, sv, ti * TILE - 1, tj * TILE - 4, rows,
+      cols, aligned);
+  cp_async_commit();
+}
+
+// Step tile t from its window (su, sv) into (out_u, out_v). SPECIALIZE =
+// false takes every tile as an edge tile (an ablation).
+template <int TAPS, bool NAIVE, bool SPECIALIZE, typename Walk>
+__device__ __forceinline__ void step_tile(const float* su, const float* sv,
+                                          float* out_u, float* out_v, int t,
+                                          const Walk& w, int rows, int cols,
+                                          const Constants& k) {
+  const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
+  const int lane = threadIdx.x % TILE, strip = threadIdx.x / TILE;
+  const int gr0 = ti * TILE + strip * R, gc = tj * TILE + lane;
+  const int lr0 = 1 + strip * R, lc = 1 + lane;  // window cell
+  const StripAt at = {gr0, gc, rows, cols};
+  float* pu = out_u + static_cast<size_t>(gr0) * cols + gc;
+  float* pv = out_v + static_cast<size_t>(gr0) * cols + gc;
+  if (SPECIALIZE && ti > 0 && tj > 0 && (ti + 1) * TILE + 1 <= rows &&
+      (tj + 1) * TILE + 1 <= cols) {  // the window lies inside the domain
+    step_strip<TAPS, NAIVE, R, PITCH, false>(
+        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
+        [&](int i, float un, float vn) {
+          pu[static_cast<size_t>(i) * cols] = un;
+          pv[static_cast<size_t>(i) * cols] = vn;
+        });
+  } else {
+    step_strip<TAPS, NAIVE, R, PITCH, true>(
+        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
+        [&](int i, float un, float vn) {
+          if (gr0 + i < rows && gc < cols) {  // the domain's cells only
+            pu[static_cast<size_t>(i) * cols] = un;
+            pv[static_cast<size_t>(i) * cols] = vn;
+          }
+        });
+  }
+}
+
+}  // namespace ring
 
 // --- host side --------------------------------------------------------------
 

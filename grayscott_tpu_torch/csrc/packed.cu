@@ -4,40 +4,159 @@
 // Replaces grayscott_tpu/ops/pallas_stencil.py:_packed_kernel (the TPU
 // kernel that packed_multistep_impl and packed_run_blocks drive). One
 // launch advances the packed (rows, 2*cols) state [U | V] by `steps` <=
-// HALO zero-boundary steps of the separable stencil:
+// HALO zero-boundary steps of the separable stencil, in K1's code shape
+// (windowed.cu) on the packed Hopper stepper (gs_packed_sm90.cuh):
 //
-//   - a 2-D grid of TILE x TILE output tiles; each block loads the
-//     (TILE + 2*HALO)^2 window of U and V around its tile into shared
-//     memory, cells outside the domain as 0.0;
-//   - each step is a row pass and a column pass with the reaction, the
-//     valid region shrinking by one cell a step, as in K1;
-//   - the tile interior, masked to the domain, is written to x_out.
-//
-// The tile stepper, its numerics and its boundary handling are the first
-// packed stepper's (gs_packed.cuh: step_packed_tile), which K5 and K6 left
-// for gs_packed_sm90.cuh.
+//   - a 2-D grid of 64x64 output tiles (Main); each block loads the 80^2
+//     window of U and V around its tile into dynamic shared memory with
+//     cp.async (16-byte copies where the rows allow them), through
+//     gs::FlatLayout{2*cols} with U at x, V at x + cols and a domain `cols`
+//     wide, so a cell past U's last column loads as 0.0, never as V's
+//     first. The copy may go through L1: nothing writes x in the launch;
+//   - step s computes window cells [s+1, W-s-1) from one shared buffer into
+//     the other (the valid region shrinks by one cell a step, as in K1), in
+//     register strips of 4 cells that keep the row pass in registers
+//     (step_packed_window), one __syncthreads() a step;
+//   - a tile whose window lies inside the domain steps with no domain test;
+//     the others write cells outside the domain as exactly 0.0 every step,
+//     so the next step's row pass reads the zero boundary (and h0 > 0 keeps
+//     a row outside the domain at t = +0.0, as packed_step's padding does);
+//   - the tile, masked to the domain, is written to x_out: U at g, V at
+//     g + cols.
 //
 // What bounds it on the card: each launch reads and writes the state once,
-// 16 B per cell per HALO steps, far below what HBM feeds. The separable
-// step is 30 float32 operations a cell-step for both species (16 in the two
-// passes, 2 for uv^2, 6 in each update) against 63 for K1's zero tree; the
-// limit is the 1.5x recompute of the 48^2 window's halo ring, the
-// shared-memory traffic of the two passes (14 loads and 4 stores a
-// cell-step) and the two __syncthreads() a step. Staging with TMA or
-// cp.async, and larger tiles in dynamic shared memory, are later work.
+// 16 B a cell per HALO steps, far below what HBM feeds. The limit is
+// instruction issue: 34 float32 operations a cell-step (the packed step's
+// 30, and the strips' recompute of their neighbours' row pass), the halo
+// recompute (1.24x the useful cell-steps over 8 steps with 64^2 tiles,
+// where the first form's 32^2 tiles recomputed 1.51x) and the shared-memory
+// traffic. gs_packed_ablation runs the kernel with one part of the design
+// taken out, or the first form (part 0: gs_packed.cuh's step_packed_tile<8>
+// on 32x32 tiles, kept unchanged as the in-call yardstick of the old code),
+// for chip_smoke.py to time what each part buys.
 
-#include "gs_packed.cuh"
+#include "gs_packed_sm90.cuh"
 
 namespace {
 
-constexpr int HALO = 8;  // most steps per launch (K)
+namespace sm90 = gs::sm90;
 
-__global__ void __launch_bounds__(gs::BLOCK_X * gs::BLOCK_Y)
+constexpr int HALO = sm90::HALO;  // most steps per launch (K)
+
+using sm90::Main;
+
+// SPECIALIZE = false takes every tile as an edge tile (an ablation).
+template <typename G, bool SPECIALIZE = true>
+__global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 packed_kernel(const float* x, float* x_out, int rows, int cols, int steps,
-              gs::PackedConstants k) {
+              gs::PackedConstants k, int aligned) {
+  extern __shared__ float4 window[];  // buffers [2] x species [2]
+  float* const base = reinterpret_cast<float*>(window);
+  const int r0 = blockIdx.y * G::TR - HALO, c0 = blockIdx.x * G::TC - HALO;
+
+  sm90::load_window<G::WR, G::WC / 4, G::WC, G::NT, false>(
+      gs::FlatLayout{2 * cols}, x, x + cols, base, base + G::CELLS, r0, c0,
+      rows, cols, aligned);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  const bool interior =
+      SPECIALIZE && sm90::window_inside<G>(r0, c0, rows, cols);
+  int cur = 0;
+  for (int st = 0; st < steps; ++st) {
+    const float* in_u = base + 2 * cur * G::CELLS;
+    float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
+    if (interior) {
+      sm90::step_packed_window<G, true>(in_u, in_u + G::CELLS, out_u,
+                                        out_u + G::CELLS, st + 1, r0, c0,
+                                        rows, cols, k);
+    } else {
+      sm90::step_packed_window<G, false>(in_u, in_u + G::CELLS, out_u,
+                                         out_u + G::CELLS, st + 1, r0, c0,
+                                         rows, cols, k);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  const float* fu = base + 2 * cur * G::CELLS;
+  const float* fv = fu + G::CELLS;
+  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
+    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
+    const int gr = r0 + lr, gc = c0 + lc;
+    if (gr < rows && gc < cols) {
+      const size_t g = static_cast<size_t>(gr) * 2 * cols + gc;
+      x_out[g] = fu[lr * G::WC + lc];
+      x_out[g + cols] = fv[lr * G::WC + lc];
+    }
+  }
+}
+
+// The first form (gs_packed.cuh: step_packed_tile<8>, 32x32 tiles in 48^2
+// windows of static shared memory, 256 threads, two passes a step), as K4
+// ran before the packed Hopper stepper: gs_packed_ablation's part 0.
+__global__ void __launch_bounds__(gs::BLOCK_X * gs::BLOCK_Y)
+first_form_kernel(const float* x, float* x_out, int rows, int cols,
+                  int steps, gs::PackedConstants k) {
   __shared__ gs::PackedWindow<HALO> s;
   gs::step_packed_tile<HALO>(x, x_out, blockIdx.y, blockIdx.x, rows, cols,
                              steps, k, s);
+}
+
+struct Call {
+  const float* x;
+  float* x_out;
+  int rows, cols, steps, device;
+  gs::PackedConstants k;
+  cudaStream_t stream;
+};
+
+// One launch of packed_kernel<G, SPECIALIZE>, after allowing it the dynamic
+// shared memory it needs (once per device): a launch that asks for more
+// than 48 KB without that is refused, and the refusal is returned.
+template <typename G, bool SPECIALIZE = true>
+cudaError_t launch(const Call& c) {
+  static bool allowed[gs::MAX_DEVICES];
+  auto kernel = packed_kernel<G, SPECIALIZE>;
+  if (!allowed[c.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(G::BYTES));
+    if (err != cudaSuccess) return err;
+    allowed[c.device] = true;
+  }
+  const dim3 grid((c.cols + G::TC - 1) / G::TC, (c.rows + G::TR - 1) / G::TR);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const int aligned = sm90::packed_aligned(c.cols, c.x, c.x_out);
+  kernel<<<grid, G::NT, G::BYTES, c.stream>>>(c.x, c.x_out, c.rows, c.cols,
+                                              c.steps, c.k, aligned);
+  return cudaGetLastError();
+}
+
+// One launch of the first form.
+cudaError_t launch_first_form(const Call& c) {
+  const dim3 grid((c.cols + gs::TILE - 1) / gs::TILE,
+                  (c.rows + gs::TILE - 1) / gs::TILE);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  first_form_kernel<<<grid, dim3(gs::BLOCK_X, gs::BLOCK_Y), 0, c.stream>>>(
+      c.x, c.x_out, c.rows, c.cols, c.steps, c.k);
+  return cudaGetLastError();
+}
+
+// The C interface's checks; the call, or an error in `err`.
+Call make_call(const float* x, float* x_out, int rows, int cols, int steps,
+               int device, const gs::PackedConstants& k, void* stream,
+               cudaError_t* err) {
+  *err = cudaSuccess;
+  if (rows < 1 || cols < 1 || steps < 1 || steps > HALO || device < 0 ||
+      device >= gs::MAX_DEVICES) {
+    *err = cudaErrorInvalidValue;
+  } else {
+    *err = cudaSetDevice(device);
+  }
+  return {x, x_out, rows, cols, steps, device, k,
+          static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -53,19 +172,31 @@ int gs_packed_multistep(const float* x, float* x_out, int rows, int cols,
                         int steps, int device, float h0, float h1, float cu,
                         float cv, float e, float au, float bv, float qu,
                         float qv, void* stream) {
-  if (rows < 1 || cols < 1 || steps < 1 || steps > HALO) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((cols + gs::TILE - 1) / gs::TILE,
-                  (rows + gs::TILE - 1) / gs::TILE);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err;
+  const Call c = make_call(x, x_out, rows, cols, steps, device,
+                           {h0, h1, cu, cv, e, au, bv, qu, qv}, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const gs::PackedConstants k = {h0, h1, cu, cv, e, au, bv, qu, qv};
-  packed_kernel<<<grid, dim3(gs::BLOCK_X, gs::BLOCK_Y), 0,
-                  static_cast<cudaStream_t>(stream)>>>(x, x_out, rows, cols,
-                                                       steps, k);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<Main>(c));
+}
+
+// gs_packed_multistep with one part of the design taken out, for timing
+// what it buys: 0 the first form's kernel, 1 no interior tiles, 2 32x32
+// tiles in 48x48 windows. The result is the same.
+int gs_packed_ablation(const float* x, float* x_out, int rows, int cols,
+                       int steps, int device, float h0, float h1, float cu,
+                       float cv, float e, float au, float bv, float qu,
+                       float qv, void* stream, int part) {
+  cudaError_t err;
+  const Call c = make_call(x, x_out, rows, cols, steps, device,
+                           {h0, h1, cu, cv, e, au, bv, qu, qv}, stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  switch (part) {
+    case 0: err = launch_first_form(c); break;
+    case 1: err = launch<Main, false>(c); break;
+    case 2: err = launch<sm90::Small>(c); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

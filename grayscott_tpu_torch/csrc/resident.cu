@@ -47,82 +47,26 @@
 namespace {
 
 namespace sm90 = gs::sm90;
-
-constexpr int TILE = gs::TILE;  // 32: the tile edge
-constexpr int WR = TILE + 2;    // window rows: the tile and its ring
-// Window columns in shared memory: the 16-byte span [32j - 4, 32j + 36)
-// around the ring [32j - 1, 32j + 33), so that rows load as 16-byte copies;
-// window column lc (0..33) lies at shared column lc + LEFT.
-constexpr int PITCH = TILE + 8;
-constexpr int LEFT = 3;
-constexpr int CELLS = WR * PITCH;  // of one buffer of one species
-// One strip of R rows of one column a thread: the block is the tile.
-constexpr int R = 4;
-constexpr int NT = TILE * (TILE / R);
+namespace ring = sm90::ring;  // the tile: 32^2 in a 34^2 window
 
 // The block's walk over the tiles, in shared memory.
 struct Walk {
   int tiles_x, n_tiles;
 };
 
-// Start loading the window of tile t into (su, sv).
-__device__ __forceinline__ void load_tile(const float* u, const float* v,
-                                          float* su, float* sv, int t,
-                                          const Walk& w, int rows, int cols,
-                                          bool aligned) {
-  const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
-  sm90::load_window<WR, PITCH / 4, PITCH, NT, true>(
-      gs::FlatLayout{cols}, u, v, su, sv, ti * TILE - 1, tj * TILE - 4, rows,
-      cols, aligned);
-  sm90::cp_async_commit();
-}
-
-// Step tile t from its window (su, sv) into (out_u, out_v).
-template <int TAPS, bool NAIVE, bool SPECIALIZE>
-__device__ __forceinline__ void step_tile(const float* su, const float* sv,
-                                          float* out_u, float* out_v, int t,
-                                          const Walk& w, int rows, int cols,
-                                          const gs::Constants& k) {
-  const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
-  const int lane = threadIdx.x % TILE, strip = threadIdx.x / TILE;
-  const int gr0 = ti * TILE + strip * R, gc = tj * TILE + lane;
-  const int lr0 = 1 + strip * R, lc = 1 + lane;  // window cell
-  const sm90::StripAt at = {gr0, gc, rows, cols};
-  float* pu = out_u + static_cast<size_t>(gr0) * cols + gc;
-  float* pv = out_v + static_cast<size_t>(gr0) * cols + gc;
-  if (SPECIALIZE && ti > 0 && tj > 0 && (ti + 1) * TILE + 1 <= rows &&
-      (tj + 1) * TILE + 1 <= cols) {  // the window lies inside the domain
-    sm90::step_strip<TAPS, NAIVE, R, PITCH, false>(
-        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
-        [&](int i, float un, float vn) {
-          pu[static_cast<size_t>(i) * cols] = un;
-          pv[static_cast<size_t>(i) * cols] = vn;
-        });
-  } else {
-    sm90::step_strip<TAPS, NAIVE, R, PITCH, true>(
-        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
-        [&](int i, float un, float vn) {
-          if (gr0 + i < rows && gc < cols) {  // the domain's cells only
-            pu[static_cast<size_t>(i) * cols] = un;
-            pv[static_cast<size_t>(i) * cols] = vn;
-          }
-        });
-  }
-}
-
 // SPECIALIZE = false takes every tile as an edge tile, PREFETCH = false
 // loads each window only when its tile is due (ablations).
 template <int TAPS, bool NAIVE, bool SPECIALIZE = true, bool PREFETCH = true>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(ring::NT)
 resident_kernel(float* u0, float* v0, float* u1, float* v1, int rows,
                 int cols, int n_steps, gs::Constants k, int aligned,
                 unsigned long long* barrier) {
   // window buffers [2] x species [2], 16-byte rows
-  __shared__ __align__(16) float window[2][2][CELLS];
+  __shared__ __align__(16) float window[2][2][ring::CELLS];
   __shared__ Walk w;
   if (threadIdx.x == 0) {
-    w.tiles_x = (cols + TILE - 1) / TILE;
-    w.n_tiles = w.tiles_x * ((rows + TILE - 1) / TILE);
+    w.tiles_x = (cols + ring::TILE - 1) / ring::TILE;
+    w.n_tiles = w.tiles_x * ((rows + ring::TILE - 1) / ring::TILE);
   }
   __syncthreads();
 
@@ -134,25 +78,26 @@ resident_kernel(float* u0, float* v0, float* u1, float* v1, int rows,
     float* out_v = odd ? v0 : v1;
     int t = blockIdx.x, b = 0;
     if (PREFETCH && t < w.n_tiles) {
-      load_tile(in_u, in_v, window[0][0], window[0][1], t, w, rows, cols,
-                aligned);
+      ring::load_tile(in_u, in_v, window[0][0], window[0][1], t, w, rows,
+                      cols, aligned);
     }
     for (; t < w.n_tiles; t += gridDim.x) {
       const int next = t + gridDim.x;
       if (!PREFETCH) {
-        load_tile(in_u, in_v, window[0][0], window[0][1], t, w, rows, cols,
-                  aligned);
+        ring::load_tile(in_u, in_v, window[0][0], window[0][1], t, w, rows,
+                        cols, aligned);
         sm90::cp_async_wait<0>();
       } else if (next < w.n_tiles) {
-        load_tile(in_u, in_v, window[b ^ 1][0], window[b ^ 1][1], next, w,
-                  rows, cols, aligned);
+        ring::load_tile(in_u, in_v, window[b ^ 1][0], window[b ^ 1][1], next,
+                        w, rows, cols, aligned);
         sm90::cp_async_wait<1>();
       } else {
         sm90::cp_async_wait<0>();
       }
       __syncthreads();  // the window of tile t is in place
-      step_tile<TAPS, NAIVE, SPECIALIZE>(window[b][0], window[b][1], out_u,
-                                         out_v, t, w, rows, cols, k);
+      ring::step_tile<TAPS, NAIVE, SPECIALIZE>(window[b][0], window[b][1],
+                                               out_u, out_v, t, w, rows,
+                                               cols, k);
       __syncthreads();  // and free for the window after next
       if (PREFETCH) b ^= 1;
     }
@@ -168,7 +113,8 @@ cudaError_t max_blocks(int device, int* out) {
   if (cache[device] == 0) {
     int per_sm = 0, sms = 0;
     cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, resident_kernel<TAPS, NAIVE, SPECIALIZE, PREFETCH>, NT, 0);
+        &per_sm, resident_kernel<TAPS, NAIVE, SPECIALIZE, PREFETCH>,
+        ring::NT, 0);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
@@ -198,9 +144,9 @@ cudaError_t launch_one(const Call& c) {
     const cudaError_t err =
         max_blocks<TAPS, NAIVE, SPECIALIZE, PREFETCH>(c.device, &grid);
     if (err != cudaSuccess) return err;
-    const long long tiles = static_cast<long long>((c.cols + TILE - 1) /
-                                                   TILE) *
-                            ((c.rows + TILE - 1) / TILE);
+    const long long tiles =
+        static_cast<long long>((c.cols + ring::TILE - 1) / ring::TILE) *
+        ((c.rows + ring::TILE - 1) / ring::TILE);
     if (tiles < grid) grid = static_cast<int>(tiles);
   }
   Call a = c;
@@ -210,7 +156,7 @@ cudaError_t launch_one(const Call& c) {
   cudaError_t err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(
           resident_kernel<TAPS, NAIVE, SPECIALIZE, PREFETCH>),
-      dim3(grid), dim3(NT), args, 0, c.stream);
+      dim3(grid), dim3(ring::NT), args, 0, c.stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not report it
     return err;

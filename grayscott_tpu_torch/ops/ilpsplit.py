@@ -12,6 +12,13 @@ raises. On a CPU tensor it runs the plain PyTorch version,
 :func:`split_reference`, since there is no kernel to launch on the CPU.
 ``launches`` counts the kernel launches, and only them.
 
+The kernel steps K3's tiles on the Hopper tile stepper
+(``csrc/gs_tile_sm90.cuh``: 32x32 tiles in 34x34 windows, register strips,
+interior tiles, the tap set at compile time, the next window prefetched
+while a tile steps). :func:`split_ablation` runs it with one part of that
+design taken out, or in its first form (``ABLATIONS``), for timing what
+each part buys; its launches are not the main path's and are not counted.
+
 Slab heights come in quanta (:func:`slab_heights`): on the card a quantum
 is a row of 32x32 tiles (``TILE`` rows), since each tile is stepped whole;
 on the CPU, where nothing is tiled, one row. The heights change only which
@@ -34,17 +41,39 @@ launches = 0
 #: rows of a slab quantum on the card: the kernels' tile edge
 TILE = 32
 
+#: the parts of the design that ``split_ablation`` takes out
+#: (csrc/ilpsplit.cu: gs_ilpsplit_ablation); each gives the whole kernel's
+#: result. Parts 1-4 take the default stencil's tap set only.
+ABLATIONS = {
+    0: "the first form's kernel (gs_tile.cuh)",
+    1: "every tile an edge tile",
+    2: "the tap set tested at run time",
+    3: "no prefetch of the next window",
+    4: "the co-resident maximum grid instead of the even one",
+}
+
 _fn = None
+_ablation_fn = None
+
+#: the C arguments of gs_ilpsplit_multistep
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_float] * 14 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 2)
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        _fn = build.bind("gs_ilpsplit_multistep",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                         + [ctypes.c_float] * 14 + [ctypes.c_int]
-                         + [ctypes.c_void_p] * 2)
+        _fn = build.bind("gs_ilpsplit_multistep", _ARGTYPES)
     return _fn
+
+
+def _ablation_kernel():
+    global _ablation_fn
+    if _ablation_fn is None:
+        _ablation_fn = build.bind("gs_ilpsplit_ablation",
+                                  _ARGTYPES + [ctypes.c_int])
+    return _ablation_fn
 
 
 def slab_heights(rows: int, split: int, quantum: int = 1) -> List[int]:
@@ -108,6 +137,41 @@ def split_multistep(u: torch.Tensor, v: torch.Tensor, u_next: torch.Tensor,
     the co-resident maximum; at least ``split``. On a CUDA device the
     launch is enqueued on the current stream and not waited for."""
     global launches
+    order = _check(u, v, u_next, v_next, steps, boundary, split, grid)
+    if u.device.type == "cpu":
+        ru, rv = split_reference(u, v, steps, consts, boundary, split)
+        order[0].copy_(ru)
+        order[1].copy_(rv)
+        return order
+    _launch(_kernel(), (u, v, u_next, v_next), steps, consts, boundary,
+            split, grid)
+    launches += 1
+    return order
+
+
+def split_ablation(u: torch.Tensor, v: torch.Tensor, u_next: torch.Tensor,
+                   v_next: torch.Tensor, steps: int, consts: KernelConstants,
+                   boundary: str, split: int, part: int, grid: int = 0
+                   ) -> Tuple[torch.Tensor, ...]:
+    """:func:`split_multistep` on the card with one part of K9's design
+    taken out (``ABLATIONS[part]``). The result, and the order of the
+    returned buffers, are the whole kernel's. Not counted in
+    ``launches``."""
+    order = _check(u, v, u_next, v_next, steps, boundary, split, grid)
+    if part not in ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(ABLATIONS)}, got "
+                         f"{part!r}")
+    if u.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the buffers must lie "
+                         f"on a CUDA device, not {u.device}")
+    fn = _ablation_kernel()
+    _launch(lambda *args: fn(*args, part), (u, v, u_next, v_next), steps,
+            consts, boundary, split, grid)
+    return order
+
+
+def _check(u, v, u_next, v_next, steps, boundary, split, grid):
+    """The checks of K9's wrappers; the buffers with the result first."""
     checks.check_count("steps", steps, 1)
     checks.check_count("split", split, 1)
     checks.check_count("grid", grid, 0)
@@ -116,25 +180,22 @@ def split_multistep(u: torch.Tensor, v: torch.Tensor, u_next: torch.Tensor,
                          "slabs of at least one block each")
     checks.check_boundary(boundary)
     checks.check_state((), (u, v, u_next, v_next))
-    on_cpu = u.device.type == "cpu"
-    slab_heights(u.shape[0], split, 1 if on_cpu else TILE)
-    order = (u, v, u_next, v_next) if steps % 2 == 0 else \
+    slab_heights(u.shape[0], split, 1 if u.device.type == "cpu" else TILE)
+    return (u, v, u_next, v_next) if steps % 2 == 0 else \
         (u_next, v_next, u, v)
-    if on_cpu:
-        ru, rv = split_reference(u, v, steps, consts, boundary, split)
-        order[0].copy_(ru)
-        order[1].copy_(rv)
-        return order
-    fn = _kernel()
+
+
+def _launch(fn, bufs, steps, consts, boundary, split, grid):
+    """One launch of ``fn`` (a bound ``gs_ilpsplit_*`` entry) on the
+    current stream; raises on a refusal."""
+    u = bufs[0]
     rows, cols = u.shape
     arrivals = torch.zeros(split, dtype=torch.int64, device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = fn(u.data_ptr(), v.data_ptr(), u_next.data_ptr(),
-             v_next.data_ptr(), rows, cols, steps, int(boundary == "naive"),
-             split, u.device.index, *consts.weights,
-             *consts.reaction, grid, arrivals.data_ptr(), stream)
+    err = fn(*(b.data_ptr() for b in bufs), rows, cols, steps,
+             int(boundary == "naive"), split, u.device.index,
+             *consts.weights, *consts.reaction, grid, arrivals.data_ptr(),
+             stream)
     if err != 0:
         raise RuntimeError(f"ilpsplit kernel launch failed: CUDA error {err} "
                            f"({build.error_name(err)})")
-    launches += 1
-    return order

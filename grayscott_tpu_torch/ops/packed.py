@@ -13,23 +13,27 @@ fold, not the oracle's 9-tap tree; :func:`packed_step` has it. It is a few
 ulp off the oracle and drifts from it over long runs as the JAX packed
 path does; the JAX packed kernels are its reference.
 
-K4 steps on the first packed stepper (``csrc/gs_packed.cuh``). K5 steps on
-the packed Hopper stepper (``csrc/gs_packed_sm90.cuh``: register strips
-that keep the row pass out of shared memory, one ``__syncthreads()`` a
-step, interior tiles with no domain test, ``cp.async`` windows), in K3's
-code shape: 32x32 tiles in 34x34 windows (``RESIDENT_TILE``,
-``RESIDENT_HALO``), the next tile's window loading while a tile steps.
-:func:`packed_tiled_step` is the CPU twin of that dispatch, for K5's and
-K6's geometries: bit for bit :func:`packed_step`.
+K4 and K5 step on the packed Hopper stepper (``csrc/gs_packed_sm90.cuh``:
+register strips that keep the row pass out of shared memory, one
+``__syncthreads()`` a step, interior tiles with no domain test,
+``cp.async`` windows). K4 is in K1's code shape: one 64x64 tile a block
+(``TILE``) in an 80x80 window, stepped up to ``K`` times as its valid
+region shrinks; :func:`packed_windowed_run` is the CPU twin of that
+launch. K5 is in K3's code shape: 32x32 tiles in 34x34 windows
+(``RESIDENT_TILE``, ``RESIDENT_HALO``), the next tile's window loading
+while a tile steps; :func:`packed_tiled_step` is the CPU twin of that
+dispatch, for K5's and K6's geometries. Both twins are bit for bit
+:func:`packed_step`.
 
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, or raises. On a CPU tensor it runs the plain version,
 since there is no kernel to launch on the CPU. ``launches`` (K4) and
 ``resident_launches`` (K5) count the kernel launches, and only them, so
 that a run can show that its main path went through the kernels.
-:func:`packed_resident_ablation` runs K5 with one part of its design taken
-out (``RESIDENT_ABLATIONS``), for timing what each part buys; its launches
-are not the main path's and are not counted.
+:func:`packed_windowed_ablation` and :func:`packed_resident_ablation` run
+K4 and K5 with one part of their design taken out
+(``WINDOWED_ABLATIONS``, ``RESIDENT_ABLATIONS``), for timing what each
+part buys; their launches are not the main path's and are not counted.
 """
 
 from __future__ import annotations
@@ -46,6 +50,10 @@ from . import build, checks
 #: most steps one K4 launch may take: the kernel's compile-time halo depth
 K = 8
 
+#: K4's output tile (rows, cols); each block steps it in a window of K
+#: cells more on every side (csrc/packed.cu: Main)
+TILE = (64, 64)
+
 #: K4 launches so far (CPU calls run the plain version and add nothing)
 launches = 0
 
@@ -56,6 +64,16 @@ resident_launches = 0
 #: pass (csrc/packed_resident.cu)
 RESIDENT_TILE = (32, 32)
 RESIDENT_HALO = 1
+
+#: the parts of K4's design that ``packed_windowed_ablation`` takes out
+#: (csrc/packed.cu: gs_packed_ablation); each gives the whole kernel's
+#: result
+WINDOWED_ABLATIONS = {
+    0: "the first form's kernel (32x32 tiles, two passes through shared "
+       "memory, gs_packed.cuh)",
+    1: "every tile an edge tile",
+    2: "32x32 tiles in 48x48 windows",
+}
 
 #: the parts of K5's design that ``packed_resident_ablation`` takes out
 #: (csrc/packed_resident.cu: gs_packed_resident_ablation); each gives the
@@ -68,6 +86,7 @@ RESIDENT_ABLATIONS = {
 }
 
 _fn = None
+_ablation_fn = None
 _resident_fn = None
 _resident_ablation_fn = None
 
@@ -212,6 +231,47 @@ def packed_tiled_step(x: torch.Tensor, pc: PackedConstants, tile: int,
     return out.reshape(rows, width)
 
 
+def packed_windowed_run(x: torch.Tensor, steps: int, pc: PackedConstants,
+                        tile: int = TILE[0], halo: int = K) -> torch.Tensor:
+    """:func:`packed_run` tile by tile, as K4 launches it: each ``tile`` x
+    ``tile`` tile steps its window (the tile and ``halo`` cells around it,
+    cells outside the domain 0.0) ``steps`` <= ``halo`` times, the valid
+    region shrinking by one cell a step, and writes its cells that lie in
+    the domain. An interior tile's window is cut from the state with no
+    domain test; an edge tile's comes from the zero-padded state and its
+    cells outside the domain are written as 0.0 every step. Equal to
+    :func:`packed_run` bit for bit, NaN and Inf included, for the reasons
+    :func:`packed_tiled_step` gives."""
+    checks.check_count("steps", steps, 1, halo)
+    rows, width = x.shape
+    c = width // 2
+    xs = x.reshape(rows, 2, c)
+    xp = F.pad(xs, (halo, halo + tile, 0, 0, halo, halo + tile))
+    out = torch.empty_like(xs)
+    w = tile + 2 * halo
+    for r0, c0, interior in packed_tiles((rows, c), tile, halo):
+        if interior:
+            win = xs[r0:r0 + w, :, c0:c0 + w]
+        else:
+            win = xp[r0 + halo:r0 + halo + w, :, c0 + halo:c0 + halo + w]
+            rr = torch.arange(r0, r0 + w, device=x.device)
+            cc = torch.arange(c0, c0 + w, device=x.device)
+            inside = (((rr >= 0) & (rr < rows))[:, None]
+                      & ((cc >= 0) & (cc < c))[None, :])
+        for _ in range(steps):  # window cells [s + 1, w - s - 1) at step s
+            un, vn = _window_step(win, pc)
+            if not interior:
+                inside = inside[1:-1, 1:-1]
+                un = torch.where(inside, un, 0.0)
+                vn = torch.where(inside, vn, 0.0)
+            win = torch.stack((un, vn), dim=1)
+        # the tile's cells in the domain: window cells [halo, halo + tile)
+        gr, gc, at = r0 + halo, c0 + halo, halo - steps
+        nr, nc = min(tile, rows - gr), min(tile, c - gc)
+        out[gr:gr + nr, :, gc:gc + nc] = win[at:at + nr, :, at:at + nc]
+    return out.reshape(rows, width)
+
+
 def kernel_args(pc: PackedConstants) -> tuple:
     """The nine float arguments of every packed kernel: ``h0, h1, cu, cv,
     e, au, bv, qu, qv``."""
@@ -238,6 +298,16 @@ def _kernel():
                          [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                          + [ctypes.c_float] * 9 + [ctypes.c_void_p])
     return _fn
+
+
+def _ablation_kernel():
+    global _ablation_fn
+    if _ablation_fn is None:
+        _ablation_fn = build.bind("gs_packed_ablation",
+                                  [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                                  + [ctypes.c_float] * 9
+                                  + [ctypes.c_void_p, ctypes.c_int])
+    return _ablation_fn
 
 
 def _resident_kernel():
@@ -284,7 +354,31 @@ def multistep(x: torch.Tensor, x_out: torch.Tensor, steps: int,
     if x.device.type == "cpu":
         x_out.copy_(packed_run(x, steps, pc))
         return
-    fn = _kernel()
+    _launch(_kernel(), x, x_out, steps, pc)
+    launches += 1
+
+
+def packed_windowed_ablation(x: torch.Tensor, x_out: torch.Tensor,
+                             steps: int, pc: PackedConstants,
+                             part: int) -> None:
+    """:func:`multistep` on the card with one part of K4's design taken out
+    (``WINDOWED_ABLATIONS[part]``). The result is the whole kernel's. Not
+    counted in ``launches``."""
+    checks.check_count("steps", steps, 1, K)
+    check_packed((x,), (x_out,))
+    if part not in WINDOWED_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(WINDOWED_ABLATIONS)},"
+                         f" got {part!r}")
+    if x.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the state must lie "
+                         f"on a CUDA device, not {x.device}")
+    fn = _ablation_kernel()
+    _launch(lambda *args: fn(*args, part), x, x_out, steps, pc)
+
+
+def _launch(fn, x, x_out, steps, pc):
+    """One launch of ``fn`` (a bound ``gs_packed_*`` entry of K4) on the
+    current stream; raises on a refusal."""
     rows, width = x.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), x_out.data_ptr(), rows, width // 2, steps,
@@ -292,7 +386,6 @@ def multistep(x: torch.Tensor, x_out: torch.Tensor, steps: int,
     if err != 0:
         raise RuntimeError(f"packed kernel launch failed: CUDA error {err} "
                            f"({build.error_name(err)})")
-    launches += 1
 
 
 def resident_multistep(x: torch.Tensor, x_next: torch.Tensor, steps: int,

@@ -21,8 +21,9 @@ from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      packed, resident, sharded_mega,
                                      windowed)
 from grayscott_tpu_torch.parallel import halo
-from grayscott_tpu_torch.params import (STENCILS, Parameters,
-                                        kernel_constants, packed_constants)
+from grayscott_tpu_torch.params import (DEFAULT_STENCIL, STENCILS,
+                                        Parameters, kernel_constants,
+                                        packed_constants)
 
 #: ragged shapes put tile seams and all four domain edges inside the 32x32
 #: tiles; (1, 1) is a domain smaller than one tile's interior
@@ -418,8 +419,8 @@ def test_refused_packed_launch_raises(cuda_device, kernel):
     than the card holds at once."""
     pc = packed_constants(Parameters())
     with pytest.raises(RuntimeError, match="CUDA error"):
-        if kernel == "packed":
-            x = torch.zeros((70000 * 32, 2), device=cuda_device)
+        if kernel == "packed":  # 65536 rows of tiles
+            x = torch.zeros((65536 * packed.TILE[0], 2), device=cuda_device)
             packed.multistep(x, torch.empty_like(x), 1, pc)
         elif kernel == "packed_resident":
             x = random_packed((4096, 4096), cuda_device)
@@ -471,6 +472,67 @@ def test_redesigned_packed_kernels_bitwise(cuda_device, stencil_name, dt):
             torch.cuda.synchronize()
             assert bits_equal(pair[0], want), (tuple(x.shape), n_blocks,
                                                steps)
+
+
+#: K4's domains: ragged against its 64x64 tiles, one tile narrower than its
+#: window, a domain smaller than one tile, interior tiles (200x264), rows
+#: of 16-byte copies and of 4-byte ones
+WINDOWED_SHAPES = [(70, 97), (19, 16), (130, 200), (5, 7), (200, 264),
+                   (161, 260)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [1.0, 0.5])
+@pytest.mark.parametrize("stencil_name", SEPARABLE)
+def test_redesigned_packed_windowed_bitwise(cuda_device, stencil_name, dt):
+    """K4 on the packed Hopper stepper (csrc/packed.cu), one launch of 1, 3
+    and 8 steps, at the CPU twin's shapes (tests/test_torch_packed_windowed
+    .py) and on NaN and +-Inf, against the plain packed run and the twin.
+    Tolerance: none, NaN bits included."""
+    pc = packed_constants(Parameters.with_stencil(stencil_name,
+                                                  time_step=dt))
+    states = ([random_packed(shape, cuda_device) for shape in WINDOWED_SHAPES]
+              + [packed.pack_state(*nan_state((200, 300), cuda_device))])
+    for x in states:
+        for steps in (1, 3, 8):
+            out = torch.empty_like(x)
+            packed.multistep(x, out, steps, pc)
+            want = packed.packed_run(x, steps, pc)
+            twin = packed.packed_windowed_run(x, steps, pc)
+            torch.cuda.synchronize()
+            assert bits_equal(out, want), (tuple(x.shape), steps)
+            assert bits_equal(out, twin), (tuple(x.shape), steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", sorted(packed.WINDOWED_ABLATIONS))
+def test_packed_windowed_ablation_parts_bitwise(cuda_device, part):
+    """Each part of K4's design taken out (its first form among them) gives
+    the plain packed state bit for bit, on K4's and K5's test domains and
+    on NaN and +-Inf; launches of these parts are not counted."""
+    pc = packed_constants(Parameters())
+    states = ([random_packed(shape, cuda_device) for shape in WINDOWED_SHAPES]
+              + packed_states(cuda_device))
+    for x in states:
+        before = packed.launches
+        for steps in (1, 8):
+            out = torch.empty_like(x)
+            packed.packed_windowed_ablation(x, out, steps, pc, part)
+            want = packed.packed_run(x, steps, pc)
+            torch.cuda.synchronize()
+            assert bits_equal(out, want), (tuple(x.shape), steps)
+        assert packed.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [-1, max(packed.WINDOWED_ABLATIONS) + 1])
+def test_packed_windowed_ablation_refuses_unknown_parts(cuda_device, part):
+    """A part K4 does not have is refused on the card too, before anything
+    is launched."""
+    x = random_packed((70, 97), cuda_device)
+    with pytest.raises(ValueError):
+        packed.packed_windowed_ablation(x, torch.empty_like(x), 1,
+                                        packed_constants(Parameters()), part)
 
 
 #: (kernel, part) of every ablation part of K5 and K6
@@ -529,28 +591,46 @@ def test_packed_on_pinned_grids(cuda_device, kernel, grid):
         assert torch.equal(got, want), shape
 
 
-@pytest.mark.gpu
-def test_packed_mega_does_not_spill(cuda_device, tmp_path):
-    """ptxas's report of K6 (csrc/packed_mega.cu, built alone with the
-    library's flags): every instantiation of packed_mega_kernel, bound to
-    64 registers a thread, spills nothing."""
-    src = build.CSRC_DIR / "packed_mega.cu"
+def ptxas_spills(source: str, kernel: str, tmp_path) -> dict:
+    """(spill stores, spill loads) in bytes of each instantiation of
+    ``kernel`` (its mangled name: length, then name) in ptxas's report of
+    ``csrc/<source>``, built alone with the library's flags."""
+    src = build.CSRC_DIR / source
     done = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-c", "-o",
-                           str(tmp_path / "packed_mega.o"), str(src)],
+                           str(tmp_path / f"{src.stem}.o"), str(src)],
                           capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stdout + done.stderr
     entry, spills = None, {}
     for line in (done.stdout + done.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = m.group(1) if "18packed_mega_kernel" in m.group(1) else None
+            entry = m.group(1) if kernel in m.group(1) else None
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry is not None:
             spills[entry] = (int(m.group(1)), int(m.group(2)))
             entry = None
+    return spills
+
+
+@pytest.mark.gpu
+def test_packed_mega_does_not_spill(cuda_device, tmp_path):
+    """ptxas's report of K6 (csrc/packed_mega.cu, built alone with the
+    library's flags): every instantiation of packed_mega_kernel, bound to
+    64 registers a thread, spills nothing."""
+    spills = ptxas_spills("packed_mega.cu", "18packed_mega_kernel", tmp_path)
     assert len(spills) == 4, spills  # the whole kernel and parts 1-3
+    assert all(v == (0, 0) for v in spills.values()), spills
+
+
+@pytest.mark.gpu
+def test_packed_windowed_does_not_spill(cuda_device, tmp_path):
+    """ptxas's report of K4 (csrc/packed.cu): every instantiation of
+    packed_kernel, its 64x64 tiles bound to 64 registers a thread, spills
+    nothing."""
+    spills = ptxas_spills("packed.cu", "13packed_kernel", tmp_path)
+    assert len(spills) == 3, spills  # the whole kernel and parts 1-2
     assert all(v == (0, 0) for v in spills.values()), spills
 
 
@@ -631,6 +711,85 @@ def test_ilpsplit_refuses_bad_splits(cuda_device, case):
                                  torch.empty_like(v), 1, consts, "naive",
                                  split, grid=grid)
     assert ilpsplit.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("part", sorted(ilpsplit.ABLATIONS))
+def test_ilpsplit_ablation_parts_bitwise(cuda_device, part, boundary):
+    """Each part of K9's design taken out (its first form among them), one
+    launch of 1, 8 and 27 steps at every split, against its plain version
+    on the same slabs and against K3; launches of these parts are not
+    counted. Tolerance: none."""
+    consts = kernel_constants(Parameters(time_step=0.5))
+    for shape in [(257, 65), (300, 97), (1000, 1917)]:
+        u, v = random_uv(shape, cuda_device)
+        for split in (1, 2, 4, 8):
+            before = ilpsplit.launches
+            for steps in (1, 8, 27):
+                out = ilpsplit.split_ablation(
+                    u.clone(), v.clone(), torch.empty_like(u),
+                    torch.empty_like(v), steps, consts, boundary, split,
+                    part)
+                want = ilpsplit.split_reference(u, v, steps, consts,
+                                                boundary, split,
+                                                quantum=ilpsplit.TILE)
+                k3 = resident.multistep(u.clone(), v.clone(),
+                                        torch.empty_like(u),
+                                        torch.empty_like(v), steps, consts,
+                                        boundary)
+                torch.cuda.synchronize()
+                for got, plain, other in zip(out[:2], want, k3[:2]):
+                    assert torch.equal(got, plain), (shape, split, steps)
+                    assert torch.equal(got, other), (shape, split, steps)
+            assert ilpsplit.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_ilpsplit_keeps_nan_and_inf(cuda_device, boundary, stencil_name):
+    """K9 at every split (and each ablation part, on the default stencil):
+    NaN and +-Inf in interior and edge tiles, on slab seams and on the
+    domain's edge spread over 3 steps bit for bit as through the plain
+    version and K3."""
+    consts = kernel_constants(Parameters.with_stencil(stencil_name))
+    u, v = nan_state((200, 300), cuda_device)
+    u[64, 40] = v[95, 33] = float("nan")  # next to tile-row seams
+    k3 = resident.multistep(u.clone(), v.clone(), torch.empty_like(u),
+                            torch.empty_like(v), 3, consts, boundary)
+    parts = [None]
+    if stencil_name == DEFAULT_STENCIL:
+        parts += sorted(ilpsplit.ABLATIONS)
+    for split in (1, 2, 4, 7):
+        want = ilpsplit.split_reference(u, v, 3, consts, boundary, split,
+                                        quantum=ilpsplit.TILE)
+        for part in parts:
+            bufs = (u.clone(), v.clone(), torch.empty_like(u),
+                    torch.empty_like(v))
+            if part is None:
+                out = ilpsplit.split_multistep(*bufs, 3, consts, boundary,
+                                               split)
+            else:
+                out = ilpsplit.split_ablation(*bufs, 3, consts, boundary,
+                                              split, part)
+            torch.cuda.synchronize()
+            for got, plain, other in zip(out[:2], want, k3[:2]):
+                assert bits_equal(got, plain), (split, part)
+                assert bits_equal(got, other), (split, part)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", [-1, max(ilpsplit.ABLATIONS) + 1])
+def test_ilpsplit_ablation_refuses_unknown_parts(cuda_device, part):
+    """A part K9 does not have is refused on the card too, before anything
+    is launched."""
+    u, v = random_uv((70, 97), cuda_device)
+    with pytest.raises(ValueError):
+        ilpsplit.split_ablation(u, v, torch.empty_like(u),
+                                torch.empty_like(v), 1,
+                                kernel_constants(Parameters()), "naive", 2,
+                                part)
 
 
 @pytest.mark.gpu

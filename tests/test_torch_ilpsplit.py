@@ -4,8 +4,9 @@ resident kernel K3 in Pallas interpret mode (scripts/ilpsplit.py itself
 does not run at this tree: it calls make_window_stepper with an argument
 list the function no longer takes; its docstring states that the split
 equals the unsplit resident kernel bitwise, and that is what K9 is held
-to), and the wrapper's checks. The CUDA kernel itself is held against its
-plain version and K3 on the card by tests/test_torch_gpu.py."""
+to), and the checks of the wrapper and of its ablation wrapper. The CUDA
+kernel itself is held against its plain version and K3 on the card by
+tests/test_torch_gpu.py."""
 
 import numpy as np
 import pytest
@@ -195,3 +196,36 @@ def test_script_main_on_the_cpu(capsys):
     assert len(results) == 3
     assert sum(ln.startswith("BASELINE ") for ln in lines) == 1
     assert lines[-1] == "DONE"
+
+
+@pytest.mark.parametrize("kind", [
+    "part_unknown", "part_negative", "cpu", "steps_zero", "split_over_rows",
+    "grid_below_split", "boundary", "aliased",
+])
+def test_split_ablation_rejects_bad_arguments(kind):
+    """K9's ablation wrapper checks its arguments as
+    ``ilpsplit.split_multistep`` does, refuses a part it does not have, and
+    runs only on the card: on CPU tensors it raises, and no call counts a
+    launch."""
+    consts = kernel_constants(Parameters())
+    bufs = [torch.rand(8, 12) for _ in range(4)]
+    args = {"steps": 1, "boundary": "naive", "split": 2, "part": 0,
+            "grid": 0}
+    if kind == "part_unknown":
+        args["part"] = max(ilpsplit.ABLATIONS) + 1
+    elif kind == "part_negative":
+        args["part"] = -1
+    elif kind == "steps_zero":
+        args["steps"] = 0
+    elif kind == "split_over_rows":
+        args["split"] = 9
+    elif kind == "grid_below_split":
+        args["grid"] = 1
+    elif kind == "boundary":
+        args["boundary"] = "periodic"
+    elif kind == "aliased":
+        bufs[2] = bufs[0]
+    before = ilpsplit.launches
+    with pytest.raises(ValueError):
+        ilpsplit.split_ablation(*bufs, consts=consts, **args)
+    assert ilpsplit.launches == before

@@ -330,6 +330,12 @@ def test_auto_and_off_never_pack(rng, pack, boundary):
         (16, 16), boundary)
 
 
+#: ``auto``'s packed engine by shape: K6 while the state fits L2, K4
+#: beyond it (backends/cuda.py: auto_packed_engine)
+AUTO_PACKED = {(24, 32): "mega", (1080, 1920): "mega",
+               (4096, 4096): "windowed"}
+
+
 @pytest.mark.parametrize("pins,engine", [
     ({}, "mega"),
     ({"resident": "off"}, "mega"),
@@ -338,10 +344,14 @@ def test_auto_and_off_never_pack(rng, pack, boundary):
     ({"resident": "on"}, "resident"),
 ])
 def test_packed_engine_choice(pins, engine):
+    """Each pin runs its engine at every shape; ``auto`` (``engine`` is
+    then its pick in L2) runs AUTO_PACKED's."""
     for shape in ((24, 32), (1080, 1920), (4096, 4096)):
         sim = CudaSimulation(Parameters(), "zero", device="cpu", pack="on",
                              **pins)
-        assert sim.engine_for(shape) == engine
+        pinned = "engine" in pins or pins.get("resident") == "on"
+        assert sim.engine_for(shape) == (engine if pinned
+                                         else AUTO_PACKED[shape])
     for shape in ((1080, 1920), (4096, 4096)):
         assert cuda_backend.auto_packed_engine(shape) in PINS
         assert cuda_backend.auto_packed_engine(
