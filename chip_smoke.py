@@ -101,9 +101,26 @@
    1080x1920 and 4096x4096, both boundaries, beside its bound; the
    backend's call (exchange and launch); each mesh's tile counts and
    rounds; the plain version once.
+11. The plain rungs of the ladder and the rest of ``simulate``. Each rung
+   (``naive``, ``regular``, ``fused``, ``conv``) through ``simulate.run``
+   on the default run (1080x1920, 32 steps an image) for 4 images, both
+   boundaries, beside the ``cuda`` backend on ``auto``, each with the
+   launch counts zeroed before it and read after (a rung launches none of
+   the nine kernels): naive's frames bit for bit the cuda backend's, fused
+   bit for bit regular (the same operations, replayed from a CUDA graph),
+   regular, fused and conv within 1e-4 of naive after the last image; conv
+   on the card within 1e-5 of conv on the CPU at 70x97 after 32 steps (TF32
+   left on would miss it). A run of 8 images, then ``uv_host``,
+   ``build_storage`` and 8 more, against 16 straight at 0.0 (the in-memory
+   part of ``--resume`` and ``--checkpoint``) on ``cuda`` ``auto``,
+   ``--pallas-pack on`` (zero boundary), ``sharded`` 2x2 and ``fused``;
+   ``--snapshot-dtype bfloat16`` frames on ``auto`` against the float32
+   frames rounded through bf16, bit for bit. Then the ladder table: each
+   rung and ``cuda`` ``auto``, ms an image in turns
+   (``bench/ladder.py:ladder_ms``).
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
-(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 and 10 run after
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9, 10 and 11 run after
 them, before phase 8's lines. Every check runs; a failed one makes the script exit 1
 without the two JSON lines. With no CUDA GPU visible it exits 1 at once.
 """
@@ -125,9 +142,10 @@ import numpy as np
 import torch
 
 from grayscott_tpu_torch.backends import cuda as cuda_backend
+from grayscott_tpu_torch.backends import get_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
-from grayscott_tpu_torch.bench import headline, simulate_turns
+from grayscott_tpu_torch.bench import headline, ladder, simulate_turns
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      packed, resident, sharded_mega, stencil,
@@ -137,7 +155,7 @@ from grayscott_tpu_torch.params import (Parameters, kernel_constants,
                                         packed_constants)
 from grayscott_tpu_torch.scripts import ilpsplit as ilpsplit_script
 from grayscott_tpu_torch.scripts import oplat as oplat_script
-from grayscott_tpu_torch.species import initial_uv
+from grayscott_tpu_torch.species import Species, initial_uv
 from grayscott_tpu_torch.utils import device as gpu
 
 #: kernel vs plain version, max |difference|: both run the same float32
@@ -276,6 +294,27 @@ SHARDED_FLAGS = ["--backend", "sharded", "--sharded-engine", "mega",
                  "--sharded-devices", "4"]
 SHARDED_PATHS = [[], ["--sharded-mesh-cols", "1"],
                  ["--sharded-mesh-cols", "2"]]
+
+#: phase 11: the plain rungs of the ladder, images of MAIN_STEPS steps a
+#: run, and the runs split by a resume
+RUNGS = ("naive", "regular", "fused", "conv")
+RUNG_IMAGES = 4
+RESUME_IMAGES = 8
+#: the shift algebra and the convolution against the oracle's tree (the
+#: naive rung) after RUNG_IMAGES images: both reassociate the stencil sum,
+#: a few ulp a step; the plain rungs on the CPU stay within 1e-5 of the
+#: oracle over 64 steps (tests/test_torch_rungs.py)
+RUNG_TOL = 1e-4
+#: conv on the card against conv on the CPU at CONV_SHAPE after MAIN_STEPS
+#: steps: cuDNN sums the 9 taps in another order (an ulp a step), while
+#: TF32 left on would put errors of about 1e-3 into every step
+CONV_TOL = 1e-5
+CONV_SHAPE = (70, 97)
+#: the paths a run resumed through build_storage is held on
+RESUME_PATHS = {"cuda auto": [], "cuda pack": ZERO_PACKED,
+                "sharded 2x2": SHARDED_FLAGS, "fused": ["--backend", "fused"]}
+#: rounds of the ladder's timed runs (each rung in order, then reversed)
+LADDER_ROUNDS = 2
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2003,6 +2042,150 @@ def time_sharded(rng, card: str) -> dict:
     return out
 
 
+def run_frames(flags: list, images: int, snapshot_dtype: str = "float32"):
+    """A default ``simulate`` run (with ``flags``) of ``images`` images
+    through ``simulate.run``, with the launch counts zeroed before it and
+    read after: (frames, launches, simulation, species)."""
+    ns = simulate.build_parser().parse_args(flags)
+    sim = shared.make_simulation(ns)
+    species = sim.make_species(shared.domain_shape(ns))
+    frames: list[np.ndarray] = []
+    torch.cuda.synchronize()
+    reset_launches()
+    simulate.run(sim, species, images, MAIN_STEPS, frames.append,
+                 snapshot_dtype)
+    torch.cuda.synchronize()
+    return frames, read_launches(), sim, species
+
+
+def frames_err(got, want) -> float:
+    """max |difference| over two lists of frames, NaN as inf."""
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    return err if err == err else float("inf")
+
+
+def ladder_paths(checks: Checks) -> None:
+    """Phase 11a: each rung at the default shape, both boundaries, for
+    RUNG_IMAGES images, beside the ``cuda`` backend on ``auto``: naive
+    bitwise to cuda, fused bitwise to regular, regular, fused and conv
+    within RUNG_TOL of naive, and no hand-written kernel launched by a
+    rung. Then conv on the card against conv on the CPU (TF32 off)."""
+    no_launches = {tag: 0 for tag in COUNTERS}
+    for boundary in ("naive", "zero"):
+        flags = ["--boundary", boundary]
+        cuda_frames, launches, _, species = run_frames(flags, RUNG_IMAGES)
+        engine = KERNEL_OF.get(species.storage[0], species.storage[0])
+        want = dict(no_launches)
+        want[engine] = expected_launches(engine, RUNG_IMAGES, MAIN_STEPS)
+        checks.expect(launches == want, f"cuda auto {boundary}: launches "
+                      f"{launches}, not {want}")
+        frames = {}
+        for rung in RUNGS:
+            frames[rung], launches, sim, _ = run_frames(
+                ["--backend", rung, *flags], RUNG_IMAGES)
+            checks.expect(launches == no_launches,
+                          f"{rung} {boundary} launched {launches}")
+            checks.expect(len(frames[rung]) == RUNG_IMAGES and all(
+                f.shape == MAIN_SHAPE and f.dtype == np.float32
+                and np.isfinite(f).all() for f in frames[rung]),
+                f"{rung} {boundary}: frame count, shape, dtype or "
+                "finiteness")
+            print(f"ladder {rung} {boundary}: {RUNG_IMAGES} images x "
+                  f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}, "
+                  f"launches {launches}, graph captures "
+                  f"{getattr(sim, 'captures', '-')}", flush=True)
+        err = frames_err(frames["naive"], cuda_frames)
+        print(f"ladder naive vs cuda auto ({engine}) {boundary}, every "
+              f"frame: max|dV|={err!r}", flush=True)
+        checks.expect(err == 0.0, f"naive vs cuda auto {boundary}")
+        err = frames_err(frames["fused"], frames["regular"])
+        print(f"ladder fused vs regular {boundary}, every frame: "
+              f"max|dV|={err!r}", flush=True)
+        checks.expect(err == 0.0, f"fused vs regular {boundary}")
+        for rung in ("regular", "fused", "conv"):
+            err = frames_err(frames[rung][-1:], frames["naive"][-1:])
+            print(f"ladder {rung} vs naive {boundary}, after "
+                  f"{RUNG_IMAGES * MAIN_STEPS} steps: max|dV|={err!r} "
+                  f"(limit {RUNG_TOL!r})", flush=True)
+            checks.expect(err <= RUNG_TOL, f"{rung} vs naive {boundary}")
+        conv = {}
+        for device in ("card", "cpu"):
+            sim = get_backend("conv")(Parameters(), boundary, device=(
+                DEVICE if device == "card" else "cpu"))
+            species = sim.make_species(CONV_SHAPE)
+            sim.perform_steps(species, MAIN_STEPS)
+            conv[device] = species.uv_host()
+        err = frames_err(conv["card"], conv["cpu"])
+        print(f"ladder conv on the card vs the CPU {boundary}, "
+              f"{CONV_SHAPE[0]}x{CONV_SHAPE[1]} x {MAIN_STEPS} steps: "
+              f"max|d(U,V)|={err!r} (limit {CONV_TOL!r}; cuDNN allow_tf32 "
+              f"left at {torch.backends.cudnn.allow_tf32})", flush=True)
+        checks.expect(err <= CONV_TOL, f"conv card vs CPU {boundary}")
+
+
+def resume_paths(checks: Checks) -> None:
+    """Phase 11b: RESUME_IMAGES images, then ``uv_host``,
+    ``build_storage`` and RESUME_IMAGES more, against an uninterrupted
+    run of twice as many images, at 0.0 (the in-memory part of --resume
+    and --checkpoint); then bf16 snapshots against the float32 frames
+    rounded through bf16."""
+    for label, flags in RESUME_PATHS.items():
+        straight, launches, sim, _ = run_frames(flags, 2 * RESUME_IMAGES)
+        first, _, sim, species = run_frames(flags, RESUME_IMAGES)
+        u, v = species.uv_host()
+        resumed = Species(u.shape, sim.build_storage(u, v), sim)
+        resumed.steps_performed = species.steps_performed
+        second: list[np.ndarray] = []
+        simulate.run(sim, resumed, RESUME_IMAGES, MAIN_STEPS,
+                     second.append)
+        torch.cuda.synchronize()
+        err = frames_err(first + second, straight)
+        tag = species.storage[0]
+        print(f"resume {label} ({tag if isinstance(tag, str) else sim.name}"
+              f"): {RESUME_IMAGES} + {RESUME_IMAGES} images against "
+              f"{2 * RESUME_IMAGES} straight (launches {launches}), every "
+              f"frame: max|dV|={err!r}; steps {resumed.steps_performed}",
+              flush=True)
+        checks.expect(err == 0.0 and len(second) == RESUME_IMAGES
+                      and resumed.steps_performed
+                      == 2 * RESUME_IMAGES * MAIN_STEPS,
+                      f"resume {label}")
+    f32, _, _, _ = run_frames([], RUNG_IMAGES)
+    bf16, launches, _, _ = run_frames([], RUNG_IMAGES, "bfloat16")
+    rounded = [torch.from_numpy(f).to(torch.bfloat16).float().numpy()
+               for f in f32]
+    same = all(b.dtype == np.float32 and np.array_equal(
+        b.view(np.int32), r.view(np.int32)) for b, r in zip(bf16, rounded))
+    print(f"bf16 snapshots on auto, {RUNG_IMAGES} images: the float32 "
+          f"frames rounded through bf16 bit for bit {same}; max|bf16 - "
+          f"f32| {frames_err(bf16, f32)!r}; launches {launches}",
+          flush=True)
+    checks.expect(same and len(bf16) == RUNG_IMAGES, "bf16 snapshots")
+
+
+def time_ladder(card: str) -> dict:
+    """Phase 11c: each rung and ``cuda`` on ``auto``, ms an image of
+    MAIN_STEPS steps at the default shape and boundary through
+    ``simulate.run``, RUNG_IMAGES images a run, on the host clock ending in
+    a device synchronise; one warm run each (the graphs' captures), then
+    LADDER_ROUNDS rounds in turns (``bench/ladder.py:ladder_ms``). The
+    median of the runs."""
+    runs = ladder.ladder_ms(ladder.LABELS, MAIN_SHAPE, MAIN_STEPS,
+                            RUNG_IMAGES, LADDER_ROUNDS, device=DEVICE)
+    ms = {label: statistics.median(r) for label, r in runs.items()}
+    cells = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_STEPS
+    print(f"ladder table, {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive, "
+          f"{MAIN_STEPS} steps an image, ms an image (median of "
+          f"{2 * LADDER_ROUNDS} runs of {RUNG_IMAGES} images in turns) "
+          f"[{card}]:", flush=True)
+    for label, runs_ms in runs.items():
+        print(f"ladder {label:8s} {ms[label]!r} ms/image "
+              f"{cells / ms[label] / 1e6!r} Gcell/s "
+              f"{ms[label] / ms['cuda']!r} x cuda; runs {runs_ms!r} "
+              f"[{card}]", flush=True)
+    return ms
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -2121,6 +2304,12 @@ def main(argv=None) -> int:
     k7 = time_sharded(rng, card)
     print(f"phase 10: {n10} comparisons of K7, {time.perf_counter() - t10!r}"
           " s", flush=True)
+    # 11. the plain rungs of the ladder, resume and bf16 snapshots
+    t11 = time.perf_counter()
+    ladder_paths(checks)
+    resume_paths(checks)
+    time_ladder(card)
+    print(f"phase 11: {time.perf_counter() - t11!r} s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")

@@ -1,10 +1,17 @@
-"""Backend contract: the port's ``grayscott_tpu/backends/base.py:49-112``.
+"""Backend contract: the port's ``grayscott_tpu/backends/base.py:49-152``.
 
 A backend owns the storage layout of the state on its ``device``
 (``build_storage``: host numpy arrays to device tensors, the carry-over of
 the state into the port) and the stepping. ``prepare_steps`` only enqueues
 work on the device's current stream; ``block_until_ready`` waits for it.
 The device is explicit: nothing picks one behind the caller's back.
+
+Two bases serve the plain rungs of the ladder, whose storage is a plain
+``(u, v)`` pair on the device: :class:`StepwiseSimulation` dispatches one
+step per host call (``naive``, ``regular``), :class:`LoopSimulation` a
+whole batch of steps as one submission (``fused``, ``conv``): on the card
+a CUDA graph of the step loop, the counterpart of JAX's ``lax.fori_loop``
+under ``jit``; on the CPU the plain loop.
 """
 
 from __future__ import annotations
@@ -12,13 +19,14 @@ from __future__ import annotations
 import abc
 import argparse
 import os
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import stencil
 from ..ops.stencil import BOUNDARIES
-from ..params import Parameters
+from ..params import Parameters, kernel_constants
 from ..species import Species, initial_uv
 
 
@@ -94,3 +102,118 @@ class Simulation(abc.ABC):
     def block_until_ready(self, species: Species) -> None:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+
+
+class PairSimulation(Simulation):
+    """A rung whose storage is a plain ``(u, v)`` pair of (R, C) float32
+    tensors on ``self.device``. Like JAX's rungs it accepts and ignores
+    keyword arguments it does not know (the harness passes ``engine=`` to
+    every backend it sweeps)."""
+
+    def __init__(self, params: Parameters, boundary: str = "naive",
+                 device: str | torch.device = "cuda", **kwargs):
+        super().__init__(params, boundary, device)
+
+    def build_storage(self, u: np.ndarray, v: np.ndarray):
+        return tuple(torch.from_numpy(np.array(x, dtype=np.float32,
+                                               order="C")).to(self.device)
+                     for x in (u, v))
+
+    def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+        return storage
+
+
+class StepwiseSimulation(PairSimulation):
+    """One step per host call (the reference's ``SimulateStep`` loop,
+    ``grayscott_tpu/backends/base.py:115-152``). :attr:`exact` picks the
+    oracle's tree (``stencil.step``, bitwise to ``oracle.step`` on both
+    boundaries) over the shift algebra (``stencil.step_fast``)."""
+
+    #: step on the oracle's tree instead of the shift algebra
+    exact = False
+
+    def __init__(self, params: Parameters, boundary: str = "naive",
+                 device: str | torch.device = "cuda", **kwargs):
+        super().__init__(params, boundary, device)
+        self.consts = kernel_constants(params)
+
+    def step(self, u: torch.Tensor, v: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.exact:
+            return stencil.step(u, v, self.consts, self.boundary)
+        return stencil.step_fast(u, v, self.params, self.boundary)
+
+    def run_steps(self, storage, shape, steps: int):
+        u, v = storage
+        for _ in range(steps):
+            u, v = self.step(u, v)
+        return (u, v)
+
+
+class LoopSimulation(PairSimulation):
+    """``steps`` steps as one submission. On the card the loop of
+    :meth:`step` is captured once per step count as a CUDA graph, which
+    reads the storage pair and writes its result back into it, so the
+    graph's static buffers are the state; later calls replay it. A graph
+    holds the addresses of the storage it was captured on, so new storage
+    (``make_species``, ``--resume``) captures anew. A capture that fails
+    raises. On the CPU the same loop runs eagerly."""
+
+    def __init__(self, params: Parameters, boundary: str = "naive",
+                 device: str | torch.device = "cuda", **kwargs):
+        super().__init__(params, boundary, device)
+        #: step count -> graph, all captured on ``_graph_storage``
+        self._graphs: Dict[int, Any] = {}
+        self._graph_storage = None
+        #: captures made (each a new step count or new storage)
+        self.captures = 0
+
+    @abc.abstractmethod
+    def step(self, u: torch.Tensor, v: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step; new tensors."""
+
+    def loop(self, u: torch.Tensor, v: torch.Tensor, steps: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``steps`` calls of :meth:`step`."""
+        for _ in range(steps):
+            u, v = self.step(u, v)
+        return u, v
+
+    def run_steps(self, storage, shape, steps: int):
+        if steps == 0:
+            return storage
+        if self.device.type != "cuda":
+            return self.loop(*storage, steps)
+        self._graph_for(storage, steps).replay()
+        return storage
+
+    def _graph_for(self, storage, steps: int):
+        u, v = storage
+        key = (tuple(u.shape), u.data_ptr(), v.data_ptr())
+        if key != self._graph_storage:
+            self._graphs.clear()
+            self._graph_storage = key
+        graph = self._graphs.get(steps)
+        if graph is None:
+            graph = self._graphs[steps] = self._capture(u, v, steps)
+        return graph
+
+    def _capture(self, u: torch.Tensor, v: torch.Tensor, steps: int):
+        """The graph of ``steps`` steps of (u, v), written back in place.
+        One warm-up step on copies, on a side stream, first: it builds the
+        step's constants and library handles, which a capture cannot."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.step(u.clone(), v.clone())
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            nu, nv = self.loop(u, v, steps)
+            u.copy_(nu)
+            v.copy_(nv)
+        self.captures += 1
+        return graph

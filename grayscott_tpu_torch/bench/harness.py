@@ -17,11 +17,18 @@ Four workloads:
         --steps 1,8 --workloads compute,device
     python -m grayscott_tpu_torch.bench.harness --device cpu --smax 4
 
-Every run is on the card unless ``--device cpu`` is given. Not ported
-yet: ``--report``/``--baseline``/``--gate``/``--format`` (ROADMAP.md,
-Queue 1: ``bench/report.py``), ``--dtype`` (bf16 storage: Queue 2, K1's
-variants) and ``--block-rows``/``--steps-per-call`` (tile and depth pins:
-Queue 1, tuning); asking for one stops the run with a message.
+Every run is on the card unless ``--device cpu`` is given.
+``--report SWEEP_JSON`` renders a sweep instead of measuring
+(``bench/report.py``; ``--format markdown|html|svg``), against
+``--baseline SWEEP_JSON`` when given; ``--gate`` then exits 1 on any
+significant regression (CI95s that do not overlap). A report touches no
+device, so it runs on a host without a GPU. Not ported yet: ``--dtype``
+(bf16 storage: Queue 2, K1's variants) and
+``--block-rows``/``--steps-per-call`` (tile and depth pins: Queue 1,
+tuning); asking for one stops the run with a message.
+
+    python -m grayscott_tpu_torch.bench.harness --report new.json \
+        --baseline old.json --gate
 """
 
 from __future__ import annotations
@@ -41,10 +48,6 @@ WORKLOADS = ("compute", "full_sync", "full_future", "device")
 
 #: flag -> where ROADMAP.md keeps its port
 DEFERRED = {
-    "report": "Queue 1, bench/report.py",
-    "baseline": "Queue 1, bench/report.py",
-    "gate": "Queue 1, bench/report.py",
-    "format": "Queue 1, bench/report.py",
     "dtype": "Queue 2, K1's variants (bf16 storage)",
     "block_rows": "Queue 1, tuning and device plumbing",
     "steps_per_call": "Queue 1, tuning and device plumbing",
@@ -185,6 +188,21 @@ def main(argv=None) -> int:
         prog="grayscott-torch-bench",
         description="Throughput sweep of the PyTorch port (criterion "
         "benchmark analog)")
+    parser.add_argument("--report", metavar="SWEEP_JSON", default=None,
+                        help="render a report from a sweep JSON file "
+                        "instead of measuring (criterion-HTML-report "
+                        "analog)")
+    parser.add_argument("--baseline", metavar="SWEEP_JSON", default=None,
+                        help="with --report: baseline sweep to diff "
+                        "against (adds a vs-baseline delta column)")
+    parser.add_argument("--format", default="markdown",
+                        choices=["markdown", "html", "svg"],
+                        help="report output format (html embeds the "
+                        "throughput-vs-size SVG plot; svg emits it alone)")
+    parser.add_argument("--gate", action="store_true",
+                        help="with --report and --baseline: exit 1 on any "
+                        "SIGNIFICANT regression (CI95 non-overlap, not "
+                        "point delta — within-noise deltas never fail)")
     parser.add_argument("--backends", default="auto",
                         help="comma-separated backend names, or 'auto'")
     parser.add_argument("--smin", type=int, default=3)
@@ -214,6 +232,8 @@ def main(argv=None) -> int:
         if getattr(args, flag) is not None:
             parser.error(f"--{flag.replace('_', '-')} is not ported yet "
                          f"(ROADMAP.md, {item})")
+    if args.report:
+        return _report(args)
     require_device(args.device)
     names = ([best_backend_name()] if args.backends == "auto"
              else args.backends.split(","))
@@ -229,6 +249,30 @@ def main(argv=None) -> int:
         backend_kwargs={"engine": args.engine} if args.engine else None,
         device=args.device,
     )
+    return 0
+
+
+def _report(args: argparse.Namespace) -> int:
+    """``--report``: render the sweep (to ``-o`` or stdout); with
+    ``--gate`` and ``--baseline``, 1 on a significant regression
+    (``grayscott_tpu/bench/harness.py:252-272``)."""
+    from . import report
+
+    text = report.report(args.report, args.baseline, args.format)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(text)
+    else:
+        print(text, end="")
+    if args.gate and args.baseline:
+        rows = report.build_rows(report.load_results(args.report),
+                                 report.load_results(args.baseline))
+        bad = report.gate(rows)
+        for r in bad:
+            print(f"REGRESSION {r['backend']} {r['shape']} "
+                  f"steps={r['steps']}: {r['delta_pct']:+.1f}% "
+                  "(CI95s do not overlap)", flush=True)
+        return 1 if bad else 0
     return 0
 
 

@@ -58,8 +58,10 @@ def add_shared_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--backend",
         default=os.environ.get("GRAYSCOTT_BACKEND", "auto"),
-        help="Compute backend: 'cuda' (one card) or 'sharded' (a mesh of "
-        "shards); default: best available; env GRAYSCOTT_BACKEND",
+        help="Compute backend: 'naive', 'regular', 'fused' or 'conv' (the "
+        "plain rungs of the ladder: PyTorch operations), 'cuda' (one card, "
+        "the hand-written kernels) or 'sharded' (a mesh of shards); "
+        "default: 'cuda', never a rung; env GRAYSCOTT_BACKEND",
     )
     parser.add_argument(
         "--stencil",

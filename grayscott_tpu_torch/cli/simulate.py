@@ -2,17 +2,25 @@
 
 Argument-compatible with the JAX ``simulate`` (``-n/--nbimage`` default
 1000, ``-o/--output`` default ``output.h5``, ``--output-buffer`` default
-2, 32 steps per image), without its ``--snapshot-dtype``, ``--checkpoint``
-and ``--resume``, which are not ported yet.
+2, 32 steps per image, ``--snapshot-dtype``, ``--checkpoint``,
+``--resume``), plus ``--device``.
 
 :func:`run` is the stepping loop and keeps the JAX pipeline's overlap
-(``grayscott_tpu/cli/simulate.py:175-188``): it enqueues a batch, clones V
-into a fresh device buffer (the ping-pong pair is overwritten by the next
-batch), copies the clone into pinned host memory without blocking and
-records an event, all on the launch stream; it then waits only for the
-*previous* image's event before handing that image to the sink, so the
-host never waits on the batch it just enqueued. :func:`main` passes a
-sink that feeds the bounded queue of the HDF5 writer thread.
+(``grayscott_tpu/cli/simulate.py:175-188``): it enqueues a batch, copies V
+into a fresh device buffer (the state is overwritten by the next batch),
+copies that into pinned host memory without blocking and records an
+event, all on the launch stream; it then waits only for the *previous*
+image's event before handing that image to the sink, so the host never
+waits on the batch it just enqueued. With ``--snapshot-dtype bfloat16``
+the fresh buffer is V cast to bfloat16 on the device (a cast that changes
+the dtype makes a buffer of its own), the host frame is bfloat16 and is
+widened to float32 on the host; the HDF5 file stays float32. :func:`main`
+passes a sink that feeds the bounded queue of the HDF5 writer thread.
+
+``--resume PATH`` starts from a checkpoint (``io/checkpoint.py``) through
+the backend's ``build_storage``, with its step count; ``--checkpoint
+PATH`` writes U, V, the parameters and the step count once the writer
+thread has finished.
 """
 
 from __future__ import annotations
@@ -50,18 +58,44 @@ def build_parser() -> argparse.ArgumentParser:
         "--output-buffer", type=int, default=2,
         help="Size of the image buffer between the compute and I/O thread",
     )
+    parser.add_argument(
+        "--snapshot-dtype", choices=["float32", "bfloat16"],
+        default="float32",
+        help="Precision of the device->host snapshot TRANSFER. bfloat16 "
+        "halves the bytes over bandwidth-starved links (tunneled or "
+        "remote chips); the HDF5 file stays float32 (upcast host-side), "
+        "at ~3 significant digits — visualization-grade, not "
+        "parity-grade",
+    )
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="Write full simulation state (U and V) here when done, "
+        "for later --resume (capability the reference lacks)",
+    )
+    parser.add_argument(
+        "--resume", default=None,
+        help="Initialize state from a checkpoint instead of the standard box",
+    )
     return parser
 
 
+#: --snapshot-dtype -> the dtype of the device-to-host copy
+SNAPSHOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def run(sim: Simulation, species: Species, nbimage: int,
-        steps_per_image: int, sink: Callable[[np.ndarray], None]) -> None:
+        steps_per_image: int, sink: Callable[[np.ndarray], None],
+        snapshot_dtype: str = "float32") -> None:
     """Advance ``nbimage`` batches of ``steps_per_image`` steps and hand V
-    after each batch to ``sink``, in order, as a host array of its own."""
+    after each batch to ``sink``, in order, as a float32 host array of its
+    own, copied from the device in ``snapshot_dtype``."""
     cuda = sim.device.type == "cuda"
+    dtype = SNAPSHOT_DTYPES[snapshot_dtype]
     pending = None  # (host frame, its copy's event) of the previous image
     for _ in range(nbimage):
         sim.prepare_steps(species, steps_per_image)
-        snapshot = species.result().clone()
+        v = species.result()
+        snapshot = v.clone() if v.dtype == dtype else v.to(dtype)
         if cuda:
             frame = torch.empty(snapshot.shape, dtype=snapshot.dtype,
                                 pin_memory=True)
@@ -80,7 +114,7 @@ def run(sim: Simulation, species: Species, nbimage: int,
 def _deliver(frame: torch.Tensor, copied, sink) -> None:
     if copied is not None:
         copied.synchronize()
-    sink(frame.numpy())
+    sink(frame.float().numpy())
 
 
 def main(argv=None) -> int:
@@ -90,12 +124,28 @@ def main(argv=None) -> int:
     file_name = shared.simulation_output_path(args.output)
 
     sim = shared.make_simulation(args)
-    species = sim.make_species(shared.domain_shape(args))
+    if args.resume:
+        from ..io.checkpoint import load_state
+
+        u0, v0, ck_params, ck_steps = load_state(args.resume)
+        if ck_params != sim.params:
+            logger.warning(
+                "checkpoint parameters differ from CLI parameters; "
+                "using CLI parameters"
+            )
+        species = Species(u0.shape, sim.build_storage(u0, v0), sim)
+        species.steps_performed = ck_steps
+        logger.info("resumed from %s at step %d", args.resume, ck_steps)
+    else:
+        species = sim.make_species(shared.domain_shape(args))
+    # the shape the run simulates: a resumed checkpoint's domain wins over
+    # the -r/-c defaults
+    tag = species.storage[0]
     logger.info(
         "backend=%s engine=%s device=%s boundary=%s stencil=%s "
-        "domain=%dx%d", sim.name, species.storage[0], sim.device,
-        sim.boundary, sim.params.stencil_name(), species.shape[0],
-        species.shape[1],
+        "domain=%dx%d", sim.name, tag if isinstance(tag, str) else "-",
+        sim.device, sim.boundary, sim.params.stencil_name(),
+        species.shape[0], species.shape[1],
     )
     writer = Writer(file_name, species.shape, args.nbimage)
     progress = ProgressBar("Running simulation step", args.nbimage)
@@ -121,7 +171,8 @@ def main(argv=None) -> int:
     t = threading.Thread(target=io_thread, name="hdf5-writer", daemon=True)
     t.start()
     try:
-        run(sim, species, args.nbimage, steps_per_image, sink)
+        run(sim, species, args.nbimage, steps_per_image, sink,
+            args.snapshot_dtype)
     finally:
         shared.bounded_put(q, None, lambda: bool(error))
         t.join()
@@ -129,6 +180,13 @@ def main(argv=None) -> int:
         writer.close()
     if error:
         raise error[0]
+    if args.checkpoint:
+        from ..io.checkpoint import save_state
+
+        u, v = species.uv_host()
+        save_state(args.checkpoint, u, v, sim.params,
+                   species.steps_performed)
+        logger.info("checkpoint written to %s", args.checkpoint)
     logger.info("wrote %d images to %s", args.nbimage, file_name)
     return 0
 

@@ -21,16 +21,40 @@ adds a fixed term list (:func:`fixed_laplacian`), the others take
 :func:`step`; :func:`interior_tiles` counts the former.
 :func:`tiled_step_at` and :func:`interior_tiles_at` do the same for a block
 at a shard's origin, as K7 decides in global coordinates.
+
+The second tree is the JAX package's shift algebra
+(``grayscott_tpu/ops/stencil.py:86-357``), under its JAX names, for the
+``regular``, ``fused`` and ``conv`` rungs of the backend ladder. For a
+symmetric stencil ``[[a,b,a],[b,c,b],[a,b,a]]`` with ``a > 0`` the
+corrected-weight laplacian is ``sepconv(X) - X * (rowsum (x) colsum)``:
+:func:`_sepconv`, the zero-padded separable pass with ``h = [x, y, x]``
+(``Parameters.separable_plan``), and the per-row and per-column sums of
+the taps in bounds (:func:`_edge_sums`; the constant ``alpha`` on the zero
+boundary). Another stencil takes the direct 9-term form
+(:func:`laplacian_zero_direct`, or the masked form on the naive
+boundary). On the naive boundary the top row and the left column, where
+the weights stay anchored, are then recomputed exactly
+(:func:`naive_edge_strip`, :func:`_naive_strips`). :func:`step_fast` is
+JAX's ``step(..., exact=False)``; :func:`step_runtime` takes the weights
+and rates as tensors (:func:`rates_array`). The tree keeps JAX's term
+order, its static skips of zero weights and its float32 constants, and is
+a few ulp off the oracle's tree: the separable pass reassociates the sum.
+Its constant vectors are built once per length and device
+(:func:`_device_constant`), outside any CUDA graph capture that replays
+the step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..params import KernelConstants
+from ..params import (KernelConstants, Parameters, Precision,
+                      kernel_constants)
 
 BOUNDARIES = ("naive", "zero")
 
@@ -269,3 +293,247 @@ def tiled_step_at(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
                      fixed_laplacian(F.pad(v, (1, 1, 1, 1)), consts.weights,
                                      boundary), consts)
     return torch.where(mask, fu, nu), torch.where(mask, fv, nv)
+
+
+# ---------------------------------------------------------------------------
+# The shift algebra (``grayscott_tpu/ops/stencil.py:86-357``)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=256)
+def _device_constant(kind: str, n: int, device: torch.device,
+                     h: Tuple[float, ...] = ()) -> torch.Tensor:
+    """A float32 constant of an axis of ``n`` cells on ``device``, built
+    once: ``"rok"`` the (3, n) naive tap validity, ``"valid"`` the strip's
+    ``c + 1 < n``, ``"edge_sums"`` :func:`_edge_sums` of ``h``. A CUDA graph
+    captures no copy from the host, so the first eager step builds them."""
+    if kind == "rok":
+        return torch.stack(_taps(0, n, n, device)[1]).to(torch.float32)
+    if kind == "valid":
+        value = (np.arange(n) + 1 < n).astype(Precision)
+    elif kind == "edge_sums":
+        value = _edge_sums(n, np.asarray(h, dtype=Precision))
+    else:
+        raise ValueError(f"unknown constant {kind!r}")
+    return torch.from_numpy(value).to(device)
+
+
+def _shift2d(xp: torch.Tensor, i: int, j: int, r: int,
+             c: int) -> torch.Tensor:
+    """Tap (i-1, j-1) of the zero-padded ``xp`` of shape (r+2, c+2)."""
+    return xp[i:i + r, j:j + c]
+
+
+def laplacian_zero_direct(x: torch.Tensor,
+                          params: Parameters) -> torch.Tensor:
+    """The zero boundary as 9 shifted terms of the zero-padded array with
+    the corrected weights."""
+    wc = params.corrected_weights()
+    r, c = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    full = torch.zeros_like(x)
+    for i in range(3):
+        for j in range(3):
+            if wc[i, j] == 0.0:
+                continue
+            full = full + float(wc[i, j]) * _shift2d(xp, i, j, r, c)
+    return full
+
+
+def _sepconv(x: torch.Tensor, h: np.ndarray) -> torch.Tensor:
+    """The zero-padded separable 3x3 convolution with kernel outer(h, h)."""
+    r, c = x.shape
+    h0, h1, h2 = (float(w) for w in h)
+    xp = F.pad(x, (1, 1))
+    t = h1 * x
+    if h0 != 0.0:
+        t = t + h0 * xp[:, 0:c]
+    if h2 != 0.0:
+        t = t + h2 * xp[:, 2:c + 2]
+    tp = F.pad(t, (0, 0, 1, 1))
+    s = h1 * t
+    if h0 != 0.0:
+        s = s + h0 * tp[0:r, :]
+    if h2 != 0.0:
+        s = s + h2 * tp[2:r + 2, :]
+    return s
+
+
+def _edge_sums(n: int, h: np.ndarray) -> np.ndarray:
+    """Per-index sum of the h taps in bounds: h0+h1+h2 inside, h1+h2 and
+    h0+h1 at the two ends."""
+    s = np.full((n,), h.sum(), dtype=Precision)
+    s[0] = Precision(h[1] + h[2])
+    s[-1] = Precision(h[0] + h[1])
+    return s
+
+
+def laplacian_fast(x: torch.Tensor, params: Parameters,
+                   boundary: str) -> torch.Tensor:
+    """The diffusion gradient of the whole array on either boundary: the
+    separable plan where the stencil has one, else the direct 9-term form.
+    On the naive boundary every cell but the top row and the left column is
+    exact; :func:`step_fast` patches those with :func:`_naive_strips`."""
+    plan = params.separable_plan()
+    r, c = x.shape
+    if plan[0] == "separable":
+        _, h, alpha = plan
+        s = _sepconv(x, h)
+        if boundary == "zero":
+            return s - float(alpha) * x
+        key = tuple(float(w) for w in h)
+        b = torch.outer(_device_constant("edge_sums", r, x.device, key),
+                        _device_constant("edge_sums", c, x.device, key))
+        return s - x * b
+    if boundary == "zero":
+        return laplacian_zero_direct(x, params)
+    # naive, direct: the masked 9-term form (valid but on row 0 / col 0)
+    w = params.weights_array()
+    xp = F.pad(x, (1, 1, 1, 1))
+    full = torch.zeros_like(x)
+    rok = _device_constant("rok", r, x.device)
+    cok = _device_constant("rok", c, x.device)
+    for i in range(3):
+        for j in range(3):
+            if w[i, j] == 0.0:
+                continue
+            mask = torch.outer(rok[i], cok[j])
+            full = full + float(w[i, j]) * (
+                _shift2d(xp, i, j, r, c) - x * mask)
+    return full
+
+
+def naive_edge_strip(lane0: torch.Tensor, lane1: torch.Tensor,
+                     w2) -> torch.Tensor:
+    """The exact naive diffusion gradient of a domain-edge strip
+    (``grayscott_tpu/ops/stencil.py:184``).
+
+    ``lane0`` is the edge row (or column) and ``lane1`` its inward
+    neighbour, 1-D along the strip; ``w2`` the (2, 3) weight slab,
+    ``w[0:2, :]`` for the top row and ``w[:, 0:2].T`` for the left column,
+    as a numpy array (its zero weights skipped) or a tensor (every term
+    added). Cell c >= 1 reads ``lane_i[c - 1 + j]`` while that index is
+    below n; cell 0, where the weights stay anchored, reads ``lane_i[j]``
+    for j in {0, 1}."""
+    static = isinstance(w2, np.ndarray)
+    n = lane0.shape[-1]
+    center = lane0
+    full = torch.zeros_like(lane0)
+    lanes = (lane0, lane1)
+    for i in range(2):
+        xpi = F.pad(lanes[i], (1, 1))
+        for j in range(3):
+            wij = float(w2[i][j]) if static else w2[i][j]
+            if static and wij == 0.0:
+                continue
+            tap = xpi[..., j:j + n]
+            if j == 2:
+                valid = _device_constant("valid", n, lane0.device)
+                full = full + wij * (tap - center * valid)
+            else:
+                full = full + wij * (tap - center)
+    q = torch.zeros_like(lane0[..., :1])
+    for i in range(2):
+        xi = lanes[i]
+        for j in range(2):
+            wij = float(w2[i][j]) if static else w2[i][j]
+            if static and wij == 0.0:
+                continue
+            q = q + wij * (xi[..., j:j + 1] - center[..., :1])
+    return torch.cat([q, full[..., 1:]], dim=-1)
+
+
+def _naive_strips(x: torch.Tensor, params: Parameters
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(top-row strip, left-column strip) of the naive diffusion
+    gradient."""
+    w = params.weights_array()
+    top = naive_edge_strip(x[0, :], x[1, :], w[0:2, :])
+    left = naive_edge_strip(x[:, 0], x[:, 1], w[:, 0:2].T)
+    return top, left
+
+
+def _patch_strips(full: torch.Tensor, top: torch.Tensor,
+                  left: torch.Tensor) -> torch.Tensor:
+    """``full`` with its top row and left column replaced by the exact
+    strips (JAX's ``.at[0, :].set`` and ``.at[1:, 0].set``), in place."""
+    full[0, :] = top
+    full[1:, 0] = left[1:]
+    return full
+
+
+def laplacian_shift(x: torch.Tensor, params: Parameters,
+                    boundary: str) -> torch.Tensor:
+    """JAX's ``laplacian(..., exact=False)``: :func:`laplacian_fast`, with
+    the exact strips on the naive boundary."""
+    if boundary == "naive":
+        top, left = _naive_strips(x, params)
+        return _patch_strips(laplacian_fast(x, params, "naive"), top, left)
+    if boundary == "zero":
+        return laplacian_fast(x, params, "zero")
+    raise ValueError(f"unknown boundary {boundary!r}; expected {BOUNDARIES}")
+
+
+def reaction(u: torch.Tensor, v: torch.Tensor, full_u: torch.Tensor,
+             full_v: torch.Tensor, params: Parameters
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reaction and the Euler update in the reference's term order
+    (``grayscott_tpu/ops/stencil.py:264``): the oracle's update."""
+    return _update(u, v, full_u, full_v, kernel_constants(params))
+
+
+def step_fast(u: torch.Tensor, v: torch.Tensor, params: Parameters,
+              boundary: str = "naive") -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step on the shift algebra: JAX's ``step(..., exact=False)``."""
+    return reaction(u, v, laplacian_shift(u, params, boundary),
+                    laplacian_shift(v, params, boundary), params)
+
+
+def step_runtime(u: torch.Tensor, v: torch.Tensor, weights: torch.Tensor,
+                 rates: torch.Tensor, boundary: str = "naive"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step with the weights (3, 3) and the rates ``[Du, Dv, f, k, dt]``
+    (:func:`rates_array`) as float32 tensors on the state's device
+    (``grayscott_tpu/ops/stencil.py:300``): new values take effect without
+    rebuilding anything that replays the step. Every weight is applied,
+    zero or not."""
+    if boundary not in BOUNDARIES:
+        raise ValueError(
+            f"unknown boundary {boundary!r}; expected {BOUNDARIES}")
+    r, c = u.shape
+    rok = _device_constant("rok", r, u.device)
+    cok = _device_constant("rok", c, u.device)
+
+    def lap(x):
+        xp = F.pad(x, (1, 1, 1, 1))
+        full = torch.zeros_like(x)
+        for i in range(3):
+            for j in range(3):
+                tap = _shift2d(xp, i, j, r, c)
+                if boundary == "zero":
+                    full = full + weights[i, j] * (tap - x)
+                else:
+                    mask = torch.outer(rok[i], cok[j])
+                    full = full + weights[i, j] * (tap - x * mask)
+        if boundary == "naive":
+            top = naive_edge_strip(x[0, :], x[1, :], weights[0:2, :])
+            left = naive_edge_strip(x[:, 0], x[:, 1], weights[:, 0:2].T)
+            full = _patch_strips(full, top, left)
+        return full
+
+    full_u = lap(u)
+    full_v = lap(v)
+    du_rate, dv_rate, f, k, dt = (rates[i] for i in range(5))
+    uv_square = u * v * v
+    du = du_rate * full_u - uv_square + f * (1.0 - u)
+    dv = dv_rate * full_v + uv_square - (f + k) * v
+    return u + du * dt, v + dv * dt
+
+
+def rates_array(params: Parameters,
+                device: str | torch.device = "cpu") -> torch.Tensor:
+    """The scalar parameters of :func:`step_runtime`, float32."""
+    return torch.tensor(
+        [params.diffusion_rate_u, params.diffusion_rate_v,
+         params.feed_rate, params.kill_rate, params.time_step],
+        dtype=torch.float32, device=device)

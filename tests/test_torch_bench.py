@@ -80,8 +80,7 @@ def test_main_runs_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--report", "x.json"], ["--gate"], ["--dtype", "bfloat16"],
-    ["--block-rows", "8"], ["--steps-per-call", "4"],
+    ["--dtype", "bfloat16"], ["--block-rows", "8"], ["--steps-per-call", "4"],
 ])
 def test_deferred_flags_stop_with_their_roadmap_item(flags, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -134,4 +133,34 @@ def test_simulate_turns_stops_without_a_card(monkeypatch, capsys):
     from grayscott_tpu_torch.bench import simulate_turns
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert simulate_turns.main(["--reps", "1"]) == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_ladder_times_every_backend_in_turns():
+    """bench/ladder.py's timing on the CPU at a small size: 2 x rounds
+    finite samples for each rung and for cuda."""
+    from grayscott_tpu_torch.bench import ladder
+
+    runs = ladder.ladder_ms(shape=(16, 24), steps=3, images=2, rounds=2,
+                            device="cpu")
+    assert list(runs) == list(ladder.LABELS)
+    assert all(len(r) == 4 and all(math.isfinite(x) and x > 0 for x in r)
+               for r in runs.values())
+
+
+@pytest.mark.parametrize("intervals,total", [
+    ([], 0.0), ([(0.0, 2.0)], 2.0), ([(0.0, 2.0), (1.0, 3.0)], 3.0),
+    ([(5.0, 6.0), (0.0, 1.0), (0.5, 0.75)], 2.0),
+])
+def test_ladder_union_of_device_intervals(intervals, total):
+    from grayscott_tpu_torch.bench import ladder
+
+    assert ladder._union_us(intervals) == total
+
+
+def test_ladder_stops_without_a_card(monkeypatch, capsys):
+    from grayscott_tpu_torch.bench import ladder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ladder.main(["--images", "1"]) == 1
     assert capsys.readouterr().out == ""

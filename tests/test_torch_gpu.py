@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a CUDA card, against their plain PyTorch
-version. Every test here needs the card and skips without one.
+version, and the plain rungs of the ladder on the card against the same
+rungs on the CPU. Every test here needs the card and skips without one.
 
 This file imports neither jax nor ``conftest`` (which imports jax), so it
 runs on a machine that has no JAX:
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from grayscott_tpu_torch.backends import get_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.cli import simulate
@@ -916,3 +918,98 @@ def test_sharded_mega_geometries_bitwise(cuda_device, boundary, shape, n,
                                                 boundary, shape)
         torch.cuda.synchronize()
         assert all(bits_equal(a, b) for a, b in zip(pairs, want))
+
+
+#: the plain rungs of the ladder (PyTorch operations; fused and conv
+#: replay a CUDA graph on the card)
+RUNGS = ["naive", "regular", "fused", "conv"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("rung", RUNGS)
+def test_rung_on_card_equals_cpu(cuda_device, rung, boundary):
+    """Each rung through ``simulate.run`` on the card (3 images of 9 steps)
+    against the same rung on the CPU: bit for bit for the elementwise
+    rungs (each PyTorch operation rounds once on either device); conv
+    within 1e-5, since cuDNN sums the taps in another order (TF32 would
+    be about 1e-3)."""
+    params = Parameters(time_step=0.5)
+    frames = {}
+    for device in ("cuda", "cpu"):
+        sim = get_backend(rung)(params, boundary, device=device)
+        species = sim.make_species((70, 97))
+        frames[device] = []
+        simulate.run(sim, species, 3, 9, frames[device].append)
+    for got, want in zip(frames["cuda"], frames["cpu"]):
+        if rung == "conv":
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+def test_runtime_weights_rung_on_card_equals_cpu(cuda_device, boundary):
+    """fused(runtime_weights=True): the graph reads weights and rates from
+    tensors that each call refreshes, so a swap of ``sim.params`` takes
+    effect without a new capture; bit for bit against the CPU."""
+    u, v = random_uv((70, 97), "cpu")
+    got = {}
+    for device in ("cuda", "cpu"):
+        sim = get_backend("fused")(Parameters(), boundary, device=device,
+                                   runtime_weights=True)
+        storage = sim.build_storage(u.numpy(), v.numpy())
+        storage = sim.run_steps(storage, (70, 97), 5)
+        sim.params = Parameters.with_stencil("pretty", kill_rate=0.06)
+        storage = sim.run_steps(storage, (70, 97), 5)
+        got[device] = [x.cpu() for x in sim.extract_uv(storage, (70, 97))]
+        if device == "cuda":
+            assert sim.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("rung", ["fused", "conv"])
+def test_graph_is_bitwise_to_its_loop_and_recaptures(cuda_device, rung,
+                                                     boundary):
+    """The captured graph steps the storage in place, bit for bit as the
+    eager loop of the same step; it is captured once per step count and
+    again on new storage (``build_storage``, as ``--resume`` does)."""
+    sim = get_backend(rung)(Parameters(), boundary, device="cuda")
+    u, v = (x.numpy() for x in random_uv((70, 97), "cpu"))
+    storage = sim.build_storage(u, v)
+    want = sim.loop(*storage, 9)
+    assert sim.run_steps(storage, u.shape, 9) is storage
+    assert sim.captures == 1
+    assert all(bits_equal(a, b) for a, b in zip(storage, want))
+    want = sim.loop(*want, 9)
+    sim.run_steps(storage, u.shape, 9)
+    assert sim.captures == 1
+    assert all(bits_equal(a, b) for a, b in zip(storage, want))
+    fresh = sim.build_storage(u, v)
+    sim.run_steps(fresh, u.shape, 18)
+    assert sim.captures == 2
+    torch.cuda.synchronize()
+    assert all(bits_equal(a, b) for a, b in zip(fresh, want))
+    sim.run_steps(fresh, u.shape, 4)
+    assert sim.captures == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+def test_conv_runs_without_tf32(cuda_device, boundary):
+    """conv on the card within 1e-5 of conv on the CPU over 32 steps at
+    70x97, with cuDNN's TF32 default left on around it and unchanged
+    after."""
+    assert torch.backends.cudnn.allow_tf32
+    got = {}
+    for device in ("cuda", "cpu"):
+        sim = get_backend("conv")(Parameters(), boundary, device=device)
+        species = sim.make_species((70, 97))
+        sim.perform_steps(species, 32)
+        got[device] = species.uv_host()
+    for a, b in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+    assert torch.backends.cudnn.allow_tf32

@@ -66,9 +66,15 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.scripts.ilpsplit",
         "grayscott_tpu_torch.backends.base",
         "grayscott_tpu_torch.backends.cuda",
+        "grayscott_tpu_torch.backends.naive",
+        "grayscott_tpu_torch.backends.regular",
+        "grayscott_tpu_torch.backends.fused",
+        "grayscott_tpu_torch.backends.conv",
         "grayscott_tpu_torch.cli.shared", "grayscott_tpu_torch.cli.simulate",
-        "grayscott_tpu_torch.io.hdf5",
+        "grayscott_tpu_torch.io.hdf5", "grayscott_tpu_torch.io.checkpoint",
         "grayscott_tpu_torch.bench.stats",
+        "grayscott_tpu_torch.bench.report",
+        "grayscott_tpu_torch.bench.ladder",
         "grayscott_tpu_torch.bench.harness",
         "grayscott_tpu_torch.bench.headline",
         "grayscott_tpu_torch.utils.device", "grayscott_tpu_torch.utils.logs",
@@ -236,7 +242,48 @@ def _halo(tmp_path):
                     jax_halo._tile_rounded(shape[0], n, tile)
 
 
+def _checkpoint(tmp_path):
+    from grayscott_tpu.io import checkpoint as jax_checkpoint
+    from grayscott_tpu.params import Parameters as JaxParameters
+    from grayscott_tpu_torch.io import checkpoint
+    from grayscott_tpu_torch.params import Parameters
+
+    assert checkpoint.FORMAT_VERSION == jax_checkpoint.FORMAT_VERSION
+    u, v = np.random.RandomState(4).uniform(0, 1, (2, 6, 9)) \
+        .astype(np.float32)
+    files = {}
+    for name, module, params in (
+            ("port", checkpoint, Parameters.with_preset("coral")),
+            ("jax", jax_checkpoint, JaxParameters.with_preset("coral"))):
+        files[name] = tmp_path / f"{name}.h5"
+        module.save_state(files[name], u, v, params, 96)
+    for path in files.values():
+        port, ref = checkpoint.load_state(path), \
+            jax_checkpoint.load_state(path)
+        for a, b in zip(port[:2], ref[:2]):
+            np.testing.assert_array_equal(a, b)
+        assert port[2].__dict__ == ref[2].__dict__ and port[3] == ref[3] == 96
+
+
+def _report(tmp_path):
+    """A whole copy: the source below the module docstring is the JAX
+    module's, character for character."""
+    import ast
+    import inspect
+
+    from grayscott_tpu.bench import report as jax_report
+    from grayscott_tpu_torch.bench import report
+
+    def body(module):
+        source = inspect.getsource(module)
+        doc = ast.get_docstring(ast.parse(source), clean=False)
+        return source[source.index(doc) + len(doc):]
+
+    assert body(report) == body(jax_report)
+
+
 @pytest.mark.parametrize("copy", ["params", "errors", "species", "shared",
-                                  "hdf5", "progress_and_logs", "halo"])
+                                  "hdf5", "progress_and_logs", "halo",
+                                  "checkpoint", "report"])
 def test_copy_matches_the_jax_original(copy, tmp_path):
     globals()[f"_{copy}"](tmp_path)
