@@ -26,14 +26,20 @@
    pinned to 1 and 7 blocks.
 4. Runs the default ``simulate`` run (1080x1920, naive boundary,
    Oono-Puri, float32) through ``cli.simulate.run`` for 16 images of 32
-   steps on the engine that ``auto`` picks, then with ``--pallas-engine
+   steps on the engine that ``auto`` picks (the shipped autotune record's:
+   the script points ``GRAYSCOTT_CACHE_DIR`` at an empty store first, so no
+   store on the machine steers a phase), then with ``--pallas-engine
    windowed``, ``--pallas-resident on`` and ``--pallas-engine mega``. Each
    run starts with every launch count at 0 and reads them after; every
    frame is held against a replay of the plain version. Then a small
    domain against the plain version on the CPU, and ``simulate.main``
-   writing HDF5 when h5py is installed.
+   writing HDF5 when h5py is installed. Phase 4c times these runs again in
+   turns, with the packed and sharded ones, and the default and packed
+   runs also with the snapshot copy on the launch stream
+   (``simulate.run``'s part 0, its first form).
 5. Runs the bench path at full size: ``bench.headline.measure`` for the
-   4096x4096 x 1000-step zero and naive rows on the ``auto`` engine, then
+   4096x4096 x 1000-step zero and naive rows on what ``auto`` runs (a
+   shipped record may pack the zero row), then
    one fresh 1000-step run on the mega engine for each boundary, held
    against a 1000-step plain replay on the card, its time beside its bound
    and the headline row's.
@@ -108,7 +114,8 @@
    launch counts zeroed before it and read after (a rung launches none of
    the nine kernels): naive's frames bit for bit the cuda backend's, fused
    bit for bit regular (the same operations, replayed from a CUDA graph),
-   regular, fused and conv within 1e-4 of naive after the last image; conv
+   regular, fused and conv within 1e-4 of naive after the last image (the
+   cuda run unpacked, ``--pallas-pack off``); conv
    on the card within 1e-5 of conv on the CPU at 70x97 after 32 steps (TF32
    left on would miss it). A run of 8 images, then ``uv_host``,
    ``build_storage`` and 8 more, against 16 straight at 0.0 (the in-memory
@@ -118,10 +125,29 @@
    frames rounded through bf16, bit for bit. Then the ladder table: each
    rung and ``cuda`` ``auto``, ms an image in turns
    (``bench/ladder.py:ladder_ms``).
+12. The autotuner (``bench/autotune.py``): ``autotune(persist=True)`` into
+   a store of its own on the four configurations whose records
+   ``bench/defaults.py`` ships (1080x1920 and 4096x4096, naive and zero),
+   every candidate run (K1, K2, K3; on zero also K4, K6, K5), each winner
+   beside its shipped record and the candidates' times; a shipped record
+   that names no candidate of its key, or whose engine trails the winner
+   by 3 % or more, fails. Then ``simulate.run`` with ``--autotune`` twice
+   at 1080x1920 naive into a fresh store: the first call measures, the
+   second measures nothing and runs the record's engine, its frames
+   bitwise the plain replay.
+13. ``scripts/parity_check.py`` at its defaults (256x384, 1000 steps,
+   snapshots every 100, against the ``naive`` rung on the card) on K1, K2
+   and K3 on both boundaries, K4, K6 and K5 on the zero boundary, and on
+   ``fused`` and ``conv``: its 1e-3 rule, every kernel launched, the
+   unpacked engines within PARITY.md's 6.1e-6; each max|dV| a snapshot.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
-(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9, 10 and 11 run after
-them, before phase 8's lines. Every check runs; a failed one makes the script exit 1
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 13 run after
+them, then phase 4c, before phase 8's lines. Every bound is the larger of
+the bytes (each input read once, each output written once) over 3.35 TB/s
+and the float32 operations over 33.5 T/s, the rate at which each unfused
+operation takes an issue slot (the kernels build with ``-fmad=false``);
+K8's fused multiply-adds count two operations at 67 TFLOP/s. Every check runs; a failed one makes the script exit 1
 without the two JSON lines. With no CUDA GPU visible it exits 1 at once.
 """
 
@@ -145,7 +171,8 @@ from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends import get_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
-from grayscott_tpu_torch.bench import headline, ladder, simulate_turns
+from grayscott_tpu_torch.bench import (autotune, defaults, headline, ladder,
+                                       simulate_turns)
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      packed, resident, sharded_mega, stencil,
@@ -155,7 +182,9 @@ from grayscott_tpu_torch.params import (Parameters, kernel_constants,
                                         packed_constants)
 from grayscott_tpu_torch.scripts import ilpsplit as ilpsplit_script
 from grayscott_tpu_torch.scripts import oplat as oplat_script
+from grayscott_tpu_torch.scripts import parity_check
 from grayscott_tpu_torch.species import Species, initial_uv
+from grayscott_tpu_torch.utils import cache
 from grayscott_tpu_torch.utils import device as gpu
 
 #: kernel vs plain version, max |difference|: both run the same float32
@@ -183,9 +212,14 @@ MAIN_IMAGES, MAIN_STEPS = 16, 32
 BENCH_STEPS = 1000
 
 #: NVIDIA's data sheet for the H100 SXM at its 700 W limit: HBM3 bytes/s
-#: and float32 operations/s outside the tensor cores
+#: and float32 operations/s outside the tensor cores, a fused multiply-add
+#: counted as two
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+#: float32 operations/s when each add, multiply and subtract takes an issue
+#: slot of its own, as in the kernels (nvcc -fmad=false): 132 SMs x 128
+#: float32 lanes x 1.98 GHz
+PEAK_F32_UNFUSED = 33.5e12
 
 #: the kernels' wrapper modules, by engine
 MODULES = {"windowed": windowed, "resident": resident, "mega": megakernel}
@@ -340,11 +374,11 @@ def ops_per_cell_step(params: Parameters, boundary: str) -> int:
 def roofline_ms(shape, steps: int, ops: int) -> tuple[float, str]:
     """The least time the card could take to advance ``shape`` by
     ``steps`` steps of ``ops`` float32 operations a cell-step in one call:
-    U and V read once and written once, and the operations at the float32
-    peak. Returns (ms, what bounds it)."""
+    U and V read once and written once, and the operations, none fused, at
+    the unfused float32 peak. Returns (ms, what bounds it)."""
     cells = shape[0] * shape[1]
     by_bytes = 16 * cells / PEAK_BYTES
-    by_ops = cells * steps * ops / PEAK_F32
+    by_ops = cells * steps * ops / PEAK_F32_UNFUSED
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -425,7 +459,7 @@ def engine_run(engine: str, params: Parameters, boundary: str, u_np, v_np,
                steps: int, pack: str = "auto"):
     """The backend's state after ``steps`` steps on ``engine``."""
     sim = CudaSimulation(params, boundary, device=DEVICE, pack=pack,
-                         **engine_pins(engine))
+                         tuned_lookup=False, **engine_pins(engine))
     storage = sim.build_storage(u_np, v_np)
     storage = sim.run_steps(storage, u_np.shape, steps)
     return sim.extract_uv(storage, u_np.shape)
@@ -813,18 +847,21 @@ PATH_ROUNDS = 2
 
 def time_paths(runs: list) -> None:
     """Phase 4c: the simulate paths of ``runs`` (the checked runs of phases
-    4, 4b and 10b) timed again, 2 x PATH_ROUNDS runs each in turns
-    (``bench/simulate_turns.py:run_ms``: the host clock, ending in a device
-    synchronise, as the checked run is timed), since one 16-image run varies
-    by up to 10 % between processes; each run gains ``turns_ms`` and
-    ``median_ms`` (ms an image over the checked run and these)."""
+    4, 4b and 10b, and runs of ``simulate.run`` with a part of its
+    snapshot pipeline taken out, ``ablation``) timed again, 2 x PATH_ROUNDS
+    runs each in turns (``bench/simulate_turns.py:run_ms``: the host clock,
+    ending in a device synchronise, as the checked run is timed), since one
+    16-image run varies by up to 10 % between processes; each run gains
+    ``turns_ms`` and ``median_ms`` (ms an image over the checked run, where
+    there is one, and these)."""
     for run in runs:
-        run["turns_ms"] = [run["seconds"] / MAIN_IMAGES * 1e3]
+        run["turns_ms"] = ([run["seconds"] / MAIN_IMAGES * 1e3]
+                           if "seconds" in run else [])
     order = [*runs, *reversed(runs)]
     for _ in range(PATH_ROUNDS):
         for run in order:
             run["turns_ms"].append(simulate_turns.run_ms(
-                run["flags"], MAIN_IMAGES, MAIN_STEPS))
+                run["flags"], MAIN_IMAGES, MAIN_STEPS, run.get("ablation")))
     for run in runs:
         run["median_ms"] = statistics.median(run["turns_ms"])
 
@@ -905,7 +942,8 @@ def packed_paths(checks: Checks) -> dict:
             checks, ZERO_PACKED + flags, replay)
 
     # the same run unpacked, on K1 (the oracle's tree)
-    sim = CudaSimulation(params, "zero", device=DEVICE, engine="windowed")
+    sim = CudaSimulation(params, "zero", device=DEVICE, engine="windowed",
+                         tuned_lookup=False)
     species = sim.make_species(MAIN_SHAPE)
     reset_launches()
     unpacked = []
@@ -996,8 +1034,7 @@ def bench_path(checks: Checks, card: str) -> dict:
                                 device=DEVICE)
             for b in ("zero", "naive")}
     launches = read_launches()
-    engines = {b: cuda_backend.auto_engine(BENCH_SHAPE, b)
-               for b in ("zero", "naive")}
+    engines = {b: auto_layout(BENCH_SHAPE, b) for b in ("zero", "naive")}
     print(f"path bench.headline {BENCH_SHAPE[0]}x{BENCH_SHAPE[1]} x "
           f"{BENCH_STEPS} steps: engines {engines}, launches {launches} "
           f"[{card}]", flush=True)
@@ -1013,7 +1050,8 @@ def bench_path(checks: Checks, card: str) -> dict:
     consts = kernel_constants(default)
     u_np, v_np = initial_uv(BENCH_SHAPE)
     for boundary in ("naive", "zero"):
-        sim = CudaSimulation(default, boundary, device=DEVICE, engine="mega")
+        sim = CudaSimulation(default, boundary, device=DEVICE, engine="mega",
+                             tuned_lookup=False)
         storage = sim.build_storage(u_np, v_np)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -1050,6 +1088,15 @@ def bench_path(checks: Checks, card: str) -> dict:
     return result
 
 
+def auto_layout(shape, boundary: str) -> str:
+    """The storage tag that ``auto`` runs for ``shape`` and ``boundary``:
+    the autotune record's engine and layout (the shipped one, since the
+    store is empty), else the measured ranking."""
+    packed_layout, engine = CudaSimulation(
+        Parameters(), boundary, device=DEVICE).layout_for(shape)
+    return cuda_backend.PACKED_TAGS[engine] if packed_layout else engine
+
+
 def engine_pins(engine: str) -> dict:
     """The backend knobs that pin ``engine``."""
     return {"resident": "on"} if engine == "resident" else {"engine": engine}
@@ -1067,6 +1114,7 @@ def time_engines(rng, card: str) -> dict:
             samples = {engine: [] for engine in MODULES}
             for engine in [*MODULES, *reversed(MODULES)]:
                 sim = CudaSimulation(Parameters(), boundary, device=DEVICE,
+                                     tuned_lookup=False,
                                      **engine_pins(engine))
                 box = [sim.build_storage(u_np, v_np)]
 
@@ -1086,8 +1134,9 @@ def time_engines(rng, card: str) -> dict:
             ranked = sorted(MODULES, key=lambda e: times[shape, boundary, e])
             print(f"engines {shape[0]}x{shape[1]} {boundary} "
                   f"({cuda_backend.shape_class(shape)}), fastest first: "
-                  f"{ranked}; auto picks "
-                  f"{cuda_backend.auto_engine(shape, boundary)}", flush=True)
+                  f"{ranked}; the measured ranking picks "
+                  f"{cuda_backend.auto_engine(shape, boundary)}; auto runs "
+                  f"{auto_layout(shape, boundary)}", flush=True)
     return times
 
 
@@ -1107,10 +1156,10 @@ def time_packed_engines(rng, card: str) -> dict:
         for tag in [*order, *reversed(order)]:
             if tag in MODULES:
                 sim = CudaSimulation(Parameters(), "zero", device=DEVICE,
-                                     engine=tag)
+                                     engine=tag, tuned_lookup=False)
             else:
                 sim = CudaSimulation(Parameters(), "zero", device=DEVICE,
-                                     pack="on",
+                                     pack="on", tuned_lookup=False,
                                      **engine_pins(engine_of[tag]))
             box = [sim.build_storage(u_np, v_np)]
             assert box[0][0] == tag
@@ -1132,8 +1181,9 @@ def time_packed_engines(rng, card: str) -> dict:
         ranked = sorted(tags, key=lambda e: times[shape, tags[e]])
         print(f"packed engines {shape[0]}x{shape[1]} "
               f"({cuda_backend.shape_class(shape)}), fastest first: "
-              f"{ranked}; auto picks "
-              f"{cuda_backend.auto_packed_engine(shape)}; unpacked K1 "
+              f"{ranked}; the measured ranking picks "
+              f"{cuda_backend.auto_packed_engine(shape)}; auto runs "
+              f"{auto_layout(shape, 'zero')}; unpacked K1 "
               f"{times[shape, 'windowed']!r} ms, K2 "
               f"{times[shape, 'mega']!r} ms", flush=True)
     return times
@@ -1914,7 +1964,7 @@ def sharded_bound_ms(shape, mesh_shape, steps: int,
     pushed = exchange_cells(shape, mesh_shape) * -(-steps // 8)
     by_bytes = (16 * cells + 8 * pushed) / PEAK_BYTES
     by_ops = cells * steps * ops_per_cell_step(Parameters(), boundary) \
-        / PEAK_F32
+        / PEAK_F32_UNFUSED
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -1960,7 +2010,7 @@ def time_sharded(rng, card: str) -> dict:
                   f"x (co-resident {coresident}, {sms} SMs)", flush=True)
         for boundary in ("naive", "zero"):
             k2 = CudaSimulation(Parameters(), boundary, device=DEVICE,
-                                engine="mega")
+                                engine="mega", tuned_lookup=False)
             box = [k2.build_storage(u_np, v_np)]
 
             def k2_call(k2=k2, box=box):
@@ -2066,14 +2116,17 @@ def frames_err(got, want) -> float:
 
 def ladder_paths(checks: Checks) -> None:
     """Phase 11a: each rung at the default shape, both boundaries, for
-    RUNG_IMAGES images, beside the ``cuda`` backend on ``auto``: naive
-    bitwise to cuda, fused bitwise to regular, regular, fused and conv
-    within RUNG_TOL of naive, and no hand-written kernel launched by a
-    rung. Then conv on the card against conv on the CPU (TF32 off)."""
+    RUNG_IMAGES images, beside the ``cuda`` backend on ``auto`` unpacked
+    (``--pallas-pack off``: a zero-boundary record may pack, and the
+    packed tree rounds otherwise): naive bitwise to cuda, fused bitwise to
+    regular, regular, fused and conv within RUNG_TOL of naive, and no
+    hand-written kernel launched by a rung. Then conv on the card against
+    conv on the CPU (TF32 off)."""
     no_launches = {tag: 0 for tag in COUNTERS}
     for boundary in ("naive", "zero"):
         flags = ["--boundary", boundary]
-        cuda_frames, launches, _, species = run_frames(flags, RUNG_IMAGES)
+        cuda_frames, launches, _, species = run_frames(
+            [*flags, "--pallas-pack", "off"], RUNG_IMAGES)
         engine = KERNEL_OF.get(species.storage[0], species.storage[0])
         want = dict(no_launches)
         want[engine] = expected_launches(engine, RUNG_IMAGES, MAIN_STEPS)
@@ -2186,6 +2239,162 @@ def time_ladder(card: str) -> dict:
     return ms
 
 
+#: phase 12: the configurations whose records bench/defaults.py ships (the
+#: default run's and the bench run's), and the share by which a shipped
+#: record's engine may trail this run's winner before the record is stale
+TUNED_KEYS = [(MAIN_SHAPE, "naive"), (MAIN_SHAPE, "zero"),
+              (BENCH_SHAPE, "naive"), (BENCH_SHAPE, "zero")]
+SHIPPED_MARGIN = 0.03
+TUNED_IMAGES = 4
+
+
+def ran(record: dict) -> tuple:
+    """(engine, packed) of a record or a candidate."""
+    return record["engine"], bool(record["pack"])
+
+
+def autotune_phase(checks: Checks, card: str) -> dict:
+    """Phase 12: ``autotune(persist=True)`` on each of TUNED_KEYS into a
+    store of its own: every candidate runs, each winner beside its shipped
+    record (``bench/defaults.py``) and the candidates' times; a shipped
+    record must name a candidate of its key, and its engine may trail the
+    winner by less than SHIPPED_MARGIN. Then ``simulate.run`` with
+    ``--autotune`` at the default run's shape, twice, into another fresh
+    store: the first call measures, the second measures nothing and runs
+    the record's engine, its frames bitwise the plain replay. The empty
+    store of the run is restored after."""
+    empty = os.environ["GRAYSCOTT_CACHE_DIR"]
+    params = Parameters()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+            os.environ["GRAYSCOTT_CACHE_DIR"] = os.path.join(tmp, "phase12")
+            for shape, boundary in TUNED_KEYS:
+                key = autotune.key_for(params, shape, boundary,
+                                       device=DEVICE)
+                before = autotune.measurements
+                rec = autotune.autotune(params, shape, boundary,
+                                        verbose=True, device=DEVICE)
+                wanted = autotune.default_candidates(params, boundary)
+                table = rec["candidates"]
+                checks.expect(autotune.measurements - before >= len(wanted)
+                              and len(table) == len(wanted)
+                              and not any("error" in c for c in table),
+                              f"autotune {key}: candidates {table}")
+                cells = shape[0] * shape[1] * autotune.STEPS
+                times = {ran(c): cells / c["gcells_per_sec"] / 1e6
+                         for c in table if "error" not in c}
+                print(f"autotune {key}: winner {ran(rec)} at "
+                      f"{rec['gcells_per_sec']!r} Gcell/s (device "
+                      f"{rec.get('device_gcells_per_sec')!r}, wall "
+                      f"{rec['wall_gcells_per_sec']!r}); ms per "
+                      f"{autotune.STEPS} steps (the best device time): {times} "
+                      f"[{card}]", flush=True)
+                shipped = defaults.SHIPPED.get(key)
+                if shipped is None:
+                    print(f"autotune {key}: no shipped record", flush=True)
+                else:
+                    runs = ran(shipped) in times
+                    trail = (1 - times[ran(rec)] / times[ran(shipped)]
+                             if runs else float("inf"))
+                    print(f"autotune {key}: shipped {ran(shipped)} "
+                          f"({shipped['gcells_per_sec']!r} Gcell/s, "
+                          f"{shipped['source']}); this run's winner "
+                          f"{ran(rec)}, the shipped engine trails it by "
+                          f"{100 * trail!r} % (limit "
+                          f"{100 * SHIPPED_MARGIN!r} %)", flush=True)
+                    checks.expect(runs, f"shipped record {key} names "
+                                  f"{ran(shipped)}, which the key does not "
+                                  "run")
+                    checks.expect(trail < SHIPPED_MARGIN,
+                                  f"shipped record {key} is stale: "
+                                  f"{ran(shipped)} trails {ran(rec)}")
+                out[key] = rec
+            os.environ["GRAYSCOTT_CACHE_DIR"] = os.path.join(tmp, "cli")
+            replay = replay_frames(MAIN_SHAPE, "naive", params, TUNED_IMAGES,
+                                   MAIN_STEPS, DEVICE)
+            measured = []
+            for _ in range(2):
+                before = autotune.measurements
+                frames, launches, _, species = run_frames(["--autotune"],
+                                                          TUNED_IMAGES)
+                measured.append(autotune.measurements - before)
+                err = frames_err(frames, [r.cpu().numpy() for r in replay])
+                checks.expect(err == 0.0, "--autotune frames vs plain "
+                              "replay")
+            rec = cache.load_autotune()[autotune.key_for(
+                params, MAIN_SHAPE, "naive", device=DEVICE)]
+            tag = species.storage[0]
+            print(f"simulate --autotune twice at {MAIN_SHAPE[0]}x"
+                  f"{MAIN_SHAPE[1]} naive: candidates measured {measured}, "
+                  f"the record's engine {ran(rec)}, the run's {tag}, "
+                  f"launches {launches}, frames vs plain max|dV| {err!r}",
+                  flush=True)
+            checks.expect(measured[0] > 0 and measured[1] == 0,
+                          f"--autotune measured {measured}")
+            checks.expect(tag == rec["engine"] and not rec["pack"]
+                          and launches[tag] > 0,
+                          f"--autotune ran {tag}, the record {ran(rec)}")
+    finally:
+        os.environ["GRAYSCOTT_CACHE_DIR"] = empty
+    return out
+
+
+#: phase 13: scripts/parity_check.py's backends on each boundary (every
+#: engine of cuda, pinned, and two plain rungs), and PARITY.md's worst
+#: drift over its run, which the unpacked engines must stay within
+PARITY_BACKENDS = {
+    "naive": ["cuda:engine=windowed", "cuda:engine=mega",
+              "cuda:resident=on", "fused", "conv"],
+    "zero": ["cuda:engine=windowed", "cuda:engine=mega", "cuda:resident=on",
+             "cuda:pack=on:engine=windowed", "cuda:pack=on:engine=mega",
+             "cuda:pack=on:resident=on", "fused", "conv"],
+}
+PARITY_MD_WORST = 6.1e-6
+
+
+def parity_phase(checks: Checks, card: str) -> dict:
+    """Phase 13: ``scripts/parity_check.py`` at its defaults (256x384, 1000
+    steps, snapshots every 100) on PARITY_BACKENDS, with the launch counts
+    zeroed before each boundary's run: its exit rule (max|dV| < 1e-3),
+    every kernel of the boundary launched, the unpacked engines within
+    PARITY_MD_WORST; each max|dV| a snapshot printed."""
+    out = {}
+    for boundary, specs in PARITY_BACKENDS.items():
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as tmp:
+            path = os.path.join(tmp, "parity.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = parity_check.main(["--backends", ",".join(specs),
+                                    "--boundary", boundary, "-o", path])
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            with open(path) as f:
+                report = json.load(f)
+        kernels = [t for t in ("windowed", "mega", "resident", "packed",
+                               "megapack", "respack")
+                   if boundary == "zero" or t in MODULES]
+        print(f"parity {boundary}: rc {rc}, {seconds!r} s, launches "
+              f"{launches} [{card}]", flush=True)
+        checks.expect(rc == 0, f"parity_check {boundary}: rc {rc}")
+        checks.expect(all(launches[t] > 0 for t in kernels),
+                      f"parity_check {boundary} launched {launches}")
+        for spec in specs:
+            drift = [row[spec]["max_abs_v"] for row in report["rows"]]
+            steps = [row["step"] for row in report["rows"]]
+            unpacked = spec.startswith("cuda") and "pack=on" not in spec
+            print(f"parity {boundary} {spec} max|dV| at steps {steps}: "
+                  f"{drift}" + (f" (PARITY.md worst {PARITY_MD_WORST!r})"
+                                if unpacked else ""), flush=True)
+            checks.expect(max(drift) < parity_check.TOLERANCE,
+                          f"parity {boundary} {spec}")
+            if unpacked:
+                checks.expect(max(drift) <= PARITY_MD_WORST,
+                              f"parity {boundary} {spec} beyond PARITY.md")
+            out[boundary, spec] = drift
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -2195,6 +2404,17 @@ def main(argv=None) -> int:
         print("chip_smoke: PyTorch sees no CUDA GPU "
               "(torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    # an empty autotune store: only the records the package ships steer
+    # auto, never a store on this machine
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    os.environ["GRAYSCOTT_CACHE_DIR"] = store.name
+    try:
+        return run_phases(args)
+    finally:
+        store.cleanup()
+
+
+def run_phases(args) -> int:
     rng = np.random.RandomState(args.seed)
     checks = Checks()
     t_start = time.perf_counter()
@@ -2310,12 +2530,24 @@ def main(argv=None) -> int:
     resume_paths(checks)
     time_ladder(card)
     print(f"phase 11: {time.perf_counter() - t11!r} s", flush=True)
+    # 12. the autotuner; 13. parity on the card
+    t12 = time.perf_counter()
+    autotune_phase(checks, card)
+    print(f"phase 12: {time.perf_counter() - t12!r} s", flush=True)
+    t13 = time.perf_counter()
+    parity_phase(checks, card)
+    print(f"phase 13: {time.perf_counter() - t13!r} s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
     packed_runs = {k: r for k, r in packed_runs.items() if k != "vs_unpacked"}
+    # the default and the packed run again with the copy on the launch
+    # stream (simulate.run's first form), in the same turns
+    part0 = {label: {"flags": group["auto"]["flags"], "ablation": 0}
+             for label, group in (("", runs), (" ".join(ZERO_PACKED) + " ",
+                                               packed_runs))}
     time_paths([*runs.values(), *packed_runs.values(),
-                *sharded_runs.values()])
+                *sharded_runs.values(), *part0.values()])
     cells = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_STEPS
     for prefix, group in (("", runs), (" ".join(ZERO_PACKED) + " ",
                                        packed_runs),
@@ -2328,6 +2560,14 @@ def main(argv=None) -> int:
                   f"({run['median_ms']!r} ms/image, the median of "
                   f"{run['turns_ms']!r} in turns; the checked run first) "
                   f"[{card}]")
+    for prefix, run in part0.items():
+        group = runs if not prefix else packed_runs
+        print(f"path simulate {prefix}auto with part 0 ("
+              f"{simulate.ABLATIONS[0]}): {run['median_ms']!r} ms/image "
+              f"(the median of {run['turns_ms']!r} in turns), against "
+              f"{group['auto']['median_ms']!r} with the copy on its own "
+              f"stream: {run['median_ms'] / group['auto']['median_ms']!r}x "
+              f"[{card}]")
     if "hdf5_seconds" in runs["auto"]:
         print(f"simulate.main with HDF5: "
               f"{runs['auto']['hdf5_seconds'] / MAIN_IMAGES * 1e3!r} "

@@ -43,6 +43,14 @@ def env_default(name: str, fallback, cast=None, choices=None):
     return (cast or type(fallback))(raw)
 
 
+def env_flag(name: str) -> bool:
+    """A boolean ``GRAYSCOTT_*`` variable (``grayscott_tpu/utils/
+    runtime.py:env_flag``): '', '0', 'false', 'no' and 'off' are off (in any
+    case), anything else is on, so ``GRAYSCOTT_AUTOTUNE=0`` is off."""
+    return os.environ.get(name, "").strip().lower() not in (
+        "", "0", "false", "no", "off")
+
+
 class Simulation(abc.ABC):
     """One compute backend."""
 

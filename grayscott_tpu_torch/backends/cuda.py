@@ -32,22 +32,34 @@ stencil (not ``5points``) and no tile pins, or it raises
   ``("megapack", x_pair)``, a ``(2, R, 2C)`` pair; one launch of the full
   time blocks and one of the remainder, as K2's.
 
-``pack="auto"`` never packs: the JAX backend packs on ``auto`` only on an
-autotune record, and the port has no autotuner.
+``pack="auto"`` packs only on a measured record, as the JAX backend does
+(``backends/pallas.py:503-534``): the autotune store's, else one that
+``bench/defaults.py`` ships for this card (``bench/autotune.py:lookup``,
+keyed on ``utils/device.py:autotune_platform``). With no engine pin,
+``engine="auto"`` and ``resident="auto"`` follow the record's engine too;
+without a record they follow :func:`auto_engine`, or
+:func:`auto_packed_engine` on the packed layout, measured on the card. A
+pin always wins: ``engine`` and ``resident`` pin the engine, ``pack`` the
+layout, and a record fills in only what is left on ``auto``.
+``tuned_lookup=False`` ignores the records (the autotuner measures each
+candidate so).
 
 The buffers are updated in place, where the JAX backend gets fresh
 (donated) buffers from every call. ``engine`` (``auto|windowed|mega``),
 ``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
-backend's names and values; ``auto`` follows :func:`auto_engine`, or
-:func:`auto_packed_engine` on the packed layout, measured on the card. The
-JAX backend's other knobs (bf16 storage, lane fold, the naive fix-up
-modes, the megakernel's ring depth and specialisation, tile pins) are not
-ported: asking for one raises :class:`UnsupportedConfigError`.
+backend's names and values, and so do the other eight ``--pallas-*``
+flags. ``runtime_params`` on and off run the same kernels (they take the
+parameters by value), and ``steps_per_call`` runs ``None`` and the
+kernels' own K of 8; every other value of the JAX backend's knobs that the
+port does not run (bf16 storage, lane fold, the naive fix-up modes and
+fold, the megakernel's ring depth and specialisation, tile pins, another
+K) raises :class:`UnsupportedConfigError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -62,17 +74,35 @@ ENGINES = ("auto", "windowed", "mega")
 RESIDENT = ("auto", "on", "off")
 PACK = ("auto", "on", "off")
 
-#: knob -> the values the port runs (the JAX backend's names and values)
+DTYPES = ("float32", "bfloat16")
+NAIVE_FIX = ("select", "store", "slice")
+ON_OFF = ("on", "off")
+
+#: the depth of every engine's time block (K1, K2, K4, K6): the one
+#: ``steps_per_call`` the port runs
+K = windowed.K
+
+_TILES = "ROADMAP.md Queue 2 item 8 (column tiles, the temporal depth and " \
+    "the tile pins)"
+
+#: knob -> (the values the port runs, the JAX backend's names and values;
+#: where ROADMAP.md keeps the rest)
 _SUPPORTED = {
-    "dtype": ("float32",),
-    "fold": ("auto", "off", 1),
-    # "on" only on the zero boundary with a separable stencil
-    "pack": PACK,
-    "naive_fix": ("select",),
-    "mega_depth": (None,),
-    "mega_specialize": (None,),
-    "block_rows": (None,),
-    "block_cols": (None,),
+    "dtype": (("float32",), "ROADMAP.md Queue 2 item 4 (bf16 storage)"),
+    "fold": (("auto", "off", 1), "ROADMAP.md Queue 2 item 7 (the lane-fold "
+             "layout)"),
+    "naive_fix": (("select",), "ROADMAP.md Queue 2 item 6 (the quirk-strip "
+                  "mechanisms; the port's kernels compute the clamped "
+                  "window per cell and have no strip to patch)"),
+    "naive_fold": ((False,), "ROADMAP.md Queue 2 item 5 (the folded naive "
+                   "reaction)"),
+    "mega_depth": ((None,), "ROADMAP.md Queue 2 item 3 (the megakernels' "
+                   "window ring)"),
+    "mega_specialize": ((None,), "ROADMAP.md Queue 2 item 1 (interior tiles "
+                        "are always on)"),
+    "block_rows": ((None,), _TILES),
+    "block_cols": ((None,), _TILES),
+    "steps_per_call": ((None, K), _TILES),
 }
 
 #: L2 of an H100 (NVIDIA's data sheet), and the share of it that the four
@@ -160,10 +190,11 @@ def auto_packed_engine(shape: Tuple[int, int],
     both. The packed engines are the fastest zero-boundary engines of the
     port on either layout: 0.73x K2's time in L2 and 0.72x K1's at
     4096x4096, from the packed step's 30 float32 operations a cell-step
-    against the unpacked zero tree's 63. That is evidence for a packing
-    verdict, not one: the packed tree drifts 24x more than the unpacked
-    one over 1000 steps (ROADMAP.md, Queue 1 item 4), so ``pack="auto"``
-    still never packs.
+    against the unpacked zero tree's 63. Whether ``pack="auto"`` packs is
+    the autotune records' verdict, as in JAX, measured on speed alone; the
+    drift the packed tree adds (8.7e-5 in V over 1000 steps at 256x384,
+    inside ``scripts/parity_check.py``'s 1e-3) is what
+    ``scripts/parity_check.py`` checks on the card.
     """
     return next(e for e in _PACKED_RANKING[shape_class(shape)]
                 if resident_ok or e != "resident")
@@ -179,7 +210,10 @@ class CudaSimulation(Simulation):
                  naive_fix: str = "select", mega_depth: int | None = None,
                  mega_specialize: bool | None = None,
                  block_rows: int | None = None,
-                 block_cols: int | None = None):
+                 block_cols: int | None = None,
+                 steps_per_call: int | None = None,
+                 runtime_params: bool = True, naive_fold: bool = False,
+                 tuned_lookup: bool = True):
         super().__init__(params, boundary, device)
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got "
@@ -193,46 +227,84 @@ class CudaSimulation(Simulation):
             raise UnsupportedConfigError(
                 "resident='on' and an explicit engine pin conflict; pin at "
                 "most one of them", combo="resident+engine")
-        knobs = dict(dtype=dtype, fold=fold, pack=pack, naive_fix=naive_fix,
-                     mega_depth=mega_depth, mega_specialize=mega_specialize,
-                     block_rows=block_rows, block_cols=block_cols)
+        knobs = dict(dtype=dtype, fold=fold, naive_fix=naive_fix,
+                     naive_fold=naive_fold, mega_depth=mega_depth,
+                     mega_specialize=mega_specialize, block_rows=block_rows,
+                     block_cols=block_cols, steps_per_call=steps_per_call)
         for knob, value in knobs.items():
-            if value not in _SUPPORTED[knob]:
+            runs, item = _SUPPORTED[knob]
+            if value not in runs:
                 raise UnsupportedConfigError(
                     f"{knob}={value!r} is not ported to the cuda backend "
-                    f"yet; it runs {knob} in {_SUPPORTED[knob]}",
-                    combo=knob)
+                    f"yet ({item}); it runs {knob} in {runs}", combo=knob)
         self.engine = engine
         self.resident = resident
+        self.pack = pack
+        self.tuned_lookup = tuned_lookup
         self.consts = kernel_constants(params)
-        self.packed = pack == "on"
-        if self.packed:
-            if boundary != "zero":
-                raise UnsupportedConfigError(
-                    "pack requires the zero boundary, float32 storage, a "
-                    f"separable stencil plan and no tile pins; got boundary "
-                    f"{boundary!r}", combo="pack")
-            self.packed_consts = packed_constants(params)
+        if pack == "on" and not self._pack_ok():
+            raise UnsupportedConfigError(
+                "pack requires the zero boundary, float32 storage, a "
+                f"separable stencil plan and no tile pins; got boundary "
+                f"{boundary!r}, stencil {params.stencil_name()!r}",
+                combo="pack")
+
+    def _pack_ok(self) -> bool:
+        """Whether the packed layout runs this configuration (float32 and
+        no tile pins hold for every configuration the constructor takes)."""
+        return (self.boundary == "zero"
+                and self.params.separable_plan()[0] == "separable")
+
+    @functools.cached_property
+    def packed_consts(self):
+        return packed_constants(self.params)
+
+    def tuned(self, shape: Tuple[int, int]) -> dict | None:
+        """The autotune record of a domain of ``shape`` on this device
+        (``bench/autotune.py:lookup``), or None; always None with
+        ``tuned_lookup=False``."""
+        if not self.tuned_lookup:
+            return None
+        from ..bench import autotune
+
+        return autotune.lookup(self.params, shape, self.boundary,
+                               device=self.device)
+
+    def layout_for(self, shape: Tuple[int, int]) -> Tuple[bool, str]:
+        """(packed, engine) of a domain of ``shape``: the pins, then the
+        autotune record for what is left on ``auto``, then
+        :func:`auto_engine` (:func:`auto_packed_engine` when packed)."""
+        tuned = self.tuned(shape)
+        record_packs = bool(tuned and tuned.get("pack"))
+        packed = self.pack == "on" or (self.pack == "auto" and record_packs
+                                       and self._pack_ok())
+        if record_packs != packed:
+            # a record of the other layout says nothing of this one's engine
+            tuned = None
+        if self.engine != "auto":
+            return packed, self.engine
+        if self.resident == "on":
+            return packed, "resident"
+        resident_ok = self.resident == "auto"
+        verdict = (tuned or {}).get("engine")
+        if verdict in ENGINES[1:] + ("resident",) and \
+                (resident_ok or verdict != "resident"):
+            return packed, verdict
+        if packed:
+            return packed, auto_packed_engine(shape, resident_ok=resident_ok)
+        return packed, auto_engine(shape, self.boundary,
+                                   resident_ok=resident_ok)
 
     def engine_for(self, shape: Tuple[int, int]) -> str:
-        """The engine that runs a domain of ``shape``: a pin, else
-        :func:`auto_engine` (:func:`auto_packed_engine` when packed)."""
-        if self.engine != "auto":
-            return self.engine
-        if self.resident == "on":
-            return "resident"
-        if self.packed:
-            return auto_packed_engine(shape,
-                                      resident_ok=self.resident == "auto")
-        return auto_engine(shape, self.boundary,
-                           resident_ok=self.resident == "auto")
+        """The engine that runs a domain of ``shape`` (:meth:`layout_for`)."""
+        return self.layout_for(shape)[1]
 
     def build_storage(self, u: np.ndarray, v: np.ndarray):
         u_t, v_t = (
             torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
             .to(self.device) for x in (u, v))
-        engine = self.engine_for(u.shape)
-        if self.packed:
+        packed_layout, engine = self.layout_for(u.shape)
+        if packed_layout:
             x = packed.pack_state(u_t, v_t)
             if engine == "mega":
                 return ("megapack", megakernel.pair_state(x))
@@ -308,16 +380,36 @@ class CudaSimulation(Simulation):
 
     @classmethod
     def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:
-        """The JAX backend's engine flags, under its names, with its
-        environment defaults (``GRAYSCOTT_PALLAS_ENGINE``,
-        ``GRAYSCOTT_PALLAS_RESIDENT``, ``GRAYSCOTT_PALLAS_PACK``)."""
+        """The JAX backend's eleven ``--pallas-*`` flags
+        (``grayscott_tpu/backends/pallas.py:892-989``), under its names,
+        choices, defaults and environment variables; a value the port does
+        not run parses, and the constructor refuses it, naming its
+        ROADMAP.md item."""
         parser.add_argument(
-            "--pallas-engine", choices=ENGINES,
-            default=env_default("GRAYSCOTT_PALLAS_ENGINE", "auto",
-                                choices=ENGINES),
-            help="Kernel engine: 'mega' runs the whole step loop in one "
-            "persistent launch (K2); 'windowed' launches K1 every 8 steps; "
-            "'auto' (default) picks by domain size, as measured on the card",
+            "--pallas-block-rows", type=int,
+            default=env_default("GRAYSCOTT_PALLAS_BLOCK_ROWS", None, int),
+            help="Row-tile size of the Pallas kernel (multiple of 8; "
+            "default: VMEM budget heuristic). The port's kernels run "
+            "fixed tiles: a pin is refused (ROADMAP.md Queue 2 item 8)",
+        )
+        parser.add_argument(
+            "--pallas-block-cols", type=int,
+            default=env_default("GRAYSCOTT_PALLAS_BLOCK_COLS", None, int),
+            help="Column-tile size (multiple of 128) for very wide domains; "
+            "default: full width unless the window would exceed VMEM. "
+            "With --pallas-engine mega, pins the megakernel's column tile. "
+            "The port's kernels run fixed tiles: a pin is refused "
+            "(ROADMAP.md Queue 2 item 8)",
+        )
+        parser.add_argument(
+            "--pallas-dtype", choices=DTYPES,
+            default=env_default("GRAYSCOTT_PALLAS_DTYPE", "float32",
+                                choices=DTYPES),
+            help="Storage precision: bfloat16 is an opt-in fast mode "
+            "(halved HBM traffic and footprint; compute stays f32 in "
+            "VMEM) that is NOT bit-compatible with the f32 reference "
+            "semantics. The port runs float32 (bfloat16: ROADMAP.md "
+            "Queue 2 item 4)",
         )
         parser.add_argument(
             "--pallas-resident", choices=RESIDENT,
@@ -328,17 +420,103 @@ class CudaSimulation(Simulation):
             "never runs it, 'auto' (default) lets the engine choice decide",
         )
         parser.add_argument(
+            "--pallas-fold", type=parse_fold,
+            default=env_default("GRAYSCOTT_PALLAS_FOLD", "auto"),
+            help="Lane-fold layout for narrow domains: an integer F "
+            "computes F row-panels side by side along lanes; 'auto' "
+            "(default) folds only when the autotuner measured fold "
+            "winning on this domain; 'off' never folds. The port runs "
+            "'auto', 'off' and 1 (ROADMAP.md Queue 2 item 7)",
+        )
+        parser.add_argument(
             "--pallas-pack", choices=PACK,
             default=env_default("GRAYSCOTT_PALLAS_PACK", "auto",
                                 choices=PACK),
             help="Species-packed layout: U and V side by side in one array, "
             "the separable step and the linear fold (K4, K5, K6; zero "
-            "boundary and a separable stencil only). 'on' packs, 'auto' "
-            "(default) and 'off' never pack (the port has no autotuner)",
+            "boundary and a separable stencil only). 'on' packs, 'off' "
+            "never packs, 'auto' (default) packs only when an autotune "
+            "record measured pack winning on this domain and card",
+        )
+        parser.add_argument(
+            "--pallas-naive-fix", choices=NAIVE_FIX,
+            default=env_default("GRAYSCOTT_NAIVE_FIX", "select",
+                                choices=NAIVE_FIX),
+            help="Naive-boundary fix-up mechanism: 'select' (default, "
+            "bit-frozen) patches the quirk strips with full-window "
+            "masked selects; 'store' uses narrow scratch-ref stores "
+            "(perf experiment, measured slower); 'slice' feeds the "
+            "top-row strip from the laplacian's own shifted tensors — "
+            "measured +4.0% on-chip at 4096^2 naive, at ulp-scale drift "
+            "from the frozen default (the naive_fold budget class). The "
+            "port runs 'select' (ROADMAP.md Queue 2 item 6)",
+        )
+        parser.add_argument(
+            "--pallas-naive-fold", choices=ON_OFF,
+            default=env_default("GRAYSCOTT_NAIVE_FOLD", "off",
+                                choices=ON_OFF),
+            help="Folded naive reaction (opt-in fast mode): the naive "
+            "update's u-linear terms, including the clamped-window "
+            "boundary correction, collapse into per-window coefficient "
+            "fields — near zero-path op count under exact naive "
+            "SEMANTICS, at ulp-scale drift from the bit-frozen default "
+            "rounding (same budget class as fold/pack/bf16). The port "
+            "runs 'off' (ROADMAP.md Queue 2 item 5)",
+        )
+        parser.add_argument(
+            "--pallas-engine", choices=ENGINES,
+            default=env_default("GRAYSCOTT_PALLAS_ENGINE", "auto",
+                                choices=ENGINES),
+            help="Kernel engine: 'mega' runs the whole step loop in one "
+            "persistent launch (K2); 'windowed' launches K1 every 8 steps; "
+            "'auto' (default) follows the autotune record, else picks by "
+            "domain size, as measured on the card",
+        )
+        parser.add_argument(
+            "--pallas-runtime-params", choices=ON_OFF,
+            default=env_default("GRAYSCOTT_PALLAS_RUNTIME_PARAMS", "on",
+                                choices=ON_OFF),
+            help="Pass the reaction scalars (Du, Dv, f, -(f+k), dt) as a "
+            "traced SMEM operand so parameter changes reuse the compiled "
+            "kernel (default on; bit-identical to 'off', which folds them "
+            "at compile time like the reference's default stencil). The "
+            "port's kernels take them by value: both run the same kernels",
+        )
+        parser.add_argument(
+            "--pallas-steps-per-call", type=int,
+            default=env_default("GRAYSCOTT_PALLAS_STEPS_PER_CALL", None,
+                                int),
+            help="Temporal blocking depth (1..32 steps fused in VMEM; "
+            "default 16 on TPU, autotuner may adjust). The port's kernels "
+            f"run K = {K} (another K: ROADMAP.md Queue 2 item 8)",
         )
 
     @classmethod
     def args_from_namespace(cls, ns: argparse.Namespace) -> dict:
-        return {"engine": getattr(ns, "pallas_engine", "auto"),
-                "resident": getattr(ns, "pallas_resident", "auto"),
-                "pack": getattr(ns, "pallas_pack", "auto")}
+        return {
+            "block_rows": getattr(ns, "pallas_block_rows", None),
+            "block_cols": getattr(ns, "pallas_block_cols", None),
+            "steps_per_call": getattr(ns, "pallas_steps_per_call", None),
+            "dtype": getattr(ns, "pallas_dtype", "float32"),
+            "runtime_params": getattr(
+                ns, "pallas_runtime_params", "on") != "off",
+            "resident": getattr(ns, "pallas_resident", "auto"),
+            "fold": parse_fold(getattr(ns, "pallas_fold", "auto")),
+            "engine": getattr(ns, "pallas_engine", "auto"),
+            "pack": getattr(ns, "pallas_pack", "auto"),
+            "naive_fix": getattr(ns, "pallas_naive_fix", "select"),
+            "naive_fold": getattr(ns, "pallas_naive_fold", "off") == "on",
+        }
+
+
+def parse_fold(value):
+    """``--pallas-fold``'s value: ``auto``, ``off`` or an integer
+    (``grayscott_tpu/backends/pallas.py:_parse_fold``)."""
+    if isinstance(value, str) and value not in ("auto", "off"):
+        try:
+            return int(value)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"expected 'auto', 'off' or an integer, got {value!r}"
+            ) from None
+    return value

@@ -15,8 +15,9 @@ Every shard lives on ``device``: one card runs them all in one launch.
 What JAX's backend runs besides and the port does not yet raises
 :class:`UnsupportedConfigError` naming its ROADMAP item, and nothing falls
 back: the windowed engine (``engine="windowed"``, and ``engine="auto"``,
-which falls back to it), bf16 storage, the tile pins, overlap and
-autotune records.
+which falls back to it), bf16 storage, the tile pins, overlap, and the
+sharded autotuner and its records (``tuned_lookup``, ``--autotune``:
+ROADMAP.md Queue 1 item 7.5).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ OVERLAP = ("auto", "on", "off")
 
 _WINDOWED = ("ROADMAP.md Queue 1 item 7: the windowed sharded engine over "
              "torch.distributed")
+#: where ROADMAP.md keeps the sharded tuner and its records
+SHARDED_AUTOTUNE = "ROADMAP.md Queue 1 item 7.5"
 
 
 class ShardedSimulation(Simulation):
@@ -84,8 +87,8 @@ class ShardedSimulation(Simulation):
                 combo="tiles")
         if tuned_lookup:
             raise UnsupportedConfigError(
-                "autotune records are not ported yet (ROADMAP.md Queue 1 "
-                "item 4)", combo="tuned_lookup")
+                "the sharded backend's autotune records are not ported yet "
+                f"({SHARDED_AUTOTUNE})", combo="tuned_lookup")
         if n_devices is not None and n_devices < 1:
             raise UnsupportedConfigError(
                 f"n_devices must be >= 1, got {n_devices} (omit the flag "

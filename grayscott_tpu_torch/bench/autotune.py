@@ -1,0 +1,207 @@
+"""Kernel autotuner: the port of ``grayscott_tpu/bench/autotune.py``, cut
+to what the port's kernels run. It measures the ``cuda`` backend's engines
+and layouts on the live device and persists the winner per (device,
+domain, boundary, stencil, dtype) in the autotune store
+(``utils/cache.py``); the backend's ``auto`` modes follow it
+(``backends/cuda.py:CudaSimulation.layout_for``).
+
+The candidates are every engine and layout the configuration runs: K1
+(``engine="windowed"``), K2 (``engine="mega"``) and K3
+(``resident="on"``) unpacked, and, on the zero boundary with float32 and a
+separable stencil (JAX's ``_pack_candidates`` conditions), the same three
+packed: K4, K6 and K5. The port's kernels run fixed tiles at K = 8, so
+there are no ``block_rows`` or ``steps_per_call`` candidates (ROADMAP.md
+Queue 2 item 8); records carry ``block_rows: None`` and
+``steps_per_call: 8``.
+
+Each candidate runs with ``tuned_lookup=False`` (exactly what it pins).
+On the card the candidates rank on device time (CUDA events around
+``run_steps``, the best of ``reps``), with the wall rate (host clock
+ending in a synchronise) kept beside it; on the CPU, where there is no
+device time, on the wall rate, through the kernels' plain versions, and
+such a record keys on ``cpu`` and never reaches the card. As in JAX the
+ranking is on speed alone: the drift of the packed layout from the oracle
+is ``scripts/parity_check.py``'s to check, not the tuner's to weigh.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterable, Mapping
+
+import torch
+
+from ..backends.cuda import K, CudaSimulation
+from ..errors import UnsupportedConfigError
+from ..params import Parameters
+from ..utils import cache
+from ..utils.device import autotune_platform
+
+#: the port's kernel version in every key: bump it when a kernel's redesign
+#: can change the ranking, so older records stop pinning
+KERNEL_VERSION = 1
+
+#: the unpacked candidates (K1, K2, K3) and their packed twins (K4, K6, K5)
+UNPACKED = ({"engine": "windowed"}, {"engine": "mega"}, {"resident": "on"})
+PACKED = tuple({"pack": "on", **c} for c in UNPACKED)
+
+#: storage tag -> (engine, packed) as a record names them
+_RAN = {"windowed": ("windowed", False), "mega": ("mega", False),
+        "resident": ("resident", False), "packed": ("windowed", True),
+        "megapack": ("mega", True), "respack": ("resident", True)}
+
+#: fixed work a measurement: the same steps for every candidate
+STEPS = 1024
+
+#: the runner-up within this share of the winner is measured again
+RECHECK = 0.97
+
+#: measure_config calls made (a second ``--autotune`` of a domain makes none)
+measurements = 0
+
+
+def default_candidates(params: Parameters, boundary: str,
+                       dtype: str = "float32") -> list[dict]:
+    """Every engine and layout of ``(params, boundary, dtype)``: the three
+    unpacked engines, and the three packed ones where JAX's
+    ``_pack_candidates`` would pack (zero boundary, float32, a separable
+    plan)."""
+    out = [dict(c) for c in UNPACKED]
+    if boundary == "zero" and dtype == "float32" and \
+            params.separable_plan()[0] == "separable":
+        out += [dict(c) for c in PACKED]
+    return out
+
+
+def measure_config(params: Parameters, shape, boundary: str,
+                   steps: int | None = None, dtype: str = "float32",
+                   reps: int = 3, device: str | torch.device = "cuda",
+                   **config) -> dict:
+    """One candidate (``config``: the backend's ``engine``, ``resident``
+    and ``pack`` pins) with the autotune store ignored: what it ran, in
+    the record schema, and its rates (``gcells_per_sec``, the device rate
+    on the card and the wall rate on the CPU; ``wall_gcells_per_sec``;
+    ``device_gcells_per_sec`` on the card)."""
+    global measurements
+    sim = CudaSimulation(params, boundary, device=device, dtype=dtype,
+                         tuned_lookup=False, **config)
+    species = sim.make_species(tuple(shape))
+    engine, pack = _RAN[species.storage[0]]
+    measurements += 1
+    rec = {"engine": engine, "block_rows": None, "steps_per_call": K,
+           "block_cols": None, "fold": 1, "pack": pack}
+    rec.update(_measure_rates(sim, species, shape, steps or STEPS, reps))
+    return rec
+
+
+def _measure_rates(sim, species, shape, steps: int, reps: int) -> dict:
+    """A warm-up of K steps (the kernels' build), then the best of
+    ``reps`` runs of ``steps`` steps: CUDA events around ``run_steps`` on
+    the card, and the host clock ending in a synchronise (a readback on
+    the CPU)."""
+    cuda = sim.device.type == "cuda"
+    sim.prepare_steps(species, K)
+    species.result()[:1, :128].sum().item()
+    wall = device = float("inf")
+    for _ in range(max(1, reps)):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        sim.prepare_steps(species, steps)
+        if cuda:
+            end.record()
+            end.synchronize()
+            device = min(device, start.elapsed_time(end) * 1e-3)
+        else:
+            species.result()[:1, :128].sum().item()
+        wall = min(wall, time.perf_counter() - t0)
+    cells = shape[0] * shape[1] * steps
+    rec = {"gcells_per_sec": cells / wall / 1e9,
+           "wall_gcells_per_sec": cells / wall / 1e9}
+    if cuda:
+        rec["device_gcells_per_sec"] = cells / device / 1e9
+        rec["gcells_per_sec"] = rec["device_gcells_per_sec"]
+    return rec
+
+
+def key_for(params: Parameters, shape, boundary: str,
+            dtype: str = "float32",
+            device: str | torch.device = "cuda") -> str:
+    """The store key of a configuration on ``device``."""
+    return cache.autotune_key(autotune_platform(device), shape, boundary,
+                              params.stencil_name(), KERNEL_VERSION, dtype)
+
+
+def autotune(params: Parameters, shape, boundary: str = "naive",
+             candidates: Iterable[Mapping] | None = None,
+             persist: bool = True, verbose: bool = False,
+             dtype: str = "float32", device: str | torch.device = "cuda",
+             steps: int | None = None, reps: int = 3) -> dict:
+    """The best candidate of the configuration: the store's record when it
+    holds one (nothing is measured), else each candidate measured, the
+    first two measured again when the runner-up is within 3 % of the
+    winner, and the winner persisted (``persist``) with the whole
+    ``candidates`` table."""
+    key = key_for(params, shape, boundary, dtype, device)
+    store = cache.load_autotune()
+    if key in store:
+        return store[key]
+    configs = [dict(c) for c in (candidates if candidates is not None
+                                 else default_candidates(params, boundary,
+                                                         dtype))]
+    measured, pool = [], []
+    for cfg in configs:
+        try:
+            res = measure_config(params, shape, boundary, steps, dtype,
+                                 reps, device, **cfg)
+        except UnsupportedConfigError as e:
+            if verbose:
+                print(f"{cfg}: refused ({e})", flush=True)
+            measured.append({**cfg, "error": type(e).__name__})
+            continue
+        res["gcells_per_sec"] = round(res["gcells_per_sec"], 3)
+        if verbose:
+            print(f"{cfg}: {res['gcells_per_sec']:.3f} Gcell/s (ran "
+                  f"{res['engine']}{' packed' if res['pack'] else ''})",
+                  flush=True)
+        measured.append(res)
+        pool.append((cfg, res))
+    if not pool:
+        raise RuntimeError("no autotune candidate ran")
+    pool.sort(key=lambda p: p[1]["gcells_per_sec"], reverse=True)
+    if len(pool) >= 2 and pool[1][1]["gcells_per_sec"] >= \
+            RECHECK * pool[0][1]["gcells_per_sec"]:
+        # within the noise of a measurement: the kernels are built now, so
+        # measuring both again is cheap, and the better of each decides
+        for cfg, res in pool[:2]:
+            again = measure_config(params, shape, boundary, steps, dtype,
+                                   reps, device, **cfg)
+            res["gcells_per_sec"] = round(
+                max(res["gcells_per_sec"], again["gcells_per_sec"]), 3)
+            if verbose:
+                print(f"{cfg}: measured again, {again['gcells_per_sec']:.3f}"
+                      f" Gcell/s", flush=True)
+        pool.sort(key=lambda p: p[1]["gcells_per_sec"], reverse=True)
+    best = dict(pool[0][1], candidates=measured)
+    if persist:
+        store = cache.load_autotune()  # measuring took a while
+        store[key] = best
+        cache.save_autotune(store)
+    return best
+
+
+def lookup(params: Parameters, shape, boundary: str,
+           dtype: str = "float32",
+           device: str | torch.device = "cuda") -> dict | None:
+    """The best known record of the configuration on ``device``: the local
+    store first, then the records this package ships for the card
+    (``bench/defaults.py``); None when neither has one."""
+    key = key_for(params, shape, boundary, dtype, device)
+    rec = cache.load_autotune().get(key)
+    if rec is not None:
+        return rec
+    from .defaults import SHIPPED
+
+    return SHIPPED.get(key)

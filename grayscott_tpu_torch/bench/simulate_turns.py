@@ -34,8 +34,10 @@ import time
 PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"]}
 
 
-def run_ms(flags: list, images: int, steps: int = 32) -> float:
-    """ms an image of one ``simulate.run`` (with ``flags``) of ``images``
+def run_ms(flags: list, images: int, steps: int = 32,
+           ablation: int | None = None) -> float:
+    """ms an image of one ``simulate.run`` (with ``flags``, and
+    ``ablation``: a part of its snapshot pipeline taken out) of ``images``
     images of ``steps`` steps, on the host clock ending in a device
     synchronise; PyTorch's pinned-memory cache is filled first, since the
     frames are kept."""
@@ -52,7 +54,8 @@ def run_ms(flags: list, images: int, steps: int = 32) -> float:
     del pinned
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    simulate.run(sim, species, images, steps, frames.append)
+    simulate.run(sim, species, images, steps, frames.append,
+                 ablation=ablation)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / images * 1e3
 

@@ -1,19 +1,27 @@
 """CLI arguments shared by the port's programs: the port's
 ``grayscott_tpu/cli/shared.py``.
 
-The same ``-k -f -e -r -c -t --preset --backend --stencil --boundary``
-arguments with the same defaults and environment fallbacks, each
-backend's own arguments (``--pallas-engine``, ``--pallas-resident``,
-``--pallas-pack``; ``--sharded-engine``, ``--sharded-devices``,
-``--sharded-mesh-cols``, ``--sharded-overlap``), plus ``--device``.
-``--backend auto`` (the default) is the selector's choice. ``--device
-cuda`` (the default) on a host where PyTorch sees no GPU stops with a
-message; the port never falls back to the CPU.
+The same ``-k -f -e -r -c -t --preset --backend --stencil --boundary
+--autotune`` arguments with the same defaults and environment fallbacks,
+each backend's own arguments (the eleven ``--pallas-*`` flags;
+``--sharded-engine``, ``--sharded-devices``, ``--sharded-mesh-cols``,
+``--sharded-overlap``), plus ``--device``. ``--backend auto`` (the
+default) is the selector's choice. ``--device cuda`` (the default) on a
+host where PyTorch sees no GPU stops with a message; the port never falls
+back to the CPU.
+
+``--autotune`` (or ``GRAYSCOTT_AUTOTUNE``) with the ``cuda`` backend
+measures its engines and layouts on the device before the run
+(``bench/autotune.py:autotune``) unless the store already holds a record
+for the domain, and the simulation follows the winner; with ``sharded`` it
+is refused (ROADMAP.md Queue 1 item 7.5); the plain rungs ignore it, as
+JAX's do.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import queue
 from typing import Tuple
@@ -21,6 +29,9 @@ from typing import Tuple
 import torch
 
 from ..backends import BACKENDS, best_backend_name, get_backend
+from ..backends.base import env_flag
+from ..backends.sharded import SHARDED_AUTOTUNE
+from ..errors import UnsupportedConfigError
 from ..params import DEFAULT_STENCIL, PRESETS, STENCILS, Parameters
 
 
@@ -77,6 +88,15 @@ def add_shared_args(parser: argparse.ArgumentParser) -> None:
         "'zero' = zero border",
     )
     parser.add_argument(
+        "--autotune", action="store_true",
+        default=env_flag("GRAYSCOTT_AUTOTUNE"),
+        help="Measure the engines and layouts for this domain on the "
+        "device before starting and follow the winner (persisted in "
+        "autotune.json under GRAYSCOTT_CACHE_DIR, default "
+        "~/.cache/grayscott_tpu_torch; the cuda backend). A later run of "
+        "the same domain finds the record and measures nothing",
+    )
+    parser.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="'cuda' (default) runs the hand-written CUDA kernels; 'cpu' "
         "runs their plain PyTorch versions",
@@ -96,13 +116,32 @@ def require_device(device: str) -> None:
 
 
 def make_simulation(ns: argparse.Namespace):
+    """The backend of ``ns``, built (its flags checked) before
+    ``--autotune`` measures anything; the autotune winner persists, and the
+    simulation follows it when it builds its storage."""
     require_device(ns.device)
     name = ns.backend
     if name in (None, "", "auto"):
         name = best_backend_name(shape=domain_shape(ns))
     cls = get_backend(name)
-    return cls(simulation_parameters(ns), boundary=ns.boundary,
-               device=ns.device, **cls.args_from_namespace(ns))
+    logger = logging.getLogger("grayscott_tpu_torch")
+    if logger.isEnabledFor(logging.DEBUG):
+        from ..utils.device import capability_dump
+
+        logger.debug("device capabilities:\n%s", capability_dump())
+    params = simulation_parameters(ns)
+    sim = cls(params, boundary=ns.boundary, device=ns.device,
+              **cls.args_from_namespace(ns))
+    if getattr(ns, "autotune", False) and name == "sharded":
+        raise UnsupportedConfigError(
+            f"--autotune with the sharded backend ({SHARDED_AUTOTUNE})",
+            combo="autotune")
+    if getattr(ns, "autotune", False) and name == "cuda":
+        from ..bench import autotune
+
+        autotune.autotune(params, domain_shape(ns), ns.boundary,
+                          verbose=True, device=ns.device)
+    return sim
 
 
 def simulation_parameters(ns: argparse.Namespace) -> Parameters:

@@ -5,17 +5,21 @@ Argument-compatible with the JAX ``simulate`` (``-n/--nbimage`` default
 2, 32 steps per image, ``--snapshot-dtype``, ``--checkpoint``,
 ``--resume``), plus ``--device``.
 
-:func:`run` is the stepping loop and keeps the JAX pipeline's overlap
-(``grayscott_tpu/cli/simulate.py:175-188``): it enqueues a batch, copies V
-into a fresh device buffer (the state is overwritten by the next batch),
-copies that into pinned host memory without blocking and records an
-event, all on the launch stream; it then waits only for the *previous*
-image's event before handing that image to the sink, so the host never
-waits on the batch it just enqueued. With ``--snapshot-dtype bfloat16``
-the fresh buffer is V cast to bfloat16 on the device (a cast that changes
-the dtype makes a buffer of its own), the host frame is bfloat16 and is
-widened to float32 on the host; the HDF5 file stays float32. :func:`main`
-passes a sink that feeds the bounded queue of the HDF5 writer thread.
+:func:`run` is the stepping loop, with the JAX pipeline's overlap
+(``grayscott_tpu/cli/simulate.py:160-188``): after each batch it copies V
+into a fresh device buffer on the launch stream (the next batch overwrites
+the state) and records an event; a copy stream of its own waits on that
+event and copies the buffer into pinned host memory while the next batch
+runs on the launch stream. The host waits only for the *previous* image's
+copy before handing that image to the sink, in order, so it never waits
+on the batch it just enqueued. Each image has a pinned frame of its own
+(PyTorch's pinned-memory cache recycles them once the sink lets go): the
+sink may keep a frame, or queue it for a writer thread, and no later copy
+writes into it. With ``--snapshot-dtype bfloat16`` the fresh buffer is V
+cast to bfloat16 on the device (a cast that changes the dtype makes a
+buffer of its own), the host frame is bfloat16 and is widened to float32
+on the host; the HDF5 file stays float32. :func:`main` passes a sink that
+feeds the bounded queue of the HDF5 writer thread.
 
 ``--resume PATH`` starts from a checkpoint (``io/checkpoint.py``) through
 the backend's ``build_storage``, with its step count; ``--checkpoint
@@ -83,14 +87,28 @@ def build_parser() -> argparse.ArgumentParser:
 SNAPSHOT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+#: ``run``'s snapshot pipeline with one part taken out (``ablation=``), for
+#: timing in turns: part 0 is its first form, the device-to-host copy on
+#: the launch stream, so the next batch waits for it
+ABLATIONS = {0: "the copy on the launch stream (the first form)"}
+
+
 def run(sim: Simulation, species: Species, nbimage: int,
         steps_per_image: int, sink: Callable[[np.ndarray], None],
-        snapshot_dtype: str = "float32") -> None:
+        snapshot_dtype: str = "float32", ablation: int | None = None
+        ) -> None:
     """Advance ``nbimage`` batches of ``steps_per_image`` steps and hand V
     after each batch to ``sink``, in order, as a float32 host array of its
-    own, copied from the device in ``snapshot_dtype``."""
+    own, copied from the device in ``snapshot_dtype``; on the card the copy
+    overlaps the next batch (``ablation=0``: it does not)."""
+    if ablation not in (None, *ABLATIONS):
+        raise ValueError(f"ablation must be None or one of "
+                         f"{sorted(ABLATIONS)}, got {ablation!r}")
     cuda = sim.device.type == "cuda"
     dtype = SNAPSHOT_DTYPES[snapshot_dtype]
+    if cuda:
+        launch = torch.cuda.current_stream(sim.device)
+        copy = launch if ablation == 0 else torch.cuda.Stream(sim.device)
     pending = None  # (host frame, its copy's event) of the previous image
     for _ in range(nbimage):
         sim.prepare_steps(species, steps_per_image)
@@ -99,9 +117,16 @@ def run(sim: Simulation, species: Species, nbimage: int,
         if cuda:
             frame = torch.empty(snapshot.shape, dtype=snapshot.dtype,
                                 pin_memory=True)
-            frame.copy_(snapshot, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(torch.cuda.current_stream(sim.device))
+            cloned = torch.cuda.Event()
+            cloned.record(launch)
+            copy.wait_event(cloned)
+            with torch.cuda.stream(copy):
+                frame.copy_(snapshot, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(copy)
+            # the allocator may hand the snapshot's memory to the next batch
+            # only once the copy stream has read it
+            snapshot.record_stream(copy)
         else:
             frame, copied = snapshot, None
         if pending is not None:

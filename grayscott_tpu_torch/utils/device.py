@@ -1,14 +1,16 @@
 """What the port runs on: the port's ``grayscott_tpu/utils/device.py:
 capability_dump``, reduced to the CUDA device, the toolkit and the card's
 power limit (a card set below its maximum runs slower under load, so every
-measurement is kept beside it); and the one timer of the measurement
-scripts, :func:`time_call`.
+measurement is kept beside it); the string autotune records key on,
+:func:`autotune_platform`; and the one timer of the measurement scripts,
+:func:`time_call`.
 
     python -m grayscott_tpu_torch.utils.device
 """
 
 from __future__ import annotations
 
+import re
 import subprocess
 import time
 from typing import Callable
@@ -20,6 +22,22 @@ def device_name(device: str) -> str:
     """The card's name, or what a CPU run's numbers are."""
     return (torch.cuda.get_device_name() if device == "cuda"
             else "the CPU (plain PyTorch, not a device rate)")
+
+
+def autotune_platform(device: str | torch.device = "cuda") -> str:
+    """The string autotune records key on (the port's ``grayscott_tpu/
+    utils/device.py:autotune_platform``): on the card its name, lowercased,
+    without the vendor, runs of other characters than letters and digits
+    made one ``-``, and its SM count (``h100-80gb-hbm3-sm132``), never
+    ``gpu`` or ``cuda`` alone, so a verdict measured on one card never pins
+    another; on the CPU ``cpu``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    props = torch.cuda.get_device_properties(device)
+    name = re.sub(r"[^a-z0-9]+", "-", props.name.lower())
+    name = name.strip("-").removeprefix("nvidia-")
+    return f"{name}-sm{props.multi_processor_count}"
 
 
 def time_call(fn: Callable[[], object], device: str, reps: int = 1,

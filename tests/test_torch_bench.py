@@ -9,7 +9,8 @@ import os
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.bench import stats as jax_stats
 from grayscott_tpu_torch.backends.cuda import CudaSimulation

@@ -4,6 +4,10 @@ the card's machine."""
 
 import shutil
 
+import pytest
+
+torch = pytest.importorskip("torch")
+
 from grayscott_tpu_torch.ops import build
 
 

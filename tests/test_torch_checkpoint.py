@@ -7,7 +7,8 @@ snapshots are the float32 frames rounded through bf16."""
 import h5py
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.cli import simulate as jax_simulate
 from grayscott_tpu.io import checkpoint as jax_checkpoint

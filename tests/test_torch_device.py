@@ -6,6 +6,8 @@ import time
 
 import pytest
 
+torch = pytest.importorskip("torch")
+
 from grayscott_tpu_torch.utils import device
 
 

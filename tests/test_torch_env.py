@@ -1,17 +1,21 @@
-"""The port's environment defaults against the JAX package's: the three
-``--pallas-*`` engine flags read ``GRAYSCOTT_PALLAS_ENGINE``,
-``GRAYSCOTT_PALLAS_RESIDENT`` and ``GRAYSCOTT_PALLAS_PACK``
-(``grayscott_tpu/backends/pallas.py:915-969``), and ``best_backend_name``
-returns ``GRAYSCOTT_BACKEND`` when it is set
+"""The port's environment defaults against the JAX package's: the eleven
+``--pallas-*`` flags read the JAX backend's variables
+(``grayscott_tpu/backends/pallas.py:892-989``) and give the backend what
+JAX's parser gives its own, the values the port does not run refused with
+their ROADMAP.md item; and ``best_backend_name`` returns
+``GRAYSCOTT_BACKEND`` when it is set
 (``grayscott_tpu/backends/__init__.py:98-100``)."""
 
 import pytest
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.backends import best_backend_name as jax_best_backend
 from grayscott_tpu.cli import simulate as jax_simulate
 from grayscott_tpu_torch.backends import best_backend_name
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.cli import shared, simulate
+from grayscott_tpu_torch.errors import UnsupportedConfigError
 
 #: variable -> (parser destination, a value other than the default, the
 #: backend's keyword, what the backend then runs on a 24x32 domain)
@@ -91,3 +95,132 @@ def test_parser_matches_jax_under_env(clean_env, env):
         results.append(tuple(getattr(ns, dest)
                              for dest, *_ in FLAGS.values()))
     assert results[0] == results[1]
+
+
+#: the other eight ``--pallas-*`` flags (``grayscott_tpu/backends/pallas.py:
+#: 892-989``): variable -> (parser destination, a value the port runs
+#: other than the default, a value it refuses and the ROADMAP.md item the
+#: refusal names)
+MORE_FLAGS = {
+    "GRAYSCOTT_PALLAS_BLOCK_ROWS": ("pallas_block_rows", None,
+                                    "64", "Queue 2 item 8"),
+    "GRAYSCOTT_PALLAS_BLOCK_COLS": ("pallas_block_cols", None,
+                                    "128", "Queue 2 item 8"),
+    "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "float32", "bfloat16",
+                               "Queue 2 item 4"),
+    "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "off", "2", "Queue 2 item 7"),
+    "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "select", "store",
+                            "Queue 2 item 6"),
+    "GRAYSCOTT_NAIVE_FOLD": ("pallas_naive_fold", "off", "on",
+                             "Queue 2 item 5"),
+    "GRAYSCOTT_PALLAS_RUNTIME_PARAMS": ("pallas_runtime_params", "off",
+                                        None, None),
+    "GRAYSCOTT_PALLAS_STEPS_PER_CALL": ("pallas_steps_per_call", "8", "16",
+                                        "Queue 2 item 8"),
+}
+
+
+@pytest.fixture
+def clean_more_env(clean_env):
+    for var in MORE_FLAGS:
+        clean_env.delenv(var, raising=False)
+    return clean_env
+
+
+def both_args(argv):
+    """The backends' keyword arguments from the port's parser and from
+    JAX's on the same argv, over the keys the port's backend takes."""
+    from grayscott_tpu.backends.pallas import PallasSimulation
+
+    port = CudaSimulation.args_from_namespace(
+        simulate.build_parser().parse_args(argv))
+    ref = PallasSimulation.args_from_namespace(
+        jax_simulate.build_parser().parse_args(argv))
+    return port, {k: ref[k] for k in port}
+
+
+@pytest.mark.parametrize("var", sorted(MORE_FLAGS))
+def test_more_flags_default_to_their_variables(clean_more_env, var):
+    """Each new variable gives its flag's default in both parsers, the same
+    backend arguments; the port runs the value, or refuses it naming its
+    ROADMAP.md item."""
+    dest, runs, refused, item = MORE_FLAGS[var]
+    assert both_args([])[0] == both_args([])[1]
+    for value in (runs, refused):
+        if value is None:
+            continue
+        clean_more_env.setenv(var, value)
+        port, ref = both_args([])
+        assert port == ref
+        ns = simulate.build_parser().parse_args(
+            ["--device", "cpu", "-r", "24", "-c", "32"])
+        assert str(getattr(ns, dest)) == value
+        if value == refused:
+            with pytest.raises(UnsupportedConfigError, match=item):
+                shared.make_simulation(ns)
+        else:
+            sim = shared.make_simulation(ns)
+            sim.perform_steps(sim.make_species((24, 32)), 9)
+
+
+#: argv -> the ROADMAP.md item the port's refusal names (None: it runs)
+ARGV = [
+    (["--pallas-dtype", "float32"], None),
+    (["--pallas-dtype", "bfloat16"], "Queue 2 item 4"),
+    (["--pallas-fold", "auto"], None),
+    (["--pallas-fold", "off"], None),
+    (["--pallas-fold", "1"], None),
+    (["--pallas-fold", "4"], "Queue 2 item 7"),
+    (["--pallas-naive-fix", "select"], None),
+    (["--pallas-naive-fix", "store"], "Queue 2 item 6"),
+    (["--pallas-naive-fix", "slice"], "Queue 2 item 6"),
+    (["--pallas-naive-fold", "off"], None),
+    (["--pallas-naive-fold", "on"], "Queue 2 item 5"),
+    (["--pallas-runtime-params", "on"], None),
+    (["--pallas-runtime-params", "off"], None),
+    (["--pallas-steps-per-call", "8"], None),
+    (["--pallas-steps-per-call", "16"], "Queue 2 item 8"),
+    (["--pallas-steps-per-call", "1"], "Queue 2 item 8"),
+    (["--pallas-block-rows", "64"], "Queue 2 item 8"),
+    (["--pallas-block-cols", "256"], "Queue 2 item 8"),
+    (["--pallas-engine", "mega", "--pallas-runtime-params", "off",
+      "--pallas-fold", "off", "--pallas-steps-per-call", "8"], None),
+]
+
+
+@pytest.mark.parametrize("argv,item", ARGV)
+def test_flag_values_against_jax(clean_more_env, argv, item):
+    """The port's parser gives the backend what JAX's gives its own on the
+    same argv; each value the port runs runs (the same frames as with no
+    flag: runtime parameters on and off, K = 8 pinned), each value it does
+    not run raises :class:`UnsupportedConfigError` naming its item."""
+    port, ref = both_args(argv)
+    assert port == ref
+    ns = simulate.build_parser().parse_args(
+        ["--device", "cpu", "-r", "24", "-c", "32", *argv])
+    if item is not None:
+        with pytest.raises(UnsupportedConfigError, match=item):
+            shared.make_simulation(ns)
+        return
+    plain = simulate.build_parser().parse_args(
+        ["--device", "cpu", "-r", "24", "-c", "32"])
+    frames = []
+    for n in (ns, plain):
+        sim = shared.make_simulation(n)
+        species = sim.make_species((24, 32))
+        sim.perform_steps(species, 9)
+        frames.append(species.result_host())
+    assert (frames[0] == frames[1]).all()
+
+
+@pytest.mark.parametrize("var,value", [
+    ("GRAYSCOTT_PALLAS_DTYPE", "float16"),
+    ("GRAYSCOTT_NAIVE_FIX", "patch"),
+    ("GRAYSCOTT_NAIVE_FOLD", "yes"),
+    ("GRAYSCOTT_PALLAS_RUNTIME_PARAMS", "maybe"),
+])
+def test_bad_variable_stops_both_parsers(clean_more_env, var, value):
+    clean_more_env.setenv(var, value)
+    for module in (simulate, jax_simulate):
+        with pytest.raises(SystemExit):
+            module.build_parser()

@@ -13,8 +13,10 @@ import subprocess
 
 import numpy as np
 import pytest
-import torch
 
+torch = pytest.importorskip("torch")
+
+from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends import get_backend
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
@@ -1013,3 +1015,68 @@ def test_conv_runs_without_tf32(cuda_device, boundary):
     for a, b in zip(got["cuda"], got["cpu"]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
     assert torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ablation", [None, 0])
+@pytest.mark.parametrize("snapshot_dtype", ["float32", "bfloat16"])
+def test_simulate_frames_kept_by_the_sink_equal_replay(cuda_device,
+                                                        snapshot_dtype,
+                                                        ablation):
+    """``simulate.run`` copies each snapshot to the host on a copy stream of
+    its own while the next batch runs (``ablation=None``), or on the launch
+    stream (part 0, the first form). A sink that keeps every frame (the
+    float32 ones are views of their pinned buffers) sees every frame equal
+    to the plain replay, bit for bit; bf16 frames are the replay rounded
+    through bf16."""
+    from grayscott_tpu_torch.ops import stencil
+    from grayscott_tpu_torch.species import initial_uv
+
+    shape, images, steps = (256, 384), 12, 8
+    sim = CudaSimulation(Parameters(), "naive", device=cuda_device,
+                         engine="windowed", tuned_lookup=False)
+    species = sim.make_species(shape)
+    frames = []
+    simulate.run(sim, species, images, steps, frames.append, snapshot_dtype,
+                 ablation=ablation)
+    torch.cuda.synchronize()
+    consts = kernel_constants(Parameters())
+    u, v = (torch.from_numpy(x) for x in initial_uv(shape))
+    assert len(frames) == images
+    for frame in frames:
+        u, v = stencil.run(u, v, steps, consts, "naive")
+        want = v if snapshot_dtype == "float32" else \
+            v.to(torch.bfloat16).float()
+        assert frame.dtype == np.float32
+        np.testing.assert_array_equal(frame.view(np.int32),
+                                      want.numpy().view(np.int32))
+
+
+@pytest.mark.gpu
+def test_autotune_record_is_followed(cuda_device, tmp_path, monkeypatch):
+    """One ``autotune`` call at 256x384 zero persists a record keyed on the
+    card (``autotune_platform``) that ``auto`` then follows: layout and
+    engine; a second call measures nothing."""
+    from grayscott_tpu_torch.bench import autotune
+    from grayscott_tpu_torch.utils import cache
+    from grayscott_tpu_torch.utils.device import autotune_platform
+
+    monkeypatch.setenv("GRAYSCOTT_CACHE_DIR", str(tmp_path))
+    params, shape = Parameters(), (256, 384)
+    rec = autotune.autotune(params, shape, "zero", device=cuda_device,
+                            steps=64, reps=2)
+    key = autotune.key_for(params, shape, "zero", device=cuda_device)
+    platform = autotune_platform(cuda_device)
+    assert platform not in ("gpu", "cuda") and f":{platform}:" in key
+    assert cache.load_autotune()[key] == rec
+    assert rec["device_gcells_per_sec"] > 0 and len(rec["candidates"]) == 6
+    sim = CudaSimulation(params, "zero", device=cuda_device)
+    assert sim.layout_for(shape) == (rec["pack"], rec["engine"])
+    tag = sim.make_species(shape).storage[0]
+    want = cuda_backend.PACKED_TAGS[rec["engine"]] if rec["pack"] \
+        else rec["engine"]
+    assert tag == want
+    before = autotune.measurements
+    assert autotune.autotune(params, shape, "zero",
+                             device=cuda_device) == rec
+    assert autotune.measurements == before

@@ -10,7 +10,8 @@ tests/test_torch_gpu.py."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.backends.pallas import PallasSimulation
 from grayscott_tpu_torch.ops import ilpsplit, stencil

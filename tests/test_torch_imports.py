@@ -1,7 +1,9 @@
 """The port and chip_smoke.py import with jax, h5py and the JAX package
 blocked: the card's machine has neither jax nor h5py, and the port keeps
 its own copies of what it needs from the JAX package. Each copy is held
-against its JAX original here."""
+against its JAX original here. And the other way round: with torch
+blocked, every port test module skips at collection instead of failing
+(a host with the JAX package alone, as its CI job has)."""
 
 import argparse
 import json
@@ -11,6 +13,8 @@ import sys
 
 import numpy as np
 import pytest
+
+torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,6 +40,51 @@ print(json.dumps({
                           if sys.modules[m] is not None),
 }))
 """
+
+
+#: every test module of the port, this one included
+PORT_TESTS = sorted(name for name in os.listdir(os.path.join(REPO, "tests"))
+                    if name.startswith("test_torch_")
+                    and name.endswith(".py"))
+
+#: collects the port's test modules with torch blocked, as a host without
+#: torch would (the JAX package's CI job installs none), and prints each
+#: module's collection outcome
+NO_TORCH_PROBE = r"""
+import json, sys
+sys.modules["torch"] = None
+import pytest
+
+class Outcomes:
+    def __init__(self):
+        self.modules = {}
+
+    def pytest_collectreport(self, report):
+        if report.nodeid.endswith(".py"):
+            self.modules[report.nodeid.rsplit("/", 1)[-1]] = report.outcome
+
+outcomes = Outcomes()
+rc = pytest.main(["--collect-only", "-q", "-p", "no:cacheprovider",
+                  *sys.argv[1:]], plugins=[outcomes])
+print(json.dumps({"rc": int(rc), "modules": outcomes.modules}))
+"""
+
+
+@pytest.fixture(scope="module")
+def without_torch():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", NO_TORCH_PROBE,
+         *(os.path.join("tests", name) for name in PORT_TESTS)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", PORT_TESTS)
+def test_port_test_module_skips_without_torch(without_torch, module):
+    """Each port test module begins with ``pytest.importorskip("torch")``:
+    on a host without torch its collection is a skip, not an error."""
+    assert without_torch["modules"][module] == "skipped"
 
 
 @pytest.fixture(scope="module")
@@ -79,6 +128,13 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.bench.headline",
         "grayscott_tpu_torch.utils.device", "grayscott_tpu_torch.utils.logs",
         "grayscott_tpu_torch.utils.progress",
+        "grayscott_tpu_torch.utils.cache",
+        "grayscott_tpu_torch.bench.autotune",
+        "grayscott_tpu_torch.bench.defaults",
+        "grayscott_tpu_torch.scripts.parity_check",
+        "grayscott_tpu_torch.scripts._sweep_util",
+        "grayscott_tpu_torch.scripts.sweep",
+        "grayscott_tpu_torch.scripts.adopt_sweep",
     }
     assert expected <= set(probe["imported"])
 

@@ -8,7 +8,8 @@ bit for bit, NaN and Inf included, and through it the numpy oracle."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu import oracle
 from grayscott_tpu.params import Parameters as JaxParameters

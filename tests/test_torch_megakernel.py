@@ -6,7 +6,8 @@ version on the card by tests/test_torch_gpu.py."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu import oracle
 from grayscott_tpu.backends.pallas import PallasSimulation

@@ -10,7 +10,9 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
+
 from jax.experimental import pallas as pl
 
 from grayscott_tpu_torch.ops import oplat

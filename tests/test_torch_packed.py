@@ -15,7 +15,8 @@ operation rounded once); the worst seen here is 3.6e-7.
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.backends.pallas import PallasSimulation
 from grayscott_tpu.cli import simulate as jax_simulate

@@ -13,7 +13,8 @@ interpret mode, for the reason tests/test_torch_packed.py gives."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.ops import pallas_stencil as ps
 from grayscott_tpu.params import Parameters as JaxParameters

@@ -15,7 +15,8 @@ contract the packed tree into fused multiply-adds, a few ulp a step)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.ops import pallas_stencil as ps
 from grayscott_tpu.params import Parameters as JaxParameters

@@ -8,7 +8,8 @@ import json
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu.bench import harness as jax_harness
 from grayscott_tpu.bench import report as jax_report

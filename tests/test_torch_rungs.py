@@ -16,7 +16,8 @@ import os
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu import oracle
 from grayscott_tpu.backends import get_backend as jax_get_backend

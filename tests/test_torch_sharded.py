@@ -8,7 +8,8 @@ tests/test_torch_gpu.py."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu import oracle
 from grayscott_tpu.backends.sharded import ShardedSimulation as JaxSharded

@@ -5,7 +5,8 @@ interpret mode and against the numpy oracle."""
 import h5py
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu import oracle
 from grayscott_tpu.cli import simulate as jax_simulate

@@ -4,7 +4,8 @@ kernel's reaction operand."""
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from grayscott_tpu import oracle
 from grayscott_tpu.ops import pallas_stencil as ps
