@@ -5,8 +5,9 @@
 
 1. Prints the environment: PyTorch and its CUDA, the card, its power limit
    (nvidia-smi) and nvcc.
-2. Builds the kernels from ``grayscott_tpu_torch/csrc/`` into
-   ``build/kernels/`` and prints the build time, ptxas's report, each K1,
+2. Builds the kernels from ``grayscott_tpu_torch/csrc/`` into the build
+   store (``$GRAYSCOTT_CACHE_DIR/kernels``: the script's temporary store)
+   and prints the build time, ptxas's report, each K1,
    K2, K3, K7, K9, K4, K5 and K6 instantiation's registers, spills and
    static shared memory (a spill in K2, K4, K6 or K7 fails the run), K4's
    and K6's dynamic shared memory, how many of K1's, K2's, K3's, K4's,
@@ -140,9 +141,28 @@
    and K3 on both boundaries, K4, K6 and K5 on the zero boundary, and on
    ``fused`` and ``conv``: its 1e-3 rule, every kernel launched, the
    unpacked engines within PARITY.md's 6.1e-6; each max|dV| a snapshot.
+14. ``livesim`` on the card at 1080x1920 (``cli/livesim.py``). (a) The
+   headless dump ``--frames 8 -e 32`` on ``auto`` (K3 by the shipped
+   record) at depths 1 and 3, and with ``--boundary zero --pallas-pack
+   on`` (K6) at depth 3, each with the launch counts zeroed before it and
+   read after (one launch a frame): 8 PNGs each, the depths' files
+   identical, every picture the palette of the plain replay's indices on
+   the card; the host's PNG encode of one frame, timed. (b) The web view
+   served from a thread on a free localhost port: ``/state``,
+   ``/palette.bin``, two ``/frame.bin`` against the plain replay's
+   indices, ``/set?feedrate=`` with the state carried over, then the
+   server shut down. (c) ``scripts/livesim_fps.py`` at depths 1-4, 1 and
+   32 steps a frame, and the index pass and one frame's device-to-host
+   copy by CUDA events. (d) ``GRAYSCOTT_DEBUG``: a diverging run raises
+   ``FloatingPointError``, and the default run with the checks on and off
+   in turns; a ``utils/profiling.py:trace`` of two images on the card
+   (``bench/ladder.py:profile_images``). (e) One build of the kernel
+   library and of the native colorizer and PNG encoder into a fresh
+   ``GRAYSCOTT_CACHE_DIR``, timed; (f) which PNG encoder runs, and g++'s
+   version. The ``kernels`` line gives K3 and K6 their ``livesim_launches``.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
-(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 13 run after
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 14 run after
 them, then phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
@@ -155,25 +175,31 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import http.client
 import importlib.util
 import json
 import os
 import re
+import socket
 import statistics
 import sys
 import tempfile
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from grayscott_tpu_torch import native
 from grayscott_tpu_torch.backends import cuda as cuda_backend
 from grayscott_tpu_torch.backends import get_backend
+from grayscott_tpu_torch.backends.base import DEBUG_VAR
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.bench import (autotune, defaults, headline, ladder,
                                        simulate_turns)
-from grayscott_tpu_torch.cli import shared, simulate
+from grayscott_tpu_torch.cli import livesim, shared, simulate
 from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      packed, resident, sharded_mega, stencil,
                                      windowed)
@@ -181,11 +207,14 @@ from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import (Parameters, kernel_constants,
                                         packed_constants)
 from grayscott_tpu_torch.scripts import ilpsplit as ilpsplit_script
+from grayscott_tpu_torch.scripts import livesim_fps
 from grayscott_tpu_torch.scripts import oplat as oplat_script
 from grayscott_tpu_torch.scripts import parity_check
 from grayscott_tpu_torch.species import Species, initial_uv
 from grayscott_tpu_torch.utils import cache
 from grayscott_tpu_torch.utils import device as gpu
+from grayscott_tpu_torch.utils.logs import init_logging
+from grayscott_tpu_torch.utils.palette import inferno_lut
 
 #: kernel vs plain version, max |difference|: both run the same float32
 #: expression tree with every operation rounded once (nvcc -fmad=false, no
@@ -2395,6 +2424,309 @@ def parity_phase(checks: Checks, card: str) -> dict:
     return out
 
 
+#: phase 14: livesim on the card at the default 1080x1920 domain. (a) the
+#: headless dump: LIVESIM_FRAMES frames of MAIN_STEPS steps at each depth
+#: of LIVESIM_DEPTHS on auto (K3 by the shipped record), and at the last
+#: one with ZERO_PACKED (K6); (c) livesim_fps at each depth of
+#: LIVESIM_FPS_DEPTHS and each steps a frame of LIVESIM_FPS_STEPS
+LIVESIM_FRAMES = 8
+LIVESIM_DEPTHS = (1, 3)
+LIVESIM_FPS_DEPTHS = (1, 2, 3, 4)
+LIVESIM_FPS_STEPS = (1, MAIN_STEPS)
+LIVESIM_FPS_FRAMES = 60
+#: GRAYSCOTT_DEBUG's cost on the default run: rounds of (off, on, on, off)
+DEBUG_ROUNDS = 2
+
+
+def livesim_engine(flags: list) -> str:
+    """The kernel tag that livesim's simulation runs with ``flags``."""
+    ns = livesim.build_parser().parse_args(flags)
+    sim = shared.make_simulation(ns)
+    tag = sim.make_species((70, 97)).storage[0]
+    return KERNEL_OF.get(tag, tag)
+
+
+def livesim_headless(checks: Checks, card: str) -> dict:
+    """Phase 14a: ``livesim.main --frames 8 -e 32`` at 1080x1920 on auto at
+    depths 1 and 3, and with ``--boundary zero --pallas-pack on`` at depth
+    3, each with the launch counts zeroed before it and read after: 8 PNGs,
+    the depths' files identical, one launch of the engine a frame and no
+    other, and every picture the palette of the indices of the plain replay
+    on the card (the 256 rows are distinct, so equal pixels are equal
+    indices). Returns each run's launches of its engine."""
+    lut = inferno_lut(256)
+    replays = {
+        "naive": replay_frames(MAIN_SHAPE, "naive", Parameters(),
+                               LIVESIM_FRAMES, MAIN_STEPS, DEVICE),
+        "zero": replay_packed_frames(MAIN_SHAPE, Parameters(),
+                                     LIVESIM_FRAMES, MAIN_STEPS, DEVICE)}
+    want = {b: [lut[livesim.palette_index(f, len(lut)).cpu().numpy()]
+                for f in frames] for b, frames in replays.items()}
+    runs = [([], "naive", depth) for depth in LIVESIM_DEPTHS]
+    runs.append((ZERO_PACKED, "zero", LIVESIM_DEPTHS[-1]))
+    files: dict = {}
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_livesim_") as tmp:
+        for flags, boundary, depth in runs:
+            engine = livesim_engine(flags)
+            outdir = os.path.join(tmp, f"{boundary}-{depth}")
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = livesim.main(["--frames", str(LIVESIM_FRAMES), "-e",
+                               str(MAIN_STEPS), "--frames-in-flight",
+                               str(depth), "--output-dir", outdir, *flags])
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            names = sorted(os.listdir(outdir))
+            data = []
+            for name in names:
+                with open(os.path.join(outdir, name), "rb") as f:
+                    data.append(f.read())
+            expect = {tag: 0 for tag in COUNTERS}
+            expect[engine] = expected_launches(engine, LIVESIM_FRAMES,
+                                               MAIN_STEPS)
+            label = " ".join(flags) or "auto"
+            print(f"path livesim --frames {LIVESIM_FRAMES} -e {MAIN_STEPS} "
+                  f"{label} depth {depth}: engine {engine}, rc {rc}, "
+                  f"{seconds!r} s ({LIVESIM_FRAMES / seconds!r} fps, "
+                  f"set-up included), launches {launches} (expected "
+                  f"{expect}) [{card}]", flush=True)
+            checks.expect(rc == 0 and launches == expect,
+                          f"livesim {label} depth {depth}: rc {rc}, "
+                          f"launches {launches}")
+            checks.expect(names == [f"{i}.png" for i in
+                                    range(LIVESIM_FRAMES)],
+                          f"livesim {label} depth {depth}: files {names}")
+            same = [np.array_equal(native.png_decode(d), w)
+                    for d, w in zip(data, want[boundary])]
+            print(f"path livesim {label} depth {depth}: pictures equal to "
+                  f"the palette of the plain replay's indices: {same}",
+                  flush=True)
+            checks.expect(len(same) == LIVESIM_FRAMES and all(same),
+                          f"livesim {label} depth {depth} vs plain replay")
+            files[boundary, depth] = data
+            out[engine] = launches[engine]
+    depths = [files["naive", d] for d in LIVESIM_DEPTHS]
+    checks.expect(all(d == depths[0] for d in depths),
+                  "livesim: the depths' PNG files differ")
+    # the dump's steady rate, set-up excluded, and its host stages
+    src = livesim.FrameSource(livesim.build_parser().parse_args(
+        ["-e", str(MAIN_STEPS)]))
+    src.next_idx_bounded(1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_livesim_") as tmp:
+        t0 = time.perf_counter()
+        livesim.run_headless(src, LIVESIM_FRAMES, tmp)
+        dump_s = time.perf_counter() - t0
+    idx = src._last_idx
+    lut_ms = gpu.time_call(lambda: lut[idx], "cpu") * 1e3
+    rgb = want["naive"][-1]
+    png_ms = gpu.time_call(lambda: native.png_encode(rgb), "cpu") * 1e3
+    print(f"livesim headless dump, depth {src.frames_in_flight}, set-up "
+          f"excluded: {LIVESIM_FRAMES / dump_s!r} fps "
+          f"({dump_s / LIVESIM_FRAMES * 1e3!r} ms/frame); on the host a "
+          f"frame's palette lookup {lut_ms!r} ms and PNG encode {png_ms!r} "
+          f"ms ({rgb.nbytes} B of RGB; {native.encoder()}) [{card}]",
+          flush=True)
+    return out
+
+
+def _get(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def livesim_web(checks: Checks, card: str) -> None:
+    """Phase 14b: the web view of the default livesim (1080x1920, auto,
+    depth 3, one step a frame) served from a thread on a free localhost
+    port: /state, /palette.bin, two /frame.bin against the plain replay's
+    indices (the first GET dispatches 3 frames, the second one more: 4
+    launches of the engine and no other), /set?feedrate= reflected in
+    /state with the state carried over; then the server is shut down."""
+    lut = inferno_lut(256)
+    src = livesim.FrameSource(livesim.build_parser().parse_args([]))
+    engine = KERNEL_OF.get(src.species.storage[0], src.species.storage[0])
+    replay = replay_frames(MAIN_SHAPE, "naive", Parameters(), 2, 1, DEVICE)
+    want = [livesim.palette_index(f, len(lut)).cpu().numpy().tobytes()
+            for f in replay]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server = livesim.make_server(src, port, 1000.0)
+    thread = threading.Thread(target=livesim.serve,
+                              args=(server, init_logging()), daemon=True)
+    thread.start()
+    try:
+        status, body = _get(port, "/state")
+        state = json.loads(body)
+        checks.expect(status == 200 and state["rows"] == MAIN_SHAPE[0]
+                      and state["cols"] == MAIN_SHAPE[1]
+                      and state["palette_n"] == 256
+                      and state["backend"] == "cuda",
+                      f"livesim web /state: {status} {state}")
+        status, pal = _get(port, "/palette.bin")
+        checks.expect(status == 200 and pal == lut.tobytes(),
+                      f"livesim web /palette.bin: {status}, {len(pal)} B")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        frames = [_get(port, "/frame.bin") for _ in range(2)]
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        expect = {tag: 0 for tag in COUNTERS}
+        expect[engine] = src.frames_in_flight + 1
+        same = [status == 200 and body == w
+                for (status, body), w in zip(frames, want)]
+        print(f"livesim web: /state {state}; /palette.bin {len(pal)} B; "
+              f"two /frame.bin of {[len(b) for _, b in frames]} B in "
+              f"{seconds!r} s, equal to the plain replay's indices: {same}; "
+              f"launches {launches} (expected {expect}) [{card}]",
+              flush=True)
+        checks.expect(all(same) and launches == expect,
+                      f"livesim web /frame.bin: {same}, {launches}")
+        before = src.species.uv_host()
+        steps = src.species.steps_performed
+        status, body = _get(port, "/set?feedrate=0.03")
+        state = json.loads(body)
+        after = src.species.uv_host()
+        carried = all(np.array_equal(a, b) for a, b in zip(before, after))
+        status2, frame = _get(port, "/frame.bin")
+        print(f"livesim web /set?feedrate=0.03: {state}; state carried "
+              f"over: {carried}, steps {steps} -> "
+              f"{src.species.steps_performed} after one more /frame.bin "
+              f"({status2}, {len(frame)} B)", flush=True)
+        checks.expect(status == 200 and state["feedrate"] == 0.03
+                      and json.loads(_get(port, "/state")[1])["feedrate"]
+                      == 0.03 and carried and status2 == 200
+                      and len(frame) == MAIN_SHAPE[0] * MAIN_SHAPE[1],
+                      f"livesim web /set: {state}, carried {carried}")
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    checks.expect(not thread.is_alive(), "livesim web: server still up")
+
+
+def livesim_rates(card: str) -> dict:
+    """Phase 14c: ``scripts/livesim_fps.py`` at 1080x1920 on auto, each
+    depth of LIVESIM_FPS_DEPTHS and steps a frame of LIVESIM_FPS_STEPS;
+    the index pass and one frame's copy by CUDA events."""
+    out = {}
+    for spf in LIVESIM_FPS_STEPS:
+        for depth in LIVESIM_FPS_DEPTHS:
+            src = livesim_fps.make_source(*MAIN_SHAPE, depth, spf,
+                                          device=DEVICE)
+            if depth == LIVESIM_FPS_DEPTHS[0] and spf == LIVESIM_FPS_STEPS[0]:
+                c = livesim_fps.frame_costs(src)
+                out["costs"] = c
+                print(f"livesim_fps frame: {c['frame_mb']!r} MB of indices;"
+                      f" index pass {c['index_ms']!r} ms, device to host "
+                      f"{c['d2h_ms']!r} ms (CUDA events) [{card}]",
+                      flush=True)
+            r = livesim_fps.measure_depth(src, LIVESIM_FPS_FRAMES)
+            out[spf, depth] = r
+            print(f"livesim_fps depth {depth} steps/frame {spf}: "
+                  f"{r['fps']!r} fps ({r['ms_per_frame']!r} ms/frame, "
+                  f"{r['mb_per_s']!r} MB/s) engine {r['engine']} [{card}]",
+                  flush=True)
+    return out
+
+
+def debug_phase(checks: Checks, card: str) -> None:
+    """Phase 14d: with GRAYSCOTT_DEBUG on, a diverging run (-t 1e4) on auto
+    raises FloatingPointError naming the backend; the default run's ms an
+    image with the checks on and off, in turns; then the ladder's trace
+    (``utils/profiling.py:trace``) of two images of ``cuda`` auto."""
+    os.environ[DEBUG_VAR] = "1"
+    try:
+        ns = simulate.build_parser().parse_args(["-t", "1e4"])
+        sim = shared.make_simulation(ns)
+        species = sim.make_species(MAIN_SHAPE)
+        try:
+            simulate.run(sim, species, 4, MAIN_STEPS, lambda frame: None)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        print(f"{DEBUG_VAR}=1, -t 1e4 on auto: {raised!r}", flush=True)
+        checks.expect(raised is not None and "cuda" in raised,
+                      f"{DEBUG_VAR}: a diverging run did not raise")
+        torch.cuda.synchronize()
+    finally:
+        del os.environ[DEBUG_VAR]
+    ms: dict = {False: [], True: []}
+    for _ in range(DEBUG_ROUNDS):
+        for on in (False, True, True, False):
+            if on:
+                os.environ[DEBUG_VAR] = "1"
+            try:
+                ms[on].append(simulate_turns.run_ms([], MAIN_IMAGES,
+                                                    MAIN_STEPS))
+            finally:
+                os.environ.pop(DEBUG_VAR, None)
+    off, on = statistics.median(ms[False]), statistics.median(ms[True])
+    print(f"{DEBUG_VAR} cost on the default run (auto, {MAIN_IMAGES} images "
+          f"x {MAIN_STEPS} steps): on {on!r} ms/image {ms[True]!r}, off "
+          f"{off!r} ms/image {ms[False]!r}, in turns: {on / off!r}x "
+          f"[{card}]", flush=True)
+    prof = ladder.profile_images("cuda", 2)
+    print(f"trace of cuda auto, 2 images ({prof['trace']}): "
+          f"{prof['kernels_per_step']!r} kernels a step, "
+          f"{prof['copies_per_image']!r} copies an image, device busy "
+          f"{prof['device_busy_ms']!r} ms an image, idle share "
+          f"{prof['idle_share']!r} [{card}]", flush=True)
+    checks.expect(prof["kernels_per_step"] > 0
+                  and prof["device_busy_ms"] is not None,
+                  f"the trace holds no device kernel: {prof}")
+
+
+def build_cache_phase(checks: Checks) -> None:
+    """Phase 14e: one build of the kernel library and of the native library
+    into a fresh GRAYSCOTT_CACHE_DIR, each timed, each under it; (f) the
+    PNG encoder that runs, and g++'s version."""
+    saved = os.environ.get("GRAYSCOTT_CACHE_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as tmp:
+        os.environ["GRAYSCOTT_CACHE_DIR"] = tmp
+        try:
+            t0 = time.perf_counter()
+            built = build.build()
+            kernel_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            native_path = native.build()
+            native_s = time.perf_counter() - t0
+        finally:
+            if saved is None:
+                del os.environ["GRAYSCOTT_CACHE_DIR"]
+            else:
+                os.environ["GRAYSCOTT_CACHE_DIR"] = saved
+        print(f"build store {tmp}: kernels {built.path.name} in "
+              f"{kernel_s!r} s (nvcc {built.seconds!r} s); native "
+              f"{native_path.name if native_path else None} in "
+              f"{native_s!r} s", flush=True)
+        checks.expect(built.seconds > 0 and built.path.parent
+                      == Path(tmp) / "kernels" and built.path.exists(),
+                      f"kernel build into the store: {built.path}")
+        gxx = native.gxx_version()
+        checks.expect(gxx.startswith("g++ not found") or (
+            native_path is not None and native_path.parent
+            == Path(tmp) / "native" and native_path.exists()),
+                      f"native build into the store: {native_path}")
+    print(f"png encoder: {native.encoder()}; g++: {gxx}", flush=True)
+
+
+def livesim_phase(checks: Checks, card: str) -> dict:
+    """Phase 14 (a)-(f); returns phase 14a's launches by engine."""
+    live = livesim_headless(checks, card)
+    livesim_web(checks, card)
+    livesim_rates(card)
+    debug_phase(checks, card)
+    build_cache_phase(checks)
+    return live
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -2537,6 +2869,10 @@ def run_phases(args) -> int:
     t13 = time.perf_counter()
     parity_phase(checks, card)
     print(f"phase 13: {time.perf_counter() - t13!r} s", flush=True)
+    # 14. livesim on the card, the debug checks, the build store
+    t14 = time.perf_counter()
+    live = livesim_phase(checks, card)
+    print(f"phase 14: {time.perf_counter() - t14!r} s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -2632,6 +2968,11 @@ def run_phases(args) -> int:
         plain_ms=k7["plain"], bound_ms=bound, bound_by=by, library_ms=None,
         shape=list(MAIN_SHAPE), steps=MAIN_STEPS, boundary="naive",
         mesh=list(auto["mesh"]), redesigned="csrc/gs_tile_sm90.cuh"))
+    # the kernels that phase 14a's livesim runs drove, their launches there
+    for tag, entry in zip(["windowed", "resident", "mega", *PACKED_FLAGS,
+                           "oplat", "ilpsplit", "shmega"], entries):
+        if tag in live:
+            entry["livesim_launches"] = live[tag]
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

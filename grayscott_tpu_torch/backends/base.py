@@ -51,6 +51,11 @@ def env_flag(name: str) -> bool:
         "", "0", "false", "no", "off")
 
 
+#: on (:func:`env_flag`) when a simulation is built, its every
+#: ``prepare_steps`` checks the state for NaN and Inf (``utils/runtime.py``)
+DEBUG_VAR = "GRAYSCOTT_DEBUG"
+
+
 class Simulation(abc.ABC):
     """One compute backend."""
 
@@ -64,6 +69,8 @@ class Simulation(abc.ABC):
         self.params = params
         self.boundary = boundary
         self.device = torch.device(device)
+        #: check the state for NaN and Inf after every prepare_steps
+        self.debug = env_flag(DEBUG_VAR)
 
     def make_species(self, shape: Tuple[int, int]) -> Species:
         """The standard initial state (``initial_uv``) in this layout."""
@@ -93,10 +100,25 @@ class Simulation(abc.ABC):
         self.block_until_ready(species)
 
     def prepare_steps(self, species: Species, steps: int) -> None:
-        """Enqueue ``steps`` steps and return without waiting."""
+        """Enqueue ``steps`` steps and return without waiting (with
+        :attr:`debug` on, wait and check the state)."""
         species.storage = self.run_steps(species.storage, species.shape,
                                          steps)
         species.steps_performed += steps
+        if self.debug:
+            self.check_finite(species)
+
+    def check_finite(self, species: Species) -> None:
+        """Raise ``FloatingPointError`` when U or V holds a NaN or an Inf
+        (``GRAYSCOTT_DEBUG``, the counterpart of JAX's ``jax_debug_nans``
+        and ``jax_debug_infs``). Reading the answer synchronises."""
+        for name, x in zip("UV", self.extract_uv(species.storage,
+                                                 species.shape)):
+            if not bool(torch.isfinite(x).all()):
+                raise FloatingPointError(
+                    f"{DEBUG_VAR}: {name} holds a NaN or an Inf on the "
+                    f"{self.name} backend after {species.steps_performed} "
+                    "steps")
 
     @classmethod
     def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:

@@ -42,6 +42,7 @@ from typing import Iterable, List, Sequence
 
 import torch
 
+from ..utils.runtime import PLATFORMS, default_device
 from . import stats
 
 WORKLOADS = ("compute", "full_sync", "full_future", "device")
@@ -49,8 +50,8 @@ WORKLOADS = ("compute", "full_sync", "full_future", "device")
 #: flag -> where ROADMAP.md keeps its port
 DEFERRED = {
     "dtype": "Queue 2, K1's variants (bf16 storage)",
-    "block_rows": "Queue 1, tuning and device plumbing",
-    "steps_per_call": "Queue 1, tuning and device plumbing",
+    "block_rows": "Queue 2 item 8, the pins",
+    "steps_per_call": "Queue 2 item 8, the pins",
 }
 
 
@@ -221,7 +222,8 @@ def main(argv=None) -> int:
     parser.add_argument("--engine", default=None,
                         choices=["auto", "windowed", "mega"],
                         help="pin the kernel engine")
-    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+    parser.add_argument("--device", default=default_device(),
+                        choices=PLATFORMS,
                         help="'cuda' (default) times the CUDA kernels; "
                         "'cpu' their plain PyTorch versions")
     for flag in DEFERRED:

@@ -26,6 +26,8 @@ import json
 import sys
 import time
 
+from ..utils.runtime import PLATFORMS, default_device
+
 #: The memory-bound rate of a solver without temporal blocking on an
 #: NVIDIA H100 80GB HBM3 (SXM) at its 700 W power limit: 3.35 TB/s (the
 #: data sheet's HBM3 bandwidth) over 16 B per cell-update (U and V, f32,
@@ -108,7 +110,8 @@ def main(argv=None) -> int:
     parser.add_argument("-r", "--rows", type=int, default=4096)
     parser.add_argument("-c", "--cols", type=int, default=4096)
     parser.add_argument("--steps", type=int, default=1000)
-    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--device", default=default_device(),
+                        choices=PLATFORMS)
     args = parser.parse_args(argv)
     rows = {}
     for boundary in ("zero", "naive"):

@@ -10,8 +10,9 @@ ladder table.
 kernels' build, the graphs' captures), then ``rounds`` rounds (the
 backends in order, then reversed) of ``images`` images, ms an image on the
 host clock ending in a device synchronise. :func:`profile_images` traces
-``images`` more images of each with ``torch.profiler`` (CUDA activity
-only, so the host runs untraced): the device kernels a step, the device's
+``images`` more images of each with ``utils/profiling.py:trace`` (the
+card's activity only, so the host runs untraced; the Chrome trace stays
+under ``GRAYSCOTT_TRACE_DIR``): the device kernels a step, the device's
 busy time an image (the union of its kernels and copies), and the idle
 share of the device between the trace's first and last device event.
 Prints one JSON line with the card's name and power limit
@@ -91,29 +92,28 @@ def _union_us(intervals: List[Tuple[float, float]]) -> float:
 def profile_images(label: str, images: int = 4, shape=SHAPE,
                    steps: int = STEPS, boundary: str = "naive") -> dict:
     """``images`` images of backend ``label`` on the card under
-    ``torch.profiler`` (after a warm image): ``kernels_per_step``,
-    ``copies_per_image`` (memcpy and memset events), ``device_busy_ms``
-    and ``device_span_ms`` an image (the span: first to last device event)
-    and ``idle_share``; the times are None when the trace holds no device
-    event."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``utils/profiling.py:trace`` (after a warm image; the card alone, so the
+    host runs untraced): ``kernels_per_step``, ``copies_per_image`` (memcpy
+    and memset events), ``device_busy_ms`` and ``device_span_ms`` an image
+    (the span: first to last device event) and ``idle_share``; the times
+    are None when the trace holds no device event. ``trace`` is the trace
+    file's path."""
     from ..cli import simulate
+    from ..utils import profiling
 
     sim, species = make_run(label, shape, boundary, "cuda")
     simulate.run(sim, species, 1, steps, lambda frame: None)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(device="cuda", host=False) as path:
         simulate.run(sim, species, images, steps, lambda frame: None)
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
-    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    events = profiling.device_events(path)
+    copies = [e for e in events if e.category != "kernel"]
+    spans = [(e.start_us, e.end_us) for e in events]
     out = {"kernels_per_step": (len(events) - len(copies))
            / (images * steps), "copies_per_image": len(copies) / images,
            "device_busy_ms": None, "device_span_ms": None,
-           "idle_share": None}
+           "idle_share": None, "trace": path}
     if spans:
         busy = _union_us(spans)
         span = max(e for _, e in spans) - min(s for s, _ in spans)

@@ -1,1 +1,2 @@
-"""The port's command-line programs (``simulate`` so far)."""
+"""The port's command-line programs: ``simulate``, ``livesim`` and
+``data-to-pics``."""

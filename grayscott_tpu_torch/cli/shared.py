@@ -5,7 +5,8 @@ The same ``-k -f -e -r -c -t --preset --backend --stencil --boundary
 --autotune`` arguments with the same defaults and environment fallbacks,
 each backend's own arguments (the eleven ``--pallas-*`` flags;
 ``--sharded-engine``, ``--sharded-devices``, ``--sharded-mesh-cols``,
-``--sharded-overlap``), plus ``--device``. ``--backend auto`` (the
+``--sharded-overlap``), plus ``--device`` (default ``GRAYSCOTT_PLATFORM``,
+else ``cuda``: ``utils/runtime.py``). ``--backend auto`` (the
 default) is the selector's choice. ``--device cuda`` (the default) on a
 host where PyTorch sees no GPU stops with a message; the port never falls
 back to the CPU.
@@ -33,6 +34,7 @@ from ..backends.base import env_flag
 from ..backends.sharded import SHARDED_AUTOTUNE
 from ..errors import UnsupportedConfigError
 from ..params import DEFAULT_STENCIL, PRESETS, STENCILS, Parameters
+from ..utils.runtime import PLATFORMS, default_device
 
 
 def add_shared_args(parser: argparse.ArgumentParser) -> None:
@@ -97,9 +99,9 @@ def add_shared_args(parser: argparse.ArgumentParser) -> None:
         "the same domain finds the record and measures nothing",
     )
     parser.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
-        help="'cuda' (default) runs the hand-written CUDA kernels; 'cpu' "
-        "runs their plain PyTorch versions",
+        "--device", default=default_device(), choices=PLATFORMS,
+        help="'cuda' (default; env GRAYSCOTT_PLATFORM) runs the "
+        "hand-written CUDA kernels; 'cpu' runs their plain PyTorch versions",
     )
     for cls in BACKENDS.values():
         cls.add_cli_args(parser)

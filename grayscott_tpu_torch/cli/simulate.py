@@ -43,6 +43,7 @@ from ..io.hdf5 import Writer
 from ..species import Species
 from ..utils.logs import init_logging
 from ..utils.progress import ProgressBar
+from ..utils.runtime import apply_env_config
 from . import shared
 
 
@@ -144,6 +145,7 @@ def _deliver(frame: torch.Tensor, copied, sink) -> None:
 
 def main(argv=None) -> int:
     logger = init_logging()
+    apply_env_config()
     args = build_parser().parse_args(argv)
     steps_per_image = args.nbextrastep if args.nbextrastep is not None else 32
     file_name = shared.simulation_output_path(args.output)

@@ -2,10 +2,13 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all at once, and the
 objects are linked into one shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds), written to ``build/kernels/``
-beside the package and named by a hash of the sources, the headers they
-share (``csrc/*.cuh``) and the flags, so an edit or a flag change builds
-anew and an unchanged tree reuses the library. The pattern is that of
+PyTorch headers, so a build takes seconds), written to the build store
+(``utils/cache.py:build_dir``: ``$GRAYSCOTT_CACHE_DIR/kernels``, else
+``build/kernels/`` beside the package, else, where that is not writable,
+``~/.cache/grayscott_tpu_torch/kernels``) and named by a hash of the
+sources, the headers they share (``csrc/*.cuh``) and the flags, so an
+edit or a flag change builds anew and an unchanged tree reuses the
+library. The pattern is that of
 ``grayscott_tpu/native/__init__.py``, without its fallback: a build or
 load failure raises, since there is nothing else to run on a GPU.
 
@@ -26,9 +29,10 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from ..utils import cache
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,12 +80,14 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """The library's path in the build store, read at every call."""
     digest = hashlib.sha256()
     for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgs_kernels-{digest.hexdigest()[:16]}.so"
+    name = f"libgs_kernels-{digest.hexdigest()[:16]}.so"
+    return cache.build_dir("kernels") / name
 
 
 def _run(cmds: list[list[str]]) -> str:
@@ -109,7 +115,7 @@ def build() -> Build:
     path = library_path()
     if path.exists():
         return Build(path, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path.parent.mkdir(parents=True, exist_ok=True)
     # compile to private names, then rename: a reader never sees half a file
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]

@@ -41,6 +41,7 @@ from ..ops import ilpsplit, resident
 from ..params import Parameters, kernel_constants
 from ..species import initial_uv
 from ..utils.device import device_name, time_call
+from ..utils.runtime import PLATFORMS, default_device
 
 #: steps of the correctness check of each split (``ilpsplit.py:173-175``)
 CHECK_STEPS = 3
@@ -127,7 +128,7 @@ def main(argv=None) -> int:
         "groups the same steps in the same order, and the CUDA kernel runs "
         "them in one loop")
     parser.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
+        "--device", default=default_device(), choices=PLATFORMS,
         help="'cuda' (default) runs the CUDA kernels; 'cpu' their plain "
         "PyTorch versions")
     args = parser.parse_args(argv)

@@ -33,6 +33,7 @@ import torch
 from ..cli.shared import require_device
 from ..ops import oplat
 from ..utils.device import device_name, time_call
+from ..utils.runtime import PLATFORMS, default_device
 
 SHAPES = [(1088, 1920), (272, 1920), (1088, 4096), (272, 4096),
           (2176, 3840)]
@@ -93,7 +94,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="oplat", description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
+        "--device", default=default_device(), choices=PLATFORMS,
         help="'cuda' (default) runs the CUDA kernel; 'cpu' its plain "
         "PyTorch version")
     args = parser.parse_args(argv)

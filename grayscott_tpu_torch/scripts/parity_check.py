@@ -28,6 +28,7 @@ import time
 
 import numpy as np
 
+from ..utils.runtime import PLATFORMS, default_device
 from ._sweep_util import parse_pins
 
 #: the acceptance bound on max|dV| over the run (BASELINE.md)
@@ -109,7 +110,8 @@ def main(argv=None) -> int:
     parser.add_argument("--stencil", default="oono-puri",
                         help="Laplacian stencil; '5points' exercises the "
                         "kernels' DIRECT (non-separable) path")
-    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+    parser.add_argument("--device", default=default_device(),
+                        choices=PLATFORMS,
                         help="'cuda' (default) runs on the card; 'cpu' the "
                         "plain versions")
     parser.add_argument("-o", "--output", default=None)

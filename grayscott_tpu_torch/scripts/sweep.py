@@ -23,6 +23,7 @@ import json
 import os
 import sys
 
+from ..utils.runtime import PLATFORMS, default_device
 from ._sweep_util import parse_pins, run_configs
 
 
@@ -45,7 +46,8 @@ def main(argv=None) -> int:
     p.add_argument("--json", default=None,
                    help="JSON list of full config dicts (a path or inline); "
                    "merged after --configs")
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+    p.add_argument("--device", default=default_device(),
+                   choices=PLATFORMS,
                    help="'cuda' (default) runs on the card; 'cpu' the "
                    "plain versions")
     args = p.parse_args(argv)

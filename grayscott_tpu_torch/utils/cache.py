@@ -1,6 +1,8 @@
-"""The autotune store: the port's ``grayscott_tpu/utils/cache.py``, without
-the XLA compilation cache (the kernels build into ``build/kernels/``,
-``ops/build.py``).
+"""The port's two stores: the autotune records (the port's
+``grayscott_tpu/utils/cache.py``, without the XLA compilation cache) and
+the libraries the port builds on first use (:func:`build_dir`: the CUDA
+kernels, ``ops/build.py``, and the native colorizer and PNG encoder,
+``native/``).
 
 Autotune records (the winning engine and layout per device, domain,
 boundary, stencil and dtype) persist as JSON in ``autotune.json`` under
@@ -15,6 +17,10 @@ from __future__ import annotations
 import json
 import os
 import tempfile
+from pathlib import Path
+
+#: the checkout (or site-packages) directory that holds the package
+PACKAGE_PARENT = Path(__file__).resolve().parent.parent.parent
 
 
 def cache_dir() -> str:
@@ -23,6 +29,30 @@ def cache_dir() -> str:
         "GRAYSCOTT_CACHE_DIR",
         os.path.join(os.path.expanduser("~"), ".cache",
                      "grayscott_tpu_torch"))
+
+
+def build_dir(name: str) -> Path:
+    """Where the library ``name`` (``kernels``, ``native``) is built, read
+    at every call: under ``GRAYSCOTT_CACHE_DIR`` when it is set; else
+    ``build/<name>`` beside the package (a checkout; ``.gitignore`` lists
+    ``build/``); else, when that is not writable (a package installed in
+    site-packages), under the default :func:`cache_dir`."""
+    if os.environ.get("GRAYSCOTT_CACHE_DIR"):
+        return Path(cache_dir()) / name
+    local = PACKAGE_PARENT / "build" / name
+    if _writable(local):
+        return local
+    return Path(cache_dir()) / name
+
+
+def _writable(path: Path) -> bool:
+    """Whether ``path`` exists writable, or its first existing ancestor is
+    writable (so that it can be made)."""
+    while not path.exists():
+        if path.parent == path:
+            return False
+        path = path.parent
+    return os.access(path, os.W_OK)
 
 
 def autotune_path() -> str:

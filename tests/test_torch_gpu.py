@@ -1080,3 +1080,38 @@ def test_autotune_record_is_followed(cuda_device, tmp_path, monkeypatch):
     assert autotune.autotune(params, shape, "zero",
                              device=cuda_device) == rec
     assert autotune.measurements == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "fused"])
+@pytest.mark.parametrize("depth", [1, 3])
+def test_livesim_frames_on_card_equal_cpu(cuda_device, backend, depth):
+    """livesim's frames through the copy stream (pinned frames, events,
+    record_stream) equal the same source's frames on the CPU, index for
+    index, at any depth; the host keeps every frame it was handed."""
+    from grayscott_tpu_torch.cli import livesim
+
+    frames = {}
+    for device in ("cuda", "cpu"):
+        ns = livesim.build_parser().parse_args(
+            ["-r", "70", "-c", "97", "-e", "9", "--backend", backend,
+             "--frames-in-flight", str(depth), "--device", device])
+        src = livesim.FrameSource(ns)
+        frames[device] = [src.next_idx() for _ in range(6)]
+        assert src.species.steps_performed == 9 * (6 + depth - 1)
+    for got, want in zip(frames["cuda"], frames["cpu"]):
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_debug_check_raises_on_card(cuda_device, monkeypatch):
+    from grayscott_tpu_torch.cli import shared
+
+    monkeypatch.setenv("GRAYSCOTT_DEBUG", "1")
+    ns = simulate.build_parser().parse_args(
+        ["-r", "70", "-c", "97", "-t", "1e4", "--backend", "cuda"])
+    sim = shared.make_simulation(ns)
+    species = sim.make_species((70, 97))
+    with pytest.raises(FloatingPointError, match="cuda backend"):
+        simulate.run(sim, species, 4, 8, lambda frame: None)

@@ -1,9 +1,10 @@
-"""The port and chip_smoke.py import with jax, h5py and the JAX package
-blocked: the card's machine has neither jax nor h5py, and the port keeps
-its own copies of what it needs from the JAX package. Each copy is held
-against its JAX original here. And the other way round: with torch
-blocked, every port test module skips at collection instead of failing
-(a host with the JAX package alone, as its CI job has)."""
+"""The port and chip_smoke.py import with jax, h5py, matplotlib, PIL and
+the JAX package blocked: the port imports none of the four when a module
+is imported, and it keeps its own copies of what it needs from the JAX
+package. Each copy is held against its JAX original here. And the other
+way round: with torch blocked, every port test module skips at
+collection instead of failing (a host with the JAX package alone, as its
+CI job has)."""
 
 import argparse
 import json
@@ -20,9 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = r"""
 import importlib, json, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["h5py"] = None
-sys.modules["grayscott_tpu"] = None
+for blocked in ("jax", "h5py", "matplotlib", "PIL", "grayscott_tpu"):
+    sys.modules[blocked] = None
 import grayscott_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     grayscott_tpu_torch.__path__, "grayscott_tpu_torch.")]
@@ -97,6 +97,8 @@ def probe():
 
 
 def test_every_port_module_imports_without_jax_or_h5py(probe):
+    """Every port module imports with jax, h5py, matplotlib and PIL
+    blocked (the probe blocks all four)."""
     expected = {
         "grayscott_tpu_torch.params", "grayscott_tpu_torch.errors",
         "grayscott_tpu_torch.species",
@@ -135,6 +137,13 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.scripts._sweep_util",
         "grayscott_tpu_torch.scripts.sweep",
         "grayscott_tpu_torch.scripts.adopt_sweep",
+        "grayscott_tpu_torch.utils.runtime",
+        "grayscott_tpu_torch.utils.profiling",
+        "grayscott_tpu_torch.utils.palette",
+        "grayscott_tpu_torch.native",
+        "grayscott_tpu_torch.cli.data_to_pics",
+        "grayscott_tpu_torch.cli.livesim",
+        "grayscott_tpu_torch.scripts.livesim_fps",
     }
     assert expected <= set(probe["imported"])
 
@@ -338,8 +347,89 @@ def _report(tmp_path):
     assert body(report) == body(jax_report)
 
 
+def _native(tmp_path):
+    """colorize.cpp is JAX's, character for character."""
+    from grayscott_tpu import native as jax_native
+    from grayscott_tpu_torch import native
+
+    with open(os.path.join(os.path.dirname(jax_native.__file__),
+                           "colorize.cpp")) as f:
+        want = f.read()
+    assert native.SOURCE.read_text() == want
+    assert native.PNG_LEVEL_DEFAULT == jax_native.PNG_LEVEL_DEFAULT
+
+
+def _reader(tmp_path):
+    """The Reader's methods are JAX's, but for h5py's import moved inside
+    ``__init__``; and each reader reads the other package's file."""
+    import inspect
+
+    from grayscott_tpu.io import hdf5 as jax_hdf5
+    from grayscott_tpu_torch.io import hdf5
+
+    port = inspect.getsource(hdf5.Reader).replace(
+        "        import h5py\n\n", "")
+    assert port == inspect.getsource(jax_hdf5.Reader)
+    frames = np.random.RandomState(6).uniform(0, 1, (4, 3, 5)) \
+        .astype(np.float32)
+    for writer in (hdf5.Writer, jax_hdf5.Writer):
+        path = tmp_path / f"{writer.__module__}.h5"
+        w = writer(path, (3, 5), 4)
+        for frame in frames:
+            w.write(frame)
+        w.close()
+        for reader in (hdf5.Reader, jax_hdf5.Reader):
+            with reader(path) as r:
+                assert r.num_images == 4 and r.image_shape == (3, 5)
+                out = np.empty((3, 5), np.float32)
+                for frame in frames:
+                    np.testing.assert_array_equal(r.read(out=out), frame)
+                assert r.read() is None
+
+
+def _palette(tmp_path):
+    from grayscott_tpu.utils import palette as jax_palette
+    from grayscott_tpu_torch.utils import palette
+
+    assert palette.MAX_AMPLITUDE == jax_palette.MAX_AMPLITUDE
+    assert palette.AMPLITUDE_SCALE == jax_palette.AMPLITUDE_SCALE
+    np.testing.assert_array_equal(palette.inferno_lut(),
+                                  jax_palette.inferno_lut())
+
+
+def _actions(parser, dests=None):
+    return {a.dest: (a.option_strings, a.default, a.type, a.nargs,
+                     a.required, a.help, a.metavar, a.choices)
+            for a in parser._actions
+            if dests is None or a.dest in dests}
+
+
+def _data_to_pics_args(tmp_path):
+    """The same flags, defaults and help as JAX's data-to-pics."""
+    from grayscott_tpu.cli import data_to_pics as jax_data_to_pics
+    from grayscott_tpu_torch.cli import data_to_pics
+
+    assert _actions(data_to_pics.build_parser()) == \
+        _actions(jax_data_to_pics.build_parser())
+
+
+def _livesim_args(tmp_path):
+    """livesim's own flags are JAX's (the shared ones are held in
+    ``_shared``)."""
+    from grayscott_tpu.cli import livesim as jax_livesim
+    from grayscott_tpu_torch.cli import livesim
+
+    own = {"web", "port", "frames", "output_dir", "fps_cap",
+           "color_palette_resolution", "frames_in_flight"}
+    port = _actions(livesim.build_parser(), own)
+    assert set(port) == own
+    assert port == _actions(jax_livesim.build_parser(), own)
+
+
 @pytest.mark.parametrize("copy", ["params", "errors", "species", "shared",
                                   "hdf5", "progress_and_logs", "halo",
-                                  "checkpoint", "report"])
+                                  "checkpoint", "report", "native",
+                                  "reader", "palette", "data_to_pics_args",
+                                  "livesim_args"])
 def test_copy_matches_the_jax_original(copy, tmp_path):
     globals()[f"_{copy}"](tmp_path)
