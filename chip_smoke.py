@@ -35,7 +35,8 @@
    frame is held against a replay of the plain version. Then a small
    domain against the plain version on the CPU, and ``simulate.main``
    writing HDF5 when h5py is installed. Phase 4c times these runs again in
-   turns, with the packed and sharded ones, and the default and packed
+   turns, with the packed and sharded ones (K7's and the windowed
+   engine's of phase 10b), and the default and packed
    runs also with the snapshot copy on the launch stream
    (``simulate.run``'s part 0, its first form).
 5. Runs the bench path at full size: ``bench.headline.measure`` for the
@@ -72,8 +73,9 @@
    in turns with their first forms, and K1, K2 and K3 on the zero
    boundary, 32 steps each, and with each part of their design taken out;
    and each packed kernel's plain version.
-8. Prints the nvidia-smi line, one JSON line on the nine kernels, and
-   last the JSON line ``{"ok": true, "device": {...}}``.
+8. Prints the nvidia-smi line, one JSON line on the nine kernels (K1's
+   with its shard entry's launches and time), and last the JSON line
+   ``{"ok": true, "device": {...}}``.
 9. The two microbenchmarks' kernels. K8 (``ops/oplat.py``, the chain of
    dependent operations) against its plain version at 1088x1920 and
    2176x3840, 4 steps of 15 and 45 ops, with and without rolls, on inputs
@@ -107,7 +109,28 @@
    geometries, timed in turns with K2 and K2's first-stepper kernel at
    1080x1920 and 4096x4096, both boundaries, beside its bound; the
    backend's call (exchange and launch); each mesh's tile counts and
-   rounds; the plain version once.
+   rounds; the plain version once. Then the windowed sharded engine, K1's
+   shard entry (``ops/windowed.py:shard_multistep``): (a) launch by launch
+   as the backend makes them (the exchange of the current slot, then one
+   launch of every tile, or the overlap-interior launch and the edge
+   launch), against its plain version on the card, against unsharded K1
+   and split against serialized, all at 0.0: 1080x1920 and 1000x1917 on
+   meshes 1x1, 4x1, 2x2 and 1x4 at 8, 27 and 32 steps, 1001x1920 on each
+   at 27, 4096x4096 on 4x1 and 2x2 at 32, both boundaries; through the
+   backend with overlap off and on (the copy stream) at the first of those
+   counts; the other stencils and dt = 0.5 on 2x2, and NaN and +-Inf
+   states (at the seams of every mesh) on each mesh, bit for bit. (b)
+   ``simulate --backend sharded --sharded-devices 4`` on the default run
+   with no engine pin (the shipped sharded record's engine, mesh and
+   overlap), with ``--sharded-engine windowed`` and with
+   ``--sharded-overlap on``, each on the default mesh and with
+   ``--sharded-mesh-cols 1`` and ``2``: the launch counts zeroed before
+   each, 4 shard launches an image (8 where the split engages) and no
+   other kernel, every frame the plain replay of the unsharded run. (c)
+   The windowed call (exchange and launches, 32 steps) with overlap off
+   and on, in turns with K7 and with unsharded K1 on each mesh at
+   1080x1920 and 4096x4096, both boundaries, and one launch of the shard
+   entry beside one of K1, each beside its bound.
 11. The plain rungs of the ladder and the rest of ``simulate``. Each rung
    (``naive``, ``regular``, ``fused``, ``conv``) through ``simulate.run``
    on the default run (1080x1920, 32 steps an image) for 4 images, both
@@ -121,7 +144,8 @@
    left on would miss it). A run of 8 images, then ``uv_host``,
    ``build_storage`` and 8 more, against 16 straight at 0.0 (the in-memory
    part of ``--resume`` and ``--checkpoint``) on ``cuda`` ``auto``,
-   ``--pallas-pack on`` (zero boundary), ``sharded`` 2x2 and ``fused``;
+   ``--pallas-pack on`` (zero boundary), ``sharded`` 2x2 on K7 and on
+   the windowed engine with overlap on, and ``fused``;
    ``--snapshot-dtype bfloat16`` frames on ``auto`` against the float32
    frames rounded through bf16, bit for bit. Then the ladder table: each
    rung and ``cuda`` ``auto``, ms an image in turns
@@ -135,7 +159,13 @@
    by 3 % or more, fails. Then ``simulate.run`` with ``--autotune`` twice
    at 1080x1920 naive into a fresh store: the first call measures, the
    second measures nothing and runs the record's engine, its frames
-   bitwise the plain replay.
+   bitwise the plain replay. (b) The sharded tuner
+   (``autotune.sharded_autotune``) at 1080x1920 naive in 4 shards: every
+   candidate (each viable mesh: windowed with overlap off and on, K7), the
+   winner beside the shipped record (``bench/defaults.py:SHARDED``),
+   which must name a candidate and trail the winner by less than 3 %; then
+   ``--autotune --backend sharded --sharded-devices 4`` twice into a fresh
+   store, as above.
 13. ``scripts/parity_check.py`` at its defaults (256x384, 1000 steps,
    snapshots every 100, against the ``naive`` rung on the card) on K1, K2
    and K3 on both boundaries, K4, K6 and K5 on the zero boundary, and on
@@ -264,10 +294,12 @@ COUNTERS = {
     "oplat": (oplat, "launches"),
     "ilpsplit": (ilpsplit, "launches"),
     "shmega": (sharded_mega, "launches"),
+    "shwin": (windowed, "shard_launches"),
 }
 
-#: storage tags that share another tag's kernel (K7 on a 2-D mesh)
-KERNEL_OF = {"shmega2d": "shmega"}
+#: storage tags that share another tag's kernel (K7 and K1's shard entry on
+#: a 2-D mesh)
+KERNEL_OF = {"shmega2d": "shmega", "shwin2d": "shwin"}
 
 #: K8's shapes (the TPU script's first and largest) and K9's splits
 OPLAT_SHAPES = [(1088, 1920), (2176, 3840)]
@@ -358,6 +390,16 @@ SHARDED_FLAGS = ["--backend", "sharded", "--sharded-engine", "mega",
 SHARDED_PATHS = [[], ["--sharded-mesh-cols", "1"],
                  ["--sharded-mesh-cols", "2"]]
 
+#: the windowed sharded engine (K1's shard entry): its meshes, and the
+#: flags of its simulate runs (each on the default mesh and on each form
+#: of SHARDED_PATHS): no engine pin (a shipped record, else windowed), the
+#: engine pinned, and overlap on
+WINDOWED_MESHES = [(1, 1), (4, 1), (2, 2), (1, 4)]
+SHARDED_4 = ["--backend", "sharded", "--sharded-devices", "4"]
+WINDOWED_FLAGS = {"auto": SHARDED_4,
+                  "windowed": SHARDED_4 + ["--sharded-engine", "windowed"],
+                  "overlap": SHARDED_4 + ["--sharded-overlap", "on"]}
+
 #: phase 11: the plain rungs of the ladder, images of MAIN_STEPS steps a
 #: run, and the runs split by a resume
 RUNGS = ("naive", "regular", "fused", "conv")
@@ -375,7 +417,10 @@ CONV_TOL = 1e-5
 CONV_SHAPE = (70, 97)
 #: the paths a run resumed through build_storage is held on
 RESUME_PATHS = {"cuda auto": [], "cuda pack": ZERO_PACKED,
-                "sharded 2x2": SHARDED_FLAGS, "fused": ["--backend", "fused"]}
+                "sharded 2x2": SHARDED_FLAGS,
+                "sharded windowed 2x2 overlap": WINDOWED_FLAGS["windowed"]
+                + ["--sharded-overlap", "on"],
+                "fused": ["--backend", "fused"]}
 #: rounds of the ladder's timed runs (each rung in order, then reversed)
 LADDER_ROUNDS = 2
 
@@ -811,9 +856,15 @@ def replay_packed_frames(shape, params, images, steps, device):
     return frames
 
 
-def expected_launches(engine: str, images: int, steps: int) -> int:
+def expected_launches(engine: str, images: int, steps: int,
+                      split: bool = False) -> int:
+    """Launches of ``images`` images of ``steps`` steps on ``engine``;
+    ``split``: the windowed sharded engine's overlap split engages (two
+    launches a block)."""
     if engine in ("windowed", "packed"):
         return images * -(-steps // windowed.K)
+    if engine == "shwin":
+        return images * -(-steps // windowed.K) * (2 if split else 1)
     if engine in ("resident", "respack"):
         return images
     n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
@@ -828,6 +879,7 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     sim = shared.make_simulation(ns)
     species = sim.make_species(shared.domain_shape(ns))
     engine = KERNEL_OF.get(species.storage[0], species.storage[0])
+    split = engine == "shwin" and sim.overlap_runs(species.shape)
     frames: list[np.ndarray] = []
     # This sink keeps every frame, so each image would pay a fresh pinned
     # allocation (cudaHostAlloc, ~1.3 ms at this shape), which a long run
@@ -845,7 +897,7 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     seconds = time.perf_counter() - t0
     launches = read_launches()
     want = {tag: 0 for tag in COUNTERS}
-    want[engine] = expected_launches(engine, MAIN_IMAGES, MAIN_STEPS)
+    want[engine] = expected_launches(engine, MAIN_IMAGES, MAIN_STEPS, split)
     label = " ".join(flags) or "(auto)"
     print(f"path simulate {label}: engine {engine}, {MAIN_IMAGES} images x "
           f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
@@ -866,7 +918,8 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     checks.expect(max(errs) <= TOL, f"simulate {label} vs plain replay")
     return {"engine": engine, "seconds": seconds, "launches": launches,
             "frames": frames, "tag": species.storage[0], "flags": flags,
-            "mesh": getattr(getattr(sim, "mesh", None), "shape", None)}
+            "mesh": getattr(getattr(sim, "mesh", None), "shape", None),
+            "split": split}
 
 
 #: timed runs of each simulate path after its checked run: this many rounds
@@ -1833,7 +1886,8 @@ def sharded_run(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
     """The sharded backend's state after ``steps`` steps on K7."""
     n_r, n_c = mesh_shape
     sim = ShardedSimulation(params, boundary, device=DEVICE, engine="mega",
-                            n_devices=n_r * n_c, mesh_cols=n_c)
+                            n_devices=n_r * n_c, mesh_cols=n_c,
+                            tuned_lookup=False)
     storage = sim.build_storage(u_np, v_np)
     assert sim.mesh.shape == tuple(mesh_shape)
     storage = sim.run_steps(storage, u_np.shape, steps)
@@ -2069,7 +2123,7 @@ def time_sharded(rng, card: str) -> dict:
                     calls[f"K7 {n_r}x{n_c} {t}"] = k7_call
                 sims[n_r, n_c] = ShardedSimulation(
                     Parameters(), boundary, device=DEVICE, engine="mega",
-                    n_devices=n_r * n_c, mesh_cols=n_c)
+                    n_devices=n_r * n_c, mesh_cols=n_c, tuned_lookup=False)
             samples = {name: [] for name in calls}
             for name in [*calls, *reversed(calls)]:
                 samples[name].append(cuda_ms(calls[name], reps))
@@ -2117,6 +2171,290 @@ def time_sharded(rng, card: str) -> dict:
         *pairs, MAIN_STEPS // 8, 8, consts, "naive", MAIN_SHAPE), 1)
     print(f"time plain sharded {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive mesh "
           f"2x2, {MAIN_STEPS} steps: {out['plain']!r} ms [{card}]",
+          flush=True)
+    return out
+
+
+def windowed_launches(params: Parameters, boundary: str, u_np, v_np,
+                      mesh_shape, steps: int, mode: str):
+    """K1's shard entry launch by launch as the backend makes them: per
+    block of 8 steps and the remainder, the exchange of the current slot,
+    then the block's launches, then the slot flips. ``mode``: "serial" one
+    launch of every tile, "overlap" the overlap-interior launch then the
+    edge launch (in order, on one stream), "plain" the plain version."""
+    shape = u_np.shape
+    consts = kernel_constants(params)
+    mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape[1],
+                          DEVICE)
+    pairs = halo.mega_shard_state(u_np, v_np, mesh)
+    slot = 0
+    n_full, rem = divmod(steps, windowed.K)
+    for k in [windowed.K] * n_full + ([rem] if rem else []):
+        for p in pairs:
+            halo.exchange_halos(p, slot)
+        if mode == "plain":
+            windowed.shard_multistep_reference(*pairs, slot, k, consts,
+                                               boundary, shape)
+        else:
+            for part in (("interior", "edge") if mode == "overlap"
+                         else ("all",)):
+                windowed.shard_multistep(*pairs, mesh, slot, k, consts,
+                                         boundary, shape, part=part)
+        slot = 1 - slot
+    return tuple(halo.mega_unshard_result(p, shape, slot) for p in pairs)
+
+
+def windowed_sim(params: Parameters, boundary: str, mesh_shape,
+                 overlap: str) -> ShardedSimulation:
+    n_r, n_c = mesh_shape
+    return ShardedSimulation(params, boundary, device=DEVICE,
+                             engine="windowed", n_devices=n_r * n_c,
+                             mesh_cols=n_c, overlap=overlap,
+                             tuned_lookup=False)
+
+
+def windowed_run(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
+                 steps: int, overlap: str):
+    """The backend's state after ``steps`` steps on the windowed engine
+    (with ``overlap`` on: the exchange on the simulation's copy stream)."""
+    sim = windowed_sim(params, boundary, mesh_shape, overlap)
+    storage = sim.build_storage(u_np, v_np)
+    assert sim.mesh.shape == tuple(mesh_shape)
+    storage = sim.run_steps(storage, u_np.shape, steps)
+    return sim.extract_uv(storage, u_np.shape)
+
+
+def compare_windowed(checks: Checks, rng) -> int:
+    """Phase 10a: K1's shard entry launch by launch as the backend makes
+    them, serialized and split for overlap, against its plain version on
+    the card and against unsharded K1, on every mesh of WINDOWED_MESHES at
+    1080x1920 and 1000x1917 (8, 27 and 32 steps) and 1001x1920 (27), and
+    at 4096x4096 on 4x1 and 2x2 (32), both boundaries; the split against
+    the serialized run at 0.0; through the backend, overlap off and on (the
+    copy stream), at the first step count. Then the other stencils and
+    dt = 0.5 on 2x2 (27 steps), and states that hold NaN and +-Inf on every
+    mesh (27 steps), bit for bit. Returns the comparisons."""
+    default = Parameters()
+    cases = [(shape, mesh, (8, 27, 32)) for shape in SHAPES[:2]
+             for mesh in WINDOWED_MESHES]
+    cases += [(PAST_EDGE_SHAPE, mesh, (27,)) for mesh in WINDOWED_MESHES]
+    cases += [(BENCH_SHAPE, mesh, (MAIN_STEPS,)) for mesh in ((4, 1), (2, 2))]
+    inputs, k1, n = {}, {}, 0
+    for shape, mesh_shape, step_counts in cases:
+        if shape not in inputs:
+            inputs[shape] = tuple(rng.uniform(0.0, 1.0, shape)
+                                  .astype(np.float32) for _ in range(2))
+        u_np, v_np = inputs[shape]
+        r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(*mesh_shape,
+                                                           None))
+        engages = halo.overlap_engages(r_loc, c_loc, mesh_shape[1])
+        checks.expect(engages, f"overlap engages at {shape} on {mesh_shape}")
+        for boundary in ("naive", "zero"):
+            for steps in step_counts:
+                key = (shape, boundary, steps)
+                if key not in k1:
+                    k1[key] = engine_run("windowed", default, boundary, u_np,
+                                         v_np, steps)
+                what = (f"{shape[0]}x{shape[1]} {boundary} mesh "
+                        f"{mesh_shape[0]}x{mesh_shape[1]} steps={steps}")
+                plain = windowed_launches(default, boundary, u_np, v_np,
+                                          mesh_shape, steps, "plain")
+                runs = {"launches": windowed_launches(
+                    default, boundary, u_np, v_np, mesh_shape, steps,
+                    "serial")}
+                runs["interior + edge"] = windowed_launches(
+                    default, boundary, u_np, v_np, mesh_shape, steps,
+                    "overlap")
+                if steps == step_counts[0]:
+                    for overlap in ("off", "on"):
+                        runs[f"backend overlap {overlap}"] = windowed_run(
+                            default, boundary, u_np, v_np, mesh_shape,
+                            steps, overlap)
+                for label, got in runs.items():
+                    checks.compare("shwin", got, plain, f"{what} ({label})")
+                    checks.compare("shwin", got, k1[key],
+                                   f"{what} ({label}) vs K1")
+                    checks.compare("shwin", got, runs["launches"],
+                                   f"{what} ({label}) vs serialized")
+                    n += 3
+    shape = MAIN_SHAPE
+    u_np, v_np = (rng.uniform(0.0, 1.0, shape).astype(np.float32)
+                  for _ in range(2))
+    for label, params in OTHER_PARAMS:
+        for boundary in ("naive", "zero"):
+            want = engine_run("windowed", params, boundary, u_np, v_np, 27)
+            plain = windowed_launches(params, boundary, u_np, v_np, (2, 2),
+                                      27, "plain")
+            for mode in ("serial", "overlap"):
+                got = windowed_launches(params, boundary, u_np, v_np, (2, 2),
+                                        27, mode)
+                what = (f"{shape[0]}x{shape[1]} {boundary} mesh 2x2 "
+                        f"params={label} steps=27 ({mode})")
+                checks.compare_bits("shwin", got, plain, what)
+                checks.compare_bits("shwin", got, want, f"{what} vs K1")
+                n += 2
+    r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(2, 2, None))
+    u_np[100, 150] = v_np[0, 5] = np.nan
+    v_np[r_loc - 1, c_loc - 1] = u_np[r_loc, c_loc] = np.inf  # at the seams
+    u_np[120, 7] = v_np[-1, -1] = -np.inf
+    u_np[r_loc + 60, c_loc + 1] = np.nan
+    for n_r, n_c in WINDOWED_MESHES:  # on every mesh's seams
+        r_seam, c_seam = halo.shard_extents(shape, halo.Mesh(n_r, n_c, None))
+        if n_r > 1:
+            u_np[r_seam, shape[1] // 2] = np.inf
+        if n_c > 1:
+            v_np[shape[0] - 1, c_seam] = np.nan
+    for boundary in ("naive", "zero"):
+        want = engine_run("windowed", default, boundary, u_np, v_np, 27)
+        for mesh_shape in WINDOWED_MESHES:
+            plain = windowed_launches(default, boundary, u_np, v_np,
+                                      mesh_shape, 27, "plain")
+            for mode in ("serial", "overlap"):
+                got = windowed_launches(default, boundary, u_np, v_np,
+                                        mesh_shape, 27, mode)
+                what = (f"{shape[0]}x{shape[1]} {boundary} mesh "
+                        f"{mesh_shape[0]}x{mesh_shape[1]} NaN and Inf, "
+                        f"steps=27 ({mode})")
+                checks.compare_bits("shwin", got, plain, what)
+                checks.compare_bits("shwin", got, want, f"{what} vs K1")
+                n += 2
+    return n
+
+
+def shipped_sharded(shape, boundary: str = "naive") -> dict | None:
+    """The record the package ships for ``shape`` in 4 shards, no pin, on
+    this card (``bench/defaults.py:SHARDED``)."""
+    return defaults.SHARDED.get(autotune.sharded_key(
+        Parameters(), shape, boundary, n_devices=4, device=DEVICE))
+
+
+def windowed_paths(checks: Checks) -> dict:
+    """Phase 10b: ``simulate --backend sharded --sharded-devices 4`` on the
+    default run with no engine pin (the shipped record's engine, else
+    windowed), with ``--sharded-engine windowed`` and with
+    ``--sharded-overlap on``, each on the default mesh and on each form of
+    SHARDED_PATHS, with the launch counts zeroed before each and read
+    after: 4 launches of K1's shard entry an image, 8 where the split
+    engages, and no other kernel (simulate_path); every frame against the
+    plain replay of the unsharded run."""
+    ns = simulate.build_parser().parse_args([])
+    replay = replay_frames(MAIN_SHAPE, "naive", shared.simulation_parameters(
+        ns), MAIN_IMAGES, MAIN_STEPS, DEVICE)
+    rec = shipped_sharded(MAIN_SHAPE)
+    print(f"path simulate sharded: the shipped record of "
+          f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} in 4 shards: {rec}", flush=True)
+    runs = {}
+    for label, base in WINDOWED_FLAGS.items():
+        for flags in SHARDED_PATHS:
+            run = simulate_path(checks, base + flags, replay)
+            name = f"{label} {' '.join(flags)}".strip()
+            runs[name] = run
+            if label == "auto" and not flags and rec:
+                want = ("shwin" if rec["engine"] == "windowed" else "shmega",
+                        (4 // rec["mesh_cols"], rec["mesh_cols"]),
+                        bool(rec.get("overlap")))
+            else:
+                want = ("shwin", (4, 1) if flags[-1:] == ["1"] else (2, 2),
+                        label == "overlap")
+            got = (run["engine"], run["mesh"], run["split"])
+            print(f"path simulate {' '.join(base + flags)}: storage "
+                  f"{run['tag']}, mesh {run['mesh']}, split {run['split']} "
+                  f"(expected {want})", flush=True)
+            checks.expect(got == want, f"simulate {name}: ran {got}, not "
+                          f"{want}")
+    return runs
+
+
+def time_windowed(rng, card: str) -> dict:
+    """Phase 10c: the windowed engine's call (the exchange and the
+    launches of 32 steps, through the backend) with overlap off and on, on
+    1x1, 4x1, 2x2 and 1x4 meshes, timed in turns with K7 (the geometry
+    its wrapper picks) on each and with the unsharded K1 (four launches
+    through the cuda backend), at 1080x1920 and 4096x4096, both
+    boundaries, each beside its bound; one launch of K1's shard entry (8
+    steps, every tile, on exchanged pairs) beside one launch of K1; the
+    plain version once."""
+    consts = kernel_constants(Parameters())
+    out = {}
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        for boundary in ("naive", "zero"):
+            calls = {}
+
+            def backend_call(sim):
+                box = [sim.build_storage(u_np, v_np)]
+
+                def call():
+                    box[0] = sim.run_steps(box[0], shape, MAIN_STEPS)
+                return call
+
+            calls["K1"] = backend_call(CudaSimulation(
+                Parameters(), boundary, device=DEVICE, engine="windowed",
+                tuned_lookup=False))
+            u_d, v_d = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+            u_o, v_o = torch.empty_like(u_d), torch.empty_like(v_d)
+            calls["K1 launch"] = lambda u_d=u_d, v_d=v_d, u_o=u_o, v_o=v_o, \
+                boundary=boundary: windowed.multistep(
+                    u_d, v_d, u_o, v_o, windowed.K, consts, boundary)
+            for mesh_shape in WINDOWED_MESHES:
+                tag = f"{mesh_shape[0]}x{mesh_shape[1]}"
+                for overlap in ("off", "on"):
+                    calls[f"K1w {tag} {overlap}"] = backend_call(
+                        windowed_sim(Parameters(), boundary, mesh_shape,
+                                     overlap))
+                calls[f"K7 {tag}"] = backend_call(ShardedSimulation(
+                    Parameters(), boundary, device=DEVICE, engine="mega",
+                    n_devices=mesh_shape[0] * mesh_shape[1],
+                    mesh_cols=mesh_shape[1], tuned_lookup=False))
+                mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1],
+                                      mesh_shape[1], DEVICE)
+                pairs = halo.mega_shard_state(u_np, v_np, mesh)
+                for p in pairs:
+                    halo.exchange_halos(p)
+                calls[f"K1 shard launch {tag}"] = \
+                    lambda pairs=pairs, mesh=mesh, boundary=boundary: \
+                    windowed.shard_multistep(*pairs, mesh, 0, windowed.K,
+                                             consts, boundary, shape)
+            samples = {name: [] for name in calls}
+            for name in [*calls, *reversed(calls)]:
+                samples[name].append(cuda_ms(calls[name], reps))
+            for name, pair in samples.items():
+                ms = sum(pair) / len(pair)
+                if "launch" in name:
+                    steps, (bound, by) = windowed.K, bound_ms(
+                        shape, windowed.K, boundary)
+                elif name == "K1":
+                    steps, (bound, by) = MAIN_STEPS, bound_ms(
+                        shape, MAIN_STEPS, boundary)
+                else:
+                    mesh_shape = tuple(int(x) for x in
+                                       name.split()[1].split("x"))
+                    steps, (bound, by) = MAIN_STEPS, sharded_bound_ms(
+                        shape, mesh_shape, MAIN_STEPS, boundary)
+                out[shape, boundary, name] = (ms, bound, by)
+                print(f"time {name} {shape[0]}x{shape[1]} {boundary}, "
+                      f"{steps} steps a call: {ms!r} ms (turns {pair!r}) = "
+                      f"{gcells(shape, steps, ms)!r} Gcell/s; bound "
+                      f"{bound!r} ms ({by}) [{card}]", flush=True)
+            for mesh_shape in WINDOWED_MESHES:
+                tag = f"{mesh_shape[0]}x{mesh_shape[1]}"
+                off = out[shape, boundary, f"K1w {tag} off"][0]
+                on = out[shape, boundary, f"K1w {tag} on"][0]
+                k7 = out[shape, boundary, f"K7 {tag}"][0]
+                print(f"windowed {shape[0]}x{shape[1]} {boundary} mesh "
+                      f"{tag}: overlap on / off {on / off!r}x, off / K7 "
+                      f"{off / k7!r}x, off / K1 "
+                      f"{off / out[shape, boundary, 'K1'][0]!r}x [{card}]",
+                      flush=True)
+    mesh = halo.make_mesh(4, 2, DEVICE)
+    pairs = halo.mega_shard_state(*initial_uv(MAIN_SHAPE), mesh)
+    for p in pairs:
+        halo.exchange_halos(p)
+    out["plain"] = cuda_ms(lambda: windowed.shard_multistep_reference(
+        *pairs, 0, windowed.K, consts, "naive", MAIN_SHAPE), 1)
+    print(f"time plain windowed shard {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive "
+          f"mesh 2x2, {windowed.K} steps: {out['plain']!r} ms [{card}]",
           flush=True)
     return out
 
@@ -2275,11 +2613,105 @@ TUNED_KEYS = [(MAIN_SHAPE, "naive"), (MAIN_SHAPE, "zero"),
               (BENCH_SHAPE, "naive"), (BENCH_SHAPE, "zero")]
 SHIPPED_MARGIN = 0.03
 TUNED_IMAGES = 4
+#: the sharded record phase 12 measures against the shipped one: the
+#: default run in 4 shards
+SHARDED_TUNED = (MAIN_SHAPE, "naive", 4)
+SHARDED_MARGIN = 0.03
 
 
 def ran(record: dict) -> tuple:
     """(engine, packed) of a record or a candidate."""
     return record["engine"], bool(record["pack"])
+
+
+def sharded_ran(record: dict) -> tuple:
+    """(engine, mesh columns, overlap) of a sharded record or candidate
+    (overlap None for the megakernel)."""
+    return (record["engine"], record["mesh_cols"],
+            bool(record["overlap"]) if record["engine"] == "windowed"
+            else None)
+
+
+def sharded_autotune_phase(checks: Checks, card: str, tmp: str) -> dict:
+    """Phase 12b: ``sharded_autotune`` at SHARDED_TUNED into the store
+    ``tmp/phase12``: every candidate runs (each viable mesh: windowed with
+    overlap off and on, and K7), the winner beside the shipped record
+    (``bench/defaults.py:SHARDED``), which must name a candidate of its key
+    and trail the winner by less than SHARDED_MARGIN. Then ``simulate``
+    with ``--autotune --backend sharded --sharded-devices 4`` twice into
+    the store ``tmp/cli-sharded``: the first measures, the second measures
+    nothing and runs the record's engine and mesh, its frames bitwise the
+    plain replay."""
+    params = Parameters()
+    shape, boundary, n = SHARDED_TUNED
+    os.environ["GRAYSCOTT_CACHE_DIR"] = os.path.join(tmp, "phase12")
+    key = autotune.sharded_key(params, shape, boundary, n_devices=n,
+                               device=DEVICE)
+    before = autotune.measurements
+    rec = autotune.sharded_autotune(params, shape, boundary, n_devices=n,
+                                    verbose=True, device=DEVICE)
+    wanted = autotune._sharded_candidates(shape, n)
+    table = rec["candidates"]
+    checks.expect(autotune.measurements - before >= len(wanted)
+                  and [sharded_ran(c) for c in table]
+                  == [sharded_ran({"overlap": None, **c}) for c in wanted]
+                  and not any("error" in c for c in table),
+                  f"sharded autotune {key}: candidates {table}")
+    cells = shape[0] * shape[1] * autotune.STEPS
+    times = {sharded_ran(c): cells / c["gcells_per_sec"] / 1e6
+             for c in table if "error" not in c}
+    print(f"sharded autotune {key}: winner {sharded_ran(rec)} at "
+          f"{rec['gcells_per_sec']!r} Gcell/s (device "
+          f"{rec.get('device_gcells_per_sec')!r}, wall "
+          f"{rec['wall_gcells_per_sec']!r}); ms per {autotune.STEPS} steps "
+          f"(the best device time): {times} [{card}]", flush=True)
+    shipped = defaults.SHARDED.get(key)
+    if shipped is None:
+        print(f"sharded autotune {key}: no shipped record", flush=True)
+    else:
+        runs = sharded_ran(shipped) in times
+        trail = (1 - times[sharded_ran(rec)] / times[sharded_ran(shipped)]
+                 if runs else float("inf"))
+        print(f"sharded autotune {key}: shipped {sharded_ran(shipped)} "
+              f"({shipped['gcells_per_sec']!r} Gcell/s, "
+              f"{shipped['source']}); this run's winner {sharded_ran(rec)}, "
+              f"the shipped candidate trails it by {100 * trail!r} % "
+              f"(limit {100 * SHARDED_MARGIN!r} %)", flush=True)
+        checks.expect(runs, f"shipped record {key} names "
+                      f"{sharded_ran(shipped)}, which the key does not run")
+        checks.expect(trail < SHARDED_MARGIN, f"shipped record {key} is "
+                      f"stale: {sharded_ran(shipped)} trails "
+                      f"{sharded_ran(rec)}")
+    os.environ["GRAYSCOTT_CACHE_DIR"] = os.path.join(tmp, "cli-sharded")
+    replay = [r.cpu().numpy() for r in replay_frames(
+        shape, boundary, params, TUNED_IMAGES, MAIN_STEPS, DEVICE)]
+    measured = []
+    for _ in range(2):
+        before = autotune.measurements
+        frames, launches, sim, species = run_frames(
+            ["--autotune", *SHARDED_4], TUNED_IMAGES)
+        measured.append(autotune.measurements - before)
+        err = frames_err(frames, replay)
+        checks.expect(err == 0.0, "--autotune --backend sharded frames vs "
+                      "plain replay")
+    cli = cache.load_autotune()[key]
+    tag = KERNEL_OF.get(species.storage[0], species.storage[0])
+    split = tag == "shwin" and sim.overlap_runs(shape)
+    print(f"simulate --autotune {' '.join(SHARDED_4)} twice at {shape[0]}x"
+          f"{shape[1]} {boundary}: candidates measured {measured}, the "
+          f"record {sharded_ran(cli)}, the run {tag} mesh {sim.mesh.shape} "
+          f"split {split}, launches {launches}, frames vs plain max|dV| "
+          f"{err!r}", flush=True)
+    checks.expect(measured[0] > 0 and measured[1] == 0,
+                  f"--autotune --backend sharded measured {measured}")
+    checks.expect(
+        (sim.engine, sim.mesh.n_cols, split if tag == "shwin" else None)
+        == sharded_ran(cli)
+        and launches[tag] == expected_launches(tag, TUNED_IMAGES,
+                                               MAIN_STEPS, split),
+        f"--autotune --backend sharded ran {tag}, the record "
+        f"{sharded_ran(cli)}")
+    return {key: rec}
 
 
 def autotune_phase(checks: Checks, card: str) -> dict:
@@ -2364,6 +2796,7 @@ def autotune_phase(checks: Checks, card: str) -> dict:
             checks.expect(tag == rec["engine"] and not rec["pack"]
                           and launches[tag] > 0,
                           f"--autotune ran {tag}, the record {ran(rec)}")
+            out.update(sharded_autotune_phase(checks, card, tmp))
     finally:
         os.environ["GRAYSCOTT_CACHE_DIR"] = empty
     return out
@@ -2852,10 +3285,13 @@ def run_phases(args) -> int:
     # times
     t10 = time.perf_counter()
     n10 = compare_sharded(checks, rng)
+    n10w = compare_windowed(checks, rng)
     sharded_runs = sharded_paths(checks)
+    windowed_runs = windowed_paths(checks)
     k7 = time_sharded(rng, card)
-    print(f"phase 10: {n10} comparisons of K7, {time.perf_counter() - t10!r}"
-          " s", flush=True)
+    k1w = time_windowed(rng, card)
+    print(f"phase 10: {n10} comparisons of K7, {n10w} of K1's shard entry, "
+          f"{time.perf_counter() - t10!r} s", flush=True)
     # 11. the plain rungs of the ladder, resume and bf16 snapshots
     t11 = time.perf_counter()
     ladder_paths(checks)
@@ -2883,7 +3319,8 @@ def run_phases(args) -> int:
              for label, group in (("", runs), (" ".join(ZERO_PACKED) + " ",
                                                packed_runs))}
     time_paths([*runs.values(), *packed_runs.values(),
-                *sharded_runs.values(), *part0.values()])
+                *sharded_runs.values(), *windowed_runs.values(),
+                *part0.values()])
     cells = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_STEPS
     for prefix, group in (("", runs), (" ".join(ZERO_PACKED) + " ",
                                        packed_runs),
@@ -2896,6 +3333,13 @@ def run_phases(args) -> int:
                   f"({run['median_ms']!r} ms/image, the median of "
                   f"{run['turns_ms']!r} in turns; the checked run first) "
                   f"[{card}]")
+    for run in windowed_runs.values():
+        print(f"path simulate {' '.join(run['flags'])} end to end "
+              f"({run['tag']}, mesh {run['mesh']}, split {run['split']}): "
+              f"{cells / run['median_ms'] / 1e6!r} Gcell/s "
+              f"({run['median_ms']!r} ms/image, the median of "
+              f"{run['turns_ms']!r} in turns; the checked run first) "
+              f"[{card}]")
     for prefix, run in part0.items():
         group = runs if not prefix else packed_runs
         print(f"path simulate {prefix}auto with part 0 ("
@@ -2927,6 +3371,19 @@ def run_phases(args) -> int:
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=list(MAIN_SHAPE), steps=steps, boundary="naive",
             redesigned="csrc/gs_tile_sm90.cuh"))
+    # K1's shard entry (the windowed sharded engine): its launches in the
+    # default run's windowed paths (2x2), one launch's time and bound
+    shard_ms, shard_bound, _ = k1w[MAIN_SHAPE, "naive",
+                                   "K1 shard launch 2x2"]
+    entries[0].update(
+        max_abs_err=max(checks.kernel_err["windowed"],
+                        checks.kernel_err["shwin"]),
+        sharded_launches=windowed_runs["windowed"]["launches"]["shwin"],
+        sharded_overlap_launches=windowed_runs["overlap"]["launches"][
+            "shwin"],
+        sharded_ms=shard_ms, sharded_plain_ms=k1w["plain"],
+        sharded_bound_ms=shard_bound, sharded_mesh=[2, 2],
+        sharded_steps=windowed.K)
     ms, plain_ms = bench["naive"]
     bound, by = bound_ms(BENCH_SHAPE, BENCH_STEPS, "naive")
     entries.append(dict(

@@ -2,7 +2,7 @@
 ``grayscott_tpu/backends/__init__.py``. Six backends: the four plain rungs
 of the ladder (``naive``, ``regular``, ``fused``, ``conv``: PyTorch
 operations, on the card or the CPU), ``cuda`` (one card, K1-K6) and
-``sharded`` (a mesh of shards, K7). The selector returns
+``sharded`` (a mesh of shards, K1 or K7). The selector returns
 ``GRAYSCOTT_BACKEND`` when it is set, as the JAX one does, and else picks
 ``cuda`` for every shape and on either device; the engine within it is the
 backend's own choice (``cuda.auto_engine``). JAX picks ``fused`` where it
@@ -10,7 +10,7 @@ finds no TPU; the port never picks a rung by itself, since a rung taken
 quietly off the GPU would be a fallback to the CPU, which the port does
 not make. ``sharded`` runs when it is asked for (``--backend sharded``):
 choosing it by the number of cards comes with the multi-card launch
-(ROADMAP.md Queue 1 item 7)."""
+(ROADMAP.md Queue 1 item 7.3)."""
 
 from __future__ import annotations
 

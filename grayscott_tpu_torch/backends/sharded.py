@@ -1,35 +1,57 @@
-"""``sharded`` backend: the domain cut into a mesh of shards, stepped by the
-sharded megakernel K7 (``ops/sharded_mega.py``). The port of the mega
-engine of ``grayscott_tpu/backends/sharded.py``.
+"""``sharded`` backend: the domain cut into a mesh of shards. The port of
+``grayscott_tpu/backends/sharded.py`` and its two engines.
 
-The storage is ``("shmega", u_pairs, v_pairs)`` on a 1-D row mesh and
-``("shmega2d", u_pairs, v_pairs)`` on a 2-D mesh, the pairs in the layout of
-``parallel/halo.py``. ``run_steps`` fills slot 0's halos
-(``halo.exchange_halos``) and makes one launch of ``steps // 8`` time
-blocks, then the same for one block of the remainder
-(``sharded_mega.launch_plan``). The mesh is ``n_devices`` shards in
-``mesh_cols`` columns, or, with ``mesh_cols`` None, the columns that
-``halo.choose_mesh_cols`` picks for the first domain built, as in JAX.
-Every shard lives on ``device``: one card runs them all in one launch.
+- ``windowed`` (K1 on the shard layout, ``ops/windowed.py:
+  shard_multistep``): storage ``("shwin", u_pairs, v_pairs, slot)`` on a
+  1-D row mesh and ``("shwin2d", ...)`` on a 2-D mesh, the pairs in the
+  layout of ``parallel/halo.py`` and ``slot`` the current one. ``run_steps``
+  makes ``divmod(steps, 8)`` blocks, as ``sharded_run_blocks`` does
+  (``grayscott_tpu/parallel/halo.py:305-317``): each fills the halos of
+  the current slot (``halo.exchange_halos``), makes one K1 launch over
+  every shard into the other slot, and flips the slot. With ``overlap``
+  on, a block where the split engages (``halo.overlap_engages``) makes two
+  launches instead: the exchange runs on a copy stream of the
+  simulation's own, after the launch stream's work, while the
+  overlap-interior tiles, whose windows read no halo cell, step on the
+  launch stream; the edge tiles step once the exchange is done. The two
+  launches write disjoint cells, so the result equals the serialized one
+  bit for bit. Where the split does not engage the block runs serialized,
+  as in JAX.
+- ``mega`` (K7, ``ops/sharded_mega.py``): storage ``("shmega", u_pairs,
+  v_pairs)`` (``"shmega2d"`` on a 2-D mesh), slot 0 current. ``run_steps``
+  fills slot 0's halos and makes one launch of ``steps // 8`` time blocks,
+  then the same for one block of the remainder
+  (``sharded_mega.launch_plan``).
+
+``engine="auto"`` (the default) and ``overlap="auto"`` follow the sharded
+autotune record of the configuration (``bench/autotune.py:
+sharded_lookup``: the store, else the records ``bench/defaults.py``
+ships), as ``_adopt_record`` does in JAX (``:159-229``): pins always win,
+a record fills in only what is left on ``auto``, and its overlap verdict
+transfers only to the record's engine and mesh. Without a record ``auto``
+runs ``windowed`` with overlap off. ``tuned_lookup=False`` ignores the
+records (the tuner measures each candidate so). The mesh is ``n_devices``
+shards in ``mesh_cols`` columns, or, with ``mesh_cols`` None, the record's
+columns, else those ``halo.choose_mesh_cols`` picks for the first domain
+built, as in JAX. Every shard lives on ``device``: one card runs them all.
 
 What JAX's backend runs besides and the port does not yet raises
 :class:`UnsupportedConfigError` naming its ROADMAP item, and nothing falls
-back: the windowed engine (``engine="windowed"``, and ``engine="auto"``,
-which falls back to it), bf16 storage, the tile pins, overlap, and the
-sharded autotuner and its records (``tuned_lookup``, ``--autotune``:
-ROADMAP.md Queue 1 item 7.5).
+back: bf16 storage (Queue 2 item 4), the tile pins and a K other than 8
+(Queue 2 item 8).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..errors import UnsupportedConfigError
-from ..ops import sharded_mega
+from ..ops import sharded_mega, windowed
 from ..parallel import halo
 from ..params import Parameters, kernel_constants
 from .base import Simulation, env_default
@@ -37,10 +59,18 @@ from .base import Simulation, env_default
 ENGINES = ("auto", "windowed", "mega")
 OVERLAP = ("auto", "on", "off")
 
-_WINDOWED = ("ROADMAP.md Queue 1 item 7: the windowed sharded engine over "
-             "torch.distributed")
-#: where ROADMAP.md keeps the sharded tuner and its records
-SHARDED_AUTOTUNE = "ROADMAP.md Queue 1 item 7.5"
+#: the depth of a block of either engine: the one ``steps_per_call`` the
+#: port runs
+K = windowed.K
+
+_BF16 = "ROADMAP.md Queue 2 item 4 (bf16 storage)"
+_TILES = "ROADMAP.md Queue 2 item 8 (the tile pins and another K)"
+
+#: (engine, 2-D mesh) -> storage tag
+TAGS = {("windowed", False): "shwin", ("windowed", True): "shwin2d",
+        ("mega", False): "shmega", ("mega", True): "shmega2d"}
+
+_logger = logging.getLogger("grayscott_tpu_torch")
 
 
 class ShardedSimulation(Simulation):
@@ -53,42 +83,44 @@ class ShardedSimulation(Simulation):
                  block_cols: int | None = None,
                  steps_per_call: int | None = None, dtype: str = "float32",
                  overlap: bool | str = "auto", engine: str = "auto",
-                 tuned_lookup: bool = False):
+                 tuned_lookup: bool = True):
         super().__init__(params, boundary, device)
         if engine not in ENGINES:
             raise ValueError(f"engine must be auto/windowed/mega, got "
                              f"{engine!r}")
-        if isinstance(overlap, str) and overlap not in OVERLAP:
-            raise ValueError(f"overlap must be auto/on/off or bool, got "
-                             f"{overlap!r}")
-        if engine != "mega":
-            raise UnsupportedConfigError(
-                f"sharded engine={engine!r} runs the windowed engine, which "
-                f"is not ported yet ({_WINDOWED}); pin engine='mega'",
-                combo="engine")
-        if overlap in ("on", True):
+        if isinstance(overlap, str):
+            if overlap not in OVERLAP:
+                raise ValueError(f"overlap must be auto/on/off or bool, got "
+                                 f"{overlap!r}")
+            overlap = "auto" if overlap == "auto" else overlap == "on"
+        else:
+            overlap = bool(overlap)
+        if engine == "mega" and overlap is True:
             raise UnsupportedConfigError(
                 "engine='mega' overlaps exchange with interior compute "
                 "in-kernel; --sharded-overlap applies to the windowed "
-                f"engine ({_WINDOWED})", combo="overlap")
-        if steps_per_call not in (None, sharded_mega.MEGA_STEPS):
+                "engine", combo="overlap")
+        if steps_per_call not in (None, K):
             raise UnsupportedConfigError(
-                "engine='mega' fixes steps-per-call at its exchange depth "
-                f"K={sharded_mega.MEGA_STEPS}; drop --pallas-steps-per-call",
-                combo="steps_per_call")
+                f"steps_per_call={steps_per_call!r}: both sharded engines "
+                f"run K={K} (another K: {_TILES}); drop "
+                "--pallas-steps-per-call", combo="steps_per_call")
         if dtype not in ("float32", "f32", None):
             raise UnsupportedConfigError(
-                f"dtype={dtype!r}: bf16 storage is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)", combo="dtype")
+                f"dtype={dtype!r}: bf16 storage is not ported yet ({_BF16})",
+                combo="dtype")
+        if block_cols is not None and engine != "mega":
+            # grayscott_tpu/backends/sharded.py:106-111
+            raise UnsupportedConfigError(
+                "--pallas-block-cols pins the megakernel's column tile; "
+                "the windowed sharded engine derives its own column "
+                "layout (2-D meshes shard columns instead)",
+                combo="block_cols")
         if block_rows is not None or block_cols is not None:
             raise UnsupportedConfigError(
                 "the tile pins (block_rows, block_cols) are not ported yet "
-                "(ROADMAP.md Queue 1 item 7); K7's tiles are 32x32",
+                f"({_TILES}); the sharded kernels run fixed tiles",
                 combo="tiles")
-        if tuned_lookup:
-            raise UnsupportedConfigError(
-                "the sharded backend's autotune records are not ported yet "
-                f"({SHARDED_AUTOTUNE})", combo="tuned_lookup")
         if n_devices is not None and n_devices < 1:
             raise UnsupportedConfigError(
                 f"n_devices must be >= 1, got {n_devices} (omit the flag "
@@ -97,35 +129,104 @@ class ShardedSimulation(Simulation):
             raise UnsupportedConfigError(
                 f"mesh_cols must be >= 1, got {mesh_cols} (omit the flag "
                 "for automatic factorization)")
-        self.engine = engine
+        self._engine_req = engine
+        self._overlap_req = overlap
+        self._k_pin = steps_per_call
+        self.engine = "windowed" if engine == "auto" else engine
+        self.overlap = overlap is True
+        self.tuned_lookup = tuned_lookup
         self.consts = kernel_constants(params)
         self._n_devices = n_devices
+        self._mesh_cols_pin = mesh_cols
+        self._adopted = False
+        self._copy_stream = None
+        self._serial_logged = False
         self.mesh = (None if mesh_cols is None
                      else halo.make_mesh(n_devices, mesh_cols, self.device))
+
+    def _shards(self) -> int:
+        return self._n_devices or halo.visible_cards(self.device)
+
+    def _adopt_record(self, shape) -> None:
+        """Follow the sharded autotune record of this configuration in
+        every knob left on ``auto`` (``grayscott_tpu/backends/sharded.py:
+        159-229``): the engine (not ``mega`` under a pinned overlap), the
+        mesh when none was pinned, and overlap only when this simulation
+        runs the record's engine on the record's mesh. The port's kernels
+        run fixed tiles at K = 8, so a record's tile or K never transfers
+        (ADVICE.md, round 5, #2). Latched on the first ``build_storage``,
+        like the mesh."""
+        if self._adopted:
+            return
+        self._adopted = True
+        if not self.tuned_lookup:
+            return
+        from ..bench import autotune
+
+        rec = autotune.sharded_lookup(
+            self.params, shape, self.boundary, n_devices=self._shards(),
+            mesh_cols=self._mesh_cols_pin,
+            engine=None if self._engine_req == "auto" else self._engine_req,
+            overlap=None if self._overlap_req == "auto"
+            else self._overlap_req,
+            steps_per_call=self._k_pin, device=self.device)
+        if not rec:
+            return
+        eng = rec.get("engine")
+        if self._engine_req == "auto" and eng in ENGINES[1:] and not (
+                eng == "mega" and self._overlap_req is True):
+            self.engine = eng
+        if self.mesh is None and rec.get("mesh_cols"):
+            self.mesh = halo.make_mesh(self._shards(), int(rec["mesh_cols"]),
+                                       self.device)
+        if (self._overlap_req == "auto" and self.engine == "windowed"
+                and eng == "windowed"
+                and int(rec.get("mesh_cols") or 1)
+                == self._resolve_mesh(shape).n_cols):
+            self.overlap = bool(rec.get("overlap"))
 
     def _resolve_mesh(self, shape) -> halo.Mesh:
         """The mesh, chosen for the first domain built when no column
         count was pinned, and kept after."""
         if self.mesh is None:
-            n = self._n_devices or halo.visible_cards(self.device)
+            n = self._shards()
             self.mesh = halo.make_mesh(n, halo.choose_mesh_cols(n, shape),
                                        self.device)
         return self.mesh
 
+    def overlap_runs(self, shape) -> bool:
+        """Whether a windowed block of a domain of ``shape`` runs the
+        overlap split: overlap on, the windowed engine, and the split
+        engages on the mesh's shards."""
+        mesh = self._resolve_mesh(shape)
+        r_loc, c_loc = halo.shard_extents(shape, mesh)
+        return (self.engine == "windowed" and self.overlap
+                and halo.overlap_engages(r_loc, c_loc, mesh.n_cols))
+
     def build_storage(self, u: np.ndarray, v: np.ndarray):
+        self._adopt_record(u.shape)
         mesh = self._resolve_mesh(u.shape)
         up, vp = halo.mega_shard_state(u, v, mesh)
-        return ("shmega" if mesh.n_cols == 1 else "shmega2d", up, vp)
+        tag = TAGS[self.engine, mesh.n_cols > 1]
+        return (tag, up, vp) if self.engine == "mega" else (tag, up, vp, 0)
+
+    @staticmethod
+    def _slot(storage) -> int:
+        return storage[3] if len(storage) > 3 else 0
 
     def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-        return (halo.mega_unshard_result(storage[1], shape),
-                halo.mega_unshard_result(storage[2], shape))
+        slot = self._slot(storage)
+        return (halo.mega_unshard_result(storage[1], shape, slot),
+                halo.mega_unshard_result(storage[2], shape, slot))
 
     def extract_result(self, storage, shape) -> torch.Tensor:
-        return halo.mega_unshard_result(storage[2], shape)
+        return halo.mega_unshard_result(storage[2], shape,
+                                        self._slot(storage))
 
     def run_steps(self, storage, shape, steps: int):
+        if len(storage) > 3:
+            return self._run_windowed(storage, shape, steps)
         _, up, vp = storage
         for n_blocks, k in sharded_mega.launch_plan(steps):
             # slot 0 enters with the halos of the last call or none; one
@@ -137,6 +238,52 @@ class ShardedSimulation(Simulation):
                                           self.consts, self.boundary, shape)
         return storage
 
+    def _run_windowed(self, storage, shape, steps: int):
+        tag, up, vp, slot = storage
+        split = self.overlap_runs(shape)
+        if self.overlap and not split and not self._serial_logged:
+            self._serial_logged = True
+            _logger.info("sharded windowed: no overlap-interior tile on "
+                         "%s shards of %s; the blocks run serialized",
+                         self.mesh.shape, tuple(shape))
+        n_full, rem = divmod(steps, K)
+        for k in [K] * n_full + ([rem] if rem else []):
+            if split:
+                self._overlapped_block(up, vp, slot, k, shape)
+            else:
+                halo.exchange_halos(up, slot)
+                halo.exchange_halos(vp, slot)
+                windowed.shard_multistep(up, vp, self.mesh, slot, k,
+                                         self.consts, self.boundary, shape)
+            slot = 1 - slot
+        return (tag, up, vp, slot)
+
+    def _overlapped_block(self, up, vp, slot: int, k: int, shape) -> None:
+        """One block split as ``body_overlap`` and ``body_overlap2d`` split
+        it (``grayscott_tpu/parallel/halo.py:319-457``): the exchange of
+        ``slot`` beside the overlap-interior launch, then the edge launch.
+        On the CPU the three run in order."""
+        args = (self.mesh, slot, k, self.consts, self.boundary, shape)
+        if self.device.type != "cuda":
+            halo.exchange_halos(up, slot)
+            halo.exchange_halos(vp, slot)
+            windowed.shard_multistep(up, vp, *args, part="interior")
+            windowed.shard_multistep(up, vp, *args, part="edge")
+            return
+        launch = torch.cuda.current_stream(self.device)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        copy = self._copy_stream
+        # the exchange reads the interiors the last block wrote; the pairs
+        # were made on the launch stream and the copies allocate nothing
+        copy.wait_stream(launch)
+        with torch.cuda.stream(copy):
+            halo.exchange_halos(up, slot)
+            halo.exchange_halos(vp, slot)
+        windowed.shard_multistep(up, vp, *args, part="interior")
+        launch.wait_stream(copy)
+        windowed.shard_multistep(up, vp, *args, part="edge")
+
     # -- CLI -----------------------------------------------------------------
 
     @classmethod
@@ -147,11 +294,13 @@ class ShardedSimulation(Simulation):
             "--sharded-engine", choices=ENGINES,
             default=env_default("GRAYSCOTT_SHARDED_ENGINE", "auto",
                                 choices=ENGINES),
-            help="Multi-shard engine: 'mega' runs the whole step loop in "
-            "one launch for all shards, with the halo exchange inside the "
-            "kernel (K7; 1-D row meshes, or 8 directions on "
-            "--sharded-mesh-cols > 1). 'windowed' and 'auto' (default; "
-            "JAX falls back to windowed) are not ported yet",
+            help="Multi-shard engine: 'windowed' fills the halos between "
+            "K1 launches over every shard, 8 steps a launch; 'mega' runs "
+            "the whole step loop in one launch for all shards, with the "
+            "halo exchange inside the kernel (K7; 1-D row meshes, or 8 "
+            "directions on --sharded-mesh-cols > 1). 'auto' (default) "
+            "follows a --autotune record for this configuration and falls "
+            "back to windowed",
         )
         parser.add_argument(
             "--sharded-devices", type=int,
@@ -171,9 +320,13 @@ class ShardedSimulation(Simulation):
             "--sharded-overlap", choices=OVERLAP,
             default=env_default("GRAYSCOTT_SHARDED_OVERLAP", "auto",
                                 choices=OVERLAP),
-            help="Overlap of the halo exchange with interior compute in "
-            "the windowed engine (not ported); 'on' raises with the mega "
-            "engine, 'auto' (default) and 'off' run it",
+            help="Overlap the halo exchange with interior compute by "
+            "splitting each block of the windowed engine into two "
+            "launches: the tiles whose windows read no halo, beside the "
+            "exchange on a copy stream, then the rest (bitwise the "
+            "serialized run; where a shard has no such tile, serialized). "
+            "'on' raises with the mega engine; 'auto' (default) follows a "
+            "--autotune record and falls back to off",
         )
 
     @classmethod
@@ -181,6 +334,10 @@ class ShardedSimulation(Simulation):
         return {
             "n_devices": getattr(ns, "sharded_devices", None),
             "mesh_cols": getattr(ns, "sharded_mesh_cols", None),
+            "block_rows": getattr(ns, "pallas_block_rows", None),
+            "block_cols": getattr(ns, "pallas_block_cols", None),
+            "steps_per_call": getattr(ns, "pallas_steps_per_call", None),
+            "dtype": getattr(ns, "pallas_dtype", "float32"),
             "overlap": getattr(ns, "sharded_overlap", "auto"),
             "engine": getattr(ns, "sharded_engine", "auto"),
         }

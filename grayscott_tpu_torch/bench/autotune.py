@@ -14,6 +14,11 @@ there are no ``block_rows`` or ``steps_per_call`` candidates (ROADMAP.md
 Queue 2 item 8); records carry ``block_rows: None`` and
 ``steps_per_call: 8``.
 
+The sharded backend has a tuner of its own (:func:`sharded_autotune`, the
+port of JAX's ``:556-818``), whose records key on the shard count and the
+pins as well (:func:`sharded_key`) and which ``ShardedSimulation`` follows
+through :func:`sharded_lookup`.
+
 Each candidate runs with ``tuned_lookup=False`` (exactly what it pins).
 On the card the candidates rank on device time (CUDA events around
 ``run_steps``, the best of ``reps``), with the wall rate (host clock
@@ -32,7 +37,9 @@ from typing import Iterable, Mapping
 import torch
 
 from ..backends.cuda import K, CudaSimulation
+from ..backends.sharded import ShardedSimulation
 from ..errors import UnsupportedConfigError
+from ..parallel import halo
 from ..params import Parameters
 from ..utils import cache
 from ..utils.device import autotune_platform
@@ -56,7 +63,8 @@ STEPS = 1024
 #: the runner-up within this share of the winner is measured again
 RECHECK = 0.97
 
-#: measure_config calls made (a second ``--autotune`` of a domain makes none)
+#: measure_config and measure_sharded_config calls made (a second
+#: ``--autotune`` of a domain makes none)
 measurements = 0
 
 
@@ -151,11 +159,26 @@ def autotune(params: Parameters, shape, boundary: str = "naive",
     configs = [dict(c) for c in (candidates if candidates is not None
                                  else default_candidates(params, boundary,
                                                          dtype))]
+
+    def measure(cfg):
+        return measure_config(params, shape, boundary, steps, dtype, reps,
+                              device, **cfg)
+
+    return _tune(key, configs, measure, persist, verbose, lambda res: (
+        f"{res['engine']}{' packed' if res['pack'] else ''}"))
+
+
+def _tune(key: str, configs: list, measure, persist: bool, verbose: bool,
+          ran) -> dict:
+    """Each of ``configs`` measured (``measure(config)``; a refused one is
+    kept in the table with its error), the fastest (the runner-up within
+    RECHECK of it measured again, the better rate of each deciding), with
+    the whole ``candidates`` table, persisted under ``key`` when
+    ``persist``. ``ran(result)`` names what a candidate ran."""
     measured, pool = [], []
     for cfg in configs:
         try:
-            res = measure_config(params, shape, boundary, steps, dtype,
-                                 reps, device, **cfg)
+            res = measure(cfg)
         except UnsupportedConfigError as e:
             if verbose:
                 print(f"{cfg}: refused ({e})", flush=True)
@@ -164,8 +187,7 @@ def autotune(params: Parameters, shape, boundary: str = "naive",
         res["gcells_per_sec"] = round(res["gcells_per_sec"], 3)
         if verbose:
             print(f"{cfg}: {res['gcells_per_sec']:.3f} Gcell/s (ran "
-                  f"{res['engine']}{' packed' if res['pack'] else ''})",
-                  flush=True)
+                  f"{ran(res)})", flush=True)
         measured.append(res)
         pool.append((cfg, res))
     if not pool:
@@ -176,8 +198,7 @@ def autotune(params: Parameters, shape, boundary: str = "naive",
         # within the noise of a measurement: the kernels are built now, so
         # measuring both again is cheap, and the better of each decides
         for cfg, res in pool[:2]:
-            again = measure_config(params, shape, boundary, steps, dtype,
-                                   reps, device, **cfg)
+            again = measure(cfg)
             res["gcells_per_sec"] = round(
                 max(res["gcells_per_sec"], again["gcells_per_sec"]), 3)
             if verbose:
@@ -205,3 +226,167 @@ def lookup(params: Parameters, shape, boundary: str,
     from .defaults import SHIPPED
 
     return SHIPPED.get(key)
+
+
+# -- the sharded backend's tuner (grayscott_tpu/bench/autotune.py:556-818) --
+#
+# The candidates are every mesh worth measuring and, on each, the windowed
+# engine with overlap off, with overlap on where the split engages, and the
+# megakernel K7. JAX's K and row-tile candidates have no counterpart: the
+# port's kernels run fixed tiles at K = 8 (ROADMAP.md Queue 2 item 8), so
+# records carry ``block_rows: None`` and ``steps_per_call: 8``. ADVICE.md
+# (round 5) found three faults in the JAX tuner, which the port does not
+# carry: the device time of a candidate is one CUDA-event interval around
+# the whole call on the one card, exchange and launches, never a sum over
+# shards (#1); a record's tile or K never transfers (#2:
+# ``ShardedSimulation._adopt_record``); and every pin reaches the
+# candidates and the key (#3).
+
+
+def sharded_key(params: Parameters, shape, boundary: str,
+                dtype: str = "float32", n_devices: int = 1,
+                mesh_cols: int | None = None, engine: str | None = None,
+                overlap: bool | None = None,
+                steps_per_call: int | None = None,
+                device: str | torch.device = "cuda") -> str:
+    """The store key of a sharded configuration: :func:`key_for`'s, then
+    the shard count and every pin that restricts the candidates (mesh
+    columns, engine, overlap, K), so that a record measured under a pin
+    never steers a run without it, nor the other way round
+    (``grayscott_tpu/bench/autotune.py:sharded_key``)."""
+    key = f"{key_for(params, shape, boundary, dtype, device)}" \
+        f"|sharded:n{n_devices}"
+    if mesh_cols is not None:
+        key += f":mc{mesh_cols}"
+    if engine in ("windowed", "mega"):
+        key += f":eng-{engine}"
+    if overlap is not None:
+        key += f":ov-{'on' if overlap else 'off'}"
+    if steps_per_call is not None:
+        key += f":k{steps_per_call}"
+    return key
+
+
+def _sharded_candidates(shape, n: int, mesh_cols: int | None = None,
+                        engine: str | None = None,
+                        overlap: bool | None = None) -> list[dict]:
+    """The candidates under the pins (``mesh_cols``, ``engine``,
+    ``overlap``; None is unpinned): on each viable mesh
+    (``halo.viable_mesh_cols``, else the 1-D one), windowed with overlap
+    off, windowed with overlap on where ``halo.overlap_engages`` (so that
+    an overlap candidate runs the split, not the serialized fallback under
+    its label), and the megakernel, which a pinned overlap on excludes."""
+    meshes = [mesh_cols] if mesh_cols else (
+        halo.viable_mesh_cols(shape, n) or [1])
+    engines = [engine] if engine in ("windowed", "mega") \
+        else ["windowed", "mega"]
+    out = []
+    for nc in meshes:
+        if n % nc:
+            continue
+        r_loc, c_loc = halo.shard_extents(shape,
+                                          halo.Mesh(n // nc, nc, None))
+        if "windowed" in engines:
+            if overlap is not True:
+                out.append(dict(engine="windowed", mesh_cols=nc,
+                                overlap=False))
+            if overlap is not False and halo.overlap_engages(r_loc, c_loc,
+                                                             nc):
+                out.append(dict(engine="windowed", mesh_cols=nc,
+                                overlap=True))
+        if "mega" in engines and overlap is not True:
+            out.append(dict(engine="mega", mesh_cols=nc))
+    return out
+
+
+def measure_sharded_config(params: Parameters, shape, boundary: str,
+                           steps: int | None = None, dtype: str = "float32",
+                           reps: int = 3,
+                           device: str | torch.device = "cuda",
+                           n_devices: int | None = None, **config) -> dict:
+    """One sharded candidate (``config``: the backend's ``engine``,
+    ``mesh_cols``, ``overlap`` and ``steps_per_call`` pins) with the
+    autotune store ignored: what actually ran (the engine, the mesh, and
+    overlap only where the split engaged), in the record schema, and its
+    rates, each one interval around the whole call (:func:`_measure_rates`:
+    the exchange and every launch, on the one card)."""
+    global measurements
+    sim = ShardedSimulation(params, boundary, device=device, dtype=dtype,
+                            n_devices=n_devices, tuned_lookup=False,
+                            **config)
+    species = sim.make_species(tuple(shape))
+    measurements += 1
+    rec = {"engine": sim.engine, "mesh_cols": sim.mesh.n_cols,
+           "mesh_rows": sim.mesh.n_rows, "block_rows": None,
+           "block_cols": None, "steps_per_call": K,
+           "overlap": sim.overlap_runs(shape)}
+    rec.update(_measure_rates(sim, species, shape, steps or STEPS, reps))
+    return rec
+
+
+def _pin(value, unpinned=("auto", "", None)):
+    return None if value in unpinned else value
+
+
+def sharded_autotune(params: Parameters, shape, boundary: str = "naive",
+                     dtype: str = "float32", n_devices: int | None = None,
+                     mesh_cols: int | None = None, engine: str | None = None,
+                     overlap=None, steps_per_call: int | None = None,
+                     candidates: Iterable[Mapping] | None = None,
+                     persist: bool = True, verbose: bool = False,
+                     reps: int = 3, steps: int | None = None,
+                     device: str | torch.device = "cuda") -> dict:
+    """The best sharded candidate under the pins: the store's record when
+    it holds one for the key (nothing is measured), else every candidate
+    (:func:`_sharded_candidates`) measured with every pin (``dtype`` and
+    ``steps_per_call`` too), the first two again when within RECHECK, and
+    the winner persisted with the whole ``candidates`` table. ``"auto"``
+    pins are unpinned; ``overlap`` takes ``"on"``/``"off"`` or a bool."""
+    n = n_devices or halo.visible_cards(torch.device(device))
+    engine = _pin(engine)
+    if isinstance(overlap, str):
+        overlap = {"on": True, "off": False}.get(overlap)
+    key = sharded_key(params, shape, boundary, dtype, n, mesh_cols, engine,
+                      overlap, steps_per_call, device)
+    store = cache.load_autotune()
+    if key in store:
+        return store[key]
+    configs = [dict(c) for c in (
+        candidates if candidates is not None else _sharded_candidates(
+            shape, n, mesh_cols, engine, overlap))]
+    if not configs:
+        raise UnsupportedConfigError(
+            f"no sharded autotune candidate runs the pins (mesh_cols="
+            f"{mesh_cols}, engine={engine}, overlap={overlap}) on "
+            f"{shape[0]}x{shape[1]} in {n} shards; drop a pin or run "
+            "without --autotune", combo="autotune")
+
+    def measure(cfg):
+        return measure_sharded_config(params, shape, boundary, steps, dtype,
+                                      reps, device, n_devices=n,
+                                      steps_per_call=steps_per_call, **cfg)
+
+    return _tune(key, configs, measure, persist, verbose, lambda res: (
+        f"{res['engine']} mesh {res['mesh_rows']}x{res['mesh_cols']} "
+        f"overlap {res['overlap']}"))
+
+
+def sharded_lookup(params: Parameters, shape, boundary: str,
+                   dtype: str = "float32", n_devices: int | None = None,
+                   mesh_cols: int | None = None, engine: str | None = None,
+                   overlap: bool | None = None,
+                   steps_per_call: int | None = None,
+                   device: str | torch.device = "cuda") -> dict | None:
+    """The best known sharded record of the configuration and pins on
+    ``device``: the local store first, then the records this package
+    ships for the card (``bench/defaults.py``); None when neither has
+    one."""
+    n = n_devices or halo.visible_cards(torch.device(device))
+    key = sharded_key(params, shape, boundary, dtype, n, mesh_cols,
+                      _pin(engine), overlap, steps_per_call, device)
+    rec = cache.load_autotune().get(key)
+    if rec is not None:
+        return rec
+    from .defaults import SHARDED
+
+    return SHARDED.get(key)

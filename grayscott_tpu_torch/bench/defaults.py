@@ -14,6 +14,13 @@ The keys carry the card's name and SM count
 (``utils/device.py:autotune_platform``): on any other card, and on the
 CPU, ``lookup`` misses this table and the backend falls back to its
 measured ranking (``backends/cuda.py:auto_engine``).
+
+``SHARDED`` holds the sharded tuner's records (``bench/autotune.py:
+sharded_autotune``, keyed by ``sharded_key``), which
+``sharded_lookup`` reads on a local miss: the default run's in 4 shards on
+one card, where JAX ships none (its sharded verdicts belong to a
+topology; here every shard shares the one card, so the card is the
+topology). Without a record ``engine="auto"`` runs the windowed engine.
 """
 
 from __future__ import annotations
@@ -55,5 +62,25 @@ SHIPPED: dict[str, dict] = {
         "block_cols": None, "fold": 1, "pack": True,
         "gcells_per_sec": 293.612, "device_gcells_per_sec": 293.612,
         "wall_gcells_per_sec": 292.853, "source": "shipped-h100-pr11",
+    },
+}
+
+#: key format: bench/autotune.py:sharded_key (the single-card key, then the
+#: shard count; no pin)
+SHARDED: dict[str, dict] = {
+    # The winner of chip_smoke.py's phase 12b on NVIDIA H100 80GB HBM3,
+    # power limit 700.00 W (nvidia-smi): the default run in 4 shards on the
+    # one card, 1024 steps a candidate, the best of 3 device times (CUDA
+    # events around each call, the exchange and every launch), ms per 1024
+    # steps. K7: 1x4 21.903, 2x2 22.685, 4x1 27.536. Windowed, overlap off
+    # / on: 4x1 26.555 / 30.832, 2x2 47.345 / 43.183, 1x4 43.234 / 42.510
+    # (the exchange's slice copies set their pace from the host). K7 on
+    # 1x4 led K7 on 2x2 by 3.5 % here and by 3.8 % when measured again.
+    "v1:h100-80gb-hbm3-sm132:1080x1920:naive:oono-puri|sharded:n4": {
+        "engine": "mega", "mesh_cols": 4, "mesh_rows": 1,
+        "block_rows": None, "block_cols": None, "steps_per_call": 8,
+        "overlap": False, "gcells_per_sec": 96.943,
+        "device_gcells_per_sec": 96.943, "wall_gcells_per_sec": 96.706,
+        "source": "shipped-h100-sharded",
     },
 }

@@ -16,8 +16,12 @@ Four workloads:
     python -m grayscott_tpu_torch.bench.harness --smin 3 --smax 5 \\
         --steps 1,8 --workloads compute,device
     python -m grayscott_tpu_torch.bench.harness --device cpu --smax 4
+    python -m grayscott_tpu_torch.bench.harness --backends sharded \
+        --engine windowed --smax 10 --steps 32   # or --engine mega
 
-Every run is on the card unless ``--device cpu`` is given.
+``--engine`` pins the engine of the backends swept (``cuda``: windowed or
+mega; ``sharded``: the windowed engine or the megakernel K7, one shard a
+visible card). Every run is on the card unless ``--device cpu`` is given.
 ``--report SWEEP_JSON`` renders a sweep instead of measuring
 (``bench/report.py``; ``--format markdown|html|svg``), against
 ``--baseline SWEEP_JSON`` when given; ``--gate`` then exits 1 on any

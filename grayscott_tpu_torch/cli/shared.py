@@ -14,9 +14,14 @@ back to the CPU.
 ``--autotune`` (or ``GRAYSCOTT_AUTOTUNE``) with the ``cuda`` backend
 measures its engines and layouts on the device before the run
 (``bench/autotune.py:autotune``) unless the store already holds a record
-for the domain, and the simulation follows the winner; with ``sharded`` it
-is refused (ROADMAP.md Queue 1 item 7.5); the plain rungs ignore it, as
-JAX's do.
+for the domain, and the simulation follows the winner; with ``sharded``
+it measures the sharded candidates under every pin of the command line
+(``bench/autotune.py:sharded_autotune``, as JAX's ``cli/shared.py:
+141-153``); the plain rungs ignore it, as JAX's do.
+
+``GRAYSCOTT_COORDINATOR`` (JAX's multi-process run) stops
+:func:`make_simulation` with :class:`UnsupportedConfigError`
+(``utils/distributed.py``).
 """
 
 from __future__ import annotations
@@ -31,9 +36,8 @@ import torch
 
 from ..backends import BACKENDS, best_backend_name, get_backend
 from ..backends.base import env_flag
-from ..backends.sharded import SHARDED_AUTOTUNE
-from ..errors import UnsupportedConfigError
 from ..params import DEFAULT_STENCIL, PRESETS, STENCILS, Parameters
+from ..utils import distributed
 from ..utils.runtime import PLATFORMS, default_device
 
 
@@ -121,6 +125,7 @@ def make_simulation(ns: argparse.Namespace):
     """The backend of ``ns``, built (its flags checked) before
     ``--autotune`` measures anything; the autotune winner persists, and the
     simulation follows it when it builds its storage."""
+    distributed.maybe_initialize()
     require_device(ns.device)
     name = ns.backend
     if name in (None, "", "auto"):
@@ -132,17 +137,23 @@ def make_simulation(ns: argparse.Namespace):
 
         logger.debug("device capabilities:\n%s", capability_dump())
     params = simulation_parameters(ns)
-    sim = cls(params, boundary=ns.boundary, device=ns.device,
-              **cls.args_from_namespace(ns))
-    if getattr(ns, "autotune", False) and name == "sharded":
-        raise UnsupportedConfigError(
-            f"--autotune with the sharded backend ({SHARDED_AUTOTUNE})",
-            combo="autotune")
+    kwargs = cls.args_from_namespace(ns)
+    sim = cls(params, boundary=ns.boundary, device=ns.device, **kwargs)
     if getattr(ns, "autotune", False) and name == "cuda":
         from ..bench import autotune
 
         autotune.autotune(params, domain_shape(ns), ns.boundary,
                           verbose=True, device=ns.device)
+    elif getattr(ns, "autotune", False) and name == "sharded":
+        from ..bench import autotune
+
+        # every pin restricts the candidates and keys the record
+        autotune.sharded_autotune(
+            params, domain_shape(ns), ns.boundary, verbose=True,
+            dtype=kwargs["dtype"], n_devices=kwargs["n_devices"],
+            mesh_cols=kwargs["mesh_cols"], engine=kwargs["engine"],
+            overlap=kwargs["overlap"],
+            steps_per_call=kwargs["steps_per_call"], device=ns.device)
     return sim
 
 

@@ -33,6 +33,42 @@
 // chosen on the card (PERF.md §6). wgmma does not apply (no matrix
 // product). gs_windowed_ablation runs the kernel with one part of the
 // design taken out, for chip_smoke.py to time what each part buys.
+//
+// The shard entry (gs_windowed_shard_multistep) is K1 as
+// grayscott_tpu/parallel/halo.py:sharded_run_blocks calls it per shard
+// (ps.multistep_impl, :314-316), for every shard of a mesh on one card in
+// one launch. Each shard holds a pair per species, (2, HALO + r_loc + HALO,
+// chalo + c_loc + chalo) (grayscott_tpu_torch/parallel/halo.py; K7's
+// layout): a launch reads slot `src` of every shard, its halos filled by the
+// exchange, and writes the interior of slot 1 - src.
+//
+//   - The grid is (tile columns, tile rows, shards): blockIdx.z is the
+//     shard, row-major in the mesh; its global origin is (i * r_loc,
+//     j * c_loc). Tiles are Main's 64^2 in 80^2 windows, anchored at the
+//     shard's origin; r_loc and c_loc are multiples of 8, so a shard's last
+//     tiles are partial.
+//   - The window loads through gs::ShardLayout: cells the shard's buffer
+//     does not hold load as 0.0, and with steps <= HALO they cannot reach
+//     a stored cell. The tile steps at its global position: the interior
+//     test (the window inside the domain), the domain mask and the naive
+//     window are taken against the global (rows, cols), so a shard seam is
+//     no domain edge and a tile along a seam is a domain-interior tile.
+//   - The store goes through ShardLayout::stores (the shard's interior
+//     cells only) and the domain mask: cells past the domain are written
+//     as 0.0.
+//   - `part`: 0 every tile; 1 the overlap-interior tiles, the rectangle
+//     [ti0, ti1) x [tj0, tj1) of tiles whose window lies in the shard's
+//     interior rows (and columns on a 2-D mesh) and so reads no halo cell
+//     (halo.overlap_tiles decides it); 2 every other tile. Parts 1 and 2
+//     write disjoint cells, so the two launches of an overlapped block
+//     equal one launch of part 0 bit for bit. Part 1 is not the domain
+//     sense of interior: a tile along a seam is interior to the domain but
+//     an overlap-edge tile, since its window reads the neighbour's halo.
+//   - Loads are coherent (L2 only) though no block reads what another
+//     writes: part 1 runs beside the copies that fill the halos of `src`.
+//
+// What bounds it is K1's: instruction issue. Each shard rounds its tiles
+// up on its own (2x2 at 1080x1920: 540 tiles of 64^2 against K1's 510).
 
 #include "gs_tile_sm90.cuh"
 
@@ -93,6 +129,87 @@ windowed_kernel(const float* u, const float* v, float* u_out, float* v_out,
   }
 }
 
+// The shards of a launch: the pairs' geometry, the source slot, and the
+// tiles of the part (see the note at the top).
+struct Shards {
+  float *u_pairs, *v_pairs;
+  int n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1, tj0, tj1;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+template <typename G, int TAPS, bool NAIVE>
+__global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
+windowed_shard_kernel(Shards s, int rows, int cols, int steps,
+                      gs::Constants k) {
+  extern __shared__ float4 window[];  // buffers [2] x species [2]
+  float* const base = reinterpret_cast<float*>(window);
+  const int inner = s.part == 1;
+  const int ti = blockIdx.y + (inner ? s.ti0 : 0);
+  const int tj = blockIdx.x + (inner ? s.tj0 : 0);
+  if (s.part == 2 && ti >= s.ti0 && ti < s.ti1 && tj >= s.tj0 &&
+      tj < s.tj1) {
+    return;  // an overlap-interior tile: part 1's
+  }
+  const int g = blockIdx.z;
+  const size_t pitch = static_cast<size_t>(s.c_loc) + 2 * s.chalo;
+  const size_t plane = (static_cast<size_t>(s.r_loc) + 2 * HALO) * pitch;
+  const gs::ShardLayout mem = {(g / s.n_cols) * s.r_loc,
+                               (g % s.n_cols) * s.c_loc,
+                               s.r_loc,
+                               s.c_loc,
+                               HALO,
+                               s.chalo,
+                               pitch};
+  const float* u = s.u_pairs + (2 * g + s.src) * plane;
+  const float* v = s.v_pairs + (2 * g + s.src) * plane;
+  float* u_out = s.u_pairs + (2 * g + 1 - s.src) * plane;
+  float* v_out = s.v_pairs + (2 * g + 1 - s.src) * plane;
+  const bool aligned = pitch % 4 == 0 && aligned16(u) && aligned16(v) &&
+                       aligned16(u_out) && aligned16(v_out);
+  const int r0 = mem.row0 + ti * G::TR - HALO;
+  const int c0 = mem.col0 + tj * G::TC - HALO;
+
+  sm90::load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
+      mem, u, v, base, base + G::CELLS, r0, c0, rows, cols, aligned);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  const bool interior = sm90::window_inside<G>(r0, c0, rows, cols);
+  int cur = 0;
+  for (int st = 0; st < steps; ++st) {
+    const float* in_u = base + 2 * cur * G::CELLS;
+    float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
+    if (interior) {
+      sm90::step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
+                                              out_u + G::CELLS, st + 1, r0,
+                                              c0, rows, cols, k);
+    } else {
+      sm90::step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
+                                               out_u + G::CELLS, st + 1, r0,
+                                               c0, rows, cols, k);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  const float* fu = base + 2 * cur * G::CELLS;
+  const float* fv = fu + G::CELLS;
+  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
+    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
+    const int gr = r0 + lr, gc = c0 + lc;
+    if (mem.stores(gr, gc)) {
+      const size_t at = mem.at(gr, gc);
+      const bool in = gr < rows && gc < cols;
+      u_out[at] = in ? fu[lr * G::WC + lc] : 0.0f;
+      v_out[at] = in ? fv[lr * G::WC + lc] : 0.0f;
+    }
+  }
+}
+
 struct Call {
   const float *u, *v;
   float *u_out, *v_out;
@@ -134,6 +251,45 @@ cudaError_t launch(const Call& c) {
 template <int TAPS>
 struct Launch {
   static cudaError_t run(const Call& c) { return launch<Main, TAPS>(c); }
+};
+
+struct ShardCall {
+  Shards s;
+  int n_shards, rows, cols, steps, naive, device;
+  gs::Constants k;
+  cudaStream_t stream;
+};
+
+template <bool NAIVE, int TAPS>
+cudaError_t launch_shards_one(const ShardCall& c) {
+  using G = Main;
+  static bool allowed[gs::MAX_DEVICES];
+  auto kernel = windowed_shard_kernel<G, TAPS, NAIVE>;
+  if (!allowed[c.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(G::BYTES));
+    if (err != cudaSuccess) return err;
+    allowed[c.device] = true;
+  }
+  const Shards& s = c.s;
+  const dim3 grid =
+      s.part == 1 ? dim3(s.tj1 - s.tj0, s.ti1 - s.ti0, c.n_shards)
+                  : dim3((s.c_loc + G::TC - 1) / G::TC,
+                         (s.r_loc + G::TR - 1) / G::TR, c.n_shards);
+  if (grid.x == 0 || grid.y == 0) return cudaSuccess;  // an empty part
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, G::NT, G::BYTES, c.stream>>>(s, c.rows, c.cols, c.steps,
+                                              c.k);
+  return cudaGetLastError();
+}
+
+template <int TAPS>
+struct LaunchShards {
+  static cudaError_t run(const ShardCall& c) {
+    return c.naive ? launch_shards_one<true, TAPS>(c)
+                   : launch_shards_one<false, TAPS>(c);
+  }
 };
 
 // The C interface's checks; the call, or an invalid-value error in `err`.
@@ -180,6 +336,47 @@ int gs_windowed_multistep(const float* u, const float* v, float* u_out,
                            &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+}
+
+// Enqueues one launch on `stream` that advances every shard of an
+// n_rows x n_cols mesh by `steps` (1..HALO) steps of the rows x cols domain,
+// from slot `src` of each shard's pairs (u_pairs, v_pairs: (n_rows, n_cols,
+// 2, HALO + r_loc + HALO, chalo + c_loc + chalo), its halos filled) into the
+// interior of slot 1 - src; `part` 0 steps every tile, 1 the tiles of the
+// rectangle [ti0, ti1) x [tj0, tj1), 2 the others (see the note at the
+// top). Returns cudaGetLastError() (0 when the launch was accepted, or
+// when part 1 has no tile), or cudaErrorInvalidValue for a geometry the
+// kernel does not take.
+int gs_windowed_shard_multistep(
+    float* u_pairs, float* v_pairs, int n_rows, int n_cols, int r_loc,
+    int c_loc, int chalo, int src, int rows, int cols, int steps, int part,
+    int ti0, int ti1, int tj0, int tj1, int naive, int device, float w0,
+    float w1, float w2, float w3, float w4, float w5, float w6, float w7,
+    float w8, float du, float dv, float feed, float min_feed_kill, float dt,
+    void* stream) {
+  const int tiles_y = (r_loc + Main::TR - 1) / Main::TR;
+  const int tiles_x = (c_loc + Main::TC - 1) / Main::TC;
+  if (n_rows < 1 || n_cols < 1 || r_loc < 1 || c_loc < 1 || chalo < 0 ||
+      chalo > HALO || (src != 0 && src != 1) || rows < 1 || cols < 1 ||
+      steps < 1 || steps > HALO || part < 0 || part > 2 || ti0 < 0 ||
+      ti0 > ti1 || ti1 > tiles_y || tj0 < 0 || tj0 > tj1 ||
+      tj1 > tiles_x || device < 0 || device >= gs::MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ShardCall c = {
+      {u_pairs, v_pairs, n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1,
+       tj0, tj1},
+      n_rows * n_cols,
+      rows,
+      cols,
+      steps,
+      naive,
+      device,
+      {{w0, w1, w2, w3, w4, w5, w6, w7, w8}, du, dv, feed, min_feed_kill, dt},
+      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(sm90::dispatch_taps<LaunchShards>(c.k, c));
 }
 
 // gs_windowed_multistep with one part of the design taken out, for timing

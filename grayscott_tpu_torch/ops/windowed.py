@@ -9,6 +9,16 @@ since there is no kernel to launch on the CPU.
 
 ``launches`` counts the kernel launches, and only them, so that a run can
 show that its main path went through the kernel.
+
+:func:`shard_multistep` is K1 on the shard layout of ``parallel/halo.py``,
+as ``grayscott_tpu/parallel/halo.py:sharded_run_blocks`` runs
+``multistep_impl`` on each shard (``:314-316``): one launch steps every
+shard of a mesh from slot ``s`` of its pairs into slot ``1 - s``, all of
+a tile set (``part``: every tile, the overlap-interior tiles, or the
+rest; ``halo.overlap_tiles``). Its plain version is
+:func:`shard_multistep_reference`, and it counts its launches apart, in
+``shard_launches``, so that a run can tell the sharded engine's K1 from
+the unsharded one.
 """
 
 from __future__ import annotations
@@ -18,19 +28,27 @@ import ctypes
 import torch
 
 from ..params import KernelConstants
-from . import build, checks, stencil
+from ..parallel import halo
+from . import build, checks, sharded_mega, stencil
 
 #: most steps one launch may take: the kernel's compile-time halo depth
 K = 8
 
 #: the kernel's output tile (rows, cols); each block steps it in a window of
 #: K cells more on every side (csrc/windowed.cu: Main)
-TILE = (64, 64)
+TILE = (halo.WINDOWED_TILE, halo.WINDOWED_TILE)
+
+#: the tile sets of :func:`shard_multistep`, in the kernel's numbering
+PARTS = ("all", "interior", "edge")
 
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
+#: shard entry launches so far (:func:`shard_multistep`), apart from
+#: ``launches``
+shard_launches = 0
 
 _fn = None
+_shard_fn = None
 
 
 #: the plain PyTorch version: ``steps`` calls of ``stencil.step``
@@ -75,3 +93,94 @@ def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
         raise RuntimeError(f"windowed kernel launch failed: CUDA error {err} "
                            f"({build.error_name(err)})")
     launches += 1
+
+
+def _shard_kernel():
+    global _shard_fn
+    if _shard_fn is None:
+        _kernel()  # checks the kernel's K
+        _shard_fn = build.bind("gs_windowed_shard_multistep",
+                               [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+                               + [ctypes.c_float] * 14 + [ctypes.c_void_p])
+    return _shard_fn
+
+
+def part_mask(r_loc: int, c_loc: int, chalo: int, part: str,
+              device=None) -> torch.Tensor:
+    """Which of a shard's ``r_loc x c_loc`` interior cells the tiles of
+    ``part`` store (``halo.overlap_tiles``)."""
+    ti0, ti1, tj0, tj1 = halo.overlap_tiles(r_loc, c_loc, chalo)
+    t = halo.WINDOWED_TILE
+    rows = torch.arange(r_loc, device=device) // t
+    cols = torch.arange(c_loc, device=device) // t
+    inner = (((rows >= ti0) & (rows < ti1))[:, None]
+             & ((cols >= tj0) & (cols < tj1))[None, :])
+    if part == "interior":
+        return inner
+    if part == "edge":
+        return ~inner
+    return torch.ones((r_loc, c_loc), dtype=torch.bool, device=device)
+
+
+def shard_multistep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
+                              src_slot: int, steps: int,
+                              consts: KernelConstants, boundary: str, shape,
+                              part: str = "all") -> None:
+    """The plain version, in place: each shard's padded block of slot
+    ``src_slot`` takes ``steps`` plain steps at its global origin against
+    the domain ``shape`` (``stencil.step_at``), and the interior cells of
+    ``part``'s tiles go to slot ``1 - src_slot``, those past the domain as
+    0.0 (``step_at`` gives them). The body of
+    ``sharded_mega.sharded_megastep_reference`` without the pushes."""
+    n_r, n_c = u_pairs.shape[:2]
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs)
+    h, dst = halo.HALO, 1 - src_slot
+    mask = part_mask(r_loc, c_loc, ch, part, u_pairs.device)
+    for i in range(n_r):
+        for j in range(n_c):
+            u, v = u_pairs[i, j, src_slot], v_pairs[i, j, src_slot]
+            for _ in range(steps):
+                u, v = stencil.step_at(u, v, consts, boundary,
+                                       (i * r_loc - h, j * c_loc - ch), shape)
+            for pairs, x in ((u_pairs, u), (v_pairs, v)):
+                out = pairs[i, j, dst, h:h + r_loc, ch:ch + c_loc]
+                out.copy_(torch.where(mask, x[h:h + r_loc, ch:ch + c_loc],
+                                      out))
+
+
+def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
+                    mesh: halo.Mesh, src_slot: int, steps: int,
+                    consts: KernelConstants, boundary: str, shape,
+                    part: str = "all") -> None:
+    """Advance every shard of ``mesh`` by ``steps`` (1..K) steps of the
+    domain ``shape`` (R, C), from slot ``src_slot`` of the pairs (its halos
+    filled: ``halo.exchange_halos``) into the interior of slot
+    ``1 - src_slot``, for the tiles of ``part`` (:data:`PARTS`). On a CUDA
+    device one launch is enqueued on the current stream and not waited
+    for; an ``"interior"`` part with no tile launches nothing."""
+    global shard_launches
+    checks.check_count("steps", steps, 1, K)
+    checks.check_boundary(boundary)
+    if src_slot not in (0, 1):
+        raise ValueError(f"src_slot must be 0 or 1, got {src_slot!r}")
+    if part not in PARTS:
+        raise ValueError(f"part must be one of {PARTS}, got {part!r}")
+    sharded_mega.check_pairs(u_pairs, v_pairs, mesh, shape)
+    if u_pairs.device.type == "cpu":
+        shard_multistep_reference(u_pairs, v_pairs, src_slot, steps, consts,
+                                  boundary, shape, part)
+        return
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs)
+    rect = halo.overlap_tiles(r_loc, c_loc, ch)
+    if part == "interior" and rect[1] == rect[0]:
+        return
+    fn = _shard_kernel()
+    stream = torch.cuda.current_stream(u_pairs.device).cuda_stream
+    err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), mesh.n_rows,
+             mesh.n_cols, r_loc, c_loc, ch, src_slot, shape[0], shape[1],
+             steps, PARTS.index(part), *rect, int(boundary == "naive"),
+             u_pairs.device.index, *consts.weights, *consts.reaction, stream)
+    if err != 0:
+        raise RuntimeError(f"windowed shard kernel launch failed: CUDA error "
+                           f"{err} ({build.error_name(err)})")
+    shard_launches += 1

@@ -9,8 +9,10 @@ a pair per species, in one tensor for all shards::
 
     (n_rows, n_cols, 2, HALO + r_loc + HALO, chalo + c_loc + chalo)
 
-Slot 0 of a pair is the current state, slot 1 the sharded megakernel's
-scratch (``ops/sharded_mega.py``). Around the interior lie ``HALO`` rows of
+Slot 0 of a pair is the current state and slot 1 the scratch of the
+sharded megakernel K7 (``ops/sharded_mega.py``); the windowed engine's K1
+(``ops/windowed.py:shard_multistep``) steps slot ``s`` into slot ``1 - s``
+and carries which slot is current. Around the interior lie ``HALO`` rows of
 the row neighbours' cells and, on 2-D meshes, ``chalo = COL_HALO`` columns
 of the column neighbours' cells (corners from the diagonal neighbours); on
 1-D meshes ``chalo`` is 0. The TPU layout's 128-lane column ring is not
@@ -38,6 +40,10 @@ COL_HALO = 8
 #: shard extents are multiples of this, so a push band (HALO rows,
 #: COL_HALO columns) lies inside every interior
 QUANTUM = 8
+
+#: the tile edge of K1 on the shard layout (``ops/windowed.py:TILE``,
+#: ``csrc/gs_tile_sm90.cuh: Main``), which decides the overlap split
+WINDOWED_TILE = 64
 
 #: the eight push directions, (row, column) offsets of the receiver, in the
 #: order of grayscott_tpu/ops/megakernel.py:324-353 (and of the kernel's)
@@ -198,27 +204,31 @@ def mega_shard_state(u, v, mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     return out[0], out[1]
 
 
-def mega_unshard_result(pairs: torch.Tensor, shape) -> torch.Tensor:
-    """Slot 0's interiors, reassembled and cropped to (R, C): a new tensor
-    (``grayscott_tpu/parallel/halo.py:719`` and ``:673``)."""
+def mega_unshard_result(pairs: torch.Tensor, shape,
+                        slot: int = 0) -> torch.Tensor:
+    """The interiors of ``slot``, reassembled and cropped to (R, C): a new
+    tensor (``grayscott_tpu/parallel/halo.py:719`` and ``:673``)."""
     r, c = shape
     n_r, n_c = pairs.shape[:2]
     r_loc, c_loc, ch = interior_extents(pairs)
-    interior = pairs[:, :, 0, HALO:HALO + r_loc, ch:ch + c_loc]
+    interior = pairs[:, :, slot, HALO:HALO + r_loc, ch:ch + c_loc]
     full = interior.permute(0, 2, 1, 3).reshape(n_r * r_loc, n_c * c_loc)
     return full[:r, :c].clone()
 
 
-def exchange_halos(pairs: torch.Tensor) -> None:
-    """Fill slot 0's halos from the neighbours, in place: first the rows,
-    across the whole width, then the columns across every row, halo rows
-    included, so that the corners arrive from the diagonal neighbours
+def exchange_halos(pairs: torch.Tensor, slot: int = 0) -> None:
+    """Fill the halos of ``slot`` from the neighbours, in place: first the
+    rows, across the whole width, then the columns across every row, halo
+    rows included, so that the corners arrive from the diagonal neighbours
     (``_exchange_rows`` / ``_exchange_cols``,
     ``grayscott_tpu/parallel/halo.py:178-224``). Halos on the domain's
     outer sides get 0.0, as ``ppermute`` delivers there. Afterwards each
-    shard's slot 0 is the zero-padded domain's block around its interior."""
+    shard's ``slot`` is the zero-padded domain's block around its
+    interior. Eight copies of slices (four on a 1-D mesh), each across
+    every shard at once; they read only interior cells and the halo rows
+    they filled first, and write only halo cells."""
     r_loc, c_loc, ch = interior_extents(pairs)
-    h, x = HALO, pairs[:, :, 0]
+    h, x = HALO, pairs[:, :, slot]
     x[1:, :, :h] = x[:-1, :, r_loc:r_loc + h]
     x[0, :, :h] = 0.0
     x[:-1, :, h + r_loc:] = x[1:, :, h:2 * h]
@@ -228,6 +238,43 @@ def exchange_halos(pairs: torch.Tensor) -> None:
         x[:, 0, :, :ch] = 0.0
         x[:, :-1, :, ch + c_loc:] = x[:, 1:, :, ch:2 * ch]
         x[:, -1, :, ch + c_loc:] = 0.0
+
+
+def overlap_tiles(r_loc: int, c_loc: int,
+                  chalo: int) -> Tuple[int, int, int, int]:
+    """The overlap-interior tiles of a shard, ``(ti0, ti1, tj0, tj1)``
+    (tile rows ``[ti0, ti1)``, tile columns ``[tj0, tj1)``): the
+    WINDOWED_TILE tiles, anchored at the shard's interior origin, whose
+    window (the tile and HALO cells around it) lies inside the shard's
+    interior rows and, on a 2-D mesh (``chalo`` > 0), its interior
+    columns. Their windows read no halo cell, so the windowed engine can
+    step them while the exchange fills the halos; every other tile is an
+    overlap-edge tile. The rectangle may be empty. A 1-D mesh has no halo
+    columns: every tile column is in."""
+    t = WINDOWED_TILE
+
+    def inner(extent: int) -> Tuple[int, int]:
+        # tile i's window [i*t - HALO, i*t + t + HALO) inside [0, extent)
+        last = (extent - t - HALO) // t
+        return (1, last + 1) if last >= 1 else (0, 0)
+
+    ti0, ti1 = inner(r_loc)
+    tj0, tj1 = inner(c_loc) if chalo else (0, -(-c_loc // t))
+    if ti1 <= ti0 or tj1 <= tj0:
+        return (0, 0, 0, 0)
+    return ti0, ti1, tj0, tj1
+
+
+def overlap_engages(r_loc: int, c_loc: int, n_cols: int) -> bool:
+    """Whether the windowed engine's overlap split takes effect on shards
+    of ``r_loc x c_loc`` interior cells in a mesh of ``n_cols`` columns:
+    every shard has at least one overlap-interior tile
+    (:func:`overlap_tiles`; all shards share the extents). Else
+    ``overlap`` runs serialized, as JAX falls back
+    (``grayscott_tpu/parallel/halo.py:96-109``). The backend and the
+    sharded tuner both read it."""
+    ti0, ti1, _, _ = overlap_tiles(r_loc, c_loc, col_halo(n_cols))
+    return ti1 > ti0
 
 
 def push_band(offset: int, n: int, halo: int) -> Tuple[slice, slice]:

@@ -922,6 +922,109 @@ def test_sharded_mega_geometries_bitwise(cuda_device, boundary, shape, n,
         assert all(bits_equal(a, b) for a, b in zip(pairs, want))
 
 
+#: the windowed engine's meshes: SHARDED, and shards that split for
+#: overlap (1-D, 1x2, 2x2; NaN and Inf states from 200 columns)
+SHARDED_WINDOWED = SHARDED + [((300, 40), 2, 1), ((150, 300), 2, 2),
+                              ((290, 300), 4, 2), ((301, 500), 4, 1),
+                              ((300, 500), 4, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("shape,n,cols", SHARDED_WINDOWED)
+def test_windowed_shard_bitwise_equals_plain(cuda_device, boundary, shape, n,
+                                             cols):
+    """K1's shard entry, one launch per part (all, interior, edge) from
+    either slot of the exchanged pairs at 1, 5 and 8 steps, on random
+    states and, from 200 columns, on states with NaN and +-Inf: every cell
+    of the pairs, halos included, equals the plain version's, and the
+    interior and edge launches together equal the whole. One count a
+    launch; an interior part with no tile launches nothing. Tolerance:
+    none."""
+    consts = kernel_constants(Parameters(time_step=0.5))
+    mesh = halo.make_mesh(n, cols, cuda_device)
+    states = [random_uv(shape, "cpu")]
+    if shape[0] > 120 and shape[1] > 200:  # nan_state's cells
+        states.append(nan_state(shape, "cpu"))
+    r_loc, c_loc = halo.shard_extents(shape, mesh)
+    engages = halo.overlap_engages(r_loc, c_loc, cols)
+    for (u, v), slot, steps in zip(states * 3, (0, 1, 0, 1, 0, 1),
+                                   (1, 5, 8, 8, 5, 1)):
+        pairs = halo.mega_shard_state(u, v, mesh)
+        for p in pairs:
+            if slot:
+                p[:, :, 1] = p[:, :, 0]
+            halo.exchange_halos(p, slot)
+        whole = None
+        for part in windowed.PARTS:
+            got = [p.clone() for p in pairs]
+            want = [p.clone() for p in pairs]
+            before = windowed.shard_launches
+            windowed.shard_multistep(*got, mesh, slot, steps, consts,
+                                     boundary, shape, part=part)
+            launched = part != "interior" or engages
+            assert windowed.shard_launches == before + launched
+            windowed.shard_multistep_reference(*want, slot, steps, consts,
+                                               boundary, shape, part)
+            torch.cuda.synchronize()
+            assert all(bits_equal(a, b) for a, b in zip(got, want)), \
+                (part, slot, steps)
+            if part == "all":
+                whole = got
+        split = [p.clone() for p in pairs]
+        for part in ("interior", "edge"):
+            windowed.shard_multistep(*split, mesh, slot, steps, consts,
+                                     boundary, shape, part=part)
+        torch.cuda.synchronize()
+        assert all(bits_equal(a, b) for a, b in zip(split, whole))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_windowed_shard_keeps_nan_and_inf_like_k1(cuda_device, boundary,
+                                                  stencil_name):
+    """Through the backend on a 2x2 mesh with overlap on (the split
+    engages) and off, 27 steps from a state with NaN and +-Inf: bit for
+    bit the unsharded K1's state, with 4 and 8 shard launches and no K7
+    launch. Tolerance: none."""
+    params = Parameters.with_stencil(stencil_name)
+    shape = (300, 500)
+    u, v = nan_state(shape, "cpu")
+    k1 = CudaSimulation(params, boundary, device="cuda", engine="windowed",
+                        tuned_lookup=False)
+    want = k1.extract_uv(k1.run_steps(k1.build_storage(
+        u.numpy(), v.numpy()), shape, 27), shape)
+    for overlap, launches in (("off", 4), ("on", 8)):
+        sim = ShardedSimulation(params, boundary, device="cuda",
+                                engine="windowed", n_devices=4,
+                                mesh_cols=2, overlap=overlap,
+                                tuned_lookup=False)
+        before = (windowed.shard_launches, sharded_mega.launches)
+        storage = sim.run_steps(sim.build_storage(u.numpy(), v.numpy()),
+                                shape, 27)
+        assert (windowed.shard_launches - before[0],
+                sharded_mega.launches - before[1]) == (launches, 0)
+        got = sim.extract_uv(storage, shape)
+        torch.cuda.synchronize()
+        assert all(bits_equal(a, b) for a, b in zip(got, want)), overlap
+
+
+@pytest.mark.gpu
+def test_windowed_shard_refuses_bad_geometry(cuda_device):
+    """A tile rectangle past the shard's tiles is refused by the kernel's
+    host side; it raises, and nothing falls back."""
+    shape = (40, 300)
+    mesh = halo.make_mesh(4, 2, cuda_device)
+    up, vp = halo.mega_shard_state(*random_uv(shape, "cpu"), mesh)
+    fn = windowed._shard_kernel()
+    consts = kernel_constants(Parameters())
+    err = fn(up.data_ptr(), vp.data_ptr(), 2, 2, 24, 152, 8, 0, *shape, 8,
+             1, 0, 5, 0, 1, 1, 0, *consts.weights, *consts.reaction,
+             torch.cuda.current_stream().cuda_stream)
+    assert build.error_name(err) == "invalid argument"
+
+
 #: the plain rungs of the ladder (PyTorch operations; fused and conv
 #: replay a CUDA graph on the card)
 RUNGS = ["naive", "regular", "fused", "conv"]

@@ -138,6 +138,7 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.scripts.sweep",
         "grayscott_tpu_torch.scripts.adopt_sweep",
         "grayscott_tpu_torch.utils.runtime",
+        "grayscott_tpu_torch.utils.distributed",
         "grayscott_tpu_torch.utils.profiling",
         "grayscott_tpu_torch.utils.palette",
         "grayscott_tpu_torch.native",

@@ -4,7 +4,8 @@ sharded megakernel K7 (ops/sharded_mega.py) against the numpy oracle and
 against JAX's ``ShardedSimulation(engine="mega")`` in TPU interpret mode,
 the ``sharded`` backend and ``simulate --backend sharded``. The CUDA kernel
 itself is held against its plain version on the card by
-tests/test_torch_gpu.py."""
+tests/test_torch_gpu.py; the windowed engine is
+tests/test_torch_sharded_windowed.py's."""
 
 import numpy as np
 import pytest
@@ -230,21 +231,45 @@ def test_plain_sharded_matches_jax_sharded_mega(rng, params, shape, n, cols,
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"engine": "auto"},                 # JAX falls back to windowed
-    {"engine": "windowed"},
     {"engine": "mega", "overlap": "on"},
     {"engine": "mega", "overlap": True},
     {"engine": "mega", "steps_per_call": 16},
     {"engine": "mega", "dtype": "bfloat16"},
     {"engine": "mega", "block_rows": 8},
     {"engine": "mega", "block_cols": 128},
-    {"engine": "mega", "tuned_lookup": True},
     {"engine": "mega", "n_devices": 0},
     {"engine": "mega", "mesh_cols": 0},
+    {"engine": "windowed", "dtype": "bfloat16"},
+    {"engine": "windowed", "block_rows": 8},
+    {"engine": "windowed", "block_cols": 128},
+    {"engine": "windowed", "steps_per_call": 16},
+    {"engine": "auto", "dtype": "bfloat16"},
+    {"engine": "auto", "steps_per_call": 4},
 ])
 def test_unported_or_conflicting_knobs_raise(kwargs):
     with pytest.raises(UnsupportedConfigError):
         ShardedSimulation(Parameters(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,tag", [
+    ({"engine": "auto"}, "shwin"),      # no record: windowed, as in JAX
+    ({"engine": "windowed"}, "shwin"),
+    ({"engine": "mega", "tuned_lookup": True}, "shmega"),
+])
+def test_knobs_that_now_run(monkeypatch, tmp_path, rng, params, kwargs,
+                            tag):
+    """The knobs that raised until the windowed engine and the sharded
+    records were ported run, bit for bit the oracle (an empty store)."""
+    monkeypatch.setenv("GRAYSCOTT_CACHE_DIR", str(tmp_path))
+    u, v = random_uv(rng, (48, 16))
+    sim = ShardedSimulation(Parameters(), device="cpu", n_devices=4,
+                            **kwargs)
+    species = Species(u.shape, sim.build_storage(u, v), sim)
+    assert species.storage[0] == tag
+    sim.perform_steps(species, 19)
+    for got, want in zip(species.uv_host(),
+                         oracle.run(u, v, params, 19, "naive")):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kwargs", [{"engine": "resident"},
