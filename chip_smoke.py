@@ -190,9 +190,26 @@
    library and of the native colorizer and PNG encoder into a fresh
    ``GRAYSCOTT_CACHE_DIR``, timed; (f) which PNG encoder runs, and g++'s
    version. The ``kernels`` line gives K3 and K6 their ``livesim_launches``.
+15. bf16 storage (``--pallas-dtype bfloat16``): the bf16 entries of K1,
+   K1's shard entry, K2 and K7. (a) Each through its backend (the shard
+   entry and K7 on 2x2) against ``stencil.run_bf16`` on the card after 1,
+   8 and 12 steps, at 1080x1920, 4096x4096 and 1000x1924 (rows of 16
+   bytes in float32 but not in bf16), both boundaries, and on a NaN/Inf
+   state: bit for bit, NaN's bit pattern aside. (b) K1's shard entry,
+   overlap off and on, against K1, and K7 against K2, on 1x1, 4x1, 2x2
+   and 1x4, random and NaN/Inf states. (c) ``simulate.run`` with
+   ``--pallas-dtype bfloat16``, 16 images x 32 steps at 1080x1920 naive,
+   on ``auto`` (K1), each engine pinned and 4 shards (windowed, and K7),
+   launch counts zeroed before each and read after, every frame the plain
+   bf16 replay's; then timed in turns with the float32 runs. (d) Each bf16
+   entry in turns with its float32 entry (CUDA events) at 1080x1920 and
+   4096x4096, both boundaries, beside its bound at 8 B a cell; K1 also at
+   16384x16384, against its plain version too. (e) One 32-step K1 call at
+   32768x32768 in float32 and in bf16: ``max_memory_allocated`` and its
+   time. The ``kernels`` line gains the four bf16 entries.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
-(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 14 run after
+(in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
 them, then phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
@@ -295,6 +312,11 @@ COUNTERS = {
     "ilpsplit": (ilpsplit, "launches"),
     "shmega": (sharded_mega, "launches"),
     "shwin": (windowed, "shard_launches"),
+    # the bf16 entries (bfloat16 storage), counted apart
+    "windowed_bf16": (windowed, "bf16_launches"),
+    "shwin_bf16": (windowed, "bf16_shard_launches"),
+    "mega_bf16": (megakernel, "bf16_launches"),
+    "shmega_bf16": (sharded_mega, "bf16_launches"),
 }
 
 #: storage tags that share another tag's kernel (K7 and K1's shard entry on
@@ -376,6 +398,35 @@ KERNELS = {
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, "
                     "grayscott_tpu/parallel/halo.py:487)",
     },
+    "windowed_bf16": {
+        "name": "windowed_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (bfloat16 "
+                    "storage, :970-993)",
+    },
+    "shwin_bf16": {
+        "name": "windowed_shard_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (bfloat16 "
+                    "storage, per shard: grayscott_tpu/parallel/"
+                    "halo.py:314-316)",
+    },
+    "mega_bf16": {
+        "name": "mega_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (bfloat16 storage, "
+                    ":166-169)",
+    },
+    "shmega_bf16": {
+        "name": "sharded_mega_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, bfloat16 "
+                    "storage; grayscott_tpu/parallel/halo.py:487)",
+    },
 }
 
 #: K7's meshes (rows, cols), and the flags of its simulate runs: the
@@ -445,22 +496,27 @@ def ops_per_cell_step(params: Parameters, boundary: str) -> int:
     return 2 * 3 * taps + 15
 
 
-def roofline_ms(shape, steps: int, ops: int) -> tuple[float, str]:
+def roofline_ms(shape, steps: int, ops: int,
+                cell_bytes: int = 16) -> tuple[float, str]:
     """The least time the card could take to advance ``shape`` by
     ``steps`` steps of ``ops`` float32 operations a cell-step in one call:
-    U and V read once and written once, and the operations, none fused, at
-    the unfused float32 peak. Returns (ms, what bounds it)."""
+    U and V read once and written once (``cell_bytes`` a cell: 16 in
+    float32, 8 in bf16 storage), and the operations, none fused, at the
+    unfused float32 peak. Returns (ms, what bounds it)."""
     cells = shape[0] * shape[1]
-    by_bytes = 16 * cells / PEAK_BYTES
+    by_bytes = cell_bytes * cells / PEAK_BYTES
     by_ops = cells * steps * ops / PEAK_F32_UNFUSED
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
 
 def bound_ms(shape, steps: int, boundary: str,
-             params: Parameters = Parameters()) -> tuple[float, str]:
-    """:func:`roofline_ms` of the oracle's tree (K1-K3)."""
-    return roofline_ms(shape, steps, ops_per_cell_step(params, boundary))
+             params: Parameters = Parameters(),
+             cell_bytes: int = 16) -> tuple[float, str]:
+    """:func:`roofline_ms` of the oracle's tree (K1-K3; K1, K2 and K7 on
+    bf16 storage with ``cell_bytes=8``)."""
+    return roofline_ms(shape, steps, ops_per_cell_step(params, boundary),
+                       cell_bytes)
 
 
 #: float32 operations of one cell-step of the species-packed step, both
@@ -521,6 +577,26 @@ class Checks:
         self.kernel_err[engine] = max(self.kernel_err[engine], err)
         print(f"compare {engine} {what}: bitwise {same}", flush=True)
         self.expect(same, f"{engine} vs plain {what}")
+
+    def compare_bf16(self, engine: str, got, want, what: str) -> None:
+        """bf16 storage, bit for bit: the same NaN positions, and the same
+        bits in every other cell (NaN's own bit pattern may differ between
+        the card's rounding and the CPU's). max|d| is 0.0 when they agree,
+        else the largest difference outside NaN (inf on a NaN mismatch)."""
+        err = 0.0
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            nan = torch.isnan(g)
+            if not torch.equal(nan, torch.isnan(w)):
+                err = float("inf")
+                continue
+            g, w = torch.where(nan, 0.0, g), torch.where(nan, 0.0, w)
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                d = (g - w).abs().nan_to_num(nan=float("inf"))
+                err = max(err, float(d.max()) or float("inf"))
+        self.kernel_err[engine] = max(self.kernel_err[engine], err)
+        print(f"compare {engine} {what}: bitwise {err == 0.0}", flush=True)
+        self.expect(err == 0.0, f"{engine} vs plain {what}")
 
     def compare_one(self, engine: str, got, want, what: str) -> None:
         err = max_err(got, want)
@@ -880,6 +956,9 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     species = sim.make_species(shared.domain_shape(ns))
     engine = KERNEL_OF.get(species.storage[0], species.storage[0])
     split = engine == "shwin" and sim.overlap_runs(species.shape)
+    # the bf16 entries count their launches apart
+    counter = engine + ("_bf16" if getattr(sim, "dtype", None) == "bfloat16"
+                        else "")
     frames: list[np.ndarray] = []
     # This sink keeps every frame, so each image would pay a fresh pinned
     # allocation (cudaHostAlloc, ~1.3 ms at this shape), which a long run
@@ -897,13 +976,13 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     seconds = time.perf_counter() - t0
     launches = read_launches()
     want = {tag: 0 for tag in COUNTERS}
-    want[engine] = expected_launches(engine, MAIN_IMAGES, MAIN_STEPS, split)
+    want[counter] = expected_launches(engine, MAIN_IMAGES, MAIN_STEPS, split)
     label = " ".join(flags) or "(auto)"
-    print(f"path simulate {label}: engine {engine}, {MAIN_IMAGES} images x "
+    print(f"path simulate {label}: engine {counter}, {MAIN_IMAGES} images x "
           f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
           f"{ns.boundary}: {seconds!r} s, launches {launches} (expected "
           f"{want})", flush=True)
-    checks.expect(launches == want and launches[engine] > 0,
+    checks.expect(launches == want and launches[counter] > 0,
                   f"simulate {label}: launches {launches}, not {want}")
     checks.expect(len(frames) == MAIN_IMAGES
                   and all(f.shape == MAIN_SHAPE and f.dtype == np.float32
@@ -912,12 +991,13 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
                   "finiteness")
     errs = [float(np.abs(f - r.cpu().numpy()).max())
             for f, r in zip(frames, replay)]
-    checks.kernel_err[engine] = max(checks.kernel_err[engine], *errs)
+    checks.kernel_err[counter] = max(checks.kernel_err[counter], *errs)
     print(f"path simulate {label} vs plain replay on the card, max|dV| per "
           f"frame: {errs}", flush=True)
     checks.expect(max(errs) <= TOL, f"simulate {label} vs plain replay")
-    return {"engine": engine, "seconds": seconds, "launches": launches,
-            "frames": frames, "tag": species.storage[0], "flags": flags,
+    return {"engine": engine, "counter": counter, "seconds": seconds,
+            "launches": launches, "frames": frames,
+            "tag": species.storage[0], "flags": flags,
             "mesh": getattr(getattr(sim, "mesh", None), "shape", None),
             "split": split}
 
@@ -3160,6 +3240,325 @@ def livesim_phase(checks: Checks, card: str) -> dict:
     return live
 
 
+# -- phase 15: bf16 storage (K1, K1's shard entry, K2 and K7) ---------------
+
+#: phase 15's shapes: the default run's, the bench's, and a ragged one whose
+#: rows are 16-byte rows in float32 but not in bf16 (1924 = 4 mod 8)
+BF16_SHAPES = [MAIN_SHAPE, BENCH_SHAPE, (1000, 1924)]
+#: K1's largest timed shape (against the plain version too), and the one
+#: whose footprint is measured (grayscott_tpu/backends/pallas.py:699)
+BF16_LARGE = (16384, 16384)
+BF16_FOOTPRINT = (32768, 32768)
+BF16 = ["--pallas-dtype", "bfloat16"]
+#: the bf16 simulate paths: auto (K1), each engine pinned, and 4 shards on
+#: the default mesh (2x2) with no engine pin (windowed) and on K7
+BF16_PATHS = {"auto": BF16,
+              "windowed": BF16 + ["--pallas-engine", "windowed"],
+              "mega": BF16 + ["--pallas-engine", "mega"],
+              "sharded": SHARDED_4 + BF16,
+              "sharded mega": SHARDED_FLAGS + BF16}
+#: the bf16 entries' tags, and the engine each stands for
+BF16_TAGS = {"windowed": "windowed_bf16", "mega": "mega_bf16",
+             "shwin": "shwin_bf16", "shmega": "shmega_bf16"}
+
+
+def bf16_sims(params: Parameters, boundary: str, mesh=(2, 2),
+              **shard_kwargs) -> dict:
+    """tag -> a simulation pinned to that kernel on bf16 storage (the
+    sharded ones on ``mesh``), the records ignored."""
+    n = mesh[0] * mesh[1]
+    common = dict(device=DEVICE, dtype="bfloat16", tuned_lookup=False)
+    return {
+        "windowed": CudaSimulation(params, boundary, engine="windowed",
+                                   **common),
+        "mega": CudaSimulation(params, boundary, engine="mega", **common),
+        "shwin": ShardedSimulation(params, boundary, engine="windowed",
+                                   n_devices=n, mesh_cols=mesh[1],
+                                   **shard_kwargs, **common),
+        "shmega": ShardedSimulation(params, boundary, engine="mega",
+                                    n_devices=n, mesh_cols=mesh[1],
+                                    **common)}
+
+
+def sim_run(sim, u_np, v_np, steps: int):
+    """(U, V) of ``sim`` after ``steps`` steps from the host state, as
+    float32."""
+    storage = sim.run_steps(sim.build_storage(u_np, v_np), u_np.shape, steps)
+    return sim.extract_uv(storage, u_np.shape)
+
+
+def bf16_state(rng, shape, special: bool):
+    """A random host state; ``special``: NaN and +-Inf in interior and edge
+    tiles and on the domain's edge."""
+    u, v = (rng.uniform(0.0, 1.0, shape).astype(np.float32)
+            for _ in range(2))
+    if special:
+        u[100, 150] = v[0, 5] = np.nan
+        v[90, 140] = u[70, 200] = np.inf
+        u[120, 7] = v[-1, -1] = -np.inf
+    return u, v
+
+
+def compare_bf16_kernels(checks: Checks, rng) -> int:
+    """Phase 15a: each bf16 entry, through its backend (K1, K2, and K1's
+    shard entry and K7 on 2x2), against ``stencil.run_bf16`` on the card
+    after 1, 8 and 12 steps (a launch; a block; a block and a remainder),
+    at BF16_SHAPES, both boundaries, and on a NaN/Inf state at 1080x1920.
+    Returns the comparisons made."""
+    consts = kernel_constants(Parameters())
+    n = 0
+    for shape in BF16_SHAPES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            u0, v0 = (torch.from_numpy(x).to(DEVICE).to(torch.bfloat16)
+                      for x in (u_np, v_np))
+            for boundary in ("naive", "zero"):
+                sims = bf16_sims(Parameters(), boundary)
+                plain = {1: stencil.run_bf16(u0, v0, 1, consts, boundary)}
+                plain[8] = stencil.run_bf16(u0, v0, 8, consts, boundary)
+                plain[12] = stencil.run_bf16(*plain[8], 4, consts, boundary)
+                for steps, want in plain.items():
+                    for tag, sim in sims.items():
+                        what = (f"{shape[0]}x{shape[1]} {boundary}"
+                                f"{' NaN and Inf' if special else ''}, "
+                                f"bf16, {steps} steps")
+                        checks.compare_bf16(BF16_TAGS[tag],
+                                            sim_run(sim, u_np, v_np, steps),
+                                            want, what)
+                        n += 1
+    return n
+
+
+def compare_bf16_meshes(checks: Checks, rng) -> int:
+    """Phase 15b: on bf16 storage, K1's shard entry (overlap off, and on:
+    the split engages on every mesh here) against K1, and K7 against K2,
+    at 1080x1920, 12 steps, both boundaries, on a random and a NaN/Inf
+    state, on 1x1, 4x1, 2x2 and 1x4. Returns the comparisons made."""
+    n = 0
+    for special in (False, True):
+        u_np, v_np = bf16_state(rng, MAIN_SHAPE, special)
+        for boundary in ("naive", "zero"):
+            one = bf16_sims(Parameters(), boundary)
+            want = {tag: sim_run(one[tag], u_np, v_np, 12)
+                    for tag in ("windowed", "mega")}
+            for mesh in WINDOWED_MESHES:
+                what = (f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} {boundary}"
+                        f"{' NaN and Inf' if special else ''}, bf16, 12 "
+                        f"steps, mesh {mesh[0]}x{mesh[1]}")
+                for overlap in ("off", "on"):
+                    sim = bf16_sims(Parameters(), boundary, mesh,
+                                    overlap=overlap)["shwin"]
+                    if overlap == "on":
+                        checks.expect(sim.overlap_runs(MAIN_SHAPE),
+                                      f"overlap engages: {what}")
+                    checks.compare_bf16(
+                        "shwin_bf16", sim_run(sim, u_np, v_np, 12),
+                        want["windowed"],
+                        f"{what} overlap {overlap} vs K1 bf16")
+                checks.compare_bf16(
+                    "shmega_bf16", sim_run(bf16_sims(
+                        Parameters(), boundary, mesh)["shmega"], u_np, v_np,
+                        12), want["mega"], f"{what} K7 vs K2 bf16")
+                n += 3
+    return n
+
+
+def bf16_paths(checks: Checks, card: str) -> dict:
+    """Phase 15c: ``simulate.run`` on bf16 storage, 16 images x 32 steps at
+    1080x1920 naive, on each path of BF16_PATHS (launch counts zeroed
+    before each and read after), every frame bit for bit the plain bf16
+    replay (``stencil.run_bf16`` a batch); then each timed in turns with
+    the float32 default run and the float32 run on the same engine."""
+    consts = kernel_constants(Parameters())
+    u, v = (torch.from_numpy(x).to(DEVICE).to(torch.bfloat16)
+            for x in initial_uv(MAIN_SHAPE))
+    replay = []
+    for _ in range(MAIN_IMAGES):
+        u, v = stencil.run_bf16(u, v, MAIN_STEPS, consts, "naive")
+        replay.append(v.float())
+    runs = {label: simulate_path(checks, flags, replay)
+            for label, flags in BF16_PATHS.items()}
+    for label, run in runs.items():
+        checks.expect(run["counter"] in BF16_TAGS.values(),
+                      f"bf16 simulate {label}: ran {run['counter']}")
+    f32 = {"f32 default": [], "f32 windowed": ["--pallas-engine",
+                                                 "windowed"],
+           "f32 mega": ["--pallas-engine", "mega"],
+           "f32 sharded mega": SHARDED_FLAGS}
+    timed = [{"label": k, "flags": f} for k, f in f32.items()]
+    timed += [dict(run, label=label) for label, run in runs.items()]
+    time_paths(timed)
+    for run in timed:
+        print(f"path simulate bf16 turns {run['label']} "
+              f"({' '.join(run['flags']) or 'default'}): "
+              f"{run['median_ms']!r} ms/image (the median of "
+              f"{run['turns_ms']!r} in turns) [{card}]", flush=True)
+    return runs
+
+
+def time_bf16_kernels(checks: Checks, rng, card: str) -> dict:
+    """Phase 15d: each bf16 entry timed in turns with its float32 entry
+    (f32, bf16, bf16, f32; CUDA events): K1 one launch of 8 steps, K2 one
+    launch of 4 time blocks of 8, K1's shard entry one launch of 8 steps
+    on 2x2, K7 one launch of 32 steps on 2x2, at 1080x1920 and 4096^2,
+    both boundaries; each beside its bound at 8 B a cell (bf16) and 16 B
+    (f32), and the plain bf16 version's time at 1080x1920 naive. Then K1
+    alone at 16384^2, against its plain version too."""
+    consts = kernel_constants(Parameters())
+    out = {}
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
+        u_np, v_np = bf16_state(rng, shape, False)
+        for boundary in ("naive", "zero"):
+            calls = {}
+            for dtype in ("float32", "bfloat16"):
+                torch_dtype = getattr(torch, dtype)
+                u, v = (torch.from_numpy(x).to(DEVICE).to(torch_dtype)
+                        for x in (u_np, v_np))
+                k1 = [u, v, torch.empty_like(u), torch.empty_like(v)]
+                pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+                mesh = halo.make_mesh(4, 2, DEVICE)
+                su, sv = halo.mega_shard_state(u_np, v_np, mesh, torch_dtype)
+                mu, mv = halo.mega_shard_state(u_np, v_np, mesh, torch_dtype)
+                for x in (su, sv, mu, mv):
+                    halo.exchange_halos(x)
+
+                def k1_call(b=k1):
+                    windowed.multistep(*b, windowed.K, consts, boundary)
+
+                def k2_call(a=pu, b=pv):
+                    megakernel.megastep(a, b, MAIN_STEPS // 8, 8, consts,
+                                        boundary)
+
+                def shwin_call(a=su, b=sv, m=mesh):
+                    windowed.shard_multistep(a, b, m, 0, windowed.K, consts,
+                                             boundary, shape)
+
+                def k7_call(a=mu, b=mv, m=mesh):
+                    sharded_mega.sharded_megastep(a, b, m, MAIN_STEPS // 8,
+                                                  8, consts, boundary, shape)
+
+                for tag, fn in (("windowed", k1_call), ("mega", k2_call),
+                                ("shwin", shwin_call), ("shmega", k7_call)):
+                    calls[tag, dtype] = fn
+            samples = {key: [] for key in calls}
+            for tag in ("windowed", "mega", "shwin", "shmega"):
+                for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+                    samples[tag, dtype].append(cuda_ms(calls[tag, dtype],
+                                                       reps))
+            for tag in ("windowed", "mega", "shwin", "shmega"):
+                steps = windowed.K if tag in ("windowed", "shwin") \
+                    else MAIN_STEPS
+                f32_ms = statistics.mean(samples[tag, "float32"])
+                bf_ms = statistics.mean(samples[tag, "bfloat16"])
+                bound, by = bound_ms(shape, steps, boundary, cell_bytes=8)
+                f32_bound, _ = bound_ms(shape, steps, boundary)
+                out[tag, shape, boundary] = (bf_ms, f32_ms, bound, by, steps)
+                print(f"time bf16 {BF16_TAGS[tag]} {shape[0]}x{shape[1]} "
+                      f"{boundary}, {steps} steps a launch"
+                      f"{' (2x2)' if tag.startswith('sh') else ''}: "
+                      f"{bf_ms!r} ms (turns {samples[tag, 'bfloat16']!r}), "
+                      f"f32 {f32_ms!r} ms ({samples[tag, 'float32']!r}): "
+                      f"{bf_ms / f32_ms!r}x; bound {bound!r} ms ({by}; f32 "
+                      f"{f32_bound!r}), {100 * bound / bf_ms!r} % of it "
+                      f"[{card}]", flush=True)
+            if shape == MAIN_SHAPE and boundary == "naive":
+                u, v = (torch.from_numpy(x).to(DEVICE).to(torch.bfloat16)
+                        for x in (u_np, v_np))
+                out["plain", "windowed"] = cuda_ms(lambda: stencil.run_bf16(
+                    u, v, windowed.K, consts, boundary), 2)
+                out["plain", "mega"] = cuda_ms(lambda: stencil.run_bf16(
+                    u, v, MAIN_STEPS, consts, boundary), 1)
+                mesh = halo.make_mesh(4, 2, DEVICE)
+                su, sv = halo.mega_shard_state(u_np, v_np, mesh,
+                                               torch.bfloat16)
+                out["plain", "shwin"] = cuda_ms(
+                    lambda: windowed.shard_multistep_reference(
+                        su, sv, 0, windowed.K, consts, boundary, shape), 1)
+                out["plain", "shmega"] = cuda_ms(
+                    lambda: sharded_mega.sharded_megastep_reference(
+                        su, sv, MAIN_STEPS // 8, 8, consts, boundary,
+                        shape), 1)
+                print(f"time bf16 plain versions {shape[0]}x{shape[1]} "
+                      f"naive: K1 {out['plain', 'windowed']!r} ms (8 steps), "
+                      f"K2 {out['plain', 'mega']!r} (32), K1 shard entry "
+                      f"{out['plain', 'shwin']!r} (8, 2x2), K7 "
+                      f"{out['plain', 'shmega']!r} (32, 2x2) [{card}]",
+                      flush=True)
+    # K1 at 16384^2: one launch of 8 steps, in turns with f32, and against
+    # its plain version
+    shape = BF16_LARGE
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    ms = {}
+    bufs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u = torch.rand(shape, device=DEVICE, generator=gen).to(dtype)
+        v = torch.rand(shape, device=DEVICE, generator=gen).to(dtype)
+        bufs[dtype] = [u, v, torch.empty_like(u), torch.empty_like(v)]
+    for dtype in (torch.float32, torch.bfloat16, torch.bfloat16,
+                  torch.float32):
+        ms.setdefault(dtype, []).append(cuda_ms(
+            lambda b=bufs[dtype]: windowed.multistep(*b, windowed.K, consts,
+                                                     "naive"), 3))
+    u, v, uo, vo = bufs[torch.bfloat16]
+    windowed.multistep(u, v, uo, vo, windowed.K, consts, "naive")
+    checks.compare_bf16("windowed_bf16", (uo, vo),
+                        stencil.run_bf16(u, v, windowed.K, consts, "naive"),
+                        f"{shape[0]}x{shape[1]} naive, bf16, 8 steps")
+    bound, by = bound_ms(shape, windowed.K, "naive", cell_bytes=8)
+    bf_ms = statistics.mean(ms[torch.bfloat16])
+    f32_ms = statistics.mean(ms[torch.float32])
+    out["windowed", shape, "naive"] = (bf_ms, f32_ms, bound, by, windowed.K)
+    print(f"time bf16 windowed_bf16 {shape[0]}x{shape[1]} naive, 8 steps a "
+          f"launch: {bf_ms!r} ms (turns {ms[torch.bfloat16]!r}), f32 "
+          f"{f32_ms!r} ms ({ms[torch.float32]!r}): {bf_ms / f32_ms!r}x; "
+          f"bound {bound!r} ms ({by}), {100 * bound / bf_ms!r} % of it "
+          f"[{card}]", flush=True)
+    del bufs, u, v, uo, vo
+    return out
+
+
+def bf16_footprint(card: str) -> None:
+    """Phase 15e: one 32-step K1 call (four launches) at 32768^2, float32
+    and then bf16: ``torch.cuda.max_memory_allocated`` from just before
+    the call (the four state buffers and whatever the call allocates),
+    and the call's time (CUDA events, one call after a warm one)."""
+    consts = kernel_constants(Parameters())
+    shape = BF16_FOOTPRINT
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.empty_cache()
+        u = torch.rand(shape, device=DEVICE, generator=gen).to(dtype)
+        v = torch.rand(shape, device=DEVICE, generator=gen).to(dtype)
+        bufs = [u, v, torch.empty_like(u), torch.empty_like(v)]
+        del u, v
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def call():
+            for _ in range(MAIN_STEPS // windowed.K):
+                windowed.multistep(*bufs, windowed.K, consts, "naive")
+                bufs[:] = bufs[2:] + bufs[:2]
+
+        ms = cuda_ms(call, 1)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"footprint K1 {shape[0]}x{shape[1]} {str(dtype)[6:]}, one "
+              f"{MAIN_STEPS}-step call: max_memory_allocated {peak!r} B "
+              f"({peak / 1e9!r} GB), {ms!r} ms [{card}]", flush=True)
+        del bufs
+    torch.cuda.empty_cache()
+
+
+def bf16_phase(checks: Checks, rng, card: str) -> tuple[dict, dict]:
+    """Phase 15 (a)-(e); returns (15c's runs, 15d's times)."""
+    n = compare_bf16_kernels(checks, rng)
+    n += compare_bf16_meshes(checks, rng)
+    print(f"phase 15: {n} bf16 comparisons", flush=True)
+    runs = bf16_paths(checks, card)
+    times = time_bf16_kernels(checks, rng, card)
+    bf16_footprint(card)
+    return runs, times
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -3309,6 +3708,10 @@ def run_phases(args) -> int:
     t14 = time.perf_counter()
     live = livesim_phase(checks, card)
     print(f"phase 14: {time.perf_counter() - t14!r} s", flush=True)
+    # 15. bf16 storage: K1, K1's shard entry, K2 and K7 on bfloat16 buffers
+    t15 = time.perf_counter()
+    bf16_runs, bf16_times = bf16_phase(checks, rng, card)
+    print(f"phase 15: {time.perf_counter() - t15!r} s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -3430,6 +3833,19 @@ def run_phases(args) -> int:
                            "oplat", "ilpsplit", "shmega"], entries):
         if tag in live:
             entry["livesim_launches"] = live[tag]
+    # the bf16 entries: their launches on phase 15c's paths, one launch's
+    # time at 1080x1920 naive beside the float32 entry's in the same turns
+    for tag, path in (("windowed", "auto"), ("shwin", "sharded"),
+                      ("mega", "mega"), ("shmega", "sharded mega")):
+        ms, f32_ms, bound, by, steps = bf16_times[tag, MAIN_SHAPE, "naive"]
+        name = BF16_TAGS[tag]
+        entries.append(dict(
+            KERNELS[name], launches=bf16_runs[path]["launches"][name],
+            max_abs_err=checks.kernel_err[name], ms=ms,
+            plain_ms=bf16_times["plain", tag], bound_ms=bound, bound_by=by,
+            library_ms=None, shape=list(MAIN_SHAPE), steps=steps,
+            boundary="naive", dtype="bfloat16", f32_ms=f32_ms,
+            **({"mesh": [2, 2]} if tag.startswith("sh") else {})))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

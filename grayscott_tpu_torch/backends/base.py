@@ -51,6 +51,20 @@ def env_flag(name: str) -> bool:
         "", "0", "false", "no", "off")
 
 
+#: the names of the storage dtypes (``grayscott_tpu/backends/pallas.py:
+#: 181-188``) -> the dtype's own name, which is torch's
+DTYPE_ALIASES = {None: "float32", "float32": "float32", "f32": "float32",
+                 "bfloat16": "bfloat16", "bf16": "bfloat16"}
+
+
+def storage_dtype(name) -> str:
+    """The storage dtype ``name`` asks for, ``"float32"`` or
+    ``"bfloat16"``; ValueError for another."""
+    if name not in DTYPE_ALIASES:
+        raise ValueError(f"unsupported dtype {name!r}")
+    return DTYPE_ALIASES[name]
+
+
 #: on (:func:`env_flag`) when a simulation is built, its every
 #: ``prepare_steps`` checks the state for NaN and Inf (``utils/runtime.py``)
 DEBUG_VAR = "GRAYSCOTT_DEBUG"
@@ -61,6 +75,10 @@ class Simulation(abc.ABC):
 
     #: registry name
     name: str = "?"
+    #: whether ``extract_result`` returns a tensor of its own, which no
+    #: later step writes (a widened bf16 state, a reassembled sharded one):
+    #: a snapshot of it need not be copied again
+    fresh_result: bool = False
 
     def __init__(self, params: Parameters, boundary: str = "naive",
                  device: str | torch.device = "cuda"):

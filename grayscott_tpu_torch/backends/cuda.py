@@ -1,5 +1,5 @@
 """``cuda`` backend: the port's ``grayscott_tpu/backends/pallas.py``, with
-its three f32 engines, on two layouts.
+its three engines, on two layouts, and bf16 storage.
 
 The unpacked layout (``pack`` ``auto`` or ``off``), both boundaries:
 
@@ -44,6 +44,19 @@ layout, and a record fills in only what is left on ``auto``.
 ``tuned_lookup=False`` ignores the records (the autotuner measures each
 candidate so).
 
+``dtype="bfloat16"`` (``--pallas-dtype``; ``backends/pallas.py:181-188``)
+stores the state in bfloat16, on the unpacked layout only: K1 and K2 widen
+each window to float32, step it in float32 and round the stored cells to
+bfloat16, to nearest even, once a block of at most 8 steps, so every engine
+rounds where ``ops/stencil.py:run_bf16`` does and they agree bit for bit;
+not with float32. ``build_storage`` rounds the initial state once;
+``extract_uv`` and ``extract_result`` return float32 copies holding the
+stored values (JAX's host views are f32). As in JAX, ``resident="on"``,
+``pack="on"`` and a lane-fold pin refuse bf16, and ``auto`` never runs
+K3, never packs and never folds with it: it follows a bf16 record's
+engine (records key on ``:bfloat16``), else runs K1, JAX's static default
+for bf16 (``backends/pallas.py:466-470``).
+
 The buffers are updated in place, where the JAX backend gets fresh
 (donated) buffers from every call. ``engine`` (``auto|windowed|mega``),
 ``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
@@ -51,9 +64,9 @@ backend's names and values, and so do the other eight ``--pallas-*``
 flags. ``runtime_params`` on and off run the same kernels (they take the
 parameters by value), and ``steps_per_call`` runs ``None`` and the
 kernels' own K of 8; every other value of the JAX backend's knobs that the
-port does not run (bf16 storage, lane fold, the naive fix-up modes and
-fold, the megakernel's ring depth and specialisation, tile pins, another
-K) raises :class:`UnsupportedConfigError` naming its ROADMAP.md item.
+port does not run (lane fold, the naive fix-up modes and fold, the
+megakernel's ring depth and specialisation, tile pins, another K) raises
+:class:`UnsupportedConfigError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -68,7 +81,7 @@ import torch
 from ..errors import UnsupportedConfigError
 from ..ops import megakernel, packed, resident, windowed
 from ..params import Parameters, kernel_constants, packed_constants
-from .base import Simulation, env_default
+from .base import Simulation, env_default, storage_dtype
 
 ENGINES = ("auto", "windowed", "mega")
 RESIDENT = ("auto", "on", "off")
@@ -88,7 +101,6 @@ _TILES = "ROADMAP.md Queue 2 item 8 (column tiles, the temporal depth and " \
 #: knob -> (the values the port runs, the JAX backend's names and values;
 #: where ROADMAP.md keeps the rest)
 _SUPPORTED = {
-    "dtype": (("float32",), "ROADMAP.md Queue 2 item 4 (bf16 storage)"),
     "fold": (("auto", "off", 1), "ROADMAP.md Queue 2 item 7 (the lane-fold "
              "layout)"),
     "naive_fix": (("select",), "ROADMAP.md Queue 2 item 6 (the quirk-strip "
@@ -227,7 +239,19 @@ class CudaSimulation(Simulation):
             raise UnsupportedConfigError(
                 "resident='on' and an explicit engine pin conflict; pin at "
                 "most one of them", combo="resident+engine")
-        knobs = dict(dtype=dtype, fold=fold, naive_fix=naive_fix,
+        #: the storage dtype, by name and torch's
+        self.dtype = storage_dtype(dtype)
+        self.storage_dtype = getattr(torch, self.dtype)
+        bf16 = self.storage_dtype == torch.bfloat16
+        # JAX's refusals of bf16 storage (backends/pallas.py:194-196,
+        # :334-336, :509)
+        if bf16 and resident == "on":
+            raise UnsupportedConfigError(
+                "resident='on' requires float32 storage", combo="resident")
+        if bf16 and isinstance(fold, int) and fold > 1:
+            raise UnsupportedConfigError(
+                "fold excludes bf16 storage and column tiling", combo="fold")
+        knobs = dict(fold=fold, naive_fix=naive_fix,
                      naive_fold=naive_fold, mega_depth=mega_depth,
                      mega_specialize=mega_specialize, block_rows=block_rows,
                      block_cols=block_cols, steps_per_call=steps_per_call)
@@ -242,17 +266,21 @@ class CudaSimulation(Simulation):
         self.pack = pack
         self.tuned_lookup = tuned_lookup
         self.consts = kernel_constants(params)
+        #: extract_result hands out a float32 copy of bf16 storage, which
+        #: no later step writes
+        self.fresh_result = bf16
         if pack == "on" and not self._pack_ok():
             raise UnsupportedConfigError(
                 "pack requires the zero boundary, float32 storage, a "
                 f"separable stencil plan and no tile pins; got boundary "
-                f"{boundary!r}, stencil {params.stencil_name()!r}",
-                combo="pack")
+                f"{boundary!r}, stencil {params.stencil_name()!r}, dtype "
+                f"{self.dtype}", combo="pack")
 
     def _pack_ok(self) -> bool:
-        """Whether the packed layout runs this configuration (float32 and
-        no tile pins hold for every configuration the constructor takes)."""
+        """Whether the packed layout runs this configuration (no tile pins
+        hold for every configuration the constructor takes)."""
         return (self.boundary == "zero"
+                and self.storage_dtype == torch.float32
                 and self.params.separable_plan()[0] == "separable")
 
     @functools.cached_property
@@ -260,20 +288,21 @@ class CudaSimulation(Simulation):
         return packed_constants(self.params)
 
     def tuned(self, shape: Tuple[int, int]) -> dict | None:
-        """The autotune record of a domain of ``shape`` on this device
-        (``bench/autotune.py:lookup``), or None; always None with
-        ``tuned_lookup=False``."""
+        """The autotune record of a domain of ``shape`` in this storage
+        dtype on this device (``bench/autotune.py:lookup``), or None;
+        always None with ``tuned_lookup=False``."""
         if not self.tuned_lookup:
             return None
         from ..bench import autotune
 
         return autotune.lookup(self.params, shape, self.boundary,
-                               device=self.device)
+                               dtype=self.dtype, device=self.device)
 
     def layout_for(self, shape: Tuple[int, int]) -> Tuple[bool, str]:
         """(packed, engine) of a domain of ``shape``: the pins, then the
         autotune record for what is left on ``auto``, then
-        :func:`auto_engine` (:func:`auto_packed_engine` when packed)."""
+        :func:`auto_engine` (:func:`auto_packed_engine` when packed; K1 with
+        bf16 storage, which never runs K3)."""
         tuned = self.tuned(shape)
         record_packs = bool(tuned and tuned.get("pack"))
         packed = self.pack == "on" or (self.pack == "auto" and record_packs
@@ -285,13 +314,16 @@ class CudaSimulation(Simulation):
             return packed, self.engine
         if self.resident == "on":
             return packed, "resident"
-        resident_ok = self.resident == "auto"
+        bf16 = self.storage_dtype == torch.bfloat16
+        resident_ok = self.resident == "auto" and not bf16
         verdict = (tuned or {}).get("engine")
         if verdict in ENGINES[1:] + ("resident",) and \
                 (resident_ok or verdict != "resident"):
             return packed, verdict
         if packed:
             return packed, auto_packed_engine(shape, resident_ok=resident_ok)
+        if bf16:
+            return packed, "windowed"
         return packed, auto_engine(shape, self.boundary,
                                    resident_ok=resident_ok)
 
@@ -300,9 +332,10 @@ class CudaSimulation(Simulation):
         return self.layout_for(shape)[1]
 
     def build_storage(self, u: np.ndarray, v: np.ndarray):
+        # the float32 state, rounded to bf16 storage (to nearest even) once
         u_t, v_t = (
             torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
-            .to(self.device) for x in (u, v))
+            .to(self.device).to(self.storage_dtype) for x in (u, v))
         packed_layout, engine = self.layout_for(u.shape)
         if packed_layout:
             x = packed.pack_state(u_t, v_t)
@@ -321,9 +354,19 @@ class CudaSimulation(Simulation):
             return packed.unpack_state(storage[1][0], shape[1])
         if storage[0] in ("packed", "respack"):
             return packed.unpack_state(storage[1], shape[1])
+        # (.float(): bf16 storage widens into a new tensor; float32 storage
+        # is returned as it is)
         if storage[0] == "mega":
-            return storage[1][0], storage[2][0]
-        return storage[1], storage[2]
+            return storage[1][0].float(), storage[2][0].float()
+        return storage[1].float(), storage[2].float()
+
+    def extract_result(self, storage, shape) -> torch.Tensor:
+        """V alone: bf16 storage widens V only, not U as well."""
+        if storage[0] == "mega":
+            return storage[2][0].float()
+        if storage[0] in ("windowed", "resident"):
+            return storage[2].float()
+        return super().extract_result(storage, shape)
 
     def run_steps(self, storage, shape, steps: int):
         if storage[0] in ("packed", "respack", "megapack"):
@@ -408,8 +451,10 @@ class CudaSimulation(Simulation):
             help="Storage precision: bfloat16 is an opt-in fast mode "
             "(halved HBM traffic and footprint; compute stays f32 in "
             "VMEM) that is NOT bit-compatible with the f32 reference "
-            "semantics. The port runs float32 (bfloat16: ROADMAP.md "
-            "Queue 2 item 4)",
+            "semantics. The port runs it on K1 and K2 (and the sharded "
+            "engines): the state is stored in bfloat16 and rounded once "
+            "every 8 steps; the resident kernel, the packed layout and "
+            "lane folds refuse it",
         )
         parser.add_argument(
             "--pallas-resident", choices=RESIDENT,

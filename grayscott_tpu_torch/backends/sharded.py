@@ -35,10 +35,15 @@ shards in ``mesh_cols`` columns, or, with ``mesh_cols`` None, the record's
 columns, else those ``halo.choose_mesh_cols`` picks for the first domain
 built, as in JAX. Every shard lives on ``device``: one card runs them all.
 
+``dtype="bfloat16"`` stores every shard's pairs in bfloat16, on both
+engines and with ``overlap`` on or off, as JAX's sharded backend does:
+each block of at most 8 steps runs in float32 and rounds its stored cells
+once, before the exchange moves them, so both engines and the unsharded
+``cuda`` backend agree bit for bit. Records key on the dtype.
+
 What JAX's backend runs besides and the port does not yet raises
 :class:`UnsupportedConfigError` naming its ROADMAP item, and nothing falls
-back: bf16 storage (Queue 2 item 4), the tile pins and a K other than 8
-(Queue 2 item 8).
+back: the tile pins and a K other than 8 (Queue 2 item 8).
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ from ..errors import UnsupportedConfigError
 from ..ops import sharded_mega, windowed
 from ..parallel import halo
 from ..params import Parameters, kernel_constants
-from .base import Simulation, env_default
+from .base import Simulation, env_default, storage_dtype
 
 ENGINES = ("auto", "windowed", "mega")
 OVERLAP = ("auto", "on", "off")
@@ -63,7 +68,6 @@ OVERLAP = ("auto", "on", "off")
 #: port runs
 K = windowed.K
 
-_BF16 = "ROADMAP.md Queue 2 item 4 (bf16 storage)"
 _TILES = "ROADMAP.md Queue 2 item 8 (the tile pins and another K)"
 
 #: (engine, 2-D mesh) -> storage tag
@@ -75,6 +79,8 @@ _logger = logging.getLogger("grayscott_tpu_torch")
 
 class ShardedSimulation(Simulation):
     name = "sharded"
+    #: extract_result reassembles the shards into a new tensor
+    fresh_result = True
 
     def __init__(self, params: Parameters, boundary: str = "naive",
                  device: str | torch.device = "cuda",
@@ -105,10 +111,9 @@ class ShardedSimulation(Simulation):
                 f"steps_per_call={steps_per_call!r}: both sharded engines "
                 f"run K={K} (another K: {_TILES}); drop "
                 "--pallas-steps-per-call", combo="steps_per_call")
-        if dtype not in ("float32", "f32", None):
-            raise UnsupportedConfigError(
-                f"dtype={dtype!r}: bf16 storage is not ported yet ({_BF16})",
-                combo="dtype")
+        #: the storage dtype, by name and torch's
+        self.dtype = storage_dtype(dtype)
+        self.storage_dtype = getattr(torch, self.dtype)
         if block_cols is not None and engine != "mega":
             # grayscott_tpu/backends/sharded.py:106-111
             raise UnsupportedConfigError(
@@ -164,7 +169,8 @@ class ShardedSimulation(Simulation):
         from ..bench import autotune
 
         rec = autotune.sharded_lookup(
-            self.params, shape, self.boundary, n_devices=self._shards(),
+            self.params, shape, self.boundary, dtype=self.dtype,
+            n_devices=self._shards(),
             mesh_cols=self._mesh_cols_pin,
             engine=None if self._engine_req == "auto" else self._engine_req,
             overlap=None if self._overlap_req == "auto"
@@ -206,7 +212,7 @@ class ShardedSimulation(Simulation):
     def build_storage(self, u: np.ndarray, v: np.ndarray):
         self._adopt_record(u.shape)
         mesh = self._resolve_mesh(u.shape)
-        up, vp = halo.mega_shard_state(u, v, mesh)
+        up, vp = halo.mega_shard_state(u, v, mesh, self.storage_dtype)
         tag = TAGS[self.engine, mesh.n_cols > 1]
         return (tag, up, vp) if self.engine == "mega" else (tag, up, vp, 0)
 

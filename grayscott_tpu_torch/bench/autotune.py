@@ -9,7 +9,11 @@ The candidates are every engine and layout the configuration runs: K1
 (``engine="windowed"``), K2 (``engine="mega"``) and K3
 (``resident="on"``) unpacked, and, on the zero boundary with float32 and a
 separable stencil (JAX's ``_pack_candidates`` conditions), the same three
-packed: K4, K6 and K5. The port's kernels run fixed tiles at K = 8, so
+packed: K4, K6 and K5. With bf16 storage only K1 and K2 are candidates
+(JAX's ``_engine_candidates``: the resident kernel and the packed layout
+are float32-only), and the record keys on ``:bfloat16``, so a bf16 run
+never follows a float32 record, nor the reverse. The port's kernels run
+fixed tiles at K = 8, so
 there are no ``block_rows`` or ``steps_per_call`` candidates (ROADMAP.md
 Queue 2 item 8); records carry ``block_rows: None`` and
 ``steps_per_call: 8``.
@@ -71,9 +75,12 @@ measurements = 0
 def default_candidates(params: Parameters, boundary: str,
                        dtype: str = "float32") -> list[dict]:
     """Every engine and layout of ``(params, boundary, dtype)``: the three
-    unpacked engines, and the three packed ones where JAX's
+    unpacked engines (K1 and K2 alone with bf16 storage, which K3 refuses:
+    JAX's ``_engine_candidates``), and the three packed ones where JAX's
     ``_pack_candidates`` would pack (zero boundary, float32, a separable
     plan)."""
+    if dtype != "float32":
+        return [dict(c) for c in UNPACKED if "engine" in c]
     out = [dict(c) for c in UNPACKED]
     if boundary == "zero" and dtype == "float32" and \
             params.separable_plan()[0] == "separable":

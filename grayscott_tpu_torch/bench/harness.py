@@ -21,15 +21,16 @@ Four workloads:
 
 ``--engine`` pins the engine of the backends swept (``cuda``: windowed or
 mega; ``sharded``: the windowed engine or the megakernel K7, one shard a
-visible card). Every run is on the card unless ``--device cpu`` is given.
+visible card). ``--dtype bfloat16`` runs ``cuda`` and ``sharded`` on bf16
+storage; another backend prints a note and runs float32, as JAX's harness
+does. Every run is on the card unless ``--device cpu`` is given.
 ``--report SWEEP_JSON`` renders a sweep instead of measuring
 (``bench/report.py``; ``--format markdown|html|svg``), against
 ``--baseline SWEEP_JSON`` when given; ``--gate`` then exits 1 on any
 significant regression (CI95s that do not overlap). A report touches no
-device, so it runs on a host without a GPU. Not ported yet: ``--dtype``
-(bf16 storage: Queue 2, K1's variants) and
-``--block-rows``/``--steps-per-call`` (tile and depth pins: Queue 1,
-tuning); asking for one stops the run with a message.
+device, so it runs on a host without a GPU. Not ported yet:
+``--block-rows``/``--steps-per-call`` (tile and depth pins: Queue 2 item
+8); asking for one stops the run with a message.
 
     python -m grayscott_tpu_torch.bench.harness --report new.json \
         --baseline old.json --gate
@@ -51,9 +52,11 @@ from . import stats
 
 WORKLOADS = ("compute", "full_sync", "full_future", "device")
 
+#: the backends that take a storage dtype (``--dtype``)
+DTYPE_BACKENDS = ("cuda", "sharded")
+
 #: flag -> where ROADMAP.md keeps its port
 DEFERRED = {
-    "dtype": "Queue 2, K1's variants (bf16 storage)",
     "block_rows": "Queue 2 item 8, the pins",
     "steps_per_call": "Queue 2 item 8, the pins",
 }
@@ -160,12 +163,21 @@ def sweep(
 
     domains = list(domains or default_domains())
     step_counts = list(step_counts or default_step_counts())
-    kwargs = dict(backend_kwargs or {})
-    labels = {"boundary": boundary, "device": device, **kwargs}
-    if device == "cuda":
-        labels["device_name"] = torch.cuda.get_device_name()
+    device_name = (torch.cuda.get_device_name() if device == "cuda"
+                   else None)
     results = []
     for name in backend_names:
+        kwargs = dict(backend_kwargs or {})
+        if kwargs.get("dtype") not in (None, "float32", "f32") and \
+                name not in DTYPE_BACKENDS:
+            # the rungs accept and ignore dtype; dropping it keeps the
+            # labels honest (grayscott_tpu/bench/harness.py:170-177)
+            print(f"{name}: dtype={kwargs['dtype']} unsupported, "
+                  "running float32", flush=True)
+            kwargs.pop("dtype")
+        labels = {"boundary": boundary, "device": device, **kwargs}
+        if device_name:
+            labels["device_name"] = device_name
         sim = get_backend(name)(Parameters(), boundary=boundary,
                                 device=device, **kwargs)
         for shape in domains:
@@ -230,6 +242,11 @@ def main(argv=None) -> int:
                         choices=PLATFORMS,
                         help="'cuda' (default) times the CUDA kernels; "
                         "'cpu' their plain PyTorch versions")
+    parser.add_argument("--dtype", default=None,
+                        choices=["float32", "bfloat16"],
+                        help="storage precision for backends that support "
+                        "it (cuda, sharded; bfloat16 = the opt-in bf16 "
+                        "storage)")
     for flag in DEFERRED:
         parser.add_argument(f"--{flag.replace('_', '-')}", nargs="?",
                             const=True, default=None, help=argparse.SUPPRESS)
@@ -252,7 +269,9 @@ def main(argv=None) -> int:
         boundary=args.boundary,
         reps=args.reps,
         out_path=args.output,
-        backend_kwargs={"engine": args.engine} if args.engine else None,
+        backend_kwargs={k: v for k, v in (("dtype", args.dtype),
+                                          ("engine", args.engine))
+                        if v is not None},
         device=args.device,
     )
     return 0

@@ -143,14 +143,14 @@ def make_simulation(ns: argparse.Namespace):
         from ..bench import autotune
 
         autotune.autotune(params, domain_shape(ns), ns.boundary,
-                          verbose=True, device=ns.device)
+                          verbose=True, dtype=sim.dtype, device=ns.device)
     elif getattr(ns, "autotune", False) and name == "sharded":
         from ..bench import autotune
 
         # every pin restricts the candidates and keys the record
         autotune.sharded_autotune(
             params, domain_shape(ns), ns.boundary, verbose=True,
-            dtype=kwargs["dtype"], n_devices=kwargs["n_devices"],
+            dtype=sim.dtype, n_devices=kwargs["n_devices"],
             mesh_cols=kwargs["mesh_cols"], engine=kwargs["engine"],
             overlap=kwargs["overlap"],
             steps_per_call=kwargs["steps_per_call"], device=ns.device)

@@ -8,7 +8,9 @@ Argument-compatible with the JAX ``simulate`` (``-n/--nbimage`` default
 :func:`run` is the stepping loop, with the JAX pipeline's overlap
 (``grayscott_tpu/cli/simulate.py:160-188``): after each batch it copies V
 into a fresh device buffer on the launch stream (the next batch overwrites
-the state) and records an event; a copy stream of its own waits on that
+the state; a result that is a tensor of its own already, bf16 storage
+widened to float32 or the shards reassembled, is not copied again) and
+records an event; a copy stream of its own waits on that
 event and copies the buffer into pinned host memory while the next batch
 runs on the launch stream. The host waits only for the *previous* image's
 copy before handing that image to the sink, in order, so it never waits
@@ -17,8 +19,9 @@ on the batch it just enqueued. Each image has a pinned frame of its own
 sink may keep a frame, or queue it for a writer thread, and no later copy
 writes into it. With ``--snapshot-dtype bfloat16`` the fresh buffer is V
 cast to bfloat16 on the device (a cast that changes the dtype makes a
-buffer of its own), the host frame is bfloat16 and is widened to float32
-on the host; the HDF5 file stays float32. :func:`main` passes a sink that
+buffer of its own; with bf16 storage it holds exactly the stored bits),
+the host frame is bfloat16 and is widened to float32 on the host; the
+HDF5 file stays float32. :func:`main` passes a sink that
 feeds the bounded queue of the HDF5 writer thread.
 
 ``--resume PATH`` starts from a checkpoint (``io/checkpoint.py``) through
@@ -114,7 +117,10 @@ def run(sim: Simulation, species: Species, nbimage: int,
     for _ in range(nbimage):
         sim.prepare_steps(species, steps_per_image)
         v = species.result()
-        snapshot = v.clone() if v.dtype == dtype else v.to(dtype)
+        if v.dtype != dtype:
+            snapshot = v.to(dtype)
+        else:  # a fresh result (bf16 storage widened, shards reassembled)
+            snapshot = v if sim.fresh_result else v.clone()
         if cuda:
             frame = torch.empty(snapshot.shape, dtype=snapshot.dtype,
                                 pin_memory=True)

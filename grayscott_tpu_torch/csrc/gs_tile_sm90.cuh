@@ -48,6 +48,16 @@
 //     finished tile is written out (time_block).
 //   - K3's 32^2 tiles in 34^2 windows, one step a window (ring: load_tile,
 //     step_tile), which the resident kernels K3 and K9 walk every step.
+//   - bf16 storage (K1, K1's shard entry, K2, K7): the state's element type
+//     T is a template parameter of the window load and of the store; the
+//     windows and every step stay float32. A bf16 window loads through
+//     registers, 16-byte loads of 8 cells (or one cell at a time at a
+//     ragged edge), widened exactly on the way into shared memory:
+//     cp.async has no 2-byte copy, and a staging buffer for the raw bytes
+//     would cost the second block on each SM. The store rounds to nearest
+//     even once (narrow: cvt.rn.bf16.f32, the instruction PyTorch's
+//     .to(torch.bfloat16) runs on the card), so a launch of k <= HALO steps
+//     rounds once, as grayscott_tpu/ops/pallas_stencil.py:970-993 does.
 //
 // Numerics: the expressions of gs_tile.cuh, built with -fmad=false and
 // without -ftz, so every kernel equals the plain PyTorch step
@@ -55,6 +65,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gs_tile.cuh"
@@ -192,6 +203,47 @@ __device__ __forceinline__ void step_strip(const float* su, const float* sv,
   }
 }
 
+// --- the state's element type -----------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Cells of one 16-byte copy of T.
+template <typename T>
+__host__ __device__ constexpr int vec_cells() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+// A state element rounded for the store: float32 as it is, bfloat16 to
+// nearest even (NaN to the canonical quiet NaN), subnormals kept (no -ftz).
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// A load of one element through L2 only (coherent with what other blocks
+// wrote before a barrier).
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ bf16 load_cg(const bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// 16 bytes of T: float4 for float32, 8 bfloat16 as a uint4.
+template <typename T>
+struct Vec16 {
+  using type = float4;
+};
+template <>
+struct Vec16<bf16> {
+  using type = uint4;
+};
+
 // --- asynchronous window loads ----------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -276,6 +328,85 @@ __device__ __forceinline__ void load_window(const Layout& mem, const float* u,
   }
 }
 
+// The exact float32 values of the 8 bfloat16 cells of w (little-endian:
+// cell 0 in the low half of w.x), stored at d (16-byte aligned).
+__device__ __forceinline__ void widen8(float* d, uint4 w) {
+  const unsigned hi = 0xffff0000u;
+  reinterpret_cast<float4*>(d)[0] =
+      make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & hi),
+                  __uint_as_float(w.y << 16), __uint_as_float(w.y & hi));
+  reinterpret_cast<float4*>(d)[1] =
+      make_float4(__uint_as_float(w.z << 16), __uint_as_float(w.z & hi),
+                  __uint_as_float(w.w << 16), __uint_as_float(w.w & hi));
+}
+
+template <bool COHERENT>
+__device__ __forceinline__ uint4 load8(const bf16* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  return COHERENT ? __ldcg(q) : __ldg(q);
+}
+
+template <bool COHERENT>
+__device__ __forceinline__ float load1(const bf16* p) {
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  const unsigned bits = COHERENT ? __ldcg(q) : __ldg(q);
+  return __uint_as_float(bits << 16);
+}
+
+// load_window for bfloat16 storage, in chunks of 8 cells (NCH / 2 of them
+// a row; gc0 a multiple of 8): each cell widened exactly to float32 on its
+// way into the window. `aligned`: the layout's rows and the u, v pointers
+// are 16-byte aligned, and the layout's held columns start and end on
+// multiples of 8. The loads go through registers (there is no 2-byte
+// cp.async): the window is in place, for the block, after the caller's
+// __syncthreads(); the caller's cp.async commit and wait find no copy in
+// flight. COHERENT: loads through L2 only (__ldcg), else through the
+// read-only path (__ldg).
+template <int WR, int NCH, int PITCH, int NT, bool COHERENT, typename Layout>
+__device__ __forceinline__ void load_window(const Layout& mem, const bf16* u,
+                                            const bf16* v, float* su,
+                                            float* sv, int gr0, int gc0,
+                                            int rows, int cols,
+                                            bool aligned) {
+  static_assert(NCH % 2 == 0, "8-cell chunks");
+  constexpr int N8 = NCH / 2;
+  for (int idx = threadIdx.x; idx < WR * N8; idx += NT) {
+    const int lr = idx / N8, q = idx - lr * N8;
+    const int gr = gr0 + lr, gc = gc0 + 8 * q;
+    float* du = su + lr * PITCH + 8 * q;
+    float* dv = sv + lr * PITCH + 8 * q;
+    // (held columns are one interval, its ends multiples of 8)
+    if (gr < 0 || gr >= rows || gc + 7 < 0 || gc >= cols ||
+        (!mem.holds(gr, gc) && !mem.holds(gr, gc + 7))) {
+      const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      reinterpret_cast<float4*>(du)[0] = z;
+      reinterpret_cast<float4*>(du)[1] = z;
+      reinterpret_cast<float4*>(dv)[0] = z;
+      reinterpret_cast<float4*>(dv)[1] = z;
+      continue;
+    }
+    const size_t g = mem.at(gr, gc);
+    if (aligned && gc >= 0 && gc + 8 <= cols && mem.holds(gr, gc) &&
+        mem.holds(gr, gc + 7)) {
+      widen8(du, load8<COHERENT>(u + g));
+      widen8(dv, load8<COHERENT>(v + g));
+      continue;
+    }
+    // (not unrolled: unrolled, K7's zero-boundary instantiations spilled
+    // at their 64 registers)
+#pragma unroll 1
+    for (int e = 0; e < 8; ++e) {
+      if (gc + e < 0 || gc + e >= cols || !mem.holds(gr, gc + e)) {
+        du[e] = 0.0f;
+        dv[e] = 0.0f;
+      } else {
+        du[e] = load1<COHERENT>(u + g + e);
+        dv[e] = load1<COHERENT>(v + g + e);
+      }
+    }
+  }
+}
+
 // --- windows of HALO cells around a tile ------------------------------------
 
 constexpr int HALO = 8;  // most steps a window takes (K1's K, K2's and K7's
@@ -349,10 +480,10 @@ __device__ __forceinline__ bool window_inside(int r0, int c0, int rows,
 // __syncthreads() unless PREFETCH, whose buffers are free once every thread
 // is past the caller's next barrier.
 template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH,
-          typename Layout>
+          typename Layout, typename T>
 __device__ __forceinline__ void time_block(
-    const Layout& mem, const float* u, const float* v, float* u_out,
-    float* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
+    const Layout& mem, const T* u, const T* v, T* u_out,
+    T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
     int col0, int rows, int cols, int steps, const Constants& k,
     bool aligned, float* base) {
   auto load = [&](int i, int b) {
@@ -402,8 +533,8 @@ __device__ __forceinline__ void time_block(
       const int gr = r0 + lr, gc = c0 + lc;
       if (gr < rows && gc < cols && mem.stores(gr, gc)) {
         const size_t g = mem.at(gr, gc);
-        u_out[g] = fu[lr * G::WC + lc];
-        v_out[g] = fv[lr * G::WC + lc];
+        u_out[g] = narrow<T>(fu[lr * G::WC + lc]);
+        v_out[g] = narrow<T>(fv[lr * G::WC + lc]);
       }
     }
     if (PREFETCH) {
@@ -486,14 +617,16 @@ __device__ __forceinline__ void step_tile(const float* su, const float* sv,
 
 // --- host side --------------------------------------------------------------
 
-// Whether a window may load with 16-byte copies: rows of `cols` floats and
-// every state pointer 16-byte aligned.
+// Whether a window may load with 16-byte copies: rows of `cols` elements of
+// T a whole number of 16-byte copies (4 float32, 8 bfloat16) and every
+// state pointer 16-byte aligned.
+template <typename T = float>
 inline bool rows_aligned(int cols, const void* a, const void* b,
                          const void* c, const void* d) {
   auto ok = [](const void* p) {
     return reinterpret_cast<size_t>(p) % 16 == 0;
   };
-  return cols % 4 == 0 && ok(a) && ok(b) && ok(c) && ok(d);
+  return cols % vec_cells<T>() == 0 && ok(a) && ok(b) && ok(c) && ok(d);
 }
 
 // Launch::run<TAPS>(args...) for the instantiation of the weights' tap

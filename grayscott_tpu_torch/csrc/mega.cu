@@ -49,6 +49,16 @@
 // taken out, or with the first stepper's kernel (part 0, kept unchanged as
 // the in-call yardstick of the old code), for chip_smoke.py to time what
 // each part buys.
+//
+// bf16 storage (gs_mega_multistep_bf16; megakernel.py:_mega_kernel with a
+// bfloat16 dtype, :166-169, stores at :481 and :615): the same kernel on
+// bfloat16 pairs, both slots bfloat16. Each tile's window widens to float32
+// as it loads (gs_tile_sm90.cuh: the bf16 load_window, through registers,
+// so the next window's load no longer overlaps the write-out), the time
+// block runs in float32, and the store rounds to bfloat16 once a time
+// block, so a run rounds where K1's launches and grayscott_tpu_torch's
+// stencil.run_bf16 round. The odd-count copy moves the bfloat16 cells as
+// they are.
 
 #include "gs_tile_sm90.cuh"
 
@@ -61,22 +71,25 @@ constexpr int HALO = sm90::HALO;  // most steps per time block (MEGA_STEPS)
 // The slot copy after an odd number of time blocks: slot 1 to slot 0, by
 // the whole grid of blocks of `threads` threads; `tid` is the thread's flat
 // index in its block.
-__device__ __forceinline__ void copy_slot(float* u_pair, float* v_pair,
+template <typename T>
+__device__ __forceinline__ void copy_slot(T* u_pair, T* v_pair,
                                           size_t plane, int threads,
                                           int tid) {
   const size_t stride = static_cast<size_t>(gridDim.x) * threads;
   for (size_t i = static_cast<size_t>(blockIdx.x) * threads + tid;
        i < plane; i += stride) {
-    u_pair[i] = __ldcg(u_pair + plane + i);
-    v_pair[i] = __ldcg(v_pair + plane + i);
+    u_pair[i] = sm90::load_cg(u_pair + plane + i);
+    v_pair[i] = sm90::load_cg(v_pair + plane + i);
   }
 }
 
 // SPECIALIZE = false takes every tile as an edge tile, PREFETCH = false
-// loads each window only when its tile is due (ablations).
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH>
+// loads each window only when its tile is due (ablations). T: the state's
+// element type (float, or sm90::bf16).
+template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH,
+          typename T>
 __global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
-mega_kernel(float* u_pair, float* v_pair, int rows, int cols, int n_blocks,
+mega_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
             int steps, gs::Constants k, int aligned,
             unsigned long long* barrier) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
@@ -123,8 +136,9 @@ first_stepper_kernel(float* u_pair, float* v_pair, int rows, int cols,
 
 int first_stepper_cache[gs::MAX_DEVICES];  // 0 = not known yet
 
+template <typename T>
 struct Call {
-  float *u_pair, *v_pair;
+  T *u_pair, *v_pair;
   int rows, cols, n_blocks, steps, naive, device;
   gs::Constants k;
   int grid_blocks;
@@ -138,7 +152,7 @@ struct Call {
 // tile count); a larger grid than the card can hold is refused with
 // cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
 template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true,
-          bool PREFETCH = true>
+          bool PREFETCH = true, typename T = float>
 struct Mega {
 
   static int* cache() {
@@ -148,55 +162,76 @@ struct Mega {
 
   static cudaError_t max_blocks(int device, int* out) {
     return gs::coresident_blocks(
-        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH>, device, cache(),
-        out, G::NT, G::BYTES);
+        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH, T>, device,
+        cache(), out, G::NT, G::BYTES);
   }
 
-  static cudaError_t launch(const Call& c) {
-    Call a = c;
+  static cudaError_t launch(const Call<T>& c) {
+    Call<T> a = c;
     const size_t plane = static_cast<size_t>(c.rows) * c.cols;
-    int aligned = sm90::rows_aligned(c.cols, c.u_pair, c.v_pair,
-                                     c.u_pair + plane, c.v_pair + plane);
+    int aligned = sm90::rows_aligned<T>(c.cols, c.u_pair, c.v_pair,
+                                        c.u_pair + plane, c.v_pair + plane);
     void* args[] = {&a.u_pair, &a.v_pair, &a.rows,    &a.cols,   &a.n_blocks,
                     &a.steps,  &a.k,      &aligned, &a.barrier};
     return gs::launch_persistent(
-        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH>, args, c.rows,
+        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH, T>, args, c.rows,
         c.cols, c.grid_blocks, c.device, cache(), c.stream, dim3(G::NT),
         G::BYTES, G::TR);
   }
 };
 
-template <typename G, int TAPS, bool SPECIALIZE = true, bool PREFETCH = true>
-cudaError_t launch(const Call& c) {
-  using Naive = Mega<G, TAPS, true, SPECIALIZE, PREFETCH>;
-  using Zero = Mega<G, TAPS, false, SPECIALIZE, PREFETCH>;
+template <typename G, int TAPS, bool SPECIALIZE = true, bool PREFETCH = true,
+          typename T>
+cudaError_t launch(const Call<T>& c) {
+  using Naive = Mega<G, TAPS, true, SPECIALIZE, PREFETCH, T>;
+  using Zero = Mega<G, TAPS, false, SPECIALIZE, PREFETCH, T>;
   return c.naive ? Naive::launch(c) : Zero::launch(c);
 }
 
 template <int TAPS>
 struct Launch {
-  static cudaError_t run(const Call& c) { return launch<sm90::Main, TAPS>(c); }
+  template <typename T>
+  static cudaError_t run(const Call<T>& c) {
+    return launch<sm90::Main, TAPS>(c);
+  }
 };
 
-// The fewer of *least and the co-resident blocks of TAPS's instantiations.
-template <int TAPS>
+// The fewer of *least and the co-resident blocks of TAPS's instantiations
+// on T.
+template <int TAPS, typename T>
 cudaError_t fewest_blocks(int device, int* least) {
   int naive = 0, zero = 0;
-  cudaError_t err = Mega<sm90::Main, TAPS, true>::max_blocks(device, &naive);
+  cudaError_t err =
+      Mega<sm90::Main, TAPS, true, true, true, T>::max_blocks(device, &naive);
   if (err == cudaSuccess) {
-    err = Mega<sm90::Main, TAPS, false>::max_blocks(device, &zero);
+    err = Mega<sm90::Main, TAPS, false, true, true, T>::max_blocks(device,
+                                                                   &zero);
   }
   const int fewer = naive < zero ? naive : zero;
   if (fewer < *least) *least = fewer;
   return err;
 }
 
+// The fewer of *least and the co-resident blocks of every instantiation on
+// T.
+template <typename T>
+cudaError_t fewest_blocks_all(int device, int* least) {
+  cudaError_t err = fewest_blocks<sm90::TAPS_RING, T>(device, least);
+  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ALL, T>(device, least);
+  if (err == cudaSuccess) {
+    err = fewest_blocks<sm90::TAPS_CROSS, T>(device, least);
+  }
+  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ANY, T>(device, least);
+  return err;
+}
+
 // The C interface's checks; the call, or an error in `err`.
-Call make_call(float* u_pair, float* v_pair, int rows, int cols, int n_blocks,
-               int steps, int naive, int device, const float* w, float du,
-               float dv, float feed, float min_feed_kill, float dt,
-               int grid_blocks, void* barrier, void* stream,
-               cudaError_t* err) {
+template <typename T>
+Call<T> make_call(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
+                  int steps, int naive, int device, const float* w, float du,
+                  float dv, float feed, float min_feed_kill, float dt,
+                  int grid_blocks, void* barrier, void* stream,
+                  cudaError_t* err) {
   *err = cudaSuccess;
   if (rows < 1 || cols < 1 || n_blocks < 1 || steps < 1 || steps > HALO ||
       device < 0 || device >= gs::MAX_DEVICES) {
@@ -211,6 +246,20 @@ Call make_call(float* u_pair, float* v_pair, int rows, int cols, int n_blocks,
           static_cast<cudaStream_t>(stream)};
 }
 
+// gs_mega_multistep and its bf16 twin.
+template <typename T>
+int multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
+              int steps, int naive, int device, const float* w, float du,
+              float dv, float feed, float min_feed_kill, float dt,
+              int grid_blocks, void* barrier, void* stream) {
+  cudaError_t err;
+  const Call<T> c = make_call(u_pair, v_pair, rows, cols, n_blocks, steps,
+                              naive, device, w, du, dv, feed, min_feed_kill,
+                              dt, grid_blocks, barrier, stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+}
+
 }  // namespace
 
 extern "C" {
@@ -218,18 +267,16 @@ extern "C" {
 int gs_mega_max_steps() { return HALO; }
 
 // The most blocks one cooperative launch of the kernel may have on
-// `device`, whatever its weights and boundary (negative: minus the CUDA
-// error).
+// `device`, whatever its weights, boundary and storage type (negative:
+// minus the CUDA error).
 int gs_mega_max_blocks(int device) {
   if (device < 0 || device >= gs::MAX_DEVICES) {
     return -static_cast<int>(cudaErrorInvalidDevice);
   }
   cudaError_t err = cudaSetDevice(device);
   int n = 1 << 30;
-  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_RING>(device, &n);
-  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ALL>(device, &n);
-  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_CROSS>(device, &n);
-  if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ANY>(device, &n);
+  if (err == cudaSuccess) err = fewest_blocks_all<float>(device, &n);
+  if (err == cudaSuccess) err = fewest_blocks_all<sm90::bf16>(device, &n);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -247,12 +294,26 @@ int gs_mega_multistep(float* u_pair, float* v_pair, int rows, int cols,
                       float dv, float feed, float min_feed_kill, float dt,
                       int grid_blocks, void* barrier, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  cudaError_t err;
-  const Call c = make_call(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
-                           device, w, du, dv, feed, min_feed_kill, dt,
-                           grid_blocks, barrier, stream, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+  return multistep(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
+                   device, w, du, dv, feed, min_feed_kill, dt, grid_blocks,
+                   barrier, stream);
+}
+
+// gs_mega_multistep on bfloat16 pairs: each window widened to float32 on
+// load, each time block's `steps` steps in float32, each cell rounded to
+// bfloat16 (to nearest even) on store.
+int gs_mega_multistep_bf16(void* u_pair, void* v_pair, int rows, int cols,
+                           int n_blocks, int steps, int naive, int device,
+                           float w0, float w1, float w2, float w3, float w4,
+                           float w5, float w6, float w7, float w8, float du,
+                           float dv, float feed, float min_feed_kill,
+                           float dt, int grid_blocks, void* barrier,
+                           void* stream) {
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  return multistep(static_cast<sm90::bf16*>(u_pair),
+                   static_cast<sm90::bf16*>(v_pair), rows, cols, n_blocks,
+                   steps, naive, device, w, du, dv, feed, min_feed_kill, dt,
+                   grid_blocks, barrier, stream);
 }
 
 // gs_mega_multistep with one part of the design taken out, for timing what
@@ -268,9 +329,9 @@ int gs_mega_ablation(float* u_pair, float* v_pair, int rows, int cols,
                      int grid_blocks, void* barrier, void* stream, int part) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   cudaError_t err;
-  Call c = make_call(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
-                     device, w, du, dv, feed, min_feed_kill, dt, grid_blocks,
-                     barrier, stream, &err);
+  Call<float> c = make_call(u_pair, v_pair, rows, cols, n_blocks, steps,
+                            naive, device, w, du, dv, feed, min_feed_kill, dt,
+                            grid_blocks, barrier, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sm90::tap_mask(c.k) != sm90::TAPS_RING) {
     return static_cast<int>(cudaErrorInvalidValue);

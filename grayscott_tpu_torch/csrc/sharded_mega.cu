@@ -93,6 +93,14 @@
 // takes 2); the 32^2 geometry, with more blocks an SM, can take fewer. The
 // TPU kernel's overlap of interior rows with the exchange (its 1-D
 // read-site waits, megakernel.py:451-463) is later work.
+//
+// bf16 storage (gs_sharded_mega_describe_bf16, gs_sharded_mega_multistep_bf16;
+// the TPU kernel with a bfloat16 dtype): every shard's pairs are bfloat16.
+// Tiles step as K2's bf16 form does (widened on load, float32 steps, one
+// rounding to nearest even at the store), so the pushes, which follow the
+// group barrier, move cells that are already rounded: 16-byte copies of 8
+// bfloat16 cells, so every band's width is a multiple of 8 (c_loc and
+// chalo are: parallel/halo.py:QUANTUM, COL_HALO), and the pitch too.
 
 #include "gs_tile_sm90.cuh"
 
@@ -125,20 +133,25 @@ __host__ __device__ constexpr int opposite(int d) {
   return d < 4 ? d ^ 1 : d ^ 3;
 }
 
+// T: the state's element type (float, or sm90::bf16).
+template <typename T>
 struct ShardDesc {
-  float* pair[2];                  // its (U, V) pairs
+  T* pair[2];                      // its (U, V) pairs
   unsigned long long* counters;    // its COUNTER_WORDS counters
   int row0, col0;                  // global (row, col) of interior (0, 0)
   int aligned;                     // its rows 16-byte aligned
-  float* nbr_pair[N_DIRS][2];      // the neighbour in direction d, or null
+  T* nbr_pair[N_DIRS][2];          // the neighbour in direction d, or null
   unsigned long long* nbr_counters[N_DIRS];
 };
+static_assert(sizeof(ShardDesc<float>) == sizeof(ShardDesc<sm90::bf16>),
+              "one descriptor size for both storage types");
 
 __device__ __forceinline__ bool first_thread() { return threadIdx.x == 0; }
 
 // Wait until the counter of `slot` shows `count` pushes from every present
 // neighbour, then make what they pushed visible to the whole block.
-__device__ __forceinline__ void wait_arrivals(const ShardDesc& me, int slot,
+template <typename T>
+__device__ __forceinline__ void wait_arrivals(const ShardDesc<T>& me, int slot,
                                               unsigned long long count) {
   if (first_thread()) {
     const volatile unsigned long long* a =
@@ -153,20 +166,24 @@ __device__ __forceinline__ void wait_arrivals(const ShardDesc& me, int slot,
 }
 
 // The block's share of the pushes of `slot` into every present neighbour,
-// in float4s (pitch, chalo and c_loc are multiples of 4 and the pairs
-// 16-byte aligned: gs_sharded_mega_describe).
-__device__ __forceinline__ void push(const ShardDesc& me, int slot,
+// in 16-byte copies: float4s, or 8 bfloat16 cells (pitch, chalo and c_loc
+// are multiples of a copy's cells and the pairs 16-byte aligned:
+// gs_sharded_mega_describe).
+template <typename T>
+__device__ __forceinline__ void push(const ShardDesc<T>& me, int slot,
                                      int r_loc, int c_loc, int chalo,
                                      size_t pitch, size_t plane, int rank,
                                      unsigned int size) {
+  using V = typename sm90::Vec16<T>::type;
+  constexpr int E = sm90::vec_cells<T>();
   const int first = rank * blockDim.x + threadIdx.x;
   const int stride = size * blockDim.x;
-  const float* u = me.pair[0] + slot * plane;
-  const float* v = me.pair[1] + slot * plane;
+  const T* u = me.pair[0] + slot * plane;
+  const T* v = me.pair[1] + slot * plane;
   for (int d = 0; d < N_DIRS; ++d) {
     if (me.nbr_pair[d][0] == nullptr) continue;
-    float* nu = me.nbr_pair[d][0] + slot * plane;
-    float* nv = me.nbr_pair[d][1] + slot * plane;
+    T* nu = me.nbr_pair[d][0] + slot * plane;
+    T* nv = me.nbr_pair[d][1] + slot * plane;
     const int dr = dir_row(d), dc = dir_col(d);
     // the band: HALO rows / chalo columns on the side of the push, else the
     // whole interior; into the receiver's opposite halo
@@ -175,16 +192,16 @@ __device__ __forceinline__ void push(const ShardDesc& me, int slot,
     const int to_r = dr > 0 ? 0 : dr < 0 ? HALO + r_loc : HALO;
     const int from_c = dc > 0 ? c_loc : chalo;
     const int to_c = dc > 0 ? 0 : dc < 0 ? chalo + c_loc : chalo;
-    const int quads = n_cols / 4;  // float4s a band row
+    const int quads = n_cols / E;  // 16-byte copies a band row
     const int n = n_rows * quads;
     for (int i = first; i < n; i += stride) {
-      const int r = i / quads, c = 4 * (i - r * quads);
+      const int r = i / quads, c = E * (i - r * quads);
       const size_t from = (from_r + r) * pitch + from_c + c;
       const size_t to = (to_r + r) * pitch + to_c + c;
-      *reinterpret_cast<float4*>(nu + to) =
-          __ldcg(reinterpret_cast<const float4*>(u + from));
-      *reinterpret_cast<float4*>(nv + to) =
-          __ldcg(reinterpret_cast<const float4*>(v + from));
+      *reinterpret_cast<V*>(nu + to) =
+          __ldcg(reinterpret_cast<const V*>(u + from));
+      *reinterpret_cast<V*>(nv + to) =
+          __ldcg(reinterpret_cast<const V*>(v + from));
     }
   }
 }
@@ -192,7 +209,8 @@ __device__ __forceinline__ void push(const ShardDesc& me, int slot,
 // After the block's pushes of `slot` (the n-th time, n = 1, 2, ...): its
 // arrival on the group's gather; the group's first block waits for all
 // `size` of them and bumps each neighbour's counter of (slot, direction).
-__device__ __forceinline__ void arrive(const ShardDesc& me, int slot,
+template <typename T>
+__device__ __forceinline__ void arrive(const ShardDesc<T>& me, int slot,
                                        unsigned long long n,
                                        unsigned int size, bool leader) {
   __syncthreads();
@@ -213,9 +231,9 @@ __device__ __forceinline__ void arrive(const ShardDesc& me, int slot,
 
 // G: the tile geometry (gs_tile_sm90.cuh: Main, 64^2 tiles and 512
 // threads, two blocks an SM; Small, 32^2 and 256, four blocks an SM).
-template <typename G, int TAPS, bool NAIVE>
+template <typename G, int TAPS, bool NAIVE, typename T>
 __global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
-sharded_mega_kernel(const ShardDesc* shards, int n_shards, int rows,
+sharded_mega_kernel(const ShardDesc<T>* shards, int n_shards, int rows,
                     int cols, int r_loc, int c_loc, int chalo, int n_blocks,
                     int steps, gs::Constants k) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
@@ -226,14 +244,14 @@ sharded_mega_kernel(const ShardDesc* shards, int n_shards, int rows,
   const int g = b < big ? b / (per + 1) : extra + (b - big) / per;
   const int rank = b - (b < big ? g * (per + 1) : big + (g - extra) * per);
   const unsigned int size = per + (g < extra ? 1 : 0);
-  const ShardDesc& me = shards[g];
+  const ShardDesc<T>& me = shards[g];
 
   const size_t pitch = static_cast<size_t>(c_loc) + 2 * chalo;
   const size_t plane = (static_cast<size_t>(r_loc) + 2 * HALO) * pitch;
   const gs::ShardLayout mem = {me.row0, me.col0, r_loc, c_loc,
                                HALO,    chalo,   pitch};
-  float* const u = me.pair[0];
-  float* const v = me.pair[1];
+  T* const u = me.pair[0];
+  T* const v = me.pair[1];
   const int tiles_x = (c_loc + G::TC - 1) / G::TC;
   const int n_tiles = tiles_x * ((r_loc + G::TR - 1) / G::TR);
   for (int t = 0; t < n_blocks; ++t) {
@@ -247,21 +265,22 @@ sharded_mega_kernel(const ShardDesc* shards, int n_shards, int rows,
     arrive(me, 1 - (t & 1), t + 1, size, rank == 0);
   }
   wait_arrivals(me, n_blocks & 1, (n_blocks + 1) / 2);
-  if (n_blocks & 1) {  // slot 1 to slot 0, halos included, in float4s
+  if (n_blocks & 1) {  // slot 1 to slot 0, halos included, 16 B a copy
+    using V = typename sm90::Vec16<T>::type;
     const size_t stride = static_cast<size_t>(size) * blockDim.x;
     for (size_t i = static_cast<size_t>(rank) * blockDim.x + threadIdx.x;
-         i < plane / 4; i += stride) {
-      reinterpret_cast<float4*>(u)[i] =
-          __ldcg(reinterpret_cast<const float4*>(u + plane) + i);
-      reinterpret_cast<float4*>(v)[i] =
-          __ldcg(reinterpret_cast<const float4*>(v + plane) + i);
+         i < plane / sm90::vec_cells<T>(); i += stride) {
+      reinterpret_cast<V*>(u)[i] =
+          __ldcg(reinterpret_cast<const V*>(u + plane) + i);
+      reinterpret_cast<V*>(v)[i] =
+          __ldcg(reinterpret_cast<const V*>(v + plane) + i);
     }
   }
 }
 
 // One instantiation: its co-resident blocks (cached per device; the first
 // query also allows it its dynamic shared memory) and its launch.
-template <typename G, int TAPS, bool NAIVE>
+template <typename G, int TAPS, bool NAIVE, typename T>
 struct Sharded {
   static int* cache() {
     static int blocks[gs::MAX_DEVICES];  // 0 = not known yet
@@ -269,8 +288,8 @@ struct Sharded {
   }
 
   static cudaError_t max_blocks(int device, int* out) {
-    return gs::coresident_blocks(sharded_mega_kernel<G, TAPS, NAIVE>, device,
-                                 cache(), out, G::NT, G::BYTES);
+    return gs::coresident_blocks(sharded_mega_kernel<G, TAPS, NAIVE, T>,
+                                 device, cache(), out, G::NT, G::BYTES);
   }
 };
 
@@ -287,10 +306,10 @@ struct Call {
 // count); a grid smaller than n_shards is refused with
 // cudaErrorInvalidValue, a larger grid than the card can hold with
 // cudaErrorCooperativeLaunchTooLarge.
-template <typename G, int TAPS, bool NAIVE>
+template <typename G, int TAPS, bool NAIVE, typename T>
 cudaError_t launch_one(const Call& c) {
   int most = 0;
-  cudaError_t err = Sharded<G, TAPS, NAIVE>::max_blocks(c.device, &most);
+  cudaError_t err = Sharded<G, TAPS, NAIVE, T>::max_blocks(c.device, &most);
   if (err != cudaSuccess) return err;
   int grid = c.grid_blocks;
   if (grid <= 0) {
@@ -302,11 +321,11 @@ cudaError_t launch_one(const Call& c) {
   }
   if (grid < c.n_shards) return cudaErrorInvalidValue;
   Call a = c;
-  const ShardDesc* desc = static_cast<const ShardDesc*>(c.shards);
+  const ShardDesc<T>* desc = static_cast<const ShardDesc<T>*>(c.shards);
   void* args[] = {&desc,      &a.n_shards, &a.rows,  &a.cols,  &a.r_loc,
                   &a.c_loc,   &a.chalo,    &a.n_blocks, &a.steps, &a.k};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sharded_mega_kernel<G, TAPS, NAIVE>),
+      reinterpret_cast<const void*>(sharded_mega_kernel<G, TAPS, NAIVE, T>),
       dim3(grid), dim3(G::NT), args, G::BYTES, c.stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not report it
@@ -315,41 +334,123 @@ cudaError_t launch_one(const Call& c) {
   return cudaGetLastError();
 }
 
+// Launch<TAPS>::run<T>: the instantiation of the call's tile and boundary
+// on T.
 template <int TAPS>
 struct Launch {
-  static cudaError_t run(const Call& c) {
+  template <typename T>
+  static cudaError_t run(const Call& c, T*) {
     if (c.tile == sm90::Small::TR) {
-      return c.naive ? launch_one<sm90::Small, TAPS, true>(c)
-                     : launch_one<sm90::Small, TAPS, false>(c);
+      return c.naive ? launch_one<sm90::Small, TAPS, true, T>(c)
+                     : launch_one<sm90::Small, TAPS, false, T>(c);
     }
-    return c.naive ? launch_one<sm90::Main, TAPS, true>(c)
-                   : launch_one<sm90::Main, TAPS, false>(c);
+    return c.naive ? launch_one<sm90::Main, TAPS, true, T>(c)
+                   : launch_one<sm90::Main, TAPS, false, T>(c);
   }
 };
 
 // The fewer of *least and the co-resident blocks of the G instantiations of
-// TAPS.
-template <typename G, int TAPS>
+// TAPS on T.
+template <typename G, int TAPS, typename T>
 cudaError_t fewest_blocks(int device, int* least) {
   int naive = 0, zero = 0;
-  cudaError_t err = Sharded<G, TAPS, true>::max_blocks(device, &naive);
+  cudaError_t err = Sharded<G, TAPS, true, T>::max_blocks(device, &naive);
   if (err == cudaSuccess) {
-    err = Sharded<G, TAPS, false>::max_blocks(device, &zero);
+    err = Sharded<G, TAPS, false, T>::max_blocks(device, &zero);
   }
   const int fewer = naive < zero ? naive : zero;
   if (fewer < *least) *least = fewer;
   return err;
 }
 
-template <typename G>
+template <typename G, typename T>
 cudaError_t fewest_blocks_all(int device, int* least) {
-  cudaError_t err = fewest_blocks<G, sm90::TAPS_RING>(device, least);
-  if (err == cudaSuccess) err = fewest_blocks<G, sm90::TAPS_ALL>(device, least);
+  cudaError_t err = fewest_blocks<G, sm90::TAPS_RING, T>(device, least);
   if (err == cudaSuccess) {
-    err = fewest_blocks<G, sm90::TAPS_CROSS>(device, least);
+    err = fewest_blocks<G, sm90::TAPS_ALL, T>(device, least);
   }
-  if (err == cudaSuccess) err = fewest_blocks<G, sm90::TAPS_ANY>(device, least);
+  if (err == cudaSuccess) {
+    err = fewest_blocks<G, sm90::TAPS_CROSS, T>(device, least);
+  }
+  if (err == cudaSuccess) {
+    err = fewest_blocks<G, sm90::TAPS_ANY, T>(device, least);
+  }
   return err;
+}
+
+// Both storage types' instantiations of G.
+template <typename G>
+cudaError_t fewest_blocks_any(int device, int* least) {
+  cudaError_t err = fewest_blocks_all<G, float>(device, least);
+  if (err == cudaSuccess) err = fewest_blocks_all<G, sm90::bf16>(device, least);
+  return err;
+}
+
+// gs_sharded_mega_describe and its bf16 twin (see there).
+template <typename T>
+int describe(void* out, T* u_pairs, T* v_pairs, void* counters, int n_rows,
+             int n_cols, int r_loc, int c_loc, int chalo) {
+  auto aligned16 = [](const void* p) {
+    return reinterpret_cast<size_t>(p) % 16 == 0;
+  };
+  constexpr int E = sm90::vec_cells<T>();
+  if (n_rows < 1 || n_cols < 1 || r_loc < HALO || c_loc < 1 || chalo < 0 ||
+      c_loc % E || chalo % E || !aligned16(u_pairs) || !aligned16(v_pairs) ||
+      (n_cols > 1 && (chalo < 1 || chalo > HALO || c_loc < chalo))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t pitch = static_cast<size_t>(c_loc) + 2 * chalo;
+  const size_t plane = (static_cast<size_t>(r_loc) + 2 * HALO) * pitch;
+  auto* desc = static_cast<ShardDesc<T>*>(out);
+  auto* ctr = static_cast<unsigned long long*>(counters);
+  for (int i = 0; i < n_rows; ++i) {
+    for (int j = 0; j < n_cols; ++j) {
+      const size_t at = static_cast<size_t>(i) * n_cols + j;
+      ShardDesc<T> d = {};
+      d.pair[0] = u_pairs + at * 2 * plane;
+      d.pair[1] = v_pairs + at * 2 * plane;
+      d.counters = ctr + at * COUNTER_WORDS;
+      d.row0 = i * r_loc;
+      d.col0 = j * c_loc;
+      d.aligned = sm90::rows_aligned<T>(static_cast<int>(pitch), d.pair[0],
+                                        d.pair[1], d.pair[0] + plane,
+                                        d.pair[1] + plane);
+      for (int dir = 0; dir < N_DIRS; ++dir) {
+        const int ni = i + dir_row(dir), nj = j + dir_col(dir);
+        if (ni < 0 || ni >= n_rows || nj < 0 || nj >= n_cols) continue;
+        const size_t nat = static_cast<size_t>(ni) * n_cols + nj;
+        d.nbr_pair[dir][0] = u_pairs + nat * 2 * plane;
+        d.nbr_pair[dir][1] = v_pairs + nat * 2 * plane;
+        d.nbr_counters[dir] = ctr + nat * COUNTER_WORDS;
+      }
+      desc[at] = d;
+    }
+  }
+  return 0;
+}
+
+// gs_sharded_mega_multistep and its bf16 twin (see there).
+template <typename T>
+int multistep(const void* shards, int n_shards, int rows, int cols,
+              int r_loc, int c_loc, int chalo, int n_blocks, int steps,
+              int naive, int device, const float* w, float du, float dv,
+              float feed, float min_feed_kill, float dt, int grid_blocks,
+              int tile, void* stream) {
+  if (n_shards < 1 || rows < 1 || cols < 1 || r_loc < HALO || c_loc < 1 ||
+      chalo < 0 || chalo > HALO || n_blocks < 1 || steps < 1 ||
+      steps > HALO || device < 0 || device >= gs::MAX_DEVICES ||
+      (tile != sm90::Main::TR && tile != sm90::Small::TR)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Call c = {shards, n_shards, rows, cols, r_loc, c_loc, chalo,
+                  n_blocks, steps, naive, device,
+                  {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
+                   du, dv, feed, min_feed_kill, dt},
+                  grid_blocks, tile, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(
+      sm90::dispatch_taps<Launch>(c.k, c, static_cast<T*>(nullptr)));
 }
 
 }  // namespace
@@ -360,11 +461,11 @@ int gs_sharded_mega_max_steps() { return HALO; }
 
 int gs_sharded_mega_counter_words() { return COUNTER_WORDS; }
 
-int gs_sharded_mega_desc_bytes() { return sizeof(ShardDesc); }
+int gs_sharded_mega_desc_bytes() { return sizeof(ShardDesc<float>); }
 
 // The most blocks one cooperative launch of the kernel may have on
-// `device` with `tile` x `tile` tiles (64 or 32), whatever its weights and
-// boundary (negative: minus the CUDA error).
+// `device` with `tile` x `tile` tiles (64 or 32), whatever its weights,
+// boundary and storage type (negative: minus the CUDA error).
 int gs_sharded_mega_max_blocks(int device, int tile) {
   if (device < 0 || device >= gs::MAX_DEVICES) {
     return -static_cast<int>(cudaErrorInvalidDevice);
@@ -375,8 +476,8 @@ int gs_sharded_mega_max_blocks(int device, int tile) {
   cudaError_t err = cudaSetDevice(device);
   int n = 1 << 30;
   if (err == cudaSuccess) {
-    err = tile == sm90::Main::TR ? fewest_blocks_all<sm90::Main>(device, &n)
-                                 : fewest_blocks_all<sm90::Small>(device, &n);
+    err = tile == sm90::Main::TR ? fewest_blocks_any<sm90::Main>(device, &n)
+                                 : fewest_blocks_any<sm90::Small>(device, &n);
   }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
@@ -391,42 +492,18 @@ int gs_sharded_mega_max_blocks(int device, int tile) {
 int gs_sharded_mega_describe(void* out, float* u_pairs, float* v_pairs,
                              void* counters, int n_rows, int n_cols,
                              int r_loc, int c_loc, int chalo) {
-  auto aligned16 = [](const void* p) {
-    return reinterpret_cast<size_t>(p) % 16 == 0;
-  };
-  if (n_rows < 1 || n_cols < 1 || r_loc < HALO || c_loc < 1 || chalo < 0 ||
-      c_loc % 4 || chalo % 4 || !aligned16(u_pairs) || !aligned16(v_pairs) ||
-      (n_cols > 1 && (chalo < 1 || chalo > HALO || c_loc < chalo))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t pitch = static_cast<size_t>(c_loc) + 2 * chalo;
-  const size_t plane = (static_cast<size_t>(r_loc) + 2 * HALO) * pitch;
-  auto* desc = static_cast<ShardDesc*>(out);
-  auto* ctr = static_cast<unsigned long long*>(counters);
-  for (int i = 0; i < n_rows; ++i) {
-    for (int j = 0; j < n_cols; ++j) {
-      const size_t at = static_cast<size_t>(i) * n_cols + j;
-      ShardDesc d = {};
-      d.pair[0] = u_pairs + at * 2 * plane;
-      d.pair[1] = v_pairs + at * 2 * plane;
-      d.counters = ctr + at * COUNTER_WORDS;
-      d.row0 = i * r_loc;
-      d.col0 = j * c_loc;
-      d.aligned = sm90::rows_aligned(static_cast<int>(pitch), d.pair[0],
-                                     d.pair[1], d.pair[0] + plane,
-                                     d.pair[1] + plane);
-      for (int dir = 0; dir < N_DIRS; ++dir) {
-        const int ni = i + dir_row(dir), nj = j + dir_col(dir);
-        if (ni < 0 || ni >= n_rows || nj < 0 || nj >= n_cols) continue;
-        const size_t nat = static_cast<size_t>(ni) * n_cols + nj;
-        d.nbr_pair[dir][0] = u_pairs + nat * 2 * plane;
-        d.nbr_pair[dir][1] = v_pairs + nat * 2 * plane;
-        d.nbr_counters[dir] = ctr + nat * COUNTER_WORDS;
-      }
-      desc[at] = d;
-    }
-  }
-  return 0;
+  return describe(out, u_pairs, v_pairs, counters, n_rows, n_cols, r_loc,
+                  c_loc, chalo);
+}
+
+// gs_sharded_mega_describe for bfloat16 pairs: c_loc and chalo multiples of
+// 8 (a push moves 8 bfloat16 cells a copy).
+int gs_sharded_mega_describe_bf16(void* out, void* u_pairs, void* v_pairs,
+                                  void* counters, int n_rows, int n_cols,
+                                  int r_loc, int c_loc, int chalo) {
+  return describe(out, static_cast<sm90::bf16*>(u_pairs),
+                  static_cast<sm90::bf16*>(v_pairs), counters, n_rows,
+                  n_cols, r_loc, c_loc, chalo);
 }
 
 // Enqueues one cooperative launch of `n_blocks` time blocks of `steps`
@@ -446,20 +523,27 @@ int gs_sharded_mega_multistep(const void* shards, int n_shards, int rows,
                               float w8, float du, float dv, float feed,
                               float min_feed_kill, float dt, int grid_blocks,
                               int tile, void* stream) {
-  if (n_shards < 1 || rows < 1 || cols < 1 || r_loc < HALO || c_loc < 1 ||
-      chalo < 0 || chalo > HALO || n_blocks < 1 || steps < 1 ||
-      steps > HALO || device < 0 || device >= gs::MAX_DEVICES ||
-      (tile != sm90::Main::TR && tile != sm90::Small::TR)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Call c = {shards, n_shards, rows, cols, r_loc, c_loc, chalo,
-                  n_blocks, steps, naive, device,
-                  {{w0, w1, w2, w3, w4, w5, w6, w7, w8},
-                   du, dv, feed, min_feed_kill, dt},
-                  grid_blocks, tile, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  return multistep<float>(shards, n_shards, rows, cols, r_loc, c_loc, chalo,
+                          n_blocks, steps, naive, device, w, du, dv, feed,
+                          min_feed_kill, dt, grid_blocks, tile, stream);
+}
+
+// gs_sharded_mega_multistep over shards with bfloat16 pairs (described by
+// gs_sharded_mega_describe_bf16): each window widened to float32 on load,
+// each cell rounded to bfloat16 (to nearest even) on store, before the
+// pushes.
+int gs_sharded_mega_multistep_bf16(
+    const void* shards, int n_shards, int rows, int cols, int r_loc,
+    int c_loc, int chalo, int n_blocks, int steps, int naive, int device,
+    float w0, float w1, float w2, float w3, float w4, float w5, float w6,
+    float w7, float w8, float du, float dv, float feed, float min_feed_kill,
+    float dt, int grid_blocks, int tile, void* stream) {
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  return multistep<sm90::bf16>(shards, n_shards, rows, cols, r_loc, c_loc,
+                               chalo, n_blocks, steps, naive, device, w, du,
+                               dv, feed, min_feed_kill, dt, grid_blocks,
+                               tile, stream);
 }
 
 }  // extern "C"

@@ -69,6 +69,15 @@
 //
 // What bounds it is K1's: instruction issue. Each shard rounds its tiles
 // up on its own (2x2 at 1080x1920: 540 tiles of 64^2 against K1's 510).
+//
+// bf16 storage (gs_windowed_multistep_bf16, gs_windowed_shard_multistep_bf16;
+// pallas_stencil.py:_kernel with a bfloat16 dtype, :970-971 and :992-993):
+// the same kernels on bfloat16 buffers. The window widens each cell to
+// float32 as it loads (gs_tile_sm90.cuh: the bf16 load_window, through
+// registers), the `steps` steps run in float32 as above, and the store
+// rounds each cell to bfloat16, to nearest even, once a launch. A launch
+// moves half the bytes of the float32 one; the bound stays instruction
+// issue, so it runs at about the float32 kernel's speed.
 
 #include "gs_tile_sm90.cuh"
 
@@ -82,10 +91,12 @@ using sm90::Geometry;
 using sm90::Main;
 
 // SPECIALIZE = false takes every tile as an edge tile (an ablation).
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true>
+// T: the state's element type (float, or sm90::bf16).
+template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true,
+          typename T = float>
 __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
-windowed_kernel(const float* u, const float* v, float* u_out, float* v_out,
-                int rows, int cols, int steps, gs::Constants k, int aligned) {
+windowed_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
+                int cols, int steps, gs::Constants k, int aligned) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
   float* const base = reinterpret_cast<float*>(window);
   const int r0 = blockIdx.y * G::TR - HALO, c0 = blockIdx.x * G::TC - HALO;
@@ -123,16 +134,17 @@ windowed_kernel(const float* u, const float* v, float* u_out, float* v_out,
     const int gr = r0 + lr, gc = c0 + lc;
     if (gr < rows && gc < cols) {
       const size_t g = static_cast<size_t>(gr) * cols + gc;
-      u_out[g] = fu[lr * G::WC + lc];
-      v_out[g] = fv[lr * G::WC + lc];
+      u_out[g] = sm90::narrow<T>(fu[lr * G::WC + lc]);
+      v_out[g] = sm90::narrow<T>(fv[lr * G::WC + lc]);
     }
   }
 }
 
 // The shards of a launch: the pairs' geometry, the source slot, and the
 // tiles of the part (see the note at the top).
+template <typename T>
 struct Shards {
-  float *u_pairs, *v_pairs;
+  T *u_pairs, *v_pairs;
   int n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1, tj0, tj1;
 };
 
@@ -140,9 +152,9 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<size_t>(p) % 16 == 0;
 }
 
-template <typename G, int TAPS, bool NAIVE>
+template <typename G, int TAPS, bool NAIVE, typename T>
 __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
-windowed_shard_kernel(Shards s, int rows, int cols, int steps,
+windowed_shard_kernel(Shards<T> s, int rows, int cols, int steps,
                       gs::Constants k) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
   float* const base = reinterpret_cast<float*>(window);
@@ -163,12 +175,12 @@ windowed_shard_kernel(Shards s, int rows, int cols, int steps,
                                HALO,
                                s.chalo,
                                pitch};
-  const float* u = s.u_pairs + (2 * g + s.src) * plane;
-  const float* v = s.v_pairs + (2 * g + s.src) * plane;
-  float* u_out = s.u_pairs + (2 * g + 1 - s.src) * plane;
-  float* v_out = s.v_pairs + (2 * g + 1 - s.src) * plane;
-  const bool aligned = pitch % 4 == 0 && aligned16(u) && aligned16(v) &&
-                       aligned16(u_out) && aligned16(v_out);
+  const T* u = s.u_pairs + (2 * g + s.src) * plane;
+  const T* v = s.v_pairs + (2 * g + s.src) * plane;
+  T* u_out = s.u_pairs + (2 * g + 1 - s.src) * plane;
+  T* v_out = s.v_pairs + (2 * g + 1 - s.src) * plane;
+  const bool aligned = pitch % sm90::vec_cells<T>() == 0 && aligned16(u) &&
+                       aligned16(v) && aligned16(u_out) && aligned16(v_out);
   const int r0 = mem.row0 + ti * G::TR - HALO;
   const int c0 = mem.col0 + tj * G::TC - HALO;
 
@@ -204,15 +216,16 @@ windowed_shard_kernel(Shards s, int rows, int cols, int steps,
     if (mem.stores(gr, gc)) {
       const size_t at = mem.at(gr, gc);
       const bool in = gr < rows && gc < cols;
-      u_out[at] = in ? fu[lr * G::WC + lc] : 0.0f;
-      v_out[at] = in ? fv[lr * G::WC + lc] : 0.0f;
+      u_out[at] = sm90::narrow<T>(in ? fu[lr * G::WC + lc] : 0.0f);
+      v_out[at] = sm90::narrow<T>(in ? fv[lr * G::WC + lc] : 0.0f);
     }
   }
 }
 
+template <typename T>
 struct Call {
-  const float *u, *v;
-  float *u_out, *v_out;
+  const T *u, *v;
+  T *u_out, *v_out;
   int rows, cols, steps, naive, device;
   gs::Constants k;
   cudaStream_t stream;
@@ -222,10 +235,10 @@ struct Call {
 // it the dynamic shared memory it needs (once per device): a launch that
 // asks for more than 48 KB without that is refused, and the refusal is
 // returned.
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true>
-cudaError_t launch_one(const Call& c) {
+template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, typename T>
+cudaError_t launch_one(const Call<T>& c) {
   static bool allowed[gs::MAX_DEVICES];
-  auto kernel = windowed_kernel<G, TAPS, NAIVE, SPECIALIZE>;
+  auto kernel = windowed_kernel<G, TAPS, NAIVE, SPECIALIZE, T>;
   if (!allowed[c.device]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -235,36 +248,41 @@ cudaError_t launch_one(const Call& c) {
   }
   const dim3 grid((c.cols + G::TC - 1) / G::TC, (c.rows + G::TR - 1) / G::TR);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  const int aligned = sm90::rows_aligned(c.cols, c.u, c.v, c.u_out, c.v_out);
+  const int aligned =
+      sm90::rows_aligned<T>(c.cols, c.u, c.v, c.u_out, c.v_out);
   kernel<<<grid, G::NT, G::BYTES, c.stream>>>(c.u, c.v, c.u_out, c.v_out,
                                               c.rows, c.cols, c.steps, c.k,
                                               aligned);
   return cudaGetLastError();
 }
 
-template <typename G, int TAPS, bool SPECIALIZE = true>
-cudaError_t launch(const Call& c) {
+template <typename G, int TAPS, bool SPECIALIZE = true, typename T>
+cudaError_t launch(const Call<T>& c) {
   return c.naive ? launch_one<G, TAPS, true, SPECIALIZE>(c)
                  : launch_one<G, TAPS, false, SPECIALIZE>(c);
 }
 
 template <int TAPS>
 struct Launch {
-  static cudaError_t run(const Call& c) { return launch<Main, TAPS>(c); }
+  template <typename T>
+  static cudaError_t run(const Call<T>& c) {
+    return launch<Main, TAPS>(c);
+  }
 };
 
+template <typename T>
 struct ShardCall {
-  Shards s;
+  Shards<T> s;
   int n_shards, rows, cols, steps, naive, device;
   gs::Constants k;
   cudaStream_t stream;
 };
 
-template <bool NAIVE, int TAPS>
-cudaError_t launch_shards_one(const ShardCall& c) {
+template <bool NAIVE, int TAPS, typename T>
+cudaError_t launch_shards_one(const ShardCall<T>& c) {
   using G = Main;
   static bool allowed[gs::MAX_DEVICES];
-  auto kernel = windowed_shard_kernel<G, TAPS, NAIVE>;
+  auto kernel = windowed_shard_kernel<G, TAPS, NAIVE, T>;
   if (!allowed[c.device]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -272,7 +290,7 @@ cudaError_t launch_shards_one(const ShardCall& c) {
     if (err != cudaSuccess) return err;
     allowed[c.device] = true;
   }
-  const Shards& s = c.s;
+  const Shards<T>& s = c.s;
   const dim3 grid =
       s.part == 1 ? dim3(s.tj1 - s.tj0, s.ti1 - s.ti0, c.n_shards)
                   : dim3((s.c_loc + G::TC - 1) / G::TC,
@@ -286,18 +304,19 @@ cudaError_t launch_shards_one(const ShardCall& c) {
 
 template <int TAPS>
 struct LaunchShards {
-  static cudaError_t run(const ShardCall& c) {
+  template <typename T>
+  static cudaError_t run(const ShardCall<T>& c) {
     return c.naive ? launch_shards_one<true, TAPS>(c)
                    : launch_shards_one<false, TAPS>(c);
   }
 };
 
 // The C interface's checks; the call, or an invalid-value error in `err`.
-Call make_call(const float* u, const float* v, float* u_out, float* v_out,
-               int rows, int cols, int steps, int naive, int device,
-               const float* w, float du, float dv, float feed,
-               float min_feed_kill, float dt, void* stream,
-               cudaError_t* err) {
+template <typename T>
+Call<T> make_call(const T* u, const T* v, T* u_out, T* v_out, int rows,
+                  int cols, int steps, int naive, int device, const float* w,
+                  float du, float dv, float feed, float min_feed_kill,
+                  float dt, void* stream, cudaError_t* err) {
   *err = cudaSuccess;
   if (rows < 1 || cols < 1 || steps < 1 || steps > HALO || device < 0 ||
       device >= gs::MAX_DEVICES) {
@@ -309,6 +328,54 @@ Call make_call(const float* u, const float* v, float* u_out, float* v_out,
           {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
            du, dv, feed, min_feed_kill, dt},
           static_cast<cudaStream_t>(stream)};
+}
+
+// gs_windowed_multistep and its bf16 twin.
+template <typename T>
+int multistep(const T* u, const T* v, T* u_out, T* v_out, int rows, int cols,
+              int steps, int naive, int device, const float* w, float du,
+              float dv, float feed, float min_feed_kill, float dt,
+              void* stream) {
+  cudaError_t err;
+  const Call<T> c = make_call(u, v, u_out, v_out, rows, cols, steps, naive,
+                              device, w, du, dv, feed, min_feed_kill, dt,
+                              stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+}
+
+// gs_windowed_shard_multistep and its bf16 twin.
+template <typename T>
+int shard_multistep(T* u_pairs, T* v_pairs, int n_rows, int n_cols,
+                    int r_loc, int c_loc, int chalo, int src, int rows,
+                    int cols, int steps, int part, int ti0, int ti1, int tj0,
+                    int tj1, int naive, int device, const float* w, float du,
+                    float dv, float feed, float min_feed_kill, float dt,
+                    void* stream) {
+  const int tiles_y = (r_loc + Main::TR - 1) / Main::TR;
+  const int tiles_x = (c_loc + Main::TC - 1) / Main::TC;
+  if (n_rows < 1 || n_cols < 1 || r_loc < 1 || c_loc < 1 || chalo < 0 ||
+      chalo > HALO || (src != 0 && src != 1) || rows < 1 || cols < 1 ||
+      steps < 1 || steps > HALO || part < 0 || part > 2 || ti0 < 0 ||
+      ti0 > ti1 || ti1 > tiles_y || tj0 < 0 || tj0 > tj1 ||
+      tj1 > tiles_x || device < 0 || device >= gs::MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ShardCall<T> c = {
+      {u_pairs, v_pairs, n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1,
+       tj0, tj1},
+      n_rows * n_cols,
+      rows,
+      cols,
+      steps,
+      naive,
+      device,
+      {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
+       du, dv, feed, min_feed_kill, dt},
+      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(sm90::dispatch_taps<LaunchShards>(c.k, c));
 }
 
 }  // namespace
@@ -330,12 +397,26 @@ int gs_windowed_multistep(const float* u, const float* v, float* u_out,
                           float w8, float du, float dv, float feed,
                           float min_feed_kill, float dt, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  cudaError_t err;
-  const Call c = make_call(u, v, u_out, v_out, rows, cols, steps, naive,
-                           device, w, du, dv, feed, min_feed_kill, dt, stream,
-                           &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+  return multistep(u, v, u_out, v_out, rows, cols, steps, naive, device, w,
+                   du, dv, feed, min_feed_kill, dt, stream);
+}
+
+// gs_windowed_multistep on bfloat16 buffers: each cell widened to float32
+// on load, `steps` float32 steps, each cell rounded to bfloat16 (to nearest
+// even) on store.
+int gs_windowed_multistep_bf16(const void* u, const void* v, void* u_out,
+                               void* v_out, int rows, int cols, int steps,
+                               int naive, int device, float w0, float w1,
+                               float w2, float w3, float w4, float w5,
+                               float w6, float w7, float w8, float du,
+                               float dv, float feed, float min_feed_kill,
+                               float dt, void* stream) {
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  return multistep(static_cast<const sm90::bf16*>(u),
+                   static_cast<const sm90::bf16*>(v),
+                   static_cast<sm90::bf16*>(u_out),
+                   static_cast<sm90::bf16*>(v_out), rows, cols, steps, naive,
+                   device, w, du, dv, feed, min_feed_kill, dt, stream);
 }
 
 // Enqueues one launch on `stream` that advances every shard of an
@@ -354,29 +435,28 @@ int gs_windowed_shard_multistep(
     float w1, float w2, float w3, float w4, float w5, float w6, float w7,
     float w8, float du, float dv, float feed, float min_feed_kill, float dt,
     void* stream) {
-  const int tiles_y = (r_loc + Main::TR - 1) / Main::TR;
-  const int tiles_x = (c_loc + Main::TC - 1) / Main::TC;
-  if (n_rows < 1 || n_cols < 1 || r_loc < 1 || c_loc < 1 || chalo < 0 ||
-      chalo > HALO || (src != 0 && src != 1) || rows < 1 || cols < 1 ||
-      steps < 1 || steps > HALO || part < 0 || part > 2 || ti0 < 0 ||
-      ti0 > ti1 || ti1 > tiles_y || tj0 < 0 || tj0 > tj1 ||
-      tj1 > tiles_x || device < 0 || device >= gs::MAX_DEVICES) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const ShardCall c = {
-      {u_pairs, v_pairs, n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1,
-       tj0, tj1},
-      n_rows * n_cols,
-      rows,
-      cols,
-      steps,
-      naive,
-      device,
-      {{w0, w1, w2, w3, w4, w5, w6, w7, w8}, du, dv, feed, min_feed_kill, dt},
-      static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(sm90::dispatch_taps<LaunchShards>(c.k, c));
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  return shard_multistep(u_pairs, v_pairs, n_rows, n_cols, r_loc, c_loc,
+                         chalo, src, rows, cols, steps, part, ti0, ti1, tj0,
+                         tj1, naive, device, w, du, dv, feed, min_feed_kill,
+                         dt, stream);
+}
+
+// gs_windowed_shard_multistep on bfloat16 pairs (widened on load, rounded
+// on store).
+int gs_windowed_shard_multistep_bf16(
+    void* u_pairs, void* v_pairs, int n_rows, int n_cols, int r_loc,
+    int c_loc, int chalo, int src, int rows, int cols, int steps, int part,
+    int ti0, int ti1, int tj0, int tj1, int naive, int device, float w0,
+    float w1, float w2, float w3, float w4, float w5, float w6, float w7,
+    float w8, float du, float dv, float feed, float min_feed_kill, float dt,
+    void* stream) {
+  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
+  return shard_multistep(static_cast<sm90::bf16*>(u_pairs),
+                         static_cast<sm90::bf16*>(v_pairs), n_rows, n_cols,
+                         r_loc, c_loc, chalo, src, rows, cols, steps, part,
+                         ti0, ti1, tj0, tj1, naive, device, w, du, dv, feed,
+                         min_feed_kill, dt, stream);
 }
 
 // gs_windowed_multistep with one part of the design taken out, for timing
@@ -392,9 +472,9 @@ int gs_windowed_ablation(const float* u, const float* v, float* u_out,
                          int part) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   cudaError_t err;
-  const Call c = make_call(u, v, u_out, v_out, rows, cols, steps, naive,
-                           device, w, du, dv, feed, min_feed_kill, dt, stream,
-                           &err);
+  const Call<float> c = make_call(u, v, u_out, v_out, rows, cols, steps,
+                                  naive, device, w, du, dv, feed,
+                                  min_feed_kill, dt, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sm90::tap_mask(c.k) != sm90::TAPS_RING) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -24,12 +24,19 @@ def check_count(name: str, value, low: int, high: int | None = None) -> None:
         raise ValueError(f"{name} must be an int {span}, got {value!r}")
 
 
+#: the storage types of the kernels that take bf16 storage (K1, its shard
+#: entry, K2, K7); every other kernel takes float32 only
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def check_state(inputs: Sequence[torch.Tensor],
-                outputs: Sequence[torch.Tensor], ndim: int = 2) -> None:
-    """The kernels' state tensors: float32, contiguous, of one shape with
-    ``ndim`` dimensions, on one CPU or CUDA device; every output apart
-    from every other tensor in memory (the kernels read other tiles'
-    cells of their inputs while they write their outputs)."""
+                outputs: Sequence[torch.Tensor], ndim: int = 2,
+                dtypes: Sequence[torch.dtype] = (torch.float32,)) -> None:
+    """The kernels' state tensors: of one dtype among ``dtypes``,
+    contiguous, of one shape with ``ndim`` dimensions, on one CPU or CUDA
+    device; every output apart from every other tensor in memory (the
+    kernels read other tiles' cells of their inputs while they write their
+    outputs)."""
     tensors = (*inputs, *outputs)
     first = tensors[0]
     if first.device.type not in ("cpu", "cuda"):
@@ -38,9 +45,11 @@ def check_state(inputs: Sequence[torch.Tensor],
     if any(t.device != first.device for t in tensors):
         raise ValueError("the state tensors must share one device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError("the state tensors must be float32, got "
-                         f"{[t.dtype for t in tensors]}")
+    if first.dtype not in dtypes or any(t.dtype != first.dtype
+                                        for t in tensors):
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"the state tensors must be {names}, all of one "
+                         f"dtype, got {[t.dtype for t in tensors]}")
     if first.dim() != ndim or any(t.shape != first.shape for t in tensors):
         raise ValueError(f"the state tensors must be {ndim}-D of one shape, "
                          f"got {[tuple(t.shape) for t in tensors]}")
@@ -48,7 +57,8 @@ def check_state(inputs: Sequence[torch.Tensor],
         raise ValueError(f"unsupported domain shape {tuple(first.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the state tensors must be contiguous")
-    spans = [(t.data_ptr(), t.data_ptr() + 4 * t.numel()) for t in tensors]
+    spans = [(t.data_ptr(), t.data_ptr() + t.element_size() * t.numel())
+             for t in tensors]
     for i in range(len(inputs), len(tensors)):
         lo, hi = spans[i]
         if any(j != i and lo < b and a < hi for j, (a, b) in enumerate(spans)):

@@ -9,8 +9,15 @@ one). On a CUDA tensor it makes one cooperative launch on the current
 stream, or raises. On a CPU tensor it runs the plain PyTorch version,
 :func:`megastep_reference`, since there is no kernel to launch on the CPU.
 
-``launches`` counts the kernel launches, and only them, so that a run can
-show that its main path went through the kernel. :func:`megastep_ablation`
+K2 takes bfloat16 pairs too (``megakernel.py:_mega_kernel`` with a
+bfloat16 dtype, ``:166-169``, ``:481``, ``:615``): each window widened to
+float32 on load, each time block's steps in float32, the cells rounded to
+bfloat16 once a time block. Its plain version there is
+:func:`megastep_reference_bf16`.
+
+``launches`` counts the kernel launches, and only them (the bf16 entry's
+apart, in ``bf16_launches``), so that a run can show that its main path
+went through the kernel. :func:`megastep_ablation`
 runs the kernel with one part of its design taken out (``ABLATIONS``), for
 timing what each part buys; its launches are not the main path's and are
 not counted.
@@ -41,6 +48,8 @@ MEGA_STEPS = 8
 
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
+#: the bf16 entry's launches so far (bfloat16 pairs)
+bf16_launches = 0
 
 #: K6 launches so far
 packed_launches = 0
@@ -71,6 +80,7 @@ PACKED_ABLATIONS = {
 }
 
 _fn = None
+_bf16_fn = None
 _ablation_fn = None
 _packed_fn = None
 _packed_ablation_fn = None
@@ -80,9 +90,21 @@ _packed_ablation_fn = None
 megastep_reference = stencil.run
 
 
+def megastep_reference_bf16(u: torch.Tensor, v: torch.Tensor, n_blocks: int,
+                            steps: int, consts: KernelConstants,
+                            boundary: str):
+    """The plain version on bfloat16 storage: ``n_blocks`` time blocks of
+    ``steps`` (<= MEGA_STEPS) float32 steps, the state rounded to bfloat16
+    after each (``stencil.run_bf16`` a block)."""
+    for _ in range(n_blocks):
+        u, v = stencil.run_bf16(u, v, steps, consts, boundary)
+    return u, v
+
+
 def pair_state(x: torch.Tensor) -> torch.Tensor:
-    """An ``(R, C)`` state as a ``(2, R, C)`` pair: slot 0 holds ``x``,
-    slot 1 is scratch (every cell is written before it is read)."""
+    """An ``(R, C)`` state as a ``(2, R, C)`` pair of ``x``'s dtype
+    (float32, or bfloat16 storage): slot 0 holds ``x``, slot 1 is scratch
+    (every cell is written before it is read)."""
     pair = torch.empty((2, *x.shape), dtype=x.dtype, device=x.device)
     pair[0].copy_(x)
     return pair
@@ -101,6 +123,17 @@ def _kernel():
                          + [ctypes.c_float] * 14 + [ctypes.c_int]
                          + [ctypes.c_void_p] * 2)
     return _fn
+
+
+def _bf16_kernel():
+    global _bf16_fn
+    if _bf16_fn is None:
+        _kernel()  # checks the time-block depth
+        _bf16_fn = build.bind("gs_mega_multistep_bf16",
+                              [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                              + [ctypes.c_float] * 14 + [ctypes.c_int]
+                              + [ctypes.c_void_p] * 2)
+    return _bf16_fn
 
 
 def _ablation_kernel():
@@ -128,21 +161,30 @@ def max_blocks(device: torch.device) -> int:
 def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
              steps: int, consts: KernelConstants, boundary: str,
              grid: int = 0) -> None:
-    """Advance slot 0 of the pairs by ``n_blocks`` x ``steps`` steps, in
-    place. ``grid``: the blocks of the launch, 0 for the co-resident
-    maximum. On a CUDA device the launch is enqueued on the current stream
-    and not waited for."""
-    global launches
-    _check(u_pair, v_pair, n_blocks, steps, boundary, grid)
+    """Advance slot 0 of the pairs (both float32 or both bfloat16) by
+    ``n_blocks`` x ``steps`` steps, in place. ``grid``: the blocks of the
+    launch, 0 for the co-resident maximum. On a CUDA device the launch is
+    enqueued on the current stream and not waited for."""
+    global launches, bf16_launches
+    _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
+           checks.STORAGE_DTYPES)
+    bf16 = u_pair.dtype == torch.bfloat16
     if u_pair.device.type == "cpu":
-        ru, rv = megastep_reference(u_pair[0], v_pair[0], n_blocks * steps,
-                                    consts, boundary)
+        if bf16:
+            ru, rv = megastep_reference_bf16(u_pair[0], v_pair[0], n_blocks,
+                                             steps, consts, boundary)
+        else:
+            ru, rv = megastep_reference(u_pair[0], v_pair[0],
+                                        n_blocks * steps, consts, boundary)
         u_pair[0].copy_(ru)
         v_pair[0].copy_(rv)
         return
-    _launch(_kernel(), u_pair, v_pair, n_blocks, steps, consts, boundary,
-            grid)
-    launches += 1
+    _launch(_bf16_kernel() if bf16 else _kernel(), u_pair, v_pair, n_blocks,
+            steps, consts, boundary, grid)
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
 
 
 def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
@@ -163,12 +205,13 @@ def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
             consts, boundary, grid)
 
 
-def _check(u_pair, v_pair, n_blocks, steps, boundary, grid):
+def _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
+           dtypes=(torch.float32,)):
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
     checks.check_boundary(boundary)
-    checks.check_state((), (u_pair, v_pair), ndim=3)
+    checks.check_state((), (u_pair, v_pair), ndim=3, dtypes=dtypes)
     if u_pair.shape[0] != 2:
         raise ValueError(f"the pairs must be (2, R, C), got "
                          f"{tuple(u_pair.shape)}")

@@ -17,6 +17,11 @@ plain PyTorch version, :func:`sharded_megastep_reference`, since there is
 no kernel to launch on the CPU. ``launches`` counts the kernel launches,
 and only them.
 
+The pairs may be bfloat16 (the TPU kernel with a bfloat16 dtype): then the
+bf16 entry runs, which widens each window to float32, steps it, rounds each
+stored cell to bfloat16 once a time block, and pushes the rounded cells.
+Its launches are counted in ``bf16_launches``.
+
 The kernel steps 64x64 or 32x32 tiles (``TILES``); :func:`choose_tile`
 picks one per domain and mesh from the rounds of tiles that each shard's
 group of blocks walks, and the choice is logged once.
@@ -45,8 +50,11 @@ TILES = {64: (64 + 2 * MEGA_STEPS) ** 2, 32: (32 + 2 * MEGA_STEPS) ** 2}
 
 #: kernel launches so far (CPU calls run the plain version and add nothing)
 launches = 0
+#: the bf16 entry's launches so far (bfloat16 pairs)
+bf16_launches = 0
 
 _fns = None
+_bf16_fns = None
 _logger = logging.getLogger("grayscott_tpu_torch")
 #: (shape, mesh shape, device) -> the tile the wrapper picked
 _chosen: dict = {}
@@ -70,8 +78,11 @@ def sharded_megastep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     ``steps`` plain steps at its global origin against the domain ``shape``
     (``stencil.step_at``), and its interior cells inside the domain go to
     the destination slot; then every shard pushes into its neighbours'
-    destination slot (``halo.push_halos``). An odd block count ends with
-    slot 1 copied to slot 0, halos and all (megakernel.py:660-671)."""
+    destination slot (``halo.push_halos``). On bfloat16 pairs each block is
+    widened to float32 before its steps, and its cells are rounded to
+    bfloat16 as they are stored, before the pushes. An odd block count
+    ends with slot 1 copied to slot 0, halos and all
+    (megakernel.py:660-671)."""
     n_r, n_c = u_pairs.shape[:2]
     r_loc, c_loc, ch = halo.interior_extents(u_pairs)
     h = halo.HALO
@@ -80,7 +91,7 @@ def sharded_megastep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
         for i in range(n_r):
             for j in range(n_c):
                 row0, col0 = i * r_loc, j * c_loc
-                u, v = u_pairs[i, j, src], v_pairs[i, j, src]
+                u, v = u_pairs[i, j, src].float(), v_pairs[i, j, src].float()
                 for _ in range(steps):
                     u, v = stencil.step_at(u, v, consts, boundary,
                                            (row0 - h, col0 - ch), shape)
@@ -88,7 +99,7 @@ def sharded_megastep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                 cols = max(0, min(c_loc, shape[1] - col0))
                 for pairs, x in ((u_pairs, u), (v_pairs, v)):
                     pairs[i, j, dst, h:h + rows, ch:ch + cols] = \
-                        x[h:h + rows, ch:ch + cols]
+                        x[h:h + rows, ch:ch + cols].to(pairs.dtype)
         halo.push_halos(u_pairs, dst)
         halo.push_halos(v_pairs, dst)
     if n_blocks % 2:
@@ -144,6 +155,19 @@ def _kernel():
     return _fns
 
 
+def _bf16_kernel():
+    """:func:`_kernel`'s three for bfloat16 pairs."""
+    global _bf16_fns
+    if _bf16_fns is None:
+        desc_bytes, describe, fn = _kernel()
+        _bf16_fns = (
+            desc_bytes,
+            build.bind("gs_sharded_mega_describe_bf16",
+                       describe.argtypes),
+            build.bind("gs_sharded_mega_multistep_bf16", fn.argtypes))
+    return _bf16_fns
+
+
 def max_blocks(device: torch.device, tile: int | None = None) -> int:
     """The most blocks of one launch with ``tile`` x ``tile`` tiles that are
     co-resident on ``device``; with ``tile`` None, the most over both
@@ -180,8 +204,10 @@ def tile_for(shape, mesh: halo.Mesh) -> int:
 
 def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                 mesh: halo.Mesh, shape) -> None:
-    """The pairs are those of ``shape`` on ``mesh``, in the shard layout."""
-    checks.check_state((), (u_pairs, v_pairs), ndim=5)
+    """The pairs are those of ``shape`` on ``mesh``, in the shard layout,
+    both float32 or both bfloat16."""
+    checks.check_state((), (u_pairs, v_pairs), ndim=5,
+                       dtypes=checks.STORAGE_DTYPES)
     want = halo.pair_shape(shape, mesh)
     if tuple(u_pairs.shape) != want:
         raise ValueError(f"pairs of a {shape[0]}x{shape[1]} domain on a "
@@ -202,8 +228,9 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     0 for the co-resident maximum; it must hold one block a shard.
     ``tile``: the tile edge (a key of ``TILES``), None for
     :func:`tile_for`'s choice. On a CUDA device the launch is enqueued on
-    the current stream and not waited for."""
-    global launches
+    the current stream and not waited for. The pairs are float32 or
+    bfloat16 (the bf16 entry)."""
+    global launches, bf16_launches
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
@@ -219,7 +246,8 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
         sharded_megastep_reference(u_pairs, v_pairs, n_blocks, steps, consts,
                                    boundary, shape)
         return
-    desc_bytes, describe, fn = _kernel()
+    bf16 = u_pairs.dtype == torch.bfloat16
+    desc_bytes, describe, fn = _bf16_kernel() if bf16 else _kernel()
     r_loc, c_loc, ch = halo.interior_extents(u_pairs)
     device = u_pairs.device
     counters = torch.zeros(mesh.n_shards * COUNTER_WORDS, dtype=torch.int64,
@@ -246,4 +274,7 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sharded mega kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1

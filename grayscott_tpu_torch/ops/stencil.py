@@ -11,6 +11,9 @@ CPU tensor takes.
 anchored at the clamped window's top-left corner (``oracle._index_maps``).
 ``zero``: cells outside the domain read as 0.0, weights centred.
 
+:func:`run_bf16` is the plain version of bf16 storage: float32 steps in
+blocks of 8, the state rounded to bfloat16 after each.
+
 :func:`step_at` steps one block of a larger domain, at the block's global
 origin: the plain version of the sharded megakernel's per-shard step
 (``ops/sharded_mega.py``).
@@ -159,6 +162,27 @@ def run(u: torch.Tensor, v: torch.Tensor, steps: int,
     (``oracle.run``)."""
     for _ in range(steps):
         u, v = step(u, v, consts, boundary)
+    return u, v
+
+
+#: steps between two roundings of bf16 storage: every engine's block
+#: (K1's K, K2's and K7's time block)
+BF16_BLOCK = 8
+
+
+def run_bf16(u: torch.Tensor, v: torch.Tensor, steps: int,
+             consts: KernelConstants, boundary: str = "naive"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` steps of bfloat16 storage, the plain version of the bf16
+    kernels (``grayscott_tpu/ops/pallas_stencil.py:970-993``): in blocks of
+    ``steps // 8`` x 8 steps and one of the remainder, each block widens
+    the bfloat16 state to float32, takes its steps with :func:`run`, and
+    rounds to bfloat16 (to nearest even) once. Takes and returns bfloat16
+    tensors."""
+    n_full, rem = divmod(steps, BF16_BLOCK)
+    for k in [BF16_BLOCK] * n_full + ([rem] if rem else []):
+        u, v = run(u.float(), v.float(), k, consts, boundary)
+        u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
     return u, v
 
 

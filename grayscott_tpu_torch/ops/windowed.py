@@ -19,6 +19,14 @@ rest; ``halo.overlap_tiles``). Its plain version is
 :func:`shard_multistep_reference`, and it counts its launches apart, in
 ``shard_launches``, so that a run can tell the sharded engine's K1 from
 the unsharded one.
+
+Both take bfloat16 storage too (``pallas_stencil.py:_kernel`` with a
+bfloat16 dtype, ``:970-993``): on bfloat16 tensors they launch the bf16
+entries, which widen each cell to float32 on load and round it back, to
+nearest even, once a launch. Their plain versions are
+``stencil.run_bf16`` (one block of ``steps`` <= K) and
+:func:`shard_multistep_reference` on bfloat16 pairs; their launches are
+counted apart, in ``bf16_launches`` and ``bf16_shard_launches``.
 """
 
 from __future__ import annotations
@@ -46,44 +54,67 @@ launches = 0
 #: shard entry launches so far (:func:`shard_multistep`), apart from
 #: ``launches``
 shard_launches = 0
+#: the bf16 entries' launches so far (bfloat16 storage), apart from the
+#: float32 ones
+bf16_launches = 0
+bf16_shard_launches = 0
 
-_fn = None
-_shard_fn = None
+#: the C entry of each storage type: (unsharded, shard entry)
+_ENTRIES = {torch.float32: ("gs_windowed_multistep",
+                            "gs_windowed_shard_multistep"),
+            torch.bfloat16: ("gs_windowed_multistep_bf16",
+                             "gs_windowed_shard_multistep_bf16")}
+
+_fns: dict = {}
+_checked = False
 
 
 #: the plain PyTorch version: ``steps`` calls of ``stencil.step``
 multistep_reference = stencil.run
+#: the plain version on bfloat16 storage: ``steps`` (<= K) float32 steps,
+#: rounded once
+multistep_reference_bf16 = stencil.run_bf16
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _bind(name: str, argtypes: list):
+    """The C entry ``name``, bound once, after the kernel's K is checked."""
+    global _checked
+    if not _checked:
         max_steps = build.bind("gs_windowed_max_steps", [])()
         if max_steps != K:
             raise RuntimeError(f"windowed kernel takes at most {max_steps} "
                                f"steps a launch; this wrapper expects {K}")
-        _fn = build.bind("gs_windowed_multistep",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                         + [ctypes.c_float] * 14 + [ctypes.c_void_p])
-    return _fn
+        _checked = True
+    if name not in _fns:
+        _fns[name] = build.bind(name, argtypes)
+    return _fns[name]
+
+
+def _kernel(dtype=torch.float32):
+    return _bind(_ENTRIES[dtype][0],
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
 def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
               v_out: torch.Tensor, steps: int, consts: KernelConstants,
               boundary: str) -> None:
     """Write the state ``steps`` (1..K) steps after ``(u, v)`` into
-    ``(u_out, v_out)``. On a CUDA device the launch is enqueued on the
-    current stream and not waited for."""
-    global launches
+    ``(u_out, v_out)``, all four float32 or all four bfloat16. On a CUDA
+    device the launch is enqueued on the current stream and not waited
+    for."""
+    global launches, bf16_launches
     checks.check_count("steps", steps, 1, K)
     checks.check_boundary(boundary)
-    checks.check_state((u, v), (u_out, v_out))
+    checks.check_state((u, v), (u_out, v_out), dtypes=checks.STORAGE_DTYPES)
+    bf16 = u.dtype == torch.bfloat16
     if u.device.type == "cpu":
-        ru, rv = multistep_reference(u, v, steps, consts, boundary)
+        ref = multistep_reference_bf16 if bf16 else multistep_reference
+        ru, rv = ref(u, v, steps, consts, boundary)
         u_out.copy_(ru)
         v_out.copy_(rv)
         return
-    fn = _kernel()
+    fn = _kernel(u.dtype)
     rows, cols = u.shape
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = fn(u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
@@ -92,17 +123,16 @@ def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"windowed kernel launch failed: CUDA error {err} "
                            f"({build.error_name(err)})")
-    launches += 1
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
 
 
-def _shard_kernel():
-    global _shard_fn
-    if _shard_fn is None:
-        _kernel()  # checks the kernel's K
-        _shard_fn = build.bind("gs_windowed_shard_multistep",
-                               [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
-                               + [ctypes.c_float] * 14 + [ctypes.c_void_p])
-    return _shard_fn
+def _shard_kernel(dtype=torch.float32):
+    return _bind(_ENTRIES[dtype][1],
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+                 + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
 def part_mask(r_loc: int, c_loc: int, chalo: int, part: str,
@@ -130,22 +160,25 @@ def shard_multistep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     ``src_slot`` takes ``steps`` plain steps at its global origin against
     the domain ``shape`` (``stencil.step_at``), and the interior cells of
     ``part``'s tiles go to slot ``1 - src_slot``, those past the domain as
-    0.0 (``step_at`` gives them). The body of
-    ``sharded_mega.sharded_megastep_reference`` without the pushes."""
+    0.0 (``step_at`` gives them). On bfloat16 pairs the block is widened
+    to float32 first and the cells are rounded to bfloat16 as they are
+    stored. The body of ``sharded_mega.sharded_megastep_reference``
+    without the pushes."""
     n_r, n_c = u_pairs.shape[:2]
     r_loc, c_loc, ch = halo.interior_extents(u_pairs)
     h, dst = halo.HALO, 1 - src_slot
     mask = part_mask(r_loc, c_loc, ch, part, u_pairs.device)
     for i in range(n_r):
         for j in range(n_c):
-            u, v = u_pairs[i, j, src_slot], v_pairs[i, j, src_slot]
+            u = u_pairs[i, j, src_slot].float()
+            v = v_pairs[i, j, src_slot].float()
             for _ in range(steps):
                 u, v = stencil.step_at(u, v, consts, boundary,
                                        (i * r_loc - h, j * c_loc - ch), shape)
             for pairs, x in ((u_pairs, u), (v_pairs, v)):
                 out = pairs[i, j, dst, h:h + r_loc, ch:ch + c_loc]
-                out.copy_(torch.where(mask, x[h:h + r_loc, ch:ch + c_loc],
-                                      out))
+                x = x[h:h + r_loc, ch:ch + c_loc].to(pairs.dtype)
+                out.copy_(torch.where(mask, x, out))
 
 
 def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
@@ -155,10 +188,11 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     """Advance every shard of ``mesh`` by ``steps`` (1..K) steps of the
     domain ``shape`` (R, C), from slot ``src_slot`` of the pairs (its halos
     filled: ``halo.exchange_halos``) into the interior of slot
-    ``1 - src_slot``, for the tiles of ``part`` (:data:`PARTS`). On a CUDA
-    device one launch is enqueued on the current stream and not waited
-    for; an ``"interior"`` part with no tile launches nothing."""
-    global shard_launches
+    ``1 - src_slot``, for the tiles of ``part`` (:data:`PARTS`). The pairs
+    are float32 or bfloat16. On a CUDA device one launch is enqueued on
+    the current stream and not waited for; an ``"interior"`` part with no
+    tile launches nothing."""
+    global shard_launches, bf16_shard_launches
     checks.check_count("steps", steps, 1, K)
     checks.check_boundary(boundary)
     if src_slot not in (0, 1):
@@ -174,7 +208,7 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     rect = halo.overlap_tiles(r_loc, c_loc, ch)
     if part == "interior" and rect[1] == rect[0]:
         return
-    fn = _shard_kernel()
+    fn = _shard_kernel(u_pairs.dtype)
     stream = torch.cuda.current_stream(u_pairs.device).cuda_stream
     err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), mesh.n_rows,
              mesh.n_cols, r_loc, c_loc, ch, src_slot, shape[0], shape[1],
@@ -183,4 +217,7 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"windowed shard kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
-    shard_launches += 1
+    if u_pairs.dtype == torch.bfloat16:
+        bf16_shard_launches += 1
+    else:
+        shard_launches += 1

@@ -181,9 +181,11 @@ def interior_extents(pairs: torch.Tensor) -> Tuple[int, int, int]:
     return pairs.shape[3] - 2 * HALO, pairs.shape[4] - 2 * chalo, chalo
 
 
-def mega_shard_state(u, v, mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+def mega_shard_state(u, v, mesh: Mesh, dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(R, C) host or device state -> the pairs of its shards on
-    ``mesh.device`` (``grayscott_tpu/parallel/halo.py:687`` and ``:644``,
+    ``mesh.device``, of ``dtype`` (float32, or bfloat16: the state rounded
+    to nearest even) (``grayscott_tpu/parallel/halo.py:687`` and ``:644``,
     on tensors, for both mesh forms). Slot 0 holds the state; halos, slot 1
     and the cells past the domain start 0.0."""
     out = []
@@ -192,7 +194,7 @@ def mega_shard_state(u, v, mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
                             if isinstance(x, np.ndarray) else x,
                             dtype=torch.float32).to(mesh.device)
         r, c = x.shape
-        pairs = torch.zeros(pair_shape((r, c), mesh), dtype=torch.float32,
+        pairs = torch.zeros(pair_shape((r, c), mesh), dtype=dtype,
                             device=mesh.device)
         r_loc, c_loc, ch = interior_extents(pairs)
         full = torch.zeros((mesh.n_rows * r_loc, mesh.n_cols * c_loc),
@@ -207,13 +209,14 @@ def mega_shard_state(u, v, mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
 def mega_unshard_result(pairs: torch.Tensor, shape,
                         slot: int = 0) -> torch.Tensor:
     """The interiors of ``slot``, reassembled and cropped to (R, C): a new
-    tensor (``grayscott_tpu/parallel/halo.py:719`` and ``:673``)."""
+    float32 tensor (bfloat16 pairs widen exactly), as JAX's host views are
+    (``grayscott_tpu/parallel/halo.py:719`` and ``:673``)."""
     r, c = shape
     n_r, n_c = pairs.shape[:2]
     r_loc, c_loc, ch = interior_extents(pairs)
     interior = pairs[:, :, slot, HALO:HALO + r_loc, ch:ch + c_loc]
     full = interior.permute(0, 2, 1, 3).reshape(n_r * r_loc, n_c * c_loc)
-    return full[:r, :c].clone()
+    return full[:r, :c].to(torch.float32, copy=True)
 
 
 def exchange_halos(pairs: torch.Tensor, slot: int = 0) -> None:

@@ -288,13 +288,14 @@ def test_cli_autotune_measures_once_then_follows_the_record():
 def test_cli_autotune_refuses_sharded_and_skips_the_rungs():
     """``--autotune --backend sharded`` runs the sharded tuner
     (tests/test_torch_sharded_autotune.py); with a pin the sharded backend
-    does not run (bf16 storage) it is refused before anything is measured.
+    does not run (a tile pin; bf16 storage runs since it was ported:
+    tests/test_torch_bf16.py) it is refused before anything is measured.
     The plain rungs ignore ``--autotune``."""
     before = autotune.measurements
     ns = simulate.build_parser().parse_args(
         ["--autotune", "--device", "cpu", "--backend", "sharded",
-         "--sharded-engine", "mega", "--pallas-dtype", "bfloat16"])
-    with pytest.raises(UnsupportedConfigError, match="Queue 2 item 4"):
+         "--sharded-engine", "mega", "--pallas-block-rows", "64"])
+    with pytest.raises(UnsupportedConfigError, match="Queue 2 item 8"):
         shared.make_simulation(ns)
     assert autotune.measurements == before and cache.load_autotune() == {}
     shared.make_simulation(simulate.build_parser().parse_args(

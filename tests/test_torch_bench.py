@@ -81,13 +81,37 @@ def test_main_runs_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dtype", "bfloat16"], ["--block-rows", "8"], ["--steps-per-call", "4"],
+    ["--block-rows", "8"], ["--steps-per-call", "4"],
 ])
 def test_deferred_flags_stop_with_their_roadmap_item(flags, capsys):
     with pytest.raises(SystemExit) as exc:
         harness.main(["--device", "cpu", *flags])
     assert exc.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_dtype_flag_runs_like_jax(tmp_path, capsys):
+    """``--dtype``, deferred until bf16 storage was ported, takes JAX's
+    choices and runs: the ``cuda`` rows are labelled with the dtype, and
+    a backend without one gets JAX's note (tests/test_torch_bf16.py runs
+    ``sharded`` too)."""
+    from grayscott_tpu.bench import harness as jax_harness
+
+    for value in ("float32", "bfloat16"):
+        out = tmp_path / f"{value}.json"
+        assert harness.main(["--device", "cpu", "--smin", "3", "--smax",
+                             "3", "--steps", "2", "--reps", "1",
+                             "--backends", "cuda,naive", "--dtype", value,
+                             "-o", str(out)]) == 0
+        rows = json.loads(out.read_text())
+        assert [r.get("dtype") for r in rows] == [
+            value, None if value == "bfloat16" else value]
+    assert "naive: dtype=bfloat16 unsupported" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        harness.main(["--device", "cpu", "--dtype", "float16"])
+    assert "float16" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        jax_harness.main(["--dtype", "float16"])
 
 
 def test_device_cuda_without_gpu_stops(monkeypatch):

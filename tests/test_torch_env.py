@@ -16,6 +16,9 @@ from grayscott_tpu_torch.backends import best_backend_name
 from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.errors import UnsupportedConfigError
+from grayscott_tpu_torch.ops import stencil
+from grayscott_tpu_torch.params import Parameters, kernel_constants
+from grayscott_tpu_torch.species import initial_uv
 
 #: variable -> (parser destination, a value other than the default, the
 #: backend's keyword, what the backend then runs on a 24x32 domain)
@@ -106,8 +109,7 @@ MORE_FLAGS = {
                                     "64", "Queue 2 item 8"),
     "GRAYSCOTT_PALLAS_BLOCK_COLS": ("pallas_block_cols", None,
                                     "128", "Queue 2 item 8"),
-    "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "float32", "bfloat16",
-                               "Queue 2 item 4"),
+    "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "bfloat16", None, None),
     "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "off", "2", "Queue 2 item 7"),
     "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "select", "store",
                             "Queue 2 item 6"),
@@ -163,7 +165,11 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
             sim.perform_steps(sim.make_species((24, 32)), 9)
 
 
-#: argv -> the ROADMAP.md item the port's refusal names (None: it runs)
+#: the ROADMAP.md items the port has done: a value of theirs runs
+PORTED = ("Queue 2 item 4",)
+
+#: argv -> the ROADMAP.md item of the value (None, or an item in PORTED: it
+#: runs; another: the port's refusal names it)
 ARGV = [
     (["--pallas-dtype", "float32"], None),
     (["--pallas-dtype", "bfloat16"], "Queue 2 item 4"),
@@ -192,13 +198,15 @@ ARGV = [
 def test_flag_values_against_jax(clean_more_env, argv, item):
     """The port's parser gives the backend what JAX's gives its own on the
     same argv; each value the port runs runs (the same frames as with no
-    flag: runtime parameters on and off, K = 8 pinned), each value it does
-    not run raises :class:`UnsupportedConfigError` naming its item."""
+    flag: runtime parameters on and off, K = 8 pinned; bf16 storage the
+    same steps rounded to bfloat16 once a block of 8, ``stencil.run_bf16``),
+    each value it does not run raises :class:`UnsupportedConfigError`
+    naming its item."""
     port, ref = both_args(argv)
     assert port == ref
     ns = simulate.build_parser().parse_args(
         ["--device", "cpu", "-r", "24", "-c", "32", *argv])
-    if item is not None:
+    if item is not None and item not in PORTED:
         with pytest.raises(UnsupportedConfigError, match=item):
             shared.make_simulation(ns)
         return
@@ -210,6 +218,11 @@ def test_flag_values_against_jax(clean_more_env, argv, item):
         species = sim.make_species((24, 32))
         sim.perform_steps(species, 9)
         frames.append(species.result_host())
+    if ns.pallas_dtype == "bfloat16":
+        u, v = (torch.from_numpy(x).to(torch.bfloat16)
+                for x in initial_uv((24, 32)))
+        frames[1] = stencil.run_bf16(u, v, 9, kernel_constants(
+            Parameters()))[1].float().numpy()
     assert (frames[0] == frames[1]).all()
 
 

@@ -1218,3 +1218,120 @@ def test_debug_check_raises_on_card(cuda_device, monkeypatch):
     species = sim.make_species((70, 97))
     with pytest.raises(FloatingPointError, match="cuda backend"):
         simulate.run(sim, species, 4, 8, lambda frame: None)
+
+
+# -- bf16 storage: K1, K1's shard entry, K2 and K7 on bfloat16 buffers --------
+
+#: widths of 16-byte rows in float32 but not in bf16 (1924 = 4 mod 8), and
+#: ragged ones
+BF16_SHAPES = [(33, 65), (70, 97), (64, 1924), (200, 300)]
+
+
+def bf16_equal(a, b):
+    """Bit for bit, NaN's bit pattern aside: the same NaN positions, and
+    the same bits in every other cell (bfloat16 or float32 tensors)."""
+    a, b = a.float(), b.float()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and \
+        bits_equal(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def bf16_states(shape, device):
+    """A random state and one with NaN and +-Inf, as bfloat16."""
+    states = [random_uv(shape, device)]
+    if shape[0] > 120 and shape[1] > 200:
+        states.append(nan_state(shape, device))
+    return [tuple(x.to(torch.bfloat16) for x in s) for s in states]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_bf16_k1_and_k2_equal_run_bf16(cuda_device, boundary, stencil_name):
+    """K1's bf16 entry (one launch of 1..K steps) and K2's (blocks of 8 and
+    of a remainder) against ``stencil.run_bf16`` on the card, NaN and Inf
+    states included. Tolerance: none."""
+    from grayscott_tpu_torch.ops import stencil
+
+    consts = kernel_constants(Parameters.with_stencil(stencil_name))
+    for shape in BF16_SHAPES:
+        for u, v in bf16_states(shape, cuda_device):
+            for steps in (1, 5, 8):
+                uo, vo = torch.empty_like(u), torch.empty_like(v)
+                before = (windowed.bf16_launches, windowed.launches)
+                windowed.multistep(u, v, uo, vo, steps, consts, boundary)
+                assert (windowed.bf16_launches, windowed.launches) == \
+                    (before[0] + 1, before[1])
+                want = stencil.run_bf16(u, v, steps, consts, boundary)
+                torch.cuda.synchronize()
+                assert all(bf16_equal(g, w)
+                           for g, w in zip((uo, vo), want)), (shape, steps)
+            for n_blocks, steps in ((3, 8), (1, 3), (2, 5)):
+                up, vp = megakernel.pair_state(u), megakernel.pair_state(v)
+                before = megakernel.bf16_launches
+                megakernel.megastep(up, vp, n_blocks, steps, consts,
+                                    boundary)
+                assert megakernel.bf16_launches == before + 1
+                want = megakernel.megastep_reference_bf16(
+                    u, v, n_blocks, steps, consts, boundary)
+                torch.cuda.synchronize()
+                assert all(bf16_equal(g, w) for g, w in
+                           zip((up[0], vp[0]), want)), (shape, n_blocks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("mesh", [(1, 1), (4, 1), (2, 2), (1, 4)])
+def test_bf16_sharded_engines_equal_k1_and_k2(cuda_device, boundary, mesh):
+    """Through the backends, 27 steps from a random and a NaN/Inf state:
+    K1's shard entry (overlap off and on) equals K1 on bf16 storage, and K7
+    equals K2, bit for bit (NaN's bit pattern aside), with the bf16
+    entries' launches only."""
+    params = Parameters()
+    shape = (300, 500)
+    for u, v in (random_uv(shape, "cpu"), nan_state(shape, "cpu")):
+        u, v = u.numpy(), v.numpy()
+        want = {}
+        for engine in ("windowed", "mega"):
+            sim = CudaSimulation(params, boundary, device="cuda",
+                                 engine=engine, dtype="bfloat16",
+                                 tuned_lookup=False)
+            want[engine] = sim.extract_uv(sim.run_steps(
+                sim.build_storage(u, v), shape, 27), shape)
+        for kwargs in ({"engine": "windowed", "overlap": "off"},
+                       {"engine": "windowed", "overlap": "on"},
+                       {"engine": "mega"}):
+            sim = ShardedSimulation(params, boundary, device="cuda",
+                                    n_devices=mesh[0] * mesh[1],
+                                    mesh_cols=mesh[1], dtype="bfloat16",
+                                    tuned_lookup=False, **kwargs)
+            before = (windowed.shard_launches, sharded_mega.launches,
+                      windowed.bf16_shard_launches,
+                      sharded_mega.bf16_launches)
+            got = sim.extract_uv(sim.run_steps(sim.build_storage(u, v),
+                                               shape, 27), shape)
+            after = (windowed.shard_launches, sharded_mega.launches,
+                     windowed.bf16_shard_launches,
+                     sharded_mega.bf16_launches)
+            torch.cuda.synchronize()
+            assert after[:2] == before[:2] and after[2:] != before[2:]
+            assert all(bf16_equal(g, w) for g, w in
+                       zip(got, want[kwargs["engine"]])), kwargs
+
+
+@pytest.mark.gpu
+def test_bf16_descriptor_takes_multiples_of_8(cuda_device):
+    """K7's bf16 descriptor refuses a shard width that is not a multiple
+    of 8 (a push moves 8 bfloat16 cells a copy); the float32 one takes a
+    multiple of 4."""
+    desc_bytes, describe, _ = sharded_mega._kernel()
+    _, describe_bf16, _ = sharded_mega._bf16_kernel()
+    host = torch.empty(4 * desc_bytes, dtype=torch.uint8)
+    counters = torch.zeros(4 * sharded_mega.COUNTER_WORDS,
+                           dtype=torch.int64, device=cuda_device)
+    pairs = torch.zeros(4 * 2 * 40 * 80, device=cuda_device)
+    for fn, c_loc, ok in ((describe, 60, True), (describe_bf16, 60, False),
+                          (describe_bf16, 64, True)):
+        err = fn(host.data_ptr(), pairs.data_ptr(), pairs.data_ptr(),
+                 counters.data_ptr(), 2, 2, 24, c_loc, 8)
+        assert (err == 0) == ok, (c_loc, err)

@@ -234,16 +234,13 @@ def test_plain_sharded_matches_jax_sharded_mega(rng, params, shape, n, cols,
     {"engine": "mega", "overlap": "on"},
     {"engine": "mega", "overlap": True},
     {"engine": "mega", "steps_per_call": 16},
-    {"engine": "mega", "dtype": "bfloat16"},
     {"engine": "mega", "block_rows": 8},
     {"engine": "mega", "block_cols": 128},
     {"engine": "mega", "n_devices": 0},
     {"engine": "mega", "mesh_cols": 0},
-    {"engine": "windowed", "dtype": "bfloat16"},
     {"engine": "windowed", "block_rows": 8},
     {"engine": "windowed", "block_cols": 128},
     {"engine": "windowed", "steps_per_call": 16},
-    {"engine": "auto", "dtype": "bfloat16"},
     {"engine": "auto", "steps_per_call": 4},
 ])
 def test_unported_or_conflicting_knobs_raise(kwargs):
@@ -255,11 +252,18 @@ def test_unported_or_conflicting_knobs_raise(kwargs):
     ({"engine": "auto"}, "shwin"),      # no record: windowed, as in JAX
     ({"engine": "windowed"}, "shwin"),
     ({"engine": "mega", "tuned_lookup": True}, "shmega"),
+    ({"engine": "mega", "dtype": "bfloat16"}, "shmega"),
+    ({"engine": "windowed", "dtype": "bfloat16"}, "shwin"),
+    ({"engine": "auto", "dtype": "bfloat16"}, "shwin"),
 ])
 def test_knobs_that_now_run(monkeypatch, tmp_path, rng, params, kwargs,
                             tag):
-    """The knobs that raised until the windowed engine and the sharded
-    records were ported run, bit for bit the oracle (an empty store)."""
+    """The knobs that raised until the windowed engine, the sharded
+    records and bf16 storage were ported run, bit for bit the oracle (an
+    empty store); on bf16 storage the oracle rounded to bfloat16 once a
+    block of 8 steps (tests/test_torch_bf16.py:oracle_bf16)."""
+    from test_torch_bf16 import oracle_bf16
+
     monkeypatch.setenv("GRAYSCOTT_CACHE_DIR", str(tmp_path))
     u, v = random_uv(rng, (48, 16))
     sim = ShardedSimulation(Parameters(), device="cpu", n_devices=4,
@@ -267,8 +271,10 @@ def test_knobs_that_now_run(monkeypatch, tmp_path, rng, params, kwargs,
     species = Species(u.shape, sim.build_storage(u, v), sim)
     assert species.storage[0] == tag
     sim.perform_steps(species, 19)
+    reference = oracle_bf16 if kwargs.get("dtype") == "bfloat16" \
+        else oracle.run
     for got, want in zip(species.uv_host(),
-                         oracle.run(u, v, params, 19, "naive")):
+                         reference(u, v, params, 19, "naive")):
         np.testing.assert_array_equal(got, want)
 
 

@@ -225,9 +225,10 @@ def test_cli_autotune_forwards_every_pin(argv, pins):
 
 
 def test_cli_autotune_refuses_unported_pins_before_measuring():
-    """A pin the port does not run (bf16 storage, a tile pin) stops the
-    run before the tuner measures anything."""
-    for argv in (["--pallas-dtype", "bfloat16"],
+    """A pin the port does not run (another K, a tile pin; bf16 storage
+    runs since it was ported: tests/test_torch_bf16.py) stops the run
+    before the tuner measures anything."""
+    for argv in (["--pallas-steps-per-call", "16"],
                  ["--pallas-block-rows", "64"]):
         before = autotune.measurements
         with pytest.raises(UnsupportedConfigError, match="Queue 2 item"):

@@ -346,8 +346,6 @@ def test_shard_multistep_rejects_bad_arguments(kind):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"engine": "windowed", "dtype": "bfloat16"}, "Queue 2 item 4"),
-    ({"dtype": "bfloat16"}, "Queue 2 item 4"),
     ({"engine": "windowed", "block_rows": 8}, "Queue 2 item 8"),
     ({"engine": "windowed", "steps_per_call": 16}, "Queue 2 item 8"),
     ({"steps_per_call": 4}, "Queue 2 item 8"),
@@ -359,6 +357,32 @@ def test_windowed_refusals_name_their_item(kwargs, item):
         ShardedSimulation(Parameters(), device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("kwargs", [{"engine": "windowed",
+                                     "dtype": "bfloat16"},
+                                    {"dtype": "bfloat16"}])
+def test_windowed_engine_runs_bf16(rng, kwargs):
+    """bf16 storage, which the windowed engine refused until it was
+    ported: the windowed engine runs it (no record: ``auto`` is windowed),
+    with overlap off and on, bit for bit the oracle rounded to bfloat16
+    once a block (tests/test_torch_bf16.py:oracle_bf16)."""
+    from test_torch_bf16 import oracle_bf16
+
+    shape = (300, 40)  # 2x1: the overlap split engages
+    u, v = random_uv(rng, shape)
+    want = oracle_bf16(u, v, Parameters(), 19, "zero")
+    for overlap in ("off", "on"):
+        species, got = run_port(u, v, "zero", 19, 2, 1, overlap=overlap,
+                                **{"engine": "auto", **kwargs})
+        assert species.storage[0] == "shwin"
+        assert species.storage[1].dtype == torch.bfloat16
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+#: the ROADMAP.md items the port has done: a pin of theirs runs
+PORTED = ("Queue 2 item 4",)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--pallas-dtype", "bfloat16"], "Queue 2 item 4"),
     (["--pallas-steps-per-call", "16"], "Queue 2 item 8"),
@@ -366,9 +390,14 @@ def test_windowed_refusals_name_their_item(kwargs, item):
 ])
 def test_cli_pins_reach_the_sharded_backend(argv, item):
     """The ``--pallas-*`` pins reach the sharded backend, as in JAX
-    (``args_from_namespace``), which refuses what it does not run."""
+    (``args_from_namespace``): it runs a pin of an item the port has
+    done (bf16 storage) and refuses what it does not run."""
     ns = simulate.build_parser().parse_args(
         ["--device", "cpu", "--backend", "sharded", *argv])
+    if item in PORTED:
+        sim = shared.make_simulation(ns)
+        assert sim.dtype == "bfloat16"
+        return
     with pytest.raises(UnsupportedConfigError, match=item):
         shared.make_simulation(ns)
 

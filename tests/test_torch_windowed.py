@@ -120,11 +120,30 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("block_rows", 8), ("dtype", "bfloat16"), ("fold", 2), ("pack", "on"),
-    ("naive_fix", "store"),
+    ("block_rows", 8), ("fold", 2), ("pack", "on"), ("naive_fix", "store"),
 ])
 def test_unported_knobs_raise(params, knob, value):
     from grayscott_tpu_torch.errors import UnsupportedConfigError
 
     with pytest.raises(UnsupportedConfigError):
         CudaSimulation(params, device="cpu", **{knob: value})
+
+
+@pytest.mark.parametrize("steps", [1, 8])
+def test_multistep_on_bf16_storage(rng, params, steps):
+    """The knob that raised until bf16 storage was ported: one K1 call on
+    bfloat16 tensors is the oracle's ``steps`` steps rounded to bfloat16
+    once (JAX's kernel on bf16 storage; tests/test_torch_bf16.py holds the
+    port against it), and launches nothing on the CPU."""
+    from test_torch_bf16 import oracle_bf16
+
+    u, v = random_uv(rng, SHAPE)
+    tu, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (u, v))
+    uo, vo = torch.empty_like(tu), torch.empty_like(tv)
+    before = windowed.bf16_launches
+    windowed.multistep(tu, tv, uo, vo, steps, kernel_constants(params),
+                       "naive")
+    assert windowed.bf16_launches == before
+    for got, want in zip((uo, vo), oracle_bf16(u, v, params, steps,
+                                               "naive")):
+        np.testing.assert_array_equal(got.float().numpy(), want)
