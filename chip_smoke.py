@@ -207,10 +207,30 @@
    16384x16384, against its plain version too. (e) One 32-step K1 call at
    32768x32768 in float32 and in bf16: ``max_memory_allocated`` and its
    time. The ``kernels`` line gains the four bf16 entries.
+16. The folded naive reaction (``--pallas-naive-fold on``): the fold
+   entries of K1 and K2, float32 and bf16. (a) Each against its plain
+   version (``stencil.run_naive_fold``, ``run_naive_fold_bf16``) on the
+   card: K1 one launch of 1 and of 8 steps, K2 one launch of 4 time blocks
+   of 8, at 1080x1920, 4096x4096 and 1000x1917, the default stencil at
+   each, every other stencil and dt = 0.5 at 1000x1917, and a NaN/Inf
+   state at 1080x1920: float32 bit for bit, bf16 bit for bit NaN's bit
+   pattern aside. (b) The drift of the fold from the exact naive kernel
+   (K1), max|dV| after 32 and 1000 steps at 256x384 from the default
+   state, within JAX's budgets of 3e-6 and 1e-4. (c) ``simulate.run``
+   with ``--pallas-naive-fold on`` (``auto``: K1), with ``--pallas-engine
+   mega``, and both on bf16 storage, launch counts zeroed before each and
+   read after (K1 4 an image, K2 1, no K3 and no exact entry), every
+   frame bit for bit the plain fold's replay; then timed in phase 4c's
+   turns beside the default run. (d) Each fold entry in turns with the
+   exact naive entry and the zero entry of the same engine and storage
+   (CUDA events): K1 one launch of 8 steps, K2 one of 4 time blocks of 8,
+   at 1080x1920 and 4096x4096, beside its bound at the fold's operation
+   count (``fold_ops_per_cell_step``), and the plain version's time at
+   1080x1920. The ``kernels`` line gains the four fold entries.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phase 16 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -251,8 +271,8 @@ from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      packed, resident, sharded_mega, stencil,
                                      windowed)
 from grayscott_tpu_torch.parallel import halo
-from grayscott_tpu_torch.params import (Parameters, kernel_constants,
-                                        packed_constants)
+from grayscott_tpu_torch.params import (Parameters, fold_constants,
+                                        kernel_constants, packed_constants)
 from grayscott_tpu_torch.scripts import ilpsplit as ilpsplit_script
 from grayscott_tpu_torch.scripts import livesim_fps
 from grayscott_tpu_torch.scripts import oplat as oplat_script
@@ -317,6 +337,11 @@ COUNTERS = {
     "shwin_bf16": (windowed, "bf16_shard_launches"),
     "mega_bf16": (megakernel, "bf16_launches"),
     "shmega_bf16": (sharded_mega, "bf16_launches"),
+    # the fold entries (the folded naive reaction), counted apart
+    "windowed_fold": (windowed, "fold_launches"),
+    "windowed_fold_bf16": (windowed, "fold_bf16_launches"),
+    "mega_fold": (megakernel, "fold_launches"),
+    "mega_fold_bf16": (megakernel, "fold_bf16_launches"),
 }
 
 #: storage tags that share another tag's kernel (K7 and K1's shard entry on
@@ -427,6 +452,33 @@ KERNELS = {
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, bfloat16 "
                     "storage; grayscott_tpu/parallel/halo.py:487)",
     },
+    "windowed_fold": {
+        "name": "windowed_multistep_fold",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (fast_fold, "
+                    ":363-382, :817-859)",
+    },
+    "windowed_fold_bf16": {
+        "name": "windowed_multistep_fold_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (fast_fold, "
+                    "bfloat16 storage)",
+    },
+    "mega_fold": {
+        "name": "mega_multistep_fold",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (fast_fold)",
+    },
+    "mega_fold_bf16": {
+        "name": "mega_multistep_fold_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (fast_fold, "
+                    "bfloat16 storage)",
+    },
 }
 
 #: K7's meshes (rows, cols), and the flags of its simulate runs: the
@@ -494,6 +546,19 @@ def ops_per_cell_step(params: Parameters, boundary: str) -> int:
     if boundary == "naive" and w[1, 1] == 0.0:
         taps += 1
     return 2 * 3 * taps + 15
+
+
+def fold_ops_per_cell_step(params: Parameters) -> int:
+    """float32 operations of one interior cell-step of the folded naive
+    reaction as the fold entries compute it (csrc/gs_tile_sm90.cuh:
+    step_strip_fold, fold_update), both species: the separable pass's 4 in
+    the row pass and 4 in the column pass, or a direct plan's multiply and
+    add a tap of nonzero weight; 2 for uv^2 and 1 more for dt*uv^2 when dt
+    != 1; 5 in U's update and 4 in V's."""
+    fc = fold_constants(params)
+    taps = int(np.count_nonzero(params.weights_array()))
+    diffusion = 8 if fc.separable else 2 * taps
+    return 2 * diffusion + 2 + (0 if fc.dt_is_one else 1) + 5 + 4
 
 
 def roofline_ms(shape, steps: int, ops: int,
@@ -956,9 +1021,11 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     species = sim.make_species(shared.domain_shape(ns))
     engine = KERNEL_OF.get(species.storage[0], species.storage[0])
     split = engine == "shwin" and sim.overlap_runs(species.shape)
-    # the bf16 entries count their launches apart
-    counter = engine + ("_bf16" if getattr(sim, "dtype", None) == "bfloat16"
-                        else "")
+    # the fold and the bf16 entries count their launches apart
+    counter = (engine + ("_fold" if getattr(sim, "naive_fold", False)
+                         else "")
+               + ("_bf16" if getattr(sim, "dtype", None) == "bfloat16"
+                  else ""))
     frames: list[np.ndarray] = []
     # This sink keeps every frame, so each image would pay a fresh pinned
     # allocation (cudaHostAlloc, ~1.3 ms at this shape), which a long run
@@ -3559,6 +3626,208 @@ def bf16_phase(checks: Checks, rng, card: str) -> tuple[dict, dict]:
     return runs, times
 
 
+# -- phase 16: the folded naive reaction (K1's and K2's fold entries) -------
+
+#: phase 16's shapes: the default run's, the bench's, and phase 3's ragged
+#: one (every stencil and dt = 0.5 there)
+FOLD_SHAPES = [MAIN_SHAPE, BENCH_SHAPE, (1000, 1917)]
+FOLD = ["--pallas-naive-fold", "on"]
+#: the fold's simulate paths: auto (K1), K2 pinned, both on bf16 storage
+FOLD_PATHS = {"fold": FOLD, "fold mega": FOLD + ["--pallas-engine", "mega"],
+              "fold bf16": FOLD + BF16,
+              "fold mega bf16": FOLD + BF16 + ["--pallas-engine", "mega"]}
+#: the fold's drift from the exact kernel: the shape (scripts/
+#: parity_check.py's), and JAX's budgets after each step count
+#: (tests/test_mega.py:514-535: 3e-6 from the exact path, 1e-4 from the
+#: oracle)
+DRIFT_SHAPE = (256, 384)
+DRIFT_BUDGETS = {32: 3e-6, 1000: 1e-4}
+
+
+def fold_tag(engine: str, dtype: torch.dtype) -> str:
+    """The counter tag of a fold entry."""
+    return f"{engine}_fold" + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+def fold_plain(dtype: torch.dtype):
+    return (stencil.run_naive_fold_bf16 if dtype == torch.bfloat16
+            else stencil.run_naive_fold)
+
+
+def compare_fold_kernels(checks: Checks, rng) -> int:
+    """Phase 16a: each fold entry against its plain version on the card: K1
+    one launch of 1 and of 8 steps, K2 one launch of 4 time blocks of 8, at
+    FOLD_SHAPES, the default stencil at each and the others and dt = 0.5 at
+    the ragged shape, a NaN/Inf state at 1080x1920. Returns the
+    comparisons made."""
+    n = 0
+    for shape in FOLD_SHAPES:
+        others = OTHER_PARAMS if shape == FOLD_SHAPES[-1] else []
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            for label, params in [("oono-puri", Parameters()), *others]:
+                fc = fold_constants(params)
+                for dtype in (torch.float32, torch.bfloat16):
+                    u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                            for x in (u_np, v_np))
+                    compare = (checks.compare_bf16
+                               if dtype == torch.bfloat16
+                               else checks.compare_bits)
+                    what = (f"{shape[0]}x{shape[1]} {label}"
+                            f"{' NaN and Inf' if special else ''}, "
+                            f"{str(dtype)[6:]}")
+                    for steps in (1, windowed.K):
+                        out = [torch.empty_like(u), torch.empty_like(v)]
+                        windowed.multistep(u, v, *out, steps, fc, "naive",
+                                           fold=True)
+                        compare(fold_tag("windowed", dtype), out,
+                                fold_plain(dtype)(u, v, steps, fc),
+                                f"{what}, {steps} steps")
+                    pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+                    megakernel.megastep(pu, pv, MAIN_STEPS // 8, 8, fc,
+                                        "naive", fold=True)
+                    compare(fold_tag("mega", dtype), (pu[0], pv[0]),
+                            megakernel.megastep_reference_fold(
+                                u, v, MAIN_STEPS // 8, 8, fc),
+                            f"{what}, {MAIN_STEPS} steps")
+                    n += 3
+    return n
+
+
+def fold_drift(checks: Checks) -> None:
+    """Phase 16b: K1's fold entry against its exact naive entry from the
+    default state at DRIFT_SHAPE, max|dV| after each step count of
+    DRIFT_BUDGETS, within JAX's budget there."""
+    params = Parameters()
+    consts = {False: kernel_constants(params), True: fold_constants(params)}
+    u0, v0 = (torch.from_numpy(x).to(DEVICE)
+              for x in initial_uv(DRIFT_SHAPE))
+    bufs = {fold: [u0.clone(), v0.clone(), torch.empty_like(u0),
+                   torch.empty_like(v0)] for fold in (False, True)}
+    done = 0
+    for steps, budget in DRIFT_BUDGETS.items():
+        while done < steps:
+            k = min(windowed.K, steps - done)
+            for fold, b in bufs.items():
+                windowed.multistep(*b, k, consts[fold], "naive", fold=fold)
+                bufs[fold] = b[2:] + b[:2]
+            done += k
+        du, dv = (max_err(a, b) for a, b in zip(bufs[True][:2],
+                                                bufs[False][:2]))
+        print(f"drift fold vs exact K1 {DRIFT_SHAPE[0]}x{DRIFT_SHAPE[1]} "
+              f"naive from the default state, {steps} steps: max|dV| "
+              f"{dv!r} (JAX's budget {budget!r}), max|dU| {du!r}",
+              flush=True)
+        checks.expect(dv <= budget, f"fold drift after {steps} steps: "
+                      f"max|dV| {dv!r} > {budget!r}")
+
+
+def fold_paths(checks: Checks) -> dict:
+    """Phase 16c: ``simulate.run`` on each path of FOLD_PATHS, 16 images x
+    32 steps at 1080x1920 naive, launch counts zeroed before each and read
+    after, every frame bit for bit the plain fold's replay on the card."""
+    fc = fold_constants(Parameters())
+    replays = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                for x in initial_uv(MAIN_SHAPE))
+        replays[dtype] = []
+        for _ in range(MAIN_IMAGES):
+            u, v = fold_plain(dtype)(u, v, MAIN_STEPS, fc)
+            replays[dtype].append(v.float())
+    runs = {}
+    for label, flags in FOLD_PATHS.items():
+        dtype = torch.bfloat16 if "bfloat16" in flags else torch.float32
+        runs[label] = simulate_path(checks, flags, replays[dtype])
+        want = fold_tag("mega" if "mega" in flags else "windowed", dtype)
+        checks.expect(runs[label]["counter"] == want,
+                      f"simulate {label}: ran {runs[label]['counter']}, not "
+                      f"{want}")
+    return runs
+
+
+def time_fold_kernels(rng, card: str) -> dict:
+    """Phase 16d: each fold entry in turns with the exact naive entry and
+    the zero entry of the same engine and storage (fold, naive, zero, zero,
+    naive, fold; CUDA events): K1 one launch of 8 steps, K2 one launch of 4
+    time blocks of 8, at 1080x1920 and 4096^2, beside its bound at the
+    fold's operation count; and the plain versions' time at 1080x1920."""
+    params = Parameters()
+    fc, kc = fold_constants(params), kernel_constants(params)
+    ops = fold_ops_per_cell_step(params)
+    kinds = ("fold", "naive", "zero")
+    out = {}
+    for shape, reps in ((MAIN_SHAPE, 40), (BENCH_SHAPE, 8)):
+        u_np, v_np = bf16_state(rng, shape, False)
+        for dtype in (torch.float32, torch.bfloat16):
+            u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                    for x in (u_np, v_np))
+            k1 = [u, v, torch.empty_like(u), torch.empty_like(v)]
+            pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+            args = {"fold": (fc, "naive", True), "naive": (kc, "naive", False),
+                    "zero": (kc, "zero", False)}
+            calls = {}
+            for kind, (c, boundary, fold) in args.items():
+                calls["windowed", kind] = (
+                    lambda c=c, b=boundary, f=fold: windowed.multistep(
+                        *k1, windowed.K, c, b, fold=f))
+                calls["mega", kind] = (
+                    lambda c=c, b=boundary, f=fold: megakernel.megastep(
+                        pu, pv, MAIN_STEPS // 8, 8, c, b, fold=f))
+            samples = {key: [] for key in calls}
+            for engine in ("windowed", "mega"):
+                for kind in kinds + kinds[::-1]:
+                    samples[engine, kind].append(
+                        cuda_ms(calls[engine, kind], reps))
+            for engine in ("windowed", "mega"):
+                steps = windowed.K if engine == "windowed" else MAIN_STEPS
+                ms = {k: statistics.mean(samples[engine, k]) for k in kinds}
+                bound, by = roofline_ms(
+                    shape, steps, ops, 8 if dtype == torch.bfloat16 else 16)
+                tag = fold_tag(engine, dtype)
+                out[tag, shape] = (ms["fold"], bound, by, steps,
+                                   ms["naive"], ms["zero"])
+                print(f"time fold {tag} {shape[0]}x{shape[1]}, {steps} "
+                      f"steps a launch: {ms['fold']!r} ms (turns "
+                      f"{samples[engine, 'fold']!r}), exact naive "
+                      f"{ms['naive']!r} ({samples[engine, 'naive']!r}), "
+                      f"zero {ms['zero']!r} ({samples[engine, 'zero']!r}): "
+                      f"{ms['fold'] / ms['naive']!r}x the exact naive; "
+                      f"bound {bound!r} ms ({by}, {ops} operations a "
+                      f"cell-step), {100 * bound / ms['fold']!r} % of it "
+                      f"[{card}]", flush=True)
+            if shape == MAIN_SHAPE:
+                out["plain", fold_tag("windowed", dtype)] = cuda_ms(
+                    lambda: fold_plain(dtype)(u, v, windowed.K, fc), 2)
+                out["plain", fold_tag("mega", dtype)] = cuda_ms(
+                    lambda: megakernel.megastep_reference_fold(
+                        u, v, MAIN_STEPS // 8, 8, fc), 1)
+                print(f"time fold plain versions {shape[0]}x{shape[1]} "
+                      f"{str(dtype)[6:]}: K1 "
+                      f"{out['plain', fold_tag('windowed', dtype)]!r} ms "
+                      f"(8 steps), K2 "
+                      f"{out['plain', fold_tag('mega', dtype)]!r} (32) "
+                      f"[{card}]", flush=True)
+    return out
+
+
+def fold_phase(checks: Checks, rng, card: str) -> tuple[dict, dict]:
+    """Phase 16 (a)-(d); returns (16c's runs, 16d's times)."""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = megakernel.max_blocks(dev)
+    print(f"co-resident blocks of K2, every instantiation with the fold "
+          f"entries: {blocks} on {sms} SMs", flush=True)
+    checks.expect(blocks == 2 * sms, f"K2's instantiations keep "
+                  f"{blocks} blocks on {sms} SMs, not two an SM")
+    n = compare_fold_kernels(checks, rng)
+    print(f"phase 16: {n} fold comparisons", flush=True)
+    fold_drift(checks)
+    runs = fold_paths(checks)
+    times = time_fold_kernels(rng, card)
+    return runs, times
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -3712,6 +3981,10 @@ def run_phases(args) -> int:
     t15 = time.perf_counter()
     bf16_runs, bf16_times = bf16_phase(checks, rng, card)
     print(f"phase 15: {time.perf_counter() - t15!r} s", flush=True)
+    # 16. the folded naive reaction: K1's and K2's fold entries
+    t16 = time.perf_counter()
+    fold_runs, fold_times = fold_phase(checks, rng, card)
+    print(f"phase 16: {time.perf_counter() - t16!r} s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -3723,7 +3996,7 @@ def run_phases(args) -> int:
                                                packed_runs))}
     time_paths([*runs.values(), *packed_runs.values(),
                 *sharded_runs.values(), *windowed_runs.values(),
-                *part0.values()])
+                *fold_runs.values(), *part0.values()])
     cells = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_STEPS
     for prefix, group in (("", runs), (" ".join(ZERO_PACKED) + " ",
                                        packed_runs),
@@ -3743,6 +4016,13 @@ def run_phases(args) -> int:
               f"({run['median_ms']!r} ms/image, the median of "
               f"{run['turns_ms']!r} in turns; the checked run first) "
               f"[{card}]")
+    for run in fold_runs.values():
+        print(f"path simulate {' '.join(run['flags'])} end to end "
+              f"({run['counter']}): {cells / run['median_ms'] / 1e6!r} "
+              f"Gcell/s ({run['median_ms']!r} ms/image, the median of "
+              f"{run['turns_ms']!r} in turns; the checked run first), "
+              f"{run['median_ms'] / runs['auto']['median_ms']!r}x the "
+              f"default run's {runs['auto']['median_ms']!r} [{card}]")
     for prefix, run in part0.items():
         group = runs if not prefix else packed_runs
         print(f"path simulate {prefix}auto with part 0 ("
@@ -3846,6 +4126,22 @@ def run_phases(args) -> int:
             library_ms=None, shape=list(MAIN_SHAPE), steps=steps,
             boundary="naive", dtype="bfloat16", f32_ms=f32_ms,
             **({"mesh": [2, 2]} if tag.startswith("sh") else {})))
+    # the fold entries: their launches on phase 16c's paths, one launch's
+    # time at 1080x1920 beside the exact naive and zero entries' in turns
+    for engine, path in (("windowed", "fold"), ("mega", "fold mega")):
+        for dtype, suffix in ((torch.float32, ""),
+                              (torch.bfloat16, " bf16")):
+            tag = fold_tag(engine, dtype)
+            ms, bound, by, steps, naive_ms, zero_ms = fold_times[tag,
+                                                                 MAIN_SHAPE]
+            entries.append(dict(
+                KERNELS[tag],
+                launches=fold_runs[path + suffix]["launches"][tag],
+                max_abs_err=checks.kernel_err[tag], ms=ms,
+                plain_ms=fold_times["plain", tag], bound_ms=bound,
+                bound_by=by, library_ms=None, shape=list(MAIN_SHAPE),
+                steps=steps, boundary="naive", dtype=str(dtype)[6:],
+                naive_fold=True, exact_ms=naive_ms, zero_ms=zero_ms))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,21 @@ K3, never packs and never folds with it: it follows a bf16 record's
 engine (records key on ``:bfloat16``), else runs K1, JAX's static default
 for bf16 (``backends/pallas.py:466-470``).
 
+``naive_fold=True`` (``--pallas-naive-fold on``; ``backends/pallas.py:
+232-252``) runs the folded naive reaction on K1 and K2, float32 and bf16:
+their fold entries (``ops/windowed.py``, ``ops/megakernel.py``), whose
+plain version is ``ops/stencil.py:step_naive_fold``, a few ulp off the
+exact naive step. As in JAX it needs the naive boundary and refuses
+``naive_fix='store'``, a lane-fold pin and ``resident='on'``, and ``auto``
+never runs K3 under it (``:489``): a record whose engine is ``resident``
+is ignored, and :func:`auto_engine` skips K3. ``naive_fix`` takes
+``select``, ``store`` and ``slice`` (``:161-172``): JAX's three mechanisms
+for patching the quirk strips, which the port's kernels do not have (they
+compute the clamped window per cell), so all three run the exact naive
+path, within the budgets JAX gives ``store`` and ``slice``. As in JAX a
+value other than ``select`` needs the naive boundary, ``store`` refuses
+``resident='on'``, and ``auto`` never runs K3 with ``store`` (``:490``).
+
 The buffers are updated in place, where the JAX backend gets fresh
 (donated) buffers from every call. ``engine`` (``auto|windowed|mega``),
 ``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
@@ -64,8 +79,8 @@ backend's names and values, and so do the other eight ``--pallas-*``
 flags. ``runtime_params`` on and off run the same kernels (they take the
 parameters by value), and ``steps_per_call`` runs ``None`` and the
 kernels' own K of 8; every other value of the JAX backend's knobs that the
-port does not run (lane fold, the naive fix-up modes and fold, the
-megakernel's ring depth and specialisation, tile pins, another K) raises
+port does not run (lane fold, the megakernel's ring depth and
+specialisation, tile pins, another K) raises
 :class:`UnsupportedConfigError` naming its ROADMAP.md item.
 """
 
@@ -80,7 +95,8 @@ import torch
 
 from ..errors import UnsupportedConfigError
 from ..ops import megakernel, packed, resident, windowed
-from ..params import Parameters, kernel_constants, packed_constants
+from ..params import (Parameters, fold_constants, kernel_constants,
+                      packed_constants)
 from .base import Simulation, env_default, storage_dtype
 
 ENGINES = ("auto", "windowed", "mega")
@@ -103,11 +119,6 @@ _TILES = "ROADMAP.md Queue 2 item 8 (column tiles, the temporal depth and " \
 _SUPPORTED = {
     "fold": (("auto", "off", 1), "ROADMAP.md Queue 2 item 7 (the lane-fold "
              "layout)"),
-    "naive_fix": (("select",), "ROADMAP.md Queue 2 item 6 (the quirk-strip "
-                  "mechanisms; the port's kernels compute the clamped "
-                  "window per cell and have no strip to patch)"),
-    "naive_fold": ((False,), "ROADMAP.md Queue 2 item 5 (the folded naive "
-                   "reaction)"),
     "mega_depth": ((None,), "ROADMAP.md Queue 2 item 3 (the megakernels' "
                    "window ring)"),
     "mega_specialize": ((None,), "ROADMAP.md Queue 2 item 1 (interior tiles "
@@ -251,8 +262,9 @@ class CudaSimulation(Simulation):
         if bf16 and isinstance(fold, int) and fold > 1:
             raise UnsupportedConfigError(
                 "fold excludes bf16 storage and column tiling", combo="fold")
-        knobs = dict(fold=fold, naive_fix=naive_fix,
-                     naive_fold=naive_fold, mega_depth=mega_depth,
+        self._check_naive_modes(boundary, resident, fold, naive_fix,
+                                naive_fold)
+        knobs = dict(fold=fold, mega_depth=mega_depth,
                      mega_specialize=mega_specialize, block_rows=block_rows,
                      block_cols=block_cols, steps_per_call=steps_per_call)
         for knob, value in knobs.items():
@@ -264,8 +276,13 @@ class CudaSimulation(Simulation):
         self.engine = engine
         self.resident = resident
         self.pack = pack
+        self.naive_fix = naive_fix
+        self.naive_fold = naive_fold
         self.tuned_lookup = tuned_lookup
         self.consts = kernel_constants(params)
+        #: the constants K1 and K2 step with: the fold's under naive_fold
+        self.step_consts = (fold_constants(params) if naive_fold
+                            else self.consts)
         #: extract_result hands out a float32 copy of bf16 storage, which
         #: no later step writes
         self.fresh_result = bf16
@@ -275,6 +292,42 @@ class CudaSimulation(Simulation):
                 f"separable stencil plan and no tile pins; got boundary "
                 f"{boundary!r}, stencil {params.stencil_name()!r}, dtype "
                 f"{self.dtype}", combo="pack")
+
+    @staticmethod
+    def _check_naive_modes(boundary, resident, fold, naive_fix,
+                           naive_fold) -> None:
+        """JAX's rules of ``naive_fix`` and ``naive_fold``, with its
+        messages (``backends/pallas.py:165-171``, ``:197-204``,
+        ``:238-252``)."""
+        if naive_fix not in NAIVE_FIX:
+            raise ValueError(f"naive_fix must be select/store/slice, got "
+                             f"{naive_fix!r}")
+        if naive_fix != "select" and boundary != "naive":
+            raise UnsupportedConfigError(
+                f"naive_fix={naive_fix!r} requires the naive boundary",
+                combo="naive_fix+boundary")
+        if resident == "on" and naive_fix == "store":
+            raise UnsupportedConfigError(
+                "resident='on' and naive_fix='store' conflict; pin at most "
+                "one of them", combo="resident+naive_fix")
+        if not naive_fold:
+            return
+        if boundary != "naive":
+            raise UnsupportedConfigError(
+                "naive_fold applies to the naive boundary",
+                combo="naive_fold+boundary")
+        if naive_fix == "store":
+            raise UnsupportedConfigError(
+                "naive_fold and naive_fix='store' conflict; pin at most one "
+                "of them", combo="naive_fold+naive_fix")
+        if isinstance(fold, int) and fold > 1:
+            raise UnsupportedConfigError(
+                "naive_fold excludes the lane-fold layout",
+                combo="naive_fold+fold")
+        if resident == "on":
+            raise UnsupportedConfigError(
+                "naive_fold runs on the windowed/mega engines only",
+                combo="naive_fold+resident")
 
     def _pack_ok(self) -> bool:
         """Whether the packed layout runs this configuration (no tile pins
@@ -302,7 +355,8 @@ class CudaSimulation(Simulation):
         """(packed, engine) of a domain of ``shape``: the pins, then the
         autotune record for what is left on ``auto``, then
         :func:`auto_engine` (:func:`auto_packed_engine` when packed; K1 with
-        bf16 storage, which never runs K3)."""
+        bf16 storage, which never runs K3). Under ``naive_fold`` and
+        ``naive_fix='store'`` neither a record nor ``auto`` picks K3."""
         tuned = self.tuned(shape)
         record_packs = bool(tuned and tuned.get("pack"))
         packed = self.pack == "on" or (self.pack == "auto" and record_packs
@@ -315,7 +369,8 @@ class CudaSimulation(Simulation):
         if self.resident == "on":
             return packed, "resident"
         bf16 = self.storage_dtype == torch.bfloat16
-        resident_ok = self.resident == "auto" and not bf16
+        resident_ok = (self.resident == "auto" and not bf16
+                       and not self.naive_fold and self.naive_fix != "store")
         verdict = (tuned or {}).get("engine")
         if verdict in ENGINES[1:] + ("resident",) and \
                 (resident_ok or verdict != "resident"):
@@ -376,11 +431,11 @@ class CudaSimulation(Simulation):
             n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
             if n_full:
                 megakernel.megastep(u_pair, v_pair, n_full,
-                                    megakernel.MEGA_STEPS, self.consts,
-                                    self.boundary)
+                                    megakernel.MEGA_STEPS, self.step_consts,
+                                    self.boundary, fold=self.naive_fold)
             if rem:
-                megakernel.megastep(u_pair, v_pair, 1, rem, self.consts,
-                                    self.boundary)
+                megakernel.megastep(u_pair, v_pair, 1, rem, self.step_consts,
+                                    self.boundary, fold=self.naive_fold)
             return storage
         if storage[0] == "resident":
             if steps == 0:
@@ -390,8 +445,8 @@ class CudaSimulation(Simulation):
         _, u, v, u_next, v_next = storage
         n_full, rem = divmod(steps, windowed.K)
         for k in [windowed.K] * n_full + ([rem] if rem else []):
-            windowed.multistep(u, v, u_next, v_next, k, self.consts,
-                               self.boundary)
+            windowed.multistep(u, v, u_next, v_next, k, self.step_consts,
+                               self.boundary, fold=self.naive_fold)
             u, v, u_next, v_next = u_next, v_next, u, v
         return ("windowed", u, v, u_next, v_next)
 
@@ -494,7 +549,8 @@ class CudaSimulation(Simulation):
             "top-row strip from the laplacian's own shifted tensors — "
             "measured +4.0% on-chip at 4096^2 naive, at ulp-scale drift "
             "from the frozen default (the naive_fold budget class). The "
-            "port runs 'select' (ROADMAP.md Queue 2 item 6)",
+            "port's kernels compute the clamped window per cell and have "
+            "no strip to patch: all three run its exact naive path",
         )
         parser.add_argument(
             "--pallas-naive-fold", choices=ON_OFF,
@@ -506,7 +562,8 @@ class CudaSimulation(Simulation):
             "fields — near zero-path op count under exact naive "
             "SEMANTICS, at ulp-scale drift from the bit-frozen default "
             "rounding (same budget class as fold/pack/bf16). The port "
-            "runs 'off' (ROADMAP.md Queue 2 item 5)",
+            "runs it on K1 and K2, float32 and bf16; 'auto' never picks "
+            "the resident kernel under it",
         )
         parser.add_argument(
             "--pallas-engine", choices=ENGINES,

@@ -48,6 +48,16 @@
 //     finished tile is written out (time_block).
 //   - K3's 32^2 tiles in 34^2 windows, one step a window (ring: load_tile,
 //     step_tile), which the resident kernels K3 and K9 walk every step.
+//   - The folded naive reaction (K1, K2; MODE_FOLD, step_strip_fold): JAX's
+//     fast_fold, the naive update's u-linear terms and its clamped window's
+//     centre correction folded into per-cell coefficients, the diffusion
+//     sum the raw zero-filled one (the separable pass in registers, or a
+//     direct plan's tap list). An interior tile takes one pair of
+//     coefficients and no per-cell test; an edge tile picks them from two
+//     integer tests and runs the anchored strips (row 0, column 0) per
+//     cell. The mode is a template parameter (MODE_ZERO, MODE_NAIVE,
+//     MODE_FOLD) of step_window and time_block, beside the constants'
+//     type.
 //   - bf16 storage (K1, K1's shard entry, K2, K7): the state's element type
 //     T is a template parameter of the window load and of the store; the
 //     windows and every step stay float32. A bf16 window loads through
@@ -59,8 +69,9 @@
 //     .to(torch.bfloat16) runs on the card), so a launch of k <= HALO steps
 //     rounds once, as grayscott_tpu/ops/pallas_stencil.py:970-993 does.
 //
-// Numerics: the expressions of gs_tile.cuh, built with -fmad=false and
-// without -ftz, so every kernel equals the plain PyTorch step
+// Numerics: the expressions of gs_tile.cuh (the fold: those of
+// stencil.step_naive_fold), built with -fmad=false and without -ftz, so
+// every kernel equals the plain PyTorch step
 // (grayscott_tpu_torch/ops/stencil.py) bit for bit.
 
 #pragma once
@@ -79,9 +90,19 @@ constexpr int TAPS_RING = 0x1EF;   // 8 taps, no centre: oono-puri and
 constexpr int TAPS_ALL = 0x1FF;    // 9 taps: pretty
 constexpr int TAPS_CROSS = 0x0AA;  // 4 taps, no centre: 5points
 constexpr int TAPS_ANY = -1;       // any other set: tested at run time
+// The folded naive reaction's separable pass (no tap list; MODE_FOLD)
+constexpr int TAPS_SEPARABLE = -2;
+
+// What a stepper computes: the oracle's tree on the zero or the naive
+// boundary (K = Constants), or the folded naive reaction (K =
+// FoldConstants).
+constexpr int MODE_ZERO = 0;
+constexpr int MODE_NAIVE = 1;
+constexpr int MODE_FOLD = 2;
 
 // The tap set of the weights, as the kernels' `w == 0.0f` skip reads them.
-inline int tap_mask(const Constants& k) {
+template <typename K>
+inline int tap_mask(const K& k) {
   int mask = 0;
   for (int t = 0; t < 9; ++t) {
     if (k.w[t] != 0.0f) mask |= 1 << t;
@@ -89,8 +110,8 @@ inline int tap_mask(const Constants& k) {
   return mask;
 }
 
-template <int TAPS>
-__device__ __forceinline__ bool has_tap(const Constants& k, int t) {
+template <int TAPS, typename K>
+__device__ __forceinline__ bool has_tap(const K& k, int t) {
   if (TAPS == TAPS_ANY) return k.w[t] != 0.0f;
   return (TAPS >> t) & 1;
 }
@@ -198,6 +219,265 @@ __device__ __forceinline__ void step_strip(const float* su, const float* sv,
         u1[j] = u2[j];
         v0[j] = v1[j];
         v1[j] = v2[j];
+      }
+    }
+  }
+}
+
+// --- the folded naive reaction (MODE_FOLD) ----------------------------------
+//
+// grayscott_tpu/ops/pallas_stencil.py:make_window_stepper(fast_fold=True)
+// (:363-382, :568-576, :646-653, :817-859), the plain version
+// grayscott_tpu_torch/ops/stencil.py:step_naive_fold. A cell of row >= 1
+// and column >= 1 takes
+//
+//   un = ((cu*s_u - q) + e) + AU*u,   vn = (cv*s_v + q) + BV*v,
+//
+// q = uv^2 (dt*uv^2 when dt != 1), s the raw zero-filled sum: the separable
+// pass t = h1*x + h0*(xw + xe), s = h1*t + h0*(tn + ts) (TAPS_SEPARABLE),
+// or a direct plan's 9-term sum over the weights. AU = au0 - cu*b and BV =
+// bv0 - cv*b fold the clamped window's `- x*b` centre correction in: b is
+// the sum of the in-bounds weights, which differs from its interior value
+// only in the last row and the last column, so four values of each (host
+// float32, fold_constants) serve every such cell. Row 0 and column 0, where
+// the naive window's weights stay anchored, take the anchored gradient
+// (fold_top, fold_left: JAX's strips, term for term) with the scalars
+// au0/bv0.
+
+// Run-time constants of the fold (grayscott_tpu_torch/params.py:
+// FoldConstants), each exactly a float32; au[i], bv[i] at a cell of row >= 1
+// and column >= 1, i = 2 * (the last row) + (the last column).
+struct FoldConstants {
+  float w[9];  // stencil weights, row-major: the strips, the direct sum
+  float h0, h1;         // the separable pass (TAPS_SEPARABLE)
+  float cu, cv, e, dt;  // the linear fold; dt the quadratic term's factor
+  float au0, bv0;       // the anchored strips' coefficients
+  float au[4], bv[4];
+  int dt_is_one;  // q = uv^2 (else dt * uv^2)
+};
+
+// Floats of the C interface's fold array (w, h0, h1, cu, cv, e, dt, au0,
+// bv0, au, bv), in FoldConstants' order.
+constexpr int FOLD_FLOATS = 25;
+
+inline FoldConstants fold_constants(const float* f, int dt_is_one) {
+  FoldConstants k;
+  float* out[] = {k.w, &k.h0, &k.h1, &k.cu, &k.cv, &k.e, &k.dt, &k.au0,
+                  &k.bv0, k.au, k.bv};
+  const int len[] = {9, 1, 1, 1, 1, 1, 1, 1, 1, 4, 4};
+  int i = 0;
+  for (int p = 0; p < 11; ++p) {
+    for (int j = 0; j < len[p]; ++j) out[p][j] = f[i++];
+  }
+  k.dt_is_one = dt_is_one;
+  return k;
+}
+
+// The update of one cell from its raw sums and u-linear coefficients.
+__device__ __forceinline__ void fold_update(float uc, float vc, float s_u,
+                                            float s_v, float a, float b,
+                                            const FoldConstants& k,
+                                            float* un, float* vn) {
+  const float uv_square = (uc * vc) * vc;
+  const float q = k.dt_is_one ? uv_square : k.dt * uv_square;
+  *un = ((k.cu * s_u - q) + k.e) + a * uc;
+  *vn = (k.cv * s_v + q) + b * vc;
+}
+
+// The anchored gradient of a cell of row 0 (JAX's _edge_strip_1xc,
+// pallas_stencil.py:139): at column 0 the 2x2 block of rows {0, 1} and
+// columns {0, 1}; elsewhere rows {0, 1} of the centred window, the east
+// tap's centre masked past the last column (ok_e). Window cell (lr, lc) of
+// row pitch PITCH lies at global (0, gc); cells outside the domain hold 0.0.
+template <int PITCH>
+__device__ __forceinline__ float fold_top(const float* win, int lr, int lc,
+                                          int gc, int cols,
+                                          const FoldConstants& k) {
+  const float x = win[lr * PITCH + lc];
+  float full = 0.0f;
+  if (gc == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float w = k.w[3 * i + j];
+        if (w == 0.0f) continue;
+        full = full + w * (win[(lr + i) * PITCH + lc + j] - x);
+      }
+    }
+    return full;
+  }
+  const float ok_e = gc + 1 <= cols - 1 ? 1.0f : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float w = k.w[3 * i + j];
+      if (w == 0.0f) continue;
+      const float tap = win[(lr + i) * PITCH + lc - 1 + j];
+      full = full + w * (j == 2 ? tap - x * ok_e : tap - x);
+    }
+  }
+  return full;
+}
+
+// The anchored gradient of a cell of column 0, row gr >= 1 (JAX's
+// _left_col_strip, pallas_stencil.py:194): rows {gr-1, gr, gr+1} and
+// columns {0, 1}, row by row, the bottom row's terms times ok_s (0.0 on the
+// domain's last row).
+template <int PITCH>
+__device__ __forceinline__ float fold_left(const float* win, int lr, int lc,
+                                           int gr, int rows,
+                                           const FoldConstants& k) {
+  const float x = win[lr * PITCH + lc];
+  const float ok_s = gr <= rows - 2 ? 1.0f : 0.0f;
+  float full = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float w = k.w[3 * i + j];
+      if (w == 0.0f) continue;
+      float term = w * (win[(lr - 1 + i) * PITCH + lc + j] - x);
+      if (i == 2) term = term * ok_s;
+      full = full + term;
+    }
+  }
+  return full;
+}
+
+// One cell of row 0 or column 0 (in the domain): the anchored gradient and
+// the update with au0/bv0 (row 0 wins at (0, 0), as JAX selects it last).
+template <int PITCH>
+__device__ __forceinline__ void fold_strip_cell(const float* su,
+                                                const float* sv, int lr,
+                                                int lc, int gr, int gc,
+                                                int rows, int cols,
+                                                const FoldConstants& k,
+                                                float* un, float* vn) {
+  const float uc = su[lr * PITCH + lc], vc = sv[lr * PITCH + lc];
+  float s_u, s_v;
+  if (gr == 0) {
+    s_u = fold_top<PITCH>(su, lr, lc, gc, cols, k);
+    s_v = fold_top<PITCH>(sv, lr, lc, gc, cols, k);
+  } else {
+    s_u = fold_left<PITCH>(su, lr, lc, gr, rows, k);
+    s_v = fold_left<PITCH>(sv, lr, lc, gr, rows, k);
+  }
+  fold_update(uc, vc, s_u, s_v, k.au0, k.bv0, k, un, vn);
+}
+
+// The direct plan's raw sum of a cell from its 3x3 neighbourhood: every tap
+// of nonzero weight, row-major, from 0.0.
+template <int TAPS>
+__device__ __forceinline__ float fold_direct(const float (&top)[3],
+                                             const float (&mid)[3],
+                                             const float (&bot)[3],
+                                             const FoldConstants& k) {
+  float full = 0.0f;
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    const float n = t < 3 ? top[t] : (t < 6 ? mid[t - 3] : bot[t - 6]);
+    if (has_tap<TAPS>(k, t)) full = full + k.w[t] * n;
+  }
+  return full;
+}
+
+// The separable row pass of the cell at p: h1*x + h0*(xw + xe); *centre
+// gets x.
+__device__ __forceinline__ float row_pass(const float* p,
+                                          const FoldConstants& k,
+                                          float* centre) {
+  *centre = p[0];
+  return k.h1 * p[0] + k.h0 * (p[-1] + p[1]);
+}
+
+// step_strip for MODE_FOLD: cells (lr0 + i, lc), i < n <= R, each of whose
+// taps lies in the window, to sink(i, un, vn). The separable pass keeps the
+// row sums t of the rows above and at the cell in registers (one row pass
+// a species a new row: 3 shared loads); a direct plan keeps the 3x3 window,
+// as step_strip does. EDGE = false (an interior tile): every cell is of the
+// bulk, in the middle rows and columns (au[0], bv[0]). EDGE = true: a cell
+// outside the domain comes out as exactly 0.0, row 0 and column 0 take
+// fold_strip_cell, the others the bulk with the coefficients of their row
+// and column.
+template <int TAPS, int R, int PITCH, bool EDGE, typename Sink>
+__device__ __forceinline__ void step_strip_fold(const float* su,
+                                                const float* sv, int lr0,
+                                                int lc, int n,
+                                                const StripAt& at,
+                                                const FoldConstants& k,
+                                                Sink&& sink) {
+  const bool col_inside = at.gc >= 0 && at.gc < at.cols;
+  const bool last_col = at.gc == at.cols - 1;
+  auto cell = [&](int i, float uc, float vc, float s_u, float s_v) {
+    float un, vn;
+    if (!EDGE) {
+      fold_update(uc, vc, s_u, s_v, k.au[0], k.bv[0], k, &un, &vn);
+    } else {
+      const int gr = at.gr0 + i;
+      if (!col_inside || gr < 0 || gr >= at.rows) {
+        un = 0.0f;
+        vn = 0.0f;
+      } else if (gr == 0 || at.gc == 0) {
+        fold_strip_cell<PITCH>(su, sv, lr0 + i, lc, gr, at.gc, at.rows,
+                               at.cols, k, &un, &vn);
+      } else {
+        // (selects, not k.au[index]: an indexed kernel parameter would be
+        // copied to the stack)
+        const bool last_row = gr == at.rows - 1;
+        const float a = last_row ? (last_col ? k.au[3] : k.au[2])
+                                 : (last_col ? k.au[1] : k.au[0]);
+        const float b = last_row ? (last_col ? k.bv[3] : k.bv[2])
+                                 : (last_col ? k.bv[1] : k.bv[0]);
+        fold_update(uc, vc, s_u, s_v, a, b, k, &un, &vn);
+      }
+    }
+    sink(i, un, vn);
+  };
+  const float* pu = su + (lr0 - 1) * PITCH + lc;
+  const float* pv = sv + (lr0 - 1) * PITCH + lc;
+  if constexpr (TAPS == TAPS_SEPARABLE) {
+    float uc, vc, u_next, v_next;  // the cell's centre, the next cell's
+    float tu0 = row_pass(pu, k, &uc), tv0 = row_pass(pv, k, &vc);
+    float tu1 = row_pass(pu + PITCH, k, &uc);
+    float tv1 = row_pass(pv + PITCH, k, &vc);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i < n) {
+        const float tu2 = row_pass(pu + (i + 2) * PITCH, k, &u_next);
+        const float tv2 = row_pass(pv + (i + 2) * PITCH, k, &v_next);
+        cell(i, uc, vc, k.h1 * tu1 + k.h0 * (tu0 + tu2),
+             k.h1 * tv1 + k.h0 * (tv0 + tv2));
+        tu0 = tu1;
+        tu1 = tu2;
+        tv0 = tv1;
+        tv1 = tv2;
+        uc = u_next;
+        vc = v_next;
+      }
+    }
+  } else {
+    float u0[3] = {pu[-1], pu[0], pu[1]};
+    float v0[3] = {pv[-1], pv[0], pv[1]};
+    float u1[3] = {pu[PITCH - 1], pu[PITCH], pu[PITCH + 1]};
+    float v1[3] = {pv[PITCH - 1], pv[PITCH], pv[PITCH + 1]};
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (i < n) {
+        const float* qu = pu + (i + 2) * PITCH;
+        const float* qv = pv + (i + 2) * PITCH;
+        const float u2[3] = {qu[-1], qu[0], qu[1]};
+        const float v2[3] = {qv[-1], qv[0], qv[1]};
+        cell(i, u1[1], v1[1], fold_direct<TAPS>(u0, u1, u2, k),
+             fold_direct<TAPS>(v0, v1, v2, k));
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          u0[j] = u1[j];
+          u1[j] = u2[j];
+          v0[j] = v1[j];
+          v1[j] = v2[j];
+        }
       }
     }
   }
@@ -436,24 +716,32 @@ using Small = Geometry<32, 32, 256, 4>;
 // One step of the window cells [lo, W - lo)^2, in strips of G::R cells,
 // from (in_u, in_v) into (out_u, out_v); the window's cell (0, 0) lies at
 // global (r0, c0) of the rows x cols domain. INTERIOR: the window lies
-// inside the domain.
-template <typename G, int TAPS, bool NAIVE, bool INTERIOR>
+// inside the domain. MODE: MODE_ZERO or MODE_NAIVE (the oracle's tree, K
+// = Constants), or MODE_FOLD (the folded naive reaction, K =
+// FoldConstants, TAPS its sum's: TAPS_SEPARABLE or a direct plan's set).
+template <typename G, int TAPS, int MODE, bool INTERIOR, typename K>
 __device__ __forceinline__ void step_window(const float* in_u,
                                             const float* in_v, float* out_u,
                                             float* out_v, int lo, int r0,
                                             int c0, int rows, int cols,
-                                            const Constants& k) {
+                                            const K& k) {
   const int hi_r = G::WR - lo, ncols = G::WC - 2 * lo;
   const int items = ncols * ((hi_r - lo + G::R - 1) / G::R);
   for (int it = threadIdx.x; it < items; it += G::NT) {
     const int strip = it / ncols;
     const int lc = lo + (it - strip * ncols), lr0 = lo + strip * G::R;
-    step_strip<TAPS, NAIVE, G::R, G::WC, !INTERIOR>(
-        in_u, in_v, lr0, lc, min(G::R, hi_r - lr0),
-        {r0 + lr0, c0 + lc, rows, cols}, k, [&](int i, float un, float vn) {
-          out_u[(lr0 + i) * G::WC + lc] = un;
-          out_v[(lr0 + i) * G::WC + lc] = vn;
-        });
+    const StripAt at = {r0 + lr0, c0 + lc, rows, cols};
+    auto sink = [&](int i, float un, float vn) {
+      out_u[(lr0 + i) * G::WC + lc] = un;
+      out_v[(lr0 + i) * G::WC + lc] = vn;
+    };
+    if constexpr (MODE == MODE_FOLD) {
+      step_strip_fold<TAPS, G::R, G::WC, !INTERIOR>(
+          in_u, in_v, lr0, lc, min(G::R, hi_r - lr0), at, k, sink);
+    } else {
+      step_strip<TAPS, MODE == MODE_NAIVE, G::R, G::WC, !INTERIOR>(
+          in_u, in_v, lr0, lc, min(G::R, hi_r - lr0), at, k, sink);
+    }
   }
 }
 
@@ -479,12 +767,12 @@ __device__ __forceinline__ bool window_inside(int r0, int c0, int rows,
 // begins, so no load crosses the caller's barrier. Returns after a
 // __syncthreads() unless PREFETCH, whose buffers are free once every thread
 // is past the caller's next barrier.
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH,
-          typename Layout, typename T>
+template <typename G, int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH,
+          typename Layout, typename T, typename K>
 __device__ __forceinline__ void time_block(
     const Layout& mem, const T* u, const T* v, T* u_out,
     T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
-    int col0, int rows, int cols, int steps, const Constants& k,
+    int col0, int rows, int cols, int steps, const K& k,
     bool aligned, float* base) {
   auto load = [&](int i, int b) {
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
@@ -512,13 +800,13 @@ __device__ __forceinline__ void time_block(
       const float* in_u = base + 2 * done * G::CELLS;
       float* out_u = base + 2 * other * G::CELLS;
       if (interior) {
-        step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
+        step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
+                                         out_u + G::CELLS, st + 1, r0, c0,
+                                         rows, cols, k);
+      } else {
+        step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
                                           out_u + G::CELLS, st + 1, r0, c0,
                                           rows, cols, k);
-      } else {
-        step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
-                                           out_u + G::CELLS, st + 1, r0, c0,
-                                           rows, cols, k);
       }
       __syncthreads();
       const int t = done;
@@ -643,6 +931,17 @@ cudaError_t dispatch_taps(const Constants& k, Args&&... args) {
     default:
       return Launch<TAPS_ANY>::run(args...);
   }
+}
+
+// Launch::run<TAPS>(args...) for the fold's sum: TAPS_SEPARABLE on a
+// separable plan, else the direct plan's tap set (5points' own, or any
+// other).
+template <template <int> class Launch, typename... Args>
+cudaError_t dispatch_fold(const FoldConstants& k, int separable,
+                          Args&&... args) {
+  if (separable) return Launch<TAPS_SEPARABLE>::run(args...);
+  if (tap_mask(k) == TAPS_CROSS) return Launch<TAPS_CROSS>::run(args...);
+  return Launch<TAPS_ANY>::run(args...);
 }
 
 }  // namespace sm90

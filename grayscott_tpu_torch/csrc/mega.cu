@@ -83,15 +83,15 @@ __device__ __forceinline__ void copy_slot(T* u_pair, T* v_pair,
   }
 }
 
-// SPECIALIZE = false takes every tile as an edge tile, PREFETCH = false
-// loads each window only when its tile is due (ablations). T: the state's
-// element type (float, or sm90::bf16).
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, bool PREFETCH,
-          typename T>
+// MODE: sm90::MODE_ZERO, MODE_NAIVE (K = gs::Constants) or MODE_FOLD (K =
+// sm90::FoldConstants). SPECIALIZE = false takes every tile as an edge
+// tile, PREFETCH = false loads each window only when its tile is due
+// (ablations). T: the state's element type (float, or sm90::bf16).
+template <typename G, int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH,
+          typename T, typename K = gs::Constants>
 __global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 mega_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
-            int steps, gs::Constants k, int aligned,
-            unsigned long long* barrier) {
+            int steps, K k, int aligned, unsigned long long* barrier) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
   float* const base = reinterpret_cast<float*>(window);
   const size_t plane = static_cast<size_t>(rows) * cols;
@@ -99,7 +99,7 @@ mega_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
   const int n_tiles = tiles_x * ((rows + G::TR - 1) / G::TR);
   for (int t = 0; t < n_blocks; ++t) {
     const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
-    sm90::time_block<G, TAPS, NAIVE, SPECIALIZE, PREFETCH>(
+    sm90::time_block<G, TAPS, MODE, SPECIALIZE, PREFETCH>(
         gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
         v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
         cols, steps, k, aligned, base);
@@ -136,11 +136,11 @@ first_stepper_kernel(float* u_pair, float* v_pair, int rows, int cols,
 
 int first_stepper_cache[gs::MAX_DEVICES];  // 0 = not known yet
 
-template <typename T>
+template <typename T, typename K = gs::Constants>
 struct Call {
   T *u_pair, *v_pair;
   int rows, cols, n_blocks, steps, naive, device;
-  gs::Constants k;
+  K k;
   int grid_blocks;
   unsigned long long* barrier;
   cudaStream_t stream;
@@ -151,8 +151,9 @@ struct Call {
 // launch. `grid_blocks` <= 0 takes the co-resident maximum (capped at the
 // tile count); a larger grid than the card can hold is refused with
 // cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true,
-          bool PREFETCH = true, typename T = float>
+template <typename G, int TAPS, int MODE, bool SPECIALIZE = true,
+          bool PREFETCH = true, typename T = float,
+          typename K = gs::Constants>
 struct Mega {
 
   static int* cache() {
@@ -162,19 +163,19 @@ struct Mega {
 
   static cudaError_t max_blocks(int device, int* out) {
     return gs::coresident_blocks(
-        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH, T>, device,
+        mega_kernel<G, TAPS, MODE, SPECIALIZE, PREFETCH, T, K>, device,
         cache(), out, G::NT, G::BYTES);
   }
 
-  static cudaError_t launch(const Call<T>& c) {
-    Call<T> a = c;
+  static cudaError_t launch(const Call<T, K>& c) {
+    Call<T, K> a = c;
     const size_t plane = static_cast<size_t>(c.rows) * c.cols;
     int aligned = sm90::rows_aligned<T>(c.cols, c.u_pair, c.v_pair,
                                         c.u_pair + plane, c.v_pair + plane);
     void* args[] = {&a.u_pair, &a.v_pair, &a.rows,    &a.cols,   &a.n_blocks,
                     &a.steps,  &a.k,      &aligned, &a.barrier};
     return gs::launch_persistent(
-        mega_kernel<G, TAPS, NAIVE, SPECIALIZE, PREFETCH, T>, args, c.rows,
+        mega_kernel<G, TAPS, MODE, SPECIALIZE, PREFETCH, T, K>, args, c.rows,
         c.cols, c.grid_blocks, c.device, cache(), c.stream, dim3(G::NT),
         G::BYTES, G::TR);
   }
@@ -183,8 +184,8 @@ struct Mega {
 template <typename G, int TAPS, bool SPECIALIZE = true, bool PREFETCH = true,
           typename T>
 cudaError_t launch(const Call<T>& c) {
-  using Naive = Mega<G, TAPS, true, SPECIALIZE, PREFETCH, T>;
-  using Zero = Mega<G, TAPS, false, SPECIALIZE, PREFETCH, T>;
+  using Naive = Mega<G, TAPS, sm90::MODE_NAIVE, SPECIALIZE, PREFETCH, T>;
+  using Zero = Mega<G, TAPS, sm90::MODE_ZERO, SPECIALIZE, PREFETCH, T>;
   return c.naive ? Naive::launch(c) : Zero::launch(c);
 }
 
@@ -196,19 +197,43 @@ struct Launch {
   }
 };
 
+// The fold entries' instantiation (TAPS: the fold's sum,
+// sm90::dispatch_fold).
+template <int TAPS, typename T>
+using Fold = Mega<sm90::Main, TAPS, sm90::MODE_FOLD, true, true, T,
+                  sm90::FoldConstants>;
+
+template <int TAPS>
+struct LaunchFold {
+  template <typename T>
+  static cudaError_t run(const Call<T, sm90::FoldConstants>& c) {
+    return Fold<TAPS, T>::launch(c);
+  }
+};
+
 // The fewer of *least and the co-resident blocks of TAPS's instantiations
 // on T.
 template <int TAPS, typename T>
 cudaError_t fewest_blocks(int device, int* least) {
   int naive = 0, zero = 0;
-  cudaError_t err =
-      Mega<sm90::Main, TAPS, true, true, true, T>::max_blocks(device, &naive);
+  cudaError_t err = Mega<sm90::Main, TAPS, sm90::MODE_NAIVE, true, true,
+                         T>::max_blocks(device, &naive);
   if (err == cudaSuccess) {
-    err = Mega<sm90::Main, TAPS, false, true, true, T>::max_blocks(device,
-                                                                   &zero);
+    err = Mega<sm90::Main, TAPS, sm90::MODE_ZERO, true, true,
+               T>::max_blocks(device, &zero);
   }
   const int fewer = naive < zero ? naive : zero;
   if (fewer < *least) *least = fewer;
+  return err;
+}
+
+// The fewer of *least and the co-resident blocks of the fold's TAPS
+// instantiation on T.
+template <int TAPS, typename T>
+cudaError_t fewest_fold_blocks(int device, int* least) {
+  int n = 0;
+  const cudaError_t err = Fold<TAPS, T>::max_blocks(device, &n);
+  if (n < *least) *least = n;
   return err;
 }
 
@@ -222,6 +247,15 @@ cudaError_t fewest_blocks_all(int device, int* least) {
     err = fewest_blocks<sm90::TAPS_CROSS, T>(device, least);
   }
   if (err == cudaSuccess) err = fewest_blocks<sm90::TAPS_ANY, T>(device, least);
+  if (err == cudaSuccess) {
+    err = fewest_fold_blocks<sm90::TAPS_SEPARABLE, T>(device, least);
+  }
+  if (err == cudaSuccess) {
+    err = fewest_fold_blocks<sm90::TAPS_CROSS, T>(device, least);
+  }
+  if (err == cudaSuccess) {
+    err = fewest_fold_blocks<sm90::TAPS_ANY, T>(device, least);
+  }
   return err;
 }
 
@@ -258,6 +292,27 @@ int multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                               dt, grid_blocks, barrier, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+}
+
+// gs_mega_multistep_fold and its bf16 twin.
+template <typename T>
+int fold_multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
+                   int steps, int device, const float* fold, int separable,
+                   int dt_is_one, int grid_blocks, void* barrier,
+                   void* stream) {
+  if (rows < 1 || cols < 1 || n_blocks < 1 || steps < 1 || steps > HALO ||
+      device < 0 || device >= gs::MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Call<T, sm90::FoldConstants> c = {
+      u_pair, v_pair, rows, cols, n_blocks, steps, 1, device,
+      sm90::fold_constants(fold, dt_is_one), grid_blocks,
+      static_cast<unsigned long long*>(barrier),
+      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(
+      sm90::dispatch_fold<LaunchFold>(c.k, separable, c));
 }
 
 }  // namespace
@@ -314,6 +369,34 @@ int gs_mega_multistep_bf16(void* u_pair, void* v_pair, int rows, int cols,
                    static_cast<sm90::bf16*>(v_pair), rows, cols, n_blocks,
                    steps, naive, device, w, du, dv, feed, min_feed_kill, dt,
                    grid_blocks, barrier, stream);
+}
+
+// The folded naive reaction (megakernel.py:_mega_kernel with fast_fold;
+// stencil.step_naive_fold): one cooperative launch of `n_blocks` time
+// blocks of `steps` folded steps of the naive boundary, as
+// gs_mega_multistep enqueues. `fold` holds gs_fold_floats() floats
+// (sm90::FoldConstants' order); `separable`: the stencil's separable plan
+// runs (else the direct sum); `dt_is_one`: the quadratic term is uv^2.
+int gs_mega_multistep_fold(float* u_pair, float* v_pair, int rows, int cols,
+                           int n_blocks, int steps, int device,
+                           const float* fold, int separable, int dt_is_one,
+                           int grid_blocks, void* barrier, void* stream) {
+  return fold_multistep(u_pair, v_pair, rows, cols, n_blocks, steps, device,
+                        fold, separable, dt_is_one, grid_blocks, barrier,
+                        stream);
+}
+
+// gs_mega_multistep_fold on bfloat16 pairs (widened on load, rounded on
+// store, once a time block).
+int gs_mega_multistep_fold_bf16(void* u_pair, void* v_pair, int rows,
+                                int cols, int n_blocks, int steps,
+                                int device, const float* fold, int separable,
+                                int dt_is_one, int grid_blocks,
+                                void* barrier, void* stream) {
+  return fold_multistep(static_cast<sm90::bf16*>(u_pair),
+                        static_cast<sm90::bf16*>(v_pair), rows, cols,
+                        n_blocks, steps, device, fold, separable, dt_is_one,
+                        grid_blocks, barrier, stream);
 }
 
 // gs_mega_multistep with one part of the design taken out, for timing what

@@ -90,13 +90,14 @@ constexpr int HALO = sm90::HALO;  // most steps per launch (K)
 using sm90::Geometry;
 using sm90::Main;
 
-// SPECIALIZE = false takes every tile as an edge tile (an ablation).
-// T: the state's element type (float, or sm90::bf16).
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE = true,
-          typename T = float>
+// MODE: sm90::MODE_ZERO, MODE_NAIVE (K = gs::Constants) or MODE_FOLD (K =
+// sm90::FoldConstants). SPECIALIZE = false takes every tile as an edge tile
+// (an ablation). T: the state's element type (float, or sm90::bf16).
+template <typename G, int TAPS, int MODE, bool SPECIALIZE = true,
+          typename T = float, typename K = gs::Constants>
 __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 windowed_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
-                int cols, int steps, gs::Constants k, int aligned) {
+                int cols, int steps, K k, int aligned) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
   float* const base = reinterpret_cast<float*>(window);
   const int r0 = blockIdx.y * G::TR - HALO, c0 = blockIdx.x * G::TC - HALO;
@@ -115,13 +116,13 @@ windowed_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
     const float* in_u = base + 2 * cur * G::CELLS;
     float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
     if (interior) {
-      sm90::step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
+      sm90::step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
+                                             out_u + G::CELLS, st + 1, r0,
+                                             c0, rows, cols, k);
+    } else {
+      sm90::step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
                                               out_u + G::CELLS, st + 1, r0,
                                               c0, rows, cols, k);
-    } else {
-      sm90::step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
-                                               out_u + G::CELLS, st + 1, r0,
-                                               c0, rows, cols, k);
     }
     __syncthreads();
     cur ^= 1;
@@ -152,7 +153,7 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return reinterpret_cast<size_t>(p) % 16 == 0;
 }
 
-template <typename G, int TAPS, bool NAIVE, typename T>
+template <typename G, int TAPS, int MODE, typename T>
 __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 windowed_shard_kernel(Shards<T> s, int rows, int cols, int steps,
                       gs::Constants k) {
@@ -196,13 +197,13 @@ windowed_shard_kernel(Shards<T> s, int rows, int cols, int steps,
     const float* in_u = base + 2 * cur * G::CELLS;
     float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
     if (interior) {
-      sm90::step_window<G, TAPS, NAIVE, true>(in_u, in_u + G::CELLS, out_u,
+      sm90::step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
+                                             out_u + G::CELLS, st + 1, r0,
+                                             c0, rows, cols, k);
+    } else {
+      sm90::step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
                                               out_u + G::CELLS, st + 1, r0,
                                               c0, rows, cols, k);
-    } else {
-      sm90::step_window<G, TAPS, NAIVE, false>(in_u, in_u + G::CELLS, out_u,
-                                               out_u + G::CELLS, st + 1, r0,
-                                               c0, rows, cols, k);
     }
     __syncthreads();
     cur ^= 1;
@@ -222,23 +223,24 @@ windowed_shard_kernel(Shards<T> s, int rows, int cols, int steps,
   }
 }
 
-template <typename T>
+template <typename T, typename K = gs::Constants>
 struct Call {
   const T *u, *v;
   T *u_out, *v_out;
   int rows, cols, steps, naive, device;
-  gs::Constants k;
+  K k;
   cudaStream_t stream;
 };
 
-// One launch of windowed_kernel<G, TAPS, NAIVE, SPECIALIZE>, after allowing
+// One launch of windowed_kernel<G, TAPS, MODE, SPECIALIZE>, after allowing
 // it the dynamic shared memory it needs (once per device): a launch that
 // asks for more than 48 KB without that is refused, and the refusal is
 // returned.
-template <typename G, int TAPS, bool NAIVE, bool SPECIALIZE, typename T>
-cudaError_t launch_one(const Call<T>& c) {
+template <typename G, int TAPS, int MODE, bool SPECIALIZE, typename T,
+          typename K>
+cudaError_t launch_one(const Call<T, K>& c) {
   static bool allowed[gs::MAX_DEVICES];
-  auto kernel = windowed_kernel<G, TAPS, NAIVE, SPECIALIZE, T>;
+  auto kernel = windowed_kernel<G, TAPS, MODE, SPECIALIZE, T, K>;
   if (!allowed[c.device]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -258,8 +260,9 @@ cudaError_t launch_one(const Call<T>& c) {
 
 template <typename G, int TAPS, bool SPECIALIZE = true, typename T>
 cudaError_t launch(const Call<T>& c) {
-  return c.naive ? launch_one<G, TAPS, true, SPECIALIZE>(c)
-                 : launch_one<G, TAPS, false, SPECIALIZE>(c);
+  return c.naive
+             ? launch_one<G, TAPS, sm90::MODE_NAIVE, SPECIALIZE>(c)
+             : launch_one<G, TAPS, sm90::MODE_ZERO, SPECIALIZE>(c);
 }
 
 template <int TAPS>
@@ -267,6 +270,15 @@ struct Launch {
   template <typename T>
   static cudaError_t run(const Call<T>& c) {
     return launch<Main, TAPS>(c);
+  }
+};
+
+// The fold entries' launch (TAPS: the fold's sum, sm90::dispatch_fold).
+template <int TAPS>
+struct LaunchFold {
+  template <typename T>
+  static cudaError_t run(const Call<T, sm90::FoldConstants>& c) {
+    return launch_one<Main, TAPS, sm90::MODE_FOLD, true>(c);
   }
 };
 
@@ -278,11 +290,11 @@ struct ShardCall {
   cudaStream_t stream;
 };
 
-template <bool NAIVE, int TAPS, typename T>
+template <int MODE, int TAPS, typename T>
 cudaError_t launch_shards_one(const ShardCall<T>& c) {
   using G = Main;
   static bool allowed[gs::MAX_DEVICES];
-  auto kernel = windowed_shard_kernel<G, TAPS, NAIVE, T>;
+  auto kernel = windowed_shard_kernel<G, TAPS, MODE, T>;
   if (!allowed[c.device]) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -306,8 +318,8 @@ template <int TAPS>
 struct LaunchShards {
   template <typename T>
   static cudaError_t run(const ShardCall<T>& c) {
-    return c.naive ? launch_shards_one<true, TAPS>(c)
-                   : launch_shards_one<false, TAPS>(c);
+    return c.naive ? launch_shards_one<sm90::MODE_NAIVE, TAPS>(c)
+                   : launch_shards_one<sm90::MODE_ZERO, TAPS>(c);
   }
 };
 
@@ -342,6 +354,25 @@ int multistep(const T* u, const T* v, T* u_out, T* v_out, int rows, int cols,
                               stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
+}
+
+// gs_windowed_multistep_fold and its bf16 twin.
+template <typename T>
+int fold_multistep(const T* u, const T* v, T* u_out, T* v_out, int rows,
+                   int cols, int steps, int device, const float* fold,
+                   int separable, int dt_is_one, void* stream) {
+  if (rows < 1 || cols < 1 || steps < 1 || steps > HALO || device < 0 ||
+      device >= gs::MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Call<T, sm90::FoldConstants> c = {
+      u, v, u_out, v_out, rows, cols, steps, 1, device,
+      sm90::fold_constants(fold, dt_is_one),
+      static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(
+      sm90::dispatch_fold<LaunchFold>(c.k, separable, c));
 }
 
 // gs_windowed_shard_multistep and its bf16 twin.
@@ -384,6 +415,8 @@ extern "C" {
 
 int gs_windowed_max_steps() { return HALO; }
 
+int gs_fold_floats() { return sm90::FOLD_FLOATS; }
+
 const char* gs_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -417,6 +450,35 @@ int gs_windowed_multistep_bf16(const void* u, const void* v, void* u_out,
                    static_cast<sm90::bf16*>(u_out),
                    static_cast<sm90::bf16*>(v_out), rows, cols, steps, naive,
                    device, w, du, dv, feed, min_feed_kill, dt, stream);
+}
+
+// The folded naive reaction (pallas_stencil.py:_kernel with fast_fold;
+// stencil.step_naive_fold): one launch of `steps` (1..HALO) folded steps of
+// the naive boundary, as gs_windowed_multistep enqueues. `fold` holds
+// gs_fold_floats() floats (sm90::FoldConstants' order); `separable`: the
+// stencil's separable plan runs (else the direct sum); `dt_is_one`: the
+// quadratic term is uv^2. Returns cudaGetLastError() (0 when the launch was
+// accepted).
+int gs_windowed_multistep_fold(const float* u, const float* v, float* u_out,
+                               float* v_out, int rows, int cols, int steps,
+                               int device, const float* fold, int separable,
+                               int dt_is_one, void* stream) {
+  return fold_multistep(u, v, u_out, v_out, rows, cols, steps, device, fold,
+                        separable, dt_is_one, stream);
+}
+
+// gs_windowed_multistep_fold on bfloat16 buffers (widened on load, rounded
+// on store, once a launch).
+int gs_windowed_multistep_fold_bf16(const void* u, const void* v,
+                                    void* u_out, void* v_out, int rows,
+                                    int cols, int steps, int device,
+                                    const float* fold, int separable,
+                                    int dt_is_one, void* stream) {
+  return fold_multistep(static_cast<const sm90::bf16*>(u),
+                        static_cast<const sm90::bf16*>(v),
+                        static_cast<sm90::bf16*>(u_out),
+                        static_cast<sm90::bf16*>(v_out), rows, cols, steps,
+                        device, fold, separable, dt_is_one, stream);
 }
 
 // Enqueues one launch on `stream` that advances every shard of an

@@ -20,6 +20,7 @@ left off so that denormals match PyTorch's IEEE kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -149,6 +150,22 @@ def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=16)
+def fold_args(fc) -> tuple:
+    """The constant arguments of a fold entry (K1's and K2's
+    ``*_fold``): the ``params.FoldConstants`` as the C array of
+    ``gs_fold_floats()`` floats that the entries take (read, never
+    written), then its ``separable`` and ``dt_is_one`` flags; built once
+    per constants."""
+    floats = fc.kernel_floats()
+    n = bind("gs_fold_floats", [])()
+    if n != len(floats):
+        raise RuntimeError(f"the fold entries take {n} constants; this "
+                           f"wrapper passes {len(floats)}")
+    return ((ctypes.c_float * n)(*floats), int(fc.separable),
+            int(fc.dt_is_one))
 
 
 def error_name(err: int) -> str:

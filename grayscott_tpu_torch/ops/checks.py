@@ -7,6 +7,7 @@ from typing import Sequence
 
 import torch
 
+from ..params import FoldConstants
 from . import stencil
 
 
@@ -14,6 +15,17 @@ def check_boundary(boundary: str) -> None:
     if boundary not in stencil.BOUNDARIES:
         raise ValueError(f"unknown boundary {boundary!r}; "
                          f"expected {stencil.BOUNDARIES}")
+
+
+def check_fold(fc, boundary: str) -> None:
+    """The fold entries' arguments: a ``FoldConstants`` on the naive
+    boundary."""
+    if not isinstance(fc, FoldConstants):
+        raise TypeError(f"the folded naive reaction takes FoldConstants, "
+                        f"got {type(fc).__name__}")
+    if boundary != "naive":
+        raise ValueError(f"the folded naive reaction applies to the naive "
+                         f"boundary, got {boundary!r}")
 
 
 def check_count(name: str, value, low: int, high: int | None = None) -> None:

@@ -15,6 +15,11 @@ float32 on load, each time block's steps in float32, the cells rounded to
 bfloat16 once a time block. Its plain version there is
 :func:`megastep_reference_bf16`.
 
+``megastep(..., fold=True)`` runs the folded naive reaction
+(``megakernel.py:_mega_kernel`` with ``fast_fold``) on either storage: the
+fold entries, whose plain version is :func:`megastep_reference_fold`; their
+launches are counted in ``fold_launches`` and ``fold_bf16_launches``.
+
 ``launches`` counts the kernel launches, and only them (the bf16 entry's
 apart, in ``bf16_launches``), so that a run can show that its main path
 went through the kernel. :func:`megastep_ablation`
@@ -40,7 +45,7 @@ import ctypes
 
 import torch
 
-from ..params import KernelConstants, PackedConstants
+from ..params import FoldConstants, KernelConstants, PackedConstants
 from . import build, checks, packed, stencil
 
 #: most steps of one time block: the kernel's compile-time halo depth
@@ -50,6 +55,9 @@ MEGA_STEPS = 8
 launches = 0
 #: the bf16 entry's launches so far (bfloat16 pairs)
 bf16_launches = 0
+#: the fold entries' launches so far (float32, bfloat16 pairs)
+fold_launches = 0
+fold_bf16_launches = 0
 
 #: K6 launches so far
 packed_launches = 0
@@ -81,6 +89,7 @@ PACKED_ABLATIONS = {
 
 _fn = None
 _bf16_fn = None
+_fold_fns: dict = {}
 _ablation_fn = None
 _packed_fn = None
 _packed_ablation_fn = None
@@ -98,6 +107,19 @@ def megastep_reference_bf16(u: torch.Tensor, v: torch.Tensor, n_blocks: int,
     after each (``stencil.run_bf16`` a block)."""
     for _ in range(n_blocks):
         u, v = stencil.run_bf16(u, v, steps, consts, boundary)
+    return u, v
+
+
+def megastep_reference_fold(u: torch.Tensor, v: torch.Tensor, n_blocks: int,
+                            steps: int, fc: FoldConstants):
+    """The plain version of the fold entries: ``n_blocks * steps`` folded
+    steps (``stencil.run_naive_fold``); on bfloat16 storage ``n_blocks``
+    time blocks of ``steps`` (<= MEGA_STEPS) steps, each rounded to
+    bfloat16 once (``stencil.run_naive_fold_bf16`` a block)."""
+    if u.dtype != torch.bfloat16:
+        return stencil.run_naive_fold(u, v, n_blocks * steps, fc)
+    for _ in range(n_blocks):
+        u, v = stencil.run_naive_fold_bf16(u, v, steps, fc)
     return u, v
 
 
@@ -136,6 +158,18 @@ def _bf16_kernel():
     return _bf16_fn
 
 
+def _fold_kernel(dtype):
+    if dtype not in _fold_fns:
+        _kernel()  # checks the time-block depth
+        name = "gs_mega_multistep_fold" + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _fold_fns[dtype] = build.bind(
+            name, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2)
+    return _fold_fns[dtype]
+
+
 def _ablation_kernel():
     global _ablation_fn
     if _ablation_fn is None:
@@ -159,15 +193,21 @@ def max_blocks(device: torch.device) -> int:
 
 
 def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
-             steps: int, consts: KernelConstants, boundary: str,
-             grid: int = 0) -> None:
+             steps: int, consts: KernelConstants | FoldConstants,
+             boundary: str, grid: int = 0, fold: bool = False) -> None:
     """Advance slot 0 of the pairs (both float32 or both bfloat16) by
     ``n_blocks`` x ``steps`` steps, in place. ``grid``: the blocks of the
-    launch, 0 for the co-resident maximum. On a CUDA device the launch is
-    enqueued on the current stream and not waited for."""
+    launch, 0 for the co-resident maximum. ``fold``: the folded naive
+    reaction, ``consts`` a ``FoldConstants`` and the boundary naive. On a
+    CUDA device the launch is enqueued on the current stream and not
+    waited for."""
     global launches, bf16_launches
     _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
            checks.STORAGE_DTYPES)
+    if fold:
+        _fold_megastep(u_pair, v_pair, n_blocks, steps, consts, boundary,
+                       grid)
+        return
     bf16 = u_pair.dtype == torch.bfloat16
     if u_pair.device.type == "cpu":
         if bf16:
@@ -185,6 +225,33 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         bf16_launches += 1
     else:
         launches += 1
+
+
+def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary,
+                   grid) -> None:
+    """:func:`megastep` with ``fold=True``."""
+    global fold_launches, fold_bf16_launches
+    checks.check_fold(fc, boundary)
+    if u_pair.device.type == "cpu":
+        ru, rv = megastep_reference_fold(u_pair[0], v_pair[0], n_blocks,
+                                         steps, fc)
+        u_pair[0].copy_(ru)
+        v_pair[0].copy_(rv)
+        return
+    _, rows, cols = u_pair.shape
+    barrier = torch.zeros(1, dtype=torch.int64, device=u_pair.device)
+    stream = torch.cuda.current_stream(u_pair.device).cuda_stream
+    err = _fold_kernel(u_pair.dtype)(
+        u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks, steps,
+        u_pair.device.index, *build.fold_args(fc), grid, barrier.data_ptr(),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"mega fold kernel launch failed: CUDA error "
+                           f"{err} ({build.error_name(err)})")
+    if u_pair.dtype == torch.bfloat16:
+        fold_bf16_launches += 1
+    else:
+        fold_launches += 1
 
 
 def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,

@@ -14,6 +14,12 @@ anchored at the clamped window's top-left corner (``oracle._index_maps``).
 :func:`run_bf16` is the plain version of bf16 storage: float32 steps in
 blocks of 8, the state rounded to bfloat16 after each.
 
+:func:`step_naive_fold` is the folded naive reaction, JAX's opt-in
+``fast_fold`` (``grayscott_tpu/ops/pallas_stencil.py:363-382``,
+``:646-653``, ``:817-859``), in JAX's tree, term for term: the plain
+version of the fold entries of K1 and K2 (:func:`run_naive_fold`,
+:func:`run_naive_fold_bf16`). It is a few ulp off :func:`step`.
+
 :func:`step_at` steps one block of a larger domain, at the block's global
 origin: the plain version of the sharded megakernel's per-shard step
 (``ops/sharded_mega.py``).
@@ -56,8 +62,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..params import (KernelConstants, Parameters, Precision,
-                      kernel_constants)
+from ..params import (FoldConstants, KernelConstants, Parameters,
+                      Precision, kernel_constants)
 
 BOUNDARIES = ("naive", "zero")
 
@@ -182,6 +188,159 @@ def run_bf16(u: torch.Tensor, v: torch.Tensor, steps: int,
     n_full, rem = divmod(steps, BF16_BLOCK)
     for k in [BF16_BLOCK] * n_full + ([rem] if rem else []):
         u, v = run(u.float(), v.float(), k, consts, boundary)
+        u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
+    return u, v
+
+
+def _fold_sum(xp: torch.Tensor, fc: FoldConstants) -> torch.Tensor:
+    """The raw diffusion sum of the fold at the cells of the zero-padded
+    ``xp`` (R+2, C+2): the separable pass ``t = h1*x + h0*(xw + xe)``,
+    ``s = h1*t + h0*(tn + ts)`` (``pallas_stencil.py:451-462``; not
+    :func:`_sepconv`, whose tree adds the side taps one at a time), or the
+    direct plan's taps of nonzero weight, row-major, from 0.0
+    (``:515-516``)."""
+    r, c = xp.shape[0] - 2, xp.shape[1] - 2
+    if fc.separable:
+        t = fc.h1 * xp[:, 1:c + 1] + fc.h0 * (xp[:, 0:c] + xp[:, 2:c + 2])
+        return fc.h1 * t[1:r + 1] + fc.h0 * (t[0:r] + t[2:r + 2])
+    full = torch.zeros((r, c), dtype=xp.dtype, device=xp.device)
+    for i in range(3):
+        for j in range(3):
+            w = fc.weights[3 * i + j]
+            if w != 0.0:
+                full = full + w * xp[i:i + r, j:j + c]
+    return full
+
+
+@functools.lru_cache(maxsize=64)
+def fold_fields(shape: Tuple[int, int], fc: FoldConstants,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fold's u-linear coefficient fields ``(AU, BV)`` of a domain of
+    ``shape``: ``au0 - cu*b`` and ``bv0 - cv*b``, ``b`` the sum of the
+    in-bounds weights (``pallas_stencil.py:464-547``, ``:646-653``): the
+    separable plan's row sums times its column sums, or the direct plan's
+    per-column sums of each weight row, masked by row. Row 0 and column 0
+    take the strips instead; every other cell holds one of ``fc.au`` and
+    ``fc.bv``, the four values the kernels take."""
+    r, c = shape
+
+    def sums(n, first_mid_last):
+        first, mid, last = first_mid_last
+        out = torch.full((n,), mid, dtype=torch.float32, device=device)
+        out[0] = first
+        out[n - 1] = last
+        return out
+
+    if fc.separable:
+        # JAX's row factor takes the first sum at both ends
+        first, mid, _ = fc.row_sums
+        b = (sums(r, (first, mid, first))[:, None]
+             * sums(c, fc.row_sums)[None, :])
+    else:
+        rows = torch.arange(r, device=device)
+        ok_top = (rows >= 1).to(torch.float32)[:, None]
+        ok_bot = (rows <= r - 2).to(torch.float32)[:, None]
+        cw = [sums(c, s)[None, :] for s in fc.direct_sums]
+        b = (ok_top * cw[0] + 1.0 * cw[1]) + ok_bot * cw[2]
+    return fc.au0 - fc.cu * b, fc.bv0 - fc.cv * b
+
+
+def _fold_top(xp: torch.Tensor, fc: FoldConstants) -> torch.Tensor:
+    """The anchored gradient of row 0 (JAX's ``_edge_strip_1xc``,
+    ``pallas_stencil.py:139``; the math of :func:`naive_edge_strip`'s top
+    row, on the padded array so that one row or column needs no special
+    case): cell 0 the 2x2 block of rows and columns {0, 1}, every other
+    cell rows {0, 1} of its centred window, the east tap's centre masked
+    on the last column."""
+    c = xp.shape[1] - 2
+    center = xp[1, 1:c + 1]
+    ok_e = (torch.arange(c, device=xp.device) + 1 <= c - 1).to(xp.dtype)
+    full = torch.zeros_like(center)
+    q = torch.zeros_like(center[:1])
+    for i in range(2):
+        for j in range(3):
+            w = fc.weights[3 * i + j]
+            if w == 0.0:
+                continue
+            tap = xp[1 + i, j:j + c]
+            if j == 2:
+                full = full + w * (tap - center * ok_e)
+            else:
+                full = full + w * (tap - center)
+            if j < 2:
+                q = q + w * (xp[1 + i, 1 + j:2 + j] - center[:1])
+    return torch.cat([q, full[1:]])
+
+
+def _fold_left(xp: torch.Tensor, fc: FoldConstants) -> torch.Tensor:
+    """The anchored gradient of column 0, for every row (JAX's
+    ``_left_col_strip``, ``pallas_stencil.py:194``; row 0's is unused):
+    rows {r-1, r, r+1} and columns {0, 1}, row by row, the bottom row's
+    terms times 0.0 on the domain's last row. Not
+    :func:`naive_edge_strip`, which adds the same terms column by
+    column."""
+    r = xp.shape[0] - 2
+    center = xp[1:r + 1, 1]
+    ok_s = (torch.arange(r, device=xp.device) <= r - 2).to(xp.dtype)
+    full = torch.zeros_like(center)
+    for i in range(3):
+        for j in range(2):
+            w = fc.weights[3 * i + j]
+            if w == 0.0:
+                continue
+            term = w * (xp[i:i + r, 1 + j] - center)
+            full = full + (term * ok_s if i == 2 else term)
+    return full
+
+
+def step_naive_fold(u: torch.Tensor, v: torch.Tensor, fc: FoldConstants
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the folded naive reaction (JAX's ``fast_fold``,
+    ``pallas_stencil.py:817-859``): the bulk ``u' = ((cu*s_u - q) + e) +
+    AU*u``, ``v' = (cv*s_v + q) + BV*v`` (:func:`_fold_sum`,
+    :func:`fold_fields`; ``q = uv^2``, or ``dt*uv^2``), then column 0
+    (rows >= 1) and row 0 (selected last) from their anchored gradients
+    with the scalars ``au0``/``bv0``. The naive boundary's semantics,
+    a few ulp off :func:`step` (JAX's budget: 3e-6 over 16 steps)."""
+    up, vp = F.pad(u, (1, 1, 1, 1)), F.pad(v, (1, 1, 1, 1))
+    au, bv = fold_fields(tuple(u.shape), fc, u.device)
+    uv_square = u * v * v
+    q = uv_square if fc.dt_is_one else fc.dt * uv_square
+
+    def update(s_u, s_v, a, b, sel):
+        un = ((fc.cu * s_u - q[sel]) + fc.e) + a * u[sel]
+        vn = (fc.cv * s_v + q[sel]) + b * v[sel]
+        return un, vn
+
+    un, vn = update(_fold_sum(up, fc), _fold_sum(vp, fc), au, bv,
+                    (slice(None), slice(None)))
+    col = (slice(None), 0)
+    lu, lv = update(_fold_left(up, fc), _fold_left(vp, fc), fc.au0, fc.bv0,
+                    col)
+    un[1:, 0], vn[1:, 0] = lu[1:], lv[1:]
+    un[0], vn[0] = update(_fold_top(up, fc), _fold_top(vp, fc), fc.au0,
+                          fc.bv0, 0)
+    return un, vn
+
+
+def run_naive_fold(u: torch.Tensor, v: torch.Tensor, steps: int,
+                   fc: FoldConstants) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``steps`` calls of :func:`step_naive_fold`: the plain version of the
+    float32 fold entries."""
+    for _ in range(steps):
+        u, v = step_naive_fold(u, v, fc)
+    return u, v
+
+
+def run_naive_fold_bf16(u: torch.Tensor, v: torch.Tensor, steps: int,
+                        fc: FoldConstants
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`run_naive_fold` on bfloat16 storage, the plain version of the
+    bf16 fold entries: in blocks of at most 8 steps, each widened to
+    float32 and rounded to bfloat16 once, as :func:`run_bf16`."""
+    n_full, rem = divmod(steps, BF16_BLOCK)
+    for k in [BF16_BLOCK] * n_full + ([rem] if rem else []):
+        u, v = run_naive_fold(u.float(), v.float(), k, fc)
         u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
     return u, v
 

@@ -27,6 +27,12 @@ nearest even, once a launch. Their plain versions are
 ``stencil.run_bf16`` (one block of ``steps`` <= K) and
 :func:`shard_multistep_reference` on bfloat16 pairs; their launches are
 counted apart, in ``bf16_launches`` and ``bf16_shard_launches``.
+
+``multistep(..., fold=True)`` runs the folded naive reaction
+(``pallas_stencil.py:_kernel`` with ``fast_fold``, ``:363-382``,
+``:817-859``) on either storage: the fold entries, whose plain versions are
+``stencil.run_naive_fold`` and ``stencil.run_naive_fold_bf16``; their
+launches are counted in ``fold_launches`` and ``fold_bf16_launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import ctypes
 
 import torch
 
-from ..params import KernelConstants
+from ..params import FoldConstants, KernelConstants
 from ..parallel import halo
 from . import build, checks, sharded_mega, stencil
 
@@ -58,12 +64,18 @@ shard_launches = 0
 #: float32 ones
 bf16_launches = 0
 bf16_shard_launches = 0
+#: the fold entries' launches so far (float32, bfloat16 storage)
+fold_launches = 0
+fold_bf16_launches = 0
 
 #: the C entry of each storage type: (unsharded, shard entry)
 _ENTRIES = {torch.float32: ("gs_windowed_multistep",
                             "gs_windowed_shard_multistep"),
             torch.bfloat16: ("gs_windowed_multistep_bf16",
                              "gs_windowed_shard_multistep_bf16")}
+#: the fold entry of each storage type
+_FOLD_ENTRIES = {torch.float32: "gs_windowed_multistep_fold",
+                 torch.bfloat16: "gs_windowed_multistep_fold_bf16"}
 
 _fns: dict = {}
 _checked = False
@@ -96,17 +108,29 @@ def _kernel(dtype=torch.float32):
                  + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
+def _fold_kernel(dtype=torch.float32):
+    return _bind(_FOLD_ENTRIES[dtype],
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
+
+
 def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
-              v_out: torch.Tensor, steps: int, consts: KernelConstants,
-              boundary: str) -> None:
+              v_out: torch.Tensor, steps: int,
+              consts: KernelConstants | FoldConstants, boundary: str,
+              fold: bool = False) -> None:
     """Write the state ``steps`` (1..K) steps after ``(u, v)`` into
-    ``(u_out, v_out)``, all four float32 or all four bfloat16. On a CUDA
-    device the launch is enqueued on the current stream and not waited
-    for."""
+    ``(u_out, v_out)``, all four float32 or all four bfloat16. ``fold``:
+    the folded naive reaction, ``consts`` a ``FoldConstants`` and the
+    boundary naive. On a CUDA device the launch is enqueued on the current
+    stream and not waited for."""
     global launches, bf16_launches
     checks.check_count("steps", steps, 1, K)
     checks.check_boundary(boundary)
     checks.check_state((u, v), (u_out, v_out), dtypes=checks.STORAGE_DTYPES)
+    if fold:
+        _fold_multistep(u, v, u_out, v_out, steps, consts, boundary)
+        return
     bf16 = u.dtype == torch.bfloat16
     if u.device.type == "cpu":
         ref = multistep_reference_bf16 if bf16 else multistep_reference
@@ -127,6 +151,31 @@ def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
         bf16_launches += 1
     else:
         launches += 1
+
+
+def _fold_multistep(u, v, u_out, v_out, steps, fc, boundary) -> None:
+    """:func:`multistep` with ``fold=True``."""
+    global fold_launches, fold_bf16_launches
+    checks.check_fold(fc, boundary)
+    bf16 = u.dtype == torch.bfloat16
+    if u.device.type == "cpu":
+        ref = stencil.run_naive_fold_bf16 if bf16 else stencil.run_naive_fold
+        ru, rv = ref(u, v, steps, fc)
+        u_out.copy_(ru)
+        v_out.copy_(rv)
+        return
+    fn = _fold_kernel(u.dtype)
+    rows, cols = u.shape
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = fn(u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+             rows, cols, steps, u.device.index, *build.fold_args(fc), stream)
+    if err != 0:
+        raise RuntimeError(f"windowed fold kernel launch failed: CUDA error "
+                           f"{err} ({build.error_name(err)})")
+    if bf16:
+        fold_bf16_launches += 1
+    else:
+        fold_launches += 1
 
 
 def _shard_kernel(dtype=torch.float32):

@@ -261,3 +261,106 @@ def packed_constants(params: Parameters) -> PackedConstants:
     return PackedConstants(float(h[0]), float(h[1]),
                            *(float(x) for x in fold), float(dt),
                            float(dt) == 1.0)
+
+
+class FoldConstants(NamedTuple):
+    """Run-time constants of one step of the folded naive reaction, each
+    exactly a float32: the port's copy of what
+    ``grayscott_tpu/ops/pallas_stencil.py:make_window_stepper(...,
+    fast_fold=True)`` computes on the host (``:568-576``, ``:646-653``).
+    ``ops/stencil.py:step_naive_fold`` has the step they feed.
+
+    ``weights``: the 9 stencil weights, row-major (the two anchored
+    strips, and the direct plan's sum). ``separable``: whether the
+    stencil has a separable plan; ``h0``, ``h1`` its side and centre
+    taps (0.0 without one). ``cu``, ``cv``, ``e``: the zero boundary's
+    linear fold (:func:`zero_fold_coeffs`); ``dt``, ``dt_is_one``: the
+    quadratic term's factor. ``au0``, ``bv0``: the u-linear coefficients
+    without the boundary weight sum, ``1 - e`` and ``1 + dt*(-(f+k))``
+    (the strips take them). ``row_sums``: the separable plan's sums of
+    the taps of ``h`` in bounds at an axis's (first, middle, last)
+    index, which make the boundary weight field ``b = rows * cols``;
+    ``direct_sums``: the direct plan's, ``direct_sums[i]`` those of
+    weight row ``i`` along the columns. ``au``, ``bv``: ``au0 - cu*b`` and ``bv0 - cv*b`` at a cell of
+    row >= 1 and column >= 1, the only cells that take them, indexed
+    ``2 * (row is the last) + (column is the last)``."""
+
+    weights: Tuple[float, ...]
+    separable: bool
+    h0: float
+    h1: float
+    cu: float
+    cv: float
+    e: float
+    dt: float
+    dt_is_one: bool
+    au0: float
+    bv0: float
+    row_sums: Tuple[float, float, float]
+    direct_sums: Tuple[Tuple[float, float, float], ...]
+    au: Tuple[float, float, float, float]
+    bv: Tuple[float, float, float, float]
+
+    def kernel_floats(self) -> Tuple[float, ...]:
+        """The floats of the fold entries' constant array, in the order of
+        ``csrc/gs_tile_sm90.cuh:FoldConstants``."""
+        return (*self.weights, self.h0, self.h1, self.cu, self.cv, self.e,
+                self.dt, self.au0, self.bv0, *self.au, *self.bv)
+
+
+def _b_value(fc: FoldConstants, last_row: bool,
+             last_col: bool) -> np.float32:
+    """The boundary weight field of ``fc``'s stencil at a cell of row >= 1
+    and column >= 1, in JAX's float32 order (``pallas_stencil.py:
+    464-547``)."""
+    if fc.separable:
+        # (JAX's row factor takes the first sum at both ends; h is
+        # symmetric, so it equals the last)
+        row = fc.row_sums[0 if last_row else 1]
+        col = fc.row_sums[2 if last_col else 1]
+        return Precision(row) * Precision(col)
+    one = Precision(1.0)
+    ok_bot = Precision(0.0 if last_row else 1.0)
+    cw = [Precision(s[2 if last_col else 1]) for s in fc.direct_sums]
+    return (one * cw[0] + one * cw[1]) + ok_bot * cw[2]
+
+
+def _in_bounds_sums(h: np.ndarray) -> Tuple[float, float, float]:
+    """(first, middle, last): the sums of the taps of ``h`` that lie in
+    bounds at an axis's first index, inside, and at its last index, as
+    JAX's ``_col_sums`` rounds them."""
+    return (float(Precision(h[1] + h[2])), float(h.sum()),
+            float(Precision(h[0] + h[1])))
+
+
+def fold_constants(params: Parameters) -> FoldConstants:
+    """The float32 constants of ``params`` for the folded naive reaction,
+    rounded in JAX's order (``pallas_stencil.py:556-576``): ``au0 = 1 -
+    e`` and ``bv0 = 1 + dt*(-(f+k))`` on the host in float32, the edge
+    sums as ``_col_sums`` and the direct plan's ``make_b_field`` take
+    them, and ``au``/``bv`` as ``au0 - cu*b``, ``bv0 - cv*b``."""
+    plan = params.separable_plan()
+    w = params.weights_array()
+    dt = Precision(params.time_step)
+    cu, cv, e, _, _ = zero_fold_coeffs(
+        params.diffusion_rate_u, params.diffusion_rate_v, params.feed_rate,
+        params.min_feed_kill(), dt, plan_alpha(params))
+    au0 = Precision(1.0) - e
+    bv0 = Precision(1.0) + dt * params.min_feed_kill()
+    separable = plan[0] == "separable"
+    h = plan[1] if separable else np.zeros(3, dtype=Precision)
+    fc = FoldConstants(
+        weights=tuple(float(x) for x in w.reshape(-1)), separable=separable,
+        h0=float(h[0]), h1=float(h[1]), cu=float(cu), cv=float(cv),
+        e=float(e), dt=float(dt), dt_is_one=float(dt) == 1.0,
+        au0=float(au0), bv0=float(bv0),
+        row_sums=_in_bounds_sums(h),
+        direct_sums=tuple(_in_bounds_sums(w[i]) for i in range(3)),
+        au=(0.0,) * 4, bv=(0.0,) * 4)
+    au, bv = [], []
+    for last_row in (False, True):
+        for last_col in (False, True):
+            b = _b_value(fc, last_row, last_col)
+            au.append(float(au0 - cu * b))
+            bv.append(float(bv0 - cv * b))
+    return fc._replace(au=tuple(au), bv=tuple(bv))

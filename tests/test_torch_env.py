@@ -17,7 +17,8 @@ from grayscott_tpu_torch.backends.cuda import CudaSimulation
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.errors import UnsupportedConfigError
 from grayscott_tpu_torch.ops import stencil
-from grayscott_tpu_torch.params import Parameters, kernel_constants
+from grayscott_tpu_torch.params import (Parameters, fold_constants,
+                                        kernel_constants)
 from grayscott_tpu_torch.species import initial_uv
 
 #: variable -> (parser destination, a value other than the default, the
@@ -111,10 +112,8 @@ MORE_FLAGS = {
                                     "128", "Queue 2 item 8"),
     "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "bfloat16", None, None),
     "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "off", "2", "Queue 2 item 7"),
-    "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "select", "store",
-                            "Queue 2 item 6"),
-    "GRAYSCOTT_NAIVE_FOLD": ("pallas_naive_fold", "off", "on",
-                             "Queue 2 item 5"),
+    "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "store", None, None),
+    "GRAYSCOTT_NAIVE_FOLD": ("pallas_naive_fold", "on", None, None),
     "GRAYSCOTT_PALLAS_RUNTIME_PARAMS": ("pallas_runtime_params", "off",
                                         None, None),
     "GRAYSCOTT_PALLAS_STEPS_PER_CALL": ("pallas_steps_per_call", "8", "16",
@@ -166,7 +165,7 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
 
 
 #: the ROADMAP.md items the port has done: a value of theirs runs
-PORTED = ("Queue 2 item 4",)
+PORTED = ("Queue 2 item 4", "Queue 2 item 5", "Queue 2 item 6")
 
 #: argv -> the ROADMAP.md item of the value (None, or an item in PORTED: it
 #: runs; another: the port's refusal names it)
@@ -198,10 +197,11 @@ ARGV = [
 def test_flag_values_against_jax(clean_more_env, argv, item):
     """The port's parser gives the backend what JAX's gives its own on the
     same argv; each value the port runs runs (the same frames as with no
-    flag: runtime parameters on and off, K = 8 pinned; bf16 storage the
-    same steps rounded to bfloat16 once a block of 8, ``stencil.run_bf16``),
-    each value it does not run raises :class:`UnsupportedConfigError`
-    naming its item."""
+    flag: runtime parameters on and off, K = 8 pinned, ``naive_fix``'s
+    three values; bf16 storage the same steps rounded to bfloat16 once a
+    block of 8, ``stencil.run_bf16``; the folded naive reaction its own
+    plain replay, ``stencil.run_naive_fold``), each value it does not run
+    raises :class:`UnsupportedConfigError` naming its item."""
     port, ref = both_args(argv)
     assert port == ref
     ns = simulate.build_parser().parse_args(
@@ -223,6 +223,10 @@ def test_flag_values_against_jax(clean_more_env, argv, item):
                 for x in initial_uv((24, 32)))
         frames[1] = stencil.run_bf16(u, v, 9, kernel_constants(
             Parameters()))[1].float().numpy()
+    if ns.pallas_naive_fold == "on":
+        u, v = (torch.from_numpy(x) for x in initial_uv((24, 32)))
+        frames[1] = stencil.run_naive_fold(u, v, 9, fold_constants(
+            Parameters()))[1].numpy()
     assert (frames[0] == frames[1]).all()
 
 

@@ -26,8 +26,8 @@ from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
                                      windowed)
 from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import (DEFAULT_STENCIL, STENCILS,
-                                        Parameters, kernel_constants,
-                                        packed_constants)
+                                        Parameters, fold_constants,
+                                        kernel_constants, packed_constants)
 
 #: ragged shapes put tile seams and all four domain edges inside the 32x32
 #: tiles; (1, 1) is a domain smaller than one tile's interior
@@ -1335,3 +1335,112 @@ def test_bf16_descriptor_takes_multiples_of_8(cuda_device):
         err = fn(host.data_ptr(), pairs.data_ptr(), pairs.data_ptr(),
                  counters.data_ptr(), 2, 2, 24, c_loc, 8)
         assert (err == 0) == ok, (c_loc, err)
+
+
+#: the fold's parameters: every stencil (the separable pass and the direct
+#: plan's tap lists), and dt != 1
+FOLD_PARAMS = [(name, Parameters.with_stencil(name))
+               for name in sorted(STENCILS)] + [
+                   ("dt=0.5", Parameters(time_step=0.5))]
+
+
+def fold_states(shape, device, dtype):
+    """A random state, and one with NaN and +-Inf where the shape holds
+    them, as ``dtype``."""
+    states = [random_uv(shape, device)]
+    if shape[0] > 120 and shape[1] > 200:
+        states.append(nan_state(shape, device))
+    return [tuple(x.to(dtype) for x in s) for s in states]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("label,params", FOLD_PARAMS,
+                         ids=[label for label, _ in FOLD_PARAMS])
+def test_fold_entries_equal_their_plain_version(cuda_device, label, params,
+                                                dtype):
+    """K1's and K2's fold entries (the folded naive reaction) against
+    ``stencil.run_naive_fold`` (``run_naive_fold_bf16`` on bf16 storage)
+    on the card, after 1, 8 and 9 steps (9: K1's launches of 8 and 1, K2's
+    time blocks of 8 and 1), at ragged shapes, NaN and Inf states included.
+    Tolerance: none (bf16: NaN's bit pattern aside). Only the fold
+    counters move."""
+    from grayscott_tpu_torch.ops import stencil
+
+    fc = fold_constants(params)
+    bf16 = dtype == torch.bfloat16
+    plain = stencil.run_naive_fold_bf16 if bf16 else stencil.run_naive_fold
+    k1 = "fold_bf16_launches" if bf16 else "fold_launches"
+    for shape in [(1, 1), (33, 65), (70, 97), (200, 300)]:
+        for u, v in fold_states(shape, cuda_device, dtype):
+            for steps in (1, 8, 9):
+                # (9 steps: the second launch writes the first's inputs)
+                bufs = [u.clone(), v.clone(), torch.empty_like(u),
+                        torch.empty_like(v)]
+                before = (getattr(windowed, k1), windowed.launches,
+                          windowed.bf16_launches)
+                for k in [8] * (steps // 8) + [steps % 8] * (steps % 8 > 0):
+                    windowed.multistep(*bufs, k, fc, "naive", fold=True)
+                    bufs = bufs[2:] + bufs[:2]
+                assert (getattr(windowed, k1), windowed.launches,
+                        windowed.bf16_launches) == \
+                    (before[0] + -(-steps // 8), before[1], before[2])
+                want = plain(u, v, steps, fc)
+                torch.cuda.synchronize()
+                assert all(bf16_equal(g, w) for g, w in
+                           zip(bufs[:2], want)), ("K1", shape, steps)
+                up, vp = megakernel.pair_state(u), megakernel.pair_state(v)
+                before = getattr(megakernel, k1)
+                for n_blocks, k in ([(steps // 8, 8)] * (steps >= 8)
+                                    + [(1, steps % 8)] * (steps % 8 > 0)):
+                    megakernel.megastep(up, vp, n_blocks, k, fc, "naive",
+                                        fold=True)
+                assert getattr(megakernel, k1) == before + 1 + (steps == 9)
+                torch.cuda.synchronize()
+                assert all(bf16_equal(g, w) for g, w in
+                           zip((up[0], vp[0]), want)), ("K2", shape, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [[], ["--pallas-engine", "mega"],
+                                   ["--pallas-dtype", "bfloat16"]])
+def test_simulate_fold_runs_k1_or_k2_never_k3(cuda_device, flags):
+    """``simulate --pallas-naive-fold on``: ``auto`` runs K1's fold entry
+    (K2's with the engine pinned), never K3 nor the exact entries, and
+    every frame is the plain fold's replay."""
+    from grayscott_tpu_torch.ops import stencil
+    from grayscott_tpu_torch.species import initial_uv
+    from grayscott_tpu_torch.cli import shared
+
+    shape, images, steps = (256, 384), 3, 12
+    ns = simulate.build_parser().parse_args(
+        ["-r", str(shape[0]), "-c", str(shape[1]), "--pallas-naive-fold",
+         "on", *flags])
+    sim = shared.make_simulation(ns)
+    species = sim.make_species(shape)
+    bf16 = ns.pallas_dtype == "bfloat16"
+    counters = {"K1": (windowed, "launches"),
+                "K1 bf16": (windowed, "bf16_launches"),
+                "K1 fold": (windowed, "fold_launches"),
+                "K1 fold bf16": (windowed, "fold_bf16_launches"),
+                "K2": (megakernel, "launches"),
+                "K2 fold": (megakernel, "fold_launches"),
+                "K3": (resident, "launches")}
+    before = {k: getattr(*c) for k, c in counters.items()}
+    frames = []
+    simulate.run(sim, species, images, steps, frames.append)
+    torch.cuda.synchronize()
+    moved = {k: getattr(*c) - before[k] for k, c in counters.items()
+             if getattr(*c) != before[k]}
+    kernel = ("K2 fold" if "mega" in flags
+              else "K1 fold bf16" if bf16 else "K1 fold")
+    assert moved == {kernel: 2 * images}  # 8 + 4 steps an image
+    fc = fold_constants(Parameters())
+    u, v = (torch.from_numpy(x) for x in initial_uv(shape))
+    if bf16:
+        u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
+    for frame in frames:
+        u, v = (stencil.run_naive_fold_bf16 if bf16
+                else stencil.run_naive_fold)(u, v, steps, fc)
+        np.testing.assert_array_equal(frame.view(np.int32),
+                                      v.float().numpy().view(np.int32))
