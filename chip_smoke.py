@@ -9,7 +9,8 @@
    store (``$GRAYSCOTT_CACHE_DIR/kernels``: the script's temporary store)
    and prints the build time, ptxas's report, each K1,
    K2, K3, K7, K9, K4, K5 and K6 instantiation's registers, spills and
-   static shared memory (a spill in K2, K4, K6 or K7 fails the run), K4's
+   static shared memory, K2's ring kernels' and K7's read-site kernels'
+   among them (a spill in K2, K4, K6 or K7 fails the run), K4's
    and K6's dynamic shared memory, how many of K1's, K2's, K3's, K4's,
    K5's, K6's and K9's tiles are interior tiles, and K7's per shard on each
    mesh, for both of its tile geometries.
@@ -228,9 +229,31 @@
    count (``fold_ops_per_cell_step``), and the plain version's time at
    1080x1920. The ``kernels`` line gains the four fold entries.
 
+17. The window ring (``mega_depth``, ``ops/megakernel.py:ring_geometry``)
+   and K7's read-site wait. Each depth's geometry at 1080x1920 and
+   4096x4096 (tile, depth after JAX's clamp, buffers, bytes, blocks an SM
+   by shared memory) beside the occupancy API's blocks of K2. (a)
+   Every K2 entry (float32 and bf16 on both boundaries, the fold on both
+   storages) at depths 2-8, one launch of 3 time blocks of 8 steps
+   at both shapes (and a NaN/Inf state at 1080x1920), bit for bit against
+   the plain version and against depth 2. (b) One 32-step launch at every
+   depth in turns, beside depth 2, the bound, and the plain versions. (c)
+   K7 on the row meshes 4x1 and 2x1 at both shapes and boundaries (and
+   NaN/Inf): the read-site wait bit for bit against the entry gate and the
+   plain version, then timed in turns with the entry gate. (d)
+   ``simulate.run`` at 1080x1920, 16 images of 32 steps, on
+   ``CudaSimulation(engine='mega', mega_depth=4)`` on both storages, with
+   and without the fold, each frame bit for bit the depth-2 run's; the
+   packed K6 (zero) at depth 4, which declines the pin as JAX's
+   ``packed_megastep`` does (the double buffer runs; frames bitwise to
+   depth 2's); the sharded simulate on 4x1 with
+   the read-site wait against the entry gate, frame for frame; launch
+   counts zeroed before each and read after. The ``kernels`` line gains
+   the four ring entries and K7's read-site wait.
+
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phase 16 and phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phases 16 and 17 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -342,6 +365,14 @@ COUNTERS = {
     "windowed_fold_bf16": (windowed, "fold_bf16_launches"),
     "mega_fold": (megakernel, "fold_launches"),
     "mega_fold_bf16": (megakernel, "fold_bf16_launches"),
+    # the window ring's entries (mega_depth), K2's, counted apart
+    "mega_ring": (megakernel, "ring_launches"),
+    "mega_ring_bf16": (megakernel, "ring_bf16_launches"),
+    "mega_ring_fold": (megakernel, "ring_fold_launches"),
+    "mega_ring_fold_bf16": (megakernel, "ring_fold_bf16_launches"),
+    # K7's launches that waited at the read site (row meshes; also counted
+    # in shmega or shmega_bf16)
+    "shmega_read_site": (sharded_mega, "read_site_launches"),
 }
 
 #: storage tags that share another tag's kernel (K7 and K1's shard entry on
@@ -478,6 +509,41 @@ KERNELS = {
         "source": "grayscott_tpu_torch/csrc/mega.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (fast_fold, "
                     "bfloat16 storage)",
+    },
+    "mega_ring": {
+        "name": "mega_ring_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_ring.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D, the ring "
+                    ":562-630)",
+    },
+    "mega_ring_bf16": {
+        "name": "mega_ring_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_ring.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D, bfloat16 "
+                    "storage)",
+    },
+    "mega_ring_fold": {
+        "name": "mega_ring_multistep_fold",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_ring.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D, "
+                    "fast_fold)",
+    },
+    "mega_ring_fold_bf16": {
+        "name": "mega_ring_multistep_fold_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_ring.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D, "
+                    "fast_fold, bfloat16 storage)",
+    },
+    "shmega_read_site": {
+        "name": "sharded_mega_multistep (read-site wait)",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, row mesh: "
+                    "the 1-D read-site waits, :428-463)",
     },
 }
 
@@ -1044,6 +1110,10 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
     launches = read_launches()
     want = {tag: 0 for tag in COUNTERS}
     want[counter] = expected_launches(engine, MAIN_IMAGES, MAIN_STEPS, split)
+    if engine == "shmega" and sharded_mega.read_site_applies(
+            species.shape, sim.mesh.shape,
+            sharded_mega.tile_for(species.shape, sim.mesh)):
+        want["shmega_read_site"] = want[counter]
     label = " ".join(flags) or "(auto)"
     print(f"path simulate {label}: engine {counter}, {MAIN_IMAGES} images x "
           f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
@@ -1810,10 +1880,13 @@ PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "11mega_kernel", "19sharded_mega_kernel",
                       "15ilpsplit_kernel", "13packed_kernel",
-                      "22packed_resident_kernel", "18packed_mega_kernel")
-#: of those, the ones whose instantiations must not spill (K2, K7, K4, K6)
+                      "22packed_resident_kernel", "18packed_mega_kernel",
+                      "11ring_kernel")
+#: of those, the ones whose instantiations must not spill (K2, K7, K4, K6,
+#: and K2's ring)
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
-                    "13packed_kernel", "18packed_mega_kernel")
+                    "13packed_kernel", "18packed_mega_kernel",
+                    "11ring_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -2042,10 +2115,13 @@ def sharded_run(params: Parameters, boundary: str, u_np, v_np, mesh_shape,
 
 
 def sharded_launches(params: Parameters, boundary: str, u_np, v_np,
-                     mesh_shape, steps: int, tile=None):
+                     mesh_shape, steps: int, tile=None,
+                     read_site: bool = True):
     """K7 launch by launch as the backend makes them (the halo exchange,
     then ``steps // 8`` time blocks, then the remainder), on ``tile`` x
-    ``tile`` tiles; ``tile`` "plain" runs the plain version instead."""
+    ``tile`` tiles; ``tile`` "plain" runs the plain version instead;
+    ``read_site=False`` gates every time block's entry on a row mesh
+    too."""
     shape = u_np.shape
     consts = kernel_constants(params)
     mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape[1],
@@ -2059,7 +2135,8 @@ def sharded_launches(params: Parameters, boundary: str, u_np, v_np,
                                                     consts, boundary, shape)
         else:
             sharded_mega.sharded_megastep(*pairs, mesh, n_blocks, k, consts,
-                                          boundary, shape, tile=tile)
+                                          boundary, shape, tile=tile,
+                                          read_site=read_site)
     return tuple(halo.mega_unshard_result(p, shape) for p in pairs)
 
 
@@ -3828,6 +3905,451 @@ def fold_phase(checks: Checks, rng, card: str) -> tuple[dict, dict]:
     return runs, times
 
 
+# --- 17. the window ring (mega_depth) and K7's read-site wait ---------------
+
+#: the ring's shapes and depths (JAX's mega_depth values)
+RING_SHAPES = [MAIN_SHAPE, BENCH_SHAPE]
+RING_DEPTHS = tuple(megakernel.DEPTHS)
+#: K2's entries by the ring's counter tag: (storage dtype, the folded naive
+#: reaction), and the double buffer's tag of each
+RING_K2 = {"mega_ring": (torch.float32, False),
+           "mega_ring_bf16": (torch.bfloat16, False),
+           "mega_ring_fold": (torch.float32, True),
+           "mega_ring_fold_bf16": (torch.bfloat16, True)}
+RING_BASE = {"mega_ring": "mega", "mega_ring_bf16": "mega_bf16",
+             "mega_ring_fold": "mega_fold",
+             "mega_ring_fold_bf16": "mega_fold_bf16"}
+#: a checked ring launch: 3 time blocks of 8 steps (odd: the slot copy)
+RING_BLOCKS = 3
+#: K7's row meshes, where it waits at the read site
+READ_SITE_MESHES = [(4, 1), (2, 1)]
+#: phase 17b's and 17c's timings: rounds in turns (in order, then
+#: reversed), launches a sample, by shape
+RING_ROUNDS = 2
+RING_REPS = {MAIN_SHAPE: 20, BENCH_SHAPE: 5}
+#: the depth of phase 17d's simulate runs
+RING_PATH_DEPTH = 4
+
+
+def same_bits(got, want) -> bool:
+    """Every element of each tensor of ``got`` has the bits of ``want``'s,
+    NaN included."""
+    def bits(x):
+        return x.view(torch.int16 if x.dtype == torch.bfloat16
+                      else torch.int32)
+    return all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+
+
+def ring_label(shape, depth: int) -> str:
+    g = megakernel.ring_geometry(shape, depth)
+    return (f"depth={depth} ({g.tile}x{g.tile} tiles, depth {g.depth}, "
+            f"{g.buffers} buffers, {g.bytes} B)")
+
+
+def k2_ring_run(u, v, tag: str, boundary: str, depth: int,
+                n_blocks: int = RING_BLOCKS):
+    """(U, V) after one launch of ``tag``'s K2 entry at ``depth``."""
+    fold = RING_K2[tag][1]
+    params = Parameters()
+    k = fold_constants(params) if fold else kernel_constants(params)
+    pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+    megakernel.megastep(pu, pv, n_blocks, 8, k, boundary, fold=fold,
+                        depth=depth)
+    return pu[0], pv[0]
+
+
+def k2_ring_plain(u, v, tag: str, boundary: str,
+                  n_blocks: int = RING_BLOCKS):
+    """The plain version of ``tag``'s K2 entry."""
+    dtype, fold = RING_K2[tag]
+    params = Parameters()
+    if fold:
+        return megakernel.megastep_reference_fold(u, v, n_blocks, 8,
+                                                  fold_constants(params))
+    consts = kernel_constants(params)
+    if dtype == torch.bfloat16:
+        return megakernel.megastep_reference_bf16(u, v, n_blocks, 8, consts,
+                                                  boundary)
+    return stencil.run(u, v, 8 * n_blocks, consts, boundary)
+
+
+def ring_report(checks: Checks) -> None:
+    """Phase 17: each depth's geometry at RING_SHAPES (tile, depth after
+    JAX's clamp, buffers, bytes, blocks an SM by shared memory) beside the
+    occupancy API's blocks of K2, which must not exceed it."""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in RING_SHAPES:
+        for depth in RING_DEPTHS:
+            g = megakernel.ring_geometry(shape, depth)
+            k2 = (megakernel.ring_max_blocks(dev, g) if g.ring
+                  else megakernel.max_blocks(dev))
+            print(f"ring {shape[0]}x{shape[1]} mega_depth={depth}: "
+                  f"{g.tile}x{g.tile} tiles, depth {g.depth}, {g.buffers} "
+                  f"buffers, {g.bytes} B a block, {g.blocks_per_sm} blocks "
+                  f"an SM by shared memory; occupancy API K2 {k2} blocks "
+                  f"({k2 / sms!r} an SM)", flush=True)
+            checks.expect(sms <= k2 <= g.blocks_per_sm * sms,
+                          f"ring K2 {shape} depth {depth}: {k2} co-resident "
+                          f"blocks, shared memory holds {g.blocks_per_sm} "
+                          f"an SM")
+
+
+def compare_ring(checks: Checks, rng) -> int:
+    """Phase 17a: every K2 entry (float32, bf16, fold, fold bf16) at every
+    depth, one launch of RING_BLOCKS time blocks of 8 steps at
+    RING_SHAPES (and a NaN/Inf state at 1080x1920), naive and zero where
+    the entry takes them: bit for bit against the plain version and against
+    depth 2 (bf16: NaN's positions, then every other cell's bits). Returns
+    the comparisons made."""
+    n = 0
+    for shape in RING_SHAPES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            state = " NaN and Inf" if special else ""
+            for tag, (dtype, fold) in RING_K2.items():
+                u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                        for x in (u_np, v_np))
+                compare = (checks.compare_bf16 if dtype == torch.bfloat16
+                           else checks.compare_bits)
+                for boundary in ("naive",) if fold else ("naive", "zero"):
+                    want = k2_ring_plain(u, v, tag, boundary)
+                    at2 = None
+                    for depth in RING_DEPTHS:
+                        got = k2_ring_run(u, v, tag, boundary, depth)
+                        ring = megakernel.ring_geometry(shape, depth).ring
+                        what = (f"{shape[0]}x{shape[1]} {boundary}{state} "
+                                f"{RING_BLOCKS}x8 steps "
+                                f"{ring_label(shape, depth)}")
+                        compare(tag if ring else RING_BASE[tag], got, want,
+                                what)
+                        if at2 is None:
+                            at2 = got
+                        else:
+                            same = same_bits(got, at2)
+                            print(f"compare {tag} {what} vs depth 2: "
+                                  f"bitwise {same}", flush=True)
+                            checks.expect(same, f"{tag} {what} vs depth 2")
+                        n += 1
+    return n
+
+
+def time_ring(rng, card: str) -> dict:
+    """Phase 17b: one launch of 4 time blocks of 8 steps (32 steps) at
+    every depth, in turns (RING_ROUNDS rounds, the depths in order, then
+    reversed), at RING_SHAPES: K2 naive and zero, K2 bf16 naive, K2 fold
+    on both storages; each depth beside depth 2 and the bound of the same
+    work (the operations bound of K2 and its entries, unchanged), and the
+    plain versions' time at 1080x1920. Returns {(tag, shape, boundary, depth):
+    ms} and {("plain", tag): ms}."""
+    params = Parameters()
+    out = {}
+    entries = [("mega_ring", "naive"), ("mega_ring", "zero"),
+               ("mega_ring_bf16", "naive"), ("mega_ring_fold", "naive"),
+               ("mega_ring_fold_bf16", "naive")]
+    steps = MAIN_STEPS
+    for shape in RING_SHAPES:
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        for tag, boundary in entries:
+            calls = {}
+            dtype, fold = RING_K2[tag]
+            for depth in RING_DEPTHS:
+                pu, pv = (megakernel.pair_state(
+                    torch.from_numpy(a).to(DEVICE).to(dtype))
+                    for a in (u_np, v_np))
+                k = (fold_constants(params) if fold
+                     else kernel_constants(params))
+
+                def call(pu=pu, pv=pv, k=k, fold=fold, depth=depth,
+                         boundary=boundary):
+                    megakernel.megastep(pu, pv, steps // 8, 8, k, boundary,
+                                        fold=fold, depth=depth)
+                calls[depth] = call
+            samples = {d: [] for d in RING_DEPTHS}
+            for r in range(RING_ROUNDS):
+                for d in (RING_DEPTHS if r % 2 == 0
+                          else reversed(RING_DEPTHS)):
+                    samples[d].append(cuda_ms(calls[d], RING_REPS[shape]))
+            cell_bytes = 8 if dtype == torch.bfloat16 else 16
+            if fold:
+                bound, by = roofline_ms(shape, steps,
+                                        fold_ops_per_cell_step(params),
+                                        cell_bytes)
+            else:
+                bound, by = bound_ms(shape, steps, boundary,
+                                     cell_bytes=cell_bytes)
+            ms2 = statistics.median(samples[2])
+            for d in RING_DEPTHS:
+                ms = statistics.median(samples[d])
+                out[tag, shape, boundary, d] = (ms, bound, by)
+                print(f"time {tag} {shape[0]}x{shape[1]} {boundary} "
+                      f"{ring_label(shape, d)}, {steps} steps a launch: "
+                      f"{ms!r} ms (turns {samples[d]!r}) = "
+                      f"{gcells(shape, steps, ms)!r} Gcell/s, {ms / ms2!r}x "
+                      f"depth 2; bound {bound!r} ms ({by}), "
+                      f"{100 * bound / ms!r} % of it [{card}]", flush=True)
+    u, v = (torch.from_numpy(rng.uniform(0, 1, MAIN_SHAPE)
+                             .astype(np.float32)).to(DEVICE)
+            for _ in range(2))
+    n_blocks = steps // 8
+    for tag in RING_K2:
+        dtype = RING_K2[tag][0]
+        a, b = u.to(dtype), v.to(dtype)
+        out["plain", tag] = cuda_ms(
+            lambda a=a, b=b, tag=tag: k2_ring_plain(a, b, tag, "naive",
+                                                    n_blocks), 2)
+    for tag in RING_BASE:
+        print(f"time plain {tag} {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}, {steps} "
+              f"steps: {out['plain', tag]!r} ms [{card}]", flush=True)
+    return out
+
+
+def compare_read_site(checks: Checks, rng, card: str) -> dict:
+    """Phase 17c: K7 on the row meshes READ_SITE_MESHES at RING_SHAPES,
+    both boundaries (and a NaN/Inf state at 1080x1920 naive): the
+    read-site wait bit for bit against the entry gate and the plain
+    version, then one 32-step launch of each timed in turns. Returns
+    {(shape, mesh, boundary): (read-site ms, entry-gate ms, bound, by)}."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    for shape in RING_SHAPES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            plain_u, plain_v = (torch.from_numpy(x).to(DEVICE)
+                                for x in (u_np, v_np))
+            for boundary in ("naive",) if special else ("naive", "zero"):
+                want = stencil.run(plain_u, plain_v, MAIN_STEPS, consts,
+                                   boundary)
+                for mesh_shape in READ_SITE_MESHES:
+                    what = (f"{shape[0]}x{shape[1]} {boundary}"
+                            f"{' NaN and Inf' if special else ''} mesh "
+                            f"{mesh_shape[0]}x{mesh_shape[1]}, {MAIN_STEPS} "
+                            "steps")
+                    before = sharded_mega.read_site_launches
+                    got = sharded_launches(Parameters(), boundary, u_np,
+                                           v_np, mesh_shape, MAIN_STEPS)
+                    waited = sharded_mega.read_site_launches - before
+                    checks.expect(waited > 0, f"K7 {what}: no launch waited "
+                                  "at the read site")
+                    gate = sharded_launches(Parameters(), boundary, u_np,
+                                            v_np, mesh_shape, MAIN_STEPS,
+                                            read_site=False)
+                    checks.compare_bits("shmega_read_site", got, want, what)
+                    same = same_bits(got, gate)
+                    print(f"compare shmega_read_site {what} vs the entry "
+                          f"gate: bitwise {same}", flush=True)
+                    checks.expect(same, f"K7 read-site {what} vs the entry "
+                                  "gate")
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        for boundary in ("naive", "zero"):
+            for mesh_shape in READ_SITE_MESHES:
+                mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1],
+                                      mesh_shape[1], DEVICE)
+                calls = {}
+                for read_site in (True, False):
+                    pairs = halo.mega_shard_state(u_np, v_np, mesh)
+                    for p in pairs:
+                        halo.exchange_halos(p)
+
+                    def call(pairs=pairs, mesh=mesh, boundary=boundary,
+                             read_site=read_site):
+                        sharded_mega.sharded_megastep(
+                            *pairs, mesh, MAIN_STEPS // 8, 8, consts,
+                            boundary, shape, read_site=read_site)
+                    calls[read_site] = call
+                samples = {True: [], False: []}
+                for r in range(2 * RING_ROUNDS):
+                    for rs in ((True, False) if r % 2 == 0
+                               else (False, True)):
+                        samples[rs].append(cuda_ms(calls[rs],
+                                                   RING_REPS[shape]))
+                ms = {rs: statistics.median(x) for rs, x in samples.items()}
+                bound, by = sharded_bound_ms(shape, mesh_shape, MAIN_STEPS,
+                                             boundary)
+                out[shape, mesh_shape, boundary] = (ms[True], ms[False],
+                                                    bound, by)
+                print(f"time K7 read-site {shape[0]}x{shape[1]} {boundary} "
+                      f"mesh {mesh_shape[0]}x{mesh_shape[1]} (tile "
+                      f"{sharded_mega.tile_for(shape, mesh)}), {MAIN_STEPS} "
+                      f"steps a launch: {ms[True]!r} ms (turns "
+                      f"{samples[True]!r}) against the entry gate's "
+                      f"{ms[False]!r} (turns {samples[False]!r}): "
+                      f"{ms[True] / ms[False]!r}x; bound {bound!r} ms ({by}) "
+                      f"[{card}]", flush=True)
+    mesh = halo.make_mesh(4, 1, DEVICE)
+    pairs = halo.mega_shard_state(*initial_uv(MAIN_SHAPE), mesh)
+    for p in pairs:
+        halo.exchange_halos(p)
+    out["plain"] = cuda_ms(lambda: sharded_mega.sharded_megastep_reference(
+        *pairs, MAIN_STEPS // 8, 8, consts, "naive", MAIN_SHAPE), 1)
+    print(f"time plain sharded {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive mesh "
+          f"4x1, {MAIN_STEPS} steps: {out['plain']!r} ms [{card}]",
+          flush=True)
+    return out
+
+
+class entry_gate:
+    """Within the block, K7 gates every time block's entry on a row mesh
+    too: the sharded backend's calls of ``sharded_megastep`` take
+    ``read_site=False`` (the form the read-site wait is held against)."""
+
+    def __enter__(self):
+        self.fn = sharded_mega.sharded_megastep
+
+        def gated(*args, **kwargs):
+            return self.fn(*args, **kwargs, read_site=False)
+
+        sharded_mega.sharded_megastep = gated
+
+    def __exit__(self, *exc):
+        sharded_mega.sharded_megastep = self.fn
+
+
+def sim_path_ms(sim) -> float:
+    """ms an image of one ``simulate.run`` of MAIN_IMAGES images of
+    MAIN_STEPS steps at 1080x1920 on ``sim``, on the host clock ending in
+    a device synchronise (``bench/simulate_turns.py:run_ms``'s timing)."""
+    species = sim.make_species(MAIN_SHAPE)
+    frames: list[np.ndarray] = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    simulate.run(sim, species, MAIN_IMAGES, MAIN_STEPS, frames.append)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / MAIN_IMAGES * 1e3
+
+
+def ring_path(checks: Checks, label: str, sim, want: dict):
+    """One ``simulate.run`` of MAIN_IMAGES images of MAIN_STEPS steps at
+    1080x1920 on ``sim``, with the launch counts zeroed before it and read
+    after (each count must be ``want``'s, 0 where ``want`` has no entry):
+    {frames, launches, ms an image}."""
+    species = sim.make_species(MAIN_SHAPE)
+    frames: list[np.ndarray] = []
+    pinned = [torch.empty(MAIN_SHAPE, pin_memory=True)
+              for _ in range(MAIN_IMAGES + 1)]
+    del pinned
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    simulate.run(sim, species, MAIN_IMAGES, MAIN_STEPS, frames.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    moved = {t: n for t, n in launches.items() if n}
+    print(f"path simulate {label}: {MAIN_IMAGES} images x {MAIN_STEPS} "
+          f"steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]}: "
+          f"{seconds / MAIN_IMAGES * 1e3!r} ms/image, launches {moved}",
+          flush=True)
+    checks.expect(all(n == want.get(t, 0) for t, n in launches.items()),
+                  f"simulate {label}: launches {moved}, not {want}")
+    checks.expect(len(frames) == MAIN_IMAGES
+                  and all(f.shape == MAIN_SHAPE and np.isfinite(f).all()
+                          for f in frames),
+                  f"simulate {label}: frame count, shape or finiteness")
+    return {"frames": frames, "launches": launches,
+            "ms": seconds / MAIN_IMAGES * 1e3, "sim": sim}
+
+
+def ring_paths(checks: Checks, card: str) -> dict:
+    """Phase 17d: ``simulate.run`` at 1080x1920, MAIN_IMAGES images of
+    MAIN_STEPS steps, on ``CudaSimulation(engine='mega',
+    mega_depth=RING_PATH_DEPTH)`` (float32, bf16, the fold, the fold on
+    bf16; naive), each against the same run at depth 2, every frame bit
+    for bit; the packed K6 (zero) under the same pin, which it declines as
+    JAX's ``packed_megastep`` does (the double buffer runs, frames bitwise
+    to depth 2's); then the sharded simulate on 4x1 (K7 with the read-site
+    wait) against the entry gate's. Each pair but K6's is then timed again
+    in turns (the ring, depth 2, depth 2, the ring; twice). Returns the
+    runs by counter tag, each with ``ms`` an image and its depth-2 twin's
+    ``ms2`` (the medians of the turns)."""
+    runs = {}
+    images_steps = MAIN_IMAGES * expected_launches("mega", 1, MAIN_STEPS)
+    for tag, (dtype, fold) in RING_K2.items():
+        kwargs = dict(engine="mega", tuned_lookup=False,
+                      dtype=str(dtype)[6:], naive_fold=fold)
+        got = ring_path(
+            checks, f"{tag} mega_depth={RING_PATH_DEPTH}",
+            CudaSimulation(Parameters(), "naive", device=DEVICE,
+                           mega_depth=RING_PATH_DEPTH, **kwargs),
+            {tag: images_steps})
+        ref = ring_path(
+            checks, f"{RING_BASE[tag]} mega_depth=2",
+            CudaSimulation(Parameters(), "naive", device=DEVICE,
+                           mega_depth=2, **kwargs),
+            {RING_BASE[tag]: images_steps})
+        same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                   for a, b in zip(got["frames"], ref["frames"]))
+        print(f"path simulate {tag} mega_depth={RING_PATH_DEPTH} vs depth "
+              f"2: frames bitwise {same}; {got['ms']!r} against "
+              f"{ref['ms']!r} ms/image [{card}]", flush=True)
+        checks.expect(same, f"simulate {tag} frames vs depth 2")
+        runs[tag] = dict(got, sims=(got["sim"], ref["sim"]))
+    packs = [ring_path(
+        checks, f"megapack mega_depth={depth} (declined)",
+        CudaSimulation(Parameters(), "zero", device=DEVICE, engine="mega",
+                       pack="on", mega_depth=depth, tuned_lookup=False),
+        {"megapack": images_steps}) for depth in (RING_PATH_DEPTH, 2)]
+    same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+               for a, b in zip(packs[0]["frames"], packs[1]["frames"]))
+    print(f"path simulate megapack mega_depth={RING_PATH_DEPTH} vs depth 2: "
+          f"frames bitwise {same}; {packs[0]['ms']!r} against "
+          f"{packs[1]['ms']!r} ms/image [{card}]", flush=True)
+    checks.expect(same, "simulate megapack frames vs depth 2")
+    params = Parameters()
+    sims = {}
+    for read_site in (True, False):
+        sim = ShardedSimulation(params, "naive", device=DEVICE,
+                                engine="mega", n_devices=4, mesh_cols=1,
+                                tuned_lookup=False)
+        if read_site:
+            sims[read_site] = ring_path(
+                checks, "sharded mega 4x1 read-site", sim,
+                {"shmega": images_steps, "shmega_read_site": images_steps})
+        else:
+            with entry_gate():
+                sims[read_site] = ring_path(
+                    checks, "sharded mega 4x1 entry gate", sim,
+                    {"shmega": images_steps})
+    same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+               for a, b in zip(sims[True]["frames"], sims[False]["frames"]))
+    print(f"path simulate sharded mega 4x1 read-site vs the entry gate: "
+          f"frames bitwise {same}; {sims[True]['ms']!r} against "
+          f"{sims[False]['ms']!r} ms/image [{card}]", flush=True)
+    checks.expect(same, "sharded simulate 4x1 read-site frames vs the entry "
+                  "gate")
+    runs["shmega_read_site"] = dict(sims[True], sims=(sims[True]["sim"],
+                                                      sims[False]["sim"]))
+    for tag, run in runs.items():
+        turns = ([], [])
+        for r in range(2 * RING_ROUNDS):
+            for side in ((0, 1) if r % 2 == 0 else (1, 0)):
+                if tag == "shmega_read_site" and side == 1:
+                    with entry_gate():
+                        turns[side].append(sim_path_ms(run["sims"][side]))
+                else:
+                    turns[side].append(sim_path_ms(run["sims"][side]))
+        run["ms"], run["ms2"] = (statistics.median(t) for t in turns)
+        print(f"path simulate {tag} (mega_depth={RING_PATH_DEPTH}, or the "
+              f"read-site wait) in turns: {run['ms']!r} ms/image "
+              f"({turns[0]!r}) against {run['ms2']!r} ({turns[1]!r}) for "
+              f"depth 2 (or the entry gate): {run['ms'] / run['ms2']!r}x "
+              f"[{card}]", flush=True)
+    return runs
+
+
+def ring_phase(checks: Checks, rng, card: str) -> tuple[dict, dict, dict]:
+    """Phase 17: the report, then 17a-17d."""
+    ring_report(checks)
+    n = compare_ring(checks, rng)
+    print(f"phase 17a: {n} comparisons of the ring's entries", flush=True)
+    times = time_ring(rng, card)
+    k7 = compare_read_site(checks, rng, card)
+    runs = ring_paths(checks, card)
+    return times, k7, runs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -3985,6 +4507,10 @@ def run_phases(args) -> int:
     t16 = time.perf_counter()
     fold_runs, fold_times = fold_phase(checks, rng, card)
     print(f"phase 16: {time.perf_counter() - t16!r} s", flush=True)
+    # 17. the window ring (mega_depth) of K2, K7's read-site wait
+    t17 = time.perf_counter()
+    ring_times, k7_read_site, ring_runs = ring_phase(checks, rng, card)
+    print(f"phase 17: {time.perf_counter() - t17!r} s", flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -4142,6 +4668,32 @@ def run_phases(args) -> int:
                 bound_by=by, library_ms=None, shape=list(MAIN_SHAPE),
                 steps=steps, boundary="naive", dtype=str(dtype)[6:],
                 naive_fold=True, exact_ms=naive_ms, zero_ms=zero_ms))
+    # the ring's entries: their launches on phase 17d's paths at
+    # RING_PATH_DEPTH, one launch's time at 1080x1920 at that depth beside
+    # depth 2's in the same turns (phase 17b)
+    for tag, (dtype, fold) in RING_K2.items():
+        boundary = "naive"
+        ms, bound, by = ring_times[tag, MAIN_SHAPE, boundary,
+                                   RING_PATH_DEPTH]
+        entries.append(dict(
+            KERNELS[tag], launches=ring_runs[tag]["launches"][tag],
+            max_abs_err=checks.kernel_err[tag], ms=ms,
+            plain_ms=ring_times["plain", tag], bound_ms=bound, bound_by=by,
+            library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
+            boundary=boundary, dtype=str(dtype)[6:], naive_fold=fold,
+            mega_depth=RING_PATH_DEPTH,
+            depth2_ms=ring_times[tag, MAIN_SHAPE, boundary, 2][0]))
+    # K7's read-site wait: its launches on phase 17d's 4x1 path, one
+    # launch's time on 4x1 at 1080x1920 beside the entry gate's (17c)
+    rs_ms, gate_ms, bound, by = k7_read_site[MAIN_SHAPE, (4, 1), "naive"]
+    entries.append(dict(
+        KERNELS["shmega_read_site"],
+        launches=ring_runs["shmega_read_site"]["launches"][
+            "shmega_read_site"],
+        max_abs_err=checks.kernel_err["shmega_read_site"], ms=rs_ms,
+        plain_ms=k7_read_site["plain"], bound_ms=bound, bound_by=by,
+        library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
+        boundary="naive", mesh=[4, 1], entry_gate_ms=gate_ms))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -72,6 +72,32 @@ path, within the budgets JAX gives ``store`` and ``slice``. As in JAX a
 value other than ``select`` needs the naive boundary, ``store`` refuses
 ``resident='on'``, and ``auto`` never runs K3 with ``store`` (``:490``).
 
+``mega_depth`` (None or 2..8, else ``ValueError``, as JAX's
+``backends/pallas.py:224-225``) runs K2's window ring: ``depth`` window
+slots, ``depth - 1`` loads in flight while a tile steps
+(``ops/megakernel.py:ring_geometry`` gives the tile and the depth that run:
+JAX's clamp to 2 under ``2 * depth`` tiles, 32x32 tiles where 64x64 ones
+do not fit the ring). It acts only where K2 runs: K6, like JAX's
+``packed_megastep`` (``grayscott_tpu/ops/megakernel.py:1112-1168``), takes no depth and
+runs the double buffer under any pin. ``auto`` does not pick the
+megakernel for it (JAX's ``_use_mega``). Every depth gives the same frames
+bit for bit. ``mega_specialize`` (None, True, False; JAX's
+interior-block specialisation, ``:227-232``, ``:370-382``) is inert: the
+port's kernels always step interior tiles without the boundary selects,
+bitwise to the edge code, so all three values run the same kernels. As in
+JAX it refuses ``naive_fix='store'`` and is declined silently on the
+packed layout; JAX has no flag for either knob (its constructor and its
+sweep's ``depth`` and ``spec`` keys take them), and neither has the port.
+
+An explicit ``steps_per_call`` pin (the kernels' K of 8) means "the
+windowed kernel with these knobs", as JAX's ``_explicit_k`` does
+(``backends/pallas.py:83``, ``:438-440``): ``engine="auto"`` then runs K1
+on the unpacked layout, and no record moves it to K2, K3 or a packed
+engine. A record whose engine the configuration refuses (``resident``
+under ``resident="off"``, bf16, ``naive_fold`` or ``naive_fix="store"``)
+runs K1 (K4 when packed), as JAX's verdict that is not ``mega`` runs the
+windowed kernel (``:463-465``).
+
 The buffers are updated in place, where the JAX backend gets fresh
 (donated) buffers from every call. ``engine`` (``auto|windowed|mega``),
 ``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
@@ -79,8 +105,7 @@ backend's names and values, and so do the other eight ``--pallas-*``
 flags. ``runtime_params`` on and off run the same kernels (they take the
 parameters by value), and ``steps_per_call`` runs ``None`` and the
 kernels' own K of 8; every other value of the JAX backend's knobs that the
-port does not run (lane fold, the megakernel's ring depth and
-specialisation, tile pins, another K) raises
+port does not run (lane fold, tile pins, another K) raises
 :class:`UnsupportedConfigError` naming its ROADMAP.md item.
 """
 
@@ -119,10 +144,6 @@ _TILES = "ROADMAP.md Queue 2 item 8 (column tiles, the temporal depth and " \
 _SUPPORTED = {
     "fold": (("auto", "off", 1), "ROADMAP.md Queue 2 item 7 (the lane-fold "
              "layout)"),
-    "mega_depth": ((None,), "ROADMAP.md Queue 2 item 3 (the megakernels' "
-                   "window ring)"),
-    "mega_specialize": ((None,), "ROADMAP.md Queue 2 item 1 (interior tiles "
-                        "are always on)"),
     "block_rows": ((None,), _TILES),
     "block_cols": ((None,), _TILES),
     "steps_per_call": ((None, K), _TILES),
@@ -264,8 +285,16 @@ class CudaSimulation(Simulation):
                 "fold excludes bf16 storage and column tiling", combo="fold")
         self._check_naive_modes(boundary, resident, fold, naive_fix,
                                 naive_fold)
-        knobs = dict(fold=fold, mega_depth=mega_depth,
-                     mega_specialize=mega_specialize, block_rows=block_rows,
+        #: the window ring's depth pin (ops/megakernel.py:ring_geometry)
+        self.mega_depth = None if mega_depth is None else \
+            megakernel.check_depth(mega_depth)
+        if mega_specialize and naive_fix == "store":
+            raise UnsupportedConfigError(
+                "mega_specialize and naive_fix='store' conflict; pin at most "
+                "one of them", combo="mega_specialize+naive_fix")
+        #: inert: interior tiles are always specialised, bitwise
+        self.mega_specialize = mega_specialize
+        knobs = dict(fold=fold, block_rows=block_rows,
                      block_cols=block_cols, steps_per_call=steps_per_call)
         for knob, value in knobs.items():
             runs, item = _SUPPORTED[knob]
@@ -276,6 +305,8 @@ class CudaSimulation(Simulation):
         self.engine = engine
         self.resident = resident
         self.pack = pack
+        #: a K pin: auto runs K1 unpacked (JAX's _explicit_k)
+        self._explicit_k = steps_per_call is not None
         self.naive_fix = naive_fix
         self.naive_fold = naive_fold
         self.tuned_lookup = tuned_lookup
@@ -356,7 +387,15 @@ class CudaSimulation(Simulation):
         autotune record for what is left on ``auto``, then
         :func:`auto_engine` (:func:`auto_packed_engine` when packed; K1 with
         bf16 storage, which never runs K3). Under ``naive_fold`` and
-        ``naive_fix='store'`` neither a record nor ``auto`` picks K3."""
+        ``naive_fix='store'`` neither a record nor ``auto`` picks K3; a
+        record whose engine is refused runs K1. Under a ``steps_per_call``
+        pin ``auto`` runs K1 and packs only on ``pack='on'``."""
+        if self._explicit_k:
+            packed = self.pack == "on"
+            if self.engine != "auto":
+                return packed, self.engine
+            return packed, "resident" if self.resident == "on" else \
+                "windowed"
         tuned = self.tuned(shape)
         record_packs = bool(tuned and tuned.get("pack"))
         packed = self.pack == "on" or (self.pack == "auto" and record_packs
@@ -372,9 +411,9 @@ class CudaSimulation(Simulation):
         resident_ok = (self.resident == "auto" and not bf16
                        and not self.naive_fold and self.naive_fix != "store")
         verdict = (tuned or {}).get("engine")
-        if verdict in ENGINES[1:] + ("resident",) and \
-                (resident_ok or verdict != "resident"):
-            return packed, verdict
+        if verdict in ENGINES[1:] + ("resident",):
+            refused = verdict == "resident" and not resident_ok
+            return packed, "windowed" if refused else verdict
         if packed:
             return packed, auto_packed_engine(shape, resident_ok=resident_ok)
         if bf16:
@@ -432,10 +471,12 @@ class CudaSimulation(Simulation):
             if n_full:
                 megakernel.megastep(u_pair, v_pair, n_full,
                                     megakernel.MEGA_STEPS, self.step_consts,
-                                    self.boundary, fold=self.naive_fold)
+                                    self.boundary, fold=self.naive_fold,
+                                    depth=self.mega_depth)
             if rem:
                 megakernel.megastep(u_pair, v_pair, 1, rem, self.step_consts,
-                                    self.boundary, fold=self.naive_fold)
+                                    self.boundary, fold=self.naive_fold,
+                                    depth=self.mega_depth)
             return storage
         if storage[0] == "resident":
             if steps == 0:
@@ -547,7 +588,7 @@ class CudaSimulation(Simulation):
             "masked selects; 'store' uses narrow scratch-ref stores "
             "(perf experiment, measured slower); 'slice' feeds the "
             "top-row strip from the laplacian's own shifted tensors — "
-            "measured +4.0% on-chip at 4096^2 naive, at ulp-scale drift "
+            "measured +4.0%% on-chip at 4096^2 naive, at ulp-scale drift "
             "from the frozen default (the naive_fold budget class). The "
             "port's kernels compute the clamped window per cell and have "
             "no strip to patch: all three run its exact naive path",
@@ -590,7 +631,8 @@ class CudaSimulation(Simulation):
                                 int),
             help="Temporal blocking depth (1..32 steps fused in VMEM; "
             "default 16 on TPU, autotuner may adjust). The port's kernels "
-            f"run K = {K} (another K: ROADMAP.md Queue 2 item 8)",
+            f"run K = {K} (another K: ROADMAP.md Queue 2 item 8); a pin of "
+            f"{K} holds 'auto' to the windowed kernel, unpacked",
         )
 
     @classmethod

@@ -15,10 +15,14 @@ image) for ``--images`` images, once to warm up, then ``--reps`` times in
 turns (the pins in order, then reversed), each on the host clock and ending
 in a device synchronise, as ``chip_smoke.py``'s phase 4 times it: frames
 kept in memory, PyTorch's pinned-memory cache filled first. Then it times
-the kernels alone with CUDA events: K1 (four 8-step launches) and K3 (one
-32-step launch) on a random state. Prints one JSON line: ms an image per
-run and pin with their median, the kernels' ms, and the card's name and
-power limit (``nvidia-smi``).
+the kernels alone with CUDA events, each 32 steps on a random state at
+1080x1920: K1 (four 8-step launches), K3 (one launch), K2 and K6 (one
+launch of 4 time blocks; also at 4096x4096) and K7 on 2x2 and 4x1 (one
+launch after the halo exchange), through calls that every commit since
+the sharded megakernel takes, so that the double buffer and the entry
+gate of a parent are timed against a change. Prints one JSON line: ms an
+image per run and pin with their median, the kernels' ms, and the card's
+name and power limit (``nvidia-smi``).
 """
 
 from __future__ import annotations
@@ -73,8 +77,11 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from grayscott_tpu_torch.ops import resident, windowed
-    from grayscott_tpu_torch.params import Parameters, kernel_constants
+    from grayscott_tpu_torch.ops import (megakernel, packed, resident,
+                                         sharded_mega, windowed)
+    from grayscott_tpu_torch.parallel import halo
+    from grayscott_tpu_torch.params import (Parameters, kernel_constants,
+                                            packed_constants)
     from grayscott_tpu_torch.utils import device as gpu
 
     if not torch.cuda.is_available():
@@ -110,8 +117,33 @@ def main(argv=None) -> int:
     def f3():
         k3[:] = resident.multistep(*k3, 32, consts, "naive")
 
-    kernels = {name: gpu.time_call(fn, "cuda", 40) * 1e3
-               for name, fn in (("K1 x4", f1), ("K3", f3))}
+    calls = [("K1 x4", f1, 40), ("K3", f3, 40)]
+    pc = packed_constants(Parameters())
+    for shape, reps in (((1080, 1920), 40), ((4096, 4096), 8)):
+        a, b = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+                .cuda() for _ in range(2))
+        pu, pv = megakernel.pair_state(a), megakernel.pair_state(b)
+        xp = megakernel.pair_state(packed.pack_state(a, b))
+        label = "" if shape == (1080, 1920) else " 4096"
+        calls.append((f"K2{label}", lambda pu=pu, pv=pv: megakernel.megastep(
+            pu, pv, 4, 8, consts, "naive"), reps))
+        calls.append((f"K6{label}", lambda xp=xp: megakernel.packed_megastep(
+            xp, 4, 8, pc), reps))
+    u_np, v_np = (rng.uniform(0, 1, (1080, 1920)).astype(np.float32)
+                  for _ in range(2))
+    for n_rows, n_cols in ((2, 2), (4, 1)):
+        mesh = halo.make_mesh(n_rows * n_cols, n_cols, "cuda")
+        pairs = halo.mega_shard_state(u_np, v_np, mesh)
+
+        def f7(pairs=pairs, mesh=mesh):
+            for p in pairs:
+                halo.exchange_halos(p)
+            sharded_mega.sharded_megastep(*pairs, mesh, 4, 8, consts, "naive",
+                                          (1080, 1920))
+
+        calls.append((f"K7 {n_rows}x{n_cols}", f7, 40))
+    kernels = {name: gpu.time_call(fn, "cuda", reps) * 1e3
+               for name, fn, reps in calls}
     print(json.dumps({
         "label": args.label, "tree": args.tree,
         "card": gpu.nvidia_smi("name,power.limit").splitlines()[0],

@@ -42,6 +42,13 @@ from ..utils.runtime import PLATFORMS, default_device
 
 
 def add_shared_args(parser: argparse.ArgumentParser) -> None:
+    # the port's support matrix (support.py), the table the README renders,
+    # as the --help epilog (grayscott_tpu/cli/shared.py:22-28)
+    from .. import support
+
+    if parser.epilog is None:
+        parser.epilog = support.render("text")
+        parser.formatter_class = argparse.RawDescriptionHelpFormatter
     parser.add_argument(
         "-k", "--killrate", type=float, default=None,
         help="Rate of the process which converts V into P",

@@ -266,21 +266,23 @@ __device__ __forceinline__ void grid_barrier(
 // `kernel` that are co-resident on `device` (occupancy x SMs, at `threads`
 // threads a block and `bytes` of dynamic shared memory), cached per device
 // in `cache`. A kernel that asks for dynamic shared memory is first allowed
-// `bytes` of it on `device` (a launch above 48 KB is refused without that);
-// a refusal is returned.
+// `allow` bytes of it on `device` (default: `bytes`; a launch above 48 KB is
+// refused without that); a refusal is returned. A kernel whose launches take
+// different sizes (the megakernels' window rings) is allowed the largest,
+// since the attribute caps every later launch, and keeps a cache per size.
 constexpr int MAX_DEVICES = 64;
 
 template <typename Kernel>
 cudaError_t coresident_blocks(Kernel kernel, int device, int* cache,
                               int* out, int threads = BLOCK_X * BLOCK_Y,
-                              size_t bytes = 0) {
+                              size_t bytes = 0, size_t allow = 0) {
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (cache[device] == 0) {
     cudaError_t err;
     if (bytes > 0) {
       err = cudaFuncSetAttribute(kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(bytes));
+                                 static_cast<int>(allow > 0 ? allow : bytes));
       if (err != cudaSuccess) return err;
     }
     int per_sm = 0, sms = 0;
@@ -298,21 +300,22 @@ cudaError_t coresident_blocks(Kernel kernel, int device, int* cache,
 
 // One cooperative launch of `kernel` with `args` on `stream` over the
 // tile x tile tiles of a rows x cols domain, `block` threads a block and
-// `bytes` of dynamic shared memory. `grid_blocks` <= 0 takes the co-resident
-// maximum (capped at the tile count); a larger grid than the card can hold
-// is refused with cudaErrorCooperativeLaunchTooLarge, and nothing falls
-// back.
+// `bytes` of dynamic shared memory (`allow`: coresident_blocks). `grid_blocks`
+// <= 0 takes the co-resident maximum (capped at the tile count); a larger
+// grid than the card can hold is refused with
+// cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
 template <typename Kernel>
 cudaError_t launch_persistent(Kernel kernel, void** args, int rows, int cols,
                               int grid_blocks, int device, int* cache,
                               cudaStream_t stream,
                               dim3 block = dim3(BLOCK_X, BLOCK_Y),
-                              size_t bytes = 0, int tile = TILE) {
+                              size_t bytes = 0, int tile = TILE,
+                              size_t allow = 0) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int most = 0;  // also allows the dynamic shared memory on first use
   err = coresident_blocks(kernel, device, cache, &most,
-                          block.x * block.y * block.z, bytes);
+                          block.x * block.y * block.z, bytes, allow);
   if (err != cudaSuccess) return err;
   int grid = grid_blocks;
   if (grid <= 0) {
@@ -335,11 +338,15 @@ cudaError_t launch_persistent(Kernel kernel, void** args, int rows, int cols,
 // CUDA error.
 template <typename Kernel>
 int max_blocks_or_error(Kernel kernel, int device, int* cache,
-                        int threads = BLOCK_X * BLOCK_Y, size_t bytes = 0) {
+                        int threads = BLOCK_X * BLOCK_Y, size_t bytes = 0,
+                        size_t allow = 0) {
+  if (device < 0 || device >= MAX_DEVICES) {
+    return -static_cast<int>(cudaErrorInvalidDevice);
+  }
   cudaError_t err = cudaSetDevice(device);
   int n = 0;
   if (err == cudaSuccess) {
-    err = coresident_blocks(kernel, device, cache, &n, threads, bytes);
+    err = coresident_blocks(kernel, device, cache, &n, threads, bytes, allow);
   }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }

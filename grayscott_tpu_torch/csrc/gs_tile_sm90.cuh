@@ -45,7 +45,9 @@
 //     80^2 windows of dynamic shared memory), stepped K <= HALO times with
 //     the valid region shrinking a cell a step; the megakernels walk their
 //     tiles through one time block with the next window loading while the
-//     finished tile is written out (time_block).
+//     finished tile is written out (time_block), or, at mega_depth D > 2,
+//     through a ring of D + 1 buffers with D - 1 loads in flight while a
+//     tile steps (ring_walk, ring_time_block).
 //   - K3's 32^2 tiles in 34^2 windows, one step a window (ring: load_tile,
 //     step_tile), which the resident kernels K3 and K9 walk every step.
 //   - The folded naive reaction (K1, K2; MODE_FOLD, step_strip_fold): JAX's
@@ -698,13 +700,19 @@ struct Geometry {
   static constexpr int TR = TR_, TC = TC_, NT = NT_, R = R_;
   static constexpr int WR = TR + 2 * HALO, WC = TC + 2 * HALO;
   static constexpr int CELLS = WR * WC;  // of one buffer of one species
-  static constexpr size_t BYTES = 4 * sizeof(float) * CELLS;  // 2 buffers
+  // one window buffer of both species, and time_block's two
+  static constexpr size_t PAIR_BYTES = 2 * sizeof(float) * CELLS;
+  static constexpr size_t BYTES = 2 * PAIR_BYTES;
   // blocks an SM: as many as the 227 KB of shared memory hold
   static constexpr int MIN_BLOCKS = BYTES <= 113 * 1024 ? 2 : 1;
   // blocks an SM at 64 registers a thread (the megakernels' bound: the
   // 64^2 tiles' two blocks, and four of the 32^2 tiles where, left at two,
   // ptxas takes up to 109 registers)
   static constexpr int BLOCKS_AT_64_REGS = 65536 / (64 * NT);
+  // blocks an SM at 128 registers a thread: the bound of the ring kernels,
+  // whose buffers leave room for at most that many blocks an SM on Main
+  // (mega_depth 3: 204,800 B) and, at depths 4 and 5, on Small
+  static constexpr int BLOCKS_AT_128_REGS = 65536 / (128 * NT);
   static_assert(WC % 4 == 0 && HALO % 4 == 0, "16-byte window rows");
 };
 
@@ -753,6 +761,77 @@ __device__ __forceinline__ bool window_inside(int r0, int c0, int rows,
   return r0 >= 0 && c0 >= 0 && r0 + G::WR <= rows && c0 + G::WC <= cols;
 }
 
+// A megakernel's per-tile work, which both walks of a time block
+// (time_block's double buffer, ring_walk's ring) run on window buffers at
+// `base` (each 2 * G::CELLS floats: U then V), for the tile whose window
+// starts at global (r0, c0), the halo included.
+
+// Start loading the tile's window into buffer b, committed as one cp.async
+// group (through registers where the storage is narrower than float).
+template <typename G, typename Layout, typename T>
+__device__ __forceinline__ void window_load(const Layout& mem, const T* u,
+                                            const T* v, float* base, int b,
+                                            int r0, int c0, int rows,
+                                            int cols, bool aligned) {
+  float* su = base + 2 * b * G::CELLS;
+  load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
+      mem, u, v, su, su + G::CELLS, r0, c0, rows, cols, aligned);
+  cp_async_commit();
+}
+
+// The tile's `steps` steps between buffer `done` (its window) and `other`,
+// each followed by a __syncthreads(); `interior`: its window lies in the
+// domain (no boundary selects). Returns the buffer that holds the result.
+template <typename G, int TAPS, int MODE, typename K>
+__device__ __forceinline__ int window_steps(float* base, int done, int other,
+                                            int steps, bool interior, int r0,
+                                            int c0, int rows, int cols,
+                                            const K& k) {
+  for (int st = 0; st < steps; ++st) {
+    const float* in_u = base + 2 * done * G::CELLS;
+    float* out_u = base + 2 * other * G::CELLS;
+    if (interior) {
+      step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
+                                       out_u + G::CELLS, st + 1, r0, c0,
+                                       rows, cols, k);
+    } else {
+      step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
+                                        out_u + G::CELLS, st + 1, r0, c0,
+                                        rows, cols, k);
+    }
+    __syncthreads();
+    const int t = done;
+    done = other;
+    other = t;
+  }
+  return done;
+}
+
+// Write the tile out from buffer b: the cells in the domain that `mem`
+// stores.
+template <typename G, typename Layout, typename T>
+__device__ __forceinline__ void window_store(const Layout& mem, T* u_out,
+                                             T* v_out, const float* base,
+                                             int b, int r0, int c0, int rows,
+                                             int cols) {
+  const float* fu = base + 2 * b * G::CELLS;
+  const float* fv = fu + G::CELLS;
+  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
+    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
+    const int gr = r0 + lr, gc = c0 + lc;
+    if (gr < rows && gc < cols && mem.stores(gr, gc)) {
+      const size_t g = mem.at(gr, gc);
+      u_out[g] = narrow<T>(fu[lr * G::WC + lc]);
+      v_out[g] = narrow<T>(fv[lr * G::WC + lc]);
+    }
+  }
+}
+
+// time_block's default gate: loads wait for nothing.
+struct NoGate {
+  __device__ __forceinline__ void operator()(int, int) const {}
+};
+
 // One time block of a megakernel (K2, K7): the block advances tiles first,
 // first + stride, ... (< n_tiles) of a grid tiles_x tiles wide, whose tile
 // (0, 0) starts at global (row0, col0), by `steps` (1..HALO) steps from
@@ -766,21 +845,20 @@ __device__ __forceinline__ bool window_inside(int r0, int c0, int rows,
 // the finished tile is written out. The first tile loads when the call
 // begins, so no load crosses the caller's barrier. Returns after a
 // __syncthreads() unless PREFETCH, whose buffers are free once every thread
-// is past the caller's next barrier.
+// is past the caller's next barrier. gate(i, stride) runs before each
+// window load, block-wide (K7's read-site wait; NoGate elsewhere).
 template <typename G, int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH,
-          typename Layout, typename T, typename K>
+          typename Layout, typename T, typename K, typename Gate = NoGate>
 __device__ __forceinline__ void time_block(
     const Layout& mem, const T* u, const T* v, T* u_out,
     T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
     int col0, int rows, int cols, int steps, const K& k,
-    bool aligned, float* base) {
+    bool aligned, float* base, const Gate& gate = Gate()) {
   auto load = [&](int i, int b) {
+    gate(i, stride);
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
-    float* su = base + 2 * b * G::CELLS;
-    load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
-        mem, u, v, su, su + G::CELLS, row0 + ti * G::TR - HALO,
-        col0 + tj * G::TC - HALO, rows, cols, aligned);
-    cp_async_commit();
+    window_load<G>(mem, u, v, base, b, row0 + ti * G::TR - HALO,
+                   col0 + tj * G::TC - HALO, rows, cols, aligned);
   };
   int i = first;
   int win = 0;  // the buffer that holds (or receives) the tile's window
@@ -794,37 +872,10 @@ __device__ __forceinline__ void time_block(
     const int r0 = row0 + ti * G::TR - HALO, c0 = col0 + tj * G::TC - HALO;
     const bool interior =
         SPECIALIZE && window_inside<G>(r0, c0, rows, cols);
-    // `steps` steps between buffer `done` and `other`; the result in `done`
-    int done = win, other = (win + 1) % 2;
-    for (int st = 0; st < steps; ++st) {
-      const float* in_u = base + 2 * done * G::CELLS;
-      float* out_u = base + 2 * other * G::CELLS;
-      if (interior) {
-        step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
-                                         out_u + G::CELLS, st + 1, r0, c0,
-                                         rows, cols, k);
-      } else {
-        step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
-                                          out_u + G::CELLS, st + 1, r0, c0,
-                                          rows, cols, k);
-      }
-      __syncthreads();
-      const int t = done;
-      done = other;
-      other = t;
-    }
+    const int done = window_steps<G, TAPS, MODE>(
+        base, win, (win + 1) % 2, steps, interior, r0, c0, rows, cols, k);
     if (PREFETCH && next < n_tiles) load(next, done ^ 1);
-    const float* fu = base + 2 * done * G::CELLS;
-    const float* fv = fu + G::CELLS;
-    for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
-      const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
-      const int gr = r0 + lr, gc = c0 + lc;
-      if (gr < rows && gc < cols && mem.stores(gr, gc)) {
-        const size_t g = mem.at(gr, gc);
-        u_out[g] = narrow<T>(fu[lr * G::WC + lc]);
-        v_out[g] = narrow<T>(fv[lr * G::WC + lc]);
-      }
-    }
+    window_store<G>(mem, u_out, v_out, base, done, r0, c0, rows, cols);
     if (PREFETCH) {
       win = done ^ 1;
     } else {
@@ -832,6 +883,128 @@ __device__ __forceinline__ void time_block(
     }
     i = next;
   }
+}
+
+// --- the window ring (mega_depth; K2) --------------------------------------
+//
+// grayscott_tpu/ops/megakernel.py:_mega_kernel(depth=D) keeps D window slots
+// and D - 1 window loads in flight ahead of the window it steps
+// (:562-630). Here a ring of D slots needs one more buffer, the step's
+// scratch (a step writes the other buffer, not in place): nbuf = D + 1
+// buffers of a window pair, D - 1 windows in flight while a tile steps and D
+// while it is written out. D = 2 is time_block's double buffer (two
+// buffers; the next window loads during the write-out), which K2 and K7
+// keep as their own walk. K6 runs only the double buffer: JAX's packed
+// megakernel takes no depth (packed_megastep_impl, megakernel.py:1112).
+
+// The most dynamic shared memory one block may opt into on the card
+// (Hopper: 227 KB).
+constexpr size_t SMEM_OPTIN = 232448;
+// The most buffers of a ring: mega_depth 8's slots and the scratch.
+constexpr int RING_MAX_BUFFERS = 9;
+
+// The most ring buffers of geometry G that one block's shared memory holds.
+template <typename G>
+__host__ __device__ constexpr int ring_max_buffers() {
+  return SMEM_OPTIN / G::PAIR_BYTES < RING_MAX_BUFFERS
+             ? static_cast<int>(SMEM_OPTIN / G::PAIR_BYTES)
+             : RING_MAX_BUFFERS;
+}
+
+// cp_async_wait<N> for a run-time N (0..RING_MAX_BUFFERS - 2; more waits as
+// for the largest).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// One time block's walk of the block's tiles first, first + stride, ...
+// (< n_tiles), numbered j = 0, 1, ..., through a ring of `nbuf` (2 ..
+// RING_MAX_BUFFERS) buffers: tile j's window starts loading once tile
+// j - nbuf + 1 has stepped, so nbuf - 2 loads are in flight while a tile
+// steps. The first nbuf - 1 windows load when the call begins, so no load
+// crosses the caller's barrier, and none is issued for a tile of the next
+// time block.
+//
+//   load(i, b):    start loading tile i's window into buffer b, and commit
+//                  it as one cp.async group (or load it through registers);
+//   run(i, b, s):  tile i's `steps` steps between buffer b (its window) and
+//                  s (the scratch), each followed by a __syncthreads();
+//   store(i, b):   write tile i out from buffer b.
+//
+// Which buffer holds what: with m = nbuf - steps % 2, tile j's window lies
+// in buffer j % m, and its scratch is buffer m (odd steps: the result ends in
+// the scratch, and the window's buffer is free) or (j - 1) % m (even steps:
+// the result ends in the window's buffer, and the scratch is free). The
+// buffer that a tile's last step read is free once that step's barrier is
+// passed, and takes the window nbuf - 1 tiles ahead, which the rule gives it
+// in both cases; the tile's result is the next tile's scratch, written only
+// after the barrier that follows the write-out. Returns without a trailing
+// __syncthreads(): the buffers are free once every thread is past the
+// caller's next barrier.
+template <typename Load, typename Run, typename Store>
+__device__ __forceinline__ void ring_walk(int first, int stride, int n_tiles,
+                                          int steps, int nbuf, Load&& load,
+                                          Run&& run, Store&& store) {
+  const int n = first < n_tiles ? (n_tiles - 1 - first) / stride + 1 : 0;
+  const int odd = steps & 1, m = nbuf - odd;
+  for (int j = 0; j < nbuf - 1 && j < n; ++j) load(first + j * stride, j);
+  int b = 0;  // j % m
+  for (int j = 0; j < n; ++j) {
+    const int i = first + j * stride;
+    // the windows of tiles j + 1 .. j + nbuf - 2 may stay in flight
+    cp_async_wait_upto(min(nbuf - 2, n - 1 - j));
+    __syncthreads();  // tile j's window is in place
+    const int s = odd ? m : (b == 0 ? m - 1 : b - 1);
+    run(i, b, s);
+    const int done = odd ? s : b;
+    if (j + nbuf - 1 < n) load(i + (nbuf - 1) * stride, odd ? b : s);
+    store(i, done);
+    b = b + 1 == m ? 0 : b + 1;
+  }
+}
+
+// time_block's time block (K2) on a ring of `nbuf` buffers at `base`:
+// ring_walk with time_block's window load, steps (interior tiles
+// specialised) and write-out.
+template <typename G, int TAPS, int MODE, typename Layout, typename T,
+          typename K>
+__device__ __forceinline__ void ring_time_block(
+    const Layout& mem, const T* u, const T* v, T* u_out, T* v_out,
+    int first, int stride, int n_tiles, int tiles_x, int row0, int col0,
+    int rows, int cols, int steps, const K& k, bool aligned, int nbuf,
+    float* base) {
+  auto corner = [&](int i, int* r0, int* c0) {
+    const int ti = i / tiles_x, tj = i - ti * tiles_x;
+    *r0 = row0 + ti * G::TR - HALO;
+    *c0 = col0 + tj * G::TC - HALO;
+  };
+  auto load = [&](int i, int b) {
+    int r0, c0;
+    corner(i, &r0, &c0);
+    window_load<G>(mem, u, v, base, b, r0, c0, rows, cols, aligned);
+  };
+  auto run = [&](int i, int b, int s) {
+    int r0, c0;
+    corner(i, &r0, &c0);
+    window_steps<G, TAPS, MODE>(base, b, s, steps,
+                                window_inside<G>(r0, c0, rows, cols), r0, c0,
+                                rows, cols, k);
+  };
+  auto store = [&](int i, int b) {
+    int r0, c0;
+    corner(i, &r0, &c0);
+    window_store<G>(mem, u_out, v_out, base, b, r0, c0, rows, cols);
+  };
+  ring_walk(first, stride, n_tiles, steps, nbuf, load, run, store);
 }
 
 // --- K3's tiles: 32^2 in 34^2 windows, one step a window (K3, K9) ----------
@@ -915,6 +1088,13 @@ inline bool rows_aligned(int cols, const void* a, const void* b,
     return reinterpret_cast<size_t>(p) % 16 == 0;
   };
   return cols % vec_cells<T>() == 0 && ok(a) && ok(b) && ok(c) && ok(d);
+}
+
+// Whether `tile` and `nbuf` name a ring that the ring kernels run: 64x64
+// tiles (Main) or 32x32 (Small), and 2 .. the geometry's most buffers.
+inline bool ring_ok(int tile, int nbuf) {
+  if (tile == Main::TR) return nbuf >= 2 && nbuf <= ring_max_buffers<Main>();
+  return tile == Small::TR && nbuf >= 2 && nbuf <= ring_max_buffers<Small>();
 }
 
 // Launch::run<TAPS>(args...) for the instantiation of the weights' tap

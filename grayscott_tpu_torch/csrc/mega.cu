@@ -59,29 +59,14 @@
 // block, so a run rounds where K1's launches and grayscott_tpu_torch's
 // stencil.run_bf16 round. The odd-count copy moves the bfloat16 cells as
 // they are.
+//
+// This is K2 at mega_depth 2 (the double buffer, and the default). Deeper
+// rings run mega_ring.cu's kernels, a translation unit of their own that
+// shares mega.cuh's call plumbing with this one.
 
-#include "gs_tile_sm90.cuh"
+#include "mega.cuh"
 
 namespace {
-
-namespace sm90 = gs::sm90;
-
-constexpr int HALO = sm90::HALO;  // most steps per time block (MEGA_STEPS)
-
-// The slot copy after an odd number of time blocks: slot 1 to slot 0, by
-// the whole grid of blocks of `threads` threads; `tid` is the thread's flat
-// index in its block.
-template <typename T>
-__device__ __forceinline__ void copy_slot(T* u_pair, T* v_pair,
-                                          size_t plane, int threads,
-                                          int tid) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * threads;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * threads + tid;
-       i < plane; i += stride) {
-    u_pair[i] = sm90::load_cg(u_pair + plane + i);
-    v_pair[i] = sm90::load_cg(v_pair + plane + i);
-  }
-}
 
 // MODE: sm90::MODE_ZERO, MODE_NAIVE (K = gs::Constants) or MODE_FOLD (K =
 // sm90::FoldConstants). SPECIALIZE = false takes every tile as an edge
@@ -135,16 +120,6 @@ first_stepper_kernel(float* u_pair, float* v_pair, int rows, int cols,
 }
 
 int first_stepper_cache[gs::MAX_DEVICES];  // 0 = not known yet
-
-template <typename T, typename K = gs::Constants>
-struct Call {
-  T *u_pair, *v_pair;
-  int rows, cols, n_blocks, steps, naive, device;
-  K k;
-  int grid_blocks;
-  unsigned long long* barrier;
-  cudaStream_t stream;
-};
 
 // One instantiation of mega_kernel: its co-resident blocks (cached per
 // device; the first query also allows it its dynamic shared memory) and its
@@ -259,27 +234,6 @@ cudaError_t fewest_blocks_all(int device, int* least) {
   return err;
 }
 
-// The C interface's checks; the call, or an error in `err`.
-template <typename T>
-Call<T> make_call(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
-                  int steps, int naive, int device, const float* w, float du,
-                  float dv, float feed, float min_feed_kill, float dt,
-                  int grid_blocks, void* barrier, void* stream,
-                  cudaError_t* err) {
-  *err = cudaSuccess;
-  if (rows < 1 || cols < 1 || n_blocks < 1 || steps < 1 || steps > HALO ||
-      device < 0 || device >= gs::MAX_DEVICES) {
-    *err = cudaErrorInvalidValue;
-  } else {
-    *err = cudaSetDevice(device);
-  }
-  return {u_pair, v_pair, rows, cols, n_blocks, steps, naive, device,
-          {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
-           du, dv, feed, min_feed_kill, dt},
-          grid_blocks, static_cast<unsigned long long*>(barrier),
-          static_cast<cudaStream_t>(stream)};
-}
-
 // gs_mega_multistep and its bf16 twin.
 template <typename T>
 int multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
@@ -300,17 +254,11 @@ int fold_multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                    int steps, int device, const float* fold, int separable,
                    int dt_is_one, int grid_blocks, void* barrier,
                    void* stream) {
-  if (rows < 1 || cols < 1 || n_blocks < 1 || steps < 1 || steps > HALO ||
-      device < 0 || device >= gs::MAX_DEVICES) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaSetDevice(device);
+  cudaError_t err;
+  const Call<T, sm90::FoldConstants> c =
+      make_fold_call(u_pair, v_pair, rows, cols, n_blocks, steps, device,
+                     fold, dt_is_one, grid_blocks, barrier, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Call<T, sm90::FoldConstants> c = {
-      u_pair, v_pair, rows, cols, n_blocks, steps, 1, device,
-      sm90::fold_constants(fold, dt_is_one), grid_blocks,
-      static_cast<unsigned long long*>(barrier),
-      static_cast<cudaStream_t>(stream)};
   return static_cast<int>(
       sm90::dispatch_fold<LaunchFold>(c.k, separable, c));
 }

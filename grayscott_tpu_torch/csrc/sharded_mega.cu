@@ -39,11 +39,24 @@
 //     into each diagonal neighbour's halo corner (megakernel.py:324-353),
 //     as 16-byte float4 copies (every band's width is a multiple of 4).
 //     Then one thread bumps each neighbour's counter for (slot, direction).
-//   - A shard enters time block t > 0 once the counter of slot t % 2 of
-//     every present neighbour shows the pushes of block t - 1: (t + 1) / 2,
-//     the pushes into that slot so far. Counters only grow within a launch,
-//     and the wrapper zeroes them for each launch. (Entry gating on every
-//     direction, as the TPU's 2-D form does, megakernel.py:419-427.)
+//   - On a 2-D mesh, and on a row mesh run with read_site = 0 (the
+//     entry-gated kernel, kept to time the read-site wait against), a shard
+//     enters time block t > 0 once the counter of slot t % 2 of every
+//     present neighbour shows the pushes of block t - 1: (t + 1) / 2, the
+//     pushes into that slot so far (the TPU's 2-D form, megakernel.py:
+//     419-427). Counters only grow within a launch, and the wrapper zeroes
+//     them for each launch.
+//   - On a row mesh (read_site = 1, a kernel of its own; the TPU's 1-D
+//     read-site waits, megakernel.py:428-463) a shard enters block t once
+//     the pushes of its neighbour above (its top halo rows) have arrived,
+//     steps every tile whose window stops above its bottom halo rows, and
+//     waits for the pushes of its neighbour below only before it loads the
+//     first tile whose window reaches them (tile rows from (r_loc - HALO) /
+//     TR on). The interior tiles step while that push is in flight. The
+//     wait comes before the load, not before the step: time_block's
+//     PREFETCH loads the next tile's window while it writes the current one
+//     out, so time_block calls the wait's gate (BottomGate) before every
+//     window load it issues, the prefetch's included.
 //   - After the last block the shard waits for the last pushes, so that its
 //     halos are fresh; when n_blocks is odd it then copies slot 1, halos
 //     included, to slot 0 (megakernel.py:635-671).
@@ -56,16 +69,30 @@
 // neighbour, and only by its pushes; pushes read only the sender's interior
 // and write only the receiver's halos.
 //   - Read after write: the pushes of block t into slot s = 1 - t % 2 of
-//     shard A are read by A in block t + 1, which A enters only after the
-//     counter shows them.
+//     shard A are read by A in block t + 1. Under the entry gate A enters
+//     block t + 1 only after the counter shows all of them. Under the
+//     read-site wait A reads its top halo rows only in windows of tile row
+//     0, which load after the entry wait for the pushes from above, and its
+//     bottom halo rows only in windows from tile row (r_loc - HALO) / TR
+//     on, which load after the wait for the pushes from below: each block
+//     waits before it loads the first of its tiles there (the prefetch's
+//     load included), and its later tiles come after that one.
 //   - Write after read: the next pushes into A's slot s come at the end of
-//     block t + 2. The sender B enters block t + 2 only after A's pushes of
-//     block t + 1 arrived, which A makes only after all its reads of block
-//     t + 1. So no push overwrites a halo cell before its reader is done
-//     (megakernel.py:512-520). Counters per slot keep a push into one slot
-//     from standing in for the other's (megakernel.py:382-391).
-//   - No window load crosses a group barrier or the wait for arrivals at the
-//     entry to a time block: a time block's first tile loads after both.
+//     block t + 2, after B's group barrier of that block. Before it, B has
+//     seen A's pushes of block t + 1 arrive: the entry gate waits for every
+//     neighbour at the entry; the read-site form waits for the neighbour
+//     above at the entry, and for the one below in each block that loads a
+//     tile of the bottom rows, of which the group has at least one, ahead of
+//     the group barrier, whose fences order the others after it. A makes
+//     those pushes only after its own group barrier, after all its reads of
+//     block t + 1. So no push overwrites a halo cell before
+//     its reader is done (megakernel.py:512-520). Counters per slot keep a
+//     push into one slot from standing in for the other's
+//     (megakernel.py:382-391).
+//   - No window load crosses a group barrier or a wait for arrivals: a time
+//     block's first tile loads after both, and the gate's wait, whose
+//     __syncthreads() comes after the previous tile's last step, precedes
+//     the load it guards.
 //   - Visibility: each block's pushes are ordered before the bump by
 //     __syncthreads(), a __threadfence() and an arrival on the group's gather
 //     counter; the group's first block waits for every arrival, fences and
@@ -90,9 +117,9 @@
 // Each shard's tiles are walked by its own group of about 1/n_shards of the
 // co-resident blocks, so a mesh can take more rounds of tiles than K2 (2x2
 // at 1080x1920: 135 tiles of 64^2 a shard on 66 blocks, 3 rounds, where K2
-// takes 2); the 32^2 geometry, with more blocks an SM, can take fewer. The
-// TPU kernel's overlap of interior rows with the exchange (its 1-D
-// read-site waits, megakernel.py:451-463) is later work.
+// takes 2); the 32^2 geometry, with more blocks an SM, can take fewer. On a
+// row mesh the read-site wait lets a shard's interior tile rows step while
+// the push from below is in flight.
 //
 // bf16 storage (gs_sharded_mega_describe_bf16, gs_sharded_mega_multistep_bf16;
 // the TPU kernel with a bfloat16 dtype): every shard's pairs are bfloat16.
@@ -148,16 +175,27 @@ static_assert(sizeof(ShardDesc<float>) == sizeof(ShardDesc<sm90::bf16>),
 
 __device__ __forceinline__ bool first_thread() { return threadIdx.x == 0; }
 
+// The arrivals a shard waits for: every direction (the entry gate), or on a
+// row mesh those that fill its top halo rows (pushed down by the neighbour
+// above) and its bottom halo rows (pushed up by the neighbour below).
+constexpr unsigned ALL_DIRS = (1u << N_DIRS) - 1;
+constexpr unsigned TOP_ROWS = 1u << 0;
+constexpr unsigned BOTTOM_ROWS = 1u << 1;
+
 // Wait until the counter of `slot` shows `count` pushes from every present
-// neighbour, then make what they pushed visible to the whole block.
+// neighbour whose direction is in `dirs`, then make what they pushed
+// visible to the whole block.
 template <typename T>
 __device__ __forceinline__ void wait_arrivals(const ShardDesc<T>& me, int slot,
-                                              unsigned long long count) {
+                                              unsigned long long count,
+                                              unsigned dirs = ALL_DIRS) {
   if (first_thread()) {
     const volatile unsigned long long* a =
         me.counters + ARRIVALS + slot * N_DIRS;
     for (int d = 0; d < N_DIRS; ++d) {
-      if (me.nbr_pair[opposite(d)][0] == nullptr) continue;
+      if (!((dirs >> d) & 1) || me.nbr_pair[opposite(d)][0] == nullptr) {
+        continue;
+      }
       while (a[d] < count) __nanosleep(32);
     }
     __threadfence();
@@ -229,9 +267,34 @@ __device__ __forceinline__ void arrive(const ShardDesc<T>& me, int slot,
   }
 }
 
+// The read-site wait's gate (READ_SITE; time_block calls it before each
+// window load): in time block t > 0, before the block loads its first tile
+// whose window reaches the bottom halo rows, the pushes from below. Tile row
+// r's window ends at (r + 1) * TR + HALO, so those are the tiles from
+// `split` = (r_loc - HALO) / TR rows of tiles_x on; a block's tiles lie
+// `stride` apart, so its first one there is the one in [split, split +
+// stride). One wait a block and a time block, from values the kernel holds
+// anyway (a second walk of time_block, or a flag, cost the naive
+// instantiations, at the 64 registers they are bound to, a spill).
+template <typename G, typename T>
+struct BottomGate {
+  const ShardDesc<T>& me;
+  int t, r_loc, tiles_x;
+
+  __device__ __forceinline__ void operator()(int i, int stride) const {
+    const int split = (r_loc - HALO) / G::TR * tiles_x;
+    if (t > 0 && i >= split && i - split < stride) {
+      wait_arrivals(me, t & 1, (t + 1) / 2, BOTTOM_ROWS);
+    }
+  }
+};
+
 // G: the tile geometry (gs_tile_sm90.cuh: Main, 64^2 tiles and 512
 // threads, two blocks an SM; Small, 32^2 and 256, four blocks an SM).
-template <typename G, int TAPS, bool NAIVE, typename T>
+// READ_SITE: the shards form a row mesh (the read-site wait: BottomGate),
+// else each time block's entry is gated on every direction. Two kernels,
+// not a run-time flag: a flag cost the naive instantiations a spill.
+template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
 __global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 sharded_mega_kernel(const ShardDesc<T>* shards, int n_shards, int rows,
                     int cols, int r_loc, int c_loc, int chalo, int n_blocks,
@@ -256,10 +319,18 @@ sharded_mega_kernel(const ShardDesc<T>* shards, int n_shards, int rows,
   const int n_tiles = tiles_x * ((r_loc + G::TR - 1) / G::TR);
   for (int t = 0; t < n_blocks; ++t) {
     const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
-    if (t > 0) wait_arrivals(me, t & 1, (t + 1) / 2);
-    sm90::time_block<G, TAPS, NAIVE, true, true>(
-        mem, u + src, v + src, u + dst, v + dst, rank, size, n_tiles,
-        tiles_x, me.row0, me.col0, rows, cols, steps, k, me.aligned, base);
+    if (!READ_SITE) {
+      if (t > 0) wait_arrivals(me, t & 1, (t + 1) / 2);
+      sm90::time_block<G, TAPS, NAIVE, true, true>(
+          mem, u + src, v + src, u + dst, v + dst, rank, size, n_tiles,
+          tiles_x, me.row0, me.col0, rows, cols, steps, k, me.aligned, base);
+    } else {
+      if (t > 0) wait_arrivals(me, t & 1, (t + 1) / 2, TOP_ROWS);
+      sm90::time_block<G, TAPS, NAIVE, true, true>(
+          mem, u + src, v + src, u + dst, v + dst, rank, size, n_tiles,
+          tiles_x, me.row0, me.col0, rows, cols, steps, k, me.aligned, base,
+          BottomGate<G, T>{me, t, r_loc, tiles_x});
+    }
     gs::group_barrier(me.counters + BARRIER, t + 1, size);
     push(me, 1 - (t & 1), r_loc, c_loc, chalo, pitch, plane, rank, size);
     arrive(me, 1 - (t & 1), t + 1, size, rank == 0);
@@ -280,7 +351,7 @@ sharded_mega_kernel(const ShardDesc<T>* shards, int n_shards, int rows,
 
 // One instantiation: its co-resident blocks (cached per device; the first
 // query also allows it its dynamic shared memory) and its launch.
-template <typename G, int TAPS, bool NAIVE, typename T>
+template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
 struct Sharded {
   static int* cache() {
     static int blocks[gs::MAX_DEVICES];  // 0 = not known yet
@@ -288,8 +359,9 @@ struct Sharded {
   }
 
   static cudaError_t max_blocks(int device, int* out) {
-    return gs::coresident_blocks(sharded_mega_kernel<G, TAPS, NAIVE, T>,
-                                 device, cache(), out, G::NT, G::BYTES);
+    return gs::coresident_blocks(
+        sharded_mega_kernel<G, TAPS, NAIVE, T, READ_SITE>, device, cache(),
+        out, G::NT, G::BYTES);
   }
 };
 
@@ -298,7 +370,7 @@ struct Call {
   int n_shards, rows, cols, r_loc, c_loc, chalo, n_blocks, steps, naive,
       device;
   gs::Constants k;
-  int grid_blocks, tile;
+  int grid_blocks, tile, read_site;
   cudaStream_t stream;
 };
 
@@ -306,10 +378,11 @@ struct Call {
 // count); a grid smaller than n_shards is refused with
 // cudaErrorInvalidValue, a larger grid than the card can hold with
 // cudaErrorCooperativeLaunchTooLarge.
-template <typename G, int TAPS, bool NAIVE, typename T>
+template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
 cudaError_t launch_one(const Call& c) {
   int most = 0;
-  cudaError_t err = Sharded<G, TAPS, NAIVE, T>::max_blocks(c.device, &most);
+  cudaError_t err =
+      Sharded<G, TAPS, NAIVE, T, READ_SITE>::max_blocks(c.device, &most);
   if (err != cudaSuccess) return err;
   int grid = c.grid_blocks;
   if (grid <= 0) {
@@ -325,7 +398,8 @@ cudaError_t launch_one(const Call& c) {
   void* args[] = {&desc,      &a.n_shards, &a.rows,  &a.cols,  &a.r_loc,
                   &a.c_loc,   &a.chalo,    &a.n_blocks, &a.steps, &a.k};
   err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sharded_mega_kernel<G, TAPS, NAIVE, T>),
+      reinterpret_cast<const void*>(
+          sharded_mega_kernel<G, TAPS, NAIVE, T, READ_SITE>),
       dim3(grid), dim3(G::NT), args, G::BYTES, c.stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the next launch must not report it
@@ -334,32 +408,51 @@ cudaError_t launch_one(const Call& c) {
   return cudaGetLastError();
 }
 
-// Launch<TAPS>::run<T>: the instantiation of the call's tile and boundary
-// on T.
+// The instantiation of the call's boundary and wait on G.
+template <typename G, int TAPS, typename T>
+cudaError_t launch_on(const Call& c) {
+  if (c.read_site) {
+    return c.naive ? launch_one<G, TAPS, true, T, true>(c)
+                   : launch_one<G, TAPS, false, T, true>(c);
+  }
+  return c.naive ? launch_one<G, TAPS, true, T, false>(c)
+                 : launch_one<G, TAPS, false, T, false>(c);
+}
+
+// Launch<TAPS>::run<T>: the instantiation of the call's tile, boundary and
+// wait on T.
 template <int TAPS>
 struct Launch {
   template <typename T>
   static cudaError_t run(const Call& c, T*) {
-    if (c.tile == sm90::Small::TR) {
-      return c.naive ? launch_one<sm90::Small, TAPS, true, T>(c)
-                     : launch_one<sm90::Small, TAPS, false, T>(c);
-    }
-    return c.naive ? launch_one<sm90::Main, TAPS, true, T>(c)
-                   : launch_one<sm90::Main, TAPS, false, T>(c);
+    return c.tile == sm90::Small::TR ? launch_on<sm90::Small, TAPS, T>(c)
+                                     : launch_on<sm90::Main, TAPS, T>(c);
   }
 };
 
+// The fewer of *least and the co-resident blocks of S.
+template <typename S>
+cudaError_t take_fewer(int device, int* least) {
+  int n = 0;
+  const cudaError_t err = S::max_blocks(device, &n);
+  if (err == cudaSuccess && n < *least) *least = n;
+  return err;
+}
+
 // The fewer of *least and the co-resident blocks of the G instantiations of
-// TAPS on T.
+// TAPS on T, both boundaries and both waits.
 template <typename G, int TAPS, typename T>
 cudaError_t fewest_blocks(int device, int* least) {
-  int naive = 0, zero = 0;
-  cudaError_t err = Sharded<G, TAPS, true, T>::max_blocks(device, &naive);
+  cudaError_t err = take_fewer<Sharded<G, TAPS, true, T, false>>(device, least);
   if (err == cudaSuccess) {
-    err = Sharded<G, TAPS, false, T>::max_blocks(device, &zero);
+    err = take_fewer<Sharded<G, TAPS, false, T, false>>(device, least);
   }
-  const int fewer = naive < zero ? naive : zero;
-  if (fewer < *least) *least = fewer;
+  if (err == cudaSuccess) {
+    err = take_fewer<Sharded<G, TAPS, true, T, true>>(device, least);
+  }
+  if (err == cudaSuccess) {
+    err = take_fewer<Sharded<G, TAPS, false, T, true>>(device, least);
+  }
   return err;
 }
 
@@ -435,7 +528,7 @@ int multistep(const void* shards, int n_shards, int rows, int cols,
               int r_loc, int c_loc, int chalo, int n_blocks, int steps,
               int naive, int device, const float* w, float du, float dv,
               float feed, float min_feed_kill, float dt, int grid_blocks,
-              int tile, void* stream) {
+              int tile, int read_site, void* stream) {
   if (n_shards < 1 || rows < 1 || cols < 1 || r_loc < HALO || c_loc < 1 ||
       chalo < 0 || chalo > HALO || n_blocks < 1 || steps < 1 ||
       steps > HALO || device < 0 || device >= gs::MAX_DEVICES ||
@@ -448,7 +541,8 @@ int multistep(const void* shards, int n_shards, int rows, int cols,
                   n_blocks, steps, naive, device,
                   {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
                    du, dv, feed, min_feed_kill, dt},
-                  grid_blocks, tile, static_cast<cudaStream_t>(stream)};
+                  grid_blocks, tile, read_site,
+                  static_cast<cudaStream_t>(stream)};
   return static_cast<int>(
       sm90::dispatch_taps<Launch>(c.k, c, static_cast<T*>(nullptr)));
 }
@@ -522,11 +616,12 @@ int gs_sharded_mega_multistep(const void* shards, int n_shards, int rows,
                               float w4, float w5, float w6, float w7,
                               float w8, float du, float dv, float feed,
                               float min_feed_kill, float dt, int grid_blocks,
-                              int tile, void* stream) {
+                              int tile, int read_site, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   return multistep<float>(shards, n_shards, rows, cols, r_loc, c_loc, chalo,
                           n_blocks, steps, naive, device, w, du, dv, feed,
-                          min_feed_kill, dt, grid_blocks, tile, stream);
+                          min_feed_kill, dt, grid_blocks, tile, read_site,
+                          stream);
 }
 
 // gs_sharded_mega_multistep over shards with bfloat16 pairs (described by
@@ -538,12 +633,12 @@ int gs_sharded_mega_multistep_bf16(
     int c_loc, int chalo, int n_blocks, int steps, int naive, int device,
     float w0, float w1, float w2, float w3, float w4, float w5, float w6,
     float w7, float w8, float du, float dv, float feed, float min_feed_kill,
-    float dt, int grid_blocks, int tile, void* stream) {
+    float dt, int grid_blocks, int tile, int read_site, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   return multistep<sm90::bf16>(shards, n_shards, rows, cols, r_loc, c_loc,
                                chalo, n_blocks, steps, naive, device, w, du,
                                dv, feed, min_feed_kill, dt, grid_blocks,
-                               tile, stream);
+                               tile, read_site, stream);
 }
 
 }  // extern "C"

@@ -27,6 +27,21 @@ runs the kernel with one part of its design taken out (``ABLATIONS``), for
 timing what each part buys; its launches are not the main path's and are
 not counted.
 
+``depth`` (``mega_depth``, 2..8; ``megakernel.py:_mega_kernel(depth=)``,
+the ring at ``:562-630``) runs the window ring: ``depth`` window slots and
+the step's scratch, ``depth - 1`` window loads in flight while a tile
+steps (``csrc/mega_ring.cu``, ``gs_tile_sm90.cuh:ring_walk``).
+:func:`ring_geometry` gives the tile and the depth that run: JAX's clamp to
+2 under ``2 * depth`` tiles, then 64x64 tiles while the ring fits a block's
+shared memory, else 32x32 (the port's counterpart of
+``choose_mega_geometry`` shrinking its tile with depth, ``:819-860``).
+Depth 2 on 64x64 tiles is the double buffer, the entries above; every other
+geometry runs the ring entries, counted in ``ring_launches``,
+``ring_bf16_launches``, ``ring_fold_launches`` and
+``ring_fold_bf16_launches``. The ring changes when a window loads, not what
+a step computes: every depth gives depth 2's result bit for bit, and the
+plain versions are the same.
+
 K6, the species-packed megakernel (``csrc/packed_mega.cu``), is the
 port's ``packed_megastep`` (``megakernel.py:1112``): the same time-block
 loop on one ``(2, R, 2C)`` pair of packed state ``[U | V]``
@@ -36,12 +51,15 @@ packed Hopper stepper (``csrc/gs_packed_sm90.cuh``): K2's 64x64 tiles in
 walks them, with register strips that keep the row pass out of shared
 memory. Its launches are counted in ``packed_launches``;
 :func:`packed_mega_ablation` (``PACKED_ABLATIONS``) runs it with one part
-of its design taken out, uncounted.
+of its design taken out, uncounted. Like JAX's ``packed_megastep``, it
+takes no depth: K6 always runs the double buffer, and a ``mega_depth`` pin
+does not reach the packed layout.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -61,6 +79,93 @@ fold_bf16_launches = 0
 
 #: K6 launches so far
 packed_launches = 0
+
+#: the ring entries' launches so far (``depth`` other than the double
+#: buffer): K2 on float32 and bfloat16 pairs, and its fold entries
+ring_launches = 0
+ring_bf16_launches = 0
+ring_fold_launches = 0
+ring_fold_bf16_launches = 0
+
+#: JAX's ``mega_depth`` values (``backends/pallas.py:224-225``)
+DEPTHS = range(2, 9)
+
+#: the most dynamic shared memory one block may opt into on an H100
+#: (227 KB), and what one SM holds (228 KB) with the 1 KB it reserves a
+#: block (csrc/gs_tile_sm90.cuh: SMEM_OPTIN)
+SMEM_OPTIN = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1_024
+
+#: tile edge -> bytes of one window buffer of both species (the tile and
+#: MEGA_STEPS cells on every side, float32; Geometry::PAIR_BYTES)
+PAIR_BYTES = {64: 2 * 4 * (64 + 2 * 8) ** 2, 32: 2 * 4 * (32 + 2 * 8) ** 2}
+
+#: the most buffers of a ring: depth 8's slots and the scratch
+RING_MAX_BUFFERS = 9
+
+
+class RingGeometry(NamedTuple):
+    """What a megakernel launch of a ``depth`` pin runs (ring_geometry)."""
+
+    tile: int  #: tile edge: 64 (64x64 tiles in 80x80 windows) or 32
+    depth: int  #: the depth after JAX's clamp
+    buffers: int  #: window buffers: 2 at depth 2, else depth + 1
+    bytes: int  #: dynamic shared memory of a block
+    blocks_per_sm: int  #: blocks an SM that the bytes leave room for
+
+    @property
+    def ring(self) -> bool:
+        """Whether the ring entries run it (else the double buffer)."""
+        return (self.tile, self.buffers) != (64, 2)
+
+
+def ring_buffers(depth: int) -> int:
+    """Window buffers of a ring of ``depth`` slots: the slots and the
+    step's scratch; depth 2 is the double buffer (two)."""
+    return 2 if depth == 2 else depth + 1
+
+
+def ring_max_buffers(tile: int) -> int:
+    """The most ring buffers of ``tile`` x ``tile`` tiles that one block's
+    shared memory holds (``gs_mega_ring_max_buffers``)."""
+    return min(RING_MAX_BUFFERS, SMEM_OPTIN // PAIR_BYTES[tile])
+
+
+def check_depth(depth) -> int:
+    """``depth`` (None: the double buffer, 2), or ValueError outside 2..8
+    (``grayscott_tpu/ops/megakernel.py:920-921``)."""
+    if depth is None:
+        return 2
+    if isinstance(depth, bool) or not isinstance(depth, int) \
+            or depth not in DEPTHS:
+        raise ValueError(f"mega_depth must be in [2, 8], got {depth}")
+    return depth
+
+
+def ring_geometry(shape: Tuple[int, int], depth: int | None = None,
+                  sharded: bool = False) -> RingGeometry:
+    """(tile, depth, buffers, bytes, blocks an SM) of a megakernel run of
+    a ``shape`` (R, C) domain under a ``depth`` pin.
+
+    The tile follows the pinned depth: 64x64 tiles while the ring fits the
+    shared memory a block may opt into (depths 2 and 3), else 32x32 (4-8).
+    Then JAX's clamp (``grayscott_tpu/ops/megakernel.py:1022-1028``,
+    ``:755-763``): depth 2 when sharded (K7 takes no depth) or when the
+    windows, here the tiles, number fewer than ``2 * depth``; the tile
+    stays the one the pin chose, as JAX's row tile does. ``blocks_per_sm``
+    counts the blocks that shared memory leaves room for (228 KB an SM, 1
+    KB reserved a block); the launch takes the occupancy API's count,
+    which registers may lower."""
+    d = check_depth(depth)
+    tile = 64 if ring_buffers(d) * PAIR_BYTES[64] <= SMEM_OPTIN else 32
+    r, c = shape
+    if sharded or -(-r // tile) * -(-c // tile) < 2 * d:
+        d = 2
+    buffers = ring_buffers(d)
+    nbytes = buffers * PAIR_BYTES[tile]
+    return RingGeometry(tile, d, buffers, nbytes,
+                        SMEM_SM // (nbytes + SMEM_RESERVED))
 
 #: the parts of K2's design that ``megastep_ablation`` takes out
 #: (csrc/mega.cu: gs_mega_ablation); each gives the whole kernel's result
@@ -93,6 +198,7 @@ _fold_fns: dict = {}
 _ablation_fn = None
 _packed_fn = None
 _packed_ablation_fn = None
+_ring_fns: dict = {}
 
 
 #: the plain PyTorch version: ``steps`` calls of ``stencil.step``
@@ -170,6 +276,30 @@ def _fold_kernel(dtype):
     return _fold_fns[dtype]
 
 
+def _check_ring_buffers():
+    """The library's most ring buffers a geometry equal this wrapper's."""
+    fn = build.bind("gs_mega_ring_max_buffers", [ctypes.c_int])
+    for tile in PAIR_BYTES:
+        if fn(tile) != ring_max_buffers(tile):
+            raise RuntimeError(
+                f"the ring kernels hold {fn(tile)} buffers of {tile}x{tile} "
+                f"tiles; this wrapper expects {ring_max_buffers(tile)}")
+
+
+def _ring_kernel(dtype, fold: bool):
+    """The ring entry of K2 for ``dtype`` pairs (``fold``: its fold
+    entry): the double buffer's arguments, then the tile and the buffers."""
+    key = (dtype, fold)
+    if key not in _ring_fns:
+        base = _fold_kernel(dtype) if fold else (
+            _bf16_kernel() if dtype == torch.bfloat16 else _kernel())
+        _check_ring_buffers()
+        name = "gs_mega_ring_multistep" + ("_fold" if fold else "") + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _ring_fns[key] = build.bind(name, base.argtypes + [ctypes.c_int] * 2)
+    return _ring_fns[key]
+
+
 def _ablation_kernel():
     global _ablation_fn
     if _ablation_fn is None:
@@ -192,21 +322,37 @@ def max_blocks(device: torch.device) -> int:
     return n
 
 
+def ring_max_blocks(device: torch.device, geometry: RingGeometry) -> int:
+    """The most blocks of one K2 ring launch of ``geometry`` that are
+    co-resident on ``device`` (the occupancy API's count at its bytes)."""
+    index = torch.device(device).index
+    n = build.bind("gs_mega_ring_max_blocks", [ctypes.c_int] * 3)(
+        torch.cuda.current_device() if index is None else index,
+        geometry.tile, geometry.buffers)
+    if n <= 0:
+        raise RuntimeError(f"mega ring kernel occupancy query failed: CUDA "
+                           f"error {-n} ({build.error_name(-n)})")
+    return n
+
+
 def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
              steps: int, consts: KernelConstants | FoldConstants,
-             boundary: str, grid: int = 0, fold: bool = False) -> None:
+             boundary: str, grid: int = 0, fold: bool = False,
+             depth: int | None = None) -> None:
     """Advance slot 0 of the pairs (both float32 or both bfloat16) by
     ``n_blocks`` x ``steps`` steps, in place. ``grid``: the blocks of the
     launch, 0 for the co-resident maximum. ``fold``: the folded naive
-    reaction, ``consts`` a ``FoldConstants`` and the boundary naive. On a
-    CUDA device the launch is enqueued on the current stream and not
-    waited for."""
-    global launches, bf16_launches
+    reaction, ``consts`` a ``FoldConstants`` and the boundary naive.
+    ``depth``: the window ring's depth (None: the double buffer; the
+    geometry that runs is :func:`ring_geometry`'s). On a CUDA device the
+    launch is enqueued on the current stream and not waited for."""
+    global launches, bf16_launches, ring_launches, ring_bf16_launches
     _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
            checks.STORAGE_DTYPES)
+    geometry = ring_geometry(tuple(u_pair.shape[1:]), depth)
     if fold:
         _fold_megastep(u_pair, v_pair, n_blocks, steps, consts, boundary,
-                       grid)
+                       grid, geometry)
         return
     bf16 = u_pair.dtype == torch.bfloat16
     if u_pair.device.type == "cpu":
@@ -219,6 +365,15 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         u_pair[0].copy_(ru)
         v_pair[0].copy_(rv)
         return
+    if geometry.ring:
+        fn = _ring_kernel(u_pair.dtype, False)
+        _launch(lambda *args: fn(*args, geometry.tile, geometry.buffers),
+                u_pair, v_pair, n_blocks, steps, consts, boundary, grid)
+        if bf16:
+            ring_bf16_launches += 1
+        else:
+            ring_launches += 1
+        return
     _launch(_bf16_kernel() if bf16 else _kernel(), u_pair, v_pair, n_blocks,
             steps, consts, boundary, grid)
     if bf16:
@@ -227,10 +382,11 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         launches += 1
 
 
-def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary,
-                   grid) -> None:
+def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
+                   geometry: RingGeometry) -> None:
     """:func:`megastep` with ``fold=True``."""
     global fold_launches, fold_bf16_launches
+    global ring_fold_launches, ring_fold_bf16_launches
     checks.check_fold(fc, boundary)
     if u_pair.device.type == "cpu":
         ru, rv = megastep_reference_fold(u_pair[0], v_pair[0], n_blocks,
@@ -241,14 +397,21 @@ def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary,
     _, rows, cols = u_pair.shape
     barrier = torch.zeros(1, dtype=torch.int64, device=u_pair.device)
     stream = torch.cuda.current_stream(u_pair.device).cuda_stream
-    err = _fold_kernel(u_pair.dtype)(
-        u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks, steps,
-        u_pair.device.index, *build.fold_args(fc), grid, barrier.data_ptr(),
-        stream)
+    ring = (geometry.tile, geometry.buffers) if geometry.ring else ()
+    fn = (_ring_kernel(u_pair.dtype, True) if ring
+          else _fold_kernel(u_pair.dtype))
+    err = fn(u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks,
+             steps, u_pair.device.index, *build.fold_args(fc), grid,
+             barrier.data_ptr(), stream, *ring)
     if err != 0:
         raise RuntimeError(f"mega fold kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
-    if u_pair.dtype == torch.bfloat16:
+    bf16 = u_pair.dtype == torch.bfloat16
+    if ring and bf16:
+        ring_fold_bf16_launches += 1
+    elif ring:
+        ring_fold_launches += 1
+    elif bf16:
         fold_bf16_launches += 1
     else:
         fold_launches += 1

@@ -25,6 +25,18 @@ Its launches are counted in ``bf16_launches``.
 The kernel steps 64x64 or 32x32 tiles (``TILES``); :func:`choose_tile`
 picks one per domain and mesh from the rounds of tiles that each shard's
 group of blocks walks, and the choice is logged once.
+
+On a row mesh with more than one tile row a shard waits for its
+neighbours' pushes where it reads them (JAX's 1-D read-site waits,
+``grayscott_tpu/ops/megakernel.py:428-463``): the push from above before
+its first tile, the push from below only before the first tile whose
+window reaches its bottom halo rows (:func:`read_site_applies`). 2-D
+meshes gate the entry to each time block on every direction (``:419-427``).
+``read_site=False`` runs the entry gate on a row mesh too, the form the
+read-site wait is timed against; the results are the same bit for bit.
+``read_site_launches`` counts the launches that waited at the read site
+(of either storage; they are counted in ``launches`` or ``bf16_launches``
+too).
 """
 
 from __future__ import annotations
@@ -52,6 +64,8 @@ TILES = {64: (64 + 2 * MEGA_STEPS) ** 2, 32: (32 + 2 * MEGA_STEPS) ** 2}
 launches = 0
 #: the bf16 entry's launches so far (bfloat16 pairs)
 bf16_launches = 0
+#: the launches that waited at the read site (row meshes)
+read_site_launches = 0
 
 _fns = None
 _bf16_fns = None
@@ -150,7 +164,7 @@ def _kernel():
                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5),
             build.bind("gs_sharded_mega_multistep",
                        [ctypes.c_void_p] + [ctypes.c_int] * 10
-                       + [ctypes.c_float] * 14 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] * 14 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p]))
     return _fns
 
@@ -202,6 +216,16 @@ def tile_for(shape, mesh: halo.Mesh) -> int:
     return _chosen[key]
 
 
+def read_site_applies(shape, mesh_shape, tile: int) -> bool:
+    """Whether K7 waits at the read site on a mesh of ``mesh_shape``: a
+    row mesh (one column, more than one row of shards) whose shards have
+    more than one row of ``tile`` x ``tile`` tiles (JAX: ``n_shard_cols ==
+    1`` and more than one window row, ``megakernel.py:428-463``)."""
+    n_r, n_c = mesh_shape
+    r_loc, _ = halo.shard_extents(shape, halo.Mesh(n_r, n_c, None))
+    return n_c == 1 and n_r > 1 and -(-r_loc // tile) > 1
+
+
 def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                 mesh: halo.Mesh, shape) -> None:
     """The pairs are those of ``shape`` on ``mesh``, in the shard layout,
@@ -222,15 +246,18 @@ def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
 def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                      mesh: halo.Mesh, n_blocks: int, steps: int,
                      consts: KernelConstants, boundary: str, shape,
-                     grid: int = 0, tile: int | None = None) -> None:
+                     grid: int = 0, tile: int | None = None,
+                     read_site: bool = True) -> None:
     """Advance every shard's slot 0 by ``n_blocks`` x ``steps`` steps of the
     domain ``shape`` (R, C), in place. ``grid``: the blocks of the launch,
     0 for the co-resident maximum; it must hold one block a shard.
     ``tile``: the tile edge (a key of ``TILES``), None for
-    :func:`tile_for`'s choice. On a CUDA device the launch is enqueued on
-    the current stream and not waited for. The pairs are float32 or
-    bfloat16 (the bf16 entry)."""
-    global launches, bf16_launches
+    :func:`tile_for`'s choice. ``read_site``: wait at the read site where
+    it applies (:func:`read_site_applies`); False gates every time block's
+    entry. On a CUDA device the launch is enqueued on the current stream
+    and not waited for. The pairs are float32 or bfloat16 (the bf16
+    entry)."""
+    global launches, bf16_launches, read_site_launches
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
@@ -267,13 +294,16 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     if tile is None:
         tile = tile_for(shape, mesh)
+    waits = read_site and read_site_applies(shape, mesh.shape, tile)
     err = fn(desc.data_ptr(), mesh.n_shards, shape[0], shape[1], r_loc,
              c_loc, ch, n_blocks, steps, int(boundary == "naive"),
              device.index, *consts.weights, *consts.reaction, grid, tile,
-             stream)
+             int(waits), stream)
     if err != 0:
         raise RuntimeError(f"sharded mega kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
+    if waits:
+        read_site_launches += 1
     if bf16:
         bf16_launches += 1
     else:

@@ -86,15 +86,16 @@ def to_record(res: dict) -> dict:
 
 def group_results(results: list[dict], platform: str) -> dict:
     """The results by store key: (shape, boundary, dtype) on ``platform``,
-    with the default stencil."""
+    with the default stencil; the dtype the result ran (``ran``, the
+    port's sweep), else the one its config names (JAX's lines)."""
     stencil = Parameters().stencil_name()
     by_key: dict[str, list[dict]] = {}
     for res in results:
         cfg = res["config"]
+        dtype = res.get("ran", {}).get("dtype", cfg.get("dtype", "float32"))
         key = cache.autotune_key(
             platform, tuple(cfg.get("shape", (4096, 4096))),
-            cfg.get("boundary", "zero"), stencil, KERNEL_VERSION,
-            cfg.get("dtype", "float32"))
+            cfg.get("boundary", "zero"), stencil, KERNEL_VERSION, dtype)
         by_key.setdefault(key, []).append(res)
     return by_key
 

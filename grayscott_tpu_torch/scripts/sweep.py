@@ -1,7 +1,10 @@
 """Hardware A/B sweep: the port of ``scripts/sweep.py``.
 
-Each configuration pins the ``cuda`` backend's engine, ``pack`` and
-``resident`` on one shape, boundary and step count, and prints one
+Each configuration pins the ``cuda`` backend's knobs under JAX's sweep
+keys (``engine``, ``resident``, ``pack``, ``dtype``, ``fix``, ``nfold``,
+``rt``, ``fold``, ``k``, ``depth``, ``spec``, ``tr``, ``tc``; the backend
+refuses the values it does not run) on one shape, boundary, storage dtype
+and step count, and prints one
 ``RESULT {json}`` line (``scripts/_sweep_util.py``); ``adopt_sweep`` turns
 the winners into autotune records. The configurations run one after
 another in this process. Every run is on the card unless ``--device cpu``
@@ -10,10 +13,10 @@ is given.
     python -m grayscott_tpu_torch.scripts.sweep --shape 1080x1920 \\
         --boundary zero --configs engine=windowed engine=mega \\
         resident=on pack=on:engine=mega > sweep.log
-    # full config dicts (keys: engine, resident, pack, shape, boundary,
-    # steps), a path or inline
-    python -m grayscott_tpu_torch.scripts.sweep \\
-        --json '[{"pack": "on", "resident": "on", "steps": 256}]'
+    # full config dicts (the keys above and shape, boundary, steps), a
+    # path or inline; --dtype sets the storage dtype of every config
+    python -m grayscott_tpu_torch.scripts.sweep --dtype bfloat16 \\
+        --json '[{"engine": "mega", "depth": 4, "steps": 256}]'
 """
 
 from __future__ import annotations
@@ -37,12 +40,14 @@ def main(argv=None) -> int:
     p.add_argument("--shape", type=parse_shape, default=[4096, 4096],
                    help="domain RxC (default 4096x4096)")
     p.add_argument("--boundary", default="zero", choices=["zero", "naive"])
+    p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
     p.add_argument("--steps", type=int, default=None,
                    help="steps per measurement (default 512)")
     p.add_argument("--configs", nargs="*", default=[],
                    metavar="KEY=VALUE[:KEY=VALUE]",
-                   help="configs as the backend's pins, e.g. engine=mega, "
-                   "resident=on, pack=on:engine=windowed")
+                   help="configs as the sweep's keys, e.g. engine=mega, "
+                   "resident=on, pack=on:engine=windowed, "
+                   "engine=mega:depth=4, nfold=on")
     p.add_argument("--json", default=None,
                    help="JSON list of full config dicts (a path or inline); "
                    "merged after --configs")
@@ -53,6 +58,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     base = {"shape": args.shape, "boundary": args.boundary}
+    if args.dtype:
+        base["dtype"] = args.dtype
     if args.steps:
         base["steps"] = args.steps
     configs = [dict(base, **parse_pins(spec)) for spec in args.configs]

@@ -236,8 +236,11 @@ def test_shipped_records_are_the_cards_and_never_reach_the_cpu():
      (True, "windowed")),
     ({"engine": "mega", "pack": True}, {"resident": "on"},
      (True, "resident")),
+    # ... and a record whose engine the pins refuse runs K1, as JAX's
+    # verdict that is not mega runs its windowed kernel
+    # (grayscott_tpu/backends/pallas.py:463-465)
     ({"engine": "resident", "pack": False}, {"resident": "off"},
-     (False, "mega")),
+     (False, "windowed")),
     # an auto record (a sweep's engine=auto winner) keeps the ranking
     ({"engine": None, "pack": False}, {}, (False, "mega")),
 ])

@@ -165,7 +165,8 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
 
 
 #: the ROADMAP.md items the port has done: a value of theirs runs
-PORTED = ("Queue 2 item 4", "Queue 2 item 5", "Queue 2 item 6")
+PORTED = ("Queue 2 item 1", "Queue 2 item 3", "Queue 2 item 4",
+          "Queue 2 item 5", "Queue 2 item 6")
 
 #: argv -> the ROADMAP.md item of the value (None, or an item in PORTED: it
 #: runs; another: the port's refusal names it)
@@ -241,3 +242,47 @@ def test_bad_variable_stops_both_parsers(clean_more_env, var, value):
     for module in (simulate, jax_simulate):
         with pytest.raises(SystemExit):
             module.build_parser()
+
+
+#: the knobs JAX's backend takes without a flag (its constructor and its
+#: sweep's ``spec`` and ``depth`` keys): keyword arguments -> the
+#: ROADMAP.md item of the value, as ARGV's
+CONSTRUCTOR = [
+    ({"mega_depth": 2}, "Queue 2 item 3"),
+    ({"mega_depth": 4}, "Queue 2 item 3"),
+    ({"mega_depth": 8, "engine": "mega"}, "Queue 2 item 3"),
+    ({"mega_depth": 5, "engine": "mega", "pack": "on"}, "Queue 2 item 3"),
+    ({"mega_specialize": True}, "Queue 2 item 1"),
+    ({"mega_specialize": False, "engine": "mega"}, "Queue 2 item 1"),
+    ({"mega_specialize": True, "engine": "mega", "naive_fix": "slice"},
+     "Queue 2 item 1"),
+    ({"fold": 4}, "Queue 2 item 7"),
+    ({"steps_per_call": 16}, "Queue 2 item 8"),
+]
+
+
+@pytest.mark.parametrize("kwargs,item", CONSTRUCTOR)
+def test_constructor_values_against_jax(kwargs, item):
+    """JAX's backend takes each value; the port runs the ported ones (the
+    frames of the same pins without the knob: the ring and the
+    specialisation change no result) and refuses the rest naming its
+    item."""
+    from grayscott_tpu.backends.pallas import PallasSimulation
+    from grayscott_tpu.params import Parameters as JaxParameters
+
+    boundary = "zero" if kwargs.get("pack") == "on" else "naive"
+    PallasSimulation(JaxParameters(), boundary=boundary, interpret=True,
+                     **kwargs)
+    if item not in PORTED:
+        with pytest.raises(UnsupportedConfigError, match=item):
+            CudaSimulation(Parameters(), boundary, device="cpu", **kwargs)
+        return
+    pins = {k: v for k, v in kwargs.items()
+            if k not in ("mega_depth", "mega_specialize")}
+    frames = []
+    for kw in (kwargs, pins):
+        sim = CudaSimulation(Parameters(), boundary, device="cpu", **kw)
+        species = sim.make_species((24, 32))
+        sim.perform_steps(species, 9)
+        frames.append(species.result_host())
+    assert (frames[0] == frames[1]).all()

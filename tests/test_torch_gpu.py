@@ -1444,3 +1444,147 @@ def test_simulate_fold_runs_k1_or_k2_never_k3(cuda_device, flags):
                 else stencil.run_naive_fold)(u, v, steps, fc)
         np.testing.assert_array_equal(frame.view(np.int32),
                                       v.float().numpy().view(np.int32))
+
+
+#: the ring's shapes: every depth unclamped (35 tiles of 32x32, 12 of
+#: 64x64; NaN and Inf fit), and one under the clamp
+RING_SHAPES = [(130, 210), (33, 65)]
+
+
+def ring_equal(a, b):
+    return bf16_equal(a, b) if a.dtype == torch.bfloat16 else bits_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,boundary", [
+    ("f32", "naive"), ("f32", "zero"), ("bf16", "naive"), ("bf16", "zero"),
+    ("fold", "naive"), ("fold bf16", "naive")])
+def test_k2_ring_bitwise_equals_plain_and_depth_two(cuda_device, entry,
+                                                    boundary):
+    """Every K2 entry at every mega_depth (the ring entries, or the double
+    buffer where the geometry is Main at depth 2), one launch of 3 time
+    blocks of 8 and of 2 of 5 steps: bit for bit the plain version's and
+    depth 2's, NaN and Inf included (bf16: NaN's bit pattern aside).
+    Tolerance: none."""
+    fold = entry.startswith("fold")
+    dtype = torch.bfloat16 if entry.endswith("bf16") else torch.float32
+    params = Parameters()
+    k = fold_constants(params) if fold else kernel_constants(params)
+    tag = ("ring_" + ("fold_" if fold else "")
+           + ("bf16_" if dtype == torch.bfloat16 else "") + "launches")
+    for shape in RING_SHAPES:
+        for u, v in fold_states(shape, cuda_device, dtype):
+            for n_blocks, steps in ((3, 8), (2, 5)):
+                if fold:
+                    want = megakernel.megastep_reference_fold(
+                        u, v, n_blocks, steps, k)
+                elif dtype == torch.bfloat16:
+                    want = megakernel.megastep_reference_bf16(
+                        u, v, n_blocks, steps, k, boundary)
+                else:
+                    want = megakernel.megastep_reference(
+                        u, v, n_blocks * steps, k, boundary)
+                at2 = None
+                for depth in megakernel.DEPTHS:
+                    ring = megakernel.ring_geometry(shape, depth).ring
+                    before = getattr(megakernel, tag)
+                    pu = megakernel.pair_state(u)
+                    pv = megakernel.pair_state(v)
+                    megakernel.megastep(pu, pv, n_blocks, steps, k, boundary,
+                                        fold=fold, depth=depth)
+                    torch.cuda.synchronize()
+                    assert getattr(megakernel, tag) == before + ring
+                    got = (pu[0], pv[0])
+                    assert all(ring_equal(a, b) for a, b in zip(got, want)), \
+                        (shape, depth, n_blocks, steps)
+                    if at2 is not None:
+                        assert all(ring_equal(a, b)
+                                   for a, b in zip(got, at2)), (shape, depth)
+                    at2 = at2 or got
+
+
+@pytest.mark.gpu
+def test_k6_declines_the_depth_pin(cuda_device):
+    """K6 through the backend under every mega_depth pin: the double
+    buffer runs (as JAX's packed megakernel takes no depth), counted in
+    ``packed_launches``, and no ring launch; the frames bit for bit the
+    plain packed version's, NaN and Inf included. Tolerance: none."""
+    from grayscott_tpu_torch.species import Species
+
+    pc = packed_constants(Parameters())
+    for shape in RING_SHAPES:
+        for u, v in fold_states(shape, cuda_device, torch.float32):
+            want = packed.unpack_state(
+                packed.packed_run(packed.pack_state(u, v), 24, pc),
+                shape[1])
+            for depth in megakernel.DEPTHS:
+                sim = CudaSimulation(Parameters(), "zero",
+                                     device=cuda_device, engine="mega",
+                                     pack="on", mega_depth=depth,
+                                     tuned_lookup=False)
+                before = (megakernel.packed_launches,
+                          megakernel.ring_launches)
+                species = Species(shape, sim.build_storage(
+                    u.cpu().numpy(), v.cpu().numpy()), sim)
+                sim.perform_steps(species, 24)
+                torch.cuda.synchronize()
+                assert (megakernel.packed_launches - before[0],
+                        megakernel.ring_launches - before[1]) == (1, 0)
+                assert all(bits_equal(torch.from_numpy(a), b.cpu())
+                           for a, b in zip(species.uv_host(), want)), \
+                    (shape, depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", megakernel.DEPTHS)
+def test_ring_blocks_follow_the_bytes(cuda_device, depth):
+    """The occupancy API's co-resident blocks of each ring geometry stay
+    within what its shared memory holds, at least one an SM."""
+    sms = torch.cuda.get_device_properties(cuda_device) \
+        .multi_processor_count
+    for shape in ((1080, 1920), (33, 65)):
+        g = megakernel.ring_geometry(shape, depth)
+        if not g.ring:
+            continue
+        n = megakernel.ring_max_blocks(cuda_device, g)
+        assert sms <= n <= g.blocks_per_sm * sms, (shape, g, n)
+
+
+#: row meshes where K7 waits at the read site: (shape, shards)
+READ_SITE = [((300, 200), 4), ((300, 97), 2), ((1000, 130), 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("shape,n", READ_SITE)
+@pytest.mark.parametrize("tile", sorted(sharded_mega.TILES))
+def test_k7_read_site_bitwise_equals_entry_gate(cuda_device, boundary, shape,
+                                                n, tile):
+    """K7 on a row mesh, one launch of 1, 3 and 4 time blocks: the
+    read-site wait (counted in ``read_site_launches``) bit for bit the
+    entry gate's and the plain version's, halos included. Tolerance:
+    none."""
+    consts = kernel_constants(Parameters())
+    mesh = halo.make_mesh(n, 1, cuda_device)
+    assert sharded_mega.read_site_applies(shape, mesh.shape, tile)
+    u, v = random_uv(shape, "cpu")
+    for n_blocks, steps in ((1, 8), (3, 8), (4, 5)):
+        runs = []
+        for read_site in (True, False, None):
+            pairs = halo.mega_shard_state(u, v, mesh)
+            for p in pairs:
+                halo.exchange_halos(p)
+            if read_site is None:
+                sharded_mega.sharded_megastep_reference(
+                    *pairs, n_blocks, steps, consts, boundary, shape)
+            else:
+                before = sharded_mega.read_site_launches
+                sharded_mega.sharded_megastep(
+                    *pairs, mesh, n_blocks, steps, consts, boundary, shape,
+                    tile=tile, read_site=read_site)
+                assert sharded_mega.read_site_launches == before + read_site
+            runs.append(pairs)
+        torch.cuda.synchronize()
+        for other in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], other)), \
+                (n_blocks, steps)

@@ -145,6 +145,7 @@ def test_every_port_module_imports_without_jax_or_h5py(probe):
         "grayscott_tpu_torch.cli.data_to_pics",
         "grayscott_tpu_torch.cli.livesim",
         "grayscott_tpu_torch.scripts.livesim_fps",
+        "grayscott_tpu_torch.support",
     }
     assert expected <= set(probe["imported"])
 

@@ -143,8 +143,8 @@ def test_pins_name_their_engine(pins, engine):
 @pytest.mark.parametrize("kwargs", [
     {"resident": "on", "engine": "mega"},
     {"resident": "on", "engine": "windowed"},
-    {"mega_depth": 4},
-    {"mega_specialize": True},
+    {"mega_specialize": True, "naive_fix": "store"},  # JAX's refusal
+    {"fold": 2},
     {"block_cols": 128},
 ])
 def test_unported_or_conflicting_pins_raise(kwargs):

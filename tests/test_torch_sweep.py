@@ -34,10 +34,11 @@ def test_sweep_prints_a_result_per_config(capsys):
     results = [json.loads(ln[len("RESULT "):]) for ln in lines
                if ln.startswith("RESULT ")]
     assert lines[-1] == "DONE" and len(results) == 3
+    plain = {"dtype": "float32", "nfold": False, "depth": None}
     assert [r["ran"] for r in results] == [
-        {"engine": "windowed", "pack": False},
-        {"engine": "mega", "pack": True},
-        {"engine": "resident", "pack": False}]
+        {"engine": "windowed", "pack": False, **plain},
+        {"engine": "mega", "pack": True, **plain},
+        {"engine": "resident", "pack": False, **plain}]
     for r in results:
         assert r["config"]["shape"] == [24, 32] and r["steps"] == 8
         assert r["gcells_per_sec"] > 0 and r["stats"]["n"] == 5

@@ -120,7 +120,7 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("block_rows", 8), ("fold", 2), ("pack", "on"), ("mega_depth", 4),
+    ("block_rows", 8), ("fold", 2), ("pack", "on"), ("steps_per_call", 16),
 ])
 def test_unported_knobs_raise(params, knob, value):
     from grayscott_tpu_torch.errors import UnsupportedConfigError
