@@ -154,7 +154,9 @@
 12. The autotuner (``bench/autotune.py``): ``autotune(persist=True)`` into
    a store of its own on the four configurations whose records
    ``bench/defaults.py`` ships (1080x1920 and 4096x4096, naive and zero),
-   every candidate run (K1, K2, K3; on zero also K4, K6, K5), each winner
+   every candidate run (K1, K2, K3, K1 at K = 16 and on 32x128 and
+   128x32 tiles; on zero also K4, K6, K5, K4 at K = 16 and on 32-row
+   tiles), each winner
    beside its shipped record and the candidates' times; a shipped record
    that names no candidate of its key, or whose engine trails the winner
    by 3 % or more, fails. Then ``simulate.run`` with ``--autotune`` twice
@@ -250,10 +252,34 @@
    the read-site wait against the entry gate, frame for frame; launch
    counts zeroed before each and read after. The ``kernels`` line gains
    the four ring entries and K7's read-site wait.
+18. The tile and depth pins of K1 and K4 (``--pallas-steps-per-call``,
+   ``--pallas-block-rows``, ``--pallas-block-cols``; ``ops/geometry.py``,
+   ``csrc/windowed_pins.cu``, K4's pinned entry in ``csrc/packed.cu``).
+   (a) Each pinned entry of K1 (float32 and bf16 on both boundaries, the
+   fold on both storages) one launch of K steps for K in 1, 3, 8, 12, 16,
+   24 and 32 on the default tiles, 32x32, 8x512, 64x128, 128x32 and
+   32x256, every combination whose window fits (the rest checked
+   refused, past 232,448 B), at 1080x1920 (and a NaN/Inf state),
+   1001x1920 and 40x40, and a subset at 4096x4096; the other stencils and
+   dt = 0.5 at 1001x1920; K4 on row tiles of 8, 32 and 128 at each K:
+   bit for bit the plain versions (the compiled geometry through the
+   compiled entries). (b) ptxas's report of the 23 pinned instantiations
+   (no spill, no stack). (c) ``simulate.run`` under ``--pallas-steps-per-call
+   16`` and ``4``, ``--pallas-block-rows 32 --pallas-block-cols 128``,
+   ``--pallas-pack on --pallas-steps-per-call 16`` and K = 16 on bf16, the
+   fold and both: ceil(32 / K) launches an image of the entry that runs,
+   the frames bit for bit the unpinned run's and the plain replay's. (d)
+   K1 at each pinned depth and tile shape, 96 steps a call, in turns with
+   the default geometry, and K4's pins, at 1080x1920 and 4096x4096,
+   beside the bound, the halo recompute and the blocks an SM; one K = 16
+   launch of each pinned entry beside the compiled K = 8 launch. (e)
+   ``bench.harness`` with ``--block-rows`` and ``--steps-per-call``. Phase
+   12's tuner measures K1's and K4's depth and tile candidates. The
+   ``kernels`` line gains the five pinned entries.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phases 16 and 17 and phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phases 16, 17 and 18 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -290,7 +316,9 @@ from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.bench import (autotune, defaults, headline, ladder,
                                        simulate_turns)
 from grayscott_tpu_torch.cli import livesim, shared, simulate
-from grayscott_tpu_torch.ops import (build, ilpsplit, megakernel, oplat,
+from grayscott_tpu_torch.errors import UnsupportedConfigError
+from grayscott_tpu_torch.ops import (build, geometry, ilpsplit, megakernel,
+                                     oplat,
                                      packed, resident, sharded_mega, stencil,
                                      windowed)
 from grayscott_tpu_torch.parallel import halo
@@ -373,6 +401,13 @@ COUNTERS = {
     # K7's launches that waited at the read site (row meshes; also counted
     # in shmega or shmega_bf16)
     "shmega_read_site": (sharded_mega, "read_site_launches"),
+    # the pinned entries of K1 and K4 (the tile and depth pins), counted
+    # apart
+    "windowed_pinned": (windowed, "pinned_launches"),
+    "windowed_pinned_bf16": (windowed, "pinned_bf16_launches"),
+    "windowed_pinned_fold": (windowed, "pinned_fold_launches"),
+    "windowed_pinned_fold_bf16": (windowed, "pinned_fold_bf16_launches"),
+    "packed_pinned": (packed, "pinned_launches"),
 }
 
 #: storage tags that share another tag's kernel (K7 and K1's shard entry on
@@ -544,6 +579,41 @@ KERNELS = {
         "source": "grayscott_tpu_torch/csrc/sharded_mega.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, row mesh: "
                     "the 1-D read-site waits, :428-463)",
+    },
+    "windowed_pinned": {
+        "name": "windowed_pinned_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (tr, tc, chalo, "
+                    "steps, halo: :929-999)",
+    },
+    "windowed_pinned_bf16": {
+        "name": "windowed_pinned_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (tr, tc, steps, "
+                    "halo; bfloat16 storage, :970-993)",
+    },
+    "windowed_pinned_fold": {
+        "name": "windowed_pinned_multistep_fold",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (tr, tc, steps, "
+                    "halo; fast_fold)",
+    },
+    "windowed_pinned_fold_bf16": {
+        "name": "windowed_pinned_multistep_fold_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (tr, tc, steps, "
+                    "halo; fast_fold, bfloat16 storage)",
+    },
+    "packed_pinned": {
+        "name": "packed_pinned_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/packed.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:1624 (tr, halo, "
+                    "steps)",
     },
 }
 
@@ -1881,12 +1951,14 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "11mega_kernel", "19sharded_mega_kernel",
                       "15ilpsplit_kernel", "13packed_kernel",
                       "22packed_resident_kernel", "18packed_mega_kernel",
-                      "11ring_kernel")
+                      "11ring_kernel", "13pinned_kernel",
+                      "20packed_pinned_kernel")
 #: of those, the ones whose instantiations must not spill (K2, K7, K4, K6,
-#: and K2's ring)
+#: K2's ring, and the pinned entries of K1 and K4)
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "13packed_kernel", "18packed_mega_kernel",
-                    "11ring_kernel")
+                    "11ring_kernel", "13pinned_kernel",
+                    "20packed_pinned_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -2844,8 +2916,11 @@ SHARDED_MARGIN = 0.03
 
 
 def ran(record: dict) -> tuple:
-    """(engine, packed) of a record or a candidate."""
-    return record["engine"], bool(record["pack"])
+    """(engine, packed, K, block_rows, block_cols) of a record or a
+    candidate: K1's and K4's depth and tile candidates apart."""
+    return (record["engine"], bool(record["pack"]),
+            record.get("steps_per_call", 8), record.get("block_rows"),
+            record.get("block_cols"))
 
 
 def sharded_ran(record: dict) -> tuple:
@@ -4350,6 +4425,438 @@ def ring_phase(checks: Checks, rng, card: str) -> tuple[dict, dict, dict]:
     return times, k7, runs
 
 
+# --- 18. the tile and depth pins of K1 and K4 -------------------------------
+
+#: the depths and the tile pins (block_rows, block_cols; None: the default
+#: rule, ops/geometry.py) of phase 18a, every combination that fits
+PIN_KS = (1, 3, 8, 12, 16, 24, 32)
+PIN_TILES = ((None, None), (32, 32), (8, 512), (64, 128), (128, 32),
+             (32, 256))
+#: phase 18a's shapes (the default run's, a last tile row of one row, no
+#: interior tile), and the 4096x4096 subset
+PIN_SHAPES = [MAIN_SHAPE, (1001, 1920), (40, 40)]
+PIN_BENCH = ((16, (None, None)), (32, (None, None)), (12, (32, 256)))
+#: K4's row tiles (JAX's packed kernel takes no column tile)
+PIN_PACKED_ROWS = (None, 32, 8, 128)
+#: K1's pinned entries by counter tag: (storage dtype, the folded naive
+#: reaction), and the compiled entry that runs the compiled geometry
+PIN_ENTRIES = {"windowed_pinned": (torch.float32, False),
+               "windowed_pinned_bf16": (torch.bfloat16, False),
+               "windowed_pinned_fold": (torch.float32, True),
+               "windowed_pinned_fold_bf16": (torch.bfloat16, True)}
+PIN_BASE = {"windowed_pinned": "windowed",
+            "windowed_pinned_bf16": "windowed_bf16",
+            "windowed_pinned_fold": "windowed_fold",
+            "windowed_pinned_fold_bf16": "windowed_fold_bf16"}
+#: phase 18c's simulate paths: label -> (flags, the counter of the entry
+#: that runs, K)
+PIN_PATHS = {
+    "k16": (["--pallas-steps-per-call", "16"], "windowed_pinned", 16),
+    "k4": (["--pallas-steps-per-call", "4"], "windowed", 4),
+    "tiles 32x128": (["--pallas-block-rows", "32", "--pallas-block-cols",
+                      "128"], "windowed_pinned", 8),
+    "pack k16": (ZERO_PACKED + ["--pallas-steps-per-call", "16"],
+                 "packed_pinned", 16),
+    "bf16 k16": (["--pallas-dtype", "bfloat16", "--pallas-steps-per-call",
+                  "16"], "windowed_pinned_bf16", 16),
+    "fold k16": (["--pallas-naive-fold", "on", "--pallas-steps-per-call",
+                  "16"], "windowed_pinned_fold", 16),
+    "fold bf16 k16": (["--pallas-naive-fold", "on", "--pallas-dtype",
+                       "bfloat16", "--pallas-steps-per-call", "16"],
+                      "windowed_pinned_fold_bf16", 16),
+}
+#: phase 18d: (K, block_rows, block_cols) of K1 timed in turns with the
+#: default (the first), steps a timed call (a multiple of every K), rounds
+PIN_TIMED = ((8, None, None), (4, None, None), (16, None, None),
+             (24, None, None), (32, None, None), (8, 32, 32),
+             (8, 32, 128), (8, 128, 32), (8, 64, 128))
+PIN_PACKED_TIMED = ((8, None), (16, None), (8, 32), (32, None))
+PIN_TIME_STEPS = 96
+PIN_ROUNDS = 2
+PIN_REPS = {MAIN_SHAPE: 10, BENCH_SHAPE: 3}
+
+
+def pin_plain(u, v, steps: int, tag: str, boundary: str,
+              params: Parameters):
+    """The plain version of one launch of ``steps`` steps of ``tag``'s
+    entry (bf16: rounded once, at the end)."""
+    dtype, fold = PIN_ENTRIES[tag]
+    bf16 = dtype == torch.bfloat16
+    if fold:
+        fc = fold_constants(params)
+        return (stencil.run_naive_fold_bf16(u, v, steps, fc, block=steps)
+                if bf16 else stencil.run_naive_fold(u, v, steps, fc))
+    consts = kernel_constants(params)
+    return (stencil.run_bf16(u, v, steps, consts, boundary, block=steps)
+            if bf16 else stencil.run(u, v, steps, consts, boundary))
+
+
+def pin_label(shape, g) -> str:
+    return f"{shape[0]}x{shape[1]} {g.label()}"
+
+
+def compare_pins(checks: Checks, rng) -> int:
+    """Phase 18a: each pinned entry of K1 (float32 and bf16 on both
+    boundaries, the fold on both storages) one launch of K steps for every
+    K of PIN_KS and tile pin of PIN_TILES that fits, at PIN_SHAPES (and a
+    NaN/Inf state at 1080x1920) and PIN_BENCH at 4096x4096, bit for bit
+    against its plain version (bf16: NaN's bit pattern aside); the
+    compiled geometry through the compiled entry; the other stencils and
+    dt = 0.5 at 1001x1920; K4 on PIN_PACKED_ROWS; each refused geometry
+    checked refused, its window past the shared memory. Returns the
+    comparisons made."""
+    n = refused = 0
+    params = Parameters()
+    states = [(s, False) for s in PIN_SHAPES] + [(MAIN_SHAPE, True),
+                                                 (BENCH_SHAPE, False)]
+    for shape, special in states:
+        u_np, v_np = bf16_state(rng, shape, special)
+        cases = (PIN_BENCH if shape == BENCH_SHAPE else
+                 [(k, t) for k in PIN_KS for t in PIN_TILES])
+        for tag, (dtype, fold) in PIN_ENTRIES.items():
+            if shape == BENCH_SHAPE and fold:
+                continue
+            u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                    for x in (u_np, v_np))
+            compare = (checks.compare_bf16 if dtype == torch.bfloat16
+                       else checks.compare_bits)
+            k_consts = fold_constants(params) if fold else \
+                kernel_constants(params)
+            for boundary in ("naive",) if fold else ("naive", "zero"):
+                plains = {}
+                for k, (tr, tc) in cases:
+                    try:
+                        g = geometry.resolve(shape, k, tr, tc)
+                    except UnsupportedConfigError as e:
+                        nbytes = int(re.search(r"needs (\d+) B",
+                                               str(e)).group(1))
+                        checks.expect(nbytes > geometry.SMEM_OPTIN,
+                                      f"pins {shape} K={k} {tr}x{tc}: "
+                                      f"refused at {nbytes} B")
+                        refused += 1
+                        continue
+                    if k not in plains:
+                        plains[k] = pin_plain(u, v, k, tag, boundary, params)
+                    uo, vo = torch.empty_like(u), torch.empty_like(v)
+                    windowed.multistep(u, v, uo, vo, k, k_consts, boundary,
+                                       fold=fold, geometry=g)
+                    state = " NaN and Inf" if special else ""
+                    compare(tag if not g.compiled else PIN_BASE[tag],
+                            (uo, vo), plains[k],
+                            f"{pin_label(shape, g)} K={k} {boundary}"
+                            f"{state}")
+                    n += 1
+    shape = PIN_SHAPES[1]
+    u_np, v_np = bf16_state(rng, shape, False)
+    u, v = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+    for label, p in OTHER_PARAMS:
+        for boundary in ("naive", "zero"):
+            for k, tr, tc in ((12, None, None), (16, 32, 128), (3, 8, 512),
+                              (24, 128, 32)):
+                g = geometry.resolve(shape, k, tr, tc)
+                uo, vo = torch.empty_like(u), torch.empty_like(v)
+                windowed.multistep(u, v, uo, vo, k, kernel_constants(p),
+                                   boundary, geometry=g)
+                checks.compare_bits("windowed_pinned", (uo, vo),
+                                    stencil.run(u, v, k, kernel_constants(p),
+                                                boundary),
+                                    f"{pin_label(shape, g)} K={k} "
+                                    f"{boundary} {label}")
+                n += 1
+    pc = packed_constants(params)
+    for shape, special in states[:4]:
+        u_np, v_np = bf16_state(rng, shape, special)
+        x = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                                for a in (u_np, v_np)))
+        for k in PIN_KS:
+            want = packed.packed_run(x, k, pc)
+            for tr in PIN_PACKED_ROWS:
+                g = geometry.resolve(shape, k, tr)
+                out = torch.empty_like(x)
+                packed.multistep(x, out, k, pc, geometry=g)
+                checks.compare_bits(
+                    "packed_pinned" if not g.compiled else "packed",
+                    (out,), (want,), f"{pin_label(shape, g)} K={k}"
+                    f"{' NaN and Inf' if special else ''}")
+                n += 1
+    big = geometry.Geometry(64, 64, 32)
+    try:
+        windowed.multistep(u, v, torch.empty_like(u), torch.empty_like(v), 8,
+                           kernel_constants(params), "naive", geometry=big)
+        checks.expect(False, f"{big.label()} launched")
+    except RuntimeError as e:  # the C entry's check (pin_ok)
+        print(f"pins {big.label()}: refused ({e})", flush=True)
+    print(f"phase 18a: {n} comparisons, {refused} geometries refused",
+          flush=True)
+    return n
+
+
+def pin_ptxas(checks: Checks, log: str) -> None:
+    """Phase 18b: ptxas's report of the pinned entries (K1's 22
+    instantiations and K4's): registers, stack and spills, none of which
+    may spill or take a stack frame. (Whether a change moved the compiled
+    geometries' code is ``grayscott_tpu_torch/scripts/sass_diff.py``'s
+    question, against the tree before it.)"""
+    if not log:
+        print("phase 18b: the library was reused, no ptxas report",
+              flush=True)
+        return
+    rows, entry, frame = {}, None, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = PTXAS_USED.search(line)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), frame)
+            entry = None
+    pinned = {name: r for name, r in rows.items()
+              if "13pinned_kernel" in name or "20packed_pinned_kernel" in name}
+    for name, (regs, frame) in sorted(pinned.items()):
+        print(f"ptxas pinned {name[name.index('pinned_kernel'):]}: {regs} "
+              f"registers, stack, spill stores, spill loads {frame}",
+              flush=True)
+    checks.expect(len(pinned) == 23 and all(
+        f == (0, 0, 0) for _, f in pinned.values()),
+        f"pinned entries: {len(pinned)} instantiations, stack or spills "
+        f"{[r for r in pinned.values() if r[1] != (0, 0, 0)]}")
+    print(f"phase 18b: {len(pinned)} pinned instantiations", flush=True)
+
+
+def pin_replay(flags: list, tag: str, k: int, params: Parameters):
+    """V after each image of the default run under ``flags``, from the
+    plain version on the card: the unpinned plain step (float32, the
+    packed layout), rounded to bf16 once a K-step block (bf16), or the
+    fold."""
+    u, v = (torch.from_numpy(x).to(DEVICE) for x in initial_uv(MAIN_SHAPE))
+    if tag == "packed_pinned":
+        return replay_packed_frames(MAIN_SHAPE, params, MAIN_IMAGES,
+                                    MAIN_STEPS, DEVICE)
+    dtype, fold = PIN_ENTRIES.get(tag, (torch.float32, False))
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
+    frames = []
+    for _ in range(MAIN_IMAGES):
+        if fold:
+            fc = fold_constants(params)
+            u, v = (stencil.run_naive_fold_bf16(u, v, MAIN_STEPS, fc,
+                                                block=k) if bf16 else
+                    stencil.run_naive_fold(u, v, MAIN_STEPS, fc))
+        elif bf16:
+            u, v = stencil.run_bf16(u, v, MAIN_STEPS,
+                                    kernel_constants(params), "naive",
+                                    block=k)
+        else:
+            u, v = stencil.run(u, v, MAIN_STEPS, kernel_constants(params),
+                               "naive")
+        frames.append(v.float())
+    return frames
+
+
+def pin_paths(checks: Checks, card: str) -> dict:
+    """Phase 18c: ``simulate.run`` (MAIN_IMAGES images of MAIN_STEPS steps
+    at 1080x1920) under each of PIN_PATHS, with the launch counts zeroed
+    before it and read after: ceil(32 / K) launches an image of the
+    entry that runs and no other; every frame bit for bit the unpinned
+    windowed run's (float32; the packed path: K4's unpinned run's) and
+    the plain replay's (bf16: rounded once a K-step block; the fold's).
+    Returns the runs by label."""
+    params = Parameters()
+    runs = {}
+    unpinned = {}
+    for label, flags in (("naive", ["--pallas-engine", "windowed"]),
+                         ("zero", ZERO_PACKED + ["--pallas-engine",
+                                                 "windowed"])):
+        ns = simulate.build_parser().parse_args(flags)
+        sim = shared.make_simulation(ns)
+        tag = "packed" if label == "zero" else "windowed"
+        unpinned[label] = ring_path(
+            checks, f"{' '.join(flags)} (unpinned)", sim,
+            {tag: MAIN_IMAGES * -(-MAIN_STEPS // windowed.K)})["frames"]
+    for label, (flags, tag, k) in PIN_PATHS.items():
+        ns = simulate.build_parser().parse_args(flags)
+        sim = shared.make_simulation(ns)
+        run = ring_path(checks, f"{' '.join(flags)}", sim,
+                        {tag: MAIN_IMAGES * -(-MAIN_STEPS // k)})
+        replay = pin_replay(flags, tag, k, params)
+        same = all(np.array_equal(f.view(np.int32),
+                                  r.cpu().numpy().view(np.int32))
+                   for f, r in zip(run["frames"], replay))
+        if tag in ("windowed", "windowed_pinned", "packed_pinned"):
+            ref = unpinned["zero" if tag == "packed_pinned" else "naive"]
+            same = same and all(np.array_equal(a.view(np.int32),
+                                               b.view(np.int32))
+                                for a, b in zip(run["frames"], ref))
+        print(f"path simulate {' '.join(flags)}: frames bitwise the "
+              f"unpinned run's and the plain replay's: {same}; "
+              f"{run['ms']!r} ms/image [{card}]", flush=True)
+        checks.expect(same, f"simulate {label} frames")
+        if tag in checks.kernel_err and not same:
+            checks.kernel_err[tag] = float("inf")
+        runs[label] = dict(run, tag=tag, k=k)
+    return runs
+
+
+def time_pins(rng, card: str) -> dict:
+    """Phase 18d: K1 under each pin of PIN_TIMED, PIN_TIME_STEPS steps a
+    call (ceil(steps / K) launches), in turns (PIN_ROUNDS rounds, in order
+    and reversed) with the default geometry, at 1080x1920 and 4096x4096,
+    naive and zero; K4 under PIN_PACKED_TIMED on zero; each time per step
+    beside the default's, the bound of the same work (output cell-steps at
+    the unfused float32 rate), the stepped-area ratio (the halo
+    recompute) and the blocks an SM. Then one K = 16 launch of each pinned
+    entry at 1080x1920 naive beside the compiled entry's K = 8 launch
+    (the kernels line), and their plain versions. Returns the times."""
+    out = {}
+    params = Parameters()
+    consts = kernel_constants(params)
+    steps = PIN_TIME_STEPS
+    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        for boundary in ("naive", "zero"):
+            calls = {}
+            for cfg in PIN_TIMED:
+                k, tr, tc = cfg
+                g = geometry.resolve(shape, k, tr, tc)
+                buf = [torch.from_numpy(a).to(DEVICE) for a in (u_np, v_np)]
+                buf += [torch.empty_like(buf[0]), torch.empty_like(buf[0])]
+
+                def call(buf=buf, k=k, g=g, boundary=boundary):
+                    a, b, c, d = buf
+                    for _ in range(steps // k):
+                        windowed.multistep(a, b, c, d, k, consts, boundary,
+                                           geometry=g)
+                        a, b, c, d = c, d, a, b
+                calls[cfg] = (call, g)
+            if boundary == "zero":
+                x = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                                        for a in (u_np, v_np)))
+                pc = packed_constants(params)
+                for k, tr in PIN_PACKED_TIMED:
+                    g = geometry.resolve(shape, k, tr)
+                    xb = [x.clone(), torch.empty_like(x)]
+
+                    def pcall(xb=xb, k=k, g=g):
+                        a, b = xb
+                        for _ in range(steps // k):
+                            packed.multistep(a, b, k, pc, geometry=g)
+                            a, b = b, a
+                    calls["packed", k, tr] = (pcall, g)
+            samples = {c: [] for c in calls}
+            order = list(calls)
+            for r in range(PIN_ROUNDS):
+                for c in (order if r % 2 == 0 else reversed(order)):
+                    samples[c].append(cuda_ms(calls[c][0], PIN_REPS[shape]))
+            bound, by = bound_ms(shape, steps, boundary)
+            for c in calls:
+                ms = statistics.median(samples[c])
+                g = calls[c][1]
+                base = (("packed", 8, None) if c[0] == "packed"
+                        else PIN_TIMED[0])
+                ratio = ms / statistics.median(samples[base])
+                k = c[1] if c[0] == "packed" else c[0]
+                if c[0] == "packed":
+                    bound_c, by_c = roofline_ms(shape, steps, PACKED_OPS)
+                else:
+                    bound_c, by_c = bound, by
+                out[shape, boundary, c] = ms
+                print(f"time pins {'K4' if c[0] == 'packed' else 'K1'} "
+                      f"{pin_label(shape, g)} K={k} {boundary}, {steps} "
+                      f"steps in {-(-steps // k)} launches: {ms!r} ms "
+                      f"(turns {samples[c]!r}), {ms / steps!r} ms a step, "
+                      f"{ratio!r}x the default geometry's; bound "
+                      f"{bound_c!r} ms ({by_c}), {100 * bound_c / ms!r} % "
+                      f"of it; stepped cells per output cell-step "
+                      f"{g.stepped_ratio(k)!r}, {g.blocks_per_sm} blocks an "
+                      f"SM [{card}]", flush=True)
+    u_np, v_np = (rng.uniform(0, 1, MAIN_SHAPE).astype(np.float32)
+                  for _ in range(2))
+    g16 = geometry.resolve(MAIN_SHAPE, 16)
+    for tag, (dtype, fold) in PIN_ENTRIES.items():
+        u, v = (torch.from_numpy(a).to(DEVICE).to(dtype) for a in (u_np,
+                                                                  v_np))
+        uo, vo = torch.empty_like(u), torch.empty_like(v)
+        kc = fold_constants(params) if fold else consts
+        pinned_ms = cuda_ms(lambda: windowed.multistep(
+            u, v, uo, vo, 16, kc, "naive", fold=fold, geometry=g16), 20)
+        k8_ms = cuda_ms(lambda: windowed.multistep(
+            u, v, uo, vo, 8, kc, "naive", fold=fold), 20)
+        plain = cuda_ms(lambda: pin_plain(u, v, 16, tag, "naive", params), 2)
+        cell_bytes = 8 if dtype == torch.bfloat16 else 16
+        ops = (fold_ops_per_cell_step(params) if fold
+               else ops_per_cell_step(params, "naive"))
+        bound, by = roofline_ms(MAIN_SHAPE, 16, ops, cell_bytes)
+        out[tag] = (pinned_ms, plain, bound, by, k8_ms)
+        print(f"time {tag} {pin_label(MAIN_SHAPE, g16)} naive, one launch "
+              f"of 16 steps: {pinned_ms!r} ms ({pinned_ms / 16!r} a step), "
+              f"the compiled entry's 8-step launch {k8_ms!r} ({k8_ms / 8!r} "
+              f"a step): {pinned_ms / 2 / k8_ms!r}x a step; bound {bound!r} "
+              f"ms ({by}); plain {plain!r} ms [{card}]", flush=True)
+    x = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                            for a in (u_np, v_np)))
+    xo = torch.empty_like(x)
+    pc = packed_constants(params)
+    pinned_ms = cuda_ms(lambda: packed.multistep(x, xo, 16, pc,
+                                                 geometry=g16), 20)
+    plain = cuda_ms(lambda: packed.packed_run(x, 16, pc), 2)
+    bound, by = roofline_ms(MAIN_SHAPE, 16, PACKED_OPS)
+    k8_ms = cuda_ms(lambda: packed.multistep(x, xo, 8, pc), 20)
+    out["packed_pinned"] = (pinned_ms, plain, bound, by, k8_ms)
+    print(f"time packed_pinned {pin_label(MAIN_SHAPE, g16)} zero, one "
+          f"launch of 16 steps: {pinned_ms!r} ms, the compiled 8-step "
+          f"launch {k8_ms!r}; bound {bound!r} ms ({by}); plain {plain!r} ms "
+          f"[{card}]", flush=True)
+    return out
+
+
+def pin_harness(checks: Checks, card: str) -> None:
+    """Phase 18e: ``bench.harness`` with ``--block-rows 32
+    --steps-per-call 16`` on ``cuda`` at 1024x2048, 32 steps, the compute
+    and device workloads: its rows labelled with the pins, and the pinned
+    entry launched (the counts zeroed before, read after), no compiled
+    K1 launch."""
+    from grayscott_tpu_torch.bench import harness
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as tmp:
+        out = os.path.join(tmp, "sweep.json")
+        reset_launches()
+        rc = harness.main(["--backends", "cuda", "--smin", "10", "--smax",
+                           "10", "--steps", "32", "--workloads",
+                           "compute,device", "--reps", "3", "--block-rows",
+                           "32", "--steps-per-call", "16", "-o", out])
+        torch.cuda.synchronize()
+        launches = {t: n for t, n in read_launches().items() if n}
+        rows = json.load(open(out))
+    table = [(r["workload"], r["block_rows"], r["steps_per_call"],
+              r["gcells_per_sec"]) for r in rows]
+    print(f"harness --block-rows 32 --steps-per-call 16: rc {rc}, rows "
+          f"{table}, launches {launches} [{card}]", flush=True)
+    checks.expect(rc == 0 and len(rows) == 2 and all(
+        (r["block_rows"], r["steps_per_call"]) == (32, 16) for r in rows)
+        and launches.get("windowed_pinned", 0) > 0
+        and "windowed" not in launches,
+        f"harness pins: rc {rc}, launches {launches}")
+
+
+def pins_phase(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 18: 18a-18e (18f is phase 12's tuner, whose candidates
+    include K1's and K4's depth and tile candidates)."""
+    n = compare_pins(checks, rng)
+    pin_ptxas(checks, log)
+    runs = pin_paths(checks, card)
+    times = time_pins(rng, card)
+    pin_harness(checks, card)
+    return n, runs, times
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -4395,10 +4902,11 @@ def run_phases(args) -> int:
                    and (row[2] or row[3])]
         counted = sum(any(row[0].startswith(k[2:]) for k in NO_SPILL_KERNELS)
                       for row in report)
-        print(f"ptxas: {counted} K2, K4, K6 and K7 instantiations, "
-              f"{len(spilled)} spill", flush=True)
+        print(f"ptxas: {counted} K2, K4, K6, K7 and pinned K1 and K4 "
+              f"instantiations, {len(spilled)} spill", flush=True)
         checks.expect(counted > 0 and not spilled,
-                      f"K2, K4, K6 and K7 instantiations spill: {spilled}")
+                      f"K2, K4, K6, K7 and pinned instantiations spill: "
+                      f"{spilled}")
     # K4's and K6's windows are dynamic shared memory, which ptxas does not
     # report
     for label, t in (("", megakernel.PACKED_TILE[0]),
@@ -4511,6 +5019,11 @@ def run_phases(args) -> int:
     t17 = time.perf_counter()
     ring_times, k7_read_site, ring_runs = ring_phase(checks, rng, card)
     print(f"phase 17: {time.perf_counter() - t17!r} s", flush=True)
+    # 18. the tile and depth pins of K1 and K4
+    t18 = time.perf_counter()
+    n18, pin_runs, pin_times = pins_phase(checks, rng, card, built.log)
+    print(f"phase 18: {n18} comparisons, {time.perf_counter() - t18!r} s",
+          flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -4694,6 +5207,22 @@ def run_phases(args) -> int:
         plain_ms=k7_read_site["plain"], bound_ms=bound, bound_by=by,
         library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
         boundary="naive", mesh=[4, 1], entry_gate_ms=gate_ms))
+    # the pinned entries: their launches on phase 18c's paths, one K = 16
+    # launch on 64x64 tiles at 1080x1920 beside the compiled entry's K = 8
+    # launch (phase 18d)
+    for tag, path in (("windowed_pinned", "k16"),
+                      ("windowed_pinned_bf16", "bf16 k16"),
+                      ("windowed_pinned_fold", "fold k16"),
+                      ("windowed_pinned_fold_bf16", "fold bf16 k16"),
+                      ("packed_pinned", "pack k16")):
+        ms, plain_ms, bound, by, k8_ms = pin_times[tag]
+        entries.append(dict(
+            KERNELS[tag], launches=pin_runs[path]["launches"][tag],
+            max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=list(MAIN_SHAPE), steps=16,
+            boundary="zero" if tag == "packed_pinned" else "naive",
+            steps_per_call=16, tile=[64, 64], compiled_k8_ms=k8_ms))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

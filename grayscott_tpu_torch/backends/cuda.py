@@ -4,8 +4,10 @@ its three engines, on two layouts, and bf16 storage.
 The unpacked layout (``pack`` ``auto`` or ``off``), both boundaries:
 
 - ``windowed`` (K1, ``ops/windowed.py``): storage ``("windowed", u, v,
-  u_next, v_next)``, plain ``(R, C)`` tensors, no padding (the kernel masks
-  the domain edge itself). ``run_steps`` makes ``divmod(steps, K)`` full
+  u_next, v_next, (K, tiles))``, plain ``(R, C)`` tensors, no padding (the
+  kernel masks the domain edge itself), and the depth and tiles it steps
+  with (:meth:`CudaSimulation.plan_for`), as JAX's storage carries its
+  ``tr`` and K. ``run_steps`` makes ``divmod(steps, K)`` full
   launches and one remainder launch (``backends/pallas.py:858-887``); each
   reads ``(u, v)`` and writes ``(u_next, v_next)``, then the pairs swap.
 - ``resident`` (K3, ``ops/resident.py``): storage ``("resident", u, v,
@@ -25,7 +27,7 @@ stencil (not ``5points``) and no tile pins, or it raises
 :class:`UnsupportedConfigError` naming ``pack``. Its engines:
 
 - ``windowed`` (K4, ``ops/packed.py:multistep``): storage ``("packed", x,
-  x_next)``; ``divmod(steps, 8)`` launches as K1's;
+  x_next, (K, tiles))``; ``divmod(steps, K)`` launches as K1's;
 - ``resident`` (K5, ``ops/packed.py:resident_multistep``): storage
   ``("respack", x, x_next)``; one launch per ``run_steps``;
 - ``mega`` (K6, ``ops/megakernel.py:packed_megastep``): storage
@@ -47,15 +49,15 @@ candidate so).
 ``dtype="bfloat16"`` (``--pallas-dtype``; ``backends/pallas.py:181-188``)
 stores the state in bfloat16, on the unpacked layout only: K1 and K2 widen
 each window to float32, step it in float32 and round the stored cells to
-bfloat16, to nearest even, once a block of at most 8 steps, so every engine
-rounds where ``ops/stencil.py:run_bf16`` does and they agree bit for bit;
-not with float32. ``build_storage`` rounds the initial state once;
-``extract_uv`` and ``extract_result`` return float32 copies holding the
-stored values (JAX's host views are f32). As in JAX, ``resident="on"``,
-``pack="on"`` and a lane-fold pin refuse bf16, and ``auto`` never runs
-K3, never packs and never folds with it: it follows a bf16 record's
-engine (records key on ``:bfloat16``), else runs K1, JAX's static default
-for bf16 (``backends/pallas.py:466-470``).
+bfloat16, to nearest even, once a block of at most K steps (8 unless
+pinned), so every engine rounds where ``ops/stencil.py:run_bf16`` does and
+they agree bit for bit; not with float32. ``build_storage`` rounds the
+initial state once; ``extract_uv`` and ``extract_result`` return float32
+copies holding the stored values (JAX's host views are f32). As in JAX,
+``resident="on"``, ``pack="on"`` and a lane-fold pin refuse bf16, and
+``auto`` never runs K3, never packs and never folds with it: it follows a
+bf16 record's engine (records key on ``:bfloat16``), else runs K1, JAX's
+static default for bf16 (``backends/pallas.py:466-470``).
 
 ``naive_fold=True`` (``--pallas-naive-fold on``; ``backends/pallas.py:
 232-252``) runs the folded naive reaction on K1 and K2, float32 and bf16:
@@ -89,13 +91,40 @@ JAX it refuses ``naive_fix='store'`` and is declined silently on the
 packed layout; JAX has no flag for either knob (its constructor and its
 sweep's ``depth`` and ``spec`` keys take them), and neither has the port.
 
-An explicit ``steps_per_call`` pin (the kernels' K of 8) means "the
-windowed kernel with these knobs", as JAX's ``_explicit_k`` does
-(``backends/pallas.py:83``, ``:438-440``): ``engine="auto"`` then runs K1
-on the unpacked layout, and no record moves it to K2, K3 or a packed
-engine. A record whose engine the configuration refuses (``resident``
-under ``resident="off"``, bf16, ``naive_fold`` or ``naive_fix="store"``)
-runs K1 (K4 when packed), as JAX's verdict that is not ``mega`` runs the
+The temporal depth and the tile pins (``steps_per_call`` 1..32,
+``block_rows``, ``block_cols``; ``ops/geometry.py``) run on K1, and K4
+where JAX's packed windowed kernel takes them (``block_rows`` and K:
+``backends/pallas.py:554-583``). ``run_steps`` then launches
+``divmod(steps, K)`` blocks of K steps and one of the remainder on the
+tiles the pins give; 64x64 tiles at K <= 8 are the compiled entries', any
+other geometry the pinned ones. Exact float32 results do not depend on K
+or the tiles; bf16 storage rounds once a K-step block
+(``pallas_stencil.py:970-993``), so a K pin changes its results, as in
+JAX. A K other than 1..32 raises JAX's ``ValueError`` (``:90-94``), and a
+window past the shared memory a block may use raises
+:class:`UnsupportedConfigError` naming its bytes. As in JAX:
+
+- an explicit K or a tile pin means "the windowed kernel with these
+  knobs" (``_explicit_k``, ``:83``; ``:447-460``, ``:485-497``,
+  ``:526-532``): ``engine="auto"`` then runs K1, packs only on
+  ``pack="on"``, and no record moves it to K2, K3 or a packed engine;
+  ``resident="on"`` still runs K3 (K5 packed), which takes no pin
+  (``_use_resident``: the pin is checked first);
+- ``engine="mega"`` with a K other than 8 raises JAX's refusal
+  (``:144-152``); ``pack="on"`` with ``block_cols`` raises JAX's
+  (``:507-519``). The megakernels' tile pins (K2, K6) are not ported yet
+  (ROADMAP.md Queue 2 item 12) and raise naming it;
+- a record's ``steps_per_call`` is adopted when K is not pinned
+  (``_tuned_k``, ``:315-327``), its ``block_rows`` and ``block_cols`` when
+  they are not pinned and the record's K is the run's (``:270-313``;
+  ADVICE.md #2: tiles measured at another K do not transfer), from a
+  windowed record of the run's layout only. Records key on the card
+  (``utils/device.py:autotune_platform``), so a CPU record never reaches
+  the card.
+
+A record whose engine the configuration refuses (``resident`` under
+``resident="off"``, bf16, ``naive_fold`` or ``naive_fix="store"``) runs
+K1 (K4 when packed), as JAX's verdict that is not ``mega`` runs the
 windowed kernel (``:463-465``).
 
 The buffers are updated in place, where the JAX backend gets fresh
@@ -103,9 +132,8 @@ The buffers are updated in place, where the JAX backend gets fresh
 ``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
 backend's names and values, and so do the other eight ``--pallas-*``
 flags. ``runtime_params`` on and off run the same kernels (they take the
-parameters by value), and ``steps_per_call`` runs ``None`` and the
-kernels' own K of 8; every other value of the JAX backend's knobs that the
-port does not run (lane fold, tile pins, another K) raises
+parameters by value); every other value of the JAX backend's knobs that
+the port does not run (the lane fold, the megakernels' tile pins) raises
 :class:`UnsupportedConfigError` naming its ROADMAP.md item.
 """
 
@@ -119,7 +147,7 @@ import numpy as np
 import torch
 
 from ..errors import UnsupportedConfigError
-from ..ops import megakernel, packed, resident, windowed
+from ..ops import geometry, megakernel, packed, resident, windowed
 from ..params import (Parameters, fold_constants, kernel_constants,
                       packed_constants)
 from .base import Simulation, env_default, storage_dtype
@@ -132,22 +160,23 @@ DTYPES = ("float32", "bfloat16")
 NAIVE_FIX = ("select", "store", "slice")
 ON_OFF = ("on", "off")
 
-#: the depth of every engine's time block (K1, K2, K4, K6): the one
-#: ``steps_per_call`` the port runs
+#: the depth of every engine's time block (K1, K2, K4, K6) where K is not
+#: pinned, and the megakernels' only one
 K = windowed.K
 
-_TILES = "ROADMAP.md Queue 2 item 8 (column tiles, the temporal depth and " \
-    "the tile pins)"
+#: where ROADMAP.md keeps the megakernels' tile pins
+MEGA_TILES = "ROADMAP.md Queue 2 item 12 (the megakernels' tile pins)"
 
 #: knob -> (the values the port runs, the JAX backend's names and values;
 #: where ROADMAP.md keeps the rest)
 _SUPPORTED = {
     "fold": (("auto", "off", 1), "ROADMAP.md Queue 2 item 7 (the lane-fold "
              "layout)"),
-    "block_rows": ((None,), _TILES),
-    "block_cols": ((None,), _TILES),
-    "steps_per_call": ((None, K), _TILES),
 }
+
+#: JAX's refusal of the packed layout (``backends/pallas.py:515-518``)
+PACK_REFUSAL = ("pack requires the zero boundary, f32 storage, a separable "
+                "stencil plan, and no fold/column tiling")
 
 #: L2 of an H100 (NVIDIA's data sheet), and the share of it that the four
 #: state buffers (U, V and their next step, f32) may fill in the "fits in
@@ -259,6 +288,9 @@ class CudaSimulation(Simulation):
                  runtime_params: bool = True, naive_fold: bool = False,
                  tuned_lookup: bool = True):
         super().__init__(params, boundary, device)
+        # JAX's order: the K range first, the megakernel's K with the
+        # engine's value (backends/pallas.py:90-94, :144-152)
+        self._check_k(engine, steps_per_call)
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got "
                              f"{engine!r}")
@@ -294,19 +326,25 @@ class CudaSimulation(Simulation):
                 "one of them", combo="mega_specialize+naive_fix")
         #: inert: interior tiles are always specialised, bitwise
         self.mega_specialize = mega_specialize
-        knobs = dict(fold=fold, block_rows=block_rows,
-                     block_cols=block_cols, steps_per_call=steps_per_call)
-        for knob, value in knobs.items():
-            runs, item = _SUPPORTED[knob]
-            if value not in runs:
-                raise UnsupportedConfigError(
-                    f"{knob}={value!r} is not ported to the cuda backend "
-                    f"yet ({item}); it runs {knob} in {runs}", combo=knob)
+        runs, item = _SUPPORTED["fold"]
+        if fold not in runs:
+            raise UnsupportedConfigError(
+                f"fold={fold!r} is not ported to the cuda backend yet "
+                f"({item}); it runs fold in {runs}", combo="fold")
+        self._check_tiles(engine, block_rows, block_cols)
         self.engine = engine
         self.resident = resident
         self.pack = pack
-        #: a K pin: auto runs K1 unpacked (JAX's _explicit_k)
+        #: the pins of K1's (and K4's) depth and tiles (ops/geometry.py)
+        self.steps_per_call = steps_per_call
+        self.block_rows = block_rows
+        self.block_cols = block_cols
+        #: a K pin (JAX's _explicit_k)
         self._explicit_k = steps_per_call is not None
+        #: a K or tile pin: auto runs the windowed kernel, packed only on
+        #: pack='on'
+        self._pinned = self._explicit_k or block_rows is not None or \
+            block_cols is not None
         self.naive_fix = naive_fix
         self.naive_fold = naive_fold
         self.tuned_lookup = tuned_lookup
@@ -319,10 +357,34 @@ class CudaSimulation(Simulation):
         self.fresh_result = bf16
         if pack == "on" and not self._pack_ok():
             raise UnsupportedConfigError(
-                "pack requires the zero boundary, float32 storage, a "
-                f"separable stencil plan and no tile pins; got boundary "
-                f"{boundary!r}, stencil {params.stencil_name()!r}, dtype "
-                f"{self.dtype}", combo="pack")
+                f"{PACK_REFUSAL}; got boundary {boundary!r}, stencil "
+                f"{params.stencil_name()!r}, dtype {self.dtype}, block_cols "
+                f"{block_cols!r}", combo="pack")
+
+    @staticmethod
+    def _check_k(engine, steps_per_call) -> None:
+        """JAX's rules of the K pin, with its messages
+        (``backends/pallas.py:90-94``, ``:144-152``)."""
+        if steps_per_call is not None:
+            geometry.check_steps_per_call(steps_per_call)
+        if engine == "mega" and steps_per_call not in (None, K):
+            raise UnsupportedConfigError(
+                "engine='mega' fixes steps-per-call at its halo depth "
+                f"K={K}; drop --pallas-steps-per-call",
+                combo="engine+steps_per_call")
+
+    @staticmethod
+    def _check_tiles(engine, block_rows, block_cols) -> None:
+        """The tiles positive ints, and the megakernels' tile pins refused
+        (not ported yet)."""
+        geometry.check_tile("block_rows", block_rows)
+        geometry.check_tile("block_cols", block_cols)
+        if engine == "mega" and (block_rows, block_cols) != (None, None):
+            raise UnsupportedConfigError(
+                "the megakernels' tile pins (engine='mega' with block_rows "
+                f"or block_cols) are not ported to the cuda backend yet "
+                f"({MEGA_TILES}); K2 and K6 run 64x64 tiles",
+                combo="engine+tiles")
 
     @staticmethod
     def _check_naive_modes(boundary, resident, fold, naive_fix,
@@ -361,10 +423,11 @@ class CudaSimulation(Simulation):
                 combo="naive_fold+resident")
 
     def _pack_ok(self) -> bool:
-        """Whether the packed layout runs this configuration (no tile pins
-        hold for every configuration the constructor takes)."""
+        """Whether the packed layout runs this configuration (JAX's
+        ``_use_pack`` conditions, ``backends/pallas.py:507-513``)."""
         return (self.boundary == "zero"
                 and self.storage_dtype == torch.float32
+                and self.block_cols is None
                 and self.params.separable_plan()[0] == "separable")
 
     @functools.cached_property
@@ -373,14 +436,45 @@ class CudaSimulation(Simulation):
 
     def tuned(self, shape: Tuple[int, int]) -> dict | None:
         """The autotune record of a domain of ``shape`` in this storage
-        dtype on this device (``bench/autotune.py:lookup``), or None;
-        always None with ``tuned_lookup=False``."""
+        dtype on this device under this run's K and tile pins
+        (``bench/autotune.py:lookup``), or None; always None with
+        ``tuned_lookup=False``."""
         if not self.tuned_lookup:
             return None
         from ..bench import autotune
 
         return autotune.lookup(self.params, shape, self.boundary,
-                               dtype=self.dtype, device=self.device)
+                               dtype=self.dtype, device=self.device,
+                               **self.pins())
+
+    def pins(self) -> dict:
+        """The K and tile pins, as the autotuner's keywords."""
+        return dict(steps_per_call=self.steps_per_call,
+                    block_rows=self.block_rows, block_cols=self.block_cols)
+
+    def plan_for(self, shape: Tuple[int, int], packed_layout: bool = False,
+                 tuned=None) -> Tuple[int, "geometry.Geometry"]:
+        """(K, tiles) that K1 (K4 on the packed layout) steps a domain of
+        ``shape`` with: the pins, then what the record ``tuned`` leaves on
+        ``auto`` (a windowed record of the same layout: its K where K is
+        not pinned, its tiles where they are not pinned and its K is the
+        run's), then K = 8 and the default tiles
+        (``geometry.resolve``)."""
+        rec = tuned
+        if rec and (bool(rec.get("pack")) != packed_layout
+                    or rec.get("engine") not in (None, "windowed")):
+            rec = None
+        k = self.steps_per_call
+        if k is None:
+            tk = (rec or {}).get("steps_per_call")
+            k = int(tk) if tk and 1 <= int(tk) <= \
+                geometry.MAX_STEPS_PER_CALL else K
+        tr, tc = self.block_rows, self.block_cols
+        if rec and rec.get("steps_per_call", K) == k:
+            tr = rec.get("block_rows") if tr is None else tr
+            if not packed_layout:
+                tc = rec.get("block_cols") if tc is None else tc
+        return k, geometry.resolve(shape, k, tr, tc)
 
     def layout_for(self, shape: Tuple[int, int]) -> Tuple[bool, str]:
         """(packed, engine) of a domain of ``shape``: the pins, then the
@@ -388,15 +482,19 @@ class CudaSimulation(Simulation):
         :func:`auto_engine` (:func:`auto_packed_engine` when packed; K1 with
         bf16 storage, which never runs K3). Under ``naive_fold`` and
         ``naive_fix='store'`` neither a record nor ``auto`` picks K3; a
-        record whose engine is refused runs K1. Under a ``steps_per_call``
-        pin ``auto`` runs K1 and packs only on ``pack='on'``."""
-        if self._explicit_k:
+        record whose engine is refused runs K1. Under a K or tile pin
+        ``auto`` runs K1 (K3 on ``resident='on'``) and packs only on
+        ``pack='on'``."""
+        return self._layout(shape, self.tuned(shape))
+
+    def _layout(self, shape: Tuple[int, int], tuned) -> Tuple[bool, str]:
+        """:meth:`layout_for` with the record ``tuned`` looked up."""
+        if self._pinned:
             packed = self.pack == "on"
             if self.engine != "auto":
                 return packed, self.engine
             return packed, "resident" if self.resident == "on" else \
                 "windowed"
-        tuned = self.tuned(shape)
         record_packs = bool(tuned and tuned.get("pack"))
         packed = self.pack == "on" or (self.pack == "auto" and record_packs
                                        and self._pack_ok())
@@ -430,17 +528,21 @@ class CudaSimulation(Simulation):
         u_t, v_t = (
             torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
             .to(self.device).to(self.storage_dtype) for x in (u, v))
-        packed_layout, engine = self.layout_for(u.shape)
+        tuned = self.tuned(u.shape)
+        packed_layout, engine = self._layout(u.shape, tuned)
+        # K1's and K4's (K, tiles) ride in the storage, as JAX's (tr, K) do
+        plan = (self.plan_for(u.shape, packed_layout, tuned),) \
+            if engine == "windowed" else ()
         if packed_layout:
             x = packed.pack_state(u_t, v_t)
             if engine == "mega":
                 return ("megapack", megakernel.pair_state(x))
-            return (PACKED_TAGS[engine], x, torch.empty_like(x))
+            return (PACKED_TAGS[engine], x, torch.empty_like(x), *plan)
         if engine == "mega":
             return ("mega", megakernel.pair_state(u_t),
                     megakernel.pair_state(v_t))
         return (engine, u_t, v_t, torch.empty_like(u_t),
-                torch.empty_like(v_t))
+                torch.empty_like(v_t), *plan)
 
     def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
@@ -464,7 +566,7 @@ class CudaSimulation(Simulation):
 
     def run_steps(self, storage, shape, steps: int):
         if storage[0] in ("packed", "respack", "megapack"):
-            return self._run_packed(storage, steps)
+            return self._run_packed(storage, shape, steps)
         if storage[0] == "mega":
             _, u_pair, v_pair = storage
             n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
@@ -483,15 +585,17 @@ class CudaSimulation(Simulation):
                 return storage
             return ("resident", *resident.multistep(
                 *storage[1:], steps, self.consts, self.boundary))
-        _, u, v, u_next, v_next = storage
-        n_full, rem = divmod(steps, windowed.K)
-        for k in [windowed.K] * n_full + ([rem] if rem else []):
+        _, u, v, u_next, v_next, plan = storage
+        k_max, g = plan
+        n_full, rem = divmod(steps, k_max)
+        for k in [k_max] * n_full + ([rem] if rem else []):
             windowed.multistep(u, v, u_next, v_next, k, self.step_consts,
-                               self.boundary, fold=self.naive_fold)
+                               self.boundary, fold=self.naive_fold,
+                               geometry=g)
             u, v, u_next, v_next = u_next, v_next, u, v
-        return ("windowed", u, v, u_next, v_next)
+        return ("windowed", u, v, u_next, v_next, plan)
 
-    def _run_packed(self, storage, steps: int):
+    def _run_packed(self, storage, shape, steps: int):
         """``run_steps`` on the packed layout (``backends/pallas.py:
         747-792``)."""
         pc = self.packed_consts
@@ -508,12 +612,13 @@ class CudaSimulation(Simulation):
                 return storage
             return ("respack", *packed.resident_multistep(
                 storage[1], storage[2], steps, pc))
-        _, x, x_next = storage
-        n_full, rem = divmod(steps, packed.K)
-        for k in [packed.K] * n_full + ([rem] if rem else []):
-            packed.multistep(x, x_next, k, pc)
+        _, x, x_next, plan = storage
+        k_max, g = plan
+        n_full, rem = divmod(steps, k_max)
+        for k in [k_max] * n_full + ([rem] if rem else []):
+            packed.multistep(x, x_next, k, pc, geometry=g)
             x, x_next = x_next, x
-        return ("packed", x, x_next)
+        return ("packed", x, x_next, plan)
 
     # -- CLI -----------------------------------------------------------------
 
@@ -528,8 +633,11 @@ class CudaSimulation(Simulation):
             "--pallas-block-rows", type=int,
             default=env_default("GRAYSCOTT_PALLAS_BLOCK_ROWS", None, int),
             help="Row-tile size of the Pallas kernel (multiple of 8; "
-            "default: VMEM budget heuristic). The port's kernels run "
-            "fixed tiles: a pin is refused (ROADMAP.md Queue 2 item 8)",
+            "default: VMEM budget heuristic). The port: the height of K1's "
+            "and K4's tiles (default 64, smaller where a deep "
+            "--pallas-steps-per-call leaves no room in shared memory); "
+            "holds 'auto' to the windowed kernel; refused with "
+            "--pallas-engine mega (ROADMAP.md Queue 2 item 12)",
         )
         parser.add_argument(
             "--pallas-block-cols", type=int,
@@ -537,8 +645,11 @@ class CudaSimulation(Simulation):
             help="Column-tile size (multiple of 128) for very wide domains; "
             "default: full width unless the window would exceed VMEM. "
             "With --pallas-engine mega, pins the megakernel's column tile. "
-            "The port's kernels run fixed tiles: a pin is refused "
-            "(ROADMAP.md Queue 2 item 8)",
+            "The port: the width of K1's tiles (default 64; at least the "
+            "domain's width: one tile column); holds 'auto' to the "
+            "windowed kernel, unpacked; refused with --pallas-pack on "
+            "(as in JAX) and --pallas-engine mega (ROADMAP.md Queue 2 item "
+            "12)",
         )
         parser.add_argument(
             "--pallas-dtype", choices=DTYPES,
@@ -549,7 +660,8 @@ class CudaSimulation(Simulation):
             "VMEM) that is NOT bit-compatible with the f32 reference "
             "semantics. The port runs it on K1 and K2 (and the sharded "
             "engines): the state is stored in bfloat16 and rounded once "
-            "every 8 steps; the resident kernel, the packed layout and "
+            "a block of K steps (8, or the --pallas-steps-per-call pin); "
+            "the resident kernel, the packed layout and "
             "lane folds refuse it",
         )
         parser.add_argument(
@@ -611,7 +723,7 @@ class CudaSimulation(Simulation):
             default=env_default("GRAYSCOTT_PALLAS_ENGINE", "auto",
                                 choices=ENGINES),
             help="Kernel engine: 'mega' runs the whole step loop in one "
-            "persistent launch (K2); 'windowed' launches K1 every 8 steps; "
+            "persistent launch (K2); 'windowed' launches K1 every K steps; "
             "'auto' (default) follows the autotune record, else picks by "
             "domain size, as measured on the card",
         )
@@ -630,9 +742,11 @@ class CudaSimulation(Simulation):
             default=env_default("GRAYSCOTT_PALLAS_STEPS_PER_CALL", None,
                                 int),
             help="Temporal blocking depth (1..32 steps fused in VMEM; "
-            "default 16 on TPU, autotuner may adjust). The port's kernels "
-            f"run K = {K} (another K: ROADMAP.md Queue 2 item 8); a pin of "
-            f"{K} holds 'auto' to the windowed kernel, unpacked",
+            "default 16 on TPU, autotuner may adjust). The port: K steps a "
+            f"launch of K1 and K4 in windows of max(ceil(K/8)*8, 8) cells "
+            f"around each tile (default {K}, an autotune record may adjust);"
+            " a pin holds 'auto' to the windowed kernel, unpacked; "
+            f"--pallas-engine mega takes {K} only",
         )
 
     @classmethod

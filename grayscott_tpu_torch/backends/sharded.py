@@ -43,7 +43,9 @@ once, before the exchange moves them, so both engines and the unsharded
 
 What JAX's backend runs besides and the port does not yet raises
 :class:`UnsupportedConfigError` naming its ROADMAP item, and nothing falls
-back: the tile pins and a K other than 8 (Queue 2 item 8).
+back: the tile pins and a K other than 8 (Queue 2 item 12: the sharded
+windowed engine's K and row tile need the shard layout's halo at
+``halo_for_steps(K)``, K7's tiles are the megakernels' pins).
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ OVERLAP = ("auto", "on", "off")
 #: port runs
 K = windowed.K
 
-_TILES = "ROADMAP.md Queue 2 item 8 (the tile pins and another K)"
+_TILES = ("ROADMAP.md Queue 2 item 12 (the sharded engines' tile pins and "
+          "another K)")
 
 #: (engine, 2-D mesh) -> storage tag
 TAGS = {("windowed", False): "shwin", ("windowed", True): "shwin2d",

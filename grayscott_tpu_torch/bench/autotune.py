@@ -12,11 +12,20 @@ separable stencil (JAX's ``_pack_candidates`` conditions), the same three
 packed: K4, K6 and K5. With bf16 storage only K1 and K2 are candidates
 (JAX's ``_engine_candidates``: the resident kernel and the packed layout
 are float32-only), and the record keys on ``:bfloat16``, so a bf16 run
-never follows a float32 record, nor the reverse. The port's kernels run
-fixed tiles at K = 8, so
-there are no ``block_rows`` or ``steps_per_call`` candidates (ROADMAP.md
-Queue 2 item 8); records carry ``block_rows: None`` and
-``steps_per_call: 8``.
+never follows a float32 record, nor the reverse. Beside K1's default
+(K = 8 on 64x64 tiles) K1 also runs at K = 16 and on 32x128 and 128x32
+tiles (``WINDOWED_EXTRA``), and K4 at K = 16 and on 32-row tiles
+(``PACKED_EXTRA``: JAX's packed kernel takes a row tile and K, no column
+tile), the port's counterpart of JAX's ``(block_rows, steps_per_call)``
+candidates (``grayscott_tpu/bench/autotune.py:38-58``). A record carries
+the K it ran (``steps_per_call``) and the tile pins it ran
+(``block_rows``, ``block_cols``; None where the candidate left the tile
+to ``ops/geometry.py``'s default), which the backend adopts where the run
+does not pin them (``backends/cuda.py:CudaSimulation.plan_for``). A K or
+tile pin restricts the candidates to K1 under that pin, at K 8 and 16 and
+on the three tile shapes where unpinned, and keys the record on the pins
+(:func:`key_for`), so that a record measured under a pin steers only runs
+under the same pins (ADVICE.md #2, #3).
 
 The sharded backend has a tuner of its own (:func:`sharded_autotune`, the
 port of JAX's ``:556-818``), whose records key on the shard count and the
@@ -43,6 +52,7 @@ import torch
 from ..backends.cuda import K, CudaSimulation
 from ..backends.sharded import ShardedSimulation
 from ..errors import UnsupportedConfigError
+from ..ops import geometry
 from ..parallel import halo
 from ..params import Parameters
 from ..utils import cache
@@ -55,6 +65,18 @@ KERNEL_VERSION = 1
 #: the unpacked candidates (K1, K2, K3) and their packed twins (K4, K6, K5)
 UNPACKED = ({"engine": "windowed"}, {"engine": "mega"}, {"resident": "on"})
 PACKED = tuple({"pack": "on", **c} for c in UNPACKED)
+#: K1's depth and tile candidates beside its default, and K4's
+WINDOWED_EXTRA = ({"engine": "windowed", "steps_per_call": 16},
+                  {"engine": "windowed", "block_rows": 32,
+                   "block_cols": 128},
+                  {"engine": "windowed", "block_rows": 128,
+                   "block_cols": 32})
+PACKED_EXTRA = ({"pack": "on", "engine": "windowed", "steps_per_call": 16},
+                {"pack": "on", "engine": "windowed", "block_rows": 32})
+#: under a K or tile pin: the depths and the tiles (block_rows, block_cols)
+#: of the candidates, where the pin leaves them open
+PINNED_KS = (8, 16)
+PINNED_TILES = ((None, None), (32, 128), (128, 32))
 
 #: storage tag -> (engine, packed) as a record names them
 _RAN = {"windowed": ("windowed", False), "mega": ("mega", False),
@@ -73,18 +95,51 @@ measurements = 0
 
 
 def default_candidates(params: Parameters, boundary: str,
-                       dtype: str = "float32") -> list[dict]:
+                       dtype: str = "float32", shape=None,
+                       steps_per_call: int | None = None,
+                       block_rows: int | None = None,
+                       block_cols: int | None = None) -> list[dict]:
     """Every engine and layout of ``(params, boundary, dtype)``: the three
     unpacked engines (K1 and K2 alone with bf16 storage, which K3 refuses:
-    JAX's ``_engine_candidates``), and the three packed ones where JAX's
-    ``_pack_candidates`` would pack (zero boundary, float32, a separable
-    plan)."""
+    JAX's ``_engine_candidates``) and K1's depth and tile candidates, and
+    the three packed ones and K4's where JAX's ``_pack_candidates`` would
+    pack (zero boundary, float32, a separable plan). Under a K or tile pin
+    (:func:`pinned_candidates`), K1 alone under it."""
+    if (steps_per_call, block_rows, block_cols) != (None, None, None):
+        return pinned_candidates(shape, steps_per_call, block_rows,
+                                 block_cols)
     if dtype != "float32":
-        return [dict(c) for c in UNPACKED if "engine" in c]
-    out = [dict(c) for c in UNPACKED]
+        return [dict(c) for c in (*UNPACKED, *WINDOWED_EXTRA)
+                if "engine" in c]
+    out = [dict(c) for c in (*UNPACKED, *WINDOWED_EXTRA)]
     if boundary == "zero" and dtype == "float32" and \
             params.separable_plan()[0] == "separable":
-        out += [dict(c) for c in PACKED]
+        out += [dict(c) for c in (*PACKED, *PACKED_EXTRA)]
+    return out
+
+
+def pinned_candidates(shape, steps_per_call: int | None = None,
+                      block_rows: int | None = None,
+                      block_cols: int | None = None) -> list[dict]:
+    """K1 under the pins: at each of PINNED_KS where K is not pinned, on
+    each of PINNED_TILES where neither tile dimension is pinned, each
+    whose window fits on ``shape`` (``geometry.resolve``; every one when
+    ``shape`` is None). The pins never cross: every candidate carries
+    them."""
+    ks = (steps_per_call,) if steps_per_call is not None else PINNED_KS
+    tiles = ([(block_rows, block_cols)]
+             if (block_rows, block_cols) != (None, None) else PINNED_TILES)
+    out = []
+    for k in ks:
+        for tr, tc in tiles:
+            if shape is not None:
+                try:
+                    geometry.resolve(tuple(shape), k, tr, tc)
+                except UnsupportedConfigError:
+                    continue
+            cfg = {"engine": "windowed", "steps_per_call": k,
+                   "block_rows": tr, "block_cols": tc}
+            out.append({key: v for key, v in cfg.items() if v is not None})
     return out
 
 
@@ -103,8 +158,12 @@ def measure_config(params: Parameters, shape, boundary: str,
     species = sim.make_species(tuple(shape))
     engine, pack = _RAN[species.storage[0]]
     measurements += 1
-    rec = {"engine": engine, "block_rows": None, "steps_per_call": K,
-           "block_cols": None, "fold": 1, "pack": pack}
+    k = species.storage[-1][0] if engine == "windowed" else K
+    tiles = ({"block_rows": config.get("block_rows"),
+              "block_cols": config.get("block_cols")}
+             if engine == "windowed" else {})
+    rec = {"engine": engine, "block_rows": None, "steps_per_call": k,
+           "block_cols": None, "fold": 1, "pack": pack, **tiles}
     rec.update(_measure_rates(sim, species, shape, steps or STEPS, reps))
     return rec
 
@@ -143,36 +202,57 @@ def _measure_rates(sim, species, shape, steps: int, reps: int) -> dict:
 
 def key_for(params: Parameters, shape, boundary: str,
             dtype: str = "float32",
-            device: str | torch.device = "cuda") -> str:
-    """The store key of a configuration on ``device``."""
-    return cache.autotune_key(autotune_platform(device), shape, boundary,
-                              params.stencil_name(), KERNEL_VERSION, dtype)
+            device: str | torch.device = "cuda",
+            steps_per_call: int | None = None,
+            block_rows: int | None = None,
+            block_cols: int | None = None) -> str:
+    """The store key of a configuration on ``device``; under a K or tile
+    pin, the pins after a ``|`` (``|k16:tr32``)."""
+    key = cache.autotune_key(autotune_platform(device), shape, boundary,
+                             params.stencil_name(), KERNEL_VERSION, dtype)
+    pins = [f"{name}{value}" for name, value in (
+        ("k", steps_per_call), ("tr", block_rows), ("tc", block_cols))
+        if value is not None]
+    return f"{key}|{':'.join(pins)}" if pins else key
 
 
 def autotune(params: Parameters, shape, boundary: str = "naive",
              candidates: Iterable[Mapping] | None = None,
              persist: bool = True, verbose: bool = False,
              dtype: str = "float32", device: str | torch.device = "cuda",
-             steps: int | None = None, reps: int = 3) -> dict:
-    """The best candidate of the configuration: the store's record when it
-    holds one (nothing is measured), else each candidate measured, the
-    first two measured again when the runner-up is within 3 % of the
-    winner, and the winner persisted (``persist``) with the whole
-    ``candidates`` table."""
-    key = key_for(params, shape, boundary, dtype, device)
+             steps: int | None = None, reps: int = 3,
+             steps_per_call: int | None = None,
+             block_rows: int | None = None,
+             block_cols: int | None = None) -> dict:
+    """The best candidate of the configuration under the K and tile pins:
+    the store's record when it holds one (nothing is measured), else each
+    candidate measured, the first two measured again when the runner-up
+    is within 3 % of the winner, and the winner persisted (``persist``)
+    with the whole ``candidates`` table."""
+    pins = dict(steps_per_call=steps_per_call, block_rows=block_rows,
+                block_cols=block_cols)
+    key = key_for(params, shape, boundary, dtype, device, **pins)
     store = cache.load_autotune()
     if key in store:
         return store[key]
     configs = [dict(c) for c in (candidates if candidates is not None
-                                 else default_candidates(params, boundary,
-                                                         dtype))]
+                                 else default_candidates(
+                                     params, boundary, dtype, shape,
+                                     **pins))]
+    if not configs:
+        raise UnsupportedConfigError(
+            f"no autotune candidate runs the pins {pins} on "
+            f"{shape[0]}x{shape[1]}; drop a pin or run without --autotune",
+            combo="autotune")
 
     def measure(cfg):
         return measure_config(params, shape, boundary, steps, dtype, reps,
                               device, **cfg)
 
     return _tune(key, configs, measure, persist, verbose, lambda res: (
-        f"{res['engine']}{' packed' if res['pack'] else ''}"))
+        f"{res['engine']}{' packed' if res['pack'] else ''} K="
+        f"{res['steps_per_call']} tiles {res['block_rows']}x"
+        f"{res['block_cols']}"))
 
 
 def _tune(key: str, configs: list, measure, persist: bool, verbose: bool,
@@ -222,11 +302,16 @@ def _tune(key: str, configs: list, measure, persist: bool, verbose: bool,
 
 def lookup(params: Parameters, shape, boundary: str,
            dtype: str = "float32",
-           device: str | torch.device = "cuda") -> dict | None:
-    """The best known record of the configuration on ``device``: the local
-    store first, then the records this package ships for the card
-    (``bench/defaults.py``); None when neither has one."""
-    key = key_for(params, shape, boundary, dtype, device)
+           device: str | torch.device = "cuda",
+           steps_per_call: int | None = None,
+           block_rows: int | None = None,
+           block_cols: int | None = None) -> dict | None:
+    """The best known record of the configuration on ``device`` under the
+    K and tile pins: the local store first, then the records this package
+    ships for the card (``bench/defaults.py``); None when neither has
+    one."""
+    key = key_for(params, shape, boundary, dtype, device, steps_per_call,
+                  block_rows, block_cols)
     rec = cache.load_autotune().get(key)
     if rec is not None:
         return rec
@@ -239,10 +324,10 @@ def lookup(params: Parameters, shape, boundary: str,
 #
 # The candidates are every mesh worth measuring and, on each, the windowed
 # engine with overlap off, with overlap on where the split engages, and the
-# megakernel K7. JAX's K and row-tile candidates have no counterpart: the
-# port's kernels run fixed tiles at K = 8 (ROADMAP.md Queue 2 item 8), so
-# records carry ``block_rows: None`` and ``steps_per_call: 8``. ADVICE.md
-# (round 5) found three faults in the JAX tuner, which the port does not
+# megakernel K7. JAX's K and row-tile candidates have no counterpart yet:
+# the sharded kernels run fixed tiles at K = 8 (ROADMAP.md Queue 2 item
+# 12), so records carry ``block_rows: None`` and ``steps_per_call: 8``.
+# ADVICE.md (round 5) found three faults in the JAX tuner, which the port does not
 # carry: the device time of a candidate is one CUDA-event interval around
 # the whole call on the one card, exchange and launches, never a sum over
 # shards (#1); a record's tile or K never transfers (#2:

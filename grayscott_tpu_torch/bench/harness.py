@@ -23,14 +23,17 @@ Four workloads:
 mega; ``sharded``: the windowed engine or the megakernel K7, one shard a
 visible card). ``--dtype bfloat16`` runs ``cuda`` and ``sharded`` on bf16
 storage; another backend prints a note and runs float32, as JAX's harness
-does. Every run is on the card unless ``--device cpu`` is given.
+does. ``--block-rows`` and ``--steps-per-call`` pin K1's (and K4's) tile
+height and depth on ``cuda`` (``ops/geometry.py``), as JAX's harness pins
+its Pallas kernel's (``grayscott_tpu/bench/harness.py:242-245``,
+``:286-296``): every backend swept gets them, the plain rungs ignore them,
+and the sharded backend refuses them (ROADMAP.md Queue 2 item 12). Every
+run is on the card unless ``--device cpu`` is given.
 ``--report SWEEP_JSON`` renders a sweep instead of measuring
 (``bench/report.py``; ``--format markdown|html|svg``), against
 ``--baseline SWEEP_JSON`` when given; ``--gate`` then exits 1 on any
 significant regression (CI95s that do not overlap). A report touches no
-device, so it runs on a host without a GPU. Not ported yet:
-``--block-rows``/``--steps-per-call`` (tile and depth pins: Queue 2 item
-8); asking for one stops the run with a message.
+device, so it runs on a host without a GPU.
 
     python -m grayscott_tpu_torch.bench.harness --report new.json \
         --baseline old.json --gate
@@ -54,12 +57,6 @@ WORKLOADS = ("compute", "full_sync", "full_future", "device")
 
 #: the backends that take a storage dtype (``--dtype``)
 DTYPE_BACKENDS = ("cuda", "sharded")
-
-#: flag -> where ROADMAP.md keeps its port
-DEFERRED = {
-    "block_rows": "Queue 2 item 8, the pins",
-    "steps_per_call": "Queue 2 item 8, the pins",
-}
 
 
 @dataclasses.dataclass
@@ -247,14 +244,13 @@ def main(argv=None) -> int:
                         help="storage precision for backends that support "
                         "it (cuda, sharded; bfloat16 = the opt-in bf16 "
                         "storage)")
-    for flag in DEFERRED:
-        parser.add_argument(f"--{flag.replace('_', '-')}", nargs="?",
-                            const=True, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--block-rows", type=int, default=None,
+                        help="pin the row-tile size (cuda: the height of "
+                        "K1's and K4's tiles)")
+    parser.add_argument("--steps-per-call", type=int, default=None,
+                        help="pin the temporal-blocking depth (cuda: K "
+                        "steps a launch of K1 and K4, 1..32)")
     args = parser.parse_args(argv)
-    for flag, item in DEFERRED.items():
-        if getattr(args, flag) is not None:
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet "
-                         f"(ROADMAP.md, {item})")
     if args.report:
         return _report(args)
     require_device(args.device)
@@ -269,9 +265,10 @@ def main(argv=None) -> int:
         boundary=args.boundary,
         reps=args.reps,
         out_path=args.output,
-        backend_kwargs={k: v for k, v in (("dtype", args.dtype),
-                                          ("engine", args.engine))
-                        if v is not None},
+        backend_kwargs={k: v for k, v in (
+            ("dtype", args.dtype), ("block_rows", args.block_rows),
+            ("steps_per_call", args.steps_per_call),
+            ("engine", args.engine)) if v is not None},
         device=args.device,
     )
     return 0

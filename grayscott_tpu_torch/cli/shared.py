@@ -13,8 +13,10 @@ back to the CPU.
 
 ``--autotune`` (or ``GRAYSCOTT_AUTOTUNE``) with the ``cuda`` backend
 measures its engines and layouts on the device before the run
-(``bench/autotune.py:autotune``) unless the store already holds a record
-for the domain, and the simulation follows the winner; with ``sharded``
+(``bench/autotune.py:autotune``; under ``--pallas-steps-per-call``,
+``--pallas-block-rows`` or ``--pallas-block-cols``, K1's candidates under
+those pins) unless the store already holds a record for the domain and
+pins, and the simulation follows the winner; with ``sharded``
 it measures the sharded candidates under every pin of the command line
 (``bench/autotune.py:sharded_autotune``, as JAX's ``cli/shared.py:
 141-153``); the plain rungs ignore it, as JAX's do.
@@ -149,8 +151,10 @@ def make_simulation(ns: argparse.Namespace):
     if getattr(ns, "autotune", False) and name == "cuda":
         from ..bench import autotune
 
+        # the K and tile pins restrict the candidates and key the record
         autotune.autotune(params, domain_shape(ns), ns.boundary,
-                          verbose=True, dtype=sim.dtype, device=ns.device)
+                          verbose=True, dtype=sim.dtype, device=ns.device,
+                          **sim.pins())
     elif getattr(ns, "autotune", False) and name == "sharded":
         from ..bench import autotune
 

@@ -61,32 +61,32 @@ namespace gs {
 namespace sm90 {
 
 // One strip: cells (lr0 + i, lc), i < n <= R, of a packed window with row
-// pitch PITCH in shared memory (su, sv), each of whose neighbours lies in
-// the window. Hands each cell's new values to sink(i, un, vn). EDGE: a
-// cell outside the domain (`at` says where the strip lies) comes out as
-// exactly 0.0.
-template <int R, int PITCH, bool EDGE, typename Sink>
+// pitch `pitch` (Fixed, or an int: gs_tile.cuh) in shared memory (su, sv),
+// each of whose neighbours lies in the window. Hands each cell's new values
+// to sink(i, un, vn). EDGE: a cell outside the domain (`at` says where the
+// strip lies) comes out as exactly 0.0.
+template <int R, bool EDGE, typename P, typename Sink>
 __device__ __forceinline__ void step_packed_strip(const float* su,
-                                                  const float* sv, int lr0,
-                                                  int lc, int n,
+                                                  const float* sv, P pitch,
+                                                  int lr0, int lc, int n,
                                                   const StripAt& at,
                                                   const PackedConstants& k,
                                                   Sink&& sink) {
-  const float* pu = su + (lr0 - 1) * PITCH + lc;
-  const float* pv = sv + (lr0 - 1) * PITCH + lc;
+  const float* pu = su + (lr0 - 1) * pitch + lc;
+  const float* pv = sv + (lr0 - 1) * pitch + lc;
   // the row pass of rows lr0 - 1 and lr0, and the centre of row lr0
   float tu0 = k.h1 * pu[0] + k.h0 * (pu[-1] + pu[1]);
   float tv0 = k.h1 * pv[0] + k.h0 * (pv[-1] + pv[1]);
-  float u = pu[PITCH], v = pv[PITCH];
-  float tu1 = k.h1 * u + k.h0 * (pu[PITCH - 1] + pu[PITCH + 1]);
-  float tv1 = k.h1 * v + k.h0 * (pv[PITCH - 1] + pv[PITCH + 1]);
+  float u = pu[pitch], v = pv[pitch];
+  float tu1 = k.h1 * u + k.h0 * (pu[pitch - 1] + pu[pitch + 1]);
+  float tv1 = k.h1 * v + k.h0 * (pv[pitch - 1] + pv[pitch + 1]);
   const bool col_inside = at.gc >= 0 && at.gc < at.cols;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     if (i < n) {
       // the row below the cell
-      const float* qu = pu + (i + 2) * PITCH;
-      const float* qv = pv + (i + 2) * PITCH;
+      const float* qu = pu + (i + 2) * pitch;
+      const float* qv = pv + (i + 2) * pitch;
       const float u2 = qu[0], v2 = qv[0];
       const float tu2 = k.h1 * u2 + k.h0 * (qu[-1] + qu[1]);
       const float tv2 = k.h1 * v2 + k.h0 * (qv[-1] + qv[1]);
@@ -113,25 +113,77 @@ __device__ __forceinline__ void step_packed_strip(const float* su,
   }
 }
 
-// One packed step of the window cells [lo, W - lo)^2, in strips of G::R
+// One packed step of the window cells [lo, g.wr - lo) x [lo, g.wc - lo) of
+// g (FixedShape, or PinGeometry: gs_tile_sm90.cuh), in strips of S::R
 // cells, from (in_u, in_v) into (out_u, out_v); the window's cell (0, 0)
 // lies at global (r0, c0) of the rows x cols domain (one species wide).
 // INTERIOR: the window lies inside the domain.
-template <typename G, bool INTERIOR>
+template <bool INTERIOR, typename S>
 __device__ __forceinline__ void step_packed_window(
-    const float* in_u, const float* in_v, float* out_u, float* out_v, int lo,
-    int r0, int c0, int rows, int cols, const PackedConstants& k) {
-  const int hi_r = G::WR - lo, ncols = G::WC - 2 * lo;
-  const int items = ncols * ((hi_r - lo + G::R - 1) / G::R);
-  for (int it = threadIdx.x; it < items; it += G::NT) {
+    const S& g, const float* in_u, const float* in_v, float* out_u,
+    float* out_v, int lo, int r0, int c0, int rows, int cols,
+    const PackedConstants& k) {
+  const int hi_r = g.wr - lo, ncols = g.wc - 2 * lo;
+  const int items = ncols * ((hi_r - lo + S::R - 1) / S::R);
+  for (int it = threadIdx.x; it < items; it += S::NT) {
     const int strip = it / ncols;
-    const int lc = lo + (it - strip * ncols), lr0 = lo + strip * G::R;
-    step_packed_strip<G::R, G::WC, !INTERIOR>(
-        in_u, in_v, lr0, lc, min(G::R, hi_r - lr0),
+    const int lc = lo + (it - strip * ncols), lr0 = lo + strip * S::R;
+    step_packed_strip<S::R, !INTERIOR>(
+        in_u, in_v, g.pitch, lr0, lc, min(S::R, hi_r - lr0),
         {r0 + lr0, c0 + lc, rows, cols}, k, [&](int i, float un, float vn) {
-          out_u[(lr0 + i) * G::WC + lc] = un;
-          out_v[(lr0 + i) * G::WC + lc] = vn;
+          out_u[(lr0 + i) * g.pitch + lc] = un;
+          out_v[(lr0 + i) * g.pitch + lc] = vn;
         });
+  }
+}
+
+// One block of K4 (packed.cu, its compiled and pinned entries): tile
+// (blockIdx.y, blockIdx.x) of g advanced by `steps` (1..g.halo) steps from
+// x into x_out (both rows x 2*cols), through two window buffers at `base`
+// (dynamic shared memory, 4 * g.cells floats). Nothing writes x in the
+// launch, so the copies may go through L1. SPECIALIZE = false takes every
+// tile as an edge tile (an ablation).
+template <bool SPECIALIZE, typename S>
+__device__ __forceinline__ void packed_window_multistep(
+    const S& g, const float* x, float* x_out, int rows, int cols, int steps,
+    const PackedConstants& k, bool aligned, float* base) {
+  const int r0 = blockIdx.y * g.tr - g.halo, c0 = blockIdx.x * g.tc - g.halo;
+
+  load_window<S::NT, false>(FlatLayout{2 * cols}, x, x + cols, base,
+                            base + g.cells, g.wr, g.pitch, r0, c0, rows,
+                            cols, aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bool interior = SPECIALIZE && window_inside(g, r0, c0, rows, cols);
+  int cur = 0;
+  for (int st = 0; st < steps; ++st) {
+    const float* in_u = base + 2 * cur * g.cells;
+    float* out_u = base + 2 * (cur ^ 1) * g.cells;
+    if (interior) {
+      step_packed_window<true>(g, in_u, in_u + g.cells, out_u,
+                               out_u + g.cells, st + 1, r0, c0, rows, cols,
+                               k);
+    } else {
+      step_packed_window<false>(g, in_u, in_u + g.cells, out_u,
+                                out_u + g.cells, st + 1, r0, c0, rows, cols,
+                                k);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  const float* fu = base + 2 * cur * g.cells;
+  const float* fv = fu + g.cells;
+  for (int idx = threadIdx.x; idx < g.tr * g.tc; idx += S::NT) {
+    const int lr = g.halo + idx / g.tc, lc = g.halo + idx % g.tc;
+    const int gr = r0 + lr, gc = c0 + lc;
+    if (gr < rows && gc < cols) {
+      const size_t at = static_cast<size_t>(gr) * 2 * cols + gc;
+      x_out[at] = fu[lr * g.pitch + lc];
+      x_out[at + cols] = fv[lr * g.pitch + lc];
+    }
   }
 }
 
@@ -159,9 +211,10 @@ __device__ __forceinline__ void packed_time_block(
   auto load = [&](int i, int b) {
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
     float* su = base + 2 * b * G::CELLS;
-    load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
-        mem, x, x + cols, su, su + G::CELLS, ti * G::TR - HALO,
-        tj * G::TC - HALO, rows, cols, aligned);
+    load_window<G::NT, true>(mem, x, x + cols, su, su + G::CELLS,
+                             Fixed<G::WR>{}, Fixed<G::WC>{},
+                             ti * G::TR - HALO, tj * G::TC - HALO, rows,
+                             cols, aligned);
     cp_async_commit();
   };
   int i = first;
@@ -174,20 +227,21 @@ __device__ __forceinline__ void packed_time_block(
     __syncthreads();  // the window of tile i is in place
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
     const int r0 = ti * G::TR - HALO, c0 = tj * G::TC - HALO;
-    const bool interior = SPECIALIZE && window_inside<G>(r0, c0, rows, cols);
+    const bool interior =
+        SPECIALIZE && window_inside(FixedShape<G>{}, r0, c0, rows, cols);
     // `steps` steps between buffer `done` and `other`; the result in `done`
     int done = win, other = (win + 1) % 2;
     for (int st = 0; st < steps; ++st) {
       const float* in_u = base + 2 * done * G::CELLS;
       float* out_u = base + 2 * other * G::CELLS;
       if (interior) {
-        step_packed_window<G, true>(in_u, in_u + G::CELLS, out_u,
-                                    out_u + G::CELLS, st + 1, r0, c0, rows,
-                                    cols, k);
+        step_packed_window<true>(FixedShape<G>{}, in_u, in_u + G::CELLS,
+                                 out_u, out_u + G::CELLS, st + 1, r0, c0,
+                                 rows, cols, k);
       } else {
-        step_packed_window<G, false>(in_u, in_u + G::CELLS, out_u,
-                                     out_u + G::CELLS, st + 1, r0, c0, rows,
-                                     cols, k);
+        step_packed_window<false>(FixedShape<G>{}, in_u, in_u + G::CELLS,
+                                  out_u, out_u + G::CELLS, st + 1, r0, c0,
+                                  rows, cols, k);
       }
       __syncthreads();
       const int t = done;

@@ -46,13 +46,24 @@ struct Constants {
   float du, dv, feed, min_feed_kill, dt;
 };
 
+// A size the kernel knows when it compiles, passed where a size may also be
+// known only at run time (an int): a window's row pitch, rows and chunks in
+// the steppers and window loads (gs_tile_sm90.cuh), which a compiled
+// geometry calls with Fixed sizes and a pinned one (PinGeometry) with
+// ints, so both run one body and the compiled one keeps its constants.
+template <int N>
+struct Fixed {
+  __host__ __device__ constexpr operator int() const { return N; }
+};
+
 // oracle.laplacian, naive boundary: tap i reads row max(gr-1, 0) + i and is
 // valid iff that row <= min(gr+1, rows-1) (the same for columns), with
-// weight row i: the window is clamped and stays anchored at its top-left.
-template <int WIN>
+// weight row i: the window (row pitch `pitch`) is clamped and stays
+// anchored at its top-left.
+template <typename P>
 __device__ __forceinline__ float naive_laplacian(
-    const float* win, int lr, int lc, float x, int gr, int gc, int rows,
-    int cols, const Constants& k) {
+    const float* win, P pitch, int lr, int lc, float x, int gr, int gc,
+    int rows, int cols, const Constants& k) {
   const int r_start = max(gr - 1, 0), r_end = min(gr + 1, rows - 1);
   const int c_start = max(gc - 1, 0), c_end = min(gc + 1, cols - 1);
   float full = 0.0f;
@@ -66,7 +77,7 @@ __device__ __forceinline__ float naive_laplacian(
       const int sc = c_start + j;
       float term = 0.0f;
       if (sr <= r_end && sc <= c_end) {
-        term = w * (win[(lr + sr - gr) * WIN + (lc + sc - gc)] - x);
+        term = w * (win[(lr + sr - gr) * pitch + (lc + sc - gc)] - x);
       }
       full = full + term;
     }
@@ -180,10 +191,10 @@ __device__ __forceinline__ void step_tile_at(
           const float uc = in_u[at], vc = in_v[at];
           float full_u, full_v;
           if (naive) {
-            full_u = naive_laplacian<WIN>(in_u, lr, lc, uc, gr, gc, rows,
-                                          cols, k);
-            full_v = naive_laplacian<WIN>(in_v, lr, lc, vc, gr, gc, rows,
-                                          cols, k);
+            full_u = naive_laplacian(in_u, Fixed<WIN>{}, lr, lc, uc, gr, gc,
+                                     rows, cols, k);
+            full_v = naive_laplacian(in_v, Fixed<WIN>{}, lr, lc, vc, gr, gc,
+                                     rows, cols, k);
           } else {
             full_u = zero_laplacian<WIN>(in_u, lr, lc, uc, k);
             full_v = zero_laplacian<WIN>(in_v, lr, lc, vc, k);

@@ -48,6 +48,13 @@
 //     finished tile is written out (time_block), or, at mega_depth D > 2,
 //     through a ring of D + 1 buffers with D - 1 loads in flight while a
 //     tile steps (ring_walk, ring_time_block).
+//   - Sizes as values. The strip steppers, window loads, step_window,
+//     window_inside and store_window take a window's sizes and row pitch
+//     as arguments of a deduced type: gs::Fixed<N> (gs_tile.cuh), a
+//     constant once inlined, for the compiled geometries (FixedShape<G>),
+//     and int for K1's and K4's pinned ones (PinGeometry: the tile and
+//     depth pins, tiles, halo and pitch known at run time). Both run one
+//     body; the compiled kernels keep their constants.
 //   - K3's 32^2 tiles in 34^2 windows, one step a window (ring: load_tile,
 //     step_tile), which the resident kernels K3 and K9 walk every step.
 //   - The folded naive reaction (K1, K2; MODE_FOLD, step_strip_fold): JAX's
@@ -150,18 +157,19 @@ __device__ __forceinline__ void react(float uc, float vc, float full_u,
 
 // One cell in the domain's first or last row or column on the naive
 // boundary: gs_tile.cuh's per-cell code (the clamped window). Window cell
-// (lr, lc) lies at global (gr, gc).
-template <int PITCH>
+// (lr, lc) lies at global (gr, gc); the window's rows lie `pitch` floats
+// apart (Fixed, or an int: gs_tile.cuh).
+template <typename P>
 __device__ __forceinline__ void naive_edge_cell(const float* su,
-                                                const float* sv, int lr,
-                                                int lc, int gr, int gc,
-                                                int rows, int cols,
+                                                const float* sv, P pitch,
+                                                int lr, int lc, int gr,
+                                                int gc, int rows, int cols,
                                                 const Constants& k, float* un,
                                                 float* vn) {
-  const float uc = su[lr * PITCH + lc], vc = sv[lr * PITCH + lc];
+  const float uc = su[lr * pitch + lc], vc = sv[lr * pitch + lc];
   react(uc, vc,
-        naive_laplacian<PITCH>(su, lr, lc, uc, gr, gc, rows, cols, k),
-        naive_laplacian<PITCH>(sv, lr, lc, vc, gr, gc, rows, cols, k), k,
+        naive_laplacian(su, pitch, lr, lc, uc, gr, gc, rows, cols, k),
+        naive_laplacian(sv, pitch, lr, lc, vc, gr, gc, rows, cols, k), k,
         un, vn);
 }
 
@@ -172,7 +180,7 @@ struct StripAt {
 };
 
 // One strip: cells (lr0 + i, lc), i < n <= R, of a window with row pitch
-// PITCH in shared memory (su, sv), each of whose taps lies in the window.
+// `pitch` in shared memory (su, sv), each of whose taps lies in the window.
 // Hands each cell's new values to sink(i, un, vn).
 //
 // EDGE = false (an interior tile): every cell takes the fixed term list.
@@ -181,24 +189,24 @@ struct StripAt {
 // gs_tile.cuh's clamped form (naive_edge_cell); every other cell takes the
 // fixed list, which equals the per-cell code there (on the zero boundary the
 // window's cells outside the domain hold 0.0, as zero_laplacian reads them).
-template <int TAPS, bool NAIVE, int R, int PITCH, bool EDGE, typename Sink>
+template <int TAPS, bool NAIVE, int R, bool EDGE, typename P, typename Sink>
 __device__ __forceinline__ void step_strip(const float* su, const float* sv,
-                                           int lr0, int lc, int n,
+                                           P pitch, int lr0, int lc, int n,
                                            const StripAt& at,
                                            const Constants& k, Sink&& sink) {
-  const float* pu = su + (lr0 - 1) * PITCH + lc;
-  const float* pv = sv + (lr0 - 1) * PITCH + lc;
+  const float* pu = su + (lr0 - 1) * pitch + lc;
+  const float* pv = sv + (lr0 - 1) * pitch + lc;
   float u0[3] = {pu[-1], pu[0], pu[1]};
   float v0[3] = {pv[-1], pv[0], pv[1]};
-  float u1[3] = {pu[PITCH - 1], pu[PITCH], pu[PITCH + 1]};
-  float v1[3] = {pv[PITCH - 1], pv[PITCH], pv[PITCH + 1]};
+  float u1[3] = {pu[pitch - 1], pu[pitch], pu[pitch + 1]};
+  float v1[3] = {pv[pitch - 1], pv[pitch], pv[pitch + 1]};
   const bool col_inside = at.gc >= 0 && at.gc < at.cols;
   const bool edge_col = at.gc == 0 || at.gc == at.cols - 1;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     if (i < n) {
-      const float* qu = pu + (i + 2) * PITCH;
-      const float* qv = pv + (i + 2) * PITCH;
+      const float* qu = pu + (i + 2) * pitch;
+      const float* qv = pv + (i + 2) * pitch;
       const float u2[3] = {qu[-1], qu[0], qu[1]};
       const float v2[3] = {qv[-1], qv[0], qv[1]};
       float un, vn;
@@ -210,8 +218,8 @@ __device__ __forceinline__ void step_strip(const float* su, const float* sv,
           un = 0.0f;
           vn = 0.0f;
         } else if (NAIVE && (edge_col || gr == 0 || gr == at.rows - 1)) {
-          naive_edge_cell<PITCH>(su, sv, lr0 + i, lc, gr, at.gc, at.rows,
-                                 at.cols, k, &un, &vn);
+          naive_edge_cell(su, sv, pitch, lr0 + i, lc, gr, at.gc, at.rows,
+                          at.cols, k, &un, &vn);
         }
       }
       sink(i, un, vn);
@@ -290,12 +298,13 @@ __device__ __forceinline__ void fold_update(float uc, float vc, float s_u,
 // pallas_stencil.py:139): at column 0 the 2x2 block of rows {0, 1} and
 // columns {0, 1}; elsewhere rows {0, 1} of the centred window, the east
 // tap's centre masked past the last column (ok_e). Window cell (lr, lc) of
-// row pitch PITCH lies at global (0, gc); cells outside the domain hold 0.0.
-template <int PITCH>
-__device__ __forceinline__ float fold_top(const float* win, int lr, int lc,
-                                          int gc, int cols,
+// row pitch `pitch` lies at global (0, gc); cells outside the domain hold
+// 0.0.
+template <typename P>
+__device__ __forceinline__ float fold_top(const float* win, P pitch, int lr,
+                                          int lc, int gc, int cols,
                                           const FoldConstants& k) {
-  const float x = win[lr * PITCH + lc];
+  const float x = win[lr * pitch + lc];
   float full = 0.0f;
   if (gc == 0) {
 #pragma unroll
@@ -304,7 +313,7 @@ __device__ __forceinline__ float fold_top(const float* win, int lr, int lc,
       for (int j = 0; j < 2; ++j) {
         const float w = k.w[3 * i + j];
         if (w == 0.0f) continue;
-        full = full + w * (win[(lr + i) * PITCH + lc + j] - x);
+        full = full + w * (win[(lr + i) * pitch + lc + j] - x);
       }
     }
     return full;
@@ -316,7 +325,7 @@ __device__ __forceinline__ float fold_top(const float* win, int lr, int lc,
     for (int j = 0; j < 3; ++j) {
       const float w = k.w[3 * i + j];
       if (w == 0.0f) continue;
-      const float tap = win[(lr + i) * PITCH + lc - 1 + j];
+      const float tap = win[(lr + i) * pitch + lc - 1 + j];
       full = full + w * (j == 2 ? tap - x * ok_e : tap - x);
     }
   }
@@ -327,11 +336,11 @@ __device__ __forceinline__ float fold_top(const float* win, int lr, int lc,
 // _left_col_strip, pallas_stencil.py:194): rows {gr-1, gr, gr+1} and
 // columns {0, 1}, row by row, the bottom row's terms times ok_s (0.0 on the
 // domain's last row).
-template <int PITCH>
-__device__ __forceinline__ float fold_left(const float* win, int lr, int lc,
-                                           int gr, int rows,
+template <typename P>
+__device__ __forceinline__ float fold_left(const float* win, P pitch, int lr,
+                                           int lc, int gr, int rows,
                                            const FoldConstants& k) {
-  const float x = win[lr * PITCH + lc];
+  const float x = win[lr * pitch + lc];
   const float ok_s = gr <= rows - 2 ? 1.0f : 0.0f;
   float full = 0.0f;
 #pragma unroll
@@ -340,7 +349,7 @@ __device__ __forceinline__ float fold_left(const float* win, int lr, int lc,
     for (int j = 0; j < 2; ++j) {
       const float w = k.w[3 * i + j];
       if (w == 0.0f) continue;
-      float term = w * (win[(lr - 1 + i) * PITCH + lc + j] - x);
+      float term = w * (win[(lr - 1 + i) * pitch + lc + j] - x);
       if (i == 2) term = term * ok_s;
       full = full + term;
     }
@@ -350,21 +359,21 @@ __device__ __forceinline__ float fold_left(const float* win, int lr, int lc,
 
 // One cell of row 0 or column 0 (in the domain): the anchored gradient and
 // the update with au0/bv0 (row 0 wins at (0, 0), as JAX selects it last).
-template <int PITCH>
+template <typename P>
 __device__ __forceinline__ void fold_strip_cell(const float* su,
-                                                const float* sv, int lr,
-                                                int lc, int gr, int gc,
-                                                int rows, int cols,
+                                                const float* sv, P pitch,
+                                                int lr, int lc, int gr,
+                                                int gc, int rows, int cols,
                                                 const FoldConstants& k,
                                                 float* un, float* vn) {
-  const float uc = su[lr * PITCH + lc], vc = sv[lr * PITCH + lc];
+  const float uc = su[lr * pitch + lc], vc = sv[lr * pitch + lc];
   float s_u, s_v;
   if (gr == 0) {
-    s_u = fold_top<PITCH>(su, lr, lc, gc, cols, k);
-    s_v = fold_top<PITCH>(sv, lr, lc, gc, cols, k);
+    s_u = fold_top(su, pitch, lr, lc, gc, cols, k);
+    s_v = fold_top(sv, pitch, lr, lc, gc, cols, k);
   } else {
-    s_u = fold_left<PITCH>(su, lr, lc, gr, rows, k);
-    s_v = fold_left<PITCH>(sv, lr, lc, gr, rows, k);
+    s_u = fold_left(su, pitch, lr, lc, gr, rows, k);
+    s_v = fold_left(sv, pitch, lr, lc, gr, rows, k);
   }
   fold_update(uc, vc, s_u, s_v, k.au0, k.bv0, k, un, vn);
 }
@@ -403,10 +412,10 @@ __device__ __forceinline__ float row_pass(const float* p,
 // outside the domain comes out as exactly 0.0, row 0 and column 0 take
 // fold_strip_cell, the others the bulk with the coefficients of their row
 // and column.
-template <int TAPS, int R, int PITCH, bool EDGE, typename Sink>
+template <int TAPS, int R, bool EDGE, typename P, typename Sink>
 __device__ __forceinline__ void step_strip_fold(const float* su,
-                                                const float* sv, int lr0,
-                                                int lc, int n,
+                                                const float* sv, P pitch,
+                                                int lr0, int lc, int n,
                                                 const StripAt& at,
                                                 const FoldConstants& k,
                                                 Sink&& sink) {
@@ -422,8 +431,8 @@ __device__ __forceinline__ void step_strip_fold(const float* su,
         un = 0.0f;
         vn = 0.0f;
       } else if (gr == 0 || at.gc == 0) {
-        fold_strip_cell<PITCH>(su, sv, lr0 + i, lc, gr, at.gc, at.rows,
-                               at.cols, k, &un, &vn);
+        fold_strip_cell(su, sv, pitch, lr0 + i, lc, gr, at.gc, at.rows,
+                        at.cols, k, &un, &vn);
       } else {
         // (selects, not k.au[index]: an indexed kernel parameter would be
         // copied to the stack)
@@ -437,18 +446,18 @@ __device__ __forceinline__ void step_strip_fold(const float* su,
     }
     sink(i, un, vn);
   };
-  const float* pu = su + (lr0 - 1) * PITCH + lc;
-  const float* pv = sv + (lr0 - 1) * PITCH + lc;
+  const float* pu = su + (lr0 - 1) * pitch + lc;
+  const float* pv = sv + (lr0 - 1) * pitch + lc;
   if constexpr (TAPS == TAPS_SEPARABLE) {
     float uc, vc, u_next, v_next;  // the cell's centre, the next cell's
     float tu0 = row_pass(pu, k, &uc), tv0 = row_pass(pv, k, &vc);
-    float tu1 = row_pass(pu + PITCH, k, &uc);
-    float tv1 = row_pass(pv + PITCH, k, &vc);
+    float tu1 = row_pass(pu + pitch, k, &uc);
+    float tv1 = row_pass(pv + pitch, k, &vc);
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       if (i < n) {
-        const float tu2 = row_pass(pu + (i + 2) * PITCH, k, &u_next);
-        const float tv2 = row_pass(pv + (i + 2) * PITCH, k, &v_next);
+        const float tu2 = row_pass(pu + (i + 2) * pitch, k, &u_next);
+        const float tv2 = row_pass(pv + (i + 2) * pitch, k, &v_next);
         cell(i, uc, vc, k.h1 * tu1 + k.h0 * (tu0 + tu2),
              k.h1 * tv1 + k.h0 * (tv0 + tv2));
         tu0 = tu1;
@@ -462,13 +471,13 @@ __device__ __forceinline__ void step_strip_fold(const float* su,
   } else {
     float u0[3] = {pu[-1], pu[0], pu[1]};
     float v0[3] = {pv[-1], pv[0], pv[1]};
-    float u1[3] = {pu[PITCH - 1], pu[PITCH], pu[PITCH + 1]};
-    float v1[3] = {pv[PITCH - 1], pv[PITCH], pv[PITCH + 1]};
+    float u1[3] = {pu[pitch - 1], pu[pitch], pu[pitch + 1]};
+    float v1[3] = {pv[pitch - 1], pv[pitch], pv[pitch + 1]};
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       if (i < n) {
-        const float* qu = pu + (i + 2) * PITCH;
-        const float* qv = pv + (i + 2) * PITCH;
+        const float* qu = pu + (i + 2) * pitch;
+        const float* qv = pv + (i + 2) * pitch;
         const float u2[3] = {qu[-1], qu[0], qu[1]};
         const float v2[3] = {qv[-1], qv[0], qv[1]};
         cell(i, u1[1], v1[1], fold_direct<TAPS>(u0, u1, u2, k),
@@ -556,9 +565,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Start loading the WR x (4 * NCH) block of U and V whose cell (0, 0) lies at
-// global (gr0, gc0), gc0 a multiple of 4, into su and sv (row pitch PITCH,
-// 16-byte aligned), from buffers laid out as `mem` says (gs_tile.cuh:
+// Start loading the wr x pitch block of U and V whose cell (0, 0) lies at
+// global (gr0, gc0), gc0 a multiple of 4, into su and sv (row pitch `pitch`,
+// a multiple of 4, 16-byte aligned; each size Fixed or an int, gs_tile.cuh),
+// in chunks of 4 cells, from buffers laid out as `mem` says (gs_tile.cuh:
 // FlatLayout, ShardLayout); cells outside the domain, and cells the buffer
 // does not hold, as 0.0. `aligned`: the layout's rows and the u, v pointers
 // are 16-byte aligned, and the layout's held columns start and end on
@@ -567,17 +577,18 @@ __device__ __forceinline__ void cp_async_wait() {
 // is .ca only): the ragged cells load with __ldcg instead. The copies land
 // after cp_async_commit() and cp_async_wait(), and are visible to the block
 // after a __syncthreads().
-template <int WR, int NCH, int PITCH, int NT, bool COHERENT, typename Layout>
+template <int NT, bool COHERENT, typename Layout, typename WR, typename P>
 __device__ __forceinline__ void load_window(const Layout& mem, const float* u,
                                             const float* v, float* su,
-                                            float* sv, int gr0, int gc0,
-                                            int rows, int cols,
-                                            bool aligned) {
-  for (int idx = threadIdx.x; idx < WR * NCH; idx += NT) {
-    const int lr = idx / NCH, q = idx - lr * NCH;
+                                            float* sv, WR wr, P pitch,
+                                            int gr0, int gc0, int rows,
+                                            int cols, bool aligned) {
+  const int nch = pitch / 4;
+  for (int idx = threadIdx.x; idx < wr * nch; idx += NT) {
+    const int lr = idx / nch, q = idx - lr * nch;
     const int gr = gr0 + lr, gc = gc0 + 4 * q;
-    float* du = su + lr * PITCH + 4 * q;
-    float* dv = sv + lr * PITCH + 4 * q;
+    float* du = su + lr * pitch + 4 * q;
+    float* dv = sv + lr * pitch + 4 * q;
     // (held columns are one interval of at least 4 cells)
     if (gr < 0 || gr >= rows || gc + 3 < 0 || gc >= cols ||
         (!mem.holds(gr, gc) && !mem.holds(gr, gc + 3))) {
@@ -635,8 +646,8 @@ __device__ __forceinline__ float load1(const bf16* p) {
   return __uint_as_float(bits << 16);
 }
 
-// load_window for bfloat16 storage, in chunks of 8 cells (NCH / 2 of them
-// a row; gc0 a multiple of 8): each cell widened exactly to float32 on its
+// load_window for bfloat16 storage, in chunks of 8 cells (pitch a multiple
+// of 8; gc0 a multiple of 8): each cell widened exactly to float32 on its
 // way into the window. `aligned`: the layout's rows and the u, v pointers
 // are 16-byte aligned, and the layout's held columns start and end on
 // multiples of 8. The loads go through registers (there is no 2-byte
@@ -644,19 +655,18 @@ __device__ __forceinline__ float load1(const bf16* p) {
 // __syncthreads(); the caller's cp.async commit and wait find no copy in
 // flight. COHERENT: loads through L2 only (__ldcg), else through the
 // read-only path (__ldg).
-template <int WR, int NCH, int PITCH, int NT, bool COHERENT, typename Layout>
+template <int NT, bool COHERENT, typename Layout, typename WR, typename P>
 __device__ __forceinline__ void load_window(const Layout& mem, const bf16* u,
                                             const bf16* v, float* su,
-                                            float* sv, int gr0, int gc0,
-                                            int rows, int cols,
-                                            bool aligned) {
-  static_assert(NCH % 2 == 0, "8-cell chunks");
-  constexpr int N8 = NCH / 2;
-  for (int idx = threadIdx.x; idx < WR * N8; idx += NT) {
-    const int lr = idx / N8, q = idx - lr * N8;
+                                            float* sv, WR wr, P pitch,
+                                            int gr0, int gc0, int rows,
+                                            int cols, bool aligned) {
+  const int n8 = pitch / 8;
+  for (int idx = threadIdx.x; idx < wr * n8; idx += NT) {
+    const int lr = idx / n8, q = idx - lr * n8;
     const int gr = gr0 + lr, gc = gc0 + 8 * q;
-    float* du = su + lr * PITCH + 8 * q;
-    float* dv = sv + lr * PITCH + 8 * q;
+    float* du = su + lr * pitch + 8 * q;
+    float* dv = sv + lr * pitch + 8 * q;
     // (held columns are one interval, its ends multiples of 8)
     if (gr < 0 || gr >= rows || gc + 7 < 0 || gc >= cols ||
         (!mem.holds(gr, gc) && !mem.holds(gr, gc + 7))) {
@@ -721,44 +731,81 @@ using Main = Geometry<64, 64, 512, 4>;
 // The former tile: 32^2 in a 48^2 window, 256 threads.
 using Small = Geometry<32, 32, 256, 4>;
 
-// One step of the window cells [lo, W - lo)^2, in strips of G::R cells,
-// from (in_u, in_v) into (out_u, out_v); the window's cell (0, 0) lies at
-// global (r0, c0) of the rows x cols domain. INTERIOR: the window lies
-// inside the domain. MODE: MODE_ZERO or MODE_NAIVE (the oracle's tree, K
-// = Constants), or MODE_FOLD (the folded naive reaction, K =
-// FoldConstants, TAPS its sum's: TAPS_SEPARABLE or a direct plan's set).
-template <typename G, int TAPS, int MODE, bool INTERIOR, typename K>
-__device__ __forceinline__ void step_window(const float* in_u,
+// A geometry's sizes as values, the form step_window, window_inside and
+// store_window take: Fixed sizes for a compiled geometry G (the window's
+// row pitch its width), ints for a pinned one (PinGeometry). NT and R are
+// compile-time in both.
+template <typename G>
+struct FixedShape {
+  static constexpr int NT = G::NT, R = G::R;
+  Fixed<G::TR> tr;
+  Fixed<G::TC> tc;
+  Fixed<HALO> halo;
+  Fixed<G::WR> wr;
+  Fixed<G::WC> wc;
+  Fixed<G::WC> pitch;
+  Fixed<G::CELLS> cells;
+};
+
+// One step of the window cells [lo, g.wr - lo) x [lo, g.wc - lo), in strips
+// of S::R cells, from (in_u, in_v) into (out_u, out_v); the window's cell
+// (0, 0) lies at global (r0, c0) of the rows x cols domain. INTERIOR: the
+// window lies inside the domain. MODE: MODE_ZERO or MODE_NAIVE (the
+// oracle's tree, K = Constants), or MODE_FOLD (the folded naive reaction,
+// K = FoldConstants, TAPS its sum's: TAPS_SEPARABLE or a direct plan's
+// set).
+template <int TAPS, int MODE, bool INTERIOR, typename S, typename K>
+__device__ __forceinline__ void step_window(const S& g, const float* in_u,
                                             const float* in_v, float* out_u,
                                             float* out_v, int lo, int r0,
                                             int c0, int rows, int cols,
                                             const K& k) {
-  const int hi_r = G::WR - lo, ncols = G::WC - 2 * lo;
-  const int items = ncols * ((hi_r - lo + G::R - 1) / G::R);
-  for (int it = threadIdx.x; it < items; it += G::NT) {
+  const int hi_r = g.wr - lo, ncols = g.wc - 2 * lo;
+  const int items = ncols * ((hi_r - lo + S::R - 1) / S::R);
+  for (int it = threadIdx.x; it < items; it += S::NT) {
     const int strip = it / ncols;
-    const int lc = lo + (it - strip * ncols), lr0 = lo + strip * G::R;
+    const int lc = lo + (it - strip * ncols), lr0 = lo + strip * S::R;
     const StripAt at = {r0 + lr0, c0 + lc, rows, cols};
     auto sink = [&](int i, float un, float vn) {
-      out_u[(lr0 + i) * G::WC + lc] = un;
-      out_v[(lr0 + i) * G::WC + lc] = vn;
+      out_u[(lr0 + i) * g.pitch + lc] = un;
+      out_v[(lr0 + i) * g.pitch + lc] = vn;
     };
     if constexpr (MODE == MODE_FOLD) {
-      step_strip_fold<TAPS, G::R, G::WC, !INTERIOR>(
-          in_u, in_v, lr0, lc, min(G::R, hi_r - lr0), at, k, sink);
+      step_strip_fold<TAPS, S::R, !INTERIOR>(
+          in_u, in_v, g.pitch, lr0, lc, min(S::R, hi_r - lr0), at, k, sink);
     } else {
-      step_strip<TAPS, MODE == MODE_NAIVE, G::R, G::WC, !INTERIOR>(
-          in_u, in_v, lr0, lc, min(G::R, hi_r - lr0), at, k, sink);
+      step_strip<TAPS, MODE == MODE_NAIVE, S::R, !INTERIOR>(
+          in_u, in_v, g.pitch, lr0, lc, min(S::R, hi_r - lr0), at, k, sink);
     }
   }
 }
 
-// Whether the G window whose cell (0, 0) lies at global (r0, c0) lies inside
-// the rows x cols domain.
-template <typename G>
-__device__ __forceinline__ bool window_inside(int r0, int c0, int rows,
-                                              int cols) {
-  return r0 >= 0 && c0 >= 0 && r0 + G::WR <= rows && c0 + G::WC <= cols;
+// Whether the window of g whose cell (0, 0) lies at global (r0, c0) lies
+// inside the rows x cols domain.
+template <typename S>
+__device__ __forceinline__ bool window_inside(const S& g, int r0, int c0,
+                                              int rows, int cols) {
+  return r0 >= 0 && c0 >= 0 && r0 + g.wr <= rows && c0 + g.wc <= cols;
+}
+
+// Write the tile of the window (fu, fv) of g, whose cell (0, 0) lies at
+// global (r0, c0), to (u_out, v_out): the cells in the domain that `mem`
+// stores, each rounded to T.
+template <typename S, typename Layout, typename T>
+__device__ __forceinline__ void store_window(const S& g, const Layout& mem,
+                                             T* u_out, T* v_out,
+                                             const float* fu, const float* fv,
+                                             int r0, int c0, int rows,
+                                             int cols) {
+  for (int idx = threadIdx.x; idx < g.tr * g.tc; idx += S::NT) {
+    const int lr = g.halo + idx / g.tc, lc = g.halo + idx % g.tc;
+    const int gr = r0 + lr, gc = c0 + lc;
+    if (gr < rows && gc < cols && mem.stores(gr, gc)) {
+      const size_t at = mem.at(gr, gc);
+      u_out[at] = narrow<T>(fu[lr * g.pitch + lc]);
+      v_out[at] = narrow<T>(fv[lr * g.pitch + lc]);
+    }
+  }
 }
 
 // A megakernel's per-tile work, which both walks of a time block
@@ -774,8 +821,8 @@ __device__ __forceinline__ void window_load(const Layout& mem, const T* u,
                                             int r0, int c0, int rows,
                                             int cols, bool aligned) {
   float* su = base + 2 * b * G::CELLS;
-  load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
-      mem, u, v, su, su + G::CELLS, r0, c0, rows, cols, aligned);
+  load_window<G::NT, true>(mem, u, v, su, su + G::CELLS, Fixed<G::WR>{},
+                           Fixed<G::WC>{}, r0, c0, rows, cols, aligned);
   cp_async_commit();
 }
 
@@ -791,13 +838,13 @@ __device__ __forceinline__ int window_steps(float* base, int done, int other,
     const float* in_u = base + 2 * done * G::CELLS;
     float* out_u = base + 2 * other * G::CELLS;
     if (interior) {
-      step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
-                                       out_u + G::CELLS, st + 1, r0, c0,
-                                       rows, cols, k);
+      step_window<TAPS, MODE, true>(FixedShape<G>{}, in_u, in_u + G::CELLS,
+                                    out_u, out_u + G::CELLS, st + 1, r0, c0,
+                                    rows, cols, k);
     } else {
-      step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
-                                        out_u + G::CELLS, st + 1, r0, c0,
-                                        rows, cols, k);
+      step_window<TAPS, MODE, false>(FixedShape<G>{}, in_u, in_u + G::CELLS,
+                                     out_u, out_u + G::CELLS, st + 1, r0, c0,
+                                     rows, cols, k);
     }
     __syncthreads();
     const int t = done;
@@ -815,16 +862,53 @@ __device__ __forceinline__ void window_store(const Layout& mem, T* u_out,
                                              int b, int r0, int c0, int rows,
                                              int cols) {
   const float* fu = base + 2 * b * G::CELLS;
-  const float* fv = fu + G::CELLS;
-  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
-    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
-    const int gr = r0 + lr, gc = c0 + lc;
-    if (gr < rows && gc < cols && mem.stores(gr, gc)) {
-      const size_t g = mem.at(gr, gc);
-      u_out[g] = narrow<T>(fu[lr * G::WC + lc]);
-      v_out[g] = narrow<T>(fv[lr * G::WC + lc]);
+  store_window(FixedShape<G>{}, mem, u_out, v_out, fu, fu + G::CELLS, r0, c0,
+               rows, cols);
+}
+
+// One block of K1 (windowed.cu, and its pinned entries in windowed_pins.cu):
+// tile (blockIdx.y, blockIdx.x) of g advanced by `steps` (1..g.halo) steps
+// from (u, v) into (u_out, v_out), row-major rows x cols, through two
+// window buffers at `base` (dynamic shared memory, 4 * g.cells floats).
+// Nothing writes (u, v) in the launch, so the ragged cells' copies may go
+// through L1. SPECIALIZE = false takes every tile as an edge tile (an
+// ablation).
+template <int TAPS, int MODE, bool SPECIALIZE, typename S, typename T,
+          typename K>
+__device__ __forceinline__ void window_multistep(const S& g, const T* u,
+                                                 const T* v, T* u_out,
+                                                 T* v_out, int rows, int cols,
+                                                 int steps, const K& k,
+                                                 bool aligned, float* base) {
+  const int r0 = blockIdx.y * g.tr - g.halo, c0 = blockIdx.x * g.tc - g.halo;
+  const FlatLayout mem{cols};
+
+  load_window<S::NT, false>(mem, u, v, base, base + g.cells, g.wr, g.pitch,
+                            r0, c0, rows, cols, aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bool interior = SPECIALIZE && window_inside(g, r0, c0, rows, cols);
+  int cur = 0;
+  for (int st = 0; st < steps; ++st) {
+    const float* in_u = base + 2 * cur * g.cells;
+    float* out_u = base + 2 * (cur ^ 1) * g.cells;
+    if (interior) {
+      step_window<TAPS, MODE, true>(g, in_u, in_u + g.cells, out_u,
+                                    out_u + g.cells, st + 1, r0, c0, rows,
+                                    cols, k);
+    } else {
+      step_window<TAPS, MODE, false>(g, in_u, in_u + g.cells, out_u,
+                                     out_u + g.cells, st + 1, r0, c0, rows,
+                                     cols, k);
     }
+    __syncthreads();
+    cur ^= 1;
   }
+
+  const float* fu = base + 2 * cur * g.cells;
+  store_window(g, mem, u_out, v_out, fu, fu + g.cells, r0, c0, rows, cols);
 }
 
 // time_block's default gate: loads wait for nothing.
@@ -871,7 +955,7 @@ __device__ __forceinline__ void time_block(
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
     const int r0 = row0 + ti * G::TR - HALO, c0 = col0 + tj * G::TC - HALO;
     const bool interior =
-        SPECIALIZE && window_inside<G>(r0, c0, rows, cols);
+        SPECIALIZE && window_inside(FixedShape<G>{}, r0, c0, rows, cols);
     const int done = window_steps<G, TAPS, MODE>(
         base, win, (win + 1) % 2, steps, interior, r0, c0, rows, cols, k);
     if (PREFETCH && next < n_tiles) load(next, done ^ 1);
@@ -996,8 +1080,9 @@ __device__ __forceinline__ void ring_time_block(
     int r0, c0;
     corner(i, &r0, &c0);
     window_steps<G, TAPS, MODE>(base, b, s, steps,
-                                window_inside<G>(r0, c0, rows, cols), r0, c0,
-                                rows, cols, k);
+                                window_inside(FixedShape<G>{}, r0, c0, rows,
+                                              cols),
+                                r0, c0, rows, cols, k);
   };
   auto store = [&](int i, int b) {
     int r0, c0;
@@ -1005,6 +1090,51 @@ __device__ __forceinline__ void ring_time_block(
     window_store<G>(mem, u_out, v_out, base, b, r0, c0, rows, cols);
   };
   ring_walk(first, stride, n_tiles, steps, nbuf, load, run, store);
+}
+
+// --- pinned geometries (K1's and K4's tile and depth pins) ------------------
+//
+// --pallas-block-rows, --pallas-block-cols and --pallas-steps-per-call
+// (grayscott_tpu_torch/ops/geometry.py; grayscott_tpu/backends/pallas.py:
+// 84-99, :270-313): tr x tc tiles in windows of `halo` cells more on every
+// side, halo = halo_for_steps(K) (8, 16, 24 or 32), all known at run time,
+// with Main's threads and strip length. A window's rows lie `pitch` floats
+// apart, its width rounded up to 8, so that each row starts 32-byte aligned
+// for the chunked loads; the columns past the window's width load and are
+// never read. The steppers, window loads and stores are the compiled
+// geometries' own, called with int sizes (FixedShape's members).
+
+// The most steps a pinned launch takes (JAX's MAX_STEPS_PER_CALL).
+constexpr int PIN_MAX_STEPS = 32;
+
+// A pinned launch's tiles, halo and windows (pin_geometry).
+struct PinGeometry {
+  static constexpr int NT = Main::NT, R = Main::R;
+  int tr, tc, halo, wr, wc, pitch, cells;
+};
+
+inline PinGeometry pin_geometry(int tr, int tc, int halo) {
+  const int wc = tc + 2 * halo, pitch = (wc + 7) / 8 * 8;
+  const int wr = tr + 2 * halo;
+  return {tr, tc, halo, wr, wc, pitch, wr * pitch};
+}
+
+// Dynamic shared memory of a pinned launch: two buffers of a window pair.
+inline size_t pin_bytes(const PinGeometry& g) {
+  return 4 * sizeof(float) * static_cast<size_t>(g.cells);
+}
+
+// Whether a launch of `steps` steps on tr x tc tiles with a halo of `halo`
+// is one the pinned entries take: the halo a multiple of 8 up to 32, the
+// steps within it, and the windows within the shared memory a block may
+// use (the check of the C interface's input; ops/geometry.py decides the
+// geometry).
+inline bool pin_ok(int tr, int tc, int halo, int steps) {
+  if (tr < 1 || tc < 1 || halo < HALO || halo > PIN_MAX_STEPS ||
+      halo % HALO != 0 || steps < 1 || steps > halo) {
+    return false;
+  }
+  return pin_bytes(pin_geometry(tr, tc, halo)) <= SMEM_OPTIN;
 }
 
 // --- K3's tiles: 32^2 in 34^2 windows, one step a window (K3, K9) ----------
@@ -1034,9 +1164,9 @@ __device__ __forceinline__ void load_tile(const float* u, const float* v,
                                           const Walk& w, int rows, int cols,
                                           bool aligned) {
   const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
-  load_window<WR, PITCH / 4, PITCH, NT, true>(
-      FlatLayout{cols}, u, v, su, sv, ti * TILE - 1, tj * TILE - 4, rows,
-      cols, aligned);
+  load_window<NT, true>(FlatLayout{cols}, u, v, su, sv, Fixed<WR>{},
+                        Fixed<PITCH>{}, ti * TILE - 1, tj * TILE - 4, rows,
+                        cols, aligned);
   cp_async_commit();
 }
 
@@ -1056,15 +1186,15 @@ __device__ __forceinline__ void step_tile(const float* su, const float* sv,
   float* pv = out_v + static_cast<size_t>(gr0) * cols + gc;
   if (SPECIALIZE && ti > 0 && tj > 0 && (ti + 1) * TILE + 1 <= rows &&
       (tj + 1) * TILE + 1 <= cols) {  // the window lies inside the domain
-    step_strip<TAPS, NAIVE, R, PITCH, false>(
-        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
+    step_strip<TAPS, NAIVE, R, false>(
+        su + LEFT, sv + LEFT, Fixed<PITCH>{}, lr0, lc, R, at, k,
         [&](int i, float un, float vn) {
           pu[static_cast<size_t>(i) * cols] = un;
           pv[static_cast<size_t>(i) * cols] = vn;
         });
   } else {
-    step_strip<TAPS, NAIVE, R, PITCH, true>(
-        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
+    step_strip<TAPS, NAIVE, R, true>(
+        su + LEFT, sv + LEFT, Fixed<PITCH>{}, lr0, lc, R, at, k,
         [&](int i, float un, float vn) {
           if (gr0 + i < rows && gc < cols) {  // the domain's cells only
             pu[static_cast<size_t>(i) * cols] = un;

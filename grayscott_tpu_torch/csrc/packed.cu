@@ -34,6 +34,17 @@
 // taken out, or the first form (part 0: gs_packed.cuh's step_packed_tile<8>
 // on 32x32 tiles, kept unchanged as the in-call yardstick of the old code),
 // for chip_smoke.py to time what each part buys.
+//
+// The pinned entry (gs_packed_pinned_multistep) is K4 under JAX's
+// block_rows and steps_per_call pins on the packed layout
+// (grayscott_tpu/backends/pallas.py:554-583; _packed_kernel's `tr`, `halo`
+// and `steps`): the same kernel on tr x tc tiles in windows of `halo` (8,
+// 16, 24 or 32) cells more on every side, known at run time
+// (gs_tile_sm90.cuh: PinGeometry; the compiled kernel's
+// packed_window_multistep on its int sizes), up to 32 steps a launch.
+// JAX's packed kernel takes no column tile (pallas.py:507-519), so tc is
+// the port's 64, or narrower where a deep halo leaves no room
+// (grayscott_tpu_torch/ops/geometry.py).
 
 #include "gs_packed_sm90.cuh"
 
@@ -51,46 +62,20 @@ __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 packed_kernel(const float* x, float* x_out, int rows, int cols, int steps,
               gs::PackedConstants k, int aligned) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
-  float* const base = reinterpret_cast<float*>(window);
-  const int r0 = blockIdx.y * G::TR - HALO, c0 = blockIdx.x * G::TC - HALO;
+  sm90::packed_window_multistep<SPECIALIZE>(
+      sm90::FixedShape<G>{}, x, x_out, rows, cols, steps, k, aligned,
+      reinterpret_cast<float*>(window));
+}
 
-  sm90::load_window<G::WR, G::WC / 4, G::WC, G::NT, false>(
-      gs::FlatLayout{2 * cols}, x, x + cols, base, base + G::CELLS, r0, c0,
-      rows, cols, aligned);
-  sm90::cp_async_commit();
-  sm90::cp_async_wait<0>();
-  __syncthreads();
-
-  const bool interior =
-      SPECIALIZE && sm90::window_inside<G>(r0, c0, rows, cols);
-  int cur = 0;
-  for (int st = 0; st < steps; ++st) {
-    const float* in_u = base + 2 * cur * G::CELLS;
-    float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
-    if (interior) {
-      sm90::step_packed_window<G, true>(in_u, in_u + G::CELLS, out_u,
-                                        out_u + G::CELLS, st + 1, r0, c0,
-                                        rows, cols, k);
-    } else {
-      sm90::step_packed_window<G, false>(in_u, in_u + G::CELLS, out_u,
-                                         out_u + G::CELLS, st + 1, r0, c0,
-                                         rows, cols, k);
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const float* fu = base + 2 * cur * G::CELLS;
-  const float* fv = fu + G::CELLS;
-  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
-    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
-    const int gr = r0 + lr, gc = c0 + lc;
-    if (gr < rows && gc < cols) {
-      const size_t g = static_cast<size_t>(gr) * 2 * cols + gc;
-      x_out[g] = fu[lr * G::WC + lc];
-      x_out[g + cols] = fv[lr * G::WC + lc];
-    }
-  }
+// packed_kernel on a pinned geometry (bound to 64 registers, as Main's).
+__global__ void __launch_bounds__(sm90::PinGeometry::NT, 2)
+packed_pinned_kernel(const float* x, float* x_out, int rows, int cols,
+                     int steps, gs::PackedConstants k, sm90::PinGeometry g,
+                     int aligned) {
+  extern __shared__ float4 window[];  // buffers [2] x species [2]
+  sm90::packed_window_multistep<true>(g, x, x_out, rows, cols, steps, k,
+                                      aligned,
+                                      reinterpret_cast<float*>(window));
 }
 
 // The first form (gs_packed.cuh: step_packed_tile<8>, 32x32 tiles in 48^2
@@ -159,11 +144,57 @@ Call make_call(const float* x, float* x_out, int rows, int cols, int steps,
           static_cast<cudaStream_t>(stream)};
 }
 
+// One launch of packed_pinned_kernel on tr x tc tiles with a halo of
+// `halo`, after allowing it the most dynamic shared memory a block may use
+// (once per device).
+cudaError_t launch_pinned(const Call& c, const sm90::PinGeometry& g) {
+  static bool allowed[gs::MAX_DEVICES];
+  if (!allowed[c.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        packed_pinned_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sm90::SMEM_OPTIN));
+    if (err != cudaSuccess) return err;
+    allowed[c.device] = true;
+  }
+  const dim3 grid((c.cols + g.tc - 1) / g.tc, (c.rows + g.tr - 1) / g.tr);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const int aligned =
+      sm90::packed_aligned(c.cols, c.x, c.x_out) && g.tc % 4 == 0;
+  packed_pinned_kernel<<<grid, sm90::PinGeometry::NT, sm90::pin_bytes(g),
+                         c.stream>>>(c.x, c.x_out, c.rows, c.cols, c.steps,
+                                     c.k, g, aligned);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int gs_packed_max_steps() { return HALO; }
+
+// gs_packed_multistep on tr x tc tiles in windows of `halo` (8, 16, 24 or
+// 32) cells more on every side, `steps` (1..halo) steps a launch. Returns
+// cudaGetLastError() (0 when the launch was accepted), or
+// cudaErrorInvalidValue for a geometry the entry does not take
+// (gs_tile_sm90.cuh: pin_ok).
+int gs_packed_pinned_multistep(const float* x, float* x_out, int rows,
+                               int cols, int steps, int tr, int tc,
+                               int halo, int device, float h0, float h1,
+                               float cu, float cv, float e, float au,
+                               float bv, float qu, float qv, void* stream) {
+  if (!sm90::pin_ok(tr, tc, halo, steps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  // (make_call checks steps against HALO: it is checked against halo here)
+  const Call c = make_call(x, x_out, rows, cols, 1, device,
+                           {h0, h1, cu, cv, e, au, bv, qu, qv}, stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Call call = c;
+  call.steps = steps;
+  return static_cast<int>(
+      launch_pinned(call, sm90::pin_geometry(tr, tc, halo)));
+}
 
 // Enqueues one launch on `stream` and returns cudaGetLastError() (0 when
 // the launch was accepted). `cols` is the width of one species; x and x_out

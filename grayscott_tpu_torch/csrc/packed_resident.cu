@@ -71,9 +71,10 @@ __device__ __forceinline__ void load_tile(const float* x, float* su,
                                           float* sv, int t, const Walk& w,
                                           int rows, int cols, bool aligned) {
   const int ti = t / w.tiles_x, tj = t - ti * w.tiles_x;
-  sm90::load_window<WR, PITCH / 4, PITCH, NT, true>(
-      gs::FlatLayout{2 * cols}, x, x + cols, su, sv, ti * TILE - 1,
-      tj * TILE - 4, rows, cols, aligned);
+  sm90::load_window<NT, true>(gs::FlatLayout{2 * cols}, x, x + cols, su, sv,
+                              gs::Fixed<WR>{}, gs::Fixed<PITCH>{},
+                              ti * TILE - 1, tj * TILE - 4, rows, cols,
+                              aligned);
   sm90::cp_async_commit();
 }
 
@@ -93,15 +94,15 @@ __device__ __forceinline__ void step_tile(const float* su, const float* sv,
   float* pv = pu + cols;
   if (SPECIALIZE && ti > 0 && tj > 0 && (ti + 1) * TILE + 1 <= rows &&
       (tj + 1) * TILE + 1 <= cols) {  // the window lies inside the domain
-    sm90::step_packed_strip<R, PITCH, false>(
-        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
+    sm90::step_packed_strip<R, false>(
+        su + LEFT, sv + LEFT, gs::Fixed<PITCH>{}, lr0, lc, R, at, k,
         [&](int i, float un, float vn) {
           pu[i * pitch] = un;
           pv[i * pitch] = vn;
         });
   } else {
-    sm90::step_packed_strip<R, PITCH, true>(
-        su + LEFT, sv + LEFT, lr0, lc, R, at, k,
+    sm90::step_packed_strip<R, true>(
+        su + LEFT, sv + LEFT, gs::Fixed<PITCH>{}, lr0, lc, R, at, k,
         [&](int i, float un, float vn) {
           if (gr0 + i < rows && gc < cols) {  // the domain's cells only
             pu[i * pitch] = un;

@@ -99,46 +99,9 @@ __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 windowed_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
                 int cols, int steps, K k, int aligned) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
-  float* const base = reinterpret_cast<float*>(window);
-  const int r0 = blockIdx.y * G::TR - HALO, c0 = blockIdx.x * G::TC - HALO;
-
-  sm90::load_window<G::WR, G::WC / 4, G::WC, G::NT, false>(
-      gs::FlatLayout{cols}, u, v, base, base + G::CELLS, r0, c0, rows, cols,
-      aligned);
-  sm90::cp_async_commit();
-  sm90::cp_async_wait<0>();
-  __syncthreads();
-
-  const bool interior =
-      SPECIALIZE && sm90::window_inside<G>(r0, c0, rows, cols);
-  int cur = 0;
-  for (int st = 0; st < steps; ++st) {
-    const float* in_u = base + 2 * cur * G::CELLS;
-    float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
-    if (interior) {
-      sm90::step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
-                                             out_u + G::CELLS, st + 1, r0,
-                                             c0, rows, cols, k);
-    } else {
-      sm90::step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
-                                              out_u + G::CELLS, st + 1, r0,
-                                              c0, rows, cols, k);
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const float* fu = base + 2 * cur * G::CELLS;
-  const float* fv = fu + G::CELLS;
-  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
-    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
-    const int gr = r0 + lr, gc = c0 + lc;
-    if (gr < rows && gc < cols) {
-      const size_t g = static_cast<size_t>(gr) * cols + gc;
-      u_out[g] = sm90::narrow<T>(fu[lr * G::WC + lc]);
-      v_out[g] = sm90::narrow<T>(fv[lr * G::WC + lc]);
-    }
-  }
+  sm90::window_multistep<TAPS, MODE, SPECIALIZE>(
+      sm90::FixedShape<G>{}, u, v, u_out, v_out, rows, cols, steps, k,
+      aligned, reinterpret_cast<float*>(window));
 }
 
 // The shards of a launch: the pairs' geometry, the source slot, and the
@@ -185,25 +148,27 @@ windowed_shard_kernel(Shards<T> s, int rows, int cols, int steps,
   const int r0 = mem.row0 + ti * G::TR - HALO;
   const int c0 = mem.col0 + tj * G::TC - HALO;
 
-  sm90::load_window<G::WR, G::WC / 4, G::WC, G::NT, true>(
-      mem, u, v, base, base + G::CELLS, r0, c0, rows, cols, aligned);
+  sm90::load_window<G::NT, true>(mem, u, v, base, base + G::CELLS,
+                                 gs::Fixed<G::WR>{}, gs::Fixed<G::WC>{}, r0,
+                                 c0, rows, cols, aligned);
   sm90::cp_async_commit();
   sm90::cp_async_wait<0>();
   __syncthreads();
 
-  const bool interior = sm90::window_inside<G>(r0, c0, rows, cols);
+  const sm90::FixedShape<G> shape{};
+  const bool interior = sm90::window_inside(shape, r0, c0, rows, cols);
   int cur = 0;
   for (int st = 0; st < steps; ++st) {
     const float* in_u = base + 2 * cur * G::CELLS;
     float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
     if (interior) {
-      sm90::step_window<G, TAPS, MODE, true>(in_u, in_u + G::CELLS, out_u,
-                                             out_u + G::CELLS, st + 1, r0,
-                                             c0, rows, cols, k);
+      sm90::step_window<TAPS, MODE, true>(shape, in_u, in_u + G::CELLS,
+                                          out_u, out_u + G::CELLS, st + 1,
+                                          r0, c0, rows, cols, k);
     } else {
-      sm90::step_window<G, TAPS, MODE, false>(in_u, in_u + G::CELLS, out_u,
-                                              out_u + G::CELLS, st + 1, r0,
-                                              c0, rows, cols, k);
+      sm90::step_window<TAPS, MODE, false>(shape, in_u, in_u + G::CELLS,
+                                           out_u, out_u + G::CELLS, st + 1,
+                                           r0, c0, rows, cols, k);
     }
     __syncthreads();
     cur ^= 1;

@@ -34,6 +34,13 @@ that a run can show that its main path went through the kernels.
 K4 and K5 with one part of their design taken out
 (``WINDOWED_ABLATIONS``, ``RESIDENT_ABLATIONS``), for timing what each
 part buys; their launches are not the main path's and are not counted.
+
+``multistep(..., geometry=g)`` is K4 under JAX's ``block_rows`` and
+``steps_per_call`` pins on the packed layout (``grayscott_tpu/backends/
+pallas.py:554-583``; ``ops/geometry.py``): on a geometry other than the
+compiled one it launches ``gs_packed_pinned_multistep`` (up to
+``g.halo``, at most 32, steps a launch), counted in ``pinned_launches``;
+its plain version is :func:`packed_run`, whatever the tiles.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch.nn.functional as F
 
 from ..params import PackedConstants
 from . import build, checks
+from .geometry import Geometry
 
 #: most steps one K4 launch may take: the kernel's compile-time halo depth
 K = 8
@@ -56,6 +64,8 @@ TILE = (64, 64)
 
 #: K4 launches so far (CPU calls run the plain version and add nothing)
 launches = 0
+#: K4's pinned launches (a geometry other than the compiled one)
+pinned_launches = 0
 
 #: K5 launches so far
 resident_launches = 0
@@ -86,6 +96,7 @@ RESIDENT_ABLATIONS = {
 }
 
 _fn = None
+_pinned_fn = None
 _ablation_fn = None
 _resident_fn = None
 _resident_ablation_fn = None
@@ -300,6 +311,15 @@ def _kernel():
     return _fn
 
 
+def _pinned_kernel():
+    global _pinned_fn
+    if _pinned_fn is None:
+        _pinned_fn = build.bind("gs_packed_pinned_multistep",
+                                [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                                + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+    return _pinned_fn
+
+
 def _ablation_kernel():
     global _ablation_fn
     if _ablation_fn is None:
@@ -344,18 +364,33 @@ def resident_max_blocks(device: torch.device) -> int:
 
 
 def multistep(x: torch.Tensor, x_out: torch.Tensor, steps: int,
-              pc: PackedConstants) -> None:
-    """K4: write the packed state ``steps`` (1..K) steps after ``x`` into
-    ``x_out``. On a CUDA device the launch is enqueued on the current
-    stream and not waited for."""
-    global launches
-    checks.check_count("steps", steps, 1, K)
+              pc: PackedConstants,
+              geometry: Geometry | None = None) -> None:
+    """K4: write the packed state ``steps`` (1..K, or 1..``geometry.halo``)
+    steps after ``x`` into ``x_out``. ``geometry``: the tiles and halo of
+    the launch (None: the compiled ones). On a CUDA device the launch is
+    enqueued on the current stream and not waited for."""
+    global launches, pinned_launches
+    pinned = geometry is not None and not geometry.compiled
+    checks.check_count("steps", steps, 1, geometry.halo if pinned else K)
     check_packed((x,), (x_out,))
     if x.device.type == "cpu":
         x_out.copy_(packed_run(x, steps, pc))
         return
-    _launch(_kernel(), x, x_out, steps, pc)
-    launches += 1
+    if not pinned:
+        _launch(_kernel(), x, x_out, steps, pc)
+        launches += 1
+        return
+    rows, width = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _pinned_kernel()(x.data_ptr(), x_out.data_ptr(), rows, width // 2,
+                           steps, *geometry, x.device.index,
+                           *kernel_args(pc), stream)
+    if err != 0:
+        raise RuntimeError(f"pinned packed kernel launch failed "
+                           f"({geometry.label()}): CUDA error {err} "
+                           f"({build.error_name(err)})")
+    pinned_launches += 1
 
 
 def packed_windowed_ablation(x: torch.Tensor, x_out: torch.Tensor,

@@ -171,22 +171,32 @@ def run(u: torch.Tensor, v: torch.Tensor, steps: int,
     return u, v
 
 
-#: steps between two roundings of bf16 storage: every engine's block
-#: (K1's K, K2's and K7's time block)
+#: steps between two roundings of bf16 storage by default: every engine's
+#: block (K1's K, K2's and K7's time block); a steps_per_call pin K sets
+#: K1's (``block``)
 BF16_BLOCK = 8
 
 
+def _blocks(steps: int, block: int) -> list:
+    """``steps`` in blocks of ``block`` and one of the remainder."""
+    if not (isinstance(block, int) and block >= 1):
+        raise ValueError(f"block must be an int >= 1, got {block!r}")
+    n_full, rem = divmod(steps, block)
+    return [block] * n_full + ([rem] if rem else [])
+
+
 def run_bf16(u: torch.Tensor, v: torch.Tensor, steps: int,
-             consts: KernelConstants, boundary: str = "naive"
+             consts: KernelConstants, boundary: str = "naive",
+             block: int = BF16_BLOCK
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``steps`` steps of bfloat16 storage, the plain version of the bf16
     kernels (``grayscott_tpu/ops/pallas_stencil.py:970-993``): in blocks of
-    ``steps // 8`` x 8 steps and one of the remainder, each block widens
-    the bfloat16 state to float32, takes its steps with :func:`run`, and
-    rounds to bfloat16 (to nearest even) once. Takes and returns bfloat16
-    tensors."""
-    n_full, rem = divmod(steps, BF16_BLOCK)
-    for k in [BF16_BLOCK] * n_full + ([rem] if rem else []):
+    ``steps // block`` x ``block`` steps and one of the remainder, each
+    block widens the bfloat16 state to float32, takes its steps with
+    :func:`run`, and rounds to bfloat16 (to nearest even) once. ``block``
+    is the steps a launch (JAX's K: a ``steps_per_call`` pin rounds once a
+    K-step block). Takes and returns bfloat16 tensors."""
+    for k in _blocks(steps, block):
         u, v = run(u.float(), v.float(), k, consts, boundary)
         u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
     return u, v
@@ -333,13 +343,12 @@ def run_naive_fold(u: torch.Tensor, v: torch.Tensor, steps: int,
 
 
 def run_naive_fold_bf16(u: torch.Tensor, v: torch.Tensor, steps: int,
-                        fc: FoldConstants
+                        fc: FoldConstants, block: int = BF16_BLOCK
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`run_naive_fold` on bfloat16 storage, the plain version of the
-    bf16 fold entries: in blocks of at most 8 steps, each widened to
-    float32 and rounded to bfloat16 once, as :func:`run_bf16`."""
-    n_full, rem = divmod(steps, BF16_BLOCK)
-    for k in [BF16_BLOCK] * n_full + ([rem] if rem else []):
+    bf16 fold entries: in blocks of at most ``block`` steps, each widened
+    to float32 and rounded to bfloat16 once, as :func:`run_bf16`."""
+    for k in _blocks(steps, block):
         u, v = run_naive_fold(u.float(), v.float(), k, fc)
         u, v = u.to(torch.bfloat16), v.to(torch.bfloat16)
     return u, v

@@ -33,6 +33,18 @@ counted apart, in ``bf16_launches`` and ``bf16_shard_launches``.
 ``:817-859``) on either storage: the fold entries, whose plain versions are
 ``stencil.run_naive_fold`` and ``stencil.run_naive_fold_bf16``; their
 launches are counted in ``fold_launches`` and ``fold_bf16_launches``.
+
+``multistep(..., geometry=g)`` runs the tile and depth pins
+(``--pallas-block-rows``, ``--pallas-block-cols``,
+``--pallas-steps-per-call``; ``ops/geometry.py``): ``g`` the tiles and the
+halo, up to ``g.halo`` (at most 32) steps a launch. The compiled geometry
+(64x64 tiles, halo 8: ``geometry.DEFAULT``) launches the entries above;
+any other launches the pinned entries of ``csrc/windowed_pins.cu`` on all
+four storages, counted apart in ``pinned_launches``,
+``pinned_bf16_launches``, ``pinned_fold_launches`` and
+``pinned_fold_bf16_launches``. Their plain versions are the same as the
+compiled entries' (the results do not depend on the tiles; bf16 storage
+rounds once a launch, so ``steps`` is the block length).
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import torch
 
 from ..params import FoldConstants, KernelConstants
 from ..parallel import halo
-from . import build, checks, sharded_mega, stencil
+from . import build, checks, geometry, sharded_mega, stencil
 
 #: most steps one launch may take: the kernel's compile-time halo depth
 K = 8
@@ -67,6 +79,12 @@ bf16_shard_launches = 0
 #: the fold entries' launches so far (float32, bfloat16 storage)
 fold_launches = 0
 fold_bf16_launches = 0
+#: the pinned entries' launches (a geometry other than the compiled one),
+#: by storage and mode
+pinned_launches = 0
+pinned_bf16_launches = 0
+pinned_fold_launches = 0
+pinned_fold_bf16_launches = 0
 
 #: the C entry of each storage type: (unsharded, shard entry)
 _ENTRIES = {torch.float32: ("gs_windowed_multistep",
@@ -76,6 +94,16 @@ _ENTRIES = {torch.float32: ("gs_windowed_multistep",
 #: the fold entry of each storage type
 _FOLD_ENTRIES = {torch.float32: "gs_windowed_multistep_fold",
                  torch.bfloat16: "gs_windowed_multistep_fold_bf16"}
+#: the pinned entries: (storage type, fold) -> (C entry, its counter's
+#: name)
+_PINNED = {(torch.float32, False): ("gs_windowed_pinned_multistep",
+                                    "pinned_launches"),
+           (torch.bfloat16, False): ("gs_windowed_pinned_multistep_bf16",
+                                     "pinned_bf16_launches"),
+           (torch.float32, True): ("gs_windowed_pinned_multistep_fold",
+                                   "pinned_fold_launches"),
+           (torch.bfloat16, True): ("gs_windowed_pinned_multistep_fold_bf16",
+                                    "pinned_fold_bf16_launches")}
 
 _fns: dict = {}
 _checked = False
@@ -102,6 +130,25 @@ def _bind(name: str, argtypes: list):
     return _fns[name]
 
 
+def _pinned_kernel(dtype, fold: bool):
+    """The pinned entry of ``dtype`` storage, bound once, after its most
+    steps a launch are checked against ``geometry.MAX_STEPS_PER_CALL``."""
+    name = _PINNED[dtype, fold][0]
+    if name not in _fns:
+        most = build.bind("gs_windowed_pinned_max_steps", [])()
+        if most != geometry.MAX_STEPS_PER_CALL:
+            raise RuntimeError(f"pinned windowed kernel takes at most {most}"
+                               f" steps a launch; this wrapper expects "
+                               f"{geometry.MAX_STEPS_PER_CALL}")
+        args = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+                if fold else
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                + [ctypes.c_float] * 14 + [ctypes.c_void_p])
+        _fns[name] = build.bind(name, args)
+    return _fns[name]
+
+
 def _kernel(dtype=torch.float32):
     return _bind(_ENTRIES[dtype][0],
                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
@@ -118,13 +165,19 @@ def _fold_kernel(dtype=torch.float32):
 def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
               v_out: torch.Tensor, steps: int,
               consts: KernelConstants | FoldConstants, boundary: str,
-              fold: bool = False) -> None:
-    """Write the state ``steps`` (1..K) steps after ``(u, v)`` into
-    ``(u_out, v_out)``, all four float32 or all four bfloat16. ``fold``:
-    the folded naive reaction, ``consts`` a ``FoldConstants`` and the
-    boundary naive. On a CUDA device the launch is enqueued on the current
-    stream and not waited for."""
+              fold: bool = False,
+              geometry: geometry.Geometry | None = None) -> None:
+    """Write the state ``steps`` (1..K, or 1..``geometry.halo``) steps
+    after ``(u, v)`` into ``(u_out, v_out)``, all four float32 or all four
+    bfloat16. ``fold``: the folded naive reaction, ``consts`` a
+    ``FoldConstants`` and the boundary naive. ``geometry``: the tiles and
+    halo of the launch (None: the compiled ones). On a CUDA device the
+    launch is enqueued on the current stream and not waited for."""
     global launches, bf16_launches
+    if geometry is not None and not geometry.compiled:
+        _pinned_multistep(u, v, u_out, v_out, steps, consts, boundary, fold,
+                          geometry)
+        return
     checks.check_count("steps", steps, 1, K)
     checks.check_boundary(boundary)
     checks.check_state((u, v), (u_out, v_out), dtypes=checks.STORAGE_DTYPES)
@@ -151,6 +204,55 @@ def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
         bf16_launches += 1
     else:
         launches += 1
+
+
+def _pinned_multistep(u, v, u_out, v_out, steps, consts, boundary, fold,
+                      g: geometry.Geometry) -> None:
+    """:func:`multistep` on a geometry other than the compiled one: the
+    pinned entries (``csrc/windowed_pins.cu``)."""
+    global pinned_launches, pinned_bf16_launches, pinned_fold_launches
+    global pinned_fold_bf16_launches
+    checks.check_count("steps", steps, 1, g.halo)
+    checks.check_boundary(boundary)
+    checks.check_state((u, v), (u_out, v_out), dtypes=checks.STORAGE_DTYPES)
+    if fold:
+        checks.check_fold(consts, boundary)
+    bf16 = u.dtype == torch.bfloat16
+    if u.device.type == "cpu":
+        if fold:
+            ru, rv = (stencil.run_naive_fold_bf16(u, v, steps, consts,
+                                                  block=steps) if bf16
+                      else stencil.run_naive_fold(u, v, steps, consts))
+        elif bf16:
+            ru, rv = stencil.run_bf16(u, v, steps, consts, boundary,
+                                      block=steps)
+        else:
+            ru, rv = stencil.run(u, v, steps, consts, boundary)
+        u_out.copy_(ru)
+        v_out.copy_(rv)
+        return
+    fn = _pinned_kernel(u.dtype, fold)
+    rows, cols = u.shape
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    head = (u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+            rows, cols, steps, *g)
+    if fold:
+        err = fn(*head, u.device.index, *build.fold_args(consts), stream)
+    else:
+        err = fn(*head, int(boundary == "naive"), u.device.index,
+                 *consts.weights, *consts.reaction, stream)
+    if err != 0:
+        raise RuntimeError(f"pinned windowed kernel launch failed "
+                           f"({g.label()}): CUDA error {err} "
+                           f"({build.error_name(err)})")
+    if fold and bf16:
+        pinned_fold_bf16_launches += 1
+    elif fold:
+        pinned_fold_launches += 1
+    elif bf16:
+        pinned_bf16_launches += 1
+    else:
+        pinned_launches += 1
 
 
 def _fold_multistep(u, v, u_out, v_out, steps, fc, boundary) -> None:

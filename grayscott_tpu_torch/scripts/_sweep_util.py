@@ -9,9 +9,10 @@ from __future__ import annotations
 import json
 
 #: a configuration's keys, JAX's child's names (``scripts/_sweep_util.py:
-#: 25-40``) -> the ``cuda`` backend's keyword and the child's default. The
-#: backend refuses what it does not run (the tile pins, a K other than 8,
-#: a lane fold), each naming its ROADMAP.md item.
+#: 25-40``) -> the ``cuda`` backend's keyword and the child's default.
+#: ``k``, ``tr`` and ``tc`` pin K1's (and K4's) depth and tiles
+#: (``ops/geometry.py``). The backend refuses what it does not run (a lane
+#: fold, the megakernels' tile pins), each naming its ROADMAP.md item.
 KEYS = {
     "engine": ("engine", "auto"), "resident": ("resident", "auto"),
     "pack": ("pack", "auto"), "dtype": ("dtype", "float32"),

@@ -56,20 +56,25 @@ def parse_results(paths: list[str]) -> list[dict]:
 
 def to_record(res: dict) -> dict:
     """An autotune record from one result, in the schema the tuner
-    persists: the engine the config pinned (None for ``engine=auto``),
-    ``pack``, the kernels' fixed tiles and K, and the rates (the headline
-    ``gcells_per_sec`` the device rate when the result has one)."""
+    persists (JAX's ``to_record``, ``scripts/adopt_sweep.py:59-104``): the
+    engine the config pinned (``windowed`` under a ``tr`` or ``k`` pin,
+    None for ``engine=auto``), ``pack``, the tile and depth pins it ran
+    (``tr``, ``k`` (default 8) and, only where pinned, ``tc``) and the
+    rates (the headline ``gcells_per_sec`` the device rate when the
+    result has one)."""
     cfg = res["config"]
     if cfg.get("resident") == "on":
         engine = "resident"
-    elif cfg.get("engine") in ("windowed", "mega"):
-        engine = cfg["engine"]
+    elif cfg.get("engine") == "mega":
+        engine = "mega"
+    elif cfg.get("engine") == "windowed" or cfg.get("tr") or cfg.get("k"):
+        engine = "windowed"
     else:
         engine = None
     rec = {
         "engine": engine,
-        "block_rows": None,
-        "steps_per_call": K,
+        "block_rows": cfg.get("tr"),
+        "steps_per_call": cfg.get("k") or K,
         "fold": 1,
         "pack": cfg.get("pack") == "on",
         "wall_gcells_per_sec": round(res["gcells_per_sec"], 3),
@@ -81,6 +86,9 @@ def to_record(res: dict) -> dict:
         rec["device_gcells_per_sec"] = round(res["device_gcells_per_sec"], 3)
     if res.get("stats"):
         rec["stats"] = res["stats"]
+    if "tc" in cfg:
+        # a present block_cols pins the width (None: the default rule)
+        rec["block_cols"] = cfg["tc"]
     return rec
 
 

@@ -19,8 +19,8 @@ from __future__ import annotations
 #: UnsupportedConfigError when pinned.
 MATRIX: tuple[tuple[str, str, str], ...] = (
     ("engine=windowed (K1) x any boundary x f32/bf16", "ok",
-     "8 steps a launch on 64x64 tiles; the fold's entries under "
-     "naive_fold"),
+     "8 steps a launch on 64x64 tiles unless pinned; the fold's entries "
+     "under naive_fold"),
     ("engine=mega (K2) x any boundary x f32/bf16", "ok",
      "the whole run in one cooperative launch; the fold's entries under "
      "naive_fold"),
@@ -31,8 +31,8 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
      "'on' forces; auto packs only on a measured record; rejected with the "
      "naive boundary, bf16 or 5points"),
     ("bf16 storage x windowed/mega/sharded", "ok",
-     "rounded to bfloat16 once a block of 8 steps; rejected with "
-     "resident=on or pack=on"),
+     "rounded to bfloat16 once a block of K steps (8, or K1's "
+     "steps_per_call pin); rejected with resident=on or pack=on"),
     ("naive_fold x naive x windowed/mega x f32/bf16", "ok",
      "the folded naive reaction (ulp-budget mode); rejected with the zero "
      "boundary, naive_fix=store or resident=on"),
@@ -50,9 +50,16 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
      "no-op: interior tiles always step without the boundary selects, "
      "bitwise; rejected with naive_fix=store; declined on the packed "
      "layout"),
-    ("steps_per_call=8 x cuda", "ok",
-     "the kernels' own K: auto then runs K1 unpacked (JAX's explicit-K "
-     "rule)"),
+    ("steps_per_call 1..32 x windowed (K1, K4) x f32/bf16/fold", "ok",
+     "K steps a launch in windows of max(ceil(K/8)*8, 8) cells; K <= 8 on "
+     "64x64 tiles runs the compiled entries, the rest the pinned ones; "
+     "auto then runs K1, packed only on pack=on; ValueError outside 1..32; "
+     "rejected with engine=mega unless 8"),
+    ("block_rows/block_cols x windowed (K1, K4) x f32/bf16/fold", "ok",
+     "K1's tile height and width (K4's height: block_cols rejected with "
+     "pack=on, as in JAX); an unpinned dimension 64, or the largest "
+     "multiple of 8 whose window fits; a window past 232,448 B of shared "
+     "memory rejected with its bytes; auto then runs K1"),
     ("sharded mega (K7) x 1-D/2-D mesh x f32/bf16", "ok",
      "all shards on one card; row meshes wait at the read site, 2-D meshes "
      "gate each time block's entry"),
@@ -64,9 +71,10 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
     ("lane fold (fold > 1)", "rejected",
      "ROADMAP.md Queue 2 item 7 (the lane-fold layout); auto, off and 1 "
      "run"),
-    ("block_rows/block_cols pins, steps_per_call other than 8", "rejected",
-     "ROADMAP.md Queue 2 item 8 (column tiles, the temporal depth and the "
-     "tile pins)"),
+    ("block_rows/block_cols x mega (K2, K6); K and tiles x sharded",
+     "rejected",
+     "ROADMAP.md Queue 2 item 12 (the megakernels' tile pins, the sharded "
+     "engines' K and tiles)"),
     ("GRAYSCOTT_COORDINATOR (several processes)", "rejected",
      "ROADMAP.md Queue 1 item 7.2 (several processes over "
      "torch.distributed)"),

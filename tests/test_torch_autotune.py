@@ -109,21 +109,27 @@ def jax_record_keys():
 
 @pytest.mark.parametrize("boundary", ["naive", "zero"])
 def test_autotune_measures_ranks_and_persists(jax_record_keys, boundary):
-    """Every candidate runs (the three engines; on zero their packed twins
-    too), the winner is the fastest of the table, and the persisted record
-    is a superset of JAX's keys, keyed on ``cpu``."""
+    """Every candidate runs (the three engines and K1's depth and tile
+    candidates; on zero their packed twins and K4's too), the winner is
+    the fastest of the table and carries the K and tiles it ran, and the
+    persisted record is a superset of JAX's keys, keyed on ``cpu``."""
     before = autotune.measurements
     rec = autotune.autotune(Parameters(), SHAPE, boundary, device="cpu",
                             reps=1)
     table = rec["candidates"]
-    assert len(table) == (6 if boundary == "zero" else 3)
+    assert len(table) == (11 if boundary == "zero" else 6)
     assert autotune.measurements - before >= len(table)
     assert {(c["engine"], c["pack"]) for c in table} == {
         (e, p) for e in ("windowed", "mega", "resident")
         for p in ((False, True) if boundary == "zero" else (False,))}
     assert rec["gcells_per_sec"] == max(c["gcells_per_sec"] for c in table)
     assert jax_record_keys <= set(rec)
-    assert rec["block_rows"] is None and rec["steps_per_call"] == 8
+    ran = {(c["engine"], c["pack"], c["steps_per_call"], c["block_rows"],
+            c["block_cols"]) for c in table}
+    assert (rec["engine"], rec["pack"], rec["steps_per_call"],
+            rec["block_rows"], rec["block_cols"]) in ran
+    assert {c["steps_per_call"] for c in table} == {8, 16}
+    assert ("windowed", False, 8, 32, 128) in ran
     assert "device_gcells_per_sec" not in rec  # no device time on the CPU
     assert cache.load_autotune() == {cpu_key(boundary=boundary): rec}
 
@@ -144,19 +150,21 @@ def test_close_call_is_measured_again(monkeypatch, rates, again):
     """When the runner-up is within 3 % of the winner both are measured
     again and the better of each counts, as in JAX; else nothing is."""
     calls = []
+    first = len(autotune.default_candidates(Parameters(), "naive"))
 
     def fake(params, shape, boundary, steps, dtype, reps, device, **cfg):
         engine = "resident" if cfg.get("resident") == "on" else cfg["engine"]
         calls.append(engine)
-        bump = 1.05 if len(calls) > 3 and engine == "mega" else 1.0
+        bump = 1.05 if len(calls) > first and engine == "mega" else 1.0
+        # K1's depth and tile candidates trail far behind
+        rate = 1.0 if len(cfg) > 1 else rates[engine]
         return {"engine": engine, "pack": False, "block_rows": None,
                 "steps_per_call": 8, "block_cols": None, "fold": 1,
-                "gcells_per_sec": rates[engine] * bump,
-                "wall_gcells_per_sec": rates[engine]}
+                "gcells_per_sec": rate * bump, "wall_gcells_per_sec": rate}
 
     monkeypatch.setattr(autotune, "measure_config", fake)
     rec = autotune.autotune(Parameters(), SHAPE, "naive", device="cpu")
-    assert len(calls) == 3 + again
+    assert len(calls) == first + again
     assert rec["engine"] == ("mega" if again else "windowed")
 
 
@@ -298,7 +306,7 @@ def test_cli_autotune_refuses_sharded_and_skips_the_rungs():
     ns = simulate.build_parser().parse_args(
         ["--autotune", "--device", "cpu", "--backend", "sharded",
          "--sharded-engine", "mega", "--pallas-block-rows", "64"])
-    with pytest.raises(UnsupportedConfigError, match="Queue 2 item 8"):
+    with pytest.raises(UnsupportedConfigError, match="Queue 2 item 12"):
         shared.make_simulation(ns)
     assert autotune.measurements == before and cache.load_autotune() == {}
     shared.make_simulation(simulate.build_parser().parse_args(

@@ -83,11 +83,22 @@ def test_main_runs_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--block-rows", "8"], ["--steps-per-call", "4"],
 ])
-def test_deferred_flags_stop_with_their_roadmap_item(flags, capsys):
-    with pytest.raises(SystemExit) as exc:
-        harness.main(["--device", "cpu", *flags])
-    assert exc.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_deferred_flags_stop_with_their_roadmap_item(flags, tmp_path):
+    """The tile and depth pins, which stopped the run until ROADMAP.md Queue
+    2 item 8 ported them: JAX's parser takes the same flags, and the rows
+    run on the ``cuda`` backend under the pin, labelled with it, as JAX's
+    harness labels them."""
+    from grayscott_tpu.bench import harness as jax_harness
+
+    key, value = flags[0][2:].replace("-", "_"), int(flags[1])
+    out = tmp_path / "sweep.json"
+    assert harness.main(["--device", "cpu", "--smin", "3", "--smax", "3",
+                         "--steps", "9", "--reps", "1", "--backends",
+                         "cuda,naive", *flags, "-o", str(out)]) == 0
+    rows = json.loads(out.read_text())
+    assert [r[key] for r in rows] == [value, value]
+    with pytest.raises(SystemExit):  # JAX's parser: the same flag, an int
+        jax_harness.main([flags[0], "x"])
 
 
 def test_dtype_flag_runs_like_jax(tmp_path, capsys):

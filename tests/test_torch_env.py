@@ -106,18 +106,20 @@ def test_parser_matches_jax_under_env(clean_env, env):
 #: other than the default, a value it refuses and the ROADMAP.md item the
 #: refusal names)
 MORE_FLAGS = {
-    "GRAYSCOTT_PALLAS_BLOCK_ROWS": ("pallas_block_rows", None,
-                                    "64", "Queue 2 item 8"),
-    "GRAYSCOTT_PALLAS_BLOCK_COLS": ("pallas_block_cols", None,
-                                    "128", "Queue 2 item 8"),
-    "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "bfloat16", None, None),
-    "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "off", "2", "Queue 2 item 7"),
-    "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "store", None, None),
-    "GRAYSCOTT_NAIVE_FOLD": ("pallas_naive_fold", "on", None, None),
+    "GRAYSCOTT_PALLAS_BLOCK_ROWS": ("pallas_block_rows", "64",
+                                    None, None, None),
+    "GRAYSCOTT_PALLAS_BLOCK_COLS": ("pallas_block_cols", "128",
+                                    None, None, None),
+    "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "bfloat16", None, None, None),
+    "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "off", "2", "Queue 2 item 7",
+                              UnsupportedConfigError),
+    "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "store", None, None, None),
+    "GRAYSCOTT_NAIVE_FOLD": ("pallas_naive_fold", "on", None, None, None),
     "GRAYSCOTT_PALLAS_RUNTIME_PARAMS": ("pallas_runtime_params", "off",
-                                        None, None),
-    "GRAYSCOTT_PALLAS_STEPS_PER_CALL": ("pallas_steps_per_call", "8", "16",
-                                        "Queue 2 item 8"),
+                                        None, None, None),
+    "GRAYSCOTT_PALLAS_STEPS_PER_CALL": ("pallas_steps_per_call", "16", "33",
+                                        "steps_per_call must be in",
+                                        ValueError),
 }
 
 
@@ -144,8 +146,8 @@ def both_args(argv):
 def test_more_flags_default_to_their_variables(clean_more_env, var):
     """Each new variable gives its flag's default in both parsers, the same
     backend arguments; the port runs the value, or refuses it naming its
-    ROADMAP.md item."""
-    dest, runs, refused, item = MORE_FLAGS[var]
+    ROADMAP.md item (a K outside 1..32: JAX's ``ValueError``)."""
+    dest, runs, refused, item, error = MORE_FLAGS[var]
     assert both_args([])[0] == both_args([])[1]
     for value in (runs, refused):
         if value is None:
@@ -157,8 +159,9 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
             ["--device", "cpu", "-r", "24", "-c", "32"])
         assert str(getattr(ns, dest)) == value
         if value == refused:
-            with pytest.raises(UnsupportedConfigError, match=item):
+            with pytest.raises(error, match=item) as info:
                 shared.make_simulation(ns)
+            assert type(info.value) is error
         else:
             sim = shared.make_simulation(ns)
             sim.perform_steps(sim.make_species((24, 32)), 9)
@@ -166,7 +169,7 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
 
 #: the ROADMAP.md items the port has done: a value of theirs runs
 PORTED = ("Queue 2 item 1", "Queue 2 item 3", "Queue 2 item 4",
-          "Queue 2 item 5", "Queue 2 item 6")
+          "Queue 2 item 5", "Queue 2 item 6", "Queue 2 item 8")
 
 #: argv -> the ROADMAP.md item of the value (None, or an item in PORTED: it
 #: runs; another: the port's refusal names it)
@@ -198,9 +201,9 @@ ARGV = [
 def test_flag_values_against_jax(clean_more_env, argv, item):
     """The port's parser gives the backend what JAX's gives its own on the
     same argv; each value the port runs runs (the same frames as with no
-    flag: runtime parameters on and off, K = 8 pinned, ``naive_fix``'s
-    three values; bf16 storage the same steps rounded to bfloat16 once a
-    block of 8, ``stencil.run_bf16``; the folded naive reaction its own
+    flag: runtime parameters on and off, the K and tile pins,
+    ``naive_fix``'s three values; bf16 storage the same steps rounded to
+    bfloat16 once a block of 8, ``stencil.run_bf16``; the folded naive reaction its own
     plain replay, ``stencil.run_naive_fold``), each value it does not run
     raises :class:`UnsupportedConfigError` naming its item."""
     port, ref = both_args(argv)
@@ -264,9 +267,9 @@ CONSTRUCTOR = [
 @pytest.mark.parametrize("kwargs,item", CONSTRUCTOR)
 def test_constructor_values_against_jax(kwargs, item):
     """JAX's backend takes each value; the port runs the ported ones (the
-    frames of the same pins without the knob: the ring and the
-    specialisation change no result) and refuses the rest naming its
-    item."""
+    frames of the same pins without the knob: the ring, the
+    specialisation and the K and tile pins change no float32 result) and
+    refuses the rest naming its item."""
     from grayscott_tpu.backends.pallas import PallasSimulation
     from grayscott_tpu.params import Parameters as JaxParameters
 
@@ -278,7 +281,8 @@ def test_constructor_values_against_jax(kwargs, item):
             CudaSimulation(Parameters(), boundary, device="cpu", **kwargs)
         return
     pins = {k: v for k, v in kwargs.items()
-            if k not in ("mega_depth", "mega_specialize")}
+            if k not in ("mega_depth", "mega_specialize", "steps_per_call",
+                         "block_rows", "block_cols")}
     frames = []
     for kw in (kwargs, pins):
         sim = CudaSimulation(Parameters(), boundary, device="cpu", **kw)

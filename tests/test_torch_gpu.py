@@ -1172,9 +1172,12 @@ def test_autotune_record_is_followed(cuda_device, tmp_path, monkeypatch):
     platform = autotune_platform(cuda_device)
     assert platform not in ("gpu", "cuda") and f":{platform}:" in key
     assert cache.load_autotune()[key] == rec
-    assert rec["device_gcells_per_sec"] > 0 and len(rec["candidates"]) == 6
+    assert rec["device_gcells_per_sec"] > 0 and len(rec["candidates"]) == \
+        len(autotune.default_candidates(params, "zero"))
     sim = CudaSimulation(params, "zero", device=cuda_device)
     assert sim.layout_for(shape) == (rec["pack"], rec["engine"])
+    assert sim.plan_for(shape, rec["pack"], rec)[0] == \
+        rec["steps_per_call"]
     tag = sim.make_species(shape).storage[0]
     want = cuda_backend.PACKED_TAGS[rec["engine"]] if rec["pack"] \
         else rec["engine"]
@@ -1588,3 +1591,146 @@ def test_k7_read_site_bitwise_equals_entry_gate(cuda_device, boundary, shape,
         for other in runs[1:]:
             assert all(torch.equal(a, b) for a, b in zip(runs[0], other)), \
                 (n_blocks, steps)
+
+
+# -- the tile and depth pins: K1's and K4's pinned entries -------------------
+
+from grayscott_tpu_torch.ops import geometry, stencil  # noqa: E402
+
+#: (K, tile rows, tile cols) of the pinned launches: every halo (8..32), a
+#: tile width not a multiple of 4 (4-byte copies), one row of tiles, and
+#: the compiled geometry itself through the pinned path's selection
+PIN_CASES = [(1, 32, 32), (3, 8, 512), (12, 64, 64), (16, 32, 128),
+             (16, 13, 37), (24, 64, 64), (32, 56, 56), (8, 128, 32),
+             (8, 64, 64)]
+#: a ragged domain, and one with NaN and +-Inf (fold_states)
+PIN_SHAPES = [(70, 97), (130, 210)]
+
+
+def pinned_plain(u, v, steps, entry, boundary, consts):
+    """The plain version of one pinned launch of ``entry``."""
+    if entry == "fold":
+        return stencil.run_naive_fold(u, v, steps, consts)
+    if entry == "fold bf16":
+        return stencil.run_naive_fold_bf16(u, v, steps, consts, block=steps)
+    if entry == "bf16":
+        return stencil.run_bf16(u, v, steps, consts, boundary, block=steps)
+    return stencil.run(u, v, steps, consts, boundary)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,boundary", [
+    ("f32", "naive"), ("f32", "zero"), ("bf16", "naive"), ("bf16", "zero"),
+    ("fold", "naive"), ("fold bf16", "naive")])
+def test_pinned_entries_bitwise_equal_plain(cuda_device, entry, boundary):
+    """Each pinned entry of K1 (csrc/windowed_pins.cu), one launch of K
+    steps (and of one step) on each geometry of PIN_CASES, against its
+    plain version: bit for bit, NaN and Inf included (bf16: NaN's bit
+    pattern aside); the compiled geometry launches the compiled entry.
+    Tolerance: none."""
+    fold = entry.startswith("fold")
+    dtype = torch.bfloat16 if entry.endswith("bf16") else torch.float32
+    params = Parameters()
+    consts = fold_constants(params) if fold else kernel_constants(params)
+    counter = windowed._PINNED[dtype, fold][1]
+    for shape in PIN_SHAPES:
+        for u, v in fold_states(shape, cuda_device, dtype):
+            for k, tr, tc in PIN_CASES:
+                g = geometry.resolve(shape, k, tr, tc)
+                for steps in sorted({1, k}):
+                    uo, vo = torch.empty_like(u), torch.empty_like(v)
+                    before = getattr(windowed, counter)
+                    windowed.multistep(u, v, uo, vo, steps, consts, boundary,
+                                       fold=fold, geometry=g)
+                    torch.cuda.synchronize()
+                    assert getattr(windowed, counter) == \
+                        before + (not g.compiled), (shape, g)
+                    want = pinned_plain(u, v, steps, entry, boundary, consts)
+                    assert all(bf16_equal(a, b) for a, b in
+                               zip((uo, vo), want)), (shape, g, steps)
+
+
+@pytest.mark.gpu
+def test_packed_pinned_bitwise_equals_plain(cuda_device):
+    """K4's pinned entry (csrc/packed.cu) on the row tiles and depths JAX's
+    packed kernel takes, one launch of K steps, against ``packed_run``:
+    bit for bit, NaN and Inf included. Tolerance: none."""
+    pc = packed_constants(Parameters())
+    for shape in PIN_SHAPES:
+        for u, v in fold_states(shape, cuda_device, torch.float32):
+            x = packed.pack_state(u, v)
+            for k, tr in ((16, None), (32, None), (8, 32), (12, 8),
+                          (4, 128), (24, 13)):
+                g = geometry.resolve(shape, k, tr)
+                out = torch.empty_like(x)
+                before = packed.pinned_launches
+                packed.multistep(x, out, k, pc, geometry=g)
+                torch.cuda.synchronize()
+                assert packed.pinned_launches == before + 1, g
+                assert bits_equal(out, packed.packed_run(x, k, pc)), (shape,
+                                                                      g)
+
+
+@pytest.mark.gpu
+def test_pinned_launch_past_the_shared_memory_raises(cuda_device):
+    """A window past the 232,448 B a block may use: ``geometry.resolve``
+    refuses the pin with the bytes named, and the C entry refuses such a
+    geometry with cudaErrorInvalidValue (1) before any launch, which the
+    wrapper raises."""
+    from grayscott_tpu_torch.errors import UnsupportedConfigError
+
+    u, v = random_uv((70, 97), cuda_device)
+    uo, vo = torch.empty_like(u), torch.empty_like(v)
+    with pytest.raises(UnsupportedConfigError, match="262144 B"):
+        geometry.resolve((70, 97), 32, 64, 64)
+    big = geometry.Geometry(64, 64, 32)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        windowed.multistep(u, v, uo, vo, 8, kernel_constants(Parameters()),
+                           "naive", geometry=big)
+    x = packed.pack_state(u, v)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        packed.multistep(x, torch.empty_like(x), 8,
+                         packed_constants(Parameters()), geometry=big)
+    fn = windowed._pinned_kernel(torch.float32, False)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(u.data_ptr(), v.data_ptr(), uo.data_ptr(), vo.data_ptr(), 70,
+             97, 8, *big, 1, cuda_device.index or 0,
+             *kernel_constants(Parameters()).weights,
+             *kernel_constants(Parameters()).reaction, stream)
+    assert err != 0
+    assert build.bind("gs_windowed_pinned_max_steps", [])() == 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pins", [{}, {"block_rows": 64, "block_cols": 64},
+                                  {"steps_per_call": 8},
+                                  {"steps_per_call": 4}])
+def test_default_geometry_launches_the_compiled_entry(cuda_device, pins):
+    """An unpinned run on K1, and a pin equal to the default (64x64 tiles,
+    K <= 8), launch the compiled entry (``windowed.launches``), never a
+    pinned one: ceil(32 / K) launches for 32 steps."""
+    from grayscott_tpu_torch.species import Species
+
+    sim = CudaSimulation(Parameters(), "naive", device=cuda_device,
+                         engine="windowed", tuned_lookup=False, **pins)
+    u, v = (x.cpu().numpy() for x in random_uv((1080, 1920), cuda_device))
+    species = Species((1080, 1920), sim.build_storage(u, v), sim)
+    before = (windowed.launches, windowed.pinned_launches)
+    sim.perform_steps(species, 32)
+    torch.cuda.synchronize()
+    k = pins.get("steps_per_call", 8)
+    assert (windowed.launches - before[0],
+            windowed.pinned_launches - before[1]) == (-(-32 // k), 0)
+
+
+@pytest.mark.gpu
+def test_pinned_kernels_do_not_spill(cuda_device, tmp_path):
+    """ptxas's report of the pinned entries (csrc/windowed_pins.cu: 22
+    instantiations; K4's in csrc/packed.cu), bound to 64 registers a
+    thread as Main's are: no spill."""
+    spills = ptxas_spills("windowed_pins.cu", "13pinned_kernel", tmp_path)
+    assert len(spills) == 22, spills
+    assert all(v == (0, 0) for v in spills.values()), spills
+    spills = ptxas_spills("packed.cu", "20packed_pinned_kernel", tmp_path)
+    assert len(spills) == 1 and all(v == (0, 0) for v in spills.values()), \
+        spills

@@ -145,6 +145,9 @@ def test_parity_check_naive_fold_off_runs_the_exact_path():
     ({"fix": "slice"}, "naive_fix", "slice"),
     ({"nfold": True}, "naive_fold", True),
     ({"k": 8}, "_explicit_k", True),
+    ({"k": 16}, "steps_per_call", 16),
+    ({"tr": 64}, "block_rows", 64),
+    ({"tc": 128}, "block_cols", 128),
     ({"depth": 5}, "mega_depth", 5),
     ({"spec": True}, "mega_specialize", True),
     ({"fold": 1}, "engine", "auto"),
@@ -155,17 +158,23 @@ def test_every_key_reaches_the_backend(cfg, kw, value):
     assert getattr(sim, kw) == value
 
 
-@pytest.mark.parametrize("cfg,item", [
-    ({"k": 16}, "Queue 2 item 8"),
-    ({"tr": 64}, "Queue 2 item 8"),
-    ({"tc": 128}, "Queue 2 item 8"),
-    ({"fold": 2}, "Queue 2 item 7"),
-    ({"limit": 1 << 20}, "limit"),
-    ({"dtype": "bfloat16", "resident": "on"}, "float32"),
+@pytest.mark.parametrize("cfg,item,error", [
+    ({"k": 33}, "steps_per_call must be in", ValueError),
+    ({"tr": 64, "engine": "mega"}, "Queue 2 item 12", UnsupportedConfigError),
+    ({"tc": 128, "pack": "on", "boundary": "zero"}, "no fold/column tiling",
+     UnsupportedConfigError),
+    ({"fold": 2}, "Queue 2 item 7", UnsupportedConfigError),
+    ({"limit": 1 << 20}, "limit", UnsupportedConfigError),
+    ({"dtype": "bfloat16", "resident": "on"}, "float32",
+     UnsupportedConfigError),
 ])
-def test_backend_refuses_the_rest(cfg, item):
-    with pytest.raises(UnsupportedConfigError, match=item):
-        simulation(dict(cfg, boundary="naive"), device="cpu")
+def test_backend_refuses_the_rest(cfg, item, error):
+    """What the backend does not run raises :class:`UnsupportedConfigError`
+    naming its item or JAX's message; a K outside 1..32 raises JAX's plain
+    ``ValueError``."""
+    with pytest.raises(error, match=item) as info:
+        simulation({"boundary": "naive", **cfg}, device="cpu")
+    assert type(info.value) is error
 
 
 @pytest.fixture
@@ -195,10 +204,13 @@ def test_bf16_fold_config_runs_and_files_under_its_key(store, capsys,
 
 
 def test_dtype_flag_sets_every_config(store, capsys):
+    """``--dtype`` reaches every configuration; ``k=16``, refused until
+    the K pin was ported, runs; the megakernel's tile pin is refused
+    naming its item (the sweep goes on)."""
     assert sweep.main(["--device", "cpu", "--shape", "24x32", "--steps",
                        "8", "--boundary", "naive", "--dtype", "bfloat16",
                        "--configs", "engine=mega:depth=4", "nfold=on",
-                       "engine=windowed:k=16"]) == 0
+                       "engine=windowed:k=16", "engine=mega:tr=32"]) == 0
     lines = capsys.readouterr().out.splitlines()
     results = [json.loads(ln[len("RESULT "):]) for ln in lines
                if ln.startswith("RESULT ")]
@@ -207,6 +219,8 @@ def test_dtype_flag_sets_every_config(store, capsys):
         {"engine": "mega", "pack": False, "dtype": "bfloat16",
          "nfold": False, "depth": 4},
         {"engine": "windowed", "pack": False, "dtype": "bfloat16",
-         "nfold": True, "depth": None}]
+         "nfold": True, "depth": None},
+        {"engine": "windowed", "pack": False, "dtype": "bfloat16",
+         "nfold": False, "depth": None}]
     assert all(r["config"]["dtype"] == "bfloat16" for r in results)
-    assert len(errors) == 1 and "Queue 2 item 8" in errors[0]["error"]
+    assert len(errors) == 1 and "Queue 2 item 12" in errors[0]["error"]

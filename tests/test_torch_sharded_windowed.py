@@ -346,9 +346,9 @@ def test_shard_multistep_rejects_bad_arguments(kind):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"engine": "windowed", "block_rows": 8}, "Queue 2 item 8"),
-    ({"engine": "windowed", "steps_per_call": 16}, "Queue 2 item 8"),
-    ({"steps_per_call": 4}, "Queue 2 item 8"),
+    ({"engine": "windowed", "block_rows": 8}, "Queue 2 item 12"),
+    ({"engine": "windowed", "steps_per_call": 16}, "Queue 2 item 12"),
+    ({"steps_per_call": 4}, "Queue 2 item 12"),
     ({"engine": "windowed", "block_cols": 128}, "column layout"),
     ({"block_cols": 128}, "column layout"),
 ])
@@ -385,8 +385,8 @@ PORTED = ("Queue 2 item 4",)
 
 @pytest.mark.parametrize("argv,item", [
     (["--pallas-dtype", "bfloat16"], "Queue 2 item 4"),
-    (["--pallas-steps-per-call", "16"], "Queue 2 item 8"),
-    (["--pallas-block-rows", "64"], "Queue 2 item 8"),
+    (["--pallas-steps-per-call", "16"], "Queue 2 item 12"),
+    (["--pallas-block-rows", "64"], "Queue 2 item 12"),
 ])
 def test_cli_pins_reach_the_sharded_backend(argv, item):
     """The ``--pallas-*`` pins reach the sharded backend, as in JAX

@@ -70,9 +70,21 @@ SUPPORTED = {
         ("cuda", dict(mega_specialize=False, naive_fix="store"), None),
         ("cuda", dict(pack="on", boundary="zero", mega_specialize=True),
          None)],
-    "steps_per_call=8 x cuda": [
+    "steps_per_call 1..32 x windowed (K1, K4) x f32/bf16/fold": [
         ("cuda", dict(steps_per_call=8), "windowed"),
-        ("cuda", dict(steps_per_call=8, engine="mega"), "mega")],
+        ("cuda", dict(steps_per_call=8, engine="mega"), "mega"),
+        ("cuda", dict(steps_per_call=16), "windowed"),
+        ("cuda", dict(steps_per_call=4, dtype="bfloat16"), "windowed"),
+        ("cuda", dict(steps_per_call=32, naive_fold=True), "windowed"),
+        ("cuda", dict(steps_per_call=16, pack="on", boundary="zero"),
+         "packed")],
+    "block_rows/block_cols x windowed (K1, K4) x f32/bf16/fold": [
+        ("cuda", dict(block_rows=64), "windowed"),
+        ("cuda", dict(block_cols=128, dtype="bfloat16"), "windowed"),
+        ("cuda", dict(block_rows=8, block_cols=16, naive_fold=True),
+         "windowed"),
+        ("cuda", dict(block_rows=32, pack="on", boundary="zero"),
+         "packed")],
     "sharded mega (K7) x 1-D/2-D mesh x f32/bf16": [
         ("sharded", dict(engine="mega", n_devices=2, mesh_cols=1), None),
         ("sharded", dict(engine="mega", n_devices=4, mesh_cols=2), None)],
@@ -93,10 +105,11 @@ REJECTED = {
     "lane fold (fold > 1)": [
         ("cuda", dict(fold=2)),
         ("cuda", dict(fold=4, engine="mega"))],
-    "block_rows/block_cols pins, steps_per_call other than 8": [
-        ("cuda", dict(block_rows=64)),
-        ("cuda", dict(block_cols=128)),
-        ("cuda", dict(steps_per_call=16)),
+    "block_rows/block_cols x mega (K2, K6); K and tiles x sharded": [
+        ("cuda", dict(block_rows=64, engine="mega")),
+        ("cuda", dict(block_cols=128, engine="mega")),
+        ("cuda", dict(block_rows=32, engine="mega", pack="on",
+                      boundary="zero")),
         ("sharded", dict(block_rows=64)),
         ("sharded", dict(steps_per_call=4))],
 }
@@ -112,6 +125,8 @@ CONFLICTS = [
     ("cuda", dict(naive_fold=True, naive_fix="store")),
     ("cuda", dict(naive_fix="slice", boundary="zero")),
     ("cuda", dict(mega_specialize=True, naive_fix="store")),
+    ("cuda", dict(steps_per_call=16, engine="mega")),
+    ("cuda", dict(block_cols=128, pack="on", boundary="zero")),
 ]
 
 

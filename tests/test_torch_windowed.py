@@ -123,10 +123,15 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
     ("block_rows", 8), ("fold", 2), ("pack", "on"), ("steps_per_call", 16),
 ])
 def test_unported_knobs_raise(params, knob, value):
+    """Each knob where the port does not run it: the lane fold, the packed
+    layout on the naive boundary, and the K and tile pins on the
+    megakernel (ROADMAP.md Queue 2 item 12; on K1 they run:
+    tests/test_torch_tile_pins.py)."""
     from grayscott_tpu_torch.errors import UnsupportedConfigError
 
+    engine = "mega" if knob in ("block_rows", "steps_per_call") else "auto"
     with pytest.raises(UnsupportedConfigError):
-        CudaSimulation(params, device="cpu", **{knob: value})
+        CudaSimulation(params, device="cpu", engine=engine, **{knob: value})
 
 
 @pytest.mark.parametrize("steps", [1, 8])
