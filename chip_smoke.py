@@ -408,6 +408,17 @@ COUNTERS = {
     "windowed_pinned_fold": (windowed, "pinned_fold_launches"),
     "windowed_pinned_fold_bf16": (windowed, "pinned_fold_bf16_launches"),
     "packed_pinned": (packed, "pinned_launches"),
+    # the megakernels' pinned entries (K2, K6, K7) and K1's pinned shard
+    # entry (the sharded windowed engine's K and row tile), counted apart
+    "mega_pinned": (megakernel, "pinned_launches"),
+    "mega_pinned_bf16": (megakernel, "pinned_bf16_launches"),
+    "mega_pinned_fold": (megakernel, "pinned_fold_launches"),
+    "mega_pinned_fold_bf16": (megakernel, "pinned_fold_bf16_launches"),
+    "megapack_pinned": (megakernel, "packed_pinned_launches"),
+    "shmega_pinned": (sharded_mega, "pinned_launches"),
+    "shmega_pinned_bf16": (sharded_mega, "pinned_bf16_launches"),
+    "shwin_pinned": (windowed, "pinned_shard_launches"),
+    "shwin_pinned_bf16": (windowed, "pinned_bf16_shard_launches"),
 }
 
 #: storage tags that share another tag's kernel (K7 and K1's shard entry on
@@ -614,6 +625,70 @@ KERNELS = {
         "source": "grayscott_tpu_torch/csrc/packed.cu",
         "replaces": "grayscott_tpu/ops/pallas_stencil.py:1624 (tr, halo, "
                     "steps)",
+    },
+    "mega_pinned": {
+        "name": "mega_pinned_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (tr, tc: "
+                    "grayscott_tpu/backends/pallas.py:384-411)",
+    },
+    "mega_pinned_bf16": {
+        "name": "mega_pinned_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (tr, tc; bfloat16 "
+                    "storage)",
+    },
+    "mega_pinned_fold": {
+        "name": "mega_pinned_multistep_fold",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (tr, tc; "
+                    "fast_fold)",
+    },
+    "mega_pinned_fold_bf16": {
+        "name": "mega_pinned_multistep_fold_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (tr, tc; fast_fold, "
+                    "bfloat16 storage)",
+    },
+    "megapack_pinned": {
+        "name": "packed_mega_pinned_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:1112 (tr: "
+                    "grayscott_tpu/backends/pallas.py:554-576)",
+    },
+    "shmega_pinned": {
+        "name": "sharded_mega_pinned_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, tr, tc: "
+                    "grayscott_tpu/backends/sharded.py:281-321)",
+    },
+    "shmega_pinned_bf16": {
+        "name": "sharded_mega_pinned_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, tr, tc; "
+                    "bfloat16 storage)",
+    },
+    "shwin_pinned": {
+        "name": "windowed_shard_pinned_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (per shard at "
+                    "steps, halo and tr: grayscott_tpu/parallel/"
+                    "halo.py:226-317)",
+    },
+    "shwin_pinned_bf16": {
+        "name": "windowed_shard_pinned_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (per shard at "
+                    "steps, halo and tr; bfloat16 storage)",
     },
 }
 
@@ -1958,7 +2033,10 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "13packed_kernel", "18packed_mega_kernel",
                     "11ring_kernel", "13pinned_kernel",
-                    "20packed_pinned_kernel")
+                    "20packed_pinned_kernel", "18mega_pinned_kernel",
+                    "25packed_mega_pinned_kernel",
+                    "26sharded_mega_pinned_kernel",
+                    "19shard_pinned_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -2207,7 +2285,10 @@ def sharded_launches(params: Parameters, boundary: str, u_np, v_np,
                                                     consts, boundary, shape)
         else:
             sharded_mega.sharded_megastep(*pairs, mesh, n_blocks, k, consts,
-                                          boundary, shape, tile=tile,
+                                          boundary, shape,
+                                          geometry=None if tile is None
+                                          else geometry.Geometry(tile, tile,
+                                                                 8),
                                           read_site=read_site)
     return tuple(halo.mega_unshard_result(p, shape) for p in pairs)
 
@@ -2414,7 +2495,8 @@ def time_sharded(rng, card: str) -> dict:
                                 t=t):
                         sharded_mega.sharded_megastep(
                             *pairs, mesh, MAIN_STEPS // 8, 8, consts,
-                            boundary, shape, tile=t)
+                            boundary, shape,
+                            geometry=geometry.Geometry(t, t, 8))
 
                     calls[f"K7 {n_r}x{n_c} {t}"] = k7_call
                 sims[n_r, n_c] = ShardedSimulation(
@@ -4857,6 +4939,495 @@ def pins_phase(checks: Checks, rng, card: str, log: str) -> tuple:
     return n, runs, times
 
 
+# --- 19. the megakernels' tile pins (K2, K6, K7) and the sharded windowed --
+# --- engine's K and row tile (K1's shard entry) ------------------------------
+
+#: phase 19a: K2's pinned geometries (tr, tc) at the wrapper's level, and
+#: the JAX pins (block_rows, block_cols) whose windows the rule refuses
+MEGA_PIN_GEOMS = ((8, 64), (32, 128), (64, 128), (128, 32), (16, 256))
+MEGA_PIN_GRID = [(tr, tc) for tr in (None, 8, 16, 32, 64, 128, 256)
+                 for tc in (None, 128, 256, 384, 512, 640)]
+#: the default run's shape, a ragged one, and one whose last tile row has
+#: one row for every row tile of MEGA_PIN_GEOMS (1025 = 1024 + 1)
+MEGA_PIN_SHAPES = [MAIN_SHAPE, (1000, 1917), (1025, 1920)]
+#: K6's row tiles (JAX's packed megakernel takes no column tile)
+MEGAPACK_PIN_ROWS = (8, 32, 128)
+#: K7's pinned geometries and meshes
+SHMEGA_PIN_GEOMS = ((32, 128), (64, 128), (16, 256))
+SHMEGA_PIN_MESHES = ((1, 4), (4, 1), (2, 2))
+#: K1's shard entry: (K, block_rows)
+SHWIN_PIN_CASES = ((4, 32), (4, 64), (16, 32), (16, 64), (32, 32),
+                   (32, 64))
+#: K2's pinned entries by counter tag: (storage dtype, the fold)
+MEGA_PIN_ENTRIES = {"mega_pinned": (torch.float32, False),
+                    "mega_pinned_bf16": (torch.bfloat16, False),
+                    "mega_pinned_fold": (torch.float32, True),
+                    "mega_pinned_fold_bf16": (torch.bfloat16, True)}
+#: phase 19c: label -> (flags, the counter of the entry that runs, the
+#: label of the unpinned run whose frames it must equal, or None: the plain
+#: replay at K = 16, bf16; the launches an image)
+MEGA_FLAGS = ["--pallas-engine", "mega"]
+BF16_FLAGS = ["--pallas-dtype", "bfloat16"]
+FOLD_FLAGS = ["--pallas-naive-fold", "on"]
+K16_FLAGS = ["--pallas-steps-per-call", "16"]
+PIN19_REFS = {
+    "mega": (MEGA_FLAGS, "mega", 1),
+    "mega bf16": (MEGA_FLAGS + BF16_FLAGS, "mega_bf16", 1),
+    "mega fold": (MEGA_FLAGS + FOLD_FLAGS, "mega_fold", 1),
+    "mega fold bf16": (MEGA_FLAGS + FOLD_FLAGS + BF16_FLAGS,
+                       "mega_fold_bf16", 1),
+    "pack mega": (ZERO_PACKED + MEGA_FLAGS, "megapack", 1),
+    "sharded mega": (SHARDED_FLAGS, "shmega", 1),
+    "sharded mega bf16 1x4": (SHARDED_FLAGS + ["--sharded-mesh-cols", "4"]
+                              + BF16_FLAGS, "shmega_bf16", 1),
+    "sharded windowed": (WINDOWED_FLAGS["windowed"], "shwin", 4),
+}
+PIN19_PATHS = {
+    "mega 32x128": (MEGA_FLAGS + ["--pallas-block-rows", "32",
+                                  "--pallas-block-cols", "128"],
+                    "mega_pinned", "mega", 1),
+    "mega bf16 16": (MEGA_FLAGS + BF16_FLAGS + ["--pallas-block-rows", "16"],
+                     "mega_pinned_bf16", "mega bf16", 1),
+    "mega fold 64x128": (MEGA_FLAGS + FOLD_FLAGS
+                         + ["--pallas-block-rows", "64",
+                            "--pallas-block-cols", "128"],
+                         "mega_pinned_fold", "mega fold", 1),
+    "mega fold bf16 32": (MEGA_FLAGS + FOLD_FLAGS + BF16_FLAGS
+                          + ["--pallas-block-rows", "32"],
+                          "mega_pinned_fold_bf16", "mega fold bf16", 1),
+    "pack mega 32": (ZERO_PACKED + MEGA_FLAGS + ["--pallas-block-rows", "32"],
+                     "megapack_pinned", "pack mega", 1),
+    "sharded mega 32x128": (SHARDED_FLAGS + ["--pallas-block-rows", "32",
+                                             "--pallas-block-cols", "128"],
+                            "shmega_pinned", "sharded mega", 1),
+    "sharded mega bf16 1x4 64x128": (
+        SHARDED_FLAGS + ["--sharded-mesh-cols", "4"] + BF16_FLAGS
+        + ["--pallas-block-rows", "64", "--pallas-block-cols", "128"],
+        "shmega_pinned_bf16", "sharded mega bf16 1x4", 1),
+    "sharded windowed k16 32": (WINDOWED_FLAGS["windowed"] + K16_FLAGS
+                                + ["--pallas-block-rows", "32"],
+                                "shwin_pinned", "sharded windowed", 2),
+    "sharded windowed bf16 k16 32": (
+        WINDOWED_FLAGS["windowed"] + K16_FLAGS + BF16_FLAGS
+        + ["--pallas-block-rows", "32"], "shwin_pinned_bf16", None, 2),
+    "sharded windowed overlap k16 64": (
+        WINDOWED_FLAGS["windowed"] + ["--sharded-overlap", "on"] + K16_FLAGS
+        + ["--pallas-block-rows", "64"], "shwin_pinned", "sharded windowed",
+        4),
+}
+#: phase 19d: the geometries timed in turns with the default (the first)
+MEGA_PIN_TIMED = ((64, 64), (32, 128), (64, 128), (16, 256), (128, 32),
+                  (8, 64))
+MEGAPACK_PIN_TIMED = (64, 32, 128)
+SHMEGA_PIN_TIMED = (None, (32, 128), (64, 128))
+SHWIN_PIN_TIMED = ((8, None), (16, 32), (16, 64), (32, 32))
+#: the new entries in the kernels line: tag -> (phase 19c path, the
+#: geometry of its timed launch at 1080x1920)
+PIN19_KERNELS = {
+    "mega_pinned": ("mega 32x128", (32, 128)),
+    "mega_pinned_bf16": ("mega bf16 16", (16, 64)),
+    "mega_pinned_fold": ("mega fold 64x128", (64, 128)),
+    "mega_pinned_fold_bf16": ("mega fold bf16 32", (32, 64)),
+    "megapack_pinned": ("pack mega 32", (32, 64)),
+    "shmega_pinned": ("sharded mega 32x128", (32, 128)),
+    "shmega_pinned_bf16": ("sharded mega bf16 1x4 64x128", (64, 128)),
+    "shwin_pinned": ("sharded windowed k16 32", (16, 32)),
+    "shwin_pinned_bf16": ("sharded windowed bf16 k16 32", (16, 32)),
+}
+#: the pinned instantiations ptxas reports, by mangled kernel name
+PIN19_PTXAS = {"18mega_pinned_kernel": 12,
+               "25packed_mega_pinned_kernel": 1,
+               "26sharded_mega_pinned_kernel": 16,
+               "19shard_pinned_kernel": 8}
+
+
+def pin19_compare(checks: Checks, tag: str, got, want, what: str) -> None:
+    """Bit for bit; bf16 storage: NaN's own bit pattern aside."""
+    if any(g.dtype == torch.bfloat16 for g in got):
+        checks.compare_bf16(tag, got, want, what)
+    else:
+        checks.compare_bits(tag, got, want, what)
+
+
+def mega_pin_plain(u, v, n_blocks: int, steps: int, tag: str,
+                   boundary: str, params: Parameters):
+    """The plain version of a K2 launch of ``tag``'s entry."""
+    dtype, fold = MEGA_PIN_ENTRIES[tag]
+    if fold:
+        return megakernel.megastep_reference_fold(u, v, n_blocks, steps,
+                                                  fold_constants(params))
+    consts = kernel_constants(params)
+    if dtype == torch.bfloat16:
+        return megakernel.megastep_reference_bf16(u, v, n_blocks, steps,
+                                                  consts, boundary)
+    return stencil.run(u, v, n_blocks * steps, consts, boundary)
+
+
+def compare_mega_pins(checks: Checks, rng) -> int:
+    """Phase 19a: K2's pinned entries (float32 and bf16 on both boundaries,
+    the fold on both storages) on each of MEGA_PIN_GEOMS, two time blocks
+    of 8 steps (and one of 5 at 1080x1920) at MEGA_PIN_SHAPES and on a
+    NaN/Inf state, K6's on MEGAPACK_PIN_ROWS, K7's on SHMEGA_PIN_GEOMS on
+    each of SHMEGA_PIN_MESHES (float32 and bf16), and K1's shard entry at
+    each (K, row tile) of SHWIN_PIN_CASES on the same meshes (and split
+    into its overlap parts), each bit for bit against its plain version;
+    the JAX pins of MEGA_PIN_GRID that the rule refuses, counted, each
+    window past the shared memory. Returns the comparisons made."""
+    n = refused = 0
+    params = Parameters()
+    consts = kernel_constants(params)
+    for tr, tc in MEGA_PIN_GRID:
+        try:
+            geometry.mega_resolve(MAIN_SHAPE, tr, tc)
+        except UnsupportedConfigError as e:
+            nbytes = int(re.search(r"needs (\d+) B", str(e)).group(1))
+            checks.expect(nbytes > geometry.SMEM_OPTIN,
+                          f"mega pin {tr}x{tc} refused at {nbytes} B")
+            refused += 1
+    print(f"phase 19a: {refused} of {len(MEGA_PIN_GRID)} megakernel tile "
+          f"pins refused at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (window past "
+          f"{geometry.SMEM_OPTIN} B)", flush=True)
+    states = [(s, False) for s in MEGA_PIN_SHAPES] + [(MAIN_SHAPE, True)]
+    for shape, special in states:
+        u_np, v_np = bf16_state(rng, shape, special)
+        for tag, (dtype, fold) in MEGA_PIN_ENTRIES.items():
+            u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                    for x in (u_np, v_np))
+            kc = fold_constants(params) if fold else consts
+            for boundary in ("naive",) if fold else ("naive", "zero"):
+                plans = [(2, 8)] + ([(3, 5)] if shape == MAIN_SHAPE
+                                    and not special else [])
+                for n_blocks, steps in plans:
+                    want = mega_pin_plain(u, v, n_blocks, steps, tag,
+                                          boundary, params)
+                    for tr, tc in MEGA_PIN_GEOMS:
+                        g = geometry.Geometry(tr, tc, geometry.HALO)
+                        up, vp = (megakernel.pair_state(x) for x in (u, v))
+                        megakernel.megastep(up, vp, n_blocks, steps, kc,
+                                            boundary, fold=fold, geometry=g)
+                        pin19_compare(
+                            checks, tag, (up[0], vp[0]), want,
+                            f"{pin_label(shape, g)} {boundary} {n_blocks}x"
+                            f"{steps}{' NaN/Inf' if special else ''}")
+                        n += 1
+    pc = packed_constants(params)
+    for shape in MEGA_PIN_SHAPES:
+        u_np, v_np = bf16_state(rng, shape, False)
+        x = packed.pack_state(*(torch.from_numpy(a).to(DEVICE)
+                                for a in (u_np, v_np)))
+        want = packed.packed_run(x, 16, pc)
+        for tr in MEGAPACK_PIN_ROWS:
+            g = geometry.mega_resolve(shape, tr, None)
+            xp = megakernel.pair_state(x)
+            megakernel.packed_megastep(xp, 2, 8, pc, geometry=g)
+            checks.compare_bits("megapack_pinned", (xp[0],), (want,),
+                                f"{pin_label(shape, g)} 2x8")
+            n += 1
+    dev = torch.device(DEVICE)
+    for shape in (MAIN_SHAPE, (1001, 1917)):
+        u_np, v_np = bf16_state(rng, shape, False)
+        for n_r, n_c in SHMEGA_PIN_MESHES:
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = "shmega_pinned" + (
+                    "_bf16" if dtype == torch.bfloat16 else "")
+                for boundary in ("naive", "zero"):
+                    if boundary == "zero" and (shape != MAIN_SHAPE or
+                                               dtype != torch.float32):
+                        continue
+                    mesh = halo.Mesh(n_r, n_c, dev)
+                    up, vp = halo.mega_shard_state(u_np, v_np, mesh, dtype)
+                    for x in (up, vp):
+                        halo.exchange_halos(x)
+                    cu, cv = up.clone(), vp.clone()
+                    sharded_mega.sharded_megastep_reference(
+                        cu, cv, 2, 8, consts, boundary, shape)
+                    want = [halo.mega_unshard_result(x, shape)
+                            for x in (cu, cv)]
+                    for tr, tc in SHMEGA_PIN_GEOMS:
+                        g = geometry.Geometry(tr, tc, geometry.HALO)
+                        gu, gv = up.clone(), vp.clone()
+                        sharded_mega.sharded_megastep(
+                            gu, gv, mesh, 2, 8, consts, boundary, shape,
+                            geometry=g)
+                        got = [halo.mega_unshard_result(x, shape)
+                               for x in (gu, gv)]
+                        checks.compare_bits(
+                            tag, got, want, f"{pin_label(shape, g)} mesh "
+                            f"{n_r}x{n_c} {boundary}")
+                        n += 1
+        for n_r, n_c in SHMEGA_PIN_MESHES:
+            for dtype in ((torch.float32, torch.bfloat16)
+                          if shape == MAIN_SHAPE else (torch.float32,)):
+                tag = "shwin_pinned" + (
+                    "_bf16" if dtype == torch.bfloat16 else "")
+                for k, tr in SHWIN_PIN_CASES:
+                    h = geometry.halo_for_steps(k)
+                    mesh = halo.Mesh(n_r, n_c, dev, h)
+                    r_loc, c_loc = halo.shard_extents(shape, mesh)
+                    g = geometry.resolve((r_loc, c_loc), k, tr)
+                    up, vp = halo.mega_shard_state(u_np, v_np, mesh, dtype)
+                    for x in (up, vp):
+                        halo.exchange_halos(x, 0, h)
+                    cu, cv = up.clone(), vp.clone()
+                    windowed.shard_multistep_reference(
+                        cu, cv, 0, k, consts, "naive", shape, "all", g)
+                    want = [halo.mega_unshard_result(x, shape, 1, h)
+                            for x in (cu, cv)]
+                    parts = (("all",), ("interior", "edge")) \
+                        if (k, tr) == (16, 64) else (("all",),)
+                    for split in parts:
+                        gu, gv = up.clone(), vp.clone()
+                        for part in split:
+                            windowed.shard_multistep(
+                                gu, gv, mesh, 0, k, consts, "naive", shape,
+                                part, geometry=g)
+                        got = [halo.mega_unshard_result(x, shape, 1, h)
+                               for x in (gu, gv)]
+                        checks.compare_bits(
+                            tag if not g.compiled else (
+                                "shwin" + tag[12:]), got, want,
+                            f"{pin_label(shape, g)} K={k} mesh {n_r}x{n_c}"
+                            f" {'+'.join(split)}")
+                        n += 1
+    return n
+
+
+def pin19_ptxas(checks: Checks, log: str) -> None:
+    """Phase 19b: ptxas's report of the new pinned instantiations (K2's
+    12, K6's, K7's 16, K1's shard entry's 8: the default stencils' tap set
+    and any other, ``dispatch_taps_lean``): registers, stack and
+    spills, none of which may spill or take a stack frame. (The compiled
+    K2, K6 and K7 keep the parent's registers and SASS:
+    ``scripts/sass_diff.py`` against the tree before.)"""
+    if not log:
+        print("phase 19b: the library was reused, no ptxas report",
+              flush=True)
+        return
+    rows, entry, frame = {}, None, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = PTXAS_USED.search(line)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), frame)
+            entry = None
+    for kernel, count in PIN19_PTXAS.items():
+        found = {name: r for name, r in rows.items() if kernel in name}
+        regs = sorted({r for r, _ in found.values()})
+        bad = [f for _, f in found.values() if f != (0, 0, 0)]
+        print(f"ptxas {kernel[2:]}: {len(found)} instantiations, registers "
+              f"{regs}, stack or spills {bad}", flush=True)
+        checks.expect(len(found) == count and not bad,
+                      f"{kernel}: {len(found)} of {count} instantiations, "
+                      f"stack or spills {bad}")
+
+
+def pin19_replay(params: Parameters):
+    """V after each image of the default run from the plain version on the
+    card, bf16 storage rounded once a 16-step block."""
+    u, v = (torch.from_numpy(x).to(DEVICE).to(torch.bfloat16)
+            for x in initial_uv(MAIN_SHAPE))
+    frames = []
+    for _ in range(MAIN_IMAGES):
+        u, v = stencil.run_bf16(u, v, MAIN_STEPS, kernel_constants(params),
+                                "naive", block=16)
+        frames.append(v.float())
+    return frames
+
+
+def pin19_paths(checks: Checks, card: str) -> dict:
+    """Phase 19c: ``simulate.run`` (MAIN_IMAGES images of MAIN_STEPS steps
+    at 1080x1920) on each unpinned run of PIN19_REFS and under each pin of
+    PIN19_PATHS, the launch counts zeroed before each and read after; every
+    pinned run's frames bit for bit its unpinned run's (the bf16 K = 16
+    run: the plain replay's). Returns the runs by label."""
+    refs, runs = {}, {}
+    for label, (flags, tag, per_image) in PIN19_REFS.items():
+        sim = shared.make_simulation(simulate.build_parser().parse_args(
+            flags))
+        refs[label] = ring_path(checks, f"{' '.join(flags)} (unpinned)",
+                                sim, {tag: MAIN_IMAGES * per_image})
+    for label, (flags, tag, ref, per_image) in PIN19_PATHS.items():
+        sim = shared.make_simulation(simulate.build_parser().parse_args(
+            flags))
+        run = ring_path(checks, " ".join(flags), sim,
+                        {tag: MAIN_IMAGES * per_image})
+        want = (refs[ref]["frames"] if ref else
+                [f.cpu().numpy() for f in pin19_replay(Parameters())])
+        same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                   for a, b in zip(run["frames"], want))
+        print(f"path simulate {' '.join(flags)}: frames bitwise "
+              f"{'the unpinned run' if ref else 'the plain replay'}'s: "
+              f"{same}; {run['ms']!r} ms/image (unpinned "
+              f"{refs[ref]['ms'] if ref else float('nan')!r}) [{card}]",
+              flush=True)
+        checks.expect(same, f"simulate {label} frames")
+        if not same:
+            checks.kernel_err[tag] = float("inf")
+        runs[label] = dict(run, tag=tag)
+    return runs
+
+
+def time_pin19(rng, card: str) -> dict:
+    """Phase 19d: each pin per step in turns (2 rounds, in order and
+    reversed) with the default geometry: K2 on MEGA_PIN_TIMED (one launch
+    of 4 time blocks, naive) and K6 on MEGAPACK_PIN_TIMED (zero) at
+    1080x1920 and 4096x4096, K7 on SHMEGA_PIN_TIMED on 2x2 and K1's shard
+    entry on SHWIN_PIN_TIMED (K, row tile; 96 steps in blocks of K, the
+    exchange between them) at 1080x1920; then one launch of each new entry
+    at PIN19_KERNELS' geometry at 1080x1920, its plain version and its
+    bound (at the output cell-steps, and at the stepped cells beside).
+    Returns the times."""
+    out = {}
+    params = Parameters()
+    consts = kernel_constants(params)
+    pc = packed_constants(params)
+    dev = torch.device(DEVICE)
+    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        reps = PIN_REPS[shape]
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        u, v = (torch.from_numpy(a).to(DEVICE) for a in (u_np, v_np))
+        calls = {}
+        for tr, tc in MEGA_PIN_TIMED:
+            g = geometry.Geometry(tr, tc, geometry.HALO)
+            up, vp = megakernel.pair_state(u), megakernel.pair_state(v)
+            calls["K2", g] = (lambda up=up, vp=vp, g=g: megakernel.megastep(
+                up, vp, 4, 8, consts, "naive", geometry=g), 32)
+        x = packed.pack_state(u, v)
+        for tr in MEGAPACK_PIN_TIMED:
+            g = geometry.mega_resolve(shape, tr, None)
+            xp = megakernel.pair_state(x)
+            calls["K6", g] = (lambda xp=xp, g=g: megakernel.packed_megastep(
+                xp, 4, 8, pc, geometry=g), 32)
+        if shape == MAIN_SHAPE:
+            mesh = halo.Mesh(2, 2, dev)
+            r_loc, c_loc = halo.shard_extents(shape, mesh)
+            for tiles in SHMEGA_PIN_TIMED:
+                up, vp = halo.mega_shard_state(u, v, mesh)
+                g = (geometry.Geometry(*tiles, geometry.HALO) if tiles
+                     else None)
+                calls["K7", g] = (lambda up=up, vp=vp, g=g:
+                                  sharded_mega.sharded_megastep(
+                                      up, vp, mesh, 4, 8, consts, "naive",
+                                      shape, geometry=g), 32)
+            for k, tr in SHWIN_PIN_TIMED:
+                h = geometry.halo_for_steps(k)
+                mesh_h = halo.Mesh(2, 2, dev, h)
+                g = geometry.resolve((r_loc, c_loc), k, tr)
+                up, vp = halo.mega_shard_state(u, v, mesh_h)
+
+                def shwin(up=up, vp=vp, g=g, k=k, mesh_h=mesh_h):
+                    slot = 0
+                    for _ in range(PIN_TIME_STEPS // k):
+                        halo.exchange_halos(up, slot, g.halo)
+                        halo.exchange_halos(vp, slot, g.halo)
+                        windowed.shard_multistep(up, vp, mesh_h, slot, k,
+                                                 consts, "naive", shape,
+                                                 geometry=g)
+                        slot = 1 - slot
+                calls["K1 shard", g, k] = (shwin, PIN_TIME_STEPS)
+        samples = {c: [] for c in calls}
+        order = list(calls)
+        for r in range(PIN_ROUNDS):
+            for c in (order if r % 2 == 0 else reversed(order)):
+                samples[c].append(cuda_ms(calls[c][0], reps))
+        first = {}
+        for c in calls:
+            ms = statistics.median(samples[c])
+            steps = calls[c][1]
+            first.setdefault(c[0], ms / steps)
+            out[shape, c] = ms
+            g = c[1]
+            label = g.label() if g else "the compiled tiles (choose_tile)"
+            print(f"time pins {c[0]} {shape[0]}x{shape[1]} {label}"
+                  f"{f' K={c[2]}' if len(c) > 2 else ''}: {ms!r} ms for "
+                  f"{steps} steps (turns {samples[c]!r}), {ms / steps!r} ms "
+                  f"a step, {ms / steps / first[c[0]]!r}x the default "
+                  f"geometry's [{card}]", flush=True)
+    u_np, v_np = (rng.uniform(0, 1, MAIN_SHAPE).astype(np.float32)
+                  for _ in range(2))
+    for tag, (label, tiles) in PIN19_KERNELS.items():
+        bf16 = tag.endswith("bf16")
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        u, v = (torch.from_numpy(a).to(DEVICE).to(dtype)
+                for a in (u_np, v_np))
+        cell_bytes = 8 if bf16 else 16
+        ops = ops_per_cell_step(params, "naive")
+        if tag.startswith("mega_pinned"):
+            _, fold = MEGA_PIN_ENTRIES[tag]
+            g = geometry.Geometry(*tiles, geometry.HALO)
+            kc = fold_constants(params) if fold else consts
+            ops = fold_ops_per_cell_step(params) if fold else ops
+            up, vp = megakernel.pair_state(u), megakernel.pair_state(v)
+            ms = cuda_ms(lambda: megakernel.megastep(
+                up, vp, 4, 8, kc, "naive", fold=fold, geometry=g), 10)
+            plain = cuda_ms(lambda: mega_pin_plain(u, v, 4, 8, tag, "naive",
+                                                   params), 2)
+            steps, k = 32, 8
+        elif tag == "megapack_pinned":
+            g = geometry.Geometry(*tiles, geometry.HALO)
+            x = packed.pack_state(u, v)
+            xp = megakernel.pair_state(x)
+            ms = cuda_ms(lambda: megakernel.packed_megastep(
+                xp, 4, 8, pc, geometry=g), 10)
+            plain = cuda_ms(lambda: packed.packed_run(x, 32, pc), 2)
+            ops, steps, k = PACKED_OPS, 32, 8
+        elif tag.startswith("shmega_pinned"):
+            g = geometry.Geometry(*tiles, geometry.HALO)
+            mesh = halo.Mesh(*((1, 4) if bf16 else (2, 2)), dev)
+            up, vp = halo.mega_shard_state(u_np, v_np, mesh, dtype)
+            ms = cuda_ms(lambda: sharded_mega.sharded_megastep(
+                up, vp, mesh, 4, 8, consts, "naive", MAIN_SHAPE,
+                geometry=g), 10)
+            cu, cv = up.clone(), vp.clone()
+            plain = cuda_ms(lambda: sharded_mega.sharded_megastep_reference(
+                cu, cv, 4, 8, consts, "naive", MAIN_SHAPE), 1)
+            steps, k = 32, 8
+        else:
+            k, tr = tiles
+            mesh = halo.Mesh(2, 2, dev, geometry.halo_for_steps(k))
+            g = geometry.resolve(halo.shard_extents(MAIN_SHAPE, mesh), k, tr)
+            up, vp = halo.mega_shard_state(u_np, v_np, mesh, dtype)
+            ms = cuda_ms(lambda: windowed.shard_multistep(
+                up, vp, mesh, 0, k, consts, "naive", MAIN_SHAPE,
+                geometry=g), 20)
+            cu, cv = up.clone(), vp.clone()
+            plain = cuda_ms(lambda: windowed.shard_multistep_reference(
+                cu, cv, 0, k, consts, "naive", MAIN_SHAPE, "all", g), 1)
+            steps = k
+        bound, by = roofline_ms(MAIN_SHAPE, steps, ops, cell_bytes)
+        stepped, _ = roofline_ms(MAIN_SHAPE, steps * g.stepped_ratio(k),
+                                 ops, cell_bytes)
+        out[tag] = (ms, plain, bound, by, stepped, g, steps)
+        print(f"time {tag} {pin_label(MAIN_SHAPE, g)} "
+              f"{'zero' if tag == 'megapack_pinned' else 'naive'}, one "
+              f"launch of "
+              f"{steps} steps: {ms!r} ms; bound {bound!r} ms ({by}) at the "
+              f"output cell-steps, {stepped!r} ms at the stepped cells "
+              f"({g.stepped_ratio(k)!r} a cell-step), {100 * bound / ms!r} "
+              f"% / {100 * stepped / ms!r} % of them; plain {plain!r} ms "
+              f"[{card}]", flush=True)
+    return out
+
+
+def pin19_phase(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 19: 19a-19d (19e: the new entries in the kernels line; 19f is
+    phase 12's tuner, whose candidates include K2's tile candidates)."""
+    n = compare_mega_pins(checks, rng)
+    pin19_ptxas(checks, log)
+    runs = pin19_paths(checks, card)
+    times = time_pin19(rng, card)
+    return n, runs, times
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -5023,6 +5594,12 @@ def run_phases(args) -> int:
     t18 = time.perf_counter()
     n18, pin_runs, pin_times = pins_phase(checks, rng, card, built.log)
     print(f"phase 18: {n18} comparisons, {time.perf_counter() - t18!r} s",
+          flush=True)
+    # 19. the megakernels' tile pins (K2, K6, K7) and the sharded windowed
+    # engine's K and row tile (K1's shard entry)
+    t19 = time.perf_counter()
+    n19, pin19_runs, pin19_times = pin19_phase(checks, rng, card, built.log)
+    print(f"phase 19: {n19} comparisons, {time.perf_counter() - t19!r} s",
           flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
@@ -5223,6 +5800,18 @@ def run_phases(args) -> int:
             shape=list(MAIN_SHAPE), steps=16,
             boundary="zero" if tag == "packed_pinned" else "naive",
             steps_per_call=16, tile=[64, 64], compiled_k8_ms=k8_ms))
+    # the megakernels' and the shard entry's pinned entries: their launches
+    # on phase 19c's paths, one launch at 1080x1920 naive (zero: K6) on the
+    # path's tiles (phase 19d)
+    for tag, (path, _) in PIN19_KERNELS.items():
+        ms, plain_ms, bound, by, stepped, g, steps = pin19_times[tag]
+        entries.append(dict(
+            KERNELS[tag], launches=pin19_runs[path]["launches"][tag],
+            max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=list(MAIN_SHAPE), steps=steps,
+            boundary="zero" if tag == "megapack_pinned" else "naive",
+            tile=[g.tr, g.tc], halo=g.halo, stepped_bound_ms=stepped))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -112,8 +112,7 @@ window past the shared memory a block may use raises
   (``_use_resident``: the pin is checked first);
 - ``engine="mega"`` with a K other than 8 raises JAX's refusal
   (``:144-152``); ``pack="on"`` with ``block_cols`` raises JAX's
-  (``:507-519``). The megakernels' tile pins (K2, K6) are not ported yet
-  (ROADMAP.md Queue 2 item 12) and raise naming it;
+  (``:507-519``);
 - a record's ``steps_per_call`` is adopted when K is not pinned
   (``_tuned_k``, ``:315-327``), its ``block_rows`` and ``block_cols`` when
   they are not pinned and the record's K is the run's (``:270-313``;
@@ -121,6 +120,22 @@ window past the shared memory a block may use raises
   windowed record of the run's layout only. Records key on the card
   (``utils/device.py:autotune_platform``), so a CPU record never reaches
   the card.
+
+The megakernels' tile pins (``engine="mega"`` with ``block_rows`` and/or
+``block_cols``; ``_mega_tiles``, ``backends/pallas.py:384-411``) run K2, and
+K6 on the packed layout (its row tile; ``:554-576``), on the tiles
+``ops/geometry.py:mega_resolve`` gives: the pins, then an ``engine: mega``
+record's tiles where the run pins none (``:390-396``), then the compiled
+64x64. The storage carries them (``("mega", u_pair, v_pair, tiles)``,
+``("megapack", x_pair, tiles)``), and a geometry other than 64x64 launches
+the pinned entries (``csrc/mega_pins.cu``). The values JAX's megakernels
+refuse raise its refusal when the storage is built (``block_rows`` not a
+positive multiple of 8, ``block_cols`` not a positive multiple of 128, a
+column tile under ``naive_fix="store"``; ``:414-428``, ``:552-562``), and a
+window past the shared memory a block may use raises naming its bytes. A
+pinned tile with a ``mega_depth`` above 2 (the window ring at a pinned
+tile) is not ported yet and raises naming ROADMAP.md Queue 2 item 12; the
+frames do not depend on the tiles.
 
 A record whose engine the configuration refuses (``resident`` under
 ``resident="off"``, bf16, ``naive_fold`` or ``naive_fix="store"``) runs
@@ -133,8 +148,8 @@ The buffers are updated in place, where the JAX backend gets fresh
 backend's names and values, and so do the other eight ``--pallas-*``
 flags. ``runtime_params`` on and off run the same kernels (they take the
 parameters by value); every other value of the JAX backend's knobs that
-the port does not run (the lane fold, the megakernels' tile pins) raises
-:class:`UnsupportedConfigError` naming its ROADMAP.md item.
+the port does not run (the lane fold, the window ring at a pinned tile)
+raises :class:`UnsupportedConfigError` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -164,8 +179,9 @@ ON_OFF = ("on", "off")
 #: pinned, and the megakernels' only one
 K = windowed.K
 
-#: where ROADMAP.md keeps the megakernels' tile pins
-MEGA_TILES = "ROADMAP.md Queue 2 item 12 (the megakernels' tile pins)"
+#: where ROADMAP.md keeps the rest of the megakernels' tile pins
+MEGA_RING_TILES = ("ROADMAP.md Queue 2 item 12 (the window ring at a pinned "
+                   "tile)")
 
 #: knob -> (the values the port runs, the JAX backend's names and values;
 #: where ROADMAP.md keeps the rest)
@@ -331,7 +347,7 @@ class CudaSimulation(Simulation):
             raise UnsupportedConfigError(
                 f"fold={fold!r} is not ported to the cuda backend yet "
                 f"({item}); it runs fold in {runs}", combo="fold")
-        self._check_tiles(engine, block_rows, block_cols)
+        self._check_tiles(engine, block_rows, block_cols, self.mega_depth)
         self.engine = engine
         self.resident = resident
         self.pack = pack
@@ -374,17 +390,18 @@ class CudaSimulation(Simulation):
                 combo="engine+steps_per_call")
 
     @staticmethod
-    def _check_tiles(engine, block_rows, block_cols) -> None:
-        """The tiles positive ints, and the megakernels' tile pins refused
-        (not ported yet)."""
+    def _check_tiles(engine, block_rows, block_cols, depth) -> None:
+        """The tiles positive ints, and the window ring at a pinned tile
+        refused (not ported yet)."""
         geometry.check_tile("block_rows", block_rows)
         geometry.check_tile("block_cols", block_cols)
-        if engine == "mega" and (block_rows, block_cols) != (None, None):
+        if engine == "mega" and depth not in (None, 2) and \
+                (block_rows, block_cols) != (None, None):
             raise UnsupportedConfigError(
-                "the megakernels' tile pins (engine='mega' with block_rows "
-                f"or block_cols) are not ported to the cuda backend yet "
-                f"({MEGA_TILES}); K2 and K6 run 64x64 tiles",
-                combo="engine+tiles")
+                f"mega_depth={depth} with a tile pin (the window ring at a "
+                f"pinned tile) is not ported to the cuda backend yet "
+                f"({MEGA_RING_TILES}); drop mega_depth or the tile pins",
+                combo="mega_depth+tiles")
 
     @staticmethod
     def _check_naive_modes(boundary, resident, fold, naive_fix,
@@ -476,6 +493,42 @@ class CudaSimulation(Simulation):
                 tc = rec.get("block_cols") if tc is None else tc
         return k, geometry.resolve(shape, k, tr, tc)
 
+    def mega_plan_for(self, shape: Tuple[int, int],
+                      packed_layout: bool = False,
+                      tuned=None) -> "geometry.Geometry":
+        """The tiles that K2 (K6 on the packed layout) steps a domain of
+        ``shape`` with: the pins, then an ``engine: mega`` record's tiles
+        of the same layout where the run pins none and no ``mega_depth``
+        ring runs (``backends/pallas.py:384-411``, ``:552-554``), then
+        ``geometry.mega_resolve``. The values JAX's megakernels refuse
+        raise its :class:`UnsupportedConfigError` (``:414-428``,
+        ``:555-562``)."""
+        tr, tc = self.block_rows, self.block_cols
+        rec = tuned
+        if rec and (bool(rec.get("pack")) == packed_layout
+                    and rec.get("engine") == "mega"
+                    and self.mega_depth in (None, 2)):
+            tr = rec.get("block_rows") if tr is None else tr
+            tc = rec.get("block_cols") if tc is None else tc
+        if tc is not None and tc >= shape[1]:
+            tc = None  # backends/pallas.py:396-397
+        if packed_layout:
+            if not geometry.mega_pins_ok(tr, None):
+                r, c = shape
+                raise UnsupportedConfigError(
+                    "engine='mega' with pack needs full-width windows under "
+                    f"the VMEM/compile ceilings; unsupported for shape "
+                    f"{(r, c)} packed to {(r, 2 * c)}", combo="engine+pack")
+            return geometry.mega_resolve(shape, tr, None)
+        if not geometry.mega_pins_ok(tr, tc) or (
+                tc is not None and self.naive_fix == "store"):
+            raise UnsupportedConfigError(
+                "engine='mega' needs windows under the VMEM/compile ceilings "
+                "(including the pinned mega_depth ring and mega_specialize "
+                "graph) and no lane fold; unsupported for shape "
+                f"{tuple(shape)} at tr={tr}, tc={tc}", combo="engine+tiles")
+        return geometry.mega_resolve(shape, tr, tc)
+
     def layout_for(self, shape: Tuple[int, int]) -> Tuple[bool, str]:
         """(packed, engine) of a domain of ``shape``: the pins, then the
         autotune record for what is left on ``auto``, then
@@ -533,14 +586,16 @@ class CudaSimulation(Simulation):
         # K1's and K4's (K, tiles) ride in the storage, as JAX's (tr, K) do
         plan = (self.plan_for(u.shape, packed_layout, tuned),) \
             if engine == "windowed" else ()
+        tiles = self.mega_plan_for(u.shape, packed_layout, tuned) \
+            if engine == "mega" else None
         if packed_layout:
             x = packed.pack_state(u_t, v_t)
             if engine == "mega":
-                return ("megapack", megakernel.pair_state(x))
+                return ("megapack", megakernel.pair_state(x), tiles)
             return (PACKED_TAGS[engine], x, torch.empty_like(x), *plan)
         if engine == "mega":
             return ("mega", megakernel.pair_state(u_t),
-                    megakernel.pair_state(v_t))
+                    megakernel.pair_state(v_t), tiles)
         return (engine, u_t, v_t, torch.empty_like(u_t),
                 torch.empty_like(v_t), *plan)
 
@@ -568,17 +623,17 @@ class CudaSimulation(Simulation):
         if storage[0] in ("packed", "respack", "megapack"):
             return self._run_packed(storage, shape, steps)
         if storage[0] == "mega":
-            _, u_pair, v_pair = storage
+            _, u_pair, v_pair, tiles = storage
             n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
             if n_full:
                 megakernel.megastep(u_pair, v_pair, n_full,
                                     megakernel.MEGA_STEPS, self.step_consts,
                                     self.boundary, fold=self.naive_fold,
-                                    depth=self.mega_depth)
+                                    depth=self.mega_depth, geometry=tiles)
             if rem:
                 megakernel.megastep(u_pair, v_pair, 1, rem, self.step_consts,
                                     self.boundary, fold=self.naive_fold,
-                                    depth=self.mega_depth)
+                                    depth=self.mega_depth, geometry=tiles)
             return storage
         if storage[0] == "resident":
             if steps == 0:
@@ -600,12 +655,15 @@ class CudaSimulation(Simulation):
         747-792``)."""
         pc = self.packed_consts
         if storage[0] == "megapack":
+            _, x_pair, tiles = storage
             n_full, rem = divmod(steps, megakernel.MEGA_STEPS)
             if n_full:
-                megakernel.packed_megastep(storage[1], n_full,
-                                           megakernel.MEGA_STEPS, pc)
+                megakernel.packed_megastep(x_pair, n_full,
+                                           megakernel.MEGA_STEPS, pc,
+                                           geometry=tiles)
             if rem:
-                megakernel.packed_megastep(storage[1], 1, rem, pc)
+                megakernel.packed_megastep(x_pair, 1, rem, pc,
+                                           geometry=tiles)
             return storage
         if storage[0] == "respack":
             if steps == 0:
@@ -633,11 +691,11 @@ class CudaSimulation(Simulation):
             "--pallas-block-rows", type=int,
             default=env_default("GRAYSCOTT_PALLAS_BLOCK_ROWS", None, int),
             help="Row-tile size of the Pallas kernel (multiple of 8; "
-            "default: VMEM budget heuristic). The port: the height of K1's "
-            "and K4's tiles (default 64, smaller where a deep "
-            "--pallas-steps-per-call leaves no room in shared memory); "
-            "holds 'auto' to the windowed kernel; refused with "
-            "--pallas-engine mega (ROADMAP.md Queue 2 item 12)",
+            "default: VMEM budget heuristic). The port: the height of the "
+            "tiles of K1 and K4 (default 64, smaller where a deep "
+            "--pallas-steps-per-call leaves no room in shared memory) and, "
+            "with --pallas-engine mega, of K2 and K6 (a positive multiple "
+            "of 8); holds 'auto' to the windowed kernel",
         )
         parser.add_argument(
             "--pallas-block-cols", type=int,
@@ -646,10 +704,10 @@ class CudaSimulation(Simulation):
             "default: full width unless the window would exceed VMEM. "
             "With --pallas-engine mega, pins the megakernel's column tile. "
             "The port: the width of K1's tiles (default 64; at least the "
-            "domain's width: one tile column); holds 'auto' to the "
-            "windowed kernel, unpacked; refused with --pallas-pack on "
-            "(as in JAX) and --pallas-engine mega (ROADMAP.md Queue 2 item "
-            "12)",
+            "domain's width: one tile column) and, with --pallas-engine "
+            "mega, of K2's (a positive multiple of 128; at least the "
+            "domain's width: unpinned); holds 'auto' to the windowed "
+            "kernel, unpacked; refused with --pallas-pack on (as in JAX)",
         )
         parser.add_argument(
             "--pallas-dtype", choices=DTYPES,

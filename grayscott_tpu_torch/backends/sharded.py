@@ -2,12 +2,15 @@
 ``grayscott_tpu/backends/sharded.py`` and its two engines.
 
 - ``windowed`` (K1 on the shard layout, ``ops/windowed.py:
-  shard_multistep``): storage ``("shwin", u_pairs, v_pairs, slot)`` on a
-  1-D row mesh and ``("shwin2d", ...)`` on a 2-D mesh, the pairs in the
-  layout of ``parallel/halo.py`` and ``slot`` the current one. ``run_steps``
-  makes ``divmod(steps, 8)`` blocks, as ``sharded_run_blocks`` does
-  (``grayscott_tpu/parallel/halo.py:305-317``): each fills the halos of
-  the current slot (``halo.exchange_halos``), makes one K1 launch over
+  shard_multistep``): storage ``("shwin", u_pairs, v_pairs, slot, (K,
+  tiles))`` on a 1-D row mesh and ``("shwin2d", ...)`` on a 2-D mesh, the
+  pairs in the layout of ``parallel/halo.py`` at a halo of
+  ``halo_for_steps(K)`` rows (and columns on a 2-D mesh, as JAX's
+  ``chalo``), ``slot`` the current one, and the tiles
+  ``ops/geometry.py:resolve`` gives each shard under the row-tile pin.
+  ``run_steps`` makes ``divmod(steps, K)`` blocks, as ``sharded_run_blocks``
+  does (``grayscott_tpu/parallel/halo.py:305-317``): each fills the halos
+  of the current slot (``halo.exchange_halos``), makes one K1 launch over
   every shard into the other slot, and flips the slot. With ``overlap``
   on, a block where the split engages (``halo.overlap_engages``) makes two
   launches instead: the exchange runs on a copy stream of the
@@ -18,10 +21,25 @@
   bit for bit. Where the split does not engage the block runs serialized,
   as in JAX.
 - ``mega`` (K7, ``ops/sharded_mega.py``): storage ``("shmega", u_pairs,
-  v_pairs)`` (``"shmega2d"`` on a 2-D mesh), slot 0 current. ``run_steps``
-  fills slot 0's halos and makes one launch of ``steps // 8`` time blocks,
-  then the same for one block of the remainder
-  (``sharded_mega.launch_plan``).
+  v_pairs, tiles)`` (``"shmega2d"`` on a 2-D mesh), slot 0 current, the
+  tiles None (``sharded_mega.choose_tile`` picks 64x64 or 32x32) or those
+  of the tile pins. ``run_steps`` fills slot 0's halos and makes one
+  launch of ``steps // 8`` time blocks, then the same for one block of the
+  remainder (``sharded_mega.launch_plan``).
+
+The K and tile pins, as JAX's sharded backend takes them
+(``grayscott_tpu/backends/sharded.py:86-139``, ``:263-364``): the windowed
+engine runs any K in 1..32 (else JAX's ``ValueError``) and a row tile
+(``block_rows``; ``block_cols`` raises JAX's refusal), bf16 storage
+rounding once a K-step block; K7 keeps K = 8 (another raises JAX's
+refusal) and takes ``block_rows`` (a positive multiple of 8) and
+``block_cols`` (a positive multiple of 128: at least the domain's width is
+unpinned on a row mesh, one tile column across the shard on a 2-D mesh),
+else JAX's refusals when the storage is built. A window past the shared
+memory a block may use raises naming its bytes, and so does a layout whose
+shards are thinner than their halo (``halo.thin_shard``: JAX's exchange
+does not check it, and its result turns to NaN there). The frames do not
+depend on the tiles, nor, in float32, on K.
 
 ``engine="auto"`` (the default) and ``overlap="auto"`` follow the sharded
 autotune record of the configuration (``bench/autotune.py:
@@ -41,11 +59,8 @@ each block of at most 8 steps runs in float32 and rounds its stored cells
 once, before the exchange moves them, so both engines and the unsharded
 ``cuda`` backend agree bit for bit. Records key on the dtype.
 
-What JAX's backend runs besides and the port does not yet raises
-:class:`UnsupportedConfigError` naming its ROADMAP item, and nothing falls
-back: the tile pins and a K other than 8 (Queue 2 item 12: the sharded
-windowed engine's K and row tile need the shard layout's halo at
-``halo_for_steps(K)``, K7's tiles are the megakernels' pins).
+Nothing falls back: what the port does not run raises
+:class:`UnsupportedConfigError`.
 """
 
 from __future__ import annotations
@@ -58,7 +73,7 @@ import numpy as np
 import torch
 
 from ..errors import UnsupportedConfigError
-from ..ops import sharded_mega, windowed
+from ..ops import geometry, sharded_mega, windowed
 from ..parallel import halo
 from ..params import Parameters, kernel_constants
 from .base import Simulation, env_default, storage_dtype
@@ -66,12 +81,9 @@ from .base import Simulation, env_default, storage_dtype
 ENGINES = ("auto", "windowed", "mega")
 OVERLAP = ("auto", "on", "off")
 
-#: the depth of a block of either engine: the one ``steps_per_call`` the
-#: port runs
+#: the depth of a block of either engine where K is not pinned, and K7's
+#: only one
 K = windowed.K
-
-_TILES = ("ROADMAP.md Queue 2 item 12 (the sharded engines' tile pins and "
-          "another K)")
 
 #: (engine, 2-D mesh) -> storage tag
 TAGS = {("windowed", False): "shwin", ("windowed", True): "shwin2d",
@@ -109,11 +121,12 @@ class ShardedSimulation(Simulation):
                 "engine='mega' overlaps exchange with interior compute "
                 "in-kernel; --sharded-overlap applies to the windowed "
                 "engine", combo="overlap")
-        if steps_per_call not in (None, K):
+        if engine == "mega" and steps_per_call not in (None, K):
+            # grayscott_tpu/backends/sharded.py:99-104
             raise UnsupportedConfigError(
-                f"steps_per_call={steps_per_call!r}: both sharded engines "
-                f"run K={K} (another K: {_TILES}); drop "
-                "--pallas-steps-per-call", combo="steps_per_call")
+                "engine='mega' fixes steps-per-call at its exchange depth "
+                f"K={K}; drop --pallas-steps-per-call",
+                combo="engine+steps_per_call")
         #: the storage dtype, by name and torch's
         self.dtype = storage_dtype(dtype)
         self.storage_dtype = getattr(torch, self.dtype)
@@ -124,11 +137,13 @@ class ShardedSimulation(Simulation):
                 "the windowed sharded engine derives its own column "
                 "layout (2-D meshes shard columns instead)",
                 combo="block_cols")
-        if block_rows is not None or block_cols is not None:
-            raise UnsupportedConfigError(
-                "the tile pins (block_rows, block_cols) are not ported yet "
-                f"({_TILES}); the sharded kernels run fixed tiles",
-                combo="tiles")
+        if steps_per_call is not None:
+            geometry.check_steps_per_call(steps_per_call)
+        for name, value in (("block_rows", block_rows),
+                            ("block_cols", block_cols)):
+            if value is not None and (isinstance(value, bool)
+                                      or not isinstance(value, int)):
+                raise ValueError(f"{name} must be an int, got {value!r}")
         if n_devices is not None and n_devices < 1:
             raise UnsupportedConfigError(
                 f"n_devices must be >= 1, got {n_devices} (omit the flag "
@@ -140,6 +155,14 @@ class ShardedSimulation(Simulation):
         self._engine_req = engine
         self._overlap_req = overlap
         self._k_pin = steps_per_call
+        #: the tile pins, and the tiles that run (the pins, then what a
+        #: record of the same engine, mesh and K fills in)
+        self.block_rows = block_rows
+        self.block_cols = block_cols
+        self.tile_rows = block_rows
+        self.tile_cols = block_cols
+        #: the windowed engine's K (K7 runs 8)
+        self.steps_per_call = K if steps_per_call is None else steps_per_call
         self.engine = "windowed" if engine == "auto" else engine
         self.overlap = overlap is True
         self.tuned_lookup = tuned_lookup
@@ -158,12 +181,14 @@ class ShardedSimulation(Simulation):
     def _adopt_record(self, shape) -> None:
         """Follow the sharded autotune record of this configuration in
         every knob left on ``auto`` (``grayscott_tpu/backends/sharded.py:
-        159-229``): the engine (not ``mega`` under a pinned overlap), the
-        mesh when none was pinned, and overlap only when this simulation
-        runs the record's engine on the record's mesh. The port's kernels
-        run fixed tiles at K = 8, so a record's tile or K never transfers
-        (ADVICE.md, round 5, #2). Latched on the first ``build_storage``,
-        like the mesh."""
+        159-229``): the engine (not ``mega`` under a pinned overlap, nor
+        under a pinned K other than 8), the mesh when none was pinned, and
+        the geometry verdicts only when this simulation runs the record's
+        engine on the record's mesh: the windowed engine's K where K is not
+        pinned, overlap where it is on ``auto``, and the record's tiles
+        where they are not pinned and the record's K is the run's (a tile
+        measured at another K does not transfer: ADVICE.md, round 5, #2).
+        Latched on the first ``build_storage``, like the mesh."""
         if self._adopted:
             return
         self._adopted = True
@@ -178,20 +203,33 @@ class ShardedSimulation(Simulation):
             engine=None if self._engine_req == "auto" else self._engine_req,
             overlap=None if self._overlap_req == "auto"
             else self._overlap_req,
-            steps_per_call=self._k_pin, device=self.device)
+            steps_per_call=self._k_pin, block_rows=self.block_rows,
+            block_cols=self.block_cols, device=self.device)
         if not rec:
             return
         eng = rec.get("engine")
         if self._engine_req == "auto" and eng in ENGINES[1:] and not (
-                eng == "mega" and self._overlap_req is True):
+                eng == "mega" and (self._overlap_req is True or
+                                   self._k_pin not in (None, K))):
             self.engine = eng
         if self.mesh is None and rec.get("mesh_cols"):
             self.mesh = halo.make_mesh(self._shards(), int(rec["mesh_cols"]),
                                        self.device)
-        if (self._overlap_req == "auto" and self.engine == "windowed"
-                and eng == "windowed"
-                and int(rec.get("mesh_cols") or 1)
-                == self._resolve_mesh(shape).n_cols):
+        if eng != self.engine or int(rec.get("mesh_cols") or 1) != \
+                self._resolve_mesh(shape).n_cols:
+            return
+        if self.engine == "windowed" and self._k_pin is None:
+            tk = rec.get("steps_per_call")
+            if tk and 1 <= int(tk) <= geometry.MAX_STEPS_PER_CALL:
+                self.steps_per_call = int(tk)
+        run_k = self.steps_per_call if self.engine == "windowed" else K
+        if int(rec.get("steps_per_call") or K) == run_k:
+            if self.tile_rows is None and rec.get("block_rows"):
+                self.tile_rows = int(rec["block_rows"])
+            if self.engine == "mega" and self.tile_cols is None and \
+                    rec.get("block_cols"):
+                self.tile_cols = int(rec["block_cols"])
+        if self._overlap_req == "auto" and self.engine == "windowed":
             self.overlap = bool(rec.get("overlap"))
 
     def _resolve_mesh(self, shape) -> halo.Mesh:
@@ -203,40 +241,99 @@ class ShardedSimulation(Simulation):
                                        self.device)
         return self.mesh
 
+    def windowed_plan(self, shape) -> Tuple[int, "geometry.Geometry"]:
+        """(K, tiles) of the windowed engine on a domain of ``shape``: the
+        K (pinned, adopted, else 8) and each shard's tiles at its halo
+        (``geometry.resolve`` of the shard under the row-tile pin)."""
+        mesh = self._resolve_mesh(shape)
+        r_loc, c_loc = halo.shard_extents(shape, mesh)
+        k = self.steps_per_call
+        return k, geometry.resolve((r_loc, c_loc), k, self.tile_rows, None)
+
+    def mega_tiles(self, shape) -> "geometry.Geometry | None":
+        """K7's tiles on a domain of ``shape`` under the tile pins (and a
+        record's): None where neither is pinned (``sharded_mega.
+        choose_tile`` picks), else ``geometry.mega_resolve`` of a shard;
+        JAX's refusals of the values its K7 does not take
+        (``grayscott_tpu/backends/sharded.py:354-364``)."""
+        tr, tc = self.tile_rows, self.tile_cols
+        if tr is not None and (tr < 8 or tr % 8):
+            raise UnsupportedConfigError(
+                "engine='mega' needs block_rows as a positive multiple of "
+                f"8, got {tr}", combo="engine+tiles")
+        if tc is not None and (tc < 128 or tc % 128):
+            raise UnsupportedConfigError(
+                "engine='mega' needs block_cols as a positive multiple of "
+                f"128, got {tc}", combo="engine+tiles")
+        if (tr, tc) == (None, None):
+            return None
+        mesh = self._resolve_mesh(shape)
+        r_loc, c_loc = halo.shard_extents(shape, mesh)
+        if mesh.n_cols == 1 and tc is not None and tc >= shape[1]:
+            tc = None  # grayscott_tpu/backends/sharded.py:285-286
+            if tr is None:
+                return None
+        return geometry.mega_resolve((r_loc, c_loc), tr, tc,
+                                     cover=mesh.n_cols > 1)
+
     def overlap_runs(self, shape) -> bool:
         """Whether a windowed block of a domain of ``shape`` runs the
         overlap split: overlap on, the windowed engine, and the split
-        engages on the mesh's shards."""
+        engages on the mesh's shards at their tiles and halo."""
+        if self.engine != "windowed" or not self.overlap:
+            return False
         mesh = self._resolve_mesh(shape)
         r_loc, c_loc = halo.shard_extents(shape, mesh)
-        return (self.engine == "windowed" and self.overlap
-                and halo.overlap_engages(r_loc, c_loc, mesh.n_cols))
+        _, g = self.windowed_plan(shape)
+        return halo.overlap_engages(r_loc, c_loc, mesh.n_cols,
+                                    (g.tr, g.tc), g.halo)
 
     def build_storage(self, u: np.ndarray, v: np.ndarray):
         self._adopt_record(u.shape)
         mesh = self._resolve_mesh(u.shape)
-        up, vp = halo.mega_shard_state(u, v, mesh, self.storage_dtype)
         tag = TAGS[self.engine, mesh.n_cols > 1]
-        return (tag, up, vp) if self.engine == "mega" else (tag, up, vp, 0)
+        if self.engine == "mega":
+            tiles = self.mega_tiles(u.shape)
+            self.mesh = mesh.with_halo(halo.HALO)
+            up, vp = halo.mega_shard_state(u, v, self.mesh,
+                                           self.storage_dtype)
+            return (tag, up, vp, tiles)
+        plan = self.windowed_plan(u.shape)
+        self.mesh = mesh.with_halo(plan[1].halo)
+        thin = halo.thin_shard(u.shape, self.mesh)
+        if thin:
+            raise UnsupportedConfigError(
+                f"{thin} (steps_per_call={plan[0]} on a {self.mesh.n_rows}x"
+                f"{self.mesh.n_cols} mesh): a shard fills its neighbours' "
+                "halos from its own interior; use fewer shards or a smaller "
+                "--pallas-steps-per-call", combo="steps_per_call+shards")
+        up, vp = halo.mega_shard_state(u, v, self.mesh, self.storage_dtype)
+        return (tag, up, vp, 0, plan)
 
     @staticmethod
-    def _slot(storage) -> int:
-        return storage[3] if len(storage) > 3 else 0
+    def _windowed(storage) -> bool:
+        return storage[0].startswith("shwin")
+
+    def _slot_halo(self, storage) -> Tuple[int, int]:
+        """(current slot, the layout's halo) of ``storage``."""
+        if self._windowed(storage):
+            return storage[3], storage[4][1].halo
+        return 0, halo.HALO
 
     def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-        slot = self._slot(storage)
-        return (halo.mega_unshard_result(storage[1], shape, slot),
-                halo.mega_unshard_result(storage[2], shape, slot))
+        slot, h = self._slot_halo(storage)
+        return (halo.mega_unshard_result(storage[1], shape, slot, h),
+                halo.mega_unshard_result(storage[2], shape, slot, h))
 
     def extract_result(self, storage, shape) -> torch.Tensor:
         return halo.mega_unshard_result(storage[2], shape,
-                                        self._slot(storage))
+                                        *self._slot_halo(storage))
 
     def run_steps(self, storage, shape, steps: int):
-        if len(storage) > 3:
+        if self._windowed(storage):
             return self._run_windowed(storage, shape, steps)
-        _, up, vp = storage
+        _, up, vp, tiles = storage
         for n_blocks, k in sharded_mega.launch_plan(steps):
             # slot 0 enters with the halos of the last call or none; one
             # exchange makes them valid for the first time block
@@ -244,40 +341,46 @@ class ShardedSimulation(Simulation):
             halo.exchange_halos(up)
             halo.exchange_halos(vp)
             sharded_mega.sharded_megastep(up, vp, self.mesh, n_blocks, k,
-                                          self.consts, self.boundary, shape)
+                                          self.consts, self.boundary, shape,
+                                          geometry=tiles)
         return storage
 
     def _run_windowed(self, storage, shape, steps: int):
-        tag, up, vp, slot = storage
+        tag, up, vp, slot, plan = storage
+        k_max, g = plan
         split = self.overlap_runs(shape)
         if self.overlap and not split and not self._serial_logged:
             self._serial_logged = True
             _logger.info("sharded windowed: no overlap-interior tile on "
                          "%s shards of %s; the blocks run serialized",
                          self.mesh.shape, tuple(shape))
-        n_full, rem = divmod(steps, K)
-        for k in [K] * n_full + ([rem] if rem else []):
+        n_full, rem = divmod(steps, k_max)
+        for k in [k_max] * n_full + ([rem] if rem else []):
             if split:
-                self._overlapped_block(up, vp, slot, k, shape)
+                self._overlapped_block(up, vp, slot, k, shape, g)
             else:
-                halo.exchange_halos(up, slot)
-                halo.exchange_halos(vp, slot)
+                halo.exchange_halos(up, slot, g.halo)
+                halo.exchange_halos(vp, slot, g.halo)
                 windowed.shard_multistep(up, vp, self.mesh, slot, k,
-                                         self.consts, self.boundary, shape)
+                                         self.consts, self.boundary, shape,
+                                         geometry=g)
             slot = 1 - slot
-        return (tag, up, vp, slot)
+        return (tag, up, vp, slot, plan)
 
-    def _overlapped_block(self, up, vp, slot: int, k: int, shape) -> None:
+    def _overlapped_block(self, up, vp, slot: int, k: int, shape,
+                          g: "geometry.Geometry") -> None:
         """One block split as ``body_overlap`` and ``body_overlap2d`` split
         it (``grayscott_tpu/parallel/halo.py:319-457``): the exchange of
-        ``slot`` beside the overlap-interior launch, then the edge launch.
-        On the CPU the three run in order."""
+        ``slot`` beside the overlap-interior launch, then the edge launch,
+        on the tiles and halo of ``g``. On the CPU the three run in
+        order."""
         args = (self.mesh, slot, k, self.consts, self.boundary, shape)
         if self.device.type != "cuda":
-            halo.exchange_halos(up, slot)
-            halo.exchange_halos(vp, slot)
-            windowed.shard_multistep(up, vp, *args, part="interior")
-            windowed.shard_multistep(up, vp, *args, part="edge")
+            halo.exchange_halos(up, slot, g.halo)
+            halo.exchange_halos(vp, slot, g.halo)
+            windowed.shard_multistep(up, vp, *args, part="interior",
+                                     geometry=g)
+            windowed.shard_multistep(up, vp, *args, part="edge", geometry=g)
             return
         launch = torch.cuda.current_stream(self.device)
         if self._copy_stream is None:
@@ -287,11 +390,11 @@ class ShardedSimulation(Simulation):
         # were made on the launch stream and the copies allocate nothing
         copy.wait_stream(launch)
         with torch.cuda.stream(copy):
-            halo.exchange_halos(up, slot)
-            halo.exchange_halos(vp, slot)
-        windowed.shard_multistep(up, vp, *args, part="interior")
+            halo.exchange_halos(up, slot, g.halo)
+            halo.exchange_halos(vp, slot, g.halo)
+        windowed.shard_multistep(up, vp, *args, part="interior", geometry=g)
         launch.wait_stream(copy)
-        windowed.shard_multistep(up, vp, *args, part="edge")
+        windowed.shard_multistep(up, vp, *args, part="edge", geometry=g)
 
     # -- CLI -----------------------------------------------------------------
 
@@ -304,12 +407,15 @@ class ShardedSimulation(Simulation):
             default=env_default("GRAYSCOTT_SHARDED_ENGINE", "auto",
                                 choices=ENGINES),
             help="Multi-shard engine: 'windowed' fills the halos between "
-            "K1 launches over every shard, 8 steps a launch; 'mega' runs "
+            "K1 launches over every shard, K steps a launch (8, or "
+            "--pallas-steps-per-call 1..32; --pallas-block-rows pins its "
+            "row tile); 'mega' runs "
             "the whole step loop in one launch for all shards, with the "
             "halo exchange inside the kernel (K7; 1-D row meshes, or 8 "
-            "directions on --sharded-mesh-cols > 1). 'auto' (default) "
-            "follows a --autotune record for this configuration and falls "
-            "back to windowed",
+            "directions on --sharded-mesh-cols > 1; K = 8, its tiles pinned "
+            "by --pallas-block-rows and --pallas-block-cols). 'auto' "
+            "(default) follows a --autotune record for this configuration "
+            "and falls back to windowed",
         )
         parser.add_argument(
             "--sharded-devices", type=int,

@@ -17,11 +17,18 @@ never follows a float32 record, nor the reverse. Beside K1's default
 tiles (``WINDOWED_EXTRA``), and K4 at K = 16 and on 32-row tiles
 (``PACKED_EXTRA``: JAX's packed kernel takes a row tile and K, no column
 tile), the port's counterpart of JAX's ``(block_rows, steps_per_call)``
-candidates (``grayscott_tpu/bench/autotune.py:38-58``). A record carries
-the K it ran (``steps_per_call``) and the tile pins it ran
-(``block_rows``, ``block_cols``; None where the candidate left the tile
-to ``ops/geometry.py``'s default), which the backend adopts where the run
-does not pin them (``backends/cuda.py:CudaSimulation.plan_for``). A K or
+candidates (``grayscott_tpu/bench/autotune.py:38-58``), and K2 on half
+its row tile and on twice its column tile (``MEGA_EXTRA``: JAX's
+megakernel tile variants, ``:185-214``, mapped onto the port's 64x64
+tiles: the half row tile, and the double-width column tile where it is
+narrower than the domain; JAX's full-width form has no counterpart, a
+tile in shared memory cannot span a row, nor has its 1.3 row-halo bound,
+which measures full-width windows). A record carries the K it ran
+(``steps_per_call``) and the tile pins it ran (``block_rows``,
+``block_cols``; None where the candidate left the tile to
+``ops/geometry.py``'s default), which the backend adopts where the run
+does not pin them (``backends/cuda.py:CudaSimulation.plan_for``,
+``mega_plan_for``). A K or
 tile pin restricts the candidates to K1 under that pin, at K 8 and 16 and
 on the three tile shapes where unpinned, and keys the record on the pins
 (:func:`key_for`), so that a record measured under a pin steers only runs
@@ -73,6 +80,11 @@ WINDOWED_EXTRA = ({"engine": "windowed", "steps_per_call": 16},
                    "block_cols": 32})
 PACKED_EXTRA = ({"pack": "on", "engine": "windowed", "steps_per_call": 16},
                 {"pack": "on", "engine": "windowed", "block_rows": 32})
+#: K2's tile candidates beside its default 64x64 (JAX's megakernel tile
+#: variants, grayscott_tpu/bench/autotune.py:197-214): half the row tile,
+#: and twice the column tile (a multiple of 128, as JAX's pin rule asks)
+MEGA_EXTRA = ({"engine": "mega", "block_rows": 32},
+              {"engine": "mega", "block_cols": 128})
 #: under a K or tile pin: the depths and the tiles (block_rows, block_cols)
 #: of the candidates, where the pin leaves them open
 PINNED_KS = (8, 16)
@@ -108,13 +120,36 @@ def default_candidates(params: Parameters, boundary: str,
     if (steps_per_call, block_rows, block_cols) != (None, None, None):
         return pinned_candidates(shape, steps_per_call, block_rows,
                                  block_cols)
+    mega = mega_candidates(shape)
     if dtype != "float32":
-        return [dict(c) for c in (*UNPACKED, *WINDOWED_EXTRA)
+        return [dict(c) for c in (*UNPACKED, *WINDOWED_EXTRA, *mega)
                 if "engine" in c]
-    out = [dict(c) for c in (*UNPACKED, *WINDOWED_EXTRA)]
+    out = [dict(c) for c in (*UNPACKED, *WINDOWED_EXTRA, *mega)]
     if boundary == "zero" and dtype == "float32" and \
             params.separable_plan()[0] == "separable":
         out += [dict(c) for c in (*PACKED, *PACKED_EXTRA)]
+    return out
+
+
+def mega_candidates(shape=None) -> list[dict]:
+    """The entries of MEGA_EXTRA that differ from K2's default tiles on
+    ``shape`` and fit (``geometry.mega_resolve``): the half row tile where
+    the domain is taller than it, the double-width column tile where the
+    domain is wider than it (JAX: ``2 * tc < c``); both where ``shape`` is
+    None."""
+    out = []
+    for cfg in MEGA_EXTRA:
+        tr, tc = cfg.get("block_rows"), cfg.get("block_cols")
+        if shape is not None:
+            rows, cols = shape
+            if (tr is not None and tr >= rows) or \
+                    (tc is not None and tc >= cols):
+                continue
+            try:
+                geometry.mega_resolve(tuple(shape), tr, tc)
+            except UnsupportedConfigError:
+                continue
+        out.append(dict(cfg))
     return out
 
 
@@ -161,7 +196,7 @@ def measure_config(params: Parameters, shape, boundary: str,
     k = species.storage[-1][0] if engine == "windowed" else K
     tiles = ({"block_rows": config.get("block_rows"),
               "block_cols": config.get("block_cols")}
-             if engine == "windowed" else {})
+             if engine in ("windowed", "mega") else {})
     rec = {"engine": engine, "block_rows": None, "steps_per_call": k,
            "block_cols": None, "fold": 1, "pack": pack, **tiles}
     rec.update(_measure_rates(sim, species, shape, steps or STEPS, reps))
@@ -322,15 +357,15 @@ def lookup(params: Parameters, shape, boundary: str,
 
 # -- the sharded backend's tuner (grayscott_tpu/bench/autotune.py:556-818) --
 #
-# The candidates are every mesh worth measuring and, on each, the windowed
-# engine with overlap off, with overlap on where the split engages, and the
-# megakernel K7. JAX's K and row-tile candidates have no counterpart yet:
-# the sharded kernels run fixed tiles at K = 8 (ROADMAP.md Queue 2 item
-# 12), so records carry ``block_rows: None`` and ``steps_per_call: 8``.
-# ADVICE.md (round 5) found three faults in the JAX tuner, which the port does not
-# carry: the device time of a candidate is one CUDA-event interval around
-# the whole call on the one card, exchange and launches, never a sum over
-# shards (#1); a record's tile or K never transfers (#2:
+# The candidates are JAX's (``_sharded_candidates``, ``:604-665``): on
+# every mesh worth measuring, the windowed engine at K 16 and 8 with
+# overlap off, with overlap on on the row tile ``tr_ov`` that makes the
+# split engage, and at K = 16 on half the default row tile; and the
+# megakernel K7. A record carries the K and tiles it ran. ADVICE.md (round
+# 5) found three faults in the JAX tuner, which the port does not carry:
+# the device time of a candidate is one CUDA-event interval around the
+# whole call on the one card, exchange and launches, never a sum over
+# shards (#1); a record's tile never transfers to another K (#2:
 # ``ShardedSimulation._adopt_record``); and every pin reaches the
 # candidates and the key (#3).
 
@@ -340,11 +375,13 @@ def sharded_key(params: Parameters, shape, boundary: str,
                 mesh_cols: int | None = None, engine: str | None = None,
                 overlap: bool | None = None,
                 steps_per_call: int | None = None,
-                device: str | torch.device = "cuda") -> str:
+                device: str | torch.device = "cuda",
+                block_rows: int | None = None,
+                block_cols: int | None = None) -> str:
     """The store key of a sharded configuration: :func:`key_for`'s, then
     the shard count and every pin that restricts the candidates (mesh
-    columns, engine, overlap, K), so that a record measured under a pin
-    never steers a run without it, nor the other way round
+    columns, engine, overlap, K, tiles), so that a record measured under a
+    pin never steers a run without it, nor the other way round
     (``grayscott_tpu/bench/autotune.py:sharded_key``)."""
     key = f"{key_for(params, shape, boundary, dtype, device)}" \
         f"|sharded:n{n_devices}"
@@ -356,38 +393,89 @@ def sharded_key(params: Parameters, shape, boundary: str,
         key += f":ov-{'on' if overlap else 'off'}"
     if steps_per_call is not None:
         key += f":k{steps_per_call}"
+    if block_rows is not None:
+        key += f":tr{block_rows}"
+    if block_cols is not None:
+        key += f":tc{block_cols}"
     return key
+
+
+#: the sharded windowed engine's depths (JAX's ``for k in (16, 8)``)
+SHARDED_KS = (16, 8)
 
 
 def _sharded_candidates(shape, n: int, mesh_cols: int | None = None,
                         engine: str | None = None,
-                        overlap: bool | None = None) -> list[dict]:
-    """The candidates under the pins (``mesh_cols``, ``engine``,
-    ``overlap``; None is unpinned): on each viable mesh
-    (``halo.viable_mesh_cols``, else the 1-D one), windowed with overlap
-    off, windowed with overlap on where ``halo.overlap_engages`` (so that
-    an overlap candidate runs the split, not the serialized fallback under
-    its label), and the megakernel, which a pinned overlap on excludes."""
+                        overlap: bool | None = None,
+                        steps_per_call: int | None = None,
+                        block_rows: int | None = None,
+                        block_cols: int | None = None) -> list[dict]:
+    """JAX's ``_sharded_candidates`` under the pins (None is unpinned), on
+    each viable mesh (``halo.viable_mesh_cols``, else the 1-D one): the
+    windowed engine at each of SHARDED_KS (the pinned K alone) with overlap
+    off; with overlap on on JAX's row tile ``tr_ov = max(halo, r_loc // 3
+    // 8 * 8)`` where the port's split engages on it
+    (``halo.overlap_engages``, so that an overlap candidate runs the split,
+    not the serialized fallback under its label); at K = 16 with overlap
+    off on half the default row tile (``geometry.resolve``'s at K = 16);
+    and the megakernel, which a pinned overlap on, a pinned K other than 8
+    and a column pin on the windowed engine exclude. A row-tile pin
+    replaces the candidates' row tiles; a column pin runs K7 alone, which
+    takes it."""
     meshes = [mesh_cols] if mesh_cols else (
         halo.viable_mesh_cols(shape, n) or [1])
     engines = [engine] if engine in ("windowed", "mega") \
         else ["windowed", "mega"]
+    if block_cols is not None:
+        engines = [e for e in engines if e == "mega"]
+    if steps_per_call not in (None, K):
+        engines = [e for e in engines if e == "windowed"]
+    ks = (steps_per_call,) if steps_per_call is not None else SHARDED_KS
     out = []
+
+    def add(cfg):
+        if block_rows is not None and cfg["engine"] == "windowed":
+            cfg["block_rows"] = block_rows
+        if cfg not in out:
+            out.append(cfg)
+
     for nc in meshes:
         if n % nc:
             continue
         r_loc, c_loc = halo.shard_extents(shape,
                                           halo.Mesh(n // nc, nc, None))
         if "windowed" in engines:
-            if overlap is not True:
-                out.append(dict(engine="windowed", mesh_cols=nc,
-                                overlap=False))
-            if overlap is not False and halo.overlap_engages(r_loc, c_loc,
-                                                             nc):
-                out.append(dict(engine="windowed", mesh_cols=nc,
-                                overlap=True))
+            for k in ks:
+                base = dict(engine="windowed", mesh_cols=nc,
+                            steps_per_call=k)
+                h = geometry.halo_for_steps(k)
+                if overlap is not True:
+                    add(dict(base, overlap=False))
+                if overlap is not False:
+                    # JAX's r_loc here is the unpadded ceil(R / n_rows)
+                    tr_ov = block_rows or max(
+                        h, -(-shape[0] // (n // nc)) // 3 // 8 * 8)
+                    try:
+                        g = geometry.resolve((r_loc, c_loc), k, tr_ov)
+                    except UnsupportedConfigError:
+                        g = None
+                    if g and halo.overlap_engages(r_loc, c_loc, nc,
+                                                  (g.tr, g.tc), g.halo):
+                        add(dict(base, overlap=True, block_rows=tr_ov))
+                if k == 16 and overlap is not True and block_rows is None:
+                    try:
+                        tr0 = geometry.resolve((r_loc, c_loc), k).tr
+                    except UnsupportedConfigError:
+                        continue
+                    half = max(8, tr0 // 2 // 8 * 8)
+                    if half < tr0:
+                        add(dict(base, overlap=False, block_rows=half))
         if "mega" in engines and overlap is not True:
-            out.append(dict(engine="mega", mesh_cols=nc))
+            cfg = dict(engine="mega", mesh_cols=nc)
+            cfg.update({name: value for name, value in (
+                ("block_rows", block_rows), ("block_cols", block_cols))
+                if value is not None})
+            add(cfg)
     return out
 
 
@@ -397,20 +485,23 @@ def measure_sharded_config(params: Parameters, shape, boundary: str,
                            device: str | torch.device = "cuda",
                            n_devices: int | None = None, **config) -> dict:
     """One sharded candidate (``config``: the backend's ``engine``,
-    ``mesh_cols``, ``overlap`` and ``steps_per_call`` pins) with the
-    autotune store ignored: what actually ran (the engine, the mesh, and
-    overlap only where the split engaged), in the record schema, and its
-    rates, each one interval around the whole call (:func:`_measure_rates`:
-    the exchange and every launch, on the one card)."""
+    ``mesh_cols``, ``overlap``, ``steps_per_call``, ``block_rows`` and
+    ``block_cols`` pins) with the autotune store ignored: what actually ran
+    (the engine, the mesh, its K and tile pins, and overlap only where the
+    split engaged), in the record schema, and its rates, each one interval
+    around the whole call (:func:`_measure_rates`: the exchange and every
+    launch, on the one card)."""
     global measurements
     sim = ShardedSimulation(params, boundary, device=device, dtype=dtype,
                             n_devices=n_devices, tuned_lookup=False,
                             **config)
     species = sim.make_species(tuple(shape))
     measurements += 1
+    mega = sim.engine == "mega"
     rec = {"engine": sim.engine, "mesh_cols": sim.mesh.n_cols,
-           "mesh_rows": sim.mesh.n_rows, "block_rows": None,
-           "block_cols": None, "steps_per_call": K,
+           "mesh_rows": sim.mesh.n_rows, "block_rows": sim.tile_rows,
+           "block_cols": sim.tile_cols if mega else None,
+           "steps_per_call": K if mega else sim.steps_per_call,
            "overlap": sim.overlap_runs(shape)}
     rec.update(_measure_rates(sim, species, shape, steps or STEPS, reps))
     return rec
@@ -427,11 +518,13 @@ def sharded_autotune(params: Parameters, shape, boundary: str = "naive",
                      candidates: Iterable[Mapping] | None = None,
                      persist: bool = True, verbose: bool = False,
                      reps: int = 3, steps: int | None = None,
-                     device: str | torch.device = "cuda") -> dict:
+                     device: str | torch.device = "cuda",
+                     block_rows: int | None = None,
+                     block_cols: int | None = None) -> dict:
     """The best sharded candidate under the pins: the store's record when
     it holds one for the key (nothing is measured), else every candidate
-    (:func:`_sharded_candidates`) measured with every pin (``dtype`` and
-    ``steps_per_call`` too), the first two again when within RECHECK, and
+    (:func:`_sharded_candidates`) measured with every pin (``dtype`` too),
+    the first two again when within RECHECK, and
     the winner persisted with the whole ``candidates`` table. ``"auto"``
     pins are unpinned; ``overlap`` takes ``"on"``/``"off"`` or a bool."""
     n = n_devices or halo.visible_cards(torch.device(device))
@@ -439,28 +532,40 @@ def sharded_autotune(params: Parameters, shape, boundary: str = "naive",
     if isinstance(overlap, str):
         overlap = {"on": True, "off": False}.get(overlap)
     key = sharded_key(params, shape, boundary, dtype, n, mesh_cols, engine,
-                      overlap, steps_per_call, device)
+                      overlap, steps_per_call, device, block_rows,
+                      block_cols)
     store = cache.load_autotune()
     if key in store:
         return store[key]
     configs = [dict(c) for c in (
         candidates if candidates is not None else _sharded_candidates(
-            shape, n, mesh_cols, engine, overlap))]
+            shape, n, mesh_cols, engine, overlap, steps_per_call,
+            block_rows, block_cols))]
     if not configs:
         raise UnsupportedConfigError(
             f"no sharded autotune candidate runs the pins (mesh_cols="
-            f"{mesh_cols}, engine={engine}, overlap={overlap}) on "
-            f"{shape[0]}x{shape[1]} in {n} shards; drop a pin or run "
-            "without --autotune", combo="autotune")
+            f"{mesh_cols}, engine={engine}, overlap={overlap}, "
+            f"steps_per_call={steps_per_call}, block_rows={block_rows}, "
+            f"block_cols={block_cols}) on {shape[0]}x{shape[1]} in {n} "
+            "shards; drop a pin or run without --autotune",
+            combo="autotune")
 
     def measure(cfg):
+        cfg = dict(cfg)
+        # the pins ride every candidate (a candidate's own K and tiles are
+        # those of the pins where pinned)
+        for name, value in (("steps_per_call", steps_per_call),
+                            ("block_rows", block_rows),
+                            ("block_cols", block_cols)):
+            if value is not None:
+                cfg[name] = value
         return measure_sharded_config(params, shape, boundary, steps, dtype,
-                                      reps, device, n_devices=n,
-                                      steps_per_call=steps_per_call, **cfg)
+                                      reps, device, n_devices=n, **cfg)
 
     return _tune(key, configs, measure, persist, verbose, lambda res: (
         f"{res['engine']} mesh {res['mesh_rows']}x{res['mesh_cols']} "
-        f"overlap {res['overlap']}"))
+        f"K={res['steps_per_call']} tiles {res['block_rows']}x"
+        f"{res['block_cols']} overlap {res['overlap']}"))
 
 
 def sharded_lookup(params: Parameters, shape, boundary: str,
@@ -468,14 +573,17 @@ def sharded_lookup(params: Parameters, shape, boundary: str,
                    mesh_cols: int | None = None, engine: str | None = None,
                    overlap: bool | None = None,
                    steps_per_call: int | None = None,
-                   device: str | torch.device = "cuda") -> dict | None:
+                   device: str | torch.device = "cuda",
+                   block_rows: int | None = None,
+                   block_cols: int | None = None) -> dict | None:
     """The best known sharded record of the configuration and pins on
     ``device``: the local store first, then the records this package
     ships for the card (``bench/defaults.py``); None when neither has
     one."""
     n = n_devices or halo.visible_cards(torch.device(device))
     key = sharded_key(params, shape, boundary, dtype, n, mesh_cols,
-                      _pin(engine), overlap, steps_per_call, device)
+                      _pin(engine), overlap, steps_per_call, device,
+                      block_rows, block_cols)
     rec = cache.load_autotune().get(key)
     if rec is not None:
         return rec

@@ -24,11 +24,12 @@ mega; ``sharded``: the windowed engine or the megakernel K7, one shard a
 visible card). ``--dtype bfloat16`` runs ``cuda`` and ``sharded`` on bf16
 storage; another backend prints a note and runs float32, as JAX's harness
 does. ``--block-rows`` and ``--steps-per-call`` pin K1's (and K4's) tile
-height and depth on ``cuda`` (``ops/geometry.py``), as JAX's harness pins
-its Pallas kernel's (``grayscott_tpu/bench/harness.py:242-245``,
-``:286-296``): every backend swept gets them, the plain rungs ignore them,
-and the sharded backend refuses them (ROADMAP.md Queue 2 item 12). Every
-run is on the card unless ``--device cpu`` is given.
+height and depth on ``cuda`` (``ops/geometry.py``; with ``--engine mega``
+the megakernels' row tile, and K 8 alone), as JAX's harness pins its Pallas
+kernel's (``grayscott_tpu/bench/harness.py:242-245``, ``:286-296``): every
+backend swept gets them, the plain rungs ignore them, and the sharded
+backend runs them (the windowed engine's K and row tile, K7's row tile).
+Every run is on the card unless ``--device cpu`` is given.
 ``--report SWEEP_JSON`` renders a sweep instead of measuring
 (``bench/report.py``; ``--format markdown|html|svg``), against
 ``--baseline SWEEP_JSON`` when given; ``--gate`` then exits 1 on any
@@ -246,10 +247,12 @@ def main(argv=None) -> int:
                         "storage)")
     parser.add_argument("--block-rows", type=int, default=None,
                         help="pin the row-tile size (cuda: the height of "
-                        "K1's and K4's tiles)")
+                        "K1's and K4's tiles, or K2's and K6's with --engine "
+                        "mega; sharded: the windowed engine's and K7's)")
     parser.add_argument("--steps-per-call", type=int, default=None,
                         help="pin the temporal-blocking depth (cuda: K "
-                        "steps a launch of K1 and K4, 1..32)")
+                        "steps a launch of K1 and K4, 1..32; sharded: of "
+                        "the windowed engine)")
     args = parser.parse_args(argv)
     if args.report:
         return _report(args)

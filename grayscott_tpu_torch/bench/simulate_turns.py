@@ -9,16 +9,18 @@ this file lies in), so an older commit unpacked beside this one is timed by
 the same code. Run it as a file, not with ``-m``, and alternate the trees
 (parent, change, change, parent), one process each.
 
-For each pin (``auto`` and ``--pallas-engine windowed``) it runs
-``cli.simulate.run`` of the default run (1080x1920, naive, 32 steps an
+For each pin (``auto``, ``--pallas-engine windowed``,
+``--pallas-engine mega`` and the sharded windowed engine on a 2x2 mesh at
+K = 8) it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32 steps an
 image) for ``--images`` images, once to warm up, then ``--reps`` times in
 turns (the pins in order, then reversed), each on the host clock and ending
 in a device synchronise, as ``chip_smoke.py``'s phase 4 times it: frames
 kept in memory, PyTorch's pinned-memory cache filled first. Then it times
 the kernels alone with CUDA events, each 32 steps on a random state at
 1080x1920: K1 (four 8-step launches), K3 (one launch), K2 and K6 (one
-launch of 4 time blocks; also at 4096x4096) and K7 on 2x2 and 4x1 (one
-launch after the halo exchange), through calls that every commit since
+launch of 4 time blocks; also at 4096x4096), K7 on 2x2 and 4x1 (one
+launch after the halo exchange) and K1's shard entry on the same meshes
+(four 8-step launches after the halo exchange), through calls that every commit since
 the sharded megakernel takes, so that the double buffer and the entry
 gate of a parent are timed against a change. Prints one JSON line: ms an
 image per run and pin with their median, the kernels' ms, and the card's
@@ -35,7 +37,11 @@ import sys
 import time
 
 #: the pins timed, as ``simulate`` flags
-PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"]}
+PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"],
+        "mega": ["--pallas-engine", "mega"],
+        "sharded windowed": ["--backend", "sharded", "--sharded-devices", "4",
+                             "--sharded-mesh-cols", "2",
+                             "--sharded-engine", "windowed"]}
 
 
 def run_ms(flags: list, images: int, steps: int = 32,
@@ -142,6 +148,16 @@ def main(argv=None) -> int:
                                           (1080, 1920))
 
         calls.append((f"K7 {n_rows}x{n_cols}", f7, 40))
+        pairs1 = halo.mega_shard_state(u_np, v_np, mesh)
+        for p in pairs1:
+            halo.exchange_halos(p)
+
+        def f1s(pairs=pairs1, mesh=mesh):
+            for _ in range(4):
+                windowed.shard_multistep(*pairs, mesh, 0, 8, consts, "naive",
+                                         (1080, 1920))
+
+        calls.append((f"K1 shard {n_rows}x{n_cols}", f1s, 40))
     kernels = {name: gpu.time_call(fn, "cuda", reps) * 1e3
                for name, fn, reps in calls}
     print(json.dumps({

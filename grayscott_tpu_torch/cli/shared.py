@@ -164,7 +164,9 @@ def make_simulation(ns: argparse.Namespace):
             dtype=sim.dtype, n_devices=kwargs["n_devices"],
             mesh_cols=kwargs["mesh_cols"], engine=kwargs["engine"],
             overlap=kwargs["overlap"],
-            steps_per_call=kwargs["steps_per_call"], device=ns.device)
+            steps_per_call=kwargs["steps_per_call"],
+            block_rows=kwargs["block_rows"],
+            block_cols=kwargs["block_cols"], device=ns.device)
     return sim
 
 

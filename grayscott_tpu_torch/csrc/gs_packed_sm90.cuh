@@ -187,9 +187,10 @@ __device__ __forceinline__ void packed_window_multistep(
   }
 }
 
-// One time block of K6: time_block's walk (gs_tile_sm90.cuh) on the packed
-// state. The block advances tiles first, first + stride, ... (< n_tiles) of
-// a grid tiles_x tiles wide by `steps` (1..HALO) steps from x into x_out
+// One time block of K6 on the tiles of g (FixedShape of a compiled
+// geometry, or the PinGeometry of the row-tile pin): time_block's walk
+// (gs_tile_sm90.cuh) on the packed state. The block advances tiles first, first + stride, ... (< n_tiles) of
+// a grid tiles_x tiles wide by `steps` (1..g.halo) steps from x into x_out
 // (both rows x 2*cols), through two window buffers at `base` (dynamic
 // shared memory). Reads are coherent (the state was written by other
 // blocks before the caller's barrier). A copy of time_block, not a step
@@ -202,19 +203,18 @@ __device__ __forceinline__ void packed_window_multistep(
 // call begins, so no load crosses the caller's barrier. Returns after a
 // __syncthreads() unless PREFETCH, whose buffers are free once every thread
 // is past the caller's next barrier.
-template <typename G, bool SPECIALIZE, bool PREFETCH>
-__device__ __forceinline__ void packed_time_block(
-    const float* x, float* x_out, int first, int stride, int n_tiles,
-    int tiles_x, int rows, int cols, int steps, const PackedConstants& k,
-    bool aligned, float* base) {
+template <bool SPECIALIZE, bool PREFETCH, typename S>
+__device__ __forceinline__ void packed_time_block_on(
+    const S& g, const float* x, float* x_out, int first, int stride,
+    int n_tiles, int tiles_x, int rows, int cols, int steps,
+    const PackedConstants& k, bool aligned, float* base) {
   const FlatLayout mem{2 * cols};
   auto load = [&](int i, int b) {
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
-    float* su = base + 2 * b * G::CELLS;
-    load_window<G::NT, true>(mem, x, x + cols, su, su + G::CELLS,
-                             Fixed<G::WR>{}, Fixed<G::WC>{},
-                             ti * G::TR - HALO, tj * G::TC - HALO, rows,
-                             cols, aligned);
+    float* su = base + 2 * b * g.cells;
+    load_window<S::NT, true>(mem, x, x + cols, su, su + g.cells, g.wr,
+                             g.pitch, ti * g.tr - g.halo,
+                             tj * g.tc - g.halo, rows, cols, aligned);
     cp_async_commit();
   };
   int i = first;
@@ -226,22 +226,22 @@ __device__ __forceinline__ void packed_time_block(
     cp_async_wait<0>();
     __syncthreads();  // the window of tile i is in place
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
-    const int r0 = ti * G::TR - HALO, c0 = tj * G::TC - HALO;
+    const int r0 = ti * g.tr - g.halo, c0 = tj * g.tc - g.halo;
     const bool interior =
-        SPECIALIZE && window_inside(FixedShape<G>{}, r0, c0, rows, cols);
+        SPECIALIZE && window_inside(g, r0, c0, rows, cols);
     // `steps` steps between buffer `done` and `other`; the result in `done`
     int done = win, other = (win + 1) % 2;
     for (int st = 0; st < steps; ++st) {
-      const float* in_u = base + 2 * done * G::CELLS;
-      float* out_u = base + 2 * other * G::CELLS;
+      const float* in_u = base + 2 * done * g.cells;
+      float* out_u = base + 2 * other * g.cells;
       if (interior) {
-        step_packed_window<true>(FixedShape<G>{}, in_u, in_u + G::CELLS,
-                                 out_u, out_u + G::CELLS, st + 1, r0, c0,
-                                 rows, cols, k);
+        step_packed_window<true>(g, in_u, in_u + g.cells, out_u,
+                                 out_u + g.cells, st + 1, r0, c0, rows, cols,
+                                 k);
       } else {
-        step_packed_window<false>(FixedShape<G>{}, in_u, in_u + G::CELLS,
-                                  out_u, out_u + G::CELLS, st + 1, r0, c0,
-                                  rows, cols, k);
+        step_packed_window<false>(g, in_u, in_u + g.cells, out_u,
+                                  out_u + g.cells, st + 1, r0, c0, rows,
+                                  cols, k);
       }
       __syncthreads();
       const int t = done;
@@ -249,15 +249,15 @@ __device__ __forceinline__ void packed_time_block(
       other = t;
     }
     if (PREFETCH && next < n_tiles) load(next, done ^ 1);
-    const float* fu = base + 2 * done * G::CELLS;
-    const float* fv = fu + G::CELLS;
-    for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
-      const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
+    const float* fu = base + 2 * done * g.cells;
+    const float* fv = fu + g.cells;
+    for (int idx = threadIdx.x; idx < g.tr * g.tc; idx += S::NT) {
+      const int lr = g.halo + idx / g.tc, lc = g.halo + idx % g.tc;
       const int gr = r0 + lr, gc = c0 + lc;
       if (gr < rows && gc < cols) {
-        const size_t g = mem.at(gr, gc);
-        x_out[g] = fu[lr * G::WC + lc];
-        x_out[g + cols] = fv[lr * G::WC + lc];
+        const size_t at = mem.at(gr, gc);
+        x_out[at] = fu[lr * g.pitch + lc];
+        x_out[at + cols] = fv[lr * g.pitch + lc];
       }
     }
     if (PREFETCH) {
@@ -269,8 +269,52 @@ __device__ __forceinline__ void packed_time_block(
   }
 }
 
-// Whether a packed pair of buffers (rows x 2*cols each) may load with
-// 16-byte copies: U's and V's rows of both 16-byte aligned.
+// packed_time_block_on on the compiled geometry G.
+template <typename G, bool SPECIALIZE, bool PREFETCH>
+__device__ __forceinline__ void packed_time_block(
+    const float* x, float* x_out, int first, int stride, int n_tiles,
+    int tiles_x, int rows, int cols, int steps, const PackedConstants& k,
+    bool aligned, float* base) {
+  packed_time_block_on<SPECIALIZE, PREFETCH>(FixedShape<G>{}, x, x_out,
+                                             first, stride, n_tiles, tiles_x,
+                                             rows, cols, steps, k, aligned,
+                                             base);
+}
+
+// The slot copy of K6 after an odd number of time blocks: slot 1 to slot 0
+// of the pair (`plane` floats a slot), by the whole grid of blocks of
+// `threads` threads; `tid` is the thread's flat index in its block.
+__device__ __forceinline__ void packed_copy_slot(float* x_pair, size_t plane,
+                                                 int threads, int tid) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * threads;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * threads + tid;
+       i < plane; i += stride) {
+    x_pair[i] = __ldcg(x_pair + plane + i);
+  }
+}
+
+// One launch of K6 on the tiles of g (FixedShape<Main> in packed_mega.cu,
+// the PinGeometry of the row-tile pin in mega_pins.cu): `n_blocks` time
+// blocks of packed_time_block_on, slot t % 2 into slot 1 - t % 2, a grid
+// barrier after each, and the slot copy after an odd count.
+template <bool SPECIALIZE, bool PREFETCH, typename S>
+__device__ __forceinline__ void packed_mega_run(
+    const S& g, float* x_pair, int rows, int cols, int n_blocks, int steps,
+    const PackedConstants& k, int aligned, unsigned long long* barrier,
+    float* base) {
+  const size_t plane = static_cast<size_t>(rows) * 2 * cols;
+  const int tiles_x = (cols + g.tc - 1) / g.tc;
+  const int n_tiles = tiles_x * ((rows + g.tr - 1) / g.tr);
+  for (int t = 0; t < n_blocks; ++t) {
+    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
+    packed_time_block_on<SPECIALIZE, PREFETCH>(
+        g, x_pair + src, x_pair + dst, blockIdx.x, gridDim.x, n_tiles,
+        tiles_x, rows, cols, steps, k, aligned, base);
+    if (t + 1 < n_blocks || (n_blocks & 1)) grid_barrier(barrier, t + 1);
+  }
+  if (n_blocks & 1) packed_copy_slot(x_pair, plane, S::NT, threadIdx.x);
+}
+
 inline bool packed_aligned(int cols, const float* a, const float* b) {
   return rows_aligned(cols, a, a + cols, b, b + cols);
 }

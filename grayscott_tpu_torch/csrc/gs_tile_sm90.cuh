@@ -810,41 +810,43 @@ __device__ __forceinline__ void store_window(const S& g, const Layout& mem,
 
 // A megakernel's per-tile work, which both walks of a time block
 // (time_block's double buffer, ring_walk's ring) run on window buffers at
-// `base` (each 2 * G::CELLS floats: U then V), for the tile whose window
-// starts at global (r0, c0), the halo included.
+// `base` (each 2 * g.cells floats: U then V) of the geometry g (FixedShape
+// of a compiled one, or PinGeometry), for the tile whose window starts at
+// global (r0, c0), the halo included.
 
 // Start loading the tile's window into buffer b, committed as one cp.async
 // group (through registers where the storage is narrower than float).
-template <typename G, typename Layout, typename T>
-__device__ __forceinline__ void window_load(const Layout& mem, const T* u,
-                                            const T* v, float* base, int b,
-                                            int r0, int c0, int rows,
-                                            int cols, bool aligned) {
-  float* su = base + 2 * b * G::CELLS;
-  load_window<G::NT, true>(mem, u, v, su, su + G::CELLS, Fixed<G::WR>{},
-                           Fixed<G::WC>{}, r0, c0, rows, cols, aligned);
+template <typename S, typename Layout, typename T>
+__device__ __forceinline__ void window_load(const S& g, const Layout& mem,
+                                            const T* u, const T* v,
+                                            float* base, int b, int r0,
+                                            int c0, int rows, int cols,
+                                            bool aligned) {
+  float* su = base + 2 * b * g.cells;
+  load_window<S::NT, true>(mem, u, v, su, su + g.cells, g.wr, g.pitch, r0,
+                           c0, rows, cols, aligned);
   cp_async_commit();
 }
 
 // The tile's `steps` steps between buffer `done` (its window) and `other`,
 // each followed by a __syncthreads(); `interior`: its window lies in the
 // domain (no boundary selects). Returns the buffer that holds the result.
-template <typename G, int TAPS, int MODE, typename K>
-__device__ __forceinline__ int window_steps(float* base, int done, int other,
-                                            int steps, bool interior, int r0,
-                                            int c0, int rows, int cols,
-                                            const K& k) {
+template <int TAPS, int MODE, typename S, typename K>
+__device__ __forceinline__ int window_steps(const S& g, float* base,
+                                            int done, int other, int steps,
+                                            bool interior, int r0, int c0,
+                                            int rows, int cols, const K& k) {
   for (int st = 0; st < steps; ++st) {
-    const float* in_u = base + 2 * done * G::CELLS;
-    float* out_u = base + 2 * other * G::CELLS;
+    const float* in_u = base + 2 * done * g.cells;
+    float* out_u = base + 2 * other * g.cells;
     if (interior) {
-      step_window<TAPS, MODE, true>(FixedShape<G>{}, in_u, in_u + G::CELLS,
-                                    out_u, out_u + G::CELLS, st + 1, r0, c0,
-                                    rows, cols, k);
+      step_window<TAPS, MODE, true>(g, in_u, in_u + g.cells, out_u,
+                                    out_u + g.cells, st + 1, r0, c0, rows,
+                                    cols, k);
     } else {
-      step_window<TAPS, MODE, false>(FixedShape<G>{}, in_u, in_u + G::CELLS,
-                                     out_u, out_u + G::CELLS, st + 1, r0, c0,
-                                     rows, cols, k);
+      step_window<TAPS, MODE, false>(g, in_u, in_u + g.cells, out_u,
+                                     out_u + g.cells, st + 1, r0, c0, rows,
+                                     cols, k);
     }
     __syncthreads();
     const int t = done;
@@ -856,14 +858,14 @@ __device__ __forceinline__ int window_steps(float* base, int done, int other,
 
 // Write the tile out from buffer b: the cells in the domain that `mem`
 // stores.
-template <typename G, typename Layout, typename T>
-__device__ __forceinline__ void window_store(const Layout& mem, T* u_out,
-                                             T* v_out, const float* base,
-                                             int b, int r0, int c0, int rows,
+template <typename S, typename Layout, typename T>
+__device__ __forceinline__ void window_store(const S& g, const Layout& mem,
+                                             T* u_out, T* v_out,
+                                             const float* base, int b,
+                                             int r0, int c0, int rows,
                                              int cols) {
-  const float* fu = base + 2 * b * G::CELLS;
-  store_window(FixedShape<G>{}, mem, u_out, v_out, fu, fu + G::CELLS, r0, c0,
-               rows, cols);
+  const float* fu = base + 2 * b * g.cells;
+  store_window(g, mem, u_out, v_out, fu, fu + g.cells, r0, c0, rows, cols);
 }
 
 // One block of K1 (windowed.cu, and its pinned entries in windowed_pins.cu):
@@ -911,18 +913,107 @@ __device__ __forceinline__ void window_multistep(const S& g, const T* u,
   store_window(g, mem, u_out, v_out, fu, fu + g.cells, r0, c0, rows, cols);
 }
 
+// The shards of a launch of K1's shard entry (windowed.cu, and its pinned
+// twin in windowed_pins.cu): the pairs' geometry, the source slot, and the
+// tiles of the part (windowed.cu's note).
+template <typename T>
+struct Shards {
+  T *u_pairs, *v_pairs;
+  int n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1, tj0, tj1;
+};
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+// One block of K1's shard entry: tile (blockIdx.y, blockIdx.x) of g (of
+// the part's rectangle when part is 1) of shard blockIdx.z, advanced by
+// `steps` (1..g.halo) steps from slot s.src into the interior of slot
+// 1 - s.src. The pairs hold g.halo rows (and s.chalo columns) of the
+// neighbours' cells around each interior: the layout's halo is the
+// window's.
+template <int TAPS, int MODE, typename S, typename T>
+__device__ __forceinline__ void shard_window_multistep(
+    const S& g, const Shards<T>& s, int rows, int cols, int steps,
+    const Constants& k, float* base) {
+  const int inner = s.part == 1;
+  const int ti = blockIdx.y + (inner ? s.ti0 : 0);
+  const int tj = blockIdx.x + (inner ? s.tj0 : 0);
+  if (s.part == 2 && ti >= s.ti0 && ti < s.ti1 && tj >= s.tj0 &&
+      tj < s.tj1) {
+    return;  // an overlap-interior tile: part 1's
+  }
+  const int sh = blockIdx.z;
+  const size_t pitch = static_cast<size_t>(s.c_loc) + 2 * s.chalo;
+  const size_t plane = (static_cast<size_t>(s.r_loc) + 2 * g.halo) * pitch;
+  const ShardLayout mem = {(sh / s.n_cols) * s.r_loc,
+                           (sh % s.n_cols) * s.c_loc,
+                           s.r_loc,
+                           s.c_loc,
+                           g.halo,
+                           s.chalo,
+                           pitch};
+  const T* u = s.u_pairs + (2 * sh + s.src) * plane;
+  const T* v = s.v_pairs + (2 * sh + s.src) * plane;
+  T* u_out = s.u_pairs + (2 * sh + 1 - s.src) * plane;
+  T* v_out = s.v_pairs + (2 * sh + 1 - s.src) * plane;
+  const bool aligned = pitch % vec_cells<T>() == 0 && aligned16(u) &&
+                       aligned16(v) && aligned16(u_out) && aligned16(v_out);
+  const int r0 = mem.row0 + ti * g.tr - g.halo;
+  const int c0 = mem.col0 + tj * g.tc - g.halo;
+
+  load_window<S::NT, true>(mem, u, v, base, base + g.cells, g.wr, g.pitch,
+                           r0, c0, rows, cols, aligned);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bool interior = window_inside(g, r0, c0, rows, cols);
+  int cur = 0;
+  for (int st = 0; st < steps; ++st) {
+    const float* in_u = base + 2 * cur * g.cells;
+    float* out_u = base + 2 * (cur ^ 1) * g.cells;
+    if (interior) {
+      step_window<TAPS, MODE, true>(g, in_u, in_u + g.cells, out_u,
+                                    out_u + g.cells, st + 1, r0, c0, rows,
+                                    cols, k);
+    } else {
+      step_window<TAPS, MODE, false>(g, in_u, in_u + g.cells, out_u,
+                                     out_u + g.cells, st + 1, r0, c0, rows,
+                                     cols, k);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  const float* fu = base + 2 * cur * g.cells;
+  const float* fv = fu + g.cells;
+  for (int idx = threadIdx.x; idx < g.tr * g.tc; idx += S::NT) {
+    const int lr = g.halo + idx / g.tc, lc = g.halo + idx % g.tc;
+    const int gr = r0 + lr, gc = c0 + lc;
+    if (mem.stores(gr, gc)) {
+      const size_t at = mem.at(gr, gc);
+      const bool in = gr < rows && gc < cols;
+      u_out[at] = narrow<T>(in ? fu[lr * g.pitch + lc] : 0.0f);
+      v_out[at] = narrow<T>(in ? fv[lr * g.pitch + lc] : 0.0f);
+    }
+  }
+}
+
 // time_block's default gate: loads wait for nothing.
 struct NoGate {
   __device__ __forceinline__ void operator()(int, int) const {}
 };
 
-// One time block of a megakernel (K2, K7): the block advances tiles first,
-// first + stride, ... (< n_tiles) of a grid tiles_x tiles wide, whose tile
-// (0, 0) starts at global (row0, col0), by `steps` (1..HALO) steps from
-// (u, v) into (u_out, v_out), both laid out as `mem` says, through two
-// window buffers at `base` (dynamic shared memory). Reads are coherent (the
-// state was written by other blocks before the caller's barrier); only the
-// cells in the domain that `mem` stores are written.
+// One time block of a megakernel (K2, K7) on the tiles of g (FixedShape of
+// a compiled geometry, or the PinGeometry of the megakernels' tile pins):
+// the block advances tiles first, first + stride, ... (< n_tiles) of a grid
+// tiles_x tiles wide, whose tile (0, 0) starts at global (row0, col0), by
+// `steps` (1..g.halo) steps from (u, v) into (u_out, v_out), both laid out
+// as `mem` says, through two window buffers at `base` (dynamic shared
+// memory). Reads are coherent (the state was written by other blocks
+// before the caller's barrier); only the cells in the domain that `mem`
+// stores are written.
 //
 // PREFETCH: once a tile's last step is done the buffer that held that step's
 // input is free, and the next tile's window starts loading into it before
@@ -931,18 +1022,18 @@ struct NoGate {
 // __syncthreads() unless PREFETCH, whose buffers are free once every thread
 // is past the caller's next barrier. gate(i, stride) runs before each
 // window load, block-wide (K7's read-site wait; NoGate elsewhere).
-template <typename G, int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH,
+template <int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH, typename S,
           typename Layout, typename T, typename K, typename Gate = NoGate>
-__device__ __forceinline__ void time_block(
-    const Layout& mem, const T* u, const T* v, T* u_out,
+__device__ __forceinline__ void time_block_on(
+    const S& g, const Layout& mem, const T* u, const T* v, T* u_out,
     T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
-    int col0, int rows, int cols, int steps, const K& k,
-    bool aligned, float* base, const Gate& gate = Gate()) {
+    int col0, int rows, int cols, int steps, const K& k, bool aligned,
+    float* base, const Gate& gate = Gate()) {
   auto load = [&](int i, int b) {
     gate(i, stride);
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
-    window_load<G>(mem, u, v, base, b, row0 + ti * G::TR - HALO,
-                   col0 + tj * G::TC - HALO, rows, cols, aligned);
+    window_load(g, mem, u, v, base, b, row0 + ti * g.tr - g.halo,
+                col0 + tj * g.tc - g.halo, rows, cols, aligned);
   };
   int i = first;
   int win = 0;  // the buffer that holds (or receives) the tile's window
@@ -953,13 +1044,14 @@ __device__ __forceinline__ void time_block(
     cp_async_wait<0>();
     __syncthreads();  // the window of tile i is in place
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
-    const int r0 = row0 + ti * G::TR - HALO, c0 = col0 + tj * G::TC - HALO;
+    const int r0 = row0 + ti * g.tr - g.halo;
+    const int c0 = col0 + tj * g.tc - g.halo;
     const bool interior =
-        SPECIALIZE && window_inside(FixedShape<G>{}, r0, c0, rows, cols);
-    const int done = window_steps<G, TAPS, MODE>(
-        base, win, (win + 1) % 2, steps, interior, r0, c0, rows, cols, k);
+        SPECIALIZE && window_inside(g, r0, c0, rows, cols);
+    const int done = window_steps<TAPS, MODE>(
+        g, base, win, (win + 1) % 2, steps, interior, r0, c0, rows, cols, k);
     if (PREFETCH && next < n_tiles) load(next, done ^ 1);
-    window_store<G>(mem, u_out, v_out, base, done, r0, c0, rows, cols);
+    window_store(g, mem, u_out, v_out, base, done, r0, c0, rows, cols);
     if (PREFETCH) {
       win = done ^ 1;
     } else {
@@ -967,6 +1059,19 @@ __device__ __forceinline__ void time_block(
     }
     i = next;
   }
+}
+
+// time_block_on on the compiled geometry G.
+template <typename G, int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH,
+          typename Layout, typename T, typename K, typename Gate = NoGate>
+__device__ __forceinline__ void time_block(
+    const Layout& mem, const T* u, const T* v, T* u_out,
+    T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
+    int col0, int rows, int cols, int steps, const K& k,
+    bool aligned, float* base, const Gate& gate = Gate()) {
+  time_block_on<TAPS, MODE, SPECIALIZE, PREFETCH>(
+      FixedShape<G>{}, mem, u, v, u_out, v_out, first, stride, n_tiles,
+      tiles_x, row0, col0, rows, cols, steps, k, aligned, base, gate);
 }
 
 // --- the window ring (mega_depth; K2) --------------------------------------
@@ -1074,20 +1179,22 @@ __device__ __forceinline__ void ring_time_block(
   auto load = [&](int i, int b) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_load<G>(mem, u, v, base, b, r0, c0, rows, cols, aligned);
+    window_load(FixedShape<G>{}, mem, u, v, base, b, r0, c0, rows, cols,
+                aligned);
   };
   auto run = [&](int i, int b, int s) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_steps<G, TAPS, MODE>(base, b, s, steps,
-                                window_inside(FixedShape<G>{}, r0, c0, rows,
-                                              cols),
-                                r0, c0, rows, cols, k);
+    window_steps<TAPS, MODE>(FixedShape<G>{}, base, b, s, steps,
+                             window_inside(FixedShape<G>{}, r0, c0, rows,
+                                           cols),
+                             r0, c0, rows, cols, k);
   };
   auto store = [&](int i, int b) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_store<G>(mem, u_out, v_out, base, b, r0, c0, rows, cols);
+    window_store(FixedShape<G>{}, mem, u_out, v_out, base, b, r0, c0, rows,
+                 cols);
   };
   ring_walk(first, stride, n_tiles, steps, nbuf, load, run, store);
 }
@@ -1135,6 +1242,31 @@ inline bool pin_ok(int tr, int tc, int halo, int steps) {
     return false;
   }
   return pin_bytes(pin_geometry(tr, tc, halo)) <= SMEM_OPTIN;
+}
+
+// The co-resident blocks of a persistent `kernel` (the pinned megakernels:
+// mega_pins.cu, sharded_mega_pins.cu) on `device` at g's dynamic shared
+// memory, after allowing the kernel the most a block may use (once per
+// device: `allowed`, one flag a device for each kernel).
+template <typename Kernel>
+cudaError_t pinned_coresident(Kernel kernel, bool* allowed, int device,
+                              const PinGeometry& g, int* out) {
+  cudaError_t err;
+  if (!allowed[device]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(SMEM_OPTIN));
+    if (err != cudaSuccess) return err;
+    allowed[device] = true;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, PinGeometry::NT, pin_bytes(g));
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *out = per_sm * sms;
+  return cudaSuccess;
 }
 
 // --- K3's tiles: 32^2 in 34^2 windows, one step a window (K3, K9) ----------
@@ -1241,6 +1373,27 @@ cudaError_t dispatch_taps(const Constants& k, Args&&... args) {
     default:
       return Launch<TAPS_ANY>::run(args...);
   }
+}
+
+// dispatch_taps for the pinned entries of the megakernels and of K1's shard
+// entry (mega_pins.cu, sharded_mega_pins.cu, windowed_pins.cu): the default
+// stencils' tap set (TAPS_RING) has its own instantiation, every other set
+// runs TAPS_ANY, which tests each weight at run time and adds the same
+// terms in the same order, bit for bit. Two instantiations where
+// dispatch_taps has four keep the library's build time in bounds.
+template <template <int> class Launch, typename... Args>
+cudaError_t dispatch_taps_lean(const Constants& k, Args&&... args) {
+  if (tap_mask(k) == TAPS_RING) return Launch<TAPS_RING>::run(args...);
+  return Launch<TAPS_ANY>::run(args...);
+}
+
+// dispatch_fold for the same pinned entries: the separable pass, else the
+// direct sum with its weights tested at run time (TAPS_ANY).
+template <template <int> class Launch, typename... Args>
+cudaError_t dispatch_fold_lean(const FoldConstants& k, int separable,
+                               Args&&... args) {
+  if (separable) return Launch<TAPS_SEPARABLE>::run(args...);
+  return Launch<TAPS_ANY>::run(args...);
 }
 
 // Launch::run<TAPS>(args...) for the fold's sum: TAPS_SEPARABLE on a

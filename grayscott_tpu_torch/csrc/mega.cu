@@ -78,19 +78,9 @@ __global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 mega_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
             int steps, K k, int aligned, unsigned long long* barrier) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
-  float* const base = reinterpret_cast<float*>(window);
-  const size_t plane = static_cast<size_t>(rows) * cols;
-  const int tiles_x = (cols + G::TC - 1) / G::TC;
-  const int n_tiles = tiles_x * ((rows + G::TR - 1) / G::TR);
-  for (int t = 0; t < n_blocks; ++t) {
-    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
-    sm90::time_block<G, TAPS, MODE, SPECIALIZE, PREFETCH>(
-        gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
-        v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
-        cols, steps, k, aligned, base);
-    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
-  }
-  if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, G::NT, threadIdx.x);
+  mega_run<TAPS, MODE, SPECIALIZE, PREFETCH>(
+      sm90::FixedShape<G>{}, u_pair, v_pair, rows, cols, n_blocks, steps, k,
+      aligned, barrier, reinterpret_cast<float*>(window));
 }
 
 // The first stepper's kernel (gs_tile.cuh: step_tile<8>, 32x32 tiles in

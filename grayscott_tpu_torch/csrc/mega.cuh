@@ -1,6 +1,8 @@
-// What K2's two translation units share (mega.cu: the double buffer, its
-// ablation parts; mega_ring.cu: the window ring of mega_depth > 2): the
-// odd-count slot copy, the launch's arguments and the C interface's checks.
+// What K2's translation units share (mega.cu: the double buffer, its
+// ablation parts; mega_ring.cu: the window ring of mega_depth > 2;
+// mega_pins.cu: the double buffer on the tile pins' geometry): the
+// odd-count slot copy, a launch's time blocks on the double buffer, the
+// launch's arguments and the C interface's checks.
 
 #pragma once
 
@@ -25,6 +27,32 @@ __device__ __forceinline__ void copy_slot(T* u_pair, T* v_pair,
     u_pair[i] = sm90::load_cg(u_pair + plane + i);
     v_pair[i] = sm90::load_cg(v_pair + plane + i);
   }
+}
+
+// One launch of K2 on the double buffer: `n_blocks` time blocks of `steps`
+// steps on the tiles of g (FixedShape<Main> in mega.cu, the PinGeometry of
+// the tile pins in mega_pins.cu), time block t from slot t % 2 into slot
+// 1 - t % 2 (time_block_on), a grid barrier after each, and the slot copy
+// after an odd count; `base` is the block's two window buffers.
+template <int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH, typename S,
+          typename T, typename K>
+__device__ __forceinline__ void mega_run(const S& g, T* u_pair, T* v_pair,
+                                         int rows, int cols, int n_blocks,
+                                         int steps, const K& k, int aligned,
+                                         unsigned long long* barrier,
+                                         float* base) {
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  const int tiles_x = (cols + g.tc - 1) / g.tc;
+  const int n_tiles = tiles_x * ((rows + g.tr - 1) / g.tr);
+  for (int t = 0; t < n_blocks; ++t) {
+    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
+    sm90::time_block_on<TAPS, MODE, SPECIALIZE, PREFETCH>(
+        g, gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
+        v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
+        cols, steps, k, aligned, base);
+    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
+  }
+  if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, S::NT, threadIdx.x);
 }
 
 template <typename T, typename K = gs::Constants>

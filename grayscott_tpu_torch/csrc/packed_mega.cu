@@ -55,19 +55,6 @@ namespace sm90 = gs::sm90;
 
 constexpr int HALO = sm90::HALO;  // most steps per time block (MEGA_STEPS)
 
-// The slot copy after an odd number of time blocks: slot 1 to slot 0, by
-// the whole grid of blocks of THREADS threads; `tid` is the thread's flat
-// index in its block.
-template <int THREADS>
-__device__ __forceinline__ void copy_slot(float* x_pair, size_t plane,
-                                          int tid) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * THREADS;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * THREADS + tid;
-       i < plane; i += stride) {
-    x_pair[i] = __ldcg(x_pair + plane + i);
-  }
-}
-
 // SPECIALIZE = false takes every tile as an edge tile, PREFETCH = false
 // loads each window only when its tile is due (ablations).
 template <typename G, bool SPECIALIZE, bool PREFETCH>
@@ -76,18 +63,9 @@ packed_mega_kernel(float* x_pair, int rows, int cols, int n_blocks,
                    int steps, gs::PackedConstants k, int aligned,
                    unsigned long long* barrier) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
-  float* const base = reinterpret_cast<float*>(window);
-  const size_t plane = static_cast<size_t>(rows) * 2 * cols;
-  const int tiles_x = (cols + G::TC - 1) / G::TC;
-  const int n_tiles = tiles_x * ((rows + G::TR - 1) / G::TR);
-  for (int t = 0; t < n_blocks; ++t) {
-    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
-    sm90::packed_time_block<G, SPECIALIZE, PREFETCH>(
-        x_pair + src, x_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x,
-        rows, cols, steps, k, aligned, base);
-    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
-  }
-  if (n_blocks & 1) copy_slot<G::NT>(x_pair, plane, threadIdx.x);
+  sm90::packed_mega_run<SPECIALIZE, PREFETCH>(
+      sm90::FixedShape<G>{}, x_pair, rows, cols, n_blocks, steps, k, aligned,
+      barrier, reinterpret_cast<float*>(window));
 }
 
 // The first form (gs_packed.cuh: step_packed_tile<8>, 32x32 tiles in 48^2
@@ -110,8 +88,8 @@ first_form_kernel(float* x_pair, int rows, int cols, int n_blocks,
     if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
   }
   if (n_blocks & 1) {
-    copy_slot<gs::BLOCK_X * gs::BLOCK_Y>(
-        x_pair, plane, threadIdx.y * gs::BLOCK_X + threadIdx.x);
+    sm90::packed_copy_slot(x_pair, plane, gs::BLOCK_X * gs::BLOCK_Y,
+                           threadIdx.y * gs::BLOCK_X + threadIdx.x);
   }
 }
 

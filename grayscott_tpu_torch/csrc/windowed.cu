@@ -104,88 +104,16 @@ windowed_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
       aligned, reinterpret_cast<float*>(window));
 }
 
-// The shards of a launch: the pairs' geometry, the source slot, and the
-// tiles of the part (see the note at the top).
-template <typename T>
-struct Shards {
-  T *u_pairs, *v_pairs;
-  int n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1, tj0, tj1;
-};
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return reinterpret_cast<size_t>(p) % 16 == 0;
-}
+using sm90::Shards;
 
 template <typename G, int TAPS, int MODE, typename T>
 __global__ void __launch_bounds__(G::NT, G::MIN_BLOCKS)
 windowed_shard_kernel(Shards<T> s, int rows, int cols, int steps,
                       gs::Constants k) {
   extern __shared__ float4 window[];  // buffers [2] x species [2]
-  float* const base = reinterpret_cast<float*>(window);
-  const int inner = s.part == 1;
-  const int ti = blockIdx.y + (inner ? s.ti0 : 0);
-  const int tj = blockIdx.x + (inner ? s.tj0 : 0);
-  if (s.part == 2 && ti >= s.ti0 && ti < s.ti1 && tj >= s.tj0 &&
-      tj < s.tj1) {
-    return;  // an overlap-interior tile: part 1's
-  }
-  const int g = blockIdx.z;
-  const size_t pitch = static_cast<size_t>(s.c_loc) + 2 * s.chalo;
-  const size_t plane = (static_cast<size_t>(s.r_loc) + 2 * HALO) * pitch;
-  const gs::ShardLayout mem = {(g / s.n_cols) * s.r_loc,
-                               (g % s.n_cols) * s.c_loc,
-                               s.r_loc,
-                               s.c_loc,
-                               HALO,
-                               s.chalo,
-                               pitch};
-  const T* u = s.u_pairs + (2 * g + s.src) * plane;
-  const T* v = s.v_pairs + (2 * g + s.src) * plane;
-  T* u_out = s.u_pairs + (2 * g + 1 - s.src) * plane;
-  T* v_out = s.v_pairs + (2 * g + 1 - s.src) * plane;
-  const bool aligned = pitch % sm90::vec_cells<T>() == 0 && aligned16(u) &&
-                       aligned16(v) && aligned16(u_out) && aligned16(v_out);
-  const int r0 = mem.row0 + ti * G::TR - HALO;
-  const int c0 = mem.col0 + tj * G::TC - HALO;
-
-  sm90::load_window<G::NT, true>(mem, u, v, base, base + G::CELLS,
-                                 gs::Fixed<G::WR>{}, gs::Fixed<G::WC>{}, r0,
-                                 c0, rows, cols, aligned);
-  sm90::cp_async_commit();
-  sm90::cp_async_wait<0>();
-  __syncthreads();
-
-  const sm90::FixedShape<G> shape{};
-  const bool interior = sm90::window_inside(shape, r0, c0, rows, cols);
-  int cur = 0;
-  for (int st = 0; st < steps; ++st) {
-    const float* in_u = base + 2 * cur * G::CELLS;
-    float* out_u = base + 2 * (cur ^ 1) * G::CELLS;
-    if (interior) {
-      sm90::step_window<TAPS, MODE, true>(shape, in_u, in_u + G::CELLS,
-                                          out_u, out_u + G::CELLS, st + 1,
-                                          r0, c0, rows, cols, k);
-    } else {
-      sm90::step_window<TAPS, MODE, false>(shape, in_u, in_u + G::CELLS,
-                                           out_u, out_u + G::CELLS, st + 1,
-                                           r0, c0, rows, cols, k);
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  const float* fu = base + 2 * cur * G::CELLS;
-  const float* fv = fu + G::CELLS;
-  for (int idx = threadIdx.x; idx < G::TR * G::TC; idx += G::NT) {
-    const int lr = HALO + idx / G::TC, lc = HALO + idx % G::TC;
-    const int gr = r0 + lr, gc = c0 + lc;
-    if (mem.stores(gr, gc)) {
-      const size_t at = mem.at(gr, gc);
-      const bool in = gr < rows && gc < cols;
-      u_out[at] = sm90::narrow<T>(in ? fu[lr * G::WC + lc] : 0.0f);
-      v_out[at] = sm90::narrow<T>(in ? fv[lr * G::WC + lc] : 0.0f);
-    }
-  }
+  sm90::shard_window_multistep<TAPS, MODE>(sm90::FixedShape<G>{}, s, rows,
+                                           cols, steps, k,
+                                           reinterpret_cast<float*>(window));
 }
 
 template <typename T, typename K = gs::Constants>

@@ -31,6 +31,20 @@ The geometry of 64x64 tiles at a halo of 8 (K <= 8) is the compiled one
 other runs the pinned entries, whose tile, halo and pitch are run-time
 values. JAX's 128-lane quantum of ``tc`` (``pallas_stencil.py:1172-1178``)
 is the TPU's lane width and has no counterpart here.
+
+The megakernels' tile pins (K2, K6 and K7; :func:`mega_resolve`) take the
+values JAX's megakernels take, and the rest raise JAX's refusal
+(:func:`mega_pins_ok`): ``block_rows`` a positive multiple of 8
+(``grayscott_tpu/ops/megakernel.py:733``), ``block_cols`` a positive
+multiple of 128 (``:746-750``). Their halo is the time block's, 8. A
+``block_cols`` of at least the domain's width means unpinned, as JAX's
+``_mega_tiles`` drops it (``backends/pallas.py:396-397``,
+``backends/sharded.py:285-286``); on a 2-D mesh's shard it means one tile
+column across the shard, JAX's covering tile (``sharded.py:299-321``). An
+unpinned dimension follows the windowed kernels' rule above; JAX's "a
+pinned ``tr`` alone means full-width windows" has no counterpart, since a
+tile in shared memory cannot span a row. A pinned height steps down past
+the padded rows, as K1's does: a taller tile is one tile row all the same.
 """
 
 from __future__ import annotations
@@ -85,6 +99,11 @@ def check_tile(name: str, value) -> int | None:
     if isinstance(value, bool) or not isinstance(value, int) or value < 1:
         raise ValueError(f"{name} must be a positive int, got {value!r}")
     return value
+
+
+def tile_shape(tile) -> Tuple[int, int]:
+    """``(tr, tc)`` of a tile given as one edge or as ``(tr, tc)``."""
+    return (tile, tile) if isinstance(tile, int) else tuple(tile)
 
 
 def pitch(width: int) -> int:
@@ -184,3 +203,53 @@ def resolve(shape: Tuple[int, int], k: int = HALO,
             f"buffers, past the {SMEM_OPTIN} B a block may use; pin a "
             "smaller tile or fewer steps per call", combo="tiles")
     return Geometry(tr, tc, halo)
+
+
+#: the quanta of the megakernels' tile pins (grayscott_tpu/ops/
+#: megakernel.py:733, :746-750): a positive multiple of each
+MEGA_ROWS_QUANTUM = 8
+MEGA_COLS_QUANTUM = 128
+
+
+def mega_pins_ok(block_rows: int | None, block_cols: int | None) -> bool:
+    """Whether JAX's megakernels take the tile pins: ``block_rows`` None or
+    a positive multiple of 8, ``block_cols`` None or a positive multiple
+    of 128 (``mega_ok``, ``grayscott_tpu/ops/megakernel.py:733``,
+    ``:746-750``)."""
+    rows_ok = block_rows is None or (block_rows >= MEGA_ROWS_QUANTUM and
+                                     block_rows % MEGA_ROWS_QUANTUM == 0)
+    cols_ok = block_cols is None or (block_cols >= MEGA_COLS_QUANTUM and
+                                     block_cols % MEGA_COLS_QUANTUM == 0)
+    return rows_ok and cols_ok
+
+
+def mega_resolve(shape: Tuple[int, int], block_rows: int | None = None,
+                 block_cols: int | None = None,
+                 cover: bool = False) -> Geometry:
+    """The tiles that a megakernel (K2, K6, K7) steps a domain of
+    ``shape`` (rows, cols of one species; a shard's interior for K7) with
+    under the tile pins, at the time block's halo of 8. ``cover``: the
+    domain is a 2-D mesh's shard, where a ``block_cols`` of at least its
+    width is one tile column across it (else it is unpinned). The pins'
+    quanta are the caller's to check (:func:`mega_pins_ok`, whose refusal
+    names the backend); a window past the shared memory a block may use
+    raises :class:`UnsupportedConfigError` naming its bytes. Neither pinned:
+    the compiled 64x64 tiles (K7 picks its own between 64x64 and 32x32)."""
+    rows, cols = shape
+    tr, tc = check_tile("block_rows", block_rows), \
+        check_tile("block_cols", block_cols)
+    if tc is not None and tc >= cols:
+        tc = cols if cover else None
+    if tr is not None:
+        rp = -(-rows // 8) * 8
+        while tr > 8 and tr > rp:
+            tr -= 8
+    tr, tc = _fit(tr, tc, HALO)
+    nbytes = window_bytes(tr, tc, HALO)
+    if nbytes > SMEM_OPTIN:
+        raise UnsupportedConfigError(
+            f"a {tr}x{tc} megakernel tile (halo {HALO}) needs {nbytes} B of "
+            f"shared memory a block for its two window buffers, past the "
+            f"{SMEM_OPTIN} B a block may use; pin a smaller tile",
+            combo="tiles")
+    return Geometry(tr, tc, HALO)

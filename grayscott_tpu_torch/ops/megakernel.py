@@ -42,6 +42,19 @@ geometry runs the ring entries, counted in ``ring_launches``,
 a step computes: every depth gives depth 2's result bit for bit, and the
 plain versions are the same.
 
+``geometry`` (``ops/geometry.py:mega_resolve``: the tile pins,
+``--pallas-engine mega --pallas-block-rows/--pallas-block-cols``; JAX's
+``_mega_tiles``, ``grayscott_tpu/backends/pallas.py:384-411``) runs the
+double buffer on ``tr`` x ``tc`` tiles known at run time: the pinned
+entries of ``csrc/mega_pins.cu``, on the compiled kernel's block body, their
+grid the co-resident blocks at the pinned window's bytes
+(:func:`pinned_max_blocks`). The compiled geometry (64x64, ``geometry.
+DEFAULT``) runs the entries above. Their launches are counted in
+``pinned_launches``, ``pinned_bf16_launches``, ``pinned_fold_launches`` and
+``pinned_fold_bf16_launches``; the tiles change where a window loads, not
+what a step computes, so the plain versions are the same. A pinned tile
+takes no ring: ``depth`` above 2 with a pinned geometry raises.
+
 K6, the species-packed megakernel (``csrc/packed_mega.cu``), is the
 port's ``packed_megastep`` (``megakernel.py:1112``): the same time-block
 loop on one ``(2, R, 2C)`` pair of packed state ``[U | V]``
@@ -53,7 +66,10 @@ memory. Its launches are counted in ``packed_launches``;
 :func:`packed_mega_ablation` (``PACKED_ABLATIONS``) runs it with one part
 of its design taken out, uncounted. Like JAX's ``packed_megastep``, it
 takes no depth: K6 always runs the double buffer, and a ``mega_depth`` pin
-does not reach the packed layout.
+does not reach the packed layout. ``packed_megastep(..., geometry=g)`` runs
+its row-tile pin (``--pallas-pack on --pallas-engine mega
+--pallas-block-rows``; ``backends/pallas.py:554-576``) on the pinned entry
+of ``csrc/mega_pins.cu``, counted in ``packed_pinned_launches``.
 """
 
 from __future__ import annotations
@@ -86,6 +102,14 @@ ring_launches = 0
 ring_bf16_launches = 0
 ring_fold_launches = 0
 ring_fold_bf16_launches = 0
+
+#: the pinned entries' launches (a tile geometry other than the compiled
+#: one): K2 by storage and mode, and K6
+pinned_launches = 0
+pinned_bf16_launches = 0
+pinned_fold_launches = 0
+pinned_fold_bf16_launches = 0
+packed_pinned_launches = 0
 
 #: JAX's ``mega_depth`` values (``backends/pallas.py:224-225``)
 DEPTHS = range(2, 9)
@@ -199,6 +223,7 @@ _ablation_fn = None
 _packed_fn = None
 _packed_ablation_fn = None
 _ring_fns: dict = {}
+_pinned_fns: dict = {}
 
 
 #: the plain PyTorch version: ``steps`` calls of ``stencil.step``
@@ -300,6 +325,31 @@ def _ring_kernel(dtype, fold: bool):
     return _ring_fns[key]
 
 
+def _pinned_kernel(dtype, fold: bool):
+    """The pinned entry of K2 for ``dtype`` pairs (``fold``: its fold
+    entry): the double buffer's arguments, then ``tr`` and ``tc``."""
+    key = (dtype, fold)
+    if key not in _pinned_fns:
+        base = _fold_kernel(dtype) if fold else (
+            _bf16_kernel() if dtype == torch.bfloat16 else _kernel())
+        name = "gs_mega_pinned_multistep" + ("_fold" if fold else "") + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _pinned_fns[key] = build.bind(name,
+                                      base.argtypes + [ctypes.c_int] * 2)
+    return _pinned_fns[key]
+
+
+def _is_pinned(geometry) -> bool:
+    """Whether ``geometry`` runs the pinned entries (not the compiled
+    64x64 tiles)."""
+    if geometry is None or geometry.compiled:
+        return False
+    if geometry.halo != MEGA_STEPS:
+        raise ValueError(f"a megakernel's halo is its time block, "
+                         f"{MEGA_STEPS}; got {geometry.label()}")
+    return True
+
+
 def _ablation_kernel():
     global _ablation_fn
     if _ablation_fn is None:
@@ -335,24 +385,56 @@ def ring_max_blocks(device: torch.device, geometry: RingGeometry) -> int:
     return n
 
 
+def pinned_max_blocks(device: torch.device, geometry) -> int:
+    """The most blocks of one pinned K2 launch on ``geometry``'s tiles that
+    are co-resident on ``device`` (the occupancy API's count at its
+    bytes and registers, the fewest over the instantiations)."""
+    return _occupancy("gs_mega_pinned_max_blocks", device, geometry)
+
+
+def packed_pinned_max_blocks(device: torch.device, geometry) -> int:
+    """:func:`pinned_max_blocks` of K6's pinned entry."""
+    return _occupancy("gs_packed_mega_pinned_max_blocks", device, geometry)
+
+
+def _occupancy(name: str, device, geometry) -> int:
+    index = torch.device(device).index
+    n = build.bind(name, [ctypes.c_int] * 3)(
+        torch.cuda.current_device() if index is None else index,
+        geometry.tr, geometry.tc)
+    if n <= 0:
+        raise RuntimeError(f"{name} on {geometry.label()}: CUDA error {-n} "
+                           f"({build.error_name(-n)})" if n < 0 else
+                           f"{name}: no block of {geometry.label()} fits an "
+                           "SM")
+    return n
+
+
 def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
              steps: int, consts: KernelConstants | FoldConstants,
              boundary: str, grid: int = 0, fold: bool = False,
-             depth: int | None = None) -> None:
+             depth: int | None = None, geometry=None) -> None:
     """Advance slot 0 of the pairs (both float32 or both bfloat16) by
     ``n_blocks`` x ``steps`` steps, in place. ``grid``: the blocks of the
     launch, 0 for the co-resident maximum. ``fold``: the folded naive
     reaction, ``consts`` a ``FoldConstants`` and the boundary naive.
     ``depth``: the window ring's depth (None: the double buffer; the
-    geometry that runs is :func:`ring_geometry`'s). On a CUDA device the
-    launch is enqueued on the current stream and not waited for."""
+    geometry that runs is :func:`ring_geometry`'s). ``geometry``: the
+    tiles (``ops/geometry.py:mega_resolve``; None: the compiled 64x64),
+    which takes no ring. On a CUDA device the launch is enqueued on the
+    current stream and not waited for."""
     global launches, bf16_launches, ring_launches, ring_bf16_launches
+    global pinned_launches, pinned_bf16_launches
     _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
            checks.STORAGE_DTYPES)
-    geometry = ring_geometry(tuple(u_pair.shape[1:]), depth)
+    pinned = _is_pinned(geometry)
+    if pinned and check_depth(depth) != 2:
+        raise ValueError(f"a pinned tile ({geometry.label()}) takes no "
+                         f"window ring; got depth {depth}")
+    ring = ring_geometry(tuple(u_pair.shape[1:]), depth)
     if fold:
         _fold_megastep(u_pair, v_pair, n_blocks, steps, consts, boundary,
-                       grid, geometry)
+                       grid, ring, geometry if pinned else None)
         return
     bf16 = u_pair.dtype == torch.bfloat16
     if u_pair.device.type == "cpu":
@@ -365,9 +447,18 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         u_pair[0].copy_(ru)
         v_pair[0].copy_(rv)
         return
-    if geometry.ring:
+    if pinned:
+        fn = _pinned_kernel(u_pair.dtype, False)
+        _launch(lambda *args: fn(*args, geometry.tr, geometry.tc), u_pair,
+                v_pair, n_blocks, steps, consts, boundary, grid)
+        if bf16:
+            pinned_bf16_launches += 1
+        else:
+            pinned_launches += 1
+        return
+    if ring.ring:
         fn = _ring_kernel(u_pair.dtype, False)
-        _launch(lambda *args: fn(*args, geometry.tile, geometry.buffers),
+        _launch(lambda *args: fn(*args, ring.tile, ring.buffers),
                 u_pair, v_pair, n_blocks, steps, consts, boundary, grid)
         if bf16:
             ring_bf16_launches += 1
@@ -383,10 +474,12 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
 
 
 def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
-                   geometry: RingGeometry) -> None:
-    """:func:`megastep` with ``fold=True``."""
+                   geometry: RingGeometry, tiles=None) -> None:
+    """:func:`megastep` with ``fold=True`` (``tiles``: a pinned geometry,
+    or None)."""
     global fold_launches, fold_bf16_launches
     global ring_fold_launches, ring_fold_bf16_launches
+    global pinned_fold_launches, pinned_fold_bf16_launches
     checks.check_fold(fc, boundary)
     if u_pair.device.type == "cpu":
         ru, rv = megastep_reference_fold(u_pair[0], v_pair[0], n_blocks,
@@ -398,16 +491,24 @@ def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
     barrier = torch.zeros(1, dtype=torch.int64, device=u_pair.device)
     stream = torch.cuda.current_stream(u_pair.device).cuda_stream
     ring = (geometry.tile, geometry.buffers) if geometry.ring else ()
-    fn = (_ring_kernel(u_pair.dtype, True) if ring
-          else _fold_kernel(u_pair.dtype))
+    if tiles is not None:
+        fn, tail = _pinned_kernel(u_pair.dtype, True), (tiles.tr, tiles.tc)
+    elif ring:
+        fn, tail = _ring_kernel(u_pair.dtype, True), ring
+    else:
+        fn, tail = _fold_kernel(u_pair.dtype), ()
     err = fn(u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks,
              steps, u_pair.device.index, *build.fold_args(fc), grid,
-             barrier.data_ptr(), stream, *ring)
+             barrier.data_ptr(), stream, *tail)
     if err != 0:
         raise RuntimeError(f"mega fold kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
     bf16 = u_pair.dtype == torch.bfloat16
-    if ring and bf16:
+    if tiles is not None and bf16:
+        pinned_fold_bf16_launches += 1
+    elif tiles is not None:
+        pinned_fold_launches += 1
+    elif ring and bf16:
         ring_fold_bf16_launches += 1
     elif ring:
         ring_fold_launches += 1
@@ -501,16 +602,29 @@ def packed_max_blocks(device: torch.device) -> int:
 
 
 def packed_megastep(x_pair: torch.Tensor, n_blocks: int, steps: int,
-                    pc: PackedConstants, grid: int = 0) -> None:
+                    pc: PackedConstants, grid: int = 0,
+                    geometry=None) -> None:
     """K6: advance slot 0 of the packed pair ``x_pair`` (``(2, R, 2C)``)
     by ``n_blocks`` x ``steps`` (1..MEGA_STEPS) steps, in place. ``grid``:
-    the blocks of the launch, 0 for the co-resident maximum. On a CUDA
-    device the launch is enqueued on the current stream and not waited
-    for."""
-    global packed_launches
+    the blocks of the launch, 0 for the co-resident maximum. ``geometry``:
+    the tiles of one species (``ops/geometry.py:mega_resolve``; None: the
+    compiled 64x64). On a CUDA device the launch is enqueued on the
+    current stream and not waited for."""
+    global packed_launches, packed_pinned_launches
     _check_packed(x_pair, n_blocks, steps, grid)
+    pinned = _is_pinned(geometry)
     if x_pair.device.type == "cpu":
         x_pair[0].copy_(packed.packed_run(x_pair[0], n_blocks * steps, pc))
+        return
+    if pinned:
+        if "packed" not in _pinned_fns:
+            _pinned_fns["packed"] = build.bind(
+                "gs_packed_mega_pinned_multistep",
+                _packed_kernel().argtypes + [ctypes.c_int] * 2)
+        fn = _pinned_fns["packed"]
+        _launch_packed(lambda *args: fn(*args, geometry.tr, geometry.tc),
+                       x_pair, n_blocks, steps, pc, grid)
+        packed_pinned_launches += 1
         return
     _launch_packed(_packed_kernel(), x_pair, n_blocks, steps, pc, grid)
     packed_launches += 1

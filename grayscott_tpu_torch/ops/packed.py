@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from ..params import PackedConstants
 from . import build, checks
-from .geometry import Geometry
+from .geometry import Geometry, tile_shape
 
 #: most steps one K4 launch may take: the kernel's compile-time halo depth
 K = 8
@@ -185,56 +185,60 @@ def _window_step(w: torch.Tensor, pc: PackedConstants
     return un, vn
 
 
-def packed_tiles(shape: Tuple[int, int], tile: int, halo: int
+def packed_tiles(shape: Tuple[int, int], tile, halo: int
                  ) -> list[Tuple[int, int, bool]]:
-    """``(r0, c0, interior)`` of each ``tile`` x ``tile`` tile of a
-    ``shape`` domain, row by row: its window's global origin (``halo``
-    cells above and left of the tile) and whether the window lies inside
-    the domain, as K5 and K6 decide it once a tile
+    """``(r0, c0, interior)`` of each ``tr`` x ``tc`` tile (``tile``: one
+    edge, or ``(tr, tc)``) of a ``shape`` domain, row by row: its window's
+    global origin (``halo`` cells above and left of the tile) and whether
+    the window lies inside the domain, as K5 and K6 decide it once a tile
     (``gs_packed_sm90.cuh``). The interior ones are those that
     ``stencil.interior_tiles`` counts."""
     rows, cols = shape
-    w = tile + 2 * halo
-    return [(i * tile - halo, j * tile - halo,
-             i * tile - halo >= 0 and j * tile - halo >= 0
-             and i * tile - halo + w <= rows and j * tile - halo + w <= cols)
-            for i in range(-(-rows // tile)) for j in range(-(-cols // tile))]
+    tr, tc = tile_shape(tile)
+    wr, wc = tr + 2 * halo, tc + 2 * halo
+    return [(i * tr - halo, j * tc - halo,
+             i * tr - halo >= 0 and j * tc - halo >= 0
+             and i * tr - halo + wr <= rows and j * tc - halo + wc <= cols)
+            for i in range(-(-rows // tr)) for j in range(-(-cols // tc))]
 
 
-def packed_tiled_step(x: torch.Tensor, pc: PackedConstants, tile: int,
+def packed_tiled_step(x: torch.Tensor, pc: PackedConstants, tile,
                       halo: int) -> torch.Tensor:
     """:func:`packed_step` tile by tile, as K5 (``tile`` 32, ``halo`` 1) and
-    K6 (64 and 8) dispatch it: each tile steps its window (the tile and
-    ``halo`` >= 1 cells around it, cells outside the domain 0.0) in the
-    strips' order. An interior tile's window is cut from the state with no
-    domain test; an edge tile's comes from the zero-padded state and its
-    cells outside the domain are written as 0.0. Equal to
-    :func:`packed_step` bit for bit, NaN and Inf included: every cell the
-    tile keeps reads only cells of its window, and a row outside the
-    domain gives ``t = +0.0`` as the padding of ``t`` does."""
+    K6 (64 and 8, or the ``(tr, tc)`` of its row-tile pin, and 8) dispatch
+    it: each tile steps its window (the tile and ``halo`` >= 1 cells around
+    it, cells outside the domain 0.0) in the strips' order. An interior
+    tile's window is cut from the state with no domain test; an edge tile's
+    comes from the zero-padded state and its cells outside the domain are
+    written as 0.0. Equal to :func:`packed_step` bit for bit, NaN and Inf
+    included: every cell the tile keeps reads only cells of its window, and
+    a row outside the domain gives ``t = +0.0`` as the padding of ``t``
+    does."""
     if halo < 1:
         raise ValueError(f"halo must be >= 1, got {halo!r}")
+    tr, tc = tile_shape(tile)
     rows, width = x.shape
     c = width // 2
     xs = x.reshape(rows, 2, c)
-    xp = F.pad(xs, (halo, halo + tile, 0, 0, halo, halo + tile))
+    xp = F.pad(xs, (halo, halo + tc, 0, 0, halo, halo + tr))
     out = torch.empty_like(xs)
-    w = tile + 2 * halo
-    for r0, c0, interior in packed_tiles((rows, c), tile, halo):
+    wr, wc = tr + 2 * halo, tc + 2 * halo
+    for r0, c0, interior in packed_tiles((rows, c), (tr, tc), halo):
         if interior:
-            un, vn = _window_step(xs[r0:r0 + w, :, c0:c0 + w], pc)
+            un, vn = _window_step(xs[r0:r0 + wr, :, c0:c0 + wc], pc)
         else:
             un, vn = _window_step(
-                xp[r0 + halo:r0 + halo + w, :, c0 + halo:c0 + halo + w], pc)
-            rr = torch.arange(r0 + 1, r0 + w - 1)
-            cc = torch.arange(c0 + 1, c0 + w - 1)
+                xp[r0 + halo:r0 + halo + wr, :, c0 + halo:c0 + halo + wc],
+                pc)
+            rr = torch.arange(r0 + 1, r0 + wr - 1)
+            cc = torch.arange(c0 + 1, c0 + wc - 1)
             inside = (((rr >= 0) & (rr < rows))[:, None]
                       & ((cc >= 0) & (cc < c))[None, :])
             un = torch.where(inside, un, 0.0)
             vn = torch.where(inside, vn, 0.0)
         # the tile's cells in the domain: window cells [halo, halo + tile)
         gr, gc = r0 + halo, c0 + halo
-        nr, nc = min(tile, rows - gr), min(tile, c - gc)
+        nr, nc = min(tr, rows - gr), min(tc, c - gc)
         out[gr:gr + nr, 0, gc:gc + nc] = un[halo - 1:halo - 1 + nr,
                                             halo - 1:halo - 1 + nc]
         out[gr:gr + nr, 1, gc:gc + nc] = vn[halo - 1:halo - 1 + nr,
@@ -243,30 +247,31 @@ def packed_tiled_step(x: torch.Tensor, pc: PackedConstants, tile: int,
 
 
 def packed_windowed_run(x: torch.Tensor, steps: int, pc: PackedConstants,
-                        tile: int = TILE[0], halo: int = K) -> torch.Tensor:
-    """:func:`packed_run` tile by tile, as K4 launches it: each ``tile`` x
-    ``tile`` tile steps its window (the tile and ``halo`` cells around it,
-    cells outside the domain 0.0) ``steps`` <= ``halo`` times, the valid
-    region shrinking by one cell a step, and writes its cells that lie in
-    the domain. An interior tile's window is cut from the state with no
-    domain test; an edge tile's comes from the zero-padded state and its
-    cells outside the domain are written as 0.0 every step. Equal to
-    :func:`packed_run` bit for bit, NaN and Inf included, for the reasons
-    :func:`packed_tiled_step` gives."""
+                        tile=TILE[0], halo: int = K) -> torch.Tensor:
+    """:func:`packed_run` tile by tile, as K4 launches it: each ``tr`` x
+    ``tc`` tile (``tile``: one edge, or ``(tr, tc)``) steps its window (the
+    tile and ``halo`` cells around it, cells outside the domain 0.0)
+    ``steps`` <= ``halo`` times, the valid region shrinking by one cell a
+    step, and writes its cells that lie in the domain. An interior tile's
+    window is cut from the state with no domain test; an edge tile's comes
+    from the zero-padded state and its cells outside the domain are written
+    as 0.0 every step. Equal to :func:`packed_run` bit for bit, NaN and Inf
+    included, for the reasons :func:`packed_tiled_step` gives."""
     checks.check_count("steps", steps, 1, halo)
+    tr, tc = tile_shape(tile)
     rows, width = x.shape
     c = width // 2
     xs = x.reshape(rows, 2, c)
-    xp = F.pad(xs, (halo, halo + tile, 0, 0, halo, halo + tile))
+    xp = F.pad(xs, (halo, halo + tc, 0, 0, halo, halo + tr))
     out = torch.empty_like(xs)
-    w = tile + 2 * halo
-    for r0, c0, interior in packed_tiles((rows, c), tile, halo):
+    wr, wc = tr + 2 * halo, tc + 2 * halo
+    for r0, c0, interior in packed_tiles((rows, c), (tr, tc), halo):
         if interior:
-            win = xs[r0:r0 + w, :, c0:c0 + w]
+            win = xs[r0:r0 + wr, :, c0:c0 + wc]
         else:
-            win = xp[r0 + halo:r0 + halo + w, :, c0 + halo:c0 + halo + w]
-            rr = torch.arange(r0, r0 + w, device=x.device)
-            cc = torch.arange(c0, c0 + w, device=x.device)
+            win = xp[r0 + halo:r0 + halo + wr, :, c0 + halo:c0 + halo + wc]
+            rr = torch.arange(r0, r0 + wr, device=x.device)
+            cc = torch.arange(c0, c0 + wc, device=x.device)
             inside = (((rr >= 0) & (rr < rows))[:, None]
                       & ((cc >= 0) & (cc < c))[None, :])
         for _ in range(steps):  # window cells [s + 1, w - s - 1) at step s
@@ -278,7 +283,7 @@ def packed_windowed_run(x: torch.Tensor, steps: int, pc: PackedConstants,
             win = torch.stack((un, vn), dim=1)
         # the tile's cells in the domain: window cells [halo, halo + tile)
         gr, gc, at = r0 + halo, c0 + halo, halo - steps
-        nr, nc = min(tile, rows - gr), min(tile, c - gc)
+        nr, nc = min(tr, rows - gr), min(tc, c - gc)
         out[gr:gr + nr, :, gc:gc + nc] = win[at:at + nr, :, at:at + nc]
     return out.reshape(rows, width)
 

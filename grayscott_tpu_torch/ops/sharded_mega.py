@@ -24,7 +24,14 @@ Its launches are counted in ``bf16_launches``.
 
 The kernel steps 64x64 or 32x32 tiles (``TILES``); :func:`choose_tile`
 picks one per domain and mesh from the rounds of tiles that each shard's
-group of blocks walks, and the choice is logged once.
+group of blocks walks, and the choice is logged once. Under the tile pins
+(``--pallas-block-rows``, ``--pallas-block-cols``;
+``ops/geometry.py:mega_resolve`` on the shard) ``geometry`` names the
+tiles: the compiled 64x64 and 32x32 run the entries above, any other the
+pinned entries of ``csrc/sharded_mega_pins.cu`` on the same descriptors,
+counted in ``pinned_launches`` and ``pinned_bf16_launches``. The tiles
+change how each shard is cut, not what a step computes: the plain version
+is the same.
 
 On a row mesh with more than one tile row a shard waits for its
 neighbours' pushes where it reads them (JAX's 1-D read-site waits,
@@ -49,6 +56,7 @@ import torch
 from ..params import KernelConstants
 from ..parallel import halo
 from . import build, checks, stencil
+from .geometry import Geometry, tile_shape
 
 #: most steps of one time block: the halo depth
 MEGA_STEPS = halo.HALO
@@ -66,9 +74,14 @@ launches = 0
 bf16_launches = 0
 #: the launches that waited at the read site (row meshes)
 read_site_launches = 0
+#: the pinned entries' launches (a tile geometry other than the compiled
+#: ones), by storage
+pinned_launches = 0
+pinned_bf16_launches = 0
 
 _fns = None
 _bf16_fns = None
+_pinned_fns: dict = {}
 _logger = logging.getLogger("grayscott_tpu_torch")
 #: (shape, mesh shape, device) -> the tile the wrapper picked
 _chosen: dict = {}
@@ -121,16 +134,18 @@ def sharded_megastep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
         v_pairs[:, :, 0] = v_pairs[:, :, 1]
 
 
-def tile_rounds(shape, mesh_shape, tile: int, blocks: int) -> float:
+def tile_rounds(shape, mesh_shape, tile, blocks: int) -> float:
     """Rounds of tiles that each shard's group walks in one time block: a
-    shard's ``tile`` x ``tile`` tiles over the smallest group of a launch
-    of ``blocks`` blocks (the co-resident maximum, capped at the tile count
-    as the kernel caps it), split over the mesh's shards. Infinite when the
-    launch cannot hold one block a shard (the kernel refuses it)."""
+    shard's tiles (``tile``: one edge, or ``(tr, tc)``) over the smallest
+    group of a launch of ``blocks`` blocks (the co-resident maximum,
+    capped at the tile count as the kernel caps it), split over the mesh's
+    shards. Infinite when the launch cannot hold one block a shard (the
+    kernel refuses it)."""
     n_r, n_c = mesh_shape
     n_shards = n_r * n_c
     r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(n_r, n_c, None))
-    tiles = -(-r_loc // tile) * -(-c_loc // tile)
+    tr, tc = tile_shape(tile)
+    tiles = -(-r_loc // tr) * -(-c_loc // tc)
     group = min(blocks, n_shards * tiles) // n_shards
     return -(-tiles // group) if group else float("inf")
 
@@ -182,6 +197,35 @@ def _bf16_kernel():
     return _bf16_fns
 
 
+def _pinned_kernel(dtype):
+    """The pinned entry for ``dtype`` pairs: the compiled entry's
+    arguments with ``tr`` and ``tc`` in place of the tile edge."""
+    if dtype not in _pinned_fns:
+        _kernel()  # checks the time block and the counters
+        name = "gs_sharded_mega_pinned_multistep" + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _pinned_fns[dtype] = build.bind(
+            name, [ctypes.c_void_p] + [ctypes.c_int] * 10
+            + [ctypes.c_float] * 14 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+    return _pinned_fns[dtype]
+
+
+def pinned_max_blocks(device: torch.device, geometry) -> int:
+    """The most blocks of one pinned launch on ``geometry``'s tiles that
+    are co-resident on ``device`` (the occupancy API's count at its bytes
+    and registers, the fewest over the instantiations)."""
+    index = torch.device(device).index
+    n = build.bind("gs_sharded_mega_pinned_max_blocks", [ctypes.c_int] * 3)(
+        torch.cuda.current_device() if index is None else index,
+        geometry.tr, geometry.tc)
+    if n <= 0:
+        raise RuntimeError(f"sharded mega pinned occupancy query on "
+                           f"{geometry.label()}: CUDA error {-n} "
+                           f"({build.error_name(-n)})")
+    return n
+
+
 def max_blocks(device: torch.device, tile: int | None = None) -> int:
     """The most blocks of one launch with ``tile`` x ``tile`` tiles that are
     co-resident on ``device``; with ``tile`` None, the most over both
@@ -216,14 +260,14 @@ def tile_for(shape, mesh: halo.Mesh) -> int:
     return _chosen[key]
 
 
-def read_site_applies(shape, mesh_shape, tile: int) -> bool:
+def read_site_applies(shape, mesh_shape, tr: int) -> bool:
     """Whether K7 waits at the read site on a mesh of ``mesh_shape``: a
     row mesh (one column, more than one row of shards) whose shards have
-    more than one row of ``tile`` x ``tile`` tiles (JAX: ``n_shard_cols ==
+    more than one row of tiles ``tr`` rows tall (JAX: ``n_shard_cols ==
     1`` and more than one window row, ``megakernel.py:428-463``)."""
     n_r, n_c = mesh_shape
     r_loc, _ = halo.shard_extents(shape, halo.Mesh(n_r, n_c, None))
-    return n_c == 1 and n_r > 1 and -(-r_loc // tile) > 1
+    return n_c == 1 and n_r > 1 and -(-r_loc // tr) > 1
 
 
 def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
@@ -246,25 +290,28 @@ def check_pairs(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
 def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                      mesh: halo.Mesh, n_blocks: int, steps: int,
                      consts: KernelConstants, boundary: str, shape,
-                     grid: int = 0, tile: int | None = None,
+                     grid: int = 0, geometry: Geometry | None = None,
                      read_site: bool = True) -> None:
     """Advance every shard's slot 0 by ``n_blocks`` x ``steps`` steps of the
     domain ``shape`` (R, C), in place. ``grid``: the blocks of the launch,
     0 for the co-resident maximum; it must hold one block a shard.
-    ``tile``: the tile edge (a key of ``TILES``), None for
-    :func:`tile_for`'s choice. ``read_site``: wait at the read site where
-    it applies (:func:`read_site_applies`); False gates every time block's
-    entry. On a CUDA device the launch is enqueued on the current stream
-    and not waited for. The pairs are float32 or bfloat16 (the bf16
-    entry)."""
+    ``geometry``: the tiles, None for :func:`tile_for`'s choice; 64x64 and
+    32x32 run the compiled entries, any other (the tile pins,
+    ``geometry.mega_resolve`` of a shard) the pinned ones; its halo is
+    MEGA_STEPS. ``read_site``: wait at the read site where it applies
+    (:func:`read_site_applies`); False gates every time block's entry. On a
+    CUDA
+    device the launch is enqueued on the current stream and not waited
+    for. The pairs are float32 or bfloat16 (the bf16 entry)."""
     global launches, bf16_launches, read_site_launches
+    global pinned_launches, pinned_bf16_launches
     checks.check_count("n_blocks", n_blocks, 1)
     checks.check_count("steps", steps, 1, MEGA_STEPS)
     checks.check_count("grid", grid, 0)
     checks.check_boundary(boundary)
-    if tile is not None and tile not in TILES:
-        raise ValueError(f"tile must be one of {sorted(TILES)} or None, got "
-                         f"{tile!r}")
+    if geometry is not None and geometry.halo != MEGA_STEPS:
+        raise ValueError(f"K7's halo is its time block, {MEGA_STEPS}; got "
+                         f"{geometry.label()}")
     check_pairs(u_pairs, v_pairs, mesh, shape)
     if 0 < grid < mesh.n_shards:
         raise ValueError(f"a grid of {grid} blocks cannot hold "
@@ -292,19 +339,30 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                            f"({build.error_name(err)})")
     desc = host.to(device, non_blocking=True)
     stream = torch.cuda.current_stream(device).cuda_stream
-    if tile is None:
-        tile = tile_for(shape, mesh)
-    waits = read_site and read_site_applies(shape, mesh.shape, tile)
+    if geometry is None:
+        edge = tile_for(shape, mesh)
+        geometry = Geometry(edge, edge, MEGA_STEPS)
+    pinned = not (geometry.tr == geometry.tc and geometry.tr in TILES)
+    if pinned:
+        fn = _pinned_kernel(u_pairs.dtype)
+        tail = (geometry.tr, geometry.tc)
+    else:
+        tail = (geometry.tr,)
+    waits = read_site and read_site_applies(shape, mesh.shape, geometry.tr)
     err = fn(desc.data_ptr(), mesh.n_shards, shape[0], shape[1], r_loc,
              c_loc, ch, n_blocks, steps, int(boundary == "naive"),
-             device.index, *consts.weights, *consts.reaction, grid, tile,
+             device.index, *consts.weights, *consts.reaction, grid, *tail,
              int(waits), stream)
     if err != 0:
         raise RuntimeError(f"sharded mega kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
     if waits:
         read_site_launches += 1
-    if bf16:
+    if pinned and bf16:
+        pinned_bf16_launches += 1
+    elif pinned:
+        pinned_launches += 1
+    elif bf16:
         bf16_launches += 1
     else:
         launches += 1

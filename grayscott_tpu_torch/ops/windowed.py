@@ -34,6 +34,16 @@ counted apart, in ``bf16_launches`` and ``bf16_shard_launches``.
 ``stencil.run_naive_fold`` and ``stencil.run_naive_fold_bf16``; their
 launches are counted in ``fold_launches`` and ``fold_bf16_launches``.
 
+:func:`shard_multistep` takes the sharded windowed engine's K and row
+tile (``--backend sharded --sharded-engine windowed
+--pallas-steps-per-call K --pallas-block-rows N``) as ``geometry``: the
+pairs then hold ``geometry.halo`` = ``halo_for_steps(K)`` rows (and
+columns on a 2-D mesh) of the neighbours' cells (``mesh.halo``), and any
+geometry but the compiled one launches the pinned shard entries of
+``csrc/windowed_pins.cu``, counted in ``pinned_shard_launches`` and
+``pinned_bf16_shard_launches``; their plain version is
+:func:`shard_multistep_reference` at that halo.
+
 ``multistep(..., geometry=g)`` runs the tile and depth pins
 (``--pallas-block-rows``, ``--pallas-block-cols``,
 ``--pallas-steps-per-call``; ``ops/geometry.py``): ``g`` the tiles and the
@@ -64,6 +74,9 @@ K = 8
 #: K cells more on every side (csrc/windowed.cu: Main)
 TILE = (halo.WINDOWED_TILE, halo.WINDOWED_TILE)
 
+#: the compiled geometry (64x64 tiles, halo 8), where none is given
+COMPILED = geometry.DEFAULT
+
 #: the tile sets of :func:`shard_multistep`, in the kernel's numbering
 PARTS = ("all", "interior", "edge")
 
@@ -85,6 +98,9 @@ pinned_launches = 0
 pinned_bf16_launches = 0
 pinned_fold_launches = 0
 pinned_fold_bf16_launches = 0
+#: the pinned shard entries' launches, by storage
+pinned_shard_launches = 0
+pinned_bf16_shard_launches = 0
 
 #: the C entry of each storage type: (unsharded, shard entry)
 _ENTRIES = {torch.float32: ("gs_windowed_multistep",
@@ -286,14 +302,25 @@ def _shard_kernel(dtype=torch.float32):
                  + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
+def _pinned_shard_kernel(dtype=torch.float32):
+    """The pinned shard entry of ``dtype`` pairs: the shard entry's
+    arguments with ``tr``, ``tc`` and ``halo`` after the rectangle."""
+    name = "gs_windowed_shard_pinned_multistep" + (
+        "_bf16" if dtype == torch.bfloat16 else "")
+    _pinned_kernel(dtype, False)  # checks the most steps a launch
+    return _bind(name, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 19
+                 + [ctypes.c_float] * 14 + [ctypes.c_void_p])
+
+
 def part_mask(r_loc: int, c_loc: int, chalo: int, part: str,
-              device=None) -> torch.Tensor:
+              device=None,
+              g: geometry.Geometry = geometry.DEFAULT) -> torch.Tensor:
     """Which of a shard's ``r_loc x c_loc`` interior cells the tiles of
-    ``part`` store (``halo.overlap_tiles``)."""
-    ti0, ti1, tj0, tj1 = halo.overlap_tiles(r_loc, c_loc, chalo)
-    t = halo.WINDOWED_TILE
-    rows = torch.arange(r_loc, device=device) // t
-    cols = torch.arange(c_loc, device=device) // t
+    ``part`` store on the tiles of ``g`` (``halo.overlap_tiles``)."""
+    ti0, ti1, tj0, tj1 = halo.overlap_tiles(r_loc, c_loc, chalo,
+                                            (g.tr, g.tc), g.halo)
+    rows = torch.arange(r_loc, device=device) // g.tr
+    cols = torch.arange(c_loc, device=device) // g.tc
     inner = (((rows >= ti0) & (rows < ti1))[:, None]
              & ((cols >= tj0) & (cols < tj1))[None, :])
     if part == "interior":
@@ -306,19 +333,22 @@ def part_mask(r_loc: int, c_loc: int, chalo: int, part: str,
 def shard_multistep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                               src_slot: int, steps: int,
                               consts: KernelConstants, boundary: str, shape,
-                              part: str = "all") -> None:
+                              part: str = "all",
+                              g: geometry.Geometry = geometry.DEFAULT
+                              ) -> None:
     """The plain version, in place: each shard's padded block of slot
-    ``src_slot`` takes ``steps`` plain steps at its global origin against
-    the domain ``shape`` (``stencil.step_at``), and the interior cells of
-    ``part``'s tiles go to slot ``1 - src_slot``, those past the domain as
+    ``src_slot`` (``g.halo`` halo rows, and columns on a 2-D mesh) takes
+    ``steps`` plain steps at its global origin against the domain
+    ``shape`` (``stencil.step_at``), and the interior cells of ``part``'s
+    tiles (of ``g``) go to slot ``1 - src_slot``, those past the domain as
     0.0 (``step_at`` gives them). On bfloat16 pairs the block is widened
     to float32 first and the cells are rounded to bfloat16 as they are
     stored. The body of ``sharded_mega.sharded_megastep_reference``
     without the pushes."""
     n_r, n_c = u_pairs.shape[:2]
-    r_loc, c_loc, ch = halo.interior_extents(u_pairs)
-    h, dst = halo.HALO, 1 - src_slot
-    mask = part_mask(r_loc, c_loc, ch, part, u_pairs.device)
+    h, dst = g.halo, 1 - src_slot
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs, h)
+    mask = part_mask(r_loc, c_loc, ch, part, u_pairs.device, g)
     for i in range(n_r):
         for j in range(n_c):
             u = u_pairs[i, j, src_slot].float()
@@ -335,16 +365,24 @@ def shard_multistep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
 def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                     mesh: halo.Mesh, src_slot: int, steps: int,
                     consts: KernelConstants, boundary: str, shape,
-                    part: str = "all") -> None:
-    """Advance every shard of ``mesh`` by ``steps`` (1..K) steps of the
-    domain ``shape`` (R, C), from slot ``src_slot`` of the pairs (its halos
-    filled: ``halo.exchange_halos``) into the interior of slot
-    ``1 - src_slot``, for the tiles of ``part`` (:data:`PARTS`). The pairs
-    are float32 or bfloat16. On a CUDA device one launch is enqueued on
-    the current stream and not waited for; an ``"interior"`` part with no
-    tile launches nothing."""
+                    part: str = "all",
+                    geometry: geometry.Geometry | None = None) -> None:
+    """Advance every shard of ``mesh`` by ``steps`` (1..K, or
+    1..``geometry.halo``) steps of the domain ``shape`` (R, C), from slot
+    ``src_slot`` of the pairs (its halos filled: ``halo.exchange_halos``)
+    into the interior of slot ``1 - src_slot``, for the tiles of ``part``
+    (:data:`PARTS`). ``geometry``: the tiles and halo (None: the compiled
+    64x64 at 8), whose halo is the mesh's. The pairs are float32 or
+    bfloat16. On a CUDA device one launch is enqueued on the current
+    stream and not waited for; an ``"interior"`` part with no tile
+    launches nothing."""
     global shard_launches, bf16_shard_launches
-    checks.check_count("steps", steps, 1, K)
+    global pinned_shard_launches, pinned_bf16_shard_launches
+    g = geometry or COMPILED
+    if g.halo != mesh.halo:
+        raise ValueError(f"the tiles' halo ({g.label()}) must be the "
+                         f"mesh's, {mesh.halo}")
+    checks.check_count("steps", steps, 1, g.halo)
     checks.check_boundary(boundary)
     if src_slot not in (0, 1):
         raise ValueError(f"src_slot must be 0 or 1, got {src_slot!r}")
@@ -353,22 +391,31 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     sharded_mega.check_pairs(u_pairs, v_pairs, mesh, shape)
     if u_pairs.device.type == "cpu":
         shard_multistep_reference(u_pairs, v_pairs, src_slot, steps, consts,
-                                  boundary, shape, part)
+                                  boundary, shape, part, g)
         return
-    r_loc, c_loc, ch = halo.interior_extents(u_pairs)
-    rect = halo.overlap_tiles(r_loc, c_loc, ch)
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs, g.halo)
+    rect = halo.overlap_tiles(r_loc, c_loc, ch, (g.tr, g.tc), g.halo)
     if part == "interior" and rect[1] == rect[0]:
         return
-    fn = _shard_kernel(u_pairs.dtype)
+    bf16 = u_pairs.dtype == torch.bfloat16
+    pinned = not g.compiled
+    fn = _pinned_shard_kernel(u_pairs.dtype) if pinned \
+        else _shard_kernel(u_pairs.dtype)
     stream = torch.cuda.current_stream(u_pairs.device).cuda_stream
     err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), mesh.n_rows,
              mesh.n_cols, r_loc, c_loc, ch, src_slot, shape[0], shape[1],
-             steps, PARTS.index(part), *rect, int(boundary == "naive"),
-             u_pairs.device.index, *consts.weights, *consts.reaction, stream)
+             steps, PARTS.index(part), *rect, *((*g,) if pinned else ()),
+             int(boundary == "naive"), u_pairs.device.index,
+             *consts.weights, *consts.reaction, stream)
     if err != 0:
-        raise RuntimeError(f"windowed shard kernel launch failed: CUDA error "
-                           f"{err} ({build.error_name(err)})")
-    if u_pairs.dtype == torch.bfloat16:
+        raise RuntimeError(f"windowed shard kernel launch failed "
+                           f"({g.label()}): CUDA error {err} "
+                           f"({build.error_name(err)})")
+    if pinned and bf16:
+        pinned_bf16_shard_launches += 1
+    elif pinned:
+        pinned_shard_launches += 1
+    elif bf16:
         bf16_shard_launches += 1
     else:
         shard_launches += 1

@@ -15,7 +15,13 @@ sharded megakernel K7 (``ops/sharded_mega.py``); the windowed engine's K1
 and carries which slot is current. Around the interior lie ``HALO`` rows of
 the row neighbours' cells and, on 2-D meshes, ``chalo = COL_HALO`` columns
 of the column neighbours' cells (corners from the diagonal neighbours); on
-1-D meshes ``chalo`` is 0. The TPU layout's 128-lane column ring is not
+1-D meshes ``chalo`` is 0. The windowed engine at a K pin lays its shards
+out with a deeper halo, ``halo_for_steps(K)`` rows, and as many columns on
+a 2-D mesh (``grayscott_tpu/backends/sharded.py:137-139``, ``:243-252``):
+the mesh carries it (``Mesh.halo``), and every function of the layout
+takes it; K7's is always ``HALO``. A shard thinner than its halo along a
+split axis cannot fill its neighbour's halo from its own interior
+(:func:`thin_shard`). The TPU layout's 128-lane column ring is not
 needed: only ``HALO`` of its columns are ever pushed
 (``grayscott_tpu/ops/megakernel.py:301-309``).
 
@@ -56,11 +62,14 @@ _shared_logged = False
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_rows x n_cols`` shards, all on ``device``."""
+    """``n_rows x n_cols`` shards, all on ``device``, whose pairs hold
+    ``halo`` rows of each row neighbour's cells (and as many columns of
+    each column neighbour's on a 2-D mesh)."""
 
     n_rows: int
     n_cols: int
     device: torch.device
+    halo: int = HALO
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -72,12 +81,17 @@ class Mesh:
 
     @property
     def chalo(self) -> int:
-        return col_halo(self.n_cols)
+        return col_halo(self.n_cols, self.halo)
+
+    def with_halo(self, halo: int) -> "Mesh":
+        """The same shards with pairs of ``halo`` rows (and columns)."""
+        return dataclasses.replace(self, halo=halo)
 
 
-def col_halo(n_cols: int) -> int:
-    """Halo columns of a shard: COL_HALO on 2-D meshes, else 0."""
-    return COL_HALO if n_cols > 1 else 0
+def col_halo(n_cols: int, halo: int = COL_HALO) -> int:
+    """Halo columns of a shard: ``halo`` (COL_HALO unless a K pin deepens
+    it) on 2-D meshes, else 0."""
+    return halo if n_cols > 1 else 0
 
 
 def visible_cards(device: torch.device) -> int:
@@ -168,17 +182,38 @@ def shard_extents(shape, mesh: Mesh) -> Tuple[int, int]:
             _tile_rounded(c, mesh.n_cols, QUANTUM))
 
 
+def thin_shard(shape, mesh: Mesh) -> str | None:
+    """Why shards of ``shape`` on ``mesh`` cannot run at its halo, or None:
+    along a split axis a shard must hold at least ``mesh.halo`` interior
+    cells, which the exchange copies into its neighbour's halo. JAX's
+    exchange takes the same one hop (``grayscott_tpu/parallel/halo.py:
+    206-216``) and checks nothing; from a thinner shard it sends the
+    sender's own halo rows, and its windowed engine's result turns to NaN
+    (``ShardedSimulation(engine="windowed", steps_per_call=32)`` on 4 row
+    shards of 16 rows, interpret mode). The port refuses such a layout
+    instead."""
+    r_loc, c_loc = shard_extents(shape, mesh)
+    if mesh.n_rows > 1 and r_loc < mesh.halo:
+        return (f"shards of {r_loc} rows are thinner than their {mesh.halo}"
+                " halo rows")
+    if mesh.n_cols > 1 and c_loc < mesh.chalo:
+        return (f"shards of {c_loc} columns are thinner than their "
+                f"{mesh.chalo} halo columns")
+    return None
+
+
 def pair_shape(shape, mesh: Mesh) -> Tuple[int, ...]:
     """The shape of one species' pairs for a domain of ``shape``."""
     r_loc, c_loc = shard_extents(shape, mesh)
-    return (mesh.n_rows, mesh.n_cols, 2, HALO + r_loc + HALO,
+    return (mesh.n_rows, mesh.n_cols, 2, mesh.halo + r_loc + mesh.halo,
             mesh.chalo + c_loc + mesh.chalo)
 
 
-def interior_extents(pairs: torch.Tensor) -> Tuple[int, int, int]:
-    """(r_loc, c_loc, chalo) of pairs in the shard layout."""
-    chalo = col_halo(pairs.shape[1])
-    return pairs.shape[3] - 2 * HALO, pairs.shape[4] - 2 * chalo, chalo
+def interior_extents(pairs: torch.Tensor,
+                     halo: int = HALO) -> Tuple[int, int, int]:
+    """(r_loc, c_loc, chalo) of pairs in the shard layout of ``halo``."""
+    chalo = col_halo(pairs.shape[1], halo)
+    return pairs.shape[3] - 2 * halo, pairs.shape[4] - 2 * chalo, chalo
 
 
 def mega_shard_state(u, v, mesh: Mesh, dtype: torch.dtype = torch.float32
@@ -196,30 +231,33 @@ def mega_shard_state(u, v, mesh: Mesh, dtype: torch.dtype = torch.float32
         r, c = x.shape
         pairs = torch.zeros(pair_shape((r, c), mesh), dtype=dtype,
                             device=mesh.device)
-        r_loc, c_loc, ch = interior_extents(pairs)
+        h = mesh.halo
+        r_loc, c_loc, ch = interior_extents(pairs, h)
         full = torch.zeros((mesh.n_rows * r_loc, mesh.n_cols * c_loc),
                            dtype=torch.float32, device=mesh.device)
         full[:r, :c] = x
-        pairs[:, :, 0, HALO:HALO + r_loc, ch:ch + c_loc] = full.reshape(
+        pairs[:, :, 0, h:h + r_loc, ch:ch + c_loc] = full.reshape(
             mesh.n_rows, r_loc, mesh.n_cols, c_loc).permute(0, 2, 1, 3)
         out.append(pairs)
     return out[0], out[1]
 
 
-def mega_unshard_result(pairs: torch.Tensor, shape,
-                        slot: int = 0) -> torch.Tensor:
-    """The interiors of ``slot``, reassembled and cropped to (R, C): a new
-    float32 tensor (bfloat16 pairs widen exactly), as JAX's host views are
-    (``grayscott_tpu/parallel/halo.py:719`` and ``:673``)."""
+def mega_unshard_result(pairs: torch.Tensor, shape, slot: int = 0,
+                        halo: int = HALO) -> torch.Tensor:
+    """The interiors of ``slot`` of pairs of ``halo``, reassembled and
+    cropped to (R, C): a new float32 tensor (bfloat16 pairs widen exactly),
+    as JAX's host views are (``grayscott_tpu/parallel/halo.py:719`` and
+    ``:673``)."""
     r, c = shape
     n_r, n_c = pairs.shape[:2]
-    r_loc, c_loc, ch = interior_extents(pairs)
-    interior = pairs[:, :, slot, HALO:HALO + r_loc, ch:ch + c_loc]
+    r_loc, c_loc, ch = interior_extents(pairs, halo)
+    interior = pairs[:, :, slot, halo:halo + r_loc, ch:ch + c_loc]
     full = interior.permute(0, 2, 1, 3).reshape(n_r * r_loc, n_c * c_loc)
     return full[:r, :c].to(torch.float32, copy=True)
 
 
-def exchange_halos(pairs: torch.Tensor, slot: int = 0) -> None:
+def exchange_halos(pairs: torch.Tensor, slot: int = 0,
+                   halo: int = HALO) -> None:
     """Fill the halos of ``slot`` from the neighbours, in place: first the
     rows, across the whole width, then the columns across every row, halo
     rows included, so that the corners arrive from the diagonal neighbours
@@ -229,9 +267,10 @@ def exchange_halos(pairs: torch.Tensor, slot: int = 0) -> None:
     shard's ``slot`` is the zero-padded domain's block around its
     interior. Eight copies of slices (four on a 1-D mesh), each across
     every shard at once; they read only interior cells and the halo rows
-    they filled first, and write only halo cells."""
-    r_loc, c_loc, ch = interior_extents(pairs)
-    h, x = HALO, pairs[:, :, slot]
+    they filled first, and write only halo cells. ``halo``: the layout's
+    (the pairs' halo rows; :func:`thin_shard` must hold)."""
+    r_loc, c_loc, ch = interior_extents(pairs, halo)
+    h, x = halo, pairs[:, :, slot]
     x[1:, :, :h] = x[:-1, :, r_loc:r_loc + h]
     x[0, :, :h] = 0.0
     x[:-1, :, h + r_loc:] = x[1:, :, h:2 * h]
@@ -243,40 +282,43 @@ def exchange_halos(pairs: torch.Tensor, slot: int = 0) -> None:
         x[:, -1, :, ch + c_loc:] = 0.0
 
 
-def overlap_tiles(r_loc: int, c_loc: int,
-                  chalo: int) -> Tuple[int, int, int, int]:
+def overlap_tiles(r_loc: int, c_loc: int, chalo: int,
+                  tile: Tuple[int, int] = (WINDOWED_TILE, WINDOWED_TILE),
+                  halo: int = HALO) -> Tuple[int, int, int, int]:
     """The overlap-interior tiles of a shard, ``(ti0, ti1, tj0, tj1)``
-    (tile rows ``[ti0, ti1)``, tile columns ``[tj0, tj1)``): the
-    WINDOWED_TILE tiles, anchored at the shard's interior origin, whose
-    window (the tile and HALO cells around it) lies inside the shard's
+    (tile rows ``[ti0, ti1)``, tile columns ``[tj0, tj1)``): the ``tile``
+    (tr, tc) tiles, anchored at the shard's interior origin, whose window
+    (the tile and ``halo`` cells around it) lies inside the shard's
     interior rows and, on a 2-D mesh (``chalo`` > 0), its interior
     columns. Their windows read no halo cell, so the windowed engine can
     step them while the exchange fills the halos; every other tile is an
     overlap-edge tile. The rectangle may be empty. A 1-D mesh has no halo
     columns: every tile column is in."""
-    t = WINDOWED_TILE
+    def inner(extent: int, t: int) -> Tuple[int, int]:
+        # tile i's window [i*t - halo, i*t + t + halo) inside [0, extent)
+        first, end = -(-halo // t), (extent - halo) // t
+        return (first, end) if end > first else (0, 0)
 
-    def inner(extent: int) -> Tuple[int, int]:
-        # tile i's window [i*t - HALO, i*t + t + HALO) inside [0, extent)
-        last = (extent - t - HALO) // t
-        return (1, last + 1) if last >= 1 else (0, 0)
-
-    ti0, ti1 = inner(r_loc)
-    tj0, tj1 = inner(c_loc) if chalo else (0, -(-c_loc // t))
+    tr, tc = tile
+    ti0, ti1 = inner(r_loc, tr)
+    tj0, tj1 = inner(c_loc, tc) if chalo else (0, -(-c_loc // tc))
     if ti1 <= ti0 or tj1 <= tj0:
         return (0, 0, 0, 0)
     return ti0, ti1, tj0, tj1
 
 
-def overlap_engages(r_loc: int, c_loc: int, n_cols: int) -> bool:
+def overlap_engages(r_loc: int, c_loc: int, n_cols: int,
+                    tile: Tuple[int, int] = (WINDOWED_TILE, WINDOWED_TILE),
+                    halo: int = HALO) -> bool:
     """Whether the windowed engine's overlap split takes effect on shards
-    of ``r_loc x c_loc`` interior cells in a mesh of ``n_cols`` columns:
-    every shard has at least one overlap-interior tile
-    (:func:`overlap_tiles`; all shards share the extents). Else
-    ``overlap`` runs serialized, as JAX falls back
+    of ``r_loc x c_loc`` interior cells in a mesh of ``n_cols`` columns, on
+    ``tile`` tiles at ``halo``: every shard has at least one
+    overlap-interior tile (:func:`overlap_tiles`; all shards share the
+    extents). Else ``overlap`` runs serialized, as JAX falls back
     (``grayscott_tpu/parallel/halo.py:96-109``). The backend and the
     sharded tuner both read it."""
-    ti0, ti1, _, _ = overlap_tiles(r_loc, c_loc, col_halo(n_cols))
+    ti0, ti1, _, _ = overlap_tiles(r_loc, c_loc, col_halo(n_cols, halo),
+                                   tile, halo)
     return ti1 > ti0
 
 
@@ -307,8 +349,9 @@ def push_halos(pairs: torch.Tensor, slot: int,
                directions: Sequence[Tuple[int, int]] = DIRECTIONS) -> None:
     """Every shard's pushes into its neighbours' halos of ``slot``, in
     place: the plain version of the megakernel's exchange at the end of a
-    time block. Row pushes span the interior columns, column pushes the
-    interior rows, corner pushes a HALO x COL_HALO corner."""
+    time block (K7's layout, ``HALO``). Row pushes span the interior
+    columns, column pushes the interior rows, corner pushes a HALO x
+    COL_HALO corner."""
     n_r, n_c = pairs.shape[:2]
     r_loc, c_loc, ch = interior_extents(pairs)
     for dr, dc in directions:

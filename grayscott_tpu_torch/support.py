@@ -60,21 +60,42 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
      "pack=on, as in JAX); an unpinned dimension 64, or the largest "
      "multiple of 8 whose window fits; a window past 232,448 B of shared "
      "memory rejected with its bytes; auto then runs K1"),
+    ("block_rows/block_cols x mega (K2) x f32/bf16/fold", "ok",
+     "K2's tile height (a positive multiple of 8) and width (a positive "
+     "multiple of 128; at least the domain's width: unpinned), else JAX's "
+     "refusal, also of a column tile with naive_fix=store; an unpinned "
+     "dimension 64 or the largest multiple of 8 whose window fits; a window "
+     "past 232,448 B rejected with its bytes; an engine: mega record's "
+     "tiles where none is pinned"),
+    ("block_rows x mega x pack (K6)", "ok",
+     "K6's tile height (a positive multiple of 8, else JAX's refusal); "
+     "block_cols rejected with pack=on, as in JAX"),
     ("sharded mega (K7) x 1-D/2-D mesh x f32/bf16", "ok",
      "all shards on one card; row meshes wait at the read site, 2-D meshes "
-     "gate each time block's entry"),
+     "gate each time block's entry; K = 8 only"),
+    ("block_rows/block_cols x sharded mega (K7) x 1-D/2-D mesh x f32/bf16",
+     "ok",
+     "each shard's tile height (a positive multiple of 8) and width (a "
+     "positive multiple of 128; at least the domain's width on a row mesh "
+     "unpinned, on a 2-D mesh one tile column across the shard), else "
+     "JAX's refusal; the read-site wait finds its tile row from the pinned "
+     "height"),
     ("sharded windowed (K1's shard entry) x 1-D/2-D mesh x f32/bf16", "ok",
      "--sharded-overlap splits interior and edge calls where a shard has "
      "interior tiles"),
+    ("steps_per_call 1..32/block_rows x sharded windowed x f32/bf16", "ok",
+     "K steps a launch with halos of max(ceil(K/8)*8, 8) rows (and "
+     "columns on a 2-D mesh), bf16 rounded once a K-step block; the row "
+     "tile of each shard; block_cols rejected, as in JAX; a shard thinner "
+     "than its halo rejected; overlap splits at the pinned tile"),
     ("bf16 storage x resident/pack/lane fold", "rejected",
      "bf16 rides K1, K2 and the sharded engines only"),
     ("lane fold (fold > 1)", "rejected",
      "ROADMAP.md Queue 2 item 7 (the lane-fold layout); auto, off and 1 "
      "run"),
-    ("block_rows/block_cols x mega (K2, K6); K and tiles x sharded",
-     "rejected",
-     "ROADMAP.md Queue 2 item 12 (the megakernels' tile pins, the sharded "
-     "engines' K and tiles)"),
+    ("mega_depth > 2 x block_rows/block_cols x mega (K2)", "rejected",
+     "ROADMAP.md Queue 2 item 12 (the window ring at a pinned tile); "
+     "either alone runs"),
     ("GRAYSCOTT_COORDINATOR (several processes)", "rejected",
      "ROADMAP.md Queue 1 item 7.2 (several processes over "
      "torch.distributed)"),

@@ -150,7 +150,8 @@ def test_close_call_is_measured_again(monkeypatch, rates, again):
     """When the runner-up is within 3 % of the winner both are measured
     again and the better of each counts, as in JAX; else nothing is."""
     calls = []
-    first = len(autotune.default_candidates(Parameters(), "naive"))
+    first = len(autotune.default_candidates(Parameters(), "naive",
+                                            shape=SHAPE))
 
     def fake(params, shape, boundary, steps, dtype, reps, device, **cfg):
         engine = "resident" if cfg.get("resident") == "on" else cfg["engine"]
@@ -299,14 +300,16 @@ def test_cli_autotune_measures_once_then_follows_the_record():
 def test_cli_autotune_refuses_sharded_and_skips_the_rungs():
     """``--autotune --backend sharded`` runs the sharded tuner
     (tests/test_torch_sharded_autotune.py); with a pin the sharded backend
-    does not run (a tile pin; bf16 storage runs since it was ported:
-    tests/test_torch_bf16.py) it is refused before anything is measured.
-    The plain rungs ignore ``--autotune``."""
+    does not run (a column tile on the windowed engine, JAX's refusal; bf16
+    storage and the tile and K pins run since they were ported:
+    tests/test_torch_bf16.py, tests/test_torch_sharded_pins.py) it is
+    refused before anything is measured. The plain rungs ignore
+    ``--autotune``."""
     before = autotune.measurements
     ns = simulate.build_parser().parse_args(
         ["--autotune", "--device", "cpu", "--backend", "sharded",
-         "--sharded-engine", "mega", "--pallas-block-rows", "64"])
-    with pytest.raises(UnsupportedConfigError, match="Queue 2 item 12"):
+         "--sharded-engine", "windowed", "--pallas-block-cols", "128"])
+    with pytest.raises(UnsupportedConfigError, match="column layout"):
         shared.make_simulation(ns)
     assert autotune.measurements == before and cache.load_autotune() == {}
     shared.make_simulation(simulate.build_parser().parse_args(

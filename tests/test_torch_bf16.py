@@ -332,8 +332,8 @@ def test_autotune_candidates_and_cli(monkeypatch):
     p = Parameters()
     assert autotune.default_candidates(p, "zero", "bfloat16") == [
         {"engine": "windowed"}, {"engine": "mega"},
-        *autotune.WINDOWED_EXTRA]
-    assert len(autotune.default_candidates(p, "zero")) == 11
+        *autotune.WINDOWED_EXTRA, *autotune.MEGA_EXTRA]
+    assert len(autotune.default_candidates(p, "zero")) == 13
     before = autotune.measurements
     ns = simulate.build_parser().parse_args(
         ["--autotune", "--device", "cpu", "--pallas-dtype", "bfloat16",

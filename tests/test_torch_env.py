@@ -169,7 +169,8 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
 
 #: the ROADMAP.md items the port has done: a value of theirs runs
 PORTED = ("Queue 2 item 1", "Queue 2 item 3", "Queue 2 item 4",
-          "Queue 2 item 5", "Queue 2 item 6", "Queue 2 item 8")
+          "Queue 2 item 5", "Queue 2 item 6", "Queue 2 item 8",
+          "Queue 2 item 12")
 
 #: argv -> the ROADMAP.md item of the value (None, or an item in PORTED: it
 #: runs; another: the port's refusal names it)
@@ -194,6 +195,10 @@ ARGV = [
     (["--pallas-block-cols", "256"], "Queue 2 item 8"),
     (["--pallas-engine", "mega", "--pallas-runtime-params", "off",
       "--pallas-fold", "off", "--pallas-steps-per-call", "8"], None),
+    (["--pallas-engine", "mega", "--pallas-block-rows", "16"],
+     "Queue 2 item 12"),
+    (["--pallas-engine", "mega", "--pallas-block-rows", "8",
+      "--pallas-block-cols", "256"], "Queue 2 item 12"),
 ]
 
 
@@ -261,6 +266,8 @@ CONSTRUCTOR = [
      "Queue 2 item 1"),
     ({"fold": 4}, "Queue 2 item 7"),
     ({"steps_per_call": 16}, "Queue 2 item 8"),
+    ({"engine": "mega", "block_rows": 16}, "Queue 2 item 12"),
+    ({"engine": "mega", "pack": "on", "block_rows": 8}, "Queue 2 item 12"),
 ]
 
 

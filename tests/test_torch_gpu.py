@@ -915,7 +915,9 @@ def test_sharded_mega_geometries_bitwise(cuda_device, boundary, shape, n,
             halo.exchange_halos(p)
         want = [p.clone() for p in pairs]
         sharded_mega.sharded_megastep(*pairs, mesh, 3, 8, consts, boundary,
-                                      shape, tile=tile)
+                                      shape,
+                                      geometry=geometry.Geometry(tile, tile,
+                                                                 8))
         sharded_mega.sharded_megastep_reference(*want, 3, 8, consts,
                                                 boundary, shape)
         torch.cuda.synchronize()
@@ -1584,7 +1586,8 @@ def test_k7_read_site_bitwise_equals_entry_gate(cuda_device, boundary, shape,
                 before = sharded_mega.read_site_launches
                 sharded_mega.sharded_megastep(
                     *pairs, mesh, n_blocks, steps, consts, boundary, shape,
-                    tile=tile, read_site=read_site)
+                    geometry=geometry.Geometry(tile, tile, 8),
+                    read_site=read_site)
                 assert sharded_mega.read_site_launches == before + read_site
             runs.append(pairs)
         torch.cuda.synchronize()
@@ -1734,3 +1737,164 @@ def test_pinned_kernels_do_not_spill(cuda_device, tmp_path):
     spills = ptxas_spills("packed.cu", "20packed_pinned_kernel", tmp_path)
     assert len(spills) == 1 and all(v == (0, 0) for v in spills.values()), \
         spills
+
+
+# -- the megakernels' tile pins, the sharded windowed engine's K -------------
+
+#: K2's pinned geometries (tr, tc), and the shapes: a last tile row of one
+#: row (1025 = 1024 + 1) and ragged ones
+MEGA_PIN_CASES = [(8, 64), (32, 128), (16, 256), (128, 32), (24, 40)]
+MEGA_PIN_SHAPES = [(70, 97), (1025, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,boundary", [
+    ("f32", "naive"), ("f32", "zero"), ("bf16", "naive"), ("bf16", "zero"),
+    ("fold", "naive"), ("fold bf16", "naive")])
+def test_mega_pinned_entries_bitwise_equal_plain(cuda_device, entry,
+                                                 boundary):
+    """Each pinned entry of K2 (csrc/mega_pins.cu) on each geometry of
+    MEGA_PIN_CASES, two time blocks of 8 steps and one of 3, against its
+    plain version: bit for bit, NaN and Inf included (bf16: NaN's bit
+    pattern aside), counted on its own counter. Tolerance: none."""
+    fold = entry.startswith("fold")
+    dtype = torch.bfloat16 if entry.endswith("bf16") else torch.float32
+    params = Parameters()
+    consts = fold_constants(params) if fold else kernel_constants(params)
+    counter = {(torch.float32, False): "pinned_launches",
+               (torch.bfloat16, False): "pinned_bf16_launches",
+               (torch.float32, True): "pinned_fold_launches",
+               (torch.bfloat16, True): "pinned_fold_bf16_launches"}[
+                   dtype, fold]
+    for shape in MEGA_PIN_SHAPES:
+        for u, v in fold_states(shape, cuda_device, dtype):
+            for n_blocks, steps in ((2, 8), (1, 3)):
+                if fold:
+                    want = megakernel.megastep_reference_fold(
+                        u, v, n_blocks, steps, consts)
+                elif dtype == torch.bfloat16:
+                    want = megakernel.megastep_reference_bf16(
+                        u, v, n_blocks, steps, consts, boundary)
+                else:
+                    want = stencil.run(u, v, n_blocks * steps, consts,
+                                       boundary)
+                for tr, tc in MEGA_PIN_CASES:
+                    g = geometry.Geometry(tr, tc, 8)
+                    up, vp = (megakernel.pair_state(x) for x in (u, v))
+                    before = getattr(megakernel, counter)
+                    megakernel.megastep(up, vp, n_blocks, steps, consts,
+                                        boundary, fold=fold, geometry=g)
+                    torch.cuda.synchronize()
+                    assert getattr(megakernel, counter) == before + 1
+                    assert all(bf16_equal(a, b) for a, b in
+                               zip((up[0], vp[0]), want)), (shape, g)
+
+
+@pytest.mark.gpu
+def test_packed_mega_pinned_bitwise_equals_plain(cuda_device):
+    """K6's pinned entry on its row tiles: ``packed_run`` bit for bit."""
+    pc = packed_constants(Parameters())
+    for shape in MEGA_PIN_SHAPES:
+        for u, v in fold_states(shape, cuda_device, torch.float32):
+            x = packed.pack_state(u, v)
+            want = packed.packed_run(x, 16, pc)
+            for tr in (8, 32, 128):
+                g = geometry.mega_resolve(shape, tr)
+                xp = megakernel.pair_state(x)
+                before = megakernel.packed_pinned_launches
+                megakernel.packed_megastep(xp, 2, 8, pc, geometry=g)
+                torch.cuda.synchronize()
+                assert megakernel.packed_pinned_launches == before + 1
+                assert bits_equal(xp[0], want), (shape, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mesh", [(1, 4), (4, 1), (2, 2)])
+def test_sharded_mega_pinned_bitwise_equals_plain(cuda_device, dtype, mesh):
+    """K7's pinned entry (csrc/sharded_mega_pins.cu) on each mesh form,
+    the read-site wait on the row mesh: the plain version bit for bit."""
+    shape = (300, 520)
+    u, v = random_uv(shape, cuda_device)
+    m = halo.Mesh(*mesh, cuda_device)
+    consts = kernel_constants(Parameters())
+    counter = ("pinned_bf16_launches" if dtype == torch.bfloat16
+               else "pinned_launches")
+    for boundary in ("naive", "zero"):
+        up, vp = halo.mega_shard_state(u, v, m, dtype)
+        for x in (up, vp):
+            halo.exchange_halos(x)
+        cu, cv = up.clone(), vp.clone()
+        sharded_mega.sharded_megastep_reference(cu, cv, 3, 8, consts,
+                                                boundary, shape)
+        for tr, tc in ((32, 128), (16, 256), (64, 40)):
+            gu, gv = up.clone(), vp.clone()
+            before = getattr(sharded_mega, counter)
+            sharded_mega.sharded_megastep(
+                gu, gv, m, 3, 8, consts, boundary, shape,
+                geometry=geometry.Geometry(tr, tc, 8))
+            torch.cuda.synchronize()
+            assert getattr(sharded_mega, counter) == before + 1
+            assert all(bf16_equal(halo.mega_unshard_result(a, shape),
+                                  halo.mega_unshard_result(b, shape))
+                       for a, b in ((gu, cu), (gv, cv))), (mesh, tr, tc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mesh", [(4, 1), (2, 2)])
+def test_shard_pinned_bitwise_equals_plain(cuda_device, dtype, mesh):
+    """K1's pinned shard entry (csrc/windowed_pins.cu) at K 4, 16 and 32
+    on row tiles 32 and 64, every part: the plain version at the shard
+    layout's halo, bit for bit."""
+    shape = (400, 300)
+    u, v = random_uv(shape, cuda_device)
+    consts = kernel_constants(Parameters())
+    for k, tr in ((4, 32), (16, 32), (16, 64), (32, 64)):
+        h = geometry.halo_for_steps(k)
+        m = halo.Mesh(*mesh, cuda_device, h)
+        r_loc, c_loc = halo.shard_extents(shape, m)
+        g = geometry.resolve((r_loc, c_loc), k, tr)
+        up, vp = halo.mega_shard_state(u, v, m, dtype)
+        for x in (up, vp):
+            halo.exchange_halos(x, 0, h)
+        for part in windowed.PARTS:
+            cu, cv = up.clone(), vp.clone()
+            windowed.shard_multistep_reference(cu, cv, 0, k, consts,
+                                               "naive", shape, part, g)
+            gu, gv = up.clone(), vp.clone()
+            windowed.shard_multistep(gu, gv, m, 0, k, consts, "naive",
+                                     shape, part, geometry=g)
+            torch.cuda.synchronize()
+            assert all(bf16_equal(a, b) for a, b in
+                       zip((gu[:, :, 1], gv[:, :, 1]),
+                           (cu[:, :, 1], cv[:, :, 1]))), (k, tr, part)
+
+
+@pytest.mark.gpu
+def test_pinned_megakernel_grids_follow_the_bytes(cuda_device):
+    """The co-resident blocks of a pinned megakernel launch follow its
+    window's bytes: a small window holds more blocks an SM than Main's, a
+    large one fewer; the card holds at least one a shard."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    small, large = geometry.Geometry(8, 64, 8), geometry.Geometry(64, 128, 8)
+    assert megakernel.pinned_max_blocks(cuda_device, small) >= \
+        megakernel.max_blocks(cuda_device) >= \
+        megakernel.pinned_max_blocks(cuda_device, large) >= sms
+    assert megakernel.packed_pinned_max_blocks(cuda_device, large) >= sms
+    assert sharded_mega.pinned_max_blocks(cuda_device, small) >= sms
+
+
+@pytest.mark.gpu
+def test_new_pinned_kernels_do_not_spill(cuda_device, tmp_path):
+    """ptxas's report of the megakernels' and the shard entry's pinned
+    instantiations (the default stencils' tap set and any other): no
+    spill."""
+    for source, kernel, count in (
+            ("mega_pins.cu", "18mega_pinned_kernel", 12),
+            ("mega_pins.cu", "25packed_mega_pinned_kernel", 1),
+            ("sharded_mega_pins.cu", "26sharded_mega_pinned_kernel", 16),
+            ("windowed_pins.cu", "19shard_pinned_kernel", 8)):
+        spills = ptxas_spills(source, kernel, tmp_path)
+        assert len(spills) == count, (kernel, spills)
+        assert all(v == (0, 0) for v in spills.values()), spills

@@ -145,9 +145,9 @@ def test_pins_name_their_engine(pins, engine):
     {"resident": "on", "engine": "windowed"},
     {"mega_specialize": True, "naive_fix": "store"},  # JAX's refusal
     {"fold": 2},
-    # the megakernel's tile pin (ROADMAP.md Queue 2 item 12; on K1 the pin
-    # runs since item 8: tests/test_torch_tile_pins.py)
-    {"block_cols": 128, "engine": "mega"},
+    # the window ring at a pinned tile (ROADMAP.md Queue 2 item 12; the
+    # tile pin alone runs: tests/test_torch_mega_pins.py)
+    {"block_cols": 128, "engine": "mega", "mega_depth": 3},
 ])
 def test_unported_or_conflicting_pins_raise(kwargs):
     with pytest.raises(UnsupportedConfigError):

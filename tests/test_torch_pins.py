@@ -160,7 +160,8 @@ def test_every_key_reaches_the_backend(cfg, kw, value):
 
 @pytest.mark.parametrize("cfg,item,error", [
     ({"k": 33}, "steps_per_call must be in", ValueError),
-    ({"tr": 64, "engine": "mega"}, "Queue 2 item 12", UnsupportedConfigError),
+    ({"tr": 64, "engine": "mega", "depth": 3}, "Queue 2 item 12",
+     UnsupportedConfigError),
     ({"tc": 128, "pack": "on", "boundary": "zero"}, "no fold/column tiling",
      UnsupportedConfigError),
     ({"fold": 2}, "Queue 2 item 7", UnsupportedConfigError),
@@ -204,13 +205,15 @@ def test_bf16_fold_config_runs_and_files_under_its_key(store, capsys,
 
 
 def test_dtype_flag_sets_every_config(store, capsys):
-    """``--dtype`` reaches every configuration; ``k=16``, refused until
-    the K pin was ported, runs; the megakernel's tile pin is refused
-    naming its item (the sweep goes on)."""
+    """``--dtype`` reaches every configuration; ``k=16`` and the
+    megakernel's tile pin, refused until they were ported, run; the window
+    ring at a pinned tile is refused naming its item (the sweep goes
+    on)."""
     assert sweep.main(["--device", "cpu", "--shape", "24x32", "--steps",
                        "8", "--boundary", "naive", "--dtype", "bfloat16",
                        "--configs", "engine=mega:depth=4", "nfold=on",
-                       "engine=windowed:k=16", "engine=mega:tr=32"]) == 0
+                       "engine=windowed:k=16", "engine=mega:tr=32",
+                       "engine=mega:tr=32:depth=4"]) == 0
     lines = capsys.readouterr().out.splitlines()
     results = [json.loads(ln[len("RESULT "):]) for ln in lines
                if ln.startswith("RESULT ")]
@@ -221,6 +224,8 @@ def test_dtype_flag_sets_every_config(store, capsys):
         {"engine": "windowed", "pack": False, "dtype": "bfloat16",
          "nfold": True, "depth": None},
         {"engine": "windowed", "pack": False, "dtype": "bfloat16",
+         "nfold": False, "depth": None},
+        {"engine": "mega", "pack": False, "dtype": "bfloat16",
          "nfold": False, "depth": None}]
     assert all(r["config"]["dtype"] == "bfloat16" for r in results)
     assert len(errors) == 1 and "Queue 2 item 12" in errors[0]["error"]

@@ -17,7 +17,7 @@ from grayscott_tpu.backends.sharded import ShardedSimulation as JaxSharded
 from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.errors import UnsupportedConfigError
-from grayscott_tpu_torch.ops import sharded_mega, stencil
+from grayscott_tpu_torch.ops import geometry, sharded_mega, stencil
 from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import Parameters, kernel_constants
 from grayscott_tpu_torch.species import Species
@@ -234,18 +234,23 @@ def test_plain_sharded_matches_jax_sharded_mega(rng, params, shape, n, cols,
     {"engine": "mega", "overlap": "on"},
     {"engine": "mega", "overlap": True},
     {"engine": "mega", "steps_per_call": 16},
-    {"engine": "mega", "block_rows": 8},
-    {"engine": "mega", "block_cols": 128},
+    # the tile pins and K run since they were ported
+    # (tests/test_torch_sharded_pins.py); what JAX refuses of them, and
+    # what the shared memory or the exchange cannot hold, raises
+    {"engine": "mega", "block_rows": 12},
+    {"engine": "mega", "block_cols": 100},
     {"engine": "mega", "n_devices": 0},
     {"engine": "mega", "mesh_cols": 0},
-    {"engine": "windowed", "block_rows": 8},
+    {"engine": "mega", "block_rows": 512, "block_cols": 512},
     {"engine": "windowed", "block_cols": 128},
-    {"engine": "windowed", "steps_per_call": 16},
-    {"engine": "auto", "steps_per_call": 4},
+    {"engine": "windowed", "steps_per_call": 32, "n_devices": 4,
+     "mesh_cols": 1},
+    {"engine": "auto", "block_cols": 128},
 ])
 def test_unported_or_conflicting_knobs_raise(kwargs):
     with pytest.raises(UnsupportedConfigError):
-        ShardedSimulation(Parameters(), device="cpu", **kwargs)
+        sim = ShardedSimulation(Parameters(), device="cpu", **kwargs)
+        sim.make_species((64, 640))
 
 
 @pytest.mark.parametrize("kwargs,tag", [
@@ -333,13 +338,13 @@ def test_sharded_megastep_rejects_bad_arguments(kind):
     elif kind == "boundary":
         args["boundary"] = "periodic"
     elif kind == "tile":
-        args["tile"] = 48
+        args["geometry"] = geometry.Geometry(48, 48, 4)
     before = sharded_mega.launches
     with pytest.raises(ValueError):
         sharded_mega.sharded_megastep(
             up, vp, mesh, args["n_blocks"], args["steps"],
             kernel_constants(Parameters()), args["boundary"], shape,
-            grid=args["grid"], tile=args.get("tile"))
+            grid=args["grid"], geometry=args.get("geometry"))
     assert sharded_mega.launches == before
 
 

@@ -21,6 +21,7 @@ from grayscott_tpu_torch.backends.sharded import ShardedSimulation
 from grayscott_tpu_torch.bench import autotune, defaults
 from grayscott_tpu_torch.cli import shared, simulate
 from grayscott_tpu_torch.errors import UnsupportedConfigError
+from grayscott_tpu_torch.ops import geometry
 from grayscott_tpu_torch.parallel import halo
 from grayscott_tpu_torch.params import Parameters
 from grayscott_tpu_torch.utils import cache
@@ -33,11 +34,23 @@ SPLIT_SHAPE = (300, 300)
 H100 = "h100-80gb-hbm3-sm132"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: its tensors are small, and
+    beside other test processes torch's thread pool spins against them
+    (a tuner test took 685 s so, 11 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def store(monkeypatch, tmp_path):
-    """An empty store of the test's own, and few steps a measurement."""
+    """An empty store of the test's own, and few steps a measurement (8:
+    the candidates at K = 16 run one launch of 8 steps on their layout)."""
     monkeypatch.setenv("GRAYSCOTT_CACHE_DIR", str(tmp_path / "store"))
-    monkeypatch.setattr(autotune, "STEPS", 16)
+    monkeypatch.setattr(autotune, "STEPS", 8)
     return tmp_path / "store"
 
 
@@ -91,9 +104,10 @@ def test_every_pin_keys_its_own_record():
 def test_candidates_honour_every_pin(shape, n, pins):
     """Each candidate runs what the pins allow: the pinned mesh (else each
     viable one), the pinned engine, the pinned overlap (on excludes the
-    megakernel), and overlap on only where the split engages. Unpinned,
-    each viable mesh has windowed off, windowed on where it engages, and
-    mega."""
+    megakernel), and overlap on only where the split engages on the
+    candidate's row tile. Unpinned, each viable mesh has, at K 16 and 8,
+    windowed off, windowed on (on JAX's ``tr_ov``) where it engages, and at
+    K = 16 windowed on half the default row tile; then mega."""
     cands = autotune._sharded_candidates(shape, n, **pins)
     meshes = ([pins["mesh_cols"]] if pins["mesh_cols"]
               else halo.viable_mesh_cols(shape, n) or [1])
@@ -104,20 +118,31 @@ def test_candidates_honour_every_pin(shape, n, pins):
     for nc in meshes:
         r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(n // nc, nc,
                                                            None))
-        for engine, overlap in (("windowed", False), ("windowed", True),
-                                ("mega", None)):
-            if pins["engine"] not in (None, engine):
+        for k, variant in itertools.product((16, 8), ("off", "on", "half")):
+            if pins["engine"] == "mega" or pins["overlap"] not in (
+                    None, variant == "on"):
                 continue
-            if engine == "mega" and pins["overlap"] is True:
+            if variant == "half" and k == 8:
                 continue
-            if engine == "windowed" and pins["overlap"] not in (None,
-                                                                overlap):
-                continue
-            if overlap and not halo.overlap_engages(r_loc, c_loc, nc):
-                continue
-            want.append({"engine": engine, "mesh_cols": nc,
-                         **({} if overlap is None
-                            else {"overlap": overlap})})
+            h = max(-(-k // 8) * 8, 8)
+            cfg = {"engine": "windowed", "mesh_cols": nc,
+                   "steps_per_call": k, "overlap": variant == "on"}
+            if variant == "on":
+                tr = max(h, -(-shape[0] // (n // nc)) // 3 // 8 * 8)
+                try:
+                    g = geometry.resolve((r_loc, c_loc), k, tr)
+                except UnsupportedConfigError:
+                    continue
+                if not halo.overlap_engages(r_loc, c_loc, nc,
+                                            (g.tr, g.tc), g.halo):
+                    continue
+                cfg["block_rows"] = tr
+            if variant == "half":
+                cfg["block_rows"] = geometry.resolve((r_loc, c_loc),
+                                                     k).tr // 2
+            want.append(cfg)
+        if pins["engine"] in (None, "mega") and pins["overlap"] is not True:
+            want.append({"engine": "mega", "mesh_cols": nc})
     assert cands == want
     for c in cands:
         assert pins["mesh_cols"] in (None, c["mesh_cols"])
@@ -128,19 +153,30 @@ def test_candidates_honour_every_pin(shape, n, pins):
 
 
 def test_default_candidates_of_the_default_run():
-    """At 1080x1920 in 4 shards: 4x1, 2x2 and 1x4, each with windowed off
-    and on (every one splits) and mega: nine candidates."""
+    """At 1080x1920 in 4 shards: 4x1, 2x2 and 1x4, each with windowed at
+    K = 16 off, on (on JAX's ``tr_ov``, where the split engages: not on
+    1x4 at K = 16, whose 360-row tile leaves no window in the shared
+    memory) and on the half tile, at K = 8 off and on, and mega: seventeen
+    candidates."""
     cands = autotune._sharded_candidates((1080, 1920), 4)
-    assert [(c["mesh_cols"], c["engine"], c.get("overlap")) for c in cands] \
-        == [(nc, e, ov) for nc in (1, 2, 4)
-            for e, ov in (("windowed", False), ("windowed", True),
-                          ("mega", None))]
+    assert [(c["mesh_cols"], c["engine"], c.get("steps_per_call"),
+             c.get("overlap"), c.get("block_rows")) for c in cands] == [
+        (1, "windowed", 16, False, None), (1, "windowed", 16, True, 88),
+        (1, "windowed", 16, False, 32), (1, "windowed", 8, False, None),
+        (1, "windowed", 8, True, 88), (1, "mega", None, None, None),
+        (2, "windowed", 16, False, None), (2, "windowed", 16, True, 176),
+        (2, "windowed", 16, False, 32), (2, "windowed", 8, False, None),
+        (2, "windowed", 8, True, 176), (2, "mega", None, None, None),
+        (4, "windowed", 16, False, None), (4, "windowed", 16, False, 32),
+        (4, "windowed", 8, False, None), (4, "windowed", 8, True, 360),
+        (4, "mega", None, None, None)]
 
 
 def test_sharded_autotune_measures_ranks_and_persists():
     """Every candidate runs; each result names what ran (the mesh, the
     engine, overlap only where it split); the winner is the fastest; the
-    record is keyed on ``cpu`` and carries K = 8 and no tile."""
+    record is keyed on ``cpu`` and carries the K and the row tile that
+    ran."""
     before = autotune.measurements
     rec = autotune.sharded_autotune(Parameters(), SPLIT_SHAPE, "naive",
                                     n_devices=4, reps=1, device="cpu")
@@ -152,7 +188,8 @@ def test_sharded_autotune_measures_ranks_and_persists():
         assert (res["engine"], res["mesh_cols"], res["mesh_rows"]) == (
             cand["engine"], cand["mesh_cols"], 4 // cand["mesh_cols"])
         assert res["overlap"] == bool(cand.get("overlap"))
-        assert res["block_rows"] is None and res["steps_per_call"] == 8
+        assert res["block_rows"] == cand.get("block_rows")
+        assert res["steps_per_call"] == cand.get("steps_per_call", 8)
     assert any(res["overlap"] for res in table)
     assert rec["gcells_per_sec"] == max(c["gcells_per_sec"] for c in table)
     assert "device_gcells_per_sec" not in rec  # no device time on the CPU
@@ -162,9 +199,11 @@ def test_sharded_autotune_measures_ranks_and_persists():
 
 
 def test_no_candidate_under_the_pins_raises():
-    """Overlap on where no shard splits leaves nothing to measure."""
+    """Overlap on where no shard splits leaves nothing to measure (4 row
+    shards of 16 rows: no overlap-interior tile at K 8 or 16, whatever the
+    row tile)."""
     with pytest.raises(UnsupportedConfigError, match="no sharded autotune"):
-        autotune.sharded_autotune(Parameters(), SHAPE, "naive",
+        autotune.sharded_autotune(Parameters(), (64, 300), "naive",
                                   n_devices=4, overlap="on", mesh_cols=1,
                                   device="cpu")
 
@@ -199,6 +238,13 @@ def test_cli_autotune_measures_once_then_follows_the_record(monkeypatch):
      dict(mesh_cols=2, overlap=True)),
     (["--pallas-steps-per-call", "8", "--sharded-mesh-cols", "1"],
      dict(mesh_cols=1, steps_per_call=8)),
+    (["--pallas-steps-per-call", "16", "--sharded-mesh-cols", "2"],
+     dict(mesh_cols=2, steps_per_call=16)),
+    (["--pallas-block-rows", "32", "--sharded-mesh-cols", "2"],
+     dict(mesh_cols=2, block_rows=32)),
+    (["--sharded-engine", "mega", "--pallas-block-cols", "128",
+      "--sharded-mesh-cols", "1"],
+     dict(mesh_cols=1, engine="mega", block_cols=128)),
 ])
 def test_cli_autotune_forwards_every_pin(argv, pins):
     """ADVICE.md #3: every pin of the command line reaches the candidates
@@ -219,19 +265,24 @@ def test_cli_autotune_forwards_every_pin(argv, pins):
         assert pins.get("engine") in (None, res["engine"])
         assert pins.get("overlap") is None or res["engine"] == "mega" or \
             res["overlap"] == pins["overlap"]
+        for name in ("steps_per_call", "block_rows", "block_cols"):
+            assert pins.get(name) in (None, res.get(name))
     sim.make_species(shape)
     assert pins.get("engine") in (None, sim.engine)
     assert pins.get("mesh_cols") in (None, sim.mesh.n_cols)
 
 
 def test_cli_autotune_refuses_unported_pins_before_measuring():
-    """A pin the port does not run (another K, a tile pin; bf16 storage
-    runs since it was ported: tests/test_torch_bf16.py) stops the run
-    before the tuner measures anything."""
-    for argv in (["--pallas-steps-per-call", "16"],
-                 ["--pallas-block-rows", "64"]):
+    """A pin the sharded backend refuses (a column tile on the windowed
+    engine, JAX's refusal; another K and the tile pins run since they were
+    ported: :func:`test_cli_autotune_forwards_every_pin`; bf16 storage:
+    tests/test_torch_bf16.py) stops the run before the tuner measures
+    anything."""
+    for argv in (["--pallas-block-cols", "128"],
+                 ["--sharded-engine", "windowed", "--pallas-block-cols",
+                  "256"]):
         before = autotune.measurements
-        with pytest.raises(UnsupportedConfigError, match="Queue 2 item"):
+        with pytest.raises(UnsupportedConfigError, match="column layout"):
             shared.make_simulation(simulate.build_parser().parse_args(
                 ["--autotune", "--device", "cpu", "--backend", "sharded",
                  *argv]))
@@ -260,18 +311,25 @@ def test_device_time_is_one_interval_never_a_sum_over_shards(monkeypatch):
 @pytest.mark.parametrize("pins", [{}, {"steps_per_call": 8},
                                   {"engine": "windowed"}])
 def test_record_tile_and_k_never_transfer(pins):
-    """ADVICE.md #2: a record that carries a row tile, a column tile or
-    another K (another version's verdict) moves neither into the run, with
-    or without a K pin: the run keeps K = 8 and no tile pin, and runs."""
+    """ADVICE.md #2: a record's row tile moves into the run only at the
+    record's own K. A windowed record of K = 16 and a 16-row tile is
+    adopted whole where K is not pinned (JAX's ``_adopt_record``), and
+    under a K pin of 8 neither its K nor its tile transfers, where JAX
+    adopts the tile; its column tile never reaches the windowed engine.
+    Every run runs."""
     key = cpu_key(**{"steps_per_call": pins.get("steps_per_call"),
                      "engine": pins.get("engine")})
-    put(key, engine="windowed", mesh_cols=2, block_rows=64, block_cols=128,
+    put(key, engine="windowed", mesh_cols=2, block_rows=16, block_cols=128,
         steps_per_call=16, overlap=False)
     sim = ShardedSimulation(Parameters(), device="cpu", n_devices=4, **pins)
     species = sim.make_species(SHAPE)
     assert species.storage[0] == "shwin2d" and sim.mesh.n_cols == 2
-    assert not any(hasattr(sim, a) for a in ("block_rows", "block_cols",
-                                             "steps_per_call"))
+    k, g = species.storage[4]
+    if "steps_per_call" in pins:
+        assert (k, sim.tile_rows, g.tr, g.halo) == (8, None, 64, 8)
+    else:
+        assert (k, sim.tile_rows, g.tr, g.halo) == (16, 16, 16, 16)
+    assert sim.tile_cols is None and g.tc == 64
     sim.perform_steps(species, 9)
 
 
@@ -349,7 +407,7 @@ def test_shipped_sharded_records_name_a_candidate_of_their_key(
         monkeypatch):
     """Each shipped sharded record is keyed on the H100 and names a
     candidate of its key (its mesh, engine and overlap), with K = 8 and no
-    tile; on the CPU ``auto`` never reads it."""
+    tile (K7's default); on the CPU ``auto`` never reads it."""
     assert defaults.SHARDED
     for key, rec in defaults.SHARDED.items():
         base, tail = key.split("|sharded:n")

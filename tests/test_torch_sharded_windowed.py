@@ -38,6 +38,17 @@ OVERLAP_LAYOUTS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the module: its tensors are small, and
+    beside other test processes torch's thread pool spins against them
+    (a tuner test took 685 s so, 11 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def store(monkeypatch, tmp_path):
     """An empty autotune store of the test's own."""
@@ -346,15 +357,24 @@ def test_shard_multistep_rejects_bad_arguments(kind):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"engine": "windowed", "block_rows": 8}, "Queue 2 item 12"),
-    ({"engine": "windowed", "steps_per_call": 16}, "Queue 2 item 12"),
-    ({"steps_per_call": 4}, "Queue 2 item 12"),
+    # the K and row tile run since they were ported
+    # (tests/test_torch_sharded_pins.py); a shard thinner than its halo,
+    # and a window past the shared memory, do not (built at 64x2048, the
+    # second at 512x64)
+    ({"engine": "windowed", "steps_per_call": 16, "n_devices": 8,
+      "mesh_cols": 1}, "thinner than their 16 halo rows"),
+    ({"engine": "windowed", "steps_per_call": 32, "block_rows": 256,
+      "n_devices": 1}, "B of shared memory"),
+    ({"steps_per_call": 24, "n_devices": 4, "mesh_cols": 1},
+     "thinner than their 24 halo rows"),
     ({"engine": "windowed", "block_cols": 128}, "column layout"),
     ({"block_cols": 128}, "column layout"),
 ])
 def test_windowed_refusals_name_their_item(kwargs, item):
+    shape = (512, 64) if kwargs.get("block_rows") else (64, 2048)
     with pytest.raises(UnsupportedConfigError, match=item):
-        ShardedSimulation(Parameters(), device="cpu", **kwargs)
+        sim = ShardedSimulation(Parameters(), device="cpu", **kwargs)
+        sim.make_species(shape)
 
 
 @pytest.mark.parametrize("kwargs", [{"engine": "windowed",
@@ -380,7 +400,7 @@ def test_windowed_engine_runs_bf16(rng, kwargs):
 
 
 #: the ROADMAP.md items the port has done: a pin of theirs runs
-PORTED = ("Queue 2 item 4",)
+PORTED = ("Queue 2 item 4", "Queue 2 item 12")
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -390,16 +410,18 @@ PORTED = ("Queue 2 item 4",)
 ])
 def test_cli_pins_reach_the_sharded_backend(argv, item):
     """The ``--pallas-*`` pins reach the sharded backend, as in JAX
-    (``args_from_namespace``): it runs a pin of an item the port has
-    done (bf16 storage) and refuses what it does not run."""
+    (``args_from_namespace``), and it runs them: bf16 storage, the
+    windowed engine's K and row tile (each an item the port has done)."""
     ns = simulate.build_parser().parse_args(
         ["--device", "cpu", "--backend", "sharded", *argv])
-    if item in PORTED:
-        sim = shared.make_simulation(ns)
-        assert sim.dtype == "bfloat16"
-        return
-    with pytest.raises(UnsupportedConfigError, match=item):
-        shared.make_simulation(ns)
+    assert item in PORTED
+    sim = shared.make_simulation(ns)
+    species = sim.make_species((64, 64))
+    sim.perform_steps(species, 17)
+    assert (sim.dtype, sim.steps_per_call, sim.tile_rows) == {
+        "--pallas-dtype": ("bfloat16", 8, None),
+        "--pallas-steps-per-call": ("float32", 16, None),
+        "--pallas-block-rows": ("float32", 8, 64)}[argv[0]]
 
 
 @pytest.mark.parametrize("value", ["localhost:1234", "auto"])

@@ -85,14 +85,42 @@ SUPPORTED = {
          "windowed"),
         ("cuda", dict(block_rows=32, pack="on", boundary="zero"),
          "packed")],
+    "block_rows/block_cols x mega (K2) x f32/bf16/fold": [
+        ("cuda", dict(engine="mega", block_rows=8), "mega"),
+        ("cuda", dict(engine="mega", block_cols=128, dtype="bfloat16"),
+         "mega"),
+        ("cuda", dict(engine="mega", block_rows=16, block_cols=512,
+                      naive_fold=True), "mega"),
+        ("cuda", dict(engine="mega", block_rows=8, naive_fix="store"),
+         "mega"),
+        ("cuda", dict(engine="mega", block_rows=8, mega_depth=2), "mega")],
+    "block_rows x mega x pack (K6)": [
+        ("cuda", dict(engine="mega", pack="on", boundary="zero",
+                      block_rows=8), "megapack"),
+        ("cuda", dict(engine="mega", pack="on", boundary="zero",
+                      block_rows=256), "megapack")],
     "sharded mega (K7) x 1-D/2-D mesh x f32/bf16": [
         ("sharded", dict(engine="mega", n_devices=2, mesh_cols=1), None),
         ("sharded", dict(engine="mega", n_devices=4, mesh_cols=2), None)],
+    "block_rows/block_cols x sharded mega (K7) x 1-D/2-D mesh x f32/bf16": [
+        ("sharded", dict(engine="mega", n_devices=2, mesh_cols=1,
+                         block_rows=8), "shmega"),
+        ("sharded", dict(engine="mega", n_devices=4, mesh_cols=2,
+                         block_cols=128, dtype="bfloat16"), "shmega2d"),
+        ("sharded", dict(engine="mega", n_devices=2, mesh_cols=1,
+                         block_rows=16, block_cols=256), "shmega")],
     "sharded windowed (K1's shard entry) x 1-D/2-D mesh x f32/bf16": [
         ("sharded", dict(engine="windowed", n_devices=2, mesh_cols=1),
          None),
         ("sharded", dict(engine="windowed", n_devices=4, mesh_cols=2,
                          overlap="on", dtype="bfloat16"), None)],
+    "steps_per_call 1..32/block_rows x sharded windowed x f32/bf16": [
+        ("sharded", dict(engine="windowed", n_devices=1,
+                         steps_per_call=32), "shwin"),
+        ("sharded", dict(steps_per_call=3, block_rows=8, n_devices=2,
+                         mesh_cols=1, dtype="bfloat16"), "shwin"),
+        ("sharded", dict(steps_per_call=12, n_devices=2, mesh_cols=2,
+                         overlap="on"), "shwin2d")],
 }
 
 #: rejected rows -> cases whose constructor raises UnsupportedConfigError:
@@ -105,13 +133,13 @@ REJECTED = {
     "lane fold (fold > 1)": [
         ("cuda", dict(fold=2)),
         ("cuda", dict(fold=4, engine="mega"))],
-    "block_rows/block_cols x mega (K2, K6); K and tiles x sharded": [
-        ("cuda", dict(block_rows=64, engine="mega")),
-        ("cuda", dict(block_cols=128, engine="mega")),
-        ("cuda", dict(block_rows=32, engine="mega", pack="on",
-                      boundary="zero")),
-        ("sharded", dict(block_rows=64)),
-        ("sharded", dict(steps_per_call=4))],
+    "mega_depth > 2 x block_rows/block_cols x mega (K2)": [
+        ("cuda", dict(block_rows=64, engine="mega", mega_depth=3)),
+        ("cuda", dict(block_cols=128, engine="mega", mega_depth=8)),
+        ("cuda", dict(block_rows=8, block_cols=256, engine="mega",
+                      mega_depth=4, naive_fold=True)),
+        ("cuda", dict(block_rows=32, engine="mega", mega_depth=5,
+                      dtype="bfloat16"))],
 }
 
 #: other refusals the ok rows' notes name
@@ -127,6 +155,8 @@ CONFLICTS = [
     ("cuda", dict(mega_specialize=True, naive_fix="store")),
     ("cuda", dict(steps_per_call=16, engine="mega")),
     ("cuda", dict(block_cols=128, pack="on", boundary="zero")),
+    ("sharded", dict(steps_per_call=16, engine="mega")),
+    ("sharded", dict(block_cols=128, engine="windowed")),
 ]
 
 

@@ -299,9 +299,13 @@ def test_pins_hold_auto_to_the_windowed_kernel(monkeypatch, kwargs,
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"engine": "mega", "steps_per_call": 16}, "fixes steps-per-call"),
-    ({"engine": "mega", "block_rows": 64}, "Queue 2 item 12"),
-    ({"engine": "mega", "block_cols": 64}, "Queue 2 item 12"),
-    ({"engine": "mega", "pack": "on", "block_rows": 32}, "Queue 2 item 12"),
+    # the megakernels' tile pins run (tests/test_torch_mega_pins.py): the
+    # window ring at a pinned tile, and the values JAX's megakernels refuse
+    ({"engine": "mega", "block_rows": 64, "mega_depth": 3},
+     "Queue 2 item 12"),
+    ({"engine": "mega", "block_rows": 12}, "unsupported for shape"),
+    ({"engine": "mega", "pack": "on", "block_rows": 20},
+     "with pack needs full-width"),
     ({"steps_per_call": 32, "block_rows": 64, "block_cols": 64},
      "262144 B"),
 ])

@@ -116,9 +116,8 @@ def test_selection_matches_jax(params, combo):
     run or both raise, with the same exception class and, where the port
     copies JAX's refusal, JAX's message (the K range, the megakernel's K,
     the packed layout's column tiles). Where both run under a pin or an
-    engine pin, the same engine and layout run. The port refuses one
-    thing JAX runs: the megakernels' tile pins (ROADMAP.md Queue 2 item
-    12)."""
+    engine pin, the same engine and layout run, the megakernels' tile pins
+    among them (ported since: tests/test_torch_mega_pins_jax.py)."""
     k, tiles, engine, pack, resident = combo
     kw = dict(steps_per_call=k, engine=engine, pack=pack,
               resident=resident)
@@ -131,12 +130,6 @@ def test_selection_matches_jax(params, combo):
     got = outcome(lambda: CudaSimulation(
         Parameters(), "zero", device="cpu", tuned_lookup=False,
         **kw).build_storage(u, v)[0])
-    if engine == "mega" and tiles is not None and \
-            (k in (None, 8) or want[0] == "runs") and \
-            not (resident == "on"):
-        assert got[:2] == ("raises", "UnsupportedConfigError")
-        assert "Queue 2 item 12" in got[2]
-        return
     assert got[0] == want[0], (got, want)
     if want[0] == "raises":
         assert got[1] == want[1], (got, want)

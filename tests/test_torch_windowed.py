@@ -124,14 +124,17 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
 ])
 def test_unported_knobs_raise(params, knob, value):
     """Each knob where the port does not run it: the lane fold, the packed
-    layout on the naive boundary, and the K and tile pins on the
-    megakernel (ROADMAP.md Queue 2 item 12; on K1 they run:
-    tests/test_torch_tile_pins.py)."""
+    layout on the naive boundary, the megakernel's K (JAX's refusal), and
+    its tile pin with the window ring (ROADMAP.md Queue 2 item 12; the tile
+    pin alone runs: tests/test_torch_mega_pins.py; on K1 the K and tile
+    pins run: tests/test_torch_tile_pins.py)."""
     from grayscott_tpu_torch.errors import UnsupportedConfigError
 
     engine = "mega" if knob in ("block_rows", "steps_per_call") else "auto"
+    ring = {"mega_depth": 3} if knob == "block_rows" else {}
     with pytest.raises(UnsupportedConfigError):
-        CudaSimulation(params, device="cpu", engine=engine, **{knob: value})
+        CudaSimulation(params, device="cpu", engine=engine, **{knob: value},
+                       **ring)
 
 
 @pytest.mark.parametrize("steps", [1, 8])
