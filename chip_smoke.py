@@ -276,6 +276,23 @@
    ``bench.harness`` with ``--block-rows`` and ``--steps-per-call``. Phase
    12's tuner measures K1's and K4's depth and tile candidates. The
    ``kernels`` line gains the five pinned entries.
+20. Several processes (``GRAYSCOTT_COORDINATOR``, ``utils/
+   distributed.py``). (a) K1's shard entries (float32 and bf16 at K = 8,
+   the pinned entry at K = 16, both boundaries) on rank 1's block of 2x2,
+   4x1 and 1x4 split over two processes, at its mesh offset, bit for bit
+   against the plain version there. (b) The script starts itself twice
+   (``--distributed-child``) as the two ranks of a gloo group on the one
+   card, each driving ``simulate.run`` at 1080x1920, 8 images of 32 steps,
+   on the windowed engine on 2x1 (one shard a process; naive, zero,
+   bf16) and 2x2 (a mesh row a process; naive, zero, K = 16 with
+   overlap): every frame of each rank bit for bit the one-process run's,
+   each rank's launch counts (ceil(32 / K) an image, twice with the
+   overlap split, no other kernel), a pinned K7 refused (Queue 1 item
+   7.3); then ms an image of two processes against one in turns on 2x1
+   and 2x2, one exchange, its bands' gloo round trip and one image's
+   gather alone. A child that fails, hangs past DIST_TIMEOUT or exits
+   non-zero fails the phase. The ``kernels`` line gives K1's shard
+   entries their two-process launches by rank.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
@@ -291,6 +308,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import http.client
 import importlib.util
 import json
@@ -298,6 +316,7 @@ import os
 import re
 import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import threading
@@ -5428,15 +5447,282 @@ def pin19_phase(checks: Checks, rng, card: str, log: str) -> tuple:
     return n, runs, times
 
 
+# -- phase 20: two processes of the port on the one card ---------------------
+
+#: the two-process runs: label -> (simulate flags after DIST_BASE, K, the
+#: counter of the entry that runs); 2x1 is one shard a process, 2x2 a mesh
+#: row a process
+DIST_BASE = ["--backend", "sharded", "--sharded-engine", "windowed"]
+DIST_RUNS = {
+    "2x1 naive": (["--sharded-devices", "2", "--sharded-mesh-cols", "1",
+                   "--sharded-overlap", "off"], 8, "shwin"),
+    "2x1 zero": (["--sharded-devices", "2", "--sharded-mesh-cols", "1",
+                  "--sharded-overlap", "off", "--boundary", "zero"], 8,
+                 "shwin"),
+    "2x1 naive bf16": (["--sharded-devices", "2", "--sharded-mesh-cols", "1",
+                        "--sharded-overlap", "off", "--pallas-dtype",
+                        "bfloat16"], 8, "shwin_bf16"),
+    "2x2 naive": (["--sharded-devices", "4", "--sharded-mesh-cols", "2",
+                   "--sharded-overlap", "off"], 8, "shwin"),
+    "2x2 zero": (["--sharded-devices", "4", "--sharded-mesh-cols", "2",
+                  "--sharded-overlap", "off", "--boundary", "zero"], 8,
+                 "shwin"),
+    "2x2 naive k16 overlap": (["--sharded-devices", "4",
+                               "--sharded-mesh-cols", "2",
+                               "--sharded-overlap", "on",
+                               "--pallas-steps-per-call", "16"], 16,
+                              "shwin_pinned"),
+}
+#: the runs timed in turns, one process against two
+DIST_TIMED = ("2x1 naive", "2x2 naive")
+DIST_IMAGES = 8
+#: the children's limit, seconds: a child that hangs past it fails the phase
+DIST_TIMEOUT = 150
+#: exchanges and image gathers timed alone in each child
+DIST_EXCHANGES = 50
+DIST_GATHERS = 10
+
+
+def frame_digests(frames) -> list:
+    return [hashlib.sha256(np.ascontiguousarray(f).tobytes()).hexdigest()
+            for f in frames]
+
+
+def distributed_child(out: str) -> int:
+    """One rank of phase 20 (``chip_smoke.py --distributed-child OUT``):
+    joins the group that ``GRAYSCOTT_COORDINATOR`` names, runs every
+    DIST_RUNS run through ``simulate.run`` with the launch counts zeroed
+    before it and read after, times the DIST_TIMED runs twice (16 images),
+    times DIST_EXCHANGES halo exchanges alone, checks that a pinned K7 is
+    refused, and writes what it found to ``OUT/rank{r}.json``."""
+    from grayscott_tpu_torch.utils import distributed
+
+    distributed.maybe_initialize(init_logging())
+    rank = distributed.process_index()
+    report = {"rank": rank, "processes": distributed.process_count(),
+              "device": str(torch.cuda.current_device()), "runs": {}}
+    for label, (flags, _, _) in DIST_RUNS.items():
+        frames, launches, sim, _ = run_frames(DIST_BASE + flags, DIST_IMAGES)
+        report["runs"][label] = {
+            "digests": frame_digests(frames),
+            "launches": {t: n for t, n in launches.items() if n},
+            "split": sim.overlap_runs(MAIN_SHAPE),
+            "local": list(sim.mesh.local_shape),
+            "origin": list(sim.mesh.origin)}
+    report["ms"] = {label: [] for label in DIST_TIMED}
+    for label in [*DIST_TIMED, *reversed(DIST_TIMED)]:
+        report["ms"][label].append(simulate_turns.run_ms(
+            DIST_BASE + DIST_RUNS[label][0], MAIN_IMAGES, MAIN_STEPS))
+    # the host's parts of a two-process image, each alone: one exchange
+    # (device copies, staging, gloo), its bands' gloo round trip on the
+    # host, and the gather of one image
+    import torch.distributed as tdist
+
+    report["exchange_ms"], report["gloo_ms"], report["gather_ms"] = {}, {}, {}
+    for label in DIST_TIMED:
+        ns = simulate.build_parser().parse_args(DIST_BASE +
+                                                DIST_RUNS[label][0])
+        sim = shared.make_simulation(ns)
+        species = sim.make_species(MAIN_SHAPE)
+        pairs = species.storage[1:3]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_EXCHANGES):
+            halo.exchange(sim.mesh, pairs, 0)
+        torch.cuda.synchronize()
+        report["exchange_ms"][label] = (
+            (time.perf_counter() - t0) / DIST_EXCHANGES * 1e3)
+        cells = 2 * pairs[0].shape[1] * sim.mesh.halo * pairs[0].shape[4]
+        send, got = torch.zeros(cells), torch.empty(cells)
+        t0 = time.perf_counter()
+        for _ in range(DIST_EXCHANGES):
+            for work in (tdist.irecv(got, 1 - rank), tdist.isend(send,
+                                                                 1 - rank)):
+                work.wait()
+        report["gloo_ms"][label] = (
+            (time.perf_counter() - t0) / DIST_EXCHANGES * 1e3)
+        frame = torch.empty(species.result().shape, pin_memory=True)
+        t0 = time.perf_counter()
+        for _ in range(DIST_GATHERS):
+            distributed.gather(frame, species.blocks())
+        report["gather_ms"][label] = (
+            (time.perf_counter() - t0) / DIST_GATHERS * 1e3)
+    try:
+        shared.make_simulation(simulate.build_parser().parse_args(
+            ["--backend", "sharded", "--sharded-engine", "mega",
+             "--sharded-devices", "2"]))
+        report["mega"] = None
+    except UnsupportedConfigError as e:
+        report["mega"] = str(e)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    print(f"RANK_OK {rank}", flush=True)
+    return 0
+
+
+#: phase 20a: (mesh, process of 2) whose block sits off the mesh's origin
+DIST_OFFSETS = (((2, 2), 1), ((4, 1), 1), ((1, 4), 1))
+
+
+def compare_offsets(checks: Checks, rng) -> int:
+    """Phase 20a: K1's shard entries on one process's block of a mesh
+    split over two (the block made here, without a group: rank 1's of 2x2,
+    4x1 and 1x4, at mesh offsets (1, 0), (2, 0) and (0, 2)), at 1080x1920,
+    both boundaries, on random pairs halos included: the compiled entry
+    (8 steps), its bf16 twin and the pinned entry (K = 16), each bit for
+    bit against the plain version at the same offset. Returns the count of
+    comparisons."""
+    consts = kernel_constants(Parameters())
+    n = 0
+    for (n_r, n_c), process in DIST_OFFSETS:
+        for boundary in ("naive", "zero"):
+            for tag, dtype, k in (("shwin", torch.float32, 8),
+                                  ("shwin_bf16", torch.bfloat16, 8),
+                                  ("shwin_pinned", torch.float32, 16)):
+                mesh = halo.Mesh(n_r, n_c, torch.device(DEVICE),
+                                 processes=2, process=process)
+                r_loc, c_loc = halo.shard_extents(MAIN_SHAPE, mesh)
+                g = geometry.resolve((r_loc, c_loc), k)
+                mesh = mesh.with_halo(g.halo)
+                shape = halo.pair_shape(MAIN_SHAPE, mesh)
+                got = [torch.from_numpy(rng.uniform(0, 1, shape).astype(
+                    np.float32)).to(DEVICE, dtype) for _ in range(2)]
+                for x in got:
+                    x[:, :, 1] = 0.0
+                want = [x.clone() for x in got]
+                windowed.shard_multistep(*got, mesh, 0, k, consts, boundary,
+                                         MAIN_SHAPE, geometry=g)
+                windowed.shard_multistep_reference(*want, 0, k, consts,
+                                                   boundary, MAIN_SHAPE,
+                                                   g=g, mesh=mesh)
+                what = (f"at mesh offset {mesh.origin} ({n_r}x{n_c} over 2 "
+                        f"processes, block {mesh.local_shape}) {boundary} "
+                        f"K = {k}")
+                compare = (checks.compare_bf16 if dtype == torch.bfloat16
+                           else checks.compare_bits)
+                compare(tag, [x[:, :, 1] for x in got],
+                        [x[:, :, 1] for x in want], what)
+                n += 1
+    return n
+
+
+def distributed_phase(checks: Checks, card: str) -> dict:
+    """Phase 20: ``simulate`` in two processes of the port on the one card
+    (``GRAYSCOTT_COORDINATOR=127.0.0.1:<free port>``, gloo, both on
+    ``cuda:0``), each stepping its own shards with K1's shard entry. Every
+    frame of each rank against the one-process run of the same flags,
+    bit for bit (sha-256 of its bytes); each rank's launch counts (ceil(32 /
+    K) an image of the entry that runs, twice with the overlap split, no
+    other kernel); a pinned K7 refused on both ranks (ROADMAP.md Queue 1
+    item 7.3); ms an image of two processes against one in turns (one,
+    two, two, one), and the cross-process exchange's share of the call. A
+    child that fails, hangs past DIST_TIMEOUT or exits non-zero fails the
+    phase. Returns each run's launches by rank."""
+    ref, one_ms = {}, {label: [] for label in DIST_TIMED}
+    for label, (flags, _, _) in DIST_RUNS.items():
+        ref[label] = frame_digests(run_frames(DIST_BASE + flags,
+                                              DIST_IMAGES)[0])
+    for label in DIST_TIMED:
+        one_ms[label].append(simulate_turns.run_ms(
+            DIST_BASE + DIST_RUNS[label][0], MAIN_IMAGES, MAIN_STEPS))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", os.path.abspath(__file__),
+         "--distributed-child", out],
+        env=dict(os.environ, GRAYSCOTT_COORDINATOR=f"127.0.0.1:{port}",
+                 GRAYSCOTT_NUM_PROCESSES="2", GRAYSCOTT_PROCESS_ID=str(r),
+                 GRAYSCOTT_HEARTBEAT_S="60"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    texts, t0 = [], time.perf_counter()
+    try:
+        for p in procs:
+            left = DIST_TIMEOUT - (time.perf_counter() - t0)
+            texts.append(p.communicate(timeout=max(left, 1))[0])
+    except subprocess.TimeoutExpired:
+        checks.expect(False, f"phase 20: a child ran past {DIST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for label in reversed(DIST_TIMED):
+        one_ms[label].append(simulate_turns.run_ms(
+            DIST_BASE + DIST_RUNS[label][0], MAIN_IMAGES, MAIN_STEPS))
+    reports = []
+    for r, p in enumerate(procs):
+        text = texts[r] if r < len(texts) else ""
+        print(f"phase 20 rank {r} (exit {p.returncode}), the end of its "
+              f"output:\n{text[-1500:]}", flush=True)
+        checks.expect(p.returncode == 0 and f"RANK_OK {r}" in text,
+                      f"phase 20: rank {r} exited {p.returncode}")
+        path = os.path.join(out, f"rank{r}.json")
+        reports.append(json.load(open(path)) if os.path.exists(path)
+                       else None)
+    if None in reports:
+        checks.expect(False, "phase 20: a rank wrote no report")
+        return {}
+    launches = {}
+    for label, (_, k, tag) in DIST_RUNS.items():
+        runs = [rep["runs"][label] for rep in reports]
+        split = runs[0]["split"]
+        want = {tag: DIST_IMAGES * -(-MAIN_STEPS // k) * (2 if split else 1)}
+        launches[label] = [run["launches"] for run in runs]
+        for r, run in enumerate(runs):
+            same = run["digests"] == ref[label]
+            print(f"path simulate 2 processes {label} rank {r}: block "
+                  f"{run['local']} at {run['origin']}, split {split}, "
+                  f"launches {run['launches']} (expected {want}), "
+                  f"{DIST_IMAGES} frames bitwise the one-process run's: "
+                  f"{same}", flush=True)
+            checks.expect(same, f"phase 20 {label} rank {r}: frames differ "
+                          "from the one-process run's")
+            checks.expect(run["launches"] == want, f"phase 20 {label} rank "
+                          f"{r}: launches {run['launches']}, not {want}")
+        checks.expect(split == ("overlap" in label),
+                      f"phase 20 {label}: split {split}")
+    for r, rep in enumerate(reports):
+        print(f"phase 20 rank {r}: pinned K7 refused: {rep['mega']}",
+              flush=True)
+        checks.expect(bool(rep["mega"]) and "Queue 1 item 7.3" in rep["mega"],
+                      f"phase 20 rank {r}: a pinned K7 was not refused")
+    for label in DIST_TIMED:
+        one = statistics.median(one_ms[label])
+        two = [statistics.median(rep["ms"][label]) for rep in reports]
+        calls = -(-MAIN_STEPS // DIST_RUNS[label][1])
+        parts = {key: [rep[key][label] for rep in reports]
+                 for key in ("exchange_ms", "gloo_ms", "gather_ms")}
+        share = [(e * calls / t, g / t) for e, g, t in zip(
+            parts["exchange_ms"], parts["gather_ms"], two)]
+        print(f"time simulate {label} windowed K = 8, {MAIN_IMAGES} images "
+              f"of {MAIN_STEPS} steps: one process {one_ms[label]!r} ms/image"
+              f", two processes {[rep['ms'][label] for rep in reports]!r} "
+              f"(ranks 0 and 1, in turns: one, two, two, one): "
+              f"{two[0] / one!r}x; alone, by rank: one exchange across "
+              f"processes {parts['exchange_ms']!r} ms ({calls} an image), "
+              f"its bands' gloo round trip {parts['gloo_ms']!r} ms, the "
+              f"gather of one image {parts['gather_ms']!r} ms; shares of the "
+              f"two-process image (exchanges, gather) {share!r} [{card}]",
+              flush=True)
+    return launches
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
                         help="seed of the random test fields")
+    # phase 20's ranks: this script, started by itself
+    parser.add_argument("--distributed-child", metavar="OUT",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: PyTorch sees no CUDA GPU "
               "(torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    if args.distributed_child:
+        return distributed_child(args.distributed_child)
     # an empty autotune store: only the records the package ships steer
     # auto, never a store on this machine
     store = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
@@ -5600,6 +5886,13 @@ def run_phases(args) -> int:
     t19 = time.perf_counter()
     n19, pin19_runs, pin19_times = pin19_phase(checks, rng, card, built.log)
     print(f"phase 19: {n19} comparisons, {time.perf_counter() - t19!r} s",
+          flush=True)
+    # 20. two processes of the port on the one card (GRAYSCOTT_COORDINATOR);
+    # first K1's shard entries at a block's offset in the mesh
+    t20 = time.perf_counter()
+    n20 = compare_offsets(checks, rng)
+    dist_launches = distributed_phase(checks, card)
+    print(f"phase 20: {n20} comparisons, {time.perf_counter() - t20!r} s",
           flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
@@ -5812,6 +6105,19 @@ def run_phases(args) -> int:
             shape=list(MAIN_SHAPE), steps=steps,
             boundary="zero" if tag == "megapack_pinned" else "naive",
             tile=[g.tr, g.tc], halo=g.halo, stepped_bound_ms=stepped))
+    # K1's shard entries: their launches on phase 20's two-process runs,
+    # by rank, summed over the runs that launch them
+    name_of = {"shwin": KERNELS["windowed"]["name"],
+               "shwin_bf16": KERNELS["shwin_bf16"]["name"],
+               "shwin_pinned": KERNELS["shwin_pinned"]["name"]}
+    for entry in entries:
+        labels = [label for label, (_, _, tag) in DIST_RUNS.items()
+                  if name_of[tag] == entry["name"]]
+        if labels:
+            entry["two_process_launches"] = [
+                sum(dist_launches[label][r].get(DIST_RUNS[label][2], 0)
+                    for label in labels) for r in range(2)]
+            entry["two_process_runs"] = labels
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -108,6 +108,13 @@ class Simulation(abc.ABC):
         """V's concentration (the simulation result)."""
         return self.extract_uv(storage, shape)[1]
 
+    def blocks(self, shape):
+        """How the processes' results tile a domain of ``shape``
+        (``utils/distributed.py:Blocks``), or None where each process's
+        result is the whole domain (every backend but ``sharded`` across
+        processes)."""
+        return None
+
     @abc.abstractmethod
     def run_steps(self, storage: Any, shape, steps: int) -> Any:
         """Enqueue ``steps`` steps; returns the new storage."""

@@ -59,6 +59,22 @@ each block of at most 8 steps runs in float32 and rounds its stored cells
 once, before the exchange moves them, so both engines and the unsharded
 ``cuda`` backend agree bit for bit. Records key on the dtype.
 
+With several processes (``GRAYSCOTT_COORDINATOR``,
+``utils/distributed.py``) the mesh spans them: ``n_devices`` is the
+global shard count (default: the processes times the cards each sees, so
+2 for two processes on one card), each process holds its block of shards
+(``parallel/halo.py``; a count the processes do not divide, or a split
+into no rectangle, raises), K1's shard entry steps the block at its place
+in the mesh, and ``halo.exchange`` sends the bands that cross processes
+over gloo. ``extract_result`` gives this process's block, and
+:meth:`blocks` tells ``utils/distributed.py:fetch`` how to assemble the
+domain. The windowed engine runs every K, row tile, dtype and overlap
+value it runs in one process, bit for bit; with overlap on, the interior
+launch runs while the host moves the bands across processes, and the
+edge launch waits for them. K7 (one launch over every shard on one card)
+raises naming ROADMAP.md Queue 1 item 7.3, and a record that names it runs
+the windowed engine.
+
 Nothing falls back: what the port does not run raises
 :class:`UnsupportedConfigError`.
 """
@@ -76,6 +92,7 @@ from ..errors import UnsupportedConfigError
 from ..ops import geometry, sharded_mega, windowed
 from ..parallel import halo
 from ..params import Parameters, kernel_constants
+from ..utils import distributed
 from .base import Simulation, env_default, storage_dtype
 
 ENGINES = ("auto", "windowed", "mega")
@@ -116,6 +133,14 @@ class ShardedSimulation(Simulation):
             overlap = "auto" if overlap == "auto" else overlap == "on"
         else:
             overlap = bool(overlap)
+        #: the processes the mesh spans
+        self.processes = distributed.process_count()
+        if engine == "mega" and self.processes > 1:
+            raise UnsupportedConfigError(
+                f"engine='mega' (K7) runs every shard in one launch on one "
+                f"card; across {self.processes} processes it waits for "
+                "ROADMAP.md Queue 1 item 7.3 (K7 on several cards); use "
+                "--sharded-engine windowed", combo="engine+distributed")
         if engine == "mega" and overlap is True:
             raise UnsupportedConfigError(
                 "engine='mega' overlaps exchange with interior compute "
@@ -176,7 +201,7 @@ class ShardedSimulation(Simulation):
                      else halo.make_mesh(n_devices, mesh_cols, self.device))
 
     def _shards(self) -> int:
-        return self._n_devices or halo.visible_cards(self.device)
+        return self._n_devices or halo.default_shards(self.device)
 
     def _adopt_record(self, shape) -> None:
         """Follow the sharded autotune record of this configuration in
@@ -210,7 +235,8 @@ class ShardedSimulation(Simulation):
         eng = rec.get("engine")
         if self._engine_req == "auto" and eng in ENGINES[1:] and not (
                 eng == "mega" and (self._overlap_req is True or
-                                   self._k_pin not in (None, K))):
+                                   self._k_pin not in (None, K) or
+                                   self.processes > 1)):
             self.engine = eng
         if self.mesh is None and rec.get("mesh_cols"):
             self.mesh = halo.make_mesh(self._shards(), int(rec["mesh_cols"]),
@@ -320,15 +346,25 @@ class ShardedSimulation(Simulation):
             return storage[3], storage[4][1].halo
         return 0, halo.HALO
 
+    def _unshard(self, pairs, storage, shape) -> torch.Tensor:
+        """The current slot's interiors of ``pairs``, cropped to ``shape``;
+        with several processes this process's block, uncropped."""
+        slot, h = self._slot_halo(storage)
+        if self.processes > 1:
+            return halo.mega_unshard_result(pairs, None, slot,
+                                            self.mesh.with_halo(h))
+        return halo.mega_unshard_result(pairs, shape, slot, h)
+
     def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-        slot, h = self._slot_halo(storage)
-        return (halo.mega_unshard_result(storage[1], shape, slot, h),
-                halo.mega_unshard_result(storage[2], shape, slot, h))
+        return (self._unshard(storage[1], storage, shape),
+                self._unshard(storage[2], storage, shape))
 
     def extract_result(self, storage, shape) -> torch.Tensor:
-        return halo.mega_unshard_result(storage[2], shape,
-                                        *self._slot_halo(storage))
+        return self._unshard(storage[2], storage, shape)
+
+    def blocks(self, shape):
+        return self.mesh.blocks(shape)
 
     def run_steps(self, storage, shape, steps: int):
         if self._windowed(storage):
@@ -359,8 +395,7 @@ class ShardedSimulation(Simulation):
             if split:
                 self._overlapped_block(up, vp, slot, k, shape, g)
             else:
-                halo.exchange_halos(up, slot, g.halo)
-                halo.exchange_halos(vp, slot, g.halo)
+                halo.exchange(self.mesh, (up, vp), slot)
                 windowed.shard_multistep(up, vp, self.mesh, slot, k,
                                          self.consts, self.boundary, shape,
                                          geometry=g)
@@ -373,11 +408,12 @@ class ShardedSimulation(Simulation):
         it (``grayscott_tpu/parallel/halo.py:319-457``): the exchange of
         ``slot`` beside the overlap-interior launch, then the edge launch,
         on the tiles and halo of ``g``. On the CPU the three run in
-        order."""
+        order. With several processes the interior launch is enqueued
+        first: the exchange's host waits for the bands it sends, and the
+        edge launch waits for what it received."""
         args = (self.mesh, slot, k, self.consts, self.boundary, shape)
         if self.device.type != "cuda":
-            halo.exchange_halos(up, slot, g.halo)
-            halo.exchange_halos(vp, slot, g.halo)
+            halo.exchange(self.mesh, (up, vp), slot)
             windowed.shard_multistep(up, vp, *args, part="interior",
                                      geometry=g)
             windowed.shard_multistep(up, vp, *args, part="edge", geometry=g)
@@ -387,12 +423,17 @@ class ShardedSimulation(Simulation):
             self._copy_stream = torch.cuda.Stream(self.device)
         copy = self._copy_stream
         # the exchange reads the interiors the last block wrote; the pairs
-        # were made on the launch stream and the copies allocate nothing
+        # were made on the launch stream, and the copies allocate nothing
+        # but the staging of the bands that cross processes
         copy.wait_stream(launch)
+        if self.processes > 1:
+            windowed.shard_multistep(up, vp, *args, part="interior",
+                                     geometry=g)
         with torch.cuda.stream(copy):
-            halo.exchange_halos(up, slot, g.halo)
-            halo.exchange_halos(vp, slot, g.halo)
-        windowed.shard_multistep(up, vp, *args, part="interior", geometry=g)
+            halo.exchange(self.mesh, (up, vp), slot)
+        if self.processes == 1:
+            windowed.shard_multistep(up, vp, *args, part="interior",
+                                     geometry=g)
         launch.wait_stream(copy)
         windowed.shard_multistep(up, vp, *args, part="edge", geometry=g)
 
@@ -421,7 +462,8 @@ class ShardedSimulation(Simulation):
             "--sharded-devices", type=int,
             default=env_default("GRAYSCOTT_SHARDED_DEVICES", None, int),
             help="Number of shards in the mesh (default: one per visible "
-            "card); more than the cards share a card",
+            "card, in every process of a GRAYSCOTT_COORDINATOR run); more "
+            "than the cards share a card",
         )
         parser.add_argument(
             "--sharded-mesh-cols", type=int,

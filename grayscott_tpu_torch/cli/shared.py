@@ -21,9 +21,16 @@ it measures the sharded candidates under every pin of the command line
 (``bench/autotune.py:sharded_autotune``, as JAX's ``cli/shared.py:
 141-153``); the plain rungs ignore it, as JAX's do.
 
-``GRAYSCOTT_COORDINATOR`` (JAX's multi-process run) stops
-:func:`make_simulation` with :class:`UnsupportedConfigError`
-(``utils/distributed.py``).
+:func:`make_simulation` starts no process group: ``simulate`` joins the
+one that ``GRAYSCOTT_COORDINATOR`` asks for before it (as JAX's
+``simulate.main`` does, ``grayscott_tpu/cli/simulate.py:91``), and
+``livesim`` and the bench run one process whatever the variable says, as
+JAX's ``livesim`` does. In a process group, ``--backend auto`` runs
+``sharded``, whose mesh spans the processes; every other backend would run
+the whole domain on every process, and ``--autotune`` would measure and
+keep a record on each, so both raise :class:`UnsupportedConfigError`
+(JAX runs them, and its ``fetch`` then tiles every process's whole domain
+into one array; ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 
 from ..backends import BACKENDS, best_backend_name, get_backend
 from ..backends.base import env_flag
+from ..errors import UnsupportedConfigError
 from ..params import DEFAULT_STENCIL, PRESETS, STENCILS, Parameters
 from ..utils import distributed
 from ..utils.runtime import PLATFORMS, default_device
@@ -133,12 +141,27 @@ def require_device(device: str) -> None:
 def make_simulation(ns: argparse.Namespace):
     """The backend of ``ns``, built (its flags checked) before
     ``--autotune`` measures anything; the autotune winner persists, and the
-    simulation follows it when it builds its storage."""
-    distributed.maybe_initialize()
+    simulation follows it when it builds its storage. In a process group
+    (``utils/distributed.py``) only ``sharded`` runs, without
+    ``--autotune``."""
     require_device(ns.device)
     name = ns.backend
+    procs = distributed.process_count()
     if name in (None, "", "auto"):
-        name = best_backend_name(shape=domain_shape(ns))
+        name = ("sharded" if procs > 1
+                else best_backend_name(shape=domain_shape(ns)))
+    if procs > 1 and name != "sharded":
+        raise UnsupportedConfigError(
+            f"--backend {name} runs the whole domain in each of the "
+            f"{procs} processes; a multi-process run takes --backend "
+            "sharded (or auto), whose mesh spans them",
+            combo="distributed+backend")
+    if procs > 1 and getattr(ns, "autotune", False):
+        raise UnsupportedConfigError(
+            f"--autotune would measure and keep a record in each of the "
+            f"{procs} processes, which may pick different engines; tune "
+            "in one process and let the record steer the run",
+            combo="distributed+autotune")
     cls = get_backend(name)
     logger = logging.getLogger("grayscott_tpu_torch")
     if logger.isEnabledFor(logging.DEBUG):

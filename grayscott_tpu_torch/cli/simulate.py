@@ -28,6 +28,16 @@ feeds the bounded queue of the HDF5 writer thread.
 the backend's ``build_storage``, with its step count; ``--checkpoint
 PATH`` writes U, V, the parameters and the step count once the writer
 thread has finished.
+
+Several processes (``grayscott_tpu/cli/simulate.py:89-200``): :func:`main`
+first joins the process group that ``GRAYSCOTT_COORDINATOR`` asks for
+(``utils/distributed.py``); each process then steps its own shards of the
+``sharded`` backend, and :func:`run` gathers each image from every
+process's block (``distributed.fetch``, collective) where it hands the
+previous image to the sink, so the host still never waits on the batch it
+just enqueued. Process 0 alone holds the HDF5 writer and the progress bar
+and writes the checkpoint, which every process gathers; with ``--resume``
+every process reads the file and builds its own shards.
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ import torch
 from ..backends.base import Simulation
 from ..io.hdf5 import Writer
 from ..species import Species
+from ..utils import distributed
 from ..utils.logs import init_logging
 from ..utils.progress import ProgressBar
 from ..utils.runtime import apply_env_config
@@ -104,12 +115,15 @@ def run(sim: Simulation, species: Species, nbimage: int,
     """Advance ``nbimage`` batches of ``steps_per_image`` steps and hand V
     after each batch to ``sink``, in order, as a float32 host array of its
     own, copied from the device in ``snapshot_dtype``; on the card the copy
-    overlaps the next batch (``ablation=0``: it does not)."""
+    overlaps the next batch (``ablation=0``: it does not). With several
+    processes every process runs it, and each image reaches every sink
+    whole (a collective gather of the processes' blocks)."""
     if ablation not in (None, *ABLATIONS):
         raise ValueError(f"ablation must be None or one of "
                          f"{sorted(ABLATIONS)}, got {ablation!r}")
     cuda = sim.device.type == "cuda"
     dtype = SNAPSHOT_DTYPES[snapshot_dtype]
+    blocks = species.blocks()
     if cuda:
         launch = torch.cuda.current_stream(sim.device)
         copy = launch if ablation == 0 else torch.cuda.Stream(sim.device)
@@ -137,21 +151,24 @@ def run(sim: Simulation, species: Species, nbimage: int,
         else:
             frame, copied = snapshot, None
         if pending is not None:
-            _deliver(*pending, sink)
+            _deliver(*pending, sink, blocks)
         pending = (frame, copied)
     if pending is not None:
-        _deliver(*pending, sink)
+        _deliver(*pending, sink, blocks)
 
 
-def _deliver(frame: torch.Tensor, copied, sink) -> None:
+def _deliver(frame: torch.Tensor, copied, sink, blocks) -> None:
     if copied is not None:
         copied.synchronize()
+    if blocks is not None:
+        frame = distributed.gather(frame, blocks)
     sink(frame.float().numpy())
 
 
 def main(argv=None) -> int:
     logger = init_logging()
     apply_env_config()
+    distributed.maybe_initialize(logger)
     args = build_parser().parse_args(argv)
     steps_per_image = args.nbextrastep if args.nbextrastep is not None else 32
     file_name = shared.simulation_output_path(args.output)
@@ -180,8 +197,13 @@ def main(argv=None) -> int:
         sim.device, sim.boundary, sim.params.stencil_name(),
         species.shape[0], species.shape[1],
     )
-    writer = Writer(file_name, species.shape, args.nbimage)
-    progress = ProgressBar("Running simulation step", args.nbimage)
+    # one process owns the output file and the progress bar; the others
+    # still run the compute and the collective gather of every image
+    primary = distributed.is_primary()
+    writer = (Writer(file_name, species.shape, args.nbimage) if primary
+              else None)
+    progress = (ProgressBar("Running simulation step", args.nbimage)
+                if primary else None)
     error: list[BaseException] = []
     q: queue.Queue = queue.Queue(maxsize=max(args.output_buffer, 1))
 
@@ -191,15 +213,22 @@ def main(argv=None) -> int:
                 item = q.get()
                 if item is None:
                     return
-                writer.write(item)
-                progress.inc(1)
+                if writer is not None:
+                    writer.write(item)
+                    progress.inc(1)
         except BaseException as e:  # raised again on the main thread
             error.append(e)
+
+    gathered = []
 
     def sink(frame: np.ndarray) -> None:
         # a dead writer (full disk, unwritable file) stops the run
         if error or not shared.bounded_put(q, frame, lambda: bool(error)):
             raise error[0]
+        if not gathered:
+            gathered.append(True)
+            logger.info("process %d has image 1 of %d",
+                        distributed.process_index(), args.nbimage)
 
     t = threading.Thread(target=io_thread, name="hdf5-writer", daemon=True)
     t.start()
@@ -209,18 +238,21 @@ def main(argv=None) -> int:
     finally:
         shared.bounded_put(q, None, lambda: bool(error))
         t.join()
-        progress.finish()
-        writer.close()
+        if writer is not None:
+            progress.finish()
+            writer.close()
     if error:
         raise error[0]
     if args.checkpoint:
         from ..io.checkpoint import save_state
 
-        u, v = species.uv_host()
-        save_state(args.checkpoint, u, v, sim.params,
-                   species.steps_performed)
-        logger.info("checkpoint written to %s", args.checkpoint)
-    logger.info("wrote %d images to %s", args.nbimage, file_name)
+        u, v = species.uv_host()  # collective: every process gathers
+        if primary:
+            save_state(args.checkpoint, u, v, sim.params,
+                       species.steps_performed)
+            logger.info("checkpoint written to %s", args.checkpoint)
+    if primary:
+        logger.info("wrote %d images to %s", args.nbimage, file_name)
     return 0
 
 

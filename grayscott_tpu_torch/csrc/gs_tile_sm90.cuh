@@ -914,12 +914,15 @@ __device__ __forceinline__ void window_multistep(const S& g, const T* u,
 }
 
 // The shards of a launch of K1's shard entry (windowed.cu, and its pinned
-// twin in windowed_pins.cu): the pairs' geometry, the source slot, and the
-// tiles of the part (windowed.cu's note).
+// twin in windowed_pins.cu): the pairs' geometry, the source slot, the
+// tiles of the part (windowed.cu's note), and where the launch's block of
+// n_rows x n_cols shards sits in the mesh (row0, col0: the mesh row and
+// column of its first shard; 0 when one process holds the whole mesh).
 template <typename T>
 struct Shards {
   T *u_pairs, *v_pairs;
   int n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1, tj0, tj1;
+  int row0, col0;
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -927,7 +930,10 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 }
 
 // One block of K1's shard entry: tile (blockIdx.y, blockIdx.x) of g (of
-// the part's rectangle when part is 1) of shard blockIdx.z, advanced by
+// the part's rectangle when part is 1) of shard blockIdx.z of the launch's
+// block (row-major; its global origin from the block's place in the mesh,
+// s.row0 and s.col0, so the interior test and the naive clamp see the
+// domain as one process holding every shard would), advanced by
 // `steps` (1..g.halo) steps from slot s.src into the interior of slot
 // 1 - s.src. The pairs hold g.halo rows (and s.chalo columns) of the
 // neighbours' cells around each interior: the layout's halo is the
@@ -946,8 +952,8 @@ __device__ __forceinline__ void shard_window_multistep(
   const int sh = blockIdx.z;
   const size_t pitch = static_cast<size_t>(s.c_loc) + 2 * s.chalo;
   const size_t plane = (static_cast<size_t>(s.r_loc) + 2 * g.halo) * pitch;
-  const ShardLayout mem = {(sh / s.n_cols) * s.r_loc,
-                           (sh % s.n_cols) * s.c_loc,
+  const ShardLayout mem = {(s.row0 + sh / s.n_cols) * s.r_loc,
+                           (s.col0 + sh % s.n_cols) * s.c_loc,
                            s.r_loc,
                            s.c_loc,
                            g.halo,

@@ -43,10 +43,13 @@
 // exchange, and writes the interior of slot 1 - src.
 //
 //   - The grid is (tile columns, tile rows, shards): blockIdx.z is the
-//     shard, row-major in the mesh; its global origin is (i * r_loc,
-//     j * c_loc). Tiles are Main's 64^2 in 80^2 windows, anchored at the
-//     shard's origin; r_loc and c_loc are multiples of 8, so a shard's last
-//     tiles are partial.
+//     shard, row-major in the launch's block of n_rows x n_cols shards,
+//     which sits at mesh row row0 and column col0 (0 and 0 when one
+//     process holds the whole mesh; with several processes each launches
+//     over its own block, parallel/halo.py); shard (i, j)'s global origin
+//     is ((row0 + i) * r_loc, (col0 + j) * c_loc). Tiles are Main's 64^2
+//     in 80^2 windows, anchored at the shard's origin; r_loc and c_loc
+//     are multiples of 8, so a shard's last tiles are partial.
 //   - The window loads through gs::ShardLayout: cells the shard's buffer
 //     does not hold load as 0.0, and with steps <= HALO they cannot reach
 //     a stored cell. The tile steps at its global position: the interior
@@ -271,25 +274,26 @@ int fold_multistep(const T* u, const T* v, T* u_out, T* v_out, int rows,
 // gs_windowed_shard_multistep and its bf16 twin.
 template <typename T>
 int shard_multistep(T* u_pairs, T* v_pairs, int n_rows, int n_cols,
-                    int r_loc, int c_loc, int chalo, int src, int rows,
-                    int cols, int steps, int part, int ti0, int ti1, int tj0,
-                    int tj1, int naive, int device, const float* w, float du,
-                    float dv, float feed, float min_feed_kill, float dt,
-                    void* stream) {
+                    int row0, int col0, int r_loc, int c_loc, int chalo,
+                    int src, int rows, int cols, int steps, int part, int ti0,
+                    int ti1, int tj0, int tj1, int naive, int device,
+                    const float* w, float du, float dv, float feed,
+                    float min_feed_kill, float dt, void* stream) {
   const int tiles_y = (r_loc + Main::TR - 1) / Main::TR;
   const int tiles_x = (c_loc + Main::TC - 1) / Main::TC;
-  if (n_rows < 1 || n_cols < 1 || r_loc < 1 || c_loc < 1 || chalo < 0 ||
-      chalo > HALO || (src != 0 && src != 1) || rows < 1 || cols < 1 ||
-      steps < 1 || steps > HALO || part < 0 || part > 2 || ti0 < 0 ||
-      ti0 > ti1 || ti1 > tiles_y || tj0 < 0 || tj0 > tj1 ||
-      tj1 > tiles_x || device < 0 || device >= gs::MAX_DEVICES) {
+  if (n_rows < 1 || n_cols < 1 || row0 < 0 || col0 < 0 || r_loc < 1 ||
+      c_loc < 1 || chalo < 0 || chalo > HALO || (src != 0 && src != 1) ||
+      rows < 1 || cols < 1 || steps < 1 || steps > HALO || part < 0 ||
+      part > 2 || ti0 < 0 || ti0 > ti1 || ti1 > tiles_y || tj0 < 0 ||
+      tj0 > tj1 || tj1 > tiles_x || device < 0 ||
+      device >= gs::MAX_DEVICES) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ShardCall<T> c = {
       {u_pairs, v_pairs, n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1,
-       tj0, tj1},
+       tj0, tj1, row0, col0},
       n_rows * n_cols,
       rows,
       cols,
@@ -375,7 +379,8 @@ int gs_windowed_multistep_fold_bf16(const void* u, const void* v,
 }
 
 // Enqueues one launch on `stream` that advances every shard of an
-// n_rows x n_cols mesh by `steps` (1..HALO) steps of the rows x cols domain,
+// n_rows x n_cols block of a mesh, whose first shard sits at mesh row row0
+// and column col0, by `steps` (1..HALO) steps of the rows x cols domain,
 // from slot `src` of each shard's pairs (u_pairs, v_pairs: (n_rows, n_cols,
 // 2, HALO + r_loc + HALO, chalo + c_loc + chalo), its halos filled) into the
 // interior of slot 1 - src; `part` 0 steps every tile, 1 the tiles of the
@@ -384,34 +389,34 @@ int gs_windowed_multistep_fold_bf16(const void* u, const void* v,
 // when part 1 has no tile), or cudaErrorInvalidValue for a geometry the
 // kernel does not take.
 int gs_windowed_shard_multistep(
-    float* u_pairs, float* v_pairs, int n_rows, int n_cols, int r_loc,
-    int c_loc, int chalo, int src, int rows, int cols, int steps, int part,
-    int ti0, int ti1, int tj0, int tj1, int naive, int device, float w0,
-    float w1, float w2, float w3, float w4, float w5, float w6, float w7,
-    float w8, float du, float dv, float feed, float min_feed_kill, float dt,
-    void* stream) {
+    float* u_pairs, float* v_pairs, int n_rows, int n_cols, int row0,
+    int col0, int r_loc, int c_loc, int chalo, int src, int rows, int cols,
+    int steps, int part, int ti0, int ti1, int tj0, int tj1, int naive,
+    int device, float w0, float w1, float w2, float w3, float w4, float w5,
+    float w6, float w7, float w8, float du, float dv, float feed,
+    float min_feed_kill, float dt, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  return shard_multistep(u_pairs, v_pairs, n_rows, n_cols, r_loc, c_loc,
-                         chalo, src, rows, cols, steps, part, ti0, ti1, tj0,
-                         tj1, naive, device, w, du, dv, feed, min_feed_kill,
-                         dt, stream);
+  return shard_multistep(u_pairs, v_pairs, n_rows, n_cols, row0, col0,
+                         r_loc, c_loc, chalo, src, rows, cols, steps, part,
+                         ti0, ti1, tj0, tj1, naive, device, w, du, dv, feed,
+                         min_feed_kill, dt, stream);
 }
 
 // gs_windowed_shard_multistep on bfloat16 pairs (widened on load, rounded
 // on store).
 int gs_windowed_shard_multistep_bf16(
-    void* u_pairs, void* v_pairs, int n_rows, int n_cols, int r_loc,
-    int c_loc, int chalo, int src, int rows, int cols, int steps, int part,
-    int ti0, int ti1, int tj0, int tj1, int naive, int device, float w0,
-    float w1, float w2, float w3, float w4, float w5, float w6, float w7,
-    float w8, float du, float dv, float feed, float min_feed_kill, float dt,
-    void* stream) {
+    void* u_pairs, void* v_pairs, int n_rows, int n_cols, int row0,
+    int col0, int r_loc, int c_loc, int chalo, int src, int rows, int cols,
+    int steps, int part, int ti0, int ti1, int tj0, int tj1, int naive,
+    int device, float w0, float w1, float w2, float w3, float w4, float w5,
+    float w6, float w7, float w8, float du, float dv, float feed,
+    float min_feed_kill, float dt, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   return shard_multistep(static_cast<sm90::bf16*>(u_pairs),
                          static_cast<sm90::bf16*>(v_pairs), n_rows, n_cols,
-                         r_loc, c_loc, chalo, src, rows, cols, steps, part,
-                         ti0, ti1, tj0, tj1, naive, device, w, du, dv, feed,
-                         min_feed_kill, dt, stream);
+                         row0, col0, r_loc, c_loc, chalo, src, rows, cols,
+                         steps, part, ti0, ti1, tj0, tj1, naive, device, w,
+                         du, dv, feed, min_feed_kill, dt, stream);
 }
 
 // gs_windowed_multistep with one part of the design taken out, for timing

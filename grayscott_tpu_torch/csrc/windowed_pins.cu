@@ -216,28 +216,28 @@ int fold_multistep(const T* u, const T* v, T* u_out, T* v_out, int rows,
 // gs_windowed_shard_pinned_multistep and its bf16 twin.
 template <typename T>
 int shard_multistep(T* u_pairs, T* v_pairs, int n_rows, int n_cols,
-                    int r_loc, int c_loc, int chalo, int src, int rows,
-                    int cols, int steps, int part, int ti0, int ti1, int tj0,
-                    int tj1, int tr, int tc, int halo, int naive, int device,
-                    const float* w, float du, float dv, float feed,
-                    float min_feed_kill, float dt, void* stream) {
+                    int row0, int col0, int r_loc, int c_loc, int chalo,
+                    int src, int rows, int cols, int steps, int part, int ti0,
+                    int ti1, int tj0, int tj1, int tr, int tc, int halo,
+                    int naive, int device, const float* w, float du, float dv,
+                    float feed, float min_feed_kill, float dt, void* stream) {
   if (!sm90::pin_ok(tr, tc, halo, steps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int tiles_y = (r_loc + tr - 1) / tr;
   const int tiles_x = (c_loc + tc - 1) / tc;
-  if (n_rows < 1 || n_cols < 1 || r_loc < 1 || c_loc < 1 || chalo < 0 ||
-      chalo > halo || (src != 0 && src != 1) || rows < 1 || cols < 1 ||
-      part < 0 || part > 2 || ti0 < 0 || ti0 > ti1 || ti1 > tiles_y ||
-      tj0 < 0 || tj0 > tj1 || tj1 > tiles_x || device < 0 ||
-      device >= gs::MAX_DEVICES) {
+  if (n_rows < 1 || n_cols < 1 || row0 < 0 || col0 < 0 || r_loc < 1 ||
+      c_loc < 1 || chalo < 0 || chalo > halo || (src != 0 && src != 1) ||
+      rows < 1 || cols < 1 || part < 0 || part > 2 || ti0 < 0 ||
+      ti0 > ti1 || ti1 > tiles_y || tj0 < 0 || tj0 > tj1 || tj1 > tiles_x ||
+      device < 0 || device >= gs::MAX_DEVICES) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const ShardCall<T> c = {
       {u_pairs, v_pairs, n_cols, r_loc, c_loc, chalo, src, part, ti0, ti1,
-       tj0, tj1},
+       tj0, tj1, row0, col0},
       n_rows * n_cols,
       rows,
       cols,
@@ -326,40 +326,41 @@ int gs_windowed_pinned_multistep_fold_bf16(const void* u, const void* v,
 // gs_windowed_shard_multistep on tr x tc tiles in windows of `halo` (8,
 // 16, 24 or 32) cells more on every side, `steps` (1..halo) steps a launch,
 // on pairs (n_rows, n_cols, 2, halo + r_loc + halo, chalo + c_loc + chalo)
-// whose halos are `halo` rows deep (chalo: 0, or `halo` on a 2-D mesh);
+// of a block of the mesh at mesh row row0 and column col0, whose halos are
+// `halo` rows deep (chalo: 0, or `halo` on a 2-D mesh);
 // `part` and the rectangle [ti0, ti1) x [tj0, tj1) count tr x tc tiles.
 // Returns cudaGetLastError() (0 when the launch was accepted, or when part
 // 1 has no tile), or cudaErrorInvalidValue for a geometry the entry does
 // not take.
 int gs_windowed_shard_pinned_multistep(
-    float* u_pairs, float* v_pairs, int n_rows, int n_cols, int r_loc,
-    int c_loc, int chalo, int src, int rows, int cols, int steps, int part,
-    int ti0, int ti1, int tj0, int tj1, int tr, int tc, int halo, int naive,
-    int device, float w0, float w1, float w2, float w3, float w4, float w5,
-    float w6, float w7, float w8, float du, float dv, float feed,
-    float min_feed_kill, float dt, void* stream) {
+    float* u_pairs, float* v_pairs, int n_rows, int n_cols, int row0,
+    int col0, int r_loc, int c_loc, int chalo, int src, int rows, int cols,
+    int steps, int part, int ti0, int ti1, int tj0, int tj1, int tr, int tc,
+    int halo, int naive, int device, float w0, float w1, float w2, float w3,
+    float w4, float w5, float w6, float w7, float w8, float du, float dv,
+    float feed, float min_feed_kill, float dt, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  return shard_multistep(u_pairs, v_pairs, n_rows, n_cols, r_loc, c_loc,
-                         chalo, src, rows, cols, steps, part, ti0, ti1, tj0,
-                         tj1, tr, tc, halo, naive, device, w, du, dv, feed,
-                         min_feed_kill, dt, stream);
+  return shard_multistep(u_pairs, v_pairs, n_rows, n_cols, row0, col0,
+                         r_loc, c_loc, chalo, src, rows, cols, steps, part,
+                         ti0, ti1, tj0, tj1, tr, tc, halo, naive, device, w,
+                         du, dv, feed, min_feed_kill, dt, stream);
 }
 
 // gs_windowed_shard_pinned_multistep on bfloat16 pairs (widened on load,
 // rounded on store, once a launch).
 int gs_windowed_shard_pinned_multistep_bf16(
-    void* u_pairs, void* v_pairs, int n_rows, int n_cols, int r_loc,
-    int c_loc, int chalo, int src, int rows, int cols, int steps, int part,
-    int ti0, int ti1, int tj0, int tj1, int tr, int tc, int halo, int naive,
-    int device, float w0, float w1, float w2, float w3, float w4, float w5,
-    float w6, float w7, float w8, float du, float dv, float feed,
-    float min_feed_kill, float dt, void* stream) {
+    void* u_pairs, void* v_pairs, int n_rows, int n_cols, int row0,
+    int col0, int r_loc, int c_loc, int chalo, int src, int rows, int cols,
+    int steps, int part, int ti0, int ti1, int tj0, int tj1, int tr, int tc,
+    int halo, int naive, int device, float w0, float w1, float w2, float w3,
+    float w4, float w5, float w6, float w7, float w8, float du, float dv,
+    float feed, float min_feed_kill, float dt, void* stream) {
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   return shard_multistep(static_cast<sm90::bf16*>(u_pairs),
                          static_cast<sm90::bf16*>(v_pairs), n_rows, n_cols,
-                         r_loc, c_loc, chalo, src, rows, cols, steps, part,
-                         ti0, ti1, tj0, tj1, tr, tc, halo, naive, device, w,
-                         du, dv, feed, min_feed_kill, dt, stream);
+                         row0, col0, r_loc, c_loc, chalo, src, rows, cols,
+                         steps, part, ti0, ti1, tj0, tj1, tr, tc, halo, naive,
+                         device, w, du, dv, feed, min_feed_kill, dt, stream);
 }
 
 }  // extern "C"

@@ -18,7 +18,10 @@ a tile set (``part``: every tile, the overlap-interior tiles, or the
 rest; ``halo.overlap_tiles``). Its plain version is
 :func:`shard_multistep_reference`, and it counts its launches apart, in
 ``shard_launches``, so that a run can tell the sharded engine's K1 from
-the unsharded one.
+the unsharded one. With several processes the pairs are one process's
+block of the mesh, and the entry takes the block's place in the mesh
+(``Mesh.origin``, 0 and 0 with one process), from which each shard's
+global origin, its interior tiles and the naive clamp follow.
 
 Both take bfloat16 storage too (``pallas_stencil.py:_kernel`` with a
 bfloat16 dtype, ``:970-993``): on bfloat16 tensors they launch the bf16
@@ -298,7 +301,7 @@ def _fold_multistep(u, v, u_out, v_out, steps, fc, boundary) -> None:
 
 def _shard_kernel(dtype=torch.float32):
     return _bind(_ENTRIES[dtype][1],
-                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 16
+                 [ctypes.c_void_p] * 2 + [ctypes.c_int] * 18
                  + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
@@ -308,7 +311,7 @@ def _pinned_shard_kernel(dtype=torch.float32):
     name = "gs_windowed_shard_pinned_multistep" + (
         "_bf16" if dtype == torch.bfloat16 else "")
     _pinned_kernel(dtype, False)  # checks the most steps a launch
-    return _bind(name, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 19
+    return _bind(name, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 21
                  + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
@@ -334,8 +337,8 @@ def shard_multistep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                               src_slot: int, steps: int,
                               consts: KernelConstants, boundary: str, shape,
                               part: str = "all",
-                              g: geometry.Geometry = geometry.DEFAULT
-                              ) -> None:
+                              g: geometry.Geometry = geometry.DEFAULT,
+                              mesh: halo.Mesh | None = None) -> None:
     """The plain version, in place: each shard's padded block of slot
     ``src_slot`` (``g.halo`` halo rows, and columns on a 2-D mesh) takes
     ``steps`` plain steps at its global origin against the domain
@@ -344,18 +347,21 @@ def shard_multistep_reference(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     0.0 (``step_at`` gives them). On bfloat16 pairs the block is widened
     to float32 first and the cells are rounded to bfloat16 as they are
     stored. The body of ``sharded_mega.sharded_megastep_reference``
-    without the pushes."""
+    without the pushes. ``mesh``: the pairs are this process's block of
+    it (its origin offsets every shard's, its columns decide the halo
+    columns); None: the pairs are the whole mesh."""
     n_r, n_c = u_pairs.shape[:2]
     h, dst = g.halo, 1 - src_slot
-    r_loc, c_loc, ch = halo.interior_extents(u_pairs, h)
+    row0, col0 = mesh.origin if mesh is not None else (0, 0)
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs, mesh or h)
     mask = part_mask(r_loc, c_loc, ch, part, u_pairs.device, g)
     for i in range(n_r):
         for j in range(n_c):
             u = u_pairs[i, j, src_slot].float()
             v = v_pairs[i, j, src_slot].float()
+            origin = ((row0 + i) * r_loc - h, (col0 + j) * c_loc - ch)
             for _ in range(steps):
-                u, v = stencil.step_at(u, v, consts, boundary,
-                                       (i * r_loc - h, j * c_loc - ch), shape)
+                u, v = stencil.step_at(u, v, consts, boundary, origin, shape)
             for pairs, x in ((u_pairs, u), (v_pairs, v)):
                 out = pairs[i, j, dst, h:h + r_loc, ch:ch + c_loc]
                 x = x[h:h + r_loc, ch:ch + c_loc].to(pairs.dtype)
@@ -373,9 +379,11 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     into the interior of slot ``1 - src_slot``, for the tiles of ``part``
     (:data:`PARTS`). ``geometry``: the tiles and halo (None: the compiled
     64x64 at 8), whose halo is the mesh's. The pairs are float32 or
-    bfloat16. On a CUDA device one launch is enqueued on the current
-    stream and not waited for; an ``"interior"`` part with no tile
-    launches nothing."""
+    bfloat16, this process's block of the mesh (the whole mesh with one
+    process): the kernel takes the block's place in the mesh, so each
+    shard steps at its global origin. On a CUDA device one launch is
+    enqueued on the current stream and not waited for; an ``"interior"``
+    part with no tile launches nothing."""
     global shard_launches, bf16_shard_launches
     global pinned_shard_launches, pinned_bf16_shard_launches
     g = geometry or COMPILED
@@ -391,9 +399,9 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     sharded_mega.check_pairs(u_pairs, v_pairs, mesh, shape)
     if u_pairs.device.type == "cpu":
         shard_multistep_reference(u_pairs, v_pairs, src_slot, steps, consts,
-                                  boundary, shape, part, g)
+                                  boundary, shape, part, g, mesh)
         return
-    r_loc, c_loc, ch = halo.interior_extents(u_pairs, g.halo)
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs, mesh)
     rect = halo.overlap_tiles(r_loc, c_loc, ch, (g.tr, g.tc), g.halo)
     if part == "interior" and rect[1] == rect[0]:
         return
@@ -402,8 +410,8 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     fn = _pinned_shard_kernel(u_pairs.dtype) if pinned \
         else _shard_kernel(u_pairs.dtype)
     stream = torch.cuda.current_stream(u_pairs.device).cuda_stream
-    err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), mesh.n_rows,
-             mesh.n_cols, r_loc, c_loc, ch, src_slot, shape[0], shape[1],
+    err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), *mesh.local_shape,
+             *mesh.origin, r_loc, c_loc, ch, src_slot, shape[0], shape[1],
              steps, PARTS.index(part), *rect, *((*g,) if pinned else ()),
              int(boundary == "naive"), u_pairs.device.index,
              *consts.weights, *consts.reaction, stream)

@@ -25,19 +25,37 @@ split axis cannot fill its neighbour's halo from its own interior
 needed: only ``HALO`` of its columns are ever pushed
 (``grayscott_tpu/ops/megakernel.py:301-309``).
 
-In this port every shard of a mesh lives on one ``torch.device``: more
+In one process every shard of a mesh lives on one ``torch.device``: more
 shards than cards share the card, as the JAX suite's virtual devices share
 the CPU. The kernel is one launch for all of them.
+
+With several processes (``utils/distributed.py``) the mesh stays global,
+``n_rows x n_cols`` shards of the whole domain, and process ``p`` owns the
+contiguous row-major run ``[p*L, (p+1)*L)`` of its ``L = N/P`` shards,
+JAX's plain device order (``grayscott_tpu/parallel/halo.py:70``): whole
+mesh rows, or an equal part of one mesh row, so that its shards form a
+rectangular block (``Mesh.local_shape`` at ``Mesh.origin``) and the blocks
+form a grid of processes (``Mesh.process_grid``); any other split raises.
+A process allocates the pairs of its own block only,
+``(local_rows, local_cols, 2, ...)``. Every layout function takes the
+global mesh: the halo columns follow its columns, the kernels' global
+origins its offsets. :func:`exchange` keeps :func:`exchange_halos`'s
+order; the bands that cross processes go device -> pinned host -> gloo
+-> device, one message a peer and a phase, both species together.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..errors import UnsupportedConfigError
+from ..utils import distributed
 
 #: halo rows around a shard: the megakernel's time-block depth
 HALO = 8
@@ -60,16 +78,73 @@ _logger = logging.getLogger("grayscott_tpu_torch")
 _shared_logged = False
 
 
+def split(n_rows: int, n_cols: int, processes: int
+          ) -> Tuple[int, int] | None:
+    """The (rows, cols) block of shards each of ``processes`` owns on an
+    ``n_rows x n_cols`` mesh, in row-major runs of ``N/P`` shards: whole
+    mesh rows, or an equal part of one; None where no such block exists."""
+    n = n_rows * n_cols
+    if n % processes:
+        return None
+    per = n // processes
+    if per % n_cols == 0:
+        return per // n_cols, n_cols
+    if n_cols % per == 0:
+        return 1, per
+    return None
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``n_rows x n_cols`` shards, all on ``device``, whose pairs hold
-    ``halo`` rows of each row neighbour's cells (and as many columns of
-    each column neighbour's on a 2-D mesh)."""
+    """``n_rows x n_cols`` shards on ``device``, whose pairs hold ``halo``
+    rows of each row neighbour's cells (and as many columns of each column
+    neighbour's on a 2-D mesh). With ``processes`` > 1 this process
+    (``process``) holds the block of :attr:`local_shape` shards at
+    :attr:`origin` (:func:`split`); else every shard."""
 
     n_rows: int
     n_cols: int
     device: torch.device
     halo: int = HALO
+    processes: int = 1
+    process: int = 0
+
+    def __post_init__(self):
+        if split(self.n_rows, self.n_cols, self.processes) is None:
+            raise UnsupportedConfigError(
+                f"{self.n_shards} shards (a {self.n_rows}x{self.n_cols} "
+                f"mesh) do not split over {self.processes} processes: each "
+                "takes N/P shards in row-major order, which must be whole "
+                "mesh rows or an equal part of one; pick --sharded-devices "
+                "and --sharded-mesh-cols to suit", combo="distributed+mesh")
+
+    # cached: K1's shard wrapper reads them at every launch, on a path the
+    # host paces
+    @functools.cached_property
+    def local_shape(self) -> Tuple[int, int]:
+        """(rows, cols) of the shards this process holds."""
+        return split(self.n_rows, self.n_cols, self.processes)
+
+    @functools.cached_property
+    def process_grid(self) -> Tuple[int, int]:
+        """(rows, cols) of the processes' blocks across the mesh."""
+        lr, lc = self.local_shape
+        return self.n_rows // lr, self.n_cols // lc
+
+    @functools.cached_property
+    def origin(self) -> Tuple[int, int]:
+        """(mesh row, mesh column) of this process's first shard."""
+        lr, lc = self.local_shape
+        pi, pj = divmod(self.process, self.process_grid[1])
+        return pi * lr, pj * lc
+
+    def blocks(self, shape) -> "distributed.Blocks | None":
+        """How the processes' blocks of interiors (:func:`
+        mega_unshard_result` without a crop) tile a domain of ``shape``;
+        None with one process."""
+        if self.processes == 1:
+            return None
+        return distributed.Blocks(self.process_grid, tuple(shape))
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -99,25 +174,36 @@ def visible_cards(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+def default_shards(device: torch.device) -> int:
+    """The shards of a mesh with none asked for: one per visible card in
+    each process."""
+    return visible_cards(device) * distributed.process_count()
+
+
 def make_mesh(n_devices: int | None = None, n_cols: int = 1,
               device: str | torch.device = "cuda") -> Mesh:
     """A mesh of ``n_devices`` shards in ``n_cols`` columns (a 1-D row mesh
-    by default) on ``device``. ``None``: one shard per visible card."""
+    by default) on ``device``, across every process of the run
+    (``utils/distributed.py``). ``None``: :func:`default_shards`."""
     device = torch.device(device)
-    n = visible_cards(device) if n_devices is None else n_devices
+    n = default_shards(device) if n_devices is None else n_devices
     if n < 1 or n_cols < 1:
         raise ValueError(f"a mesh needs >= 1 shard and >= 1 column, got "
                          f"{n} shards in {n_cols} columns")
     if n % n_cols:
         raise ValueError(f"{n} devices not divisible by {n_cols} mesh "
                          "columns")
+    procs = distributed.process_count()
+    mesh = Mesh(n // n_cols, n_cols, device, processes=procs,
+                process=distributed.process_index())
     global _shared_logged
-    if n > 1 and not _shared_logged:
+    if n > procs and not _shared_logged:
         _shared_logged = True
-        _logger.info("the %d shards of a sharded mesh share %s (%d card(s) "
-                     "visible): one launch runs them all", n, device,
+        _logger.info("this process's %d shard(s) of the %dx%d sharded mesh "
+                     "share %s (%d card(s) visible): one launch runs them "
+                     "all", n // procs, mesh.n_rows, mesh.n_cols, device,
                      visible_cards(device))
-    return Mesh(n // n_cols, n_cols, device)
+    return mesh
 
 
 def viable_mesh_cols(shape, n: int, min_rows: int = 8,
@@ -203,57 +289,72 @@ def thin_shard(shape, mesh: Mesh) -> str | None:
 
 
 def pair_shape(shape, mesh: Mesh) -> Tuple[int, ...]:
-    """The shape of one species' pairs for a domain of ``shape``."""
+    """The shape of one species' pairs for a domain of ``shape``: this
+    process's shards."""
     r_loc, c_loc = shard_extents(shape, mesh)
-    return (mesh.n_rows, mesh.n_cols, 2, mesh.halo + r_loc + mesh.halo,
+    return (*mesh.local_shape, 2, mesh.halo + r_loc + mesh.halo,
             mesh.chalo + c_loc + mesh.chalo)
 
 
 def interior_extents(pairs: torch.Tensor,
-                     halo: int = HALO) -> Tuple[int, int, int]:
-    """(r_loc, c_loc, chalo) of pairs in the shard layout of ``halo``."""
-    chalo = col_halo(pairs.shape[1], halo)
-    return pairs.shape[3] - 2 * halo, pairs.shape[4] - 2 * chalo, chalo
+                     halo: "int | Mesh" = HALO) -> Tuple[int, int, int]:
+    """(r_loc, c_loc, chalo) of pairs in the shard layout of ``halo``, or
+    of the mesh ``halo`` (its halo, and its columns: a process's block may
+    hold fewer columns than the mesh)."""
+    if isinstance(halo, Mesh):
+        h, chalo = halo.halo, halo.chalo
+    else:
+        h, chalo = halo, col_halo(pairs.shape[1], halo)
+    return pairs.shape[3] - 2 * h, pairs.shape[4] - 2 * chalo, chalo
 
 
 def mega_shard_state(u, v, mesh: Mesh, dtype: torch.dtype = torch.float32
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(R, C) host or device state -> the pairs of its shards on
-    ``mesh.device``, of ``dtype`` (float32, or bfloat16: the state rounded
-    to nearest even) (``grayscott_tpu/parallel/halo.py:687`` and ``:644``,
-    on tensors, for both mesh forms). Slot 0 holds the state; halos, slot 1
-    and the cells past the domain start 0.0."""
+    """(R, C) host or device state -> the pairs of this process's shards
+    on ``mesh.device``, of ``dtype`` (float32, or bfloat16: the state
+    rounded to nearest even) (``grayscott_tpu/parallel/halo.py:687`` and
+    ``:644``, on tensors, for both mesh forms). Slot 0 holds the state;
+    halos, slot 1 and the cells past the domain start 0.0. Every process
+    passes the whole state."""
     out = []
+    lr, lc = mesh.local_shape
+    row0, col0 = mesh.origin
     for x in (u, v):
         x = torch.as_tensor(np.asarray(x, dtype=np.float32)
                             if isinstance(x, np.ndarray) else x,
-                            dtype=torch.float32).to(mesh.device)
-        r, c = x.shape
-        pairs = torch.zeros(pair_shape((r, c), mesh), dtype=dtype,
+                            dtype=torch.float32)
+        pairs = torch.zeros(pair_shape(x.shape, mesh), dtype=dtype,
                             device=mesh.device)
         h = mesh.halo
-        r_loc, c_loc, ch = interior_extents(pairs, h)
-        full = torch.zeros((mesh.n_rows * r_loc, mesh.n_cols * c_loc),
-                           dtype=torch.float32, device=mesh.device)
-        full[:r, :c] = x
-        pairs[:, :, 0, h:h + r_loc, ch:ch + c_loc] = full.reshape(
-            mesh.n_rows, r_loc, mesh.n_cols, c_loc).permute(0, 2, 1, 3)
+        r_loc, c_loc, ch = interior_extents(pairs, mesh)
+        part = x[row0 * r_loc:(row0 + lr) * r_loc,
+                 col0 * c_loc:(col0 + lc) * c_loc].to(mesh.device)
+        block = torch.zeros((lr * r_loc, lc * c_loc), dtype=torch.float32,
+                            device=mesh.device)
+        block[:part.shape[0], :part.shape[1]] = part
+        pairs[:, :, 0, h:h + r_loc, ch:ch + c_loc] = block.reshape(
+            lr, r_loc, lc, c_loc).permute(0, 2, 1, 3)
         out.append(pairs)
     return out[0], out[1]
 
 
 def mega_unshard_result(pairs: torch.Tensor, shape, slot: int = 0,
-                        halo: int = HALO) -> torch.Tensor:
-    """The interiors of ``slot`` of pairs of ``halo``, reassembled and
-    cropped to (R, C): a new float32 tensor (bfloat16 pairs widen exactly),
+                        halo: "int | Mesh" = HALO) -> torch.Tensor:
+    """The interiors of ``slot`` of pairs of ``halo`` (or of the mesh
+    ``halo``: :func:`interior_extents`), reassembled and cropped to
+    ``shape`` (R, C): a new float32 tensor (bfloat16 pairs widen exactly),
     as JAX's host views are (``grayscott_tpu/parallel/halo.py:719`` and
-    ``:673``)."""
-    r, c = shape
+    ``:673``). ``shape`` None: the block uncropped, each process's part of
+    the padded domain, which ``utils/distributed.py:fetch`` assembles
+    (``Mesh.blocks``)."""
     n_r, n_c = pairs.shape[:2]
     r_loc, c_loc, ch = interior_extents(pairs, halo)
-    interior = pairs[:, :, slot, halo:halo + r_loc, ch:ch + c_loc]
+    h = halo.halo if isinstance(halo, Mesh) else halo
+    interior = pairs[:, :, slot, h:h + r_loc, ch:ch + c_loc]
     full = interior.permute(0, 2, 1, 3).reshape(n_r * r_loc, n_c * c_loc)
-    return full[:r, :c].to(torch.float32, copy=True)
+    if shape is not None:
+        full = full[:shape[0], :shape[1]]
+    return full.to(torch.float32, copy=True)
 
 
 def exchange_halos(pairs: torch.Tensor, slot: int = 0,
@@ -280,6 +381,106 @@ def exchange_halos(pairs: torch.Tensor, slot: int = 0,
         x[:, 0, :, :ch] = 0.0
         x[:, :-1, :, ch + c_loc:] = x[:, 1:, :, ch:2 * ch]
         x[:, -1, :, ch + c_loc:] = 0.0
+
+
+def exchange(mesh: Mesh, pairs: Sequence[torch.Tensor],
+             slot: int = 0) -> None:
+    """Fill the halos of ``slot`` of each of ``pairs`` (the species' pairs
+    of ``mesh``, its halo), in place. One process: :func:`exchange_halos`
+    of each. Several: the same two phases, rows then columns, on this
+    process's block; copies between two shards of the block stay slice
+    copies on the device, and the bands of the block's outer shards go to
+    and come from the neighbouring processes' blocks (:func:`_swap`), the
+    domain's outer halos 0.0. The column phase sends whole columns, halo
+    rows included, once the row phase has received its bands, so the
+    corners arrive from the diagonal neighbours. Every process must call
+    it, in the same order."""
+    if mesh.processes == 1:
+        for p in pairs:
+            exchange_halos(p, slot, mesh.halo)
+        return
+    r_loc, c_loc, ch = interior_extents(pairs[0], mesh)
+    h, xs = mesh.halo, [p[:, :, slot] for p in pairs]
+    n_pr, n_pc = mesh.process_grid
+    pi, pj = divmod(mesh.process, n_pc)
+    for x in xs:
+        x[1:, :, :h] = x[:-1, :, r_loc:r_loc + h]
+        x[:-1, :, h + r_loc:] = x[1:, :, h:2 * h]
+    # the row phase: the block's first shard row with the block above, its
+    # last with the block below
+    plan = {}
+    if pi:
+        plan[mesh.process - n_pc] = ([x[0, :, h:2 * h] for x in xs],
+                                     [x[0, :, :h] for x in xs])
+    if pi < n_pr - 1:
+        plan[mesh.process + n_pc] = ([x[-1, :, r_loc:r_loc + h] for x in xs],
+                                     [x[-1, :, h + r_loc:] for x in xs])
+    _swap(plan, tag=0)
+    for x in xs:
+        if not pi:
+            x[0, :, :h] = 0.0
+        if pi == n_pr - 1:
+            x[-1, :, h + r_loc:] = 0.0
+    if not ch:
+        return
+    for x in xs:
+        x[:, 1:, :, :ch] = x[:, :-1, :, c_loc:c_loc + ch]
+        x[:, :-1, :, ch + c_loc:] = x[:, 1:, :, ch:2 * ch]
+    plan = {}
+    if pj:
+        plan[mesh.process - 1] = ([x[:, 0, :, ch:2 * ch] for x in xs],
+                                  [x[:, 0, :, :ch] for x in xs])
+    if pj < n_pc - 1:
+        plan[mesh.process + 1] = ([x[:, -1, :, c_loc:c_loc + ch] for x in xs],
+                                  [x[:, -1, :, ch + c_loc:] for x in xs])
+    _swap(plan, tag=1)
+    for x in xs:
+        if not pj:
+            x[:, 0, :, :ch] = 0.0
+        if pj == n_pc - 1:
+            x[:, -1, :, ch + c_loc:] = 0.0
+
+
+def _swap(plan: dict, tag: int) -> None:
+    """Send each peer's bands and receive its bands into ours, in place:
+    ``plan`` maps a rank to (the views to send, the views to fill), all of
+    one dtype and device, the same shapes on both sides. One message a
+    peer each way: on the card the views are packed on the current stream,
+    copied into a pinned host buffer, which the host waits for, and sent;
+    what arrives is copied back on the current stream. Raises when a peer
+    is gone (gloo's connection closes, or the group's timeout)."""
+    import torch.distributed as dist
+
+    if not plan:
+        return
+    sample = next(iter(plan.values()))[0][0]
+    cuda = sample.device.type == "cuda"
+    outgoing, incoming, works = {}, {}, []
+    for rank, (send, _) in plan.items():
+        flat = torch.cat([v.reshape(-1) for v in send])
+        if cuda:
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            flat = host
+        outgoing[rank] = flat
+    if cuda:
+        staged = torch.cuda.Event()
+        staged.record()
+        staged.synchronize()
+    for rank, (_, recv) in plan.items():
+        n = sum(v.numel() for v in recv)
+        incoming[rank] = torch.empty(n, dtype=sample.dtype, pin_memory=cuda)
+        works.append(dist.irecv(incoming[rank], rank, tag=tag))
+    for rank, flat in outgoing.items():
+        works.append(dist.isend(flat, rank, tag=tag))
+    for work in works:
+        work.wait()
+    for rank, (_, recv) in plan.items():
+        flat = incoming[rank].to(sample.device, non_blocking=True)
+        at = 0
+        for v in recv:
+            v.copy_(flat[at:at + v.numel()].view(v.shape))
+            at += v.numel()
 
 
 def overlap_tiles(r_loc: int, c_loc: int, chalo: int,

@@ -2,9 +2,12 @@
 
 The port's ``grayscott_tpu/species.py``, with its own copy of
 ``initial_uv``. The state lives in backend-specific ``storage``;
-:meth:`Species.result` is V's current concentration as a device tensor,
-and the ``*_host`` methods copy to the host after an explicit
-synchronisation.
+:meth:`Species.result` is V's current concentration as a device tensor
+(with several processes, this process's block of it), and the ``*_host``
+methods copy the whole domain to the host through
+``utils/distributed.py:fetch``, after an explicit synchronisation: with
+several processes a collective call, which every process makes
+(``grayscott_tpu/species.py:90-103``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from .params import Precision
+from .utils.distributed import fetch
 
 
 def initial_uv(shape: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
@@ -31,13 +35,6 @@ def initial_uv(shape: Tuple[int, int]) -> Tuple[np.ndarray, np.ndarray]:
     return u, v
 
 
-def to_host(x: torch.Tensor) -> np.ndarray:
-    """A host copy of ``x`` that later steps cannot overwrite."""
-    if x.device.type == "cuda":
-        torch.cuda.synchronize(x.device)
-    return x.to("cpu", copy=True).numpy()
-
-
 class Species:
     """Chemical species state bound to a backend's storage layout.
 
@@ -50,15 +47,24 @@ class Species:
         self.steps_performed = 0
 
     def result(self) -> torch.Tensor:
-        """V's current concentration, a device tensor of ``shape``. It
-        views the live state: the next steps overwrite it."""
+        """V's current concentration, a device tensor of ``shape`` (with
+        several processes, this process's block: ``blocks()``). It views
+        the live state: the next steps overwrite it."""
         return self._backend.extract_result(self.storage, self.shape)
 
+    def blocks(self):
+        """How the processes' results tile the domain
+        (``utils/distributed.py:Blocks``), or None where each is whole."""
+        return self._backend.blocks(self.shape)
+
     def result_host(self) -> np.ndarray:
-        """Host copy of the result, after the device has finished."""
-        return to_host(self.result())
+        """Host copy of the result, after the device has finished; with
+        several processes collective (every process calls it)."""
+        return fetch(self.result(), self.blocks())
 
     def uv_host(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Host copies of both concentrations."""
+        """Host copies of both concentrations; with several processes
+        collective."""
         u, v = self._backend.extract_uv(self.storage, self.shape)
-        return to_host(u), to_host(v)
+        blocks = self.blocks()
+        return fetch(u, blocks), fetch(v, blocks)

@@ -96,9 +96,14 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
     ("mega_depth > 2 x block_rows/block_cols x mega (K2)", "rejected",
      "ROADMAP.md Queue 2 item 12 (the window ring at a pinned tile); "
      "either alone runs"),
-    ("GRAYSCOTT_COORDINATOR (several processes)", "rejected",
-     "ROADMAP.md Queue 1 item 7.2 (several processes over "
-     "torch.distributed)"),
+    ("GRAYSCOTT_COORDINATOR (several processes)", "ok",
+     "simulate over a gloo process group: the sharded windowed engine (K1's "
+     "shard entry, every K, row tile, bf16 and overlap), each process "
+     "stepping its block of the mesh (whole mesh rows or an equal part of "
+     "one), halo bands through pinned host memory, process 0 writes; other "
+     "backends, --autotune and engine=mega rejected (K7 across processes "
+     "and NCCL with one rank a card: ROADMAP.md Queue 1 item 7.3); livesim "
+     "and the bench ignore the variable"),
 )
 
 

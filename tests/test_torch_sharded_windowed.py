@@ -425,21 +425,25 @@ def test_cli_pins_reach_the_sharded_backend(argv, item):
 
 
 @pytest.mark.parametrize("value", ["localhost:1234", "auto"])
-def test_coordinator_is_refused(monkeypatch, tmp_path, value):
-    """``GRAYSCOTT_COORDINATOR`` asks for a multi-process run, which the
-    port does not run yet: the entry points stop, naming ROADMAP.md Queue 1
-    item 7.2, before any simulation or output exists."""
+def test_coordinator_is_refused(monkeypatch, value):
+    """``make_simulation`` and ``livesim``'s set-up start no process group
+    with ``GRAYSCOTT_COORDINATOR`` set, as JAX's ``livesim`` ignores it
+    (``grayscott_tpu/cli/livesim.py:84``): ``simulate.main`` alone joins
+    the group (``utils/distributed.py``), so ``livesim`` and the bench run
+    one process and wait for no peer."""
+    import torch.distributed as dist
+
+    from grayscott_tpu_torch.cli import livesim
+
     monkeypatch.setenv("GRAYSCOTT_COORDINATOR", value)
+    monkeypatch.setenv("GRAYSCOTT_NUM_PROCESSES", "2")
+    monkeypatch.setenv("GRAYSCOTT_PROCESS_ID", "0")
     ns = simulate.build_parser().parse_args(["--device", "cpu"])
-    with pytest.raises(UnsupportedConfigError, match="Queue 1 item 7.2"):
-        shared.make_simulation(ns)
-    out = tmp_path / "out.h5"
-    with pytest.raises(UnsupportedConfigError, match="Queue 1 item 7.2"):
-        simulate.main(["--device", "cpu", "-n", "1", "-r", "8", "-c", "8",
-                       "-o", str(out)])
-    assert not out.exists()
-    monkeypatch.setenv("GRAYSCOTT_COORDINATOR", "")
     assert shared.make_simulation(ns).name == "cuda"
+    source = livesim.FrameSource(livesim.build_parser().parse_args(
+        ["--device", "cpu", "-r", "16", "-c", "16"]))
+    assert source.sim.name == "cuda" and source.species.shape == (16, 16)
+    assert not dist.is_initialized()
 
 
 def test_storage_tags_and_slots(rng):

@@ -124,7 +124,7 @@ SUPPORTED = {
 }
 
 #: rejected rows -> cases whose constructor raises UnsupportedConfigError:
-#: (backend, kwargs); the GRAYSCOTT_COORDINATOR row has its own test
+#: (backend, kwargs)
 REJECTED = {
     "bf16 storage x resident/pack/lane fold": [
         ("cuda", dict(dtype="bfloat16", resident="on")),
@@ -201,10 +201,21 @@ def test_conflicts_raise(backend, kwargs):
 
 
 def test_coordinator_row_raises(monkeypatch):
+    """The ``GRAYSCOTT_COORDINATOR`` row is ``ok``: its note names the
+    windowed engine over gloo, process 0 writing, and Queue 1 item 7.3
+    for K7 and NCCL; no row is rejected for Queue 1 item 7.2. Without a
+    process group the variable changes nothing in ``make_simulation``
+    (the two-process runs: tests/test_torch_distributed*.py)."""
+    rows = {combo: (status, note) for combo, status, note in support.MATRIX}
+    status, note = rows["GRAYSCOTT_COORDINATOR (several processes)"]
+    assert status == "ok"
+    for word in ("windowed", "gloo", "process 0", "Queue 1 item 7.3"):
+        assert word in note
+    assert not any("Queue 1 item 7.2" in n for _, st, n in support.MATRIX
+                   if st == "rejected")
     monkeypatch.setenv("GRAYSCOTT_COORDINATOR", "localhost:1234")
     ns = simulate.build_parser().parse_args(["--device", "cpu"])
-    with pytest.raises(UnsupportedConfigError, match="Queue 1 item 7.2"):
-        shared.make_simulation(ns)
+    assert shared.make_simulation(ns).name == "cuda"
 
 
 @pytest.mark.parametrize("combo,item", [
