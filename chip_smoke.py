@@ -276,6 +276,13 @@
    ``bench.harness`` with ``--block-rows`` and ``--steps-per-call``. Phase
    12's tuner measures K1's and K4's depth and tile candidates. The
    ``kernels`` line gains the five pinned entries.
+19. The megakernels' tile pins (K2, K6, K7) and the sharded windowed
+   engine's K and row tile (K1's shard entry): each pinned entry bit for
+   bit its plain version on several geometries and a NaN/Inf state, the
+   JAX pins the shared memory refuses counted, ptxas's report of the
+   pinned instantiations, ten ``simulate.run`` paths under the pins (each
+   frame the unpinned run's), each pin timed in turns with the default
+   geometry. The ``kernels`` line gains the nine pinned entries.
 20. Several processes (``GRAYSCOTT_COORDINATOR``, ``utils/
    distributed.py``). (a) K1's shard entries (float32 and bf16 at K = 8,
    the pinned entry at K = 16, both boundaries) on rank 1's block of 2x2,
@@ -293,10 +300,31 @@
    gather alone. A child that fails, hangs past DIST_TIMEOUT or exits
    non-zero fails the phase. The ``kernels`` line gives K1's shard
    entries their two-process launches by rank.
+21. The lane fold (``--pallas-fold F``; ``ops/lane_fold.py``, K1's folded
+   entry in ``csrc/windowed_pins.cu``) and the window ring at a pinned
+   tile (``mega_depth`` with ``block_rows``/``block_cols``; K2's pinned
+   ring entries in ``csrc/mega_pins.cu``). (a) ptxas's report of the 4
+   folded, 1 refresh and 12 pinned ring instantiations (no spill, no
+   stack); the folded entry (its refresh, then 8 or 16 steps), at
+   1080x1920 F = 2 (and a NaN/Inf state, the seam's cells among them),
+   1001x1920 F = 3 (dead rows) and 4096x512 F = 8, both boundaries, bit
+   for bit its plain version and the unfolded K1; each pinned ring entry
+   (float32, bf16, the fold, the fold on bf16) at 32x128 depth 3, 16x64
+   depths 4 and 8, 8x256 depth 3, at 1080x1920 (and NaN/Inf), bit for bit
+   its plain version and the pinned double buffer, each ring's blocks
+   beside the occupancy API's. (b) ``simulate.run`` with ``--pallas-fold
+   2`` (naive, K = 16, zero) against the unfolded K1, and each pinned ring
+   entry at depth 4 on 16-row tiles against depth 2, launch counts zeroed
+   before each and read after, every frame bit for bit, then each pair in
+   turns. (c) The folded launch against the unfolded K1's, the refresh
+   alone and 32 steps through the backend folded and unfolded, in turns,
+   at 1080x1920 F = 2, 4096x512 F = 8 and 2048x256 F = 8; each pinned ring
+   against depth 2 on its tiles in turns. The ``kernels`` line gains the
+   folded entry and the four pinned ring entries.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phases 16, 17 and 18 and phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phases 16 to 21 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -336,8 +364,8 @@ from grayscott_tpu_torch.bench import (autotune, defaults, headline, ladder,
                                        simulate_turns)
 from grayscott_tpu_torch.cli import livesim, shared, simulate
 from grayscott_tpu_torch.errors import UnsupportedConfigError
-from grayscott_tpu_torch.ops import (build, geometry, ilpsplit, megakernel,
-                                     oplat,
+from grayscott_tpu_torch.ops import (build, geometry, ilpsplit, lane_fold,
+                                     megakernel, oplat,
                                      packed, resident, sharded_mega, stencil,
                                      windowed)
 from grayscott_tpu_torch.parallel import halo
@@ -438,6 +466,14 @@ COUNTERS = {
     "shmega_pinned_bf16": (sharded_mega, "pinned_bf16_launches"),
     "shwin_pinned": (windowed, "pinned_shard_launches"),
     "shwin_pinned_bf16": (windowed, "pinned_bf16_shard_launches"),
+    # K1's folded entry (the lane fold) and K2's ring on pinned tiles,
+    # counted apart
+    "windowed_folded": (windowed, "folded_launches"),
+    "mega_pinned_ring": (megakernel, "pinned_ring_launches"),
+    "mega_pinned_ring_bf16": (megakernel, "pinned_ring_bf16_launches"),
+    "mega_pinned_ring_fold": (megakernel, "pinned_ring_fold_launches"),
+    "mega_pinned_ring_fold_bf16": (megakernel,
+                                   "pinned_ring_fold_bf16_launches"),
 }
 
 #: storage tags that share another tag's kernel (K7 and K1's shard entry on
@@ -708,6 +744,41 @@ KERNELS = {
         "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
         "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (per shard at "
                     "steps, halo and tr; bfloat16 storage)",
+    },
+    "windowed_folded": {
+        "name": "windowed_folded_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (fold=(F, Cd, "
+                    "Rp): :929-933, :1123-1138; after fold_refresh, :1547)",
+    },
+    "mega_pinned_ring": {
+        "name": "mega_pinned_ring_multistep",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D with tr, "
+                    "tc: the ring :562-630)",
+    },
+    "mega_pinned_ring_bf16": {
+        "name": "mega_pinned_ring_multistep_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D with tr, "
+                    "tc; bfloat16 storage)",
+    },
+    "mega_pinned_ring_fold": {
+        "name": "mega_pinned_ring_multistep_fold",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D with tr, "
+                    "tc; fast_fold)",
+    },
+    "mega_pinned_ring_fold_bf16": {
+        "name": "mega_pinned_ring_multistep_fold_bf16",
+        "route": "cuda",
+        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "replaces": "grayscott_tpu/ops/megakernel.py:81 (depth=D with tr, "
+                    "tc; fast_fold, bfloat16 storage)",
     },
 }
 
@@ -2046,16 +2117,19 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "15ilpsplit_kernel", "13packed_kernel",
                       "22packed_resident_kernel", "18packed_mega_kernel",
                       "11ring_kernel", "13pinned_kernel",
-                      "20packed_pinned_kernel")
+                      "20packed_pinned_kernel", "13folded_kernel",
+                      "19fold_refresh_kernel", "18ring_pinned_kernel")
 #: of those, the ones whose instantiations must not spill (K2, K7, K4, K6,
-#: K2's ring, and the pinned entries of K1 and K4)
+#: K2's ring, the pinned entries of K1 and K4, K1's folded entry and its
+#: refresh, K2's pinned ring)
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "13packed_kernel", "18packed_mega_kernel",
                     "11ring_kernel", "13pinned_kernel",
                     "20packed_pinned_kernel", "18mega_pinned_kernel",
                     "25packed_mega_pinned_kernel",
                     "26sharded_mega_pinned_kernel",
-                    "19shard_pinned_kernel")
+                    "19shard_pinned_kernel", "13folded_kernel",
+                    "19fold_refresh_kernel", "18ring_pinned_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -3017,11 +3091,11 @@ SHARDED_MARGIN = 0.03
 
 
 def ran(record: dict) -> tuple:
-    """(engine, packed, K, block_rows, block_cols) of a record or a
-    candidate: K1's and K4's depth and tile candidates apart."""
+    """(engine, packed, K, block_rows, block_cols, fold) of a record or a
+    candidate: K1's and K4's depth, tile and fold candidates apart."""
     return (record["engine"], bool(record["pack"]),
             record.get("steps_per_call", 8), record.get("block_rows"),
-            record.get("block_cols"))
+            record.get("block_cols"), record.get("fold") or 1)
 
 
 def sharded_ran(record: dict) -> tuple:
@@ -3136,7 +3210,8 @@ def autotune_phase(checks: Checks, card: str) -> dict:
                 before = autotune.measurements
                 rec = autotune.autotune(params, shape, boundary,
                                         verbose=True, device=DEVICE)
-                wanted = autotune.default_candidates(params, boundary)
+                wanted = autotune.default_candidates(
+                    params, boundary, shape=shape, device=DEVICE)
                 table = rec["candidates"]
                 checks.expect(autotune.measurements - before >= len(wanted)
                               and len(table) == len(wanted)
@@ -5709,6 +5784,441 @@ def distributed_phase(checks: Checks, card: str) -> dict:
               flush=True)
     return launches
 
+# --- 21. the lane fold (K1's folded entry) and the window ring at a pinned --
+# --- tile (K2's pinned ring entries) -----------------------------------------
+
+#: phase 21a: (shape, F) of the folded entry's checks at each of FOLD21_KS:
+#: even panels, dead rows (1001 rows in 3 panels of 384), eight panels
+FOLD21_CASES = [(MAIN_SHAPE, 2), ((1001, 1920), 3), ((4096, 512), 8)]
+FOLD21_KS = (8, 16)
+#: phase 21d: (shape, F) timed folded against unfolded K1, and the K of
+#: the launches timed
+FOLD21_TIMED = [(MAIN_SHAPE, 2), ((4096, 512), 8), ((2048, 256), 8)]
+FOLD21_K = 8
+#: phase 21b: label -> (flags, the counter of the entry that runs, the
+#: label of the unfolded run whose frames it must equal, launches an image)
+FOLD21_REFS = {
+    "windowed": (["--pallas-engine", "windowed"], "windowed", 4),
+    "windowed zero": (["--boundary", "zero", "--pallas-engine", "windowed",
+                       "--pallas-pack", "off"], "windowed", 4),
+}
+FOLD21_PATHS = {
+    "fold 2": (["--pallas-fold", "2"], "windowed_folded", "windowed", 4),
+    "fold 2 k16": (["--pallas-fold", "2", "--pallas-steps-per-call", "16"],
+                   "windowed_folded", "windowed", 2),
+    "fold 2 zero": (["--boundary", "zero", "--pallas-fold", "2"],
+                    "windowed_folded", "windowed zero", 4),
+}
+#: K2's pinned ring entries by counter tag: (storage dtype, the fold), and
+#: the pinned double buffer's tag of each
+RING21_ENTRIES = {"mega_pinned_ring": (torch.float32, False),
+                  "mega_pinned_ring_bf16": (torch.bfloat16, False),
+                  "mega_pinned_ring_fold": (torch.float32, True),
+                  "mega_pinned_ring_fold_bf16": (torch.bfloat16, True)}
+RING21_BASE = {tag: tag.replace("_ring", "") for tag in RING21_ENTRIES}
+#: (tiles, depth) of the pinned rings checked and timed at 1080x1920, and
+#: the one of the simulate paths and the kernels line
+RING21_CASES = (((32, 128), 3), ((16, 64), 4), ((16, 64), 8), ((8, 256), 3))
+RING21_PATH = ((16, 64), 4)
+#: the new instantiations ptxas reports, by mangled kernel name
+FOLD21_PTXAS = {"13folded_kernel": 4, "19fold_refresh_kernel": 1,
+                "18ring_pinned_kernel": 12}
+#: phase 21c/21d: rounds in turns (in order, then reversed), launches a
+#: sample
+FOLD21_ROUNDS = 2
+FOLD21_REPS = 20
+
+
+def fold21_plan(shape, f: int, k: int):
+    """(geometry, Rp) of a folded run of ``shape`` at F and K: the panel's
+    default tiles (``CudaSimulation.plan_for``), Rp from its row tile."""
+    g = geometry.resolve((-(-shape[0] // f), shape[1]), k)
+    return g, lane_fold.fold_geometry(shape[0], f, g.tr)
+
+
+def fold21_state(u_np, v_np, f: int, g):
+    """The folded state of host arrays on the card, its halos 0.0 (the
+    entry refreshes them)."""
+    return lane_fold.fold_state(u_np, v_np, f, g.tr, g.halo, DEVICE)
+
+
+def fold21_stepped_rows(shape, f: int, g, rp: int) -> int:
+    """Rows of the tiles the folded entry steps: each panel's tile rows
+    that start inside the domain (a tile of dead rows returns at once)."""
+    rows = 0
+    for p in range(f):
+        live = min(rp, shape[0] - p * rp)
+        rows += max(0, -(-live // g.tr) * g.tr)
+    return rows
+
+
+def compare_folded(checks: Checks, rng) -> int:
+    """Phase 21a: K1's folded entry (the refresh, then K in FOLD21_KS
+    steps) on each of FOLD21_CASES, both boundaries (and at 1080x1920 a
+    state with NaN and +-Inf in interior and edge tiles and at the panels'
+    seam): bit for bit its plain version (the folded tensors, the
+    refreshed input's halos among them), and the unfolded K1 on the same
+    domain (one launch of K steps). Returns the comparisons made."""
+    n = 0
+    consts = kernel_constants(Parameters())
+    for shape, f in FOLD21_CASES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            for k in FOLD21_KS:
+                g, rp = fold21_plan(shape, f, k)
+                if special:
+                    # either side of the seam between panels 0 and 1
+                    u_np[rp - 1, -1] = v_np[rp, 0] = np.nan
+                    u_np[rp, -1] = -np.inf
+                    v_np[rp - 1, 0] = np.inf
+                ut, vt = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+                for boundary in ("naive", "zero"):
+                    what = (f"{pin_label(shape, g)} F={f} Rp={rp} K={k} "
+                            f"{boundary}{' NaN/Inf' if special else ''}")
+                    u, v = fold21_state(u_np, v_np, f, g)
+                    pu, pv = u.clone(), v.clone()
+                    uo, vo = torch.zeros_like(u), torch.zeros_like(v)
+                    windowed.folded_multistep(u, v, uo, vo, k, consts,
+                                              boundary, shape, rp, g)
+                    po, qo = torch.zeros_like(u), torch.zeros_like(v)
+                    windowed.folded_multistep_reference(
+                        pu, pv, po, qo, k, consts, boundary, shape, rp,
+                        g.halo)
+                    checks.compare_bits("windowed_folded", (uo, vo, u, v),
+                                        (po, qo, pu, pv), what)
+                    ku, kv = torch.empty_like(ut), torch.empty_like(vt)
+                    windowed.multistep(ut, vt, ku, kv, k, consts, boundary,
+                                       geometry=geometry.resolve(shape, k))
+                    got = [lane_fold.unfold_state(x, g.halo, f, shape[1],
+                                                  shape[0]) for x in (uo, vo)]
+                    checks.compare_bits("windowed_folded", got, (ku, kv),
+                                        f"{what} vs the unfolded K1")
+                    n += 2
+    return n
+
+
+def ring21_plain(u, v, n_blocks: int, tag: str, boundary: str):
+    """The plain version of ``tag``'s K2 entry: ``n_blocks`` time blocks
+    of 8 steps."""
+    dtype, fold = RING21_ENTRIES[tag]
+    params = Parameters()
+    if fold:
+        return megakernel.megastep_reference_fold(u, v, n_blocks, 8,
+                                                  fold_constants(params))
+    consts = kernel_constants(params)
+    if dtype == torch.bfloat16:
+        return megakernel.megastep_reference_bf16(u, v, n_blocks, 8, consts,
+                                                  boundary)
+    return stencil.run(u, v, 8 * n_blocks, consts, boundary)
+
+
+def ring21_run(u, v, n_blocks: int, tag: str, boundary: str, tiles,
+               depth: int):
+    """(U, V) after one launch of ``n_blocks`` time blocks of 8 steps of
+    ``tag``'s K2 entry on ``tiles`` at ``depth``."""
+    fold = RING21_ENTRIES[tag][1]
+    params = Parameters()
+    k = fold_constants(params) if fold else kernel_constants(params)
+    pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+    megakernel.megastep(pu, pv, n_blocks, 8, k, boundary, fold=fold,
+                        depth=depth,
+                        geometry=geometry.Geometry(*tiles, geometry.HALO))
+    return pu[0], pv[0]
+
+
+def compare_ring21(checks: Checks, rng) -> int:
+    """Phase 21a: each pinned ring entry of K2 (float32, bf16, the fold,
+    the fold on bf16) on each of RING21_CASES at 1080x1920 (and a NaN/Inf
+    state), one launch of RING_BLOCKS time blocks of 8 steps, naive and
+    zero where the entry takes them: bit for bit its plain version and the
+    pinned double buffer on the same tiles (bf16: NaN's positions, then
+    every other cell's bits); each ring's geometry beside the occupancy
+    API's blocks. Returns the comparisons made."""
+    n = 0
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tiles, depth in RING21_CASES:
+        ring = megakernel.ring_geometry(
+            MAIN_SHAPE, depth, tiles=geometry.Geometry(*tiles, geometry.HALO))
+        blocks = megakernel.pinned_ring_max_blocks(dev, ring)
+        print(f"ring pinned {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
+              f"{tiles[0]}x{tiles[1]} mega_depth={depth}: depth "
+              f"{ring.depth}, {ring.buffers} buffers, {ring.bytes} B a block, "
+              f"{ring.blocks_per_sm} blocks an SM by shared memory; "
+              f"occupancy API {blocks} blocks", flush=True)
+        checks.expect(ring.ring and sms <= blocks <= ring.blocks_per_sm * sms,
+                      f"pinned ring {tiles} depth {depth}: {blocks} blocks")
+    for special in (False, True):
+        u_np, v_np = bf16_state(rng, MAIN_SHAPE, special)
+        for tag, (dtype, fold) in RING21_ENTRIES.items():
+            u, v = (torch.from_numpy(x).to(DEVICE).to(dtype)
+                    for x in (u_np, v_np))
+            compare = (checks.compare_bf16 if dtype == torch.bfloat16
+                       else checks.compare_bits)
+            for boundary in ("naive",) if fold else ("naive", "zero"):
+                want = ring21_plain(u, v, RING_BLOCKS, tag, boundary)
+                for tiles, depth in RING21_CASES:
+                    got = ring21_run(u, v, RING_BLOCKS, tag, boundary, tiles,
+                                     depth)
+                    what = (f"{MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} {boundary}"
+                            f"{' NaN/Inf' if special else ''} {RING_BLOCKS}x8 "
+                            f"steps on {tiles[0]}x{tiles[1]} tiles at "
+                            f"mega_depth={depth}")
+                    compare(tag, got, want, what)
+                    at2 = ring21_run(u, v, RING_BLOCKS, tag, boundary, tiles,
+                                     2)
+                    same = same_bits(got, at2)
+                    print(f"compare {tag} {what} vs depth 2: bitwise {same}",
+                          flush=True)
+                    checks.expect(same, f"{tag} {what} vs depth 2")
+                    n += 2
+    return n
+
+
+def fold21_ptxas(checks: Checks, log: str) -> None:
+    """Phase 21a: ptxas's report of the folded entry's 4 instantiations
+    (and its refresh kernel's one) and the pinned ring's 12: registers,
+    stack and spills, none of which may spill or take a stack frame."""
+    if not log:
+        print("phase 21a: the library was reused, no ptxas report",
+              flush=True)
+        return
+    rows = {}
+    entry = frame = None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = PTXAS_USED.search(line)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), frame)
+            entry = None
+    for kernel, count in FOLD21_PTXAS.items():
+        found = {name: r for name, r in rows.items() if kernel in name}
+        regs = sorted({r for r, _ in found.values()})
+        bad = [f for _, f in found.values() if f != (0, 0, 0)]
+        print(f"ptxas {kernel[2:]}: {len(found)} instantiations, registers "
+              f"{regs}, stack or spills {bad}", flush=True)
+        checks.expect(len(found) == count and not bad,
+                      f"{kernel}: {len(found)} of {count} instantiations, "
+                      f"stack or spills {bad}")
+
+
+def fold21_paths(checks: Checks, card: str) -> dict:
+    """Phase 21b: ``simulate.run`` (MAIN_IMAGES images of MAIN_STEPS steps
+    at 1080x1920) under each fold pin of FOLD21_PATHS against the unfolded
+    K1 of FOLD21_REFS, and ``CudaSimulation(engine='mega',
+    mega_depth=RING21_PATH's depth, block_rows=16)`` for each pinned ring
+    entry against the same tiles at depth 2: the launch counts zeroed
+    before each run and read after, every frame bit for bit the unfolded
+    (or depth-2) run's; then each pair again in turns. Returns the runs
+    by label, each with ``ms`` an image and its twin's ``ms2``."""
+    refs, runs = {}, {}
+    for label, (flags, tag, per_image) in FOLD21_REFS.items():
+        sim = shared.make_simulation(simulate.build_parser().parse_args(
+            flags))
+        refs[label] = ring_path(checks, " ".join(flags), sim,
+                                {tag: MAIN_IMAGES * per_image})
+    for label, (flags, tag, ref, per_image) in FOLD21_PATHS.items():
+        sim = shared.make_simulation(simulate.build_parser().parse_args(
+            flags))
+        run = ring_path(checks, " ".join(flags), sim,
+                        {tag: MAIN_IMAGES * per_image})
+        runs[label] = dict(run, tag=tag, ref=refs[ref])
+    (tr, tc), depth = RING21_PATH
+    per_image = expected_launches("mega", 1, MAIN_STEPS)
+    for tag, (dtype, fold) in RING21_ENTRIES.items():
+        kwargs = dict(engine="mega", tuned_lookup=False, block_rows=tr,
+                      dtype=str(dtype)[6:], naive_fold=fold)
+        got = ring_path(
+            checks, f"{tag} mega_depth={depth} block_rows={tr}",
+            CudaSimulation(Parameters(), "naive", device=DEVICE,
+                           mega_depth=depth, **kwargs),
+            {tag: MAIN_IMAGES * per_image})
+        ref = ring_path(
+            checks, f"{RING21_BASE[tag]} mega_depth=2 block_rows={tr}",
+            CudaSimulation(Parameters(), "naive", device=DEVICE,
+                           mega_depth=2, **kwargs),
+            {RING21_BASE[tag]: MAIN_IMAGES * per_image})
+        runs[tag] = dict(got, tag=tag, ref=ref)
+    for label, run in runs.items():
+        ref = run["ref"]
+        same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                   for a, b in zip(run["frames"], ref["frames"]))
+        print(f"path simulate {label}: frames bitwise the "
+              f"{'depth-2' if label in RING21_ENTRIES else 'unfolded'} "
+              f"run's: {same} [{card}]", flush=True)
+        checks.expect(same, f"simulate {label} frames")
+        if not same:
+            checks.kernel_err[run["tag"]] = float("inf")
+        turns = ([], [])
+        for r in range(2 * FOLD21_ROUNDS):
+            for side in ((0, 1) if r % 2 == 0 else (1, 0)):
+                turns[side].append(sim_path_ms((run, ref)[side]["sim"]))
+        run["ms"], run["ms2"] = (statistics.median(t) for t in turns)
+        print(f"path simulate {label} in turns: {run['ms']!r} ms/image "
+              f"({turns[0]!r}) against {run['ms2']!r} ({turns[1]!r}): "
+              f"{run['ms'] / run['ms2']!r}x [{card}]", flush=True)
+    return runs
+
+
+def time_fold21(rng, card: str) -> dict:
+    """Phase 21c: at each of FOLD21_TIMED, naive, in turns (FOLD21_ROUNDS
+    rounds, in order and reversed): one call of FOLD21_K steps of the
+    folded entry (its refresh and its step) against one launch of the
+    unfolded K1 (the compiled entry), and FOLD21_K * 4 steps through the
+    backend folded against unfolded; then at 1080x1920 the folded call's
+    plain version and bound (the output cell-steps, the stepped cells
+    beside). Returns {(shape, what): ms} and the kernels line's numbers
+    under "windowed_folded"."""
+    out = {}
+    params = Parameters()
+    consts = kernel_constants(params)
+    k = FOLD21_K
+    for shape, f in FOLD21_TIMED:
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        g, rp = fold21_plan(shape, f, k)
+        u, v = fold21_state(u_np, v_np, f, g)
+        uo, vo = torch.empty_like(u), torch.empty_like(v)
+        ut, vt = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+        ko, kv = torch.empty_like(ut), torch.empty_like(vt)
+        sims = {}
+        for label, fold in (("backend folded", f), ("backend unfolded",
+                                                     "off")):
+            sim = CudaSimulation(params, "naive", device=DEVICE, fold=fold,
+                                 engine="windowed", tuned_lookup=False)
+            species = sim.make_species(shape)
+            sims[label] = (lambda sim=sim, species=species:
+                           sim.prepare_steps(species, 4 * k), 4 * k)
+        calls = {
+            "folded launch": (lambda: windowed.folded_multistep(
+                u, v, uo, vo, k, consts, "naive", shape, rp, g), k),
+            "K1 launch": (lambda: windowed.multistep(
+                ut, vt, ko, kv, k, consts, "naive"), k),
+            **sims}
+        samples = {c: [] for c in calls}
+        order = list(calls)
+        for r in range(FOLD21_ROUNDS):
+            for c in (order if r % 2 == 0 else reversed(order)):
+                samples[c].append(cuda_ms(calls[c][0], FOLD21_REPS))
+        ms = {c: statistics.median(s) for c, s in samples.items()}
+        out.update({(shape, c): m for c, m in ms.items()})
+        for c in calls:
+            print(f"time fold {shape[0]}x{shape[1]} F={f} Rp={rp} "
+                  f"{g.label()} {c}, {calls[c][1]} steps: {ms[c]!r} ms "
+                  f"(turns {samples[c]!r}) [{card}]", flush=True)
+        print(f"time fold {shape[0]}x{shape[1]} F={f}: folded call "
+              f"{ms['folded launch'] / ms['K1 launch']!r}x the unfolded K1's"
+              f" launch; through the backend "
+              f"{ms['backend folded'] / ms['backend unfolded']!r}x; stepped "
+              f"rows {fold21_stepped_rows(shape, f, g, rp)} against "
+              f"{-(-shape[0] // 64) * 64} [{card}]", flush=True)
+        if shape == MAIN_SHAPE:
+            pu, pv = torch.empty_like(u), torch.empty_like(v)
+            plain = cuda_ms(lambda: windowed.folded_multistep_reference(
+                u, v, pu, pv, k, consts, "naive", shape, rp, g.halo), 2)
+            ops = ops_per_cell_step(params, "naive")
+            bound, by = roofline_ms(shape, k, ops)
+            ratio = (g.stepped_ratio(k) * fold21_stepped_rows(shape, f, g, rp)
+                     / shape[0])
+            stepped, _ = roofline_ms(shape, k * ratio, ops)
+            out["windowed_folded"] = (ms["folded launch"], plain, bound, by,
+                                      stepped, ms["K1 launch"], f, rp, g)
+            print(f"time windowed_folded {pin_label(shape, g)} F={f} naive, "
+                  f"one launch of {k} steps: {ms['folded launch']!r} ms; "
+                  f"bound {bound!r} ms ({by}) at the output cell-steps, "
+                  f"{stepped!r} ms at the stepped cells ({ratio!r} a "
+                  f"cell-step), {100 * bound / ms['folded launch']!r} % / "
+                  f"{100 * stepped / ms['folded launch']!r} % of them; plain "
+                  f"{plain!r} ms [{card}]", flush=True)
+    return out
+
+
+def time_ring21(rng, card: str) -> dict:
+    """Phase 21c: each ring of RING21_CASES against depth 2 on the same
+    tiles, one launch of 4 time blocks of 8 steps at 1080x1920, naive,
+    float32, in turns; then each entry on RING21_PATH at its depth and at
+    depth 2, its plain version and its bound (the output cell-steps, the
+    stepped cells beside). Returns {(tiles, depth): ms} and the kernels
+    line's numbers by tag."""
+    out = {}
+    params = Parameters()
+    u_np, v_np = (rng.uniform(0, 1, MAIN_SHAPE).astype(np.float32)
+                  for _ in range(2))
+    n_blocks, steps = 4, 32
+    calls = {}
+    for tiles, depth in RING21_CASES:
+        for d in (depth, 2):
+            pu, pv = (megakernel.pair_state(torch.from_numpy(a).to(DEVICE))
+                      for a in (u_np, v_np))
+            calls[tiles, depth, d] = (
+                lambda pu=pu, pv=pv, tiles=tiles, d=d: megakernel.megastep(
+                    pu, pv, n_blocks, 8, kernel_constants(params), "naive",
+                    depth=d, geometry=geometry.Geometry(*tiles, 8)))
+    samples = {c: [] for c in calls}
+    order = list(calls)
+    for r in range(FOLD21_ROUNDS):
+        for c in (order if r % 2 == 0 else reversed(order)):
+            samples[c].append(cuda_ms(calls[c], FOLD21_REPS))
+    bound, by = bound_ms(MAIN_SHAPE, steps, "naive")
+    for tiles, depth in RING21_CASES:
+        ms = statistics.median(samples[tiles, depth, depth])
+        ms2 = statistics.median(samples[tiles, depth, 2])
+        out[tiles, depth] = (ms, ms2)
+        print(f"time mega_pinned_ring {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} naive "
+              f"{tiles[0]}x{tiles[1]} tiles mega_depth={depth}, {steps} "
+              f"steps a launch: {ms!r} ms (turns "
+              f"{samples[tiles, depth, depth]!r}), depth 2 {ms2!r} ms (turns "
+              f"{samples[tiles, depth, 2]!r}): {ms / ms2!r}x; bound "
+              f"{bound!r} ms ({by}), {100 * bound / ms!r} % of it [{card}]",
+              flush=True)
+    tiles, depth = RING21_PATH
+    g = geometry.Geometry(*tiles, geometry.HALO)
+    for tag, (dtype, fold) in RING21_ENTRIES.items():
+        u, v = (torch.from_numpy(a).to(DEVICE).to(dtype)
+                for a in (u_np, v_np))
+        k = fold_constants(params) if fold else kernel_constants(params)
+        times = []
+        for d in (depth, 2):
+            pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+            times.append(cuda_ms(lambda pu=pu, pv=pv, d=d: megakernel.megastep(
+                pu, pv, n_blocks, 8, k, "naive", fold=fold, depth=d,
+                geometry=g), FOLD21_REPS))
+        plain = cuda_ms(lambda: ring21_plain(u, v, n_blocks, tag, "naive"), 2)
+        ops = (fold_ops_per_cell_step(params) if fold
+               else ops_per_cell_step(params, "naive"))
+        cell_bytes = 8 if dtype == torch.bfloat16 else 16
+        b, b_by = roofline_ms(MAIN_SHAPE, steps, ops, cell_bytes)
+        stepped, _ = roofline_ms(MAIN_SHAPE, steps * g.stepped_ratio(8), ops,
+                                 cell_bytes)
+        out[tag] = (times[0], plain, b, b_by, stepped, times[1])
+        print(f"time {tag} {pin_label(MAIN_SHAPE, g)} mega_depth={depth} "
+              f"naive, one launch of {steps} steps: {times[0]!r} ms (depth 2 "
+              f"{times[1]!r}); bound {b!r} ms ({b_by}) at the output "
+              f"cell-steps, {stepped!r} ms at the stepped cells, "
+              f"{100 * b / times[0]!r} % / {100 * stepped / times[0]!r} % of "
+              f"them; plain {plain!r} ms [{card}]", flush=True)
+    return out
+
+
+def fold21_phase(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 21: 21a (the folded entry's and the pinned rings' checks and
+    ptxas), 21b (the simulate paths), 21c (times)."""
+    fold21_ptxas(checks, log)
+    n = compare_folded(checks, rng) + compare_ring21(checks, rng)
+    runs = fold21_paths(checks, card)
+    times = time_fold21(rng, card)
+    times.update(time_ring21(rng, card))
+    return n, runs, times
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -5893,6 +6403,13 @@ def run_phases(args) -> int:
     n20 = compare_offsets(checks, rng)
     dist_launches = distributed_phase(checks, card)
     print(f"phase 20: {n20} comparisons, {time.perf_counter() - t20!r} s",
+          flush=True)
+    # 21. the lane fold (K1's folded entry) and the window ring at a pinned
+    # tile (K2's pinned ring entries)
+    t21 = time.perf_counter()
+    n21, fold21_runs, fold21_times = fold21_phase(checks, rng, card,
+                                                  built.log)
+    print(f"phase 21: {n21} comparisons, {time.perf_counter() - t21!r} s",
           flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
@@ -6105,6 +6622,30 @@ def run_phases(args) -> int:
             shape=list(MAIN_SHAPE), steps=steps,
             boundary="zero" if tag == "megapack_pinned" else "naive",
             tile=[g.tr, g.tc], halo=g.halo, stepped_bound_ms=stepped))
+    # K1's folded entry and K2's pinned ring entries: their launches on
+    # phase 21b's paths, one launch at 1080x1920 naive (phase 21c)
+    ms, plain_ms, bound, by, stepped, k1_ms, f, rp, g = fold21_times[
+        "windowed_folded"]
+    entries.append(dict(
+        KERNELS["windowed_folded"],
+        launches=fold21_runs["fold 2"]["launches"]["windowed_folded"],
+        max_abs_err=checks.kernel_err["windowed_folded"], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+        shape=list(MAIN_SHAPE), steps=FOLD21_K, boundary="naive", fold=f,
+        panel_rows=rp, tile=[g.tr, g.tc], halo=g.halo,
+        stepped_bound_ms=stepped, unfolded_k1_ms=k1_ms,
+        path_ms=fold21_runs["fold 2"]["ms"],
+        unfolded_path_ms=fold21_runs["fold 2"]["ms2"]))
+    (tr, tc), depth = RING21_PATH
+    for tag, (dtype, fold) in RING21_ENTRIES.items():
+        ms, plain_ms, bound, by, stepped, ms2 = fold21_times[tag]
+        entries.append(dict(
+            KERNELS[tag], launches=fold21_runs[tag]["launches"][tag],
+            max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            shape=list(MAIN_SHAPE), steps=32, boundary="naive",
+            dtype=str(dtype)[6:], naive_fold=fold, tile=[tr, tc],
+            mega_depth=depth, stepped_bound_ms=stepped, depth2_ms=ms2))
     # K1's shard entries: their launches on phase 20's two-process runs,
     # by rank, summed over the runs that launch them
     name_of = {"shwin": KERNELS["windowed"]["name"],

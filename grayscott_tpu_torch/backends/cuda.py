@@ -133,9 +133,29 @@ refuse raise its refusal when the storage is built (``block_rows`` not a
 positive multiple of 8, ``block_cols`` not a positive multiple of 128, a
 column tile under ``naive_fix="store"``; ``:414-428``, ``:552-562``), and a
 window past the shared memory a block may use raises naming its bytes. A
-pinned tile with a ``mega_depth`` above 2 (the window ring at a pinned
-tile) is not ported yet and raises naming ROADMAP.md Queue 2 item 12; the
-frames do not depend on the tiles.
+pinned tile with a ``mega_depth`` above 2 runs the window ring on the
+pinned tiles (``ops/megakernel.py:ring_geometry``: JAX's clamp to depth 2
+on few windows; a ring past the shared memory a block may use raises
+naming its bytes); the frames do not depend on the tiles or the depth.
+
+The lane fold (``fold``, ``--pallas-fold F``; ``backends/pallas.py:
+329-368``, ``:611-636``; ``ops/lane_fold.py``) runs K1's folded entry
+(``ops/windowed.py:folded_multistep``): storage ``("folded", u, v, u_next,
+v_next, (K, tiles), (F, Rp))``, JAX's folded layout ``(halo + Rp + halo,
+F*C)`` float32, ``Rp = fold_geometry(R, F, tr)`` on the tiles
+``plan_for`` gives the panel; ``run_steps`` calls the entry, which
+refreshes the panels' halos (``lane_fold.fold_refresh``) and steps, once
+every K steps and once for the remainder (``:817-842``). A pin is an int;
+``auto`` folds only on a record whose ``fold`` is greater than 1, never
+under ``off``, bf16, a ``block_cols`` pin, ``resident='on'``,
+``naive_fold`` or the naive boundary with ``C % 128 != 0`` (JAX's TPU lane
+tile; a pin runs it here, as JAX's interpret mode computes it); a fold
+record's K and tiles are dropped when the run does not fold
+(``:633-636``), its engine, the windowed kernel, stays (``_use_mega``
+reads it first). As in JAX a pin F > 1 refuses bf16 storage and
+``block_cols``, ``resident='on'``, ``naive_fold``, ``engine='mega'`` and
+``pack='on'``, and panels thinner than the halo. The results are K1's
+unfolded ones bit for bit.
 
 A record whose engine the configuration refuses (``resident`` under
 ``resident="off"``, bf16, ``naive_fold`` or ``naive_fix="store"``) runs
@@ -147,9 +167,7 @@ The buffers are updated in place, where the JAX backend gets fresh
 ``resident`` (``auto|on|off``) and ``pack`` (``auto|on|off``) take the JAX
 backend's names and values, and so do the other eight ``--pallas-*``
 flags. ``runtime_params`` on and off run the same kernels (they take the
-parameters by value); every other value of the JAX backend's knobs that
-the port does not run (the lane fold, the window ring at a pinned tile)
-raises :class:`UnsupportedConfigError` naming its ROADMAP.md item.
+parameters by value).
 """
 
 from __future__ import annotations
@@ -162,7 +180,7 @@ import numpy as np
 import torch
 
 from ..errors import UnsupportedConfigError
-from ..ops import geometry, megakernel, packed, resident, windowed
+from ..ops import geometry, lane_fold, megakernel, packed, resident, windowed
 from ..params import (Parameters, fold_constants, kernel_constants,
                       packed_constants)
 from .base import Simulation, env_default, storage_dtype
@@ -178,17 +196,6 @@ ON_OFF = ("on", "off")
 #: the depth of every engine's time block (K1, K2, K4, K6) where K is not
 #: pinned, and the megakernels' only one
 K = windowed.K
-
-#: where ROADMAP.md keeps the rest of the megakernels' tile pins
-MEGA_RING_TILES = ("ROADMAP.md Queue 2 item 12 (the window ring at a pinned "
-                   "tile)")
-
-#: knob -> (the values the port runs, the JAX backend's names and values;
-#: where ROADMAP.md keeps the rest)
-_SUPPORTED = {
-    "fold": (("auto", "off", 1), "ROADMAP.md Queue 2 item 7 (the lane-fold "
-             "layout)"),
-}
 
 #: JAX's refusal of the packed layout (``backends/pallas.py:515-518``)
 PACK_REFUSAL = ("pack requires the zero boundary, f32 storage, a separable "
@@ -328,9 +335,9 @@ class CudaSimulation(Simulation):
         if bf16 and resident == "on":
             raise UnsupportedConfigError(
                 "resident='on' requires float32 storage", combo="resident")
-        if bf16 and isinstance(fold, int) and fold > 1:
-            raise UnsupportedConfigError(
-                "fold excludes bf16 storage and column tiling", combo="fold")
+        #: the lane fold: an int pins F, "auto" follows a fold record,
+        #: "off" never folds
+        self.fold = self._check_fold(fold, resident, bf16, block_cols)
         self._check_naive_modes(boundary, resident, fold, naive_fix,
                                 naive_fold)
         #: the window ring's depth pin (ops/megakernel.py:ring_geometry)
@@ -342,12 +349,8 @@ class CudaSimulation(Simulation):
                 "one of them", combo="mega_specialize+naive_fix")
         #: inert: interior tiles are always specialised, bitwise
         self.mega_specialize = mega_specialize
-        runs, item = _SUPPORTED["fold"]
-        if fold not in runs:
-            raise UnsupportedConfigError(
-                f"fold={fold!r} is not ported to the cuda backend yet "
-                f"({item}); it runs fold in {runs}", combo="fold")
-        self._check_tiles(engine, block_rows, block_cols, self.mega_depth)
+        geometry.check_tile("block_rows", block_rows)
+        geometry.check_tile("block_cols", block_cols)
         self.engine = engine
         self.resident = resident
         self.pack = pack
@@ -390,18 +393,27 @@ class CudaSimulation(Simulation):
                 combo="engine+steps_per_call")
 
     @staticmethod
-    def _check_tiles(engine, block_rows, block_cols, depth) -> None:
-        """The tiles positive ints, and the window ring at a pinned tile
-        refused (not ported yet)."""
-        geometry.check_tile("block_rows", block_rows)
-        geometry.check_tile("block_cols", block_cols)
-        if engine == "mega" and depth not in (None, 2) and \
-                (block_rows, block_cols) != (None, None):
-            raise UnsupportedConfigError(
-                f"mega_depth={depth} with a tile pin (the window ring at a "
-                f"pinned tile) is not ported to the cuda backend yet "
-                f"({MEGA_RING_TILES}); drop mega_depth or the tile pins",
-                combo="mega_depth+tiles")
+    def _check_fold(fold, resident, bf16: bool, block_cols):
+        """``fold`` if JAX's backend takes it (``auto``, ``off`` or an int
+        >= 1, else its ``ValueError``, ``backends/pallas.py:128-132``), and
+        JAX's refusals of a pin F > 1 with ``resident='on'`` (``:205-210``)
+        and with bf16 storage or a column tile (``:333-337``)."""
+        if isinstance(fold, str):
+            if fold not in ("auto", "off"):
+                raise ValueError(f"fold must be auto/off/int, got {fold!r}")
+        elif isinstance(fold, bool) or not (isinstance(fold, int)
+                                            and fold >= 1):
+            raise ValueError(f"fold must be auto/off/int >= 1, got {fold!r}")
+        if isinstance(fold, int) and fold > 1:
+            if resident == "on":
+                raise UnsupportedConfigError(
+                    "resident='on' and a pinned lane fold conflict; pin at "
+                    "most one of them", combo="resident+fold")
+            if bf16 or block_cols is not None:
+                raise UnsupportedConfigError(
+                    "fold excludes bf16 storage and column tiling",
+                    combo="fold")
+        return fold
 
     @staticmethod
     def _check_naive_modes(boundary, resident, fold, naive_fix,
@@ -445,7 +457,34 @@ class CudaSimulation(Simulation):
         return (self.boundary == "zero"
                 and self.storage_dtype == torch.float32
                 and self.block_cols is None
+                and not self._fold_pinned
                 and self.params.separable_plan()[0] == "separable")
+
+    @property
+    def _fold_pinned(self) -> bool:
+        """A lane-fold pin F > 1."""
+        return isinstance(self.fold, int) and self.fold > 1
+
+    def fold_for(self, shape: Tuple[int, int], tuned=None) -> int:
+        """The lane-fold factor F of a domain of ``shape`` (1: unfolded;
+        JAX's ``_fold_factor``, ``backends/pallas.py:329-368``): the pin;
+        under ``auto`` the record ``tuned``'s ``fold``, except with
+        bf16 storage, a ``block_cols`` pin, ``resident='on'``,
+        ``naive_fold``, or the naive boundary on a width that is not a
+        multiple of 128. The megakernel and the packed layout take no fold:
+        an engine or layout pin wins over a fold record."""
+        if isinstance(self.fold, int):
+            return self.fold
+        r, c = shape
+        if (self.fold == "off"
+                or self.storage_dtype != torch.float32
+                or (self.boundary == "naive" and c % 128 != 0)
+                or self.block_cols is not None
+                or self.resident == "on"
+                or self.naive_fold
+                or self.engine == "mega" or self.pack == "on"):
+            return 1
+        return int((tuned or {}).get("fold") or 1)
 
     @functools.cached_property
     def packed_consts(self):
@@ -502,7 +541,9 @@ class CudaSimulation(Simulation):
         ring runs (``backends/pallas.py:384-411``, ``:552-554``), then
         ``geometry.mega_resolve``. The values JAX's megakernels refuse
         raise its :class:`UnsupportedConfigError` (``:414-428``,
-        ``:555-562``)."""
+        ``:555-562``), and so does a ``mega_depth`` ring on pinned tiles
+        past the shared memory a block may use, naming its bytes
+        (``ops/megakernel.py:ring_geometry``)."""
         tr, tc = self.block_rows, self.block_cols
         rec = tuned
         if rec and (bool(rec.get("pack")) == packed_layout
@@ -527,13 +568,17 @@ class CudaSimulation(Simulation):
                 "(including the pinned mega_depth ring and mega_specialize "
                 "graph) and no lane fold; unsupported for shape "
                 f"{tuple(shape)} at tr={tr}, tc={tc}", combo="engine+tiles")
-        return geometry.mega_resolve(shape, tr, tc)
+        g = geometry.mega_resolve(shape, tr, tc)
+        if not g.compiled:
+            megakernel.ring_geometry(shape, self.mega_depth, tiles=g)
+        return g
 
     def layout_for(self, shape: Tuple[int, int]) -> Tuple[bool, str]:
         """(packed, engine) of a domain of ``shape``: the pins, then the
         autotune record for what is left on ``auto``, then
         :func:`auto_engine` (:func:`auto_packed_engine` when packed; K1 with
-        bf16 storage, which never runs K3). Under ``naive_fold`` and
+        bf16 storage, which never runs K3). A lane fold (:meth:`fold_for`)
+        runs K1 (its folded entry). Under ``naive_fold`` and
         ``naive_fix='store'`` neither a record nor ``auto`` picks K3; a
         record whose engine is refused runs K1. Under a K or tile pin
         ``auto`` runs K1 (K3 on ``resident='on'``) and packs only on
@@ -542,6 +587,15 @@ class CudaSimulation(Simulation):
 
     def _layout(self, shape: Tuple[int, int], tuned) -> Tuple[bool, str]:
         """:meth:`layout_for` with the record ``tuned`` looked up."""
+        if self._fold_pinned and self.engine == "mega":
+            raise UnsupportedConfigError(
+                "engine='mega' needs windows under the VMEM/compile ceilings "
+                "(including the pinned mega_depth ring and mega_specialize "
+                "graph) and no lane fold; unsupported for shape "
+                f"{tuple(shape)} at tr={self.block_rows}, "
+                f"tc={self.block_cols}", combo="engine+fold")
+        if self.fold_for(shape, tuned) > 1:
+            return False, "windowed"
         if self._pinned:
             packed = self.pack == "on"
             if self.engine != "auto":
@@ -583,6 +637,11 @@ class CudaSimulation(Simulation):
             .to(self.device).to(self.storage_dtype) for x in (u, v))
         tuned = self.tuned(u.shape)
         packed_layout, engine = self._layout(u.shape, tuned)
+        f = self.fold_for(u.shape, tuned)
+        if f > 1:
+            return self._build_folded(u_t, v_t, f, tuned)
+        if tuned and int(tuned.get("fold") or 1) > 1:
+            tuned = None  # a fold record's K and tiles (:633-636)
         # K1's and K4's (K, tiles) ride in the storage, as JAX's (tr, K) do
         plan = (self.plan_for(u.shape, packed_layout, tuned),) \
             if engine == "windowed" else ()
@@ -599,8 +658,33 @@ class CudaSimulation(Simulation):
         return (engine, u_t, v_t, torch.empty_like(u_t),
                 torch.empty_like(v_t), *plan)
 
+    def _build_folded(self, u: torch.Tensor, v: torch.Tensor, f: int,
+                      tuned):
+        """The lane-fold storage of F panels (``backends/pallas.py:
+        611-632``): the panel's (K, tiles) from the pins, then a record of
+        this fold (``plan_for``), Rp from the row tile, JAX's refusal of
+        panels thinner than the halo."""
+        r, c = u.shape
+        rec = tuned if tuned and int(tuned.get("fold") or 1) == f else None
+        k, g = self.plan_for((-(-r // f), c), False, rec)
+        rp = lane_fold.fold_geometry(r, f, g.tr)
+        if rp < g.halo:
+            raise UnsupportedConfigError(
+                f"fold={f} on a {r}-row domain leaves panels of {rp} rows < "
+                f"the {g.halo}-row halo; use a smaller fold factor",
+                combo="fold")
+        u_pad, v_pad = lane_fold.fold_state(u, v, f, g.tr, g.halo,
+                                            self.device)
+        return ("folded", u_pad, v_pad, torch.zeros_like(u_pad),
+                torch.zeros_like(v_pad), (k, g), (f, rp))
+
     def extract_uv(self, storage, shape) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
+        if storage[0] == "folded":
+            halo, (f, _) = storage[5][1].halo, storage[6]
+            return tuple(lane_fold.unfold_state(x, halo, f, shape[1],
+                                                shape[0])
+                         for x in storage[1:3])
         if storage[0] == "megapack":
             return packed.unpack_state(storage[1][0], shape[1])
         if storage[0] in ("packed", "respack"):
@@ -613,6 +697,9 @@ class CudaSimulation(Simulation):
 
     def extract_result(self, storage, shape) -> torch.Tensor:
         """V alone: bf16 storage widens V only, not U as well."""
+        if storage[0] == "folded":
+            return lane_fold.unfold_state(storage[2], storage[5][1].halo,
+                                          storage[6][0], shape[1], shape[0])
         if storage[0] == "mega":
             return storage[2][0].float()
         if storage[0] in ("windowed", "resident"):
@@ -640,6 +727,8 @@ class CudaSimulation(Simulation):
                 return storage
             return ("resident", *resident.multistep(
                 *storage[1:], steps, self.consts, self.boundary))
+        if storage[0] == "folded":
+            return self._run_folded(storage, shape, steps)
         _, u, v, u_next, v_next, plan = storage
         k_max, g = plan
         n_full, rem = divmod(steps, k_max)
@@ -649,6 +738,19 @@ class CudaSimulation(Simulation):
                                geometry=g)
             u, v, u_next, v_next = u_next, v_next, u, v
         return ("windowed", u, v, u_next, v_next, plan)
+
+    def _run_folded(self, storage, shape, steps: int):
+        """``run_steps`` on the lane-fold layout (``backends/pallas.py:
+        817-842``): each call of K steps (and of the remainder) refreshes
+        the panels' halos first."""
+        _, u, v, u_next, v_next, plan, (f, rp) = storage
+        k_max, g = plan
+        n_full, rem = divmod(steps, k_max)
+        for k in [k_max] * n_full + ([rem] if rem else []):
+            windowed.folded_multistep(u, v, u_next, v_next, k, self.consts,
+                                      self.boundary, shape, rp, g)
+            u, v, u_next, v_next = u_next, v_next, u, v
+        return ("folded", u, v, u_next, v_next, plan, (f, rp))
 
     def _run_packed(self, storage, shape, steps: int):
         """``run_steps`` on the packed layout (``backends/pallas.py:
@@ -684,9 +786,9 @@ class CudaSimulation(Simulation):
     def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:
         """The JAX backend's eleven ``--pallas-*`` flags
         (``grayscott_tpu/backends/pallas.py:892-989``), under its names,
-        choices, defaults and environment variables; a value the port does
-        not run parses, and the constructor refuses it, naming its
-        ROADMAP.md item."""
+        choices, defaults and environment variables; a combination JAX
+        refuses parses, and the constructor (or ``build_storage``) refuses
+        it, as JAX's does."""
         parser.add_argument(
             "--pallas-block-rows", type=int,
             default=env_default("GRAYSCOTT_PALLAS_BLOCK_ROWS", None, int),
@@ -736,8 +838,11 @@ class CudaSimulation(Simulation):
             help="Lane-fold layout for narrow domains: an integer F "
             "computes F row-panels side by side along lanes; 'auto' "
             "(default) folds only when the autotuner measured fold "
-            "winning on this domain; 'off' never folds. The port runs "
-            "'auto', 'off' and 1 (ROADMAP.md Queue 2 item 7)",
+            "winning on this domain; 'off' never folds. The port: K1's "
+            "folded entry steps every panel at its place in the domain, "
+            "bit for bit the unfolded K1; F > 1 refuses bfloat16, "
+            "--pallas-block-cols, --pallas-resident on, --pallas-naive-fold "
+            "on, --pallas-engine mega and --pallas-pack on, as in JAX",
         )
         parser.add_argument(
             "--pallas-pack", choices=PACK,

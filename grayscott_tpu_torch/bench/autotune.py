@@ -23,7 +23,13 @@ megakernel tile variants, ``:185-214``, mapped onto the port's 64x64
 tiles: the half row tile, and the double-width column tile where it is
 narrower than the domain; JAX's full-width form has no counterpart, a
 tile in shared memory cannot span a row, nor has its 1.3 row-halo bound,
-which measures full-width windows). A record carries the K it ran
+which measures full-width windows). On the card, and on the float32
+storage of a domain narrower than ``lane_fold.FOLD_TARGET_LANES``, K1
+also runs folded (:func:`fold_candidates`: JAX's ``_fold_candidates``,
+``:165-174``, ``choose_fold``'s F at K = 16 and K = 8; not on the naive
+boundary with ``C % 128 != 0``), and every record keeps the ``fold`` it
+ran (1 unfolded), which ``auto`` follows (``backends/cuda.py:
+CudaSimulation.fold_for``). A record carries the K it ran
 (``steps_per_call``) and the tile pins it ran (``block_rows``,
 ``block_cols``; None where the candidate left the tile to
 ``ops/geometry.py``'s default), which the backend adopts where the run
@@ -59,7 +65,7 @@ import torch
 from ..backends.cuda import K, CudaSimulation
 from ..backends.sharded import ShardedSimulation
 from ..errors import UnsupportedConfigError
-from ..ops import geometry
+from ..ops import geometry, lane_fold
 from ..parallel import halo
 from ..params import Parameters
 from ..utils import cache
@@ -93,7 +99,8 @@ PINNED_TILES = ((None, None), (32, 128), (128, 32))
 #: storage tag -> (engine, packed) as a record names them
 _RAN = {"windowed": ("windowed", False), "mega": ("mega", False),
         "resident": ("resident", False), "packed": ("windowed", True),
-        "megapack": ("mega", True), "respack": ("resident", True)}
+        "megapack": ("mega", True), "respack": ("resident", True),
+        "folded": ("windowed", False)}
 
 #: fixed work a measurement: the same steps for every candidate
 STEPS = 1024
@@ -110,13 +117,16 @@ def default_candidates(params: Parameters, boundary: str,
                        dtype: str = "float32", shape=None,
                        steps_per_call: int | None = None,
                        block_rows: int | None = None,
-                       block_cols: int | None = None) -> list[dict]:
+                       block_cols: int | None = None,
+                       device: str | torch.device = "cpu") -> list[dict]:
     """Every engine and layout of ``(params, boundary, dtype)``: the three
     unpacked engines (K1 and K2 alone with bf16 storage, which K3 refuses:
     JAX's ``_engine_candidates``) and K1's depth and tile candidates, and
     the three packed ones and K4's where JAX's ``_pack_candidates`` would
-    pack (zero boundary, float32, a separable plan). Under a K or tile pin
-    (:func:`pinned_candidates`), K1 alone under it."""
+    pack (zero boundary, float32, a separable plan); on a CUDA ``device``
+    K1 folded (:func:`fold_candidates`), as JAX tries the fold on the TPU
+    only (``:419-426``). Under a K or tile pin (:func:`pinned_candidates`),
+    K1 alone under it."""
     if (steps_per_call, block_rows, block_cols) != (None, None, None):
         return pinned_candidates(shape, steps_per_call, block_rows,
                                  block_cols)
@@ -128,7 +138,23 @@ def default_candidates(params: Parameters, boundary: str,
     if boundary == "zero" and dtype == "float32" and \
             params.separable_plan()[0] == "separable":
         out += [dict(c) for c in (*PACKED, *PACKED_EXTRA)]
+    if shape is not None and torch.device(device).type == "cuda":
+        out += fold_candidates(shape, boundary, dtype)
     return out
+
+
+def fold_candidates(shape, boundary: str, dtype: str) -> list[dict]:
+    """K1 folded (JAX's ``_fold_candidates``, ``grayscott_tpu/bench/
+    autotune.py:165-174``): ``choose_fold``'s F at K = 16 and K = 8, on
+    float32 storage, none where F is 1 or on the naive boundary with
+    ``C % 128 != 0``."""
+    r, c = shape
+    if dtype != "float32":
+        return []
+    f = lane_fold.choose_fold(r, c)
+    if f <= 1 or (boundary == "naive" and c % 128 != 0):
+        return []
+    return [dict(fold=f, steps_per_call=16), dict(fold=f, steps_per_call=8)]
 
 
 def mega_candidates(shape=None) -> list[dict]:
@@ -191,14 +217,18 @@ def measure_config(params: Parameters, shape, boundary: str,
     sim = CudaSimulation(params, boundary, device=device, dtype=dtype,
                          tuned_lookup=False, **config)
     species = sim.make_species(tuple(shape))
-    engine, pack = _RAN[species.storage[0]]
+    tag = species.storage[0]
+    engine, pack = _RAN[tag]
     measurements += 1
-    k = species.storage[-1][0] if engine == "windowed" else K
+    folded = tag == "folded"
+    k = species.storage[5 if folded else -1][0] if engine == "windowed" \
+        else K
     tiles = ({"block_rows": config.get("block_rows"),
               "block_cols": config.get("block_cols")}
              if engine in ("windowed", "mega") else {})
     rec = {"engine": engine, "block_rows": None, "steps_per_call": k,
-           "block_cols": None, "fold": 1, "pack": pack, **tiles}
+           "block_cols": None, "fold": species.storage[6][0] if folded else 1,
+           "pack": pack, **tiles}
     rec.update(_measure_rates(sim, species, shape, steps or STEPS, reps))
     return rec
 
@@ -273,7 +303,7 @@ def autotune(params: Parameters, shape, boundary: str = "naive",
     configs = [dict(c) for c in (candidates if candidates is not None
                                  else default_candidates(
                                      params, boundary, dtype, shape,
-                                     **pins))]
+                                     **pins, device=device))]
     if not configs:
         raise UnsupportedConfigError(
             f"no autotune candidate runs the pins {pins} on "
@@ -284,10 +314,15 @@ def autotune(params: Parameters, shape, boundary: str = "naive",
         return measure_config(params, shape, boundary, steps, dtype, reps,
                               device, **cfg)
 
-    return _tune(key, configs, measure, persist, verbose, lambda res: (
-        f"{res['engine']}{' packed' if res['pack'] else ''} K="
-        f"{res['steps_per_call']} tiles {res['block_rows']}x"
-        f"{res['block_cols']}"))
+    return _tune(key, configs, measure, persist, verbose, _ran_label)
+
+
+def _ran_label(res: dict) -> str:
+    """What a candidate ran, in the verbose lines."""
+    layout = " packed" if res["pack"] else (
+        f" folded F={res['fold']}" if res["fold"] > 1 else "")
+    return (f"{res['engine']}{layout} K={res['steps_per_call']} tiles "
+            f"{res['block_rows']}x{res['block_cols']}")
 
 
 def _tune(key: str, configs: list, measure, persist: bool, verbose: bool,

@@ -47,7 +47,7 @@
 //     tiles through one time block with the next window loading while the
 //     finished tile is written out (time_block), or, at mega_depth D > 2,
 //     through a ring of D + 1 buffers with D - 1 loads in flight while a
-//     tile steps (ring_walk, ring_time_block).
+//     tile steps (ring_walk, ring_time_block_on).
 //   - Sizes as values. The strip steppers, window loads, step_window,
 //     window_inside and store_window take a window's sizes and row pitch
 //     as arguments of a deduced type: gs::Fixed<N> (gs_tile.cuh), a
@@ -868,23 +868,19 @@ __device__ __forceinline__ void window_store(const S& g, const Layout& mem,
   store_window(g, mem, u_out, v_out, fu, fu + g.cells, r0, c0, rows, cols);
 }
 
-// One block of K1 (windowed.cu, and its pinned entries in windowed_pins.cu):
-// tile (blockIdx.y, blockIdx.x) of g advanced by `steps` (1..g.halo) steps
-// from (u, v) into (u_out, v_out), row-major rows x cols, through two
-// window buffers at `base` (dynamic shared memory, 4 * g.cells floats).
-// Nothing writes (u, v) in the launch, so the ragged cells' copies may go
-// through L1. SPECIALIZE = false takes every tile as an edge tile (an
-// ablation).
-template <int TAPS, int MODE, bool SPECIALIZE, typename S, typename T,
-          typename K>
-__device__ __forceinline__ void window_multistep(const S& g, const T* u,
-                                                 const T* v, T* u_out,
-                                                 T* v_out, int rows, int cols,
-                                                 int steps, const K& k,
-                                                 bool aligned, float* base) {
-  const int r0 = blockIdx.y * g.tr - g.halo, c0 = blockIdx.x * g.tc - g.halo;
-  const FlatLayout mem{cols};
-
+// One tile of K1 (windowed.cu, and its pinned and folded entries in
+// windowed_pins.cu): the tile of g whose window starts at global (r0, c0)
+// advanced by `steps` (1..g.halo) steps from (u, v) into (u_out, v_out),
+// both laid out as `mem` says, through two window buffers at `base`
+// (dynamic shared memory, 4 * g.cells floats). Nothing writes (u, v) in
+// the launch, so the ragged cells' copies may go through L1. SPECIALIZE =
+// false takes every tile as an edge tile (an ablation).
+template <int TAPS, int MODE, bool SPECIALIZE, typename S, typename Layout,
+          typename T, typename K>
+__device__ __forceinline__ void window_multistep_on(
+    const S& g, const Layout& mem, const T* u, const T* v, T* u_out,
+    T* v_out, int r0, int c0, int rows, int cols, int steps, const K& k,
+    bool aligned, float* base) {
   load_window<S::NT, false>(mem, u, v, base, base + g.cells, g.wr, g.pitch,
                             r0, c0, rows, cols, aligned);
   cp_async_commit();
@@ -911,6 +907,49 @@ __device__ __forceinline__ void window_multistep(const S& g, const T* u,
 
   const float* fu = base + 2 * cur * g.cells;
   store_window(g, mem, u_out, v_out, fu, fu + g.cells, r0, c0, rows, cols);
+}
+
+// One block of K1 (windowed.cu, and its pinned entries in windowed_pins.cu):
+// tile (blockIdx.y, blockIdx.x) of g of the row-major rows x cols domain
+// (window_multistep_on).
+template <int TAPS, int MODE, bool SPECIALIZE, typename S, typename T,
+          typename K>
+__device__ __forceinline__ void window_multistep(const S& g, const T* u,
+                                                 const T* v, T* u_out,
+                                                 T* v_out, int rows, int cols,
+                                                 int steps, const K& k,
+                                                 bool aligned, float* base) {
+  window_multistep_on<TAPS, MODE, SPECIALIZE>(
+      g, FlatLayout{cols}, u, v, u_out, v_out, blockIdx.y * g.tr - g.halo,
+      blockIdx.x * g.tc - g.halo, rows, cols, steps, k, aligned, base);
+}
+
+// One block of K1's folded entry (windowed_pins.cu; the lane fold): tile
+// (blockIdx.y, blockIdx.x) of g of panel blockIdx.z of a folded state,
+// (g.halo + rp + g.halo) rows of `panels` * cols floats, panel p's cells
+// at columns [p * cols, (p + 1) * cols) and its interior rows global rows
+// [p * rp, (p + 1) * rp), its halo rows its neighbours' cells
+// (grayscott_tpu_torch/ops/lane_fold.py). The panel is a shard of the
+// rows x cols domain at global origin (p * rp, 0) (gs::ShardLayout, held
+// columns [0, cols)), so each tile steps at its global place: a cell right
+// of a panel's last column is outside the domain, and loads as 0.0, for
+// that panel's cells, per cell; global row 0 exists in panel 0 only; rows
+// at or past `rows` load as 0.0 and are not stored. A tile of dead rows
+// only returns at once. rp is a multiple of g.tr.
+template <int TAPS, int MODE, typename S, typename T, typename K>
+__device__ __forceinline__ void panel_window_multistep(
+    const S& g, const T* u, const T* v, T* u_out, T* v_out, int rows,
+    int cols, int panels, int rp, int steps, const K& k, bool aligned,
+    float* base) {
+  const int row0 = blockIdx.z * rp;
+  if (row0 + static_cast<int>(blockIdx.y) * g.tr >= rows) return;
+  const ShardLayout mem = {row0,   0, rp, cols, g.halo, 0,
+                           static_cast<size_t>(panels) * cols};
+  const size_t at = static_cast<size_t>(blockIdx.z) * cols;
+  window_multistep_on<TAPS, MODE, true>(
+      g, mem, u + at, v + at, u_out + at, v_out + at,
+      row0 + blockIdx.y * g.tr - g.halo, blockIdx.x * g.tc - g.halo, rows,
+      cols, steps, k, aligned, base);
 }
 
 // The shards of a launch of K1's shard entry (windowed.cu, and its pinned
@@ -1167,40 +1206,38 @@ __device__ __forceinline__ void ring_walk(int first, int stride, int n_tiles,
   }
 }
 
-// time_block's time block (K2) on a ring of `nbuf` buffers at `base`:
+// time_block's time block (K2) on a ring of `nbuf` buffers of g at `base`
+// (FixedShape of a compiled geometry, or the PinGeometry of the tile pins):
 // ring_walk with time_block's window load, steps (interior tiles
 // specialised) and write-out.
-template <typename G, int TAPS, int MODE, typename Layout, typename T,
+template <int TAPS, int MODE, typename S, typename Layout, typename T,
           typename K>
-__device__ __forceinline__ void ring_time_block(
-    const Layout& mem, const T* u, const T* v, T* u_out, T* v_out,
-    int first, int stride, int n_tiles, int tiles_x, int row0, int col0,
-    int rows, int cols, int steps, const K& k, bool aligned, int nbuf,
-    float* base) {
+__device__ __forceinline__ void ring_time_block_on(
+    const S& g, const Layout& mem, const T* u, const T* v, T* u_out,
+    T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
+    int col0, int rows, int cols, int steps, const K& k, bool aligned,
+    int nbuf, float* base) {
   auto corner = [&](int i, int* r0, int* c0) {
     const int ti = i / tiles_x, tj = i - ti * tiles_x;
-    *r0 = row0 + ti * G::TR - HALO;
-    *c0 = col0 + tj * G::TC - HALO;
+    *r0 = row0 + ti * g.tr - g.halo;
+    *c0 = col0 + tj * g.tc - g.halo;
   };
   auto load = [&](int i, int b) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_load(FixedShape<G>{}, mem, u, v, base, b, r0, c0, rows, cols,
-                aligned);
+    window_load(g, mem, u, v, base, b, r0, c0, rows, cols, aligned);
   };
   auto run = [&](int i, int b, int s) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_steps<TAPS, MODE>(FixedShape<G>{}, base, b, s, steps,
-                             window_inside(FixedShape<G>{}, r0, c0, rows,
-                                           cols),
-                             r0, c0, rows, cols, k);
+    window_steps<TAPS, MODE>(g, base, b, s, steps,
+                             window_inside(g, r0, c0, rows, cols), r0, c0,
+                             rows, cols, k);
   };
   auto store = [&](int i, int b) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_store(FixedShape<G>{}, mem, u_out, v_out, base, b, r0, c0, rows,
-                 cols);
+    window_store(g, mem, u_out, v_out, base, b, r0, c0, rows, cols);
   };
   ring_walk(first, stride, n_tiles, steps, nbuf, load, run, store);
 }
@@ -1251,12 +1288,12 @@ inline bool pin_ok(int tr, int tc, int halo, int steps) {
 }
 
 // The co-resident blocks of a persistent `kernel` (the pinned megakernels:
-// mega_pins.cu, sharded_mega_pins.cu) on `device` at g's dynamic shared
-// memory, after allowing the kernel the most a block may use (once per
-// device: `allowed`, one flag a device for each kernel).
+// mega_pins.cu, sharded_mega_pins.cu) on `device` at `bytes` of dynamic
+// shared memory, after allowing the kernel the most a block may use (once
+// per device: `allowed`, one flag a device for each kernel).
 template <typename Kernel>
 cudaError_t pinned_coresident(Kernel kernel, bool* allowed, int device,
-                              const PinGeometry& g, int* out) {
+                              size_t bytes, int* out) {
   cudaError_t err;
   if (!allowed[device]) {
     err = cudaFuncSetAttribute(kernel,
@@ -1267,12 +1304,19 @@ cudaError_t pinned_coresident(Kernel kernel, bool* allowed, int device,
   }
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, PinGeometry::NT, pin_bytes(g));
+      &per_sm, kernel, PinGeometry::NT, bytes);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   *out = per_sm * sms;
   return cudaSuccess;
+}
+
+// pinned_coresident at g's two window buffers (the double buffer).
+template <typename Kernel>
+cudaError_t pinned_coresident(Kernel kernel, bool* allowed, int device,
+                              const PinGeometry& g, int* out) {
+  return pinned_coresident(kernel, allowed, device, pin_bytes(g), out);
 }
 
 // --- K3's tiles: 32^2 in 34^2 windows, one step a window (K3, K9) ----------

@@ -1,8 +1,9 @@
 // What K2's translation units share (mega.cu: the double buffer, its
 // ablation parts; mega_ring.cu: the window ring of mega_depth > 2;
-// mega_pins.cu: the double buffer on the tile pins' geometry): the
-// odd-count slot copy, a launch's time blocks on the double buffer, the
-// launch's arguments and the C interface's checks.
+// mega_pins.cu: the double buffer and the ring on the tile pins'
+// geometry): the odd-count slot copy, a launch's time blocks on the double
+// buffer and on the ring, the launch's arguments and the C interface's
+// checks.
 
 #pragma once
 
@@ -50,6 +51,31 @@ __device__ __forceinline__ void mega_run(const S& g, T* u_pair, T* v_pair,
         g, gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
         v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
         cols, steps, k, aligned, base);
+    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
+  }
+  if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, S::NT, threadIdx.x);
+}
+
+// One launch of K2 on a window ring (mega_depth): mega_run's time blocks
+// walked through `nbuf` buffers of g at `base` (ring_time_block_on;
+// FixedShape<Main> or <Small> in mega_ring.cu, the PinGeometry of the tile
+// pins in mega_pins.cu).
+template <int TAPS, int MODE, typename S, typename T, typename K>
+__device__ __forceinline__ void ring_run(const S& g, T* u_pair, T* v_pair,
+                                         int rows, int cols, int n_blocks,
+                                         int steps, const K& k, int aligned,
+                                         int nbuf,
+                                         unsigned long long* barrier,
+                                         float* base) {
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  const int tiles_x = (cols + g.tc - 1) / g.tc;
+  const int n_tiles = tiles_x * ((rows + g.tr - 1) / g.tr);
+  for (int t = 0; t < n_blocks; ++t) {
+    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
+    sm90::ring_time_block_on<TAPS, MODE>(
+        g, gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
+        v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
+        cols, steps, k, aligned, nbuf, base);
     if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
   }
   if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, S::NT, threadIdx.x);

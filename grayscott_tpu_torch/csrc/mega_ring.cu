@@ -9,7 +9,8 @@
 // when a window loads changes, so the result is mega.cu's bit for bit, on
 // float32 and bfloat16 pairs and in the fold's mode.
 //
-//   - The ring (gs_tile_sm90.cuh: ring_walk, ring_time_block): `nbuf`
+//   - The ring (gs_tile_sm90.cuh: ring_walk, ring_time_block_on; mega.cuh:
+//     ring_run, which mega_pins.cu runs on the tile pins' geometry): `nbuf`
 //     buffers of a window pair in dynamic shared memory, D + 1 for depth D
 //     (D slots and the step's scratch). Each block numbers its tiles of the
 //     time block j = 0, 1, ...; tile j's window starts loading once tile
@@ -57,19 +58,9 @@ ring_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
             int steps, K k, int aligned, int nbuf,
             unsigned long long* barrier) {
   extern __shared__ float4 window[];  // buffers [nbuf] x species [2]
-  float* const base = reinterpret_cast<float*>(window);
-  const size_t plane = static_cast<size_t>(rows) * cols;
-  const int tiles_x = (cols + G::TC - 1) / G::TC;
-  const int n_tiles = tiles_x * ((rows + G::TR - 1) / G::TR);
-  for (int t = 0; t < n_blocks; ++t) {
-    const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
-    sm90::ring_time_block<G, TAPS, MODE>(
-        gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
-        v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
-        cols, steps, k, aligned, nbuf, base);
-    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
-  }
-  if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, G::NT, threadIdx.x);
+  ring_run<TAPS, MODE>(sm90::FixedShape<G>{}, u_pair, v_pair, rows, cols,
+                       n_blocks, steps, k, aligned, nbuf, barrier,
+                       reinterpret_cast<float*>(window));
 }
 
 // One instantiation of ring_kernel: its co-resident blocks at `nbuf`

@@ -52,8 +52,14 @@ grid the co-resident blocks at the pinned window's bytes
 DEFAULT``) runs the entries above. Their launches are counted in
 ``pinned_launches``, ``pinned_bf16_launches``, ``pinned_fold_launches`` and
 ``pinned_fold_bf16_launches``; the tiles change where a window loads, not
-what a step computes, so the plain versions are the same. A pinned tile
-takes no ring: ``depth`` above 2 with a pinned geometry raises.
+what a step computes, so the plain versions are the same. ``depth`` above
+2 on a pinned geometry runs the window ring on its tiles
+(:func:`ring_geometry` with ``tiles``: JAX's clamp to depth 2 on few
+windows, ``grayscott_tpu/ops/megakernel.py:544-545``, ``:755-763``; a ring
+past the shared memory a block may use raises naming its bytes): the
+pinned ring entries of ``csrc/mega_pins.cu``, counted in
+``pinned_ring_launches``, ``pinned_ring_bf16_launches``,
+``pinned_ring_fold_launches`` and ``pinned_ring_fold_bf16_launches``.
 
 K6, the species-packed megakernel (``csrc/packed_mega.cu``), is the
 port's ``packed_megastep`` (``megakernel.py:1112``): the same time-block
@@ -79,8 +85,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..errors import UnsupportedConfigError
 from ..params import FoldConstants, KernelConstants, PackedConstants
-from . import build, checks, packed, stencil
+from . import build, checks, geometry as geo, packed, stencil
 
 #: most steps of one time block: the kernel's compile-time halo depth
 MEGA_STEPS = 8
@@ -110,6 +117,12 @@ pinned_bf16_launches = 0
 pinned_fold_launches = 0
 pinned_fold_bf16_launches = 0
 packed_pinned_launches = 0
+#: the pinned ring entries' launches (a ``depth`` ring on a pinned
+#: geometry), by storage and mode
+pinned_ring_launches = 0
+pinned_ring_bf16_launches = 0
+pinned_ring_fold_launches = 0
+pinned_ring_fold_bf16_launches = 0
 
 #: JAX's ``mega_depth`` values (``backends/pallas.py:224-225``)
 DEPTHS = range(2, 9)
@@ -132,15 +145,21 @@ RING_MAX_BUFFERS = 9
 class RingGeometry(NamedTuple):
     """What a megakernel launch of a ``depth`` pin runs (ring_geometry)."""
 
-    tile: int  #: tile edge: 64 (64x64 tiles in 80x80 windows) or 32
+    #: tile edge: 64 (64x64 tiles in 80x80 windows) or 32; None on pinned
+    #: tiles
+    tile: int | None
     depth: int  #: the depth after JAX's clamp
     buffers: int  #: window buffers: 2 at depth 2, else depth + 1
     bytes: int  #: dynamic shared memory of a block
     blocks_per_sm: int  #: blocks an SM that the bytes leave room for
+    #: the pinned tiles (``ops/geometry.py``), or None
+    tiles: "geo.Geometry | None" = None
 
     @property
     def ring(self) -> bool:
         """Whether the ring entries run it (else the double buffer)."""
+        if self.tiles is not None:
+            return self.buffers > 2
         return (self.tile, self.buffers) != (64, 2)
 
 
@@ -168,7 +187,8 @@ def check_depth(depth) -> int:
 
 
 def ring_geometry(shape: Tuple[int, int], depth: int | None = None,
-                  sharded: bool = False) -> RingGeometry:
+                  sharded: bool = False,
+                  tiles: "geo.Geometry | None" = None) -> RingGeometry:
     """(tile, depth, buffers, bytes, blocks an SM) of a megakernel run of
     a ``shape`` (R, C) domain under a ``depth`` pin.
 
@@ -180,10 +200,33 @@ def ring_geometry(shape: Tuple[int, int], depth: int | None = None,
     stays the one the pin chose, as JAX's row tile does. ``blocks_per_sm``
     counts the blocks that shared memory leaves room for (228 KB an SM, 1
     KB reserved a block); the launch takes the occupancy API's count,
-    which registers may lower."""
+    which registers may lower.
+
+    ``tiles`` (a pinned geometry, not the compiled 64x64): the ring runs
+    on them, and JAX's clamp counts their windows as JAX counts its row
+    and column blocks (``:544-545``, ``:755-763``): depth 2 unless the tile
+    rows number at least ``2 * depth`` on one tile column, or (tile rows
+    - 1) x tile columns do on several. A ring past the shared memory a
+    block may use raises :class:`UnsupportedConfigError` naming its
+    bytes."""
     d = check_depth(depth)
-    tile = 64 if ring_buffers(d) * PAIR_BYTES[64] <= SMEM_OPTIN else 32
     r, c = shape
+    if tiles is not None:
+        rows_t, cols_t = -(-r // tiles.tr), -(-c // tiles.tc)
+        windows = rows_t if cols_t == 1 else (rows_t - 1) * cols_t
+        if sharded or windows < 2 * d:
+            d = 2
+        buffers = ring_buffers(d)
+        nbytes = buffers * tiles.bytes // 2
+        if nbytes > SMEM_OPTIN:
+            raise UnsupportedConfigError(
+                f"mega_depth={d} on {tiles.tr}x{tiles.tc} tiles needs "
+                f"{nbytes} B of shared memory a block for its {buffers} "
+                f"window buffers, past the {SMEM_OPTIN} B a block may use; "
+                "pin a smaller tile or depth", combo="mega_depth+tiles")
+        return RingGeometry(None, d, buffers, nbytes,
+                            SMEM_SM // (nbytes + SMEM_RESERVED), tiles)
+    tile = 64 if ring_buffers(d) * PAIR_BYTES[64] <= SMEM_OPTIN else 32
     if sharded or -(-r // tile) * -(-c // tile) < 2 * d:
         d = 2
     buffers = ring_buffers(d)
@@ -339,6 +382,22 @@ def _pinned_kernel(dtype, fold: bool):
     return _pinned_fns[key]
 
 
+def _pinned_ring_kernel(dtype, fold: bool):
+    """The pinned ring entry of K2 for ``dtype`` pairs (``fold``: its fold
+    entry): the double buffer's arguments, then ``tr``, ``tc`` and the
+    buffers."""
+    key = ("ring", dtype, fold)
+    if key not in _pinned_fns:
+        base = _fold_kernel(dtype) if fold else (
+            _bf16_kernel() if dtype == torch.bfloat16 else _kernel())
+        name = "gs_mega_pinned_ring_multistep" + (
+            "_fold" if fold else "") + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _pinned_fns[key] = build.bind(name,
+                                      base.argtypes + [ctypes.c_int] * 3)
+    return _pinned_fns[key]
+
+
 def _is_pinned(geometry) -> bool:
     """Whether ``geometry`` runs the pinned entries (not the compiled
     64x64 tiles)."""
@@ -392,6 +451,24 @@ def pinned_max_blocks(device: torch.device, geometry) -> int:
     return _occupancy("gs_mega_pinned_max_blocks", device, geometry)
 
 
+def pinned_ring_max_blocks(device: torch.device,
+                           geometry: RingGeometry) -> int:
+    """The most blocks of one pinned ring launch of ``geometry`` (its
+    tiles and buffers) that are co-resident on ``device``, the fewest over
+    the instantiations."""
+    index = torch.device(device).index
+    n = build.bind("gs_mega_pinned_ring_max_blocks", [ctypes.c_int] * 4)(
+        torch.cuda.current_device() if index is None else index,
+        geometry.tiles.tr, geometry.tiles.tc, geometry.buffers)
+    if n <= 0:
+        raise RuntimeError(f"pinned ring occupancy query on "
+                           f"{geometry.tiles.label()}, {geometry.buffers} "
+                           f"buffers: " + (
+                               f"CUDA error {-n} ({build.error_name(-n)})"
+                               if n < 0 else "no block fits an SM"))
+    return n
+
+
 def packed_pinned_max_blocks(device: torch.device, geometry) -> int:
     """:func:`pinned_max_blocks` of K6's pinned entry."""
     return _occupancy("gs_packed_mega_pinned_max_blocks", device, geometry)
@@ -421,20 +498,19 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
     ``depth``: the window ring's depth (None: the double buffer; the
     geometry that runs is :func:`ring_geometry`'s). ``geometry``: the
     tiles (``ops/geometry.py:mega_resolve``; None: the compiled 64x64),
-    which takes no ring. On a CUDA device the launch is enqueued on the
-    current stream and not waited for."""
+    on which a ``depth`` ring runs too. On a CUDA device the launch is
+    enqueued on the current stream and not waited for."""
     global launches, bf16_launches, ring_launches, ring_bf16_launches
     global pinned_launches, pinned_bf16_launches
+    global pinned_ring_launches, pinned_ring_bf16_launches
     _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
            checks.STORAGE_DTYPES)
     pinned = _is_pinned(geometry)
-    if pinned and check_depth(depth) != 2:
-        raise ValueError(f"a pinned tile ({geometry.label()}) takes no "
-                         f"window ring; got depth {depth}")
-    ring = ring_geometry(tuple(u_pair.shape[1:]), depth)
+    ring = ring_geometry(tuple(u_pair.shape[1:]), depth,
+                         tiles=geometry if pinned else None)
     if fold:
         _fold_megastep(u_pair, v_pair, n_blocks, steps, consts, boundary,
-                       grid, ring, geometry if pinned else None)
+                       grid, ring)
         return
     bf16 = u_pair.dtype == torch.bfloat16
     if u_pair.device.type == "cpu":
@@ -446,6 +522,16 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
                                         n_blocks * steps, consts, boundary)
         u_pair[0].copy_(ru)
         v_pair[0].copy_(rv)
+        return
+    if pinned and ring.ring:
+        fn = _pinned_ring_kernel(u_pair.dtype, False)
+        _launch(lambda *args: fn(*args, geometry.tr, geometry.tc,
+                                 ring.buffers),
+                u_pair, v_pair, n_blocks, steps, consts, boundary, grid)
+        if bf16:
+            pinned_ring_bf16_launches += 1
+        else:
+            pinned_ring_launches += 1
         return
     if pinned:
         fn = _pinned_kernel(u_pair.dtype, False)
@@ -473,13 +559,23 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         launches += 1
 
 
+#: the fold entries' counters: (pinned tiles, ring, bf16) -> name
+_FOLD_COUNTERS = {
+    (False, False, False): "fold_launches",
+    (False, False, True): "fold_bf16_launches",
+    (False, True, False): "ring_fold_launches",
+    (False, True, True): "ring_fold_bf16_launches",
+    (True, False, False): "pinned_fold_launches",
+    (True, False, True): "pinned_fold_bf16_launches",
+    (True, True, False): "pinned_ring_fold_launches",
+    (True, True, True): "pinned_ring_fold_bf16_launches",
+}
+
+
 def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
-                   geometry: RingGeometry, tiles=None) -> None:
-    """:func:`megastep` with ``fold=True`` (``tiles``: a pinned geometry,
-    or None)."""
-    global fold_launches, fold_bf16_launches
-    global ring_fold_launches, ring_fold_bf16_launches
-    global pinned_fold_launches, pinned_fold_bf16_launches
+                   geometry: RingGeometry) -> None:
+    """:func:`megastep` with ``fold=True`` (``geometry.tiles``: a pinned
+    geometry, or None)."""
     checks.check_fold(fc, boundary)
     if u_pair.device.type == "cpu":
         ru, rv = megastep_reference_fold(u_pair[0], v_pair[0], n_blocks,
@@ -490,11 +586,15 @@ def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
     _, rows, cols = u_pair.shape
     barrier = torch.zeros(1, dtype=torch.int64, device=u_pair.device)
     stream = torch.cuda.current_stream(u_pair.device).cuda_stream
-    ring = (geometry.tile, geometry.buffers) if geometry.ring else ()
-    if tiles is not None:
+    tiles, ring = geometry.tiles, geometry.ring
+    if tiles is not None and ring:
+        fn = _pinned_ring_kernel(u_pair.dtype, True)
+        tail = (tiles.tr, tiles.tc, geometry.buffers)
+    elif tiles is not None:
         fn, tail = _pinned_kernel(u_pair.dtype, True), (tiles.tr, tiles.tc)
     elif ring:
-        fn, tail = _ring_kernel(u_pair.dtype, True), ring
+        fn = _ring_kernel(u_pair.dtype, True)
+        tail = (geometry.tile, geometry.buffers)
     else:
         fn, tail = _fold_kernel(u_pair.dtype), ()
     err = fn(u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks,
@@ -503,19 +603,9 @@ def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
     if err != 0:
         raise RuntimeError(f"mega fold kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
-    bf16 = u_pair.dtype == torch.bfloat16
-    if tiles is not None and bf16:
-        pinned_fold_bf16_launches += 1
-    elif tiles is not None:
-        pinned_fold_launches += 1
-    elif ring and bf16:
-        ring_fold_bf16_launches += 1
-    elif ring:
-        ring_fold_launches += 1
-    elif bf16:
-        fold_bf16_launches += 1
-    else:
-        fold_launches += 1
+    name = _FOLD_COUNTERS[tiles is not None, ring,
+                          u_pair.dtype == torch.bfloat16]
+    globals()[name] += 1
 
 
 def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,

@@ -58,6 +58,16 @@ four storages, counted apart in ``pinned_launches``,
 ``pinned_fold_bf16_launches``. Their plain versions are the same as the
 compiled entries' (the results do not depend on the tiles; bf16 storage
 rounds once a launch, so ``steps`` is the block length).
+
+:func:`folded_multistep` is K1 on the lane-fold layout (``--pallas-fold
+F``; ``pallas_stencil.py:_kernel`` with ``fold=(F, Cd, Rp)``, ``:929-933``,
+``:1123-1138``, after ``fold_refresh`` as ``run_blocks`` calls it,
+``:1287-1297``; ``ops/lane_fold.py``): the entry refreshes the panels'
+halo rows of a folded float32 state in place, then steps every panel at
+its global origin, on the tiles of a geometry (any K in 1..32, the row
+tile pin), into the panels' interior rows of the output. Its plain version
+is :func:`folded_multistep_reference`; its calls are counted in
+``folded_launches``.
 """
 
 from __future__ import annotations
@@ -68,7 +78,7 @@ import torch
 
 from ..params import FoldConstants, KernelConstants
 from ..parallel import halo
-from . import build, checks, geometry, sharded_mega, stencil
+from . import build, checks, geometry, lane_fold, sharded_mega, stencil
 
 #: most steps one launch may take: the kernel's compile-time halo depth
 K = 8
@@ -104,6 +114,8 @@ pinned_fold_bf16_launches = 0
 #: the pinned shard entries' launches, by storage
 pinned_shard_launches = 0
 pinned_bf16_shard_launches = 0
+#: the folded entry's launches (the lane fold)
+folded_launches = 0
 
 #: the C entry of each storage type: (unsharded, shard entry)
 _ENTRIES = {torch.float32: ("gs_windowed_multistep",
@@ -427,3 +439,91 @@ def shard_multistep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
         bf16_shard_launches += 1
     else:
         shard_launches += 1
+
+
+def folded_multistep_reference(u: torch.Tensor, v: torch.Tensor,
+                               u_out: torch.Tensor, v_out: torch.Tensor,
+                               steps: int, consts: KernelConstants,
+                               boundary: str, shape, rp: int,
+                               halo: int) -> None:
+    """The plain version of :func:`folded_multistep`: the panels' halo
+    rows of ``(u, v)`` refreshed in place (``lane_fold.fold_refresh``),
+    then each panel's columns (its interior and halo rows) take ``steps``
+    plain steps at its global origin ``(p*rp - halo, 0)`` against the
+    domain ``shape`` (``stencil.step_at``), and their interior rows go to
+    ``(u_out, v_out)``, the dead rows as the 0.0 ``step_at`` gives them."""
+    c = shape[1]
+    for x in (u, v):
+        lane_fold.fold_refresh(x, halo, u.shape[1] // c, c, rp)
+    for p in range(u.shape[1] // c):
+        cols = slice(p * c, (p + 1) * c)
+        a, b = u[:, cols], v[:, cols]
+        for _ in range(steps):
+            a, b = stencil.step_at(a, b, consts, boundary, (p * rp - halo, 0),
+                                   shape)
+        u_out[halo:halo + rp, cols] = a[halo:halo + rp]
+        v_out[halo:halo + rp, cols] = b[halo:halo + rp]
+
+
+def _check_folded(x: torch.Tensor, shape, rp: int,
+                  g: geometry.Geometry) -> int:
+    """The panels of a folded state of the domain ``shape`` at panel
+    stride ``rp`` on the tiles of ``g`` (ValueError where the layout does
+    not hold them: ``lane_fold.fold_state``'s shape, ``rp`` its
+    ``fold_geometry`` and, with more than one panel, no thinner than the
+    halo that ``lane_fold.fold_refresh`` copies)."""
+    r, c = shape
+    f = x.shape[1] // c if x.dim() == 2 else 0
+    if f < 1 or tuple(x.shape) != (rp + 2 * g.halo, f * c):
+        raise ValueError(f"a folded state of {r}x{c} at Rp={rp}, halo "
+                         f"{g.halo} is ({rp + 2 * g.halo}, F*{c}), got "
+                         f"{tuple(x.shape)}")
+    if lane_fold.fold_geometry(r, f, g.tr) != rp or (f > 1 and rp < g.halo):
+        raise ValueError(f"panel stride {rp} is not fold_geometry({r}, {f}, "
+                         f"{g.tr}) (a multiple of the row tile, at least "
+                         f"the {g.halo}-row halo)")
+    return f
+
+
+def _folded_kernel():
+    name = "gs_windowed_folded_multistep"
+    if name not in _fns:
+        _pinned_kernel(torch.float32, False)  # checks the most steps
+        _fns[name] = build.bind(name, [ctypes.c_void_p] * 4
+                                + [ctypes.c_int] * 10 + [ctypes.c_float] * 14
+                                + [ctypes.c_void_p])
+    return _fns[name]
+
+
+def folded_multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
+                     v_out: torch.Tensor, steps: int,
+                     consts: KernelConstants, boundary: str, shape, rp: int,
+                     geometry: geometry.Geometry) -> None:
+    """Refresh the panels' halo rows of the folded float32 state ``(u,
+    v)`` in place, then write the state ``steps`` (1..``geometry.halo``)
+    steps after it into the interior rows of ``(u_out, v_out)``, every
+    panel of the domain ``shape`` (R, C) at panel stride ``rp`` stepped at
+    its global origin on the tiles of ``geometry``; their dead rows and
+    halo rows are not written. On a CUDA device the two launches (the
+    refresh, the step) are enqueued on the current stream and not waited
+    for."""
+    global folded_launches
+    g = geometry
+    checks.check_count("steps", steps, 1, g.halo)
+    checks.check_boundary(boundary)
+    checks.check_state((u, v), (u_out, v_out))
+    f = _check_folded(u, shape, rp, g)
+    if u.device.type == "cpu":
+        folded_multistep_reference(u, v, u_out, v_out, steps, consts,
+                                   boundary, shape, rp, g.halo)
+        return
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = _folded_kernel()(
+        u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+        shape[0], shape[1], f, rp, steps, *g, int(boundary == "naive"),
+        u.device.index, *consts.weights, *consts.reaction, stream)
+    if err != 0:
+        raise RuntimeError(f"folded windowed kernel launch failed "
+                           f"({g.label()}, F={f}, Rp={rp}): CUDA error {err} "
+                           f"({build.error_name(err)})")
+    folded_launches += 1

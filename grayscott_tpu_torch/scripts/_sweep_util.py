@@ -11,8 +11,8 @@ import json
 #: a configuration's keys, JAX's child's names (``scripts/_sweep_util.py:
 #: 25-40``) -> the ``cuda`` backend's keyword and the child's default.
 #: ``k``, ``tr`` and ``tc`` pin K1's (and K4's) depth and tiles
-#: (``ops/geometry.py``). The backend refuses what it does not run (a lane
-#: fold, the megakernels' tile pins), each naming its ROADMAP.md item.
+#: (``ops/geometry.py``), ``fold`` the lane fold (``ops/lane_fold.py``).
+#: The backend refuses the combinations JAX's refuses.
 KEYS = {
     "engine": ("engine", "auto"), "resident": ("resident", "auto"),
     "pack": ("pack", "auto"), "dtype": ("dtype", "float32"),
@@ -92,8 +92,8 @@ def run_config(cfg: dict, device: str = "cuda") -> dict:
     store ignored: the JAX child's ``RESULT`` payload (the harness's
     ``compute`` workload, best of 5) with ``device_gcells_per_sec`` on the
     card (its ``device`` workload, best of 2) and what ran (``ran``: the
-    engine, the layout, the storage dtype, the folded naive reaction and
-    the ring's depth)."""
+    engine, the layout, the storage dtype, the folded naive reaction, the
+    ring's depth and the lane fold's F)."""
     from ..bench.harness import run_one
 
     shape = tuple(cfg.get("shape", (4096, 4096)))
@@ -103,7 +103,8 @@ def run_config(cfg: dict, device: str = "cuda") -> dict:
     res = run_one(sim, shape, steps, "compute", reps=5)
     out = {"config": cfg, **res.to_json(),
            "ran": {"engine": engine, "pack": packed, "dtype": sim.dtype,
-                   "nfold": sim.naive_fold, "depth": sim.mega_depth}}
+                   "nfold": sim.naive_fold, "depth": sim.mega_depth,
+                   "fold": sim.fold_for(shape)}}
     if sim.device.type == "cuda":
         dres = run_one(sim, shape, steps, "device", reps=2)
         out["device_gcells_per_sec"] = round(dres.gcells_per_sec, 3)

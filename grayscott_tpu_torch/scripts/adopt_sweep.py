@@ -12,9 +12,10 @@ A result replaces a stored record only when it is at least ``--margin``
 (default 2 %) better in a matched unit (device against device when both
 carry a device rate, else wall against wall) and, on the wall, beyond its
 own CI95 (``bench/stats.py:significantly_better``); a replaced record
-joins the ``candidates`` table. An ``engine=auto`` unpacked winner is
-persisted with ``engine: None`` (the backend's measured ranking decides),
-which retires a stored pin.
+joins the ``candidates`` table. An ``engine=auto`` unpacked and unfolded
+winner is persisted with ``engine: None`` (the backend's measured ranking
+decides), which retires a stored pin; a ``fold`` winner keeps its F, since
+``auto`` folds only on a record.
 
     python -m grayscott_tpu_torch.scripts.adopt_sweep sweep.log \\
         [more.log ...] [--dry-run] [--margin 1.02] [--platform NAME]
@@ -58,7 +59,8 @@ def to_record(res: dict) -> dict:
     """An autotune record from one result, in the schema the tuner
     persists (JAX's ``to_record``, ``scripts/adopt_sweep.py:59-104``): the
     engine the config pinned (``windowed`` under a ``tr`` or ``k`` pin,
-    None for ``engine=auto``), ``pack``, the tile and depth pins it ran
+    None for ``engine=auto``), ``pack``, the lane fold's F it pinned (1
+    unpinned), the tile and depth pins it ran
     (``tr``, ``k`` (default 8) and, only where pinned, ``tc``) and the
     rates (the headline ``gcells_per_sec`` the device rate when the
     result has one)."""
@@ -75,7 +77,7 @@ def to_record(res: dict) -> dict:
         "engine": engine,
         "block_rows": cfg.get("tr"),
         "steps_per_call": cfg.get("k") or K,
-        "fold": 1,
+        "fold": cfg.get("fold") if isinstance(cfg.get("fold"), int) else 1,
         "pack": cfg.get("pack") == "on",
         "wall_gcells_per_sec": round(res["gcells_per_sec"], 3),
         "gcells_per_sec": round(
@@ -153,7 +155,8 @@ def adopt(store: dict, by_key: dict, margin: float = 1.02) -> bool:
             print(f"{key}: keep existing {prev.get('gcells_per_sec')} "
                   f"({why})")
             new = dict(prev, candidates=candidates)
-        elif best["engine"] is None and not best["pack"]:
+        elif best["engine"] is None and not best["pack"] and \
+                best["fold"] <= 1:
             print(f"{key}: best is engine=auto unpacked "
                   f"({best['gcells_per_sec']})"
                   + (f" — retiring the stored "

@@ -6,17 +6,19 @@ on the card: the one table that the README renders, that ``simulate
 (``cli/shared.py:add_shared_args``), and that
 ``tests/test_torch_support.py`` sweeps. Every ``rejected`` row raises
 :class:`grayscott_tpu_torch.errors.UnsupportedConfigError` (a
-``ValueError``) when the combination is pinned, and names the ROADMAP.md
-item that would port it; ``auto`` rows run when the selection (a measured
-record, or the port's ranking) picks them, or when pinned; nothing falls
-back silently when the user pinned a combination.
+``ValueError``) when the combination is pinned, as JAX's backend refuses
+it; ``auto`` rows run when the selection (a measured record, or the port's
+ranking) picks them, or when pinned; ``pinned`` rows run only under the
+pins that name them; nothing falls back silently when the user pinned a
+combination.
 """
 
 from __future__ import annotations
 
 #: (combination, status, note). status: "ok" = runs when asked for;
-#: "auto" = applied when the selection picks it, or pinned; "rejected" =
-#: UnsupportedConfigError when pinned.
+#: "auto" = applied when the selection picks it, or pinned; "pinned" =
+#: runs under the pins that name it, never picked by the selection;
+#: "rejected" = UnsupportedConfigError when pinned.
 MATRIX: tuple[tuple[str, str, str], ...] = (
     ("engine=windowed (K1) x any boundary x f32/bf16", "ok",
      "8 steps a launch on 64x64 tiles unless pinned; the fold's entries "
@@ -46,6 +48,12 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
      "2..8; declined on the packed layout (K6 keeps its double buffer, as "
      "JAX's packed megakernel takes no depth); no effect on the other "
      "engines"),
+    ("mega_depth > 2 x block_rows/block_cols x mega (K2) x f32/bf16/fold",
+     "pinned",
+     "the window ring on the pinned tiles (a pin equal to 64x64: the "
+     "compiled ring's tiles); depth 2 under JAX's clamp (tile rows < 2*D on "
+     "one tile column, else (tile rows - 1) x tile columns < 2*D); a ring "
+     "past 232,448 B of shared memory rejected with its bytes"),
     ("mega_specialize x any engine", "ok",
      "no-op: interior tiles always step without the boundary selects, "
      "bitwise; rejected with naive_fix=store; declined on the packed "
@@ -88,14 +96,14 @@ MATRIX: tuple[tuple[str, str, str], ...] = (
      "columns on a 2-D mesh), bf16 rounded once a K-step block; the row "
      "tile of each shard; block_cols rejected, as in JAX; a shard thinner "
      "than its halo rejected; overlap splits at the pinned tile"),
+    ("lane fold (fold > 1) x windowed (K1) x f32", "auto",
+     "an int pins F: K1's folded entry, every K and row tile, bit for bit "
+     "the unfolded K1; auto folds only on a record whose fold > 1; rejected "
+     "with bf16, block_cols, resident=on, naive_fold, engine=mega, pack=on "
+     "and panels thinner than the halo; the naive boundary at any width "
+     "(JAX's TPU run needs C % 128 == 0, auto still does)"),
     ("bf16 storage x resident/pack/lane fold", "rejected",
      "bf16 rides K1, K2 and the sharded engines only"),
-    ("lane fold (fold > 1)", "rejected",
-     "ROADMAP.md Queue 2 item 7 (the lane-fold layout); auto, off and 1 "
-     "run"),
-    ("mega_depth > 2 x block_rows/block_cols x mega (K2)", "rejected",
-     "ROADMAP.md Queue 2 item 12 (the window ring at a pinned tile); "
-     "either alone runs"),
     ("GRAYSCOTT_COORDINATOR (several processes)", "ok",
      "simulate over a gloo process group: the sharded windowed engine (K1's "
      "shard entry, every K, row tile, bf16 and overlap), each process "

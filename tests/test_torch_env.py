@@ -111,8 +111,7 @@ MORE_FLAGS = {
     "GRAYSCOTT_PALLAS_BLOCK_COLS": ("pallas_block_cols", "128",
                                     None, None, None),
     "GRAYSCOTT_PALLAS_DTYPE": ("pallas_dtype", "bfloat16", None, None, None),
-    "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "off", "2", "Queue 2 item 7",
-                              UnsupportedConfigError),
+    "GRAYSCOTT_PALLAS_FOLD": ("pallas_fold", "2", None, None, None),
     "GRAYSCOTT_NAIVE_FIX": ("pallas_naive_fix", "store", None, None, None),
     "GRAYSCOTT_NAIVE_FOLD": ("pallas_naive_fold", "on", None, None, None),
     "GRAYSCOTT_PALLAS_RUNTIME_PARAMS": ("pallas_runtime_params", "off",
@@ -169,8 +168,8 @@ def test_more_flags_default_to_their_variables(clean_more_env, var):
 
 #: the ROADMAP.md items the port has done: a value of theirs runs
 PORTED = ("Queue 2 item 1", "Queue 2 item 3", "Queue 2 item 4",
-          "Queue 2 item 5", "Queue 2 item 6", "Queue 2 item 8",
-          "Queue 2 item 12")
+          "Queue 2 item 5", "Queue 2 item 6", "Queue 2 item 7",
+          "Queue 2 item 8", "Queue 2 item 12")
 
 #: argv -> the ROADMAP.md item of the value (None, or an item in PORTED: it
 #: runs; another: the port's refusal names it)
@@ -268,6 +267,10 @@ CONSTRUCTOR = [
     ({"steps_per_call": 16}, "Queue 2 item 8"),
     ({"engine": "mega", "block_rows": 16}, "Queue 2 item 12"),
     ({"engine": "mega", "pack": "on", "block_rows": 8}, "Queue 2 item 12"),
+    ({"engine": "mega", "block_rows": 16, "mega_depth": 4},
+     "Queue 2 item 12"),
+    ({"fold": 2, "engine": "windowed", "steps_per_call": 16},
+     "Queue 2 item 7"),
 ]
 
 
@@ -275,8 +278,8 @@ CONSTRUCTOR = [
 def test_constructor_values_against_jax(kwargs, item):
     """JAX's backend takes each value; the port runs the ported ones (the
     frames of the same pins without the knob: the ring, the
-    specialisation and the K and tile pins change no float32 result) and
-    refuses the rest naming its item."""
+    specialisation, the lane fold and the K and tile pins change no
+    float32 result) and refuses the rest naming its item."""
     from grayscott_tpu.backends.pallas import PallasSimulation
     from grayscott_tpu.params import Parameters as JaxParameters
 
@@ -289,7 +292,7 @@ def test_constructor_values_against_jax(kwargs, item):
         return
     pins = {k: v for k, v in kwargs.items()
             if k not in ("mega_depth", "mega_specialize", "steps_per_call",
-                         "block_rows", "block_cols")}
+                         "block_rows", "block_cols", "fold")}
     frames = []
     for kw in (kwargs, pins):
         sim = CudaSimulation(Parameters(), boundary, device="cpu", **kw)

@@ -1021,8 +1021,9 @@ def test_windowed_shard_refuses_bad_geometry(cuda_device):
     up, vp = halo.mega_shard_state(*random_uv(shape, "cpu"), mesh)
     fn = windowed._shard_kernel()
     consts = kernel_constants(Parameters())
-    err = fn(up.data_ptr(), vp.data_ptr(), 2, 2, 24, 152, 8, 0, *shape, 8,
-             1, 0, 5, 0, 1, 1, 0, *consts.weights, *consts.reaction,
+    err = fn(up.data_ptr(), vp.data_ptr(), 2, 2, 0, 0, 24, 152, 8, 0,
+             *shape, 8, 1, 0, 5, 0, 1, 1, 0, *consts.weights,
+             *consts.reaction,
              torch.cuda.current_stream().cuda_stream)
     assert build.error_name(err) == "invalid argument"
 
@@ -1895,6 +1896,139 @@ def test_new_pinned_kernels_do_not_spill(cuda_device, tmp_path):
             ("mega_pins.cu", "25packed_mega_pinned_kernel", 1),
             ("sharded_mega_pins.cu", "26sharded_mega_pinned_kernel", 16),
             ("windowed_pins.cu", "19shard_pinned_kernel", 8)):
+        spills = ptxas_spills(source, kernel, tmp_path)
+        assert len(spills) == count, (kernel, spills)
+        assert all(v == (0, 0) for v in spills.values()), spills
+
+
+# -- the lane fold (K1's folded entry) and the window ring at pinned tiles --
+
+from grayscott_tpu_torch.ops import lane_fold  # noqa: E402
+
+#: (shape, F, K, row tile pin): even and uneven panels, dead rows, a deep
+#: halo, a short panel, ragged widths
+FOLD_CASES = [((300, 520), 2, 8, None), ((301, 97), 3, 8, None),
+              ((400, 256), 8, 16, 16), ((200, 300), 3, 12, 16),
+              ((37, 24), 3, 32, None), ((1, 1), 1, 8, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("stencil_name", sorted(STENCILS))
+def test_folded_entry_bitwise_equals_plain_and_k1(cuda_device, boundary,
+                                                  stencil_name):
+    """K1's folded entry (csrc/windowed_pins.cu: the refresh, then the
+    step) on each of FOLD_CASES, NaN and Inf included: its plain version
+    (the halos it refreshed included) and the unfolded K1 bit for bit,
+    counted on ``folded_launches``. Tolerance: none."""
+    consts = kernel_constants(Parameters.with_stencil(stencil_name))
+    for shape, f, k, tr in FOLD_CASES:
+        for u0, v0 in fold_states(shape, cuda_device, torch.float32):
+            g = geometry.resolve((-(-shape[0] // f), shape[1]), k, tr)
+            rp = lane_fold.fold_geometry(shape[0], f, g.tr)
+            u, v = lane_fold.fold_state(u0, v0, f, g.tr, g.halo, cuda_device)
+            pu, pv = u.clone(), v.clone()
+            uo, vo = torch.zeros_like(u), torch.zeros_like(v)
+            before = windowed.folded_launches
+            windowed.folded_multistep(u, v, uo, vo, k, consts, boundary,
+                                      shape, rp, g)
+            torch.cuda.synchronize()
+            assert windowed.folded_launches == before + 1
+            po, qo = torch.zeros_like(u), torch.zeros_like(v)
+            windowed.folded_multistep_reference(pu, pv, po, qo, k, consts,
+                                                boundary, shape, rp, g.halo)
+            want = stencil.run(u0, v0, k, consts, boundary)
+            assert bf16_equal(u, pu) and bf16_equal(v, pv), (shape, f, k)
+            for got, plain, oracle in zip((uo, vo), (po, qo), want):
+                assert bf16_equal(got, plain), (shape, f, k)
+                got = lane_fold.unfold_state(got, g.halo, f, shape[1],
+                                             shape[0])
+                assert bf16_equal(got, oracle), (shape, f, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold", [2, 3])
+def test_folded_run_launches_and_equals_unfolded(cuda_device, fold):
+    """``run_steps`` on the folded storage: a refresh and a launch every K
+    steps and one for the remainder, V bit for bit the unfolded run's."""
+    shape, params = (300, 256), Parameters()
+    frames = []
+    for f in (fold, "off"):
+        sim = CudaSimulation(params, "naive", device=cuda_device, fold=f,
+                             tuned_lookup=False)
+        species = sim.make_species(shape)
+        assert species.storage[0] == ("folded" if f == fold else "resident")
+        before = windowed.folded_launches
+        sim.perform_steps(species, 19)
+        assert windowed.folded_launches == before + (3 if f == fold else 0)
+        frames.append(species.result_host())
+    np.testing.assert_array_equal(*frames)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,boundary", [
+    ("f32", "naive"), ("f32", "zero"), ("bf16", "naive"), ("bf16", "zero"),
+    ("fold", "naive"), ("fold bf16", "naive")])
+def test_pinned_ring_entries_bitwise_equal_plain(cuda_device, entry,
+                                                 boundary):
+    """Each pinned ring entry of K2 (csrc/mega_pins.cu) at depths 3, 4 and
+    8 on pinned tiles, three time blocks of 8 steps and one of 3: its
+    plain version and the pinned double buffer bit for bit, NaN and Inf
+    included (bf16: NaN's bit pattern aside), counted on its own
+    counter."""
+    fold = entry.startswith("fold")
+    dtype = torch.bfloat16 if entry.endswith("bf16") else torch.float32
+    params = Parameters()
+    consts = fold_constants(params) if fold else kernel_constants(params)
+    counter = "pinned_ring" + ("_fold" if fold else "") + (
+        "_bf16" if dtype == torch.bfloat16 else "") + "_launches"
+    shape = (1025, 300)
+    for u, v in fold_states(shape, cuda_device, dtype):
+        for n_blocks, steps in ((3, 8), (1, 3)):
+            if fold:
+                want = megakernel.megastep_reference_fold(u, v, n_blocks,
+                                                          steps, consts)
+            elif dtype == torch.bfloat16:
+                want = megakernel.megastep_reference_bf16(
+                    u, v, n_blocks, steps, consts, boundary)
+            else:
+                want = stencil.run(u, v, n_blocks * steps, consts, boundary)
+            for (tr, tc), depth in (((32, 128), 3), ((16, 64), 4),
+                                    ((16, 64), 8), ((8, 256), 3)):
+                g = geometry.Geometry(tr, tc, 8)
+                assert megakernel.ring_geometry(shape, depth,
+                                                tiles=g).ring
+                up, vp = (megakernel.pair_state(x) for x in (u, v))
+                before = getattr(megakernel, counter)
+                megakernel.megastep(up, vp, n_blocks, steps, consts,
+                                    boundary, fold=fold, depth=depth,
+                                    geometry=g)
+                torch.cuda.synchronize()
+                assert getattr(megakernel, counter) == before + 1
+                assert all(bf16_equal(a, b) for a, b in
+                           zip((up[0], vp[0]), want)), (g, depth)
+
+
+@pytest.mark.gpu
+def test_pinned_ring_grids_follow_the_bytes(cuda_device):
+    """The pinned ring's co-resident blocks: at least one an SM, at most
+    what its bytes leave room for."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for tiles, depth in (((32, 128), 3), ((16, 64), 4), ((16, 64), 8)):
+        ring = megakernel.ring_geometry((1080, 1920), depth,
+                                        tiles=geometry.Geometry(*tiles, 8))
+        n = megakernel.pinned_ring_max_blocks(cuda_device, ring)
+        assert sms <= n <= ring.blocks_per_sm * sms, (tiles, depth, n)
+
+
+@pytest.mark.gpu
+def test_folded_and_pinned_ring_kernels_do_not_spill(cuda_device, tmp_path):
+    """ptxas's report of the folded entry's 4 instantiations, its refresh
+    kernel and the pinned ring's 12: no spill."""
+    for source, kernel, count in (
+            ("windowed_pins.cu", "13folded_kernel", 4),
+            ("windowed_pins.cu", "19fold_refresh_kernel", 1),
+            ("mega_pins.cu", "18ring_pinned_kernel", 12)):
         spills = ptxas_spills(source, kernel, tmp_path)
         assert len(spills) == count, (kernel, spills)
         assert all(v == (0, 0) for v in spills.values()), spills

@@ -86,16 +86,18 @@ def test_windows_past_the_shared_memory_are_refused(tr, tc):
     ({"block_cols": 100}, "unsupported for shape (40, 264) at tr=None, "
                           "tc=100"),
     ({"block_cols": 128, "naive_fix": "store"}, "at tr=None, tc=128"),
-    ({"block_rows": 16, "mega_depth": 3}, "Queue 2 item 12"),
-    ({"block_cols": 128, "mega_depth": 8}, "Queue 2 item 12"),
+    ({"block_rows": 8, "block_cols": 256, "mega_depth": 4}, "261120 B"),
+    ({"block_rows": 8, "block_cols": 256, "mega_depth": 4,
+      "naive_fold": True}, "261120 B"),
     ({"block_rows": 16, "steps_per_call": 16}, "fixes steps-per-call"),
     ({"block_rows": 256, "block_cols": 256}, "B of shared memory"),
 ])
 def test_refusals(kwargs, match):
     """JAX's refusals with its class and text (``backends/pallas.py:
     414-428``: the quanta and a column tile under ``naive_fix='store'``),
-    the shared memory's, and the window ring at a pinned tile (ROADMAP.md
-    Queue 2 item 12)."""
+    and the shared memory's, of the double buffer's windows and of the
+    window ring on pinned tiles (five 8x256 window pairs, unclamped on the
+    8 windows of 5 tile rows by 2 tile columns)."""
     exc = ValueError if "positive int" in match else UnsupportedConfigError
     u, v = random_uv(np.random.RandomState(0), SHAPE)
     with pytest.raises(exc) as info:
@@ -230,12 +232,15 @@ def test_packed_tiled_step_on_rectangles(tile):
 
 
 def test_wrappers_check_the_geometry():
-    """A pinned geometry takes no ring, and its halo is the time block's."""
+    """A window ring on a pinned geometry fits the shared memory a block
+    may use (else its bytes are named), and the halo is the time
+    block's."""
     up = torch.zeros((2, 24, 32))
     consts = kernel_constants(Parameters())
-    with pytest.raises(ValueError, match="no window ring"):
-        megakernel.megastep(up, up.clone(), 1, 8, consts, "naive",
-                            depth=3, geometry=geometry.Geometry(8, 64, 8))
+    with pytest.raises(UnsupportedConfigError, match="261120 B"):
+        wide = torch.zeros((2, 40, 600))
+        megakernel.megastep(wide, wide.clone(), 1, 8, consts, "naive",
+                            depth=4, geometry=geometry.Geometry(8, 256, 8))
     with pytest.raises(ValueError, match="halo is its time block"):
         megakernel.megastep(up, up.clone(), 1, 8, consts, "naive",
                             geometry=geometry.Geometry(8, 64, 16))

@@ -144,10 +144,9 @@ def test_pins_name_their_engine(pins, engine):
     {"resident": "on", "engine": "mega"},
     {"resident": "on", "engine": "windowed"},
     {"mega_specialize": True, "naive_fix": "store"},  # JAX's refusal
-    {"fold": 2},
-    # the window ring at a pinned tile (ROADMAP.md Queue 2 item 12; the
-    # tile pin alone runs: tests/test_torch_mega_pins.py)
-    {"block_cols": 128, "engine": "mega", "mega_depth": 3},
+    # JAX's refusals of a lane-fold pin (tests/test_torch_lane_fold.py)
+    {"fold": 2, "resident": "on"},
+    {"fold": 2, "naive_fold": True},
 ])
 def test_unported_or_conflicting_pins_raise(kwargs):
     with pytest.raises(UnsupportedConfigError):

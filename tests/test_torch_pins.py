@@ -160,18 +160,19 @@ def test_every_key_reaches_the_backend(cfg, kw, value):
 
 @pytest.mark.parametrize("cfg,item,error", [
     ({"k": 33}, "steps_per_call must be in", ValueError),
-    ({"tr": 64, "engine": "mega", "depth": 3}, "Queue 2 item 12",
+    ({"fold": 2, "resident": "on"}, "pinned lane fold conflict",
      UnsupportedConfigError),
     ({"tc": 128, "pack": "on", "boundary": "zero"}, "no fold/column tiling",
      UnsupportedConfigError),
-    ({"fold": 2}, "Queue 2 item 7", UnsupportedConfigError),
+    ({"fold": 2, "dtype": "bfloat16"}, "fold excludes bf16 storage",
+     UnsupportedConfigError),
     ({"limit": 1 << 20}, "limit", UnsupportedConfigError),
     ({"dtype": "bfloat16", "resident": "on"}, "float32",
      UnsupportedConfigError),
 ])
 def test_backend_refuses_the_rest(cfg, item, error):
     """What the backend does not run raises :class:`UnsupportedConfigError`
-    naming its item or JAX's message; a K outside 1..32 raises JAX's plain
+    with JAX's message; a K outside 1..32 raises JAX's plain
     ``ValueError``."""
     with pytest.raises(error, match=item) as info:
         simulation({"boundary": "naive", **cfg}, device="cpu")
@@ -196,7 +197,8 @@ def test_bf16_fold_config_runs_and_files_under_its_key(store, capsys,
     (line,) = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
     res = json.loads(line[len("RESULT "):])
     assert res["ran"] == {"engine": "windowed", "pack": False,
-                          "dtype": "bfloat16", "nfold": True, "depth": None}
+                          "dtype": "bfloat16", "nfold": True, "depth": None,
+                          "fold": 1}
     log = tmp_path / "sweep.log"
     log.write_text(out)
     assert adopt_sweep.main([str(log), "--platform", "p"]) == 0
@@ -205,27 +207,25 @@ def test_bf16_fold_config_runs_and_files_under_its_key(store, capsys,
 
 
 def test_dtype_flag_sets_every_config(store, capsys):
-    """``--dtype`` reaches every configuration; ``k=16`` and the
-    megakernel's tile pin, refused until they were ported, run; the window
-    ring at a pinned tile is refused naming its item (the sweep goes
-    on)."""
+    """``--dtype`` reaches every configuration; ``k=16``, the megakernel's
+    tile pin and the window ring at a pinned tile, refused until they were
+    ported, run; the lane fold is refused with bf16 storage, as JAX
+    refuses it (the sweep goes on)."""
     assert sweep.main(["--device", "cpu", "--shape", "24x32", "--steps",
                        "8", "--boundary", "naive", "--dtype", "bfloat16",
                        "--configs", "engine=mega:depth=4", "nfold=on",
                        "engine=windowed:k=16", "engine=mega:tr=32",
-                       "engine=mega:tr=32:depth=4"]) == 0
+                       "engine=mega:tr=32:depth=4", "fold=2"]) == 0
     lines = capsys.readouterr().out.splitlines()
     results = [json.loads(ln[len("RESULT "):]) for ln in lines
                if ln.startswith("RESULT ")]
     errors = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    bf16 = {"pack": False, "dtype": "bfloat16", "fold": 1}
     assert [r["ran"] for r in results] == [
-        {"engine": "mega", "pack": False, "dtype": "bfloat16",
-         "nfold": False, "depth": 4},
-        {"engine": "windowed", "pack": False, "dtype": "bfloat16",
-         "nfold": True, "depth": None},
-        {"engine": "windowed", "pack": False, "dtype": "bfloat16",
-         "nfold": False, "depth": None},
-        {"engine": "mega", "pack": False, "dtype": "bfloat16",
-         "nfold": False, "depth": None}]
+        {"engine": "mega", "nfold": False, "depth": 4, **bf16},
+        {"engine": "windowed", "nfold": True, "depth": None, **bf16},
+        {"engine": "windowed", "nfold": False, "depth": None, **bf16},
+        {"engine": "mega", "nfold": False, "depth": None, **bf16},
+        {"engine": "mega", "nfold": False, "depth": 4, **bf16}]
     assert all(r["config"]["dtype"] == "bfloat16" for r in results)
-    assert len(errors) == 1 and "Queue 2 item 12" in errors[0]["error"]
+    assert len(errors) == 1 and "fold excludes bf16" in errors[0]["error"]

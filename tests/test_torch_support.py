@@ -1,10 +1,10 @@
 """The port's support matrix (``grayscott_tpu_torch/support.py``), in the
 shape of tests/test_support.py: every ``rejected`` row raises
-:class:`UnsupportedConfigError` on the port's backends and names its
-ROADMAP.md item where it has one, every ``ok`` and ``auto`` row builds and
-steps on the CPU, each row has its cases here, and the table is the
-``--help`` epilog of ``simulate`` and ``livesim`` and the README's
-block."""
+:class:`UnsupportedConfigError` on the port's backends, no row is rejected
+for a ROADMAP.md item the port has done, every ``ok``, ``auto`` and
+``pinned`` row builds and steps on the CPU, each row has its cases here,
+and the table is the ``--help`` epilog of ``simulate`` and ``livesim`` and
+the README's block."""
 
 import argparse
 import os
@@ -65,6 +65,19 @@ SUPPORTED = {
         ("cuda", dict(pack="on", boundary="zero", engine="mega",
                       mega_depth=5), "megapack"),
         ("cuda", dict(engine="windowed", mega_depth=4), "windowed")],
+    "mega_depth > 2 x block_rows/block_cols x mega (K2) x f32/bf16/fold": [
+        ("cuda", dict(block_rows=64, engine="mega", mega_depth=3), "mega"),
+        ("cuda", dict(block_cols=128, engine="mega", mega_depth=8), "mega"),
+        ("cuda", dict(block_rows=8, block_cols=256, engine="mega",
+                      mega_depth=4, naive_fold=True), "mega"),
+        ("cuda", dict(block_rows=32, engine="mega", mega_depth=5,
+                      dtype="bfloat16"), "mega")],
+    "lane fold (fold > 1) x windowed (K1) x f32": [
+        ("cuda", dict(fold=2), "folded"),
+        ("cuda", dict(fold=2, boundary="zero", steps_per_call=16,
+                      block_rows=16), "folded"),
+        ("cuda", dict(fold=3, engine="windowed", stencil="5points"),
+         "folded")],
     "mega_specialize x any engine": [
         ("cuda", dict(engine="mega", mega_specialize=True), "mega"),
         ("cuda", dict(mega_specialize=False, naive_fix="store"), None),
@@ -130,16 +143,6 @@ REJECTED = {
         ("cuda", dict(dtype="bfloat16", resident="on")),
         ("cuda", dict(dtype="bfloat16", pack="on", boundary="zero")),
         ("cuda", dict(dtype="bfloat16", fold=2))],
-    "lane fold (fold > 1)": [
-        ("cuda", dict(fold=2)),
-        ("cuda", dict(fold=4, engine="mega"))],
-    "mega_depth > 2 x block_rows/block_cols x mega (K2)": [
-        ("cuda", dict(block_rows=64, engine="mega", mega_depth=3)),
-        ("cuda", dict(block_cols=128, engine="mega", mega_depth=8)),
-        ("cuda", dict(block_rows=8, block_cols=256, engine="mega",
-                      mega_depth=4, naive_fold=True)),
-        ("cuda", dict(block_rows=32, engine="mega", mega_depth=5,
-                      dtype="bfloat16"))],
 }
 
 #: other refusals the ok rows' notes name
@@ -157,22 +160,37 @@ CONFLICTS = [
     ("cuda", dict(block_cols=128, pack="on", boundary="zero")),
     ("sharded", dict(steps_per_call=16, engine="mega")),
     ("sharded", dict(block_cols=128, engine="windowed")),
+    # the lane fold's refusals (JAX's), and a ring past shared memory
+    ("cuda", dict(fold=2, resident="on")),
+    ("cuda", dict(fold=2, block_cols=128)),
+    ("cuda", dict(fold=2, naive_fold=True)),
+    ("cuda", dict(fold=4, engine="mega")),
+    ("cuda", dict(fold=2, pack="on", boundary="zero")),
+    ("cuda", dict(fold=4, block_rows=8, steps_per_call=16)),
+    ("cuda", dict(block_rows=24, block_cols=256, engine="mega",
+                  mega_depth=3, shape=(200, 512))),
 ]
 
 
 def build(backend, kwargs):
+    """The simulation of ``kwargs``, and its storage of a domain of SHAPE
+    (or ``kwargs["shape"]``) built: a refusal made when storage is built
+    (JAX's) raises here too."""
     kwargs = dict(kwargs)
     params = Parameters.with_stencil(kwargs.pop("stencil", "oono-puri"))
     boundary = kwargs.pop("boundary", "naive")
+    shape = kwargs.pop("shape", SHAPE)
     cls = CudaSimulation if backend == "cuda" else ShardedSimulation
-    return cls(params, boundary, device="cpu", tuned_lookup=False, **kwargs)
+    sim = cls(params, boundary, device="cpu", tuned_lookup=False, **kwargs)
+    sim.make_species(shape)
+    return sim
 
 
 def test_every_row_has_cases():
     rows = {combo: status for combo, status, _ in support.MATRIX}
     assert set(rows) == set(SUPPORTED) | set(REJECTED) | {
         "GRAYSCOTT_COORDINATOR (several processes)"}
-    assert all(rows[c] in ("ok", "auto") for c in SUPPORTED)
+    assert all(rows[c] in ("ok", "auto", "pinned") for c in SUPPORTED)
     assert all(rows[c] == "rejected" for c in REJECTED)
 
 
@@ -219,20 +237,25 @@ def test_coordinator_row_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("combo,item", [
-    (combo, note.split(" (")[0]) for combo, status, note in support.MATRIX
-    if status == "rejected" and note.startswith("ROADMAP.md")])
+    ("lane fold (fold > 1) x windowed (K1) x f32", "Queue 2 item 7"),
+    ("mega_depth > 2 x block_rows/block_cols x mega (K2) x f32/bf16/fold",
+     "Queue 2 item 12")])
 def test_rejected_rows_name_their_item(combo, item):
-    """The row's note names the ROADMAP.md item; the backend's refusal
-    names it too, and ROADMAP.md has it."""
-    queue, _, number = item[len("ROADMAP.md "):].partition(" item ")
+    """A ROADMAP.md item the port has done (ROADMAP.md has it, marked
+    done) is named by no rejected row: its row runs, and no refusal of its
+    cases names the item."""
+    queue, _, number = item.partition(" item ")
     roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
     section = roadmap.split(f"### {queue}:")[1].split("\n### ")[0]
-    assert f"Item {number}:" in section
-    for backend, kwargs in REJECTED.get(combo, []):
-        if backend == "cuda" and "dtype" not in kwargs:
-            with pytest.raises(UnsupportedConfigError,
-                               match=item[len("ROADMAP.md "):]):
-                build(backend, kwargs)
+    entry = section.split(f"Item {number}:")[1].split("\n- ")[0]
+    assert "(done" in entry
+    assert not any(item in note for _, status, note in support.MATRIX
+                   if status == "rejected")
+    rows = {c: st for c, st, _ in support.MATRIX}
+    assert rows[combo] in ("auto", "pinned")
+    for backend, kwargs, _ in SUPPORTED[combo]:
+        sim = build(backend, kwargs)
+        sim.perform_steps(sim.make_species(SHAPE), 1)
 
 
 def test_matrix_renders_both_formats():

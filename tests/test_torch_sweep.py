@@ -34,7 +34,7 @@ def test_sweep_prints_a_result_per_config(capsys):
     results = [json.loads(ln[len("RESULT "):]) for ln in lines
                if ln.startswith("RESULT ")]
     assert lines[-1] == "DONE" and len(results) == 3
-    plain = {"dtype": "float32", "nfold": False, "depth": None}
+    plain = {"dtype": "float32", "nfold": False, "depth": None, "fold": 1}
     assert [r["ran"] for r in results] == [
         {"engine": "windowed", "pack": False, **plain},
         {"engine": "mega", "pack": True, **plain},

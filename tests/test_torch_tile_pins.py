@@ -299,10 +299,10 @@ def test_pins_hold_auto_to_the_windowed_kernel(monkeypatch, kwargs,
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"engine": "mega", "steps_per_call": 16}, "fixes steps-per-call"),
-    # the megakernels' tile pins run (tests/test_torch_mega_pins.py): the
-    # window ring at a pinned tile, and the values JAX's megakernels refuse
-    ({"engine": "mega", "block_rows": 64, "mega_depth": 3},
-     "Queue 2 item 12"),
+    # the megakernels' tile pins run (tests/test_torch_mega_pins.py), and
+    # so do their window rings (tests/test_torch_ring_pins_jax.py): a lane
+    # fold under the megakernel, and the values JAX's megakernels refuse
+    ({"engine": "mega", "fold": 2}, "and no lane fold"),
     ({"engine": "mega", "block_rows": 12}, "unsupported for shape"),
     ({"engine": "mega", "pack": "on", "block_rows": 20},
      "with pack needs full-width"),

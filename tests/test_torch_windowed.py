@@ -123,18 +123,21 @@ def test_cpu_calls_do_not_count_as_launches(rng, params):
     ("block_rows", 8), ("fold", 2), ("pack", "on"), ("steps_per_call", 16),
 ])
 def test_unported_knobs_raise(params, knob, value):
-    """Each knob where the port does not run it: the lane fold, the packed
-    layout on the naive boundary, the megakernel's K (JAX's refusal), and
-    its tile pin with the window ring (ROADMAP.md Queue 2 item 12; the tile
-    pin alone runs: tests/test_torch_mega_pins.py; on K1 the K and tile
-    pins run: tests/test_torch_tile_pins.py)."""
+    """Each knob where JAX refuses it too: the lane fold with
+    ``resident='on'``, the packed layout on the naive boundary, the
+    megakernel's K, and its tile pin with a window ring past the shared
+    memory a block may use (the tile pin and the ring alone run:
+    tests/test_torch_mega_pins.py, tests/test_torch_ring_pins_jax.py; on
+    K1 the K and tile pins run: tests/test_torch_tile_pins.py)."""
     from grayscott_tpu_torch.errors import UnsupportedConfigError
 
     engine = "mega" if knob in ("block_rows", "steps_per_call") else "auto"
-    ring = {"mega_depth": 3} if knob == "block_rows" else {}
+    extra = {"block_rows": {"block_cols": 256, "mega_depth": 4},
+             "fold": {"resident": "on"}}.get(knob, {})
     with pytest.raises(UnsupportedConfigError):
-        CudaSimulation(params, device="cpu", engine=engine, **{knob: value},
-                       **ring)
+        sim = CudaSimulation(params, device="cpu", engine=engine,
+                             **{knob: value}, **extra)
+        sim.make_species((40, 264))
 
 
 @pytest.mark.parametrize("steps", [1, 8])
