@@ -229,7 +229,18 @@
    (CUDA events): K1 one launch of 8 steps, K2 one of 4 time blocks of 8,
    at 1080x1920 and 4096x4096, beside its bound at the fold's operation
    count (``fold_ops_per_cell_step``), and the plain version's time at
-   1080x1920. The ``kernels`` line gains the four fold entries.
+   1080x1920. The ``kernels`` line gains the four fold entries. The
+   entries run the fold's second form (``csrc/gs_fold_sm90.cuh``: 2-D
+   register blocks; float32 windows through TMA where ``geometry.tma_ok``
+   allows, so 1080x1920 and 4096x4096 load through TMA and 1000x1917 with
+   cp.async, each checked and counted in ``fold_tma_launches``); (a) also
+   holds every part of the split (``windowed.fold_ablation``,
+   ``megakernel.fold_ablation``: the first form, part 0, among them) bit
+   for bit against its plain version at each shape and on the NaN/Inf
+   state. (e) The split: each part of ``FOLD_ABLATIONS`` of both entries
+   in turns with the entry itself (CUDA events; K1 one launch of 8 steps,
+   K2 one of 4 time blocks of 8) at 1080x1920 and 4096x4096, each beside
+   part 0 and the bound.
 
 17. The window ring (``mega_depth``, ``ops/megakernel.py:ring_geometry``)
    and K7's read-site wait. Each depth's geometry at 1080x1920 and
@@ -440,6 +451,10 @@ COUNTERS = {
     "windowed_fold_bf16": (windowed, "fold_bf16_launches"),
     "mega_fold": (megakernel, "fold_launches"),
     "mega_fold_bf16": (megakernel, "fold_bf16_launches"),
+    # the float32 fold launches whose windows loaded through TMA (also
+    # counted in windowed_fold or mega_fold)
+    "windowed_fold_tma": (windowed, "fold_tma_launches"),
+    "mega_fold_tma": (megakernel, "fold_tma_launches"),
     # the window ring's entries (mega_depth), K2's, counted apart
     "mega_ring": (megakernel, "ring_launches"),
     "mega_ring_bf16": (megakernel, "ring_bf16_launches"),
@@ -580,7 +595,7 @@ KERNELS = {
     "shmega_bf16": {
         "name": "sharded_mega_multistep_bf16",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/sharded_mega.cu",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega_bf16.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, bfloat16 "
                     "storage; grayscott_tpu/parallel/halo.py:487)",
     },
@@ -1313,6 +1328,17 @@ def expected_launches(engine: str, images: int, steps: int,
     return images * ((n_full > 0) + (rem > 0))
 
 
+def fold_tma_counts(want: dict, shape) -> dict:
+    """``want`` with the float32 fold entries' TMA counts: at a shape that
+    ``geometry.tma_ok`` takes, every launch of windowed_fold or mega_fold
+    (on fresh, 16-byte aligned tensors) is also counted in its _tma tag."""
+    out = dict(want)
+    for tag in ("windowed_fold", "mega_fold"):
+        if out.get(tag) and geometry.tma_ok(shape, pair=tag == "mega_fold"):
+            out[tag + "_tma"] = out[tag]
+    return out
+
+
 def simulate_path(checks: Checks, flags: list, replay) -> dict:
     """One default ``simulate`` run (with ``flags``) of MAIN_IMAGES images
     through ``simulate.run``, with the launch counts zeroed before it and
@@ -1349,6 +1375,7 @@ def simulate_path(checks: Checks, flags: list, replay) -> dict:
             species.shape, sim.mesh.shape,
             sharded_mega.tile_for(species.shape, sim.mesh)):
         want["shmega_read_site"] = want[counter]
+    want = fold_tma_counts(want, species.shape)
     label = " ".join(flags) or "(auto)"
     print(f"path simulate {label}: engine {counter}, {MAIN_IMAGES} images x "
           f"{MAIN_STEPS} steps at {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} "
@@ -1559,6 +1586,31 @@ def cuda_ms(fn, reps: int) -> float:
     """Mean ms of ``fn()`` on the card over ``reps`` calls after one
     warm-up, from CUDA events around the whole run."""
     return gpu.time_call(fn, DEVICE, reps, best_of=1) * 1e3
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` calls that the host
+    enqueues behind a sleeping kernel (``torch.cuda._sleep``, twice the
+    host's time for the calls), so that a launch shorter than the host's
+    enqueue time is timed by the card, not by the host; after one warm-up,
+    from CUDA events around the calls (the host clock on the CPU)."""
+    if DEVICE != "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * reps * host * 2e9) + 1_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bench_path(checks: Checks, card: str) -> dict:
@@ -2118,10 +2170,11 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "22packed_resident_kernel", "18packed_mega_kernel",
                       "11ring_kernel", "13pinned_kernel",
                       "20packed_pinned_kernel", "13folded_kernel",
-                      "19fold_refresh_kernel", "18ring_pinned_kernel")
+                      "19fold_refresh_kernel", "18ring_pinned_kernel",
+                      "20windowed_fold_kernel", "16mega_fold_kernel")
 #: of those, the ones whose instantiations must not spill (K2, K7, K4, K6,
 #: K2's ring, the pinned entries of K1 and K4, K1's folded entry and its
-#: refresh, K2's pinned ring)
+#: refresh, K2's pinned ring, the fold entries' second form)
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "13packed_kernel", "18packed_mega_kernel",
                     "11ring_kernel", "13pinned_kernel",
@@ -2129,7 +2182,8 @@ NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "25packed_mega_pinned_kernel",
                     "26sharded_mega_pinned_kernel",
                     "19shard_pinned_kernel", "13folded_kernel",
-                    "19fold_refresh_kernel", "18ring_pinned_kernel")
+                    "19fold_refresh_kernel", "18ring_pinned_kernel",
+                    "20windowed_fold_kernel", "16mega_fold_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -4019,6 +4073,81 @@ def compare_fold_kernels(checks: Checks, rng) -> int:
                                 u, v, MAIN_STEPS // 8, 8, fc),
                             f"{what}, {MAIN_STEPS} steps")
                     n += 3
+                    if dtype == torch.float32 and label == "oono-puri":
+                        n += compare_fold_loads(checks, u, v, fc, what)
+                        n += compare_fold_parts(checks, u, v, params, what)
+    return n
+
+
+def compare_fold_loads(checks: Checks, u, v, fc, what: str) -> int:
+    """Phase 16a: the load each float32 fold entry names for this state
+    (TMA where ``geometry.tma_ok`` takes the shape), and the TMA counters
+    of one launch of each. Returns the checks made."""
+    want = "tma" if geometry.tma_ok(tuple(u.shape)) else "cp.async"
+    out = [torch.empty_like(u), torch.empty_like(v)]
+    pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+    loads = {"windowed": windowed.fold_load(u, v, *out),
+             "mega": windowed.fold_load(pu, pv)}
+    reset_launches()
+    windowed.multistep(u, v, *out, windowed.K, fc, "naive", fold=True)
+    megakernel.megastep(pu, pv, 1, 8, fc, "naive", fold=True)
+    counts = read_launches()
+    for engine, load in loads.items():
+        tma = counts[fold_tag(engine, torch.float32) + "_tma"]
+        print(f"fold load {engine} {what}: {load} (expected {want}), "
+              f"TMA launches {tma} of "
+              f"{counts[fold_tag(engine, torch.float32)]}", flush=True)
+        checks.expect(load == want and tma == (want == "tma"),
+                      f"fold load {engine} {what}: {load}, {tma} TMA "
+                      f"launches; expected {want}")
+    return 2
+
+
+def fold_part_plain(u, v, part: int, n_steps: int, params: Parameters):
+    """The plain version of a fold ablation part's result after
+    ``n_steps`` steps: the input for the parts of no step, the exact
+    naive run for part 4, else the plain fold."""
+    if part in windowed.FOLD_ABLATION_NO_STEP:
+        return u, v
+    if part == windowed.FOLD_ABLATION_EXACT:
+        return stencil.run(u, v, n_steps, kernel_constants(params), "naive")
+    return stencil.run_naive_fold(u, v, n_steps, fold_constants(params))
+
+
+def fold_part_calls(u, v, part: int, params: Parameters):
+    """One call of each engine's fold ablation ``part`` on the state
+    (K1 one launch of K steps into fresh buffers, K2 one launch of 4 time
+    blocks of 8 on fresh pairs), and where each leaves its result."""
+    fc, kc = fold_constants(params), kernel_constants(params)
+    k1 = [u, v, torch.empty_like(u), torch.empty_like(v)]
+    pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+    return {
+        "windowed": (lambda: windowed.fold_ablation(
+            *k1, windowed.K, fc, part, exact=kc), k1[2:], windowed.K),
+        "mega": (lambda: megakernel.fold_ablation(
+            pu, pv, MAIN_STEPS // 8, 8, fc, part, exact=kc),
+            (pu[0], pv[0]), MAIN_STEPS),
+    }
+
+
+def compare_fold_parts(checks: Checks, u, v, params: Parameters,
+                       what: str) -> int:
+    """Phase 16a: every part of the fold entries' split (the first form,
+    part 0, among them; those built for TMA only where the state loads
+    through TMA) bit for bit against its plain version, one call each.
+    Returns the comparisons made."""
+    n = 0
+    tma = windowed.fold_load(u, v) == "tma"
+    for part, part_what in windowed.FOLD_ABLATIONS.items():
+        if part in windowed.FOLD_ABLATION_TMA_ONLY and not tma:
+            continue
+        for engine, (call, out, n_steps) in fold_part_calls(
+                u, v, part, params).items():
+            call()
+            checks.compare_bits(fold_tag(engine, torch.float32), out,
+                                fold_part_plain(u, v, part, n_steps, params),
+                                f"{what}, part {part} ({part_what})")
+            n += 1
     return n
 
 
@@ -4139,8 +4268,67 @@ def time_fold_kernels(rng, card: str) -> dict:
     return out
 
 
+#: phase 16e's reps a sample by shape, and its rounds (the parts in order,
+#: then reversed, this many times)
+SPLIT_REPS = {MAIN_SHAPE: 40, BENCH_SHAPE: 8}
+SPLIT_ROUNDS = 2
+
+
+def time_fold_split(rng, card: str, parts=None) -> dict:
+    """Phase 16e: each part of the fold entries' split (``parts``, default
+    every part of ``FOLD_ABLATIONS``) in turns with the entry itself
+    ("entry"; device time, ``queued_ms``), K1 one launch of 8 steps and K2
+    one launch of 4 time blocks of 8, at 1080x1920 and 4096^2 on a random
+    state, each beside part 0 and the bound at the fold's operation count.
+    Returns {(engine, shape): {part or "entry": ms}}."""
+    params = Parameters()
+    fc = fold_constants(params)
+    ops = fold_ops_per_cell_step(params)
+    parts = list(windowed.FOLD_ABLATIONS) if parts is None else list(parts)
+    out = {}
+    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        u, v = (torch.from_numpy(x).to(DEVICE)
+                for x in bf16_state(rng, shape, False))
+        k1 = [u, v, torch.empty_like(u), torch.empty_like(v)]
+        pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+        for engine in ("windowed", "mega"):
+            calls = {p: fold_part_calls(u, v, p, params)[engine][0]
+                     for p in parts}
+            calls["entry"] = (
+                (lambda: windowed.multistep(*k1, windowed.K, fc, "naive",
+                                            fold=True))
+                if engine == "windowed" else
+                (lambda: megakernel.megastep(pu, pv, MAIN_STEPS // 8, 8, fc,
+                                             "naive", fold=True)))
+            order = list(calls)
+            samples = {key: [] for key in order}
+            for _ in range(SPLIT_ROUNDS):
+                for key in order + order[::-1]:
+                    samples[key].append(queued_ms(calls[key],
+                                                  SPLIT_REPS[shape]))
+            steps = windowed.K if engine == "windowed" else MAIN_STEPS
+            bound, by = roofline_ms(shape, steps, ops, 16)
+            ms = {key: statistics.mean(x) for key, x in samples.items()}
+            out[engine, shape] = ms
+            first = ms.get(0)
+            load = windowed.fold_load(*((u, v) if engine == "windowed"
+                                        else (pu, pv)))
+            for key in order:
+                what = ("the entry (the second form, " + load + " load)"
+                        if key == "entry" else
+                        f"part {key} ({windowed.FOLD_ABLATIONS[key]})")
+                vs = (f", {ms[key] / first!r}x part 0" if first else "")
+                print(f"split {fold_tag(engine, torch.float32)} "
+                      f"{shape[0]}x{shape[1]}, {steps} steps a launch, "
+                      f"{what}: {ms[key]!r} ms (turns {samples[key]!r})"
+                      f"{vs}; {100 * bound / ms[key]!r} % of the bound "
+                      f"{bound!r} ms ({by}) [{card}]", flush=True)
+    return out
+
+
 def fold_phase(checks: Checks, rng, card: str) -> tuple[dict, dict]:
-    """Phase 16 (a)-(d); returns (16c's runs, 16d's times)."""
+    """Phase 16 (a)-(e); returns (16c's runs, 16d's times with 16e's
+    split under ("split", engine, shape))."""
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = megakernel.max_blocks(dev)
@@ -4153,6 +4341,8 @@ def fold_phase(checks: Checks, rng, card: str) -> tuple[dict, dict]:
     fold_drift(checks)
     runs = fold_paths(checks)
     times = time_fold_kernels(rng, card)
+    for key, ms in time_fold_split(rng, card).items():
+        times["split", *key] = ms
     return runs, times
 
 
@@ -4474,8 +4664,10 @@ def sim_path_ms(sim) -> float:
 def ring_path(checks: Checks, label: str, sim, want: dict):
     """One ``simulate.run`` of MAIN_IMAGES images of MAIN_STEPS steps at
     1080x1920 on ``sim``, with the launch counts zeroed before it and read
-    after (each count must be ``want``'s, 0 where ``want`` has no entry):
-    {frames, launches, ms an image}."""
+    after (each count must be ``want``'s, with the fold entries' TMA
+    counts, 0 where ``want`` has no entry): {frames, launches, ms an
+    image}."""
+    want = fold_tma_counts(want, MAIN_SHAPE)
     species = sim.make_species(MAIN_SHAPE)
     frames: list[np.ndarray] = []
     pinned = [torch.empty(MAIN_SHAPE, pin_memory=True)
@@ -6553,7 +6745,8 @@ def run_phases(args) -> int:
             boundary="naive", dtype="bfloat16", f32_ms=f32_ms,
             **({"mesh": [2, 2]} if tag.startswith("sh") else {})))
     # the fold entries: their launches on phase 16c's paths, one launch's
-    # time at 1080x1920 beside the exact naive and zero entries' in turns
+    # time at 1080x1920 beside the exact naive and zero entries' in turns,
+    # and the first form's (phase 16e's part 0)
     for engine, path in (("windowed", "fold"), ("mega", "fold mega")):
         for dtype, suffix in ((torch.float32, ""),
                               (torch.bfloat16, " bf16")):
@@ -6567,7 +6760,10 @@ def run_phases(args) -> int:
                 plain_ms=fold_times["plain", tag], bound_ms=bound,
                 bound_by=by, library_ms=None, shape=list(MAIN_SHAPE),
                 steps=steps, boundary="naive", dtype=str(dtype)[6:],
-                naive_fold=True, exact_ms=naive_ms, zero_ms=zero_ms))
+                naive_fold=True, exact_ms=naive_ms, zero_ms=zero_ms,
+                **({"first_form_ms": fold_times["split", engine,
+                                                MAIN_SHAPE][0],
+                    "load": "tma"} if dtype == torch.float32 else {})))
     # the ring's entries: their launches on phase 17d's paths at
     # RING_PATH_DEPTH, one launch's time at 1080x1920 at that depth beside
     # depth 2's in the same turns (phase 17b)

@@ -10,15 +10,16 @@ the same code. Run it as a file, not with ``-m``, and alternate the trees
 (parent, change, change, parent), one process each.
 
 For each pin (``auto``, ``--pallas-engine windowed``,
-``--pallas-engine mega`` and the sharded windowed engine on a 2x2 mesh at
-K = 8) it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32 steps an
+``--pallas-engine mega``, the sharded windowed engine on a 2x2 mesh at
+K = 8, and ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2) it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32 steps an
 image) for ``--images`` images, once to warm up, then ``--reps`` times in
 turns (the pins in order, then reversed), each on the host clock and ending
 in a device synchronise, as ``chip_smoke.py``'s phase 4 times it: frames
 kept in memory, PyTorch's pinned-memory cache filled first. Then it times
 the kernels alone with CUDA events, each 32 steps on a random state at
 1080x1920: K1 (four 8-step launches), K3 (one launch), K2 and K6 (one
-launch of 4 time blocks; also at 4096x4096), K7 on 2x2 and 4x1 (one
+launch of 4 time blocks; also at 4096x4096), K1's and K2's fold entries
+(the same calls; also at 4096x4096), K7 on 2x2 and 4x1 (one
 launch after the halo exchange) and K1's shard entry on the same meshes
 (four 8-step launches after the halo exchange), through calls that every commit since
 the sharded megakernel takes, so that the double buffer and the entry
@@ -41,7 +42,9 @@ PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"],
         "mega": ["--pallas-engine", "mega"],
         "sharded windowed": ["--backend", "sharded", "--sharded-devices", "4",
                              "--sharded-mesh-cols", "2",
-                             "--sharded-engine", "windowed"]}
+                             "--sharded-engine", "windowed"],
+        "fold": ["--pallas-naive-fold", "on"],
+        "fold mega": ["--pallas-naive-fold", "on", "--pallas-engine", "mega"]}
 
 
 def run_ms(flags: list, images: int, steps: int = 32,
@@ -86,7 +89,8 @@ def main(argv=None) -> int:
     from grayscott_tpu_torch.ops import (megakernel, packed, resident,
                                          sharded_mega, windowed)
     from grayscott_tpu_torch.parallel import halo
-    from grayscott_tpu_torch.params import (Parameters, kernel_constants,
+    from grayscott_tpu_torch.params import (Parameters, fold_constants,
+                                            kernel_constants,
                                             packed_constants)
     from grayscott_tpu_torch.utils import device as gpu
 
@@ -125,6 +129,7 @@ def main(argv=None) -> int:
 
     calls = [("K1 x4", f1, 40), ("K3", f3, 40)]
     pc = packed_constants(Parameters())
+    fc = fold_constants(Parameters())
     for shape, reps in (((1080, 1920), 40), ((4096, 4096), 8)):
         a, b = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
                 .cuda() for _ in range(2))
@@ -135,6 +140,18 @@ def main(argv=None) -> int:
             pu, pv, 4, 8, consts, "naive"), reps))
         calls.append((f"K6{label}", lambda xp=xp: megakernel.packed_megastep(
             xp, 4, 8, pc), reps))
+        fold = [a, b, torch.empty_like(a), torch.empty_like(b)]
+
+        def f1f(fold=fold):
+            for _ in range(4):
+                windowed.multistep(*fold, 8, fc, "naive", fold=True)
+                fold[:] = fold[2:] + fold[:2]
+
+        calls.append((f"K1 fold x4{label}", f1f, reps))
+        fu, fv = megakernel.pair_state(a), megakernel.pair_state(b)
+        calls.append((f"K2 fold{label}", lambda fu=fu, fv=fv:
+                      megakernel.megastep(fu, fv, 4, 8, fc, "naive",
+                                          fold=True), reps))
     u_np, v_np = (rng.uniform(0, 1, (1080, 1920)).astype(np.float32)
                   for _ in range(2))
     for n_rows, n_cols in ((2, 2), (4, 1)):

@@ -60,10 +60,19 @@
 // stencil.run_bf16 round. The odd-count copy moves the bfloat16 cells as
 // they are.
 //
+// The fold entries (gs_mega_multistep_fold and its bf16 twin) run the second
+// form of gs_fold_sm90.cuh on this walk (fold_time_block: R x C register
+// blocks on interior tiles; float32 windows through TMA where the caller
+// asks for it, the next window's request issued by one thread while the
+// finished tile is written out). gs_mega_fold_ablation runs the first form
+// (time_block's strips, the cp.async load) and each part of the split
+// between the two forms.
+//
 // This is K2 at mega_depth 2 (the double buffer, and the default). Deeper
 // rings run mega_ring.cu's kernels, a translation unit of their own that
 // shares mega.cuh's call plumbing with this one.
 
+#include "gs_fold_sm90.cuh"
 #include "mega.cuh"
 
 namespace {
@@ -162,19 +171,133 @@ struct Launch {
   }
 };
 
-// The fold entries' instantiation (TAPS: the fold's sum,
-// sm90::dispatch_fold).
-template <int TAPS, typename T>
-using Fold = Mega<sm90::Main, TAPS, sm90::MODE_FOLD, true, true, T,
-                  sm90::FoldConstants>;
+// The fold entries' second form (gs_fold_sm90.cuh) on the register blocks
+// of S: mega_run's time blocks walked by fold_time_block; TMA: the windows
+// through the 3-D tensor maps (cols x rows x 2 planes) of the pairs.
+template <typename S, int TAPS, bool TMA, typename T>
+__global__ void __launch_bounds__(S::NT, 2)
+mega_fold_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
+                 int steps, sm90::FoldConstants k, int aligned,
+                 unsigned long long* barrier,
+                 const __grid_constant__ CUtensorMap map_u,
+                 const __grid_constant__ CUtensorMap map_v) {
+  extern __shared__ __align__(128) float4 fold_window[];
+  const S g{};
+  float* smem = reinterpret_cast<float*>(fold_window);
+  float* base = sm90::fold_base(smem);
+  unsigned long long* bar = sm90::fold_barrier<S>(smem);
+  if (TMA) {
+    if (threadIdx.x == 0) sm90::mbar_init(bar);
+    __syncthreads();
+  }
+  unsigned phase = 0;
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  const int tiles_x = (cols + S::TC - 1) / S::TC;
+  const int n_tiles = tiles_x * ((rows + S::TR - 1) / S::TR);
+  for (int t = 0; t < n_blocks; ++t) {
+    sm90::fold_time_block<TAPS, TMA>(g, u_pair, v_pair, plane, t & 1,
+                                     blockIdx.x, gridDim.x, n_tiles, tiles_x,
+                                     rows, cols, steps, k, aligned, &map_u,
+                                     &map_v, base, bar, &phase);
+    if (t + 1 < n_blocks || (n_blocks & 1)) gs::grid_barrier(barrier, t + 1);
+  }
+  if (n_blocks & 1) copy_slot(u_pair, v_pair, plane, S::NT, threadIdx.x);
+}
 
+// One instantiation of mega_fold_kernel: its co-resident blocks (cached per
+// device) and its launch of `steps` steps a time block (0: the window
+// loads and stores alone, an ablation), as Mega's.
+template <typename S, int TAPS, bool TMA, typename T>
+struct MegaFold {
+  static constexpr size_t BYTES = sm90::fold_bytes<S>();
+
+  static int* cache() {
+    static int blocks[gs::MAX_DEVICES];  // 0 = not known yet
+    return blocks;
+  }
+
+  static cudaError_t max_blocks(int device, int* out) {
+    return gs::coresident_blocks(mega_fold_kernel<S, TAPS, TMA, T>, device,
+                                 cache(), out, S::NT, BYTES);
+  }
+
+  static cudaError_t launch(const Call<T, sm90::FoldConstants>& c,
+                            int steps) {
+    Call<T, sm90::FoldConstants> a = c;
+    a.steps = steps;
+    const size_t plane = static_cast<size_t>(c.rows) * c.cols;
+    int aligned = sm90::rows_aligned<T>(c.cols, c.u_pair, c.v_pair,
+                                        c.u_pair + plane, c.v_pair + plane);
+    CUtensorMap map_u = {}, map_v = {};
+    if constexpr (TMA) {
+      cudaError_t err =
+          sm90::window_map<S>(&map_u, c.u_pair, c.rows, c.cols, 2);
+      if (err == cudaSuccess) {
+        err = sm90::window_map<S>(&map_v, c.v_pair, c.rows, c.cols, 2);
+      }
+      if (err != cudaSuccess) return err;
+    }
+    void* args[] = {&a.u_pair, &a.v_pair, &a.rows,    &a.cols,
+                    &a.n_blocks, &a.steps, &a.k,      &aligned,
+                    &a.barrier, &map_u,   &map_v};
+    return gs::launch_persistent(mega_fold_kernel<S, TAPS, TMA, T>, args,
+                                 c.rows, c.cols, c.grid_blocks, c.device,
+                                 cache(), c.stream, dim3(S::NT), BYTES, S::TR);
+  }
+};
+
+// The fold entries' blocks: 4x4 for the separable pass, 4x2 for a direct
+// plan (whose three rows of C + 2 cells a species spilled at 4x4), the
+// neighbour columns by scalar loads (by shuffles, the separable pass
+// spilled at 64 registers and ran no faster, PERF.md §6).
+template <int TAPS>
+using FoldBlocks =
+    std::conditional_t<TAPS == sm90::TAPS_SEPARABLE,
+                       sm90::FoldShape<512, 4, 4, false>,
+                       sm90::FoldShape<512, 4, 2, false>>;
+
+// The fold entries' launch (TAPS: the fold's sum, sm90::dispatch_fold):
+// the second form on FoldBlocks, through TMA when `tma`.
 template <int TAPS>
 struct LaunchFold {
   template <typename T>
-  static cudaError_t run(const Call<T, sm90::FoldConstants>& c) {
-    return Fold<TAPS, T>::launch(c);
+  static cudaError_t run(const Call<T, sm90::FoldConstants>& c, int tma) {
+    using Blocks = FoldBlocks<TAPS>;
+    if constexpr (std::is_same<T, float>::value) {
+      if (tma) return MegaFold<Blocks, TAPS, true, T>::launch(c, c.steps);
+    }
+    return MegaFold<Blocks, TAPS, false, T>::launch(c, c.steps);
   }
 };
+
+// The separable plan's instantiation on the blocks of S through TMA (the
+// ablation parts 7-13).
+template <typename S>
+using TmaFold = MegaFold<S, sm90::TAPS_SEPARABLE, true, float>;
+
+// The first form of the fold entries (time_block's strips on Main, the
+// cp.async load; the separable pass) at `bytes` of dynamic shared memory,
+// its co-resident grid cached per size: the ablation parts 0-3.
+// SPECIALIZE = false takes every tile as an edge tile.
+template <bool SPECIALIZE>
+cudaError_t launch_first_fold(const Call<float, sm90::FoldConstants>& c,
+                              int steps, size_t bytes) {
+  static int blocks[2][gs::MAX_DEVICES];  // Main::BYTES, SMEM_OPTIN
+  auto kernel = mega_kernel<sm90::Main, sm90::TAPS_SEPARABLE,
+                            sm90::MODE_FOLD, SPECIALIZE, true, float,
+                            sm90::FoldConstants>;
+  Call<float, sm90::FoldConstants> a = c;
+  a.steps = steps;
+  const size_t plane = static_cast<size_t>(c.rows) * c.cols;
+  int aligned = sm90::rows_aligned<float>(c.cols, c.u_pair, c.v_pair,
+                                          c.u_pair + plane, c.v_pair + plane);
+  void* args[] = {&a.u_pair, &a.v_pair, &a.rows,    &a.cols,   &a.n_blocks,
+                  &a.steps,  &a.k,      &aligned, &a.barrier};
+  return gs::launch_persistent(kernel, args, c.rows, c.cols, c.grid_blocks,
+                               c.device, blocks[bytes != sm90::Main::BYTES],
+                               c.stream, dim3(sm90::Main::NT), bytes,
+                               sm90::Main::TR, sm90::SMEM_OPTIN);
+}
 
 // The fewer of *least and the co-resident blocks of TAPS's instantiations
 // on T.
@@ -193,12 +316,20 @@ cudaError_t fewest_blocks(int device, int* least) {
 }
 
 // The fewer of *least and the co-resident blocks of the fold's TAPS
-// instantiation on T.
+// instantiations on T (both loads on float32).
 template <int TAPS, typename T>
 cudaError_t fewest_fold_blocks(int device, int* least) {
-  int n = 0;
-  const cudaError_t err = Fold<TAPS, T>::max_blocks(device, &n);
-  if (n < *least) *least = n;
+  int n = 0, tma = 1 << 30;
+  cudaError_t err =
+      MegaFold<FoldBlocks<TAPS>, TAPS, false, T>::max_blocks(device, &n);
+  if constexpr (std::is_same<T, float>::value) {
+    if (err == cudaSuccess) {
+      err = MegaFold<FoldBlocks<TAPS>, TAPS, true, T>::max_blocks(device,
+                                                                   &tma);
+    }
+  }
+  const int fewer = n < tma ? n : tma;
+  if (fewer < *least) *least = fewer;
   return err;
 }
 
@@ -238,19 +369,41 @@ int multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
   return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
 }
 
+// The fold entries' checks (mega.cuh: make_fold_call; `tma` 0 or 1, and 1
+// only on float32 pairs whose rows TMA can describe); the call, or an
+// error in `err`.
+template <typename T>
+Call<T, sm90::FoldConstants> make_tma_fold_call(
+    T* u_pair, T* v_pair, int rows, int cols, int n_blocks, int steps,
+    int device, const float* fold, int dt_is_one, int grid_blocks,
+    void* barrier, void* stream, int tma, cudaError_t* err) {
+  const Call<T, sm90::FoldConstants> c =
+      make_fold_call(u_pair, v_pair, rows, cols, n_blocks, steps, device,
+                     fold, dt_is_one, grid_blocks, barrier, stream, err);
+  const size_t plane = static_cast<size_t>(rows) * cols;
+  if (*err == cudaSuccess &&
+      (tma < 0 || tma > 1 ||
+       (tma && !(std::is_same<T, float>::value &&
+                 sm90::fold_tma_ok(cols, u_pair, v_pair, u_pair + plane,
+                                   v_pair + plane))))) {
+    *err = cudaErrorInvalidValue;
+  }
+  return c;
+}
+
 // gs_mega_multistep_fold and its bf16 twin.
 template <typename T>
 int fold_multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                    int steps, int device, const float* fold, int separable,
                    int dt_is_one, int grid_blocks, void* barrier,
-                   void* stream) {
+                   void* stream, int tma) {
   cudaError_t err;
-  const Call<T, sm90::FoldConstants> c =
-      make_fold_call(u_pair, v_pair, rows, cols, n_blocks, steps, device,
-                     fold, dt_is_one, grid_blocks, barrier, stream, &err);
+  const Call<T, sm90::FoldConstants> c = make_tma_fold_call(
+      u_pair, v_pair, rows, cols, n_blocks, steps, device, fold, dt_is_one,
+      grid_blocks, barrier, stream, tma, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      sm90::dispatch_fold<LaunchFold>(c.k, separable, c));
+      sm90::dispatch_fold<LaunchFold>(c.k, separable, c, tma));
 }
 
 }  // namespace
@@ -314,27 +467,88 @@ int gs_mega_multistep_bf16(void* u_pair, void* v_pair, int rows, int cols,
 // blocks of `steps` folded steps of the naive boundary, as
 // gs_mega_multistep enqueues. `fold` holds gs_fold_floats() floats
 // (sm90::FoldConstants' order); `separable`: the stencil's separable plan
-// runs (else the direct sum); `dt_is_one`: the quadratic term is uv^2.
+// runs (else the direct sum); `dt_is_one`: the quadratic term is uv^2;
+// `tma`: the windows load through TMA (1; only where cols is a multiple of
+// 4 and both pairs 16-byte aligned, else cudaErrorInvalidValue) or with
+// cp.async (0).
 int gs_mega_multistep_fold(float* u_pair, float* v_pair, int rows, int cols,
                            int n_blocks, int steps, int device,
                            const float* fold, int separable, int dt_is_one,
-                           int grid_blocks, void* barrier, void* stream) {
+                           int grid_blocks, void* barrier, void* stream,
+                           int tma) {
   return fold_multistep(u_pair, v_pair, rows, cols, n_blocks, steps, device,
                         fold, separable, dt_is_one, grid_blocks, barrier,
-                        stream);
+                        stream, tma);
 }
 
 // gs_mega_multistep_fold on bfloat16 pairs (widened on load, rounded on
-// store, once a time block).
+// store, once a time block; `tma` must be 0).
 int gs_mega_multistep_fold_bf16(void* u_pair, void* v_pair, int rows,
                                 int cols, int n_blocks, int steps,
                                 int device, const float* fold, int separable,
                                 int dt_is_one, int grid_blocks,
-                                void* barrier, void* stream) {
+                                void* barrier, void* stream, int tma) {
   return fold_multistep(static_cast<sm90::bf16*>(u_pair),
                         static_cast<sm90::bf16*>(v_pair), rows, cols,
                         n_blocks, steps, device, fold, separable, dt_is_one,
-                        grid_blocks, barrier, stream);
+                        grid_blocks, barrier, stream, tma);
+}
+
+// gs_mega_multistep_fold with the separable plan in another form, for
+// timing what each part costs (chip_smoke.py phase 16e), numbered as
+// gs_windowed_fold_ablation's parts: the first form (0), its window loads
+// and stores alone (1, no step), with every tile an edge tile (2), at one
+// block an SM (3, a grid of one block an SM); the second form with the
+// cp.async load (5), its loads and stores alone (6, the load `tma` names);
+// through TMA only (`tma` must be 1), on 4x2 blocks (7), on 8x4 blocks of
+// 256 threads (8), with the neighbour columns from two scalar loads (9:
+// the entry itself, here), on 2x4 blocks (10), on 416 threads (11), at a
+// window pitch of 80 floats (12), every one with scalar neighbour loads.
+// Part 4, the first form's walk on the exact tree, is gs_mega_multistep
+// itself. The result is the fold's (the input for parts 1 and 6).
+int gs_mega_fold_ablation(float* u_pair, float* v_pair, int rows, int cols,
+                          int n_blocks, int steps, int device,
+                          const float* fold, int separable, int dt_is_one,
+                          int grid_blocks, void* barrier, void* stream,
+                          int tma, int part) {
+  cudaError_t err;
+  const Call<float, sm90::FoldConstants> c = make_tma_fold_call(
+      u_pair, v_pair, rows, cols, n_blocks, steps, device, fold, dt_is_one,
+      grid_blocks, barrier, stream, tma, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!separable) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int SEP = sm90::TAPS_SEPARABLE;
+  using Main = MegaFold<FoldBlocks<SEP>, SEP, false, float>;
+  using MainTma = MegaFold<FoldBlocks<SEP>, SEP, true, float>;
+  // (parts 7-12 time other blocks at the entry's load on shapes that load
+  // through TMA, and are built for that load only)
+  if (part >= 7 && !tma) return static_cast<int>(cudaErrorInvalidValue);
+  switch (part) {
+    case 0: err = launch_first_fold<true>(c, steps, sm90::Main::BYTES); break;
+    case 1: err = launch_first_fold<true>(c, 0, sm90::Main::BYTES); break;
+    case 2: err = launch_first_fold<false>(c, steps, sm90::Main::BYTES); break;
+    case 3: err = launch_first_fold<true>(c, steps, sm90::SMEM_OPTIN); break;
+    case 5: err = Main::launch(c, steps); break;
+    case 6: err = tma ? MainTma::launch(c, 0) : Main::launch(c, 0); break;
+    case 7:
+      err = TmaFold<sm90::FoldShape<512, 4, 2, false>>::launch(c, steps);
+      break;
+    case 8:
+      err = TmaFold<sm90::FoldShape<256, 8, 4, false>>::launch(c, steps);
+      break;
+    case 9: err = MainTma::launch(c, steps); break;
+    case 10:
+      err = TmaFold<sm90::FoldShape<512, 2, 4, false>>::launch(c, steps);
+      break;
+    case 11:
+      err = TmaFold<sm90::FoldShape<416, 4, 4, false>>::launch(c, steps);
+      break;
+    case 12:
+      err = TmaFold<sm90::FoldShape<512, 4, 4, false, 80>>::launch(c, steps);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // gs_mega_multistep with one part of the design taken out, for timing what

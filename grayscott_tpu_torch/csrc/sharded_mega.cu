@@ -127,230 +127,18 @@
 // rounding to nearest even at the store), so the pushes, which follow the
 // group barrier, move cells that are already rounded: 16-byte copies of 8
 // bfloat16 cells, so every band's width is a multiple of 8 (c_loc and
-// chalo are: parallel/halo.py:QUANTUM, COL_HALO), and the pitch too.
+// chalo are: parallel/halo.py:QUANTUM, COL_HALO), and the pitch too. The
+// bf16 entries live in sharded_mega_bf16.cu, the kernel and its launch in
+// sharded_mega_compiled.cuh: two units, so that nvcc builds the float32
+// and bfloat16 instantiations side by side.
 
+#include "sharded_mega_compiled.cuh"
 
-#include "sharded_mega.cuh"
-
-namespace {
-
-// G: the tile geometry (gs_tile_sm90.cuh: Main, 64^2 tiles and 512
-// threads, two blocks an SM; Small, 32^2 and 256, four blocks an SM).
-// READ_SITE: the shards form a row mesh (the read-site wait: BottomGate),
-// else each time block's entry is gated on every direction. Two kernels,
-// not a run-time flag: a flag cost the naive instantiations a spill.
-template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
-__global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
-sharded_mega_kernel(const ShardDesc<T>* shards, int n_shards, int rows,
-                    int cols, int r_loc, int c_loc, int chalo, int n_blocks,
-                    int steps, gs::Constants k) {
-  extern __shared__ float4 window[];  // buffers [2] x species [2]
-  sharded_mega_run<TAPS, NAIVE, T, READ_SITE>(
-      sm90::FixedShape<G>{}, shards, n_shards, rows, cols, r_loc, c_loc,
-      chalo, n_blocks, steps, k, reinterpret_cast<float*>(window));
-}
-
-// One instantiation: its co-resident blocks (cached per device; the first
-// query also allows it its dynamic shared memory) and its launch.
-template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
-struct Sharded {
-  static int* cache() {
-    static int blocks[gs::MAX_DEVICES];  // 0 = not known yet
-    return blocks;
-  }
-
-  static cudaError_t max_blocks(int device, int* out) {
-    return gs::coresident_blocks(
-        sharded_mega_kernel<G, TAPS, NAIVE, T, READ_SITE>, device, cache(),
-        out, G::NT, G::BYTES);
-  }
-};
-
-struct Call {
-  const void* shards;
-  int n_shards, rows, cols, r_loc, c_loc, chalo, n_blocks, steps, naive,
-      device;
-  gs::Constants k;
-  int grid_blocks, tile, read_site;
-  cudaStream_t stream;
-};
-
-// `grid_blocks` <= 0 takes the co-resident maximum (capped at the tile
-// count); a grid smaller than n_shards is refused with
-// cudaErrorInvalidValue, a larger grid than the card can hold with
-// cudaErrorCooperativeLaunchTooLarge.
-template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
-cudaError_t launch_one(const Call& c) {
-  int most = 0;
-  cudaError_t err =
-      Sharded<G, TAPS, NAIVE, T, READ_SITE>::max_blocks(c.device, &most);
-  if (err != cudaSuccess) return err;
-  int grid = c.grid_blocks;
-  if (grid <= 0) {
-    grid = most;
-    const long long tiles = static_cast<long long>(c.n_shards) *
-                            ((c.c_loc + G::TC - 1) / G::TC) *
-                            ((c.r_loc + G::TR - 1) / G::TR);
-    if (tiles < grid) grid = static_cast<int>(tiles);
-  }
-  if (grid < c.n_shards) return cudaErrorInvalidValue;
-  Call a = c;
-  const ShardDesc<T>* desc = static_cast<const ShardDesc<T>*>(c.shards);
-  void* args[] = {&desc,      &a.n_shards, &a.rows,  &a.cols,  &a.r_loc,
-                  &a.c_loc,   &a.chalo,    &a.n_blocks, &a.steps, &a.k};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(
-          sharded_mega_kernel<G, TAPS, NAIVE, T, READ_SITE>),
-      dim3(grid), dim3(G::NT), args, G::BYTES, c.stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the next launch must not report it
-    return err;
-  }
-  return cudaGetLastError();
-}
-
-// The instantiation of the call's boundary and wait on G.
-template <typename G, int TAPS, typename T>
-cudaError_t launch_on(const Call& c) {
-  if (c.read_site) {
-    return c.naive ? launch_one<G, TAPS, true, T, true>(c)
-                   : launch_one<G, TAPS, false, T, true>(c);
-  }
-  return c.naive ? launch_one<G, TAPS, true, T, false>(c)
-                 : launch_one<G, TAPS, false, T, false>(c);
-}
-
-// Launch<TAPS>::run<T>: the instantiation of the call's tile, boundary and
-// wait on T.
-template <int TAPS>
-struct Launch {
-  template <typename T>
-  static cudaError_t run(const Call& c, T*) {
-    return c.tile == sm90::Small::TR ? launch_on<sm90::Small, TAPS, T>(c)
-                                     : launch_on<sm90::Main, TAPS, T>(c);
-  }
-};
-
-// The fewer of *least and the co-resident blocks of S.
-template <typename S>
-cudaError_t take_fewer(int device, int* least) {
-  int n = 0;
-  const cudaError_t err = S::max_blocks(device, &n);
-  if (err == cudaSuccess && n < *least) *least = n;
-  return err;
-}
-
-// The fewer of *least and the co-resident blocks of the G instantiations of
-// TAPS on T, both boundaries and both waits.
-template <typename G, int TAPS, typename T>
-cudaError_t fewest_blocks(int device, int* least) {
-  cudaError_t err = take_fewer<Sharded<G, TAPS, true, T, false>>(device, least);
-  if (err == cudaSuccess) {
-    err = take_fewer<Sharded<G, TAPS, false, T, false>>(device, least);
-  }
-  if (err == cudaSuccess) {
-    err = take_fewer<Sharded<G, TAPS, true, T, true>>(device, least);
-  }
-  if (err == cudaSuccess) {
-    err = take_fewer<Sharded<G, TAPS, false, T, true>>(device, least);
-  }
-  return err;
-}
-
-template <typename G, typename T>
-cudaError_t fewest_blocks_all(int device, int* least) {
-  cudaError_t err = fewest_blocks<G, sm90::TAPS_RING, T>(device, least);
-  if (err == cudaSuccess) {
-    err = fewest_blocks<G, sm90::TAPS_ALL, T>(device, least);
-  }
-  if (err == cudaSuccess) {
-    err = fewest_blocks<G, sm90::TAPS_CROSS, T>(device, least);
-  }
-  if (err == cudaSuccess) {
-    err = fewest_blocks<G, sm90::TAPS_ANY, T>(device, least);
-  }
-  return err;
-}
-
-// Both storage types' instantiations of G.
-template <typename G>
-cudaError_t fewest_blocks_any(int device, int* least) {
-  cudaError_t err = fewest_blocks_all<G, float>(device, least);
-  if (err == cudaSuccess) err = fewest_blocks_all<G, sm90::bf16>(device, least);
-  return err;
-}
-
-// gs_sharded_mega_describe and its bf16 twin (see there).
-template <typename T>
-int describe(void* out, T* u_pairs, T* v_pairs, void* counters, int n_rows,
-             int n_cols, int r_loc, int c_loc, int chalo) {
-  auto aligned16 = [](const void* p) {
-    return reinterpret_cast<size_t>(p) % 16 == 0;
-  };
-  constexpr int E = sm90::vec_cells<T>();
-  if (n_rows < 1 || n_cols < 1 || r_loc < HALO || c_loc < 1 || chalo < 0 ||
-      c_loc % E || chalo % E || !aligned16(u_pairs) || !aligned16(v_pairs) ||
-      (n_cols > 1 && (chalo < 1 || chalo > HALO || c_loc < chalo))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t pitch = static_cast<size_t>(c_loc) + 2 * chalo;
-  const size_t plane = (static_cast<size_t>(r_loc) + 2 * HALO) * pitch;
-  auto* desc = static_cast<ShardDesc<T>*>(out);
-  auto* ctr = static_cast<unsigned long long*>(counters);
-  for (int i = 0; i < n_rows; ++i) {
-    for (int j = 0; j < n_cols; ++j) {
-      const size_t at = static_cast<size_t>(i) * n_cols + j;
-      ShardDesc<T> d = {};
-      d.pair[0] = u_pairs + at * 2 * plane;
-      d.pair[1] = v_pairs + at * 2 * plane;
-      d.counters = ctr + at * COUNTER_WORDS;
-      d.row0 = i * r_loc;
-      d.col0 = j * c_loc;
-      d.aligned = sm90::rows_aligned<T>(static_cast<int>(pitch), d.pair[0],
-                                        d.pair[1], d.pair[0] + plane,
-                                        d.pair[1] + plane);
-      for (int dir = 0; dir < N_DIRS; ++dir) {
-        const int ni = i + dir_row(dir), nj = j + dir_col(dir);
-        if (ni < 0 || ni >= n_rows || nj < 0 || nj >= n_cols) continue;
-        const size_t nat = static_cast<size_t>(ni) * n_cols + nj;
-        d.nbr_pair[dir][0] = u_pairs + nat * 2 * plane;
-        d.nbr_pair[dir][1] = v_pairs + nat * 2 * plane;
-        d.nbr_counters[dir] = ctr + nat * COUNTER_WORDS;
-      }
-      desc[at] = d;
-    }
-  }
-  return 0;
-}
-
-// gs_sharded_mega_multistep and its bf16 twin (see there).
-template <typename T>
-int multistep(const void* shards, int n_shards, int rows, int cols,
-              int r_loc, int c_loc, int chalo, int n_blocks, int steps,
-              int naive, int device, const float* w, float du, float dv,
-              float feed, float min_feed_kill, float dt, int grid_blocks,
-              int tile, int read_site, void* stream) {
-  if (n_shards < 1 || rows < 1 || cols < 1 || r_loc < HALO || c_loc < 1 ||
-      chalo < 0 || chalo > HALO || n_blocks < 1 || steps < 1 ||
-      steps > HALO || device < 0 || device >= gs::MAX_DEVICES ||
-      (tile != sm90::Main::TR && tile != sm90::Small::TR)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Call c = {shards, n_shards, rows, cols, r_loc, c_loc, chalo,
-                  n_blocks, steps, naive, device,
-                  {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
-                   du, dv, feed, min_feed_kill, dt},
-                  grid_blocks, tile, read_site,
-                  static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(
-      sm90::dispatch_taps<Launch>(c.k, c, static_cast<T*>(nullptr)));
-}
-
-}  // namespace
 
 extern "C" {
+
+// sharded_mega_bf16.cu's instantiations (the same query on bfloat16).
+int gs_sharded_mega_max_blocks_bf16(int device, int tile);
 
 int gs_sharded_mega_max_steps() { return HALO; }
 
@@ -362,19 +150,11 @@ int gs_sharded_mega_desc_bytes() { return sizeof(ShardDesc<float>); }
 // `device` with `tile` x `tile` tiles (64 or 32), whatever its weights,
 // boundary and storage type (negative: minus the CUDA error).
 int gs_sharded_mega_max_blocks(int device, int tile) {
-  if (device < 0 || device >= gs::MAX_DEVICES) {
-    return -static_cast<int>(cudaErrorInvalidDevice);
-  }
-  if (tile != sm90::Main::TR && tile != sm90::Small::TR) {
-    return -static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaSetDevice(device);
   int n = 1 << 30;
-  if (err == cudaSuccess) {
-    err = tile == sm90::Main::TR ? fewest_blocks_any<sm90::Main>(device, &n)
-                                 : fewest_blocks_any<sm90::Small>(device, &n);
-  }
-  return err == cudaSuccess ? n : -static_cast<int>(err);
+  const cudaError_t err = fewest_blocks_on<float>(device, tile, &n);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int bf16 = gs_sharded_mega_max_blocks_bf16(device, tile);
+  return bf16 < n ? bf16 : n;
 }
 
 // Writes to `out` (host memory) the descriptors of the n_rows x n_cols
@@ -389,16 +169,6 @@ int gs_sharded_mega_describe(void* out, float* u_pairs, float* v_pairs,
                              int r_loc, int c_loc, int chalo) {
   return describe(out, u_pairs, v_pairs, counters, n_rows, n_cols, r_loc,
                   c_loc, chalo);
-}
-
-// gs_sharded_mega_describe for bfloat16 pairs: c_loc and chalo multiples of
-// 8 (a push moves 8 bfloat16 cells a copy).
-int gs_sharded_mega_describe_bf16(void* out, void* u_pairs, void* v_pairs,
-                                  void* counters, int n_rows, int n_cols,
-                                  int r_loc, int c_loc, int chalo) {
-  return describe(out, static_cast<sm90::bf16*>(u_pairs),
-                  static_cast<sm90::bf16*>(v_pairs), counters, n_rows,
-                  n_cols, r_loc, c_loc, chalo);
 }
 
 // Enqueues one cooperative launch of `n_blocks` time blocks of `steps`
@@ -423,23 +193,6 @@ int gs_sharded_mega_multistep(const void* shards, int n_shards, int rows,
                           n_blocks, steps, naive, device, w, du, dv, feed,
                           min_feed_kill, dt, grid_blocks, tile, read_site,
                           stream);
-}
-
-// gs_sharded_mega_multistep over shards with bfloat16 pairs (described by
-// gs_sharded_mega_describe_bf16): each window widened to float32 on load,
-// each cell rounded to bfloat16 (to nearest even) on store, before the
-// pushes.
-int gs_sharded_mega_multistep_bf16(
-    const void* shards, int n_shards, int rows, int cols, int r_loc,
-    int c_loc, int chalo, int n_blocks, int steps, int naive, int device,
-    float w0, float w1, float w2, float w3, float w4, float w5, float w6,
-    float w7, float w8, float du, float dv, float feed, float min_feed_kill,
-    float dt, int grid_blocks, int tile, int read_site, void* stream) {
-  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  return multistep<sm90::bf16>(shards, n_shards, rows, cols, r_loc, c_loc,
-                               chalo, n_blocks, steps, naive, device, w, du,
-                               dv, feed, min_feed_kill, dt, grid_blocks,
-                               tile, read_site, stream);
 }
 
 }  // extern "C"

@@ -73,6 +73,14 @@
 // What bounds it is K1's: instruction issue. Each shard rounds its tiles
 // up on its own (2x2 at 1080x1920: 540 tiles of 64^2 against K1's 510).
 //
+// The fold entries (gs_windowed_multistep_fold and its bf16 twin) run the
+// second form of gs_fold_sm90.cuh: R x C register blocks with vector shared
+// loads on interior tiles, and the window through TMA where the host's rule
+// (tma_ok: float32 rows of whole 16-byte units, aligned pointers) allows;
+// the caller names the load. gs_windowed_fold_ablation runs the first form
+// (the strips above, the cp.async load) and each part of the split between
+// the two forms, for chip_smoke.py to time.
+//
 // bf16 storage (gs_windowed_multistep_bf16, gs_windowed_shard_multistep_bf16;
 // pallas_stencil.py:_kernel with a bfloat16 dtype, :970-971 and :992-993):
 // the same kernels on bfloat16 buffers. The window widens each cell to
@@ -82,7 +90,7 @@
 // moves half the bytes of the float32 one; the bound stays instruction
 // issue, so it runs at about the float32 kernel's speed.
 
-#include "gs_tile_sm90.cuh"
+#include "gs_fold_sm90.cuh"
 
 namespace {
 
@@ -169,14 +177,95 @@ struct Launch {
   }
 };
 
-// The fold entries' launch (TAPS: the fold's sum, sm90::dispatch_fold).
+// The fold entries' second form (gs_fold_sm90.cuh) on the register blocks
+// of S; TMA: the window through the tensor maps of (u, v) (encoded here,
+// per launch), else load_window.
+template <typename S, int TAPS, bool TMA, typename T>
+__global__ void __launch_bounds__(S::NT, 2)
+windowed_fold_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
+                     int cols, int steps, sm90::FoldConstants k, int aligned,
+                     const __grid_constant__ CUtensorMap map_u,
+                     const __grid_constant__ CUtensorMap map_v) {
+  extern __shared__ __align__(128) float4 fold_window[];
+  sm90::fold_window_multistep<TAPS, TMA>(
+      S{}, u, v, u_out, v_out, rows, cols, steps, k, aligned, &map_u, &map_v,
+      reinterpret_cast<float*>(fold_window));
+}
+
+// One launch of windowed_fold_kernel<S, TAPS, TMA> of `steps` steps (0: the
+// window load and store alone, an ablation), after allowing it its dynamic
+// shared memory (once per device).
+template <typename S, int TAPS, bool TMA, typename T>
+cudaError_t launch_fold(const Call<T, sm90::FoldConstants>& c, int steps) {
+  static bool allowed[gs::MAX_DEVICES];
+  auto kernel = windowed_fold_kernel<S, TAPS, TMA, T>;
+  constexpr size_t bytes = sm90::fold_bytes<S>();
+  if (!allowed[c.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    allowed[c.device] = true;
+  }
+  const dim3 grid((c.cols + S::TC - 1) / S::TC,
+                  (c.rows + S::TR - 1) / S::TR);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  CUtensorMap map_u = {}, map_v = {};
+  if constexpr (TMA) {
+    cudaError_t err =
+        sm90::window_map<S>(&map_u, c.u, c.rows, c.cols, 1);
+    if (err == cudaSuccess) {
+      err = sm90::window_map<S>(&map_v, c.v, c.rows, c.cols, 1);
+    }
+    if (err != cudaSuccess) return err;
+  }
+  const int aligned =
+      sm90::rows_aligned<T>(c.cols, c.u, c.v, c.u_out, c.v_out);
+  kernel<<<grid, S::NT, bytes, c.stream>>>(c.u, c.v, c.u_out, c.v_out,
+                                           c.rows, c.cols, steps, c.k,
+                                           aligned, map_u, map_v);
+  return cudaGetLastError();
+}
+
+// The fold entries' launch (TAPS: the fold's sum, sm90::dispatch_fold):
+// the second form on FoldMain's blocks, through TMA when `tma`.
 template <int TAPS>
 struct LaunchFold {
   template <typename T>
-  static cudaError_t run(const Call<T, sm90::FoldConstants>& c) {
-    return launch_one<Main, TAPS, sm90::MODE_FOLD, true>(c);
+  static cudaError_t run(const Call<T, sm90::FoldConstants>& c, int tma) {
+    if constexpr (std::is_same<T, float>::value) {
+      if (tma) return launch_fold<sm90::FoldMain, TAPS, true>(c, c.steps);
+    }
+    return launch_fold<sm90::FoldMain, TAPS, false>(c, c.steps);
   }
 };
+
+// The first form of the fold entries (step_strip_fold on Main, the cp.async
+// load; the separable pass) at `bytes` of dynamic shared memory: the
+// ablation parts 0-3. SPECIALIZE = false takes every tile as an edge tile.
+template <bool SPECIALIZE>
+cudaError_t launch_first_fold(const Call<float, sm90::FoldConstants>& c,
+                              int steps, size_t bytes) {
+  static bool allowed[gs::MAX_DEVICES];
+  auto kernel = windowed_kernel<Main, sm90::TAPS_SEPARABLE, sm90::MODE_FOLD,
+                                SPECIALIZE, float, sm90::FoldConstants>;
+  if (!allowed[c.device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sm90::SMEM_OPTIN));
+    if (err != cudaSuccess) return err;
+    allowed[c.device] = true;
+  }
+  const dim3 grid((c.cols + Main::TC - 1) / Main::TC,
+                  (c.rows + Main::TR - 1) / Main::TR);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const int aligned =
+      sm90::rows_aligned<float>(c.cols, c.u, c.v, c.u_out, c.v_out);
+  kernel<<<grid, Main::NT, bytes, c.stream>>>(c.u, c.v, c.u_out, c.v_out,
+                                              c.rows, c.cols, steps, c.k,
+                                              aligned);
+  return cudaGetLastError();
+}
 
 template <typename T>
 struct ShardCall {
@@ -252,23 +341,40 @@ int multistep(const T* u, const T* v, T* u_out, T* v_out, int rows, int cols,
   return static_cast<int>(sm90::dispatch_taps<Launch>(c.k, c));
 }
 
+// The fold entries' checks (`tma` 0 or 1, and 1 only on float32 rows that
+// TMA can describe); the call, or an error in `err`.
+template <typename T>
+Call<T, sm90::FoldConstants> make_fold_call(
+    const T* u, const T* v, T* u_out, T* v_out, int rows, int cols,
+    int steps, int device, const float* fold, int dt_is_one, int tma,
+    void* stream, cudaError_t* err) {
+  *err = cudaSuccess;
+  const bool tma_ok = std::is_same<T, float>::value &&
+                      sm90::fold_tma_ok(cols, u, v, u_out, v_out);
+  if (rows < 1 || cols < 1 || steps < 1 || steps > HALO || device < 0 ||
+      device >= gs::MAX_DEVICES || (tma != 0 && tma != 1) ||
+      (tma && !tma_ok)) {
+    *err = cudaErrorInvalidValue;
+  } else {
+    *err = cudaSetDevice(device);
+  }
+  return {u, v, u_out, v_out, rows, cols, steps, 1, device,
+          sm90::fold_constants(fold, dt_is_one),
+          static_cast<cudaStream_t>(stream)};
+}
+
 // gs_windowed_multistep_fold and its bf16 twin.
 template <typename T>
 int fold_multistep(const T* u, const T* v, T* u_out, T* v_out, int rows,
                    int cols, int steps, int device, const float* fold,
-                   int separable, int dt_is_one, void* stream) {
-  if (rows < 1 || cols < 1 || steps < 1 || steps > HALO || device < 0 ||
-      device >= gs::MAX_DEVICES) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t err = cudaSetDevice(device);
+                   int separable, int dt_is_one, void* stream, int tma) {
+  cudaError_t err;
+  const Call<T, sm90::FoldConstants> c =
+      make_fold_call(u, v, u_out, v_out, rows, cols, steps, device, fold,
+                     dt_is_one, tma, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Call<T, sm90::FoldConstants> c = {
-      u, v, u_out, v_out, rows, cols, steps, 1, device,
-      sm90::fold_constants(fold, dt_is_one),
-      static_cast<cudaStream_t>(stream)};
   return static_cast<int>(
-      sm90::dispatch_fold<LaunchFold>(c.k, separable, c));
+      sm90::dispatch_fold<LaunchFold>(c.k, separable, c, tma));
 }
 
 // gs_windowed_shard_multistep and its bf16 twin.
@@ -354,28 +460,83 @@ int gs_windowed_multistep_bf16(const void* u, const void* v, void* u_out,
 // the naive boundary, as gs_windowed_multistep enqueues. `fold` holds
 // gs_fold_floats() floats (sm90::FoldConstants' order); `separable`: the
 // stencil's separable plan runs (else the direct sum); `dt_is_one`: the
-// quadratic term is uv^2. Returns cudaGetLastError() (0 when the launch was
-// accepted).
+// quadratic term is uv^2; `tma`: the windows load through TMA (1; only
+// where cols is a multiple of 4 and every pointer 16-byte aligned, else
+// cudaErrorInvalidValue) or with cp.async (0). Returns cudaGetLastError()
+// (0 when the launch was accepted), or the tensor maps' encode error.
 int gs_windowed_multistep_fold(const float* u, const float* v, float* u_out,
                                float* v_out, int rows, int cols, int steps,
                                int device, const float* fold, int separable,
-                               int dt_is_one, void* stream) {
+                               int dt_is_one, void* stream, int tma) {
   return fold_multistep(u, v, u_out, v_out, rows, cols, steps, device, fold,
-                        separable, dt_is_one, stream);
+                        separable, dt_is_one, stream, tma);
 }
 
 // gs_windowed_multistep_fold on bfloat16 buffers (widened on load, rounded
-// on store, once a launch).
+// on store, once a launch; `tma` must be 0).
 int gs_windowed_multistep_fold_bf16(const void* u, const void* v,
                                     void* u_out, void* v_out, int rows,
                                     int cols, int steps, int device,
                                     const float* fold, int separable,
-                                    int dt_is_one, void* stream) {
+                                    int dt_is_one, void* stream, int tma) {
   return fold_multistep(static_cast<const sm90::bf16*>(u),
                         static_cast<const sm90::bf16*>(v),
                         static_cast<sm90::bf16*>(u_out),
                         static_cast<sm90::bf16*>(v_out), rows, cols, steps,
-                        device, fold, separable, dt_is_one, stream);
+                        device, fold, separable, dt_is_one, stream, tma);
+}
+
+// gs_windowed_multistep_fold with the separable plan in another form, for
+// timing what each part costs (chip_smoke.py phase 16e): the first form
+// (0), its window load and store alone (1, no step), with every tile an
+// edge tile (2), at one block an SM (3); the second form with the cp.async
+// load (5), its load and store alone (6, the load `tma` names); through
+// TMA only (`tma` must be 1), on 4x2 blocks (7), on 8x4 blocks of 256
+// threads (8), with the neighbour columns from two scalar loads (9), on
+// 2x4 blocks (10), on 416 threads (11), at a window pitch of 80 floats
+// (12). Part 4, the first form's walk on the exact tree, is
+// gs_windowed_multistep itself. The result is the fold's (the input for
+// parts 1 and 6).
+int gs_windowed_fold_ablation(const float* u, const float* v, float* u_out,
+                              float* v_out, int rows, int cols, int steps,
+                              int device, const float* fold, int separable,
+                              int dt_is_one, void* stream, int tma,
+                              int part) {
+  cudaError_t err;
+  const Call<float, sm90::FoldConstants> c =
+      make_fold_call(u, v, u_out, v_out, rows, cols, steps, device, fold,
+                     dt_is_one, tma, stream, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!separable) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int SEP = sm90::TAPS_SEPARABLE;
+  using Blocks4x2 = sm90::FoldShape<512, 4, 2>;
+  using Blocks8x4 = sm90::FoldShape<256, 8, 4>;
+  using Scalar4x4 = sm90::FoldShape<512, 4, 4, false>;
+  using Blocks2x4 = sm90::FoldShape<512, 2, 4>;
+  using Threads416 = sm90::FoldShape<416, 4, 4>;
+  using Pitch80 = sm90::FoldShape<512, 4, 4, true, 80>;
+  // (parts 7-12 time other blocks at the entry's load on shapes that load
+  // through TMA, and are built for that load only)
+  if (part >= 7 && !tma) return static_cast<int>(cudaErrorInvalidValue);
+  switch (part) {
+    case 0: err = launch_first_fold<true>(c, steps, Main::BYTES); break;
+    case 1: err = launch_first_fold<true>(c, 0, Main::BYTES); break;
+    case 2: err = launch_first_fold<false>(c, steps, Main::BYTES); break;
+    case 3: err = launch_first_fold<true>(c, steps, sm90::SMEM_OPTIN); break;
+    case 5: err = launch_fold<sm90::FoldMain, SEP, false>(c, steps); break;
+    case 6:
+      err = tma ? launch_fold<sm90::FoldMain, SEP, true>(c, 0)
+                : launch_fold<sm90::FoldMain, SEP, false>(c, 0);
+      break;
+    case 7: err = launch_fold<Blocks4x2, SEP, true>(c, steps); break;
+    case 8: err = launch_fold<Blocks8x4, SEP, true>(c, steps); break;
+    case 9: err = launch_fold<Scalar4x4, SEP, true>(c, steps); break;
+    case 10: err = launch_fold<Blocks2x4, SEP, true>(c, steps); break;
+    case 11: err = launch_fold<Threads416, SEP, true>(c, steps); break;
+    case 12: err = launch_fold<Pitch80, SEP, true>(c, steps); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 // Enqueues one launch on `stream` that advances every shard of an

@@ -253,3 +253,22 @@ def mega_resolve(shape: Tuple[int, int], block_rows: int | None = None,
             f"{SMEM_OPTIN} B a block may use; pin a smaller tile",
             combo="tiles")
     return Geometry(tr, tc, HALO)
+
+
+#: bytes of one unit of a TMA row stride (and of its base's alignment)
+TMA_UNIT = 16
+
+
+def tma_ok(shape: Tuple[int, int], pair: bool = False) -> bool:
+    """Whether a float32 state of ``shape`` (R, C) loads the fold entries'
+    windows through TMA (``csrc/gs_fold_sm90.cuh``): a tensor map's row
+    stride is a multiple of 16 bytes, so C must be a multiple of 4; for
+    K2's pair (``pair``: two planes of R x C, one 3-D map), the second
+    plane's offset, R*C*4 bytes, must be one too (it is whenever C is,
+    whatever R). Other shapes load with cp.async; the wrappers also ask
+    that every pointer be 16-byte aligned, which a fresh tensor is."""
+    rows, cols = shape
+    if rows < 1 or cols < 1:
+        return False
+    row = 4 * cols
+    return row % TMA_UNIT == 0 and (not pair or rows * row % TMA_UNIT == 0)

@@ -18,7 +18,12 @@ bfloat16 once a time block. Its plain version there is
 ``megastep(..., fold=True)`` runs the folded naive reaction
 (``megakernel.py:_mega_kernel`` with ``fast_fold``) on either storage: the
 fold entries, whose plain version is :func:`megastep_reference_fold`; their
-launches are counted in ``fold_launches`` and ``fold_bf16_launches``.
+launches are counted in ``fold_launches`` and ``fold_bf16_launches``. They
+run the fold's second form, as K1's do (``ops/windowed.py``: a float32
+pair loads its windows through TMA where ``windowed.fold_load`` says so,
+those launches also counted in ``fold_tma_launches``);
+:func:`fold_ablation` runs the first form and the parts of the split
+(:data:`FOLD_ABLATIONS`, K1's numbering), on the card only.
 
 ``launches`` counts the kernel launches, and only them (the bf16 entry's
 apart, in ``bf16_launches``), so that a run can show that its main path
@@ -87,7 +92,7 @@ import torch
 
 from ..errors import UnsupportedConfigError
 from ..params import FoldConstants, KernelConstants, PackedConstants
-from . import build, checks, geometry as geo, packed, stencil
+from . import build, checks, geometry as geo, packed, stencil, windowed
 
 #: most steps of one time block: the kernel's compile-time halo depth
 MEGA_STEPS = 8
@@ -99,6 +104,9 @@ bf16_launches = 0
 #: the fold entries' launches so far (float32, bfloat16 pairs)
 fold_launches = 0
 fold_bf16_launches = 0
+#: the float32 fold launches whose windows loaded through TMA (also counted
+#: in ``fold_launches``)
+fold_tma_launches = 0
 
 #: K6 launches so far
 packed_launches = 0
@@ -259,6 +267,13 @@ PACKED_ABLATIONS = {
     3: "32x32 tiles in 48x48 windows",
 }
 
+#: the parts of the fold entries' split (csrc/mega.cu: gs_mega_fold_ablation;
+#: part 4 launches the exact naive entry), numbered as K1's (K2's entry
+#: takes its neighbour columns by scalar loads, so its part 9 is the entry
+#: and its other blocks load them so too); each gives the whole kernel's
+#: result, the parts of 0 steps their input
+FOLD_ABLATIONS = windowed.FOLD_ABLATIONS
+
 _fn = None
 _bf16_fn = None
 _fold_fns: dict = {}
@@ -332,16 +347,34 @@ def _bf16_kernel():
     return _bf16_fn
 
 
-def _fold_kernel(dtype):
+#: the fold arguments of K2's entries: the pairs, rows, cols, n_blocks,
+#: steps, device, the constants, separable, dt_is_one, grid, the barrier,
+#: the stream (the ring's and the pins' tails follow)
+_FOLD_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+              + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+#: the double buffer's fold entries and their ablation end with ``tma``
+_FOLD_ENTRY_ARGS = _FOLD_ARGS + [ctypes.c_int]
+
+
+def _fold_entry(dtype):
+    """The fold entry of ``dtype`` pairs at the double buffer and the
+    compiled tiles."""
     if dtype not in _fold_fns:
         _kernel()  # checks the time-block depth
         name = "gs_mega_multistep_fold" + (
             "_bf16" if dtype == torch.bfloat16 else "")
-        _fold_fns[dtype] = build.bind(
-            name, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-            + [ctypes.c_void_p] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 2)
+        _fold_fns[dtype] = build.bind(name, _FOLD_ENTRY_ARGS)
     return _fold_fns[dtype]
+
+
+def _base_args(dtype, fold: bool) -> list:
+    """The double buffer's arguments of ``dtype`` pairs (``fold``: the
+    fold's, without ``tma``), which the ring's and the pins' entries
+    extend."""
+    if fold:
+        _kernel()  # checks the time-block depth
+        return _FOLD_ARGS
+    return (_bf16_kernel() if dtype == torch.bfloat16 else _kernel()).argtypes
 
 
 def _check_ring_buffers():
@@ -359,12 +392,11 @@ def _ring_kernel(dtype, fold: bool):
     entry): the double buffer's arguments, then the tile and the buffers."""
     key = (dtype, fold)
     if key not in _ring_fns:
-        base = _fold_kernel(dtype) if fold else (
-            _bf16_kernel() if dtype == torch.bfloat16 else _kernel())
+        base = _base_args(dtype, fold)
         _check_ring_buffers()
         name = "gs_mega_ring_multistep" + ("_fold" if fold else "") + (
             "_bf16" if dtype == torch.bfloat16 else "")
-        _ring_fns[key] = build.bind(name, base.argtypes + [ctypes.c_int] * 2)
+        _ring_fns[key] = build.bind(name, base + [ctypes.c_int] * 2)
     return _ring_fns[key]
 
 
@@ -373,12 +405,11 @@ def _pinned_kernel(dtype, fold: bool):
     entry): the double buffer's arguments, then ``tr`` and ``tc``."""
     key = (dtype, fold)
     if key not in _pinned_fns:
-        base = _fold_kernel(dtype) if fold else (
-            _bf16_kernel() if dtype == torch.bfloat16 else _kernel())
+        base = _base_args(dtype, fold)
         name = "gs_mega_pinned_multistep" + ("_fold" if fold else "") + (
             "_bf16" if dtype == torch.bfloat16 else "")
         _pinned_fns[key] = build.bind(name,
-                                      base.argtypes + [ctypes.c_int] * 2)
+                                      base + [ctypes.c_int] * 2)
     return _pinned_fns[key]
 
 
@@ -388,13 +419,12 @@ def _pinned_ring_kernel(dtype, fold: bool):
     buffers."""
     key = ("ring", dtype, fold)
     if key not in _pinned_fns:
-        base = _fold_kernel(dtype) if fold else (
-            _bf16_kernel() if dtype == torch.bfloat16 else _kernel())
+        base = _base_args(dtype, fold)
         name = "gs_mega_pinned_ring_multistep" + (
             "_fold" if fold else "") + (
             "_bf16" if dtype == torch.bfloat16 else "")
         _pinned_fns[key] = build.bind(name,
-                                      base.argtypes + [ctypes.c_int] * 3)
+                                      base + [ctypes.c_int] * 3)
     return _pinned_fns[key]
 
 
@@ -596,7 +626,8 @@ def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
         fn = _ring_kernel(u_pair.dtype, True)
         tail = (geometry.tile, geometry.buffers)
     else:
-        fn, tail = _fold_kernel(u_pair.dtype), ()
+        tma = windowed.fold_load(u_pair, v_pair) == "tma"
+        fn, tail = _fold_entry(u_pair.dtype), (int(tma),)
     err = fn(u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks,
              steps, u_pair.device.index, *build.fold_args(fc), grid,
              barrier.data_ptr(), stream, *tail)
@@ -606,6 +637,8 @@ def _fold_megastep(u_pair, v_pair, n_blocks, steps, fc, boundary, grid,
     name = _FOLD_COUNTERS[tiles is not None, ring,
                           u_pair.dtype == torch.bfloat16]
     globals()[name] += 1
+    if tiles is None and not ring:
+        globals()["fold_tma_launches"] += tail[0]
 
 
 def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
@@ -624,6 +657,52 @@ def megastep_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
     fn = _ablation_kernel()
     _launch(lambda *args: fn(*args, part), u_pair, v_pair, n_blocks, steps,
             consts, boundary, grid)
+
+
+def fold_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
+                  n_blocks: int, steps: int, fc: FoldConstants, part: int,
+                  exact: KernelConstants | None = None,
+                  grid: int = 0) -> None:
+    """The float32 fold entry on the card in the form of ``part``
+    (:data:`FOLD_ABLATIONS`), on a stencil with a separable plan: slot 0
+    of the pairs advanced by ``n_blocks`` time blocks of ``steps``
+    (1..MEGA_STEPS) folded steps in place, or by none for the parts of no
+    step. Part 4 runs the exact naive entry with ``exact`` (the same
+    parameters' ``KernelConstants``; its result is ``stencil.run``'s).
+    The second form's parts load as ``windowed.fold_load`` says; parts
+    7-12 load through TMA only. Not counted in any launch counter."""
+    _check(u_pair, v_pair, n_blocks, steps, "naive", grid)
+    checks.check_fold(fc, "naive")
+    if part not in FOLD_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(FOLD_ABLATIONS)}, "
+                         f"got {part!r}")
+    if not fc.separable:
+        raise ValueError("the fold's ablation parts run the separable plan; "
+                         "this stencil has none")
+    if (part == windowed.FOLD_ABLATION_EXACT
+            and not isinstance(exact, KernelConstants)):
+        raise ValueError("part 4 runs the exact naive entry: pass the same "
+                         "parameters' KernelConstants as exact")
+    load = windowed.fold_load(u_pair, v_pair)
+    windowed.check_tma_part(part, load)
+    if u_pair.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the pairs must lie on "
+                         f"a CUDA device, not {u_pair.device}")
+    if part == windowed.FOLD_ABLATION_EXACT:
+        _launch(_kernel(), u_pair, v_pair, n_blocks, steps, exact, "naive",
+                grid)
+        return
+    fn = build.bind("gs_mega_fold_ablation",
+                    _FOLD_ENTRY_ARGS + [ctypes.c_int])
+    _, rows, cols = u_pair.shape
+    barrier = torch.zeros(1, dtype=torch.int64, device=u_pair.device)
+    stream = torch.cuda.current_stream(u_pair.device).cuda_stream
+    err = fn(u_pair.data_ptr(), v_pair.data_ptr(), rows, cols, n_blocks,
+             steps, u_pair.device.index, *build.fold_args(fc), grid,
+             barrier.data_ptr(), stream, int(load == "tma"), part)
+    if err != 0:
+        raise RuntimeError(f"mega fold ablation part {part} failed: CUDA "
+                           f"error {err} ({build.error_name(err)})")
 
 
 def _check(u_pair, v_pair, n_blocks, steps, boundary, grid,

@@ -487,6 +487,90 @@ def tiled_step_at(u: torch.Tensor, v: torch.Tensor, consts: KernelConstants,
     return torch.where(mask, fu, nu), torch.where(mask, fv, nv)
 
 
+def fold_block_walk(u: torch.Tensor, v: torch.Tensor, steps: int,
+                    fc: FoldConstants, block_cols: int = 4,
+                    tile: Tuple[int, int] = (64, 64), halo: int = 8
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`run_naive_fold` of ``steps`` (1..``halo``) steps as the fold
+    entries' second form walks it (``csrc/gs_fold_sm90.cuh``), its CPU
+    twin: each ``tile`` steps its window (``halo`` cells around it, the
+    cells outside the domain loaded as 0.0) alone, each step over the valid
+    region ``[s+1, W-s-1)``; the cells outside what a step writes and one
+    cell past the window on every side hold NaN, the garbage the kernel
+    leaves there. A tile whose window lies inside the domain steps the
+    region with its columns rounded outward to multiples of ``block_cols``
+    (C), every stepped cell taking the bulk fold with ``au[0]``,
+    ``bv[0]``, and then holds NaN outside the valid region; an edge tile
+    steps the region itself, each cell its per-cell result
+    (:func:`step_naive_fold` of the window's cells in the domain, the
+    domain's other cells NaN) and 0.0 outside the domain. Equal to
+    :func:`run_naive_fold` bit for bit: a valid cell reads only cells valid
+    at the step before, so no NaN reaches it."""
+    tr, tc = tile
+    wr, wc = tr + 2 * halo, tc + 2 * halo
+    if wc % block_cols:
+        raise ValueError(f"the window's width {wc} must be a multiple of "
+                         f"the blocks' {block_cols} columns")
+    if not 1 <= steps <= halo:
+        raise ValueError(f"steps must lie in [1, {halo}], got {steps}")
+    rows, cols = u.shape
+    nan = float("nan")
+    out = (torch.empty_like(u), torch.empty_like(v))
+    for r0 in range(-halo, rows - halo, tr):
+        for c0 in range(-halo, cols - halo, tc):
+            inside = (min(r0, c0) >= 0 and r0 + wr <= rows
+                      and c0 + wc <= cols)
+            # the window's cells in the domain: global rr x cc, window wrr
+            # x wcc in padded coordinates (window cell (0, 0) at (1, 1))
+            rr = slice(max(r0, 0), min(r0 + wr, rows))
+            cc = slice(max(c0, 0), min(c0 + wc, cols))
+            wrr = slice(rr.start - r0 + 1, rr.stop - r0 + 1)
+            wcc = slice(cc.start - c0 + 1, cc.stop - c0 + 1)
+            win = []
+            for x in (u, v):
+                w = torch.full((wr + 2, wc + 2), nan, dtype=x.dtype)
+                w[1:-1, 1:-1] = 0.0
+                w[wrr, wcc] = x[rr, cc]
+                win.append(w)
+            for st in range(steps):
+                lo = st + 1
+                c_lo, c_hi = lo, wc - lo
+                if inside:  # the blocks' columns, rounded outward
+                    c_lo = lo // block_cols * block_cols
+                    c_hi = -(-(wc - lo) // block_cols) * block_cols
+                    xu, xv = (x[lo:wr - lo + 2, c_lo:c_hi + 2] for x in win)
+                    cu, cv = xu[1:-1, 1:-1], xv[1:-1, 1:-1]
+                    uv_square = cu * cv * cv
+                    q = uv_square if fc.dt_is_one else fc.dt * uv_square
+                    stepped = (((fc.cu * _fold_sum(xu, fc) - q) + fc.e)
+                               + fc.au[0] * cu,
+                               (fc.cv * _fold_sum(xv, fc) + q) + fc.bv[0] * cv)
+                else:
+                    dom = []
+                    for w in win:
+                        d = torch.full((rows, cols), nan, dtype=w.dtype)
+                        d[rr, cc] = w[wrr, wcc]
+                        dom.append(d)
+                    stepped = []
+                    for d in step_naive_fold(*dom, fc):
+                        w = torch.zeros((wr + 2, wc + 2), dtype=d.dtype)
+                        w[wrr, wcc] = d[rr, cc]
+                        stepped.append(w[lo + 1:wr - lo + 1, c_lo + 1:c_hi + 1])
+                for i, n in enumerate(stepped):
+                    w = torch.full_like(win[i], nan)
+                    w[lo + 1:wr - lo + 1, c_lo + 1:c_hi + 1] = n
+                    w[:, :lo + 1] = nan  # stepped, not valid
+                    w[:, wc - lo + 1:] = nan
+                    win[i] = w
+            # the tile's cells in the domain
+            tr_ = slice(r0 + halo, min(r0 + halo + tr, rows))
+            tc_ = slice(c0 + halo, min(c0 + halo + tc, cols))
+            for o, w in zip(out, win):
+                o[tr_, tc_] = w[tr_.start - r0 + 1:tr_.stop - r0 + 1,
+                                tc_.start - c0 + 1:tc_.stop - c0 + 1]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The shift algebra (``grayscott_tpu/ops/stencil.py:86-357``)
 # ---------------------------------------------------------------------------

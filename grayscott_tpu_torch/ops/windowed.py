@@ -35,7 +35,14 @@ counted apart, in ``bf16_launches`` and ``bf16_shard_launches``.
 (``pallas_stencil.py:_kernel`` with ``fast_fold``, ``:363-382``,
 ``:817-859``) on either storage: the fold entries, whose plain versions are
 ``stencil.run_naive_fold`` and ``stencil.run_naive_fold_bf16``; their
-launches are counted in ``fold_launches`` and ``fold_bf16_launches``.
+launches are counted in ``fold_launches`` and ``fold_bf16_launches``. They
+run the fold's second form (``csrc/gs_fold_sm90.cuh``: 2-D register blocks
+with vector shared loads); a float32 state loads its windows through TMA
+where ``geometry.tma_ok`` allows it and its pointers are 16-byte aligned
+(:func:`fold_load` names the choice; those launches are also counted in
+``fold_tma_launches``), else with cp.async. :func:`fold_ablation` runs the
+first form and the parts of the split between the two
+(:data:`FOLD_ABLATIONS`), on the card only.
 
 :func:`shard_multistep` takes the sharded windowed engine's K and row
 tile (``--backend sharded --sharded-engine windowed
@@ -105,6 +112,9 @@ bf16_shard_launches = 0
 #: the fold entries' launches so far (float32, bfloat16 storage)
 fold_launches = 0
 fold_bf16_launches = 0
+#: the float32 fold launches that loaded their windows through TMA (also
+#: counted in ``fold_launches``)
+fold_tma_launches = 0
 #: the pinned entries' launches (a geometry other than the compiled one),
 #: by storage and mode
 pinned_launches = 0
@@ -135,6 +145,31 @@ _PINNED = {(torch.float32, False): ("gs_windowed_pinned_multistep",
                                    "pinned_fold_launches"),
            (torch.bfloat16, True): ("gs_windowed_pinned_multistep_fold_bf16",
                                     "pinned_fold_bf16_launches")}
+
+#: the parts of the fold entries' split (csrc/windowed.cu:
+#: gs_windowed_fold_ablation; part 4 launches the exact naive entry); each
+#: gives the whole kernel's result, the parts of 0 steps their input
+FOLD_ABLATIONS = {
+    0: "the first form (one-column strips of 4, the cp.async load)",
+    1: "the first form's window load and store alone (0 steps)",
+    2: "the first form with every tile an edge tile",
+    3: "the first form at one block an SM",
+    4: "the first form's walk on the exact naive tree",
+    5: "the second form with the cp.async load",
+    6: "the second form's window load and store alone (0 steps)",
+    7: "the second form on 4x2 blocks",
+    8: "the second form on 8x4 blocks of 256 threads",
+    9: "the second form with the neighbour columns from scalar loads",
+    10: "the second form on 2x4 blocks",
+    11: "the second form on 416 threads",
+    12: "the second form at a window pitch of 80 floats",
+}
+#: the parts that take no step, the part that runs the exact tree, and the
+#: parts built for the TMA load only (other blocks, timed at the entry's
+#: load on shapes that load through TMA)
+FOLD_ABLATION_NO_STEP = (1, 6)
+FOLD_ABLATION_EXACT = 4
+FOLD_ABLATION_TMA_ONLY = tuple(range(7, 13))
 
 _fns: dict = {}
 _checked = False
@@ -186,11 +221,27 @@ def _kernel(dtype=torch.float32):
                  + [ctypes.c_float] * 14 + [ctypes.c_void_p])
 
 
+#: the fold entries' arguments: the four state pointers, rows, cols,
+#: steps, device, the constants, separable, dt_is_one, the stream, tma
+_FOLD_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+              + [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int])
+
+
 def _fold_kernel(dtype=torch.float32):
-    return _bind(_FOLD_ENTRIES[dtype],
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p])
+    return _bind(_FOLD_ENTRIES[dtype], _FOLD_ARGS)
+
+
+def fold_load(*tensors: torch.Tensor) -> str:
+    """How a fold entry loads the windows of these state tensors (one
+    shape, on the card): ``"tma"`` for float32 of a shape
+    ``geometry.tma_ok`` takes (``pair``: the last two dimensions of K2's
+    pairs) with every pointer 16-byte aligned, else ``"cp.async"`` (bf16
+    states load through registers under that name)."""
+    t = tensors[0]
+    shape, pair = tuple(t.shape[-2:]), t.dim() == 3
+    ok = (t.dtype == torch.float32 and geometry.tma_ok(shape, pair)
+          and all(x.data_ptr() % geometry.TMA_UNIT == 0 for x in tensors))
+    return "tma" if ok else "cp.async"
 
 
 def multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
@@ -288,7 +339,7 @@ def _pinned_multistep(u, v, u_out, v_out, steps, consts, boundary, fold,
 
 def _fold_multistep(u, v, u_out, v_out, steps, fc, boundary) -> None:
     """:func:`multistep` with ``fold=True``."""
-    global fold_launches, fold_bf16_launches
+    global fold_launches, fold_bf16_launches, fold_tma_launches
     checks.check_fold(fc, boundary)
     bf16 = u.dtype == torch.bfloat16
     if u.device.type == "cpu":
@@ -299,16 +350,71 @@ def _fold_multistep(u, v, u_out, v_out, steps, fc, boundary) -> None:
         return
     fn = _fold_kernel(u.dtype)
     rows, cols = u.shape
+    tma = fold_load(u, v, u_out, v_out) == "tma"
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = fn(u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
-             rows, cols, steps, u.device.index, *build.fold_args(fc), stream)
+             rows, cols, steps, u.device.index, *build.fold_args(fc), stream,
+             int(tma))
     if err != 0:
-        raise RuntimeError(f"windowed fold kernel launch failed: CUDA error "
-                           f"{err} ({build.error_name(err)})")
+        raise RuntimeError(f"windowed fold kernel launch failed "
+                           f"({'TMA' if tma else 'cp.async'} load): CUDA "
+                           f"error {err} ({build.error_name(err)})")
     if bf16:
         fold_bf16_launches += 1
     else:
         fold_launches += 1
+        fold_tma_launches += tma
+
+
+def check_tma_part(part: int, load: str) -> None:
+    """Parts 7-12 load through TMA only: refuse them on a state that
+    :func:`fold_load` sends to cp.async."""
+    if part in FOLD_ABLATION_TMA_ONLY and load != "tma":
+        raise ValueError(f"fold ablation part {part} loads through TMA "
+                         f"only; this state loads with {load}")
+
+
+def fold_ablation(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
+                  v_out: torch.Tensor, steps: int, fc: FoldConstants,
+                  part: int, exact: KernelConstants | None = None) -> None:
+    """The float32 fold entry on the card in the form of ``part``
+    (:data:`FOLD_ABLATIONS`), on a stencil with a separable plan: the
+    state ``steps`` (1..K) folded steps after ``(u, v)`` into ``(u_out,
+    v_out)``, or ``(u, v)`` itself for the parts of no step. Part 4 runs
+    the exact naive entry with ``exact`` (the same parameters'
+    ``KernelConstants``; its result is ``stencil.run``'s). The second
+    form's parts load as :func:`fold_load` says; parts 7-12 load through
+    TMA only. Not counted in any launch counter."""
+    checks.check_count("steps", steps, 1, K)
+    checks.check_state((u, v), (u_out, v_out))
+    checks.check_fold(fc, "naive")
+    if part not in FOLD_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(FOLD_ABLATIONS)}, "
+                         f"got {part!r}")
+    if not fc.separable:
+        raise ValueError("the fold's ablation parts run the separable plan; "
+                         "this stencil has none")
+    if part == FOLD_ABLATION_EXACT and not isinstance(exact, KernelConstants):
+        raise ValueError("part 4 runs the exact naive entry: pass the same "
+                         "parameters' KernelConstants as exact")
+    load = fold_load(u, v, u_out, v_out)
+    check_tma_part(part, load)
+    if u.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the state must lie on "
+                         f"a CUDA device, not {u.device}")
+    rows, cols = u.shape
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    ptrs = (u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr())
+    if part == FOLD_ABLATION_EXACT:
+        err = _kernel()(*ptrs, rows, cols, steps, 1, u.device.index,
+                        *exact.weights, *exact.reaction, stream)
+    else:
+        fn = _bind("gs_windowed_fold_ablation", _FOLD_ARGS + [ctypes.c_int])
+        err = fn(*ptrs, rows, cols, steps, u.device.index,
+                 *build.fold_args(fc), stream, int(load == "tma"), part)
+    if err != 0:
+        raise RuntimeError(f"windowed fold ablation part {part} failed: CUDA "
+                           f"error {err} ({build.error_name(err)})")
 
 
 def _shard_kernel(dtype=torch.float32):

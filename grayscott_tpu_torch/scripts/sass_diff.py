@@ -13,8 +13,10 @@ meant to change kept every instruction::
 
 Kernels are matched by their demangled names (``c++filt``, where it is
 installed), with the namespaces given by ``--drop`` taken out, so a type
-that moved between namespaces still matches. Needs ``nvcc`` and
-``cuobjdump`` (the CUDA toolkit); exits 1 when either is missing.
+that moved between namespaces still matches, and a kernel that moved to
+another source (a unit split in two) matches by its name alone. Needs
+``nvcc`` and ``cuobjdump`` (the CUDA toolkit); exits 1 when either is
+missing.
 Prints one line a source and a summary; ``--out`` takes every kernel's
 row as JSON.
 """
@@ -134,11 +136,18 @@ def tree(csrc: Path, work: Path, drop: list) -> dict:
 
 
 def compare(old: dict, new: dict) -> list:
-    """One row a kernel of either tree."""
+    """One row a kernel of either tree. A kernel found in one source of the
+    old tree and another of the new one alone (a unit split in two) is
+    matched by its name: one row, its source "old -> new"."""
+    gone = {key[1]: key for key in set(old) - set(new)}
+    moved = {key: gone[key[1]] for key in set(new) - set(old)
+             if key[1] in gone}
     out = []
-    for key in sorted(set(old) | set(new)):
-        a, b = old.get(key), new.get(key)
+    for key in sorted((set(old) | set(new)) - set(moved.values())):
+        a, b = old.get(moved.get(key, key)), new.get(key)
         row = {"source": key[0], "kernel": key[1]}
+        if key in moved:
+            row["source"] = f"{moved[key][0]} -> {key[0]}"
         if a is None or b is None:
             row["status"] = "only new" if a is None else "only old"
         else:

@@ -1408,6 +1408,48 @@ def test_fold_entries_equal_their_plain_version(cuda_device, label, params,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("part", sorted(windowed.FOLD_ABLATIONS))
+def test_fold_ablation_parts_bitwise(cuda_device, part):
+    """Each part of the fold entries' split (the first form, part 0, among
+    them) on both entries, bit for bit its plain version: the fold's
+    state, the input for the parts of no step, the exact step's for part
+    4; the parts built for TMA only where the state loads through TMA
+    (200x300; 70x97 loads with cp.async), NaN and Inf included. Their
+    launches are not counted."""
+    from grayscott_tpu_torch.ops import stencil
+
+    params = Parameters()
+    fc, kc = fold_constants(params), kernel_constants(params)
+    for shape in [(70, 97), (200, 300)]:
+        for u, v in fold_states(shape, cuda_device, torch.float32):
+            if (part in windowed.FOLD_ABLATION_TMA_ONLY
+                    and windowed.fold_load(u, v) != "tma"):
+                continue
+            for steps in (1, 8):
+                if part in windowed.FOLD_ABLATION_NO_STEP:
+                    want = (u, v)
+                elif part == windowed.FOLD_ABLATION_EXACT:
+                    want = stencil.run(u, v, steps, kc, "naive")
+                else:
+                    want = stencil.run_naive_fold(u, v, steps, fc)
+                before = (windowed.launches, windowed.fold_launches,
+                          megakernel.launches, megakernel.fold_launches)
+                out = [torch.empty_like(u), torch.empty_like(v)]
+                windowed.fold_ablation(u, v, *out, steps, fc, part, exact=kc)
+                pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+                megakernel.fold_ablation(pu, pv, 1, steps, fc, part,
+                                         exact=kc)
+                torch.cuda.synchronize()
+                assert (windowed.launches, windowed.fold_launches,
+                        megakernel.launches,
+                        megakernel.fold_launches) == before
+                assert all(bits_equal(g, w) for g, w in zip(out, want)), \
+                    ("K1", shape, steps)
+                assert all(bits_equal(g, w) for g, w in
+                           zip((pu[0], pv[0]), want)), ("K2", shape, steps)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("flags", [[], ["--pallas-engine", "mega"],
                                    ["--pallas-dtype", "bfloat16"]])
 def test_simulate_fold_runs_k1_or_k2_never_k3(cuda_device, flags):

@@ -66,6 +66,21 @@ def test_compare_marks_each_kernel(new_b, status):
     assert "old_registers" not in rows["c"]
 
 
+@pytest.mark.parametrize("new_sass,status", [(["EXIT"], "same"),
+                                             (["NOP", "EXIT"], "differs")])
+def test_compare_matches_a_kernel_that_moved_source(new_sass, status):
+    """A unit split in two: a kernel of k.cu found only in k_bf16.cu of the
+    new tree is one row, compared, its source "k.cu -> k_bf16.cu"."""
+    row = {"sass": ["EXIT"], "registers": 8, "frame": (0, 0, 0)}
+    old = {("k.cu", "a"): row, ("k.cu", "b"): row}
+    new = {("k.cu", "a"): row,
+           ("k_bf16.cu", "b"): dict(row, sass=new_sass)}
+    rows = {r["kernel"]: r for r in sass_diff.compare(old, new)}
+    assert len(rows) == 2 and rows["a"]["status"] == "same"
+    assert rows["b"]["status"] == status
+    assert rows["b"]["source"] == "k.cu -> k_bf16.cu"
+
+
 def test_demangle_drops_namespaces():
     name = sass_diff.demangle(["_ZN2gs4sm906pinned1fEv"],
                               ["pinned"])["_ZN2gs4sm906pinned1fEv"]
