@@ -314,8 +314,8 @@
 21. The lane fold (``--pallas-fold F``; ``ops/lane_fold.py``, K1's folded
    entry in ``csrc/windowed_pins.cu``) and the window ring at a pinned
    tile (``mega_depth`` with ``block_rows``/``block_cols``; K2's pinned
-   ring entries in ``csrc/mega_pins.cu``). (a) ptxas's report of the 4
-   folded, 1 refresh and 12 pinned ring instantiations (no spill, no
+   ring entries in ``csrc/mega_pins_ring.cu``). (a) ptxas's report of the 4
+   folded, 1 refresh and 24 pinned ring instantiations (no spill, no
    stack); the folded entry (its refresh, then 8 or 16 steps), at
    1080x1920 F = 2 (and a NaN/Inf state, the seam's cells among them),
    1001x1920 F = 3 (dead rows) and 4096x512 F = 8, both boundaries, bit
@@ -332,10 +332,29 @@
    at 1080x1920 F = 2, 4096x512 F = 8 and 2048x256 F = 8; each pinned ring
    against depth 2 on its tiles in turns. The ``kernels`` line gains the
    folded entry and the four pinned ring entries.
+22. The window ring's redesign (K2 ring and K2 ring pinned: the ring on
+   twice the double buffer's threads at 64 registers a thread, the pinned
+   ring on two blocks of 512 where its bytes leave room for them). (a)
+   ptxas's report of the 44 compiled and 24 pinned ring instantiations (no
+   spill, no stack) and of the 27 ablation instantiations
+   (``csrc/mega_ring_ablation.cu``; their spills reported); the occupancy
+   API's blocks of each ring below, which must equal
+   ``RingGeometry.blocks_per_sm`` an SM. (b) Every part of the ring's
+   split (``megakernel.RING_ABLATIONS``: the first form, its loads and
+   stores alone, every window waited for, the double buffer on its tile
+   and grid, each tile stepped in place, more threads or fewer registers)
+   on the compiled rings at depth 3, 4 and 8 and the pinned 16x64 ring at
+   depth 4, 32x128 and 8x256 at depth 3, at 1080x1920 (and NaN/Inf) and
+   4096^2, one launch of 3 time blocks of 8 steps: bit for bit the plain
+   version (part 2, which steps nothing: its input) and the entry. (c)
+   The split: every part, the entry and depth 2 on the same tiles, one
+   launch of 32 steps in device time (``queued_ms``) in turns, each beside
+   part 0 and the bound. The ``kernels`` line gives the float32 ring
+   entries the first form's time.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phases 16 to 21 and phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phases 16 to 22 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -6014,7 +6033,7 @@ RING21_CASES = (((32, 128), 3), ((16, 64), 4), ((16, 64), 8), ((8, 256), 3))
 RING21_PATH = ((16, 64), 4)
 #: the new instantiations ptxas reports, by mangled kernel name
 FOLD21_PTXAS = {"13folded_kernel": 4, "19fold_refresh_kernel": 1,
-                "18ring_pinned_kernel": 12}
+                "18ring_pinned_kernel": 24}
 #: phase 21c/21d: rounds in turns (in order, then reversed), launches a
 #: sample
 FOLD21_ROUNDS = 2
@@ -6169,8 +6188,9 @@ def compare_ring21(checks: Checks, rng) -> int:
 
 def fold21_ptxas(checks: Checks, log: str) -> None:
     """Phase 21a: ptxas's report of the folded entry's 4 instantiations
-    (and its refresh kernel's one) and the pinned ring's 12: registers,
-    stack and spills, none of which may spill or take a stack frame."""
+    (and its refresh kernel's one) and the pinned ring's 24 (12 bound to
+    one block an SM, 12 to two): registers, stack and spills, none of
+    which may spill or take a stack frame."""
     if not log:
         print("phase 21a: the library was reused, no ptxas report",
               flush=True)
@@ -6411,6 +6431,221 @@ def fold21_phase(checks: Checks, rng, card: str, log: str) -> tuple:
     return n, runs, times
 
 
+# --- 22. the window ring's redesign (K2 ring, K2 ring pinned) ----------------
+
+#: the rings of phase 22's split: the compiled geometries at these depths,
+#: and pinned (tiles, depth)
+RING22_DEPTHS = (3, 4, 8)
+RING22_PINNED = (((16, 64), 4), ((32, 128), 3), ((8, 256), 3))
+#: the ring kernels' instantiations ptxas reports, by mangled kernel name:
+#: the entries (none may spill or take a stack frame) and the ablation parts
+RING22_PTXAS = {"11ring_kernel": 44, "18ring_pinned_kernel": 24}
+RING22_ABLATION_PTXAS = {"20ring_ablation_kernel": 18,
+                         "27ring_pinned_ablation_kernel": 9}
+#: phase 22c: reps a sample by shape, and rounds (in order, then reversed)
+RING22_REPS = {MAIN_SHAPE: 20, BENCH_SHAPE: 5}
+RING22_ROUNDS = 2
+
+
+def ring22_cases():
+    """(label, depth, pinned tiles or None) of phase 22's rings."""
+    cases = [(f"depth {d}", d, None) for d in RING22_DEPTHS]
+    cases += [(f"{t[0]}x{t[1]} depth {d}", d,
+               geometry.Geometry(*t, geometry.HALO))
+              for t, d in RING22_PINNED]
+    return cases
+
+
+def ring22_parts(shape, depth: int, tiles) -> list:
+    """The ablation parts that run on this ring (part 6 and 7's in-place
+    steps hold a bounded number of strips a thread)."""
+    parts = []
+    for part in megakernel.RING_ABLATIONS:
+        try:
+            megakernel.ring_ablation_plan(shape, depth, part, tiles)
+        except ValueError as err:
+            print(f"ring22 {shape[0]}x{shape[1]} depth {depth} "
+                  f"{tiles.label() if tiles else ''} part {part}: {err}",
+                  flush=True)
+            continue
+        parts.append(part)
+    return parts
+
+
+def ring22_ptxas(checks: Checks, log: str) -> None:
+    """Phase 22a: ptxas's report of the ring kernels (the entries' and the
+    ablation parts' instantiations): registers, stack frame and spills.
+    No entry may spill or take a stack frame; an ablation part's spills
+    are reported beside its time."""
+    if not log:
+        print("phase 22a: the library was reused, no ptxas report",
+              flush=True)
+        return
+    rows = {}
+    entry = frame = None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = PTXAS_USED.search(line)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), frame)
+            entry = None
+    for kernels, strict in ((RING22_PTXAS, True),
+                            (RING22_ABLATION_PTXAS, False)):
+        for kernel, count in kernels.items():
+            found = {name: r for name, r in rows.items() if kernel in name}
+            for name, (regs, f) in sorted(found.items()):
+                print(f"ptxas {name}: {regs} registers, stack frame, spill "
+                      f"stores, spill loads {f}", flush=True)
+            bad = {n: f for n, (_, f) in found.items() if f != (0, 0, 0)}
+            print(f"ptxas {kernel[2:]}: {len(found)} instantiations, "
+                  f"registers {sorted({r for r, _ in found.values()})}, "
+                  f"stack or spills {list(bad.values())}", flush=True)
+            checks.expect(len(found) == count and (not strict or not bad),
+                          f"{kernel}: {len(found)} of {count} "
+                          f"instantiations, stack or spills {bad}")
+
+
+def ring22_plain(u, v, n_blocks: int):
+    """The plain version of K2 naive, float32: n_blocks time blocks of 8."""
+    return stencil.run(u, v, 8 * n_blocks, kernel_constants(Parameters()),
+                       "naive")
+
+
+def ring22_part(u, v, n_blocks: int, depth: int, tiles, part):
+    """(U, V) after one launch of ``n_blocks`` time blocks of 8 steps of
+    the ring's ablation ``part`` (None: the entry, the second form) at
+    ``depth`` on ``tiles`` (None: the compiled geometries)."""
+    consts = kernel_constants(Parameters())
+    pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+    if part is None:
+        megakernel.megastep(pu, pv, n_blocks, 8, consts, "naive",
+                            depth=depth, geometry=tiles)
+    else:
+        megakernel.ring_ablation(pu, pv, n_blocks, 8, consts, part, depth,
+                                 geometry=tiles)
+    return pu[0], pv[0]
+
+
+def compare_ring22(checks: Checks, rng) -> int:
+    """Phase 22b: every ablation part of the ring (RING_ABLATIONS) on each
+    of phase 22's rings, one launch of RING_BLOCKS time blocks of 8 steps
+    at 1080x1920 (and a NaN/Inf state) and 4096^2, naive, float32: bit for
+    bit the plain version (part 2, which steps nothing: its input) and the
+    entry. Returns the comparisons made."""
+    n = 0
+    for shape in RING_SHAPES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            u, v = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+            want = ring22_plain(u, v, RING_BLOCKS)
+            for label, depth, tiles in ring22_cases():
+                entry = ring22_part(u, v, RING_BLOCKS, depth, tiles, None)
+                for part in ring22_parts(shape, depth, tiles):
+                    got = ring22_part(u, v, RING_BLOCKS, depth, tiles, part)
+                    ref = (u, v) if part == 2 else want
+                    same = same_bits(got, ref)
+                    same_entry = part == 2 or same_bits(got, entry)
+                    what = (f"ring22 {shape[0]}x{shape[1]}"
+                            f"{' NaN/Inf' if special else ''} {label} part "
+                            f"{part}")
+                    print(f"compare {what} vs "
+                          f"{'its input' if part == 2 else 'plain'}: bitwise "
+                          f"{same}; vs the entry {same_entry}", flush=True)
+                    checks.expect(same and same_entry, what)
+                    n += 1
+    return n
+
+
+def time_ring22(rng, card: str) -> dict:
+    """Phase 22c: on each of phase 22's rings at 1080x1920 and 4096^2,
+    naive, float32, one launch of 4 time blocks of 8 steps (32 steps) of
+    every ablation part, of the entry (the second form) and of depth 2 on
+    the same tiles, in device time (``queued_ms``), in turns (RING22_ROUNDS
+    rounds, in order and reversed); each beside part 0 and the bound.
+    Returns {(shape, label): {part, "entry" or "depth 2": ms}}."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    steps = MAIN_STEPS
+    for shape in RING_SHAPES:
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        u, v = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+        bound, by = bound_ms(shape, steps, "naive")
+        for label, depth, tiles in ring22_cases():
+            calls = {}
+            for key in [*ring22_parts(shape, depth, tiles), "entry",
+                        "depth 2"]:
+                pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+                if key == "entry" or key == "depth 2":
+                    d = depth if key == "entry" else 2
+                    calls[key] = (
+                        lambda pu=pu, pv=pv, d=d: megakernel.megastep(
+                            pu, pv, steps // 8, 8, consts, "naive", depth=d,
+                            geometry=tiles))
+                else:
+                    calls[key] = (
+                        lambda pu=pu, pv=pv, p=key:
+                        megakernel.ring_ablation(pu, pv, steps // 8, 8,
+                                                 consts, p, depth,
+                                                 geometry=tiles))
+            order = list(calls)
+            samples = {key: [] for key in order}
+            for _ in range(RING22_ROUNDS):
+                for key in order + order[::-1]:
+                    samples[key].append(queued_ms(calls[key],
+                                                  RING22_REPS[shape]))
+            ms = {key: statistics.mean(x) for key, x in samples.items()}
+            out[shape, label] = ms
+            for key in order:
+                what = (key if not isinstance(key, int) else
+                        f"part {key} ({megakernel.RING_ABLATIONS[key]})")
+                print(f"split ring {shape[0]}x{shape[1]} {label}, {steps} "
+                      f"steps a launch, {what}: {ms[key]!r} ms (turns "
+                      f"{samples[key]!r}), {ms[key] / ms[0]!r}x part 0, "
+                      f"{ms[key] / ms['depth 2']!r}x depth 2; "
+                      f"{100 * bound / ms[key]!r} % of the bound {bound!r} "
+                      f"ms ({by}) [{card}]", flush=True)
+    return out
+
+
+def ring22_blocks(checks: Checks) -> None:
+    """Phase 22a: each of phase 22's rings at 1080x1920 and 4096^2, the
+    occupancy API's co-resident blocks of its entry against
+    RingGeometry.blocks_per_sm, which must be the same an SM."""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape in RING_SHAPES:
+        for label, depth, tiles in ring22_cases():
+            g = megakernel.ring_geometry(shape, depth, tiles=tiles)
+            n = (megakernel.pinned_ring_max_blocks(dev, g) if tiles
+                 else megakernel.ring_max_blocks(dev, g))
+            print(f"ring22 {shape[0]}x{shape[1]} {label}: {g.buffers} "
+                  f"buffers, {g.bytes} B, blocks_per_sm {g.blocks_per_sm}; "
+                  f"occupancy API {n} blocks ({n / sms!r} an SM)",
+                  flush=True)
+            checks.expect(n == g.blocks_per_sm * sms,
+                          f"ring22 {shape} {label}: {n} co-resident blocks, "
+                          f"blocks_per_sm {g.blocks_per_sm}")
+
+
+def ring22_phase(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 22: 22a (ptxas, the grids), 22b (every part bit for bit), 22c
+    (the split and the second form in device time)."""
+    ring22_ptxas(checks, log)
+    ring22_blocks(checks)
+    n = compare_ring22(checks, rng)
+    print(f"phase 22b: {n} comparisons of the ring's parts", flush=True)
+    return n, time_ring22(rng, card)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -6603,6 +6838,12 @@ def run_phases(args) -> int:
                                                   built.log)
     print(f"phase 21: {n21} comparisons, {time.perf_counter() - t21!r} s",
           flush=True)
+    # 22. the window ring's redesign: ptxas, every part of its split bit for
+    # bit, the split and the second form in device time
+    t22 = time.perf_counter()
+    n22, ring22_times = ring22_phase(checks, rng, card, built.log)
+    print(f"phase 22: {n22} comparisons, {time.perf_counter() - t22!r} s",
+          flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -6778,7 +7019,10 @@ def run_phases(args) -> int:
             library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
             boundary=boundary, dtype=str(dtype)[6:], naive_fold=fold,
             mega_depth=RING_PATH_DEPTH,
-            depth2_ms=ring_times[tag, MAIN_SHAPE, boundary, 2][0]))
+            depth2_ms=ring_times[tag, MAIN_SHAPE, boundary, 2][0],
+            **({"first_form_ms": ring22_times[
+                MAIN_SHAPE, f"depth {RING_PATH_DEPTH}"][0]}
+               if tag == "mega_ring" else {})))
     # K7's read-site wait: its launches on phase 17d's 4x1 path, one
     # launch's time on 4x1 at 1080x1920 beside the entry gate's (17c)
     rs_ms, gate_ms, bound, by = k7_read_site[MAIN_SHAPE, (4, 1), "naive"]
@@ -6841,7 +7085,10 @@ def run_phases(args) -> int:
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=list(MAIN_SHAPE), steps=32, boundary="naive",
             dtype=str(dtype)[6:], naive_fold=fold, tile=[tr, tc],
-            mega_depth=depth, stepped_bound_ms=stepped, depth2_ms=ms2))
+            mega_depth=depth, stepped_bound_ms=stepped, depth2_ms=ms2,
+            **({"first_form_ms": ring22_times[
+                MAIN_SHAPE, f"{tr}x{tc} depth {depth}"][0]}
+               if tag == "mega_pinned_ring" else {})))
     # K1's shard entries: their launches on phase 20's two-process runs,
     # by rank, summed over the runs that launch them
     name_of = {"shwin": KERNELS["windowed"]["name"],

@@ -11,15 +11,21 @@ the same code. Run it as a file, not with ``-m``, and alternate the trees
 
 For each pin (``auto``, ``--pallas-engine windowed``,
 ``--pallas-engine mega``, the sharded windowed engine on a 2x2 mesh at
-K = 8, and ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2) it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32 steps an
-image) for ``--images`` images, once to warm up, then ``--reps`` times in
+K = 8, ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2, and the
+window ring, which has no flag, as in JAX: ``CudaSimulation(engine='mega',
+mega_depth=4)`` and the same on 16-row pinned tiles, ``block_rows=16``)
+it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32
+steps an image) for ``--images`` images, once to warm up, then ``--reps``
+times in
 turns (the pins in order, then reversed), each on the host clock and ending
 in a device synchronise, as ``chip_smoke.py``'s phase 4 times it: frames
 kept in memory, PyTorch's pinned-memory cache filled first. Then it times
 the kernels alone with CUDA events, each 32 steps on a random state at
 1080x1920: K1 (four 8-step launches), K3 (one launch), K2 and K6 (one
 launch of 4 time blocks; also at 4096x4096), K1's and K2's fold entries
-(the same calls; also at 4096x4096), K7 on 2x2 and 4x1 (one
+(the same calls; also at 4096x4096), K2's ring at mega_depth 4 on the
+compiled and on 16x64 pinned tiles (one launch of 4 time blocks; also at
+4096x4096), K7 on 2x2 and 4x1 (one
 launch after the halo exchange) and K1's shard entry on the same meshes
 (four 8-step launches after the halo exchange), through calls that every commit since
 the sharded megakernel takes, so that the double buffer and the entry
@@ -44,22 +50,34 @@ PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"],
                              "--sharded-mesh-cols", "2",
                              "--sharded-engine", "windowed"],
         "fold": ["--pallas-naive-fold", "on"],
-        "fold mega": ["--pallas-naive-fold", "on", "--pallas-engine", "mega"]}
+        "fold mega": ["--pallas-naive-fold", "on", "--pallas-engine", "mega"],
+        # CudaSimulation's arguments where no flag reaches them
+        "ring 4": {"engine": "mega", "mega_depth": 4},
+        "ring 4 16x64": {"engine": "mega", "mega_depth": 4, "block_rows": 16}}
 
 
-def run_ms(flags: list, images: int, steps: int = 32,
+def run_ms(flags, images: int, steps: int = 32,
            ablation: int | None = None) -> float:
-    """ms an image of one ``simulate.run`` (with ``flags``, and
-    ``ablation``: a part of its snapshot pipeline taken out) of ``images``
-    images of ``steps`` steps, on the host clock ending in a device
-    synchronise; PyTorch's pinned-memory cache is filled first, since the
-    frames are kept."""
+    """ms an image of one ``simulate.run`` (with ``flags``, a list of
+    ``simulate`` flags or a dict of ``CudaSimulation`` arguments on the
+    default run, and ``ablation``: a part of its snapshot pipeline taken
+    out) of ``images`` images of ``steps`` steps, on the host clock ending
+    in a device synchronise; PyTorch's pinned-memory cache is filled
+    first, since the frames are kept."""
     import torch
 
     from grayscott_tpu_torch.cli import shared, simulate
 
-    ns = simulate.build_parser().parse_args(flags)
-    sim = shared.make_simulation(ns)
+    ns = simulate.build_parser().parse_args(
+        flags if isinstance(flags, list) else [])
+    if isinstance(flags, list):
+        sim = shared.make_simulation(ns)
+    else:
+        from grayscott_tpu_torch.backends.cuda import CudaSimulation
+        from grayscott_tpu_torch.params import Parameters
+
+        sim = CudaSimulation(Parameters(), "naive", device="cuda",
+                             tuned_lookup=False, **flags)
     species = sim.make_species(shared.domain_shape(ns))
     frames: list = []
     pinned = [torch.empty(shared.domain_shape(ns), pin_memory=True)
@@ -86,8 +104,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from grayscott_tpu_torch.ops import (megakernel, packed, resident,
-                                         sharded_mega, windowed)
+    from grayscott_tpu_torch.ops import (geometry, megakernel, packed,
+                                         resident, sharded_mega, windowed)
     from grayscott_tpu_torch.parallel import halo
     from grayscott_tpu_torch.params import (Parameters, fold_constants,
                                             kernel_constants,
@@ -152,6 +170,12 @@ def main(argv=None) -> int:
         calls.append((f"K2 fold{label}", lambda fu=fu, fv=fv:
                       megakernel.megastep(fu, fv, 4, 8, fc, "naive",
                                           fold=True), reps))
+        for name, tiles in (("K2 ring 4", None),
+                            ("K2 ring 4 16x64", geometry.Geometry(16, 64, 8))):
+            ru, rv = megakernel.pair_state(a), megakernel.pair_state(b)
+            calls.append((f"{name}{label}", lambda ru=ru, rv=rv, tiles=tiles:
+                          megakernel.megastep(ru, rv, 4, 8, consts, "naive",
+                                              depth=4, geometry=tiles), reps))
     u_np, v_np = (rng.uniform(0, 1, (1080, 1920)).astype(np.float32)
                   for _ in range(2))
     for n_rows, n_cols in ((2, 2), (4, 1)):

@@ -719,10 +719,15 @@ struct Geometry {
   // 64^2 tiles' two blocks, and four of the 32^2 tiles where, left at two,
   // ptxas takes up to 109 registers)
   static constexpr int BLOCKS_AT_64_REGS = 65536 / (64 * NT);
-  // blocks an SM at 128 registers a thread: the bound of the ring kernels,
-  // whose buffers leave room for at most that many blocks an SM on Main
-  // (mega_depth 3: 204,800 B) and, at depths 4 and 5, on Small
+  // blocks an SM at 128 registers a thread: the bound of the ring's first
+  // form (its ablation parts), whose buffers leave room for at most that
+  // many blocks an SM on Main (mega_depth 3: 204,800 B) and, at depths 4
+  // and 5, on Small
   static constexpr int BLOCKS_AT_128_REGS = 65536 / (128 * NT);
+  // a thread's strips of the widest step in place (ring_items; the ring's
+  // ablation parts 5-7)
+  static constexpr int RING_ITEMS =
+      ((WC - 2) * ((WR - 2 + R - 1) / R) + NT - 1) / NT;
   static_assert(WC % 4 == 0 && HALO % 4 == 0, "16-byte window rows");
 };
 
@@ -730,6 +735,11 @@ struct Geometry {
 using Main = Geometry<64, 64, 512, 4>;
 // The former tile: 32^2 in a 48^2 window, 256 threads.
 using Small = Geometry<32, 32, 256, 4>;
+// Main's and Small's tiles on twice the threads: the window ring's (a ring
+// leaves one block an SM on Main, at most two on Small, so that the SM
+// keeps the double buffer's 32 warps at 64 registers a thread)
+using MainWide = Geometry<64, 64, 1024, 4>;
+using SmallWide = Geometry<32, 32, 512, 4>;
 
 // A geometry's sizes as values, the form step_window, window_inside and
 // store_window take: Fixed sizes for a compiled geometry G (the window's
@@ -1126,10 +1136,18 @@ __device__ __forceinline__ void time_block(
 // (:562-630). Here a ring of D slots needs one more buffer, the step's
 // scratch (a step writes the other buffer, not in place): nbuf = D + 1
 // buffers of a window pair, D - 1 windows in flight while a tile steps and D
-// while it is written out. D = 2 is time_block's double buffer (two
-// buffers; the next window loads during the write-out), which K2 and K7
-// keep as their own walk. K6 runs only the double buffer: JAX's packed
-// megakernel takes no depth (packed_megastep_impl, megakernel.py:1112).
+// while it is written out (ring_walk, RING_SCRATCH). Its bytes leave one
+// block an SM on Main's tiles and at most two on Small's, so the ring's
+// kernels run twice the double buffer's threads a block (MainWide,
+// SmallWide, 64 registers a thread), or the pinned tiles' two blocks where
+// the bytes leave room for them. The ring with each tile stepped in place
+// in its own buffer (RING_IN_PLACE, D buffers: step_window_in_place) took
+// 1.14-1.33x the scratch walk's time on the same tile and grid (PERF.md
+// §6) and is an ablation part (mega_ring_ablation.cu), as are the first
+// form's walks. D = 2 is time_block's double buffer (two buffers; the next
+// window loads during the write-out), which K2 and K7 keep as their own
+// walk. K6 runs only the double buffer: JAX's packed megakernel takes no
+// depth (packed_megastep_impl, megakernel.py:1112).
 
 // The most dynamic shared memory one block may opt into on the card
 // (Hopper: 227 KB).
@@ -1143,6 +1161,132 @@ __host__ __device__ constexpr int ring_max_buffers() {
   return SMEM_OPTIN / G::PAIR_BYTES < RING_MAX_BUFFERS
              ? static_cast<int>(SMEM_OPTIN / G::PAIR_BYTES)
              : RING_MAX_BUFFERS;
+}
+
+// The ring's walks (ring_walk's FORM): the entries' and the ablation
+// parts'.
+constexpr int RING_SCRATCH = 0;     // D + 1 buffers, a step writes the other
+constexpr int RING_IN_PLACE = 1;    // D buffers, each tile stepped in place
+constexpr int RING_LOAD_STORE = 2;  // RING_SCRATCH's loads and stores alone
+constexpr int RING_WAIT_ALL = 3;    // RING_SCRATCH, every load waited for
+                                    // before each tile's steps
+
+// The strip items of a window's widest step (its first: cells [1, wr - 1) x
+// [1, wc - 1) in strips of S::R rows), which step_window_in_place holds in
+// registers, ring_items(g) / S::NT rounded up a thread.
+template <typename S>
+__host__ __device__ inline int ring_items(const S& g) {
+  return (static_cast<int>(g.wc) - 2) *
+         ((static_cast<int>(g.wr) - 2 + S::R - 1) / S::R);
+}
+
+// One step of the window cells [lo, g.wr - lo) x [lo, g.wc - lo) of (u, v)
+// in place: step_window's strips, each thread's up to ITEMS strips (items
+// threadIdx.x + q * S::NT) computed into registers, a __syncthreads() so
+// that every read of the step is done, then written back over their inputs.
+// ITEMS * S::NT must cover the step's strips (ring_items). An interior
+// tile's strips are unrolled, each into its own registers; an edge tile's
+// run in a loop (their per-cell code once, which keeps the build in
+// bounds), each strip's outputs pushed onto held[0] and the older ones
+// moved down, then popped in the reverse order for the write-back.
+template <int TAPS, int MODE, bool INTERIOR, int ITEMS, typename S,
+          typename K>
+__device__ __forceinline__ void step_window_in_place(const S& g, float* u,
+                                                     float* v, int lo,
+                                                     int r0, int c0,
+                                                     int rows, int cols,
+                                                     const K& k) {
+  const int hi_r = g.wr - lo, ncols = g.wc - 2 * lo;
+  const int items = ncols * ((hi_r - lo + S::R - 1) / S::R);
+  const int tid = threadIdx.x;
+  // strip `it`: its first row, its column and its cells
+  auto strip_at = [&](int it, int* lr0, int* lc, int* n) {
+    const int strip = it / ncols;
+    *lc = lo + (it - strip * ncols);
+    *lr0 = lo + strip * S::R;
+    *n = min(S::R, hi_r - *lr0);
+  };
+  auto compute = [&](int it, float (&out)[S::R][2]) {
+    int lr0, lc, n;
+    strip_at(it, &lr0, &lc, &n);
+    const StripAt at = {r0 + lr0, c0 + lc, rows, cols};
+    auto sink = [&](int i, float un, float vn) {
+      out[i][0] = un;
+      out[i][1] = vn;
+    };
+    if constexpr (MODE == MODE_FOLD) {
+      step_strip_fold<TAPS, S::R, !INTERIOR>(u, v, g.pitch, lr0, lc, n, at,
+                                             k, sink);
+    } else {
+      step_strip<TAPS, MODE == MODE_NAIVE, S::R, !INTERIOR>(
+          u, v, g.pitch, lr0, lc, n, at, k, sink);
+    }
+  };
+  auto put = [&](int it, const float (&out)[S::R][2]) {
+    int lr0, lc, n;
+    strip_at(it, &lr0, &lc, &n);
+#pragma unroll
+    for (int i = 0; i < S::R; ++i) {
+      if (i < n) {
+        u[(lr0 + i) * g.pitch + lc] = out[i][0];
+        v[(lr0 + i) * g.pitch + lc] = out[i][1];
+      }
+    }
+  };
+  float held[ITEMS][S::R][2];
+  if constexpr (INTERIOR) {
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      if (tid + q * S::NT < items) compute(tid + q * S::NT, held[q]);
+    }
+    __syncthreads();  // every read of the step is done
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      if (tid + q * S::NT < items) put(tid + q * S::NT, held[q]);
+    }
+  } else {
+    auto shift = [&](int from, int to) {
+#pragma unroll
+      for (int i = 0; i < S::R; ++i) {
+        held[to][i][0] = held[from][i][0];
+        held[to][i][1] = held[from][i][1];
+      }
+    };
+    int count = 0;
+#pragma unroll 1
+    for (int q = 0; q < ITEMS && tid + q * S::NT < items; ++q) {
+#pragma unroll
+      for (int c = ITEMS - 1; c > 0; --c) shift(c - 1, c);
+      compute(tid + q * S::NT, held[0]);
+      ++count;
+    }
+    __syncthreads();  // every read of the step is done
+#pragma unroll 1
+    for (int q = count - 1; q >= 0; --q) {
+      put(tid + q * S::NT, held[0]);
+#pragma unroll
+      for (int c = 0; c + 1 < ITEMS; ++c) shift(c + 1, c);
+    }
+  }
+}
+
+// window_steps in place: the tile's `steps` steps in buffer b, each followed
+// by a __syncthreads().
+template <int TAPS, int MODE, int ITEMS, typename S, typename K>
+__device__ __forceinline__ void window_steps_in_place(
+    const S& g, float* base, int b, int steps, bool interior, int r0, int c0,
+    int rows, int cols, const K& k) {
+  float* u = base + 2 * b * g.cells;
+  for (int st = 0; st < steps; ++st) {
+    if (interior) {
+      step_window_in_place<TAPS, MODE, true, ITEMS>(g, u, u + g.cells, st + 1,
+                                                    r0, c0, rows, cols, k);
+    } else {
+      step_window_in_place<TAPS, MODE, false, ITEMS>(
+          g, u, u + g.cells, st + 1, r0, c0, rows, cols, k);
+    }
+    __syncthreads();
+  }
 }
 
 // cp_async_wait<N> for a run-time N (0..RING_MAX_BUFFERS - 2; more waits as
@@ -1162,56 +1306,88 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
 
 // One time block's walk of the block's tiles first, first + stride, ...
 // (< n_tiles), numbered j = 0, 1, ..., through a ring of `nbuf` (2 ..
-// RING_MAX_BUFFERS) buffers: tile j's window starts loading once tile
-// j - nbuf + 1 has stepped, so nbuf - 2 loads are in flight while a tile
-// steps. The first nbuf - 1 windows load when the call begins, so no load
-// crosses the caller's barrier, and none is issued for a tile of the next
-// time block.
+// RING_MAX_BUFFERS) buffers. The first nbuf - 1 windows load when the call
+// begins, so no load crosses the caller's barrier, and none is issued for a
+// tile of the next time block.
 //
 //   load(i, b):    start loading tile i's window into buffer b, and commit
 //                  it as one cp.async group (or load it through registers);
-//   run(i, b, s):  tile i's `steps` steps between buffer b (its window) and
-//                  s (the scratch), each followed by a __syncthreads();
+//   run(i, b, s):  tile i's `steps` steps from buffer b (its window), each
+//                  followed by a __syncthreads(): in place (s == b, FORM
+//                  RING_IN_PLACE), or between b and the scratch s;
 //   store(i, b):   write tile i out from buffer b.
 //
-// Which buffer holds what: with m = nbuf - steps % 2, tile j's window lies
-// in buffer j % m, and its scratch is buffer m (odd steps: the result ends in
-// the scratch, and the window's buffer is free) or (j - 1) % m (even steps:
-// the result ends in the window's buffer, and the scratch is free). The
-// buffer that a tile's last step read is free once that step's barrier is
-// passed, and takes the window nbuf - 1 tiles ahead, which the rule gives it
-// in both cases; the tile's result is the next tile's scratch, written only
-// after the barrier that follows the write-out. Returns without a trailing
-// __syncthreads(): the buffers are free once every thread is past the
-// caller's next barrier.
-template <typename Load, typename Run, typename Store>
+// ops/megakernel.py:ring_walk_plan is the CPU twin of both walks.
+//
+// RING_SCRATCH and its ablations: with m = nbuf - steps % 2, tile j's window
+// lies in buffer j % m, and its scratch is buffer m (odd steps: the result
+// ends in the scratch, and the window's buffer is free) or (j - 1) % m (even
+// steps: the result ends in the window's buffer, and the scratch is free).
+// The buffer that a tile's last step read is free once that step's barrier
+// is passed, and takes the window nbuf - 1 tiles ahead, which the rule
+// gives it in both cases; the tile's result is the next tile's scratch,
+// written only after the barrier that follows the write-out. nbuf - 2 loads
+// are in flight while a tile steps (none for RING_WAIT_ALL), nbuf - 1 while
+// it is written out. RING_LOAD_STORE calls run with no step (steps 0).
+//
+// RING_IN_PLACE: tile j's window lies in buffer j % nbuf and its result
+// stays there. Once every thread is past the barrier that opens tile j,
+// tile j - 1's write-out is done and its buffer, (j - 1) % nbuf, takes the
+// window nbuf - 1 tiles ahead: nbuf - 1 loads are in flight while a tile
+// steps, nbuf - 2 at the wait.
+//
+// Returns without a trailing __syncthreads(): the buffers are free once
+// every thread is past the caller's next barrier.
+template <int FORM, typename Load, typename Run, typename Store>
 __device__ __forceinline__ void ring_walk(int first, int stride, int n_tiles,
                                           int steps, int nbuf, Load&& load,
                                           Run&& run, Store&& store) {
   const int n = first < n_tiles ? (n_tiles - 1 - first) / stride + 1 : 0;
-  const int odd = steps & 1, m = nbuf - odd;
   for (int j = 0; j < nbuf - 1 && j < n; ++j) load(first + j * stride, j);
-  int b = 0;  // j % m
-  for (int j = 0; j < n; ++j) {
-    const int i = first + j * stride;
-    // the windows of tiles j + 1 .. j + nbuf - 2 may stay in flight
-    cp_async_wait_upto(min(nbuf - 2, n - 1 - j));
-    __syncthreads();  // tile j's window is in place
-    const int s = odd ? m : (b == 0 ? m - 1 : b - 1);
-    run(i, b, s);
-    const int done = odd ? s : b;
-    if (j + nbuf - 1 < n) load(i + (nbuf - 1) * stride, odd ? b : s);
-    store(i, done);
-    b = b + 1 == m ? 0 : b + 1;
+  if constexpr (FORM != RING_IN_PLACE) {
+    const int odd = FORM == RING_LOAD_STORE ? 0 : steps & 1;
+    const int m = nbuf - odd;
+    int b = 0;  // j % m
+    for (int j = 0; j < n; ++j) {
+      const int i = first + j * stride;
+      if (FORM == RING_WAIT_ALL) {
+        cp_async_wait<0>();
+      } else {
+        // the windows of tiles j + 1 .. j + nbuf - 2 may stay in flight
+        cp_async_wait_upto(min(nbuf - 2, n - 1 - j));
+      }
+      __syncthreads();  // tile j's window is in place
+      const int s = odd ? m : (b == 0 ? m - 1 : b - 1);
+      if (FORM != RING_LOAD_STORE) run(i, b, s);
+      const int done = odd ? s : b;
+      if (j + nbuf - 1 < n) load(i + (nbuf - 1) * stride, odd ? b : s);
+      store(i, done);
+      b = b + 1 == m ? 0 : b + 1;
+    }
+  } else {
+    int b = 0;  // j % nbuf
+    for (int j = 0; j < n; ++j) {
+      const int i = first + j * stride;
+      // the windows of tiles j + 1 .. j + nbuf - 2 may stay in flight
+      cp_async_wait_upto(min(nbuf - 2, n - 1 - j));
+      __syncthreads();  // tile j's window is in place, tile j - 1 written
+      if (j + nbuf - 1 < n) {
+        load(i + (nbuf - 1) * stride, b == 0 ? nbuf - 1 : b - 1);
+      }
+      run(i, b, b);
+      store(i, b);
+      b = b + 1 == nbuf ? 0 : b + 1;
+    }
   }
 }
 
 // time_block's time block (K2) on a ring of `nbuf` buffers of g at `base`
 // (FixedShape of a compiled geometry, or the PinGeometry of the tile pins):
-// ring_walk with time_block's window load, steps (interior tiles
-// specialised) and write-out.
-template <int TAPS, int MODE, typename S, typename Layout, typename T,
-          typename K>
+// ring_walk of FORM with time_block's window load, steps (interior tiles
+// specialised; in place on ITEMS strips a thread for RING_IN_PLACE) and
+// write-out.
+template <int TAPS, int MODE, int FORM, int ITEMS, typename S,
+          typename Layout, typename T, typename K>
 __device__ __forceinline__ void ring_time_block_on(
     const S& g, const Layout& mem, const T* u, const T* v, T* u_out,
     T* v_out, int first, int stride, int n_tiles, int tiles_x, int row0,
@@ -1230,16 +1406,21 @@ __device__ __forceinline__ void ring_time_block_on(
   auto run = [&](int i, int b, int s) {
     int r0, c0;
     corner(i, &r0, &c0);
-    window_steps<TAPS, MODE>(g, base, b, s, steps,
-                             window_inside(g, r0, c0, rows, cols), r0, c0,
-                             rows, cols, k);
+    const bool interior = window_inside(g, r0, c0, rows, cols);
+    if constexpr (FORM == RING_IN_PLACE) {
+      window_steps_in_place<TAPS, MODE, ITEMS>(g, base, b, steps, interior,
+                                               r0, c0, rows, cols, k);
+    } else {
+      window_steps<TAPS, MODE>(g, base, b, s, steps, interior, r0, c0, rows,
+                               cols, k);
+    }
   };
   auto store = [&](int i, int b) {
     int r0, c0;
     corner(i, &r0, &c0);
     window_store(g, mem, u_out, v_out, base, b, r0, c0, rows, cols);
   };
-  ring_walk(first, stride, n_tiles, steps, nbuf, load, run, store);
+  ring_walk<FORM>(first, stride, n_tiles, steps, nbuf, load, run, store);
 }
 
 // --- pinned geometries (K1's and K4's tile and depth pins) ------------------
@@ -1262,6 +1443,21 @@ struct PinGeometry {
   static constexpr int NT = Main::NT, R = Main::R;
   int tr, tc, halo, wr, wc, pitch, cells;
 };
+
+// A pinned geometry stepped by twice Main's threads (the window ring where
+// its bytes leave one block an SM: mega_pins_ring.cu).
+struct PinGeometryWide {
+  static constexpr int NT = 2 * Main::NT, R = Main::R;
+  int tr, tc, halo, wr, wc, pitch, cells;
+};
+
+// A thread's strips of the widest in-place step of a pinned ring of Main's
+// threads (the ring's ablation parts 5-7): 5 covers every ring of at least
+// 3 buffers that a block's shared memory holds (at most 2,388 strips: 8x384
+// tiles), 3 every ring that leaves room for two blocks an SM (at most
+// 1,188); the ablation's C interface checks ring_items.
+constexpr int PIN_RING_ITEMS = 5;
+constexpr int PIN_RING_ITEMS_2 = 3;
 
 inline PinGeometry pin_geometry(int tr, int tc, int halo) {
   const int wc = tc + 2 * halo, pitch = (wc + 7) / 8 * 8;
@@ -1288,12 +1484,14 @@ inline bool pin_ok(int tr, int tc, int halo, int steps) {
 }
 
 // The co-resident blocks of a persistent `kernel` (the pinned megakernels:
-// mega_pins.cu, sharded_mega_pins.cu) on `device` at `bytes` of dynamic
-// shared memory, after allowing the kernel the most a block may use (once
-// per device: `allowed`, one flag a device for each kernel).
+// mega_pins.cu, mega_pins_ring.cu, sharded_mega_pins.cu) of `threads`
+// threads a block on `device` at `bytes` of dynamic shared memory, after
+// allowing the kernel the most a block may use (once per device:
+// `allowed`, one flag a device for each kernel).
 template <typename Kernel>
 cudaError_t pinned_coresident(Kernel kernel, bool* allowed, int device,
-                              size_t bytes, int* out) {
+                              size_t bytes, int* out,
+                              int threads = PinGeometry::NT) {
   cudaError_t err;
   if (!allowed[device]) {
     err = cudaFuncSetAttribute(kernel,
@@ -1303,8 +1501,8 @@ cudaError_t pinned_coresident(Kernel kernel, bool* allowed, int device,
     allowed[device] = true;
   }
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, PinGeometry::NT, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, bytes);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -1426,11 +1624,12 @@ cudaError_t dispatch_taps(const Constants& k, Args&&... args) {
 }
 
 // dispatch_taps for the pinned entries of the megakernels and of K1's shard
-// entry (mega_pins.cu, sharded_mega_pins.cu, windowed_pins.cu): the default
-// stencils' tap set (TAPS_RING) has its own instantiation, every other set
-// runs TAPS_ANY, which tests each weight at run time and adds the same
-// terms in the same order, bit for bit. Two instantiations where
-// dispatch_taps has four keep the library's build time in bounds.
+// entry (mega_pins.cu, mega_pins_ring.cu, sharded_mega_pins.cu,
+// windowed_pins.cu): the default stencils' tap set (TAPS_RING) has its own
+// instantiation, every other set runs TAPS_ANY, which tests each weight at
+// run time and adds the same terms in the same order, bit for bit. Two
+// instantiations where dispatch_taps has four keep the library's build
+// time in bounds.
 template <template <int> class Launch, typename... Args>
 cudaError_t dispatch_taps_lean(const Constants& k, Args&&... args) {
   if (tap_mask(k) == TAPS_RING) return Launch<TAPS_RING>::run(args...);

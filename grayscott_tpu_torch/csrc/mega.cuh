@@ -1,9 +1,10 @@
 // What K2's translation units share (mega.cu: the double buffer, its
 // ablation parts; mega_ring.cu: the window ring of mega_depth > 2;
-// mega_pins.cu: the double buffer and the ring on the tile pins'
-// geometry): the odd-count slot copy, a launch's time blocks on the double
-// buffer and on the ring, the launch's arguments and the C interface's
-// checks.
+// mega_pins.cu and mega_pins_ring.cu: the double buffer and the ring on the
+// tile pins' geometry; mega_ring_ablation.cu: the ring's ablation parts):
+// the odd-count slot copy, a launch's time blocks on the double buffer and
+// on the ring, the launch's arguments, the C interface's checks and the
+// pinned geometries' cooperative launch.
 
 #pragma once
 
@@ -57,10 +58,11 @@ __device__ __forceinline__ void mega_run(const S& g, T* u_pair, T* v_pair,
 }
 
 // One launch of K2 on a window ring (mega_depth): mega_run's time blocks
-// walked through `nbuf` buffers of g at `base` (ring_time_block_on;
-// FixedShape<Main> or <Small> in mega_ring.cu, the PinGeometry of the tile
-// pins in mega_pins.cu).
-template <int TAPS, int MODE, typename S, typename T, typename K>
+// walked through `nbuf` buffers of g at `base` (ring_time_block_on of FORM,
+// ITEMS strips a thread in place; FixedShape<Main> or <Small> in
+// mega_ring.cu, the PinGeometry of the tile pins in mega_pins_ring.cu).
+template <int TAPS, int MODE, int FORM, int ITEMS, typename S, typename T,
+          typename K>
 __device__ __forceinline__ void ring_run(const S& g, T* u_pair, T* v_pair,
                                          int rows, int cols, int n_blocks,
                                          int steps, const K& k, int aligned,
@@ -72,7 +74,7 @@ __device__ __forceinline__ void ring_run(const S& g, T* u_pair, T* v_pair,
   const int n_tiles = tiles_x * ((rows + g.tr - 1) / g.tr);
   for (int t = 0; t < n_blocks; ++t) {
     const size_t src = (t & 1) ? plane : 0, dst = (t & 1) ? 0 : plane;
-    sm90::ring_time_block_on<TAPS, MODE>(
+    sm90::ring_time_block_on<TAPS, MODE, FORM, ITEMS>(
         g, gs::FlatLayout{cols}, u_pair + src, v_pair + src, u_pair + dst,
         v_pair + dst, blockIdx.x, gridDim.x, n_tiles, tiles_x, 0, 0, rows,
         cols, steps, k, aligned, nbuf, base);
@@ -130,6 +132,37 @@ Call<T, sm90::FoldConstants> make_fold_call(
           sm90::fold_constants(fold, dt_is_one), grid_blocks,
           static_cast<unsigned long long*>(barrier),
           static_cast<cudaStream_t>(stream)};
+}
+
+// One cooperative launch of `kernel` (G::NT threads a block) with `args`
+// over the tiles of g on a rows x cols domain, `bytes` of dynamic shared
+// memory a block. `grid_blocks` <= 0 takes the co-resident maximum at those
+// bytes (capped at the tile count); a larger grid than the card can hold is refused with
+// cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
+template <typename Kernel, typename G = sm90::PinGeometry>
+cudaError_t launch_pinned(Kernel kernel, bool* allowed, void** args,
+                          int rows, int cols, const G& g, size_t bytes,
+                          int grid_blocks, int device, cudaStream_t stream) {
+  int most = 0;
+  cudaError_t err =
+      sm90::pinned_coresident(kernel, allowed, device, bytes, &most, G::NT);
+  if (err != cudaSuccess) return err;
+  int grid = grid_blocks;
+  if (grid <= 0) {
+    grid = most;
+    const long long tiles = static_cast<long long>((cols + g.tc - 1) / g.tc) *
+                            ((rows + g.tr - 1) / g.tr);
+    if (tiles < grid) grid = static_cast<int>(tiles);
+  }
+  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(grid), dim3(G::NT), args, bytes,
+                                    stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the next launch must not report it
+    return err;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace

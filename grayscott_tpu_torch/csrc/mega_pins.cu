@@ -32,18 +32,8 @@
 // and leaves fewer blocks on an SM; a thin one the opposite, which the card
 // measures (PERF.md §6).
 //
-// The pinned ring entries (gs_mega_pinned_ring_multistep, its bf16, fold
-// and fold bf16 twins) are mega_ring.cu's window ring (mega_depth D in
-// 3..8; grayscott_tpu/ops/megakernel.py:562-630) on the tile pins'
-// geometry: mega.cuh's ring_run (gs_tile_sm90.cuh: ring_walk,
-// ring_time_block_on) on the PinGeometry, D + 1 buffers of the pinned
-// window pair. The ring changes when a window loads, not what a step
-// computes: the double buffer's result bit for bit. Which depth runs is
-// JAX's clamp on the pinned tiles' windows (ops/megakernel.py:
-// ring_geometry); a ring past the 227 KB a block may use is refused before
-// the launch. The grid is the co-resident block count at the ring's bytes
-// (gs_mega_pinned_ring_max_blocks), the kernels bound to 128 registers a
-// thread (one block an SM by registers, as mega_ring.cu's 64x64 ring).
+// The pinned ring entries (gs_mega_pinned_ring_multistep and its twins)
+// are mega_pins_ring.cu's.
 
 #include "gs_packed_sm90.cuh"
 #include "mega.cuh"
@@ -66,20 +56,6 @@ mega_pinned_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                                    reinterpret_cast<float*>(window));
 }
 
-// blocks an SM the register budget of the ring kernels allows
-constexpr int RING_MIN_BLOCKS = 1;
-
-template <int TAPS, int MODE, typename T, typename K>
-__global__ void __launch_bounds__(PinGeometry::NT, RING_MIN_BLOCKS)
-ring_pinned_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
-                   int steps, K k, int aligned, PinGeometry g, int nbuf,
-                   unsigned long long* barrier) {
-  extern __shared__ float4 window[];  // buffers [nbuf] x species [2]
-  ring_run<TAPS, MODE>(g, u_pair, v_pair, rows, cols, n_blocks, steps, k,
-                       aligned, nbuf, barrier,
-                       reinterpret_cast<float*>(window));
-}
-
 __global__ void __launch_bounds__(PinGeometry::NT, MIN_BLOCKS)
 packed_mega_pinned_kernel(float* x_pair, int rows, int cols, int n_blocks,
                           int steps, gs::PackedConstants k, int aligned,
@@ -88,38 +64,6 @@ packed_mega_pinned_kernel(float* x_pair, int rows, int cols, int n_blocks,
   sm90::packed_mega_run<true, true>(g, x_pair, rows, cols, n_blocks, steps,
                                     k, aligned, barrier,
                                     reinterpret_cast<float*>(window));
-}
-
-// One cooperative launch of `kernel` with `args` over the tiles of g on a
-// rows x cols domain, `bytes` of dynamic shared memory a block.
-// `grid_blocks` <= 0 takes the co-resident maximum at those bytes (capped
-// at the tile count); a larger grid than the card can hold is refused with
-// cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
-template <typename Kernel>
-cudaError_t launch_pinned(Kernel kernel, bool* allowed, void** args,
-                          int rows, int cols, const PinGeometry& g,
-                          size_t bytes, int grid_blocks, int device,
-                          cudaStream_t stream) {
-  int most = 0;
-  cudaError_t err =
-      sm90::pinned_coresident(kernel, allowed, device, bytes, &most);
-  if (err != cudaSuccess) return err;
-  int grid = grid_blocks;
-  if (grid <= 0) {
-    grid = most;
-    const long long tiles = static_cast<long long>((cols + g.tc - 1) / g.tc) *
-                            ((rows + g.tr - 1) / g.tr);
-    if (tiles < grid) grid = static_cast<int>(tiles);
-  }
-  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(grid), dim3(PinGeometry::NT), args,
-                                    bytes, stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it: the next launch must not report it
-    return err;
-  }
-  return cudaGetLastError();
 }
 
 // One instantiation of mega_pinned_kernel: its co-resident blocks at a
@@ -151,57 +95,13 @@ struct MegaPinned {
   }
 };
 
-// Dynamic shared memory of a ring of `nbuf` window pairs of g.
-inline size_t ring_bytes(const PinGeometry& g, int nbuf) {
-  return static_cast<size_t>(nbuf) * sm90::pin_bytes(g) / 2;
-}
-
-// One instantiation of ring_pinned_kernel: its co-resident blocks at a
-// geometry and buffer count, and its launch.
-template <int TAPS, int MODE, typename T, typename K = gs::Constants>
-struct RingPinned {
-  static bool* allowed() {
-    static bool done[gs::MAX_DEVICES];
-    return done;
-  }
-
-  static cudaError_t max_blocks(int device, const PinGeometry& g, int nbuf,
-                                int* out) {
-    return sm90::pinned_coresident(ring_pinned_kernel<TAPS, MODE, T, K>,
-                                   allowed(), device, ring_bytes(g, nbuf),
-                                   out);
-  }
-
-  static cudaError_t launch(const Call<T, K>& c, const PinGeometry& g,
-                            int nbuf) {
-    Call<T, K> a = c;
-    PinGeometry geo = g;
-    const size_t plane = static_cast<size_t>(c.rows) * c.cols;
-    int aligned = sm90::rows_aligned<T>(c.cols, c.u_pair, c.v_pair,
-                                        c.u_pair + plane, c.v_pair + plane) &&
-                  g.tc % sm90::vec_cells<T>() == 0;
-    void* args[] = {&a.u_pair, &a.v_pair, &a.rows,  &a.cols, &a.n_blocks,
-                    &a.steps,  &a.k,      &aligned, &geo,    &nbuf,
-                    &a.barrier};
-    return launch_pinned(ring_pinned_kernel<TAPS, MODE, T, K>, allowed(),
-                         args, c.rows, c.cols, g, ring_bytes(g, nbuf),
-                         c.grid_blocks, c.device, c.stream);
-  }
-};
-
-// The double buffer (nbuf 2: MegaPinned) or the ring (RingPinned) of the
-// call's boundary.
+// The double buffer of the call's boundary (MegaPinned).
 template <int TAPS>
 struct Launch {
   template <typename T>
-  static cudaError_t run(const Call<T>& c, const PinGeometry& g, int nbuf) {
-    constexpr int NAIVE = sm90::MODE_NAIVE, ZERO = sm90::MODE_ZERO;
-    if (nbuf > 2) {
-      return c.naive ? RingPinned<TAPS, NAIVE, T>::launch(c, g, nbuf)
-                     : RingPinned<TAPS, ZERO, T>::launch(c, g, nbuf);
-    }
-    return c.naive ? MegaPinned<TAPS, NAIVE, T>::launch(c, g)
-                   : MegaPinned<TAPS, ZERO, T>::launch(c, g);
+  static cudaError_t run(const Call<T>& c, const PinGeometry& g) {
+    return c.naive ? MegaPinned<TAPS, sm90::MODE_NAIVE, T>::launch(c, g)
+                   : MegaPinned<TAPS, sm90::MODE_ZERO, T>::launch(c, g);
   }
 };
 
@@ -209,12 +109,9 @@ template <int TAPS>
 struct LaunchFold {
   template <typename T>
   static cudaError_t run(const Call<T, sm90::FoldConstants>& c,
-                         const PinGeometry& g, int nbuf) {
-    using Fold = sm90::FoldConstants;
-    if (nbuf > 2) {
-      return RingPinned<TAPS, sm90::MODE_FOLD, T, Fold>::launch(c, g, nbuf);
-    }
-    return MegaPinned<TAPS, sm90::MODE_FOLD, T, Fold>::launch(c, g);
+                         const PinGeometry& g) {
+    return MegaPinned<TAPS, sm90::MODE_FOLD, T, sm90::FoldConstants>::launch(
+        c, g);
   }
 };
 
@@ -231,8 +128,7 @@ void take_fewer(int device, int* least, cudaError_t* err,
 }
 
 // The fewer of *least and the co-resident blocks at g of every
-// instantiation of the double buffer (Entry = MegaPinned) or the ring
-// (RingPinned, `args`: its buffers) on T.
+// instantiation of the double buffer (Entry = MegaPinned) on T.
 template <template <int, int, typename, typename> class Entry, typename T,
           typename... Args>
 void fewest_of(int device, const PinGeometry& g, int* least,
@@ -258,23 +154,13 @@ bool geometry_ok(int tr, int tc, int device) {
          device < gs::MAX_DEVICES;
 }
 
-// Whether `nbuf` buffers of the tr x tc geometry are the double buffer (2)
-// or a ring the pinned ring entries take (3 .. RING_MAX_BUFFERS, within the
-// shared memory a block may use).
-bool buffers_ok(int tr, int tc, int nbuf) {
-  if (nbuf == 2) return true;
-  return nbuf >= 3 && nbuf <= sm90::RING_MAX_BUFFERS &&
-         ring_bytes(sm90::pin_geometry(tr, tc, HALO), nbuf) <=
-             sm90::SMEM_OPTIN;
-}
-
 template <typename T>
 int multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
               int steps, int naive, int device, const float* w, float du,
               float dv, float feed, float min_feed_kill, float dt,
-              int grid_blocks, void* barrier, void* stream, int tr, int tc,
-              int nbuf) {
-  if (!geometry_ok(tr, tc, device) || !buffers_ok(tr, tc, nbuf)) {
+              int grid_blocks, void* barrier, void* stream, int tr,
+              int tc) {
+  if (!geometry_ok(tr, tc, device)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
@@ -283,15 +169,15 @@ int multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                               dt, grid_blocks, barrier, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sm90::dispatch_taps_lean<Launch>(
-      c.k, c, sm90::pin_geometry(tr, tc, HALO), nbuf));
+      c.k, c, sm90::pin_geometry(tr, tc, HALO)));
 }
 
 template <typename T>
 int fold_multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                    int steps, int device, const float* fold, int separable,
                    int dt_is_one, int grid_blocks, void* barrier,
-                   void* stream, int tr, int tc, int nbuf) {
-  if (!geometry_ok(tr, tc, device) || !buffers_ok(tr, tc, nbuf)) {
+                   void* stream, int tr, int tc) {
+  if (!geometry_ok(tr, tc, device)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
@@ -300,7 +186,7 @@ int fold_multistep(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
                      fold, dt_is_one, grid_blocks, barrier, stream, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(sm90::dispatch_fold_lean<LaunchFold>(
-      c.k, separable, c, sm90::pin_geometry(tr, tc, HALO), nbuf));
+      c.k, separable, c, sm90::pin_geometry(tr, tc, HALO)));
 }
 
 bool packed_allowed[gs::MAX_DEVICES];
@@ -328,26 +214,6 @@ int gs_mega_pinned_max_blocks(int device, int tr, int tc) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// The most blocks one cooperative launch of the pinned ring entries may
-// have on `device` on tr x tc tiles with `nbuf` (3..9) window buffers,
-// whatever their weights, boundary, mode and storage type (negative:
-// minus the CUDA error; 0: the ring does not fit a block).
-int gs_mega_pinned_ring_max_blocks(int device, int tr, int tc, int nbuf) {
-  if (device < 0 || device >= gs::MAX_DEVICES) {
-    return -static_cast<int>(cudaErrorInvalidDevice);
-  }
-  if (!geometry_ok(tr, tc, device) || nbuf < 3 ||
-      !buffers_ok(tr, tc, nbuf)) {
-    return -static_cast<int>(cudaErrorInvalidValue);
-  }
-  const PinGeometry g = sm90::pin_geometry(tr, tc, HALO);
-  cudaError_t err = cudaSetDevice(device);
-  int n = 1 << 30;
-  fewest_of<RingPinned, float>(device, g, &n, &err, nbuf);
-  fewest_of<RingPinned, sm90::bf16>(device, g, &n, &err, nbuf);
-  return err == cudaSuccess ? n : -static_cast<int>(err);
-}
-
 // gs_mega_multistep on tr x tc tiles (a multiple of 8 rows; any width up
 // to the shared memory a block may use), its arguments then tr and tc.
 // Returns the CUDA error (0 when the launch was accepted), or
@@ -363,7 +229,7 @@ int gs_mega_pinned_multistep(float* u_pair, float* v_pair, int rows,
   const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
   return multistep(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
                    device, w, du, dv, feed, min_feed_kill, dt, grid_blocks,
-                   barrier, stream, tr, tc, 2);
+                   barrier, stream, tr, tc);
 }
 
 // gs_mega_pinned_multistep on bfloat16 pairs (widened on load, rounded on
@@ -380,7 +246,7 @@ int gs_mega_pinned_multistep_bf16(void* u_pair, void* v_pair, int rows,
   return multistep(static_cast<sm90::bf16*>(u_pair),
                    static_cast<sm90::bf16*>(v_pair), rows, cols, n_blocks,
                    steps, naive, device, w, du, dv, feed, min_feed_kill, dt,
-                   grid_blocks, barrier, stream, tr, tc, 2);
+                   grid_blocks, barrier, stream, tr, tc);
 }
 
 // gs_mega_multistep_fold on tr x tc tiles.
@@ -392,7 +258,7 @@ int gs_mega_pinned_multistep_fold(float* u_pair, float* v_pair, int rows,
                                   void* stream, int tr, int tc) {
   return fold_multistep(u_pair, v_pair, rows, cols, n_blocks, steps, device,
                         fold, separable, dt_is_one, grid_blocks, barrier,
-                        stream, tr, tc, 2);
+                        stream, tr, tc);
 }
 
 // gs_mega_multistep_fold_bf16 on tr x tc tiles.
@@ -405,68 +271,7 @@ int gs_mega_pinned_multistep_fold_bf16(void* u_pair, void* v_pair, int rows,
   return fold_multistep(static_cast<sm90::bf16*>(u_pair),
                         static_cast<sm90::bf16*>(v_pair), rows, cols,
                         n_blocks, steps, device, fold, separable, dt_is_one,
-                        grid_blocks, barrier, stream, tr, tc, 2);
-}
-
-// gs_mega_pinned_multistep on a ring of `nbuf` (3..9) window buffers of
-// tr x tc tiles (mega_depth D: D + 1 buffers; ops/megakernel.py:
-// ring_geometry); the same result, bit for bit. cudaErrorInvalidValue for
-// a ring past the shared memory a block may use.
-int gs_mega_pinned_ring_multistep(float* u_pair, float* v_pair, int rows,
-                                  int cols, int n_blocks, int steps,
-                                  int naive, int device, float w0, float w1,
-                                  float w2, float w3, float w4, float w5,
-                                  float w6, float w7, float w8, float du,
-                                  float dv, float feed, float min_feed_kill,
-                                  float dt, int grid_blocks, void* barrier,
-                                  void* stream, int tr, int tc, int nbuf) {
-  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  if (nbuf < 3) return static_cast<int>(cudaErrorInvalidValue);
-  return multistep(u_pair, v_pair, rows, cols, n_blocks, steps, naive,
-                   device, w, du, dv, feed, min_feed_kill, dt, grid_blocks,
-                   barrier, stream, tr, tc, nbuf);
-}
-
-// gs_mega_pinned_ring_multistep on bfloat16 pairs.
-int gs_mega_pinned_ring_multistep_bf16(
-    void* u_pair, void* v_pair, int rows, int cols, int n_blocks, int steps,
-    int naive, int device, float w0, float w1, float w2, float w3, float w4,
-    float w5, float w6, float w7, float w8, float du, float dv, float feed,
-    float min_feed_kill, float dt, int grid_blocks, void* barrier,
-    void* stream, int tr, int tc, int nbuf) {
-  const float w[9] = {w0, w1, w2, w3, w4, w5, w6, w7, w8};
-  if (nbuf < 3) return static_cast<int>(cudaErrorInvalidValue);
-  return multistep(static_cast<sm90::bf16*>(u_pair),
-                   static_cast<sm90::bf16*>(v_pair), rows, cols, n_blocks,
-                   steps, naive, device, w, du, dv, feed, min_feed_kill, dt,
-                   grid_blocks, barrier, stream, tr, tc, nbuf);
-}
-
-// gs_mega_pinned_multistep_fold on a ring of `nbuf` buffers.
-int gs_mega_pinned_ring_multistep_fold(float* u_pair, float* v_pair,
-                                       int rows, int cols, int n_blocks,
-                                       int steps, int device,
-                                       const float* fold, int separable,
-                                       int dt_is_one, int grid_blocks,
-                                       void* barrier, void* stream, int tr,
-                                       int tc, int nbuf) {
-  if (nbuf < 3) return static_cast<int>(cudaErrorInvalidValue);
-  return fold_multistep(u_pair, v_pair, rows, cols, n_blocks, steps, device,
-                        fold, separable, dt_is_one, grid_blocks, barrier,
-                        stream, tr, tc, nbuf);
-}
-
-// gs_mega_pinned_multistep_fold_bf16 on a ring of `nbuf` buffers.
-int gs_mega_pinned_ring_multistep_fold_bf16(
-    void* u_pair, void* v_pair, int rows, int cols, int n_blocks, int steps,
-    int device, const float* fold, int separable, int dt_is_one,
-    int grid_blocks, void* barrier, void* stream, int tr, int tc,
-    int nbuf) {
-  if (nbuf < 3) return static_cast<int>(cudaErrorInvalidValue);
-  return fold_multistep(static_cast<sm90::bf16*>(u_pair),
-                        static_cast<sm90::bf16*>(v_pair), rows, cols,
-                        n_blocks, steps, device, fold, separable, dt_is_one,
-                        grid_blocks, barrier, stream, tr, tc, nbuf);
+                        grid_blocks, barrier, stream, tr, tc);
 }
 
 // The most blocks one cooperative launch of the pinned K6 entry may have

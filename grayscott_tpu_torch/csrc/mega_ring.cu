@@ -9,13 +9,15 @@
 // when a window loads changes, so the result is mega.cu's bit for bit, on
 // float32 and bfloat16 pairs and in the fold's mode.
 //
-//   - The ring (gs_tile_sm90.cuh: ring_walk, ring_time_block_on; mega.cuh:
-//     ring_run, which mega_pins.cu runs on the tile pins' geometry): `nbuf`
-//     buffers of a window pair in dynamic shared memory, D + 1 for depth D
-//     (D slots and the step's scratch). Each block numbers its tiles of the
-//     time block j = 0, 1, ...; tile j's window starts loading once tile
-//     j - nbuf + 1 has stepped, so D - 1 loads are in flight while a tile
-//     steps and D while it is written out.
+//   - The ring (gs_tile_sm90.cuh: ring_walk, RING_SCRATCH, and
+//     ring_time_block_on; mega.cuh: ring_run, which mega_pins_ring.cu runs
+//     on the tile pins' geometry): `nbuf` buffers of a window pair in
+//     dynamic shared memory, D + 1 for depth D (D slots and the step's
+//     scratch). Each block numbers its tiles of the time block j = 0, 1,
+//     ...; tile j's window starts loading once tile j - nbuf + 1 has
+//     stepped, so D - 1 loads are in flight while a tile steps and D while
+//     it is written out (ops/megakernel.py:ring_walk_plan is the walk's CPU
+//     twin).
 //   - The tile follows the bytes (ops/megakernel.py:ring_geometry, the
 //     port's counterpart of grayscott_tpu's choose_mega_geometry shrinking
 //     the row tile with depth): Main's 64x64 tiles (a window pair 51,200 B)
@@ -23,11 +25,19 @@
 //     B), else Small's 32x32 tiles (18,432 B a pair; D = 8: 165,888 B). A
 //     depth clamped to 2 on Small (too few tiles for the pin, as JAX clamps
 //     it, :1022-1028) runs two buffers of this kernel.
-//   - Blocks an SM follow the bytes too: the grid is the occupancy API's
-//     count for the geometry at `nbuf` buffers (cached per buffer count), so
-//     a ring above 113 KB runs one block an SM where mega.cu runs two. The
-//     kernels are bound to 128 registers a thread (Main: one block an SM,
-//     Small: two), as many blocks as the rings leave room for.
+//   - The threads and the register bound follow the bytes (the second form;
+//     PERF.md §6 has the split that chose it): a ring leaves one block an SM
+//     on Main and at most two on Small (D = 4 and 5; one beyond), so its
+//     kernels run twice the double buffer's threads, 1024 on Main and 512 on
+//     Small (MainWide, SmallWide), bound to 64 registers a thread: the SM
+//     keeps the double buffer's 32 warps wherever the bytes leave room for
+//     them, where the first form's 512 and 256 threads at 128 registers
+//     kept 16 (and 8 at D >= 6). The grid is the occupancy API's count for
+//     the geometry at `nbuf` buffers (cached per buffer count). The first
+//     form and the split's other parts (the ring's loads and stores alone,
+//     every window waited for, the double buffer on the ring's tile and
+//     grid, each tile stepped in place in D buffers) are
+//     mega_ring_ablation.cu's.
 //
 // Why reads come after writes: mega.cu's argument holds unchanged. Every
 // window a block loads in time block t is one of its own tiles of block t:
@@ -38,29 +48,32 @@
 // is waited for (cp.async.wait_group 0) before it steps, so no load of slot
 // t % 2 is in flight when the barrier lets block t + 1 write that slot.
 //
-// What bounds it on the card: mega.cu's. The ring hides the load latency of
-// D - 1 windows where the double buffer hides one window's behind the
-// write-out; it pays with the blocks an SM the bytes leave (one at D = 3,
-// two at D = 4 and 5 on the smaller tile, one beyond), and at D >= 4 with
-// Small's halo recompute (1.56x the useful cell-steps over 8 steps, against
-// Main's 1.24x).
+// What bounds it on the card: mega.cu's, and the blocks an SM that the
+// ring's bytes leave. The split (PERF.md §6) finds the ring's loads hidden
+// (every window waited for at once costs under 1 %) and its loads and
+// stores alone 5-12 % of its time: a ring of depth D runs as fast as the
+// double buffer on the same tile and grid, so what it costs against depth
+// 2 is the tile and the blocks an SM its bytes force, and at D >= 4
+// Small's halo recompute (1.56x the useful cell-steps over 8 steps,
+// against Main's 1.24x).
 
 #include "mega.cuh"
 
 namespace {
 
-// MODE and K as mega.cu's mega_kernel; T the state's element type. `nbuf`
-// window buffers of G at the start of dynamic shared memory.
+// MODE and K as mega.cu's mega_kernel; T the state's element type; G
+// MainWide or SmallWide. `nbuf` window buffers of G at the start of dynamic
+// shared memory.
 template <typename G, int TAPS, int MODE, typename T,
           typename K = gs::Constants>
-__global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_128_REGS)
+__global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 ring_kernel(T* u_pair, T* v_pair, int rows, int cols, int n_blocks,
             int steps, K k, int aligned, int nbuf,
             unsigned long long* barrier) {
   extern __shared__ float4 window[];  // buffers [nbuf] x species [2]
-  ring_run<TAPS, MODE>(sm90::FixedShape<G>{}, u_pair, v_pair, rows, cols,
-                       n_blocks, steps, k, aligned, nbuf, barrier,
-                       reinterpret_cast<float*>(window));
+  ring_run<TAPS, MODE, sm90::RING_SCRATCH, 1>(
+      sm90::FixedShape<G>{}, u_pair, v_pair, rows, cols, n_blocks, steps, k,
+      aligned, nbuf, barrier, reinterpret_cast<float*>(window));
 }
 
 // One instantiation of ring_kernel: its co-resident blocks at `nbuf`
@@ -110,8 +123,9 @@ template <int TAPS>
 struct Launch {
   template <typename T>
   static cudaError_t run(const Call<T>& c, int tile, int nbuf) {
-    return tile == sm90::Main::TR ? launch_on<sm90::Main, TAPS>(c, nbuf)
-                                  : launch_on<sm90::Small, TAPS>(c, nbuf);
+    return tile == sm90::Main::TR
+               ? launch_on<sm90::MainWide, TAPS>(c, nbuf)
+               : launch_on<sm90::SmallWide, TAPS>(c, nbuf);
   }
 };
 
@@ -123,11 +137,12 @@ struct LaunchFold {
   static cudaError_t run(const Call<T, sm90::FoldConstants>& c, int tile,
                          int nbuf) {
     using Fold = sm90::FoldConstants;
+    using Main = sm90::MainWide;
+    using Small = sm90::SmallWide;
     return tile == sm90::Main::TR
-               ? Ring<sm90::Main, TAPS, sm90::MODE_FOLD, T, Fold>::launch(
-                     c, nbuf)
-               : Ring<sm90::Small, TAPS, sm90::MODE_FOLD, T, Fold>::launch(
-                     c, nbuf);
+               ? Ring<Main, TAPS, sm90::MODE_FOLD, T, Fold>::launch(c, nbuf)
+               : Ring<Small, TAPS, sm90::MODE_FOLD, T, Fold>::launch(c,
+                                                                    nbuf);
   }
 };
 
@@ -225,11 +240,11 @@ int gs_mega_ring_max_blocks(int device, int tile, int nbuf) {
   cudaError_t err = cudaSetDevice(device);
   int n = 1 << 30;
   if (tile == sm90::Main::TR) {
-    fewest_of<sm90::Main, float>(device, nbuf, &n, &err);
-    fewest_of<sm90::Main, sm90::bf16>(device, nbuf, &n, &err);
+    fewest_of<sm90::MainWide, float>(device, nbuf, &n, &err);
+    fewest_of<sm90::MainWide, sm90::bf16>(device, nbuf, &n, &err);
   } else {
-    fewest_of<sm90::Small, float>(device, nbuf, &n, &err);
-    fewest_of<sm90::Small, sm90::bf16>(device, nbuf, &n, &err);
+    fewest_of<sm90::SmallWide, float>(device, nbuf, &n, &err);
+    fewest_of<sm90::SmallWide, sm90::bf16>(device, nbuf, &n, &err);
   }
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }

@@ -35,11 +35,17 @@ not counted.
 ``depth`` (``mega_depth``, 2..8; ``megakernel.py:_mega_kernel(depth=)``,
 the ring at ``:562-630``) runs the window ring: ``depth`` window slots and
 the step's scratch, ``depth - 1`` window loads in flight while a tile
-steps (``csrc/mega_ring.cu``, ``gs_tile_sm90.cuh:ring_walk``).
+steps (``csrc/mega_ring.cu``, ``gs_tile_sm90.cuh:ring_walk``;
+:func:`ring_walk_plan` is the walk's CPU twin), on twice the double
+buffer's threads at 64 registers a thread, so that the SM keeps 32 warps
+where the ring's bytes leave one block.
 :func:`ring_geometry` gives the tile and the depth that run: JAX's clamp to
 2 under ``2 * depth`` tiles, then 64x64 tiles while the ring fits a block's
 shared memory, else 32x32 (the port's counterpart of
 ``choose_mega_geometry`` shrinking its tile with depth, ``:819-860``).
+:func:`ring_ablation` runs the ring's first form (half the threads at 128
+registers) and the other parts of its split (:data:`RING_ABLATIONS`), on
+the card only.
 Depth 2 on 64x64 tiles is the double buffer, the entries above; every other
 geometry runs the ring entries, counted in ``ring_launches``,
 ``ring_bf16_launches``, ``ring_fold_launches`` and
@@ -62,7 +68,7 @@ what a step computes, so the plain versions are the same. ``depth`` above
 (:func:`ring_geometry` with ``tiles``: JAX's clamp to depth 2 on few
 windows, ``grayscott_tpu/ops/megakernel.py:544-545``, ``:755-763``; a ring
 past the shared memory a block may use raises naming its bytes): the
-pinned ring entries of ``csrc/mega_pins.cu``, counted in
+pinned ring entries of ``csrc/mega_pins_ring.cu``, counted in
 ``pinned_ring_launches``, ``pinned_ring_bf16_launches``,
 ``pinned_ring_fold_launches`` and ``pinned_ring_fold_bf16_launches``.
 
@@ -149,6 +155,17 @@ PAIR_BYTES = {64: 2 * 4 * (64 + 2 * 8) ** 2, 32: 2 * 4 * (32 + 2 * 8) ** 2}
 #: the most buffers of a ring: depth 8's slots and the scratch
 RING_MAX_BUFFERS = 9
 
+#: threads of a block of the double buffer on 64x64 and pinned tiles, and
+#: the strip of rows a thread steps (``Main``); 32x32 tiles take half the
+#: threads, the ring's kernels twice (the pinned ring's where its bytes
+#: leave room for one block an SM)
+RING_THREADS = 512
+STRIP = 4
+
+#: a thread's strips of a pinned ring's widest in-place step in the
+#: ablation parts bound to two blocks an SM (``PIN_RING_ITEMS_2``)
+PIN_RING_ITEMS_2 = 3
+
 
 class RingGeometry(NamedTuple):
     """What a megakernel launch of a ``depth`` pin runs (ring_geometry)."""
@@ -175,6 +192,75 @@ def ring_buffers(depth: int) -> int:
     """Window buffers of a ring of ``depth`` slots: the slots and the
     step's scratch; depth 2 is the double buffer (two)."""
     return 2 if depth == 2 else depth + 1
+
+
+def ring_items(tr: int, tc: int, threads: int = RING_THREADS) -> int:
+    """A thread's strips of the widest in-place step of a window of a
+    ``tr`` x ``tc`` tile (its first step: the window less its outer ring,
+    in strips of STRIP rows), ``threads`` to a block
+    (``gs_tile_sm90.cuh:ring_items``)."""
+    wr, wc = tr + 2 * MEGA_STEPS, tc + 2 * MEGA_STEPS
+    return -(-(wc - 2) * -(-(wr - 2) // STRIP) // threads)
+
+
+def pinned_two_blocks(nbytes: int) -> bool:
+    """Whether a pinned ring of ``nbytes`` runs the kernels of 512 threads
+    bound to two blocks an SM (else 1024 threads bound to one): its bytes
+    leave room for two (``csrc/mega_pins_ring.cu:two_blocks``)."""
+    return 2 * (nbytes + SMEM_RESERVED) <= SMEM_SM
+
+
+def ring_walk_plan(n_tiles: int, nbuf: int, steps: int,
+                   in_place: bool = False) -> list:
+    """The CPU twin of one block's walk of ``n_tiles`` tiles through a
+    ring of ``nbuf`` (2..RING_MAX_BUFFERS) buffers, ``steps`` steps a tile
+    (``gs_tile_sm90.cuh:ring_walk``: RING_SCRATCH, the entries' walk, each
+    step writing the other of two buffers; ``in_place``: RING_IN_PLACE, the
+    ablation parts 5-7, each tile stepped in its own buffer). One dict a
+    tile j, in order:
+
+    - ``load``: the buffer its window loads into;
+    - ``issued_at``: the tile whose step (RING_SCRATCH: issued after that
+      tile's last step's barrier) or opening barrier (RING_IN_PLACE) it
+      loads after; -1: when the time block begins;
+    - ``wait``: the loads the wait before its steps may leave in flight;
+    - ``steps``: (read, written) buffers of each of its steps;
+    - ``store``: the buffer its write-out reads;
+    - ``in_flight``: the loads in flight while it steps (issued, not yet
+      waited for).
+    """
+    if not 2 <= nbuf <= RING_MAX_BUFFERS:
+        raise ValueError(f"nbuf must be in [2, {RING_MAX_BUFFERS}], got "
+                         f"{nbuf}")
+    odd = 0 if in_place else steps & 1
+    m = nbuf - odd
+    plan = []
+    for j in range(n_tiles):
+        b = j % m if not in_place else j % nbuf
+        if in_place:
+            scratch, loads_into = b, (b - 1) % nbuf
+        else:
+            scratch = m if odd else (b - 1) % m
+            loads_into = b if odd else scratch
+        seq, cur, other = [], b, scratch
+        for _ in range(steps):
+            seq.append((cur, cur if in_place else other))
+            if not in_place:
+                cur, other = other, cur
+        plan.append({"steps": seq, "store": seq[-1][1], "frees": loads_into})
+    for j, tile in enumerate(plan):
+        tile["load"] = (j if j < nbuf - 1
+                        else plan[j - nbuf + 1]["frees"])
+        tile["issued_at"] = -1 if j < nbuf - 1 else j - nbuf + 1
+        tile["wait"] = min(nbuf - 2, n_tiles - 1 - j)
+    for j, tile in enumerate(plan):
+        # RING_SCRATCH issues after tile j's steps, RING_IN_PLACE before
+        tile["in_flight"] = sum(
+            1 for k in range(j + 1, n_tiles)
+            if plan[k]["issued_at"] < j
+            or (in_place and plan[k]["issued_at"] == j))
+        del tile["frees"]
+    return plan
 
 
 def ring_max_buffers(tile: int) -> int:
@@ -207,8 +293,13 @@ def ring_geometry(shape: Tuple[int, int], depth: int | None = None,
     windows, here the tiles, number fewer than ``2 * depth``; the tile
     stays the one the pin chose, as JAX's row tile does. ``blocks_per_sm``
     counts the blocks that shared memory leaves room for (228 KB an SM, 1
-    KB reserved a block); the launch takes the occupancy API's count,
-    which registers may lower.
+    KB reserved a block),
+    which the ring kernels' threads and register bound follow (1024
+    threads at 64 registers on 64x64 tiles, one block; 512 on 32x32, two),
+    so that the occupancy API's count, which the launch takes, is that
+    many an SM for every ring of depth 3 to 8; a depth clamped to 2 on
+    32x32 tiles (two buffers, room for six blocks) runs two. The pinned
+    ring's count is capped at its bound (:func:`pinned_two_blocks`).
 
     ``tiles`` (a pinned geometry, not the compiled 64x64): the ring runs
     on them, and JAX's clamp counts their windows as JAX counts its row
@@ -232,14 +323,39 @@ def ring_geometry(shape: Tuple[int, int], depth: int | None = None,
                 f"{nbytes} B of shared memory a block for its {buffers} "
                 f"window buffers, past the {SMEM_OPTIN} B a block may use; "
                 "pin a smaller tile or depth", combo="mega_depth+tiles")
-        return RingGeometry(None, d, buffers, nbytes,
-                            SMEM_SM // (nbytes + SMEM_RESERVED), tiles)
+        per_sm = SMEM_SM // (nbytes + SMEM_RESERVED)
+        if d > 2:
+            per_sm = min(per_sm, 2 if pinned_two_blocks(nbytes) else 1)
+        return RingGeometry(None, d, buffers, nbytes, per_sm, tiles)
     tile = 64 if ring_buffers(d) * PAIR_BYTES[64] <= SMEM_OPTIN else 32
     if sharded or -(-r // tile) * -(-c // tile) < 2 * d:
         d = 2
     buffers = ring_buffers(d)
     nbytes = buffers * PAIR_BYTES[tile]
     return RingGeometry(tile, d, buffers, nbytes,
+                        SMEM_SM // (nbytes + SMEM_RESERVED))
+
+
+def in_place_geometry(shape: Tuple[int, int], depth: int,
+                      tiles: "geo.Geometry | None" = None) -> RingGeometry:
+    """:func:`ring_geometry` of the ring with each tile stepped in place
+    (the ablation parts 6 and 7): ``depth`` buffers, 64x64 tiles while they
+    fit a block's shared memory (depths 2-4), else 32x32; JAX's clamp the
+    same; ``blocks_per_sm`` by shared memory alone."""
+    d = check_depth(depth)
+    r, c = shape
+    if tiles is not None:
+        rows_t, cols_t = -(-r // tiles.tr), -(-c // tiles.tc)
+        windows = rows_t if cols_t == 1 else (rows_t - 1) * cols_t
+        d = 2 if windows < 2 * d else d
+        nbytes = d * tiles.bytes // 2
+        return RingGeometry(None, d, d, nbytes,
+                            SMEM_SM // (nbytes + SMEM_RESERVED), tiles)
+    tile = 64 if d * PAIR_BYTES[64] <= SMEM_OPTIN else 32
+    if -(-r // tile) * -(-c // tile) < 2 * d:
+        d = 2
+    nbytes = d * PAIR_BYTES[tile]
+    return RingGeometry(tile, d, d, nbytes,
                         SMEM_SM // (nbytes + SMEM_RESERVED))
 
 #: the parts of K2's design that ``megastep_ablation`` takes out
@@ -251,6 +367,30 @@ ABLATIONS = {
     3: "no prefetch of the next window",
     4: "32x32 tiles in 48x48 windows",
 }
+
+#: the parts of the ring's split (csrc/mega_ring_ablation.cu:
+#: gs_mega_ring_ablation): each gives the whole kernel's result, but part
+#: 2, whose result is its input; on 64x64 or 32x32 tiles (the compiled
+#: geometries) or pinned ones, float32, naive, the default tap set
+RING_ABLATIONS = {
+    0: "the first form: the ring on the double buffer's threads, 128 "
+       "registers a thread",
+    1: "the first form bound to 64 registers a thread",
+    2: "the first form's window loads and stores alone (no step)",
+    3: "the first form waiting for every window in flight before each "
+       "tile's steps",
+    4: "the double buffer on the first form's tile and grid",
+    5: "each tile stepped in place (depth buffers) on the first form's "
+       "tile and grid",
+    6: "in place on twice the threads, 64 registers a thread, on the tile "
+       "depth buffers allow",
+    7: "in place bound to 64 registers a thread, on that tile",
+    8: "the first form on twice the threads, 64 registers a thread, one "
+       "block an SM",
+}
+#: the parts that run on the tile the depth buffers of the in-place walk
+#: allow (in_place_geometry; the others on ring_geometry's)
+RING_IN_PLACE_PARTS = (6, 7)
 
 #: K6's output tile (rows, cols); its windows are MEGA_STEPS cells wider
 #: on every side
@@ -703,6 +843,61 @@ def fold_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"mega fold ablation part {part} failed: CUDA "
                            f"error {err} ({build.error_name(err)})")
+
+
+def ring_ablation_plan(shape: Tuple[int, int], depth: int, part: int,
+                       tiles: "geo.Geometry | None" = None) -> dict:
+    """What part ``part`` of the ring's split runs at ``depth`` on a
+    ``shape`` domain (``tiles``: pinned, else the compiled geometries):
+    {tile (tr, tc), pinned, buffers the walk uses, grid_buffers whose bytes
+    set the grid, threads}. Raises ValueError where JAX's clamp leaves no
+    ring, or where the part's in-place step does not fit its registers."""
+    if part not in RING_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(RING_ABLATIONS)}, got "
+                         f"{part!r}")
+    ring = ring_geometry(shape, depth, tiles=tiles)
+    in_place = in_place_geometry(shape, depth, tiles)
+    if ring.depth == 2 or in_place.depth == 2:
+        raise ValueError(f"mega_depth={depth} clamps to 2 on {shape}: no "
+                         "ring to split")
+    g = in_place if part in RING_IN_PLACE_PARTS else ring
+    tr, tc = (g.tile, g.tile) if tiles is None else (tiles.tr, tiles.tc)
+    threads = (RING_THREADS if tiles is not None or g.tile == 64
+               else RING_THREADS // 2) * (2 if part in (6, 8) else 1)
+    buffers = {4: 2, 5: g.depth}.get(part, g.buffers)
+    if tiles is not None and part in (6, 7):
+        most = PIN_RING_ITEMS_2
+        if ring_items(tr, tc, threads) > most:
+            raise ValueError(f"part {part} holds {most} strips a thread; "
+                             f"{tiles.label()} needs "
+                             f"{ring_items(tr, tc, threads)}")
+    return {"tile": (tr, tc), "pinned": tiles is not None,
+            "buffers": buffers, "grid_buffers": g.buffers, "threads": threads,
+            "bytes": g.bytes}
+
+
+def ring_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
+                  steps: int, consts: KernelConstants, part: int, depth: int,
+                  geometry=None, grid: int = 0) -> None:
+    """K2's ring on the card in the form of ``part``
+    (:data:`RING_ABLATIONS`; :func:`ring_ablation_plan` says where it
+    runs): slot 0 of the float32 pairs advanced by ``n_blocks`` time blocks
+    of ``steps`` steps in place (part 2: by none), naive boundary, the
+    default stencil's tap set. ``geometry``: pinned tiles (None: the
+    compiled geometries). Not counted in any launch counter."""
+    _check(u_pair, v_pair, n_blocks, steps, "naive", grid)
+    pinned = _is_pinned(geometry)
+    plan = ring_ablation_plan(tuple(u_pair.shape[1:]), depth, part,
+                              geometry if pinned else None)
+    if u_pair.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the pairs must lie on "
+                         f"a CUDA device, not {u_pair.device}")
+    fn = build.bind("gs_mega_ring_ablation",
+                    _kernel().argtypes + [ctypes.c_int] * 6)
+    tr, tc = plan["tile"]
+    _launch(lambda *args: fn(*args, tr, tc, int(pinned), plan["buffers"],
+                             plan["grid_buffers"], part),
+            u_pair, v_pair, n_blocks, steps, consts, "naive", grid)
 
 
 def _check(u_pair, v_pair, n_blocks, steps, boundary, grid,

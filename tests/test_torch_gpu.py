@@ -2066,11 +2066,61 @@ def test_pinned_ring_grids_follow_the_bytes(cuda_device):
 @pytest.mark.gpu
 def test_folded_and_pinned_ring_kernels_do_not_spill(cuda_device, tmp_path):
     """ptxas's report of the folded entry's 4 instantiations, its refresh
-    kernel and the pinned ring's 12: no spill."""
+    kernel, the pinned ring's 24 (bound to one block an SM and to two) and
+    the compiled ring's 24: no spill."""
     for source, kernel, count in (
             ("windowed_pins.cu", "13folded_kernel", 4),
             ("windowed_pins.cu", "19fold_refresh_kernel", 1),
-            ("mega_pins.cu", "18ring_pinned_kernel", 12)):
+            ("mega_pins_ring.cu", "18ring_pinned_kernel", 24),
+            ("mega_ring.cu", "11ring_kernel", 44)):
         spills = ptxas_spills(source, kernel, tmp_path)
         assert len(spills) == count, (kernel, spills)
         assert all(v == (0, 0) for v in spills.values()), spills
+
+
+@pytest.mark.gpu
+def test_ring_ablation_parts_bitwise(cuda_device):
+    """Every part of the ring's split (megakernel.RING_ABLATIONS) on the
+    compiled rings at depth 3, 4 and 8 (130x210: 35 tiles of 32x32, 12 of
+    64x64) and the pinned 16x64 ring at depth 4 (1025x300), one launch of
+    3 time blocks of 8 steps, naive, NaN and Inf included: bit for bit the
+    plain version (part 2, which steps nothing: its input), and not
+    counted in any launch counter. Tolerance: none."""
+    consts = kernel_constants(Parameters())
+    cases = [((130, 210), d, None) for d in (3, 4, 8)]
+    cases.append(((1025, 300), 4, geometry.Geometry(16, 64, 8)))
+    for shape, depth, tiles in cases:
+        for u, v in fold_states(shape, cuda_device, torch.float32):
+            want = stencil.run(u, v, 24, consts, "naive")
+            for part in megakernel.RING_ABLATIONS:
+                try:
+                    megakernel.ring_ablation_plan(shape, depth, part, tiles)
+                except ValueError:
+                    continue
+                before = (megakernel.ring_launches,
+                          megakernel.pinned_ring_launches)
+                pu, pv = megakernel.pair_state(u), megakernel.pair_state(v)
+                megakernel.ring_ablation(pu, pv, 3, 8, consts, part, depth,
+                                         geometry=tiles)
+                torch.cuda.synchronize()
+                assert (megakernel.ring_launches,
+                        megakernel.pinned_ring_launches) == before
+                ref = (u, v) if part == 2 else want
+                assert all(bits_equal(a, b) for a, b in
+                           zip((pu[0], pv[0]), ref)), (shape, depth, part)
+
+
+@pytest.mark.gpu
+def test_pinned_ring_bound_follows_the_bytes(cuda_device):
+    """The pinned ring's grid follows its bytes: the occupancy API's count
+    is RingGeometry.blocks_per_sm an SM, two where the bytes leave room
+    for two (512 threads bound to two blocks), else one (1024 threads)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for tiles, depth in (((16, 64), 4), ((16, 64), 5), ((32, 128), 3),
+                         ((8, 256), 3), ((8, 128), 4), ((16, 64), 8)):
+        g = geometry.Geometry(*tiles, 8)
+        ring = megakernel.ring_geometry((1080, 1920), depth, tiles=g)
+        assert ring.blocks_per_sm == (
+            2 if megakernel.pinned_two_blocks(ring.bytes) else 1)
+        n = megakernel.pinned_ring_max_blocks(cuda_device, ring)
+        assert n == ring.blocks_per_sm * sms, (tiles, depth, n)
