@@ -351,10 +351,31 @@
    launch of 32 steps in device time (``queued_ms``) in turns, each beside
    part 0 and the bound. The ``kernels`` line gives the float32 ring
    entries the first form's time.
+23. The redesign of K1's pinned entries (K1 pinned, K1 shard pinned: the
+   second form, 4x4 register blocks with 16-byte shared loads on interior
+   tiles, sizes compiled in on 64x64 and 32x64 tiles at a halo of 16;
+   ``csrc/gs_pin_sm90.cuh``, ``csrc/windowed_pins.cuh``). (a) ptxas's
+   report of the split's 23 instantiations
+   (``csrc/windowed_pins_ablation.cu``; phases 18b and 19b check the
+   entries'), the occupancy API's blocks an SM of each entry's kernel
+   against ``Geometry.pin_launch`` (equal) and of the cluster part
+   against ``geometry.cluster_bytes``. (b) Every part of the split
+   (``windowed.PIN_ABLATIONS``: the first form, 1024 threads, loads and
+   stores alone, every tile an edge tile, compiled sizes, register
+   blocks, 2x2 clusters over distributed shared memory, and their
+   combinations) and the entry, one launch of K steps on K = 16 64x64, K
+   = 24 64x64, K = 16 32x32 and K = 8 32x128 at 1080x1920 (and NaN/Inf),
+   1001x1920, 40x40 and 4096^2, bit for bit the plain version (part 2:
+   its input); the entry also on the zero boundary and bf16; the shard
+   entry's parts and entry on 2x2, 4x1 and 1x4 at 1080x1920 (and NaN/Inf)
+   and 1001x1920, K = 16 on 32-row tiles and on 64x64 with the overlap's
+   two launches. (c) The split in device time, in turns with part 0 and
+   the bound, at 1080x1920 and 4096^2 (the shard entry at 1080x1920 on
+   2x2). The ``kernels`` line gives both entries their first form's time.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phases 16 to 22 and phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phases 16 to 23 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -2190,7 +2211,8 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "11ring_kernel", "13pinned_kernel",
                       "20packed_pinned_kernel", "13folded_kernel",
                       "19fold_refresh_kernel", "18ring_pinned_kernel",
-                      "20windowed_fold_kernel", "16mega_fold_kernel")
+                      "20windowed_fold_kernel", "16mega_fold_kernel",
+                      "18pinned_form_kernel", "17shard_form_kernel")
 #: of those, the ones whose instantiations must not spill (K2, K7, K4, K6,
 #: K2's ring, the pinned entries of K1 and K4, K1's folded entry and its
 #: refresh, K2's pinned ring, the fold entries' second form)
@@ -2200,9 +2222,10 @@ NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "20packed_pinned_kernel", "18mega_pinned_kernel",
                     "25packed_mega_pinned_kernel",
                     "26sharded_mega_pinned_kernel",
-                    "19shard_pinned_kernel", "13folded_kernel",
+                    "13folded_kernel",
                     "19fold_refresh_kernel", "18ring_pinned_kernel",
-                    "20windowed_fold_kernel", "16mega_fold_kernel")
+                    "20windowed_fold_kernel", "16mega_fold_kernel",
+                    "18pinned_form_kernel", "17shard_form_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -4979,11 +5002,13 @@ def compare_pins(checks: Checks, rng) -> int:
 
 
 def pin_ptxas(checks: Checks, log: str) -> None:
-    """Phase 18b: ptxas's report of the pinned entries (K1's 22
-    instantiations and K4's): registers, stack and spills, none of which
-    may spill or take a stack frame. (Whether a change moved the compiled
-    geometries' code is ``grayscott_tpu_torch/scripts/sass_diff.py``'s
-    question, against the tree before it.)"""
+    """Phase 18b: ptxas's report of the pinned entries (K1's: the fold
+    entries' 6 first-form instantiations and the second form's 24, 8 of
+    them on compiled sizes; K4's): registers, stack and spills, none of
+    which may spill or take a stack frame. (Whether a change moved the
+    compiled geometries' code is
+    ``grayscott_tpu_torch/scripts/sass_diff.py``'s question, against the
+    tree before it.)"""
     if not log:
         print("phase 18b: the library was reused, no ptxas report",
               flush=True)
@@ -5004,12 +5029,13 @@ def pin_ptxas(checks: Checks, log: str) -> None:
             rows[entry] = (int(m.group(1)), frame)
             entry = None
     pinned = {name: r for name, r in rows.items()
-              if "13pinned_kernel" in name or "20packed_pinned_kernel" in name}
+              if "13pinned_kernel" in name or "20packed_pinned_kernel" in name
+              or "18pinned_form_kernel" in name}
     for name, (regs, frame) in sorted(pinned.items()):
-        print(f"ptxas pinned {name[name.index('pinned_kernel'):]}: {regs} "
+        print(f"ptxas pinned {name[name.index('pinned_'):]}: {regs} "
               f"registers, stack, spill stores, spill loads {frame}",
               flush=True)
-    checks.expect(len(pinned) == 23 and all(
+    checks.expect(len(pinned) == 31 and all(
         f == (0, 0, 0) for _, f in pinned.values()),
         f"pinned entries: {len(pinned)} instantiations, stack or spills "
         f"{[r for r in pinned.values() if r[1] != (0, 0, 0)]}")
@@ -5343,7 +5369,7 @@ PIN19_KERNELS = {
 PIN19_PTXAS = {"18mega_pinned_kernel": 12,
                "25packed_mega_pinned_kernel": 1,
                "26sharded_mega_pinned_kernel": 16,
-               "19shard_pinned_kernel": 8}
+               "17shard_form_kernel": 16}
 
 
 def pin19_compare(checks: Checks, tag: str, got, want, what: str) -> None:
@@ -5499,8 +5525,9 @@ def compare_mega_pins(checks: Checks, rng) -> int:
 
 def pin19_ptxas(checks: Checks, log: str) -> None:
     """Phase 19b: ptxas's report of the new pinned instantiations (K2's
-    12, K6's, K7's 16, K1's shard entry's 8: the default stencils' tap set
-    and any other, ``dispatch_taps_lean``): registers, stack and
+    12, K6's, K7's 16, K1's shard entry's 16: the default stencils' tap set
+    and any other, ``dispatch_taps_lean``, on run-time sizes, and the
+    default set on the two compiled geometries): registers, stack and
     spills, none of which may spill or take a stack frame. (The compiled
     K2, K6 and K7 keep the parent's registers and SASS:
     ``scripts/sass_diff.py`` against the tree before.)"""
@@ -6646,6 +6673,303 @@ def ring22_phase(checks: Checks, rng, card: str, log: str) -> tuple:
     return n, time_ring22(rng, card)
 
 
+# --- 23. the pinned entries' redesign (K1 pinned, K1 shard pinned) ----------
+
+#: the pinned entry's geometries of phase 23 (K, tr, tc): the kernel table's
+#: row (K = 16 on 64x64), a deeper window, small tiles, wide tiles
+PIN23_FLAT = ((16, 64, 64), (24, 64, 64), (16, 32, 32), (8, 32, 128))
+#: the shard entry's (K, row tile, overlap) on 2x2: the row (32x64 tiles,
+#: overlap off) and 64x64 tiles with the overlap on
+PIN23_SHARD = ((16, 32, False), (16, 64, True))
+PIN23_SHAPES = [MAIN_SHAPE, (1001, 1920), (40, 40), BENCH_SHAPE]
+PIN23_MESHES = ((2, 2), (4, 1), (1, 4))
+#: the ablation unit's instantiations ptxas reports (their spills are
+#: reported, not failed)
+PIN23_ABLATION_PTXAS = {"22pinned_ablation_kernel": 16,
+                        "21shard_ablation_kernel": 7}
+#: phase 23c: reps a sample by shape, and rounds (in order, then reversed)
+PIN23_REPS = {MAIN_SHAPE: 20, BENCH_SHAPE: 4}
+PIN23_ROUNDS = 2
+
+
+def pin23_ptxas(checks: Checks, log: str) -> None:
+    """Phase 23a: ptxas's report of the split's instantiations
+    (``csrc/windowed_pins_ablation.cu``): registers, stack frame, spills."""
+    if not log:
+        print("phase 23a: the library was reused, no ptxas report",
+              flush=True)
+        return
+    rows = {}
+    entry = frame = None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = PTXAS_USED.search(line)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), frame)
+            entry = None
+    for kernel, count in PIN23_ABLATION_PTXAS.items():
+        found = {name: r for name, r in rows.items() if kernel in name}
+        for name, (regs, f) in sorted(found.items()):
+            print(f"ptxas {name}: {regs} registers, stack frame, spill "
+                  f"stores, spill loads {f}", flush=True)
+        print(f"ptxas {kernel[2:]}: {len(found)} instantiations, registers "
+              f"{sorted({r for r, _ in found.values()})}", flush=True)
+        checks.expect(len(found) == count,
+                      f"{kernel}: {len(found)} of {count} instantiations")
+
+
+def pin23_flat_cases(shape):
+    """(K, geometry) of PIN23_FLAT on ``shape`` (``geometry.resolve``)."""
+    return [(k, geometry.resolve(shape, k, tr, tc))
+            for k, tr, tc in PIN23_FLAT]
+
+
+def pin23_parts(g, shard: bool = False) -> list:
+    """The parts of the split that run on ``g`` (``shard``: the shard
+    entry's)."""
+    parts = []
+    for part in (windowed.PIN_SHARD_ABLATIONS if shard
+                 else windowed.PIN_ABLATIONS):
+        try:
+            windowed.check_pin_part(part, g)
+        except ValueError:
+            continue
+        parts.append(part)
+    return parts
+
+
+def pin23_shard_setup(u_np, v_np, shape, mesh_shape, k: int, tr: int,
+                      dtype=torch.float32):
+    """(mesh, geometry, u pairs, v pairs) of the shard entry at K on row
+    tile ``tr``, the halos of slot 0 filled."""
+    h = geometry.halo_for_steps(k)
+    mesh = halo.Mesh(*mesh_shape, torch.device(DEVICE), h)
+    g = geometry.resolve(halo.shard_extents(shape, mesh), k, tr)
+    up, vp = halo.mega_shard_state(u_np, v_np, mesh, dtype)
+    for x in (up, vp):
+        halo.exchange_halos(x, 0, h)
+    return mesh, g, up, vp
+
+
+def compare_pin23(checks: Checks, rng) -> int:
+    """Phase 23b: every part of the split (``windowed.PIN_ABLATIONS``) and
+    the entry, one launch of K steps on each geometry of PIN23_FLAT at each
+    shape of PIN23_SHAPES (and a NaN/Inf state at 1080x1920), bit for bit
+    the plain version (part 2: its input); the entry also on the zero
+    boundary and on bf16 storage. The shard entry's parts and entry on each
+    mesh of PIN23_MESHES at 1080x1920 (and NaN/Inf) and 1001x1920 for each
+    case of PIN23_SHARD (with the overlap: its interior launch, then its
+    edge launch), bit for bit its plain version. Returns the comparisons."""
+    n = 0
+    params = Parameters()
+    consts = kernel_constants(params)
+    for shape in PIN23_SHAPES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            u, v = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+            what0 = f"{shape[0]}x{shape[1]}{' NaN/Inf' if special else ''}"
+            for k, g in pin23_flat_cases(shape):
+                want = stencil.run(u, v, k, consts, "naive")
+                for part in pin23_parts(g):
+                    got = (torch.empty_like(u), torch.empty_like(v))
+                    windowed.pinned_ablation(part, u, v, *got, k, consts, g)
+                    checks.compare_bits(
+                        "windowed_pinned", got,
+                        (u, v) if part == windowed.PIN_ABLATION_NO_STEP
+                        else want, f"pin23 {what0} {g.label()} K={k} part "
+                        f"{part}")
+                    n += 1
+                for tag in ("windowed_pinned", "windowed_pinned_bf16"):
+                    dtype, _ = PIN_ENTRIES[tag]
+                    for boundary in ("naive", "zero"):
+                        a, b = u.to(dtype), v.to(dtype)
+                        got = (torch.empty_like(a), torch.empty_like(b))
+                        windowed.multistep(a, b, *got, k, consts, boundary,
+                                           geometry=g)
+                        want_b = pin_plain(a, b, k, tag, boundary, params)
+                        cmp = (checks.compare_bf16 if dtype == torch.bfloat16
+                               else checks.compare_bits)
+                        cmp(tag, got, want_b, f"pin23 {what0} {g.label()} "
+                            f"K={k} {boundary} the entry")
+                        n += 1
+            if shape not in (MAIN_SHAPE, PAST_EDGE_SHAPE):
+                continue
+            for mesh_shape in PIN23_MESHES:
+                for k, tr, overlap in PIN23_SHARD:
+                    try:
+                        mesh, g, up, vp = pin23_shard_setup(
+                            u_np, v_np, shape, mesh_shape, k, tr)
+                    except (UnsupportedConfigError, ValueError) as err:
+                        print(f"pin23 {what0} mesh {mesh_shape} K={k} "
+                              f"tr={tr}: {err}", flush=True)
+                        continue
+                    h = g.halo
+                    cu, cv = up.clone(), vp.clone()
+                    windowed.shard_multistep_reference(
+                        cu, cv, 0, k, consts, "naive", shape, "all", g)
+                    want = [halo.mega_unshard_result(x, shape, 1, h)
+                            for x in (cu, cv)]
+                    split = ("interior", "edge") if overlap else ("all",)
+                    for part in [*pin23_parts(g, True), None]:
+                        if part in windowed.PIN_ABLATION_CLUSTERS and overlap:
+                            continue
+                        gu, gv = up.clone(), vp.clone()
+                        for tiles in split:
+                            if part is None:
+                                windowed.shard_multistep(
+                                    gu, gv, mesh, 0, k, consts, "naive",
+                                    shape, tiles, geometry=g)
+                            else:
+                                windowed.pinned_shard_ablation(
+                                    part, gu, gv, mesh, 0, k, consts, shape,
+                                    g, tiles)
+                        ref = want
+                        if part == windowed.PIN_ABLATION_NO_STEP:
+                            ref = [halo.mega_unshard_result(x, shape, 0, h)
+                                   for x in (up, vp)]
+                        got = [halo.mega_unshard_result(x, shape, 1, h)
+                               for x in (gu, gv)]
+                        checks.compare_bits(
+                            "shwin_pinned", got, ref,
+                            f"pin23 {what0} {g.label()} K={k} mesh "
+                            f"{mesh_shape[0]}x{mesh_shape[1]} "
+                            f"{'+'.join(split)} "
+                            f"{'the entry' if part is None else f'part {part}'}")
+                        n += 1
+    return n
+
+
+def time_pin23(rng, card: str) -> dict:
+    """Phase 23c: the split. On each geometry of PIN23_FLAT at 1080x1920
+    and 4096^2, naive, float32, one launch of K steps of every part and of
+    the entry; on each case of PIN23_SHARD on 2x2 at 1080x1920 the shard
+    entry's (with the overlap: its interior and edge launches); in device
+    time (``queued_ms``), in turns (PIN23_ROUNDS rounds, in order and
+    reversed), each beside part 0 and the bound (at the output cell-steps).
+    Returns {(label, shape): {part or "entry": ms}}."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    for shape in (MAIN_SHAPE, BENCH_SHAPE):
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        u, v = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+        outs = (torch.empty_like(u), torch.empty_like(v))
+        cases = []
+        for k, g in pin23_flat_cases(shape):
+            calls = {p: (lambda p=p, g=g, k=k: windowed.pinned_ablation(
+                p, u, v, *outs, k, consts, g)) for p in pin23_parts(g)}
+            calls["entry"] = (lambda g=g, k=k: windowed.multistep(
+                u, v, *outs, k, consts, "naive", geometry=g))
+            cases.append((f"K1 pinned {g.label()} K={k}", k, calls))
+        if shape == MAIN_SHAPE:
+            for k, tr, overlap in PIN23_SHARD:
+                mesh, g, up, vp = pin23_shard_setup(u_np, v_np, shape,
+                                                    (2, 2), k, tr)
+                split = ("interior", "edge") if overlap else ("all",)
+                calls = {}
+                for p in [*pin23_parts(g, True), "entry"]:
+                    if p in windowed.PIN_ABLATION_CLUSTERS and overlap:
+                        continue
+
+                    def call(p=p, g=g, k=k, mesh=mesh, up=up, vp=vp,
+                             split=split):
+                        for tiles in split:
+                            if p == "entry":
+                                windowed.shard_multistep(
+                                    up, vp, mesh, 0, k, consts, "naive",
+                                    shape, tiles, geometry=g)
+                            else:
+                                windowed.pinned_shard_ablation(
+                                    p, up, vp, mesh, 0, k, consts, shape,
+                                    g, tiles)
+                    calls[p] = call
+                cases.append((f"K1 shard pinned 2x2 {g.label()} K={k} "
+                              f"{'+'.join(split)}", k, calls))
+        for label, k, calls in cases:
+            bound, by = bound_ms(shape, k, "naive")
+            order = list(calls)
+            samples = {key: [] for key in order}
+            for _ in range(PIN23_ROUNDS):
+                for key in order + order[::-1]:
+                    samples[key].append(queued_ms(calls[key],
+                                                  PIN23_REPS[shape]))
+            ms = {key: statistics.mean(x) for key, x in samples.items()}
+            out[label, shape] = ms
+            for key in order:
+                what = (key if not isinstance(key, int) else
+                        f"part {key} ({windowed.PIN_ABLATIONS[key]})")
+                print(f"split pin23 {shape[0]}x{shape[1]} {label}, {what}: "
+                      f"{ms[key]!r} ms (turns {samples[key]!r}), "
+                      f"{ms[key] / ms[0]!r}x part 0; "
+                      f"{100 * bound / ms[key]!r} % of the bound {bound!r} "
+                      f"ms ({by}) [{card}]", flush=True)
+    return out
+
+
+def pin23_blocks(checks: Checks) -> None:
+    """Phase 23a: on each geometry of phase 23 at 1080x1920, the occupancy
+    API's blocks an SM of the entry's kernel (float32, naive, the default
+    stencils' tap set; ``gs_windowed_pinned_blocks``) beside
+    ``Geometry.pin_launch``'s, which must be equal, and of the split's
+    cluster part beside ``geometry.cluster_bytes``' blocks an SM."""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = build.bind("gs_windowed_pinned_ablation_occupancy",
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    entry = build.bind("gs_windowed_pinned_blocks",
+                       [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    cases = [(g, 0) for _, g in pin23_flat_cases(MAIN_SHAPE)]
+    for k, tr, _ in PIN23_SHARD:
+        mesh = halo.Mesh(2, 2, dev, geometry.halo_for_steps(k))
+        cases.append((geometry.resolve(halo.shard_extents(MAIN_SHAPE, mesh),
+                                       k, tr), 1))
+    for g, shard in cases:
+        per_sm = ctypes.c_int(0)
+        err = entry(g.tr, g.tc, g.halo, shard, dev.index or 0,
+                    ctypes.byref(per_sm))
+        launch = g.pin_launch()
+        print(f"pin23 {'shard ' if shard else ''}entry {g.label()}: "
+              f"{launch}; occupancy API {per_sm.value} blocks an SM, error "
+              f"{err}", flush=True)
+        checks.expect(err == 0 and per_sm.value == launch.blocks_per_sm,
+                      f"pin23 entry {g.label()}: {per_sm.value} blocks an "
+                      f"SM, pin_launch {launch.blocks_per_sm}")
+    for g, shard in cases:
+        per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(g.tr, g.tc, g.halo, shard, dev.index or 0,
+                 ctypes.byref(per_sm), ctypes.byref(clusters))
+        nbytes = geometry.cluster_bytes(g.tr, g.tc, g.halo)
+        want = geometry.blocks_per_sm(nbytes)
+        print(f"pin23 cluster {'shard ' if shard else ''}{g.label()}: "
+              f"{nbytes} B a block, blocks_per_sm {want}; occupancy API "
+              f"{per_sm.value} an SM, {clusters.value} clusters of 4 "
+              f"({4 * clusters.value / sms!r} blocks an SM), error {err}",
+              flush=True)
+        checks.expect(err == 0 and per_sm.value == want and
+                      clusters.value > 0,
+                      f"pin23 cluster {g.label()}: {per_sm.value} blocks an "
+                      f"SM, blocks_per_sm {want}, {clusters.value} clusters")
+
+
+def pin23_phase(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 23: 23a (ptxas, the occupancy), 23b (every part and the entry
+    bit for bit), 23c (the split in device time)."""
+    pin23_ptxas(checks, log)
+    pin23_blocks(checks)
+    n = compare_pin23(checks, rng)
+    print(f"phase 23b: {n} comparisons of the pinned entries and their "
+          f"parts", flush=True)
+    return n, time_pin23(rng, card)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -6844,6 +7168,12 @@ def run_phases(args) -> int:
     n22, ring22_times = ring22_phase(checks, rng, card, built.log)
     print(f"phase 22: {n22} comparisons, {time.perf_counter() - t22!r} s",
           flush=True)
+    # 23. the pinned entries' redesign: ptxas and the occupancy, every part
+    # of their split and the entry bit for bit, the split in device time
+    t23 = time.perf_counter()
+    n23, pin23_times = pin23_phase(checks, rng, card, built.log)
+    print(f"phase 23: {n23} comparisons, {time.perf_counter() - t23!r} s",
+          flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
           f"pinned): {snap_ms!r} ms/image [{card}]")
@@ -7037,6 +7367,11 @@ def run_phases(args) -> int:
     # the pinned entries: their launches on phase 18c's paths, one K = 16
     # launch on 64x64 tiles at 1080x1920 beside the compiled entry's K = 8
     # launch (phase 18d)
+    # (K1's pinned and pinned shard entries also the first form's time:
+    # phase 23c's part 0 on the same tiles, in turns with the entry)
+    g16 = geometry.resolve(MAIN_SHAPE, 16)
+    first_form = {"windowed_pinned": pin23_times[
+        f"K1 pinned {g16.label()} K=16", MAIN_SHAPE][0]}
     for tag, path in (("windowed_pinned", "k16"),
                       ("windowed_pinned_bf16", "bf16 k16"),
                       ("windowed_pinned_fold", "fold k16"),
@@ -7049,19 +7384,27 @@ def run_phases(args) -> int:
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=list(MAIN_SHAPE), steps=16,
             boundary="zero" if tag == "packed_pinned" else "naive",
-            steps_per_call=16, tile=[64, 64], compiled_k8_ms=k8_ms))
+            steps_per_call=16, tile=[64, 64], compiled_k8_ms=k8_ms,
+            **({"first_form_ms": first_form[tag]} if tag in first_form
+               else {})))
     # the megakernels' and the shard entry's pinned entries: their launches
     # on phase 19c's paths, one launch at 1080x1920 naive (zero: K6) on the
     # path's tiles (phase 19d)
     for tag, (path, _) in PIN19_KERNELS.items():
         ms, plain_ms, bound, by, stepped, g, steps = pin19_times[tag]
+        if tag == "shwin_pinned":
+            first_form[tag] = pin23_times[
+                f"K1 shard pinned 2x2 {g.label()} K={steps} all",
+                MAIN_SHAPE][0]
         entries.append(dict(
             KERNELS[tag], launches=pin19_runs[path]["launches"][tag],
             max_abs_err=checks.kernel_err[tag], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=by, library_ms=None,
             shape=list(MAIN_SHAPE), steps=steps,
             boundary="zero" if tag == "megapack_pinned" else "naive",
-            tile=[g.tr, g.tc], halo=g.halo, stepped_bound_ms=stepped))
+            tile=[g.tr, g.tc], halo=g.halo, stepped_bound_ms=stepped,
+            **({"first_form_ms": first_form[tag]} if tag in first_form
+               else {})))
     # K1's folded entry and K2's pinned ring entries: their launches on
     # phase 21b's paths, one launch at 1080x1920 naive (phase 21c)
     ms, plain_ms, bound, by, stepped, k1_ms, f, rp, g = fold21_times[

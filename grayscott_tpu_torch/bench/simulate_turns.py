@@ -11,9 +11,11 @@ the same code. Run it as a file, not with ``-m``, and alternate the trees
 
 For each pin (``auto``, ``--pallas-engine windowed``,
 ``--pallas-engine mega``, the sharded windowed engine on a 2x2 mesh at
-K = 8, ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2, and the
+K = 8, ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2, the
 window ring, which has no flag, as in JAX: ``CudaSimulation(engine='mega',
-mega_depth=4)`` and the same on 16-row pinned tiles, ``block_rows=16``)
+mega_depth=4)`` and the same on 16-row pinned tiles, ``block_rows=16``,
+``--pallas-steps-per-call 16`` and the sharded windowed engine on 2x2 at
+K = 16 with ``--pallas-block-rows 32``)
 it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32
 steps an image) for ``--images`` images, once to warm up, then ``--reps``
 times in
@@ -25,9 +27,11 @@ the kernels alone with CUDA events, each 32 steps on a random state at
 launch of 4 time blocks; also at 4096x4096), K1's and K2's fold entries
 (the same calls; also at 4096x4096), K2's ring at mega_depth 4 on the
 compiled and on 16x64 pinned tiles (one launch of 4 time blocks; also at
+4096x4096), K1's pinned entry at K = 16 (two launches; also at
 4096x4096), K7 on 2x2 and 4x1 (one
 launch after the halo exchange) and K1's shard entry on the same meshes
-(four 8-step launches after the halo exchange), through calls that every commit since
+(four 8-step launches after the halo exchange; and the pinned shard entry,
+two 16-step launches on 32-row tiles), through calls that every commit since
 the sharded megakernel takes, so that the double buffer and the entry
 gate of a parent are timed against a change. Prints one JSON line: ms an
 image per run and pin with their median, the kernels' ms, and the card's
@@ -53,7 +57,16 @@ PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"],
         "fold mega": ["--pallas-naive-fold", "on", "--pallas-engine", "mega"],
         # CudaSimulation's arguments where no flag reaches them
         "ring 4": {"engine": "mega", "mega_depth": 4},
-        "ring 4 16x64": {"engine": "mega", "mega_depth": 4, "block_rows": 16}}
+        "ring 4 16x64": {"engine": "mega", "mega_depth": 4, "block_rows": 16},
+        # K1's pinned entries: K = 16 on the default tiles, and the sharded
+        # windowed engine's pinned shard entry at K = 16 on 32-row tiles
+        "k16": ["--pallas-steps-per-call", "16"],
+        "sharded windowed k16 32": ["--backend", "sharded",
+                                    "--sharded-devices", "4",
+                                    "--sharded-mesh-cols", "2",
+                                    "--sharded-engine", "windowed",
+                                    "--pallas-steps-per-call", "16",
+                                    "--pallas-block-rows", "32"]}
 
 
 def run_ms(flags, images: int, steps: int = 32,
@@ -176,6 +189,15 @@ def main(argv=None) -> int:
             calls.append((f"{name}{label}", lambda ru=ru, rv=rv, tiles=tiles:
                           megakernel.megastep(ru, rv, 4, 8, consts, "naive",
                                               depth=4, geometry=tiles), reps))
+        pinned = [a, b, torch.empty_like(a), torch.empty_like(b)]
+        g16 = geometry.resolve(shape, 16)
+
+        def f1p(pinned=pinned, g16=g16):
+            for _ in range(2):
+                windowed.multistep(*pinned, 16, consts, "naive", geometry=g16)
+                pinned[:] = pinned[2:] + pinned[:2]
+
+        calls.append((f"K1 pinned k16 x2{label}", f1p, reps))
     u_np, v_np = (rng.uniform(0, 1, (1080, 1920)).astype(np.float32)
                   for _ in range(2))
     for n_rows, n_cols in ((2, 2), (4, 1)):
@@ -199,6 +221,20 @@ def main(argv=None) -> int:
                                          (1080, 1920))
 
         calls.append((f"K1 shard {n_rows}x{n_cols}", f1s, 40))
+        mesh16 = halo.Mesh(n_rows, n_cols, torch.device("cuda"), 16)
+        g32 = geometry.resolve(halo.shard_extents((1080, 1920), mesh16), 16,
+                               32)
+        pairs16 = halo.mega_shard_state(u_np, v_np, mesh16)
+        for p in pairs16:
+            halo.exchange_halos(p, 0, 16)
+
+        def f1sp(pairs=pairs16, mesh=mesh16, g=g32):
+            for _ in range(2):
+                windowed.shard_multistep(*pairs, mesh, 0, 16, consts,
+                                         "naive", (1080, 1920), geometry=g)
+
+        calls.append((f"K1 shard pinned k16 32 {n_rows}x{n_cols}", f1sp,
+                      40))
     kernels = {name: gpu.time_call(fn, "cuda", reps) * 1e3
                for name, fn, reps in calls}
     print(json.dumps({

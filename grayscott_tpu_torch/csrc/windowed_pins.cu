@@ -16,9 +16,11 @@
 //     them, 4-byte copies elsewhere; bf16 storage widened through
 //     registers), cells outside the domain as 0.0;
 //   - step s computes window cells [s+1, W-s-1) from one buffer into the
-//     other in register strips of 4 cells, the tiles whose window lies
-//     inside the domain with the fixed term list and no boundary
-//     arithmetic, the others cell by cell at the domain's edge;
+//     other: the tiles whose window lies inside the domain in 4 x 4
+//     register blocks with 16-byte shared loads and the fixed term list,
+//     no boundary arithmetic (the second form, windowed_pins.cuh), the
+//     others in register strips of 4 cells, cell by cell at the domain's
+//     edge;
 //   - the tile, masked to the domain, is written out (bf16: rounded to
 //     nearest even once a launch, as pallas_stencil.py:970-993 rounds once
 //     a K-step block).
@@ -31,7 +33,13 @@
 // window leaves one block on an SM (147,456 B at K = 16): the pins trade
 // the HBM passes that a deeper K saves against both, which the card
 // measures (PERF.md §6). The kernels are bound to 64 registers a thread,
-// as Main's are.
+// as Main's are. The geometries users pin most, 64x64 and 32x64 tiles at a
+// halo of 16, run on their sizes compiled in (windowed_pins_fixed.cu) for
+// the default stencils' tap set; every other on PinGeometry's. The fold
+// entries keep the first form, the strips on PinGeometry's sizes
+// (pinned_kernel). The split that chose this form, and its rejected parts
+// (1024 threads, clusters of 2 x 2 blocks over distributed shared memory,
+// a division-free walk), are windowed_pins_ablation.cu's.
 //
 // The shard entries (gs_windowed_shard_pinned_multistep and its bf16 twin)
 // are windowed.cu's shard entry under the sharded windowed engine's K and
@@ -42,7 +50,9 @@
 // rows (and, on a 2-D mesh, as many columns) of its neighbours' cells
 // (grayscott_tpu_torch/parallel/halo.py), on tr x tc tiles in windows of
 // `halo` cells more on every side, through the compiled entry's block body
-// (gs_tile_sm90.cuh: shard_window_multistep). bf16 storage rounds once a
+// (gs_tile_sm90.cuh: shard_window_multistep) on the second form's step
+// loop (gs_pin_sm90.cuh: pin_shard_multistep), its sizes compiled in on
+// the same two geometries. bf16 storage rounds once a
 // launch, a block of K steps, as JAX's sharded engine rounds once a
 // K-step block. The default stencils' tap set has an instantiation of its
 // own, any other runs with its weights tested at run time
@@ -83,17 +93,19 @@
 // slice copies of PyTorch the refresh took 0.20 ms a block against the
 // step's 0.16 at 1080x1920 (PERF.md §6, PR 20).
 
-#include "gs_tile_sm90.cuh"
+#include "windowed_pins.cuh"
 
 namespace {
 
 namespace sm90 = gs::sm90;
+namespace pins = gs::pins;
 
+using pins::Call;
+using pins::MIN_BLOCKS;
+using pins::ShardCall;
 using sm90::PinGeometry;
 
-// blocks an SM the register budget allows (__launch_bounds__): Main's
-constexpr int MIN_BLOCKS = 2;
-
+// The first form, which the fold entries keep.
 template <int TAPS, int MODE, typename T, typename K>
 __global__ void __launch_bounds__(PinGeometry::NT, MIN_BLOCKS)
 pinned_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
@@ -103,16 +115,6 @@ pinned_kernel(const T* u, const T* v, T* u_out, T* v_out, int rows,
                                            cols, steps, k, aligned,
                                            reinterpret_cast<float*>(window));
 }
-
-template <typename T, typename K>
-struct Call {
-  const T *u, *v;
-  T *u_out, *v_out;
-  int rows, cols, steps, naive, device;
-  K k;
-  PinGeometry g;
-  cudaStream_t stream;
-};
 
 // One launch of pinned_kernel<TAPS, MODE, T, K>, after allowing it the most
 // dynamic shared memory a block may use (once per device).
@@ -139,12 +141,18 @@ cudaError_t launch_one(const Call<T, K>& c) {
   return cudaGetLastError();
 }
 
+// The second form (windowed_pins.cuh): on the compiled geometries'
+// sizes where the tap set is the default stencils', else on PinGeometry's.
 template <int TAPS>
 struct Launch {
   template <typename T>
   static cudaError_t run(const Call<T, gs::Constants>& c) {
-    return c.naive ? launch_one<TAPS, sm90::MODE_NAIVE>(c)
-                   : launch_one<TAPS, sm90::MODE_ZERO>(c);
+    if (TAPS == sm90::TAPS_RING && pins::fixed_geometry(c.g)) {
+      return pins::launch_fixed(c);
+    }
+    return c.naive
+               ? pins::launch_form<TAPS, sm90::MODE_NAIVE, T>(c, c.g)
+               : pins::launch_form<TAPS, sm90::MODE_ZERO, T>(c, c.g);
   }
 };
 
@@ -156,55 +164,17 @@ struct LaunchFold {
   }
 };
 
-template <int TAPS, int MODE, typename T>
-__global__ void __launch_bounds__(PinGeometry::NT, MIN_BLOCKS)
-shard_pinned_kernel(sm90::Shards<T> s, int rows, int cols, int steps,
-                    gs::Constants k, PinGeometry g) {
-  extern __shared__ float4 window[];  // buffers [2] x species [2]
-  sm90::shard_window_multistep<TAPS, MODE>(g, s, rows, cols, steps, k,
-                                           reinterpret_cast<float*>(window));
-}
-
-template <typename T>
-struct ShardCall {
-  sm90::Shards<T> s;
-  int n_shards, rows, cols, steps, naive, device;
-  gs::Constants k;
-  PinGeometry g;
-  cudaStream_t stream;
-};
-
-// One launch of shard_pinned_kernel<TAPS, MODE, T>, after allowing it the
-// most dynamic shared memory a block may use (once per device).
-template <int MODE, int TAPS, typename T>
-cudaError_t launch_shards_one(const ShardCall<T>& c) {
-  static bool allowed[gs::MAX_DEVICES];
-  auto kernel = shard_pinned_kernel<TAPS, MODE, T>;
-  if (!allowed[c.device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sm90::SMEM_OPTIN));
-    if (err != cudaSuccess) return err;
-    allowed[c.device] = true;
-  }
-  const sm90::Shards<T>& s = c.s;
-  const dim3 grid =
-      s.part == 1 ? dim3(s.tj1 - s.tj0, s.ti1 - s.ti0, c.n_shards)
-                  : dim3((s.c_loc + c.g.tc - 1) / c.g.tc,
-                         (s.r_loc + c.g.tr - 1) / c.g.tr, c.n_shards);
-  if (grid.x == 0 || grid.y == 0) return cudaSuccess;  // an empty part
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  kernel<<<grid, PinGeometry::NT, sm90::pin_bytes(c.g), c.stream>>>(
-      s, c.rows, c.cols, c.steps, c.k, c.g);
-  return cudaGetLastError();
-}
-
+// The second form of the shard entry, as Launch's.
 template <int TAPS>
 struct LaunchShards {
   template <typename T>
   static cudaError_t run(const ShardCall<T>& c) {
-    return c.naive ? launch_shards_one<sm90::MODE_NAIVE, TAPS>(c)
-                   : launch_shards_one<sm90::MODE_ZERO, TAPS>(c);
+    if (TAPS == sm90::TAPS_RING && pins::fixed_geometry(c.g)) {
+      return pins::launch_shard_fixed(c);
+    }
+    return c.naive
+               ? pins::launch_shard_form<TAPS, sm90::MODE_NAIVE, T>(c, c.g)
+               : pins::launch_shard_form<TAPS, sm90::MODE_ZERO, T>(c, c.g);
   }
 };
 
@@ -403,6 +373,33 @@ int folded_multistep(float* u, float* v, float* u_out,
 extern "C" {
 
 int gs_windowed_pinned_max_steps() { return sm90::PIN_MAX_STEPS; }
+
+// The blocks an SM that the occupancy API gives the kernel which
+// gs_windowed_pinned_multistep (`shard` 0) or
+// gs_windowed_shard_pinned_multistep (1) launches for float32 state, the
+// naive boundary and the default stencils' tap set on tr x tc tiles at
+// `halo`, at its window's bytes (*per_sm). Returns a CUDA error code.
+int gs_windowed_pinned_blocks(int tr, int tc, int halo, int shard,
+                              int device, int* per_sm) {
+  if (!sm90::pin_ok(tr, tc, halo, 1) || device < 0 ||
+      device >= gs::MAX_DEVICES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const PinGeometry g = sm90::pin_geometry(tr, tc, halo);
+  if (pins::fixed_geometry(g)) {
+    return static_cast<int>(pins::fixed_blocks(g, shard, per_sm));
+  }
+  constexpr int TAPS = sm90::TAPS_RING, MODE = sm90::MODE_NAIVE;
+  return static_cast<int>(
+      shard ? pins::form_blocks(
+                  pins::shard_form_kernel<TAPS, MODE, float, PinGeometry>,
+                  sm90::pin_bytes(g), per_sm)
+            : pins::form_blocks(
+                  pins::pinned_form_kernel<TAPS, MODE, float, PinGeometry>,
+                  sm90::pin_bytes(g), per_sm));
+}
 
 // gs_windowed_multistep on tr x tc tiles in windows of `halo` (8, 16, 24 or
 // 32) cells more on every side, `steps` (1..halo) steps a launch. Returns

@@ -75,6 +75,31 @@ SMEM_PER_BLOCK_RESERVED = 1024
 #: thread (``__launch_bounds__(512, 2)`` of every windowed entry)
 BLOCKS_BY_REGISTERS = 2
 
+#: threads a block of every windowed entry (``Main``'s)
+THREADS = 512
+
+#: the pinned geometries (tr, tc, halo) whose sizes K1's pinned entries
+#: compile in (csrc/windowed_pins.cuh: ``fixed_geometry``; for the default
+#: stencils' tap set): K = 9..16 on the default tiles, and the sharded
+#: windowed engine's row tile of 32 at K = 16
+FIXED_PINS = ((64, 64, 16), (32, 64, 16))
+
+
+class PinLaunch(NamedTuple):
+    """What one launch of K1's pinned entries runs on a geometry
+    (:meth:`Geometry.pin_launch`): ``threads`` a block, the ``cluster``
+    shape of blocks (rows, cols; (1, 1): none), the ``blocks_per_sm`` its
+    bytes and registers leave, its ``form`` ("blocks": 4x4 register
+    blocks on interior tiles, strips on edge tiles; "strips": strips on
+    every tile, the first form the fold entries keep) and its ``sizes``
+    ("compiled" or "run-time")."""
+
+    threads: int
+    cluster: Tuple[int, int]
+    blocks_per_sm: int
+    form: str
+    sizes: str
+
 
 def halo_for_steps(k: int) -> int:
     """Halo depth for K fused steps: K rounded up to a multiple of 8,
@@ -144,6 +169,22 @@ class Geometry(NamedTuple):
         """Whether the default entries run it (``Main``: 64x64, halo 8)."""
         return self == DEFAULT
 
+    def pin_launch(self, fold: bool = False,
+                   default_taps: bool = True) -> PinLaunch:
+        """The launch of K1's pinned entries on these tiles (not the
+        compiled geometry, which the default entries run): Main's threads,
+        no cluster (the split's clusters lost, PERF.md §6), the
+        blocks an SM of the window's bytes at two blocks by registers; the
+        second form's blocks but for the folded naive reaction (``fold``),
+        which keeps the first form's strips; sizes compiled in on
+        FIXED_PINS for the default stencils' tap set (``default_taps``),
+        as the C entries choose (csrc/windowed_pins.cu)."""
+        compiled = (not fold and default_taps
+                    and tuple(self) in FIXED_PINS)
+        return PinLaunch(THREADS, (1, 1), self.blocks_per_sm,
+                         "strips" if fold else "blocks",
+                         "compiled" if compiled else "run-time")
+
     def stepped_ratio(self, k: int) -> float:
         """Window cells stepped over K steps for each output cell-step (the
         halo recompute): step s steps the (WR - 2s)(WC - 2s) cells inside
@@ -160,6 +201,50 @@ class Geometry(NamedTuple):
 
 #: the compiled geometry (csrc/gs_tile_sm90.cuh: Main, HALO)
 DEFAULT = Geometry(TILE, TILE, HALO)
+
+#: columns of a cluster block's window past its tile and halo
+#: (csrc/gs_pin_sm90.cuh: CLUSTER_MARGIN): a right-hand block's window
+#: starts on a multiple of 8 columns
+CLUSTER_MARGIN = 8
+
+
+def cluster_bytes(tr: int, tc: int, halo: int) -> int:
+    """Dynamic shared memory of a block of the pinned entries' cluster form
+    (csrc/gs_pin_sm90.cuh: clusters of 2x2 blocks over 2x2 tiles): two
+    buffers of a window pair of tr + halo + 1 rows (its tile, the group's
+    halo on one side, a ghost row on the other) of pitch(tc + halo +
+    CLUSTER_MARGIN) floats."""
+    return (tr + halo + 1) * pitch(tc + halo + CLUSTER_MARGIN) * 4 * 2 * 2
+
+
+def pin_block_plan(g: Geometry, lo: int,
+                   threads: int = THREADS) -> list:
+    """The 4x4 register blocks (first row, first column, rows) that the
+    pinned entries' second form steps on an interior tile of ``g`` at the
+    step whose valid region is window cells [lo, WR - lo) x [lo, WC - lo)
+    (csrc/gs_pin_sm90.cuh: ``pin_step_blocks``): strips of 4 rows, the
+    region's columns rounded outward to multiples of 4, item ``it`` of
+    thread ``it % threads``; by thread, in order."""
+    wr, wc = g.tr + 2 * g.halo, g.tc + 2 * g.halo
+    nblk = (wc - lo + 3) // 4 - lo // 4
+    hi_r = wr - lo
+    items = nblk * ((hi_r - lo + 3) // 4)
+    plan = []
+    for t in range(threads):
+        blocks = []
+        for it in range(t, items, threads):
+            strip, q = divmod(it, nblk)
+            lr0 = lo + 4 * strip
+            blocks.append((lr0, lo // 4 * 4 + 4 * q, min(4, hi_r - lr0)))
+        plan.append(blocks)
+    return plan
+
+
+def cluster_stepped_ratio(g: Geometry, k: int) -> float:
+    """Cells a cluster of 2x2 blocks steps over K steps for each output
+    cell-step: its group of 2x2 tiles recomputes the halo around the group
+    only."""
+    return Geometry(2 * g.tr, 2 * g.tc, g.halo).stepped_ratio(k)
 
 
 def _fit(fixed_rows: int | None, fixed_cols: int | None,

@@ -62,6 +62,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import geometry
 from ..params import (FoldConstants, KernelConstants, Parameters,
                       Precision, kernel_constants)
 
@@ -569,6 +570,157 @@ def fold_block_walk(u: torch.Tensor, v: torch.Tensor, steps: int,
                 o[tr_, tc_] = w[tr_.start - r0 + 1:tr_.stop - r0 + 1,
                                 tc_.start - c0 + 1:tc_.stop - c0 + 1]
     return out
+
+
+def cluster_walk(u: torch.Tensor, v: torch.Tensor, steps: int,
+                 consts: KernelConstants, boundary: str,
+                 tile: Tuple[int, int], halo: int,
+                 extent: Tuple[int, int] | None = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`run` of ``steps`` (1..``halo``) steps as the pinned entries'
+    split walks it in its cluster part (``csrc/gs_pin_sm90.cuh``:
+    ``cluster_window_multistep_on``), its CPU twin. The ``tile`` (tr, tc)
+    tiles of the ``extent`` (rows, cols from global (0, 0); None: the
+    domain) go in groups of 2x2 to clusters of 2x2 blocks, the grid padded
+    to whole clusters. Each block holds its window (tr + halo + 1 rows, tc
+    + halo + ``geometry.CLUSTER_MARGIN`` columns: its tile, the group's
+    halo on the group's outer sides, a ghost row and column on its inner
+    sides); it loads the cells the layout holds (the domain; with an
+    ``extent``, as a shard's layout holds them: ``halo`` cells around the
+    extent) and 0.0 elsewhere, and at each step steps the cells it owns in
+    the group's valid region from one buffer into the other. Every other
+    cell of the new buffer holds NaN, the garbage the kernel leaves there,
+    but the ghost cells: those its live neighbours step on their inner
+    edges (the kernel's stores into a neighbour's shared memory) and those
+    of a neighbour that owns no cell of the domain (it steps nothing; they
+    keep the 0.0 they loaded). A padded block (past the extent's tiles)
+    owns the group's halo band beside its real neighbour and stores
+    nothing. Returns the tiles' cells, on the extent (0.0 outside the
+    domain), equal to :func:`run` there bit for bit: a valid cell reads
+    only cells valid at the step before, and ghosts stepped by their
+    owners at that step."""
+    tr, tc = tile
+    m = geometry.CLUSTER_MARGIN
+    rows, cols = u.shape
+    r_ext, c_ext = extent or (rows, cols)
+    if not 1 <= steps <= halo:
+        raise ValueError(f"steps must lie in [1, {halo}], got {steps}")
+    tiles_y, tiles_x = -(-r_ext // tr), -(-c_ext // tc)
+    wr, wc = tr + halo + 1, tc + halo + m
+    nan = float("nan")
+    held = ((-halo, r_ext + halo), (-halo, c_ext + halo)) if extent \
+        else ((0, rows), (0, cols))
+
+    def at(ti, tj):
+        """The block's group geometry (kernel's names), in group coordinates
+        and globally."""
+        bi, bj = ti & 1, tj & 1
+        gr_hi = (2 * tr if (ti | 1) < tiles_y else tr) + halo
+        gc_hi = (2 * tc if (tj | 1) < tiles_x else tc) + halo
+        b = {"bi": bi, "bj": bj, "gr_hi": gr_hi, "gc_hi": gc_hi,
+             "own_r": (tr, gr_hi) if bi else (-halo, tr),
+             "own_c": (tc, gc_hi) if bj else (-halo, tc),
+             "wr0": tr - 1 if bi else -halo,
+             "wc0": tc - m if bj else -halo,
+             "gr0": (ti & ~1) * tr, "gc0": (tj & ~1) * tc}
+        b["r0"], b["c0"] = b["gr0"] + b["wr0"], b["gc0"] + b["wc0"]
+        b["dead"] = (b["gr0"] + b["own_r"][0] >= rows
+                     or b["gc0"] + b["own_c"][0] >= cols)
+        return b
+
+    blocks = {(ti, tj): at(ti, tj)
+              for ti in range(-(-tiles_y // 2) * 2)
+              for tj in range(-(-tiles_x // 2) * 2)}
+    bufs = {}
+    for key, b in blocks.items():
+        win = []
+        for x in (u, v):
+            w = torch.zeros((wr, wc), dtype=x.dtype)
+            rr = (max(b["r0"], 0, held[0][0]),
+                  min(b["r0"] + wr, rows, held[0][1]))
+            cc = (max(b["c0"], 0, held[1][0]),
+                  min(b["c0"] + wc, cols, held[1][1]))
+            if rr[0] < rr[1] and cc[0] < cc[1]:
+                w[rr[0] - b["r0"]:rr[1] - b["r0"],
+                  cc[0] - b["c0"]:cc[1] - b["c0"]] = x[rr[0]:rr[1],
+                                                      cc[0]:cc[1]]
+            win.append(w)
+        bufs[key] = win
+    # the ghost row and column of each block, and their owners
+    ghost = {}
+    for key, b in blocks.items():
+        gr = tr if b["bi"] == 0 else tr - 1  # group coordinates
+        gc = tc if b["bj"] == 0 else tc - 1
+        ghost[key] = (gr - b["wr0"], gc - b["wc0"])
+    for st in range(1, steps + 1):
+        new = {}
+        for key, b in blocks.items():
+            out = [torch.full((wr, wc), nan, dtype=x.dtype) for x in (u, v)]
+            lr, lc = ghost[key]
+            ti, tj = key
+            for dti, dtj in ((1, 0), (0, 1), (1, 1)):
+                n = (ti ^ dti, tj ^ dtj)
+                if blocks[n]["dead"]:  # its cells keep the 0.0 loaded
+                    rsel = slice(lr, lr + 1) if dti else slice(0, wr)
+                    csel = slice(lc, lc + 1) if dtj else slice(0, wc)
+                    if dti and dtj:
+                        pass
+                    elif dti:  # the ghost row's cells that n owns
+                        own = blocks[n]["own_c"]
+                        csel = slice(max(own[0] - b["wc0"], 0),
+                                     max(min(own[1] - b["wc0"], wc), 0))
+                    else:
+                        own = blocks[n]["own_r"]
+                        rsel = slice(max(own[0] - b["wr0"], 0),
+                                     max(min(own[1] - b["wr0"], wr), 0))
+                    for o, w in zip(out, bufs[key]):
+                        o[rsel, csel] = w[rsel, csel]
+            if not b["dead"]:
+                r_lo = max(b["own_r"][0], st - halo) - b["wr0"]
+                r_hi = min(b["own_r"][1], b["gr_hi"] - st) - b["wr0"]
+                c_lo = max(b["own_c"][0], st - halo) - b["wc0"]
+                c_hi = min(b["own_c"][1], b["gc_hi"] - st) - b["wc0"]
+                nu, nv = step_at(*bufs[key], consts, boundary,
+                                 (b["r0"], b["c0"]), (rows, cols))
+                for o, x in zip(out, (nu, nv)):
+                    o[r_lo:r_hi, c_lo:c_hi] = x[r_lo:r_hi, c_lo:c_hi]
+                b["region"] = (r_lo, r_hi, c_lo, c_hi)
+            new[key] = out
+        # each live block's inner edge into its neighbours' ghost cells
+        for key, b in blocks.items():
+            if b["dead"]:
+                continue
+            r_lo, r_hi, c_lo, c_hi = b["region"]
+            push_r = 1 if b["bi"] else tr - 1 + halo
+            push_c = m if b["bj"] else tc - 1 + halo
+            ti, tj = key
+            for dti, dtj in ((1, 0), (0, 1), (1, 1)):
+                n = blocks[ti ^ dti, tj ^ dtj]
+                rs = (slice(push_r, push_r + 1) if dti
+                      else slice(r_lo, r_hi))
+                cs = (slice(push_c, push_c + 1) if dtj
+                      else slice(c_lo, c_hi))
+                if not (r_lo <= push_r < r_hi or not dti) or \
+                        not (c_lo <= push_c < c_hi or not dtj):
+                    continue
+                dr, dc = b["r0"] - n["r0"], b["c0"] - n["c0"]
+                for o, w in zip(new[ti ^ dti, tj ^ dtj], new[key]):
+                    o[rs.start + dr:rs.stop + dr,
+                      cs.start + dc:cs.stop + dc] = w[rs, cs]
+        bufs = new
+    outs = [torch.zeros((r_ext, c_ext), dtype=x.dtype) for x in (u, v)]
+    for (ti, tj), b in blocks.items():
+        if ti >= tiles_y or tj >= tiles_x:
+            continue
+        g0r, g0c = ti * tr, tj * tc
+        rr = (g0r, min(g0r + tr, r_ext, rows))
+        cc = (g0c, min(g0c + tc, c_ext, cols))
+        if rr[0] >= rr[1] or cc[0] >= cc[1]:
+            continue
+        for o, w in zip(outs, bufs[ti, tj]):
+            o[rr[0]:rr[1], cc[0]:cc[1]] = w[rr[0] - b["r0"]:rr[1] - b["r0"],
+                                            cc[0] - b["c0"]:cc[1] - b["c0"]]
+    return outs[0], outs[1]
 
 
 # ---------------------------------------------------------------------------

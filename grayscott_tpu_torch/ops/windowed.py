@@ -64,7 +64,14 @@ four storages, counted apart in ``pinned_launches``,
 ``pinned_bf16_launches``, ``pinned_fold_launches`` and
 ``pinned_fold_bf16_launches``. Their plain versions are the same as the
 compiled entries' (the results do not depend on the tiles; bf16 storage
-rounds once a launch, so ``steps`` is the block length).
+rounds once a launch, so ``steps`` is the block length). The pinned
+entries and the pinned shard entries run their second form
+(``csrc/windowed_pins.cuh``: 4x4 register blocks with 16-byte shared loads
+on interior tiles, and on ``geometry.FIXED_PINS`` the tile's sizes
+compiled in), the fold entries the first; ``Geometry.pin_launch`` says
+what a launch runs. :func:`pinned_ablation` and
+:func:`pinned_shard_ablation` run the parts of the split that chose it
+(:data:`PIN_ABLATIONS`), on the card only.
 
 :func:`folded_multistep` is K1 on the lane-fold layout (``--pallas-fold
 F``; ``pallas_stencil.py:_kernel`` with ``fold=(F, Cd, Rp)``, ``:929-933``,
@@ -170,6 +177,40 @@ FOLD_ABLATIONS = {
 FOLD_ABLATION_NO_STEP = (1, 6)
 FOLD_ABLATION_EXACT = 4
 FOLD_ABLATION_TMA_ONLY = tuple(range(7, 13))
+
+#: the parts of the pinned entries' split (csrc/windowed_pins_ablation.cu:
+#: gs_windowed_pinned_ablation, gs_windowed_shard_pinned_ablation); each
+#: gives the whole kernel's result but part 2, whose result is its input;
+#: float32, naive, the default stencil's tap set
+PIN_ABLATIONS = {
+    0: "the first form: run-time sizes, 512 threads, two blocks an SM at "
+       "64 registers",
+    1: "the first form on 1024 threads at 64 registers",
+    2: "the first form's window load and store alone (no step)",
+    3: "the first form with every tile an edge tile",
+    4: "the first form on the tile's sizes compiled in (64x64 and 32x64 "
+       "tiles at a halo of 16)",
+    5: "4x4 register blocks with 16-byte shared loads on interior tiles",
+    6: "clusters of 2x2 blocks over 2x2 tiles, the inner edges read from "
+       "the neighbours' shared memory",
+    7: "part 5 walked without a division an item",
+    8: "part 7 on the tile's sizes compiled in (64x64 and 32x64 tiles at a "
+       "halo of 16)",
+    9: "part 7 on 1024 threads at 64 registers",
+    10: "part 8 on 1024 threads at 64 registers",
+    11: "part 6 with the inner edges sent in a pass of their own",
+    12: "the first form's strips walked without a division an item",
+    13: "part 11 with the cluster barrier split around the cells that "
+        "read no ghost cell",
+}
+#: the part that takes no step, the tiles part 4 compiles (tr, tc, halo),
+#: and the cluster's part
+PIN_ABLATION_NO_STEP = 2
+#: the parts the shard entry's split runs
+PIN_SHARD_ABLATIONS = tuple(range(7))
+PIN_ABLATION_FIXED = geometry.FIXED_PINS
+PIN_ABLATION_FIXED_PARTS = (4, 8, 10)
+PIN_ABLATION_CLUSTERS = (6, 11, 13)
 
 _fns: dict = {}
 _checked = False
@@ -633,3 +674,111 @@ def folded_multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
                            f"({g.label()}, F={f}, Rp={rp}): CUDA error {err} "
                            f"({build.error_name(err)})")
     folded_launches += 1
+
+
+def check_pin_part(part: int, g: geometry.Geometry) -> None:
+    """Refuse a part of :data:`PIN_ABLATIONS` that does not run on the
+    tiles of ``g`` (ValueError): part 4 compiles two geometries only, and
+    each part's shared memory must fit a block."""
+    if part not in PIN_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(PIN_ABLATIONS)}, got "
+                         f"{part!r}")
+    if part in PIN_ABLATION_FIXED_PARTS and tuple(g) not in \
+            PIN_ABLATION_FIXED:
+        raise ValueError(f"part {part} compiles {PIN_ABLATION_FIXED} only, "
+                         f"not {g.label()}")
+    if pin_part_bytes(part, g) > geometry.SMEM_OPTIN:
+        raise ValueError(f"part {part} on {g.label()} needs "
+                         f"{pin_part_bytes(part, g)} B a block")
+
+
+def pin_part_bytes(part: int, g: geometry.Geometry) -> int:
+    """Dynamic shared memory of a block of ``part`` on ``g``: the window
+    pair's two buffers (the cluster parts the cluster's windows,
+    ``geometry.cluster_bytes``)."""
+    if part in PIN_ABLATION_CLUSTERS:
+        return geometry.cluster_bytes(g.tr, g.tc, g.halo)
+    return g.bytes
+
+
+#: the default stencils' tap set (csrc/gs_tile_sm90.cuh: TAPS_RING; bit t:
+#: weight t, row-major, is nonzero), the one the pinned split compiles
+TAPS_RING = 0x1EF
+
+
+def _pin_consts(consts: KernelConstants, boundary: str) -> None:
+    mask = sum(1 << t for t, w in enumerate(consts.weights) if w != 0.0)
+    if boundary != "naive" or mask != TAPS_RING:
+        raise ValueError("the pinned split runs the naive boundary on the "
+                         "default stencil's tap set")
+
+
+def pinned_ablation(part: int, u: torch.Tensor, v: torch.Tensor,
+                    u_out: torch.Tensor, v_out: torch.Tensor, steps: int,
+                    consts: KernelConstants, g: geometry.Geometry) -> None:
+    """K1's pinned entry on the card in the form of ``part``
+    (:data:`PIN_ABLATIONS`): the float32 state ``steps`` (1..``g.halo``)
+    naive steps after ``(u, v)`` into ``(u_out, v_out)`` on the tiles of
+    ``g`` (part 2: the state itself). Not counted in any launch counter."""
+    checks.check_count("steps", steps, 1, g.halo)
+    checks.check_state((u, v), (u_out, v_out))
+    check_pin_part(part, g)
+    _pin_consts(consts, "naive")
+    if u.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the state must lie on "
+                         f"a CUDA device, not {u.device}")
+    fn = _bind("gs_windowed_pinned_ablation",
+               _pinned_kernel(torch.float32, False).argtypes + [ctypes.c_int])
+    rows, cols = u.shape
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = fn(u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
+             rows, cols, steps, *g, 1, u.device.index, *consts.weights,
+             *consts.reaction, stream, part)
+    if err != 0:
+        raise RuntimeError(f"pinned windowed ablation part {part} failed "
+                           f"({g.label()}): CUDA error {err} "
+                           f"({build.error_name(err)})")
+
+
+def pinned_shard_ablation(part: int, u_pairs: torch.Tensor,
+                          v_pairs: torch.Tensor, mesh: halo.Mesh,
+                          src_slot: int, steps: int, consts: KernelConstants,
+                          shape, g: geometry.Geometry,
+                          tiles: str = "all") -> None:
+    """K1's pinned shard entry on the card in the form of ``part``
+    (:data:`PIN_SHARD_ABLATIONS` of :data:`PIN_ABLATIONS`):
+    :func:`shard_multistep` of the float32 pairs on the tiles of ``g``
+    (``tiles``: the tile set, :data:`PARTS`; part 6 takes ``"all"``
+    only), naive boundary. Not counted in any launch counter."""
+    if part not in PIN_SHARD_ABLATIONS:
+        raise ValueError(f"the shard entry's split runs parts "
+                         f"{PIN_SHARD_ABLATIONS}, not {part!r}")
+    if g.halo != mesh.halo:
+        raise ValueError(f"the tiles' halo ({g.label()}) must be the "
+                         f"mesh's, {mesh.halo}")
+    checks.check_count("steps", steps, 1, g.halo)
+    if tiles not in PARTS:
+        raise ValueError(f"tiles must be one of {PARTS}, got {tiles!r}")
+    if part in PIN_ABLATION_CLUSTERS and tiles != "all":
+        raise ValueError(f"part {part} (the cluster) steps every tile: tiles "
+                         "must be 'all'")
+    check_pin_part(part, g)
+    _pin_consts(consts, "naive")
+    sharded_mega.check_pairs(u_pairs, v_pairs, mesh, shape)
+    if u_pairs.dtype != torch.float32 or u_pairs.device.type != "cuda":
+        raise ValueError("an ablation runs the kernel: the pairs must be "
+                         "float32 on a CUDA device")
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs, mesh)
+    rect = halo.overlap_tiles(r_loc, c_loc, ch, (g.tr, g.tc), g.halo)
+    fn = _bind("gs_windowed_shard_pinned_ablation",
+               _pinned_shard_kernel().argtypes + [ctypes.c_int])
+    stream = torch.cuda.current_stream(u_pairs.device).cuda_stream
+    err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), *mesh.local_shape,
+             *mesh.origin, r_loc, c_loc, ch, src_slot, shape[0], shape[1],
+             steps, PARTS.index(tiles), *rect, *g, 1,
+             u_pairs.device.index, *consts.weights, *consts.reaction, stream,
+             part)
+    if err != 0:
+        raise RuntimeError(f"pinned windowed shard ablation part {part} "
+                           f"failed ({g.label()}): CUDA error {err} "
+                           f"({build.error_name(err)})")

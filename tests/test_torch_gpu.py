@@ -1771,12 +1771,18 @@ def test_default_geometry_launches_the_compiled_entry(cuda_device, pins):
 
 @pytest.mark.gpu
 def test_pinned_kernels_do_not_spill(cuda_device, tmp_path):
-    """ptxas's report of the pinned entries (csrc/windowed_pins.cu: 22
-    instantiations; K4's in csrc/packed.cu), bound to 64 registers a
-    thread as Main's are: no spill."""
-    spills = ptxas_spills("windowed_pins.cu", "13pinned_kernel", tmp_path)
-    assert len(spills) == 22, spills
-    assert all(v == (0, 0) for v in spills.values()), spills
+    """ptxas's report of the pinned entries (csrc/windowed_pins.cu: the
+    fold entries' 6 first-form instantiations and the second form's 16 on
+    run-time sizes; csrc/windowed_pins_fixed.cu: its 8 on compiled sizes;
+    K4's in csrc/packed.cu), bound to 64 registers a thread as Main's
+    are: no spill."""
+    for source, kernel, count in (
+            ("windowed_pins.cu", "13pinned_kernel", 6),
+            ("windowed_pins.cu", "18pinned_form_kernel", 16),
+            ("windowed_pins_fixed.cu", "18pinned_form_kernel", 8)):
+        spills = ptxas_spills(source, kernel, tmp_path)
+        assert len(spills) == count, (kernel, spills)
+        assert all(v == (0, 0) for v in spills.values()), spills
     spills = ptxas_spills("packed.cu", "20packed_pinned_kernel", tmp_path)
     assert len(spills) == 1 and all(v == (0, 0) for v in spills.values()), \
         spills
@@ -1937,7 +1943,8 @@ def test_new_pinned_kernels_do_not_spill(cuda_device, tmp_path):
             ("mega_pins.cu", "18mega_pinned_kernel", 12),
             ("mega_pins.cu", "25packed_mega_pinned_kernel", 1),
             ("sharded_mega_pins.cu", "26sharded_mega_pinned_kernel", 16),
-            ("windowed_pins.cu", "19shard_pinned_kernel", 8)):
+            ("windowed_pins.cu", "17shard_form_kernel", 8),
+            ("windowed_pins_fixed.cu", "17shard_form_kernel", 8)):
         spills = ptxas_spills(source, kernel, tmp_path)
         assert len(spills) == count, (kernel, spills)
         assert all(v == (0, 0) for v in spills.values()), spills
@@ -2124,3 +2131,79 @@ def test_pinned_ring_bound_follows_the_bytes(cuda_device):
             2 if megakernel.pinned_two_blocks(ring.bytes) else 1)
         n = megakernel.pinned_ring_max_blocks(cuda_device, ring)
         assert n == ring.blocks_per_sm * sms, (tiles, depth, n)
+
+
+# -- K1's pinned entries' second form and their split ------------------------
+
+
+@pytest.mark.gpu
+def test_pinned_ablation_parts_bitwise(cuda_device):
+    """Every part of the pinned entries' split (windowed.PIN_ABLATIONS, the
+    shard entry's PIN_SHARD_ABLATIONS on 2x2) on K = 16 64x64 and 32x64
+    tiles and K = 8 32x128 tiles at 130x210 and 1025x300, naive, NaN and
+    Inf included: bit for bit the plain version (part 2, which steps
+    nothing: its input), and not counted in any launch counter. Tolerance:
+    none."""
+    consts = kernel_constants(Parameters())
+    for shape in ((130, 210), (1025, 300)):
+        for u, v in fold_states(shape, cuda_device, torch.float32):
+            for k, tr, tc in ((16, 64, 64), (16, 32, 64), (8, 32, 128)):
+                g = geometry.resolve(shape, k, tr, tc)
+                want = stencil.run(u, v, k, consts, "naive")
+                for part in windowed.PIN_ABLATIONS:
+                    try:
+                        windowed.check_pin_part(part, g)
+                    except ValueError:
+                        continue
+                    before = windowed.pinned_launches
+                    got = (torch.empty_like(u), torch.empty_like(v))
+                    windowed.pinned_ablation(part, u, v, *got, k, consts, g)
+                    torch.cuda.synchronize()
+                    assert windowed.pinned_launches == before
+                    ref = (u, v) if part == 2 else want
+                    assert all(bits_equal(a, b) for a, b in zip(got, ref)), \
+                        (shape, g, part)
+        mesh = halo.Mesh(2, 2, cuda_device, 16)
+        g = geometry.resolve(halo.shard_extents(shape, mesh), 16, 32)
+        u_np, v_np = (x.cpu().numpy() for x in random_uv(shape, cuda_device))
+        up, vp = halo.mega_shard_state(u_np, v_np, mesh)
+        for x in (up, vp):
+            halo.exchange_halos(x, 0, 16)
+        cu, cv = up.clone(), vp.clone()
+        windowed.shard_multistep_reference(cu, cv, 0, 16, consts, "naive",
+                                           shape, "all", g)
+        want = [halo.mega_unshard_result(x, shape, 1, 16) for x in (cu, cv)]
+        for part in windowed.PIN_SHARD_ABLATIONS:
+            try:
+                windowed.check_pin_part(part, g)
+            except ValueError:
+                continue
+            gu, gv = up.clone(), vp.clone()
+            windowed.pinned_shard_ablation(part, gu, gv, mesh, 0, 16, consts,
+                                           shape, g)
+            got = [halo.mega_unshard_result(x, shape, 1, 16)
+                   for x in (gu, gv)]
+            ref = ([halo.mega_unshard_result(x, shape, 0, 16)
+                    for x in (up, vp)] if part == 2 else want)
+            assert all(bits_equal(a, b) for a, b in zip(got, ref)), \
+                (shape, g, part)
+
+
+@pytest.mark.gpu
+def test_pinned_blocks_follow_pin_launch(cuda_device):
+    """The occupancy API's blocks an SM of each pinned entry's kernel
+    (gs_windowed_pinned_blocks: compiled sizes on FIXED_PINS, else
+    PinGeometry's) equal Geometry.pin_launch's, for the pinned entry and
+    the pinned shard entry."""
+    import ctypes
+
+    fn = build.bind("gs_windowed_pinned_blocks",
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    for k, tr, tc in ((16, None, None), (16, 32, None), (24, None, None),
+                      (16, 32, 32), (8, 32, 128), (32, None, None)):
+        g = geometry.resolve((4096, 4096), k, tr, tc)
+        for shard in (0, 1):
+            per_sm = ctypes.c_int(0)
+            assert fn(g.tr, g.tc, g.halo, shard, cuda_device.index or 0,
+                      ctypes.byref(per_sm)) == 0
+            assert per_sm.value == g.pin_launch().blocks_per_sm, (g, shard)
