@@ -337,8 +337,8 @@
    ring on two blocks of 512 where its bytes leave room for them). (a)
    ptxas's report of the 44 compiled and 24 pinned ring instantiations (no
    spill, no stack) and of the 27 ablation instantiations
-   (``csrc/mega_ring_ablation.cu``; their spills reported); the occupancy
-   API's blocks of each ring below, which must equal
+   (``csrc/splits/mega_ring_ablation.cu``; their spills reported); the
+   occupancy API's blocks of each ring below, which must equal
    ``RingGeometry.blocks_per_sm`` an SM. (b) Every part of the ring's
    split (``megakernel.RING_ABLATIONS``: the first form, its loads and
    stores alone, every window waited for, the double buffer on its tile
@@ -356,7 +356,7 @@
    tiles, sizes compiled in on 64x64 and 32x64 tiles at a halo of 16;
    ``csrc/gs_pin_sm90.cuh``, ``csrc/windowed_pins.cuh``). (a) ptxas's
    report of the split's 23 instantiations
-   (``csrc/windowed_pins_ablation.cu``; phases 18b and 19b check the
+   (``csrc/splits/windowed_pins_ablation.cu``; phases 18b and 19b check the
    entries'), the occupancy API's blocks an SM of each entry's kernel
    against ``Geometry.pin_launch`` (equal) and of the cluster part
    against ``geometry.cluster_bytes``. (b) Every part of the split
@@ -695,9 +695,9 @@ KERNELS = {
                     "fast_fold, bfloat16 storage)",
     },
     "shmega_read_site": {
-        "name": "sharded_mega_multistep (read-site wait)",
+        "name": "sharded_mega_fit_multistep (read-site wait, 68x64 tiles)",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/sharded_mega.cu",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega_fit.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, row mesh: "
                     "the 1-D read-site waits, :428-463)",
     },
@@ -803,7 +803,7 @@ KERNELS = {
     "windowed_folded": {
         "name": "windowed_folded_multistep",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/windowed_pins.cu",
+        "source": "grayscott_tpu_torch/csrc/windowed_pins_fixed.cu",
         "replaces": "grayscott_tpu/ops/pallas_stencil.py:929 (fold=(F, Cd, "
                     "Rp): :929-933, :1123-1138; after fold_refresh, :1547)",
     },
@@ -2209,7 +2209,7 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "15ilpsplit_kernel", "13packed_kernel",
                       "22packed_resident_kernel", "18packed_mega_kernel",
                       "11ring_kernel", "13pinned_kernel",
-                      "20packed_pinned_kernel", "13folded_kernel",
+                      "20packed_pinned_kernel", "18folded_form_kernel",
                       "19fold_refresh_kernel", "18ring_pinned_kernel",
                       "20windowed_fold_kernel", "16mega_fold_kernel",
                       "18pinned_form_kernel", "17shard_form_kernel")
@@ -2222,7 +2222,7 @@ NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "20packed_pinned_kernel", "18mega_pinned_kernel",
                     "25packed_mega_pinned_kernel",
                     "26sharded_mega_pinned_kernel",
-                    "13folded_kernel",
+                    "18folded_form_kernel",
                     "19fold_refresh_kernel", "18ring_pinned_kernel",
                     "20windowed_fold_kernel", "16mega_fold_kernel",
                     "18pinned_form_kernel", "17shard_form_kernel")
@@ -6059,7 +6059,7 @@ RING21_BASE = {tag: tag.replace("_ring", "") for tag in RING21_ENTRIES}
 RING21_CASES = (((32, 128), 3), ((16, 64), 4), ((16, 64), 8), ((8, 256), 3))
 RING21_PATH = ((16, 64), 4)
 #: the new instantiations ptxas reports, by mangled kernel name
-FOLD21_PTXAS = {"13folded_kernel": 4, "19fold_refresh_kernel": 1,
+FOLD21_PTXAS = {"18folded_form_kernel": 14, "19fold_refresh_kernel": 1,
                 "18ring_pinned_kernel": 24}
 #: phase 21c/21d: rounds in turns (in order, then reversed), launches a
 #: sample
@@ -6214,10 +6214,11 @@ def compare_ring21(checks: Checks, rng) -> int:
 
 
 def fold21_ptxas(checks: Checks, log: str) -> None:
-    """Phase 21a: ptxas's report of the folded entry's 4 instantiations
-    (and its refresh kernel's one) and the pinned ring's 24 (12 bound to
-    one block an SM, 12 to two): registers, stack and spills, none of
-    which may spill or take a stack frame."""
+    """Phase 21a: ptxas's report of the folded entry's form (14
+    instantiations: the entry's 4 on run-time sizes and 4 compiled, its
+    split's 6, naive; the first form's refresh kernel, 1) and the pinned ring's
+    24 (12 bound to one block an SM, 12 to two): registers, stack and
+    spills, none of which may spill or take a stack frame."""
     if not log:
         print("phase 21a: the library was reused, no ptxas report",
               flush=True)
@@ -6694,7 +6695,7 @@ PIN23_ROUNDS = 2
 
 def pin23_ptxas(checks: Checks, log: str) -> None:
     """Phase 23a: ptxas's report of the split's instantiations
-    (``csrc/windowed_pins_ablation.cu``): registers, stack frame, spills."""
+    (``csrc/splits/windowed_pins_ablation.cu``): registers, stack frame, spills."""
     if not log:
         print("phase 23a: the library was reused, no ptxas report",
               flush=True)
@@ -6923,7 +6924,7 @@ def pin23_blocks(checks: Checks) -> None:
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     fn = build.bind("gs_windowed_pinned_ablation_occupancy",
-                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+                    [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2, build.SPLITS)
     entry = build.bind("gs_windowed_pinned_blocks",
                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
     cases = [(g, 0) for _, g in pin23_flat_cases(MAIN_SHAPE)]
@@ -6970,6 +6971,347 @@ def pin23_phase(checks: Checks, rng, card: str, log: str) -> tuple:
     return n, time_pin23(rng, card)
 
 
+# --- 25. K7's read-site entry and K1's folded entry redesigned --------------
+
+#: K7's read-site split: (shape, row mesh), one launch of MAIN_STEPS steps
+SHRS25_CASES = [(MAIN_SHAPE, (4, 1)), (MAIN_SHAPE, (2, 1)),
+                (BENCH_SHAPE, (4, 1))]
+#: the folded split: (shape, F, K)
+FOLD25_CASES = [(MAIN_SHAPE, 2, 8), (MAIN_SHAPE, 2, 16), ((4096, 512), 8, 8)]
+#: the new instantiations ptxas reports, by mangled kernel name: K7's
+#: split, the folded entry (4 on run-time sizes, 4 compiled) and the
+#: folded split's (12 more, the first form's step 2 and its refresh)
+PTXAS25 = {"15ablation_kernel": 14, "18folded_form_kernel": 14,
+           "24folded_first_form_kernel": 1, "19fold_refresh_kernel": 1}
+#: K7's fitted instantiations: float32 and bf16, 68 rows, two tap sets, two
+#: boundaries
+PTXAS25_FITTED = ("ILi68ELi64ELi512ELi4E",)
+PTXAS25_FITTED_COUNT = 8
+#: the new kernels of the main path, which must not spill (the splits'
+#: parts are reported)
+PTXAS25_NO_SPILL = ("18folded_form_kernel", "fitted 19sharded_mega_kernel")
+#: phase 25c: reps a sample by shape, and rounds (in order, then reversed)
+SPLIT25_REPS = {MAIN_SHAPE: 20, BENCH_SHAPE: 4, (4096, 512): 20}
+SPLIT25_ROUNDS = 2
+
+
+def ptxas_entries(log: str) -> dict:
+    """{function: (registers, (stack frame, spill stores, spill loads))} of
+    every entry ptxas reports in ``log``."""
+    rows, entry, frame = {}, None, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            entry, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            frame = tuple(int(x) for x in m.groups())
+            continue
+        m = PTXAS_USED.search(line)
+        if m and entry:
+            rows[entry] = (int(m.group(1)), frame)
+            entry = None
+    return rows
+
+
+def ptxas25(checks: Checks, log: str) -> None:
+    """Phase 25a: ptxas's report of the new kernels (the splits' units, the
+    folded entry, K7's fitted instantiations): their count, registers, and
+    no stack frame and no spill at their register bounds."""
+    if not log:
+        print("phase 25a: the library was reused, no ptxas report",
+              flush=True)
+        return
+    rows = ptxas_entries(log)
+    groups = {k: ({n: r for n, r in rows.items() if k in n}, c)
+              for k, c in PTXAS25.items()}
+    fitted = {n: r for n, r in rows.items() if "19sharded_mega_kernel" in n
+              and any(f in n for f in PTXAS25_FITTED)}
+    groups["fitted 19sharded_mega_kernel"] = (fitted, PTXAS25_FITTED_COUNT)
+    for kernel, (found, count) in groups.items():
+        for name, (regs, frame) in sorted(found.items()):
+            print(f"ptxas {name}: {regs} registers, stack frame, spill "
+                  f"stores, spill loads {frame}", flush=True)
+        print(f"ptxas {kernel}: {len(found)} instantiations, registers "
+              f"{sorted({r for r, _ in found.values()})}", flush=True)
+        checks.expect(len(found) == count,
+                      f"{kernel}: {len(found)} of {count} instantiations")
+        bad = {n: f for n, (_, f) in found.items() if f != (0, 0, 0)}
+        if bad:
+            print(f"ptxas {kernel}: stack or spills {bad}", flush=True)
+        checks.expect(not bad or kernel not in PTXAS25_NO_SPILL,
+                      f"{kernel}: stack or spills {bad}")
+
+
+def shrs25_setup(u_np, v_np, mesh_shape):
+    """(mesh, u pairs, v pairs) of a row mesh on the card, slot 0's halos
+    exchanged."""
+    mesh = halo.make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape[1],
+                          DEVICE)
+    pairs = halo.mega_shard_state(u_np, v_np, mesh)
+    for p in pairs:
+        halo.exchange_halos(p)
+    return mesh, pairs
+
+
+def shrs25_tile(shape, mesh):
+    """The tiles the entry picks on the card (``tile_for``); the CPU runs
+    the plain version."""
+    return sharded_mega.tile_for(shape, mesh) if DEVICE == "cuda" else "plain"
+
+
+def compare_shrs25(checks: Checks, rng) -> int:
+    """Phase 25b, K7: on each of SHRS25_CASES, both boundaries (and a
+    NaN/Inf state at 1080x1920 naive), one launch of MAIN_STEPS steps of
+    every part of ``sharded_mega.READ_SITE_ABLATIONS`` and of the entry
+    (float32 and bf16, through ``sharded_megastep``'s own tile choice), the
+    pairs' slot 0, halos included, bit for bit the plain version's
+    (``sharded_megastep_reference``; the parts that step nothing: the
+    input, its halos exchanged). Returns the comparisons made."""
+    n = 0
+    consts = kernel_constants(Parameters())
+    n_blocks = MAIN_STEPS // 8
+    for shape, mesh_shape in SHRS25_CASES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            for boundary in ("naive",) if special else ("naive", "zero"):
+                what = (f"{shape[0]}x{shape[1]} {boundary}"
+                        f"{' NaN/Inf' if special else ''} mesh "
+                        f"{mesh_shape[0]}x{mesh_shape[1]}")
+                mesh, ref = shrs25_setup(u_np, v_np, mesh_shape)
+                start = [p.clone() for p in ref]
+                sharded_mega.sharded_megastep_reference(
+                    *ref, n_blocks, 8, consts, boundary, shape)
+                for part in sharded_mega.READ_SITE_ABLATIONS:
+                    got = [p.clone() for p in start]
+                    grid = sharded_mega.read_site_ablation(
+                        part, *got, mesh, n_blocks, 8, consts, boundary,
+                        shape)
+                    want = (start if part in sharded_mega.READ_SITE_NO_STEP
+                            else ref)
+                    checks.compare_bits(
+                        "shmega_read_site", [g[:, :, 0] for g in got],
+                        [w[:, :, 0] for w in want],
+                        f"shrs25 {what} part {part} (grid {grid})")
+                    n += 1
+                for dtype in (torch.float32, torch.bfloat16):
+                    _, got = shrs25_setup(u_np, v_np, mesh_shape)
+                    got = [p.to(dtype) for p in got]
+                    want = [p.clone() for p in got]
+                    before = sharded_mega.read_site_launches
+                    sharded_mega.sharded_megastep(*got, mesh, n_blocks, 8,
+                                                  consts, boundary, shape)
+                    checks.expect(sharded_mega.read_site_launches > before,
+                                  f"shrs25 {what}: no read-site launch")
+                    sharded_mega.sharded_megastep_reference(
+                        *want, n_blocks, 8, consts, boundary, shape)
+                    tag = ("shmega_read_site" if dtype == torch.float32
+                           else "shmega_bf16")
+                    cmp = (checks.compare_bits if dtype == torch.float32
+                           else checks.compare_bf16)
+                    cmp(tag, [g[:, :, 0] for g in got],
+                        [w[:, :, 0] for w in want],
+                        f"shrs25 {what} {str(dtype)[6:]} the entry (tiles "
+                        f"{shrs25_tile(shape, mesh)})")
+                    n += 1
+    return n
+
+
+def fold25_setup(u_np, v_np, f: int, k: int):
+    """(geometry, Rp, u, v, u_out, v_out) of a folded call at F and K: the
+    state's halo rows 0.0, the outputs 0.0."""
+    g, rp = fold21_plan(u_np.shape, f, k)
+    u, v = fold21_state(u_np, v_np, f, g)
+    return g, rp, u, v, torch.zeros_like(u), torch.zeros_like(v)
+
+
+def compare_fold25(checks: Checks, rng) -> int:
+    """Phase 25b, the folded entry: on each of FOLD25_CASES, both
+    boundaries (and a NaN/Inf state at 1080x1920 naive, also at the seam),
+    the entry, and on the naive boundary every part of
+    ``windowed.FOLDED_ABLATIONS`` that runs on the case's tiles: the
+    outputs and the input's halo rows bit for bit
+    the part's plain version (``folded_ablation_reference``; the entry's:
+    ``folded_multistep_reference``). Returns the comparisons made."""
+    n = 0
+    consts = kernel_constants(Parameters())
+    for shape, f, k in FOLD25_CASES:
+        for special in ((False, True) if shape == MAIN_SHAPE else (False,)):
+            u_np, v_np = bf16_state(rng, shape, special)
+            if special:
+                _, rp = fold21_plan(shape, f, k)
+                u_np[rp - 1, -1] = v_np[rp, 0] = np.nan
+                u_np[rp, -1] = -np.inf
+                v_np[rp - 1, 0] = np.inf
+            for boundary in ("naive",) if special else ("naive", "zero"):
+                parts = (list(windowed.FOLDED_ABLATIONS)
+                         if boundary == "naive" else [])
+                for part in [*parts, None]:
+                    g, rp, u, v, uo, vo = fold25_setup(u_np, v_np, f, k)
+                    if part == windowed.FOLDED_ABLATION_STEP:
+                        for x in (u, v):  # the step alone: fresh halo rows
+                            lane_fold.fold_refresh(x, g.halo, f, shape[1], rp)
+                    if part in windowed.FOLDED_ABLATION_FIXED and \
+                            tuple(g) not in windowed.FOLDED_FIXED:
+                        continue
+                    want = [x.clone() for x in (u, v, uo, vo)]
+                    if part is None:
+                        windowed.folded_multistep(u, v, uo, vo, k, consts,
+                                                  boundary, shape, rp, g)
+                        windowed.folded_multistep_reference(
+                            *want, k, consts, boundary, shape, rp, g.halo)
+                    else:
+                        windowed.folded_ablation(part, u, v, uo, vo, k,
+                                                 consts, boundary, shape, rp,
+                                                 g)
+                        windowed.folded_ablation_reference(
+                            part, *want, k, consts, boundary, shape, rp,
+                            g.halo)
+                    checks.compare_bits(
+                        "windowed_folded", (uo, vo, u, v),
+                        (want[2], want[3], want[0], want[1]),
+                        f"fold25 {pin_label(shape, g)} F={f} Rp={rp} K={k} "
+                        f"{boundary}{' NaN/Inf' if special else ''} "
+                        f"{'the entry' if part is None else f'part {part}'}")
+                    n += 1
+    return n
+
+
+def time_shrs25(rng, card: str) -> dict:
+    """Phase 25c, K7: on each of SHRS25_CASES, naive and zero, one launch
+    of MAIN_STEPS steps of every part and of the entry (its own tile
+    choice), the halos exchanged before each, in device time
+    (``queued_ms``; the launches follow one another on the same pairs), in
+    turns (SPLIT25_ROUNDS rounds, in order and reversed), each beside part
+    0, its tile rounds and the bound. Returns
+    {(shape, mesh, boundary): {part or "entry": ms}}."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    for shape, mesh_shape in SHRS25_CASES:
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        mesh, pairs = shrs25_setup(u_np, v_np, mesh_shape)
+        grids = {}
+        for boundary in ("naive", "zero"):
+            def call(part, boundary=boundary):
+                if part == "entry":
+                    sharded_mega.sharded_megastep(
+                        *pairs, mesh, MAIN_STEPS // 8, 8, consts, boundary,
+                        shape)
+                else:
+                    grids[part] = sharded_mega.read_site_ablation(
+                        part, *pairs, mesh, MAIN_STEPS // 8, 8, consts,
+                        boundary, shape)
+            order = [*sharded_mega.READ_SITE_ABLATIONS, "entry"]
+            samples = {key: [] for key in order}
+            for _ in range(SPLIT25_ROUNDS):
+                for key in order + order[::-1]:
+                    samples[key].append(queued_ms(
+                        lambda key=key: call(key), SPLIT25_REPS[shape]))
+            ms = {key: statistics.mean(x) for key, x in samples.items()}
+            out[shape, mesh_shape, boundary] = ms
+            bound, by = sharded_bound_ms(shape, mesh_shape, MAIN_STEPS,
+                                         boundary)
+            r_loc = halo.shard_extents(shape, mesh)[0]
+            for key in order:
+                if key == "entry":
+                    tile = shrs25_tile(shape, mesh)
+                    what = f"the entry (tiles {tile})"
+                    grid = None
+                else:
+                    tr = sharded_mega.check_read_site_part(
+                        key, shape, mesh, MAIN_STEPS // 8, consts, None)
+                    tile = (tr, 64)
+                    grid = grids.get(key)
+                    what = (f"part {key} "
+                            f"({sharded_mega.READ_SITE_ABLATIONS[key]}; "
+                            f"{tr}x64 tiles, grid {grid})")
+                rounds = (sharded_mega.tile_rounds(shape, mesh_shape, tile,
+                                                   grid) if grid else None)
+                print(f"split shrs25 {shape[0]}x{shape[1]} mesh "
+                      f"{mesh_shape[0]}x{mesh_shape[1]} (shard rows {r_loc}) "
+                      f"{boundary}, {what}: {ms[key]!r} ms (turns "
+                      f"{samples[key]!r}), {ms[key] / ms[0]!r}x part 0, "
+                      f"rounds {rounds}; {100 * bound / ms[key]!r} % of the "
+                      f"bound {bound!r} ms ({by}) [{card}]", flush=True)
+    return out
+
+
+def time_fold25(rng, card: str) -> dict:
+    """Phase 25c, the folded entry: on each of FOLD25_CASES, naive, one call
+    of K steps of every part that runs on the case's tiles and of the
+    entry, beside one launch of the unfolded K1 on the same domain, in
+    device time (``queued_ms``), in turns. Returns {(shape, F, K): {part,
+    "entry" or "K1": ms}}."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    for shape, f, k in FOLD25_CASES:
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        g, rp, u, v, uo, vo = fold25_setup(u_np, v_np, f, k)
+        ut, vt = (torch.from_numpy(x).to(DEVICE) for x in (u_np, v_np))
+        ko, kv = torch.empty_like(ut), torch.empty_like(vt)
+        calls = {}
+        for part in windowed.FOLDED_ABLATIONS:
+            if part in windowed.FOLDED_ABLATION_FIXED and \
+                    tuple(g) not in windowed.FOLDED_FIXED:
+                continue
+            calls[part] = (lambda part=part: windowed.folded_ablation(
+                part, u, v, uo, vo, k, consts, "naive", shape, rp, g))
+        calls["entry"] = lambda: windowed.folded_multistep(
+            u, v, uo, vo, k, consts, "naive", shape, rp, g)
+        k1 = geometry.resolve(shape, k)
+        calls["K1"] = lambda: windowed.multistep(ut, vt, ko, kv, k, consts,
+                                                 "naive", geometry=k1)
+        order = list(calls)
+        samples = {key: [] for key in order}
+        for _ in range(SPLIT25_ROUNDS):
+            for key in order + order[::-1]:
+                samples[key].append(queued_ms(calls[key],
+                                              SPLIT25_REPS[shape]))
+        ms = {key: statistics.mean(x) for key, x in samples.items()}
+        out[shape, f, k] = ms
+        bound, by = bound_ms(shape, k, "naive")
+        for key in order:
+            what = (key if not isinstance(key, int) else
+                    f"part {key} ({windowed.FOLDED_ABLATIONS[key]})")
+            print(f"split fold25 {shape[0]}x{shape[1]} F={f} Rp={rp} "
+                  f"{g.label()} K={k}, {what}: {ms[key]!r} ms (turns "
+                  f"{samples[key]!r}), {ms[key] / ms[0]!r}x part 0, "
+                  f"{ms[key] / ms['K1']!r}x the unfolded K1; "
+                  f"{100 * bound / ms[key]!r} % of the bound {bound!r} ms "
+                  f"({by}) [{card}]", flush=True)
+    return out
+
+
+def paths25(runs17: dict, runs21: dict, card: str) -> None:
+    """Phase 25d: the two redesigned entries' ``simulate`` paths, read from
+    phases 17d (4x1, the read-site wait against the entry gate) and 21b
+    (``--pallas-fold 2`` against the unfolded K1), in turns there."""
+    rs = runs17["shmega_read_site"]
+    fold = runs21["fold 2"]
+    print(f"path25 simulate sharded mega 4x1: {rs['ms']!r} ms/image, "
+          f"launches {rs['launches']} (the entry gate on 64x64 tiles "
+          f"{rs['ms2']!r}) [{card}]", flush=True)
+    print(f"path25 simulate --pallas-fold 2: {fold['ms']!r} ms/image "
+          f"against the unfolded K1's {fold['ms2']!r}: "
+          f"{fold['ms'] / fold['ms2']!r}x, launches {fold['launches']} "
+          f"[{card}]", flush=True)
+
+
+def phase25(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 25: 25a (ptxas), 25b (every part and entry bit for bit), 25c
+    (both splits in device time). Returns (comparisons, K7's split, the
+    folded split)."""
+    ptxas25(checks, log)
+    n = compare_shrs25(checks, rng) + compare_fold25(checks, rng)
+    print(f"phase 25b: {n} comparisons of the read-site and folded entries "
+          f"and their parts", flush=True)
+    return n, time_shrs25(rng, card), time_fold25(rng, card)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -7003,18 +7345,25 @@ def run_phases(args) -> int:
     card = gpu.nvidia_smi("name,power.limit").splitlines()[0]
     print(gpu.capability_dump(), flush=True)
 
-    # 2. build
+    # 2. build: the kernels every path runs, then the splits' ablation
+    # parts (a library of their own)
     t0 = time.perf_counter()
     built = build.build()
     build.load()
     print(f"build: {built.path.name} in {time.perf_counter() - t0!r} s "
           f"(nvcc {built.seconds!r} s)")
-    print(built.log.strip(), flush=True)
-    report = ptxas_report(built.log)
+    t0 = time.perf_counter()
+    splits = build.build(build.SPLITS)
+    build.load(build.SPLITS)
+    print(f"build: {splits.path.name} (the splits) in "
+          f"{time.perf_counter() - t0!r} s (nvcc {splits.seconds!r} s)")
+    log = built.log + splits.log
+    print(log.strip(), flush=True)
+    report = ptxas_report(log)
     for name, regs, stores, loads, smem in report:
         print(f"ptxas {name}: {regs} registers, spill stores {stores} B, "
               f"spill loads {loads} B, static shared {smem} B", flush=True)
-    if built.log:
+    if log:
         spilled = [row for row in report
                    if any(row[0].startswith(k[2:]) for k in NO_SPILL_KERNELS)
                    and (row[2] or row[3])]
@@ -7139,13 +7488,13 @@ def run_phases(args) -> int:
     print(f"phase 17: {time.perf_counter() - t17!r} s", flush=True)
     # 18. the tile and depth pins of K1 and K4
     t18 = time.perf_counter()
-    n18, pin_runs, pin_times = pins_phase(checks, rng, card, built.log)
+    n18, pin_runs, pin_times = pins_phase(checks, rng, card, log)
     print(f"phase 18: {n18} comparisons, {time.perf_counter() - t18!r} s",
           flush=True)
     # 19. the megakernels' tile pins (K2, K6, K7) and the sharded windowed
     # engine's K and row tile (K1's shard entry)
     t19 = time.perf_counter()
-    n19, pin19_runs, pin19_times = pin19_phase(checks, rng, card, built.log)
+    n19, pin19_runs, pin19_times = pin19_phase(checks, rng, card, log)
     print(f"phase 19: {n19} comparisons, {time.perf_counter() - t19!r} s",
           flush=True)
     # 20. two processes of the port on the one card (GRAYSCOTT_COORDINATOR);
@@ -7159,20 +7508,28 @@ def run_phases(args) -> int:
     # tile (K2's pinned ring entries)
     t21 = time.perf_counter()
     n21, fold21_runs, fold21_times = fold21_phase(checks, rng, card,
-                                                  built.log)
+                                                  log)
     print(f"phase 21: {n21} comparisons, {time.perf_counter() - t21!r} s",
           flush=True)
     # 22. the window ring's redesign: ptxas, every part of its split bit for
     # bit, the split and the second form in device time
     t22 = time.perf_counter()
-    n22, ring22_times = ring22_phase(checks, rng, card, built.log)
+    n22, ring22_times = ring22_phase(checks, rng, card, log)
     print(f"phase 22: {n22} comparisons, {time.perf_counter() - t22!r} s",
           flush=True)
     # 23. the pinned entries' redesign: ptxas and the occupancy, every part
     # of their split and the entry bit for bit, the split in device time
     t23 = time.perf_counter()
-    n23, pin23_times = pin23_phase(checks, rng, card, built.log)
+    n23, pin23_times = pin23_phase(checks, rng, card, log)
     print(f"phase 23: {n23} comparisons, {time.perf_counter() - t23!r} s",
+          flush=True)
+    # 25. the read-site entry's and the folded entry's redesign: ptxas, every
+    # part of their splits and the entries bit for bit, the splits in device
+    # time, their simulate paths (phases 17d and 21b)
+    t25 = time.perf_counter()
+    n25, shrs25_times, fold25_times = phase25(checks, rng, card, log)
+    paths25(ring_runs, fold21_runs, card)
+    print(f"phase 25: {n25} comparisons, {time.perf_counter() - t25!r} s",
           flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
@@ -7363,7 +7720,10 @@ def run_phases(args) -> int:
         max_abs_err=checks.kernel_err["shmega_read_site"], ms=rs_ms,
         plain_ms=k7_read_site["plain"], bound_ms=bound, bound_by=by,
         library_ms=None, shape=list(MAIN_SHAPE), steps=MAIN_STEPS,
-        boundary="naive", mesh=[4, 1], entry_gate_ms=gate_ms))
+        boundary="naive", mesh=[4, 1], entry_gate_ms=gate_ms,
+        first_form_ms=shrs25_times[MAIN_SHAPE, (4, 1), "naive"][0],
+        split_entry_ms=shrs25_times[MAIN_SHAPE, (4, 1), "naive"]["entry"],
+        redesigned="grayscott_tpu_torch/csrc/sharded_mega_fit.cu"))
     # the pinned entries: their launches on phase 18c's paths, one K = 16
     # launch on 64x64 tiles at 1080x1920 beside the compiled entry's K = 8
     # launch (phase 18d)
@@ -7418,7 +7778,10 @@ def run_phases(args) -> int:
         panel_rows=rp, tile=[g.tr, g.tc], halo=g.halo,
         stepped_bound_ms=stepped, unfolded_k1_ms=k1_ms,
         path_ms=fold21_runs["fold 2"]["ms"],
-        unfolded_path_ms=fold21_runs["fold 2"]["ms2"]))
+        unfolded_path_ms=fold21_runs["fold 2"]["ms2"],
+        first_form_ms=fold25_times[MAIN_SHAPE, 2, FOLD21_K][0],
+        split_entry_ms=fold25_times[MAIN_SHAPE, 2, FOLD21_K]["entry"],
+        redesigned="grayscott_tpu_torch/csrc/windowed_folded.cuh"))
     (tr, tc), depth = RING21_PATH
     for tag, (dtype, fold) in RING21_ENTRIES.items():
         ms, plain_ms, bound, by, stepped, ms2 = fold21_times[tag]

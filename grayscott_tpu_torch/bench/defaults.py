@@ -72,15 +72,17 @@ SHARDED: dict[str, dict] = {
     # power limit 700.00 W (nvidia-smi): the default run in 4 shards on the
     # one card, 1024 steps a candidate, the best of 3 device times (CUDA
     # events around each call, the exchange and every launch), ms per 1024
-    # steps. K7: 1x4 21.903, 2x2 22.685, 4x1 27.536. Windowed, overlap off
-    # / on: 4x1 26.555 / 30.832, 2x2 47.345 / 43.183, 1x4 43.234 / 42.510
-    # (the exchange's slice copies set their pace from the host). K7 on
-    # 1x4 led K7 on 2x2 by 3.5 % here and by 3.8 % when measured again.
+    # steps. K7: 4x1 20.900 (its read-site entry on 68x64 tiles), 1x4
+    # 21.904, 2x2 22.885. Windowed, overlap off / on: 4x1 40.918 / 47.587,
+    # 2x2 55.417 / 82.808, 1x4 56.638 / 57.503 (the exchange's slice copies
+    # set their pace from the host). K7 on 4x1 led K7 on 1x4, the record
+    # before it, by 4.6 %; on 64x64 tiles K7 on 4x1 had taken 27.536 against
+    # 1x4's 21.903.
     "v1:h100-80gb-hbm3-sm132:1080x1920:naive:oono-puri|sharded:n4": {
-        "engine": "mega", "mesh_cols": 4, "mesh_rows": 1,
+        "engine": "mega", "mesh_cols": 1, "mesh_rows": 4,
         "block_rows": None, "block_cols": None, "steps_per_call": 8,
-        "overlap": False, "gcells_per_sec": 96.943,
-        "device_gcells_per_sec": 96.943, "wall_gcells_per_sec": 96.706,
+        "overlap": False, "gcells_per_sec": 101.597,
+        "device_gcells_per_sec": 101.597, "wall_gcells_per_sec": 101.132,
         "source": "shipped-h100-sharded",
     },
 }

@@ -14,8 +14,9 @@ For each pin (``auto``, ``--pallas-engine windowed``,
 K = 8, ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2, the
 window ring, which has no flag, as in JAX: ``CudaSimulation(engine='mega',
 mega_depth=4)`` and the same on 16-row pinned tiles, ``block_rows=16``,
-``--pallas-steps-per-call 16`` and the sharded windowed engine on 2x2 at
-K = 16 with ``--pallas-block-rows 32``)
+``--pallas-steps-per-call 16``, the sharded windowed engine on 2x2 at
+K = 16 with ``--pallas-block-rows 32``, K7 on the 4x1 row mesh and the
+lane fold at F = 2)
 it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32
 steps an image) for ``--images`` images, once to warm up, then ``--reps``
 times in
@@ -28,8 +29,9 @@ launch of 4 time blocks; also at 4096x4096), K1's and K2's fold entries
 (the same calls; also at 4096x4096), K2's ring at mega_depth 4 on the
 compiled and on 16x64 pinned tiles (one launch of 4 time blocks; also at
 4096x4096), K1's pinned entry at K = 16 (two launches; also at
-4096x4096), K7 on 2x2 and 4x1 (one
-launch after the halo exchange) and K1's shard entry on the same meshes
+4096x4096), K1's folded entry at F = 2 (four 8-step calls), K7 on 2x2,
+4x1 and 2x1 and at 4096x4096 on 4x1 (one
+launch after the halo exchange) and K1's shard entry on 2x2 and 4x1
 (four 8-step launches after the halo exchange; and the pinned shard entry,
 two 16-step launches on 32-row tiles), through calls that every commit since
 the sharded megakernel takes, so that the double buffer and the entry
@@ -66,7 +68,12 @@ PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"],
                                     "--sharded-mesh-cols", "2",
                                     "--sharded-engine", "windowed",
                                     "--pallas-steps-per-call", "16",
-                                    "--pallas-block-rows", "32"]}
+                                    "--pallas-block-rows", "32"],
+        # K7's read-site entry on a row mesh, and K1's folded entry
+        "sharded mega 4x1": ["--backend", "sharded", "--sharded-devices", "4",
+                             "--sharded-mesh-cols", "1",
+                             "--sharded-engine", "mega"],
+        "fold 2": ["--pallas-fold", "2"]}
 
 
 def run_ms(flags, images: int, steps: int = 32,
@@ -117,8 +124,9 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from grayscott_tpu_torch.ops import (geometry, megakernel, packed,
-                                         resident, sharded_mega, windowed)
+    from grayscott_tpu_torch.ops import (geometry, lane_fold, megakernel,
+                                         packed, resident, sharded_mega,
+                                         windowed)
     from grayscott_tpu_torch.parallel import halo
     from grayscott_tpu_torch.params import (Parameters, fold_constants,
                                             kernel_constants,
@@ -198,8 +206,33 @@ def main(argv=None) -> int:
                 pinned[:] = pinned[2:] + pinned[:2]
 
         calls.append((f"K1 pinned k16 x2{label}", f1p, reps))
+    g8 = geometry.resolve((540, 1920), 8)
+    rp = lane_fold.fold_geometry(1080, 2, g8.tr)
+    folded = [*lane_fold.fold_state(u, v, 2, g8.tr, g8.halo, "cuda")]
+    folded += [torch.empty_like(folded[0]), torch.empty_like(folded[1])]
+
+    def f1l():
+        for _ in range(4):
+            windowed.folded_multistep(*folded, 8, consts, "naive",
+                                      (1080, 1920), rp, g8)
+            folded[:] = folded[2:] + folded[:2]
+
+    calls.append(("K1 folded F=2 x4", f1l, 40))
     u_np, v_np = (rng.uniform(0, 1, (1080, 1920)).astype(np.float32)
                   for _ in range(2))
+    for shape, n_rows in (((1080, 1920), 2), ((4096, 4096), 4)):
+        mesh = halo.make_mesh(n_rows, 1, "cuda")
+        a, b = (rng.uniform(0, 1, shape).astype(np.float32) for _ in range(2))
+        pairs = halo.mega_shard_state(a, b, mesh)
+
+        def f7r(pairs=pairs, mesh=mesh, shape=shape):
+            for p in pairs:
+                halo.exchange_halos(p)
+            sharded_mega.sharded_megastep(*pairs, mesh, 4, 8, consts, "naive",
+                                          shape)
+
+        label = "" if shape == (1080, 1920) else " 4096"
+        calls.append((f"K7 {n_rows}x1{label}", f7r, 40 if not label else 8))
     for n_rows, n_cols in ((2, 2), (4, 1)):
         mesh = halo.make_mesh(n_rows * n_cols, n_cols, "cuda")
         pairs = halo.mega_shard_state(u_np, v_np, mesh)

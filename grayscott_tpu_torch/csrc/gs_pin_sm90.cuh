@@ -1,7 +1,7 @@
 // The forms of K1's pinned entries (windowed_pins.cu: the pinned entry and
 // the pinned shard entry) beyond the first, on the tile stepper of
 // gs_tile_sm90.cuh: the ablation parts of their split
-// (windowed_pins_ablation.cu) and the second form the entries run.
+// (splits/windowed_pins_ablation.cu) and the second form the entries run.
 //
 //   - FixedPin: a pinned geometry's sizes compiled in (gs::Fixed), the
 //     form of FixedShape with any halo and the pinned pitch.

@@ -838,10 +838,30 @@ __device__ __forceinline__ void window_load(const S& g, const Layout& mem,
   cp_async_commit();
 }
 
+// How window_steps steps an interior window: step_window's strips (K7's
+// read-site split passes gs_pin_sm90.cuh's 4x4 register blocks:
+// splits/sharded_mega_ablation.cu).
+template <int TAPS, int MODE>
+struct StripSteps {
+  template <typename S, typename K>
+  __device__ __forceinline__ static void interior(const S& g,
+                                                  const float* in_u,
+                                                  const float* in_v,
+                                                  float* out_u, float* out_v,
+                                                  int lo, int r0, int c0,
+                                                  int rows, int cols,
+                                                  const K& k) {
+    step_window<TAPS, MODE, true>(g, in_u, in_v, out_u, out_v, lo, r0, c0,
+                                  rows, cols, k);
+  }
+};
+
 // The tile's `steps` steps between buffer `done` (its window) and `other`,
 // each followed by a __syncthreads(); `interior`: its window lies in the
-// domain (no boundary selects). Returns the buffer that holds the result.
-template <int TAPS, int MODE, typename S, typename K>
+// domain (no boundary selects), stepped by STEPS<TAPS, MODE>::interior.
+// Returns the buffer that holds the result.
+template <int TAPS, int MODE, template <int, int> class STEPS = StripSteps,
+          typename S, typename K>
 __device__ __forceinline__ int window_steps(const S& g, float* base,
                                             int done, int other, int steps,
                                             bool interior, int r0, int c0,
@@ -850,9 +870,9 @@ __device__ __forceinline__ int window_steps(const S& g, float* base,
     const float* in_u = base + 2 * done * g.cells;
     float* out_u = base + 2 * other * g.cells;
     if (interior) {
-      step_window<TAPS, MODE, true>(g, in_u, in_u + g.cells, out_u,
-                                    out_u + g.cells, st + 1, r0, c0, rows,
-                                    cols, k);
+      STEPS<TAPS, MODE>::interior(g, in_u, in_u + g.cells, out_u,
+                                  out_u + g.cells, st + 1, r0, c0, rows,
+                                  cols, k);
     } else {
       step_window<TAPS, MODE, false>(g, in_u, in_u + g.cells, out_u,
                                      out_u + g.cells, st + 1, r0, c0, rows,
@@ -1076,8 +1096,10 @@ struct NoGate {
 // begins, so no load crosses the caller's barrier. Returns after a
 // __syncthreads() unless PREFETCH, whose buffers are free once every thread
 // is past the caller's next barrier. gate(i, stride) runs before each
-// window load, block-wide (K7's read-site wait; NoGate elsewhere).
-template <int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH, typename S,
+// window load, block-wide (K7's read-site wait; NoGate elsewhere). STEPS:
+// how an interior tile steps (window_steps).
+template <int TAPS, int MODE, bool SPECIALIZE, bool PREFETCH,
+          template <int, int> class STEPS = StripSteps, typename S,
           typename Layout, typename T, typename K, typename Gate = NoGate>
 __device__ __forceinline__ void time_block_on(
     const S& g, const Layout& mem, const T* u, const T* v, T* u_out,
@@ -1103,7 +1125,7 @@ __device__ __forceinline__ void time_block_on(
     const int c0 = col0 + tj * g.tc - g.halo;
     const bool interior =
         SPECIALIZE && window_inside(g, r0, c0, rows, cols);
-    const int done = window_steps<TAPS, MODE>(
+    const int done = window_steps<TAPS, MODE, STEPS>(
         g, base, win, (win + 1) % 2, steps, interior, r0, c0, rows, cols, k);
     if (PREFETCH && next < n_tiles) load(next, done ^ 1);
     window_store(g, mem, u_out, v_out, base, done, r0, c0, rows, cols);
@@ -1143,7 +1165,7 @@ __device__ __forceinline__ void time_block(
 // the bytes leave room for them. The ring with each tile stepped in place
 // in its own buffer (RING_IN_PLACE, D buffers: step_window_in_place) took
 // 1.14-1.33x the scratch walk's time on the same tile and grid (PERF.md
-// §6) and is an ablation part (mega_ring_ablation.cu), as are the first
+// §6) and is an ablation part (splits/mega_ring_ablation.cu), as are the first
 // form's walks. D = 2 is time_block's double buffer (two buffers; the next
 // window loads during the write-out), which K2 and K7 keep as their own
 // walk. K6 runs only the double buffer: JAX's packed megakernel takes no

@@ -1,7 +1,8 @@
 // What K2's translation units share (mega.cu: the double buffer, its
 // ablation parts; mega_ring.cu: the window ring of mega_depth > 2;
 // mega_pins.cu and mega_pins_ring.cu: the double buffer and the ring on the
-// tile pins' geometry; mega_ring_ablation.cu: the ring's ablation parts):
+// tile pins' geometry; splits/mega_ring_ablation.cu: the ring's ablation
+// parts):
 // the odd-count slot copy, a launch's time blocks on the double buffer and
 // on the ring, the launch's arguments, the C interface's checks and the
 // pinned geometries' cooperative launch.

@@ -20,7 +20,7 @@
 // (PinGeometryWide). The host picks them by the geometry's bytes
 // (two_blocks), never on an error. The first form bound every pinned ring
 // to one block of 512 threads (128 registers): the ring's ablation part 0
-// (mega_ring_ablation.cu). The grid is the occupancy API's count at the
+// (splits/mega_ring_ablation.cu). The grid is the occupancy API's count at the
 // ring's bytes (gs_mega_pinned_ring_max_blocks).
 
 #include "mega.cuh"

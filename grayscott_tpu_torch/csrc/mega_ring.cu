@@ -37,7 +37,7 @@
 //     form and the split's other parts (the ring's loads and stores alone,
 //     every window waited for, the double buffer on the ring's tile and
 //     grid, each tile stepped in place in D buffers) are
-//     mega_ring_ablation.cu's.
+//     splits/mega_ring_ablation.cu's.
 //
 // Why reads come after writes: mega.cu's argument holds unchanged. Every
 // window a block loads in time block t is one of its own tiles of block t:

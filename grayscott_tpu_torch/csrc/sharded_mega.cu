@@ -25,7 +25,9 @@
 //     as 0.0 (with steps <= HALO they cannot reach a stored cell), and only
 //     cells in the domain that the shard stores are written. Two tile
 //     geometries are built: 64x64 tiles in 80^2 windows (512 threads, two
-//     blocks an SM) and 32x32 in 48^2 (256 threads); the wrapper picks one
+//     blocks an SM) and 32x32 in 48^2 (256 threads), and for the read-site
+//     wait 68x64 tiles in 84x80 windows (sharded_mega_fit.cu: where 64-row
+//     tiles leave a shard's last tile row short); the wrapper picks one
 //     per mesh from the rounds of tiles each needs
 //     (ops/sharded_mega.py:choose_tile).
 //   - Each group has its own barrier; no barrier spans shards. Shards meet
@@ -117,9 +119,13 @@
 // Each shard's tiles are walked by its own group of about 1/n_shards of the
 // co-resident blocks, so a mesh can take more rounds of tiles than K2 (2x2
 // at 1080x1920: 135 tiles of 64^2 a shard on 66 blocks, 3 rounds, where K2
-// takes 2); the 32^2 geometry, with more blocks an SM, can take fewer. On a
-// row mesh the read-site wait lets a shard's interior tile rows step while
-// the push from below is in flight.
+// takes 2); the 32^2 geometry, with more blocks an SM, can take fewer, and
+// on a row mesh the fitted 68x64 tiles do (4x1 at 1080x1920: 120 tiles a
+// shard, 2 rounds, where 64^2 take 150 in 3). On a row mesh the read-site
+// wait lets a shard's interior tile rows step while the push from below is
+// in flight. The split of the read-site entry (splits/sharded_mega_ablation.cu)
+// found the exchange 5 % of a launch and the 4x4 register blocks slower
+// than the strips at 64 registers (PERF.md §6).
 //
 // bf16 storage (gs_sharded_mega_describe_bf16, gs_sharded_mega_multistep_bf16;
 // the TPU kernel with a bfloat16 dtype): every shard's pairs are bfloat16.

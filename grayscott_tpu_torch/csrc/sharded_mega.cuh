@@ -168,13 +168,22 @@ struct BottomGate {
   }
 };
 
+// The read-site entry's tiles fitted to the shard (ops/sharded_mega.py:
+// fitted_height): Main's 64 columns, window width and pitch, and 68 rows
+// where 64-row tiles leave a shard's last tile row short (1080x1920 on 4x1
+// and 2x1: 272 and 544 rows, 4 and 8 rows of 68 tiles where 64 take 5 and
+// 9). Two blocks an SM still fit: 84 x 80 windows take 107,520 B.
+using Fit68 = sm90::Geometry<68, 64, 512, 4>;
+
 // One launch of K7 on the tiles of geo (FixedShape<Main> or <Small> in
 // sharded_mega.cu, the PinGeometry of the tile pins in
 // sharded_mega_pins.cu), for the block's shard (see sharded_mega.cu's
 // note); `base` is the block's two window buffers. READ_SITE: the shards
 // form a row mesh (the read-site wait: BottomGate), else each time block's
-// entry is gated on every direction.
-template <int TAPS, bool NAIVE, typename T, bool READ_SITE, typename S>
+// entry is gated on every direction. STEPS: how an interior tile steps
+// (time_block_on).
+template <int TAPS, bool NAIVE, typename T, bool READ_SITE,
+          template <int, int> class STEPS = sm90::StripSteps, typename S>
 __device__ __forceinline__ void sharded_mega_run(
     const S& geo, const ShardDesc<T>* shards, int n_shards, int rows,
     int cols, int r_loc, int c_loc, int chalo, int n_blocks, int steps,
@@ -204,7 +213,7 @@ __device__ __forceinline__ void sharded_mega_run(
           tiles_x, me.row0, me.col0, rows, cols, steps, k, me.aligned, base);
     } else {
       if (t > 0) wait_arrivals(me, t & 1, (t + 1) / 2, TOP_ROWS);
-      sm90::time_block_on<TAPS, NAIVE, true, true>(
+      sm90::time_block_on<TAPS, NAIVE, true, true, STEPS>(
           geo, mem, u + src, v + src, u + dst, v + dst, rank, size, n_tiles,
           tiles_x, me.row0, me.col0, rows, cols, steps, k, me.aligned, base,
           BottomGate<decltype(geo.tr), T>{me, t, r_loc, tiles_x, geo.tr});

@@ -12,16 +12,25 @@
 namespace {
 
 
+// The fitted tiles (Fit68: 64 columns, 68 rows) that the read-site entry
+// runs where they take fewer rounds than Main's
+// (ops/sharded_mega.py:choose_tile); only READ_SITE instantiates them, in
+// their own unit (sharded_mega_fit.cu).
+template <typename G>
+constexpr bool FITTED = G::TR != G::TC;
+
 // G: the tile geometry (gs_tile_sm90.cuh: Main, 64^2 tiles and 512
-// threads, two blocks an SM; Small, 32^2 and 256, four blocks an SM).
-// READ_SITE: the shards form a row mesh (the read-site wait: BottomGate),
-// else each time block's entry is gated on every direction. Two kernels,
-// not a run-time flag: a flag cost the naive instantiations a spill.
+// threads, two blocks an SM; Small, 32^2 and 256, four blocks an SM;
+// Fit68 on a row mesh). READ_SITE: the shards form a row mesh (the
+// read-site wait: BottomGate), else each time block's entry is gated on
+// every direction. Two kernels, not a run-time flag: a flag cost the naive
+// instantiations a spill.
 template <typename G, int TAPS, bool NAIVE, typename T, bool READ_SITE>
 __global__ void __launch_bounds__(G::NT, G::BLOCKS_AT_64_REGS)
 sharded_mega_kernel(const ShardDesc<T>* shards, int n_shards, int rows,
                     int cols, int r_loc, int c_loc, int chalo, int n_blocks,
                     int steps, gs::Constants k) {
+  static_assert(READ_SITE || !FITTED<G>, "fitted tiles wait at the read site");
   extern __shared__ float4 window[];  // buffers [2] x species [2]
   sharded_mega_run<TAPS, NAIVE, T, READ_SITE>(
       sm90::FixedShape<G>{}, shards, n_shards, rows, cols, r_loc, c_loc,
@@ -98,6 +107,18 @@ cudaError_t launch_on(const Call& c) {
                  : launch_one<G, TAPS, false, T, false>(c);
 }
 
+// LaunchFitted<TAPS>::run<T>: the read-site instantiation of the call's
+// boundary on the fitted tiles (sharded_mega_fit.cu, through
+// dispatch_taps_lean: the default stencils' tap set, or TAPS_ANY).
+template <int TAPS>
+struct LaunchFitted {
+  template <typename T>
+  static cudaError_t run(const Call& c, T*) {
+    return c.naive ? launch_one<Fit68, TAPS, true, T, true>(c)
+                   : launch_one<Fit68, TAPS, false, T, true>(c);
+  }
+};
+
 // Launch<TAPS>::run<T>: the instantiation of the call's tile, boundary and
 // wait on T.
 template <int TAPS>
@@ -146,6 +167,25 @@ cudaError_t fewest_blocks_all(int device, int* least) {
   }
   if (err == cudaSuccess) {
     err = fewest_blocks<G, sm90::TAPS_ANY, T>(device, least);
+  }
+  return err;
+}
+
+// The fewer of *least and the co-resident blocks of the fitted G's
+// instantiations on T (the read-site wait, both tap sets and boundaries).
+template <typename G, typename T>
+cudaError_t fewest_fitted(int device, int* least) {
+  constexpr int RING = sm90::TAPS_RING, ANY = sm90::TAPS_ANY;
+  cudaError_t err =
+      take_fewer<Sharded<G, RING, true, T, true>>(device, least);
+  if (err == cudaSuccess) {
+    err = take_fewer<Sharded<G, RING, false, T, true>>(device, least);
+  }
+  if (err == cudaSuccess) {
+    err = take_fewer<Sharded<G, ANY, true, T, true>>(device, least);
+  }
+  if (err == cudaSuccess) {
+    err = take_fewer<Sharded<G, ANY, false, T, true>>(device, least);
   }
   return err;
 }
@@ -209,8 +249,10 @@ int describe(void* out, T* u_pairs, T* v_pairs, void* counters, int n_rows,
   return 0;
 }
 
-// gs_sharded_mega_multistep and its bf16 twin (see there).
-template <typename T>
+// gs_sharded_mega_multistep and its bf16 twin (see there); FITTED_ENTRY:
+// the fitted entries' (sharded_mega_fit.cu: Fit68's tiles, the read-site
+// wait, tile = 68).
+template <typename T, bool FITTED_ENTRY = false>
 int multistep(const void* shards, int n_shards, int rows, int cols,
               int r_loc, int c_loc, int chalo, int n_blocks, int steps,
               int naive, int device, const float* w, float du, float dv,
@@ -219,7 +261,8 @@ int multistep(const void* shards, int n_shards, int rows, int cols,
   if (n_shards < 1 || rows < 1 || cols < 1 || r_loc < HALO || c_loc < 1 ||
       chalo < 0 || chalo > HALO || n_blocks < 1 || steps < 1 ||
       steps > HALO || device < 0 || device >= gs::MAX_DEVICES ||
-      (tile != sm90::Main::TR && tile != sm90::Small::TR)) {
+      !(FITTED_ENTRY ? tile == Fit68::TR && read_site
+                     : tile == sm90::Main::TR || tile == sm90::Small::TR)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -230,8 +273,13 @@ int multistep(const void* shards, int n_shards, int rows, int cols,
                    du, dv, feed, min_feed_kill, dt},
                   grid_blocks, tile, read_site,
                   static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(
-      sm90::dispatch_taps<Launch>(c.k, c, static_cast<T*>(nullptr)));
+  if constexpr (FITTED_ENTRY) {
+    return static_cast<int>(sm90::dispatch_taps_lean<LaunchFitted>(
+        c.k, c, static_cast<T*>(nullptr)));
+  } else {
+    return static_cast<int>(
+        sm90::dispatch_taps<Launch>(c.k, c, static_cast<T*>(nullptr)));
+  }
 }
 
 }  // namespace

@@ -30,7 +30,7 @@
 
 #include <type_traits>
 
-#include "mega.cuh"
+#include "../mega.cuh"
 
 namespace {
 

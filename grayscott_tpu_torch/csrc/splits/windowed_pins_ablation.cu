@@ -35,7 +35,7 @@
 //
 // The launches are not the main path's and are not counted.
 
-#include "gs_pin_sm90.cuh"
+#include "../gs_pin_sm90.cuh"
 
 namespace {
 

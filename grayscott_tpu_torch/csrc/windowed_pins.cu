@@ -39,7 +39,7 @@
 // entries keep the first form, the strips on PinGeometry's sizes
 // (pinned_kernel). The split that chose this form, and its rejected parts
 // (1024 threads, clusters of 2 x 2 blocks over distributed shared memory,
-// a division-free walk), are windowed_pins_ablation.cu's.
+// a division-free walk), are splits/windowed_pins_ablation.cu's.
 //
 // The shard entries (gs_windowed_shard_pinned_multistep and its bf16 twin)
 // are windowed.cu's shard entry under the sharded windowed engine's K and
@@ -64,42 +64,40 @@
 // after fold_refresh (:1287-1297). The state of the rows x cols domain lies
 // in F row panels side by side, (halo + Rp + halo) x F*cols floats, panel
 // p's interior global rows [p*Rp, (p+1)*Rp) and its halo rows its
-// neighbours' cells (grayscott_tpu_torch/ops/lane_fold.py, refreshed by
-// the entry, below). JAX folds to widen its windows along the TPU's
-// 128-lane registers; a 2-D tile here has no lane width, so the entry keeps
-// K1's tiles and steps each panel as the shard entry steps a shard: the
-// grid is (tile columns, tile rows of Rp, panels), each block loads its
-// window through gs::ShardLayout at the panel's global origin (p*Rp, 0),
-// holding columns [0, cols) of the panel only (gs_tile_sm90.cuh:
-// panel_window_multistep). The seam between two panels is so a domain edge
-// for each cell beside it, per cell, on both boundaries; dead rows past
-// `rows` and panel 0's top halo load as 0.0 and are never stored; on the
-// naive boundary each panel clamps at columns 0 and cols - 1, and only
-// panel 0 holds row 0. Every cell takes K1's expression tree at its global
-// place, so the entry is the unfolded K1 bit for bit. float32 only (JAX's
-// fold refuses bf16 storage), any K in 1..32 and row tile, the pinned
-// geometry's run-time sizes; the default stencils' tap set and any other
-// (dispatch_taps_lean), zero and naive: four instantiations. What bounds
-// it is K1's (instruction issue); the panels' tiles are the unfolded
-// grid's where Rp is a multiple of the tile (1080 rows in two panels of
-// 576: 9 + 8 tile rows, the 17 of 1088).
+// neighbours' cells (grayscott_tpu_torch/ops/lane_fold.py). JAX folds to
+// widen its windows along the TPU's 128-lane registers; a 2-D tile here
+// has no lane width, so the entry keeps K1's tiles and steps each panel at
+// its global origin (p*Rp, 0): the grid is (tile columns, tile rows of Rp,
+// panels). The seam between two panels is so a domain edge for each cell
+// beside it, per cell, on both boundaries; dead rows past `rows` and panel
+// 0's top halo load as 0.0 and are never stored; on the naive boundary
+// each panel clamps at columns 0 and cols - 1, and only panel 0 holds row
+// 0. Every cell takes K1's expression tree at its global place, so the
+// entry is the unfolded K1 bit for bit.
 //
-// Before the step the entry refreshes the panels' halo rows of (u, v) in
-// place (fold_refresh_kernel: JAX's fold_refresh, pallas_stencil.py:1547,
-// which run_blocks calls before each K-step block): panel p's top rows
-// from panel p - 1's last interior rows, its bottom rows from panel p + 1's
-// first, the outermost ones 0.0; one launch for both species, which reads
-// interior rows only (Rp >= halo) and writes halo rows only. As eight
-// slice copies of PyTorch the refresh took 0.20 ms a block against the
-// step's 0.16 at 1080x1920 (PERF.md §6, PR 20).
+// One launch (windowed_folded.cuh): JAX refreshes the panels' halo rows
+// before each K-step block (fold_refresh, pallas_stencil.py:1547); here
+// each window reads a panel's halo rows straight from its neighbour
+// panel's interior rows (FoldLayout), and the blocks of each panel's first
+// and last tile rows write the refreshed halo rows of their columns into
+// (u, v), as the refresh leaves them. Interior tiles step in the 4x4
+// register blocks of gs_pin_sm90.cuh, on compiled sizes for 64x64 tiles at
+// a halo of 8 or 16 and the default stencils' tap set
+// (windowed_pins_fixed.cu), else on PinGeometry's. float32 only (JAX's
+// fold refuses bf16 storage), any K in 1..32 and row tile, zero and naive.
+// The split that chose this form, and the first form (a refresh launch,
+// then the strips on run-time sizes), are splits/windowed_folded_ablation.cu's
+// (PERF.md §6).
 
-#include "windowed_pins.cuh"
+#include "windowed_folded.cuh"
 
 namespace {
 
 namespace sm90 = gs::sm90;
 namespace pins = gs::pins;
+namespace folded = gs::folded;
 
+using folded::FoldedCall;
 using pins::Call;
 using pins::MIN_BLOCKS;
 using pins::ShardCall;
@@ -178,93 +176,20 @@ struct LaunchShards {
   }
 };
 
-// The panels' halo rows of u and v, (halo + rp + halo) x panels*cols each,
-// from their neighbours' interior rows: element i of 2 species x 2 bands
-// (top, bottom) x halo rows x panels*cols, a thread an element.
-__global__ void fold_refresh_kernel(float* u, float* v, int cols, int panels,
-                                    int rp, int halo) {
-  const long long pitch = static_cast<long long>(panels) * cols;
-  const long long band = halo * pitch, n = 4 * band;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float* x = i < 2 * band ? u : v;
-    const long long j = i % (2 * band);
-    const bool bottom = j >= band;
-    const long long k = bottom ? j - band : j;
-    const long long r = k / pitch, at = k - r * pitch;
-    const int p = static_cast<int>(at / cols);
-    if (bottom) {
-      x[(halo + rp + r) * pitch + at] =
-          p + 1 < panels ? x[(halo + r) * pitch + at + cols] : 0.0f;
-    } else {
-      x[r * pitch + at] = p > 0 ? x[(rp + r) * pitch + at - cols] : 0.0f;
-    }
-  }
-}
-
-template <int TAPS, int MODE>
-__global__ void __launch_bounds__(PinGeometry::NT, MIN_BLOCKS)
-folded_kernel(const float* u, const float* v, float* u_out, float* v_out,
-              int rows, int cols, int panels, int rp, int steps,
-              gs::Constants k, PinGeometry g, int aligned) {
-  extern __shared__ float4 window[];  // buffers [2] x species [2]
-  sm90::panel_window_multistep<TAPS, MODE>(g, u, v, u_out, v_out, rows, cols,
-                                           panels, rp, steps, k, aligned,
-                                           reinterpret_cast<float*>(window));
-}
-
-struct FoldedCall {
-  float *u, *v;
-  float *u_out, *v_out;
-  int rows, cols, panels, rp, steps, naive, device;
-  gs::Constants k;
-  PinGeometry g;
-  cudaStream_t stream;
-};
-
-// The refresh of the call's halo rows, then one launch of
-// folded_kernel<TAPS, MODE>, after allowing it the most dynamic shared
-// memory a block may use (once per device).
-template <int TAPS, int MODE>
-cudaError_t launch_folded_one(const FoldedCall& c) {
-  static bool allowed[gs::MAX_DEVICES];
-  auto kernel = folded_kernel<TAPS, MODE>;
-  if (!allowed[c.device]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sm90::SMEM_OPTIN));
-    if (err != cudaSuccess) return err;
-    allowed[c.device] = true;
-  }
-  const dim3 grid((c.cols + c.g.tc - 1) / c.g.tc,
-                  (c.rp + c.g.tr - 1) / c.g.tr, c.panels);
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  constexpr int REFRESH_THREADS = 256;
-  const long long refresh =
-      4LL * c.g.halo * c.panels * c.cols / REFRESH_THREADS + 1;
-  fold_refresh_kernel<<<static_cast<unsigned>(refresh < 1024 ? refresh
-                                                              : 1024),
-                        REFRESH_THREADS, 0, c.stream>>>(
-      c.u, c.v, c.cols, c.panels, c.rp, c.g.halo);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // (a panel's rows start at p * cols floats: 16-byte aligned where the
-  // rows are)
-  const int aligned =
-      sm90::rows_aligned(c.cols, c.u, c.v, c.u_out, c.v_out) &&
-      c.g.tc % 4 == 0;
-  kernel<<<grid, PinGeometry::NT, sm90::pin_bytes(c.g), c.stream>>>(
-      c.u, c.v, c.u_out, c.v_out, c.rows, c.cols, c.panels, c.rp, c.steps,
-      c.k, c.g, aligned);
-  return cudaGetLastError();
-}
-
+// The folded entry on its form (windowed_folded.cuh: FORM, ONE_LAUNCH):
+// the compiled sizes where the geometry and the tap set have them
+// (windowed_pins_fixed.cu), else PinGeometry's.
 template <int TAPS>
 struct LaunchFolded {
   static cudaError_t run(const FoldedCall& c) {
-    return c.naive ? launch_folded_one<TAPS, sm90::MODE_NAIVE>(c)
-                   : launch_folded_one<TAPS, sm90::MODE_ZERO>(c);
+    if (TAPS == sm90::TAPS_RING && folded::fixed_geometry(c.g)) {
+      return folded::launch_fixed(c);
+    }
+    constexpr int FORM = folded::FORM;
+    constexpr bool ONE = folded::ONE_LAUNCH;
+    return c.naive
+               ? folded::launch_form<TAPS, sm90::MODE_NAIVE, FORM, ONE>(c, c.g)
+               : folded::launch_form<TAPS, sm90::MODE_ZERO, FORM, ONE>(c, c.g);
   }
 };
 

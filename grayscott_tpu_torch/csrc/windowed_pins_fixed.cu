@@ -5,10 +5,12 @@
 // windowed_pins.cuh on FixedPin, the default stencils' tap set, zero and
 // naive, float32 and bf16 storage. With the tile's sizes constants, the
 // window's row pitch folds into the shared loads' offsets; the split
-// measured 0.89-0.92x the run-time sizes on the strips (PERF.md §6). A unit
-// of its own, so that the library's units build side by side.
+// measured 0.89-0.92x the run-time sizes on the strips (PERF.md §6). The
+// folded entry's one launch (windowed_folded.cuh) on 64x64 tiles at a halo
+// of 8 (Main's sizes) and 16 lives here too. A unit of its own, so that the
+// library's units build side by side.
 
-#include "windowed_pins.cuh"
+#include "windowed_folded.cuh"
 
 namespace gs {
 namespace pins {
@@ -72,4 +74,24 @@ template cudaError_t launch_shard_fixed<sm90::bf16>(
     const ShardCall<sm90::bf16>&);
 
 }  // namespace pins
+
+namespace folded {
+
+cudaError_t launch_fixed(const FoldedCall& c) {
+  using Main = sm90::FixedShape<sm90::Main>;
+  using Fixed64 = sm90::FixedPin<64, 64, 16>;
+  constexpr int TAPS = sm90::TAPS_RING;
+  constexpr int NAIVE = sm90::MODE_NAIVE, ZERO = sm90::MODE_ZERO;
+  if (!fixed_geometry(c.g) || sm90::tap_mask(c.k) != TAPS) {
+    return cudaErrorInvalidValue;
+  }
+  if (c.g.halo == sm90::HALO) {
+    return c.naive ? launch_form<TAPS, NAIVE, FORM, ONE_LAUNCH>(c, Main{})
+                   : launch_form<TAPS, ZERO, FORM, ONE_LAUNCH>(c, Main{});
+  }
+  return c.naive ? launch_form<TAPS, NAIVE, FORM, ONE_LAUNCH>(c, Fixed64{})
+                 : launch_form<TAPS, ZERO, FORM, ONE_LAUNCH>(c, Fixed64{});
+}
+
+}  // namespace folded
 }  // namespace gs

@@ -15,6 +15,11 @@ load failure raises, since there is nothing else to run on a GPU.
 ``-fmad=false`` keeps every written float operation rounded once, as the
 plain PyTorch step rounds it (the kernels' bitwise contract); ``-ftz`` is
 left off so that denormals match PyTorch's IEEE kernels.
+
+The redesigns' splits (``csrc/splits/*.cu``: each kernel with one part of
+its design taken out, for timing what it costs) are a library of their
+own, :data:`SPLITS`, built the same way on the first call of a split: no
+main path runs them, so the library every run builds leaves them out.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ class Build(NamedTuple):
 
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict = {}
 
 
 def nvcc_path() -> str:
@@ -75,19 +80,26 @@ def nvcc_path() -> str:
         "CUDA toolkit's default prefix); the CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    """The translation units, one object each."""
-    return sorted(CSRC_DIR.glob("*.cu"))
+#: the kernels every path runs (``csrc/*.cu``)
+KERNELS = "kernels"
+#: the splits' ablation parts (``csrc/splits/*.cu``)
+SPLITS = "splits"
 
 
-def library_path() -> Path:
-    """The library's path in the build store, read at every call."""
+def sources(library: str = KERNELS) -> list[Path]:
+    """The translation units of ``library``, one object each."""
+    where = CSRC_DIR if library == KERNELS else CSRC_DIR / library
+    return sorted(where.glob("*.cu"))
+
+
+def library_path(library: str = KERNELS) -> Path:
+    """``library``'s path in the build store, read at every call."""
     digest = hashlib.sha256()
-    for src in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
+    for src in sorted([*sources(library), *CSRC_DIR.glob("*.cuh")]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
-    name = f"libgs_kernels-{digest.hexdigest()[:16]}.so"
+    name = f"libgs_{library}-{digest.hexdigest()[:16]}.so"
     return cache.build_dir("kernels") / name
 
 
@@ -111,20 +123,21 @@ def _run(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def build() -> Build:
-    """Compile the library unless this tree's one exists already."""
-    path = library_path()
+def build(library: str = KERNELS) -> Build:
+    """Compile ``library`` unless this tree's one exists already."""
+    path = library_path(library)
     if path.exists():
         return Build(path, 0.0, "")
     path.parent.mkdir(parents=True, exist_ok=True)
     # compile to private names, then rename: a reader never sees half a file
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+    srcs = sources(library)
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     try:
         log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                    for src, obj in zip(sources(), objs)])
+                    for src, obj in zip(srcs, objs)])
         log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
                       *(str(o) for o in objs)]])
         os.replace(tmp, path)
@@ -135,18 +148,18 @@ def build() -> Build:
     return Build(path, time.perf_counter() - t0, log)
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built first if needed (once per process)."""
-    global _lib
+def load(library: str = KERNELS) -> ctypes.CDLL:
+    """``library``, built first if needed (once per process)."""
     with _lock:
-        if _lib is None:
-            _lib = ctypes.CDLL(str(build().path))
-        return _lib
+        if library not in _libs:
+            _libs[library] = ctypes.CDLL(str(build(library).path))
+        return _libs[library]
 
 
-def bind(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The library's C function ``name``, returning an int."""
-    fn = getattr(load(), name)
+def bind(name: str, argtypes: list,
+         library: str = KERNELS) -> ctypes._CFuncPtr:
+    """``library``'s C function ``name``, returning an int."""
+    fn = getattr(load(library), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -86,6 +86,22 @@ def fold_refresh(x: torch.Tensor, halo: int, f: int, cd: int,
     x3[halo + rp:, f - 1] = 0.0
 
 
+def panel_window(x: torch.Tensor, halo: int, f: int, cd: int, rp: int,
+                 p: int) -> torch.Tensor:
+    """Panel ``p``'s columns of the folded ``x``, ``halo + rp + halo``
+    rows, its halo rows read from the neighbour panels' interior rows
+    (0.0 past the first and last panel), not from ``x``'s halo rows: the
+    window of the one-launch form of K1's folded entry, which refreshes no
+    halo before it steps (``csrc/windowed_folded.cuh``: FoldLayout). Equal
+    to the panel's columns of ``x`` after :func:`fold_refresh`."""
+    interior = x[halo:halo + rp]
+    zeros = x.new_zeros((halo, cd))
+    top = interior[rp - halo:, (p - 1) * cd:p * cd] if p > 0 else zeros
+    bottom = (interior[:halo, (p + 1) * cd:(p + 2) * cd] if p + 1 < f
+              else zeros)
+    return torch.cat([top, interior[:, p * cd:(p + 1) * cd], bottom])
+
+
 def choose_fold(r: int, c: int, halo: int = 16) -> int:
     """The fold factor F (1: no fold) JAX's tuner tries on a ``(r, c)``
     domain (``pallas_stencil.py:1573``): widen toward

@@ -368,7 +368,7 @@ ABLATIONS = {
     4: "32x32 tiles in 48x48 windows",
 }
 
-#: the parts of the ring's split (csrc/mega_ring_ablation.cu:
+#: the parts of the ring's split (csrc/splits/mega_ring_ablation.cu:
 #: gs_mega_ring_ablation): each gives the whole kernel's result, but part
 #: 2, whose result is its input; on 64x64 or 32x32 tiles (the compiled
 #: geometries) or pinned ones, float32, naive, the default tap set
@@ -893,7 +893,7 @@ def ring_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
         raise ValueError("an ablation runs the kernel: the pairs must lie on "
                          f"a CUDA device, not {u_pair.device}")
     fn = build.bind("gs_mega_ring_ablation",
-                    _kernel().argtypes + [ctypes.c_int] * 6)
+                    _kernel().argtypes + [ctypes.c_int] * 6, build.SPLITS)
     tr, tc = plan["tile"]
     _launch(lambda *args: fn(*args, tr, tc, int(pinned), plan["buffers"],
                              plan["grid_buffers"], part),

@@ -178,8 +178,9 @@ FOLD_ABLATION_NO_STEP = (1, 6)
 FOLD_ABLATION_EXACT = 4
 FOLD_ABLATION_TMA_ONLY = tuple(range(7, 13))
 
-#: the parts of the pinned entries' split (csrc/windowed_pins_ablation.cu:
-#: gs_windowed_pinned_ablation, gs_windowed_shard_pinned_ablation); each
+#: the parts of the pinned entries' split
+#: (csrc/splits/windowed_pins_ablation.cu: gs_windowed_pinned_ablation,
+#: gs_windowed_shard_pinned_ablation); each
 #: gives the whole kernel's result but part 2, whose result is its input;
 #: float32, naive, the default stencil's tap set
 PIN_ABLATIONS = {
@@ -213,6 +214,24 @@ PIN_ABLATION_FIXED_PARTS = (4, 8, 10)
 PIN_ABLATION_CLUSTERS = (6, 11, 13)
 
 _fns: dict = {}
+#: the folded entry's split (csrc/splits/windowed_folded_ablation.cu): part ->
+#: what it runs (float32, naive, the default stencils' tap set)
+FOLDED_ABLATIONS = {
+    0: "the first form: refresh launch, then the step on run-time sizes",
+    1: "the refresh launch alone",
+    2: "the step launch alone",
+    3: "sizes compiled in",
+    4: "4x4 register blocks, LDS.128, on interior tiles",
+    5: "one launch: windows from the neighbour panels' interior rows",
+    6: "3 with 4 and 5",
+}
+FOLDED_ABLATION_REFRESH = 1
+FOLDED_ABLATION_STEP = 2
+#: the parts on compiled sizes, and the geometries they compile (64x64 at
+#: a halo of 8, Main's, and of 16)
+FOLDED_ABLATION_FIXED = (3, 6)
+FOLDED_FIXED = ((64, 64, 8), (64, 64, 16))
+
 _checked = False
 
 
@@ -223,8 +242,9 @@ multistep_reference = stencil.run
 multistep_reference_bf16 = stencil.run_bf16
 
 
-def _bind(name: str, argtypes: list):
-    """The C entry ``name``, bound once, after the kernel's K is checked."""
+def _bind(name: str, argtypes: list, library: str = build.KERNELS):
+    """The C entry ``name`` of ``library``, bound once, after the kernel's K
+    is checked."""
     global _checked
     if not _checked:
         max_steps = build.bind("gs_windowed_max_steps", [])()
@@ -233,7 +253,7 @@ def _bind(name: str, argtypes: list):
                                f"steps a launch; this wrapper expects {K}")
         _checked = True
     if name not in _fns:
-        _fns[name] = build.bind(name, argtypes)
+        _fns[name] = build.bind(name, argtypes, library)
     return _fns[name]
 
 
@@ -592,15 +612,16 @@ def folded_multistep_reference(u: torch.Tensor, v: torch.Tensor,
                                u_out: torch.Tensor, v_out: torch.Tensor,
                                steps: int, consts: KernelConstants,
                                boundary: str, shape, rp: int,
-                               halo: int) -> None:
+                               halo: int, refresh: bool = True) -> None:
     """The plain version of :func:`folded_multistep`: the panels' halo
-    rows of ``(u, v)`` refreshed in place (``lane_fold.fold_refresh``),
-    then each panel's columns (its interior and halo rows) take ``steps``
-    plain steps at its global origin ``(p*rp - halo, 0)`` against the
-    domain ``shape`` (``stencil.step_at``), and their interior rows go to
-    ``(u_out, v_out)``, the dead rows as the 0.0 ``step_at`` gives them."""
+    rows of ``(u, v)`` refreshed in place (``lane_fold.fold_refresh``;
+    ``refresh=False``: read as they are), then each panel's columns (its
+    interior and halo rows) take ``steps`` plain steps at its global origin
+    ``(p*rp - halo, 0)`` against the domain ``shape``
+    (``stencil.step_at``), and their interior rows go to ``(u_out,
+    v_out)``, the dead rows as the 0.0 ``step_at`` gives them."""
     c = shape[1]
-    for x in (u, v):
+    for x in (u, v) if refresh else ():
         lane_fold.fold_refresh(x, halo, u.shape[1] // c, c, rp)
     for p in range(u.shape[1] // c):
         cols = slice(p * c, (p + 1) * c)
@@ -610,6 +631,30 @@ def folded_multistep_reference(u: torch.Tensor, v: torch.Tensor,
                                    shape)
         u_out[halo:halo + rp, cols] = a[halo:halo + rp]
         v_out[halo:halo + rp, cols] = b[halo:halo + rp]
+
+
+def folded_one_launch_reference(u: torch.Tensor, v: torch.Tensor,
+                                u_out: torch.Tensor, v_out: torch.Tensor,
+                                steps: int, consts: KernelConstants,
+                                boundary: str, shape, rp: int,
+                                halo: int) -> None:
+    """The plain version of the folded entry's one-launch form: each
+    panel's window read from its neighbours' interior rows
+    (``lane_fold.panel_window``), ``steps`` plain steps at its global
+    origin, its interior rows into ``(u_out, v_out)``; then the halo rows
+    of ``(u, v)`` that the refresh leaves (``lane_fold.fold_refresh``).
+    Equal to :func:`folded_multistep_reference` bit for bit."""
+    c = shape[1]
+    f = u.shape[1] // c
+    for p in range(f):
+        a, b = (lane_fold.panel_window(x, halo, f, c, rp, p) for x in (u, v))
+        for _ in range(steps):
+            a, b = stencil.step_at(a, b, consts, boundary, (p * rp - halo, 0),
+                                   shape)
+        u_out[halo:halo + rp, p * c:(p + 1) * c] = a[halo:halo + rp]
+        v_out[halo:halo + rp, p * c:(p + 1) * c] = b[halo:halo + rp]
+    for x in (u, v):
+        lane_fold.fold_refresh(x, halo, f, c, rp)
 
 
 def _check_folded(x: torch.Tensor, shape, rp: int,
@@ -646,14 +691,17 @@ def folded_multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
                      v_out: torch.Tensor, steps: int,
                      consts: KernelConstants, boundary: str, shape, rp: int,
                      geometry: geometry.Geometry) -> None:
-    """Refresh the panels' halo rows of the folded float32 state ``(u,
-    v)`` in place, then write the state ``steps`` (1..``geometry.halo``)
-    steps after it into the interior rows of ``(u_out, v_out)``, every
-    panel of the domain ``shape`` (R, C) at panel stride ``rp`` stepped at
-    its global origin on the tiles of ``geometry``; their dead rows and
-    halo rows are not written. On a CUDA device the two launches (the
-    refresh, the step) are enqueued on the current stream and not waited
-    for."""
+    """Write the state ``steps`` (1..``geometry.halo``) steps after the
+    folded float32 state ``(u, v)`` into the interior rows of ``(u_out,
+    v_out)``, every panel of the domain ``shape`` (R, C) at panel stride
+    ``rp`` stepped at its global origin on the tiles of ``geometry``, and
+    leave the panels' halo rows of ``(u, v)`` refreshed in place; the
+    dead rows and halo rows of ``(u_out, v_out)`` are not written. On a
+    CUDA device this is one launch, enqueued on the current stream and not
+    waited for: each window reads a panel's halo rows from its neighbour
+    panels' interior rows, and the blocks of each panel's first and last
+    tile rows write the refreshed halo rows. On the CPU it is the plain
+    version, the refresh and then the step."""
     global folded_launches
     g = geometry
     checks.check_count("steps", steps, 1, g.halo)
@@ -674,6 +722,80 @@ def folded_multistep(u: torch.Tensor, v: torch.Tensor, u_out: torch.Tensor,
                            f"({g.label()}, F={f}, Rp={rp}): CUDA error {err} "
                            f"({build.error_name(err)})")
     folded_launches += 1
+
+
+def folded_ablation_reference(part: int, u: torch.Tensor, v: torch.Tensor,
+                              u_out: torch.Tensor, v_out: torch.Tensor,
+                              steps: int, consts: KernelConstants,
+                              boundary: str, shape, rp: int,
+                              halo: int) -> None:
+    """The plain version of :func:`folded_ablation`'s part: part 1 the
+    refresh alone (``lane_fold.fold_refresh`` of ``(u, v)``), part 2 the
+    step of the halo rows as they are (:func:`folded_multistep_reference`
+    of a state whose halo rows are already fresh), every other part
+    :func:`folded_multistep_reference`."""
+    c = shape[1]
+    if part == FOLDED_ABLATION_REFRESH:
+        for x in (u, v):
+            lane_fold.fold_refresh(x, halo, u.shape[1] // c, c, rp)
+        return
+    folded_multistep_reference(u, v, u_out, v_out, steps, consts, boundary,
+                               shape, rp, halo,
+                               refresh=part != FOLDED_ABLATION_STEP)
+
+
+def check_folded_part(part: int, g: geometry.Geometry,
+                      consts: KernelConstants, boundary: str) -> None:
+    """Refuse a part of :data:`FOLDED_ABLATIONS` that does not run on the
+    tiles of ``g``, the weights of ``consts`` or ``boundary``
+    (ValueError): the split runs the naive boundary on the default
+    stencils' tap set, and parts 3 and 6 compile 64x64 tiles at a halo of
+    8 or 16 only (:data:`FOLDED_FIXED`)."""
+    if part not in FOLDED_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(FOLDED_ABLATIONS)}, "
+                         f"got {part!r}")
+    mask = sum(1 << t for t, w in enumerate(consts.weights) if w != 0.0)
+    if mask != TAPS_RING or boundary != "naive":
+        raise ValueError("the folded split runs the naive boundary on the "
+                         "default stencils' tap set")
+    if part in FOLDED_ABLATION_FIXED and tuple(g) not in FOLDED_FIXED:
+        raise ValueError(f"part {part} compiles {FOLDED_FIXED} only, not "
+                         f"{g.label()}")
+
+
+def folded_ablation(part: int, u: torch.Tensor, v: torch.Tensor,
+                    u_out: torch.Tensor, v_out: torch.Tensor, steps: int,
+                    consts: KernelConstants, boundary: str, shape, rp: int,
+                    geometry: geometry.Geometry) -> None:
+    """K1's folded entry on the card in the form of ``part``
+    (:data:`FOLDED_ABLATIONS`), with :func:`folded_multistep`'s arguments;
+    the naive boundary on the default stencils' tap set. Not the main path:
+    nothing is counted.
+    On the CPU it runs the part's plain version
+    (:func:`folded_ablation_reference`)."""
+    g = geometry
+    checks.check_count("steps", steps, 1, g.halo)
+    checks.check_boundary(boundary)
+    checks.check_state((u, v), (u_out, v_out))
+    f = _check_folded(u, shape, rp, g)
+    check_folded_part(part, g, consts, boundary)
+    if u.device.type == "cpu":
+        folded_ablation_reference(part, u, v, u_out, v_out, steps, consts,
+                                  boundary, shape, rp, g.halo)
+        return
+    fn = build.bind("gs_windowed_folded_ablation",
+                    [ctypes.c_int] + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int] * 10 + [ctypes.c_float] * 14
+                    + [ctypes.c_void_p], build.SPLITS)
+    err = fn(part, u.data_ptr(), v.data_ptr(), u_out.data_ptr(),
+             v_out.data_ptr(), shape[0], shape[1], f, rp, steps, *g,
+             int(boundary == "naive"), u.device.index, *consts.weights,
+             *consts.reaction,
+             torch.cuda.current_stream(u.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"folded ablation part {part} ({g.label()}, "
+                           f"F={f}, Rp={rp}): CUDA error {err} "
+                           f"({build.error_name(err)})")
 
 
 def check_pin_part(part: int, g: geometry.Geometry) -> None:
@@ -728,7 +850,8 @@ def pinned_ablation(part: int, u: torch.Tensor, v: torch.Tensor,
         raise ValueError("an ablation runs the kernel: the state must lie on "
                          f"a CUDA device, not {u.device}")
     fn = _bind("gs_windowed_pinned_ablation",
-               _pinned_kernel(torch.float32, False).argtypes + [ctypes.c_int])
+               _pinned_kernel(torch.float32, False).argtypes + [ctypes.c_int],
+               build.SPLITS)
     rows, cols = u.shape
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = fn(u.data_ptr(), v.data_ptr(), u_out.data_ptr(), v_out.data_ptr(),
@@ -771,7 +894,7 @@ def pinned_shard_ablation(part: int, u_pairs: torch.Tensor,
     r_loc, c_loc, ch = halo.interior_extents(u_pairs, mesh)
     rect = halo.overlap_tiles(r_loc, c_loc, ch, (g.tr, g.tc), g.halo)
     fn = _bind("gs_windowed_shard_pinned_ablation",
-               _pinned_shard_kernel().argtypes + [ctypes.c_int])
+               _pinned_shard_kernel().argtypes + [ctypes.c_int], build.SPLITS)
     stream = torch.cuda.current_stream(u_pairs.device).cuda_stream
     err = fn(u_pairs.data_ptr(), v_pairs.data_ptr(), *mesh.local_shape,
              *mesh.origin, r_loc, c_loc, ch, src_slot, shape[0], shape[1],

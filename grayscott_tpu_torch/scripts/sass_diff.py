@@ -1,6 +1,7 @@
 """Compare the machine code of two trees' CUDA kernels, kernel by kernel.
 
-Builds every ``csrc/*.cu`` of two source trees with the library's flags
+Builds every ``csrc/*.cu`` and ``csrc/splits/*.cu`` of two source trees
+with the library's flags
 (``ops/build.py:NVCC_FLAGS``) into a cubin, one ``nvcc`` per source, all
 at once, and reads each kernel's SASS (``cuobjdump -sass``) and ptxas's
 report (registers, stack frame, spills). A kernel is the same in both
@@ -58,7 +59,7 @@ def compile_tree(csrc: Path, out: Path) -> dict:
             raise RuntimeError(f"nvcc failed on {src}:\n{p.stderr[-4000:]}")
         return src.name, (cubin, p.stdout + p.stderr)
 
-    sources = sorted(csrc.glob("*.cu"))
+    sources = sorted([*csrc.glob("*.cu"), *csrc.glob("splits/*.cu")])
     with ThreadPoolExecutor(max_workers=len(sources) or 1) as pool:
         return dict(pool.map(one, sources))
 

@@ -24,9 +24,14 @@ card. The transport is gloo: the halo bands that cross processes go
 through pinned host buffers (``parallel/halo.py``). NCCL, one rank a card,
 and K7 across processes are ROADMAP.md Queue 1 item 7.3.
 
-A dead peer fails the survivors' next send, receive or gather (gloo's
-connection closes; else the group's timeout, ``GRAYSCOTT_HEARTBEAT_S``,
-default 100 s, ends the wait): they raise and exit non-zero, never hang.
+The group forms on the TCP store of torch's own rendezvous for the
+variables' URL (process 0 hosts it, or, under ``torchrun``, the elastic
+agent does), which waits :data:`STARTUP_TIMEOUT_S` (300 s, the default
+``initialization_timeout`` of ``jax.distributed.initialize``) for every
+peer to join, so a process may start that long after the others. A dead peer fails the survivors'
+next send, receive or gather (gloo's connection closes; else the group's
+timeout, ``GRAYSCOTT_HEARTBEAT_S``, default 100 s, ends the wait): they
+raise and exit non-zero, never hang.
 """
 
 from __future__ import annotations
@@ -43,6 +48,9 @@ import torch
 COORDINATOR_VAR = "GRAYSCOTT_COORDINATOR"
 #: JAX's default peer-failure bound, seconds
 DEFAULT_HEARTBEAT_S = 100
+#: how long the store waits for every peer to join, seconds: JAX's
+#: ``initialization_timeout`` default (it exposes no variable for it)
+STARTUP_TIMEOUT_S = 300
 
 
 def _positive_int(name: str, raw: str | None, low: int = 1) -> int:
@@ -104,16 +112,23 @@ def maybe_initialize(logger=None) -> bool:
     """Join the gloo process group that the variables ask for
     (:func:`config`), and make this process's card the current one; False,
     with nothing started, when ``GRAYSCOTT_COORDINATOR`` is unset or empty.
-    A group that does not form raises (after the timeout at the latest)."""
+    The peers have :data:`STARTUP_TIMEOUT_S` to join, and the heartbeat
+    bounds every collective after that; a group that does not form
+    raises."""
     cfg = config()
     if cfg is None:
         return False
     import torch.distributed as dist
 
+    # torch's own rendezvous, with the longer wait: it parses the URL,
+    # makes process 0 the store's host (or, under torchrun, every process
+    # a client of the agent's store) and waits for the peers to join
+    store, _, _ = next(dist.rendezvous(
+        cfg["init_method"], cfg["rank"], cfg["world_size"],
+        timeout=datetime.timedelta(seconds=STARTUP_TIMEOUT_S)))
     dist.init_process_group(
-        "gloo", init_method=cfg["init_method"],
-        world_size=cfg["world_size"], rank=cfg["rank"],
-        timeout=datetime.timedelta(seconds=cfg["timeout"]))
+        "gloo", store=store, world_size=cfg["world_size"],
+        rank=cfg["rank"], timeout=datetime.timedelta(seconds=cfg["timeout"]))
     device = local_device()
     if device is not None:
         torch.cuda.set_device(device)

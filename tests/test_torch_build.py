@@ -34,3 +34,41 @@ def test_every_kernel_source_is_a_translation_unit():
     assert {"windowed.cu", "resident.cu", "mega.cu", "packed.cu",
             "packed_resident.cu", "packed_mega.cu"} <= names
     assert not any(name.endswith(".cuh") for name in names)
+
+
+def test_splits_are_a_library_of_their_own():
+    """The redesigns' ablation parts (csrc/splits/*.cu) build into their
+    own library, on the first call of a split; the library every run
+    builds leaves them out."""
+    main = {s.name for s in build.sources()}
+    splits = {s.name for s in build.sources(build.SPLITS)}
+    assert {"mega_ring_ablation.cu", "windowed_pins_ablation.cu",
+            "sharded_mega_ablation.cu",
+            "windowed_folded_ablation.cu"} == splits
+    assert not main & splits
+    assert build.library_path(build.SPLITS).name.startswith("libgs_splits-")
+    assert build.library_path().name.startswith("libgs_kernels-")
+    assert build.library_path(build.SPLITS).parent == \
+        build.library_path().parent
+
+
+@pytest.mark.parametrize("name", ["kernels", "splits", "both"])
+def test_nvcc_units_times_every_unit_of_its_set(monkeypatch, capsys, name):
+    """``scripts/nvcc_units.py`` compiles each unit of its set once (here
+    with a stand-in compiler that accepts anything) and prints a line for
+    each and one for the set; ``both`` is every unit of both libraries."""
+    from grayscott_tpu_torch.scripts import nvcc_units
+
+    true = shutil.which("true")
+    if true is None:
+        pytest.skip("no `true` program to stand in for nvcc")
+    monkeypatch.setattr(build, "nvcc_path", lambda: true)
+    assert nvcc_units.main([name]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    units = {"kernels": build.sources(build.KERNELS),
+             "splits": build.sources(build.SPLITS)}
+    want = (units["kernels"] + units["splits"] if name == "both"
+            else units[name])
+    assert sorted(line.split()[2][:-1] for line in lines[:-1]) == sorted(
+        src.name for src in want)
+    assert lines[-1].startswith(f"nvcc {name}: {len(want)} units at once")

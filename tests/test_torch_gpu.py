@@ -2072,12 +2072,15 @@ def test_pinned_ring_grids_follow_the_bytes(cuda_device):
 
 @pytest.mark.gpu
 def test_folded_and_pinned_ring_kernels_do_not_spill(cuda_device, tmp_path):
-    """ptxas's report of the folded entry's 4 instantiations, its refresh
+    """ptxas's report of the folded entry's 8 instantiations (4 on
+    run-time sizes, 4 compiled), its split's 6 and the first form's refresh
     kernel, the pinned ring's 24 (bound to one block an SM and to two) and
     the compiled ring's 24: no spill."""
     for source, kernel, count in (
-            ("windowed_pins.cu", "13folded_kernel", 4),
-            ("windowed_pins.cu", "19fold_refresh_kernel", 1),
+            ("windowed_pins.cu", "18folded_form_kernel", 4),
+            ("windowed_pins_fixed.cu", "18folded_form_kernel", 4),
+            ("splits/windowed_folded_ablation.cu", "18folded_form_kernel", 6),
+            ("splits/windowed_folded_ablation.cu", "19fold_refresh_kernel", 1),
             ("mega_pins_ring.cu", "18ring_pinned_kernel", 24),
             ("mega_ring.cu", "11ring_kernel", 44)):
         spills = ptxas_spills(source, kernel, tmp_path)
@@ -2207,3 +2210,127 @@ def test_pinned_blocks_follow_pin_launch(cuda_device):
             assert fn(g.tr, g.tc, g.halo, shard, cuda_device.index or 0,
                       ctypes.byref(per_sm)) == 0
             assert per_sm.value == g.pin_launch().blocks_per_sm, (g, shard)
+
+
+# -- the read-site entry's fitted tiles and the folded entry's one launch ----
+
+#: row meshes whose shards the fitted tiles fit: (shape, shards)
+FITTED = [((544, 256), 4), ((1088, 208), 4), ((272, 300), 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("shape,n", FITTED)
+def test_k7_fitted_read_site_bitwise(cuda_device, dtype, boundary, shape, n):
+    """K7's read-site entry on the fitted 68x64 tiles, the compiled entry
+    (counted in ``launches`` or ``bf16_launches`` and in
+    ``read_site_launches``, not in the pinned counters), one launch of 1,
+    3 and 4 time blocks: bit for bit the plain version, halos included.
+    Tolerance: none."""
+    consts = kernel_constants(Parameters())
+    mesh = halo.make_mesh(n, 1, cuda_device)
+    fit = sharded_mega.fitted_tile(shape, mesh.shape)
+    assert fit == (68, 64)
+    u, v = random_uv(shape, "cpu")
+    for n_blocks, steps in ((1, 8), (3, 8), (4, 5)):
+        runs = []
+        for kernel in (True, False):
+            pairs = [p.to(dtype) for p in halo.mega_shard_state(u, v, mesh)]
+            for p in pairs:
+                halo.exchange_halos(p)
+            if kernel:
+                before = (sharded_mega.read_site_launches,
+                          sharded_mega.launches + sharded_mega.bf16_launches,
+                          sharded_mega.pinned_launches
+                          + sharded_mega.pinned_bf16_launches)
+                sharded_mega.sharded_megastep(
+                    *pairs, mesh, n_blocks, steps, consts, boundary, shape,
+                    geometry=geometry.Geometry(*fit, 8))
+                assert (sharded_mega.read_site_launches,
+                        sharded_mega.launches + sharded_mega.bf16_launches,
+                        sharded_mega.pinned_launches
+                        + sharded_mega.pinned_bf16_launches) \
+                    == (before[0] + 1, before[1] + 1, before[2])
+            else:
+                sharded_mega.sharded_megastep_reference(
+                    *pairs, n_blocks, steps, consts, boundary, shape)
+            runs.append(pairs)
+        torch.cuda.synchronize()
+        assert all(bf16_equal(a, b) if dtype == torch.bfloat16
+                   else torch.equal(a, b) for a, b in zip(*runs)), \
+            (n_blocks, steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", sorted(sharded_mega.READ_SITE_ABLATIONS))
+@pytest.mark.parametrize("shape,n", FITTED[:2])
+def test_k7_read_site_split_parts_bitwise(cuda_device, part, shape, n):
+    """Every part of the read-site split, one launch of 4 time blocks of 8
+    steps, naive, NaN and Inf included: slot 0 bit for bit the plain
+    version's (the parts that step nothing: their input), and not counted.
+    Tolerance: none."""
+    consts = kernel_constants(Parameters())
+    mesh = halo.make_mesh(n, 1, cuda_device)
+    u, v = nan_state(shape, "cpu")
+    pairs = halo.mega_shard_state(u, v, mesh)
+    for p in pairs:
+        halo.exchange_halos(p)
+    want = [p.clone() for p in pairs]
+    counts = (sharded_mega.launches, sharded_mega.read_site_launches)
+    assert sharded_mega.read_site_ablation(part, *pairs, mesh, 4, 8, consts,
+                                           "naive", shape) >= n
+    sharded_mega.read_site_ablation_reference(part, *want, 4, 8, consts,
+                                              "naive", shape)
+    torch.cuda.synchronize()
+    assert (sharded_mega.launches, sharded_mega.read_site_launches) == counts
+    # slot 0, halos included (a part that steps nothing leaves slot 1 as
+    # its copies or pushes left it)
+    assert all(bits_equal(a[:, :, 0], b[:, :, 0]) for a, b in zip(pairs, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part", sorted(windowed.FOLDED_ABLATIONS))
+@pytest.mark.parametrize("shape,f,k", [((300, 256), 2, 8), ((300, 256), 2, 16),
+                                       ((1000, 128), 8, 8)])
+def test_folded_split_parts_bitwise(cuda_device, part, shape, f, k):
+    """Every part of the folded entry's split that runs on the case's tiles
+    (64x64 at a halo of 8 or 16), one call of K steps, naive, NaN and Inf
+    at the panels' seam: the outputs and the input's halo rows bit for
+    bit the part's plain version, and not counted. Tolerance: none."""
+    consts = kernel_constants(Parameters())
+    g = geometry.resolve((-(-shape[0] // f), shape[1]), k)
+    rp = lane_fold.fold_geometry(shape[0], f, g.tr)
+    if part in windowed.FOLDED_ABLATION_FIXED:
+        assert tuple(g) in windowed.FOLDED_FIXED
+    u, v = random_uv(shape, "cpu")
+    u[rp - 1, -1] = v[rp, 0] = float("nan")
+    u[rp, -1] = float("-inf")
+    x = list(lane_fold.fold_state(u, v, f, g.tr, g.halo, cuda_device))
+    x += [torch.zeros_like(x[0]), torch.zeros_like(x[0])]
+    y = [t.clone() for t in x]
+    before = windowed.folded_launches
+    windowed.folded_ablation(part, *x, k, consts, "naive", shape, rp, g)
+    windowed.folded_ablation_reference(part, *y, k, consts, "naive", shape,
+                                       rp, g.halo)
+    torch.cuda.synchronize()
+    assert windowed.folded_launches == before
+    assert all(bits_equal(a, b) for a, b in zip(x, y))
+
+
+@pytest.mark.gpu
+def test_new_split_kernels_do_not_spill(cuda_device, tmp_path):
+    """ptxas's report of K7's fitted instantiations (68x64 tiles: the read
+    site's two tap sets and boundaries, float32 and bf16): no spill; of
+    the read-site split's 14 parts, reported (part 3's naive instantiation
+    at a run-time height spills 24 B at its 64 registers)."""
+    spills = ptxas_spills("sharded_mega_fit.cu", "19sharded_mega_kernel",
+                          tmp_path)
+    assert len(spills) == 8, spills
+    assert all("ILi68ELi64ELi512ELi4E" in k for k in spills), spills
+    assert all(s == (0, 0) for s in spills.values()), spills
+    spills = ptxas_spills("splits/sharded_mega_ablation.cu",
+                          "15ablation_kernel", tmp_path)
+    assert len(spills) == 14, spills
+    spilled = [k for k, s in spills.items() if s != (0, 0)]
+    assert all("8FitShape" in k for k in spilled), spilled
