@@ -372,10 +372,33 @@
    two launches. (c) The split in device time, in turns with part 0 and
    the bound, at 1080x1920 and 4096^2 (the shard entry at 1080x1920 on
    2x2). The ``kernels`` line gives both entries their first form's time.
+26. The redesign of K2's and K7's pinned entries (their sizes compiled in
+   on the pins users and the tuner name most, ``csrc/mega_pins_fixed.cu``
+   and ``csrc/sharded_mega_pins_fixed.cu``, the threads a block fitted to
+   the window's bytes where that paid: 16x64 on 256, 64x128 naive on
+   1024; ``geometry.mega_pin_launch`` chooses). (a) ptxas's report of the compiled entries and of the
+   splits' parts (``csrc/splits/mega_pins_ablation.cu``,
+   ``csrc/splits/sharded_mega_pins_ablation.cu``), none of which may spill
+   or take a stack frame; the occupancy API's blocks of each compiled
+   instantiation against ``mega_pin_launch``'s. (b) Every part of both
+   splits (``megakernel.PINNED_ABLATIONS``,
+   ``sharded_mega.PINNED_ABLATIONS``: the first form, its loads and stores
+   or its exchange alone, compiled sizes, threads fitted to the bytes, both)
+   and both entries on float32 and bf16, one launch of 4 time blocks of 8
+   steps on the timed geometries (K2 32x128, 16x64 bf16 and 32x64 at
+   1080x1920, 64x128 at 4096^2; K7 32x128 on 2x2 at 1080x1920 and 4096^2,
+   64x128 bf16 on 1x4), on a NaN/Inf state, and the entries at every
+   compiled geometry on 1025x1920 and 1000x1917 (K7 on 2x2, 1x4, 4x1), bit
+   for bit the plain version (part 1: its input); K7's grid against
+   ``sharded_mega.pinned_walk`` (two blocks an SM on 32x128 naive). (c)
+   Both splits in device time, in turns, twice for their spread, each
+   part beside part 0 and the bound, with the compiled 64x64 K2 and K7;
+   (d) the two pins' ``simulate`` paths from phase 19c. The ``kernels``
+   line gives the four pinned entries their first form's time.
 
 Phases 3-6 run the unpacked kernels K1-K3 and phase 7 the packed ones
 (in the order 3, 7a, 4, 7b, 5, 7c, 6, 7d); phases 9 to 15 run after
-them, then phases 16 to 23 and phase 4c, before phase 8's lines. Every bound is the larger of
+them, then phases 16 to 26 and phase 4c, before phase 8's lines. Every bound is the larger of
 the bytes (each input read once, each output written once) over 3.35 TB/s
 and the float32 operations over 33.5 T/s, the rate at which each unfused
 operation takes an issue slot (the kernels build with ``-fmad=false``);
@@ -739,14 +762,14 @@ KERNELS = {
     "mega_pinned": {
         "name": "mega_pinned_multistep",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "source": "grayscott_tpu_torch/csrc/mega_pins_fixed.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (tr, tc: "
                     "grayscott_tpu/backends/pallas.py:384-411)",
     },
     "mega_pinned_bf16": {
         "name": "mega_pinned_multistep_bf16",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/mega_pins.cu",
+        "source": "grayscott_tpu_torch/csrc/mega_pins_fixed.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (tr, tc; bfloat16 "
                     "storage)",
     },
@@ -774,14 +797,14 @@ KERNELS = {
     "shmega_pinned": {
         "name": "sharded_mega_pinned_multistep",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/sharded_mega_pins.cu",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega_pins_fixed.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, tr, tc: "
                     "grayscott_tpu/backends/sharded.py:281-321)",
     },
     "shmega_pinned_bf16": {
         "name": "sharded_mega_pinned_multistep_bf16",
         "route": "cuda",
-        "source": "grayscott_tpu_torch/csrc/sharded_mega_pins.cu",
+        "source": "grayscott_tpu_torch/csrc/sharded_mega_pins_fixed.cu",
         "replaces": "grayscott_tpu/ops/megakernel.py:81 (sharded, tr, tc; "
                     "bfloat16 storage)",
     },
@@ -2212,10 +2235,13 @@ REDESIGNED_KERNELS = ("15windowed_kernel", "15resident_kernel",
                       "20packed_pinned_kernel", "18folded_form_kernel",
                       "19fold_refresh_kernel", "18ring_pinned_kernel",
                       "20windowed_fold_kernel", "16mega_fold_kernel",
-                      "18pinned_form_kernel", "17shard_form_kernel")
+                      "18pinned_form_kernel", "17shard_form_kernel",
+                      "20mega_pin_form_kernel", "23sharded_pin_form_kernel",
+                      "15exchange_kernel")
 #: of those, the ones whose instantiations must not spill (K2, K7, K4, K6,
 #: K2's ring, the pinned entries of K1 and K4, K1's folded entry and its
-#: refresh, K2's pinned ring, the fold entries' second form)
+#: refresh, K2's pinned ring, the fold entries' second form, K2's and K7's
+#: pinned forms and their splits' parts)
 NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "13packed_kernel", "18packed_mega_kernel",
                     "11ring_kernel", "13pinned_kernel",
@@ -2225,7 +2251,9 @@ NO_SPILL_KERNELS = ("11mega_kernel", "19sharded_mega_kernel",
                     "18folded_form_kernel",
                     "19fold_refresh_kernel", "18ring_pinned_kernel",
                     "20windowed_fold_kernel", "16mega_fold_kernel",
-                    "18pinned_form_kernel", "17shard_form_kernel")
+                    "18pinned_form_kernel", "17shard_form_kernel",
+                    "20mega_pin_form_kernel", "23sharded_pin_form_kernel",
+                    "15exchange_kernel")
 
 
 def ptxas_report(log: str, kernels=REDESIGNED_KERNELS) -> list:
@@ -7312,6 +7340,416 @@ def phase25(checks: Checks, rng, card: str, log: str) -> tuple:
     return n, time_shrs25(rng, card), time_fold25(rng, card)
 
 
+# -- phase 26: K2's and K7's pinned entries redesigned -----------------------
+
+#: K2's split: (shape, (tr, tc), storage), each naive and zero
+PIN26_K2 = [(MAIN_SHAPE, (32, 128), torch.float32),
+            (MAIN_SHAPE, (16, 64), torch.bfloat16),
+            (MAIN_SHAPE, (32, 64), torch.float32),
+            (BENCH_SHAPE, (64, 128), torch.float32)]
+#: K7's split: (shape, mesh, (tr, tc), storage), each naive and zero
+PIN26_K7 = [(MAIN_SHAPE, (2, 2), (32, 128), torch.float32),
+            (MAIN_SHAPE, (1, 4), (64, 128), torch.bfloat16),
+            (BENCH_SHAPE, (2, 2), (32, 128), torch.float32)]
+#: domains whose last tile row and column are partial (phase 18's), and
+#: K7's meshes there (4x1: the read-site wait)
+PIN26_EDGES = [(1025, 1920), (1000, 1917)]
+PIN26_EDGE_MESHES = ((2, 2), (1, 4), (4, 1))
+#: the new instantiations ptxas reports, by mangled kernel name: K2's (16
+#: compiled entries, 26 in the split), K7's (16, 12) and the K7 split's
+#: exchange alone (2)
+PTXAS26 = {"20mega_pin_form_kernel": 42, "23sharded_pin_form_kernel": 28,
+           "15exchange_kernel": 2}
+#: phase 26c: reps a sample by shape, rounds (in order, then reversed) and
+#: passes (the whole split again, for its spread)
+SPLIT26_REPS = {MAIN_SHAPE: 20, BENCH_SHAPE: 4}
+SPLIT26_ROUNDS = 2
+SPLIT26_PASSES = 2
+#: the blocks of 4 time blocks of 8 steps that every phase 26 launch takes
+PIN26_BLOCKS = MAIN_STEPS // 8
+
+
+def ptxas26(checks: Checks, log: str) -> None:
+    """Phase 26a: ptxas's report of the new kernels (K2's and K7's pinned
+    forms, compiled and in the splits): their count, registers, and no
+    stack frame and no spill (phase 2's check holds them too:
+    NO_SPILL_KERNELS)."""
+    if not log:
+        print("phase 26a: the library was reused, no ptxas report",
+              flush=True)
+        return
+    # each unit's report, the libraries' joined: an instantiation that two
+    # units compile (a kept form and its split part) counts twice
+    rows = [ptxas_entries(unit) for unit in
+            re.split(r"(?=ptxas info\s*: Compiling entry function)", log)]
+    for kernel, count in PTXAS26.items():
+        found = [(n, r) for row in rows for n, r in row.items()
+                 if kernel in n]
+        for name, (regs, frame) in found:
+            print(f"ptxas {name}: {regs} registers, stack frame, spill "
+                  f"stores, spill loads {frame}", flush=True)
+        bad = {n: f for n, (_, f) in found if f != (0, 0, 0)}
+        print(f"ptxas {kernel}: {len(found)} instantiations, registers "
+              f"{sorted({r for _, (r, _) in found})}, stack or spills "
+              f"{bad}", flush=True)
+        checks.expect(len(found) == count,
+                      f"{kernel}: {len(found)} of {count} instantiations")
+        checks.expect(not bad, f"{kernel}: stack or spills {bad}")
+
+
+def blocks26(checks: Checks) -> None:
+    """Phase 26a: the co-resident blocks of every compiled pinned
+    instantiation (the occupancy API) against ``geometry.mega_pin_launch``'s
+    blocks an SM times the SMs, which the host's walk reckons with."""
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for sharded, fixed in ((False, geometry.MEGA_FIXED_PINS),
+                           (True, geometry.SHARDED_FIXED_PINS)):
+        for tr, tc in fixed:
+            g = geometry.Geometry(tr, tc, geometry.HALO)
+            for boundary in ("naive", "zero"):
+                form = geometry.mega_pin_launch(g, sharded, boundary)
+                for dtype in (torch.float32, torch.bfloat16):
+                    for wait in ((False, True) if sharded else (False,)):
+                        n = (sharded_mega.pinned_fixed_blocks(
+                            dev, g, boundary, wait, dtype) if sharded else
+                            megakernel.pinned_fixed_blocks(dev, g, boundary,
+                                                           dtype))
+                        what = (f"blocks26 {'K7' if sharded else 'K2'} "
+                                f"{g.label()} {boundary} {str(dtype)[6:]}"
+                                f"{' read-site' if wait else ''}")
+                        print(f"{what}: {n} co-resident, {form}", flush=True)
+                        checks.expect(n == form.blocks_per_sm * sms,
+                                      f"{what}: {n} co-resident against "
+                                      f"{form.blocks_per_sm} x {sms}")
+
+
+def pin26_k2_plain(u, v, boundary: str):
+    """The plain version of a phase 26 K2 launch on either storage."""
+    consts = kernel_constants(Parameters())
+    if u.dtype == torch.bfloat16:
+        return megakernel.megastep_reference_bf16(u, v, PIN26_BLOCKS, 8,
+                                                  consts, boundary)
+    return stencil.run(u, v, PIN26_BLOCKS * 8, consts, boundary)
+
+
+def pin26_k2_parts(g, dtype, boundary: str) -> list:
+    """The parts of ``megakernel.PINNED_ABLATIONS`` that run ``g`` on
+    ``dtype`` pairs."""
+    consts = kernel_constants(Parameters())
+    out = []
+    for part in megakernel.PINNED_ABLATIONS:
+        try:
+            megakernel.check_pinned_part(part, g, dtype, consts)
+        except ValueError:
+            continue
+        out.append(part)
+    return out
+
+
+def pin26_k7_parts(g, dtype, boundary: str) -> list:
+    """The parts of ``sharded_mega.PINNED_ABLATIONS`` that run ``g`` on
+    ``dtype`` pairs at the ``boundary``."""
+    consts = kernel_constants(Parameters())
+    out = []
+    for part in sharded_mega.PINNED_ABLATIONS:
+        try:
+            sharded_mega.check_pinned_part(part, g, dtype, consts, boundary,
+                                           PIN26_BLOCKS)
+        except ValueError:
+            continue
+        out.append(part)
+    return out
+
+
+def compare_pin26_k2(checks: Checks, rng) -> int:
+    """Phase 26b, K2: on each of PIN26_K2 (and a NaN/Inf state at
+    1080x1920 naive) and on PIN26_EDGES, both boundaries, one launch of
+    PIN26_BLOCKS time blocks of every part of the split that takes the
+    case's tiles and storage, and of the entry on float32 and bf16 pairs
+    (on the edge domains at every compiled geometry), each bit for bit its
+    plain version (part 1: its input). Returns the comparisons made."""
+    n = 0
+    consts = kernel_constants(Parameters())
+    cases = [(s, t, d, False) for s, t, d in PIN26_K2]
+    cases.append((MAIN_SHAPE, (32, 128), torch.float32, True))
+    cases += [(s, t, torch.float32, False) for s in PIN26_EDGES
+              for t in geometry.MEGA_FIXED_PINS]
+    cases += [(s, (16, 64), torch.bfloat16, False) for s in PIN26_EDGES]
+    for shape, tiles, dtype, special in cases:
+        g = geometry.Geometry(*tiles, geometry.HALO)
+        u_np, v_np = bf16_state(rng, shape, special)
+        for boundary in ("naive",) if special else ("naive", "zero"):
+            what = (f"pin26 K2 {pin_label(shape, g)} {boundary}"
+                    f"{' NaN/Inf' if special else ''}")
+            for dt in (torch.float32, torch.bfloat16):
+                u, v = (torch.from_numpy(x).to(DEVICE).to(dt)
+                        for x in (u_np, v_np))
+                want = pin26_k2_plain(u, v, boundary)
+                tag = "mega_pinned" + ("_bf16" if dt == torch.bfloat16
+                                       else "")
+                for part in (pin26_k2_parts(g, dt, boundary)
+                             if dt == dtype else []):
+                    up, vp = (megakernel.pair_state(x) for x in (u, v))
+                    grid = megakernel.pinned_ablation(
+                        part, up, vp, PIN26_BLOCKS, 8, consts, boundary, g)
+                    pin19_compare(checks, tag, (up[0], vp[0]),
+                                  (u, v) if part == megakernel.PINNED_NO_STEP
+                                  else want,
+                                  f"{what} {str(dt)[6:]} part {part} (grid "
+                                  f"{grid})")
+                    n += 1
+                up, vp = (megakernel.pair_state(x) for x in (u, v))
+                megakernel.megastep(up, vp, PIN26_BLOCKS, 8, consts, boundary,
+                                    geometry=g)
+                form = geometry.mega_pin_launch(g, boundary=boundary)
+                pin19_compare(checks, tag, (up[0], vp[0]), want,
+                              f"{what} {str(dt)[6:]} the entry ({form})")
+                n += 1
+    return n
+
+
+def pin26_k7_setup(u_np, v_np, mesh, dtype):
+    """Both pairs of a mesh on the card, slot 0's halos exchanged."""
+    pairs = halo.mega_shard_state(u_np, v_np, mesh, dtype)
+    for p in pairs:
+        halo.exchange_halos(p)
+    return pairs
+
+
+def compare_pin26_k7(checks: Checks, rng) -> int:
+    """Phase 26b, K7: on each of PIN26_K7 (and a NaN/Inf state at
+    1080x1920 naive), both boundaries, one launch of PIN26_BLOCKS time
+    blocks of every part of the split that takes the case's tiles,
+    storage and boundary, and of the entry on float32 and bf16 pairs; on
+    PIN26_EDGES the entry at every compiled geometry on each of
+    PIN26_EDGE_MESHES: the pairs' slot 0, halos included, bit for bit the
+    plain version's (part 1: the input, its halos exchanged). Prints the
+    grid of each launch, and checks the entry's against
+    ``sharded_mega.pinned_walk``. Returns the comparisons made."""
+    n = 0
+    consts = kernel_constants(Parameters())
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(s, m, t, d, False) for s, m, t, d in PIN26_K7]
+    cases.append((MAIN_SHAPE, (2, 2), (32, 128), torch.float32, True))
+    cases += [(s, m, t, None, False) for s in PIN26_EDGES
+              for m in PIN26_EDGE_MESHES
+              for t in geometry.SHARDED_FIXED_PINS]
+    for shape, mesh_shape, tiles, dtype, special in cases:
+        g = geometry.Geometry(*tiles, geometry.HALO)
+        mesh = halo.Mesh(*mesh_shape, dev)
+        u_np, v_np = bf16_state(rng, shape, special)
+        for boundary in ("naive",) if special else ("naive", "zero"):
+            what = (f"pin26 K7 {pin_label(shape, g)} mesh {mesh_shape[0]}x"
+                    f"{mesh_shape[1]} {boundary}"
+                    f"{' NaN/Inf' if special else ''}")
+            for dt in (torch.float32, torch.bfloat16):
+                start = pin26_k7_setup(u_np, v_np, mesh, dt)
+                want = [p.clone() for p in start]
+                sharded_mega.sharded_megastep_reference(
+                    *want, PIN26_BLOCKS, 8, consts, boundary, shape)
+                tag = "shmega_pinned" + ("_bf16" if dt == torch.bfloat16
+                                         else "")
+                for part in (pin26_k7_parts(g, dt, boundary)
+                             if dt == dtype else []):
+                    got = [p.clone() for p in start]
+                    grid = sharded_mega.pinned_ablation(
+                        part, *got, mesh, PIN26_BLOCKS, 8, consts, boundary,
+                        shape, g)
+                    ref = (start if part == sharded_mega.PINNED_NO_STEP
+                           else want)
+                    pin19_compare(checks, tag, [x[:, :, 0] for x in got],
+                                  [x[:, :, 0] for x in ref],
+                                  f"{what} {str(dt)[6:]} part {part} (grid "
+                                  f"{grid})")
+                    n += 1
+                got = [p.clone() for p in start]
+                grid = sharded_mega.sharded_megastep(
+                    *got, mesh, PIN26_BLOCKS, 8, consts, boundary, shape,
+                    geometry=g)
+                walk = sharded_mega.pinned_walk(shape, mesh_shape, g,
+                                                boundary, sms)
+                pin19_compare(checks, tag, [x[:, :, 0] for x in got],
+                              [x[:, :, 0] for x in want],
+                              f"{what} {str(dt)[6:]} the entry (grid "
+                              f"{grid}, {walk})")
+                n += 1
+                if DEVICE == "cuda":
+                    checks.expect(grid == walk.grid,
+                                  f"{what} {str(dt)[6:]}: grid {grid} "
+                                  f"against the walk's {walk.grid}")
+                if (shape, mesh_shape, tiles, boundary) == (
+                        MAIN_SHAPE, (2, 2), (32, 128), "naive"):
+                    print(f"grid26 K7 naive {pin_label(shape, g)} mesh 2x2 "
+                          f"{str(dt)[6:]}: the launch took {grid} blocks "
+                          f"({grid / sms!r} an SM), groups {walk.groups}, "
+                          f"rounds {walk.rounds}", flush=True)
+                    checks.expect(DEVICE != "cuda" or grid >= 2 * sms,
+                                  f"{what}: {grid} blocks, under two an SM")
+    return n
+
+
+def pin26_spread(passes: list) -> float:
+    """The largest relative difference between the passes' means of any
+    call of a case: the split's spread."""
+    return max((max(p[k] for p in passes) - min(p[k] for p in passes))
+               / statistics.mean(p[k] for p in passes) for k in passes[0])
+
+
+def pin26_turns(calls: dict, reps: int) -> list:
+    """SPLIT26_PASSES passes of SPLIT26_ROUNDS rounds of ``calls`` in turns
+    (in order, then reversed), in device time (``queued_ms``): a list of
+    {key: mean ms} a pass, and of {key: samples}."""
+    passes, samples = [], []
+    order = list(calls)
+    for _ in range(SPLIT26_PASSES):
+        got = {key: [] for key in order}
+        for _ in range(SPLIT26_ROUNDS):
+            for key in order + order[::-1]:
+                got[key].append(queued_ms(calls[key], reps))
+        passes.append({key: statistics.mean(x) for key, x in got.items()})
+        samples.append(got)
+    return passes, samples
+
+
+def pin26_report(label: str, passes: list, samples: list, describe,
+                 bound: tuple, card: str) -> dict:
+    """Print one line a call of a case: each pass's mean, the mean, the
+    ratio to part 0, the case's spread; returns {key: mean ms} with
+    "spread" and "passes"."""
+    spread = pin26_spread(passes)
+    ms = {key: statistics.mean(p[key] for p in passes) for key in passes[0]}
+    for key in passes[0]:
+        print(f"split pin26 {label}, {describe(key)}: {ms[key]!r} ms (passes "
+              f"{[p[key] for p in passes]!r}, turns "
+              f"{[s[key] for s in samples]!r}), {ms[key] / ms[0]!r}x part "
+              f"0, spread {100 * spread!r} %; {100 * bound[0] / ms[key]!r} "
+              f"% of the bound {bound[0]!r} ms ({bound[1]}) [{card}]",
+              flush=True)
+    return dict(ms, spread=spread, passes=passes)
+
+
+def time_pin26_k2(rng, card: str) -> dict:
+    """Phase 26c, K2: on each of PIN26_K2, naive and zero, one launch of
+    PIN26_BLOCKS time blocks of every part that takes the case, of the
+    entry and of the compiled 64x64 entry, in turns (``pin26_turns``).
+    Returns {(shape, tiles, storage, boundary): {part, "entry" or
+    "64x64": ms, "spread": ..., "passes": ...}}."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    for shape, tiles, dtype in PIN26_K2:
+        g = geometry.Geometry(*tiles, geometry.HALO)
+        u, v = (torch.from_numpy(rng.uniform(0, 1, shape).astype(
+            np.float32)).to(DEVICE).to(dtype) for _ in range(2))
+        up, vp = megakernel.pair_state(u), megakernel.pair_state(v)
+        for boundary in ("naive", "zero"):
+            grids = {}
+            calls = {}
+            for part in pin26_k2_parts(g, dtype, boundary):
+                def call(part=part, boundary=boundary):
+                    grids[part] = megakernel.pinned_ablation(
+                        part, up, vp, PIN26_BLOCKS, 8, consts, boundary, g)
+                calls[part] = call
+            calls["entry"] = lambda boundary=boundary: megakernel.megastep(
+                up, vp, PIN26_BLOCKS, 8, consts, boundary, geometry=g)
+            calls["64x64"] = lambda boundary=boundary: megakernel.megastep(
+                up, vp, PIN26_BLOCKS, 8, consts, boundary)
+            passes, samples = pin26_turns(calls, SPLIT26_REPS[shape])
+
+            def describe(key, g=g, boundary=boundary):
+                if key == "entry":
+                    return (f"the entry "
+                            f"({geometry.mega_pin_launch(g, boundary=boundary)})")
+                if key == "64x64":
+                    return "the compiled 64x64 entry"
+                return (f"part {key} ({megakernel.PINNED_ABLATIONS[key]}; "
+                        f"{megakernel.pinned_part_threads(key, g)} threads, "
+                        f"grid {grids.get(key)})")
+            label = (f"K2 {pin_label(shape, g)} {str(dtype)[6:]} "
+                     f"{boundary}")
+            bound = bound_ms(shape, MAIN_STEPS, boundary,
+                             cell_bytes=8 if dtype == torch.bfloat16 else 16)
+            out[shape, tiles, dtype, boundary] = pin26_report(
+                label, passes, samples, describe, bound, card)
+    return out
+
+
+def time_pin26_k7(rng, card: str) -> dict:
+    """Phase 26c, K7: on each of PIN26_K7, naive and zero, one launch of
+    PIN26_BLOCKS time blocks of every part that takes the case, of the
+    entry and of the compiled K7 (its own tile choice) on the same mesh,
+    in turns (``pin26_turns``; the launches follow one another on the same
+    pairs, whose halos each leaves exchanged). Returns {(shape, mesh,
+    tiles, storage, boundary): {...}} as time_pin26_k2."""
+    out = {}
+    consts = kernel_constants(Parameters())
+    dev = torch.device(DEVICE)
+    for shape, mesh_shape, tiles, dtype in PIN26_K7:
+        g = geometry.Geometry(*tiles, geometry.HALO)
+        mesh = halo.Mesh(*mesh_shape, dev)
+        u_np, v_np = (rng.uniform(0, 1, shape).astype(np.float32)
+                      for _ in range(2))
+        pairs = pin26_k7_setup(u_np, v_np, mesh, dtype)
+        for boundary in ("naive", "zero"):
+            grids = {}
+            calls = {}
+            for part in pin26_k7_parts(g, dtype, boundary):
+                def call(part=part, boundary=boundary):
+                    grids[part] = sharded_mega.pinned_ablation(
+                        part, *pairs, mesh, PIN26_BLOCKS, 8, consts,
+                        boundary, shape, g)
+                calls[part] = call
+
+            def entry(boundary=boundary):
+                grids["entry"] = sharded_mega.sharded_megastep(
+                    *pairs, mesh, PIN26_BLOCKS, 8, consts, boundary, shape,
+                    geometry=g)
+            calls["entry"] = entry
+            calls["compiled"] = lambda boundary=boundary: \
+                sharded_mega.sharded_megastep(*pairs, mesh, PIN26_BLOCKS, 8,
+                                              consts, boundary, shape)
+            passes, samples = pin26_turns(calls, SPLIT26_REPS[shape])
+
+            def describe(key, g=g, boundary=boundary):
+                if key == "entry":
+                    form = geometry.mega_pin_launch(g, True, boundary)
+                    return f"the entry ({form}, grid {grids.get('entry')})"
+                if key == "compiled":
+                    tile = (sharded_mega.tile_for(shape, mesh)
+                            if DEVICE == "cuda" else "plain")
+                    return f"the compiled K7 (tiles {tile})"
+                return (f"part {key} ({sharded_mega.PINNED_ABLATIONS[key]}; "
+                        f"grid {grids.get(key)})")
+            label = (f"K7 {pin_label(shape, g)} mesh {mesh_shape[0]}x"
+                     f"{mesh_shape[1]} {str(dtype)[6:]} {boundary}")
+            bound = sharded_bound_ms(shape, mesh_shape, MAIN_STEPS, boundary)
+            out[shape, mesh_shape, tiles, dtype, boundary] = pin26_report(
+                label, passes, samples, describe, bound, card)
+    return out
+
+
+def paths26(pin19_runs: dict, card: str) -> None:
+    """Phase 26d: the two pins' ``simulate`` paths, read from phase 19c
+    (K2 on 32x128, K7 on 2x2 at 32x128, each against its unpinned run)."""
+    for label in ("mega 32x128", "sharded mega 32x128"):
+        run = pin19_runs[label]
+        print(f"path26 simulate {label}: {run['ms']!r} ms/image, launches "
+              f"{run['launches']} [{card}]", flush=True)
+
+
+def phase26(checks: Checks, rng, card: str, log: str) -> tuple:
+    """Phase 26: 26a (ptxas, the compiled forms' co-resident blocks), 26b
+    (every part and entry bit for bit), 26c (both splits in device time).
+    Returns (comparisons, K2's split, K7's split)."""
+    ptxas26(checks, log)
+    blocks26(checks)
+    n = compare_pin26_k2(checks, rng) + compare_pin26_k7(checks, rng)
+    print(f"phase 26b: {n} comparisons of K2's and K7's pinned entries and "
+          f"their parts", flush=True)
+    return n, time_pin26_k2(rng, card), time_pin26_k7(rng, card)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=42,
@@ -7530,6 +7968,14 @@ def run_phases(args) -> int:
     n25, shrs25_times, fold25_times = phase25(checks, rng, card, log)
     paths25(ring_runs, fold21_runs, card)
     print(f"phase 25: {n25} comparisons, {time.perf_counter() - t25!r} s",
+          flush=True)
+    # 26. K2's and K7's pinned entries' redesign: ptxas and the compiled
+    # forms' blocks, every part of their splits and the entries bit for bit,
+    # the splits in device time, the pins' simulate paths (phase 19c)
+    t26 = time.perf_counter()
+    n26, k2_26, k7_26 = phase26(checks, rng, card, log)
+    paths26(pin19_runs, card)
+    print(f"phase 26: {n26} comparisons, {time.perf_counter() - t26!r} s",
           flush=True)
     snap_ms = time_snapshot(MAIN_SHAPE, 16)
     print(f"time snapshot {MAIN_SHAPE[0]}x{MAIN_SHAPE[1]} (clone + D2H to "
@@ -7750,6 +8196,16 @@ def run_phases(args) -> int:
     # the megakernels' and the shard entry's pinned entries: their launches
     # on phase 19c's paths, one launch at 1080x1920 naive (zero: K6) on the
     # path's tiles (phase 19d)
+    # (K2's and K7's pinned entries: phase 26c's part 0 on the same tiles,
+    # in turns with the entry)
+    f32, bf16 = torch.float32, torch.bfloat16
+    first_form.update({
+        "mega_pinned": k2_26[MAIN_SHAPE, (32, 128), f32, "naive"][0],
+        "mega_pinned_bf16": k2_26[MAIN_SHAPE, (16, 64), bf16, "naive"][0],
+        "shmega_pinned": k7_26[MAIN_SHAPE, (2, 2), (32, 128), f32,
+                               "naive"][0],
+        "shmega_pinned_bf16": k7_26[MAIN_SHAPE, (1, 4), (64, 128), bf16,
+                                    "naive"][0]})
     for tag, (path, _) in PIN19_KERNELS.items():
         ms, plain_ms, bound, by, stepped, g, steps = pin19_times[tag]
         if tag == "shwin_pinned":

@@ -15,8 +15,10 @@ K = 8, ``--pallas-naive-fold on`` on ``auto`` (K1) and on K2, the
 window ring, which has no flag, as in JAX: ``CudaSimulation(engine='mega',
 mega_depth=4)`` and the same on 16-row pinned tiles, ``block_rows=16``,
 ``--pallas-steps-per-call 16``, the sharded windowed engine on 2x2 at
-K = 16 with ``--pallas-block-rows 32``, K7 on the 4x1 row mesh and the
-lane fold at F = 2)
+K = 16 with ``--pallas-block-rows 32``, K7 on the 4x1 row mesh, the
+lane fold at F = 2, and the megakernels' tile pins ``--pallas-engine mega
+--pallas-block-rows 32 --pallas-block-cols 128`` and the same on K7 on
+2x2)
 it runs ``cli.simulate.run`` of the default run (1080x1920, naive, 32
 steps an image) for ``--images`` images, once to warm up, then ``--reps``
 times in
@@ -29,8 +31,10 @@ launch of 4 time blocks; also at 4096x4096), K1's and K2's fold entries
 (the same calls; also at 4096x4096), K2's ring at mega_depth 4 on the
 compiled and on 16x64 pinned tiles (one launch of 4 time blocks; also at
 4096x4096), K1's pinned entry at K = 16 (two launches; also at
-4096x4096), K1's folded entry at F = 2 (four 8-step calls), K7 on 2x2,
-4x1 and 2x1 and at 4096x4096 on 4x1 (one
+4096x4096), K2's pinned entry on 32x128 tiles (one launch of 4 time
+blocks; also at 4096x4096), K1's folded entry at F = 2 (four 8-step
+calls), K7 on 2x2, 4x1 and 2x1 and at 4096x4096 on 4x1, and on 32x128
+pinned tiles on 2x2 (one
 launch after the halo exchange) and K1's shard entry on 2x2 and 4x1
 (four 8-step launches after the halo exchange; and the pinned shard entry,
 two 16-step launches on 32-row tiles), through calls that every commit since
@@ -73,7 +77,16 @@ PINS = {"auto": [], "windowed": ["--pallas-engine", "windowed"],
         "sharded mega 4x1": ["--backend", "sharded", "--sharded-devices", "4",
                              "--sharded-mesh-cols", "1",
                              "--sharded-engine", "mega"],
-        "fold 2": ["--pallas-fold", "2"]}
+        "fold 2": ["--pallas-fold", "2"],
+        # K2's and K7's pinned entries on 32x128 tiles (K7 on 2x2)
+        "mega 32x128": ["--pallas-engine", "mega", "--pallas-block-rows",
+                        "32", "--pallas-block-cols", "128"],
+        "sharded mega 2x2 32x128": ["--backend", "sharded",
+                                    "--sharded-devices", "4",
+                                    "--sharded-mesh-cols", "2",
+                                    "--sharded-engine", "mega",
+                                    "--pallas-block-rows", "32",
+                                    "--pallas-block-cols", "128"]}
 
 
 def run_ms(flags, images: int, steps: int = 32,
@@ -169,6 +182,7 @@ def main(argv=None) -> int:
     calls = [("K1 x4", f1, 40), ("K3", f3, 40)]
     pc = packed_constants(Parameters())
     fc = fold_constants(Parameters())
+    g32x128 = geometry.Geometry(32, 128, 8)
     for shape, reps in (((1080, 1920), 40), ((4096, 4096), 8)):
         a, b = (torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
                 .cuda() for _ in range(2))
@@ -206,6 +220,10 @@ def main(argv=None) -> int:
                 pinned[:] = pinned[2:] + pinned[:2]
 
         calls.append((f"K1 pinned k16 x2{label}", f1p, reps))
+        mu, mv = megakernel.pair_state(a), megakernel.pair_state(b)
+        calls.append((f"K2 pinned 32x128{label}", lambda mu=mu, mv=mv:
+                      megakernel.megastep(mu, mv, 4, 8, consts, "naive",
+                                          geometry=g32x128), reps))
     g8 = geometry.resolve((540, 1920), 8)
     rp = lane_fold.fold_geometry(1080, 2, g8.tr)
     folded = [*lane_fold.fold_state(u, v, 2, g8.tr, g8.halo, "cuda")]
@@ -244,6 +262,17 @@ def main(argv=None) -> int:
                                           (1080, 1920))
 
         calls.append((f"K7 {n_rows}x{n_cols}", f7, 40))
+        if n_cols > 1:
+            pinned7 = halo.mega_shard_state(u_np, v_np, mesh)
+
+            def f7p(pairs=pinned7, mesh=mesh):
+                for p in pairs:
+                    halo.exchange_halos(p)
+                sharded_mega.sharded_megastep(*pairs, mesh, 4, 8, consts,
+                                              "naive", (1080, 1920),
+                                              geometry=g32x128)
+
+            calls.append((f"K7 pinned 32x128 {n_rows}x{n_cols}", f7p, 40))
         pairs1 = halo.mega_shard_state(u_np, v_np, mesh)
         for p in pairs1:
             halo.exchange_halos(p)

@@ -84,6 +84,44 @@ struct FixedPin {
   Fixed<WR * PITCH> cells;
 };
 
+// A pinned geometry's run-time sizes (pin_geometry's) stepped by NT
+// threads: the megakernels' pinned forms with threads fitted to the
+// window's bytes (mega_pins.cuh, sharded_mega_pins.cuh).
+template <int NT_>
+struct PinShape {
+  static constexpr int NT = NT_, R = Main::R;
+  int tr, tc, halo, wr, wc, pitch, cells;
+};
+
+template <int NT>
+inline PinShape<NT> pin_shape(const PinGeometry& g) {
+  return {g.tr, g.tc, g.halo, g.wr, g.wc, g.pitch, g.cells};
+}
+
+// Dynamic shared memory of two buffers of a window pair of g (a FixedPin,
+// PinShape or PinGeometry).
+template <typename S>
+inline size_t pair_bytes(const S& g) {
+  return 4 * sizeof(float) * static_cast<size_t>(static_cast<int>(g.cells));
+}
+
+// Blocks an SM of NT threads at 64 registers a thread: the megakernels'
+// register bound (__launch_bounds__(NT, blocks_at_64_regs(NT))).
+constexpr int blocks_at_64_regs(int nt) { return 65536 / (64 * nt); }
+
+// The shared memory of an SM, and what the runtime keeps of it a block.
+constexpr size_t SMEM_SM = 233472;
+constexpr size_t SMEM_BLOCK_RESERVED = 1024;
+
+// Threads a block fitted to `bytes` of dynamic shared memory a block: 1024
+// where the bytes leave one block an SM, 512 at two or three, 256 at four
+// or more; at 64 registers a thread the registers then leave as many
+// blocks, so that an SM runs 32 warps (ops/geometry.py:fitted_threads).
+inline int fitted_threads(size_t bytes) {
+  const size_t n = SMEM_SM / (bytes + SMEM_BLOCK_RESERVED);
+  return n <= 1 ? 1024 : n < 4 ? 512 : 256;
+}
+
 // --- 2-D register blocks on interior tiles ----------------------------------
 
 // Row cells -1 .. 4 of a block at p (16-byte aligned): one vector load and

@@ -1,8 +1,9 @@
 // What K2's translation units share (mega.cu: the double buffer, its
 // ablation parts; mega_ring.cu: the window ring of mega_depth > 2;
-// mega_pins.cu and mega_pins_ring.cu: the double buffer and the ring on the
-// tile pins' geometry; splits/mega_ring_ablation.cu: the ring's ablation
-// parts):
+// mega_pins.cu, mega_pins_fixed.cu and mega_pins_ring.cu: the double
+// buffer and the ring on the tile pins' geometry; splits/mega_ring_ablation.cu
+// and splits/mega_pins_ablation.cu: the ring's and the pinned double
+// buffer's ablation parts):
 // the odd-count slot copy, a launch's time blocks on the double buffer and
 // on the ring, the launch's arguments, the C interface's checks and the
 // pinned geometries' cooperative launch.
@@ -139,11 +140,13 @@ Call<T, sm90::FoldConstants> make_fold_call(
 // over the tiles of g on a rows x cols domain, `bytes` of dynamic shared
 // memory a block. `grid_blocks` <= 0 takes the co-resident maximum at those
 // bytes (capped at the tile count); a larger grid than the card can hold is refused with
-// cudaErrorCooperativeLaunchTooLarge, and nothing falls back.
+// cudaErrorCooperativeLaunchTooLarge, and nothing falls back. The grid goes
+// to *grid_out where that is not null.
 template <typename Kernel, typename G = sm90::PinGeometry>
 cudaError_t launch_pinned(Kernel kernel, bool* allowed, void** args,
                           int rows, int cols, const G& g, size_t bytes,
-                          int grid_blocks, int device, cudaStream_t stream) {
+                          int grid_blocks, int device, cudaStream_t stream,
+                          int* grid_out = nullptr) {
   int most = 0;
   cudaError_t err =
       sm90::pinned_coresident(kernel, allowed, device, bytes, &most, G::NT);
@@ -156,6 +159,7 @@ cudaError_t launch_pinned(Kernel kernel, bool* allowed, void** args,
     if (tiles < grid) grid = static_cast<int>(tiles);
   }
   if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (grid_out != nullptr) *grid_out = grid;
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(grid), dim3(G::NT), args, bytes,
                                     stream);

@@ -9,11 +9,22 @@
 // with its `tr` (:554-576). One persistent cooperative launch advances the
 // state by `n_blocks` time blocks of `steps` <= HALO steps, exactly as
 // mega.cu's double buffer and packed_mega.cu do, on tr x tc tiles in
-// windows of HALO (8) cells more on every side, the sizes known at run time
-// (gs_tile_sm90.cuh: PinGeometry). The block body is the compiled kernels'
-// own: mega_run (mega.cuh) and packed_mega_run (gs_packed_sm90.cuh) walk
-// the block's tiles with time_block_on and packed_time_block_on, which
-// mega.cu and packed_mega.cu run on FixedShape<Main>.
+// windows of HALO (8) cells more on every side. The block body is the
+// compiled kernels' own: mega_run (mega.cuh) and packed_mega_run
+// (gs_packed_sm90.cuh) walk the block's tiles with time_block_on and
+// packed_time_block_on, which mega.cu and packed_mega.cu run on
+// FixedShape<Main>.
+//
+// K2's pinned entry has two forms, and the host picks one a launch
+// (ops/geometry.py:mega_pin_launch). The pins users and the tuner name
+// most (16x64, 32x64, 32x128 and 64x128, the default stencils' tap set,
+// naive and zero) run their sizes compiled in, the threads a block fitted
+// to the window's bytes where the split measured that it pays:
+// mega_pins_fixed.cu's gs_mega_pinned_fixed_multistep (its split:
+// splits/mega_pins_ablation.cu, PERF.md §6, PR 26). Every other pin, any
+// other tap set and the fold entries run this unit's first form, its
+// tile, halo, window and pitch known at run time (gs_tile_sm90.cuh:
+// PinGeometry) on 512 threads a block; so does K6's pinned entry.
 //
 // The grid is the co-resident block count of the launched instantiation at
 // the pinned geometry's dynamic shared memory (its two window buffers,
@@ -21,7 +32,8 @@
 // Main's), capped at the tile count: a grid sized for Main would
 // over-subscribe the card where the pinned window is larger, and deadlock
 // at the grid barrier. gs_mega_pinned_max_blocks and
-// gs_packed_mega_pinned_max_blocks report that count for a geometry.
+// gs_packed_mega_pinned_max_blocks report a floor of that count for a
+// geometry (gs_mega_pinned_fixed_blocks: the compiled form's).
 //
 // The pins change how the state is cut into tiles, not what a step
 // computes: every geometry gives the compiled kernel's result bit for bit.
@@ -195,10 +207,12 @@ bool packed_allowed[gs::MAX_DEVICES];
 
 extern "C" {
 
-// The most blocks one cooperative launch of the pinned K2 entries may have
-// on `device` on tr x tc tiles, whatever their weights, boundary, mode and
-// storage type (negative: minus the CUDA error; 0: the window does not fit
-// a block).
+// The most blocks one cooperative launch of this unit's pinned K2 entries
+// (the first form) may have on `device` on tr x tc tiles, whatever their
+// weights, boundary, mode and storage type: the fewest over their
+// instantiations, a floor of what a launch takes (negative: minus the CUDA
+// error; 0: the window does not fit a block). The compiled form's count is
+// gs_mega_pinned_fixed_blocks's.
 int gs_mega_pinned_max_blocks(int device, int tr, int tc) {
   if (device < 0 || device >= gs::MAX_DEVICES) {
     return -static_cast<int>(cudaErrorInvalidDevice);

@@ -8,25 +8,36 @@
 // One persistent cooperative launch runs `n_blocks` time blocks over every
 // shard of a mesh, exactly as sharded_mega.cu does (the same descriptors,
 // counters, pushes, entry gate and read-site wait), on tr x tc tiles in
-// windows of HALO (8) cells more on every side, the sizes known at run time
-// (gs_tile_sm90.cuh: PinGeometry). The block body is the compiled kernel's
-// own: sharded_mega_run (sharded_mega.cuh), which sharded_mega.cu runs on
-// FixedShape<Main> and <Small>. On a row mesh the read-site gate waits for
-// the push from below before the first tile row whose window reaches the
-// bottom halo rows, which it finds from the pinned tile height.
+// windows of HALO (8) cells more on every side. The block body is the
+// compiled kernel's own: sharded_mega_run (sharded_mega.cuh), which
+// sharded_mega.cu runs on FixedShape<Main> and <Small>. On a row mesh the
+// read-site gate waits for the push from below before the first tile row
+// whose window reaches the bottom halo rows, which it finds from the pinned
+// tile height.
+//
+// K7's pinned entry has two forms, and the host picks one a launch
+// (ops/geometry.py:mega_pin_launch). 32x128 and 64x128 tiles on the
+// default stencils' tap set run their sizes compiled in, every kernel at
+// 64 registers a thread and the threads a block fitted to the window's
+// bytes where the split measured that it pays:
+// sharded_mega_pins_fixed.cu's gs_sharded_mega_pinned_fixed_multistep (its
+// split: splits/sharded_mega_pins_ablation.cu, PERF.md §6, PR 26). Every
+// other pin and any other tap set run this unit's first form, the sizes
+// known at run time (gs_tile_sm90.cuh: PinGeometry) on 512 threads a block,
+// bound to 64 registers a thread on the zero boundary and to one block an
+// SM (111-113 registers) on the naive one: min_blocks.
 //
 // The grid is the co-resident block count of the launched instantiation at
-// the pinned geometry's dynamic shared memory and its registers (bound to
-// 64 a thread, as Main's, on the zero boundary, and to 128 on the naive
-// one: min_blocks), capped at the tiles of every shard, and split
-// into one group a shard; gs_sharded_mega_pinned_max_blocks reports it for
-// a geometry. The pins change how each shard is cut into tiles, not what a
-// step computes: every geometry gives the compiled kernel's result bit for
-// bit. The default stencils' tap set has an instantiation of its own, any
-// other runs with its weights tested at run time (gs_tile_sm90.cuh:
-// dispatch_taps_lean).
+// the pinned geometry's dynamic shared memory and its registers, capped at
+// the tiles of every shard, and split into one group a shard;
+// gs_sharded_mega_pinned_max_blocks reports a floor of it for a geometry
+// (gs_sharded_mega_pinned_fixed_blocks: the compiled form's). The pins
+// change how each shard is cut into tiles, not what a step computes: every
+// geometry gives the compiled kernel's result bit for bit. The default
+// stencils' tap set has an instantiation of its own, any other runs with
+// its weights tested at run time (gs_tile_sm90.cuh: dispatch_taps_lean).
 
-#include "sharded_mega.cuh"
+#include "sharded_mega_pins.cuh"
 
 namespace {
 
@@ -54,60 +65,26 @@ sharded_mega_pinned_kernel(const ShardDesc<T>* shards, int n_shards,
       k, reinterpret_cast<float*>(window));
 }
 
-struct Call {
-  const void* shards;
-  int n_shards, rows, cols, r_loc, c_loc, chalo, n_blocks, steps, naive,
-      device;
-  gs::Constants k;
-  int grid_blocks, read_site;
-  PinGeometry g;
-  cudaStream_t stream;
-};
-
 // One instantiation: its co-resident blocks at a geometry (the first query
 // on a device also allows it the most dynamic shared memory a block may
-// use) and its launch.
+// use) and its launch (sharded_mega_pins.cuh: launch_sharded_pin).
 template <int TAPS, bool NAIVE, typename T, bool READ_SITE>
 struct ShardedPinned {
+  static bool* allowed() {
+    static bool done[gs::MAX_DEVICES];
+    return done;
+  }
+
   static cudaError_t max_blocks(int device, const PinGeometry& g, int* out) {
-    static bool allowed[gs::MAX_DEVICES];
     return sm90::pinned_coresident(
-        sharded_mega_pinned_kernel<TAPS, NAIVE, T, READ_SITE>, allowed,
+        sharded_mega_pinned_kernel<TAPS, NAIVE, T, READ_SITE>, allowed(),
         device, g, out);
   }
 
-  // `grid_blocks` <= 0 takes the co-resident maximum (capped at the tile
-  // count); a grid smaller than n_shards is refused with
-  // cudaErrorInvalidValue, a larger grid than the card can hold with
-  // cudaErrorCooperativeLaunchTooLarge.
-  static cudaError_t launch(const Call& c) {
-    int most = 0;
-    cudaError_t err = max_blocks(c.device, c.g, &most);
-    if (err != cudaSuccess) return err;
-    int grid = c.grid_blocks;
-    if (grid <= 0) {
-      grid = most;
-      const long long tiles = static_cast<long long>(c.n_shards) *
-                              ((c.c_loc + c.g.tc - 1) / c.g.tc) *
-                              ((c.r_loc + c.g.tr - 1) / c.g.tr);
-      if (tiles < grid) grid = static_cast<int>(tiles);
-    }
-    if (grid < c.n_shards) return cudaErrorInvalidValue;
-    Call a = c;
-    const ShardDesc<T>* desc = static_cast<const ShardDesc<T>*>(c.shards);
-    void* args[] = {&desc,    &a.n_shards, &a.rows,     &a.cols,
-                    &a.r_loc, &a.c_loc,    &a.chalo,    &a.n_blocks,
-                    &a.steps, &a.k,        &a.g};
-    err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<const void*>(
-            sharded_mega_pinned_kernel<TAPS, NAIVE, T, READ_SITE>),
-        dim3(grid), dim3(PinGeometry::NT), args, sm90::pin_bytes(c.g),
-        c.stream);
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it
-      return err;
-    }
-    return cudaGetLastError();
+  static cudaError_t launch(const PinCall& c, const PinGeometry& g) {
+    return launch_sharded_pin<T>(
+        sharded_mega_pinned_kernel<TAPS, NAIVE, T, READ_SITE>, allowed(), c,
+        g, sm90::pin_bytes(g), nullptr);
   }
 };
 
@@ -115,13 +92,13 @@ struct ShardedPinned {
 template <int TAPS>
 struct Launch {
   template <typename T>
-  static cudaError_t run(const Call& c, T*) {
+  static cudaError_t run(const PinCall& c, const PinGeometry& g, T*) {
     if (c.read_site) {
-      return c.naive ? ShardedPinned<TAPS, true, T, true>::launch(c)
-                     : ShardedPinned<TAPS, false, T, true>::launch(c);
+      return c.naive ? ShardedPinned<TAPS, true, T, true>::launch(c, g)
+                     : ShardedPinned<TAPS, false, T, true>::launch(c, g);
     }
-    return c.naive ? ShardedPinned<TAPS, true, T, false>::launch(c)
-                   : ShardedPinned<TAPS, false, T, false>::launch(c);
+    return c.naive ? ShardedPinned<TAPS, true, T, false>::launch(c, g)
+                   : ShardedPinned<TAPS, false, T, false>::launch(c, g);
   }
 };
 
@@ -166,24 +143,27 @@ int multistep(const void* shards, int n_shards, int rows, int cols,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Call c = {shards, n_shards, rows, cols, r_loc, c_loc, chalo,
-                  n_blocks, steps, naive, device,
-                  {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
-                   du, dv, feed, min_feed_kill, dt},
-                  grid_blocks, read_site, sm90::pin_geometry(tr, tc, HALO),
-                  static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(
-      sm90::dispatch_taps_lean<Launch>(c.k, c, static_cast<T*>(nullptr)));
+  const PinCall c = {shards, n_shards, rows, cols, r_loc, c_loc, chalo,
+                     n_blocks, steps, naive, device,
+                     {{w[0], w[1], w[2], w[3], w[4], w[5], w[6], w[7], w[8]},
+                      du, dv, feed, min_feed_kill, dt},
+                     grid_blocks, read_site,
+                     static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(sm90::dispatch_taps_lean<Launch>(
+      c.k, c, sm90::pin_geometry(tr, tc, HALO), static_cast<T*>(nullptr)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// The most blocks one cooperative launch of the pinned entries may have on
-// `device` on tr x tc tiles, whatever their weights, boundary, wait and
-// storage type (negative: minus the CUDA error; 0: the window does not fit
-// a block).
+// The most blocks one cooperative launch of this unit's pinned entries (the
+// first form) may have on `device` on tr x tc tiles, whatever their
+// weights, boundary, wait and storage type: the fewest over their
+// instantiations, a floor of what a launch takes, since the naive kernels
+// run one block an SM (negative: minus the CUDA error; 0: the window does
+// not fit a block). The compiled form's count is
+// gs_sharded_mega_pinned_fixed_blocks's.
 int gs_sharded_mega_pinned_max_blocks(int device, int tr, int tc) {
   if (device < 0 || device >= gs::MAX_DEVICES) {
     return -static_cast<int>(cudaErrorInvalidDevice);

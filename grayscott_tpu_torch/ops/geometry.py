@@ -45,6 +45,9 @@ unpinned dimension follows the windowed kernels' rule above; JAX's "a
 pinned ``tr`` alone means full-width windows" has no counterpart, since a
 tile in shared memory cannot span a row. A pinned height steps down past
 the padded rows, as K1's does: a taller tile is one tile row all the same.
+K2's and K7's pinned entries run the tiles users and the tuner pin most on
+their sizes compiled in, any other on run-time sizes
+(:func:`mega_pin_launch`).
 """
 
 from __future__ import annotations
@@ -141,11 +144,15 @@ def window_bytes(tr: int, tc: int, halo: int) -> int:
     return (tr + 2 * halo) * pitch(tc + 2 * halo) * 4 * 2 * 2
 
 
+def blocks_by_bytes(nbytes: int) -> int:
+    """Blocks of ``nbytes`` of dynamic shared memory that one SM holds."""
+    return SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED)
+
+
 def blocks_per_sm(nbytes: int) -> int:
     """Blocks of ``nbytes`` of shared memory that one SM holds at once,
     at most BLOCKS_BY_REGISTERS."""
-    return min(SMEM_PER_SM // (nbytes + SMEM_PER_BLOCK_RESERVED),
-               BLOCKS_BY_REGISTERS)
+    return min(blocks_by_bytes(nbytes), BLOCKS_BY_REGISTERS)
 
 
 class Geometry(NamedTuple):
@@ -338,6 +345,82 @@ def mega_resolve(shape: Tuple[int, int], block_rows: int | None = None,
             f"{SMEM_OPTIN} B a block may use; pin a smaller tile",
             combo="tiles")
     return Geometry(tr, tc, HALO)
+
+
+#: the default stencils' tap set (csrc/gs_tile_sm90.cuh: TAPS_RING; bit t:
+#: weight t is not 0.0), the one the compiled pinned sizes are built for
+TAPS_RING = 0x1EF
+
+
+def default_taps(weights) -> bool:
+    """Whether the stencil ``weights`` (nine, row-major) are the default
+    stencils' tap set (``gs_tile_sm90.cuh:tap_mask``)."""
+    return sum(1 << t for t, w in enumerate(weights) if w != 0.0) == TAPS_RING
+
+
+#: the megakernels' pinned geometries (tr, tc at the halo of 8) whose sizes
+#: their pinned entries compile in, with the threads a block each runs on
+#: the (naive, zero) boundary (the default stencils' tap set; not the
+#: fold), as their split chose them (PERF.md §6, PR 26): K2's
+#: (csrc/mega_pins_fixed.cu) the tuner's two candidates (32x64, 64x128;
+#: bench/autotune.py:MEGA_EXTRA) and the 16x64 and 32x128 pins, K7's
+#: (csrc/sharded_mega_pins_fixed.cu) 32x128 and 64x128; 16x64's windows
+#: run four blocks of 256 an SM, 64x128's one of 1024 on the naive boundary
+MEGA_FIXED_PINS = {(16, 64): (256, 256), (32, 64): (512, 512),
+                   (32, 128): (512, 512), (64, 128): (1024, 512)}
+SHARDED_FIXED_PINS = {(32, 128): (512, 512), (64, 128): (1024, 512)}
+
+#: registers a thread of every megakernel instantiation but K7's naive
+#: pinned ones on run-time sizes, which take 111-113 (one block an SM)
+MEGA_REGISTERS = 64
+REGISTERS_PER_SM = 65536
+
+
+class MegaPinLaunch(NamedTuple):
+    """What one launch of a megakernel's pinned entry (K2's, K7's) runs on
+    a geometry (:func:`mega_pin_launch`): its ``sizes`` ("compiled" or
+    "run-time"), ``threads`` a block, and the ``blocks_per_sm`` that its
+    window's bytes and its registers leave."""
+
+    sizes: str
+    threads: int
+    blocks_per_sm: int
+
+
+def fitted_threads(nbytes: int) -> int:
+    """Threads a block fitted to a block's ``nbytes`` of shared memory
+    (``csrc/gs_pin_sm90.cuh:fitted_threads``, the megakernels' split's part
+    3): 1024 where the bytes leave one block an SM, 512 at two or three,
+    256 at four or more, so that an SM runs 32 warps at 64 registers a
+    thread."""
+    n = blocks_by_bytes(nbytes)
+    return 1024 if n <= 1 else 512 if n < 4 else 256
+
+
+def mega_pin_launch(g: Geometry, sharded: bool = False,
+                    boundary: str = "naive", default: bool = True,
+                    fold: bool = False) -> MegaPinLaunch:
+    """The launch that K2's (``sharded``: K7's) pinned entries run on the
+    tiles ``g`` (not the compiled 64x64, which the default entries run),
+    as the wrappers choose it (``ops/megakernel.py:megastep``,
+    ``ops/sharded_mega.py:sharded_megastep``): the sizes compiled in, at
+    the ``boundary``'s threads of :data:`MEGA_FIXED_PINS` /
+    :data:`SHARDED_FIXED_PINS`, for those geometries on the default
+    stencils' tap set (``default``) but for K2's fold; else the first
+    form, run-time sizes on 512 threads. Every form is bound to 64
+    registers a thread but K7's naive first form, bound to one block an
+    SM."""
+    fixed = SHARDED_FIXED_PINS if sharded else MEGA_FIXED_PINS
+    threads = fixed.get((g.tr, g.tc))
+    if default and not fold and threads is not None:
+        sizes, threads = "compiled", threads[boundary != "naive"]
+    else:
+        sizes, threads = "run-time", THREADS
+    by_regs = REGISTERS_PER_SM // (MEGA_REGISTERS * threads)
+    if sharded and sizes == "run-time" and boundary == "naive":
+        by_regs = 1
+    return MegaPinLaunch(sizes, threads, min(blocks_by_bytes(g.bytes),
+                                             by_regs))
 
 
 #: bytes of one unit of a TMA row stride (and of its base's alignment)

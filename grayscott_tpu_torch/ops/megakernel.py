@@ -56,14 +56,24 @@ plain versions are the same.
 ``geometry`` (``ops/geometry.py:mega_resolve``: the tile pins,
 ``--pallas-engine mega --pallas-block-rows/--pallas-block-cols``; JAX's
 ``_mega_tiles``, ``grayscott_tpu/backends/pallas.py:384-411``) runs the
-double buffer on ``tr`` x ``tc`` tiles known at run time: the pinned
-entries of ``csrc/mega_pins.cu``, on the compiled kernel's block body, their
-grid the co-resident blocks at the pinned window's bytes
-(:func:`pinned_max_blocks`). The compiled geometry (64x64, ``geometry.
-DEFAULT``) runs the entries above. Their launches are counted in
-``pinned_launches``, ``pinned_bf16_launches``, ``pinned_fold_launches`` and
-``pinned_fold_bf16_launches``; the tiles change where a window loads, not
-what a step computes, so the plain versions are the same. ``depth`` above
+double buffer on ``tr`` x ``tc`` tiles, on the compiled kernel's block
+body, in the form ``geometry.mega_pin_launch`` picks: on the tiles of
+``geometry.MEGA_FIXED_PINS`` (16x64, 32x64, 32x128, 64x128) with the
+default stencils' tap set, their sizes compiled in at the table's threads
+a block
+(``csrc/mega_pins_fixed.cu``); on any other tiles, tap set or the fold,
+the first form, the sizes known at run time on 512 threads
+(``csrc/mega_pins.cu``). A launch's grid is the co-resident blocks of the
+instantiation it launches at the window's bytes
+(:func:`pinned_fixed_blocks`; :func:`pinned_max_blocks`, a floor over the
+first form's). The compiled geometry (64x64, ``geometry.DEFAULT``) runs
+the entries above. The pinned launches of either form are counted in
+``pinned_launches``, ``pinned_bf16_launches``, ``pinned_fold_launches``
+and ``pinned_fold_bf16_launches``; the tiles change where a window loads,
+not what a step computes, so the plain versions are the same.
+:func:`pinned_ablation` runs the parts of the split that chose the
+compiled form (:data:`PINNED_ABLATIONS`,
+``csrc/splits/mega_pins_ablation.cu``; card only, not counted). ``depth`` above
 2 on a pinned geometry runs the window ring on its tiles
 (:func:`ring_geometry` with ``tiles``: JAX's clamp to depth 2 on few
 windows, ``grayscott_tpu/ops/megakernel.py:544-545``, ``:755-763``; a ring
@@ -392,6 +402,24 @@ RING_ABLATIONS = {
 #: allow (in_place_geometry; the others on ring_geometry's)
 RING_IN_PLACE_PARTS = (6, 7)
 
+#: the pinned entry's split (csrc/splits/mega_pins_ablation.cu): part ->
+#: what it runs (float32 or bf16, the default tap set, naive or zero); each
+#: gives the entry's result, but part 1, whose result is its input
+PINNED_ABLATIONS = {
+    0: "the first form: run-time sizes, 512 threads",
+    1: "window loads and tile stores alone, no step",
+    2: "sizes compiled in, 512 threads",
+    3: "threads fitted to the window's bytes, run-time sizes",
+    4: "2 with 3",
+}
+#: the part that steps nothing
+PINNED_NO_STEP = 1
+#: the parts on compiled sizes, and the (tr, tc, storage) they compile: the
+#: split's timed geometries
+PINNED_COMPILED_PARTS = (2, 4)
+PINNED_SPLIT_FIXED = {(32, 64, torch.float32), (32, 128, torch.float32),
+                      (64, 128, torch.float32), (16, 64, torch.bfloat16)}
+
 #: K6's output tile (rows, cols); its windows are MEGA_STEPS cells wider
 #: on every side
 PACKED_TILE = (64, 64)
@@ -553,6 +581,20 @@ def _pinned_kernel(dtype, fold: bool):
     return _pinned_fns[key]
 
 
+def _pinned_fixed_kernel(dtype):
+    """The pinned entry of K2 on compiled sizes for ``dtype`` pairs
+    (``csrc/mega_pins_fixed.cu``): the double buffer's arguments, then
+    ``tr``, ``tc``, the threads a block and where the grid goes."""
+    key = ("fixed", dtype)
+    if key not in _pinned_fns:
+        name = "gs_mega_pinned_fixed_multistep" + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _pinned_fns[key] = build.bind(
+            name, _base_args(dtype, False) + [ctypes.c_int] * 3
+            + [ctypes.c_void_p])
+    return _pinned_fns[key]
+
+
 def _pinned_ring_kernel(dtype, fold: bool):
     """The pinned ring entry of K2 for ``dtype`` pairs (``fold``: its fold
     entry): the double buffer's arguments, then ``tr``, ``tc`` and the
@@ -615,9 +657,11 @@ def ring_max_blocks(device: torch.device, geometry: RingGeometry) -> int:
 
 
 def pinned_max_blocks(device: torch.device, geometry) -> int:
-    """The most blocks of one pinned K2 launch on ``geometry``'s tiles that
-    are co-resident on ``device`` (the occupancy API's count at its
-    bytes and registers, the fewest over the instantiations)."""
+    """The fewest co-resident blocks on ``device`` of one launch of K2's
+    pinned first form (run-time sizes) on ``geometry``'s tiles, over its
+    instantiations (the occupancy API's count at its bytes and
+    registers): a floor of what a launch takes. The compiled sizes'
+    launch: :func:`pinned_fixed_blocks`."""
     return _occupancy("gs_mega_pinned_max_blocks", device, geometry)
 
 
@@ -704,9 +748,16 @@ def megastep(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
             pinned_ring_launches += 1
         return
     if pinned:
-        fn = _pinned_kernel(u_pair.dtype, False)
-        _launch(lambda *args: fn(*args, geometry.tr, geometry.tc), u_pair,
-                v_pair, n_blocks, steps, consts, boundary, grid)
+        form = geo.mega_pin_launch(geometry, boundary=boundary,
+                                   default=geo.default_taps(consts.weights))
+        if form.sizes == "compiled":
+            fn = _pinned_fixed_kernel(u_pair.dtype)
+            tail = (geometry.tr, geometry.tc, form.threads, None)
+        else:
+            fn, tail = _pinned_kernel(u_pair.dtype, False), (geometry.tr,
+                                                              geometry.tc)
+        _launch(lambda *args: fn(*args, *tail), u_pair, v_pair, n_blocks,
+                steps, consts, boundary, grid)
         if bf16:
             pinned_bf16_launches += 1
         else:
@@ -898,6 +949,82 @@ def ring_ablation(u_pair: torch.Tensor, v_pair: torch.Tensor, n_blocks: int,
     _launch(lambda *args: fn(*args, tr, tc, int(pinned), plan["buffers"],
                              plan["grid_buffers"], part),
             u_pair, v_pair, n_blocks, steps, consts, "naive", grid)
+
+
+def pinned_part_threads(part: int, g: "geo.Geometry") -> int:
+    """Threads a block of part ``part`` of :data:`PINNED_ABLATIONS` on the
+    tiles ``g``: the window's fitted threads in parts 3 and 4
+    (``geometry.fitted_threads``), else 512."""
+    return (geo.fitted_threads(g.bytes) if part in (3, 4)
+            else RING_THREADS)
+
+
+def check_pinned_part(part: int, g: "geo.Geometry", dtype,
+                      consts: KernelConstants) -> None:
+    """Refuse (ValueError) what part ``part`` of the pinned entry's split
+    does not take: another part, the compiled 64x64 or another halo than
+    the time block's, another tap set than the default stencils', and on
+    the parts that compile their sizes a (tr, tc, storage) outside
+    :data:`PINNED_SPLIT_FIXED`."""
+    if part not in PINNED_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(PINNED_ABLATIONS)}, "
+                         f"got {part!r}")
+    if not _is_pinned(g):
+        raise ValueError("the pinned split runs pinned tiles, not the "
+                         "compiled 64x64")
+    if not geo.default_taps(consts.weights):
+        raise ValueError("the pinned split runs the default stencils' tap "
+                         "set")
+    if part in PINNED_COMPILED_PARTS and \
+            (g.tr, g.tc, dtype) not in PINNED_SPLIT_FIXED:
+        raise ValueError(f"part {part} compiles no {g.tr}x{g.tc} tiles on "
+                         f"{str(dtype)[6:]} pairs")
+
+
+def pinned_ablation(part: int, u_pair: torch.Tensor, v_pair: torch.Tensor,
+                    n_blocks: int, steps: int, consts: KernelConstants,
+                    boundary: str, geometry: "geo.Geometry",
+                    grid: int = 0) -> int:
+    """K2's pinned entry on the card in the form of ``part``
+    (:data:`PINNED_ABLATIONS`) on the tiles ``geometry``, in place as
+    :func:`megastep` (float32 or bf16 pairs). Returns the launch's grid
+    (blocks). Not the main path: nothing is counted. On the CPU it runs the
+    part's plain version (part 1: none; else the entry's) and returns 0."""
+    _check(u_pair, v_pair, n_blocks, steps, boundary, grid,
+           checks.STORAGE_DTYPES)
+    check_pinned_part(part, geometry, u_pair.dtype, consts)
+    if u_pair.device.type == "cpu":
+        if part != PINNED_NO_STEP:
+            megastep(u_pair, v_pair, n_blocks, steps, consts, boundary)
+        return 0
+    fn = build.bind("gs_mega_pins_ablation",
+                    _kernel().argtypes + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p], build.SPLITS)
+    taken = ctypes.c_int(0)
+    _launch(lambda *args: fn(*args, part,
+                             int(u_pair.dtype == torch.bfloat16),
+                             geometry.tr, geometry.tc, ctypes.byref(taken)),
+            u_pair, v_pair, n_blocks, steps, consts, boundary, grid)
+    return taken.value
+
+
+def pinned_fixed_blocks(device: torch.device, geometry: "geo.Geometry",
+                        boundary: str, dtype) -> int:
+    """The co-resident blocks on ``device`` of the compiled instantiation
+    that :func:`megastep` launches on ``geometry`` (its threads:
+    ``geometry.mega_pin_launch``); raises where the geometry is not
+    compiled."""
+    form = geo.mega_pin_launch(geometry, boundary=boundary)
+    index = torch.device(device).index
+    n = build.bind("gs_mega_pinned_fixed_blocks", [ctypes.c_int] * 6)(
+        torch.cuda.current_device() if index is None else index,
+        geometry.tr, geometry.tc, form.threads, int(boundary == "naive"),
+        int(dtype == torch.bfloat16))
+    if n <= 0:
+        raise RuntimeError(f"gs_mega_pinned_fixed_blocks on "
+                           f"{geometry.label()}: CUDA error {-n} "
+                           f"({build.error_name(-n)})")
+    return n
 
 
 def _check(u_pair, v_pair, n_blocks, steps, boundary, grid,

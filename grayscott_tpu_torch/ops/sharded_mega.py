@@ -28,10 +28,19 @@ group of blocks walks, and the choice is logged once. Under the tile pins
 (``--pallas-block-rows``, ``--pallas-block-cols``;
 ``ops/geometry.py:mega_resolve`` on the shard) ``geometry`` names the
 tiles: the compiled 64x64 and 32x32 run the entries above, any other the
-pinned entries of ``csrc/sharded_mega_pins.cu`` on the same descriptors,
-counted in ``pinned_launches`` and ``pinned_bf16_launches``. The tiles
-change how each shard is cut, not what a step computes: the plain version
-is the same.
+pinned entries on the same descriptors, counted in ``pinned_launches`` and
+``pinned_bf16_launches``, in the form ``geometry.mega_pin_launch`` picks:
+32x128 and 64x128 (``geometry.SHARDED_FIXED_PINS``) with the default
+stencils' tap set on their sizes compiled in, every kernel at 64
+registers a thread (``csrc/sharded_mega_pins_fixed.cu``; the launch
+returns its grid, :func:`pinned_walk` its CPU twin with the groups and
+rounds a shard), any other the first form of
+``csrc/sharded_mega_pins.cu``, the sizes known at run time, its naive
+kernels at one block an SM. The tiles change how each shard is cut, not
+what a step computes: the plain version is the same.
+:func:`pinned_ablation` runs the parts of the split that chose the
+compiled form (:data:`PINNED_ABLATIONS`,
+``csrc/splits/sharded_mega_pins_ablation.cu``; card only, not counted).
 
 On a row mesh with more than one tile row a shard waits for its
 neighbours' pushes where it reads them (JAX's 1-D read-site waits,
@@ -64,7 +73,8 @@ import torch
 from ..params import KernelConstants
 from ..parallel import halo
 from . import build, checks, stencil
-from .geometry import Geometry, tile_shape
+from .geometry import (Geometry, default_taps, fitted_threads,
+                       mega_pin_launch, tile_shape)
 
 #: most steps of one time block: the halo depth
 MEGA_STEPS = halo.HALO
@@ -183,6 +193,41 @@ def tile_rounds(shape, mesh_shape, tile, blocks: int) -> float:
     return -(-tiles // group) if group else float("inf")
 
 
+def group_sizes(grid: int, n_shards: int) -> List[int]:
+    """The blocks of each shard's group in a launch of ``grid`` blocks
+    over ``n_shards`` shards (``csrc/sharded_mega.cuh:sharded_mega_run``):
+    ``grid // n_shards`` each, the first ``grid % n_shards`` one more."""
+    per, extra = divmod(grid, n_shards)
+    return [per + (g < extra) for g in range(n_shards)]
+
+
+class PinnedWalk(NamedTuple):
+    """How one pinned launch (:func:`pinned_walk`) walks a mesh's shards:
+    its ``grid`` (blocks), each shard's ``groups`` (blocks) and the
+    ``rounds`` of tiles each group walks in a time block."""
+
+    grid: int
+    groups: List[int]
+    rounds: List[int]
+
+
+def pinned_walk(shape, mesh_shape, geometry: Geometry, boundary: str,
+                sms: int, default: bool = True) -> PinnedWalk:
+    """The walk of a pinned launch on ``geometry``'s tiles of each shard
+    of ``shape`` on a ``mesh_shape`` mesh of a card of ``sms`` SMs, at the
+    co-resident grid of the form that ``geometry.mega_pin_launch`` chooses
+    (the blocks an SM its bytes and registers leave), capped at the tiles
+    of every shard, as the C entries size it."""
+    n_r, n_c = mesh_shape
+    r_loc, c_loc = halo.shard_extents(shape, halo.Mesh(n_r, n_c, None))
+    tiles = -(-r_loc // geometry.tr) * -(-c_loc // geometry.tc)
+    form = mega_pin_launch(geometry, sharded=True, boundary=boundary,
+                           default=default)
+    grid = min(form.blocks_per_sm * sms, n_r * n_c * tiles)
+    groups = group_sizes(grid, n_r * n_c)
+    return PinnedWalk(grid, groups, [-(-tiles // n) for n in groups])
+
+
 def fitted_height(r_loc: int) -> int:
     """The height of the read-site entry's tiles on a shard of ``r_loc``
     rows: ``r_loc // 64`` tile rows, each the least multiple of 4 that
@@ -286,10 +331,49 @@ def _pinned_kernel(dtype):
     return _pinned_fns[dtype]
 
 
+def _pinned_fixed_kernel(dtype):
+    """The pinned entry on compiled sizes for ``dtype`` pairs
+    (``csrc/sharded_mega_pins_fixed.cu``): the pinned entry's arguments
+    with the threads a block after ``tc``, and where the grid goes before
+    the stream."""
+    key = ("fixed", dtype)
+    if key not in _pinned_fns:
+        _kernel()  # checks the time block and the counters
+        name = "gs_sharded_mega_pinned_fixed_multistep" + (
+            "_bf16" if dtype == torch.bfloat16 else "")
+        _pinned_fns[key] = build.bind(
+            name, [ctypes.c_void_p] + [ctypes.c_int] * 10
+            + [ctypes.c_float] * 14 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p] * 2)
+    return _pinned_fns[key]
+
+
+def pinned_fixed_blocks(device: torch.device, geometry, boundary: str,
+                        read_site: bool, dtype) -> int:
+    """The co-resident blocks on ``device`` of the compiled instantiation
+    that :func:`sharded_megastep` launches on ``geometry``'s tiles (its
+    threads: ``geometry.mega_pin_launch``); raises where the geometry is
+    not compiled."""
+    form = mega_pin_launch(geometry, sharded=True, boundary=boundary)
+    index = torch.device(device).index
+    n = build.bind("gs_sharded_mega_pinned_fixed_blocks",
+                   [ctypes.c_int] * 7)(
+        torch.cuda.current_device() if index is None else index,
+        geometry.tr, geometry.tc, form.threads, int(boundary == "naive"),
+        int(read_site), int(dtype == torch.bfloat16))
+    if n <= 0:
+        raise RuntimeError(f"gs_sharded_mega_pinned_fixed_blocks on "
+                           f"{geometry.label()}: CUDA error {-n} "
+                           f"({build.error_name(-n)})")
+    return n
+
+
 def pinned_max_blocks(device: torch.device, geometry) -> int:
-    """The most blocks of one pinned launch on ``geometry``'s tiles that
-    are co-resident on ``device`` (the occupancy API's count at its bytes
-    and registers, the fewest over the instantiations)."""
+    """The fewest co-resident blocks on ``device`` of one launch of the
+    pinned entries' first form (run-time sizes) on ``geometry``'s tiles,
+    over its instantiations (the occupancy API's count at its bytes and
+    registers): a floor, since the naive kernels take one block an SM. The
+    compiled sizes' launch: :func:`pinned_fixed_blocks`."""
     index = torch.device(device).index
     n = build.bind("gs_sharded_mega_pinned_max_blocks", [ctypes.c_int] * 3)(
         torch.cuda.current_device() if index is None else index,
@@ -388,11 +472,9 @@ def read_site_plan(shape, mesh_shape, tile, grid: int) -> List[ReadSitePlan]:
     tiles_x = -(-c_loc // tc)
     n_tiles = tiles_x * -(-r_loc // tr)
     grid = min(grid, n_shards * n_tiles)
-    per, extra = divmod(grid, n_shards)
     split = (r_loc - MEGA_STEPS) // tr * tiles_x
     plans = []
-    for g in range(n_shards):
-        size = per + (g < extra)
+    for size in group_sizes(grid, n_shards):
         blocks = [list(range(rank, n_tiles, size)) for rank in range(size)]
         gates = [next((i for i in walk if split <= i < split + size), None)
                  for walk in blocks]
@@ -499,7 +581,7 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
                      mesh: halo.Mesh, n_blocks: int, steps: int,
                      consts: KernelConstants, boundary: str, shape,
                      grid: int = 0, geometry: Geometry | None = None,
-                     read_site: bool = True) -> None:
+                     read_site: bool = True) -> int:
     """Advance every shard's slot 0 by ``n_blocks`` x ``steps`` steps of the
     domain ``shape`` (R, C), in place. ``grid``: the blocks of the launch,
     0 for the co-resident maximum; it must hold one block a shard.
@@ -511,7 +593,9 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     applies (:func:`read_site_applies`); False gates every time block's
     entry (and leaves the fitted tiles out of the choice). On a CUDA device
     the launch is enqueued on the current stream and not waited for. The
-    pairs are float32 or bfloat16 (the bf16 entry)."""
+    pairs are float32 or bfloat16 (the bf16 entry). Returns the launch's
+    grid where the entry reports it (the pinned sizes compiled in,
+    ``geometry.mega_pin_launch``), else 0."""
     global launches, bf16_launches, read_site_launches
     global pinned_launches, pinned_bf16_launches
     checks.check_count("n_blocks", n_blocks, 1)
@@ -528,7 +612,7 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     if u_pairs.device.type == "cpu":
         sharded_megastep_reference(u_pairs, v_pairs, n_blocks, steps, consts,
                                    boundary, shape)
-        return
+        return 0
     bf16 = u_pairs.dtype == torch.bfloat16
     _, _, fn = _bf16_kernel() if bf16 else _kernel()
     r_loc, c_loc, ch = halo.interior_extents(u_pairs)
@@ -543,9 +627,18 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
               and geometry.tr in FIT_HEIGHTS)
     pinned = not (fitted or (geometry.tr == geometry.tc
                              and geometry.tr in TILES))
+    taken = ctypes.c_int(0)
+    waits_tail = (int(waits),)
     if pinned:
-        fn = _pinned_kernel(u_pairs.dtype)
-        tail = (geometry.tr, geometry.tc)
+        form = mega_pin_launch(geometry, sharded=True, boundary=boundary,
+                               default=default_taps(consts.weights))
+        if form.sizes == "compiled":
+            fn = _pinned_fixed_kernel(u_pairs.dtype)
+            tail = (geometry.tr, geometry.tc, form.threads)
+            waits_tail = (int(waits), ctypes.byref(taken))
+        else:
+            fn = _pinned_kernel(u_pairs.dtype)
+            tail = (geometry.tr, geometry.tc)
     else:
         if fitted:
             fn = build.bind("gs_sharded_mega_fit_multistep"
@@ -554,7 +647,7 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
     err = fn(desc.data_ptr(), mesh.n_shards, shape[0], shape[1], r_loc,
              c_loc, ch, n_blocks, steps, int(boundary == "naive"),
              device.index, *consts.weights, *consts.reaction, grid, *tail,
-             int(waits), stream)
+             *waits_tail, stream)
     if err != 0:
         raise RuntimeError(f"sharded mega kernel launch failed: CUDA error "
                            f"{err} ({build.error_name(err)})")
@@ -568,6 +661,7 @@ def sharded_megastep(u_pairs: torch.Tensor, v_pairs: torch.Tensor,
         bf16_launches += 1
     else:
         launches += 1
+    return taken.value
 
 
 def read_site_ablation_reference(part: int, u_pairs: torch.Tensor,
@@ -600,8 +694,7 @@ def check_read_site_part(part: int, shape, mesh: halo.Mesh, n_blocks: int,
                          f"have more than one tile row, not "
                          f"{shape[0]}x{shape[1]} on {mesh.n_rows}x"
                          f"{mesh.n_cols}")
-    mask = sum(1 << t for t, w in enumerate(consts.weights) if w != 0.0)
-    if mask != TAPS_RING:
+    if not default_taps(consts.weights):
         raise ValueError("the read-site split runs the default stencils' "
                          "tap set")
     if part in READ_SITE_NO_STEP and n_blocks % 2:
@@ -617,8 +710,98 @@ def check_read_site_part(part: int, shape, mesh: halo.Mesh, n_blocks: int,
     return tr
 
 
-#: the default stencils' tap set (csrc/gs_tile_sm90.cuh: TAPS_RING)
-TAPS_RING = 0x1EF
+#: the pinned entry's split (csrc/splits/sharded_mega_pins_ablation.cu):
+#: part -> what it runs (float32 or bf16, the default tap set, the entry
+#: gate on every mesh)
+PINNED_ABLATIONS = {
+    0: "the first form: run-time sizes, 512 threads, naive at one block "
+       "an SM",
+    1: "the exchange alone: entry gate, group barrier, pushes, arrivals",
+    2: "sizes compiled in, 512 threads, naive at 64 registers",
+    3: "threads fitted to the window's bytes, run-time sizes (zero only)",
+    4: "2 with 3",
+}
+#: the part that steps nothing (its result: its input, halos exchanged)
+PINNED_NO_STEP = 1
+#: the parts on compiled sizes, and the (tr, tc, storage) they compile: the
+#: split's timed geometries
+PINNED_COMPILED_PARTS = (2, 4)
+PINNED_SPLIT_FIXED = {(32, 128, torch.float32), (64, 128, torch.bfloat16)}
+#: part 3's thread counts (a window that leaves one block an SM, or two)
+PINNED_FITTED_THREADS = (512, 1024)
+
+
+def check_pinned_part(part: int, geometry: Geometry, dtype,
+                      consts: KernelConstants, boundary: str,
+                      n_blocks: int) -> None:
+    """Refuse (ValueError) what part ``part`` of :data:`PINNED_ABLATIONS`
+    does not take: another part or halo, another tap set than the default
+    stencils', an odd block count on the part that steps nothing, the naive
+    boundary or a window of four blocks an SM on part 3, and on the parts
+    that compile their sizes a (tr, tc, storage) outside
+    :data:`PINNED_SPLIT_FIXED`."""
+    if part not in PINNED_ABLATIONS:
+        raise ValueError(f"part must be one of {sorted(PINNED_ABLATIONS)}, "
+                         f"got {part!r}")
+    if geometry.halo != MEGA_STEPS:
+        raise ValueError(f"K7's halo is its time block, {MEGA_STEPS}; got "
+                         f"{geometry.label()}")
+    if not default_taps(consts.weights):
+        raise ValueError("the pinned split runs the default stencils' tap "
+                         "set")
+    if part == PINNED_NO_STEP and n_blocks % 2:
+        raise ValueError(f"part {part} takes an even number of time blocks")
+    if part == 3 and (boundary == "naive" or fitted_threads(geometry.bytes)
+                      not in PINNED_FITTED_THREADS):
+        raise ValueError("part 3 runs the zero boundary on windows that "
+                         "leave one or two blocks an SM")
+    if part in PINNED_COMPILED_PARTS and \
+            (geometry.tr, geometry.tc, dtype) not in PINNED_SPLIT_FIXED:
+        raise ValueError(f"part {part} compiles no {geometry.tr}x"
+                         f"{geometry.tc} tiles on {str(dtype)[6:]} pairs")
+
+
+def pinned_ablation(part: int, u_pairs: torch.Tensor, v_pairs: torch.Tensor,
+                    mesh: halo.Mesh, n_blocks: int, steps: int,
+                    consts: KernelConstants, boundary: str, shape,
+                    geometry: Geometry) -> int:
+    """K7's pinned entry on the card in the form of ``part``
+    (:data:`PINNED_ABLATIONS`) on ``geometry``'s tiles of each shard,
+    every time block's entry gated on every direction, in place as
+    :func:`sharded_megastep` (float32 or bf16 pairs). Returns the launch's
+    grid (blocks). Not the main path: nothing is counted. On the CPU it
+    runs the part's plain version (part 1: none, the caller having
+    exchanged the halos; else :func:`sharded_megastep_reference`) and
+    returns 0."""
+    checks.check_count("n_blocks", n_blocks, 1)
+    checks.check_count("steps", steps, 1, MEGA_STEPS)
+    checks.check_boundary(boundary)
+    check_pairs(u_pairs, v_pairs, mesh, shape)
+    check_pinned_part(part, geometry, u_pairs.dtype, consts, boundary,
+                      n_blocks)
+    if u_pairs.device.type == "cpu":
+        if part != PINNED_NO_STEP:
+            sharded_megastep_reference(u_pairs, v_pairs, n_blocks, steps,
+                                       consts, boundary, shape)
+        return 0
+    fn = build.bind("gs_sharded_mega_pins_ablation",
+                    [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 11
+                    + [ctypes.c_float] * 14 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 2, build.SPLITS)
+    r_loc, c_loc, ch = halo.interior_extents(u_pairs)
+    desc, _counters = _describe(u_pairs, v_pairs, mesh)
+    grid = ctypes.c_int(0)
+    err = fn(part, desc.data_ptr(), int(u_pairs.dtype == torch.bfloat16),
+             mesh.n_shards, shape[0], shape[1], r_loc, c_loc, ch, n_blocks,
+             steps, int(boundary == "naive"), u_pairs.device.index,
+             *consts.weights, *consts.reaction, geometry.tr, geometry.tc,
+             ctypes.byref(grid),
+             torch.cuda.current_stream(u_pairs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sharded mega pinned ablation part {part} "
+                           f"({geometry.label()}): CUDA error {err} "
+                           f"({build.error_name(err)})")
+    return grid.value
 
 
 def read_site_ablation(part: int, u_pairs: torch.Tensor,

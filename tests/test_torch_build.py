@@ -43,8 +43,9 @@ def test_splits_are_a_library_of_their_own():
     main = {s.name for s in build.sources()}
     splits = {s.name for s in build.sources(build.SPLITS)}
     assert {"mega_ring_ablation.cu", "windowed_pins_ablation.cu",
-            "sharded_mega_ablation.cu",
-            "windowed_folded_ablation.cu"} == splits
+            "sharded_mega_ablation.cu", "windowed_folded_ablation.cu",
+            "mega_pins_ablation.cu",
+            "sharded_mega_pins_ablation.cu"} == splits
     assert not main & splits
     assert build.library_path(build.SPLITS).name.startswith("libgs_splits-")
     assert build.library_path().name.startswith("libgs_kernels-")

@@ -1890,6 +1890,101 @@ def test_sharded_mega_pinned_bitwise_equals_plain(cuda_device, dtype, mesh):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compiled_mega_pins_bitwise_equal_plain_and_run_time(
+        cuda_device, dtype, boundary):
+    """K2's pinned sizes compiled in (csrc/mega_pins_fixed.cu, each
+    geometry of geometry.MEGA_FIXED_PINS at its threads), two time blocks
+    of 8 steps and one of 3 on ragged domains, NaN and Inf included: the
+    plain version and the first form on run-time sizes (the split's part
+    0) bit for bit (bf16: NaN's bit pattern aside), counted on the pinned
+    counters. Tolerance: none."""
+    consts = kernel_constants(Parameters())
+    counter = ("pinned_bf16_launches" if dtype == torch.bfloat16
+               else "pinned_launches")
+    for shape in MEGA_PIN_SHAPES:
+        for u, v in fold_states(shape, cuda_device, dtype):
+            for n_blocks, steps in ((2, 8), (1, 3)):
+                want = (megakernel.megastep_reference_bf16(
+                    u, v, n_blocks, steps, consts, boundary)
+                    if dtype == torch.bfloat16 else
+                    stencil.run(u, v, n_blocks * steps, consts, boundary))
+                for tiles in geometry.MEGA_FIXED_PINS:
+                    g = geometry.Geometry(*tiles, 8)
+                    assert geometry.mega_pin_launch(g).sizes == "compiled"
+                    up, vp = (megakernel.pair_state(x) for x in (u, v))
+                    before = getattr(megakernel, counter)
+                    megakernel.megastep(up, vp, n_blocks, steps, consts,
+                                        boundary, geometry=g)
+                    rp, rq = (megakernel.pair_state(x) for x in (u, v))
+                    megakernel.pinned_ablation(0, rp, rq, n_blocks, steps,
+                                               consts, boundary, g)
+                    torch.cuda.synchronize()
+                    assert getattr(megakernel, counter) == before + 1
+                    for got, ref in ((up[0], rp[0]), (vp[0], rq[0])):
+                        assert bf16_equal(got, ref), (shape, g)
+                    assert all(bf16_equal(a, b) for a, b in
+                               zip((up[0], vp[0]), want)), (shape, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mesh", [(1, 4), (4, 1), (2, 2)])
+def test_compiled_sharded_pins_bitwise_equal_plain_and_run_time(
+        cuda_device, dtype, mesh):
+    """K7's pinned sizes compiled in (csrc/sharded_mega_pins_fixed.cu, each
+    geometry of geometry.SHARDED_FIXED_PINS at its threads) on each mesh
+    form (the read-site wait on the row mesh), both boundaries: the plain
+    version and the first form on run-time sizes (the split's part 0, the
+    entry gate) bit for bit, slot 0 and its halos; the grid the launch
+    took that of ``sharded_mega.pinned_walk``."""
+    shape = (300, 520)
+    u, v = random_uv(shape, cuda_device)
+    m = halo.Mesh(*mesh, cuda_device)
+    consts = kernel_constants(Parameters())
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    counter = ("pinned_bf16_launches" if dtype == torch.bfloat16
+               else "pinned_launches")
+    for boundary in ("naive", "zero"):
+        up, vp = halo.mega_shard_state(u, v, m, dtype)
+        for x in (up, vp):
+            halo.exchange_halos(x)
+        cu, cv = up.clone(), vp.clone()
+        sharded_mega.sharded_megastep_reference(cu, cv, 3, 8, consts,
+                                                boundary, shape)
+        for tiles in geometry.SHARDED_FIXED_PINS:
+            g = geometry.Geometry(*tiles, 8)
+            gu, gv = up.clone(), vp.clone()
+            before = getattr(sharded_mega, counter)
+            grid = sharded_mega.sharded_megastep(gu, gv, m, 3, 8, consts,
+                                                 boundary, shape, geometry=g)
+            ru, rv = up.clone(), vp.clone()
+            sharded_mega.pinned_ablation(0, ru, rv, m, 3, 8, consts,
+                                         boundary, shape, g)
+            torch.cuda.synchronize()
+            assert getattr(sharded_mega, counter) == before + 1
+            assert grid == sharded_mega.pinned_walk(shape, mesh, g, boundary,
+                                                    sms).grid
+            for got, ref in ((gu, cu), (gv, cv), (gu, ru), (gv, rv)):
+                assert bf16_equal(got[:, :, 0], ref[:, :, 0]), (mesh, g)
+
+
+@pytest.mark.gpu
+def test_compiled_pinned_megakernels_do_not_spill(cuda_device, tmp_path):
+    """ptxas's report of K2's and K7's pinned instantiations on compiled
+    sizes (the default stencils' tap set; K7's with both waits): no spill,
+    the naive ones included at 64 registers."""
+    for source, kernel, count in (
+            ("mega_pins_fixed.cu", "20mega_pin_form_kernel", 16),
+            ("sharded_mega_pins_fixed.cu", "23sharded_pin_form_kernel", 16)):
+        spills = ptxas_spills(source, kernel, tmp_path)
+        assert len(spills) == count, (kernel, spills)
+        assert all(v == (0, 0) for v in spills.values()), spills
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mesh", [(4, 1), (2, 2)])
 def test_shard_pinned_bitwise_equals_plain(cuda_device, dtype, mesh):
